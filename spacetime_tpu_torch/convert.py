@@ -4,9 +4,12 @@
 path, ``inner="mg"``) with its leaves as numpy arrays, and returns the dict
 ``spacetime_tpu_torch.solver.HeatSolver.params_for`` builds. The JAX
 package pre-broadcasts per-time-row scales to (T, *gs[:-1], 1) and the
-kernels' h columns to (T, 1, 128) lanes; the port keeps (T, 1, ..., 1)
-columns and (T,) vectors. Tests hold the two solvers' params equal through
-this.
+kernels' h columns and multigrid ``cols`` to (T, 1, 128) lanes; the port
+keeps (T, 1, ..., 1) columns and (T,) vectors. A JAX level built without
+Pallas kernels (f64, or below its size gate) has no ``cols``; the port's
+kernels run on every level, so its columns are then taken from the level's
+row params, which hold the same values. Tests hold the two solvers' params
+equal through this.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops.mg_kernels import MSKernelLevel
 from .ops.stencil import row_scale
 
 
@@ -45,8 +49,13 @@ def params_from_jax(tree: dict, device, dtype) -> dict:
     p["mg_cinv_ky"] = mk(tree["mg_cinv_ky"])
     p["mg_cinv"] = [mk(S) for S in tree["mg_cinv"]]
     for name in ("ms_ky", "ms_kx"):
-        p[name] = [
-            {k: col(lp[k]) for k in ("omega", "inv_diag", "inv_theta", "inv_delta")}
-            for lp in tree[name]
-        ]
+        p[name] = []
+        for lp in tree[name]:
+            q = {k: col(lp[k])
+                 for k in ("omega", "inv_diag", "inv_theta", "inv_delta")}
+            if "cols" in lp:
+                q["cols"] = {k: mk(_rows(v)) for k, v in lp["cols"].items()}
+            else:
+                q["cols"] = MSKernelLevel.columns(q)
+            p[name].append(q)
     return p

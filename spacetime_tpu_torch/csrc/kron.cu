@@ -190,10 +190,6 @@ extern "C" {
 
 int kron_taps_size() { return int(sizeof(Taps)); }
 
-const char* kron_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
 int kron_B_f32(const float* U, const float* h_half, const float* h_stab,
                float* out, float* W, int64_t nt, int64_t nz, int64_t ny,
                int64_t nx, const Taps* tM, const Taps* tA, int stab,

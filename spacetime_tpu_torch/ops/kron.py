@@ -65,19 +65,10 @@ class KronTaps:
         return (1,) * (3 - len(self.gs)) + tuple(self.gs)
 
 
-class Kernel:
-    """One compiled kernel instantiation and its count of launches."""
-
-    def __init__(self, name: str, symbol: str, replaces: str):
-        self.name = name
-        self.symbol = symbol
-        self.replaces = replaces
-        self.launches = 0
-
-
 SOURCE = "spacetime_tpu_torch/csrc/kron.cu"
 _B_REPLACES = "spacetime_tpu/ops/kron_pallas.py:290"
 _BT_REPLACES = "spacetime_tpu/ops/kron_pallas.py:377"
+Kernel = native.Kernel
 KERNELS = {
     ("B", torch.float32): Kernel("K1 kron_B f32", "kron_B_f32", _B_REPLACES),
     ("B", torch.float64): Kernel("K1 kron_B f64", "kron_B_f64", _B_REPLACES),
@@ -142,76 +133,44 @@ def apply_BT_stab_plain(V, W, h_half, taps: KronTaps):
 # ---------------------------------------------------------------- wrappers
 
 
-def _check(name, t, dtype, device, shape):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _kernel(op, X):
-    if X.device.type != "cuda":
-        raise ValueError(
-            f"no kron kernel for device {X.device}; CUDA tensors launch the "
-            "kernel and CPU tensors run the plain twin"
-        )
-    k = KERNELS.get((op, X.dtype))
-    if k is None:
-        raise TypeError(f"the kron kernels take float32 and float64, not {X.dtype}")
-    return k
-
-
 def _launch_B(U, h_half, h_stab, taps: KronTaps, stab: bool):
-    k = _kernel("B", U)
+    k = native.kernel_for(KERNELS, "kron", "B", U)
     T = U.shape[0] - 1
     if T < 1:
         raise ValueError("U needs at least two time rows")
-    _check("U", U, U.dtype, U.device, (T + 1,) + taps.gs)
-    _check("h_half", h_half, U.dtype, U.device, (T,))
+    native.check_tensor("U", U, U.dtype, U.device, (T + 1,) + taps.gs)
+    native.check_tensor("h_half", h_half, U.dtype, U.device, (T,))
     if stab:
-        _check("h_stab", h_stab, U.dtype, U.device, (T,))
+        native.check_tensor("h_stab", h_stab, U.dtype, U.device, (T,))
     out = torch.empty((T,) + taps.gs, dtype=U.dtype, device=U.device)
     W = torch.empty_like(out) if stab else None
     tM, tA = taps.structs
-    lib = native.LIB.get()
-    with torch.cuda.device(U.device):
-        err = getattr(lib, k.symbol)(
-            U.data_ptr(), h_half.data_ptr(),
-            h_stab.data_ptr() if stab else None,
-            out.data_ptr(), W.data_ptr() if stab else None,
-            T, *taps.zyx(), ctypes.addressof(tM), ctypes.addressof(tA), int(stab),
-            torch.cuda.current_stream(U.device).cuda_stream,
-        )
-    native.check(lib, k.symbol, err)
-    k.launches += 1
+    k.launch(
+        U.device, U.data_ptr(), h_half.data_ptr(),
+        h_stab.data_ptr() if stab else None,
+        out.data_ptr(), W.data_ptr() if stab else None,
+        T, *taps.zyx(), ctypes.addressof(tM), ctypes.addressof(tA), int(stab),
+    )
     return (out, W) if stab else out
 
 
 def _launch_BT(V, W, h_half, taps: KronTaps, stab: bool):
-    k = _kernel("BT", V)
+    k = native.kernel_for(KERNELS, "kron", "BT", V)
     T = V.shape[0]
     if T < 1:
         raise ValueError("V needs at least one time row")
-    _check("V", V, V.dtype, V.device, (T,) + taps.gs)
-    _check("h_half", h_half, V.dtype, V.device, (T,))
+    native.check_tensor("V", V, V.dtype, V.device, (T,) + taps.gs)
+    native.check_tensor("h_half", h_half, V.dtype, V.device, (T,))
     if stab:
-        _check("W", W, V.dtype, V.device, (T,) + taps.gs)
+        native.check_tensor("W", W, V.dtype, V.device, (T,) + taps.gs)
     out = torch.empty((T + 1,) + taps.gs, dtype=V.dtype, device=V.device)
     tM, tA = taps.structs
-    lib = native.LIB.get()
-    with torch.cuda.device(V.device):
-        err = getattr(lib, k.symbol)(
-            V.data_ptr(), h_half.data_ptr(), W.data_ptr() if stab else None,
-            out.data_ptr(), T, *taps.zyx(), ctypes.addressof(tM),
-            ctypes.addressof(tA), int(stab),
-            torch.cuda.current_stream(V.device).cuda_stream,
-        )
-    native.check(lib, k.symbol, err)
-    k.launches += 1
+    k.launch(
+        V.device, V.data_ptr(), h_half.data_ptr(),
+        W.data_ptr() if stab else None,
+        out.data_ptr(), T, *taps.zyx(), ctypes.addressof(tM),
+        ctypes.addressof(tA), int(stab),
+    )
     return out
 
 

@@ -4,14 +4,18 @@ The device side of ``spacetime_tpu.ops.multigrid.MultiShiftMultigrid``: the
 host ``build`` (levels, stencils, Gershgorin bounds, coarse matrices) is
 reused as it is, and this module applies a V-cycle to (T, *gs) tensors with
 one shift per time row. The arithmetic follows the JAX package's XLA form
-(``pallas=None``): ``_op`` sums the taps of each (wA, wM) weight-pair group
-once and multiplies by the per-row weight wa + ω·wm; the smoother is the
-Chebyshev–Jacobi recurrence with σ = 5/3; the P1 transfers are the
-separated repeat / pair-sum form (``_transfer_fast``).
+(``pallas=None``): ``ms_op`` sums the taps of each (wA, wM) weight-pair
+group once and multiplies by the per-row weight wa + ω·wm; the smoother
+``cheb_smooth`` is the Chebyshev–Jacobi recurrence with σ = 5/3; the P1
+transfers are the separated repeat / pair-sum form (``_transfer_fast``).
 
-The fused Pallas smoother and transfer kernels (K3–K7) engage in the JAX
-package only on levels of at least 40 000 points; their port is the next
-slice (ROADMAP.md queue 2).
+``vcycle`` and ``solve`` take an optional per-level list of
+``ops.mg_kernels.MSKernelLevel`` and then dispatch as the JAX package does
+with its Pallas levels (``spacetime_tpu/ops/multigrid.py:496-549``): the
+fused pre/post stages (K6, K7) where the level allows them, else the sweep
+(K3) and residual (K4) kernels around the transfers here, and the residual
+kernel for the second and later cycles of ``solve``. Without the list the
+XLA form runs, which is also what the levels' plain twins compute.
 """
 
 from __future__ import annotations
@@ -117,6 +121,42 @@ def transfer(X, dim: int, *, restrict: bool):
 # ------------------------------------------------------------- V-cycle
 
 
+def ms_op(pairs, gs, omega, x):
+    """A(x) + ω⊙M(x) for the (wA, wM) pair groups ``pairs`` of a level on
+    grid ``gs``; ``omega`` is the (T, 1, ..., 1) shift column."""
+    Up = zero_pad(x, len(gs))
+    out = None
+    for (wa, wm), ds in pairs:
+        acc = None
+        for disp in ds:
+            t = tap(x, Up, disp, gs)
+            acc = t if acc is None else acc + t
+        if wm == 0.0:
+            w = wa
+        elif wa == 0.0:
+            w = omega * wm
+        else:
+            w = wa + omega * wm
+        out = w * acc if out is None else out + w * acc
+    return out
+
+
+def cheb_smooth(op, lp, x, b, nu: int):
+    """The degree-``nu`` Chebyshev–Jacobi sweep on Op = ``op`` from ``x``,
+    with the level's row columns ``lp``."""
+    r = lp["inv_diag"] * (b - op(x))
+    d = r * lp["inv_theta"]
+    x = x + d
+    rho = 1.0 / _SIGMA
+    for _ in range(nu - 1):
+        rho_new = 1.0 / (2.0 * _SIGMA - rho)
+        r = r - lp["inv_diag"] * op(d)
+        d = rho_new * rho * d + (2.0 * rho_new) * lp["inv_delta"] * r
+        x = x + d
+        rho = rho_new
+    return x
+
+
 class MultiShiftMG:
     """V-cycles of a host ``MultiShiftMultigrid`` on tensors."""
 
@@ -136,55 +176,47 @@ class MultiShiftMG:
     def op(self, lvl: int, lp, x):
         """A(x) + ω⊙M(x) on level ``lvl``."""
         gs = tuple(self.msmg.levels[lvl].A_st.grid_shape)
-        omega = lp["omega"]
-        Up = zero_pad(x, self.dim)
-        out = None
-        for (wa, wm), ds in self._pairs[lvl]:
-            acc = None
-            for disp in ds:
-                t = tap(x, Up, disp, gs)
-                acc = t if acc is None else acc + t
-            if wm == 0.0:
-                w = wa
-            elif wa == 0.0:
-                w = omega * wm
-            else:
-                w = wa + omega * wm
-            out = w * acc if out is None else out + w * acc
-        return out
+        return ms_op(self._pairs[lvl], gs, lp["omega"], x)
 
     def smooth(self, lvl: int, lp, x, b, nu: int | None = None):
         nu = self.nu if nu is None else nu
-        r = lp["inv_diag"] * (b - self.op(lvl, lp, x))
-        d = r * lp["inv_theta"]
-        x = x + d
-        rho = 1.0 / _SIGMA
-        for _ in range(nu - 1):
-            rho_new = 1.0 / (2.0 * _SIGMA - rho)
-            r = r - lp["inv_diag"] * self.op(lvl, lp, d)
-            d = rho_new * rho * d + (2.0 * rho_new) * lp["inv_delta"] * r
-            x = x + d
-            rho = rho_new
-        return x
+        return cheb_smooth(lambda v: self.op(lvl, lp, v), lp, x, b, nu)
 
-    def vcycle(self, b, lps, coarse_solve, lvl: int = 0):
+    def vcycle(self, b, lps, coarse_solve, lvl: int = 0, kernels=None):
+        """One V-cycle from x = 0. ``kernels``: per-level
+        ``MSKernelLevel``s, whose row columns are ``lps[lvl]["cols"]``."""
         if lvl == len(self.msmg.levels):
             return coarse_solve(b)
         lp = lps[lvl]
-        x = self.smooth(lvl, lp, b * 0.0, b)
-        r = b - self.op(lvl, lp, x)
+        kl = kernels[lvl] if kernels is not None else None
+        if kl is not None and kl.fused_ok:
+            x, rc = kl.fused_pre(b, lp["cols"])
+            ec = self.vcycle(rc, lps, coarse_solve, lvl + 1, kernels)
+            return kl.fused_post(x, b, ec, lp["cols"])
+        if kl is not None:
+            x = kl.smooth(None, b, lp["cols"], zero_init=True)
+            r = kl.residual(x, b, lp["cols"])
+        else:
+            x = self.smooth(lvl, lp, b * 0.0, b)
+            r = b - self.op(lvl, lp, x)
         ec = self.vcycle(
-            transfer(r, self.dim, restrict=True), lps, coarse_solve, lvl + 1
+            transfer(r, self.dim, restrict=True), lps, coarse_solve, lvl + 1,
+            kernels,
         )
         x = x + transfer(ec, self.dim, restrict=False)
+        if kl is not None:
+            return kl.smooth(x, b, lp["cols"], post=True)
         return self.smooth(lvl, lp, x, b, nu=self.nu_post)
 
-    def solve(self, b, lps, coarse_solve, cycles: int = 2):
+    def solve(self, b, lps, coarse_solve, cycles: int = 2, kernels=None):
         """``cycles`` V-cycles from a zero initial guess."""
-        x = self.vcycle(b, lps, coarse_solve)
+        x = self.vcycle(b, lps, coarse_solve, kernels=kernels)
         for _ in range(cycles - 1):
-            r = b - self.op(0, lps[0], x)
-            x = x + self.vcycle(r, lps, coarse_solve)
+            if kernels is not None and kernels[0] is not None:
+                r = kernels[0].residual(x, b, lps[0]["cols"])
+            else:
+                r = b - self.op(0, lps[0], x)
+            x = x + self.vcycle(r, lps, coarse_solve, kernels=kernels)
         return x
 
 

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` into one shared library
-with a plain C interface, ``build/spacetime_tpu_torch/libspacetime_kernels.so``
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process, all of
+them at once, and the objects are linked into one shared library with a
+plain C interface, ``build/spacetime_tpu_torch/libspacetime_kernels.so``
 under the repository root, at first use and again whenever a source is newer
 than the library. The library is loaded with ``ctypes``: pointers and the
 CUDA stream are passed as ``c_void_p``, and each entry point returns the
@@ -20,13 +21,15 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "spacetime_tpu_torch"
 LIBRARY = BUILD_DIR / "libspacetime_kernels.so"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 MAX_GROUPS = 16
@@ -69,6 +72,42 @@ def taps_struct(groups, dim: int) -> TapsStruct:
     return st
 
 
+class PairGroupsStruct(ctypes.Structure):
+    """ctypes mirror of ``struct PairGroups`` in csrc/mg.cu."""
+
+    _fields_ = [
+        ("n_groups", ctypes.c_int),
+        ("start", ctypes.c_int * (MAX_GROUPS + 1)),
+        ("wa", ctypes.c_double * MAX_GROUPS),
+        ("wm", ctypes.c_double * MAX_GROUPS),
+        ("dy", ctypes.c_int * MAX_TAPS),
+        ("dx", ctypes.c_int * MAX_TAPS),
+    ]
+
+
+def pair_groups_struct(pairs) -> PairGroupsStruct:
+    """The (wA, wM) pair groups of two 2-D stencils
+    (((wa, wm), (disp, ...)), ...), in the order of
+    ``ops.multigrid.pair_groups``, as a tap table."""
+    ntaps = sum(len(ds) for _, ds in pairs)
+    if len(pairs) > MAX_GROUPS or ntaps > MAX_TAPS:
+        raise ValueError(
+            f"stencil pair has {len(pairs)} groups / {ntaps} taps; the kernel "
+            f"table holds {MAX_GROUPS} / {MAX_TAPS}"
+        )
+    st = PairGroupsStruct()
+    st.n_groups = len(pairs)
+    k = 0
+    for g, ((wa, wm), ds) in enumerate(pairs):
+        st.start[g] = k
+        st.wa[g], st.wm[g] = wa, wm
+        for dy, dx in ds:
+            st.dy[k], st.dx[k] = dy, dx
+            k += 1
+    st.start[len(pairs)] = k
+    return st
+
+
 class _Library:
     """The loaded kernel library and the log and seconds of its build."""
 
@@ -102,7 +141,8 @@ def _nvcc() -> str:
 
 def build(state: _Library | None = None) -> Path:
     """Compile csrc/*.cu into LIBRARY unless it is newer than every source;
-    returns its path."""
+    returns its path. One nvcc process per source, all started together,
+    then one link."""
     sources = sorted(CSRC.glob("*.cu"))
     inputs = sources + sorted(CSRC.glob("*.cuh"))
     if LIBRARY.exists() and LIBRARY.stat().st_mtime >= max(
@@ -110,41 +150,76 @@ def build(state: _Library | None = None) -> Path:
     ):
         return LIBRARY
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{LIBRARY.name}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    nvcc, tag = _nvcc(), f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
+    objects = [BUILD_DIR / f".{src.stem}.{tag}.o" for src in sources]
+    jobs = [
+        (cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for cmd in (
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objects)
+        )
+    ]
+    log = []
+    for cmd, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            for _, other in jobs:
+                other.kill()
+                other.wait()
+            raise RuntimeError(
+                f"nvcc failed with exit code {proc.returncode}: "
+                f"{' '.join(cmd)}\n{out}"
+            )
+    tmp = BUILD_DIR / f".{LIBRARY.name}.{tag}"
+    cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    for obj in objects:
+        obj.unlink()
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}: {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
+            f"nvcc link failed with exit code {proc.returncode}: "
+            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
         )
     os.replace(tmp, LIBRARY)
     if state is not None:
         state.build_seconds = time.perf_counter() - t0
-        state.build_log = proc.stdout + proc.stderr
+        state.build_log = "".join(log) + proc.stdout + proc.stderr
     return LIBRARY
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I64, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.kron_taps_size.argtypes = []
-    lib.kron_taps_size.restype = I
-    lib.kron_error_string.argtypes = [I]
-    lib.kron_error_string.restype = ctypes.c_char_p
-    for name in ("kron_B_f32", "kron_B_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [P, P, P, P, P, I64, I64, I64, I64, P, P, I, P]
+    lib.spacetime_error_string.argtypes = [I]
+    lib.spacetime_error_string.restype = ctypes.c_char_p
+    for sfx in ("f32", "f64"):
+        signatures = {
+            # kron.cu
+            "kron_B": [P, P, P, P, P, I64, I64, I64, I64, P, P, I, P],
+            "kron_BT": [P, P, P, P, I64, I64, I64, I64, P, P, I, P],
+            # mg.cu
+            "mg_smooth": [P, P, P, P, P, P, P, I64, I64, I64, P, I, I, P],
+            "mg_residual": [P, P, P, P, I64, I64, I64, P, P],
+            "mg_apply": [P, P, I64, I64, I64, P, P],
+            "mg_fused_pre": [P, P, P, P, P, P, P, I64, I64, I64, P, I, P],
+            "mg_fused_post": [P, P, P, P, P, P, P, P, I64, I64, I64, P, I, P],
+        }
+        for name, argtypes in signatures.items():
+            fn = getattr(lib, f"{name}_{sfx}")
+            fn.argtypes = argtypes
+            fn.restype = I
+    for size_fn, struct in (("kron_taps_size", TapsStruct),
+                            ("mg_pairs_size", PairGroupsStruct)):
+        fn = getattr(lib, size_fn)
+        fn.argtypes = []
         fn.restype = I
-    for name in ("kron_BT_f32", "kron_BT_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [P, P, P, P, I64, I64, I64, I64, P, P, I, P]
-        fn.restype = I
-    if lib.kron_taps_size() != ctypes.sizeof(TapsStruct):
-        raise RuntimeError(
-            f"struct Taps is {lib.kron_taps_size()} bytes in the library but "
-            f"{ctypes.sizeof(TapsStruct)} in TapsStruct"
-        )
+        if fn() != ctypes.sizeof(struct):
+            raise RuntimeError(
+                f"{size_fn}: {fn()} bytes in the library but "
+                f"{ctypes.sizeof(struct)} in {struct.__name__}"
+            )
     return lib
 
 
@@ -154,5 +229,56 @@ LIB = _Library()
 def check(lib: ctypes.CDLL, symbol: str, err: int) -> None:
     """Raise on a non-zero cudaError_t from a launch."""
     if err != 0:
-        msg = lib.kron_error_string(err).decode()
+        msg = lib.spacetime_error_string(err).decode()
         raise RuntimeError(f"{symbol}: CUDA launch failed: error {err} ({msg})")
+
+
+class Kernel:
+    """One entry point of the library (one kernel and dtype) and its count
+    of launches, which ``launch`` alone raises."""
+
+    def __init__(self, name: str, symbol: str, replaces: str):
+        self.name = name
+        self.symbol = symbol
+        self.replaces = replaces
+        self.launches = 0
+
+    def launch(self, device, *args) -> None:
+        """Call the entry point with ``args`` and ``device``'s current
+        stream; raise on a launch error, else count the launch."""
+        lib = LIB.get()
+        with torch.cuda.device(device):
+            err = getattr(lib, self.symbol)(
+                *args, torch.cuda.current_stream(device).cuda_stream
+            )
+        check(lib, self.symbol, err)
+        self.launches += 1
+
+
+def kernel_for(kernels: dict, family: str, op: str, X) -> Kernel:
+    """The ``kernels[(op, X.dtype)]`` that a CUDA tensor X launches; raises
+    for any other device (CPU tensors run the plain twins before this) and
+    for a dtype without a kernel."""
+    if X.device.type != "cuda":
+        raise ValueError(
+            f"no {family} kernel for device {X.device}; CUDA tensors launch "
+            "the kernel and CPU tensors run the plain twin"
+        )
+    k = kernels.get((op, X.dtype))
+    if k is None:
+        raise TypeError(
+            f"the {family} kernels take float32 and float64, not {X.dtype}")
+    return k
+
+
+def check_tensor(name, t, dtype, device, shape) -> None:
+    """Raise unless ``t`` is a contiguous tensor of this device, dtype and
+    shape."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

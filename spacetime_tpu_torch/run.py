@@ -5,6 +5,10 @@ Examples:
     python -m spacetime_tpu_torch.run --device cuda --dtype f32 \
         --space-n 128 --time-levels 6 --refined
 
+    # the 513²×128 flagship solve on the GPU
+    python -m spacetime_tpu_torch.run --device cuda --dtype f32 \
+        --space-n 512 --time-levels 7
+
     # a small f64 solve on the CPU (plain PyTorch twins of the kernels)
     python -m spacetime_tpu_torch.run --device cpu --space-n 32 \
         --time-levels 4 --inner mg
@@ -43,6 +47,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mg-cycles", type=int, default=3)
     p.add_argument("--mg-cycles-kx", type=int, default=None,
                    help="V-cycles per shifted solve inside K_X (default 2)")
+    p.add_argument("--mg-nu-kx", type=int, default=None,
+                   help="Chebyshev smoothing steps per V-cycle inside the "
+                        "K_X sandwich only (default: K_Y's 2)")
+    p.add_argument("--mg-nu-post", type=int, default=None,
+                   help="post-smoothing degree override (V(nu, nu_post) "
+                        "cycles, which run the sweep and residual kernels "
+                        "instead of the fused stages). Asymmetric cycles "
+                        "are not symmetric preconditioners: keep >= 2 "
+                        "cycles with them")
     p.add_argument("--refined", action="store_true",
                    help="mixed-precision refinement: f32 inner PCG inside "
                         "float64 residual legs")
@@ -122,7 +135,8 @@ def main(argv=None) -> int:
         solver = build_solver(
             args.problem, args.space_n, args.time_levels, dtype=dtype,
             device=device, inner=args.inner, mg_cycles=args.mg_cycles,
-            mg_cycles_kx=args.mg_cycles_kx,
+            mg_cycles_kx=args.mg_cycles_kx, mg_nu_kx=args.mg_nu_kx,
+            mg_nu_post=args.mg_nu_post,
         )
     print(
         f"problem={args.problem} mesh={args.space_n}^{solver.problem.dim} "

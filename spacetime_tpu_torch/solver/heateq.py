@@ -10,8 +10,12 @@ wavelet structure, the quadrature of the loads) is shared with the JAX
 package; every per-iteration operation runs on ``device``.
 
 B and Bᵀ run as the stab-fused pair of ``ops.kron`` in ``apply_S`` and as the
-plain Bᵀ in ``rhs_device``: CUDA kernels for CUDA tensors, their plain twins
-on the CPU.
+plain Bᵀ in ``rhs_device``. Every V-cycle level of K_Y and K_X runs the
+multigrid kernels of ``ops.mg_kernels`` (the fused pre/post stages, or the
+sweep and residual kernels for V(ν, ν_post) cycles), and the stiffness
+application between the two shifted solves of K_X is the stencil kernel.
+All are CUDA kernels for CUDA tensors and their plain twins on the CPU; on
+CUDA no level falls back to the plain form, whatever its size.
 
 Outside this slice (raising ``NotImplementedError`` with the ROADMAP.md slice
 that ports it): dense and Chebyshev inner solves, non-stencil spatial
@@ -45,6 +49,7 @@ from spacetime_tpu.ops.wavelets import build_wavelet_transform
 from ..models import Problem, get_problem
 from ..ops import kron
 from ..ops import wavelets as wav
+from ..ops.mg_kernels import MSKernelLevel
 from ..ops.multigrid import MultiShiftMG, chebyshev_stencil_inverse, row_params
 from ..ops.stencil import grouped_apply, row_scale
 from ..utils.device import resolve_device, synchronize
@@ -167,10 +172,10 @@ class HeatSolver:
                 f"mg_cycles={mg_cycles} / mg_cycles_kx={mg_cycles_kx}: "
                 "V-cycle counts must be >= 1"
             )
-        if mg_nu < 1 or (mg_nu_kx is not None and mg_nu_kx < 1):
+        if min(n for n in (mg_nu, mg_nu_kx, mg_nu_post) if n is not None) < 1:
             raise ValueError(
-                f"mg_nu={mg_nu} / mg_nu_kx={mg_nu_kx}: "
-                "smoothing step counts must be >= 1"
+                f"mg_nu={mg_nu} / mg_nu_kx={mg_nu_kx} / mg_nu_post="
+                f"{mg_nu_post}: smoothing step counts must be >= 1"
             )
         if space_n is None:
             if len(set(self.gs)) != 1:
@@ -196,6 +201,18 @@ class HeatSolver:
         self.msmg = msmg
         self._mg_ky = MultiShiftMG(msmg)
         self._mg_kx = MultiShiftMG(msmg, nu=self.mg_nu_kx)
+        # The kernel levels per ν (K_X's own when mg_nu_kx differs), on every
+        # level: the dtype enters through the tensors and params_for's
+        # columns. The JAX package's 40,000-point gate measured XLA fusion
+        # against Mosaic on the TPU and has no counterpart here.
+        mk_levels = lambda nu: [
+            MSKernelLevel(lev.A_st, lev.M_st, nu, nu_post=mg_nu_post)
+            for lev in msmg.levels
+        ]
+        self._kl_ky = mk_levels(mg_nu)
+        self._kl_kx = (
+            self._kl_ky if self.mg_nu_kx == mg_nu else mk_levels(self.mg_nu_kx)
+        )
         omegas = [
             float(self.wt.level_shift[j]) for j in range(self.wt.num_levels + 1)
         ]
@@ -239,7 +256,8 @@ class HeatSolver:
     def params_for(self, dtype: torch.dtype) -> dict:
         """Device tensors of the operators in ``dtype`` (cached). Per-time-row
         scales are (T, 1, 1) columns; ``kron`` holds the (T,) vectors h/2 and
-        h/16 the B/Bᵀ kernels read."""
+        h/16 the B/Bᵀ kernels read, and each multigrid level's ``cols`` the
+        (T,) views of its row columns that the mg kernels read."""
         if dtype in self._params_cache:
             return self._params_cache[dtype]
         dev, dim = self.device, len(self.gs)
@@ -259,6 +277,8 @@ class HeatSolver:
         p["mg_cinv"] = [cast(S) for S in self._host["mg_cinv"]]
         p["ms_ky"] = row_params(self.msmg, self._host["omega_ky"], dtype, dev)
         p["ms_kx"] = row_params(self.msmg, self._host["omega_kx"], dtype, dev)
+        for lp in p["ms_ky"] + p["ms_kx"]:
+            lp["cols"] = MSKernelLevel.columns(lp)
         self._params_cache[dtype] = p
         return p
 
@@ -288,7 +308,9 @@ class HeatSolver:
         def coarse(bc):
             return (bc.reshape(bc.shape[0], -1) @ p["mg_cinv_ky"]).reshape(bc.shape)
 
-        sol = self._mg_ky.solve(V, p["ms_ky"], coarse, self.mg_cycles)
+        sol = self._mg_ky.solve(
+            V, p["ms_ky"], coarse, self.mg_cycles, kernels=self._kl_ky
+        )
         return sol * p["inv_h"]
 
     def apply_stab(self, U, p=None):
@@ -337,7 +359,7 @@ class HeatSolver:
     def _ms_solve_kx(self, X, p):
         return self._mg_kx.solve(
             X, p["ms_kx"], lambda bc: self._coarse_by_level(bc, p),
-            self.mg_cycles_kx,
+            self.mg_cycles_kx, kernels=self._kl_kx,
         )
 
     def apply_KX(self, R, p=None):
@@ -345,7 +367,7 @@ class HeatSolver:
         p = self.params if p is None else p
         X = wav.adjoint(self.wt, R.reshape((self.N + 1,) + self.gs), p["wavelet"])
         X = self._ms_solve_kx(X, p)
-        X = self._spmv_A(X)
+        X = self._kl_kx[0].apply_A(X)
         X = self._ms_solve_kx(X, p)
         return wav.forward(self.wt, X, p["wavelet"]).reshape(R.shape)
 

@@ -1,7 +1,7 @@
-"""The CUDA kernels K1 (B) and K2 (Bᵀ) on the card, against their plain
-twins. Marked ``cuda``: they skip where ``torch.cuda.is_available()`` is
-False (the kernels have no CPU mode). This file imports no JAX, so on a
-machine with a GPU and without JAX it runs as
+"""The CUDA kernels K1 (B), K2 (Bᵀ) and the multigrid kernels K3–K7 on the
+card, against their plain twins. Marked ``cuda``: they skip where
+``torch.cuda.is_available()`` is False (the kernels have no CPU mode). This
+file imports no JAX, so on a machine with a GPU and without JAX it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
@@ -12,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from spacetime_tpu_torch.ops import kron
+from spacetime_tpu_torch.ops import kron, mg_kernels
+from spacetime_tpu_torch.ops.mg_kernels import MSKernelLevel
+from spacetime_tpu_torch.ops.multigrid import row_params
 from spacetime_tpu_torch.solver import build_solver
 
 pytestmark = pytest.mark.cuda
@@ -82,3 +84,63 @@ def test_small_solve_matches_cpu(taps):
     gpu = build_solver("smooth2d", 16, 3, device="cuda", **kw).solve(tol=1e-8)
     assert gpu.iterations == cpu.iterations
     np.testing.assert_allclose(gpu.residuals, cpu.residuals, rtol=1e-10)
+
+
+@pytest.fixture(scope="module")
+def msmg():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return build_solver("smooth2d", 8, 2, device="cpu", inner="mg").msmg
+
+
+# ragged extents: one tile; a last tile of a single fine row and column;
+# several tiles with ragged edges
+@pytest.mark.parametrize("gs", [(15, 31), (33, 65), (47, 71)])
+@pytest.mark.parametrize("nu", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mg_kernels_match_twins(msmg, dtype, nu, gs):
+    T = 5
+    lev = msmg.levels[0]
+    kl = MSKernelLevel(lev.A_st, lev.M_st, nu, nu_post=1, gs=gs)
+    rng = np.random.default_rng(nu)
+    mk = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
+    omega = np.abs(rng.standard_normal(T)) * 20
+    cols = MSKernelLevel.columns(row_params(msmg, omega, dtype, "cuda")[0])
+    x, b = mk(rng.standard_normal((T,) + gs)), mk(rng.standard_normal((T,) + gs))
+    ec = mk(rng.standard_normal((T,) + kl.coarse_gs))
+    mg_kernels.reset_launch_counts()
+    _close(kl.smooth(x, b, cols), kl.smooth_plain(x, b, cols), dtype)
+    _close(kl.smooth(x, b, cols, post=True),
+           kl.smooth_plain(x, b, cols, post=True), dtype)
+    _close(kl.smooth(None, b, cols, zero_init=True),
+           kl.smooth_plain(None, b, cols, zero_init=True), dtype)
+    _close(kl.residual(x, b, cols), kl.residual_plain(x, b, cols), dtype)
+    _close(kl.apply_A(x), kl.apply_A_plain(x), dtype)
+    for got, want in zip(kl.fused_pre(b, cols), kl.fused_pre_plain(b, cols)):
+        _close(got, want, dtype)
+    _close(kl.fused_post(x, b, ec, cols), kl.fused_post_plain(x, b, ec, cols),
+           dtype)
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    counts = mg_kernels.launch_counts()
+    assert counts[f"K3 mg_smooth {sfx}"] == 3
+    for name in ("K4 mg_residual", "K5 mg_apply", "K6 mg_fused_pre",
+                 "K7 mg_fused_post"):
+        assert counts[f"{name} {sfx}"] == 1, (name, counts)
+
+
+def test_mg_wrappers_check_inputs(msmg):
+    lev = msmg.levels[0]
+    T, gs = 3, (15, 31)
+    kl = MSKernelLevel(lev.A_st, lev.M_st, 2, gs=gs)
+    cols = MSKernelLevel.columns(
+        row_params(msmg, np.ones(T), torch.float32, "cuda")[0])
+    b = torch.zeros((T,) + gs, device="cuda")
+    with pytest.raises(ValueError, match="shape"):
+        kl.residual(b[:, :-1].contiguous(), b, cols)
+    with pytest.raises(TypeError, match="dtype"):
+        kl.smooth(b.double(), b.double(), cols)
+    with pytest.raises(ValueError, match="odd extents"):
+        MSKernelLevel(lev.A_st, lev.M_st, 2, gs=(16, 31)).fused_pre(
+            torch.zeros((T, 16, 31), device="cuda"), cols)
+    with pytest.raises(ValueError, match="nu=9"):
+        MSKernelLevel(lev.A_st, lev.M_st, 9, gs=gs).smooth(b, b, cols)
