@@ -12,32 +12,43 @@ Phases (every check asserts; any failure exits non-zero):
 3. setup    — the 129²×64 ("cfg2") f32 solver: smooth2d, multigrid inner.
 4. kernels  — K1 (B) and K2 (Bᵀ), plain and stab-fused, float32 and float64,
               against their plain PyTorch twins at the cfg2 shape (T=64,
-              127×127), the flagship's (T=128, 511×511) and a small ragged
-              one (T=5, 9×13); median device times of 20 runs at the first
-              two.
-5. mg kernels — K3 (sweep from x and from 0), K4, K5, K6 and K7 against
-              their twins in float32 and float64 with ν ∈ {2, 3}, at 511² and
-              255² (T=129), 127² (T=65) and a ragged 15×31 (T=5); median
-              device times (ν = 2) at 511²×129 and 127²×65.
-6. solve    — cfg2 ``solve(tol=1e-6)``: 16 ± 1 PCG iterations, L2 within 1%
+              127×127), the 2-D flagship's (T=128, 511×511), those of the
+              129³×64, 65³×32 and 17³×16 solves (T=64, 127³; T=32, 63³;
+              T=16, 15³) and ragged ones (T=5, 9×13 and 7×9×15); median
+              device times of 20 runs at cfg2, 511², 127³ and 63³.
+5. mg kernels — K3 (sweep from x and from 0), K4, K5, K6, K7, K8 and K9
+              against their twins in float32 and float64 with ν ∈ {2, 3}, at
+              511² and 255² (T=129), 127² (T=65) and a ragged 15×31 (T=5);
+              median device times (ν = 2) at 511²×129 and 127²×65.
+6. mg kernels 3-D — K3 (from x and from 0), K4, K5, K8 and K9 at 127³ and
+              63³ (T=65: the 3-D flagship's two finest levels) and a ragged
+              7×9×15 (T=5), float32 and float64, ν ∈ {2, 3}; median device
+              times (ν = 2) at 127³×65 and 63³×65. K5 is also timed against
+              ``F.conv2d`` / ``F.conv3d`` with its stencil (the library call).
+7. solve    — cfg2 ``solve(tol=1e-6)``: 16 ± 1 PCG iterations, L2 within 1%
               of 5.748e-05.
-7. refined  — cfg2 ``solve_refined(tol=1e-8)`` twice: converged in 2 inner
+8. refined  — cfg2 ``solve_refined(tol=1e-8)`` twice: converged in 2 inner
               rounds and 25 ± 2 inner iterations, L2 within 1% of
               5.7525e-05; the second call's seconds are the steady time.
-8. flagship — smooth2d at 513²×128 (33.8 MDoF), f32: setup, loads and L2
+9. flagship — smooth2d at 513²×128 (33.8 MDoF), f32: setup, loads and L2
               seconds; ``solve(tol=1e-6)`` twice, 17 ± 2 iterations and L2
               within 20% of 3.812e-06 (f32 rounding, see REF_FLAGSHIP); one
               ``solve_refined(tol=1e-8)``, converged, L2 within 1% of the
               float64 solve's 3.5877e-06.
-9. V(2,1)   — cfg2 with ``mg_nu_post=1`` (the sweep and residual kernels in
-              place of the fused stages): ``solve(tol=1e-6)`` within ±1 of
+10. V(2,1)  — cfg2 with ``mg_nu_post=1`` (the semi-fused stages K3 → K8 →
+              K9 → K3 in place of K6/K7): ``solve(tol=1e-6)`` within ±1 of
               the JAX package's 17 iterations, then ``solve_refined``.
-10. f64     — cfg2 in float64, ``solve(tol=1e-8)``: the JAX package's 21
+11. f64     — cfg2 in float64, ``solve(tol=1e-8)``: the JAX package's 21
               iterations ± 1, L2 within 1e-6 of 5.7525369e-05.
+12. smooth3d — 65³×32 (8.3 MDoF), f32, inner mg: ``solve(tol=1e-6)`` twice,
+              the JAX package's 14 iterations ± 1, L2 within 1% of its
+              2.5223e-04; every level runs K3/K8/K9, none K6/K7.
+13. smooth3d f64 — 17³×16, ``solve(tol=1e-8)``: the JAX package's 18
+              iterations exactly, L2 within 1e-6 of 3.999081e-03.
 
-Launch counters are zeroed just before each path (phases 6–7, 8, 9, 10) and
-read just after it; each path asserts the kernels it must have launched.
-The last two lines are a JSON object describing the kernels and
+Launch counters are zeroed just before each path (phases 7–8, 9, 10, 11,
+12, 13) and read just after it; each path asserts the kernels it must have
+launched. The last two lines are a JSON object describing the kernels and
 ``{"ok": true, "device": ...}``.
 """
 
@@ -56,8 +67,13 @@ import torch
 SEED = 0
 SPACE_N, TIME_LEVELS = 128, 6
 FLAGSHIP_N, FLAGSHIP_LEVELS = 512, 7
-RAGGED = (5, (9, 13))
 FLAGSHIP_KRON = (2 ** FLAGSHIP_LEVELS, (FLAGSHIP_N - 1,) * 2)
+# (T, grid, timed) of the K1/K2 checks besides cfg2's own: the 2-D
+# flagship's, a ragged 2-D grid, the 129³×64, 65³×32 and 17³×16 solves' and
+# a ragged 3-D grid.
+KRON_SHAPES = [FLAGSHIP_KRON + (True,), (5, (9, 13), False),
+               (64, (127,) * 3, True), (32, (63,) * 3, True),
+               (16, (15,) * 3, False), (5, (7, 9, 15), False)]
 REF_SOLVE = {"iterations": 16, "l2": 5.748e-05}
 REF_REFINED = {"iterations": 25, "rounds": 2, "l2": 5.7525e-05}
 # The JAX package at 513²×128, f32, device loads (results_tpu/
@@ -66,7 +82,7 @@ REF_REFINED = {"iterations": 25, "rounds": 2, "l2": 5.7525e-05}
 # the port's L2 between 3.79e-06 and 4.38e-06 on an H100, so the f32 band is
 # 20%. The f64-leg refinement is free of it and is held to 1% of the port's
 # float64 solve at this size (21 iterations, L2 3.5877e-06, on an H100); the
-# float64 path is held to the JAX package at cfg2 in phase 10.
+# float64 path is held to the JAX package at cfg2 in phase 11.
 REF_FLAGSHIP = {"iterations": 17, "l2": 3.812e-06, "l2_band": 0.2,
                 "l2_f64": 3.5877e-06}
 # The JAX package on the CPU at cfg2, f32, inner="mg", host loads,
@@ -74,14 +90,32 @@ REF_FLAGSHIP = {"iterations": 17, "l2": 3.812e-06, "l2_band": 0.2,
 REF_V21 = {"iterations": 17}
 # The JAX package on the CPU at cfg2, f64, inner="mg", host loads, tol 1e-8.
 REF_F64 = {"iterations": 21, "l2": 5.752536865509208e-05}
-# (T, grid) of the multigrid kernel checks: the flagship's fine and first
-# coarse level, cfg2's fine level at K_X's row count, and a ragged shape.
+# The JAX package on the CPU, smooth3d, inner="mg" (coarse 16), host loads:
+# 65³×32 f32 at tol 1e-6 (the cfg3 preset, 8.3 MDoF), and 17³×16 f64 at tol
+# 1e-8. At 65³ the discretization error (2.5e-04) dwarfs f32 rounding, so
+# the f32 band is 1%.
+REF_3D = {"n": 64, "levels": 5, "iterations": 14, "l2": 2.522348342273894e-04,
+          "l2_band": 0.01}
+REF_3D_F64 = {"n": 16, "levels": 4, "iterations": 18,
+              "l2": 3.999081235687421e-03}
+# (T, grid) of the multigrid kernel checks: the 2-D flagship's fine and
+# first coarse level, cfg2's fine level at K_X's row count, the 3-D
+# flagship's two finest levels, and ragged shapes.
 MG_SHAPES = [(129, (511, 511)), (129, (255, 255)), (65, (127, 127)),
              (5, (15, 31))]
-MG_TIMED = [(129, (511, 511)), (65, (127, 127))]
+MG_SHAPES_3D = [(65, (127, 127, 127)), (65, (63, 63, 63)), (5, (7, 9, 15))]
+MG_TIMED = [(129, (511, 511)), (65, (127, 127)), (65, (127, 127, 127)),
+            (65, (63, 63, 63))]
+# the shape of each kernel's headline numbers in the JSON line, by dimension
+MG_MAIN = {2: (129, (511, 511)), 3: (65, (127, 127, 127))}
 # max|kernel − twin| ≤ tol · max|twin|. f32: FMA contraction and the order
 # of the tap sums differ from PyTorch's; f64: the same, at f64 rounding.
 TOL = {torch.float32: 1e-5, torch.float64: 1e-13}
+# The least time of a kernel's work on an H100 SXM (NVIDIA's data sheet):
+# HBM3 at 3.35 TB/s; 67 TFLOP/s float32 and 34 TFLOP/s float64 outside the
+# tensor cores (the kernels use no tensor core).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 
 
 _PHASE = {"name": None, "t0": 0.0}
@@ -104,6 +138,70 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def shape_key(T, gs) -> str:
+    return "x".join(str(n) for n in (T,) + tuple(gs))
+
+
+def bound(nbytes: float, flops: float, dtype) -> dict:
+    """The least time of the work: bytes over the HBM rate or operations
+    over the peak rate, whichever is larger, in ms."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    if by_bytes >= by_ops:
+        return {"bound_ms": by_bytes, "bound_by": "bytes"}
+    return {"bound_ms": by_ops, "bound_by": "operations"}
+
+
+def stencil_ops(groups) -> int:
+    """Operations per point of a grouped stencil: the tap sums, one multiply
+    and one add per group."""
+    return sum(len(ds) + 2 for _, ds in groups)
+
+
+def kron_bound(form, taps, T, dtype) -> dict:
+    """Bytes (each input read once, each output written once) and
+    operations of one K1/K2 form at T time rows."""
+    m = int(np.prod(taps.gs))
+    s = torch.finfo(dtype).bits // 8
+    sM, sA = stencil_ops(taps.groups_M), stencil_ops(taps.groups_A)
+    if form.startswith("B_") or form == "B":
+        stab = form == "B_stab"
+        nbytes = s * ((T + 1) * m + (2 if stab else 1) * T * m + (2 if stab else 1) * T)
+        flops = T * m * (4 + sM + sA + (sA + 1 if stab else 0))
+    else:
+        stab = form == "BT_stab"
+        nbytes = s * ((2 if stab else 1) * T * m + (T + 1) * m + T)
+        flops = T * m * (sM + sA + 1) + (T + 1) * m * (3 + (2 if stab else 0))
+    return bound(nbytes, flops, dtype)
+
+
+def mg_bound(form, kl, T, dtype) -> dict:
+    """Bytes (each input read once, each output written once) and
+    operations of one multigrid kernel form at T time rows."""
+    m = int(np.prod(kl.gs))
+    mc = int(np.prod(kl.coarse_gs))
+    s = torch.finfo(dtype).bits // 8
+    op = stencil_ops(kl.pairs)
+    nu = kl.nu
+    sweep = op * nu + 4 + 6 * (nu - 1)  # from x: r, d, x; then ν−1 steps
+    sweep0 = 2 + (op + 6) * (nu - 1)  # from 0: r = b/D, d = x
+    restrict = 2 ** (kl.dim + 1)  # per coarse point
+    cols = 4 * T
+    nbytes, flops = {
+        "smooth": (s * (3 * T * m + cols), T * m * sweep),
+        "smooth_zero": (s * (2 * T * m + cols), T * m * sweep0),
+        "residual": (s * (3 * T * m + T), T * m * (op + 1)),
+        "apply_A": (s * 2 * T * m, T * m * stencil_ops(kl.groups_A)),
+        "fused_pre": (s * (2 * T * m + T * mc + cols),
+                      T * m * (sweep0 + op + 1) + T * mc * restrict),
+        "fused_post": (s * (3 * T * m + T * mc + cols), T * m * (sweep + 3)),
+        "residual_restrict": (s * (2 * T * m + T * mc + T),
+                              T * m * (op + 1) + T * mc * restrict),
+        "prolong_correct": (s * (2 * T * m + T * mc), T * m * 3),
+    }[form]
+    return bound(nbytes, flops, dtype)
 
 
 def seeded_inputs(taps, T, dtype, rng) -> dict:
@@ -138,9 +236,9 @@ def kernel_forms(kron, taps, x) -> dict:
 
 def mg_forms(kl, x) -> dict:
     """{form: (kernel op, kernel_fn, twin_fn)} of one MSKernelLevel; each fn
-    returns a tuple of tensors."""
+    returns a tuple of tensors. K6/K7 (fused) on 2-D levels only."""
     X, B, EC, c = x["x"], x["b"], x["ec"], x["cols"]
-    return {
+    forms = {
         "smooth": ("smooth", lambda: (kl.smooth(X, B, c),),
                    lambda: (kl.smooth_plain(X, B, c),)),
         "smooth_zero": ("smooth",
@@ -150,11 +248,34 @@ def mg_forms(kl, x) -> dict:
                      lambda: (kl.residual_plain(X, B, c),)),
         "apply_A": ("apply", lambda: (kl.apply_A(X),),
                     lambda: (kl.apply_A_plain(X),)),
-        "fused_pre": ("fused_pre", lambda: kl.fused_pre(B, c),
-                      lambda: kl.fused_pre_plain(B, c)),
-        "fused_post": ("fused_post", lambda: (kl.fused_post(X, B, EC, c),),
-                       lambda: (kl.fused_post_plain(X, B, EC, c),)),
+        "residual_restrict": (
+            "residual_restrict", lambda: (kl.residual_restrict(X, B, c),),
+            lambda: (kl.residual_restrict_plain(X, B, c),)),
+        "prolong_correct": (
+            "prolong_correct", lambda: (kl.prolong_correct(X, EC),),
+            lambda: (kl.prolong_correct_plain(X, EC),)),
     }
+    if kl.fused_ok:
+        forms["fused_pre"] = ("fused_pre", lambda: kl.fused_pre(B, c),
+                              lambda: kl.fused_pre_plain(B, c))
+        forms["fused_post"] = ("fused_post",
+                               lambda: (kl.fused_post(X, B, EC, c),),
+                               lambda: (kl.fused_post_plain(X, B, EC, c),))
+    return forms
+
+
+def stencil_conv(kl, X):
+    """A x as one library call: ``F.conv2d`` / ``F.conv3d`` with the A
+    stencil as a 3^d kernel and zero padding 1 (TF32 is off)."""
+    import torch.nn.functional as F
+
+    w = X.new_zeros((3,) * kl.dim)
+    for wt, ds in kl.groups_A:
+        for d in ds:
+            w[tuple(di + 1 for di in d)] = wt
+    conv = F.conv3d if kl.dim == 3 else F.conv2d
+    Xc, wc = X.unsqueeze(1), w[None, None]
+    return lambda: conv(Xc, wc, padding=1).squeeze(1)
 
 
 def mg_inputs(msmg, kl, T, dtype, rng) -> dict:
@@ -173,24 +294,75 @@ def mg_inputs(msmg, kl, T, dtype, rng) -> dict:
     }
 
 
+def check_mg_level(kl, x, T, dtype, results, lib_results) -> None:
+    """Every form of one kernel level against its twin; device times of the
+    timed shapes (ν = 2) into ``results[(op, dtype, dim)]["forms"]``."""
+    gs, nu = kl.gs, kl.nu
+    for form, (op, kfn, tfn) in mg_forms(kl, x).items():
+        got, want = kfn(), tfn()
+        torch.cuda.synchronize()
+        rec = results.setdefault(
+            (op, dtype, kl.dim), {"max_abs_err": 0.0, "forms": {}})
+        for g, w in zip(got, want):
+            err = float((g - w).abs().max())
+            scale = float(w.abs().max())
+            assert err <= TOL[dtype] * scale, (
+                form, dtype, T, gs, nu, err, scale)
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        del got, want
+        line = (f"  {form:17s} {str(dtype)[6:]:8s} nu={nu} T={T:3d} "
+                f"gs={gs}: max|kernel-twin| {err:.3e} (max|twin| {scale:.3e})")
+        if nu == 2 and (T, gs) in MG_TIMED:
+            ms, plain_ms = device_ms(kfn), device_ms(tfn)
+            entry = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                     **mg_bound(form, kl, T, dtype)}
+            line += (f"; kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound "
+                     f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})")
+            if op == "apply":
+                lib = stencil_conv(kl, x["x"])
+                lerr = float((lib() - kl.apply_A_plain(x["x"])).abs().max())
+                entry["library_ms"] = device_ms(lib)
+                lib_results[(dtype, kl.dim, shape_key(T, gs))] = (
+                    entry["library_ms"], lerr)
+                line += (f", conv{kl.dim}d {entry['library_ms']:.4f} ms "
+                         f"(max|conv-twin| {lerr:.3e})")
+                assert lerr <= TOL[dtype] * scale, (lerr, scale)
+            rec["forms"][f"{form} {shape_key(T, gs)}"] = entry
+        print(line, flush=True)
+
+
+def device_ms(fn) -> float:
+    """Median device ms of ``fn()`` (``utils.profiling.device_ms``, imported
+    once ``main`` has put the repository on the path)."""
+    from spacetime_tpu_torch.utils.profiling import device_ms as median_ms
+
+    return median_ms(fn)
+
+
 class Paths:
-    """Launch counts of K1–K7 per main path: zeroed just before a path,
+    """Launch counts of K1–K9 per main path: zeroed just before a path,
     read just after it."""
 
     def __init__(self, kron, mgk):
         self.modules = (kron, mgk)
-        self.counts = {}  # path -> {(op, dtype): launches}
+        self.counts = {}  # path -> {kernel key: launches}
 
     def start(self) -> None:
         for m in self.modules:
             m.reset_launch_counts()
 
-    def stop(self, path: str) -> dict:
+    def stop(self, path: str, per: int | None = None) -> dict:
+        """The path's counts; with ``per``, also printed per PCG
+        application (``per`` operator applications in the path)."""
         c = {key: k.launches for m in self.modules for key, k in m.KERNELS.items()}
         self.counts[path] = c
         print(f"launches in path {path}:",
               {k.name: k.launches for m in self.modules
                for k in m.KERNELS.values() if k.launches})
+        if per:
+            print(f"  per PCG iteration ({per}):",
+                  {k.name: round(k.launches / per, 2) for m in self.modules
+                   for k in m.KERNELS.values() if k.launches})
         return c
 
     def total(self, key) -> int:
@@ -206,7 +378,6 @@ def main() -> int:
     from spacetime_tpu_torch.ops import kron, mg_kernels, native
     from spacetime_tpu_torch.ops.mg_kernels import MSKernelLevel
     from spacetime_tpu_torch.solver import build_solver
-    from spacetime_tpu_torch.utils.profiling import device_ms
 
     phase("1 device")
     smi = nvidia_smi_line()
@@ -230,23 +401,28 @@ def main() -> int:
     print(f"setup {time.perf_counter() - t0:.2f} s (m={solver.m}, "
           f"N={solver.N}, inner={solver.inner}, levels="
           f"{[lev.n for lev in solver.msmg.levels]})")
+    # the 3-D stencils (taps and a level's pair table) of a small solver
+    small3 = build_solver("smooth3d", 8, 1, dtype=torch.float32, device="cuda",
+                          inner="mg")
 
     phase("4 kernels against their plain twins")
     rng = np.random.default_rng(SEED)
     cfg2_taps = solver.taps
-    shapes = [(solver.N, cfg2_taps)] + [
-        (T, dataclasses.replace(cfg2_taps, gs=gs))
-        for T, gs in (FLAGSHIP_KRON, RAGGED)
+    shapes = [(solver.N, cfg2_taps, True)] + [
+        (T, dataclasses.replace(small3.taps if len(gs) == 3 else cfg2_taps,
+                                gs=gs), timed)
+        for T, gs, timed in KRON_SHAPES
     ]
     results = {}  # (op, dtype) -> {"max_abs_err", "forms": {form: {...}}}
     for dtype in (torch.float32, torch.float64):
-        for T, taps in shapes:
+        for T, taps, timed in shapes:
             forms = kernel_forms(kron, taps, seeded_inputs(taps, T, dtype, rng))
             for form, (kfn, tfn) in forms.items():
                 got, want = kfn(), tfn()
                 torch.cuda.synchronize()
                 err = max(float((g - w).abs().max()) for g, w in zip(got, want))
                 scale = max(float(w.abs().max()) for w in want)
+                del got, want
                 print(f"  {form:8s} {str(dtype)[6:]:8s} T={T:3d} gs={taps.gs}: "
                       f"max|kernel-twin| {err:.3e} (max|twin| {scale:.3e})")
                 assert err <= TOL[dtype] * scale, (form, dtype, T, err, scale)
@@ -254,15 +430,19 @@ def main() -> int:
                 rec = results.setdefault(
                     (op, dtype), {"max_abs_err": 0.0, "forms": {}})
                 rec["max_abs_err"] = max(rec["max_abs_err"], err)
-                if taps.gs != RAGGED[1]:
+                if timed:
                     ms = device_ms(kfn)
                     plain_ms = device_ms(tfn)
                     variant = "stab" if "stab" in form else "plain"
-                    rec["forms"][f"{variant} {T}x{taps.gs[0]}x{taps.gs[1]}"] = {
-                        "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-                    }
+                    entry = {"ms": ms, "plain_ms": plain_ms,
+                             "max_abs_err": err, "library_ms": None,
+                             **kron_bound(form, taps, T, dtype)}
+                    rec["forms"][f"{variant} {shape_key(T, taps.gs)}"] = entry
                     print(f"  {'':8s} {'':8s} kernel {ms:.4f} ms, "
-                          f"twin {plain_ms:.4f} ms (median of 20, device)")
+                          f"twin {plain_ms:.4f} ms (median of 20, device), "
+                          f"bound {entry['bound_ms']:.4f} ms "
+                          f"({entry['bound_by']})")
+            torch.cuda.empty_cache()
         # B -> Bᵀ pair throughput at cfg2 (one output DoF per row of B).
         x = seeded_inputs(cfg2_taps, solver.N, dtype, rng)
         U, hh, taps = x["U"], x["hh"], cfg2_taps
@@ -276,41 +456,30 @@ def main() -> int:
               f"{pair_t:.4f} ms ({dofs / (pair_t / 2e3) / 1e9:.2f} GDoF/s)")
         results[("pair", dtype)] = {"ms": pair_k, "plain_ms": pair_t}
 
-    phase("5 mg kernels K3-K7 against their plain twins")
-    rng = np.random.default_rng(SEED + 1)
-    lev0 = solver.msmg.levels[0]
-    mg_results = {}  # (op, dtype) -> {"max_abs_err", "forms": {...}}
-    for dtype in (torch.float32, torch.float64):
-        for T, gs in MG_SHAPES:
-            for nu in (2, 3):
-                kl = MSKernelLevel(lev0.A_st, lev0.M_st, nu, gs=gs)
-                x = mg_inputs(solver.msmg, kl, T, dtype, rng)
-                for form, (op, kfn, tfn) in mg_forms(kl, x).items():
-                    got, want = kfn(), tfn()
-                    torch.cuda.synchronize()
-                    rec = mg_results.setdefault(
-                        (op, dtype), {"max_abs_err": 0.0, "forms": {}})
-                    for g, w in zip(got, want):
-                        err = float((g - w).abs().max())
-                        scale = float(w.abs().max())
-                        assert err <= TOL[dtype] * scale, (
-                            form, dtype, T, gs, nu, err, scale)
-                        rec["max_abs_err"] = max(rec["max_abs_err"], err)
-                    timed = nu == 2 and (T, gs) in MG_TIMED
-                    line = (f"  {form:11s} {str(dtype)[6:]:8s} nu={nu} T={T:3d} "
-                            f"gs={gs}: max|kernel-twin| {err:.3e} "
-                            f"(max|twin| {scale:.3e})")
-                    if timed:
-                        ms, plain_ms = device_ms(kfn), device_ms(tfn)
-                        rec["forms"][f"{form} {T}x{gs[0]}x{gs[1]}"] = {
-                            "ms": ms, "plain_ms": plain_ms}
-                        line += f"; kernel {ms:.4f} ms, twin {plain_ms:.4f} ms"
-                    print(line)
-                del x
-        torch.cuda.empty_cache()
+    mg_results = {}  # (op, dtype, dim) -> {"max_abs_err", "forms": {...}}
+    lib_results = {}  # (dtype, dim, shape) -> (conv ms, max|conv - twin|)
+    for title, msmg, mg_shapes, seed in (
+        ("5 mg kernels K3-K9 (2-D) against their plain twins",
+         solver.msmg, MG_SHAPES, SEED + 1),
+        ("6 mg kernels K3-K5, K8, K9 (3-D) against their plain twins",
+         small3.msmg, MG_SHAPES_3D, SEED + 2),
+    ):
+        phase(title)
+        rng = np.random.default_rng(seed)
+        lev0 = msmg.levels[0]
+        for dtype in (torch.float32, torch.float64):
+            for T, gs in mg_shapes:
+                for nu in (2, 3):
+                    kl = MSKernelLevel(lev0.A_st, lev0.M_st, nu, gs=gs)
+                    x = mg_inputs(msmg, kl, T, dtype, rng)
+                    check_mg_level(kl, x, T, dtype, mg_results, lib_results)
+                    del x
+                    torch.cuda.empty_cache()
+    del small3
 
     paths = Paths(kron, mg_kernels)
-    phase("6 solve(tol=1e-6), f32")
+    f32, f64 = torch.float32, torch.float64
+    phase("7 solve(tol=1e-6), f32")
     paths.start()
     res = solver.solve(tol=1e-6)
     rel = res.residuals[-1] / res.residuals[0]
@@ -321,7 +490,7 @@ def main() -> int:
     assert abs(res.iterations - REF_SOLVE["iterations"]) <= 1, res.iterations
     assert abs(res.l2_error / REF_SOLVE["l2"] - 1.0) <= 0.01, res.l2_error
 
-    phase("7 solve_refined(tol=1e-8), f32 inner / f64 legs, twice")
+    phase("8 solve_refined(tol=1e-8), f32 inner / f64 legs, twice")
     for call in (1, 2):
         r = solver.solve_refined(tol=1e-8)
         rel = r.residuals[-1] / r.residuals[0]
@@ -336,15 +505,15 @@ def main() -> int:
     print(f"steady solve_refined: {r.solve_seconds:.4f} s, "
           f"{r.iterations} inner iterations")
     counts = paths.stop("cfg2 solve + solve_refined")
-    f32, f64 = torch.float32, torch.float64
     must = [(op, dt) for op in ("B", "BT") for dt in (f32, f64)]
-    must += [(op, f32) for op in ("residual", "apply", "fused_pre", "fused_post")]
-    must += [(op, f64) for op in ("residual", "fused_pre", "fused_post")]
+    must += [(op, f32, 2) for op in ("residual", "apply", "fused_pre",
+                                     "fused_post")]
+    must += [(op, f64, 2) for op in ("residual", "fused_pre", "fused_post")]
     assert all(counts[key] > 0 for key in must), counts
     del solver
     torch.cuda.empty_cache()
 
-    phase(f"8 flagship: smooth2d {FLAGSHIP_N + 1}^2 x {2 ** FLAGSHIP_LEVELS} "
+    phase(f"9 flagship: smooth2d {FLAGSHIP_N + 1}^2 x {2 ** FLAGSHIP_LEVELS} "
           "steps, f32, inner mg")
     t0 = time.perf_counter()
     flag = build_solver("smooth2d", FLAGSHIP_N, FLAGSHIP_LEVELS,
@@ -386,14 +555,15 @@ def main() -> int:
     assert r.converged and rel <= 1e-8, rel
     assert abs(l2 / REF_FLAGSHIP["l2_f64"] - 1.0) <= 0.01, l2
     counts = paths.stop("flagship")
-    must = [(op, dt) for op in ("B", "BT", "residual", "fused_pre",
-                                "fused_post") for dt in (f32, f64)]
-    must += [("apply", f32)]
+    must = [(op, dt) for op in ("B", "BT") for dt in (f32, f64)]
+    must += [(op, dt, 2) for op in ("residual", "fused_pre", "fused_post")
+             for dt in (f32, f64)]
+    must += [("apply", f32, 2)]
     assert all(counts[key] > 0 for key in must), counts
     del flag, runs, r
     torch.cuda.empty_cache()
 
-    phase("9 V(2,1): cfg2 with mg_nu_post=1, f32")
+    phase("10 V(2,1): cfg2 with mg_nu_post=1, f32")
     v21 = build_solver("smooth2d", SPACE_N, TIME_LEVELS, dtype=torch.float32,
                        device="cuda", mg_nu_post=1)
     v21.assemble_rhs_host()
@@ -409,13 +579,14 @@ def main() -> int:
           f"{len(r.residuals) - 1} rounds, converged {r.converged}")
     assert r.converged, r.residuals
     counts = paths.stop("V(2,1)")
-    assert all(counts[(op, dt)] > 0 for op in ("smooth", "residual")
-               for dt in (f32, f64)), counts
-    assert all(counts[(op, dt)] == 0 for op in ("fused_pre", "fused_post")
+    assert all(counts[(op, dt, 2)] > 0 for op in (
+        "smooth", "residual", "residual_restrict", "prolong_correct")
+        for dt in (f32, f64)), counts
+    assert all(counts[(op, dt, 2)] == 0 for op in ("fused_pre", "fused_post")
                for dt in (f32, f64)), counts
     del v21
 
-    phase("10 f64: cfg2 solve(tol=1e-8) in float64")
+    phase("11 f64: cfg2 solve(tol=1e-8) in float64")
     s64 = build_solver("smooth2d", SPACE_N, TIME_LEVELS, dtype=torch.float64,
                        device="cuda")
     s64.assemble_rhs_host()
@@ -429,15 +600,82 @@ def main() -> int:
     assert abs(r.iterations - REF_F64["iterations"]) <= 1, r.iterations
     assert abs(r.l2_error / REF_F64["l2"] - 1.0) <= 1e-6, r.l2_error
     counts = paths.stop("f64")
-    assert all(counts[(op, f64)] > 0 for op in (
-        "B", "BT", "residual", "apply", "fused_pre", "fused_post")), counts
+    assert all(counts[(op, f64)] > 0 for op in ("B", "BT")), counts
+    assert all(counts[(op, f64, 2)] > 0 for op in (
+        "residual", "apply", "fused_pre", "fused_post")), counts
     del s64
+    torch.cuda.empty_cache()
+
+    n3, J3 = REF_3D["n"], REF_3D["levels"]
+    phase(f"12 smooth3d {n3 + 1}^3 x {2 ** J3} steps, f32, inner mg")
+    t0 = time.perf_counter()
+    s3 = build_solver("smooth3d", n3, J3, dtype=torch.float32, device="cuda",
+                      inner="mg")
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s3.assemble_rhs_host()
+    loads_s = time.perf_counter() - t0
+    print(f"setup {setup_s:.2f} s (m={s3.m}, N={s3.N}, "
+          f"{(s3.N + 1) * s3.m:,} DoF, levels="
+          f"{[lev.n for lev in s3.msmg.levels]}, coarse "
+          f"{s3.msmg.n_coarse}); loads {loads_s:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    paths.start()
+    runs = []
+    for call in (1, 2):
+        r = s3.solve(tol=1e-6, compute_error=False)
+        rel = r.residuals[-1] / r.residuals[0]
+        print(f"solve call {call}: iterations {r.iterations} (JAX CPU "
+              f"{REF_3D['iterations']}), converged {r.converged}, rel "
+              f"{rel:.3e}, solve {r.solve_seconds:.4f} s", flush=True)
+        assert r.converged and rel <= 1e-6, rel
+        assert abs(r.iterations - REF_3D["iterations"]) <= 1, r.iterations
+        runs.append(r)
+    counts = paths.stop("smooth3d f32", per=sum(r.iterations for r in runs))
+    print(f"steady solve: {runs[1].solve_seconds:.4f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    l2 = s3._l2_error(runs[0].U)
+    print(f"L2(IxOmega) {l2:.6e} (JAX CPU {REF_3D['l2']:.6e}), host error "
+          f"loop {time.perf_counter() - t0:.2f} s")
+    assert abs(l2 / REF_3D["l2"] - 1.0) <= REF_3D["l2_band"], l2
+    must = [(op, f32) for op in ("B", "BT")]
+    must += [(op, f32, 3) for op in ("smooth", "residual", "apply",
+                                     "residual_restrict", "prolong_correct")]
+    assert all(counts[key] > 0 for key in must), counts
+    # every launch of the V-cycle kernels was a 3-D one: no K6/K7
+    assert all(n == 0 for key, n in counts.items() if len(key) == 3
+               and key[2] == 2), counts
+    del s3, runs, r
+    torch.cuda.empty_cache()
+
+    n3, J3 = REF_3D_F64["n"], REF_3D_F64["levels"]
+    phase(f"13 smooth3d {n3 + 1}^3 x {2 ** J3} steps, f64, solve(tol=1e-8)")
+    s3 = build_solver("smooth3d", n3, J3, dtype=torch.float64, device="cuda",
+                      inner="mg")
+    s3.assemble_rhs_host()
+    paths.start()
+    r = s3.solve(tol=1e-8)
+    rel = r.residuals[-1] / r.residuals[0]
+    print(f"iterations {r.iterations} (JAX CPU {REF_3D_F64['iterations']}), "
+          f"converged {r.converged}, rel {rel:.3e}, L2 {r.l2_error:.10e} "
+          f"(JAX CPU {REF_3D_F64['l2']:.10e}), solve {r.solve_seconds:.4f} s")
+    assert r.converged and rel <= 1e-8, rel
+    assert r.iterations == REF_3D_F64["iterations"], r.iterations
+    assert abs(r.l2_error / REF_3D_F64["l2"] - 1.0) <= 1e-6, r.l2_error
+    counts = paths.stop("smooth3d f64")
+    assert all(counts[(op, f64, 3)] > 0 for op in (
+        "smooth", "residual", "apply", "residual_restrict",
+        "prolong_correct")), counts
+    assert all(n == 0 for key, n in counts.items() if len(key) == 3
+               and key[2] == 2), counts
+    del s3
     phase(None)
 
     kernels = []
-    at = f"stab {FLAGSHIP_KRON[0]}x{FLAGSHIP_KRON[1][0]}x{FLAGSHIP_KRON[1][1]}"
     for (op, dtype), k in kron.KERNELS.items():
         rec = results[(op, dtype)]
+        at = f"stab {shape_key(*FLAGSHIP_KRON)}"
         kernels.append({
             "name": k.name,
             "route": "cuda",
@@ -445,28 +683,31 @@ def main() -> int:
             "replaces": k.replaces,
             "launches": paths.total((op, dtype)),
             "max_abs_err": rec["max_abs_err"],
-            "ms": rec["forms"][at]["ms"],
-            "plain_ms": rec["forms"][at]["plain_ms"],
+            **{key: rec["forms"][at][key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "form": f"stab (apply_S) at T={FLAGSHIP_KRON[0]}, "
                     f"{FLAGSHIP_KRON[1][0]}x{FLAGSHIP_KRON[1][1]}; "
                     "the other forms under forms",
             "forms": rec["forms"],
         })
     main_form = {"smooth": "smooth", "residual": "residual", "apply": "apply_A",
-                 "fused_pre": "fused_pre", "fused_post": "fused_post"}
-    for (op, dtype), k in mg_kernels.KERNELS.items():
-        rec = mg_results[(op, dtype)]
-        at = rec["forms"][f"{main_form[op]} 129x511x511"]
+                 "fused_pre": "fused_pre", "fused_post": "fused_post",
+                 "residual_restrict": "residual_restrict",
+                 "prolong_correct": "prolong_correct"}
+    for (op, dtype, dim), k in mg_kernels.KERNELS.items():
+        rec = mg_results[(op, dtype, dim)]
+        T, gs = MG_MAIN[dim]
+        at = rec["forms"][f"{main_form[op]} {shape_key(T, gs)}"]
         kernels.append({
             "name": k.name,
             "route": "cuda",
             "source": mg_kernels.SOURCE,
             "replaces": k.replaces,
-            "launches": paths.total((op, dtype)),
+            "launches": paths.total((op, dtype, dim)),
             "max_abs_err": rec["max_abs_err"],
-            "ms": at["ms"],
-            "plain_ms": at["plain_ms"],
-            "form": f"{main_form[op]}, nu=2, at T=129, 511x511",
+            **{key: at[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "form": f"{main_form[op]}, nu=2, at T={T}, {'x'.join(map(str, gs))}",
             "forms": rec["forms"],
         })
     assert all(k["launches"] > 0 for k in kernels), [

@@ -1,19 +1,24 @@
 """spacetime_tpu_torch — the space-time heat-equation solver on PyTorch and CUDA.
 
 A port of ``spacetime_tpu`` (the JAX package, which stays the reference) to
-one NVIDIA H100. The host side is shared: meshes, P1 assembly, time grids,
-the wavelet structure and the multigrid hierarchy are imported from
-``spacetime_tpu`` modules that need no JAX. The device side is PyTorch, and
-the space-time operator B and its adjoint Bᵀ — Pallas kernels in the JAX
-package — are CUDA kernels written for ``sm_90a`` (``csrc/kron.cu``).
+one NVIDIA H100. It imports nothing of the JAX package: the host code it
+needs (meshes, P1 assembly, load quadrature, time grids, the wavelet
+structure, the multigrid hierarchy) is its own copy, kept bit-for-bit equal
+to the JAX package's by the tests. The device side is PyTorch, and the
+Pallas kernels of the JAX package on its path are CUDA kernels written for
+``sm_90a``: B and Bᵀ (``csrc/kron.cu``) and the multigrid V-cycle kernels
+(``csrc/mg.cu``).
 
-The first slice covers the structured 2-D main path: constant stencils,
-multi-shift geometric multigrid inner solves, standard PCG on uniform dyadic
-time grids, and mixed-precision refinement with native f64 residual legs.
+The port covers the structured main path in 2-D and 3-D (``smooth2d``,
+``smooth3d``): constant stencils, multi-shift geometric multigrid inner
+solves, standard PCG on uniform dyadic time grids, and mixed-precision
+refinement with native f64 residual legs.
 
+- ``fem``     — structured meshes, P1 assembly, loads, time grids, L2 error;
 - ``models``  — problems with exact solutions as torch functions;
 - ``ops``     — stencils, the B/Bᵀ kernels and their plain twins, the
-                wavelet transform and the multigrid V-cycle;
+                wavelet transform and the multigrid hierarchy and V-cycle
+                with its kernels;
 - ``solver``  — PCG and ``HeatSolver``;
 - ``convert`` — the JAX solver's params in the port's layout (tests);
 - ``run``     — the command-line interface (``python -m spacetime_tpu_torch``).

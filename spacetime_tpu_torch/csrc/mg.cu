@@ -1,55 +1,71 @@
-// The multi-shift multigrid V-cycle kernels on 2-D structured grids, for
-// sm_90a, in float and double.
+// The multi-shift multigrid V-cycle kernels on 2-D and 3-D structured
+// grids, for sm_90a, in float and double.
 //
-// Op = A + ω⊙M on a (T, ny, nx) field, one shift ω_t per time row. A and M
-// are constant P1 stencils given as one table of (wA, wM) pair groups: the
-// taps of a group are summed once and multiplied by the row's weight
-// wA + ω_t·wM (wA alone when wM = 0, ω_t·wM alone when wA = 0), and the
-// groups are added in order. This is `_op_rows` of
-// spacetime_tpu/ops/mg_pallas.py:156. Values outside [0, ny) × [0, nx)
-// are the zero Dirichlet ghost. The Chebyshev–Jacobi sweep of degree ν is
+// Op = A + ω⊙M on a (T, nz, ny, nx) field (nz = 1 in 2-D), one shift ω_t
+// per time row. A and M are constant P1 stencils given as one table of
+// (wA, wM) pair groups: the taps of a group are summed once and multiplied
+// by the row's weight wA + ω_t·wM (wA alone when wM = 0, ω_t·wM alone when
+// wA = 0), and the groups are added in order. This is `_op_rows` of
+// spacetime_tpu/ops/mg_pallas.py:156. Values outside the grid are the zero
+// Dirichlet ghost. The Chebyshev–Jacobi sweep of degree ν is
 //
 //   r = D⁻¹(b − Op x),  d = r/θ,  x += d,
 //   ν−1 times:  r −= D⁻¹ Op d,  d = ρ'ρ d + 2ρ' r/δ,  x += d
 //
 // with σ = 5/3, ρ = 1/σ, ρ' = 1/(2σ − ρ) and 1/D, 1/θ, 1/δ per time row.
+// R and P are the P1 restriction and prolongation between a fine grid of
+// extents 2n+1 and its coarse grid of extents n, per axis:
+//
+//   R r[c] = ½ Σ_{f ∈ {2c, 2c+1}^d} (r[f] + r[f + 1⃗]),
+//   P e[f] = ½ (e[⌊f/2⌋] + e[⌊(f − 1⃗)/2⌋])   (zero beyond the coarse grid).
 //
 //   mg_smooth    (K3, replaces _smooth_call, mg_pallas.py:190): the sweep,
-//                from x or from x = 0 (zero_init).
-//   mg_residual  (K4, replaces _residual_call, :316): b − Op x.
+//                from x or from x = 0 (zero_init). 2-D and 3-D.
+//   mg_residual  (K4, replaces _residual_call, :316): b − Op x. 2-D, 3-D.
 //   mg_apply     (K5, replaces _apply_stencil_call, :375): A x, one stencil
-//                (the pair table with every wM = 0).
+//                (the pair table with every wM = 0). 2-D and 3-D.
 //   mg_fused_pre (K6, replaces _fused_pre_call, :1318): x = the zero-init
-//                sweep on b, then r_c = R(b − Op x) on the coarse grid
-//                ((ny−1)/2, (nx−1)/2): r_c[c] = ½ Σ_{f ∈ {2c, 2c+1}²}
-//                (r[f] + r[f + (1,1)]).
+//                sweep on b, then r_c = R(b − Op x). 2-D.
 //   mg_fused_post (K7, replaces _fused_post_call, :1475): the sweep from
-//                x + P e_c, with P e_c[f] = ½ (e_c[f/2] + e_c[(f−1)/2])
-//                per axis (floor division, zero beyond the coarse grid).
+//                x + P e_c. 2-D.
+//   mg_residual_restrict (K8, replaces _residual_restrict_call, :1683):
+//                r_c = R(b − Op x); the fine residual is never stored.
+//                2-D and 3-D.
+//   mg_prolong_correct (K9, replaces _prolong_correct_call, :1913):
+//                x + P e_c; the prolonged field is never stored. 2-D, 3-D.
 //
 // What bounds them: memory traffic and instruction count, not arithmetic.
-// A sweep applies Op ν times, ~7 taps each, to data that is read once: the
-// fused kernels keep every intermediate (r, d, x, the fine residual and the
-// prolonged correction) out of device memory, so K6 reads b and writes x
-// and r_c, and K7 reads x, b and e_c and writes x: 2–3 fields per V-cycle
-// level visit where the plain PyTorch form moves ~15 fields per Op.
+// A sweep applies Op ν times (7 taps in 2-D, 15 in 3-D) to data that is
+// read once: the tiled kernels keep every intermediate (r, d, x) in shared
+// memory, so K3 reads x and b and writes x, one pass over three fields
+// where the plain PyTorch form moves ~15 fields per Op. K8 reads x and b
+// and writes the coarse residual (1/8 of a field in 3-D), K9 reads x and
+// e_c and writes x: the fine residual and the prolonged correction never
+// reach device memory.
 //
 // Design, the simple one:
-// - K4 and K5: one thread per output point, x fastest so that a warp's
-//   loads coalesce, int64 indexing, the pair table passed by value as a
-//   __grid_constant__ kernel parameter (as kron.cu).
-// - K3, K6, K7: one block of 256 threads owns a 32 × 32 tile of one time
-//   row (blockIdx.z = row). It loads the tile and a halo into shared
-//   memory and runs the recurrence there, each Op application shrinking
-//   the valid halo by one cell, with __syncthreads() between the stages.
-//   Halo: ν−1 for the zero-init sweep (G of the Pallas kernel, :214), ν
-//   for the sweep from x, ν + 1 for K6 (G + E, E = 2 for the residual and
-//   the restriction, :1342), ν for K7's prolonged field (:1525). Points of
+// - K4, K5, K8, K9: one thread per output point (K8: per coarse point),
+//   x fastest so that a warp's loads coalesce, 32-bit indices within a
+//   time row (64-bit only for the row's offset), the pair
+//   table passed by value as a __grid_constant__ kernel parameter (as
+//   kron.cu). K8 recomputes the residual at the 2^d · 2 fine points each
+//   coarse point sums (2× the fine residuals, as each is shared by up to
+//   2^d coarse points); K9 reads its two coarse values from global memory.
+// - K3, K6, K7: one block of 256 threads owns a brick of one time row
+//   (blockIdx.z = row): 32 × 32 in 2-D, 8 × 8 × 32 (z, y, x) in 3-D. It
+//   loads the brick and a halo into shared memory and runs the recurrence
+//   there, each Op application shrinking the valid halo by one cell, with
+//   __syncthreads() between the stages. Halo: ν−1 for the zero-init sweep
+//   (G of the Pallas kernel, :214), ν for the sweep from x, ν + 1 for K6
+//   (G + E, E = 2 for the residual and the restriction, :1342), ν for K7's
+//   prolonged field (:1525); in 3-D the halo grows in z as well. Points of
 //   the window outside the grid hold 0 in every buffer, which is the
-//   Dirichlet ghost (`_domain_mask`, :122) for tiles on the boundary and
+//   Dirichlet ghost (`_domain_mask`, :122) for bricks on the boundary and
 //   for ragged extents. Tiles start at multiples of 32, so fine tiles start
 //   at even offsets and a coarse point's four fine pairs lie in its own
-//   tile plus one fine row and column of halo.
+//   tile plus one fine row and column of halo. A 3-D brick with three
+//   double buffers takes 174.6 KB of shared memory at ν = 3, so the 3-D
+//   sweep takes ν ≤ 3.
 // - The restriction and the prolongation are exact pair sums; the Pallas
 //   kernels' banded 0/1 matrices on the MXU (`_dot_last`, :1253) are a TPU
 //   device and are not ported.
@@ -57,7 +73,8 @@
 // Sum order is the plain PyTorch twin's (spacetime_tpu_torch/ops/
 // mg_kernels.py): taps in table order within a group, one multiply per
 // group, groups in order, the recurrence scalars rounded as the twin
-// rounds them. The only difference is the compiler's FMA contraction.
+// rounds them, the restriction's pair sums over z, then y, then x. The
+// only difference is the compiler's FMA contraction.
 
 #include <cuda_runtime.h>
 
@@ -67,13 +84,14 @@ constexpr int kMaxPairGroups = 16;
 constexpr int kMaxPairTaps = 32;
 
 // (wA, wM) pair groups of two stencils on one grid: group g holds taps
-// [start[g], start[g+1]). Mirrored by ctypes in
+// [start[g], start[g+1]); dz = 0 in 2-D. Mirrored by ctypes in
 // spacetime_tpu_torch/ops/native.py.
 struct PairGroups {
   int n_groups;
   int start[kMaxPairGroups + 1];
   double wa[kMaxPairGroups];
   double wm[kMaxPairGroups];
+  int dz[kMaxPairTaps];
   int dy[kMaxPairTaps];
   int dx[kMaxPairTaps];
 };
@@ -81,13 +99,33 @@ struct PairGroups {
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = 32;
+constexpr int kTile = 32;  // the x (and 2-D y) extent of a brick
 constexpr int kHalfTile = kTile / 2;
 constexpr int64_t kMaxBlocks = 1 << 16;
 constexpr double kSigma = 5.0 / 3.0;
 // Above this much dynamic shared memory a kernel needs its limit raised
-// (48 KB, less room for the static group weights).
+// (48 KB, less room for the static group weights and tap offsets).
 constexpr int kDefaultSmem = 47 * 1024;
+
+// The grid of one time row; nz = 1 in 2-D. A row holds fewer than 2^31
+// points (the wrappers check), so in-row indices are 32-bit; only the time
+// row's offset t·S is 64-bit. The kernels are instantiated per dimension,
+// so the 2-D forms carry no z arithmetic.
+struct Grid {
+  int nz, ny, nx;
+};
+
+// The brick a block of the tiled kernels owns: (z, y, x) extents.
+template <int DIM>
+struct BrickOf;
+template <>
+struct BrickOf<2> {
+  static constexpr int z = 1, y = kTile, x = kTile;
+};
+template <>
+struct BrickOf<3> {
+  static constexpr int z = 8, y = 8, x = kTile;
+};
 
 // The combined weight of group g on a row with shift om.
 template <typename T>
@@ -99,68 +137,91 @@ __device__ __forceinline__ T group_weight(const PairGroups& pg, int g, T om) {
   return T(wa) + om * T(wm);
 }
 
-// Op at grid point (y, x) of one row X in device memory (zero outside).
-template <typename T>
+// Op at grid point (z, y, x) of one row X in device memory (zero outside).
+template <int DIM, typename T>
 __device__ __forceinline__ T op_global(const PairGroups& pg, T om,
-                                       const T* __restrict__ X, int64_t ny,
-                                       int64_t nx, int64_t y, int64_t x) {
+                                       const T* __restrict__ X,
+                                       const Grid& g, int z, int y, int x) {
   T out = T(0);
-  for (int g = 0; g < pg.n_groups; ++g) {
+  for (int gi = 0; gi < pg.n_groups; ++gi) {
     T acc = T(0);
-    for (int k = pg.start[g]; k < pg.start[g + 1]; ++k) {
-      const int64_t yy = y + pg.dy[k];
-      const int64_t xx = x + pg.dx[k];
-      if (yy >= 0 && yy < ny && xx >= 0 && xx < nx) acc += X[yy * nx + xx];
+    for (int k = pg.start[gi]; k < pg.start[gi + 1]; ++k) {
+      const int zz = DIM == 3 ? z + pg.dz[k] : 0;
+      const int yy = y + pg.dy[k];
+      const int xx = x + pg.dx[k];
+      if ((DIM == 2 || (zz >= 0 && zz < g.nz)) && yy >= 0 && yy < g.ny &&
+          xx >= 0 && xx < g.nx) {
+        acc += X[(zz * g.ny + yy) * g.nx + xx];
+      }
     }
-    out += group_weight(pg, g, om) * acc;
+    out += group_weight(pg, gi, om) * acc;
   }
   return out;
 }
 
-// Op at window point (ly, lx) of a shared-memory buffer whose out-of-grid
-// points hold 0; w holds the row's group weights.
+// Op at window offset o of a shared-memory buffer whose out-of-grid points
+// hold 0; w holds the row's group weights, toff the taps' window offsets.
 template <typename T>
 __device__ __forceinline__ T op_shared(const PairGroups& pg, const T* w,
-                                       const T* buf, int pitch, int ly,
-                                       int lx) {
+                                       const int* toff, const T* buf, int o) {
   T out = T(0);
   for (int g = 0; g < pg.n_groups; ++g) {
     T acc = T(0);
-    for (int k = pg.start[g]; k < pg.start[g + 1]; ++k) {
-      acc += buf[(ly + pg.dy[k]) * pitch + lx + pg.dx[k]];
-    }
+    for (int k = pg.start[g]; k < pg.start[g + 1]; ++k) acc += buf[o + toff[k]];
     out += w[g] * acc;
   }
   return out;
 }
 
-// A tile of one row and its halo in shared memory: window point (ly, lx)
-// is grid point (y0 + ly, x0 + lx).
+// A brick of one row and its halo in shared memory: window point
+// (lz, ly, lx) is grid point (z0 + lz, y0 + ly, x0 + lx), at offset
+// lz·sz + ly·sy + lx. The halo is H in y and x, and in z in 3-D.
 struct Window {
-  int64_t ny, nx;
-  int64_t y0, x0;
-  int H;      // halo of the window around the kTile × kTile tile
-  int pitch;  // kTile + 2H
+  Grid g;
+  int z0, y0, x0;
+  int H;
+  int sy, sz;  // x extent of the window; x · y extents
+  int volume;  // points in the window
 };
 
-__device__ __forceinline__ Window make_window(int64_t ny, int64_t nx, int H) {
-  return Window{ny, nx, int64_t(blockIdx.y) * kTile - H,
-                int64_t(blockIdx.x) * kTile - H, H, kTile + 2 * H};
+// blockIdx.x walks the x bricks, blockIdx.y the (z brick, y brick) pairs.
+template <int DIM>
+__device__ __forceinline__ Window make_window(const Grid& g, int H) {
+  using B = BrickOf<DIM>;
+  const int hz = DIM == 3 ? H : 0;
+  const int nyb = (g.ny + B::y - 1) / B::y;
+  const int zb = DIM == 3 ? int(blockIdx.y) / nyb : 0;
+  const int yb = int(blockIdx.y) - zb * nyb;
+  const int sy = B::x + 2 * H;
+  const int sz = sy * (B::y + 2 * H);
+  return Window{g, zb * B::z - hz, yb * B::y - H, int(blockIdx.x) * B::x - H,
+                H, sy, sz, sz * (B::z + 2 * hz)};
 }
 
-// f(offset, ly, lx, row offset in the grid, inside the grid) for every
-// point of the tile grown by h cells on each side, spread over the block.
-template <typename F>
+// f(offset, grid z, grid y, grid x, index in the row, inside the grid) for
+// every point of the brick grown by h cells on each side (in z only in
+// 3-D), spread over the block.
+template <int DIM, typename F>
 __device__ __forceinline__ void for_region(const Window& w, int h, F f) {
-  const int n = kTile + 2 * h;
+  using B = BrickOf<DIM>;
+  const int nx = B::x + 2 * h;
+  const int nyx = (B::y + 2 * h) * nx;
+  const int n = DIM == 3 ? (B::z + 2 * h) * nyx : nyx;
   const int s = w.H - h;
-  for (int i = threadIdx.x; i < n * n; i += blockDim.x) {
-    const int ly = s + i / n;
-    const int lx = s + i % n;
-    const int64_t gy = w.y0 + ly;
-    const int64_t gx = w.x0 + lx;
-    const bool inside = gy >= 0 && gy < w.ny && gx >= 0 && gx < w.nx;
-    f(ly * w.pitch + lx, ly, lx, gy * w.nx + gx, inside);
+  const int sz = DIM == 3 ? s : 0;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int iz = DIM == 3 ? i / nyx : 0;
+    const int r = i - iz * nyx;
+    const int lz = sz + iz;
+    const int ly = s + r / nx;
+    const int lx = s + r % nx;
+    const int gz = w.z0 + lz;
+    const int gy = w.y0 + ly;
+    const int gx = w.x0 + lx;
+    const bool inside = (DIM == 2 || (gz >= 0 && gz < w.g.nz)) && gy >= 0 &&
+                        gy < w.g.ny && gx >= 0 && gx < w.g.nx;
+    f(lz * w.sz + ly * w.sy + lx, gz, gy, gx, (gz * w.g.ny + gy) * w.g.nx + gx,
+      inside);
   }
 }
 
@@ -169,17 +230,32 @@ struct RowCoef {
   T om, iD, iT, iDel;
 };
 
-// The degree-nu sweep on the window. X holds x on the tile grown by hi + 1
-// cells (zero outside the grid) unless zero_init; b is the row in device
-// memory. On return X holds the smoothed x on the tile grown by
-// hi − (nu − 1) cells. Ends with a __syncthreads().
+// The row's group weights and the taps' window offsets, in shared memory.
+// Ends with a __syncthreads().
 template <typename T>
-__device__ void cheb_sweep(const PairGroups& pg, const T* w,
+__device__ __forceinline__ void row_tables(const PairGroups& pg, T om,
+                                           const Window& win, T* wts,
+                                           int* toff) {
+  if (threadIdx.x < pg.n_groups) {
+    wts[threadIdx.x] = group_weight(pg, int(threadIdx.x), om);
+  }
+  for (int k = threadIdx.x; k < pg.start[pg.n_groups]; k += blockDim.x) {
+    toff[k] = pg.dz[k] * win.sz + pg.dy[k] * win.sy + pg.dx[k];
+  }
+  __syncthreads();
+}
+
+// The degree-nu sweep on the window. X holds x on the brick grown by hi + 1
+// cells (zero outside the grid) unless zero_init; b is the row in device
+// memory. On return X holds the smoothed x on the brick grown by
+// hi − (nu − 1) cells. Ends with a __syncthreads().
+template <int DIM, typename T>
+__device__ void cheb_sweep(const PairGroups& pg, const T* w, const int* toff,
                            const RowCoef<T>& c, const T* __restrict__ b,
                            const Window& win, T* X, T* D, T* R, int nu,
                            bool zero_init, int hi) {
   if (zero_init) {
-    for_region(win, hi, [&](int o, int, int, int64_t g, bool in) {
+    for_region<DIM>(win, hi, [&](int o, int, int, int, int g, bool in) {
       const T r = in ? c.iD * b[g] : T(0);
       const T d = r * c.iT;
       R[o] = r;
@@ -188,12 +264,11 @@ __device__ void cheb_sweep(const PairGroups& pg, const T* w,
     });
     __syncthreads();
   } else {
-    for_region(win, hi, [&](int o, int ly, int lx, int64_t g, bool in) {
-      R[o] = in ? c.iD * (b[g] - op_shared(pg, w, X, win.pitch, ly, lx))
-                : T(0);
+    for_region<DIM>(win, hi, [&](int o, int, int, int, int g, bool in) {
+      R[o] = in ? c.iD * (b[g] - op_shared(pg, w, toff, X, o)) : T(0);
     });
     __syncthreads();
-    for_region(win, hi, [&](int o, int, int, int64_t, bool in) {
+    for_region<DIM>(win, hi, [&](int o, int, int, int, int, bool in) {
       const T d = in ? R[o] * c.iT : T(0);
       D[o] = d;
       X[o] = X[o] + d;
@@ -205,11 +280,11 @@ __device__ void cheb_sweep(const PairGroups& pg, const T* w,
     const double rho_new = 1.0 / (2.0 * kSigma - rho);
     const T c1 = T(rho_new * rho);
     const T c2 = T(2.0 * rho_new) * c.iDel;
-    for_region(win, hi - k, [&](int o, int ly, int lx, int64_t, bool in) {
-      if (in) R[o] = R[o] - c.iD * op_shared(pg, w, D, win.pitch, ly, lx);
+    for_region<DIM>(win, hi - k, [&](int o, int, int, int, int, bool in) {
+      if (in) R[o] = R[o] - c.iD * op_shared(pg, w, toff, D, o);
     });
     __syncthreads();
-    for_region(win, hi - k, [&](int o, int, int, int64_t, bool in) {
+    for_region<DIM>(win, hi - k, [&](int o, int, int, int, int, bool in) {
       if (in) {
         const T d = c1 * D[o] + c2 * R[o];
         D[o] = d;
@@ -235,40 +310,40 @@ __device__ __forceinline__ RowCoef<T> row_coef(const T* omega, const T* invD,
   return RowCoef<T>{omega[t], invD[t], invT[t], invDel[t]};
 }
 
-template <typename T>
+__device__ __forceinline__ int64_t row_size(const Grid& g) {
+  return int64_t(g.nz) * g.ny * g.nx;
+}
+
+template <int DIM, typename T>
 __global__ void __launch_bounds__(kThreads)
     mg_smooth_kernel(const T* __restrict__ x, const T* __restrict__ b,
                      const T* __restrict__ omega, const T* __restrict__ invD,
                      const T* __restrict__ invT,
                      const T* __restrict__ invDel, T* __restrict__ out,
-                     int64_t ny, int64_t nx,
-                     const __grid_constant__ PairGroups pg, int nu,
+                     Grid g, const __grid_constant__ PairGroups pg, int nu,
                      int zero_init) {
   __shared__ T wts[kMaxPairGroups];
+  __shared__ int toff[kMaxPairTaps];
   const int64_t t = blockIdx.z;
-  const int64_t S = ny * nx;
+  const int64_t S = row_size(g);
   const RowCoef<T> c = row_coef(omega, invD, invT, invDel, t);
-  if (threadIdx.x < pg.n_groups) {
-    wts[threadIdx.x] = group_weight(pg, int(threadIdx.x), c.om);
-  }
   const int H = zero_init ? nu - 1 : nu;
-  const Window win = make_window(ny, nx, H);
-  const int area = win.pitch * win.pitch;
+  const Window win = make_window<DIM>(g, H);
   T* X = window_buffers<T>();
-  T* D = X + area;
-  T* R = D + area;
+  T* D = X + win.volume;
+  T* R = D + win.volume;
   if (!zero_init) {
     const T* xt = x + t * S;
-    for_region(win, H, [&](int o, int, int, int64_t g, bool in) {
-      X[o] = in ? xt[g] : T(0);
+    for_region<DIM>(win, H, [&](int o, int, int, int, int gi, bool in) {
+      X[o] = in ? xt[gi] : T(0);
     });
   }
-  __syncthreads();
-  cheb_sweep(pg, wts, c, b + t * S, win, X, D, R, nu, zero_init != 0,
-             zero_init ? H : H - 1);
+  row_tables(pg, c.om, win, wts, toff);
+  cheb_sweep<DIM>(pg, wts, toff, c, b + t * S, win, X, D, R, nu,
+                  zero_init != 0, zero_init ? H : H - 1);
   T* ot = out + t * S;
-  for_region(win, 0, [&](int o, int, int, int64_t g, bool in) {
-    if (in) ot[g] = X[o];
+  for_region<DIM>(win, 0, [&](int o, int, int, int, int gi, bool in) {
+    if (in) ot[gi] = X[o];
   });
 }
 
@@ -278,45 +353,42 @@ __global__ void __launch_bounds__(kThreads)
                         const T* __restrict__ invD,
                         const T* __restrict__ invT,
                         const T* __restrict__ invDel, T* __restrict__ xo,
-                        T* __restrict__ rco, int64_t ny, int64_t nx,
+                        T* __restrict__ rco, Grid g,
                         const __grid_constant__ PairGroups pg, int nu) {
   __shared__ T wts[kMaxPairGroups];
+  __shared__ int toff[kMaxPairTaps];
   const int64_t t = blockIdx.z;
-  const int64_t S = ny * nx;
-  const int64_t nyc = (ny - 1) / 2;
-  const int64_t nxc = (nx - 1) / 2;
+  const int64_t S = row_size(g);
+  const int nyc = (g.ny - 1) / 2;
+  const int nxc = (g.nx - 1) / 2;
   const RowCoef<T> c = row_coef(omega, invD, invT, invDel, t);
-  if (threadIdx.x < pg.n_groups) {
-    wts[threadIdx.x] = group_weight(pg, int(threadIdx.x), c.om);
-  }
   const int H = nu + 1;
-  const Window win = make_window(ny, nx, H);
-  const int area = win.pitch * win.pitch;
+  const Window win = make_window<2>(g, H);
   T* X = window_buffers<T>();
-  T* D = X + area;
-  T* R = D + area;
+  T* D = X + win.volume;
+  T* R = D + win.volume;
   const T* bt = b + t * S;
-  __syncthreads();
-  cheb_sweep(pg, wts, c, bt, win, X, D, R, nu, true, H);
+  row_tables(pg, c.om, win, wts, toff);
+  cheb_sweep<2>(pg, wts, toff, c, bt, win, X, D, R, nu, true, H);
   // X is valid on the tile grown by 2; the residual on the tile grown by 1
   // (one fine row and column past the tile is what the restriction reads).
-  for_region(win, 1, [&](int o, int ly, int lx, int64_t g, bool in) {
-    R[o] = in ? bt[g] - op_shared(pg, wts, X, win.pitch, ly, lx) : T(0);
+  for_region<2>(win, 1, [&](int o, int, int, int, int gi, bool in) {
+    R[o] = in ? bt[gi] - op_shared(pg, wts, toff, X, o) : T(0);
   });
   T* xt = xo + t * S;
-  for_region(win, 0, [&](int o, int, int, int64_t g, bool in) {
-    if (in) xt[g] = X[o];
+  for_region<2>(win, 0, [&](int o, int, int, int, int gi, bool in) {
+    if (in) xt[gi] = X[o];
   });
   __syncthreads();
   T* rct = rco + t * nyc * nxc;
+  const int p = win.sy;
   for (int i = threadIdx.x; i < kHalfTile * kHalfTile; i += blockDim.x) {
     const int lcy = i / kHalfTile;
     const int lcx = i % kHalfTile;
-    const int64_t cy = int64_t(blockIdx.y) * kHalfTile + lcy;
-    const int64_t cx = int64_t(blockIdx.x) * kHalfTile + lcx;
+    const int cy = int(blockIdx.y) * kHalfTile + lcy;
+    const int cx = int(blockIdx.x) * kHalfTile + lcx;
     if (cy >= nyc || cx >= nxc) continue;
-    const int o = (H + 2 * lcy) * win.pitch + H + 2 * lcx;  // fine (2cy, 2cx)
-    const int p = win.pitch;
+    const int o = (H + 2 * lcy) * p + H + 2 * lcx;  // fine (2cy, 2cx)
     auto h = [&](int dy, int dx) {
       const int q = o + dy * p + dx;
       return R[q] + R[q + p + 1];
@@ -335,84 +407,162 @@ __global__ void __launch_bounds__(kThreads)
                          const T* __restrict__ invD,
                          const T* __restrict__ invT,
                          const T* __restrict__ invDel, T* __restrict__ out,
-                         int64_t ny, int64_t nx,
-                         const __grid_constant__ PairGroups pg, int nu) {
+                         Grid g, const __grid_constant__ PairGroups pg,
+                         int nu) {
   __shared__ T wts[kMaxPairGroups];
+  __shared__ int toff[kMaxPairTaps];
   const int64_t t = blockIdx.z;
-  const int64_t S = ny * nx;
-  const int64_t nyc = (ny - 1) / 2;
-  const int64_t nxc = (nx - 1) / 2;
+  const int64_t S = row_size(g);
+  const int nyc = (g.ny - 1) / 2;
+  const int nxc = (g.nx - 1) / 2;
   const RowCoef<T> c = row_coef(omega, invD, invT, invDel, t);
-  if (threadIdx.x < pg.n_groups) {
-    wts[threadIdx.x] = group_weight(pg, int(threadIdx.x), c.om);
-  }
   const int H = nu;
-  const Window win = make_window(ny, nx, H);
-  const int area = win.pitch * win.pitch;
+  const Window win = make_window<2>(g, H);
   T* X = window_buffers<T>();
-  T* D = X + area;
-  T* R = D + area;
+  T* D = X + win.volume;
+  T* R = D + win.volume;
   const T* xt = x + t * S;
   const T* et = ec + t * nyc * nxc;
-  auto coarse = [&](int64_t cy, int64_t cx) {
+  auto coarse = [&](int cy, int cx) {
     return (cy >= 0 && cy < nyc && cx >= 0 && cx < nxc) ? et[cy * nxc + cx]
                                                         : T(0);
   };
   // x + P e_c on the tile grown by nu
-  for_region(win, H, [&](int o, int ly, int lx, int64_t g, bool in) {
+  for_region<2>(win, H, [&](int o, int, int fy, int fx, int gi, bool in) {
     if (!in) {
       X[o] = T(0);
       return;
     }
-    const int64_t fy = win.y0 + ly;
-    const int64_t fx = win.x0 + lx;
     const T e0 = coarse(fy / 2, fx / 2);
-    const T e1 = (fy >= 1 && fx >= 1) ? coarse((fy - 1) / 2, (fx - 1) / 2)
-                                      : T(0);
-    X[o] = xt[g] + T(0.5) * (e0 + e1);
+    const T e1 =
+        (fy >= 1 && fx >= 1) ? coarse((fy - 1) / 2, (fx - 1) / 2) : T(0);
+    X[o] = xt[gi] + T(0.5) * (e0 + e1);
   });
-  __syncthreads();
-  cheb_sweep(pg, wts, c, b + t * S, win, X, D, R, nu, false, H - 1);
+  row_tables(pg, c.om, win, wts, toff);
+  cheb_sweep<2>(pg, wts, toff, c, b + t * S, win, X, D, R, nu, false, H - 1);
   T* ot = out + t * S;
-  for_region(win, 0, [&](int o, int, int, int64_t g, bool in) {
-    if (in) ot[g] = X[o];
+  for_region<2>(win, 0, [&](int o, int, int, int, int gi, bool in) {
+    if (in) ot[gi] = X[o];
   });
 }
 
-template <typename T>
+// (t, z, y, x) of flat index idx of a (nt, nz, ny, nx) field: one 64-bit
+// division for the row, 32-bit ones within it.
+struct Point {
+  int64_t t;
+  int z, y, x;
+};
+
+template <int DIM>
+__device__ __forceinline__ Point point_of(int64_t idx, const Grid& g) {
+  const int64_t S = row_size(g);
+  const int64_t t = idx / S;
+  const int r = int(idx - t * S);
+  const int z = DIM == 3 ? r / (g.ny * g.nx) : 0;
+  const int ryx = r - z * (g.ny * g.nx);
+  const int y = ryx / g.nx;
+  return Point{t, z, y, ryx - y * g.nx};
+}
+
+// The coarse grid of a fine grid with odd extents (nz = 1 stays in 2-D).
+template <int DIM>
+__device__ __forceinline__ Grid coarse_grid(const Grid& g) {
+  return Grid{DIM == 3 ? (g.nz - 1) / 2 : 1, (g.ny - 1) / 2, (g.nx - 1) / 2};
+}
+
+// The grid-stride loop of the one-thread-per-point kernels.
+#define FOR_EACH_INDEX(idx, total)                                       \
+  for (int64_t idx = blockIdx.x * int64_t(blockDim.x) + threadIdx.x;     \
+       idx < (total); idx += int64_t(gridDim.x) * blockDim.x)
+
+template <int DIM, typename T>
 __global__ void mg_residual_kernel(const T* __restrict__ x,
                                    const T* __restrict__ b,
                                    const T* __restrict__ omega,
-                                   T* __restrict__ out, int64_t nt,
-                                   int64_t ny, int64_t nx,
+                                   T* __restrict__ out, int64_t nt, Grid g,
                                    const __grid_constant__ PairGroups pg) {
-  const int64_t S = ny * nx;
-  const int64_t total = nt * S;
-  for (int64_t idx = blockIdx.x * int64_t(blockDim.x) + threadIdx.x;
-       idx < total; idx += int64_t(gridDim.x) * blockDim.x) {
-    const int64_t t = idx / S;
-    const int64_t r = idx - t * S;
-    const int64_t y = r / nx;
-    const int64_t xx = r - y * nx;
-    out[idx] = b[idx] - op_global(pg, omega[t], x + t * S, ny, nx, y, xx);
+  const int64_t S = row_size(g);
+  FOR_EACH_INDEX(idx, nt * S) {
+    const Point p = point_of<DIM>(idx, g);
+    out[idx] = b[idx] -
+               op_global<DIM>(pg, omega[p.t], x + p.t * S, g, p.z, p.y, p.x);
   }
 }
 
-template <typename T>
+template <int DIM, typename T>
 __global__ void mg_apply_kernel(const T* __restrict__ x, T* __restrict__ out,
-                                int64_t nt, int64_t ny, int64_t nx,
+                                int64_t nt, Grid g,
                                 const __grid_constant__ PairGroups pg) {
-  const int64_t S = ny * nx;
-  const int64_t total = nt * S;
-  for (int64_t idx = blockIdx.x * int64_t(blockDim.x) + threadIdx.x;
-       idx < total; idx += int64_t(gridDim.x) * blockDim.x) {
-    const int64_t t = idx / S;
-    const int64_t r = idx - t * S;
-    const int64_t y = r / nx;
-    const int64_t xx = r - y * nx;
-    out[idx] = op_global(pg, T(0), x + t * S, ny, nx, y, xx);
+  const int64_t S = row_size(g);
+  FOR_EACH_INDEX(idx, nt * S) {
+    const Point p = point_of<DIM>(idx, g);
+    out[idx] = op_global<DIM>(pg, T(0), x + p.t * S, g, p.z, p.y, p.x);
   }
 }
+
+template <int DIM, typename T>
+__global__ void mg_residual_restrict_kernel(
+    const T* __restrict__ x, const T* __restrict__ b,
+    const T* __restrict__ omega, T* __restrict__ rc, int64_t nt, Grid g,
+    const __grid_constant__ PairGroups pg) {
+  const int64_t S = row_size(g);
+  const Grid gc = coarse_grid<DIM>(g);
+  FOR_EACH_INDEX(idx, nt * row_size(gc)) {
+    const Point c = point_of<DIM>(idx, gc);
+    const T om = omega[c.t];
+    const T* xt = x + c.t * S;
+    const T* bt = b + c.t * S;
+    // the fine residual at (z, y, x); every point this reads is inside the
+    // grid, since 2c + 2 ≤ 2n on extents 2n + 1
+    auto res = [&](int z, int y, int xx) {
+      return bt[(z * g.ny + y) * g.nx + xx] -
+             op_global<DIM>(pg, om, xt, g, z, y, xx);
+    };
+    // h = r[f] + r[f + 1⃗] at fine f = 2c + (a, p, q), then pair sums over
+    // z (3-D), y and x in turn
+    const int fz = 2 * c.z, fy = 2 * c.y, fx = 2 * c.x;
+    constexpr int dz = DIM == 3 ? 1 : 0;
+    auto h = [&](int a, int p, int q) {
+      return res(fz + a, fy + p, fx + q) +
+             res(fz + a + dz, fy + p + 1, fx + q + 1);
+    };
+    T py[2];
+    for (int q = 0; q < 2; ++q) {
+      T pz[2];
+      for (int p = 0; p < 2; ++p) {
+        pz[p] = DIM == 3 ? h(0, p, q) + h(1, p, q) : h(0, p, q);
+      }
+      py[q] = pz[0] + pz[1];
+    }
+    rc[idx] = T(0.5) * (py[0] + py[1]);
+  }
+}
+
+template <int DIM, typename T>
+__global__ void mg_prolong_correct_kernel(const T* __restrict__ x,
+                                          const T* __restrict__ ec,
+                                          T* __restrict__ out, int64_t nt,
+                                          Grid g) {
+  const Grid gc = coarse_grid<DIM>(g);
+  const int64_t Sc = row_size(gc);
+  FOR_EACH_INDEX(idx, nt * row_size(g)) {
+    const Point f = point_of<DIM>(idx, g);
+    const T* et = ec + f.t * Sc;
+    auto coarse = [&](int cz, int cy, int cx) {
+      return (cz < gc.nz && cy < gc.ny && cx < gc.nx)
+                 ? et[(cz * gc.ny + cy) * gc.nx + cx]
+                 : T(0);
+    };
+    const T e0 = coarse(f.z / 2, f.y / 2, f.x / 2);
+    const T e1 = (f.y >= 1 && f.x >= 1 && (DIM == 2 || f.z >= 1))
+                     ? coarse(DIM == 3 ? (f.z - 1) / 2 : 0, (f.y - 1) / 2,
+                              (f.x - 1) / 2)
+                     : T(0);
+    out[idx] = x[idx] + T(0.5) * (e0 + e1);
+  }
+}
+
+#undef FOR_EACH_INDEX
 
 int blocks_for(int64_t total) {
   int64_t b = (total + kThreads - 1) / kThreads;
@@ -420,17 +570,24 @@ int blocks_for(int64_t total) {
   return int(b < kMaxBlocks ? b : kMaxBlocks);
 }
 
-dim3 tiles(int64_t nt, int64_t ny, int64_t nx) {
-  return dim3(unsigned((nx + kTile - 1) / kTile),
-              unsigned((ny + kTile - 1) / kTile), unsigned(nt));
+// The blocks of a tiled kernel: x bricks, (z brick, y brick) pairs, rows.
+template <int DIM>
+dim3 bricks(int64_t nt, const Grid& g) {
+  using B = BrickOf<DIM>;
+  return dim3(unsigned((g.nx + B::x - 1) / B::x),
+              unsigned(((g.nz + B::z - 1) / B::z) * ((g.ny + B::y - 1) / B::y)),
+              unsigned(nt));
 }
 
-// Dynamic shared memory of a tiled kernel with halo H; raises the kernel's
-// limit above the 48 KB default where needed.
-template <typename T, typename K>
+// Dynamic shared memory of a tiled kernel with halo H: three buffers over
+// the window. Raises the kernel's limit above the 48 KB default where
+// needed; returns the cudaError_t of that.
+template <int DIM, typename T, typename K>
 int window_bytes(K kernel, int H, size_t* bytes) {
-  const size_t pitch = size_t(kTile + 2 * H);
-  *bytes = 3 * pitch * pitch * sizeof(T);
+  using B = BrickOf<DIM>;
+  const size_t hz = DIM == 3 ? size_t(H) : 0;
+  *bytes = 3 * sizeof(T) * (B::x + 2 * size_t(H)) * (B::y + 2 * size_t(H)) *
+           (B::z + 2 * hz);
   if (*bytes > size_t(kDefaultSmem)) {
     return int(cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(*bytes)));
@@ -438,73 +595,106 @@ int window_bytes(K kernel, int H, size_t* bytes) {
   return 0;
 }
 
-template <typename T>
+cudaStream_t as_stream(void* stream) {
+  return static_cast<cudaStream_t>(stream);
+}
+
+template <int DIM, typename T>
 int launch_smooth(const T* x, const T* b, const T* omega, const T* invD,
                   const T* invT, const T* invDel, T* out, int64_t nt,
-                  int64_t ny, int64_t nx, const PairGroups* pg, int nu,
-                  int zero_init, void* stream) {
+                  Grid g, const PairGroups* pg, int nu, int zero_init,
+                  void* stream) {
   size_t bytes = 0;
-  const int err = window_bytes<T>(mg_smooth_kernel<T>,
-                                  zero_init ? nu - 1 : nu, &bytes);
+  const int err = window_bytes<DIM, T>(mg_smooth_kernel<DIM, T>,
+                                       zero_init ? nu - 1 : nu, &bytes);
   if (err != 0) return err;
-  mg_smooth_kernel<T><<<tiles(nt, ny, nx), kThreads, bytes,
-                        static_cast<cudaStream_t>(stream)>>>(
-      x, b, omega, invD, invT, invDel, out, ny, nx, *pg, nu, zero_init);
+  mg_smooth_kernel<DIM, T><<<bricks<DIM>(nt, g), kThreads, bytes,
+                             as_stream(stream)>>>(
+      x, b, omega, invD, invT, invDel, out, g, *pg, nu, zero_init);
   return int(cudaGetLastError());
 }
 
 template <typename T>
 int launch_fused_pre(const T* b, const T* omega, const T* invD,
                      const T* invT, const T* invDel, T* xo, T* rco,
-                     int64_t nt, int64_t ny, int64_t nx,
-                     const PairGroups* pg, int nu, void* stream) {
+                     int64_t nt, Grid g, const PairGroups* pg, int nu,
+                     void* stream) {
   size_t bytes = 0;
-  const int err = window_bytes<T>(mg_fused_pre_kernel<T>, nu + 1, &bytes);
+  const int err =
+      window_bytes<2, T>(mg_fused_pre_kernel<T>, nu + 1, &bytes);
   if (err != 0) return err;
-  mg_fused_pre_kernel<T><<<tiles(nt, ny, nx), kThreads, bytes,
-                           static_cast<cudaStream_t>(stream)>>>(
-      b, omega, invD, invT, invDel, xo, rco, ny, nx, *pg, nu);
+  mg_fused_pre_kernel<T><<<bricks<2>(nt, g), kThreads, bytes,
+                           as_stream(stream)>>>(b, omega, invD, invT, invDel,
+                                                xo, rco, g, *pg, nu);
   return int(cudaGetLastError());
 }
 
 template <typename T>
 int launch_fused_post(const T* x, const T* b, const T* ec, const T* omega,
                       const T* invD, const T* invT, const T* invDel, T* out,
-                      int64_t nt, int64_t ny, int64_t nx,
-                      const PairGroups* pg, int nu, void* stream) {
+                      int64_t nt, Grid g, const PairGroups* pg, int nu,
+                      void* stream) {
   size_t bytes = 0;
-  const int err = window_bytes<T>(mg_fused_post_kernel<T>, nu, &bytes);
+  const int err = window_bytes<2, T>(mg_fused_post_kernel<T>, nu, &bytes);
   if (err != 0) return err;
-  mg_fused_post_kernel<T><<<tiles(nt, ny, nx), kThreads, bytes,
-                            static_cast<cudaStream_t>(stream)>>>(
-      x, b, ec, omega, invD, invT, invDel, out, ny, nx, *pg, nu);
+  mg_fused_post_kernel<T><<<bricks<2>(nt, g), kThreads, bytes,
+                            as_stream(stream)>>>(
+      x, b, ec, omega, invD, invT, invDel, out, g, *pg, nu);
   return int(cudaGetLastError());
 }
 
-template <typename T>
+int64_t points(int64_t nt, const Grid& g) {
+  return nt * int64_t(g.nz) * g.ny * g.nx;
+}
+
+template <int DIM, typename T>
 int launch_residual(const T* x, const T* b, const T* omega, T* out,
-                    int64_t nt, int64_t ny, int64_t nx, const PairGroups* pg,
-                    void* stream) {
-  mg_residual_kernel<T><<<blocks_for(nt * ny * nx), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      x, b, omega, out, nt, ny, nx, *pg);
+                    int64_t nt, Grid g, const PairGroups* pg, void* stream) {
+  mg_residual_kernel<DIM, T><<<blocks_for(points(nt, g)), kThreads, 0,
+                               as_stream(stream)>>>(x, b, omega, out, nt, g,
+                                                    *pg);
   return int(cudaGetLastError());
 }
 
-template <typename T>
-int launch_apply(const T* x, T* out, int64_t nt, int64_t ny, int64_t nx,
+template <int DIM, typename T>
+int launch_apply(const T* x, T* out, int64_t nt, Grid g,
                  const PairGroups* pg, void* stream) {
-  mg_apply_kernel<T><<<blocks_for(nt * ny * nx), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(x, out, nt, ny,
-                                                            nx, *pg);
+  mg_apply_kernel<DIM, T><<<blocks_for(points(nt, g)), kThreads, 0,
+                            as_stream(stream)>>>(x, out, nt, g, *pg);
   return int(cudaGetLastError());
 }
+
+template <int DIM, typename T>
+int launch_residual_restrict(const T* x, const T* b, const T* omega, T* rc,
+                             int64_t nt, Grid g, const PairGroups* pg,
+                             void* stream) {
+  const Grid gc{DIM == 3 ? (g.nz - 1) / 2 : 1, (g.ny - 1) / 2,
+                (g.nx - 1) / 2};
+  mg_residual_restrict_kernel<DIM, T><<<blocks_for(points(nt, gc)), kThreads,
+                                        0, as_stream(stream)>>>(
+      x, b, omega, rc, nt, g, *pg);
+  return int(cudaGetLastError());
+}
+
+template <int DIM, typename T>
+int launch_prolong_correct(const T* x, const T* ec, T* out, int64_t nt,
+                           Grid g, void* stream) {
+  mg_prolong_correct_kernel<DIM, T><<<blocks_for(points(nt, g)), kThreads, 0,
+                                      as_stream(stream)>>>(x, ec, out, nt, g);
+  return int(cudaGetLastError());
+}
+
+// The 2-D or 3-D instantiation of launcher L for a runtime dim.
+#define BY_DIM(L, T, ...) \
+  (dim == 3 ? L<3, T>(__VA_ARGS__) : L<2, T>(__VA_ARGS__))
 
 }  // namespace
 
 // Plain C entry points (bound with ctypes). Each returns the cudaError_t of
 // the launch. The shift and Chebyshev columns are (T,) vectors; nt ≤ 65535
-// (the row is blockIdx.z of the tiled kernels).
+// (the row is blockIdx.z of the tiled kernels). (nz, ny, nx, dim) is the
+// grid of one row, nz = 1 and dim = 2 in 2-D, with fewer than 2^31 points;
+// K6 and K7 take 2-D grids (ny, nx).
 extern "C" {
 
 int mg_pairs_size() { return int(sizeof(PairGroups)); }
@@ -512,26 +702,31 @@ int mg_pairs_size() { return int(sizeof(PairGroups)); }
 #define MG_ENTRY_POINTS(T, SFX)                                               \
   int mg_smooth_##SFX(const T* x, const T* b, const T* omega, const T* invD,  \
                       const T* invT, const T* invDel, T* out, int64_t nt,     \
-                      int64_t ny, int64_t nx, const PairGroups* pg, int nu,   \
-                      int zero_init, void* stream) {                          \
-    return launch_smooth<T>(x, b, omega, invD, invT, invDel, out, nt, ny, nx, \
-                            pg, nu, zero_init, stream);                       \
+                      int64_t nz, int64_t ny, int64_t nx, int dim,            \
+                      const PairGroups* pg, int nu, int zero_init,            \
+                      void* stream) {                                         \
+    const Grid g{int(nz), int(ny), int(nx)};                                  \
+    return BY_DIM(launch_smooth, T, x, b, omega, invD, invT, invDel, out, nt, \
+                  g, pg, nu, zero_init, stream);                              \
   }                                                                           \
   int mg_residual_##SFX(const T* x, const T* b, const T* omega, T* out,       \
-                        int64_t nt, int64_t ny, int64_t nx,                   \
-                        const PairGroups* pg, void* stream) {                 \
-    return launch_residual<T>(x, b, omega, out, nt, ny, nx, pg, stream);      \
+                        int64_t nt, int64_t nz, int64_t ny, int64_t nx,       \
+                        int dim, const PairGroups* pg, void* stream) {        \
+    const Grid g{int(nz), int(ny), int(nx)};                                  \
+    return BY_DIM(launch_residual, T, x, b, omega, out, nt, g, pg, stream);   \
   }                                                                           \
-  int mg_apply_##SFX(const T* x, T* out, int64_t nt, int64_t ny, int64_t nx,  \
-                     const PairGroups* pg, void* stream) {                    \
-    return launch_apply<T>(x, out, nt, ny, nx, pg, stream);                   \
+  int mg_apply_##SFX(const T* x, T* out, int64_t nt, int64_t nz, int64_t ny,  \
+                     int64_t nx, int dim, const PairGroups* pg,               \
+                     void* stream) {                                          \
+    const Grid g{int(nz), int(ny), int(nx)};                                  \
+    return BY_DIM(launch_apply, T, x, out, nt, g, pg, stream);                \
   }                                                                           \
   int mg_fused_pre_##SFX(const T* b, const T* omega, const T* invD,           \
                          const T* invT, const T* invDel, T* xo, T* rco,       \
                          int64_t nt, int64_t ny, int64_t nx,                  \
                          const PairGroups* pg, int nu, void* stream) {        \
-    return launch_fused_pre<T>(b, omega, invD, invT, invDel, xo, rco, nt, ny, \
-                               nx, pg, nu, stream);                           \
+    return launch_fused_pre<T>(b, omega, invD, invT, invDel, xo, rco, nt,     \
+                               Grid{1, int(ny), int(nx)}, pg, nu, stream);    \
   }                                                                           \
   int mg_fused_post_##SFX(const T* x, const T* b, const T* ec,                \
                           const T* omega, const T* invD, const T* invT,       \
@@ -539,12 +734,27 @@ int mg_pairs_size() { return int(sizeof(PairGroups)); }
                           int64_t nx, const PairGroups* pg, int nu,           \
                           void* stream) {                                     \
     return launch_fused_post<T>(x, b, ec, omega, invD, invT, invDel, out, nt, \
-                                ny, nx, pg, nu, stream);                      \
+                                Grid{1, int(ny), int(nx)}, pg, nu, stream);   \
+  }                                                                           \
+  int mg_residual_restrict_##SFX(const T* x, const T* b, const T* omega,      \
+                                 T* rc, int64_t nt, int64_t nz, int64_t ny,   \
+                                 int64_t nx, int dim, const PairGroups* pg,   \
+                                 void* stream) {                              \
+    const Grid g{int(nz), int(ny), int(nx)};                                  \
+    return BY_DIM(launch_residual_restrict, T, x, b, omega, rc, nt, g, pg,    \
+                  stream);                                                    \
+  }                                                                           \
+  int mg_prolong_correct_##SFX(const T* x, const T* ec, T* out, int64_t nt,   \
+                               int64_t nz, int64_t ny, int64_t nx, int dim,   \
+                               void* stream) {                                \
+    const Grid g{int(nz), int(ny), int(nx)};                                  \
+    return BY_DIM(launch_prolong_correct, T, x, ec, out, nt, g, stream);      \
   }
 
 MG_ENTRY_POINTS(float, f32)
 MG_ENTRY_POINTS(double, f64)
 
 #undef MG_ENTRY_POINTS
+#undef BY_DIM
 
 }  // extern "C"

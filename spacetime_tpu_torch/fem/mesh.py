@@ -1,0 +1,136 @@
+"""Structured simplicial meshes of the unit square and the unit cube.
+
+The port's copy of the structured half of ``spacetime_tpu/fem/mesh.py``:
+the same vertex order, elements, boundary mask and interior indices, so the
+assembled operators are the JAX package's bit for bit. Structured meshes
+carry a ``grid_shape``, which makes the interior P1 operators constant
+stencils. The unstructured meshes (the L-shaped domain, red refinement,
+imported meshes) belong to the unstructured slice of the port (ROADMAP.md
+queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A simplicial mesh with Dirichlet boundary bookkeeping.
+
+    Attributes:
+      vertices: (nv, d) float64 vertex coordinates.
+      elements: (ne, d+1) int32 vertex indices per simplex.
+      boundary: (nv,) bool mask of Dirichlet-boundary vertices.
+      interior: (m,) int32 indices of interior (free) vertices.
+      grid_shape: per-axis interior node counts (z, y, x order).
+    """
+
+    vertices: np.ndarray
+    elements: np.ndarray
+    boundary: np.ndarray
+    interior: np.ndarray
+    grid_shape: tuple[int, ...] | None = None
+
+    @property
+    def dim(self) -> int:
+        return self.vertices.shape[1]
+
+    @property
+    def num_vertices(self) -> int:
+        return self.vertices.shape[0]
+
+    @property
+    def num_interior(self) -> int:
+        return self.interior.shape[0]
+
+
+def _unit_boundary(vertices: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(boundary mask, interior indices) of vertices of the unit square or
+    cube: a vertex is on the boundary where any coordinate is 0 or 1."""
+    on_bdry = np.zeros(vertices.shape[0], dtype=bool)
+    for d in range(vertices.shape[1]):
+        on_bdry |= np.isclose(vertices[:, d], 0.0) | np.isclose(vertices[:, d], 1.0)
+    return on_bdry, np.flatnonzero(~on_bdry).astype(np.int32)
+
+
+def unit_square_mesh(n: int) -> Mesh:
+    """Structured triangulation of (0,1)^2 with n×n cells, SW–NE diagonals.
+
+    Vertices are ordered lexicographically (y-major, x-fastest); interior
+    vertices form an (n-1)×(n-1) grid.
+    """
+    if n < 2:
+        raise ValueError("need n >= 2 for a nonempty interior")
+    xs = np.linspace(0.0, 1.0, n + 1)
+    X, Y = np.meshgrid(xs, xs, indexing="xy")  # X[iy, ix]
+    vertices = np.stack([X.ravel(), Y.ravel()], axis=1)
+
+    ix, iy = np.meshgrid(np.arange(n), np.arange(n), indexing="xy")
+    v00 = (iy * (n + 1) + ix).ravel()
+    v10 = v00 + 1
+    v01 = v00 + (n + 1)
+    v11 = v01 + 1
+    # Split every cell along the SW–NE diagonal (v00–v11).
+    tris = np.concatenate(
+        [
+            np.stack([v00, v10, v11], axis=1),
+            np.stack([v00, v11, v01], axis=1),
+        ],
+        axis=0,
+    ).astype(np.int32)
+    on_bdry, interior = _unit_boundary(vertices)
+    return Mesh(vertices, tris, on_bdry, interior, grid_shape=(n - 1, n - 1))
+
+
+_KUHN_PERMS = [
+    (0, 1, 2),
+    (0, 2, 1),
+    (1, 0, 2),
+    (1, 2, 0),
+    (2, 0, 1),
+    (2, 1, 0),
+]
+
+
+def unit_cube_mesh(n: int) -> Mesh:
+    """Kuhn triangulation of (0,1)^3: each of the n^3 cells splits into 6
+    tets, one per axis ordering of the walk from the cell's origin corner to
+    the opposite corner."""
+    if n < 2:
+        raise ValueError("need n >= 2 for a nonempty interior")
+    xs = np.linspace(0.0, 1.0, n + 1)
+    Z, Y, X = np.meshgrid(xs, xs, xs, indexing="ij")
+    vertices = np.stack([X.ravel(), Y.ravel(), Z.ravel()], axis=1)
+
+    def vid(i, j, k):  # x-index i, y-index j, z-index k
+        return (k * (n + 1) + j) * (n + 1) + i
+
+    i, j, k = np.meshgrid(np.arange(n), np.arange(n), np.arange(n), indexing="ij")
+    i, j, k = i.ravel(), j.ravel(), k.ravel()
+    strides = np.array([1, n + 1, (n + 1) ** 2], dtype=np.int64)
+    base = vid(i, j, k)
+    tets = []
+    for perm in _KUHN_PERMS:
+        p0 = base
+        p1 = p0 + strides[perm[0]]
+        p2 = p1 + strides[perm[1]]
+        p3 = p2 + strides[perm[2]]
+        tets.append(np.stack([p0, p1, p2, p3], axis=1))
+    tets = np.concatenate(tets, axis=0).astype(np.int32)
+    on_bdry, interior = _unit_boundary(vertices)
+    return Mesh(vertices, tets, on_bdry, interior, grid_shape=(n - 1, n - 1, n - 1))
+
+
+def domain_mesh(domain: str, dim: int, n: int) -> Mesh:
+    """Mesh factory keyed by a problem's domain tag."""
+    if domain == "unit":
+        return unit_square_mesh(n) if dim == 2 else unit_cube_mesh(n)
+    if domain == "lshape":
+        raise NotImplementedError(
+            "the L-shaped domain is not ported yet: it belongs to the "
+            "unstructured slice of the port (ROADMAP.md queue 1)"
+        )
+    raise ValueError(f"unknown domain {domain!r}")

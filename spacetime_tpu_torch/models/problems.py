@@ -5,9 +5,8 @@ is its exact solution u(t, x) alone, and the source g = ∂t u − Δu follows b
 automatic differentiation — ∂t through ``torch.func.grad``, Δ as the trace
 of ``torch.func.hessian`` in x, batched with ``torch.func.vmap``. The
 numpy-facing methods (``u0``, ``g``, ``g_many``, ``exact_np``) evaluate in
-float64 and return numpy arrays, so the shared host quadrature
-(``spacetime_tpu.fem.spacetime_loads``, ``fem.errors.l2_error_spacetime``)
-takes these problems unchanged.
+float64 and return numpy arrays, which is what the host quadrature
+(``fem.spacetime_loads``, ``fem.l2_error_spacetime``) calls.
 
 This slice carries the smooth family; the singular, moving-peak, L-shape
 and variable-coefficient problems come with the slices that need them

@@ -41,7 +41,7 @@ class KronTaps:
 
     @classmethod
     def from_stencils(cls, M_st, A_st, gs=None) -> "KronTaps":
-        """From two ``spacetime_tpu.ops.stencil.StencilOperator``s; ``gs``
+        """From two ``ops.stencil.StencilOperator``s; ``gs``
         overrides the grid (the weights are translation invariant)."""
         if M_st.grid_shape != A_st.grid_shape:
             raise ValueError("M/A grid mismatch")

@@ -1,36 +1,47 @@
-"""The multigrid V-cycle kernels K3–K7 on 2-D grids.
+"""The multigrid V-cycle kernels K3–K9 on 2-D and 3-D grids.
 
 The counterpart of the constant-stencil half of
 ``spacetime_tpu/ops/mg_pallas.py``. ``MSKernelLevel`` mirrors its
 ``MSPallasLevel`` for one multigrid level, Op = A + ω⊙M with one shift per
 time row:
 
-    K3 ``smooth``      degree-ν Chebyshev–Jacobi sweep (``_smooth_call``),
-                       from x or from x = 0 (``zero_init``)
-    K4 ``residual``    b − Op x (``_residual_call``)
-    K5 ``apply_A``     A x, the stiffness stencil alone
-                       (``_apply_stencil_call``)
-    K6 ``fused_pre``   x = zero-init sweep on b, r_c = R(b − Op x)
-                       (``_fused_pre_call``): returns (x, r_c)
-    K7 ``fused_post``  smooth(x + P e_c, b) (``_fused_post_call``)
+    K3 ``smooth``            degree-ν Chebyshev–Jacobi sweep
+                             (``_smooth_call``), from x or from x = 0
+                             (``zero_init``)
+    K4 ``residual``          b − Op x (``_residual_call``)
+    K5 ``apply_A``           A x, the stiffness stencil alone
+                             (``_apply_stencil_call``)
+    K6 ``fused_pre``         x = zero-init sweep on b, r_c = R(b − Op x)
+                             (``_fused_pre_call``): returns (x, r_c); 2-D
+    K7 ``fused_post``        smooth(x + P e_c, b) (``_fused_post_call``); 2-D
+    K8 ``residual_restrict`` r_c = R(b − Op x) (``_residual_restrict_call``)
+    K9 ``prolong_correct``   x + P e_c (``_prolong_correct_call``)
+
+K3, K4, K5, K8 and K9 take 2-D and 3-D grids. K6 and K7 are 2-D only: in
+3-D the V-cycle runs the semi-fused stages K3 → K8 → (coarser levels) → K9
+→ K3, as the JAX package does on its blocked 3-D levels, and the 3-D forms
+of K6/K7 are not ported yet (ROADMAP.md queue 1 item 4); their wrappers
+raise on a 3-D grid.
 
 For a CUDA tensor each wrapper launches the CUDA kernel of csrc/mg.cu
-(float32 and float64) and counts the launch; a CPU tensor goes to the plain
-PyTorch twin ``*_plain``, built from ``ops.multigrid``'s ``ms_op``,
-``cheb_smooth`` and ``transfer`` (the XLA form of the JAX package); any
-other device raises. The twins are also what the kernels are checked
-against. The per-row columns (ω, 1/D, 1/θ, 1/δ) are (T,) vectors,
-``MSKernelLevel.columns`` of a level's row params.
+(float32 and float64) and counts the launch, with one count per kernel,
+dtype and dimension; a CPU tensor goes to the plain PyTorch twin
+``*_plain``, built from ``ops.multigrid``'s ``ms_op``, ``cheb_smooth`` and
+``transfer`` (the XLA form of the JAX package); any other device raises. The
+twins are also what the kernels are checked against. The per-row columns
+(ω, 1/D, 1/θ, 1/δ) are (T,) vectors, ``MSKernelLevel.columns`` of a level's
+row params.
 
-The sharded-slab forms of the Pallas kernels (``vmask``, ``lead``), the
+The sharded-slab forms of the Pallas kernels (``vmask``, ``lead``) and the
 banded transfer matrices (``Ux``/``Wx``, a device of the TPU's matrix unit)
-and the 3-D forms are not ported here.
+are not ported here.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -40,19 +51,27 @@ from .multigrid import cheb_smooth, ms_op, pair_groups, transfer
 from .stencil import grouped_apply, weight_groups
 
 SOURCE = "spacetime_tpu_torch/csrc/mg.cu"
-MAX_NU = 8  # the sweep's halo: a 32-wide tile grows by ν cells per side
+# The sweep's halo: a tile grows by ν cells per side. 2-D tiles are 32 × 32;
+# a 3-D brick of 8 × 8 × 32 with three float64 buffers fits the 227 KB of
+# shared memory up to ν = 3.
+MAX_NU = {2: 8, 3: 3}
 MAX_ROWS = 65535  # the time row is blockIdx.z of the tiled kernels
+MAX_ROW_POINTS = 2 ** 31  # in-row indices are 32-bit
 _MG = "spacetime_tpu/ops/mg_pallas.py"
 _OPS = {
-    "smooth": ("K3 mg_smooth", f"{_MG}:190"),
-    "residual": ("K4 mg_residual", f"{_MG}:316"),
-    "apply": ("K5 mg_apply", f"{_MG}:375"),
-    "fused_pre": ("K6 mg_fused_pre", f"{_MG}:1318"),
-    "fused_post": ("K7 mg_fused_post", f"{_MG}:1475"),
+    "smooth": ("K3 mg_smooth", f"{_MG}:190", (2, 3)),
+    "residual": ("K4 mg_residual", f"{_MG}:316", (2, 3)),
+    "apply": ("K5 mg_apply", f"{_MG}:375", (2, 3)),
+    "fused_pre": ("K6 mg_fused_pre", f"{_MG}:1318", (2,)),
+    "fused_post": ("K7 mg_fused_post", f"{_MG}:1475", (2,)),
+    "residual_restrict": ("K8 mg_residual_restrict", f"{_MG}:1683", (2, 3)),
+    "prolong_correct": ("K9 mg_prolong_correct", f"{_MG}:1913", (2, 3)),
 }
 KERNELS = {
-    (op, dtype): native.Kernel(f"{name} {sfx}", f"mg_{op}_{sfx}", replaces)
-    for op, (name, replaces) in _OPS.items()
+    (op, dtype, dim): native.Kernel(
+        f"{name}{'_3d' if dim == 3 else ''} {sfx}", f"mg_{op}_{sfx}", replaces)
+    for op, (name, replaces, dims) in _OPS.items()
+    for dim in dims
     for dtype, sfx in ((torch.float32, "f32"), (torch.float64, "f64"))
 }
 # the row params' names of the kernels' columns
@@ -69,23 +88,16 @@ def launch_counts() -> dict[str, int]:
     return {k.name: k.launches for k in KERNELS.values()}
 
 
-def _lp(cols):
-    """The (T,) columns as the (T, 1, 1) row params of ``ops.multigrid``."""
-    return {_LP_NAMES[k]: v.reshape(-1, 1, 1) for k, v in cols.items()}
-
-
 class MSKernelLevel:
-    """K3–K7 for one 2-D multigrid level; ``gs`` overrides the stencils'
-    grid (the weights are translation invariant)."""
+    """K3–K9 for one multigrid level on a 2-D or 3-D grid; ``gs``
+    overrides the stencils' grid (the weights are translation invariant)."""
 
     def __init__(self, A_st, M_st, nu: int, nu_post: int | None = None,
                  gs=None):
         self.gs = tuple(gs if gs is not None else A_st.grid_shape)
-        if len(self.gs) != 2:
-            raise NotImplementedError(
-                f"grid {self.gs}: the 3-D forms of K3–K7 are not ported yet "
-                "(ROADMAP.md queue 1, item 4)"
-            )
+        self.dim = len(self.gs)
+        if self.dim not in (2, 3):
+            raise ValueError(f"grid {self.gs}: the kernels take 2-D and 3-D")
         self.groups_A = weight_groups(A_st.disps, A_st.weights)
         self.pairs = pair_groups(
             self.groups_A, weight_groups(M_st.disps, M_st.weights)
@@ -102,24 +114,41 @@ class MSKernelLevel:
     @property
     def fused_ok(self) -> bool:
         """The fused stages bake one ν (as ``MSPallasLevel.fused_ok``; the
-        Pallas slab-alignment clause has no counterpart here)."""
-        return self.nu_post == self.nu and 2 <= self.nu <= 3
+        Pallas slab-alignment clause has no counterpart here) and need odd
+        extents, as the semi-fused ones do. 2-D only."""
+        return (self.dim == 2 and self.semi_ok and self.nu_post == self.nu
+                and 2 <= self.nu <= 3)
+
+    @property
+    def semi_ok(self) -> bool:
+        """The semi-fused transfer stages (K8, K9) need odd extents 2n+1."""
+        return all(n % 2 for n in self.gs)
+
+    @property
+    def coarse_gs(self):
+        return tuple((n - 1) // 2 for n in self.gs)
 
     @functools.cached_property
     def structs(self):
         """The pair tables of Op and of A alone (every wM = 0)."""
         return (
-            native.pair_groups_struct(self.pairs),
-            native.pair_groups_struct(pair_groups(self.groups_A, ())),
+            native.pair_groups_struct(self.pairs, self.dim),
+            native.pair_groups_struct(pair_groups(self.groups_A, ()), self.dim),
         )
 
     # ------------------------------------------------------------ twins
 
+    def _lp(self, cols):
+        """The (T,) columns as the (T, 1, ..., 1) row params of
+        ``ops.multigrid``."""
+        col = (-1,) + (1,) * self.dim
+        return {_LP_NAMES[k]: v.reshape(col) for k, v in cols.items()}
+
     def op_plain(self, x, cols):
-        return ms_op(self.pairs, self.gs, cols["omega"].reshape(-1, 1, 1), x)
+        return ms_op(self.pairs, self.gs, self._lp(cols)["omega"], x)
 
     def smooth_plain(self, x, b, cols, zero_init=False, post=False):
-        lp = _lp(cols)
+        lp = self._lp(cols)
         return cheb_smooth(
             lambda v: ms_op(self.pairs, self.gs, lp["omega"], v), lp,
             b * 0.0 if zero_init else x, b, self.nu_post if post else self.nu,
@@ -132,11 +161,20 @@ class MSKernelLevel:
         return grouped_apply(self.groups_A, self.gs, x)
 
     def fused_pre_plain(self, b, cols):
+        self._only_2d("K6 fused_pre")
         x = self.smooth_plain(None, b, cols, zero_init=True)
         return x, transfer(self.residual_plain(x, b, cols), 2, restrict=True)
 
     def fused_post_plain(self, x, b, ec, cols):
+        self._only_2d("K7 fused_post")
         return self.smooth_plain(x + transfer(ec, 2, restrict=False), b, cols)
+
+    def residual_restrict_plain(self, x, b, cols):
+        return transfer(self.residual_plain(x, b, cols), self.dim,
+                        restrict=True)
+
+    def prolong_correct_plain(self, x, ec):
+        return x + transfer(ec, self.dim, restrict=False)
 
     # --------------------------------------------------------- wrappers
 
@@ -152,7 +190,7 @@ class MSKernelLevel:
         out = torch.empty_like(b)
         k.launch(
             b.device, None if zero_init else x.data_ptr(), b.data_ptr(),
-            *cp, out.data_ptr(), T, *self.gs, self._op_table(), nu,
+            *cp, out.data_ptr(), T, *self._zyx(), self._op_table(), nu,
             int(zero_init),
         )
         return out
@@ -165,7 +203,7 @@ class MSKernelLevel:
         check_tensor("x", x, b.dtype, b.device, b.shape)
         out = torch.empty_like(b)
         k.launch(b.device, x.data_ptr(), b.data_ptr(), cp[0],
-                 out.data_ptr(), T, *self.gs, self._op_table())
+                 out.data_ptr(), T, *self._zyx(), self._op_table())
         return out
 
     def apply_A(self, x):
@@ -174,7 +212,7 @@ class MSKernelLevel:
             return self.apply_A_plain(x)
         k, T, _ = self._prepare("apply", x, None)
         out = torch.empty_like(x)
-        k.launch(x.device, x.data_ptr(), out.data_ptr(), T, *self.gs,
+        k.launch(x.device, x.data_ptr(), out.data_ptr(), T, *self._zyx(),
                  ctypes.addressof(self.structs[1]))
         return out
 
@@ -182,6 +220,7 @@ class MSKernelLevel:
         """K6: (x, r_c), x the zero-init sweep on b and r_c = R(b − Op x)."""
         if b.device.type == "cpu":
             return self.fused_pre_plain(b, cols)
+        self._only_2d("K6 fused_pre")
         k, T, cp = self._prepare("fused_pre", b, cols, nu=self.nu, odd=True)
         x = torch.empty_like(b)
         rc = b.new_empty((T,) + self.coarse_gs)
@@ -193,6 +232,7 @@ class MSKernelLevel:
         """K7: smooth(x + P e_c, b)."""
         if b.device.type == "cpu":
             return self.fused_post_plain(x, b, ec, cols)
+        self._only_2d("K7 fused_post")
         k, T, cp = self._prepare("fused_post", b, cols, nu=self.nu, odd=True)
         check_tensor("x", x, b.dtype, b.device, b.shape)
         check_tensor("ec", ec, b.dtype, b.device, (T,) + self.coarse_gs)
@@ -202,9 +242,40 @@ class MSKernelLevel:
                  self.nu)
         return out
 
-    @property
-    def coarse_gs(self):
-        return tuple((n - 1) // 2 for n in self.gs)
+    def residual_restrict(self, x, b, cols):
+        """K8: r_c = R(b − Op x); the fine residual is never stored."""
+        if b.device.type == "cpu":
+            return self.residual_restrict_plain(x, b, cols)
+        k, T, cp = self._prepare("residual_restrict", b, cols, odd=True)
+        check_tensor("x", x, b.dtype, b.device, b.shape)
+        rc = b.new_empty((T,) + self.coarse_gs)
+        k.launch(b.device, x.data_ptr(), b.data_ptr(), cp[0], rc.data_ptr(),
+                 T, *self._zyx(), self._op_table())
+        return rc
+
+    def prolong_correct(self, x, ec):
+        """K9: x + P e_c; the prolonged correction is never stored."""
+        if x.device.type == "cpu":
+            return self.prolong_correct_plain(x, ec)
+        k, T, _ = self._prepare("prolong_correct", x, None, odd=True)
+        check_tensor("ec", ec, x.dtype, x.device, (T,) + self.coarse_gs)
+        out = torch.empty_like(x)
+        k.launch(x.device, x.data_ptr(), ec.data_ptr(), out.data_ptr(), T,
+                 *self._zyx())
+        return out
+
+    def _only_2d(self, what: str) -> None:
+        if self.dim != 2:
+            raise NotImplementedError(
+                f"{what} on the 3-D grid {self.gs}: the 3-D forms of K6/K7 "
+                "are not ported yet (ROADMAP.md queue 1, item 4); 3-D levels "
+                "run the semi-fused stages"
+            )
+
+    def _zyx(self):
+        """(nz, ny, nx, dim): the grid as the kernels take it (nz = 1 in
+        2-D)."""
+        return (1,) * (3 - self.dim) + self.gs + (self.dim,)
 
     def _op_table(self):
         return ctypes.addressof(self.structs[0])
@@ -212,14 +283,18 @@ class MSKernelLevel:
     def _prepare(self, op, X, cols, nu=None, odd=False):
         """Check the main field and the columns; returns the kernel, T and
         the columns' pointers in (ω, 1/D, 1/θ, 1/δ) order."""
-        k = native.kernel_for(KERNELS, "mg", op, X)
+        k = native.kernel_for(KERNELS, "mg", op, X, self.dim)
         T = X.shape[0]
         if not 1 <= T <= MAX_ROWS:
             raise ValueError(f"{T} time rows; the kernels take 1 to {MAX_ROWS}")
         check_tensor("field", X, X.dtype, X.device, (T,) + self.gs)
-        if nu is not None and not 1 <= nu <= MAX_NU:
-            raise ValueError(f"nu={nu}: the sweep kernels take 1 to {MAX_NU}")
-        if odd and any(n % 2 == 0 for n in self.gs):
+        if math.prod(self.gs) >= MAX_ROW_POINTS:
+            raise ValueError(f"grid {self.gs}: a time row of the kernels "
+                             f"holds fewer than {MAX_ROW_POINTS} points")
+        if nu is not None and not 1 <= nu <= MAX_NU[self.dim]:
+            raise ValueError(f"nu={nu}: the {self.dim}-D sweep kernels take "
+                             f"1 to {MAX_NU[self.dim]}")
+        if odd and not self.semi_ok:
             raise ValueError(f"grid {self.gs}: the transfer stages need odd "
                              "extents 2n+1")
         if cols is None:

@@ -1,9 +1,13 @@
-"""Multi-shift geometric multigrid for A + ω M on tensors.
+"""Multi-shift geometric multigrid for A + ω M.
 
-The device side of ``spacetime_tpu.ops.multigrid.MultiShiftMultigrid``: the
-host ``build`` (levels, stencils, Gershgorin bounds, coarse matrices) is
-reused as it is, and this module applies a V-cycle to (T, *gs) tensors with
-one shift per time row. The arithmetic follows the JAX package's XLA form
+``MultiShiftMultigrid.build`` and ``mass_spectral_bounds`` are the port's
+copy of the host half of ``spacetime_tpu/ops/multigrid.py``: the levels of
+the structured hierarchy (re-assembled per level, since nested P1 spaces
+make that the Galerkin operator), their stencils, centre weights and
+Gershgorin bounds, and the dense coarse matrices.
+
+``MultiShiftMG`` applies a V-cycle to (T, *gs) tensors with one shift per
+time row. The arithmetic follows the JAX package's XLA form
 (``pallas=None``): ``ms_op`` sums the taps of each (wA, wM) weight-pair
 group once and multiplies by the per-row weight wa + ω·wm; the smoother
 ``cheb_smooth`` is the Chebyshev–Jacobi recurrence with σ = 5/3; the P1
@@ -12,31 +16,124 @@ transfers are the separated repeat / pair-sum form (``_transfer_fast``).
 ``vcycle`` and ``solve`` take an optional per-level list of
 ``ops.mg_kernels.MSKernelLevel`` and then dispatch as the JAX package does
 with its Pallas levels (``spacetime_tpu/ops/multigrid.py:496-549``): the
-fused pre/post stages (K6, K7) where the level allows them, else the sweep
-(K3) and residual (K4) kernels around the transfers here, and the residual
-kernel for the second and later cycles of ``solve``. Without the list the
-XLA form runs, which is also what the levels' plain twins compute.
+fused pre/post stages (K6, K7) where the level allows them, else the
+semi-fused stages (K3 zero-init sweep, K8 residual + restriction, K9
+prolongation + correction, K3 post-sweep); a kernel level that takes
+neither (extents not all odd, which no nested hierarchy has) raises. The
+residual kernel (K4) starts the second and later cycles of ``solve``.
+Without the list the XLA form runs, which is also what the levels' plain
+twins compute.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
+import scipy.linalg as sla
 import torch
 import torch.nn.functional as F
 
-from .stencil import grouped_apply, row_scale, tap, weight_groups, zero_pad
+from ..fem import P1System, unit_cube_mesh, unit_square_mesh
+from .sparse import DiaMatrix
+from .stencil import (StencilOperator, grouped_apply, row_scale, tap,
+                      weight_groups, zero_pad)
 
 _SIGMA = 5.0 / 3.0
+
+
+# ------------------------------------------------------- host hierarchy
+
+
+@dataclasses.dataclass(frozen=True)
+class _MSLevel:
+    A_st: StencilOperator
+    M_st: StencilOperator
+    cA: float  # center weights (constant on-grid)
+    cM: float
+    gA: float  # Gershgorin row sums  sum|w|
+    gM: float
+    n: int
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiShiftMultigrid:
+    """The static structure of one V-cycle for all shifted operators
+    A + ω_r M at once: the levels from the finest down to (not including)
+    the coarse grid of ``n_coarse`` cells per side. ``nu_post`` overrides
+    the post-smoothing degree (None: ``nu``); asymmetric V(ν, ν_post)
+    cycles are not symmetric preconditioners."""
+
+    dim: int
+    levels: tuple[_MSLevel, ...]
+    nu: int
+    n_coarse: int
+    nu_post: int | None = None
+
+    @classmethod
+    def build(
+        cls,
+        dim: int,
+        n_fine: int,
+        nu: int = 2,
+        n_coarse: int = 8,
+        _system_cache: dict | None = None,
+    ) -> tuple["MultiShiftMultigrid", tuple[np.ndarray, np.ndarray]]:
+        """Returns (static structure, (A_coarse, M_coarse) dense)."""
+        make = unit_square_mesh if dim == 2 else unit_cube_mesh
+        levels = []
+        n = n_fine
+        while n > n_coarse:
+            sys_l = None if _system_cache is None else _system_cache.get(n)
+            if sys_l is None:
+                sys_l = P1System.from_mesh(make(n))
+                if _system_cache is not None:
+                    _system_cache[n] = sys_l
+            gs = sys_l.mesh.grid_shape
+            A_st = StencilOperator.from_dia(DiaMatrix.from_csr(sys_l.A), gs)
+            M_st = StencilOperator.from_dia(DiaMatrix.from_csr(sys_l.M), gs)
+            center = (0,) * dim
+            cA = dict(zip(A_st.disps, A_st.weights))[center]
+            cM = dict(zip(M_st.disps, M_st.weights))[center]
+            gA = sum(abs(w) for w in A_st.weights)
+            gM = sum(abs(w) for w in M_st.weights)
+            levels.append(_MSLevel(A_st, M_st, cA, cM, gA, gM, n))
+            n //= 2
+        sys_c = None if _system_cache is None else _system_cache.get(n)
+        if sys_c is None:
+            sys_c = P1System.from_mesh(make(n))
+            if _system_cache is not None:
+                _system_cache[n] = sys_c
+        return (
+            cls(dim, tuple(levels), nu, n),
+            (sys_c.A.toarray(), sys_c.M.toarray()),
+        )
+
+
+def mass_spectral_bounds(dim: int) -> tuple[float, float]:
+    """(lmin, lmax) of D⁻¹M for the structured P1 mass matrix family —
+    h-independent, computed exactly on a small instance with a margin."""
+    sys_s = P1System.from_mesh(
+        unit_square_mesh(8) if dim == 2 else unit_cube_mesh(6)
+    )
+    M = sys_s.M.toarray()
+    D = np.diag(M).copy()
+    w = sla.eigvalsh(M / np.sqrt(D)[:, None] / np.sqrt(D)[None, :])
+    # Upper bound: Gershgorin over interior rows (exact for the family since
+    # interior rows repeat); lower: small-instance minimum with margin.
+    gersh = float((np.abs(M).sum(axis=1) / D).max())
+    return float(0.8 * w[0]), gersh
+
+
+# ------------------------------------------------------- device V-cycle
 
 
 @functools.lru_cache(maxsize=None)
 def pair_groups(groups_A, groups_M):
     """Regroup two same-support stencils by their (wA, wM) weight pair, in
-    the JAX package's order. Copied from
-    ``spacetime_tpu.ops.mg_pallas._pair_groups`` (whose module needs
-    JAX)."""
+    the JAX package's order (``_pair_groups`` of
+    ``spacetime_tpu/ops/mg_pallas.py``)."""
     wA = {d: w for w, ds in groups_A for d in ds}
     wM = {d: w for w, ds in groups_M for d in ds}
     pairs: dict[tuple[float, float], list] = {}
@@ -194,18 +291,26 @@ class MultiShiftMG:
             ec = self.vcycle(rc, lps, coarse_solve, lvl + 1, kernels)
             return kl.fused_post(x, b, ec, lp["cols"])
         if kl is not None:
+            if not kl.semi_ok:
+                raise ValueError(
+                    f"level {lvl}, grid {kl.gs}: the P1 transfers need odd "
+                    "extents 2n+1 (an even n on every level above the coarse "
+                    "grid)"
+                )
+            # the fine residual and the prolonged correction never reach
+            # device memory
             x = kl.smooth(None, b, lp["cols"], zero_init=True)
-            r = kl.residual(x, b, lp["cols"])
-        else:
-            x = self.smooth(lvl, lp, b * 0.0, b)
-            r = b - self.op(lvl, lp, x)
+            rc = kl.residual_restrict(x, b, lp["cols"])
+            ec = self.vcycle(rc, lps, coarse_solve, lvl + 1, kernels)
+            x = kl.prolong_correct(x, ec)
+            return kl.smooth(x, b, lp["cols"], post=True)
+        x = self.smooth(lvl, lp, b * 0.0, b)
+        r = b - self.op(lvl, lp, x)
         ec = self.vcycle(
             transfer(r, self.dim, restrict=True), lps, coarse_solve, lvl + 1,
             kernels,
         )
         x = x + transfer(ec, self.dim, restrict=False)
-        if kl is not None:
-            return kl.smooth(x, b, lp["cols"], post=True)
         return self.smooth(lvl, lp, x, b, nu=self.nu_post)
 
     def solve(self, b, lps, coarse_solve, cycles: int = 2, kernels=None):

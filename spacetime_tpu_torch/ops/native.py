@@ -80,15 +80,17 @@ class PairGroupsStruct(ctypes.Structure):
         ("start", ctypes.c_int * (MAX_GROUPS + 1)),
         ("wa", ctypes.c_double * MAX_GROUPS),
         ("wm", ctypes.c_double * MAX_GROUPS),
+        ("dz", ctypes.c_int * MAX_TAPS),
         ("dy", ctypes.c_int * MAX_TAPS),
         ("dx", ctypes.c_int * MAX_TAPS),
     ]
 
 
-def pair_groups_struct(pairs) -> PairGroupsStruct:
-    """The (wA, wM) pair groups of two 2-D stencils
+def pair_groups_struct(pairs, dim: int) -> PairGroupsStruct:
+    """The (wA, wM) pair groups of two stencils
     (((wa, wm), (disp, ...)), ...), in the order of
-    ``ops.multigrid.pair_groups``, as a tap table."""
+    ``ops.multigrid.pair_groups``, as a tap table; 2-D displacements get
+    dz = 0."""
     ntaps = sum(len(ds) for _, ds in pairs)
     if len(pairs) > MAX_GROUPS or ntaps > MAX_TAPS:
         raise ValueError(
@@ -101,8 +103,8 @@ def pair_groups_struct(pairs) -> PairGroupsStruct:
     for g, ((wa, wm), ds) in enumerate(pairs):
         st.start[g] = k
         st.wa[g], st.wm[g] = wa, wm
-        for dy, dx in ds:
-            st.dy[k], st.dx[k] = dy, dx
+        for d in ds:
+            st.dz[k], st.dy[k], st.dx[k] = (0,) * (3 - dim) + tuple(d)
             k += 1
     st.start[len(pairs)] = k
     return st
@@ -192,6 +194,7 @@ def build(state: _Library | None = None) -> Path:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I64, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    grid = (I64, I64, I64, I64, I)
     lib.spacetime_error_string.argtypes = [I]
     lib.spacetime_error_string.restype = ctypes.c_char_p
     for sfx in ("f32", "f64"):
@@ -200,11 +203,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             "kron_B": [P, P, P, P, P, I64, I64, I64, I64, P, P, I, P],
             "kron_BT": [P, P, P, P, I64, I64, I64, I64, P, P, I, P],
             # mg.cu
-            "mg_smooth": [P, P, P, P, P, P, P, I64, I64, I64, P, I, I, P],
-            "mg_residual": [P, P, P, P, I64, I64, I64, P, P],
-            "mg_apply": [P, P, I64, I64, I64, P, P],
+            # (nt, nz, ny, nx, dim): the grid, nz = 1 in 2-D
+            "mg_smooth": [P, P, P, P, P, P, P, *grid, P, I, I, P],
+            "mg_residual": [P, P, P, P, *grid, P, P],
+            "mg_apply": [P, P, *grid, P, P],
             "mg_fused_pre": [P, P, P, P, P, P, P, I64, I64, I64, P, I, P],
             "mg_fused_post": [P, P, P, P, P, P, P, P, I64, I64, I64, P, I, P],
+            "mg_residual_restrict": [P, P, P, P, *grid, P, P],
+            "mg_prolong_correct": [P, P, P, *grid, P],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, f"{name}_{sfx}")
@@ -255,16 +261,16 @@ class Kernel:
         self.launches += 1
 
 
-def kernel_for(kernels: dict, family: str, op: str, X) -> Kernel:
-    """The ``kernels[(op, X.dtype)]`` that a CUDA tensor X launches; raises
-    for any other device (CPU tensors run the plain twins before this) and
-    for a dtype without a kernel."""
+def kernel_for(kernels: dict, family: str, op: str, X, *key) -> Kernel:
+    """The ``kernels[(op, X.dtype, *key)]`` that a CUDA tensor X launches;
+    raises for any other device (CPU tensors run the plain twins before
+    this) and for a dtype without a kernel."""
     if X.device.type != "cuda":
         raise ValueError(
             f"no {family} kernel for device {X.device}; CUDA tensors launch "
             "the kernel and CPU tensors run the plain twin"
         )
-    k = kernels.get((op, X.dtype))
+    k = kernels.get((op, X.dtype, *key))
     if k is None:
         raise TypeError(
             f"the {family} kernels take float32 and float64, not {X.dtype}")

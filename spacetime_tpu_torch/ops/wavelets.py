@@ -1,10 +1,14 @@
-"""The wavelet-in-time transform W (synthesis) and its transpose W' on
-tensors, along axis 0.
+"""The three-point piecewise-linear wavelet transform in time: W (synthesis)
+and its transpose W', along axis 0.
 
-The host structure comes from ``spacetime_tpu.ops.wavelets.
-build_wavelet_transform``; this module holds its device side
-(``WaveletTransform.jax_params`` / ``forward_jax`` / ``adjoint_jax`` of the
-JAX package):
+``build_wavelet_transform`` and ``WaveletTransform`` are the port's copy of
+the host structure in ``spacetime_tpu/ops/wavelets.py``: a node created at
+level j by bisecting (pl, pr) carries the wavelet
+s_k (wl_k σ_pl + σ_k + wr_k σ_pr) in level-j hats, with one vanishing moment
+and an exact L2(0, T) normalization; ``forward_np`` / ``adjoint_np`` apply
+it on the host. The device side (``jax_params`` / ``forward_jax`` /
+``adjoint_jax`` of the JAX package) is ``wavelet_params``, ``forward`` and
+``adjoint`` here:
 
 - float32 (and N+1 ≤ 1025 nodes): the dense (N+1)² synthesis matrix, applied
   as one ``torch.matmul`` over an (N+1, -1) view — a plain product, in full
@@ -18,9 +22,179 @@ time-grid slice of the port.
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 _DENSE_MAX_NODES = 1025
+
+
+@dataclasses.dataclass(frozen=True)
+class _Level:
+    idx: np.ndarray  # nodes created at this level
+    pl: np.ndarray  # creation parents (left)
+    pr: np.ndarray  # creation parents (right)
+    wl: np.ndarray  # wavelet weight on sigma_pl
+    wr: np.ndarray  # wavelet weight on sigma_pr
+    s: np.ndarray  # L2 normalization scale
+
+
+@dataclasses.dataclass(frozen=True)
+class WaveletTransform:
+    """Host-precomputed structure of the wavelet transform on a TimeGrid."""
+
+    grid: object  # fem.TimeGrid
+    levels: tuple[_Level, ...]  # levels 1..J
+    root_idx: np.ndarray  # the two level-0 nodes
+    root_s: np.ndarray  # their L2 normalization
+    node_level: np.ndarray  # (N+1,) level of each node
+    node_omega: np.ndarray  # (N+1,) |psi'|_L2 of the normalized basis function
+    level_shift: np.ndarray  # (J+1,) representative omega per level
+    perm_by_level: np.ndarray  # stable permutation sorting nodes by level
+    level_counts: np.ndarray  # (J+1,) nodes per level
+
+    @property
+    def num_levels(self) -> int:
+        return len(self.levels)
+
+    def forward_np(self, c: np.ndarray) -> np.ndarray:
+        """Synthesis W: wavelet coefficients -> nodal (hat) values, axis 0."""
+        v = np.zeros_like(c)
+        v[self.root_idx] = _bcast(self.root_s, c.ndim) * c[self.root_idx]
+        for lev in self.levels:
+            interp = 0.5 * (v[lev.pl] + v[lev.pr])
+            t = _bcast(lev.s, c.ndim) * c[lev.idx]
+            np.add.at(v, lev.pl, _bcast(lev.wl, c.ndim) * t)
+            np.add.at(v, lev.pr, _bcast(lev.wr, c.ndim) * t)
+            v[lev.idx] = t + interp
+        return v
+
+    def adjoint_np(self, v: np.ndarray) -> np.ndarray:
+        """Transpose W': nodal-value layout -> wavelet-coefficient layout."""
+        y = np.array(v, copy=True)
+        for lev in reversed(self.levels):
+            t = y[lev.idx].copy()
+            pv_l = y[lev.pl].copy()
+            pv_r = y[lev.pr].copy()
+            np.add.at(y, lev.pl, 0.5 * t)
+            np.add.at(y, lev.pr, 0.5 * t)
+            y[lev.idx] = _bcast(lev.s, v.ndim) * (
+                t + _bcast(lev.wl, v.ndim) * pv_l + _bcast(lev.wr, v.ndim) * pv_r
+            )
+        y[self.root_idx] = _bcast(self.root_s, v.ndim) * y[self.root_idx]
+        return y
+
+    def dense(self) -> np.ndarray:
+        """Dense (N+1)x(N+1) synthesis matrix."""
+        n = self.grid.num_nodes
+        return self.forward_np(np.eye(n))
+
+    @property
+    def is_uniform(self) -> bool:
+        """True iff the grid is the full uniform dyadic grid (N = 2^J)."""
+        N = self.grid.num_intervals
+        J = self.num_levels
+        if N != (1 << J):
+            return False
+        for j, lev in enumerate(self.levels, start=1):
+            s = N >> j
+            if not (
+                np.array_equal(lev.idx, np.arange(s, N, 2 * s))
+                and np.array_equal(lev.pl, lev.idx - s)
+                and np.array_equal(lev.pr, lev.idx + s)
+            ):
+                return False
+        return True
+
+
+def _bcast(a: np.ndarray, ndim: int):
+    return a.reshape(a.shape + (1,) * (ndim - 1))
+
+
+def _hat_integrals(t_sorted: np.ndarray) -> np.ndarray:
+    """∫ sigma_i for hats on the sorted grid: (d_left + d_right) / 2."""
+    d = np.diff(t_sorted)
+    out = np.zeros_like(t_sorted)
+    out[:-1] += d / 2.0
+    out[1:] += d / 2.0
+    return out
+
+
+def _pw_linear_norms(t_loc: np.ndarray, v_loc: np.ndarray) -> tuple[float, float]:
+    """(L2 norm^2, H1 seminorm^2) of the pw-linear function with nodal values
+    ``v_loc`` at sorted nodes ``t_loc`` (zero outside)."""
+    d = np.diff(t_loc)
+    a, b = v_loc[:-1], v_loc[1:]
+    l2 = np.sum(d / 3.0 * (a * a + a * b + b * b))
+    h1 = np.sum((b - a) ** 2 / d)
+    return float(l2), float(h1)
+
+
+def build_wavelet_transform(grid) -> WaveletTransform:
+    """Precompute the transform structure for a dyadic time grid."""
+    t = grid.t
+    nlev = grid.max_level
+    N1 = grid.num_nodes
+    node_omega = np.zeros(N1)
+
+    # Level 0: the two hats on the coarsest grid {0, T}.
+    root_idx = np.flatnonzero(grid.level == 0).astype(np.int32)
+    assert root_idx.size == 2
+    T = t[-1] - t[0]
+    l2_root = T / 3.0
+    root_s = np.full(2, 1.0 / np.sqrt(l2_root))
+    node_omega[root_idx] = root_s * np.sqrt(1.0 / T)
+
+    levels = []
+    for j in range(1, nlev + 1):
+        present = np.flatnonzero(grid.level <= j)  # already time-sorted
+        pos = {int(k): i for i, k in enumerate(present)}
+        idx = np.flatnonzero(grid.level == j).astype(np.int32)
+        pl = grid.parent_left[idx].astype(np.int32)
+        pr = grid.parent_right[idx].astype(np.int32)
+        t_present = t[present]
+        integ = _hat_integrals(t_present)
+
+        wl = np.empty(idx.size)
+        wr = np.empty(idx.size)
+        s = np.empty(idx.size)
+        for a, (k, l, r) in enumerate(zip(idx, pl, pr)):
+            p_k, p_l, p_r = pos[int(k)], pos[int(l)], pos[int(r)]
+            assert p_l == p_k - 1 and p_r == p_k + 1, "parents must be grid neighbors"
+            wl[a] = -integ[p_k] / (2.0 * integ[p_l])
+            wr[a] = -integ[p_k] / (2.0 * integ[p_r])
+            # Local support of psi on the level-j grid: [pl-1, pl, k, pr, pr+1].
+            lo = max(p_l - 1, 0)
+            hi = min(p_r + 1, present.size - 1)
+            t_loc = t_present[lo : hi + 1]
+            v_loc = np.zeros(t_loc.size)
+            v_loc[p_l - lo] = wl[a]
+            v_loc[p_k - lo] = 1.0
+            v_loc[p_r - lo] = wr[a]
+            l2, h1 = _pw_linear_norms(t_loc, v_loc)
+            s[a] = 1.0 / np.sqrt(l2)
+            node_omega[k] = np.sqrt(h1 / l2)
+        levels.append(_Level(idx, pl, pr, wl, wr, s))
+
+    level_shift = np.zeros(nlev + 1)
+    for j in range(nlev + 1):
+        omj = node_omega[grid.level == j]
+        level_shift[j] = float(np.median(omj)) if omj.size else 0.0
+
+    perm = np.argsort(grid.level, kind="stable").astype(np.int32)
+    counts = np.bincount(grid.level, minlength=nlev + 1).astype(np.int32)
+    return WaveletTransform(
+        grid=grid,
+        levels=tuple(levels),
+        root_idx=root_idx,
+        root_s=root_s,
+        node_level=grid.level.copy(),
+        node_omega=node_omega,
+        level_shift=level_shift,
+        perm_by_level=perm,
+        level_counts=counts,
+    )
 
 
 def _use_dense(wt, dtype) -> bool:

@@ -9,6 +9,12 @@ Examples:
     python -m spacetime_tpu_torch.run --device cuda --dtype f32 \
         --space-n 512 --time-levels 7
 
+    # the 129³×64 3-D solve (133 MDoF) on the GPU, twice: the second time
+    # is the steady one
+    python -m spacetime_tpu_torch.run --device cuda --dtype f32 \
+        --problem smooth3d --space-n 128 --time-levels 6 --inner mg \
+        --no-error --repeat 2
+
     # a small f64 solve on the CPU (plain PyTorch twins of the kernels)
     python -m spacetime_tpu_torch.run --device cpu --space-n 32 \
         --time-levels 4 --inner mg
@@ -64,6 +70,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="relative tolerance floor of the f32 inner rounds")
     p.add_argument("--no-error", action="store_true",
                    help="skip the L2 error computation")
+    p.add_argument("--repeat", type=int, default=1, metavar="K",
+                   help="run the solve K times and report each (the last "
+                        "is the steady time)")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="capture a torch.profiler trace of the solve into "
                         "DIR/trace.json.gz and write the per-kernel device "
@@ -149,22 +158,31 @@ def main(argv=None) -> int:
         # host quadrature of the loads, once per solver, outside the solve
         for dt in {dtype, torch.float64} if args.refined else {dtype}:
             solver.assemble_rhs_host(dt)
-    t0 = time.perf_counter()
-    with timer("solve"), _profiled(args, device) as prof:
-        if args.refined:
-            res = solver.solve_refined(
-                tol=1e-8 if args.tol is None else args.tol,
-                inner_tol=args.refine_inner_tol,
-                compute_error=not args.no_error,
-            )
-        else:
-            res = solver.solve(
-                tol=1e-6 if args.tol is None else args.tol,
-                maxiter=args.maxiter, compute_error=not args.no_error,
-            )
-    wall = time.perf_counter() - t0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    for call in range(1, args.repeat + 1):
+        t0 = time.perf_counter()
+        with timer("solve"), _profiled(args, device) as prof:
+            if args.refined:
+                res = solver.solve_refined(
+                    tol=1e-8 if args.tol is None else args.tol,
+                    inner_tol=args.refine_inner_tol,
+                    compute_error=not args.no_error,
+                )
+            else:
+                res = solver.solve(
+                    tol=1e-6 if args.tol is None else args.tol,
+                    maxiter=args.maxiter, compute_error=not args.no_error,
+                )
+        wall = time.perf_counter() - t0
+        if args.repeat > 1:
+            print(f"solve call {call}: {res.iterations} iterations, "
+                  f"{res.solve_seconds:.4f} s")
     if args.profile:
         _write_profile(prof, args.profile, device, wall)
+    if device.type == "cuda":
+        peak = torch.cuda.max_memory_allocated(device) / 2**30
+        print(f"peak device memory of the solve: {peak:.2f} GiB")
     rel = np.asarray(res.residuals) / res.residuals[0]
     kind = "inner PCG iterations" if args.refined else "PCG iterations"
     print(

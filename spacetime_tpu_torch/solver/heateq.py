@@ -1,27 +1,30 @@
 """The space-time heat-equation solver on PyTorch tensors.
 
 The counterpart of ``spacetime_tpu.solver.heateq.HeatSolver`` for the
-structured constant-stencil regime with multi-shift multigrid inner solves
-(``inner="mg"``) on uniform dyadic time grids: the same stabilized
-minimal-residual formulation, the same operator algebra and the same
-operation order, so float64 residual histories agree with the JAX package to
-rounding. Host setup (assembly, stencils, the multigrid hierarchy, the
-wavelet structure, the quadrature of the loads) is shared with the JAX
-package; every per-iteration operation runs on ``device``.
+structured constant-stencil regime (``smooth2d`` and ``smooth3d``) with
+multi-shift multigrid inner solves (``inner="mg"``) on uniform dyadic time
+grids: the same stabilized minimal-residual formulation, the same operator
+algebra and the same operation order, so float64 residual histories agree
+with the JAX package to rounding. Host setup (assembly, stencils, the
+multigrid hierarchy, the wavelet structure, the quadrature of the loads)
+runs on the port's own copies of the JAX package's host modules
+(``fem``, ``ops.sparse``, ``ops.stencil``, ``ops.wavelets``,
+``ops.multigrid``); every per-iteration operation runs on ``device``.
 
 B and Bᵀ run as the stab-fused pair of ``ops.kron`` in ``apply_S`` and as the
 plain Bᵀ in ``rhs_device``. Every V-cycle level of K_Y and K_X runs the
-multigrid kernels of ``ops.mg_kernels`` (the fused pre/post stages, or the
-sweep and residual kernels for V(ν, ν_post) cycles), and the stiffness
+multigrid kernels of ``ops.mg_kernels``: the fused pre/post stages in 2-D,
+else the semi-fused stages (sweep, residual + restriction, prolongation +
+correction, sweep), which every 3-D level runs; and the stiffness
 application between the two shifted solves of K_X is the stencil kernel.
 All are CUDA kernels for CUDA tensors and their plain twins on the CPU; on
 CUDA no level falls back to the plain form, whatever its size.
 
 Outside this slice (raising ``NotImplementedError`` with the ROADMAP.md slice
 that ports it): dense and Chebyshev inner solves, non-stencil spatial
-formats, 3-D multigrid, graded time grids, on-device load quadrature, the
-fused/flexible PCG variants, checkpointing, double-single refinement legs
-and multi-device runs.
+formats, graded time grids, on-device load quadrature, the fused/flexible
+PCG variants, checkpointing, double-single refinement legs and multi-device
+runs.
 """
 
 from __future__ import annotations
@@ -32,26 +35,24 @@ import time as _time
 import numpy as np
 import torch
 
-from spacetime_tpu.fem import (
+from ..fem import (
     P1System,
     TimeGrid,
     domain_mesh,
+    l2_error_spacetime,
     spacetime_loads,
     time_matrices,
     uniform_time_grid,
 )
-from spacetime_tpu.fem.errors import l2_error_spacetime
-from spacetime_tpu.ops.multigrid import MultiShiftMultigrid, mass_spectral_bounds
-from spacetime_tpu.ops.sparse import DiaMatrix
-from spacetime_tpu.ops.stencil import StencilOperator
-from spacetime_tpu.ops.wavelets import build_wavelet_transform
-
 from ..models import Problem, get_problem
 from ..ops import kron
 from ..ops import wavelets as wav
 from ..ops.mg_kernels import MSKernelLevel
-from ..ops.multigrid import MultiShiftMG, chebyshev_stencil_inverse, row_params
-from ..ops.stencil import grouped_apply, row_scale
+from ..ops.multigrid import (MultiShiftMG, MultiShiftMultigrid,
+                             chebyshev_stencil_inverse, mass_spectral_bounds,
+                             row_params)
+from ..ops.sparse import DiaMatrix
+from ..ops.stencil import StencilOperator, grouped_apply, row_scale
 from ..utils.device import resolve_device, synchronize
 from .pcg import pcg
 
@@ -80,7 +81,7 @@ class SolveResult:
 
 
 class _LoadsOn:
-    """``problem`` with its source evaluated on ``device``: the shared host
+    """``problem`` with its source evaluated on ``device``: the host
     quadrature (``spacetime_loads``) calls ``g_many`` and ``u0``."""
 
     def __init__(self, problem: Problem, device: torch.device):
@@ -138,16 +139,15 @@ class HeatSolver:
         self.dtype = dtype
         self.N = grid.num_intervals
         self.m = system.m
-        self.wt = build_wavelet_transform(grid)
+        self.wt = wav.build_wavelet_transform(grid)
         if not self.wt.is_uniform:
             raise _later("a graded or non-dyadic time grid", "graded time-grid")
 
         # --- spatial operators: constant stencils ---------------------------
         gs = system.mesh.grid_shape
-        weighted = getattr(system, "weighted", False)
-        if spatial_format not in ("auto", "stencil") or weighted:
+        if spatial_format not in ("auto", "stencil"):
             raise _later(
-                f"spatial_format={spatial_format!r} (weighted={weighted})",
+                f"spatial_format={spatial_format!r}",
                 "weighted-coefficient / unstructured",
             )
         if gs is None or min(gs) < 3:
@@ -164,8 +164,6 @@ class HeatSolver:
             inner = "dense" if self.m <= 4096 else "mg"
         if inner != "mg":
             raise _later(f"inner={inner!r}", "dense / Chebyshev inner solver")
-        if dim != 2:
-            raise _later("3-D multigrid", "3-D structured")
         self.inner = inner
         if mg_cycles < 1 or (mg_cycles_kx is not None and mg_cycles_kx < 1):
             raise ValueError(
@@ -190,12 +188,22 @@ class HeatSolver:
         if self.gs == (space_n - 1,) * dim:
             cache[space_n] = system
         if mg_coarse is None:
-            mg_coarse = 32
+            # the coarse level's dense inverses grow as (n-1)^(2·dim): 31³
+            # points would take ~3.5 GB each in f32
+            mg_coarse = 32 if dim == 2 else 16
         msmg, (A_c, M_c) = MultiShiftMultigrid.build(
             dim, space_n, nu=mg_nu,
             n_coarse=min(mg_coarse, max(space_n // 2, 4)),
             _system_cache=cache,
         )
+        odd = [lev.n for lev in msmg.levels if lev.n % 2]
+        if odd:
+            # n → n // 2 is a nested P1 coarsening only for even n
+            raise ValueError(
+                f"space_n={space_n}: the multigrid levels {odd} have an odd "
+                "number of cells; every level above the coarse grid needs "
+                "an even one"
+            )
         if mg_nu_post is not None:
             msmg = dataclasses.replace(msmg, nu_post=mg_nu_post)
         self.msmg = msmg

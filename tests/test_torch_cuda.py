@@ -1,5 +1,5 @@
-"""The CUDA kernels K1 (B), K2 (Bᵀ) and the multigrid kernels K3–K7 on the
-card, against their plain twins. Marked ``cuda``: they skip where
+"""The CUDA kernels K1 (B), K2 (Bᵀ) and the multigrid kernels K3–K9 (2-D and
+3-D) on the card, against their plain twins. Marked ``cuda``: they skip where
 ``torch.cuda.is_available()`` is False (the kernels have no CPU mode). This
 file imports no JAX, so on a machine with a GPU and without JAX it runs as
 
@@ -144,3 +144,81 @@ def test_mg_wrappers_check_inputs(msmg):
             torch.zeros((T, 16, 31), device="cuda"), cols)
     with pytest.raises(ValueError, match="nu=9"):
         MSKernelLevel(lev.A_st, lev.M_st, 9, gs=gs).smooth(b, b, cols)
+
+
+@pytest.fixture(scope="module")
+def msmg3d():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return build_solver("smooth3d", 8, 2, device="cpu", inner="mg").msmg
+
+
+def _level_inputs(msmg, kl, T, dtype, seed):
+    rng = np.random.default_rng(seed)
+    mk = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
+    omega = np.abs(rng.standard_normal(T)) * 20
+    cols = MSKernelLevel.columns(row_params(msmg, omega, dtype, "cuda")[0])
+    x, b = mk(rng.standard_normal((T,) + kl.gs)), mk(rng.standard_normal((T,) + kl.gs))
+    return x, b, mk(rng.standard_normal((T,) + kl.coarse_gs)), cols
+
+
+# ragged extents: one brick; bricks with a last plane / row / column of one
+# point; several bricks in every direction
+@pytest.mark.parametrize("gs", [(7, 9, 15), (9, 17, 33), (19, 21, 45)])
+@pytest.mark.parametrize("nu", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mg_kernels_3d_match_twins(msmg3d, dtype, nu, gs):
+    T = 5
+    lev = msmg3d.levels[0]
+    kl = MSKernelLevel(lev.A_st, lev.M_st, nu, nu_post=1, gs=gs)
+    x, b, ec, cols = _level_inputs(msmg3d, kl, T, dtype, nu)
+    mg_kernels.reset_launch_counts()
+    _close(kl.smooth(x, b, cols), kl.smooth_plain(x, b, cols), dtype)
+    _close(kl.smooth(x, b, cols, post=True),
+           kl.smooth_plain(x, b, cols, post=True), dtype)
+    _close(kl.smooth(None, b, cols, zero_init=True),
+           kl.smooth_plain(None, b, cols, zero_init=True), dtype)
+    _close(kl.residual(x, b, cols), kl.residual_plain(x, b, cols), dtype)
+    _close(kl.apply_A(x), kl.apply_A_plain(x), dtype)
+    _close(kl.residual_restrict(x, b, cols),
+           kl.residual_restrict_plain(x, b, cols), dtype)
+    _close(kl.prolong_correct(x, ec), kl.prolong_correct_plain(x, ec), dtype)
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    counts = mg_kernels.launch_counts()
+    assert counts[f"K3 mg_smooth_3d {sfx}"] == 3
+    for name in ("K4 mg_residual", "K5 mg_apply", "K8 mg_residual_restrict",
+                 "K9 mg_prolong_correct"):
+        assert counts[f"{name}_3d {sfx}"] == 1, (name, counts)
+    assert sum(counts.values()) == 7
+    with pytest.raises(NotImplementedError, match="3-D"):
+        kl.fused_pre(b, cols)
+
+
+@pytest.mark.parametrize("gs", [(15, 31), (33, 65), (47, 71)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_transfer_kernels_2d_match_twins(msmg, dtype, gs):
+    lev = msmg.levels[0]
+    kl = MSKernelLevel(lev.A_st, lev.M_st, 2, gs=gs)
+    x, b, ec, cols = _level_inputs(msmg, kl, 5, dtype, 7)
+    mg_kernels.reset_launch_counts()
+    _close(kl.residual_restrict(x, b, cols),
+           kl.residual_restrict_plain(x, b, cols), dtype)
+    _close(kl.prolong_correct(x, ec), kl.prolong_correct_plain(x, ec), dtype)
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    counts = mg_kernels.launch_counts()
+    assert counts[f"K8 mg_residual_restrict {sfx}"] == 1
+    assert counts[f"K9 mg_prolong_correct {sfx}"] == 1
+
+
+def test_small_3d_solve_matches_cpu(msmg3d):
+    kw = dict(dtype=torch.float64, inner="mg")
+    cpu = build_solver("smooth3d", 8, 2, device="cpu", **kw).solve(tol=1e-8)
+    mg_kernels.reset_launch_counts()
+    gpu = build_solver("smooth3d", 8, 2, device="cuda", **kw).solve(tol=1e-8)
+    assert gpu.iterations == cpu.iterations
+    np.testing.assert_allclose(gpu.residuals, cpu.residuals, rtol=1e-10)
+    counts = mg_kernels.launch_counts()
+    for name in ("K3 mg_smooth_3d", "K8 mg_residual_restrict_3d",
+                 "K9 mg_prolong_correct_3d"):
+        assert counts[f"{name} f64"] > 0, counts
+    assert counts["K6 mg_fused_pre f64"] == counts["K7 mg_fused_post f64"] == 0

@@ -1,6 +1,7 @@
-"""The PyTorch port imports without JAX, refuses a missing GPU, and runs the
-plain twins (not the kernels) on CPU tensors."""
+"""The PyTorch port imports without JAX and without the JAX package, refuses
+a missing GPU, and runs the plain twins (not the kernels) on CPU tensors."""
 
+import ast
 import subprocess
 import sys
 import textwrap
@@ -51,6 +52,73 @@ def test_imports_with_jax_blocked():
     assert out.returncode == 0, out.stderr
     # the package, its four subpackages and their modules
     assert int(out.stdout.strip()) >= 15
+
+
+def _imports_of(path: Path) -> list[str]:
+    """The modules an ``import`` / ``from ... import`` statement of the file
+    names (absolute imports only)."""
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    return names
+
+
+def test_port_sources_do_not_import_the_jax_package():
+    files = sorted((REPO / "spacetime_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) >= 25
+    bad = [
+        (str(f.relative_to(REPO)), name)
+        for f in files for name in _imports_of(f)
+        if name.split(".")[0] in ("spacetime_tpu", "jax", "jaxlib")
+    ]
+    assert not bad, bad
+
+
+_NO_JAX_PACKAGE = textwrap.dedent(
+    """
+    import importlib, pkgutil, sys
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "spacetime_tpu"):
+                raise ImportError(f"{name} is blocked")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    import spacetime_tpu_torch
+    from spacetime_tpu_torch.solver import build_solver
+
+    for mod in pkgutil.walk_packages(
+        spacetime_tpu_torch.__path__, "spacetime_tpu_torch."
+    ):
+        if not mod.name.endswith("__main__"):
+            importlib.import_module(mod.name)
+    its = []
+    for name, n in (("smooth2d", 8), ("smooth3d", 8)):
+        res = build_solver(name, n, 2, device="cpu", inner="mg").solve(tol=1e-8)
+        assert res.converged and res.l2_error > 0, name
+        its.append(res.iterations)
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "spacetime_tpu"))
+    assert not loaded, loaded
+    print(*its)
+    """
+)
+
+
+def test_solves_without_the_jax_package():
+    """Every port module imports, and a 2-D and a 3-D solve run, with the
+    JAX package and JAX blocked from import."""
+    out = subprocess.run(
+        [sys.executable, "-c", _NO_JAX_PACKAGE],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert all(int(k) > 0 for k in out.stdout.split())
 
 
 def test_cuda_device_raises_without_gpu(monkeypatch):

@@ -1,14 +1,15 @@
-"""The multigrid kernels' plain twins (``ops.mg_kernels``, K3–K7) against the
+"""The multigrid kernels' plain twins (``ops.mg_kernels``, K3–K9) against the
 JAX package's Pallas kernels (``MSPallasLevel``, interpret mode), the port's
-V-cycle with kernel levels against the JAX V-cycle with Pallas levels, and
-the conversion of the JAX levels' columns. Inputs are made with numpy from
-a seed; the wrappers are called on CPU tensors, so they dispatch to the
-twins.
+V-cycle with kernel levels against the JAX V-cycle with Pallas levels (fused
+and semi-fused branches, 2-D and 3-D), and the conversion of the JAX
+levels' columns. Inputs are made with numpy from a seed; the wrappers are
+called on CPU tensors, so they dispatch to the twins.
 
 Tolerances, relative to max|JAX|: 1e-12 in float64; in float32 1e-4 for r_c
 and the ``fused_post`` output, whose JAX transfers split f32 data into bf16
-hi + lo parts on the matrix unit (~2⁻¹⁶ relative, ``_dot_last``), and 1e-5
-for the rest (f32 sum order).
+hi + lo parts on the matrix unit (~2⁻¹⁶ relative, ``_dot_last``), 2e-5 for
+the semi-fused transfer stages K8/K9 (the same split, one transfer each),
+and 1e-5 for the rest (f32 sum order).
 """
 
 import dataclasses
@@ -39,6 +40,7 @@ REPO = Path(__file__).resolve().parent.parent
 DTYPES = {"f64": (jnp.float64, torch.float64), "f32": (jnp.float32, torch.float32)}
 TOL = {"f64": 1e-12, "f32": 1e-5}
 TOL_TRANSFER = {"f64": 1e-12, "f32": 1e-4}
+TOL_SEMI = {"f64": 1e-12, "f32": 2e-5}
 
 
 @pytest.fixture(scope="module")
@@ -121,6 +123,146 @@ def test_twin_matches_pallas(level_cases, op, dt, gs, T, nu):
     _close(got[op], want[op], (TOL_TRANSFER if transfer else TOL)[dt])
 
 
+@pytest.fixture(scope="module")
+def hierarchy3d():
+    """Levels 16 and 8 over a 4-cell coarse grid: grids 15³ and 7³."""
+    return MultiShiftMultigrid.build(3, 16, nu=2, n_coarse=4)
+
+
+@pytest.fixture(scope="module")
+def semi_cases(hierarchy, hierarchy3d):
+    """(JAX results, port results) of the kernels K3–K5, K8 and K9 per
+    (dtype, grid, ν), T = 3, computed once."""
+    cache = {}
+
+    def run(dt, gs, nu):
+        key = (dt, gs, nu)
+        if key in cache:
+            return cache[key]
+        msmg = (hierarchy if len(gs) == 2 else hierarchy3d)[0]
+        lev = msmg.levels[-1]
+        jdt, tdt = DTYPES[dt]
+        T = 3
+        rng = np.random.default_rng(zlib.crc32(repr(("semi",) + key).encode()))
+        omega = np.abs(rng.standard_normal(T)) * 20
+        x, b = (rng.standard_normal((T,) + gs) for _ in range(2))
+        ec = rng.standard_normal((T,) + tuple((n - 1) // 2 for n in gs))
+        J = lambda a: jnp.asarray(a, jdt)
+        P = lambda a: torch.as_tensor(a, dtype=tdt)
+        stencils = {k: dataclasses.replace(st, grid_shape=gs)
+                    for k, st in (("A", lev.A_st), ("M", lev.M_st))}
+        pj = MSPallasLevel(stencils["A"], stencils["M"], T, jdt, nu,
+                           interpret=True)
+        assert pj.semi_ok
+        jc, tx = MSPallasLevel.columns(lev, omega, jdt), pj.transfers(jdt)
+        want = {
+            "smooth": pj.smooth(J(x), J(b), jc),
+            "smooth_zero": pj.smooth(None, J(b), jc, zero_init=True),
+            "residual": pj.residual(J(x), J(b), jc),
+            "apply_A": pj.apply_A(J(x)),
+            "residual_restrict": pj.residual_restrict(J(x), J(b), jc, tx),
+            "prolong_correct": pj.prolong_correct(J(x), J(ec), tx),
+        }
+        kl = MSKernelLevel(lev.A_st, lev.M_st, nu, gs=gs)
+        assert kl.semi_ok and kl.fused_ok == (len(gs) == 2)
+        tc = MSKernelLevel.columns(mg.row_params(msmg, omega, tdt, "cpu")[-1])
+        got = {
+            "smooth": kl.smooth(P(x), P(b), tc),
+            "smooth_zero": kl.smooth(None, P(b), tc, zero_init=True),
+            "residual": kl.residual(P(x), P(b), tc),
+            "apply_A": kl.apply_A(P(x)),
+            "residual_restrict": kl.residual_restrict(P(x), P(b), tc),
+            "prolong_correct": kl.prolong_correct(P(x), P(ec)),
+        }
+        cache[key] = (want, got)
+        return cache[key]
+
+    return run
+
+
+@pytest.mark.parametrize("nu", [2, 3])
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+@pytest.mark.parametrize("op", ["smooth", "smooth_zero", "residual", "apply_A",
+                                "residual_restrict", "prolong_correct"])
+def test_twin_matches_pallas_3d(semi_cases, op, dt, nu):
+    want, got = semi_cases(dt, (7, 7, 7), nu)
+    assert got[op].dtype == DTYPES[dt][1]
+    assert tuple(got[op].shape) == tuple(np.asarray(want[op]).shape)
+    semi = op in ("residual_restrict", "prolong_correct")
+    _close(got[op], want[op], (TOL_SEMI if semi else TOL)[dt])
+
+
+@pytest.mark.parametrize("nu", [2, 3])
+@pytest.mark.parametrize("gs", [(15, 15), (15, 31)], ids=["15x15", "15x31"])
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+@pytest.mark.parametrize("op", ["residual_restrict", "prolong_correct"])
+def test_transfer_twins_match_pallas_2d(semi_cases, op, dt, gs, nu):
+    want, got = semi_cases(dt, gs, nu)
+    assert tuple(got[op].shape) == tuple(np.asarray(want[op]).shape)
+    _close(got[op], want[op], TOL_SEMI[dt])
+
+
+class _SemiOnly(MSPallasLevel):
+    """A JAX level whose V-cycle takes the semi-fused branch."""
+
+    fused_ok = False
+
+
+def _semi_vcycle_pair(msmg, A_c, M_c, nu_post, cycles):
+    """The JAX V-cycle with semi-fused interpret-mode Pallas levels and the
+    port's with kernel levels, float64, from one seeded right-hand side."""
+    msmg = dataclasses.replace(msmg, nu_post=nu_post)
+    T = 3
+    rng = np.random.default_rng(13)
+    omega = np.abs(rng.standard_normal(T)) * 10
+    gs = tuple(msmg.levels[0].A_st.grid_shape)
+    b = rng.standard_normal((T,) + gs)
+    cinv = np.linalg.inv(A_c + omega.mean() * M_c)
+
+    lps_j = msmg.row_params(omega, jnp.float64)
+    pallas = [_SemiOnly(lev.A_st, lev.M_st, T, jnp.float64, msmg.nu,
+                        interpret=True, nu_post=nu_post)
+              for lev in msmg.levels]
+    for pj, lp, lev in zip(pallas, lps_j, msmg.levels):
+        lp["cols"] = MSPallasLevel.columns(lev, omega, jnp.float64)
+        lp["tx"] = pj.transfers(jnp.float64)
+    cj = jnp.asarray(cinv)
+    want = msmg.solve(
+        jnp.asarray(b), lps_j,
+        lambda bc: jnp.dot(bc.reshape(T, -1), cj).reshape(bc.shape),
+        cycles, pallas=pallas,
+    )
+    lps_t = mg.row_params(msmg, omega, torch.float64, "cpu")
+    for lp in lps_t:
+        lp["cols"] = MSKernelLevel.columns(lp)
+    kernels = [MSKernelLevel(lev.A_st, lev.M_st, msmg.nu, nu_post=nu_post)
+               for lev in msmg.levels]
+    ct = torch.as_tensor(cinv)
+    got = mg.MultiShiftMG(msmg).solve(
+        torch.as_tensor(b), lps_t,
+        lambda bc: (bc.reshape(T, -1) @ ct).reshape(bc.shape),
+        cycles, kernels=kernels,
+    )
+    return want, got, kernels
+
+
+@pytest.mark.parametrize("nu_post", [None, 1])
+def test_semi_vcycle_3d_matches_jax_pallas_f64(hierarchy3d, nu_post):
+    """3-D: every level runs K3 → K8 → ... → K9 → K3 on both sides."""
+    msmg, (A_c, M_c) = hierarchy3d
+    want, got, kernels = _semi_vcycle_pair(msmg, A_c, M_c, nu_post, 2)
+    assert all(k.semi_ok and not k.fused_ok for k in kernels)
+    _close(got, want, 1e-12)
+
+
+def test_semi_vcycle_2d_nu_post_matches_jax_pallas_f64(hierarchy):
+    """2-D V(2,1): the semi-fused stages on both sides."""
+    msmg, (A_c, M_c) = hierarchy
+    want, got, kernels = _semi_vcycle_pair(msmg, A_c, M_c, 1, 2)
+    assert all(k.semi_ok and not k.fused_ok for k in kernels)
+    _close(got, want, 1e-12)
+
+
 def _vcycle_pair(hierarchy, nu_post, cycles):
     """The JAX and the port solve with per-level kernels, float64."""
     msmg, (A_c, M_c) = hierarchy
@@ -169,10 +311,34 @@ def test_vcycle_with_levels_matches_jax_pallas_f64(hierarchy, cycles):
 
 
 def test_nu_post_branch_matches_jax_pallas_f64(hierarchy):
-    """V(2,1): the sweep and residual kernels around separate transfers."""
+    """V(2,1): the JAX side, given no transfer matrices, runs its sweep and
+    residual kernels around separate XLA transfers; the port's levels run
+    the semi-fused stages. Both compute the same cycle."""
     want, got, kernels = _vcycle_pair(hierarchy, 1, 2)
-    assert not any(k.fused_ok for k in kernels)
+    assert all(k.semi_ok and not k.fused_ok for k in kernels)
     _close(got, want, 1e-12)
+
+
+@pytest.mark.parametrize("nu_post", [None, 1])
+def test_vcycle_refuses_even_extents(hierarchy, hierarchy3d, nu_post):
+    """A kernel level with an even extent takes neither the fused nor the
+    semi-fused stages; the V-cycle raises rather than run anything else, in
+    2-D and 3-D alike, and the solver refuses such a hierarchy up front."""
+    from spacetime_tpu_torch.solver import build_solver
+
+    for (msmg, _), gs in ((hierarchy, (30, 31)), (hierarchy3d, (8, 7, 7))):
+        lev = msmg.levels[0]
+        lps = mg.row_params(msmg, np.ones(3), torch.float64, "cpu")
+        for lp in lps:
+            lp["cols"] = MSKernelLevel.columns(lp)
+        kl = MSKernelLevel(lev.A_st, lev.M_st, 2, nu_post=nu_post, gs=gs)
+        assert not kl.fused_ok and not kl.semi_ok
+        b = torch.zeros((3,) + gs, dtype=torch.float64)
+        with pytest.raises(ValueError, match="odd extents"):
+            mg.MultiShiftMG(msmg).vcycle(b, lps, lambda bc: bc, kernels=[kl])
+    with pytest.raises(ValueError, match=r"levels \[25\]"):
+        build_solver("smooth2d", 25, 2, device="cpu", inner="mg",
+                     mg_nu_post=nu_post)
 
 
 def test_levels_dispatch_by_device(hierarchy):
@@ -186,16 +352,31 @@ def test_levels_dispatch_by_device(hierarchy):
         kl.residual(meta, meta, cols)
     with pytest.raises(ValueError, match="no mg kernel for device meta"):
         kl.apply_A(meta)
+    kl3 = MSKernelLevel(lev.A_st, lev.M_st, 2, gs=(7, 7, 7))
+    assert kl3.semi_ok and not kl3.fused_ok
+    cols3 = MSKernelLevel.columns(
+        mg.row_params(msmg, np.ones(3), torch.float64, "cpu")[0])
+    b3 = torch.zeros((3, 7, 7, 7), dtype=torch.float64)
     with pytest.raises(NotImplementedError, match="3-D"):
-        MSKernelLevel(lev.A_st, lev.M_st, 2, gs=(7, 7, 7))
+        kl3.fused_pre(b3, cols3)
+    with pytest.raises(NotImplementedError, match="3-D"):
+        kl3.fused_post(b3, b3, torch.zeros((3, 3, 3, 3), dtype=torch.float64),
+                       cols3)
+    meta3 = torch.empty((3, 7, 7, 7), device="meta")
+    with pytest.raises(ValueError, match="no mg kernel for device meta"):
+        kl3.residual_restrict(meta3, meta3, cols3)
+    with pytest.raises(ValueError, match="no mg kernel for device meta"):
+        kl3.prolong_correct(meta3, meta3[:, :3, :3, :3])
     assert not MSKernelLevel(lev.A_st, lev.M_st, 4).fused_ok
     assert not MSKernelLevel(lev.A_st, lev.M_st, 2, nu_post=1).fused_ok
+    assert not MSKernelLevel(lev.A_st, lev.M_st, 2, gs=(8, 7)).semi_ok
+    names = {(3, "mg_smooth"), (4, "mg_residual"), (5, "mg_apply"),
+             (8, "mg_residual_restrict"), (9, "mg_prolong_correct")}
     assert set(mg_kernels.launch_counts()) == {
-        f"K{i} {name} {sfx}" for i, name in
-        ((3, "mg_smooth"), (4, "mg_residual"), (5, "mg_apply"),
-         (6, "mg_fused_pre"), (7, "mg_fused_post"))
+        f"K{i} {name}{d} {sfx}" for i, name in names for d in ("", "_3d")
         for sfx in ("f32", "f64")
-    }
+    } | {f"K{i} {name} {sfx}" for i, name in
+         ((6, "mg_fused_pre"), (7, "mg_fused_post")) for sfx in ("f32", "f64")}
 
 
 def test_convert_carries_columns():

@@ -1,6 +1,7 @@
 """The port's HeatSolver against the JAX HeatSolver at 33×33×16 (smooth2d,
 ``inner="mg"``, ``space_n=32``, ``mg_coarse=8``: multigrid levels 32 and 16
-over an 8-cell coarse grid), with host loads on both sides."""
+over an 8-cell coarse grid) and at 9³×8 and 17³×8 (smooth3d), with host
+loads on both sides."""
 
 import subprocess
 import sys
@@ -12,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from spacetime_tpu.fem import P1System, unit_square_mesh, uniform_time_grid
+from spacetime_tpu.fem import (P1System, uniform_time_grid, unit_cube_mesh,
+                               unit_square_mesh)
 from spacetime_tpu.models import get_problem as jax_problem
 from spacetime_tpu.solver.heateq import HeatSolver as JaxHeatSolver
 from spacetime_tpu_torch.convert import params_from_jax
@@ -152,6 +154,43 @@ def test_solve_refined_needs_f64_tensors(case, monkeypatch):
     monkeypatch.setitem(ps._params_cache, torch.float64, bad)
     with pytest.raises(RuntimeError, match="float64"):
         ps.solve_refined()
+
+
+@pytest.mark.parametrize("n", [8, 16], ids=["9^3x8", "17^3x8"])
+def test_solve_3d_f64_histories_match_jax(n):
+    """smooth3d, ``inner="mg"`` (the 3-D coarse default: levels down to 4 /
+    8 cells): every V-cycle level runs the semi-fused stages' twins."""
+    system = P1System.from_mesh(unit_cube_mesh(n))
+    grid = uniform_time_grid(3)
+    kw = dict(inner="mg", space_n=n)
+    js = JaxHeatSolver(jax_problem("smooth3d"), system, grid,
+                       dtype=jnp.float64, rhs="host", **kw)
+    ps = HeatSolver(get_problem("smooth3d"), system, grid,
+                    dtype=torch.float64, device="cpu", **kw)
+    assert ps.msmg.n_coarse == js.msmg.n_coarse == n // 2
+    assert all(k.semi_ok and not k.fused_ok for k in ps._kl_ky + ps._kl_kx)
+    jr, pr = js.solve(tol=1e-8), ps.solve(tol=1e-8)
+    assert jr.converged and pr.converged
+    assert pr.iterations == jr.iterations
+    np.testing.assert_allclose(pr.residuals, jr.residuals, rtol=1e-10)
+    np.testing.assert_allclose(pr.precond_residuals, jr.precond_residuals,
+                               rtol=1e-10)
+    np.testing.assert_allclose(pr.l2_error, jr.l2_error, rtol=1e-9)
+
+
+def test_solve_v21_semi_branch_matches_jax(case):
+    """V(2,1) (``mg_nu_post=1``): the port's levels take the semi-fused
+    stages, the JAX CPU solver its plain V-cycle; float64, the same count."""
+    system, grid = case["port64"].system, case["port64"].grid
+    js = JaxHeatSolver(jax_problem("smooth2d"), system, grid,
+                       dtype=jnp.float64, rhs="host", mg_nu_post=1, **KW)
+    ps = HeatSolver(get_problem("smooth2d"), system, grid, dtype=torch.float64,
+                    device="cpu", mg_nu_post=1, **KW)
+    assert all(k.semi_ok and not k.fused_ok for k in ps._kl_ky)
+    jr, pr = js.solve(tol=1e-8), ps.solve(tol=1e-8)
+    assert jr.converged and pr.converged
+    assert pr.iterations == jr.iterations
+    np.testing.assert_allclose(pr.residuals, jr.residuals, rtol=1e-10)
 
 
 def test_cli_runs_on_cpu():
