@@ -45,10 +45,27 @@ Phases (every check asserts; any failure exits non-zero):
               2.5223e-04; every level runs K3/K8/K9, none K6/K7.
 13. smooth3d f64 — 17³×16, ``solve(tol=1e-8)``: the JAX package's 18
               iterations exactly, L2 within 1e-6 of 3.999081e-03.
+14. weighted mg kernels — K11, K12, K14 and K15 against their twins in
+              float32 and float64 with ν ∈ {2, 3}, at 511² and 255² (T=129),
+              127² (T=65) and a ragged 15×31 (T=5), W the weights of the
+              varcoef2d assembly at that size; median device times (ν = 2)
+              at 511²×129 and 127²×65.
+15. varcoef2d 129²×64 f32 — ``solve(tol=1e-6)`` within ±1 of the JAX
+              package's 16 iterations, L2 within 1% of its value;
+              ``solve_refined(tol=1e-8)``: rounds and inner iterations within
+              ±2 of its 2 and 25.
+16. varcoef2d 513²×128 f32 — setup, loads and L2 seconds; ``solve(tol=1e-6)``
+              twice, 16 ± 2 iterations, L2 within 20% of the port's float64
+              solve (3.564768e-06, see REF_VAR_FLAGSHIP); one
+              ``solve_refined(tol=1e-8)``, L2 within 1% of it.
+17. varcoef2d f64 — 33²×16, ``inner="mg"``, ``mg_coarse=8``,
+              ``solve(tol=1e-8)``: the JAX package's 18 iterations exactly,
+              L2 within 1e-6 of its value.
 
 Launch counters are zeroed just before each path (phases 7–8, 9, 10, 11,
-12, 13) and read just after it; each path asserts the kernels it must have
-launched. The last two lines are a JSON object describing the kernels and
+12, 13, 15, 16, 17) and read just after it; each path asserts the kernels it
+must have launched, and a weighted path that no constant-stencil kernel
+ran. The last two lines are a JSON object describing the kernels and
 ``{"ok": true, "device": ...}``.
 """
 
@@ -98,12 +115,39 @@ REF_3D = {"n": 64, "levels": 5, "iterations": 14, "l2": 2.522348342273894e-04,
           "l2_band": 0.01}
 REF_3D_F64 = {"n": 16, "levels": 4, "iterations": 18,
               "l2": 3.999081235687421e-03}
+# varcoef2d (κ = 1 + ½·Πsin(πx), c = 1 + x₀; the weighted Galerkin V-cycle).
+# The JAX package on the CPU at 129²×64 f32: ``JAX_ENABLE_X64=1 python -m
+# spacetime_tpu.run --backend jax --device cpu --problem varcoef2d
+# --space-n 128 --time-levels 6 --dtype f32 --inner mg --rhs host`` (and
+# ``--refined --tol 1e-8``). At 33²×16 f64 with mg_coarse=8, tol 1e-8: its
+# HeatSolver, which tests/test_torch_varcoef.py holds the port's CPU run to
+# (iterations exactly, L2 to 1e-9).
+REF_VAR = {"n": 128, "levels": 6, "iterations": 16,
+           "l2": 5.6389958396755104e-05, "refined_iterations": 25,
+           "refined_rounds": 2}
+REF_VAR_F64 = {"n": 32, "levels": 4, "iterations": 18,
+               "l2": 9.14383890518168e-04}
+# The port at 513²×128 on an H100 (``python -m spacetime_tpu_torch.run
+# --problem varcoef2d --device cuda --dtype f64 --space-n 512
+# --time-levels 7 --tol 1e-8``): the float64 solve took 21 iterations to
+# L2 3.564768e-06. The f32 solve's L2 carries f32 rounding of the
+# operator (as REF_FLAGSHIP), hence the 20% band on it; the f64-leg
+# refinement is held to 1%.
+REF_VAR_FLAGSHIP = {"n": 512, "levels": 7, "iterations": 16,
+                    "l2_f64": 3.564768e-06, "l2_band": 0.2}
 # (T, grid) of the multigrid kernel checks: the 2-D flagship's fine and
 # first coarse level, cfg2's fine level at K_X's row count, the 3-D
 # flagship's two finest levels, and ragged shapes.
 MG_SHAPES = [(129, (511, 511)), (129, (255, 255)), (65, (127, 127)),
              (5, (15, 31))]
 MG_SHAPES_3D = [(65, (127, 127, 127)), (65, (63, 63, 63)), (5, (7, 9, 15))]
+# (T, grid, cells of the assembly its weights come from) of the weighted
+# kernels' checks: the varcoef2d flagship's two finest levels, its 129²
+# run's finest level at K_X's row count, and a ragged grid (the 127²
+# weights cut to it)
+VAR_SHAPES = [(129, (511, 511), 512), (129, (255, 255), 256),
+              (65, (127, 127), 128), (5, (15, 31), 128)]
+VAR_OPS = ("residual_var", "apply_var", "fused_pre_var", "fused_post_var")
 MG_TIMED = [(129, (511, 511)), (65, (127, 127)), (65, (127, 127, 127)),
             (65, (63, 63, 63))]
 # the shape of each kernel's headline numbers in the JSON line, by dimension
@@ -204,6 +248,115 @@ def mg_bound(form, kl, T, dtype) -> dict:
     return bound(nbytes, flops, dtype)
 
 
+def var_bound(form, kl, T, dtype) -> dict:
+    """Bytes (each input read once, the weights W once, each output written
+    once) and operations of one weighted kernel at T time rows."""
+    m = int(np.prod(kl.gs))
+    mc = int(np.prod(kl.coarse_gs))
+    s = torch.finfo(dtype).bits // 8
+    nt = len(kl.A_vs.disps)
+    a_ops = 2 * nt - 1
+    op = a_ops + stencil_ops(kl.groups_M) + 2  # + ω·M x and the add
+    nu = kl.nu
+    sweep = op * nu + 4 + 6 * (nu - 1)
+    sweep0 = 2 + (op + 6) * (nu - 1)
+    cols = 3 * T
+    nbytes, flops = {
+        "residual": (s * (3 * T * m + nt * m + T), T * m * (op + 1)),
+        "apply_A": (s * (2 * T * m + nt * m), T * m * a_ops),
+        "fused_pre": (s * (2 * T * m + T * mc + nt * m + cols),
+                      T * m * (2 + sweep0 + op + 1) + T * mc * 8),
+        "fused_post": (s * (3 * T * m + T * mc + nt * m + cols),
+                       T * m * (2 + sweep + 3)),
+    }[form]
+    return bound(nbytes, flops, dtype)
+
+
+def var_forms(kl, x) -> dict:
+    """{form: (kernel op, kernel_fn, twin_fn)} of one VarMSKernelLevel."""
+    X, B, EC, c, W = x["x"], x["b"], x["ec"], x["cols"], x["W"]
+    return {
+        "residual": ("residual_var", lambda: (kl.residual(X, B, c, W),),
+                     lambda: (kl.residual_plain(X, B, c, W),)),
+        "apply_A": ("apply_var", lambda: (kl.apply_A(X, W),),
+                    lambda: (kl.apply_A_plain(X, W),)),
+        "fused_pre": ("fused_pre_var", lambda: kl.fused_pre(B, c, W),
+                      lambda: kl.fused_pre_plain(B, c, W)),
+        "fused_post": ("fused_post_var",
+                       lambda: (kl.fused_post(X, B, EC, c, W),),
+                       lambda: (kl.fused_post_plain(X, B, EC, c, W),)),
+    }
+
+
+def var_hierarchy(n: int):
+    """The one-level varcoef2d Galerkin hierarchy at ``n`` cells: its level
+    holds the weights ``VarStencilOperator.from_dia`` reads off the
+    assembly there."""
+    from spacetime_tpu_torch.fem import P1System, unit_square_mesh
+    from spacetime_tpu_torch.models import get_problem
+    from spacetime_tpu_torch.ops.multigrid import GalerkinMultiShiftMultigrid
+
+    system = P1System.from_problem(get_problem("varcoef2d"),
+                                   unit_square_mesh(n))
+    return GalerkinMultiShiftMultigrid.build(2, n, system.A, system.M,
+                                             n_coarse=n // 2)[0]
+
+
+def var_inputs(msmg, kl, T, dtype, rng) -> dict:
+    """x, b (T, *gs), e_c, the level's weights cut to the grid and the
+    columns of random shifts, on the card."""
+    from spacetime_tpu_torch.ops.multigrid import var_row_params
+
+    mk = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
+    omega = np.abs(rng.standard_normal(T)) * 20
+    ny, nx = kl.gs
+    lp = var_row_params(msmg, omega, dtype, "cuda")[0]
+    return {
+        "x": mk(rng.standard_normal((T,) + kl.gs)),
+        "b": mk(rng.standard_normal((T,) + kl.gs)),
+        "ec": mk(rng.standard_normal((T,) + kl.coarse_gs)),
+        "W": mk(np.ascontiguousarray(msmg.levels[0].Aw[:, :ny, :nx])),
+        "cols": kl.columns(lp),
+    }
+
+
+def check_forms(kl, forms, bound_fn, T, dtype, results, library=None) -> None:
+    """Every form of one kernel level against its twin; device times of
+    the timed shapes (ν = 2) into ``results[(op, dtype, dim)]["forms"]``.
+    ``library``: (form, fn), one library call computing that form, timed
+    beside it and held to its twin."""
+    gs, nu = kl.gs, kl.nu
+    for form, (op, kfn, tfn) in forms.items():
+        got, want = kfn(), tfn()
+        torch.cuda.synchronize()
+        rec = results.setdefault(
+            (op, dtype, kl.dim), {"max_abs_err": 0.0, "forms": {}})
+        for g, w in zip(got, want):
+            err = float((g - w).abs().max())
+            scale = float(w.abs().max())
+            assert err <= TOL[dtype] * scale, (
+                form, dtype, T, gs, nu, err, scale)
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        del got, want
+        line = (f"  {form:17s} {str(dtype)[6:]:8s} nu={nu} T={T:3d} "
+                f"gs={gs}: max|kernel-twin| {err:.3e} (max|twin| {scale:.3e})")
+        if nu == 2 and (T, gs) in MG_TIMED:
+            ms, plain_ms = device_ms(kfn), device_ms(tfn)
+            entry = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                     **bound_fn(form, kl, T, dtype)}
+            line += (f"; kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound "
+                     f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})")
+            if library is not None and library[0] == form:
+                lib = library[1]
+                lerr = float((lib() - tfn()[0]).abs().max())
+                entry["library_ms"] = device_ms(lib)
+                line += (f", conv{kl.dim}d {entry['library_ms']:.4f} ms "
+                         f"(max|conv-twin| {lerr:.3e})")
+                assert lerr <= TOL[dtype] * scale, (lerr, scale)
+            rec["forms"][f"{form} {shape_key(T, gs)}"] = entry
+        print(line, flush=True)
+
+
 def seeded_inputs(taps, T, dtype, rng) -> dict:
     """U (T+1, *gs), V and W (T, *gs), and the h/2, h/16 columns of a random
     positive h, on the card."""
@@ -294,43 +447,6 @@ def mg_inputs(msmg, kl, T, dtype, rng) -> dict:
     }
 
 
-def check_mg_level(kl, x, T, dtype, results, lib_results) -> None:
-    """Every form of one kernel level against its twin; device times of the
-    timed shapes (ν = 2) into ``results[(op, dtype, dim)]["forms"]``."""
-    gs, nu = kl.gs, kl.nu
-    for form, (op, kfn, tfn) in mg_forms(kl, x).items():
-        got, want = kfn(), tfn()
-        torch.cuda.synchronize()
-        rec = results.setdefault(
-            (op, dtype, kl.dim), {"max_abs_err": 0.0, "forms": {}})
-        for g, w in zip(got, want):
-            err = float((g - w).abs().max())
-            scale = float(w.abs().max())
-            assert err <= TOL[dtype] * scale, (
-                form, dtype, T, gs, nu, err, scale)
-            rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        del got, want
-        line = (f"  {form:17s} {str(dtype)[6:]:8s} nu={nu} T={T:3d} "
-                f"gs={gs}: max|kernel-twin| {err:.3e} (max|twin| {scale:.3e})")
-        if nu == 2 and (T, gs) in MG_TIMED:
-            ms, plain_ms = device_ms(kfn), device_ms(tfn)
-            entry = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                     **mg_bound(form, kl, T, dtype)}
-            line += (f"; kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound "
-                     f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})")
-            if op == "apply":
-                lib = stencil_conv(kl, x["x"])
-                lerr = float((lib() - kl.apply_A_plain(x["x"])).abs().max())
-                entry["library_ms"] = device_ms(lib)
-                lib_results[(dtype, kl.dim, shape_key(T, gs))] = (
-                    entry["library_ms"], lerr)
-                line += (f", conv{kl.dim}d {entry['library_ms']:.4f} ms "
-                         f"(max|conv-twin| {lerr:.3e})")
-                assert lerr <= TOL[dtype] * scale, (lerr, scale)
-            rec["forms"][f"{form} {shape_key(T, gs)}"] = entry
-        print(line, flush=True)
-
-
 def device_ms(fn) -> float:
     """Median device ms of ``fn()`` (``utils.profiling.device_ms``, imported
     once ``main`` has put the repository on the path)."""
@@ -340,8 +456,8 @@ def device_ms(fn) -> float:
 
 
 class Paths:
-    """Launch counts of K1–K9 per main path: zeroed just before a path,
-    read just after it."""
+    """Launch counts of every kernel per main path: zeroed just before a
+    path, read just after it."""
 
     def __init__(self, kron, mgk):
         self.modules = (kron, mgk)
@@ -376,7 +492,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from spacetime_tpu_torch.ops import kron, mg_kernels, native
-    from spacetime_tpu_torch.ops.mg_kernels import MSKernelLevel
+    from spacetime_tpu_torch.ops.mg_kernels import (MSKernelLevel,
+                                                    VarMSKernelLevel)
     from spacetime_tpu_torch.solver import build_solver
 
     phase("1 device")
@@ -457,7 +574,6 @@ def main() -> int:
         results[("pair", dtype)] = {"ms": pair_k, "plain_ms": pair_t}
 
     mg_results = {}  # (op, dtype, dim) -> {"max_abs_err", "forms": {...}}
-    lib_results = {}  # (dtype, dim, shape) -> (conv ms, max|conv - twin|)
     for title, msmg, mg_shapes, seed in (
         ("5 mg kernels K3-K9 (2-D) against their plain twins",
          solver.msmg, MG_SHAPES, SEED + 1),
@@ -472,7 +588,9 @@ def main() -> int:
                 for nu in (2, 3):
                     kl = MSKernelLevel(lev0.A_st, lev0.M_st, nu, gs=gs)
                     x = mg_inputs(msmg, kl, T, dtype, rng)
-                    check_mg_level(kl, x, T, dtype, mg_results, lib_results)
+                    check_forms(kl, mg_forms(kl, x), mg_bound, T, dtype,
+                                mg_results,
+                                library=("apply_A", stencil_conv(kl, x["x"])))
                     del x
                     torch.cuda.empty_cache()
     del small3
@@ -670,6 +788,156 @@ def main() -> int:
     assert all(n == 0 for key, n in counts.items() if len(key) == 3
                and key[2] == 2), counts
     del s3
+    torch.cuda.empty_cache()
+
+    phase("14 weighted mg kernels K11, K12, K14, K15 against their twins")
+    rng = np.random.default_rng(SEED + 3)
+    for n in sorted({n for _, _, n in VAR_SHAPES}, reverse=True):
+        t0 = time.perf_counter()
+        msmg = var_hierarchy(n)
+        print(f"varcoef2d weights at {n} cells: {time.perf_counter() - t0:.2f} "
+              f"s, taps {msmg.levels[0].A_vs.disps}", flush=True)
+        for dtype in (f32, f64):
+            for T, gs in ((T, gs) for T, gs, nw in VAR_SHAPES if nw == n):
+                for nu in (2, 3):
+                    kl = VarMSKernelLevel(msmg.levels[0], nu, gs=gs)
+                    x = var_inputs(msmg, kl, T, dtype, rng)
+                    check_forms(kl, var_forms(kl, x), var_bound, T, dtype,
+                                mg_results)
+                    del x
+                    torch.cuda.empty_cache()
+        del msmg
+
+    def var_path(name, iterations, levels, dtype, legs=None):
+        """The weighted path's counts: K11, K12, K14, K15 launched in
+        ``dtype`` (and in the refinement legs' dtype ``legs``), K14 and K15
+        equally often and a whole number of V-cycles over the ``levels``
+        kernel levels, at least 7 per PCG iteration in ``dtype`` (3 for
+        K_Y, 2 × 2 for K_X); no constant-stencil kernel."""
+        counts = paths.stop(name, per=iterations)
+        for dt in (dtype,) if legs is None else (dtype, legs):
+            got = {op: counts[(op, dt, 2)] for op in VAR_OPS}
+            assert all(got.values()), (dt, got)
+            pre, post = got["fused_pre_var"], got["fused_post_var"]
+            assert pre == post and pre % levels == 0, (pre, post, levels)
+        pre = counts[("fused_pre_var", dtype, 2)]
+        assert pre >= 7 * levels * iterations, (pre, iterations)
+        assert all(n == 0 for key, n in counts.items()
+                   if key[0] not in VAR_OPS), counts
+
+    n, J = REF_VAR["n"], REF_VAR["levels"]
+    phase(f"15 varcoef2d {n + 1}^2 x {2 ** J} steps, f32, inner mg")
+    t0 = time.perf_counter()
+    var = build_solver("varcoef2d", n, J, dtype=f32, device="cuda")
+    assert var.spatial_format == "vstencil" and var.inner == "mg"
+    var.assemble_rhs_host()
+    L = len(var.msmg.levels)
+    print(f"setup {var.setup_seconds:.2f} s, loads {var.rhs_seconds:.2f} s "
+          f"(levels {[lev.n for lev in var.msmg.levels]}, coarse "
+          f"{var.msmg.n_coarse})")
+    paths.start()
+    r = var.solve(tol=1e-6)
+    rel = r.residuals[-1] / r.residuals[0]
+    print(f"solve: iterations {r.iterations} (JAX CPU {REF_VAR['iterations']}),"
+          f" converged {r.converged}, rel {rel:.3e}, L2 {r.l2_error:.6e} (JAX "
+          f"CPU {REF_VAR['l2']:.6e}), solve {r.solve_seconds:.4f} s")
+    assert r.converged and rel <= 1e-6, rel
+    assert abs(r.iterations - REF_VAR["iterations"]) <= 1, r.iterations
+    assert abs(r.l2_error / REF_VAR["l2"] - 1.0) <= 0.01, r.l2_error
+    its = r.iterations
+    r = var.solve_refined(tol=1e-8)
+    rel = r.residuals[-1] / r.residuals[0]
+    rounds = len(r.residuals) - 1
+    print(f"solve_refined: inner iterations {r.iterations} in {rounds} rounds "
+          f"(JAX CPU {REF_VAR['refined_iterations']} in "
+          f"{REF_VAR['refined_rounds']}), converged {r.converged}, rel "
+          f"{rel:.3e}, L2 {r.l2_error:.6e}, solve {r.solve_seconds:.4f} s")
+    assert r.converged and rel <= 1e-8, rel
+    assert abs(rounds - REF_VAR["refined_rounds"]) <= 2, rounds
+    assert abs(r.iterations - REF_VAR["refined_iterations"]) <= 2, r.iterations
+    var_path("varcoef2d 129^2 f32", its + r.iterations, L, f32, legs=f64)
+    print(f"  total time of the phase {time.perf_counter() - t0:.2f} s")
+    del var
+
+    n, J = REF_VAR_FLAGSHIP["n"], REF_VAR_FLAGSHIP["levels"]
+    phase(f"16 varcoef2d {n + 1}^2 x {2 ** J} steps, f32, inner mg")
+    t0 = time.perf_counter()
+    flag = build_solver("varcoef2d", n, J, dtype=f32, device="cuda")
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flag.assemble_rhs_host()
+    loads_s = time.perf_counter() - t0
+    L = len(flag.msmg.levels)
+    print(f"setup {setup_s:.2f} s ({(flag.N + 1) * flag.m:,} DoF, levels "
+          f"{[lev.n for lev in flag.msmg.levels]}); loads {loads_s:.2f} s")
+    # B, Bᵀ and the stab term on the weighted format: K12 for A_w, M in
+    # plain PyTorch, against the same with A_w's twin
+    p, kl0 = flag.params, flag._kl_ky[0]
+    U = torch.as_tensor(np.random.default_rng(SEED + 4).standard_normal(
+        (flag.N + 1,) + flag.gs), dtype=f32, device="cuda")
+    V = U[:-1].contiguous()
+    hh, Aw = p["h_half"], p["Aw"]
+    plain_B = lambda: (flag._spmv_M(U[1:] - U[:-1])
+                       + hh * kl0.apply_A_plain(U[1:] + U[:-1], Aw))
+    plain_BT = lambda: kl0.apply_A_plain(V, Aw)
+    b_ms = {"B": (device_ms(lambda: flag.apply_B(U, p)), device_ms(plain_B)),
+            "BT": (device_ms(lambda: flag.apply_BT(V, p)), None),
+            "stab": (device_ms(lambda: flag.apply_stab(U, p)), None),
+            "A_w of BT": (device_ms(lambda: kl0.apply_A(V, Aw)),
+                          device_ms(plain_BT))}
+    for k, (ms, plain) in b_ms.items():
+        print(f"  {k}: {ms:.4f} ms" + (f" (with A_w's twin {plain:.4f} ms)"
+                                       if plain is not None else ""))
+    del U, V
+    paths.start()
+    runs = []
+    for call in (1, 2):
+        r = flag.solve(tol=1e-6, compute_error=False)
+        rel = r.residuals[-1] / r.residuals[0]
+        print(f"solve call {call}: iterations {r.iterations}, converged "
+              f"{r.converged}, rel {rel:.3e}, solve {r.solve_seconds:.4f} s",
+              flush=True)
+        assert r.converged and rel <= 1e-6, rel
+        assert abs(r.iterations - REF_VAR_FLAGSHIP["iterations"]) <= 2, (
+            r.iterations)
+        runs.append(r)
+    t0 = time.perf_counter()
+    l2 = flag._l2_error(runs[0].U)
+    print(f"L2(IxOmega) {l2:.6e} (the port's f64 "
+          f"{REF_VAR_FLAGSHIP['l2_f64']:.6e}), host error loop "
+          f"{time.perf_counter() - t0:.2f} s; steady solve "
+          f"{runs[1].solve_seconds:.4f} s, {runs[1].iterations} iterations")
+    assert abs(l2 / REF_VAR_FLAGSHIP["l2_f64"] - 1.0) <= (
+        REF_VAR_FLAGSHIP["l2_band"]), l2
+    r = flag.solve_refined(tol=1e-8, compute_error=False)
+    rel = r.residuals[-1] / r.residuals[0]
+    l2 = flag._l2_error(r.U)
+    print(f"solve_refined: inner iterations {r.iterations} in "
+          f"{len(r.residuals) - 1} rounds, converged {r.converged}, rel "
+          f"{rel:.3e}, L2 {l2:.6e}, solve {r.solve_seconds:.4f} s")
+    assert r.converged and rel <= 1e-8, rel
+    assert abs(l2 / REF_VAR_FLAGSHIP["l2_f64"] - 1.0) <= 0.01, l2
+    var_path("varcoef2d 513^2 f32",
+             sum(x.iterations for x in runs) + r.iterations, L, f32, legs=f64)
+    del flag, runs, r
+    torch.cuda.empty_cache()
+
+    n, J = REF_VAR_F64["n"], REF_VAR_F64["levels"]
+    phase(f"17 varcoef2d {n + 1}^2 x {2 ** J} steps, f64, solve(tol=1e-8)")
+    s = build_solver("varcoef2d", n, J, dtype=f64, device="cuda", inner="mg",
+                     mg_coarse=8)
+    s.assemble_rhs_host()
+    paths.start()
+    r = s.solve(tol=1e-8)
+    rel = r.residuals[-1] / r.residuals[0]
+    print(f"iterations {r.iterations} (JAX CPU {REF_VAR_F64['iterations']}), "
+          f"converged {r.converged}, rel {rel:.3e}, L2 {r.l2_error:.10e} "
+          f"(JAX CPU {REF_VAR_F64['l2']:.10e}), solve {r.solve_seconds:.4f} s")
+    assert r.converged and rel <= 1e-8, rel
+    assert r.iterations == REF_VAR_F64["iterations"], r.iterations
+    assert abs(r.l2_error / REF_VAR_F64["l2"] - 1.0) <= 1e-6, r.l2_error
+    var_path("varcoef2d f64", r.iterations, len(s.msmg.levels), f64)
+    del s
     phase(None)
 
     kernels = []
@@ -693,7 +961,9 @@ def main() -> int:
     main_form = {"smooth": "smooth", "residual": "residual", "apply": "apply_A",
                  "fused_pre": "fused_pre", "fused_post": "fused_post",
                  "residual_restrict": "residual_restrict",
-                 "prolong_correct": "prolong_correct"}
+                 "prolong_correct": "prolong_correct",
+                 "residual_var": "residual", "apply_var": "apply_A",
+                 "fused_pre_var": "fused_pre", "fused_post_var": "fused_post"}
     for (op, dtype, dim), k in mg_kernels.KERNELS.items():
         rec = mg_results[(op, dtype, dim)]
         T, gs = MG_MAIN[dim]

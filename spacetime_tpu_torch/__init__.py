@@ -12,7 +12,9 @@ Pallas kernels of the JAX package on its path are CUDA kernels written for
 The port covers the structured main path in 2-D and 3-D (``smooth2d``,
 ``smooth3d``): constant stencils, multi-shift geometric multigrid inner
 solves, standard PCG on uniform dyadic time grids, and mixed-precision
-refinement with native f64 residual legs.
+refinement with native f64 residual legs; and coefficient-weighted
+problems in 2-D (``varcoef2d``): per-node A weights and the Galerkin
+multigrid hierarchy.
 
 - ``fem``     — structured meshes, P1 assembly, loads, time grids, L2 error;
 - ``models``  — problems with exact solutions as torch functions;

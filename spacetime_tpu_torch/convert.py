@@ -1,15 +1,20 @@
 """The JAX solver's params in the port's layout.
 
-``params_from_jax`` takes the params pytree of a JAX ``HeatSolver`` (stencil
-path, ``inner="mg"``) with its leaves as numpy arrays, and returns the dict
+``params_from_jax`` takes the params pytree of a JAX ``HeatSolver``
+(``inner="mg"``, the stencil or the weighted ``"vstencil"`` format) with its
+leaves as numpy arrays, and returns the dict
 ``spacetime_tpu_torch.solver.HeatSolver.params_for`` builds. The JAX
 package pre-broadcasts per-time-row scales to (T, *gs[:-1], 1) and the
 kernels' h columns and multigrid ``cols`` to (T, 1, 128) lanes; the port
 keeps (T, 1, ..., 1) columns and (T,) vectors. A JAX level built without
 Pallas kernels (f64, or below its size gate) has no ``cols``; the port's
 kernels run on every level, so its columns are then taken from the level's
-row params, which hold the same values. Tests hold the two solvers' params
-equal through this.
+row params, which hold the same values. The weighted tree's A weights
+(``Aw``, per level and the finest) are carried as they are; its levels have
+no 1/D column (the diagonal is per node). Its ``cheb_invM`` and
+``cheb_coefM`` are dropped: M is the constant mass stencil, so the Jacobi
+vector holds one value, and the port's K_H is the constant format's stencil
+Chebyshev, the same recurrence. Tests hold the two solvers' params equal through this.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.mg_kernels import MSKernelLevel
+from .ops.mg_kernels import MSKernelLevel, VarMSKernelLevel
 from .ops.stencil import row_scale
 
 
@@ -42,20 +47,28 @@ def params_from_jax(tree: dict, device, dtype) -> dict:
                 for lw in wt["levels"]
             ]
         }
-    kr = tree.get("kron")
-    h128 = _rows(kr["h128"]) if kr is not None else _rows(tree["h_half"])
-    hs128 = _rows(kr["hs128"]) if kr is not None else _rows(tree["h_stab"])
-    p["kron"] = {"h128": mk(h128), "hs128": mk(hs128)}
+    weighted = "Aw" in tree
+    if weighted:
+        p["Aw"] = mk(tree["Aw"])
+        level, rows = VarMSKernelLevel, ("omega", "inv_theta", "inv_delta")
+    else:
+        kr = tree.get("kron")
+        h128 = _rows(kr["h128"]) if kr is not None else _rows(tree["h_half"])
+        hs128 = _rows(kr["hs128"]) if kr is not None else _rows(tree["h_stab"])
+        p["kron"] = {"h128": mk(h128), "hs128": mk(hs128)}
+        level = MSKernelLevel
+        rows = ("omega", "inv_diag", "inv_theta", "inv_delta")
     p["mg_cinv_ky"] = mk(tree["mg_cinv_ky"])
     p["mg_cinv"] = [mk(S) for S in tree["mg_cinv"]]
     for name in ("ms_ky", "ms_kx"):
         p[name] = []
         for lp in tree[name]:
-            q = {k: col(lp[k])
-                 for k in ("omega", "inv_diag", "inv_theta", "inv_delta")}
+            q = {k: col(lp[k]) for k in rows}
+            if weighted:
+                q["Aw"] = mk(lp["Aw"])
             if "cols" in lp:
                 q["cols"] = {k: mk(_rows(v)) for k, v in lp["cols"].items()}
             else:
-                q["cols"] = MSKernelLevel.columns(q)
+                q["cols"] = level.columns(q)
             p[name].append(q)
     return p

@@ -34,6 +34,22 @@
 //   mg_prolong_correct (K9, replaces _prolong_correct_call, :1913):
 //                x + P e_c; the prolonged field is never stored. 2-D, 3-D.
 //
+// The weighted forms, for the Galerkin hierarchy of a coefficient-weighted
+// A (varcoef): Op_w = A_w + ω⊙M, where A_w has per-node weights W (ntaps,
+// ny, nx), one array per tap, out[p] = Σ_k W[k][p]·x[p + d_k] summed in tap
+// order, M is the constant mass stencil (its weight groups, times ω after
+// their sum) and the Jacobi diagonal is per node,
+// 1/D[p] = 1/(W[kc][p] + ω_t·c_M) (0 where the denominator is ≤ 0,
+// `_inv_diag_var`, mg_pallas.py:842). 2-D.
+//
+//   mg_residual_var   (K11, replaces _residual_var_call, :956):
+//                b − Op_w x.
+//   mg_apply_var      (K12, replaces _apply_var_call, :1020): A_w x.
+//   mg_fused_pre_var  (K14, replaces _fused_pre_var_call, :2071): K6 with
+//                Op_w and the per-node diagonal.
+//   mg_fused_post_var (K15, replaces _fused_post_var_call, :2196): K7 with
+//                Op_w and the per-node diagonal.
+//
 // What bounds them: memory traffic and instruction count, not arithmetic.
 // A sweep applies Op ν times (7 taps in 2-D, 15 in 3-D) to data that is
 // read once: the tiled kernels keep every intermediate (r, d, x) in shared
@@ -69,6 +85,13 @@
 // - The restriction and the prolongation are exact pair sums; the Pallas
 //   kernels' banded 0/1 matrices on the MXU (`_dot_last`, :1253) are a TPU
 //   device and are not ported.
+// - The weighted kernels are the same designs with the operator swapped
+//   (K11/K12 as K4/K5, K14/K15 as K6/K7). W has no time axis: every row of
+//   a level reads the same (ntaps, ny, nx) field, 7.3 MB in f32 at 511²,
+//   which the 50 MB L2 holds, so the kernels read it through the read-only
+//   path (__ldg) at each Op evaluation rather than staging it. K14/K15 keep
+//   1/D in a fourth shared buffer beside X, D and R, computed once per
+//   window. Their bound is K6/K7's bytes plus one read of W.
 //
 // Sum order is the plain PyTorch twin's (spacetime_tpu_torch/ops/
 // mg_kernels.py): taps in table order within a group, one multiply per
@@ -94,6 +117,21 @@ struct PairGroups {
   int dz[kMaxPairTaps];
   int dy[kMaxPairTaps];
   int dx[kMaxPairTaps];
+};
+
+constexpr int kMaxVarTaps = 27;
+
+// The taps of a weighted stencil in the order of its weight arrays, the
+// index kc of the center tap and the mass's center weight cm (the Jacobi
+// diagonal is W[kc] + ω·cm); dz = 0 in 2-D. Mirrored by ctypes in
+// spacetime_tpu_torch/ops/native.py.
+struct VarTaps {
+  int n_taps;
+  int kc;
+  double cm;
+  int dz[kMaxVarTaps];
+  int dy[kMaxVarTaps];
+  int dx[kMaxVarTaps];
 };
 
 namespace {
@@ -227,7 +265,65 @@ __device__ __forceinline__ void for_region(const Window& w, int h, F f) {
 
 template <typename T>
 struct RowCoef {
-  T om, iD, iT, iDel;
+  T om, iT, iDel;
+};
+
+template <typename T>
+__device__ __forceinline__ RowCoef<T> row_coef(const T* omega, const T* invT,
+                                               const T* invDel, int64_t t) {
+  return RowCoef<T>{omega[t], invT[t], invDel[t]};
+}
+
+// The operators of the sweep on a shared-memory window: op(buf, o, gi) is
+// Op applied to buf at window offset o (grid index gi in the row, valid
+// only inside the grid, where alone the kernels evaluate it) and
+// inv_diag(o) the Jacobi 1/D there.
+//
+// ConstOp: the constant pair groups, w the row's group weights and toff
+// the taps' window offsets (shared memory); 1/D per row.
+template <typename T>
+struct ConstOp {
+  const PairGroups& pg;
+  const T* w;
+  const int* toff;
+  T iD;
+  __device__ __forceinline__ T operator()(const T* buf, int o, int) const {
+    return op_shared(pg, w, toff, buf, o);
+  }
+  __device__ __forceinline__ T inv_diag(int) const { return iD; }
+};
+
+// VarOp: Op_w = A_w + ω·M. atoff / mtoff are the A taps' and the M taps'
+// window offsets, wm the M group weights (shared memory), W the level's
+// weights (device memory, tap k at W + k·S), iD the per-node 1/D over the
+// window (shared memory).
+template <typename T>
+struct VarOp {
+  const VarTaps& vt;
+  const PairGroups& pm;
+  const T* __restrict__ W;
+  int S;
+  T om;
+  const T* wm;
+  const int* atoff;
+  const int* mtoff;
+  const T* iD;
+  __device__ __forceinline__ T operator()(const T* buf, int o, int gi) const {
+    T a = T(0);
+    for (int k = 0; k < vt.n_taps; ++k) {
+      a += __ldg(W + int64_t(k) * S + gi) * buf[o + atoff[k]];
+    }
+    T m = T(0);
+    for (int g = 0; g < pm.n_groups; ++g) {
+      T acc = T(0);
+      for (int k = pm.start[g]; k < pm.start[g + 1]; ++k) {
+        acc += buf[o + mtoff[k]];
+      }
+      m += wm[g] * acc;
+    }
+    return a + om * m;
+  }
+  __device__ __forceinline__ T inv_diag(int o) const { return iD[o]; }
 };
 
 // The row's group weights and the taps' window offsets, in shared memory.
@@ -245,18 +341,49 @@ __device__ __forceinline__ void row_tables(const PairGroups& pg, T om,
   __syncthreads();
 }
 
+// The weighted operator's tables (A and M taps' window offsets, the M
+// group weights) in shared memory. Ends with a __syncthreads().
+template <typename T>
+__device__ __forceinline__ void var_tables(const VarTaps& vt,
+                                           const PairGroups& pm,
+                                           const Window& win, T* wm,
+                                           int* atoff, int* mtoff) {
+  if (threadIdx.x < pm.n_groups) wm[threadIdx.x] = T(pm.wm[threadIdx.x]);
+  for (int k = threadIdx.x; k < vt.n_taps; k += blockDim.x) {
+    atoff[k] = vt.dz[k] * win.sz + vt.dy[k] * win.sy + vt.dx[k];
+  }
+  for (int k = threadIdx.x; k < pm.start[pm.n_groups]; k += blockDim.x) {
+    mtoff[k] = pm.dz[k] * win.sz + pm.dy[k] * win.sy + pm.dx[k];
+  }
+  __syncthreads();
+}
+
+// The per-node 1/D of the weighted operator over the whole window: 0
+// outside the grid and where W[kc] + ω·cm ≤ 0 (`_inv_diag_var`). Needs a
+// __syncthreads() before it is read.
+template <typename T>
+__device__ __forceinline__ void var_inv_diag(const VarTaps& vt,
+                                             const T* __restrict__ W, int S,
+                                             T om, const Window& win,
+                                             T* iD) {
+  for_region<2>(win, win.H, [&](int o, int, int, int, int gi, bool in) {
+    const T den = in ? __ldg(W + int64_t(vt.kc) * S + gi) + T(vt.cm) * om
+                     : T(0);
+    iD[o] = den > T(0) ? T(1) / den : T(0);
+  });
+}
+
 // The degree-nu sweep on the window. X holds x on the brick grown by hi + 1
 // cells (zero outside the grid) unless zero_init; b is the row in device
 // memory. On return X holds the smoothed x on the brick grown by
 // hi − (nu − 1) cells. Ends with a __syncthreads().
-template <int DIM, typename T>
-__device__ void cheb_sweep(const PairGroups& pg, const T* w, const int* toff,
-                           const RowCoef<T>& c, const T* __restrict__ b,
-                           const Window& win, T* X, T* D, T* R, int nu,
-                           bool zero_init, int hi) {
+template <int DIM, typename T, typename Op>
+__device__ void cheb_sweep(const Op& op, const RowCoef<T>& c,
+                           const T* __restrict__ b, const Window& win, T* X,
+                           T* D, T* R, int nu, bool zero_init, int hi) {
   if (zero_init) {
     for_region<DIM>(win, hi, [&](int o, int, int, int, int g, bool in) {
-      const T r = in ? c.iD * b[g] : T(0);
+      const T r = in ? op.inv_diag(o) * b[g] : T(0);
       const T d = r * c.iT;
       R[o] = r;
       D[o] = d;
@@ -265,7 +392,7 @@ __device__ void cheb_sweep(const PairGroups& pg, const T* w, const int* toff,
     __syncthreads();
   } else {
     for_region<DIM>(win, hi, [&](int o, int, int, int, int g, bool in) {
-      R[o] = in ? c.iD * (b[g] - op_shared(pg, w, toff, X, o)) : T(0);
+      R[o] = in ? op.inv_diag(o) * (b[g] - op(X, o, g)) : T(0);
     });
     __syncthreads();
     for_region<DIM>(win, hi, [&](int o, int, int, int, int, bool in) {
@@ -280,8 +407,8 @@ __device__ void cheb_sweep(const PairGroups& pg, const T* w, const int* toff,
     const double rho_new = 1.0 / (2.0 * kSigma - rho);
     const T c1 = T(rho_new * rho);
     const T c2 = T(2.0 * rho_new) * c.iDel;
-    for_region<DIM>(win, hi - k, [&](int o, int, int, int, int, bool in) {
-      if (in) R[o] = R[o] - c.iD * op_shared(pg, w, toff, D, o);
+    for_region<DIM>(win, hi - k, [&](int o, int, int, int, int g, bool in) {
+      if (in) R[o] = R[o] - op.inv_diag(o) * op(D, o, g);
     });
     __syncthreads();
     for_region<DIM>(win, hi - k, [&](int o, int, int, int, int, bool in) {
@@ -296,18 +423,12 @@ __device__ void cheb_sweep(const PairGroups& pg, const T* w, const int* toff,
   }
 }
 
-// Shared memory of the tiled kernels: X, D and R over the window.
+// Shared memory of the tiled kernels: X, D and R (and 1/D for the weighted
+// ones) over the window.
 template <typename T>
 __device__ __forceinline__ T* window_buffers() {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   return reinterpret_cast<T*>(smem_raw);
-}
-
-template <typename T>
-__device__ __forceinline__ RowCoef<T> row_coef(const T* omega, const T* invD,
-                                               const T* invT,
-                                               const T* invDel, int64_t t) {
-  return RowCoef<T>{omega[t], invD[t], invT[t], invDel[t]};
 }
 
 __device__ __forceinline__ int64_t row_size(const Grid& g) {
@@ -326,7 +447,7 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ int toff[kMaxPairTaps];
   const int64_t t = blockIdx.z;
   const int64_t S = row_size(g);
-  const RowCoef<T> c = row_coef(omega, invD, invT, invDel, t);
+  const RowCoef<T> c = row_coef(omega, invT, invDel, t);
   const int H = zero_init ? nu - 1 : nu;
   const Window win = make_window<DIM>(g, H);
   T* X = window_buffers<T>();
@@ -339,12 +460,75 @@ __global__ void __launch_bounds__(kThreads)
     });
   }
   row_tables(pg, c.om, win, wts, toff);
-  cheb_sweep<DIM>(pg, wts, toff, c, b + t * S, win, X, D, R, nu,
-                  zero_init != 0, zero_init ? H : H - 1);
+  cheb_sweep<DIM>(ConstOp<T>{pg, wts, toff, invD[t]}, c, b + t * S, win, X,
+                  D, R, nu, zero_init != 0, zero_init ? H : H - 1);
   T* ot = out + t * S;
   for_region<DIM>(win, 0, [&](int o, int, int, int, int gi, bool in) {
     if (in) ot[gi] = X[o];
   });
+}
+
+// The end of K6/K14, after the zero-init sweep left x valid on the tile
+// grown by 2 (H = nu + 1): the residual on the tile grown by 1 (one fine
+// row and column past the tile is what the restriction reads), x written
+// out, then r_c = R r for the tile's coarse points.
+template <typename T, typename Op>
+__device__ void fused_pre_tail(const Op& op, const T* __restrict__ bt,
+                               const Window& win, const T* X, T* R,
+                               T* __restrict__ xt, T* __restrict__ rct) {
+  const int nyc = (win.g.ny - 1) / 2;
+  const int nxc = (win.g.nx - 1) / 2;
+  for_region<2>(win, 1, [&](int o, int, int, int, int gi, bool in) {
+    R[o] = in ? bt[gi] - op(X, o, gi) : T(0);
+  });
+  for_region<2>(win, 0, [&](int o, int, int, int, int gi, bool in) {
+    if (in) xt[gi] = X[o];
+  });
+  __syncthreads();
+  const int p = win.sy;
+  for (int i = threadIdx.x; i < kHalfTile * kHalfTile; i += blockDim.x) {
+    const int lcy = i / kHalfTile;
+    const int lcx = i % kHalfTile;
+    const int cy = int(blockIdx.y) * kHalfTile + lcy;
+    const int cx = int(blockIdx.x) * kHalfTile + lcx;
+    if (cy >= nyc || cx >= nxc) continue;
+    const int o = (win.H + 2 * lcy) * p + win.H + 2 * lcx;  // fine (2cy, 2cx)
+    auto h = [&](int dy, int dx) {
+      const int q = o + dy * p + dx;
+      return R[q] + R[q + p + 1];
+    };
+    const T p0 = h(0, 0) + h(1, 0);
+    const T p1 = h(0, 1) + h(1, 1);
+    rct[cy * nxc + cx] = T(0.5) * (p0 + p1);
+  }
+}
+
+// The start of K7/K15: X = x + P e_c on the whole window (halo nu), zero
+// outside the grid.
+template <typename T>
+__device__ void prolong_window(const T* __restrict__ xt,
+                               const T* __restrict__ et, const Window& win,
+                               T* X) {
+  const int nyc = (win.g.ny - 1) / 2;
+  const int nxc = (win.g.nx - 1) / 2;
+  auto coarse = [&](int cy, int cx) {
+    return (cy >= 0 && cy < nyc && cx >= 0 && cx < nxc) ? et[cy * nxc + cx]
+                                                        : T(0);
+  };
+  for_region<2>(win, win.H, [&](int o, int, int fy, int fx, int gi, bool in) {
+    if (!in) {
+      X[o] = T(0);
+      return;
+    }
+    const T e0 = coarse(fy / 2, fx / 2);
+    const T e1 =
+        (fy >= 1 && fx >= 1) ? coarse((fy - 1) / 2, (fx - 1) / 2) : T(0);
+    X[o] = xt[gi] + T(0.5) * (e0 + e1);
+  });
+}
+
+__device__ __forceinline__ int64_t coarse_row(const Grid& g) {
+  return int64_t((g.ny - 1) / 2) * ((g.nx - 1) / 2);
 }
 
 template <typename T>
@@ -359,44 +543,16 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ int toff[kMaxPairTaps];
   const int64_t t = blockIdx.z;
   const int64_t S = row_size(g);
-  const int nyc = (g.ny - 1) / 2;
-  const int nxc = (g.nx - 1) / 2;
-  const RowCoef<T> c = row_coef(omega, invD, invT, invDel, t);
-  const int H = nu + 1;
-  const Window win = make_window<2>(g, H);
+  const RowCoef<T> c = row_coef(omega, invT, invDel, t);
+  const Window win = make_window<2>(g, nu + 1);
   T* X = window_buffers<T>();
   T* D = X + win.volume;
   T* R = D + win.volume;
   const T* bt = b + t * S;
   row_tables(pg, c.om, win, wts, toff);
-  cheb_sweep<2>(pg, wts, toff, c, bt, win, X, D, R, nu, true, H);
-  // X is valid on the tile grown by 2; the residual on the tile grown by 1
-  // (one fine row and column past the tile is what the restriction reads).
-  for_region<2>(win, 1, [&](int o, int, int, int, int gi, bool in) {
-    R[o] = in ? bt[gi] - op_shared(pg, wts, toff, X, o) : T(0);
-  });
-  T* xt = xo + t * S;
-  for_region<2>(win, 0, [&](int o, int, int, int, int gi, bool in) {
-    if (in) xt[gi] = X[o];
-  });
-  __syncthreads();
-  T* rct = rco + t * nyc * nxc;
-  const int p = win.sy;
-  for (int i = threadIdx.x; i < kHalfTile * kHalfTile; i += blockDim.x) {
-    const int lcy = i / kHalfTile;
-    const int lcx = i % kHalfTile;
-    const int cy = int(blockIdx.y) * kHalfTile + lcy;
-    const int cx = int(blockIdx.x) * kHalfTile + lcx;
-    if (cy >= nyc || cx >= nxc) continue;
-    const int o = (H + 2 * lcy) * p + H + 2 * lcx;  // fine (2cy, 2cx)
-    auto h = [&](int dy, int dx) {
-      const int q = o + dy * p + dx;
-      return R[q] + R[q + p + 1];
-    };
-    const T p0 = h(0, 0) + h(1, 0);
-    const T p1 = h(0, 1) + h(1, 1);
-    rct[cy * nxc + cx] = T(0.5) * (p0 + p1);
-  }
+  const ConstOp<T> op{pg, wts, toff, invD[t]};
+  cheb_sweep<2>(op, c, bt, win, X, D, R, nu, true, win.H);
+  fused_pre_tail(op, bt, win, X, R, xo + t * S, rco + t * coarse_row(g));
 }
 
 template <typename T>
@@ -413,33 +569,76 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ int toff[kMaxPairTaps];
   const int64_t t = blockIdx.z;
   const int64_t S = row_size(g);
-  const int nyc = (g.ny - 1) / 2;
-  const int nxc = (g.nx - 1) / 2;
-  const RowCoef<T> c = row_coef(omega, invD, invT, invDel, t);
-  const int H = nu;
-  const Window win = make_window<2>(g, H);
+  const RowCoef<T> c = row_coef(omega, invT, invDel, t);
+  const Window win = make_window<2>(g, nu);
   T* X = window_buffers<T>();
   T* D = X + win.volume;
   T* R = D + win.volume;
-  const T* xt = x + t * S;
-  const T* et = ec + t * nyc * nxc;
-  auto coarse = [&](int cy, int cx) {
-    return (cy >= 0 && cy < nyc && cx >= 0 && cx < nxc) ? et[cy * nxc + cx]
-                                                        : T(0);
-  };
-  // x + P e_c on the tile grown by nu
-  for_region<2>(win, H, [&](int o, int, int fy, int fx, int gi, bool in) {
-    if (!in) {
-      X[o] = T(0);
-      return;
-    }
-    const T e0 = coarse(fy / 2, fx / 2);
-    const T e1 =
-        (fy >= 1 && fx >= 1) ? coarse((fy - 1) / 2, (fx - 1) / 2) : T(0);
-    X[o] = xt[gi] + T(0.5) * (e0 + e1);
-  });
+  prolong_window(x + t * S, ec + t * coarse_row(g), win, X);
   row_tables(pg, c.om, win, wts, toff);
-  cheb_sweep<2>(pg, wts, toff, c, b + t * S, win, X, D, R, nu, false, H - 1);
+  cheb_sweep<2>(ConstOp<T>{pg, wts, toff, invD[t]}, c, b + t * S, win, X, D,
+                R, nu, false, win.H - 1);
+  T* ot = out + t * S;
+  for_region<2>(win, 0, [&](int o, int, int, int, int gi, bool in) {
+    if (in) ot[gi] = X[o];
+  });
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    mg_fused_pre_var_kernel(const T* __restrict__ b, const T* __restrict__ W,
+                            const T* __restrict__ omega,
+                            const T* __restrict__ invT,
+                            const T* __restrict__ invDel, T* __restrict__ xo,
+                            T* __restrict__ rco, Grid g,
+                            const __grid_constant__ VarTaps vt,
+                            const __grid_constant__ PairGroups pm, int nu) {
+  __shared__ T wm[kMaxPairGroups];
+  __shared__ int atoff[kMaxVarTaps];
+  __shared__ int mtoff[kMaxPairTaps];
+  const int64_t t = blockIdx.z;
+  const int S = g.ny * g.nx;
+  const RowCoef<T> c = row_coef(omega, invT, invDel, t);
+  const Window win = make_window<2>(g, nu + 1);
+  T* X = window_buffers<T>();
+  T* D = X + win.volume;
+  T* R = D + win.volume;
+  T* iD = R + win.volume;
+  const T* bt = b + t * S;
+  var_inv_diag(vt, W, S, c.om, win, iD);
+  var_tables(vt, pm, win, wm, atoff, mtoff);
+  const VarOp<T> op{vt, pm, W, S, c.om, wm, atoff, mtoff, iD};
+  cheb_sweep<2>(op, c, bt, win, X, D, R, nu, true, win.H);
+  fused_pre_tail(op, bt, win, X, R, xo + t * S, rco + t * coarse_row(g));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    mg_fused_post_var_kernel(const T* __restrict__ x, const T* __restrict__ b,
+                             const T* __restrict__ ec,
+                             const T* __restrict__ W,
+                             const T* __restrict__ omega,
+                             const T* __restrict__ invT,
+                             const T* __restrict__ invDel,
+                             T* __restrict__ out, Grid g,
+                             const __grid_constant__ VarTaps vt,
+                             const __grid_constant__ PairGroups pm, int nu) {
+  __shared__ T wm[kMaxPairGroups];
+  __shared__ int atoff[kMaxVarTaps];
+  __shared__ int mtoff[kMaxPairTaps];
+  const int64_t t = blockIdx.z;
+  const int S = g.ny * g.nx;
+  const RowCoef<T> c = row_coef(omega, invT, invDel, t);
+  const Window win = make_window<2>(g, nu);
+  T* X = window_buffers<T>();
+  T* D = X + win.volume;
+  T* R = D + win.volume;
+  T* iD = R + win.volume;
+  prolong_window(x + t * S, ec + t * coarse_row(g), win, X);
+  var_inv_diag(vt, W, S, c.om, win, iD);
+  var_tables(vt, pm, win, wm, atoff, mtoff);
+  cheb_sweep<2>(VarOp<T>{vt, pm, W, S, c.om, wm, atoff, mtoff, iD}, c,
+                b + t * S, win, X, D, R, nu, false, win.H - 1);
   T* ot = out + t * S;
   for_region<2>(win, 0, [&](int o, int, int, int, int gi, bool in) {
     if (in) ot[gi] = X[o];
@@ -562,6 +761,79 @@ __global__ void mg_prolong_correct_kernel(const T* __restrict__ x,
   }
 }
 
+// A_w x at grid point (y, x), in-row index p, of one row X in device
+// memory (zero outside the grid): the taps in weight-array order.
+template <typename T>
+__device__ __forceinline__ T var_apply_global(const VarTaps& vt,
+                                              const T* __restrict__ W,
+                                              const T* __restrict__ X,
+                                              const Grid& g, int y, int x,
+                                              int p) {
+  const int S = g.ny * g.nx;
+  T a = T(0);
+  for (int k = 0; k < vt.n_taps; ++k) {
+    const int yy = y + vt.dy[k];
+    const int xx = x + vt.dx[k];
+    if (yy >= 0 && yy < g.ny && xx >= 0 && xx < g.nx) {
+      a += __ldg(W + int64_t(k) * S + p) * X[yy * g.nx + xx];
+    }
+  }
+  return a;
+}
+
+// M x at grid point (y, x) of one row X in device memory (zero outside the
+// grid): the mass's weight groups, each tap sum times its weight.
+template <typename T>
+__device__ __forceinline__ T mass_global(const PairGroups& pm,
+                                         const T* __restrict__ X,
+                                         const Grid& g, int y, int x) {
+  T m = T(0);
+  for (int gi = 0; gi < pm.n_groups; ++gi) {
+    T acc = T(0);
+    for (int k = pm.start[gi]; k < pm.start[gi + 1]; ++k) {
+      const int yy = y + pm.dy[k];
+      const int xx = x + pm.dx[k];
+      if (yy >= 0 && yy < g.ny && xx >= 0 && xx < g.nx) {
+        acc += X[yy * g.nx + xx];
+      }
+    }
+    m += T(pm.wm[gi]) * acc;
+  }
+  return m;
+}
+
+template <typename T>
+__global__ void mg_residual_var_kernel(const T* __restrict__ x,
+                                       const T* __restrict__ b,
+                                       const T* __restrict__ W,
+                                       const T* __restrict__ omega,
+                                       T* __restrict__ out, int64_t nt,
+                                       Grid g,
+                                       const __grid_constant__ VarTaps vt,
+                                       const __grid_constant__ PairGroups pm) {
+  const int64_t S = row_size(g);
+  FOR_EACH_INDEX(idx, nt * S) {
+    const Point q = point_of<2>(idx, g);
+    const T* xt = x + q.t * S;
+    const int p = q.y * g.nx + q.x;
+    const T a = var_apply_global(vt, W, xt, g, q.y, q.x, p);
+    out[idx] = b[idx] - (a + omega[q.t] * mass_global(pm, xt, g, q.y, q.x));
+  }
+}
+
+template <typename T>
+__global__ void mg_apply_var_kernel(const T* __restrict__ x,
+                                    const T* __restrict__ W,
+                                    T* __restrict__ out, int64_t nt, Grid g,
+                                    const __grid_constant__ VarTaps vt) {
+  const int64_t S = row_size(g);
+  FOR_EACH_INDEX(idx, nt * S) {
+    const Point q = point_of<2>(idx, g);
+    out[idx] = var_apply_global(vt, W, x + q.t * S, g, q.y, q.x,
+                                q.y * g.nx + q.x);
+  }
+}
+
 #undef FOR_EACH_INDEX
 
 int blocks_for(int64_t total) {
@@ -579,15 +851,16 @@ dim3 bricks(int64_t nt, const Grid& g) {
               unsigned(nt));
 }
 
-// Dynamic shared memory of a tiled kernel with halo H: three buffers over
-// the window. Raises the kernel's limit above the 48 KB default where
-// needed; returns the cudaError_t of that.
+// Dynamic shared memory of a tiled kernel with halo H: nbuf buffers over
+// the window (three, four for the weighted kernels' 1/D). Raises the
+// kernel's limit above the 48 KB default where needed; returns the
+// cudaError_t of that.
 template <int DIM, typename T, typename K>
-int window_bytes(K kernel, int H, size_t* bytes) {
+int window_bytes(K kernel, int H, size_t* bytes, int nbuf = 3) {
   using B = BrickOf<DIM>;
   const size_t hz = DIM == 3 ? size_t(H) : 0;
-  *bytes = 3 * sizeof(T) * (B::x + 2 * size_t(H)) * (B::y + 2 * size_t(H)) *
-           (B::z + 2 * hz);
+  *bytes = nbuf * sizeof(T) * (B::x + 2 * size_t(H)) *
+           (B::y + 2 * size_t(H)) * (B::z + 2 * hz);
   if (*bytes > size_t(kDefaultSmem)) {
     return int(cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(*bytes)));
@@ -643,6 +916,36 @@ int launch_fused_post(const T* x, const T* b, const T* ec, const T* omega,
   return int(cudaGetLastError());
 }
 
+template <typename T>
+int launch_fused_pre_var(const T* b, const T* W, const T* omega,
+                         const T* invT, const T* invDel, T* xo, T* rco,
+                         int64_t nt, Grid g, const VarTaps* vt,
+                         const PairGroups* pm, int nu, void* stream) {
+  size_t bytes = 0;
+  const int err =
+      window_bytes<2, T>(mg_fused_pre_var_kernel<T>, nu + 1, &bytes, 4);
+  if (err != 0) return err;
+  mg_fused_pre_var_kernel<T><<<bricks<2>(nt, g), kThreads, bytes,
+                               as_stream(stream)>>>(
+      b, W, omega, invT, invDel, xo, rco, g, *vt, *pm, nu);
+  return int(cudaGetLastError());
+}
+
+template <typename T>
+int launch_fused_post_var(const T* x, const T* b, const T* ec, const T* W,
+                          const T* omega, const T* invT, const T* invDel,
+                          T* out, int64_t nt, Grid g, const VarTaps* vt,
+                          const PairGroups* pm, int nu, void* stream) {
+  size_t bytes = 0;
+  const int err =
+      window_bytes<2, T>(mg_fused_post_var_kernel<T>, nu, &bytes, 4);
+  if (err != 0) return err;
+  mg_fused_post_var_kernel<T><<<bricks<2>(nt, g), kThreads, bytes,
+                                as_stream(stream)>>>(
+      x, b, ec, W, omega, invT, invDel, out, g, *vt, *pm, nu);
+  return int(cudaGetLastError());
+}
+
 int64_t points(int64_t nt, const Grid& g) {
   return nt * int64_t(g.nz) * g.ny * g.nx;
 }
@@ -684,6 +987,24 @@ int launch_prolong_correct(const T* x, const T* ec, T* out, int64_t nt,
   return int(cudaGetLastError());
 }
 
+template <typename T>
+int launch_residual_var(const T* x, const T* b, const T* W, const T* omega,
+                        T* out, int64_t nt, Grid g, const VarTaps* vt,
+                        const PairGroups* pm, void* stream) {
+  mg_residual_var_kernel<T><<<blocks_for(points(nt, g)), kThreads, 0,
+                              as_stream(stream)>>>(x, b, W, omega, out, nt,
+                                                   g, *vt, *pm);
+  return int(cudaGetLastError());
+}
+
+template <typename T>
+int launch_apply_var(const T* x, const T* W, T* out, int64_t nt, Grid g,
+                     const VarTaps* vt, void* stream) {
+  mg_apply_var_kernel<T><<<blocks_for(points(nt, g)), kThreads, 0,
+                           as_stream(stream)>>>(x, W, out, nt, g, *vt);
+  return int(cudaGetLastError());
+}
+
 // The 2-D or 3-D instantiation of launcher L for a runtime dim.
 #define BY_DIM(L, T, ...) \
   (dim == 3 ? L<3, T>(__VA_ARGS__) : L<2, T>(__VA_ARGS__))
@@ -694,10 +1015,13 @@ int launch_prolong_correct(const T* x, const T* ec, T* out, int64_t nt,
 // the launch. The shift and Chebyshev columns are (T,) vectors; nt ≤ 65535
 // (the row is blockIdx.z of the tiled kernels). (nz, ny, nx, dim) is the
 // grid of one row, nz = 1 and dim = 2 in 2-D, with fewer than 2^31 points;
-// K6 and K7 take 2-D grids (ny, nx).
+// K6, K7 and the weighted K11, K12, K14, K15 take 2-D grids (ny, nx). The
+// weighted ones take W (ntaps, ny, nx), the A taps (VarTaps) and the mass's
+// weight groups (PairGroups, wa = 0).
 extern "C" {
 
 int mg_pairs_size() { return int(sizeof(PairGroups)); }
+int mg_var_taps_size() { return int(sizeof(VarTaps)); }
 
 #define MG_ENTRY_POINTS(T, SFX)                                               \
   int mg_smooth_##SFX(const T* x, const T* b, const T* omega, const T* invD,  \
@@ -749,6 +1073,37 @@ int mg_pairs_size() { return int(sizeof(PairGroups)); }
                                void* stream) {                                \
     const Grid g{int(nz), int(ny), int(nx)};                                  \
     return BY_DIM(launch_prolong_correct, T, x, ec, out, nt, g, stream);      \
+  }                                                                           \
+  int mg_residual_var_##SFX(const T* x, const T* b, const T* W,               \
+                            const T* omega, T* out, int64_t nt, int64_t ny,   \
+                            int64_t nx, const VarTaps* vt,                    \
+                            const PairGroups* pm, void* stream) {             \
+    return launch_residual_var<T>(x, b, W, omega, out, nt,                    \
+                                  Grid{1, int(ny), int(nx)}, vt, pm, stream); \
+  }                                                                           \
+  int mg_apply_var_##SFX(const T* x, const T* W, T* out, int64_t nt,          \
+                         int64_t ny, int64_t nx, const VarTaps* vt,           \
+                         void* stream) {                                      \
+    return launch_apply_var<T>(x, W, out, nt, Grid{1, int(ny), int(nx)}, vt,  \
+                               stream);                                       \
+  }                                                                           \
+  int mg_fused_pre_var_##SFX(const T* b, const T* W, const T* omega,          \
+                             const T* invT, const T* invDel, T* xo, T* rco,   \
+                             int64_t nt, int64_t ny, int64_t nx,              \
+                             const VarTaps* vt, const PairGroups* pm, int nu, \
+                             void* stream) {                                  \
+    return launch_fused_pre_var<T>(b, W, omega, invT, invDel, xo, rco, nt,    \
+                                   Grid{1, int(ny), int(nx)}, vt, pm, nu,     \
+                                   stream);                                   \
+  }                                                                           \
+  int mg_fused_post_var_##SFX(                                                \
+      const T* x, const T* b, const T* ec, const T* W, const T* omega,        \
+      const T* invT, const T* invDel, T* out, int64_t nt, int64_t ny,         \
+      int64_t nx, const VarTaps* vt, const PairGroups* pm, int nu,            \
+      void* stream) {                                                         \
+    return launch_fused_post_var<T>(x, b, ec, W, omega, invT, invDel, out,    \
+                                    nt, Grid{1, int(ny), int(nx)}, vt, pm,    \
+                                    nu, stream);                              \
   }
 
 MG_ENTRY_POINTS(float, f32)

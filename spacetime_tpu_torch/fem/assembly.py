@@ -3,9 +3,9 @@
 The port's copy of the numpy engine of ``spacetime_tpu/fem/assembly.py``:
 element loops vectorised over all simplices, scipy CSR out, the same
 operations in the same order, so the matrices and the loads equal the JAX
-package's bit for bit. It runs once per solver; no iteration touches it.
-Weighted spatial forms (κ, c) belong to the weighted-coefficient slice of
-the port, and on-device load quadrature to queue 1 item 2 (ROADMAP.md).
+package's bit for bit, the weighted spatial form ∫κ∇u·∇v + c·uv included.
+It runs once per solver; no iteration touches it. On-device load
+quadrature is queue 1 item 2 (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -61,11 +61,27 @@ def _geometry(mesh: Mesh):
     return _tri_geometry(mesh) if mesh.dim == 2 else _tet_geometry(mesh)
 
 
-def assemble_p1(mesh: Mesh) -> tuple[sp.csr_matrix, sp.csr_matrix]:
-    """Full (all-vertex) P1 mass and stiffness matrices (M, A) as CSR;
-    ``P1System.from_mesh`` keeps the Dirichlet-interior block."""
+def assemble_p1(
+    mesh: Mesh, kappa=None, reaction=None
+) -> tuple[sp.csr_matrix, sp.csr_matrix]:
+    """Full (all-vertex) P1 mass and spatial-form matrices (M, A) as CSR;
+    ``P1System.from_mesh`` keeps the Dirichlet-interior block. With the
+    optional coefficients (callables (n, d) -> (n,), evaluated at element
+    centroids), A is the weighted form ∫κ∇u·∇v + c·uv; M is always the
+    plain mass matrix."""
     d = mesh.dim
     nloc = d + 1
+    kv = cv = None
+    if kappa is not None or reaction is not None:
+        centroids = mesh.vertices[mesh.elements].mean(axis=1)
+        if kappa is not None:
+            kv = np.asarray(kappa(centroids), np.float64)
+            if kv.min() <= 0.0:
+                raise ValueError("diffusion coefficient must be positive")
+        if reaction is not None:
+            cv = np.asarray(reaction(centroids), np.float64)
+            if cv.min() < 0.0:
+                raise ValueError("reaction coefficient must be nonnegative")
     if d == 2:
         mass_scale = 1.0 / 12.0  # int lam_i lam_j = area/12 * (1 + delta_ij)
     elif d == 3:
@@ -78,6 +94,10 @@ def assemble_p1(mesh: Mesh) -> tuple[sp.csr_matrix, sp.csr_matrix]:
     K = measure[:, None, None] * np.einsum("eid,ejd->eij", grads, grads)
     Mloc = (np.ones((nloc, nloc)) + np.eye(nloc)) * mass_scale
     Mel = measure[:, None, None] * Mloc[None]
+    if kv is not None:
+        K = kv[:, None, None] * K
+    if cv is not None:
+        K = K + cv[:, None, None] * Mel
 
     rows = np.repeat(mesh.elements, nloc, axis=1).ravel()
     cols = np.tile(mesh.elements, (1, nloc)).ravel()
@@ -193,30 +213,36 @@ def spacetime_loads(problem, mesh: Mesh, grid) -> tuple[np.ndarray, np.ndarray, 
 @dataclasses.dataclass(frozen=True)
 class P1System:
     """Interior-block spatial operators of a Dirichlet problem: the mesh,
-    the interior mass matrix M and stiffness matrix A (m×m CSR), with
-    constant coefficients."""
+    the interior mass matrix M and spatial-form matrix A (m×m CSR: the
+    stiffness matrix, or the weighted form ∫κ∇u·∇v + c·uv). ``weighted``
+    is True when A carries non-constant coefficients: it is then not a
+    constant stencil, and the solver takes the ``"vstencil"`` format."""
 
     mesh: Mesh
     M: sp.csr_matrix
     A: sp.csr_matrix
+    weighted: bool = False
 
     @classmethod
-    def from_mesh(cls, mesh: Mesh) -> "P1System":
-        Mfull, Afull = assemble_p1(mesh)
+    def from_mesh(cls, mesh: Mesh, kappa=None, reaction=None) -> "P1System":
+        """``kappa`` / ``reaction``: optional coefficient callables
+        (n, d) -> (n,) (see :func:`assemble_p1`)."""
+        Mfull, Afull = assemble_p1(mesh, kappa=kappa, reaction=reaction)
         idx = mesh.interior
-        return cls(mesh, Mfull[idx][:, idx].tocsr(), Afull[idx][:, idx].tocsr())
+        return cls(
+            mesh,
+            Mfull[idx][:, idx].tocsr(),
+            Afull[idx][:, idx].tocsr(),
+            weighted=kappa is not None or reaction is not None,
+        )
 
     @classmethod
     def from_problem(cls, problem, mesh: Mesh) -> "P1System":
-        """The spatial form a problem prescribes: the plain heat operator."""
-        if getattr(problem, "kappa", None) is not None or getattr(
-            problem, "reaction", None
-        ) is not None:
-            raise NotImplementedError(
-                "variable coefficients belong to the weighted-coefficient "
-                "slice of the port (ROADMAP.md queue 1)"
-            )
-        return cls.from_mesh(mesh)
+        """The spatial form a problem prescribes: the plain heat operator,
+        or the κ/c-weighted form."""
+        kap = problem.kappa_np if problem.kappa is not None else None
+        rea = problem.reaction_np if problem.reaction is not None else None
+        return cls.from_mesh(mesh, kappa=kap, reaction=rea)
 
     @property
     def m(self) -> int:

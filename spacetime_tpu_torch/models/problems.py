@@ -1,16 +1,20 @@
 """Parabolic benchmark problems with exact solutions written in torch.
 
 The counterpart of ``spacetime_tpu.models.problems``: a manufactured problem
-is its exact solution u(t, x) alone, and the source g = ∂t u − Δu follows by
-automatic differentiation — ∂t through ``torch.func.grad``, Δ as the trace
-of ``torch.func.hessian`` in x, batched with ``torch.func.vmap``. The
-numpy-facing methods (``u0``, ``g``, ``g_many``, ``exact_np``) evaluate in
-float64 and return numpy arrays, which is what the host quadrature
-(``fem.spacetime_loads``, ``fem.l2_error_spacetime``) calls.
+is its exact solution u(t, x) alone, and the source
+g = ∂t u − ∇·(κ∇u) + c·u follows by automatic differentiation — ∂t through
+``torch.func.grad``; for κ ≡ 1 the divergence is the trace of
+``torch.func.hessian`` in x, else the trace of ``torch.func.jacfwd`` of the
+flux κ∇u; batched with ``torch.func.vmap``. The numpy-facing methods
+(``u0``, ``g``, ``g_many``, ``exact_np``, ``kappa_np``, ``reaction_np``)
+evaluate in float64 and return numpy arrays, which is what the host
+assembly and quadrature (``fem.assemble_p1``, ``fem.spacetime_loads``,
+``fem.l2_error_spacetime``) call.
 
-This slice carries the smooth family; the singular, moving-peak, L-shape
-and variable-coefficient problems come with the slices that need them
-(ROADMAP.md, queue 1).
+This slice carries the smooth family and the variable-coefficient family
+(``varcoef2d`` solves; ``varcoef3d`` is registered, and its solve raises
+until its slice); the singular, moving-peak and L-shape problems come with
+the slices that need them (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -34,8 +38,10 @@ class Problem:
     Fields as in the JAX package: ``exact`` is the scalar exact solution
     u(t, x) for a 0-dim ``t`` and an x of shape (dim,), written in torch, or
     None for data-driven problems, which give ``g_override`` and
-    ``u0_override`` as numpy callables instead. ``kappa`` and ``reaction``
-    (variable coefficients) belong to a later slice and must stay None.
+    ``u0_override`` as numpy callables instead. ``kappa`` is the scalar
+    diffusion coefficient κ(x) > 0 and ``reaction`` the reaction
+    coefficient c(x) ≥ 0, torch functions of an x of shape (dim,), or None
+    for κ ≡ 1, c ≡ 0.
     """
 
     name: str
@@ -91,20 +97,45 @@ class Problem:
         X_ = torch.as_tensor(np.asarray(X, np.float64))
         return fn(t_, X_).numpy()
 
+    def kappa_np(self, X: np.ndarray) -> np.ndarray:
+        """Diffusion coefficient at points X (n, dim) -> (n,), float64 on the
+        host (κ ≡ 1 when unset)."""
+        if self.kappa is None:
+            return np.ones(X.shape[0])
+        return _eval_x(self.kappa, X)
+
+    def reaction_np(self, X: np.ndarray) -> np.ndarray:
+        """Reaction coefficient at points X (n, dim) -> (n,), float64 on the
+        host (c ≡ 0 when unset)."""
+        if self.reaction is None:
+            return np.zeros(X.shape[0])
+        return _eval_x(self.reaction, X)
+
     def _g_scalar(self):
-        if self.kappa is not None or self.reaction is not None:
-            raise NotImplementedError(
-                "variable coefficients belong to the weighted-coefficient "
-                "slice of the port (ROADMAP.md queue 1)"
-            )
-        u = self.exact
+        u, kap, rea = self.exact, self.kappa, self.reaction
 
         def g(t, x):
             du_dt = torch.func.grad(u, argnums=0)(t, x)
-            lap = torch.diagonal(torch.func.hessian(u, argnums=1)(t, x)).sum()
-            return du_dt - lap
+            if kap is None:
+                diff = torch.diagonal(
+                    torch.func.hessian(u, argnums=1)(t, x)).sum()
+            else:
+                # ∇·(κ∇u) = tr ∂x [κ(x) ∇u(t, x)]
+                flux = lambda y: kap(y) * torch.func.grad(u, argnums=1)(t, y)
+                diff = torch.diagonal(torch.func.jacfwd(flux)(x)).sum()
+            out = du_dt - diff
+            if rea is not None:
+                out = out + rea(x) * u(t, x)
+            return out
 
         return g
+
+
+def _eval_x(fn, X: np.ndarray) -> np.ndarray:
+    """A scalar torch function of x (dim,) at points X (n, dim), float64 on
+    the CPU."""
+    X_ = torch.as_tensor(np.asarray(X, np.float64))
+    return torch.func.vmap(fn)(X_).numpy()
 
 
 def _prod(v):
@@ -122,7 +153,26 @@ def _smooth(dim):
     return Problem(name=f"smooth{dim}d", dim=dim, exact=u)
 
 
-PROBLEMS = {p.name: p for p in [_smooth(2), _smooth(3)]}
+def _varcoef(dim):
+    """Smooth positive diffusion κ and nonnegative reaction c around the
+    smooth family's exact solution: the weighted spatial form
+    ∫κ∇u·∇v + c·uv (``fem.assemble_p1``)."""
+
+    def kappa(x):
+        return 1.0 + 0.5 * _prod(torch.sin(math.pi * x))
+
+    def reaction(x):
+        return 1.0 + x[0]
+
+    def u(t, x):
+        return torch.exp(-t) * _prod(torch.sin(math.pi * x))
+
+    return Problem(name=f"varcoef{dim}d", dim=dim, exact=u, kappa=kappa,
+                   reaction=reaction)
+
+
+PROBLEMS = {p.name: p for p in [_smooth(2), _smooth(3), _varcoef(2),
+                                _varcoef(3)]}
 
 
 def get_problem(name: str) -> Problem:

@@ -1,9 +1,9 @@
-"""The multigrid V-cycle kernels K3–K9 on 2-D and 3-D grids.
+"""The multigrid V-cycle kernels: K3–K9 on 2-D and 3-D grids, and the
+weighted K11, K12, K14 and K15 on 2-D grids.
 
-The counterpart of the constant-stencil half of
-``spacetime_tpu/ops/mg_pallas.py``. ``MSKernelLevel`` mirrors its
-``MSPallasLevel`` for one multigrid level, Op = A + ω⊙M with one shift per
-time row:
+The counterpart of ``spacetime_tpu/ops/mg_pallas.py``. ``MSKernelLevel``
+mirrors its ``MSPallasLevel`` for one multigrid level, Op = A + ω⊙M with one
+shift per time row:
 
     K3 ``smooth``            degree-ν Chebyshev–Jacobi sweep
                              (``_smooth_call``), from x or from x = 0
@@ -32,6 +32,21 @@ twins are also what the kernels are checked against. The per-row columns
 (ω, 1/D, 1/θ, 1/δ) are (T,) vectors, ``MSKernelLevel.columns`` of a level's
 row params.
 
+``VarMSKernelLevel`` mirrors ``VarMSPallasLevel`` for one level of the
+weighted (Galerkin) hierarchy, Op = A_w + ω⊙M with per-node A weights W
+(ntaps, *gs) and the constant mass stencil; its Jacobi diagonal is per
+node, 1/(W[center] + ω·c_M):
+
+    K11 ``residual``     b − Op_w x (``_residual_var_call``)
+    K12 ``apply_A``      A_w x (``_apply_var_call``)
+    K14 ``fused_pre``    x = zero-init sweep on b, r_c = R(b − Op_w x)
+                         (``_fused_pre_var_call``)
+    K15 ``fused_post``   smooth(x + P e_c, b) (``_fused_post_var_call``)
+
+They take 2-D grids. The weighted sweep (K10) and residual + restriction
+(K13), which the semi-fused and plain branches of asymmetric V(ν, ν_post)
+cycles and 3-D levels run, are not ported yet (ROADMAP.md queue 1 item 6).
+
 The sharded-slab forms of the Pallas kernels (``vmask``, ``lead``) and the
 banded transfer matrices (``Ux``/``Wx``, a device of the TPU's matrix unit)
 are not ported here.
@@ -40,6 +55,7 @@ are not ported here.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -47,7 +63,8 @@ import torch
 
 from . import native
 from .native import check_tensor
-from .multigrid import cheb_smooth, ms_op, pair_groups, transfer
+from .multigrid import (cheb_smooth, ms_op, pair_groups, transfer, var_op,
+                        var_smooth)
 from .stencil import grouped_apply, weight_groups
 
 SOURCE = "spacetime_tpu_torch/csrc/mg.cu"
@@ -66,6 +83,10 @@ _OPS = {
     "fused_post": ("K7 mg_fused_post", f"{_MG}:1475", (2,)),
     "residual_restrict": ("K8 mg_residual_restrict", f"{_MG}:1683", (2, 3)),
     "prolong_correct": ("K9 mg_prolong_correct", f"{_MG}:1913", (2, 3)),
+    "residual_var": ("K11 mg_residual_var", f"{_MG}:956", (2,)),
+    "apply_var": ("K12 mg_apply_var", f"{_MG}:1020", (2,)),
+    "fused_pre_var": ("K14 mg_fused_pre_var", f"{_MG}:2071", (2,)),
+    "fused_post_var": ("K15 mg_fused_post_var", f"{_MG}:2196", (2,)),
 }
 KERNELS = {
     (op, dtype, dim): native.Kernel(
@@ -77,6 +98,7 @@ KERNELS = {
 # the row params' names of the kernels' columns
 _LP_NAMES = {"omega": "omega", "invD": "inv_diag", "invT": "inv_theta",
              "invDel": "inv_delta"}
+_VAR_LP_NAMES = {k: v for k, v in _LP_NAMES.items() if k != "invD"}
 
 
 def reset_launch_counts() -> None:
@@ -88,28 +110,22 @@ def launch_counts() -> dict[str, int]:
     return {k.name: k.launches for k in KERNELS.values()}
 
 
-class MSKernelLevel:
-    """K3–K9 for one multigrid level on a 2-D or 3-D grid; ``gs``
-    overrides the stencils' grid (the weights are translation invariant)."""
+class _KernelLevel:
+    """What the constant and the weighted kernel levels share: the grid,
+    ν, the stage gates and the checks before a launch."""
 
-    def __init__(self, A_st, M_st, nu: int, nu_post: int | None = None,
-                 gs=None):
-        self.gs = tuple(gs if gs is not None else A_st.grid_shape)
+    _COLS: dict  # the kernels' columns -> the row params' names
+
+    def __init__(self, gs, nu: int, nu_post: int | None):
+        self.gs = tuple(gs)
         self.dim = len(self.gs)
-        if self.dim not in (2, 3):
-            raise ValueError(f"grid {self.gs}: the kernels take 2-D and 3-D")
-        self.groups_A = weight_groups(A_st.disps, A_st.weights)
-        self.pairs = pair_groups(
-            self.groups_A, weight_groups(M_st.disps, M_st.weights)
-        )
         self.nu = nu
         self.nu_post = nu if nu_post is None else nu_post
 
-    @staticmethod
-    def columns(lp) -> dict:
-        """The per-row columns of a level's row params
-        (``ops.multigrid.row_params``) as (T,) views: ω, 1/D, 1/θ, 1/δ."""
-        return {k: lp[name].reshape(-1) for k, name in _LP_NAMES.items()}
+    @classmethod
+    def columns(cls, lp) -> dict:
+        """The per-row columns of a level's row params as (T,) views."""
+        return {k: lp[name].reshape(-1) for k, name in cls._COLS.items()}
 
     @property
     def fused_ok(self) -> bool:
@@ -121,12 +137,60 @@ class MSKernelLevel:
 
     @property
     def semi_ok(self) -> bool:
-        """The semi-fused transfer stages (K8, K9) need odd extents 2n+1."""
+        """The transfer stages need odd extents 2n+1."""
         return all(n % 2 for n in self.gs)
 
     @property
     def coarse_gs(self):
         return tuple((n - 1) // 2 for n in self.gs)
+
+    def _lp(self, cols):
+        """The (T,) columns as the (T, 1, ..., 1) row params of
+        ``ops.multigrid``."""
+        col = (-1,) + (1,) * self.dim
+        return {self._COLS[k]: v.reshape(col) for k, v in cols.items()}
+
+    def _prepare(self, op, X, cols, nu=None, odd=False):
+        """Check the main field and the columns; returns the kernel, T and
+        the columns' pointers in ``_COLS`` order."""
+        k = native.kernel_for(KERNELS, "mg", op, X, self.dim)
+        T = X.shape[0]
+        if not 1 <= T <= MAX_ROWS:
+            raise ValueError(f"{T} time rows; the kernels take 1 to {MAX_ROWS}")
+        check_tensor("field", X, X.dtype, X.device, (T,) + self.gs)
+        if math.prod(self.gs) >= MAX_ROW_POINTS:
+            raise ValueError(f"grid {self.gs}: a time row of the kernels "
+                             f"holds fewer than {MAX_ROW_POINTS} points")
+        if nu is not None and not 1 <= nu <= MAX_NU[self.dim]:
+            raise ValueError(f"nu={nu}: the {self.dim}-D sweep kernels take "
+                             f"1 to {MAX_NU[self.dim]}")
+        if odd and not self.semi_ok:
+            raise ValueError(f"grid {self.gs}: the transfer stages need odd "
+                             "extents 2n+1")
+        if cols is None:
+            return k, T, ()
+        for name in self._COLS:
+            check_tensor(name, cols[name], X.dtype, X.device, (T,))
+        return k, T, tuple(cols[name].data_ptr() for name in self._COLS)
+
+
+class MSKernelLevel(_KernelLevel):
+    """K3–K9 for one multigrid level on a 2-D or 3-D grid; ``gs``
+    overrides the stencils' grid (the weights are translation invariant).
+    Its columns are ω, 1/D, 1/θ, 1/δ (``ops.multigrid.row_params``)."""
+
+    _COLS = _LP_NAMES
+
+    def __init__(self, A_st, M_st, nu: int, nu_post: int | None = None,
+                 gs=None):
+        super().__init__(gs if gs is not None else A_st.grid_shape, nu,
+                         nu_post)
+        if self.dim not in (2, 3):
+            raise ValueError(f"grid {self.gs}: the kernels take 2-D and 3-D")
+        self.groups_A = weight_groups(A_st.disps, A_st.weights)
+        self.pairs = pair_groups(
+            self.groups_A, weight_groups(M_st.disps, M_st.weights)
+        )
 
     @functools.cached_property
     def structs(self):
@@ -137,12 +201,6 @@ class MSKernelLevel:
         )
 
     # ------------------------------------------------------------ twins
-
-    def _lp(self, cols):
-        """The (T,) columns as the (T, 1, ..., 1) row params of
-        ``ops.multigrid``."""
-        col = (-1,) + (1,) * self.dim
-        return {_LP_NAMES[k]: v.reshape(col) for k, v in cols.items()}
 
     def op_plain(self, x, cols):
         return ms_op(self.pairs, self.gs, self._lp(cols)["omega"], x)
@@ -280,25 +338,127 @@ class MSKernelLevel:
     def _op_table(self):
         return ctypes.addressof(self.structs[0])
 
-    def _prepare(self, op, X, cols, nu=None, odd=False):
-        """Check the main field and the columns; returns the kernel, T and
-        the columns' pointers in (ω, 1/D, 1/θ, 1/δ) order."""
-        k = native.kernel_for(KERNELS, "mg", op, X, self.dim)
-        T = X.shape[0]
-        if not 1 <= T <= MAX_ROWS:
-            raise ValueError(f"{T} time rows; the kernels take 1 to {MAX_ROWS}")
-        check_tensor("field", X, X.dtype, X.device, (T,) + self.gs)
-        if math.prod(self.gs) >= MAX_ROW_POINTS:
-            raise ValueError(f"grid {self.gs}: a time row of the kernels "
-                             f"holds fewer than {MAX_ROW_POINTS} points")
-        if nu is not None and not 1 <= nu <= MAX_NU[self.dim]:
-            raise ValueError(f"nu={nu}: the {self.dim}-D sweep kernels take "
-                             f"1 to {MAX_NU[self.dim]}")
-        if odd and not self.semi_ok:
-            raise ValueError(f"grid {self.gs}: the transfer stages need odd "
-                             "extents 2n+1")
-        if cols is None:
-            return k, T, ()
-        for name in _LP_NAMES:
-            check_tensor(name, cols[name], X.dtype, X.device, (T,))
-        return k, T, tuple(cols[name].data_ptr() for name in _LP_NAMES)
+
+class VarMSKernelLevel(_KernelLevel):
+    """K11, K12, K14 and K15 for one level ``lev`` of a
+    ``GalerkinMultiShiftMultigrid`` on a 2-D grid; ``gs`` overrides the
+    level's grid (the kernels take the weights W per call, of shape
+    (ntaps, *gs)). Its columns are ω, 1/θ, 1/δ (``var_row_params``, the
+    exact per-ω Gershgorin bounds of ``mg_pallas.py:1128-1148``)."""
+
+    _COLS = _VAR_LP_NAMES
+
+    def __init__(self, lev, nu: int, nu_post: int | None = None, gs=None):
+        super().__init__(gs if gs is not None else lev.gs, nu, nu_post)
+        if self.dim != 2:
+            raise NotImplementedError(
+                f"weighted kernel level on the {self.dim}-D grid {self.gs}: "
+                "the weighted kernels take 2-D grids; the 3-D weighted "
+                "V-cycle (K10, K13) is not ported yet (ROADMAP.md queue 1, "
+                "item 6)"
+            )
+        self.A_vs = dataclasses.replace(lev.A_vs, grid_shape=self.gs)
+        self.kc = lev.kc
+        self.cM = lev.cM
+        self.groups_M = weight_groups(lev.M_st.disps, lev.M_st.weights)
+
+    @functools.cached_property
+    def structs(self):
+        """The A taps' table and the mass's weight groups (as pair groups
+        with every wA = 0)."""
+        return (
+            native.var_taps_struct(self.A_vs.disps, self.kc, self.cM,
+                                   self.dim),
+            native.pair_groups_struct(
+                tuple(((0.0, w), ds) for w, ds in self.groups_M), self.dim),
+        )
+
+    # ------------------------------------------------------------ twins
+
+    def _vlp(self, cols, W):
+        return dict(self._lp(cols), Aw=W)
+
+    def op_plain(self, x, cols, W):
+        return var_op(self.A_vs, self.groups_M, self._vlp(cols, W), x)
+
+    def smooth_plain(self, x, b, cols, W, zero_init=False):
+        return var_smooth(self.A_vs, self.groups_M, self.kc, self.cM,
+                          self._vlp(cols, W), None if zero_init else x, b,
+                          self.nu)
+
+    def residual_plain(self, x, b, cols, W):
+        return b - self.op_plain(x, cols, W)
+
+    def apply_A_plain(self, x, W):
+        return self.A_vs.apply(x, W)
+
+    def fused_pre_plain(self, b, cols, W):
+        x = self.smooth_plain(None, b, cols, W, zero_init=True)
+        return x, transfer(self.residual_plain(x, b, cols, W), 2,
+                           restrict=True)
+
+    def fused_post_plain(self, x, b, ec, cols, W):
+        return self.smooth_plain(x + transfer(ec, 2, restrict=False), b,
+                                 cols, W)
+
+    # --------------------------------------------------------- wrappers
+
+    def residual(self, x, b, cols, W):
+        """K11: b − (A_w x + ω⊙M x)."""
+        if b.device.type == "cpu":
+            return self.residual_plain(x, b, cols, W)
+        k, T, cp = self._prepare("residual_var", b, cols)
+        check_tensor("x", x, b.dtype, b.device, b.shape)
+        self._check_W(W, b)
+        out = torch.empty_like(b)
+        k.launch(b.device, x.data_ptr(), b.data_ptr(), W.data_ptr(), cp[0],
+                 out.data_ptr(), T, *self.gs, *self._tables())
+        return out
+
+    def apply_A(self, x, W):
+        """K12: A_w x (the middle of the K_X sandwich, and the A_w of B,
+        Bᵀ and the stab term)."""
+        if x.device.type == "cpu":
+            return self.apply_A_plain(x, W)
+        k, T, _ = self._prepare("apply_var", x, None)
+        self._check_W(W, x)
+        out = torch.empty_like(x)
+        k.launch(x.device, x.data_ptr(), W.data_ptr(), out.data_ptr(), T,
+                 *self.gs, self._tables()[0])
+        return out
+
+    def fused_pre(self, b, cols, W):
+        """K14: (x, r_c), x the zero-init sweep on b and
+        r_c = R(b − Op_w x)."""
+        if b.device.type == "cpu":
+            return self.fused_pre_plain(b, cols, W)
+        k, T, cp = self._prepare("fused_pre_var", b, cols, nu=self.nu,
+                                 odd=True)
+        self._check_W(W, b)
+        x = torch.empty_like(b)
+        rc = b.new_empty((T,) + self.coarse_gs)
+        k.launch(b.device, b.data_ptr(), W.data_ptr(), *cp, x.data_ptr(),
+                 rc.data_ptr(), T, *self.gs, *self._tables(), self.nu)
+        return x, rc
+
+    def fused_post(self, x, b, ec, cols, W):
+        """K15: smooth(x + P e_c, b)."""
+        if b.device.type == "cpu":
+            return self.fused_post_plain(x, b, ec, cols, W)
+        k, T, cp = self._prepare("fused_post_var", b, cols, nu=self.nu,
+                                 odd=True)
+        check_tensor("x", x, b.dtype, b.device, b.shape)
+        check_tensor("ec", ec, b.dtype, b.device, (T,) + self.coarse_gs)
+        self._check_W(W, b)
+        out = torch.empty_like(b)
+        k.launch(b.device, x.data_ptr(), b.data_ptr(), ec.data_ptr(),
+                 W.data_ptr(), *cp, out.data_ptr(), T, *self.gs,
+                 *self._tables(), self.nu)
+        return out
+
+    def _check_W(self, W, X) -> None:
+        check_tensor("W", W, X.dtype, X.device,
+                     (len(self.A_vs.disps),) + self.gs)
+
+    def _tables(self):
+        return tuple(ctypes.addressof(st) for st in self.structs)

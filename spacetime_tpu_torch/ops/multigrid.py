@@ -23,6 +23,17 @@ neither (extents not all odd, which no nested hierarchy has) raises. The
 residual kernel (K4) starts the second and later cycles of ``solve``.
 Without the list the XLA form runs, which is also what the levels' plain
 twins compute.
+
+``GalerkinMultiShiftMultigrid.build`` is the host half of the JAX
+package's class of that name, for coefficient-weighted forms: per-level
+weighted stencils (``VarStencilOperator`` and their weight arrays) from
+Galerkin RAP of the assembled fine matrix, the constant mass stencil, and
+the diagonals and row sums of the exact per-ω Gershgorin bounds.
+``GalerkinMultiShiftMG`` applies its V-cycle to tensors: Op = A_w + ω⊙M,
+the Jacobi diagonal per node, and with per-level
+``ops.mg_kernels.VarMSKernelLevel``s the fused kernel stages (K14, K15)
+and the residual kernel (K11) as the JAX package dispatches its Pallas
+levels (``spacetime_tpu/ops/multigrid.py:746-800``).
 """
 
 from __future__ import annotations
@@ -32,13 +43,14 @@ import functools
 
 import numpy as np
 import scipy.linalg as sla
+import scipy.sparse as sp
 import torch
 import torch.nn.functional as F
 
 from ..fem import P1System, unit_cube_mesh, unit_square_mesh
 from .sparse import DiaMatrix
-from .stencil import (StencilOperator, grouped_apply, row_scale, tap,
-                      weight_groups, zero_pad)
+from .stencil import (StencilOperator, VarStencilOperator, grouped_apply,
+                      row_scale, tap, weight_groups, zero_pad)
 
 _SIGMA = 5.0 / 3.0
 
@@ -109,6 +121,128 @@ class MultiShiftMultigrid:
             cls(dim, tuple(levels), nu, n),
             (sys_c.A.toarray(), sys_c.M.toarray()),
         )
+
+
+def p1_interpolation_matrix(dim: int, nc: int) -> sp.csr_matrix:
+    """The nested-P1 interpolation over interior nodes, coarse (nc-1)^dim ->
+    fine (2nc-1)^dim, as CSR: ½(U^⊗dim + W^⊗dim) with 1-D factors
+    U[f, f//2] = 1 and W[f, (f-1)//2] = 1 (the operator ``transfer``
+    applies; its transpose is the restriction)."""
+    nf = 2 * nc - 1
+    f = np.arange(nf)
+    U = sp.csr_matrix(
+        (np.ones(nf - 1), (f[f // 2 <= nc - 2], (f // 2)[f // 2 <= nc - 2])),
+        shape=(nf, nc - 1),
+    )
+    g = (f - 1) // 2
+    keep = (f >= 1) & (g <= nc - 2)
+    W = sp.csr_matrix(
+        (np.ones(keep.sum()), (f[keep], g[keep])), shape=(nf, nc - 1)
+    )
+    Ud, Wd = U, W
+    for _ in range(dim - 1):
+        Ud = sp.kron(Ud, U, format="csr")
+        Wd = sp.kron(Wd, W, format="csr")
+    return (0.5 * (Ud + Wd)).tocsr()
+
+
+def galerkin_coarsen(A, dim: int, nc: int) -> sp.csr_matrix:
+    """One Galerkin RAP step A -> Pᵀ A P, symmetrised and pruned of the
+    rounding noise outside the P1 neighbour pattern."""
+    P = p1_interpolation_matrix(dim, nc)
+    Ac = (P.T @ A @ P).tocsr()
+    Ac = 0.5 * (Ac + Ac.T)
+    Ac.data[np.abs(Ac.data) < 1e-13 * np.abs(Ac.data).max()] = 0.0
+    Ac.eliminate_zeros()
+    return Ac.tocsr()
+
+
+@dataclasses.dataclass(frozen=True)
+class _GMSLevel:
+    A_vs: VarStencilOperator  # the weighted form's displacements
+    Aw: np.ndarray  # its (ntaps, *gs) weights
+    kc: int  # the center tap's index in A_vs.disps (the Jacobi diagonal)
+    M_st: StencilOperator  # the mass: a constant stencil on every level
+    cM: float  # its center weight
+    dA: np.ndarray  # operator diagonals (m_l,), for the Gershgorin bounds
+    dM: np.ndarray
+    rsA: np.ndarray  # |row| sums
+    rsM: np.ndarray
+    n: int  # cells per side
+    gs: tuple[int, ...]  # interior grid (n-1,)*dim
+
+
+@dataclasses.dataclass(frozen=True)
+class GalerkinMultiShiftMultigrid:
+    """The static structure of the multi-shift V-cycle for a
+    coefficient-weighted A: levels from the finest down to (not including)
+    the coarse grid of ``n_coarse`` cells per side, each coarser operator
+    the Galerkin product Pᵀ A P of the one above. ``nu_post`` as in
+    ``MultiShiftMultigrid``."""
+
+    dim: int
+    levels: tuple[_GMSLevel, ...]
+    nu: int
+    n_coarse: int
+    nu_post: int | None = None
+
+    @classmethod
+    def build(
+        cls, dim: int, n_fine: int, A_fine, M_fine, nu: int = 2,
+        n_coarse: int = 8,
+    ) -> tuple["GalerkinMultiShiftMultigrid", tuple[np.ndarray, np.ndarray]]:
+        """``A_fine`` / ``M_fine``: the interior CSR of the finest level.
+        Returns (static structure, (A_coarse, M_coarse) dense)."""
+        A = sp.csr_matrix(A_fine)
+        M = sp.csr_matrix(M_fine)
+        levels = []
+        n = n_fine
+        while n > n_coarse:
+            if n % 2:
+                raise ValueError(f"level size {n} not even (n_fine={n_fine})")
+            gs = (n - 1,) * dim
+            A_vs, Aw = VarStencilOperator.from_dia(DiaMatrix.from_csr(A), gs)
+            kc = A_vs.disps.index((0,) * dim)
+            M_st = StencilOperator.from_dia(DiaMatrix.from_csr(M), gs)
+            cM = dict(zip(M_st.disps, M_st.weights))[(0,) * dim]
+            dA = np.asarray(A.diagonal())
+            dM = np.asarray(M.diagonal())
+            rsA = np.asarray(np.abs(A).sum(axis=1)).ravel()
+            rsM = np.asarray(np.abs(M).sum(axis=1)).ravel()
+            levels.append(
+                _GMSLevel(A_vs, Aw, kc, M_st, cM, dA, dM, rsA, rsM, n, gs)
+            )
+            A = galerkin_coarsen(A, dim, n // 2)
+            M = galerkin_coarsen(M, dim, n // 2)
+            n //= 2
+        return cls(dim, tuple(levels), nu, n), (A.toarray(), M.toarray())
+
+
+def var_row_params(gmsmg, omega_rows: np.ndarray, dtype, device,
+                   weights=None) -> list[dict]:
+    """Per-level row params of a ``GalerkinMultiShiftMultigrid`` for a
+    per-row shift vector: the ω, 1/θ, 1/δ columns (T, 1, ..., 1), θ and δ
+    from the exact Gershgorin bound of D(ω)⁻¹(A + ωM) evaluated at the
+    distinct shifts, and the level's weights "Aw" (``weights[l]`` where
+    given, to share one tensor between several shift vectors). The
+    diagonal is per node, so there is no 1/D column."""
+    omega_rows = np.asarray(omega_rows, np.float64)
+    uniq, inv = np.unique(omega_rows, return_inverse=True)
+    out = []
+    for li, lev in enumerate(gmsmg.levels):
+        lam_u = np.empty(uniq.size)
+        for k, w in enumerate(uniq):
+            lam_u[k] = ((lev.rsA + w * lev.rsM) / (lev.dA + w * lev.dM)).max()
+        lam = 1.1 * lam_u[inv]
+        col = lambda v: row_scale(v, gmsmg.dim, dtype, device)
+        out.append({
+            "omega": col(omega_rows),
+            "inv_theta": col(1.0 / (0.625 * lam)),
+            "inv_delta": col(1.0 / (0.375 * lam)),
+            "Aw": (weights[li] if weights is not None else
+                   torch.as_tensor(lev.Aw, dtype=dtype, device=device)),
+        })
+    return out
 
 
 def mass_spectral_bounds(dim: int) -> tuple[float, float]:
@@ -239,11 +373,12 @@ def ms_op(pairs, gs, omega, x):
 
 
 def cheb_smooth(op, lp, x, b, nu: int):
-    """The degree-``nu`` Chebyshev–Jacobi sweep on Op = ``op`` from ``x``,
-    with the level's row columns ``lp``."""
-    r = lp["inv_diag"] * (b - op(x))
+    """The degree-``nu`` Chebyshev–Jacobi sweep on Op = ``op`` from ``x``
+    (x = 0 where ``x`` is None), with the level's row columns ``lp``; 1/D
+    may be a per-node field."""
+    r = lp["inv_diag"] * (b if x is None else b - op(x))
     d = r * lp["inv_theta"]
-    x = x + d
+    x = d if x is None else x + d
     rho = 1.0 / _SIGMA
     for _ in range(nu - 1):
         rho_new = 1.0 / (2.0 * _SIGMA - rho)
@@ -319,6 +454,83 @@ class MultiShiftMG:
         for _ in range(cycles - 1):
             if kernels is not None and kernels[0] is not None:
                 r = kernels[0].residual(x, b, lps[0]["cols"])
+            else:
+                r = b - self.op(0, lps[0], x)
+            x = x + self.vcycle(r, lps, coarse_solve, kernels=kernels)
+        return x
+
+
+def var_op(A_vs, groups_M, lp, x):
+    """A_w(x) + ω⊙M(x) for a weighted stencil ``A_vs`` with weights
+    ``lp["Aw"]`` and the mass's weight groups (``_op`` of the JAX
+    ``GalerkinMultiShiftMultigrid``)."""
+    return A_vs.apply(x, lp["Aw"]) + lp["omega"] * grouped_apply(
+        groups_M, A_vs.grid_shape, x)
+
+
+def var_smooth(A_vs, groups_M, kc: int, cM: float, lp, x, b, nu: int):
+    """The degree-``nu`` sweep on ``var_op`` from ``x`` (x = 0 where None)
+    with the per-node Jacobi diagonal 1/(A_w[kc] + c_M·ω)."""
+    invd = 1.0 / (lp["Aw"][kc] + cM * lp["omega"])
+    cols = {"inv_diag": invd, "inv_theta": lp["inv_theta"],
+            "inv_delta": lp["inv_delta"]}
+    return cheb_smooth(lambda v: var_op(A_vs, groups_M, lp, v), cols, x, b,
+                       nu)
+
+
+class GalerkinMultiShiftMG:
+    """V-cycles of a host ``GalerkinMultiShiftMultigrid`` on tensors."""
+
+    def __init__(self, gmsmg, nu: int | None = None):
+        self.msmg = gmsmg
+        self.dim = gmsmg.dim
+        self.nu = gmsmg.nu if nu is None else nu
+        self.nu_post = gmsmg.nu_post
+        self._groups_M = [weight_groups(lev.M_st.disps, lev.M_st.weights)
+                          for lev in gmsmg.levels]
+
+    def op(self, lvl: int, lp, x):
+        lev = self.msmg.levels[lvl]
+        return var_op(lev.A_vs, self._groups_M[lvl], lp, x)
+
+    def smooth(self, lvl: int, lp, x, b, nu: int | None = None):
+        lev = self.msmg.levels[lvl]
+        return var_smooth(lev.A_vs, self._groups_M[lvl], lev.kc, lev.cM, lp,
+                          x, b, self.nu if nu is None else nu)
+
+    def vcycle(self, b, lps, coarse_solve, lvl: int = 0, kernels=None):
+        """One V-cycle from x = 0. ``kernels``: per-level
+        ``VarMSKernelLevel``s, whose row columns are ``lps[lvl]["cols"]``;
+        only their fused stages are ported, so a kernel level that takes
+        the semi-fused or plain branch (K10, K13) raises."""
+        if lvl == len(self.msmg.levels):
+            return coarse_solve(b)
+        lp = lps[lvl]
+        kl = kernels[lvl] if kernels is not None else None
+        if kl is not None:
+            if not kl.fused_ok:
+                raise NotImplementedError(
+                    f"level {lvl}, grid {kl.gs}, nu={kl.nu}, nu_post="
+                    f"{kl.nu_post}: the weighted V-cycle's semi-fused and "
+                    "plain stages (K10, K13) are not ported yet (ROADMAP.md "
+                    "queue 1, item 6)"
+                )
+            x, rc = kl.fused_pre(b, lp["cols"], lp["Aw"])
+            ec = self.vcycle(rc, lps, coarse_solve, lvl + 1, kernels)
+            return kl.fused_post(x, b, ec, lp["cols"], lp["Aw"])
+        x = self.smooth(lvl, lp, None, b)
+        r = b - self.op(lvl, lp, x)
+        ec = self.vcycle(transfer(r, self.dim, restrict=True), lps,
+                         coarse_solve, lvl + 1, kernels)
+        x = x + transfer(ec, self.dim, restrict=False)
+        return self.smooth(lvl, lp, x, b, nu=self.nu_post)
+
+    def solve(self, b, lps, coarse_solve, cycles: int = 2, kernels=None):
+        """``cycles`` V-cycles from a zero initial guess."""
+        x = self.vcycle(b, lps, coarse_solve, kernels=kernels)
+        for _ in range(cycles - 1):
+            if kernels is not None and kernels[0] is not None:
+                r = kernels[0].residual(x, b, lps[0]["cols"], lps[0]["Aw"])
             else:
                 r = b - self.op(0, lps[0], x)
             x = x + self.vcycle(r, lps, coarse_solve, kernels=kernels)

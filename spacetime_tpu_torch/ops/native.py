@@ -34,6 +34,7 @@ NVCC_FLAGS = (
 
 MAX_GROUPS = 16
 MAX_TAPS = 32
+MAX_VAR_TAPS = 27  # the 3^d neighbourhood
 
 
 class TapsStruct(ctypes.Structure):
@@ -107,6 +108,33 @@ def pair_groups_struct(pairs, dim: int) -> PairGroupsStruct:
             st.dz[k], st.dy[k], st.dx[k] = (0,) * (3 - dim) + tuple(d)
             k += 1
     st.start[len(pairs)] = k
+    return st
+
+
+class VarTapsStruct(ctypes.Structure):
+    """ctypes mirror of ``struct VarTaps`` in csrc/mg.cu."""
+
+    _fields_ = [
+        ("n_taps", ctypes.c_int),
+        ("kc", ctypes.c_int),
+        ("cm", ctypes.c_double),
+        ("dz", ctypes.c_int * MAX_VAR_TAPS),
+        ("dy", ctypes.c_int * MAX_VAR_TAPS),
+        ("dx", ctypes.c_int * MAX_VAR_TAPS),
+    ]
+
+
+def var_taps_struct(disps, kc: int, cm: float, dim: int) -> VarTapsStruct:
+    """The displacements of a weighted stencil, in the order of its weight
+    arrays, the index ``kc`` of the center tap and the mass's center weight
+    ``cm``; 2-D displacements get dz = 0."""
+    if len(disps) > MAX_VAR_TAPS:
+        raise ValueError(f"weighted stencil has {len(disps)} taps; the kernel "
+                         f"table holds {MAX_VAR_TAPS}")
+    st = VarTapsStruct()
+    st.n_taps, st.kc, st.cm = len(disps), kc, cm
+    for k, d in enumerate(disps):
+        st.dz[k], st.dy[k], st.dx[k] = (0,) * (3 - dim) + tuple(d)
     return st
 
 
@@ -211,13 +239,21 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             "mg_fused_post": [P, P, P, P, P, P, P, P, I64, I64, I64, P, I, P],
             "mg_residual_restrict": [P, P, P, P, *grid, P, P],
             "mg_prolong_correct": [P, P, P, *grid, P],
+            # (nt, ny, nx): a 2-D grid; then the A taps and the M groups
+            "mg_residual_var": [P, P, P, P, P, I64, I64, I64, P, P, P],
+            "mg_apply_var": [P, P, P, I64, I64, I64, P, P],
+            "mg_fused_pre_var": [P, P, P, P, P, P, P, I64, I64, I64, P, P,
+                                 I, P],
+            "mg_fused_post_var": [P, P, P, P, P, P, P, P, I64, I64, I64, P, P,
+                                  I, P],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, f"{name}_{sfx}")
             fn.argtypes = argtypes
             fn.restype = I
     for size_fn, struct in (("kron_taps_size", TapsStruct),
-                            ("mg_pairs_size", PairGroupsStruct)):
+                            ("mg_pairs_size", PairGroupsStruct),
+                            ("mg_var_taps_size", VarTapsStruct)):
         fn = getattr(lib, size_fn)
         fn.argtypes = []
         fn.restype = I

@@ -1,13 +1,16 @@
-"""Constant-stencil spatial operators.
+"""Stencil spatial operators on structured grids.
 
 ``StencilOperator`` is the port's copy of the host half of
 ``spacetime_tpu.ops.stencil.StencilOperator``: the displacements and weights
-read off the assembled matrix and checked constant over interior rows. The
-rest of this module applies a stencil to tensors in the JAX package's
+read off the assembled matrix and checked constant over interior rows.
+``VarStencilOperator`` is the weighted (per-node) form of the JAX package's
+class of that name: displacements on the host, one weight array per tap.
+The rest of this module applies a stencil to tensors in the JAX package's
 arithmetic order: the center tap reads the unpadded input, zero taps are
 dropped, taps that share a weight are summed first and multiplied once, and
-the group terms are added in the order of first appearance. Zero padding is
-the Dirichlet guard.
+the group terms are added in the order of first appearance; a weighted
+stencil sums its taps in ``disps`` order. Zero padding is the Dirichlet
+guard.
 """
 
 from __future__ import annotations
@@ -82,6 +85,48 @@ class StencilOperator:
             disps.append(matches[0])
             weights.append(float(w[0]))
         return cls(tuple(disps), tuple(weights), tuple(grid_shape))
+
+
+@dataclasses.dataclass(frozen=True)
+class VarStencilOperator:
+    """A variable-coefficient stencil on a structured grid:
+    out[p] = Σ_k W[k][p] · U[p + disps[k]], the weights W (ntaps, *gs) a
+    tensor beside the host structure (displacements and grid)."""
+
+    disps: tuple[tuple[int, ...], ...]
+    grid_shape: tuple[int, ...]
+
+    @classmethod
+    def from_dia(
+        cls, dia: DiaMatrix, grid_shape: tuple[int, ...]
+    ) -> tuple["VarStencilOperator", np.ndarray]:
+        """(the operator, its weights (ntaps, *grid_shape) float64)."""
+        cand = _offset_candidates(grid_shape)
+        disps = []
+        for off in dia.offsets:
+            matches = cand.get(off)
+            if matches is None:
+                raise ValueError(f"offset {off} is not a +/-1 neighborhood move")
+            if len(matches) > 1:
+                raise ValueError(
+                    f"ambiguous offset {off} for grid {grid_shape}; "
+                    "grid extents too small"
+                )
+            disps.append(matches[0])
+        W = np.ascontiguousarray(
+            dia.vals.T.reshape((len(disps),) + tuple(grid_shape))
+        )
+        return cls(tuple(disps), tuple(grid_shape)), W
+
+    def apply(self, U: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+        """U (..., *grid_shape), W (ntaps, *grid_shape) -> U.shape."""
+        gs = self.grid_shape
+        Up = zero_pad(U, len(gs))
+        out = None
+        for k, disp in enumerate(self.disps):
+            term = W[k] * tap(U, Up, disp, gs)
+            out = term if out is None else out + term
+        return out
 
 
 def weight_groups(disps, weights):

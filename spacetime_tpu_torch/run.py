@@ -9,6 +9,11 @@ Examples:
     python -m spacetime_tpu_torch.run --device cuda --dtype f32 \
         --space-n 512 --time-levels 7
 
+    # the weighted-coefficient (κ, c) 513²×128 solve on the GPU: the
+    # Galerkin V-cycle (auto inner = mg above 4096 spatial unknowns)
+    python -m spacetime_tpu_torch.run --device cuda --dtype f32 \
+        --problem varcoef2d --space-n 512 --time-levels 7
+
     # the 129³×64 3-D solve (133 MDoF) on the GPU, twice: the second time
     # is the steady one
     python -m spacetime_tpu_torch.run --device cuda --dtype f32 \

@@ -1,30 +1,44 @@
 """The space-time heat-equation solver on PyTorch tensors.
 
-The counterpart of ``spacetime_tpu.solver.heateq.HeatSolver`` for the
-structured constant-stencil regime (``smooth2d`` and ``smooth3d``) with
-multi-shift multigrid inner solves (``inner="mg"``) on uniform dyadic time
-grids: the same stabilized minimal-residual formulation, the same operator
-algebra and the same operation order, so float64 residual histories agree
-with the JAX package to rounding. Host setup (assembly, stencils, the
-multigrid hierarchy, the wavelet structure, the quadrature of the loads)
-runs on the port's own copies of the JAX package's host modules
-(``fem``, ``ops.sparse``, ``ops.stencil``, ``ops.wavelets``,
-``ops.multigrid``); every per-iteration operation runs on ``device``.
+The counterpart of ``spacetime_tpu.solver.heateq.HeatSolver`` on structured
+grids with multi-shift multigrid inner solves (``inner="mg"``) on uniform
+dyadic time grids, in two spatial formats: constant stencils (``"stencil"``:
+``smooth2d``, ``smooth3d``) and, for coefficient-weighted systems, per-node
+A weights with the constant mass stencil (``"vstencil"``: ``varcoef2d``).
+The same stabilized minimal-residual formulation, the same operator algebra
+and the same operation order, so float64 residual histories agree with the
+JAX package to rounding. Host setup (assembly, stencils, the multigrid
+hierarchy, the wavelet structure, the quadrature of the loads) runs on the
+port's own copies of the JAX package's host modules (``fem``,
+``ops.sparse``, ``ops.stencil``, ``ops.wavelets``, ``ops.multigrid``);
+every per-iteration operation runs on ``device``.
 
-B and Bᵀ run as the stab-fused pair of ``ops.kron`` in ``apply_S`` and as the
-plain Bᵀ in ``rhs_device``. Every V-cycle level of K_Y and K_X runs the
-multigrid kernels of ``ops.mg_kernels``: the fused pre/post stages in 2-D,
-else the semi-fused stages (sweep, residual + restriction, prolongation +
-correction, sweep), which every 3-D level runs; and the stiffness
-application between the two shifted solves of K_X is the stencil kernel.
-All are CUDA kernels for CUDA tensors and their plain twins on the CPU; on
-CUDA no level falls back to the plain form, whatever its size.
+Constant stencils: B and Bᵀ run as the stab-fused pair of ``ops.kron`` in
+``apply_S`` and as the plain Bᵀ in ``rhs_device``. Every V-cycle level of
+K_Y and K_X runs the multigrid kernels of ``ops.mg_kernels``: the fused
+pre/post stages in 2-D, else the semi-fused stages (sweep, residual +
+restriction, prolongation + correction, sweep), which every 3-D level runs;
+and the stiffness application between the two shifted solves of K_X is the
+stencil kernel.
+
+Weighted (``"vstencil"``): the inner solver is the Galerkin hierarchy
+(``GalerkinMultiShiftMultigrid``), whose V-cycle levels run the weighted
+fused stages (K14, K15) and whose later cycles start with the weighted
+residual (K11); K_X's middle application and the A_w of B, Bᵀ and the stab
+term run the weighted stencil kernel (K12), while their M applications stay
+plain PyTorch (as the JAX package computes B, Bᵀ and stab in XLA on this
+format). K_H ≈ M⁻¹ is the degree-30 Chebyshev on the constant mass stencil,
+as on the constant format.
+
+All kernels are CUDA kernels for CUDA tensors and their plain twins on the
+CPU; on CUDA no level falls back to the plain form, whatever its size.
 
 Outside this slice (raising ``NotImplementedError`` with the ROADMAP.md slice
-that ports it): dense and Chebyshev inner solves, non-stencil spatial
-formats, graded time grids, on-device load quadrature, the fused/flexible
-PCG variants, checkpointing, double-single refinement legs and multi-device
-runs.
+that ports it): dense and Chebyshev inner solves, the DIA / blocked-ELL
+spatial formats and unstructured meshes, 3-D weighted systems and weighted
+V(ν, ν_post) cycles, graded time grids, on-device load quadrature, the
+fused/flexible PCG variants, checkpointing, double-single refinement legs
+and multi-device runs.
 """
 
 from __future__ import annotations
@@ -47,12 +61,14 @@ from ..fem import (
 from ..models import Problem, get_problem
 from ..ops import kron
 from ..ops import wavelets as wav
-from ..ops.mg_kernels import MSKernelLevel
-from ..ops.multigrid import (MultiShiftMG, MultiShiftMultigrid,
-                             chebyshev_stencil_inverse, mass_spectral_bounds,
-                             row_params)
+from ..ops.mg_kernels import MSKernelLevel, VarMSKernelLevel
+from ..ops.multigrid import (GalerkinMultiShiftMG, GalerkinMultiShiftMultigrid,
+                             MultiShiftMG, MultiShiftMultigrid,
+                             chebyshev_stencil_inverse,
+                             mass_spectral_bounds, row_params, var_row_params)
 from ..ops.sparse import DiaMatrix
-from ..ops.stencil import StencilOperator, grouped_apply, row_scale
+from ..ops.stencil import (StencilOperator, grouped_apply, row_scale,
+                           weight_groups)
 from ..utils.device import resolve_device, synchronize
 from .pcg import pcg
 
@@ -143,21 +159,42 @@ class HeatSolver:
         if not self.wt.is_uniform:
             raise _later("a graded or non-dyadic time grid", "graded time-grid")
 
-        # --- spatial operators: constant stencils ---------------------------
+        # --- spatial operators: constant or weighted stencils ---------------
         gs = system.mesh.grid_shape
-        if spatial_format not in ("auto", "stencil"):
-            raise _later(
-                f"spatial_format={spatial_format!r}",
-                "weighted-coefficient / unstructured",
+        if spatial_format in ("dia", "ell"):
+            raise _later(f"spatial_format={spatial_format!r}",
+                         "unstructured (item 7)")
+        if spatial_format not in ("auto", "stencil", "vstencil"):
+            raise ValueError(f"unknown spatial_format {spatial_format!r}")
+        if spatial_format == "stencil" and system.weighted:
+            raise ValueError(
+                "spatial_format='stencil' needs a translation-invariant "
+                "operator; coefficient-weighted systems use 'vstencil'"
+            )
+        if spatial_format == "vstencil" and not system.weighted:
+            raise ValueError(
+                "spatial_format='vstencil' with inner='mg' needs a "
+                "coefficient-weighted system (P1System.weighted)"
             )
         if gs is None or min(gs) < 3:
             raise _later("an unstructured spatial mesh", "unstructured")
         self.gs = tuple(gs)
         dim = len(self.gs)
-        self.spatial_format = "stencil"
+        self.weighted = system.weighted
+        self.spatial_format = "vstencil" if self.weighted else "stencil"
         M_st = StencilOperator.from_dia(DiaMatrix.from_csr(system.M), self.gs)
-        A_st = StencilOperator.from_dia(DiaMatrix.from_csr(system.A), self.gs)
-        self.taps = kron.KronTaps.from_stencils(M_st, A_st)
+        self._groups_M = weight_groups(M_st.disps, M_st.weights)
+        if self.weighted:
+            if dim != 2:
+                raise _later(
+                    f"a {dim}-D coefficient-weighted system (varcoef3d)",
+                    "weighted semi-fused V-cycle, K10 and K13 (item 6)",
+                )
+            self.taps = None
+        else:
+            A_st = StencilOperator.from_dia(
+                DiaMatrix.from_csr(system.A), self.gs)
+            self.taps = kron.KronTaps.from_stencils(M_st, A_st)
 
         # --- inner solver: multi-shift multigrid -----------------------------
         if inner == "auto":
@@ -184,37 +221,55 @@ class HeatSolver:
         self.mg_nu = mg_nu
         self.mg_nu_kx = mg_nu if mg_nu_kx is None else mg_nu_kx
         self.mg_nu_post = mg_nu_post
-        cache: dict = {}
-        if self.gs == (space_n - 1,) * dim:
-            cache[space_n] = system
         if mg_coarse is None:
             # the coarse level's dense inverses grow as (n-1)^(2·dim): 31³
             # points would take ~3.5 GB each in f32
             mg_coarse = 32 if dim == 2 else 16
-        msmg, (A_c, M_c) = MultiShiftMultigrid.build(
-            dim, space_n, nu=mg_nu,
-            n_coarse=min(mg_coarse, max(space_n // 2, 4)),
-            _system_cache=cache,
-        )
-        odd = [lev.n for lev in msmg.levels if lev.n % 2]
-        if odd:
-            # n → n // 2 is a nested P1 coarsening only for even n
-            raise ValueError(
-                f"space_n={space_n}: the multigrid levels {odd} have an odd "
-                "number of cells; every level above the coarse grid needs "
-                "an even one"
+        n_coarse = min(mg_coarse, max(space_n // 2, 4))
+        if self.weighted:
+            if (mg_nu_post not in (None, mg_nu)
+                    or not {mg_nu, self.mg_nu_kx} <= {2, 3}):
+                raise _later(
+                    f"a weighted V(nu, nu_post) cycle with mg_nu={mg_nu}, "
+                    f"mg_nu_kx={self.mg_nu_kx}, mg_nu_post={mg_nu_post} "
+                    "(only the fused stages, nu = nu_post in {2, 3}, are "
+                    "ported)",
+                    "weighted semi-fused V-cycle, K10 and K13 (item 6)",
+                )
+            # Galerkin RAP off the assembled fine matrices (the coefficients
+            # are not re-assembled per level)
+            msmg, (A_c, M_c) = GalerkinMultiShiftMultigrid.build(
+                dim, space_n, system.A, system.M, nu=mg_nu, n_coarse=n_coarse)
+            mg_cls, kl_cls = GalerkinMultiShiftMG, VarMSKernelLevel
+            kl_args = lambda lev: (lev,)
+        else:
+            cache: dict = {}
+            if self.gs == (space_n - 1,) * dim:
+                cache[space_n] = system
+            msmg, (A_c, M_c) = MultiShiftMultigrid.build(
+                dim, space_n, nu=mg_nu, n_coarse=n_coarse, _system_cache=cache,
             )
+            odd = [lev.n for lev in msmg.levels if lev.n % 2]
+            if odd:
+                # n → n // 2 is a nested P1 coarsening only for even n
+                raise ValueError(
+                    f"space_n={space_n}: the multigrid levels {odd} have an "
+                    "odd number of cells; every level above the coarse grid "
+                    "needs an even one"
+                )
+            mg_cls, kl_cls = MultiShiftMG, MSKernelLevel
+            kl_args = lambda lev: (lev.A_st, lev.M_st)
         if mg_nu_post is not None:
             msmg = dataclasses.replace(msmg, nu_post=mg_nu_post)
         self.msmg = msmg
-        self._mg_ky = MultiShiftMG(msmg)
-        self._mg_kx = MultiShiftMG(msmg, nu=self.mg_nu_kx)
+        self._mg_ky = mg_cls(msmg)
+        self._mg_kx = mg_cls(msmg, nu=self.mg_nu_kx)
         # The kernel levels per ν (K_X's own when mg_nu_kx differs), on every
         # level: the dtype enters through the tensors and params_for's
         # columns. The JAX package's 40,000-point gate measured XLA fusion
         # against Mosaic on the TPU and has no counterpart here.
         mk_levels = lambda nu: [
-            MSKernelLevel(lev.A_st, lev.M_st, nu, nu_post=mg_nu_post)
+            kl_cls(*kl_args(lev), nu, nu_post=mg_nu_post)
             for lev in msmg.levels
         ]
         self._kl_ky = mk_levels(mg_nu)
@@ -233,6 +288,9 @@ class HeatSolver:
             "mg_cinv_ky": np.linalg.inv(A_c),
             "mg_cinv": [np.linalg.inv(A_c + w * M_c) for w in omegas],
         }
+        # K_H ≈ M⁻¹: M is the constant mass stencil on both formats, so the
+        # JAX package's per-node Jacobi vector of the weighted format holds
+        # one value, the stencil's 1/center
         lmin, lmax = mass_spectral_bounds(dim)
         center = dict(zip(M_st.disps, M_st.weights))[(0,) * dim]
         self._cheb_Minv = chebyshev_stencil_inverse(
@@ -265,7 +323,10 @@ class HeatSolver:
         """Device tensors of the operators in ``dtype`` (cached). Per-time-row
         scales are (T, 1, 1) columns; ``kron`` holds the (T,) vectors h/2 and
         h/16 the B/Bᵀ kernels read, and each multigrid level's ``cols`` the
-        (T,) views of its row columns that the mg kernels read."""
+        (T,) views of its row columns that the mg kernels read. The weighted
+        format has no ``kron``; it holds each level's weights "Aw" (one
+        tensor per level, shared by K_Y's and K_X's row params; the finest
+        also as ``Aw``)."""
         if dtype in self._params_cache:
             return self._params_cache[dtype]
         dev, dim = self.device, len(self.gs)
@@ -277,16 +338,22 @@ class HeatSolver:
             "inv_h": row_scale(1.0 / h, dim, dtype, dev),
             "wavelet": wav.wavelet_params(self.wt, dtype, dev),
         }
-        p["kron"] = {
-            "h128": p["h_half"].reshape(self.N),
-            "hs128": p["h_stab"].reshape(self.N),
-        }
         p["mg_cinv_ky"] = cast(self._host["mg_cinv_ky"])
         p["mg_cinv"] = [cast(S) for S in self._host["mg_cinv"]]
-        p["ms_ky"] = row_params(self.msmg, self._host["omega_ky"], dtype, dev)
-        p["ms_kx"] = row_params(self.msmg, self._host["omega_kx"], dtype, dev)
+        if self.weighted:
+            Aw = [cast(lev.Aw) for lev in self.msmg.levels]
+            rows = lambda om: var_row_params(self.msmg, om, dtype, dev, Aw)
+            p["Aw"] = Aw[0]
+        else:
+            p["kron"] = {
+                "h128": p["h_half"].reshape(self.N),
+                "hs128": p["h_stab"].reshape(self.N),
+            }
+            rows = lambda om: row_params(self.msmg, om, dtype, dev)
+        p["ms_ky"] = rows(self._host["omega_ky"])
+        p["ms_kx"] = rows(self._host["omega_kx"])
         for lp in p["ms_ky"] + p["ms_kx"]:
-            lp["cols"] = MSKernelLevel.columns(lp)
+            lp["cols"] = self._kl_ky[0].columns(lp)
         self._params_cache[dtype] = p
         return p
 
@@ -294,9 +361,13 @@ class HeatSolver:
     # U has shape (N_t+1, *gs); V (test side) has shape (N_t, *gs).
 
     def _spmv_M(self, X):
-        return grouped_apply(self.taps.groups_M, self.gs, X)
+        return grouped_apply(self._groups_M, self.gs, X)
 
-    def _spmv_A(self, X):
+    def _spmv_A(self, X, p):
+        """A X; on the weighted format the finest level's K12 wrapper (the
+        kernel on CUDA, ``VarStencilOperator.apply`` on the CPU)."""
+        if self.weighted:
+            return self._kl_ky[0].apply_A(X, p["Aw"])
         return grouped_apply(self.taps.groups_A, self.gs, X)
 
     def _zrow(self, like):
@@ -304,10 +375,19 @@ class HeatSolver:
 
     def apply_B(self, U, p=None):
         p = self.params if p is None else p
+        if self.weighted:
+            DU = U[1:] - U[:-1]
+            SU = U[1:] + U[:-1]
+            return self._spmv_M(DU) + p["h_half"] * self._spmv_A(SU, p)
         return kron.apply_B(U, p["kron"]["h128"], self.taps)
 
     def apply_BT(self, V, p=None):
         p = self.params if p is None else p
+        if self.weighted:
+            VM = self._spmv_M(V)
+            VA = p["h_half"] * self._spmv_A(V, p)
+            z = self._zrow(V)
+            return torch.cat([-VM + VA, z]) + torch.cat([z, VM + VA])
         return kron.apply_BT(V, p["kron"]["h128"], self.taps)
 
     def apply_KY(self, V, p=None):
@@ -323,9 +403,9 @@ class HeatSolver:
 
     def apply_stab(self, U, p=None):
         """The stabilization term on its own (the stab-fused kernels fold it
-        into ``apply_S``)."""
+        into ``apply_S`` on the constant format)."""
         p = self.params if p is None else p
-        W = p["h_stab"] * self._spmv_A(U[1:] - U[:-1])
+        W = p["h_stab"] * self._spmv_A(U[1:] - U[:-1], p)
         z = self._zrow(U)
         return torch.cat([z, W]) - torch.cat([W, z])
 
@@ -343,11 +423,17 @@ class HeatSolver:
         return torch.cat([r0, U.new_zeros((self.N,) + self.gs)])
 
     def apply_S(self, U, p=None):
-        """S = Bᵀ K_Y B + stab + trace, with stab fused into B and Bᵀ."""
+        """S = Bᵀ K_Y B + stab + trace, with stab fused into B and Bᵀ on the
+        constant format."""
         p = self.params if p is None else p
-        kp = p["kron"]
-        V, W = kron.apply_B_stab(U, kp["h128"], kp["hs128"], self.taps)
-        out = kron.apply_BT_stab(self.apply_KY(V, p), W, kp["h128"], self.taps)
+        if self.weighted:
+            out = self.apply_BT(self.apply_KY(self.apply_B(U, p), p), p)
+            out = out + self.apply_stab(U, p)
+        else:
+            kp = p["kron"]
+            V, W = kron.apply_B_stab(U, kp["h128"], kp["hs128"], self.taps)
+            out = kron.apply_BT_stab(self.apply_KY(V, p), W, kp["h128"],
+                                     self.taps)
         out[0] += self._trace_row(U, p)[0]
         return out
 
@@ -375,7 +461,9 @@ class HeatSolver:
         p = self.params if p is None else p
         X = wav.adjoint(self.wt, R.reshape((self.N + 1,) + self.gs), p["wavelet"])
         X = self._ms_solve_kx(X, p)
-        X = self._kl_kx[0].apply_A(X)
+        kl = self._kl_kx[0]
+        X = (kl.apply_A(X, p["ms_kx"][0]["Aw"]) if self.weighted
+             else kl.apply_A(X))
         X = self._ms_solve_kx(X, p)
         return wav.forward(self.wt, X, p["wavelet"]).reshape(R.shape)
 

@@ -1,5 +1,6 @@
-"""The CUDA kernels K1 (B), K2 (Bᵀ) and the multigrid kernels K3–K9 (2-D and
-3-D) on the card, against their plain twins. Marked ``cuda``: they skip where
+"""The CUDA kernels K1 (B), K2 (Bᵀ), the multigrid kernels K3–K9 (2-D and
+3-D) and the weighted K11, K12, K14 and K15 (2-D) on the card, against their
+plain twins. Marked ``cuda``: they skip where
 ``torch.cuda.is_available()`` is False (the kernels have no CPU mode). This
 file imports no JAX, so on a machine with a GPU and without JAX it runs as
 
@@ -13,8 +14,9 @@ import pytest
 import torch
 
 from spacetime_tpu_torch.ops import kron, mg_kernels
-from spacetime_tpu_torch.ops.mg_kernels import MSKernelLevel
-from spacetime_tpu_torch.ops.multigrid import row_params
+from spacetime_tpu_torch.ops.mg_kernels import MSKernelLevel, VarMSKernelLevel
+from spacetime_tpu_torch.ops.multigrid import (GalerkinMultiShiftMultigrid,
+                                               row_params, var_row_params)
 from spacetime_tpu_torch.solver import build_solver
 
 pytestmark = pytest.mark.cuda
@@ -222,3 +224,71 @@ def test_small_3d_solve_matches_cpu(msmg3d):
                  "K9 mg_prolong_correct_3d"):
         assert counts[f"{name} f64"] > 0, counts
     assert counts["K6 mg_fused_pre f64"] == counts["K7 mg_fused_post f64"] == 0
+
+
+@pytest.fixture(scope="module")
+def var_msmg():
+    """The varcoef2d Galerkin hierarchy at 64 cells (finest grid 63²)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from spacetime_tpu_torch.fem import P1System, unit_square_mesh
+    from spacetime_tpu_torch.models import get_problem
+
+    system = P1System.from_problem(get_problem("varcoef2d"),
+                                   unit_square_mesh(64))
+    return GalerkinMultiShiftMultigrid.build(
+        2, 64, system.A, system.M, nu=2, n_coarse=32)[0]
+
+
+# ragged extents: one tile, then several tiles with ragged edges (the
+# weights are the finest level's, cut to the test grid)
+@pytest.mark.parametrize("gs", [(15, 31), (33, 63)])
+@pytest.mark.parametrize("nu", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_var_kernels_match_twins(var_msmg, dtype, nu, gs):
+    T = 5
+    msmg = var_msmg
+    lev = msmg.levels[0]
+    kl = VarMSKernelLevel(lev, nu, gs=gs)
+    rng = np.random.default_rng(nu)
+    mk = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
+    W = mk(np.ascontiguousarray(lev.Aw[:, :gs[0], :gs[1]]))
+    omega = np.abs(rng.standard_normal(T)) * 20
+    cols = kl.columns(var_row_params(msmg, omega, dtype, "cuda")[0])
+    x, b = mk(rng.standard_normal((T,) + gs)), mk(rng.standard_normal((T,) + gs))
+    ec = mk(rng.standard_normal((T,) + kl.coarse_gs))
+    mg_kernels.reset_launch_counts()
+    _close(kl.residual(x, b, cols, W), kl.residual_plain(x, b, cols, W), dtype)
+    _close(kl.apply_A(x, W), kl.apply_A_plain(x, W), dtype)
+    for got, want in zip(kl.fused_pre(b, cols, W),
+                         kl.fused_pre_plain(b, cols, W)):
+        _close(got, want, dtype)
+    _close(kl.fused_post(x, b, ec, cols, W),
+           kl.fused_post_plain(x, b, ec, cols, W), dtype)
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    counts = mg_kernels.launch_counts()
+    for name in ("K11 mg_residual_var", "K12 mg_apply_var",
+                 "K14 mg_fused_pre_var", "K15 mg_fused_post_var"):
+        assert counts[f"{name} {sfx}"] == 1, (name, counts)
+    assert sum(counts.values()) == 4
+    with pytest.raises(ValueError, match="shape"):
+        kl.apply_A(x, W[:, :-1].contiguous())
+
+
+def test_small_varcoef_solve_matches_cpu(var_msmg):
+    """varcoef2d 33²×16 in float64: the card's weighted kernels and the
+    CPU's twins take the same iterations, with every V-cycle level on
+    K14/K15 and the later cycles on K11."""
+    kw = dict(dtype=torch.float64, inner="mg", mg_coarse=8)
+    cpu = build_solver("varcoef2d", 32, 4, device="cpu", **kw).solve(tol=1e-8)
+    mg_kernels.reset_launch_counts()
+    gpu = build_solver("varcoef2d", 32, 4, device="cuda", **kw).solve(tol=1e-8)
+    assert gpu.iterations == cpu.iterations
+    np.testing.assert_allclose(gpu.residuals, cpu.residuals, rtol=1e-10)
+    counts = mg_kernels.launch_counts()
+    for name in ("K11 mg_residual_var", "K12 mg_apply_var",
+                 "K14 mg_fused_pre_var", "K15 mg_fused_post_var"):
+        assert counts[f"{name} f64"] > 0, counts
+    assert counts["K14 mg_fused_pre_var f64"] == counts[
+        "K15 mg_fused_post_var f64"]
+    assert counts["K6 mg_fused_pre f64"] == counts["K4 mg_residual f64"] == 0

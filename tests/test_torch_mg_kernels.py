@@ -376,7 +376,9 @@ def test_levels_dispatch_by_device(hierarchy):
         f"K{i} {name}{d} {sfx}" for i, name in names for d in ("", "_3d")
         for sfx in ("f32", "f64")
     } | {f"K{i} {name} {sfx}" for i, name in
-         ((6, "mg_fused_pre"), (7, "mg_fused_post")) for sfx in ("f32", "f64")}
+         ((6, "mg_fused_pre"), (7, "mg_fused_post"), (11, "mg_residual_var"),
+          (12, "mg_apply_var"), (14, "mg_fused_pre_var"),
+          (15, "mg_fused_post_var")) for sfx in ("f32", "f64")}
 
 
 def test_convert_carries_columns():
