@@ -45,11 +45,12 @@ Phases (every check asserts; any failure exits non-zero):
               2.5223e-04; every level runs K3/K8/K9, none K6/K7.
 13. smooth3d f64 — 17³×16, ``solve(tol=1e-8)``: the JAX package's 18
               iterations exactly, L2 within 1e-6 of 3.999081e-03.
-14. weighted mg kernels — K11, K12, K14 and K15 against their twins in
-              float32 and float64 with ν ∈ {2, 3}, at 511² and 255² (T=129),
-              127² (T=65) and a ragged 15×31 (T=5), W the weights of the
-              varcoef2d assembly at that size; median device times (ν = 2)
-              at 511²×129 and 127²×65.
+14. weighted mg kernels — K10 (sweep from x and from 0), K11, K12, K13,
+              K14 and K15 against their twins in float32 and float64 with
+              ν ∈ {1, 2, 3} (K14/K15 at ν ∈ {2, 3}), at 511² and 255²
+              (T=129), 127² (T=65) and a ragged 15×31 (T=5), W the weights
+              of the varcoef2d assembly at that size; median device times
+              (ν = 2) at 511²×129 and 127²×65.
 15. varcoef2d 129²×64 f32 — ``solve(tol=1e-6)`` within ±1 of the JAX
               package's 16 iterations, L2 within 1% of its value;
               ``solve_refined(tol=1e-8)``: rounds and inner iterations within
@@ -61,11 +62,30 @@ Phases (every check asserts; any failure exits non-zero):
 17. varcoef2d f64 — 33²×16, ``inner="mg"``, ``mg_coarse=8``,
               ``solve(tol=1e-8)``: the JAX package's 18 iterations exactly,
               L2 within 1e-6 of its value.
+18. weighted mg kernels 3-D — the varcoef3d 65³×32 f32 solver's setup;
+              K10 (from x and from 0), K11, K12 and K13 against their twins
+              in float32 and float64 with ν ∈ {1, 2, 3}, at 63³ and 31³
+              (T=33, the weights of that solver's two Galerkin levels), a
+              ragged 7×9×15 (T=5, the 63³ weights cut to it) and 127³
+              (T=33, the 63³ weights tiled to it: W outside the L2, the
+              row-first order); median device times (ν = 2) at 63³×33 and
+              127³×33.
+19. varcoef3d 65³×32 f32 — ``solve(tol=1e-6)`` twice, within ±1 of the
+              JAX package's 14 iterations, L2 within 1% of its value;
+              ``solve_refined(tol=1e-8)`` converges. Every level runs the
+              semi-fused K10 → K13 → K9 → K10.
+20. varcoef3d f64 — 17³×16, ``solve(tol=1e-8)``: the JAX package's 18
+              iterations exactly, L2 within 1e-6 of its value.
+21. weighted V(2,1) — varcoef2d 129²×64 f32 with ``mg_nu_post=1`` (the
+              semi-fused K10 → K13 → K9 → K10 in place of K14/K15):
+              ``solve(tol=1e-6)`` within ±1 of the JAX package's 17
+              iterations, L2 within 1% of its value; ``solve_refined``.
 
 Launch counters are zeroed just before each path (phases 7–8, 9, 10, 11,
-12, 13, 15, 16, 17) and read just after it; each path asserts the kernels it
-must have launched, and a weighted path that no constant-stencil kernel
-ran. The last two lines are a JSON object describing the kernels and
+12, 13, 15, 16, 17, 19, 20, 21) and read just after it; each path asserts
+the kernels it must have launched, and a weighted path that it ran only
+the kernels of its branch (K9 the one constant kernel of the semi-fused
+stages). The last two lines are a JSON object describing the kernels and
 ``{"ok": true, "device": ...}``.
 """
 
@@ -135,6 +155,19 @@ REF_VAR_F64 = {"n": 32, "levels": 4, "iterations": 18,
 # refinement is held to 1%.
 REF_VAR_FLAGSHIP = {"n": 512, "levels": 7, "iterations": 16,
                     "l2_f64": 3.564768e-06, "l2_band": 0.2}
+# varcoef3d and the weighted V(2,1), the JAX package on the CPU
+# (``JAX_ENABLE_X64=1 python -m spacetime_tpu.run --backend jax --device cpu
+# --inner mg --rhs host``): ``--problem varcoef3d --space-n 64
+# --time-levels 5 --dtype f32`` (tol 1e-6); ``--space-n 16 --time-levels 4
+# --dtype f64 --tol 1e-8``; ``--problem varcoef2d --space-n 128
+# --time-levels 6 --dtype f32 --mg-nu-post 1``. At 65³ the discretization
+# error dwarfs f32 rounding, so the f32 band is 1%.
+REF_VAR3D = {"n": 64, "levels": 5, "iterations": 14,
+             "l2": 2.455036945354092e-04, "l2_band": 0.01}
+REF_VAR3D_F64 = {"n": 16, "levels": 4, "iterations": 18,
+                 "l2": 3.8913328499968662e-03}
+REF_VAR_V21 = {"n": 128, "levels": 6, "iterations": 17,
+               "l2": 5.631016437524917e-05}
 # (T, grid) of the multigrid kernel checks: the 2-D flagship's fine and
 # first coarse level, cfg2's fine level at K_X's row count, the 3-D
 # flagship's two finest levels, and ragged shapes.
@@ -147,11 +180,20 @@ MG_SHAPES_3D = [(65, (127, 127, 127)), (65, (63, 63, 63)), (5, (7, 9, 15))]
 # weights cut to it)
 VAR_SHAPES = [(129, (511, 511), 512), (129, (255, 255), 256),
               (65, (127, 127), 128), (5, (15, 31), 128)]
-VAR_OPS = ("residual_var", "apply_var", "fused_pre_var", "fused_post_var")
+# (T, grid, Galerkin level of the varcoef3d 65³×32 solver whose weights it
+# takes) of the 3-D weighted kernels' checks: that solver's two levels at
+# K_X's row count, a ragged grid (the 63³ weights cut to it), and the
+# 129³×32 solver's finest level, whose W (123 MB in f32) does not fit in
+# the L2, so the kernels take the row fastest there (the 63³ weights tiled
+# to it)
+VAR_SHAPES_3D = [(33, (63, 63, 63), 0), (33, (31, 31, 31), 1),
+                 (5, (7, 9, 15), 0), (33, (127, 127, 127), 0)]
 MG_TIMED = [(129, (511, 511)), (65, (127, 127)), (65, (127, 127, 127)),
-            (65, (63, 63, 63))]
-# the shape of each kernel's headline numbers in the JSON line, by dimension
-MG_MAIN = {2: (129, (511, 511)), 3: (65, (127, 127, 127))}
+            (65, (63, 63, 63)), (33, (63, 63, 63)), (33, (127, 127, 127))]
+# the shape of each kernel's headline numbers in the JSON line, by family
+# (constant or weighted) and dimension
+MG_MAIN = {("const", 2): (129, (511, 511)), ("const", 3): (65, (127,) * 3),
+           ("var", 2): (129, (511, 511)), ("var", 3): (33, (63,) * 3)}
 # max|kernel − twin| ≤ tol · max|twin|. f32: FMA contraction and the order
 # of the tap sums differ from PyTorch's; f64: the same, at f64 rounding.
 TOL = {torch.float32: 1e-5, torch.float64: 1e-13}
@@ -250,7 +292,8 @@ def mg_bound(form, kl, T, dtype) -> dict:
 
 def var_bound(form, kl, T, dtype) -> dict:
     """Bytes (each input read once, the weights W once, each output written
-    once) and operations of one weighted kernel at T time rows."""
+    once) and operations of one weighted kernel at T time rows; the 1/D of
+    a node costs two operations."""
     m = int(np.prod(kl.gs))
     mc = int(np.prod(kl.coarse_gs))
     s = torch.finfo(dtype).bits // 8
@@ -260,12 +303,18 @@ def var_bound(form, kl, T, dtype) -> dict:
     nu = kl.nu
     sweep = op * nu + 4 + 6 * (nu - 1)
     sweep0 = 2 + (op + 6) * (nu - 1)
+    restrict = 2 ** (kl.dim + 1)  # per coarse point
     cols = 3 * T
     nbytes, flops = {
+        "smooth": (s * (3 * T * m + nt * m + cols), T * m * (2 + sweep)),
+        "smooth_zero": (s * (2 * T * m + nt * m + cols),
+                        T * m * (2 + sweep0)),
         "residual": (s * (3 * T * m + nt * m + T), T * m * (op + 1)),
         "apply_A": (s * (2 * T * m + nt * m), T * m * a_ops),
+        "residual_restrict": (s * (2 * T * m + T * mc + nt * m + T),
+                              T * m * (op + 1) + T * mc * restrict),
         "fused_pre": (s * (2 * T * m + T * mc + nt * m + cols),
-                      T * m * (2 + sweep0 + op + 1) + T * mc * 8),
+                      T * m * (2 + sweep0 + op + 1) + T * mc * restrict),
         "fused_post": (s * (3 * T * m + T * mc + nt * m + cols),
                        T * m * (2 + sweep + 3)),
     }[form]
@@ -273,19 +322,31 @@ def var_bound(form, kl, T, dtype) -> dict:
 
 
 def var_forms(kl, x) -> dict:
-    """{form: (kernel op, kernel_fn, twin_fn)} of one VarMSKernelLevel."""
+    """{form: (kernel op, kernel_fn, twin_fn)} of one VarMSKernelLevel.
+    K14/K15 (fused) where the level takes them."""
     X, B, EC, c, W = x["x"], x["b"], x["ec"], x["cols"], x["W"]
-    return {
+    forms = {
+        "smooth": ("smooth_var", lambda: (kl.smooth(X, B, c, W),),
+                   lambda: (kl.smooth_plain(X, B, c, W),)),
+        "smooth_zero": (
+            "smooth_var", lambda: (kl.smooth(None, B, c, W, zero_init=True),),
+            lambda: (kl.smooth_plain(None, B, c, W, zero_init=True),)),
         "residual": ("residual_var", lambda: (kl.residual(X, B, c, W),),
                      lambda: (kl.residual_plain(X, B, c, W),)),
         "apply_A": ("apply_var", lambda: (kl.apply_A(X, W),),
                     lambda: (kl.apply_A_plain(X, W),)),
-        "fused_pre": ("fused_pre_var", lambda: kl.fused_pre(B, c, W),
-                      lambda: kl.fused_pre_plain(B, c, W)),
-        "fused_post": ("fused_post_var",
-                       lambda: (kl.fused_post(X, B, EC, c, W),),
-                       lambda: (kl.fused_post_plain(X, B, EC, c, W),)),
+        "residual_restrict": (
+            "residual_restrict_var",
+            lambda: (kl.residual_restrict(X, B, c, W),),
+            lambda: (kl.residual_restrict_plain(X, B, c, W),)),
     }
+    if kl.fused_ok:
+        forms["fused_pre"] = ("fused_pre_var", lambda: kl.fused_pre(B, c, W),
+                              lambda: kl.fused_pre_plain(B, c, W))
+        forms["fused_post"] = ("fused_post_var",
+                               lambda: (kl.fused_post(X, B, EC, c, W),),
+                               lambda: (kl.fused_post_plain(X, B, EC, c, W),))
+    return forms
 
 
 def var_hierarchy(n: int):
@@ -302,20 +363,22 @@ def var_hierarchy(n: int):
                                              n_coarse=n // 2)[0]
 
 
-def var_inputs(msmg, kl, T, dtype, rng) -> dict:
-    """x, b (T, *gs), e_c, the level's weights cut to the grid and the
-    columns of random shifts, on the card."""
+def var_inputs(msmg, kl, T, dtype, rng, lvl=0) -> dict:
+    """x, b (T, *gs), e_c, the weights of level ``lvl`` cut (or tiled) to
+    the grid and that level's columns of random shifts, on the card."""
     from spacetime_tpu_torch.ops.multigrid import var_row_params
 
     mk = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
     omega = np.abs(rng.standard_normal(T)) * 20
-    ny, nx = kl.gs
-    lp = var_row_params(msmg, omega, dtype, "cuda")[0]
+    lp = var_row_params(msmg, omega, dtype, "cuda")[lvl]
+    Aw = msmg.levels[lvl].Aw
+    grow = [(0, 0)] + [(0, max(n - m, 0)) for n, m in zip(kl.gs, Aw.shape[1:])]
+    cut = (slice(None),) + tuple(slice(0, n) for n in kl.gs)
     return {
         "x": mk(rng.standard_normal((T,) + kl.gs)),
         "b": mk(rng.standard_normal((T,) + kl.gs)),
         "ec": mk(rng.standard_normal((T,) + kl.coarse_gs)),
-        "W": mk(np.ascontiguousarray(msmg.levels[0].Aw[:, :ny, :nx])),
+        "W": mk(np.ascontiguousarray(np.pad(Aw, grow, mode="wrap")[cut])),
         "cols": kl.columns(lp),
     }
 
@@ -790,7 +853,7 @@ def main() -> int:
     del s3
     torch.cuda.empty_cache()
 
-    phase("14 weighted mg kernels K11, K12, K14, K15 against their twins")
+    phase("14 weighted mg kernels K10-K15 (2-D) against their twins")
     rng = np.random.default_rng(SEED + 3)
     for n in sorted({n for _, _, n in VAR_SHAPES}, reverse=True):
         t0 = time.perf_counter()
@@ -799,7 +862,7 @@ def main() -> int:
               f"s, taps {msmg.levels[0].A_vs.disps}", flush=True)
         for dtype in (f32, f64):
             for T, gs in ((T, gs) for T, gs, nw in VAR_SHAPES if nw == n):
-                for nu in (2, 3):
+                for nu in (1, 2, 3):
                     kl = VarMSKernelLevel(msmg.levels[0], nu, gs=gs)
                     x = var_inputs(msmg, kl, T, dtype, rng)
                     check_forms(kl, var_forms(kl, x), var_bound, T, dtype,
@@ -808,22 +871,35 @@ def main() -> int:
                     torch.cuda.empty_cache()
         del msmg
 
-    def var_path(name, iterations, levels, dtype, legs=None):
-        """The weighted path's counts: K11, K12, K14, K15 launched in
-        ``dtype`` (and in the refinement legs' dtype ``legs``), K14 and K15
-        equally often and a whole number of V-cycles over the ``levels``
-        kernel levels, at least 7 per PCG iteration in ``dtype`` (3 for
-        K_Y, 2 × 2 for K_X); no constant-stencil kernel."""
+    def var_path(name, iterations, levels, dtype, legs=None, dim=2,
+                 semi=False):
+        """The weighted path's counts in ``dtype`` (and in the refinement
+        legs' dtype ``legs``): K11, K12 and the V-cycle stages of the
+        path's branch launched, the fused K14 = K15 or (``semi``) the
+        semi-fused K10 = 2·K13 = 2·K9, a whole number of V-cycles over the
+        ``levels`` kernel levels, at least 7 per PCG iteration in ``dtype``
+        (3 for K_Y, 2 × 2 for K_X); no other kernel, and none of another
+        dimension."""
         counts = paths.stop(name, per=iterations)
+        ops = {"residual_var", "apply_var"} | (
+            {"smooth_var", "residual_restrict_var", "prolong_correct"} if semi
+            else {"fused_pre_var", "fused_post_var"})
         for dt in (dtype,) if legs is None else (dtype, legs):
-            got = {op: counts[(op, dt, 2)] for op in VAR_OPS}
+            got = {op: counts[(op, dt, dim)] for op in ops}
             assert all(got.values()), (dt, got)
-            pre, post = got["fused_pre_var"], got["fused_post_var"]
-            assert pre == post and pre % levels == 0, (pre, post, levels)
-        pre = counts[("fused_pre_var", dtype, 2)]
+            if semi:
+                pre = got["residual_restrict_var"]
+                assert got["smooth_var"] == 2 * pre == 2 * got[
+                    "prolong_correct"], got
+            else:
+                pre = got["fused_pre_var"]
+                assert pre == got["fused_post_var"], got
+            assert pre % levels == 0, (pre, levels)
+        pre = counts[("residual_restrict_var" if semi else "fused_pre_var",
+                      dtype, dim)]
         assert pre >= 7 * levels * iterations, (pre, iterations)
         assert all(n == 0 for key, n in counts.items()
-                   if key[0] not in VAR_OPS), counts
+                   if key[0] not in ops or key[-1] != dim), counts
 
     n, J = REF_VAR["n"], REF_VAR["levels"]
     phase(f"15 varcoef2d {n + 1}^2 x {2 ** J} steps, f32, inner mg")
@@ -938,6 +1014,106 @@ def main() -> int:
     assert abs(r.l2_error / REF_VAR_F64["l2"] - 1.0) <= 1e-6, r.l2_error
     var_path("varcoef2d f64", r.iterations, len(s.msmg.levels), f64)
     del s
+
+    n, J = REF_VAR3D["n"], REF_VAR3D["levels"]
+    phase(f"18 weighted mg kernels K10-K13 (3-D) against their twins; the "
+          f"varcoef3d {n + 1}^3 x {2 ** J} solver's setup")
+    t0 = time.perf_counter()
+    var3 = build_solver("varcoef3d", n, J, dtype=f32, device="cuda")
+    assert var3.spatial_format == "vstencil" and var3.inner == "mg"
+    msmg = var3.msmg
+    print(f"setup {time.perf_counter() - t0:.2f} s ({(var3.N + 1) * var3.m:,} "
+          f"DoF, levels {[lev.n for lev in msmg.levels]}, grids "
+          f"{[lev.gs for lev in msmg.levels]}, coarse {msmg.n_coarse}; "
+          f"taps {msmg.levels[0].A_vs.disps})", flush=True)
+    rng = np.random.default_rng(SEED + 5)
+    for dtype in (f32, f64):
+        for T, gs, lvl in VAR_SHAPES_3D:
+            for nu in (1, 2, 3):
+                kl = VarMSKernelLevel(msmg.levels[lvl], nu, gs=gs)
+                x = var_inputs(msmg, kl, T, dtype, rng, lvl)
+                check_forms(kl, var_forms(kl, x), var_bound, T, dtype,
+                            mg_results)
+                del x
+                torch.cuda.empty_cache()
+
+    phase(f"19 varcoef3d {n + 1}^3 x {2 ** J} steps, f32, inner mg")
+    t0 = time.perf_counter()
+    var3.assemble_rhs_host()
+    L = len(msmg.levels)
+    print(f"loads {time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    paths.start()
+    runs = []
+    for call in (1, 2):
+        r = var3.solve(tol=1e-6, compute_error=False)
+        rel = r.residuals[-1] / r.residuals[0]
+        print(f"solve call {call}: iterations {r.iterations} (JAX CPU "
+              f"{REF_VAR3D['iterations']}), converged {r.converged}, rel "
+              f"{rel:.3e}, solve {r.solve_seconds:.4f} s", flush=True)
+        assert r.converged and rel <= 1e-6, rel
+        assert abs(r.iterations - REF_VAR3D["iterations"]) <= 1, r.iterations
+        runs.append(r)
+    print(f"steady solve: {runs[1].solve_seconds:.4f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    l2 = var3._l2_error(runs[0].U)
+    print(f"L2(IxOmega) {l2:.6e} (JAX CPU {REF_VAR3D['l2']:.6e}), host error "
+          f"loop {time.perf_counter() - t0:.2f} s")
+    assert abs(l2 / REF_VAR3D["l2"] - 1.0) <= REF_VAR3D["l2_band"], l2
+    r = var3.solve_refined(tol=1e-8, compute_error=False)
+    rel = r.residuals[-1] / r.residuals[0]
+    print(f"solve_refined: inner iterations {r.iterations} in "
+          f"{len(r.residuals) - 1} rounds, converged {r.converged}, rel "
+          f"{rel:.3e}, solve {r.solve_seconds:.4f} s")
+    assert r.converged and rel <= 1e-8, rel
+    var_path("varcoef3d 65^3 f32",
+             sum(x.iterations for x in runs) + r.iterations, L, f32,
+             legs=f64, dim=3, semi=True)
+    del var3, runs, r
+    torch.cuda.empty_cache()
+
+    n, J = REF_VAR3D_F64["n"], REF_VAR3D_F64["levels"]
+    phase(f"20 varcoef3d {n + 1}^3 x {2 ** J} steps, f64, solve(tol=1e-8)")
+    s = build_solver("varcoef3d", n, J, dtype=f64, device="cuda", inner="mg")
+    s.assemble_rhs_host()
+    paths.start()
+    r = s.solve(tol=1e-8)
+    rel = r.residuals[-1] / r.residuals[0]
+    print(f"iterations {r.iterations} (JAX CPU {REF_VAR3D_F64['iterations']}),"
+          f" converged {r.converged}, rel {rel:.3e}, L2 {r.l2_error:.10e} "
+          f"(JAX CPU {REF_VAR3D_F64['l2']:.10e}), solve {r.solve_seconds:.4f} s")
+    assert r.converged and rel <= 1e-8, rel
+    assert r.iterations == REF_VAR3D_F64["iterations"], r.iterations
+    assert abs(r.l2_error / REF_VAR3D_F64["l2"] - 1.0) <= 1e-6, r.l2_error
+    var_path("varcoef3d f64", r.iterations, len(s.msmg.levels), f64, dim=3,
+             semi=True)
+    del s
+
+    n, J = REF_VAR_V21["n"], REF_VAR_V21["levels"]
+    phase(f"21 weighted V(2,1): varcoef2d {n + 1}^2 x {2 ** J} steps with "
+          "mg_nu_post=1, f32")
+    v21 = build_solver("varcoef2d", n, J, dtype=f32, device="cuda",
+                       mg_nu_post=1)
+    v21.assemble_rhs_host()
+    paths.start()
+    r = v21.solve(tol=1e-6)
+    rel = r.residuals[-1] / r.residuals[0]
+    print(f"solve: iterations {r.iterations} (JAX CPU "
+          f"{REF_VAR_V21['iterations']}), converged {r.converged}, rel "
+          f"{rel:.3e}, L2 {r.l2_error:.6e} (JAX CPU {REF_VAR_V21['l2']:.6e}),"
+          f" solve {r.solve_seconds:.4f} s")
+    assert r.converged and rel <= 1e-6, rel
+    assert abs(r.iterations - REF_VAR_V21["iterations"]) <= 1, r.iterations
+    assert abs(r.l2_error / REF_VAR_V21["l2"] - 1.0) <= 0.01, r.l2_error
+    its = r.iterations
+    r = v21.solve_refined(tol=1e-8, compute_error=False)
+    print(f"solve_refined: inner iterations {r.iterations} in "
+          f"{len(r.residuals) - 1} rounds, converged {r.converged}")
+    assert r.converged, r.residuals
+    var_path("weighted V(2,1)", its + r.iterations, len(v21.msmg.levels),
+             f32, legs=f64, semi=True)
+    del v21
     phase(None)
 
     kernels = []
@@ -962,11 +1138,13 @@ def main() -> int:
                  "fused_pre": "fused_pre", "fused_post": "fused_post",
                  "residual_restrict": "residual_restrict",
                  "prolong_correct": "prolong_correct",
-                 "residual_var": "residual", "apply_var": "apply_A",
+                 "smooth_var": "smooth", "residual_var": "residual",
+                 "apply_var": "apply_A",
+                 "residual_restrict_var": "residual_restrict",
                  "fused_pre_var": "fused_pre", "fused_post_var": "fused_post"}
     for (op, dtype, dim), k in mg_kernels.KERNELS.items():
         rec = mg_results[(op, dtype, dim)]
-        T, gs = MG_MAIN[dim]
+        T, gs = MG_MAIN[("var" if op.endswith("_var") else "const", dim)]
         at = rec["forms"][f"{main_form[op]} {shape_key(T, gs)}"]
         kernels.append({
             "name": k.name,

@@ -35,20 +35,29 @@
 //                x + P e_c; the prolonged field is never stored. 2-D, 3-D.
 //
 // The weighted forms, for the Galerkin hierarchy of a coefficient-weighted
-// A (varcoef): Op_w = A_w + ω⊙M, where A_w has per-node weights W (ntaps,
-// ny, nx), one array per tap, out[p] = Σ_k W[k][p]·x[p + d_k] summed in tap
-// order, M is the constant mass stencil (its weight groups, times ω after
-// their sum) and the Jacobi diagonal is per node,
-// 1/D[p] = 1/(W[kc][p] + ω_t·c_M) (0 where the denominator is ≤ 0,
-// `_inv_diag_var`, mg_pallas.py:842). 2-D.
+// A (varcoef2d, varcoef3d): Op_w = A_w + ω⊙M, where A_w has per-node
+// weights W (ntaps, *grid), one array per tap (7 in 2-D, 15 in 3-D),
+// out[p] = Σ_k W[k][p]·x[p + d_k] summed in tap order, M is the constant
+// mass stencil (its weight groups, times ω after their sum) and the Jacobi
+// diagonal is per node, 1/D[p] = 1/(W[kc][p] + ω_t·c_M) (0 where the
+// denominator is ≤ 0, `_inv_diag_var`, mg_pallas.py:842).
 //
+//   mg_smooth_var     (K10, replaces _smooth_var_call, :856): the sweep
+//                with Op_w and the per-node diagonal, from x or from 0.
+//                2-D and 3-D.
 //   mg_residual_var   (K11, replaces _residual_var_call, :956):
-//                b − Op_w x.
-//   mg_apply_var      (K12, replaces _apply_var_call, :1020): A_w x.
+//                b − Op_w x. 2-D and 3-D.
+//   mg_apply_var      (K12, replaces _apply_var_call, :1020): A_w x. 2-D
+//                and 3-D.
+//   mg_residual_restrict_var (K13, replaces _residual_restrict_var_call,
+//                :1822): r_c = R(b − Op_w x). 2-D and 3-D.
 //   mg_fused_pre_var  (K14, replaces _fused_pre_var_call, :2071): K6 with
-//                Op_w and the per-node diagonal.
+//                Op_w and the per-node diagonal. 2-D.
 //   mg_fused_post_var (K15, replaces _fused_post_var_call, :2196): K7 with
-//                Op_w and the per-node diagonal.
+//                Op_w and the per-node diagonal. 2-D.
+//
+// The x + P e_c stage of the weighted V-cycle does not depend on the
+// coefficients: it is K9.
 //
 // What bounds them: memory traffic and instruction count, not arithmetic.
 // A sweep applies Op ν times (7 taps in 2-D, 15 in 3-D) to data that is
@@ -86,12 +95,22 @@
 //   kernels' banded 0/1 matrices on the MXU (`_dot_last`, :1253) are a TPU
 //   device and are not ported.
 // - The weighted kernels are the same designs with the operator swapped
-//   (K11/K12 as K4/K5, K14/K15 as K6/K7). W has no time axis: every row of
-//   a level reads the same (ntaps, ny, nx) field, 7.3 MB in f32 at 511²,
-//   which the 50 MB L2 holds, so the kernels read it through the read-only
-//   path (__ldg) at each Op evaluation rather than staging it. K14/K15 keep
-//   1/D in a fourth shared buffer beside X, D and R, computed once per
-//   window. Their bound is K6/K7's bytes plus one read of W.
+//   (K10 as K3, K11/K12 as K4/K5, K13 as K8, K14/K15 as K6/K7). W has no
+//   time axis: every row of a level reads the same (ntaps, *gs) field,
+//   7.3 MB in f32 at 511² and 15.0 MB at 63³, which the 50 MB L2 holds, so
+//   the kernels read it through the read-only path (__ldg) at each Op
+//   evaluation rather than staging it. Where W does not fit in the L2 (123
+//   MB in f32 at 127³), K10–K13 take the row as the fastest-varying block
+//   index (`rows_first`): the rows of one brick (K10) or chunk of points
+//   (K11–K13) then run back to back and share its part of W there. Where W
+//   fits, the rows go slowest, as in the other kernels: that order was
+//   7–20% faster for K10 and K12 at 63³ and 511² on the H100 (PERF.md).
+//   The 2-D K10, K14 and K15 keep 1/D
+//   in a fourth shared buffer beside X, D and R, computed once per window;
+//   the 3-D K10 recomputes it from W[kc] at each use, since four f64
+//   buffers of an 8 × 8 × 32 brick at ν = 3 (238 KB) exceed the 227 KB a
+//   block may take. Their bound is their constant twin's bytes plus one
+//   read of W.
 //
 // Sum order is the plain PyTorch twin's (spacetime_tpu_torch/ops/
 // mg_kernels.py): taps in table order within a group, one multiply per
@@ -175,6 +194,12 @@ __device__ __forceinline__ T group_weight(const PairGroups& pg, int g, T om) {
   return T(wa) + om * T(wm);
 }
 
+template <int DIM>
+__device__ __forceinline__ bool in_grid(const Grid& g, int z, int y, int x) {
+  return (DIM == 2 || (z >= 0 && z < g.nz)) && y >= 0 && y < g.ny && x >= 0 &&
+         x < g.nx;
+}
+
 // Op at grid point (z, y, x) of one row X in device memory (zero outside).
 template <int DIM, typename T>
 __device__ __forceinline__ T op_global(const PairGroups& pg, T om,
@@ -187,10 +212,7 @@ __device__ __forceinline__ T op_global(const PairGroups& pg, T om,
       const int zz = DIM == 3 ? z + pg.dz[k] : 0;
       const int yy = y + pg.dy[k];
       const int xx = x + pg.dx[k];
-      if ((DIM == 2 || (zz >= 0 && zz < g.nz)) && yy >= 0 && yy < g.ny &&
-          xx >= 0 && xx < g.nx) {
-        acc += X[(zz * g.ny + yy) * g.nx + xx];
-      }
+      if (in_grid<DIM>(g, zz, yy, xx)) acc += X[(zz * g.ny + yy) * g.nx + xx];
     }
     out += group_weight(pg, gi, om) * acc;
   }
@@ -222,18 +244,25 @@ struct Window {
   int volume;  // points in the window
 };
 
-// blockIdx.x walks the x bricks, blockIdx.y the (z brick, y brick) pairs.
+// The window of x brick bx and (z brick, y brick) pair byz.
 template <int DIM>
-__device__ __forceinline__ Window make_window(const Grid& g, int H) {
+__device__ __forceinline__ Window make_window(const Grid& g, int H, int bx,
+                                              int byz) {
   using B = BrickOf<DIM>;
   const int hz = DIM == 3 ? H : 0;
   const int nyb = (g.ny + B::y - 1) / B::y;
-  const int zb = DIM == 3 ? int(blockIdx.y) / nyb : 0;
-  const int yb = int(blockIdx.y) - zb * nyb;
+  const int zb = DIM == 3 ? byz / nyb : 0;
+  const int yb = byz - zb * nyb;
   const int sy = B::x + 2 * H;
   const int sz = sy * (B::y + 2 * H);
-  return Window{g, zb * B::z - hz, yb * B::y - H, int(blockIdx.x) * B::x - H,
+  return Window{g, zb * B::z - hz, yb * B::y - H, bx * B::x - H,
                 H, sy, sz, sz * (B::z + 2 * hz)};
+}
+
+// blockIdx.x walks the x bricks, blockIdx.y the (z brick, y brick) pairs.
+template <int DIM>
+__device__ __forceinline__ Window make_window(const Grid& g, int H) {
+  return make_window<DIM>(g, H, int(blockIdx.x), int(blockIdx.y));
 }
 
 // f(offset, grid z, grid y, grid x, index in the row, inside the grid) for
@@ -290,13 +319,23 @@ struct ConstOp {
   __device__ __forceinline__ T operator()(const T* buf, int o, int) const {
     return op_shared(pg, w, toff, buf, o);
   }
-  __device__ __forceinline__ T inv_diag(int) const { return iD; }
+  __device__ __forceinline__ T inv_diag(int, int) const { return iD; }
 };
+
+// The weighted operator's per-node 1/D at in-row index gi of a grid point:
+// 0 where W[kc] + ω·cm ≤ 0 (`_inv_diag_var`).
+template <typename T>
+__device__ __forceinline__ T var_inv_diag_at(const VarTaps& vt,
+                                             const T* __restrict__ W, int S,
+                                             T om, int gi) {
+  const T den = __ldg(W + int64_t(vt.kc) * S + gi) + T(vt.cm) * om;
+  return den > T(0) ? T(1) / den : T(0);
+}
 
 // VarOp: Op_w = A_w + ω·M. atoff / mtoff are the A taps' and the M taps'
 // window offsets, wm the M group weights (shared memory), W the level's
 // weights (device memory, tap k at W + k·S), iD the per-node 1/D over the
-// window (shared memory).
+// window (shared memory), or null to recompute it from W at each use.
 template <typename T>
 struct VarOp {
   const VarTaps& vt;
@@ -323,7 +362,9 @@ struct VarOp {
     }
     return a + om * m;
   }
-  __device__ __forceinline__ T inv_diag(int o) const { return iD[o]; }
+  __device__ __forceinline__ T inv_diag(int o, int gi) const {
+    return iD != nullptr ? iD[o] : var_inv_diag_at(vt, W, S, om, gi);
+  }
 };
 
 // The row's group weights and the taps' window offsets, in shared memory.
@@ -359,17 +400,15 @@ __device__ __forceinline__ void var_tables(const VarTaps& vt,
 }
 
 // The per-node 1/D of the weighted operator over the whole window: 0
-// outside the grid and where W[kc] + ω·cm ≤ 0 (`_inv_diag_var`). Needs a
-// __syncthreads() before it is read.
-template <typename T>
+// outside the grid and where W[kc] + ω·cm ≤ 0. Needs a __syncthreads()
+// before it is read.
+template <int DIM, typename T>
 __device__ __forceinline__ void var_inv_diag(const VarTaps& vt,
                                              const T* __restrict__ W, int S,
                                              T om, const Window& win,
                                              T* iD) {
-  for_region<2>(win, win.H, [&](int o, int, int, int, int gi, bool in) {
-    const T den = in ? __ldg(W + int64_t(vt.kc) * S + gi) + T(vt.cm) * om
-                     : T(0);
-    iD[o] = den > T(0) ? T(1) / den : T(0);
+  for_region<DIM>(win, win.H, [&](int o, int, int, int, int gi, bool in) {
+    iD[o] = in ? var_inv_diag_at(vt, W, S, om, gi) : T(0);
   });
 }
 
@@ -383,7 +422,7 @@ __device__ void cheb_sweep(const Op& op, const RowCoef<T>& c,
                            T* D, T* R, int nu, bool zero_init, int hi) {
   if (zero_init) {
     for_region<DIM>(win, hi, [&](int o, int, int, int, int g, bool in) {
-      const T r = in ? op.inv_diag(o) * b[g] : T(0);
+      const T r = in ? op.inv_diag(o, g) * b[g] : T(0);
       const T d = r * c.iT;
       R[o] = r;
       D[o] = d;
@@ -392,7 +431,7 @@ __device__ void cheb_sweep(const Op& op, const RowCoef<T>& c,
     __syncthreads();
   } else {
     for_region<DIM>(win, hi, [&](int o, int, int, int, int g, bool in) {
-      R[o] = in ? op.inv_diag(o) * (b[g] - op(X, o, g)) : T(0);
+      R[o] = in ? op.inv_diag(o, g) * (b[g] - op(X, o, g)) : T(0);
     });
     __syncthreads();
     for_region<DIM>(win, hi, [&](int o, int, int, int, int, bool in) {
@@ -408,7 +447,7 @@ __device__ void cheb_sweep(const Op& op, const RowCoef<T>& c,
     const T c1 = T(rho_new * rho);
     const T c2 = T(2.0 * rho_new) * c.iDel;
     for_region<DIM>(win, hi - k, [&](int o, int, int, int, int g, bool in) {
-      if (in) R[o] = R[o] - op.inv_diag(o) * op(D, o, g);
+      if (in) R[o] = R[o] - op.inv_diag(o, g) * op(D, o, g);
     });
     __syncthreads();
     for_region<DIM>(win, hi - k, [&](int o, int, int, int, int, bool in) {
@@ -431,7 +470,7 @@ __device__ __forceinline__ T* window_buffers() {
   return reinterpret_cast<T*>(smem_raw);
 }
 
-__device__ __forceinline__ int64_t row_size(const Grid& g) {
+__host__ __device__ __forceinline__ int64_t row_size(const Grid& g) {
   return int64_t(g.nz) * g.ny * g.nx;
 }
 
@@ -462,6 +501,50 @@ __global__ void __launch_bounds__(kThreads)
   row_tables(pg, c.om, win, wts, toff);
   cheb_sweep<DIM>(ConstOp<T>{pg, wts, toff, invD[t]}, c, b + t * S, win, X,
                   D, R, nu, zero_init != 0, zero_init ? H : H - 1);
+  T* ot = out + t * S;
+  for_region<DIM>(win, 0, [&](int o, int, int, int, int gi, bool in) {
+    if (in) ot[gi] = X[o];
+  });
+}
+
+// K10: K3 with Op_w. 1/D is a fourth window buffer in 2-D and recomputed
+// from W in 3-D (see the header). With rows_first, blockIdx.x is the row,
+// blockIdx.y the x brick and blockIdx.z the (z brick, y brick) pair
+// (`bricks_rows_first`).
+template <int DIM, typename T>
+__global__ void __launch_bounds__(kThreads)
+    mg_smooth_var_kernel(const T* __restrict__ x, const T* __restrict__ b,
+                         const T* __restrict__ W, const T* __restrict__ omega,
+                         const T* __restrict__ invT,
+                         const T* __restrict__ invDel, T* __restrict__ out,
+                         Grid g, const __grid_constant__ VarTaps vt,
+                         const __grid_constant__ PairGroups pm, int nu,
+                         int zero_init, int rows_first) {
+  __shared__ T wm[kMaxPairGroups];
+  __shared__ int atoff[kMaxVarTaps];
+  __shared__ int mtoff[kMaxPairTaps];
+  const int64_t t = rows_first ? blockIdx.x : blockIdx.z;
+  const int S = int(row_size(g));
+  const RowCoef<T> c = row_coef(omega, invT, invDel, t);
+  const int H = zero_init ? nu - 1 : nu;
+  const Window win =
+      rows_first ? make_window<DIM>(g, H, int(blockIdx.y), int(blockIdx.z))
+                 : make_window<DIM>(g, H);
+  T* X = window_buffers<T>();
+  T* D = X + win.volume;
+  T* R = D + win.volume;
+  T* iD = DIM == 2 ? R + win.volume : nullptr;
+  if (!zero_init) {
+    const T* xt = x + t * S;
+    for_region<DIM>(win, H, [&](int o, int, int, int, int gi, bool in) {
+      X[o] = in ? xt[gi] : T(0);
+    });
+  }
+  if constexpr (DIM == 2) var_inv_diag<2>(vt, W, S, c.om, win, iD);
+  var_tables(vt, pm, win, wm, atoff, mtoff);
+  cheb_sweep<DIM>(VarOp<T>{vt, pm, W, S, c.om, wm, atoff, mtoff, iD}, c,
+                  b + t * S, win, X, D, R, nu, zero_init != 0,
+                  zero_init ? H : H - 1);
   T* ot = out + t * S;
   for_region<DIM>(win, 0, [&](int o, int, int, int, int gi, bool in) {
     if (in) ot[gi] = X[o];
@@ -605,7 +688,7 @@ __global__ void __launch_bounds__(kThreads)
   T* R = D + win.volume;
   T* iD = R + win.volume;
   const T* bt = b + t * S;
-  var_inv_diag(vt, W, S, c.om, win, iD);
+  var_inv_diag<2>(vt, W, S, c.om, win, iD);
   var_tables(vt, pm, win, wm, atoff, mtoff);
   const VarOp<T> op{vt, pm, W, S, c.om, wm, atoff, mtoff, iD};
   cheb_sweep<2>(op, c, bt, win, X, D, R, nu, true, win.H);
@@ -635,7 +718,7 @@ __global__ void __launch_bounds__(kThreads)
   T* R = D + win.volume;
   T* iD = R + win.volume;
   prolong_window(x + t * S, ec + t * coarse_row(g), win, X);
-  var_inv_diag(vt, W, S, c.om, win, iD);
+  var_inv_diag<2>(vt, W, S, c.om, win, iD);
   var_tables(vt, pm, win, wm, atoff, mtoff);
   cheb_sweep<2>(VarOp<T>{vt, pm, W, S, c.om, wm, atoff, mtoff, iD}, c,
                 b + t * S, win, X, D, R, nu, false, win.H - 1);
@@ -652,20 +735,49 @@ struct Point {
   int z, y, x;
 };
 
+// The point at in-row index r of row t.
 template <int DIM>
-__device__ __forceinline__ Point point_of(int64_t idx, const Grid& g) {
-  const int64_t S = row_size(g);
-  const int64_t t = idx / S;
-  const int r = int(idx - t * S);
+__device__ __forceinline__ Point point_in_row(int64_t t, int r,
+                                              const Grid& g) {
   const int z = DIM == 3 ? r / (g.ny * g.nx) : 0;
   const int ryx = r - z * (g.ny * g.nx);
   const int y = ryx / g.nx;
   return Point{t, z, y, ryx - y * g.nx};
 }
 
+template <int DIM>
+__device__ __forceinline__ Point point_of(int64_t idx, const Grid& g) {
+  const int64_t S = row_size(g);
+  const int64_t t = idx / S;
+  return point_in_row<DIM>(t, int(idx - t * S), g);
+}
+
+// f(row t, in-row index r) for every point of an (nt, S) field, one thread
+// per point in a grid-stride loop. With rows_first, block k of the loop
+// takes chunk k / nt of kThreads points of row k % nt, so the rows of one
+// chunk run back to back; else the flat index runs, x fastest.
+template <typename F>
+__device__ __forceinline__ void for_each_point(int64_t nt, int64_t S,
+                                               bool rows_first, F f) {
+  if (rows_first) {
+    const int64_t blocks = nt * ((S + kThreads - 1) / kThreads);
+    for (int64_t k = blockIdx.x; k < blocks; k += gridDim.x) {
+      const int64_t t = k % nt;
+      const int64_t r = (k / nt) * kThreads + threadIdx.x;
+      if (r < S) f(t, int(r));
+    }
+    return;
+  }
+  for (int64_t idx = blockIdx.x * int64_t(kThreads) + threadIdx.x;
+       idx < nt * S; idx += int64_t(gridDim.x) * kThreads) {
+    const int64_t t = idx / S;
+    f(t, int(idx - t * S));
+  }
+}
+
 // The coarse grid of a fine grid with odd extents (nz = 1 stays in 2-D).
 template <int DIM>
-__device__ __forceinline__ Grid coarse_grid(const Grid& g) {
+__host__ __device__ __forceinline__ Grid coarse_grid(const Grid& g) {
   return Grid{DIM == 3 ? (g.nz - 1) / 2 : 1, (g.ny - 1) / 2, (g.nx - 1) / 2};
 }
 
@@ -699,6 +811,29 @@ __global__ void mg_apply_kernel(const T* __restrict__ x, T* __restrict__ out,
   }
 }
 
+// R r at coarse point c, res(z, y, x) the fine residual: h = r[f] + r[f + 1⃗]
+// at fine f = 2c + (a, p, q), then pair sums over z (3-D), y and x in turn.
+// Every fine point it reads is inside the grid, since 2c + 2 ≤ 2n on
+// extents 2n + 1.
+template <int DIM, typename T, typename Res>
+__device__ __forceinline__ T restrict_at(const Point& c, const Res& res) {
+  const int fz = 2 * c.z, fy = 2 * c.y, fx = 2 * c.x;
+  constexpr int dz = DIM == 3 ? 1 : 0;
+  auto h = [&](int a, int p, int q) {
+    return res(fz + a, fy + p, fx + q) +
+           res(fz + a + dz, fy + p + 1, fx + q + 1);
+  };
+  T py[2];
+  for (int q = 0; q < 2; ++q) {
+    T pz[2];
+    for (int p = 0; p < 2; ++p) {
+      pz[p] = DIM == 3 ? h(0, p, q) + h(1, p, q) : h(0, p, q);
+    }
+    py[q] = pz[0] + pz[1];
+  }
+  return T(0.5) * (py[0] + py[1]);
+}
+
 template <int DIM, typename T>
 __global__ void mg_residual_restrict_kernel(
     const T* __restrict__ x, const T* __restrict__ b,
@@ -711,29 +846,10 @@ __global__ void mg_residual_restrict_kernel(
     const T om = omega[c.t];
     const T* xt = x + c.t * S;
     const T* bt = b + c.t * S;
-    // the fine residual at (z, y, x); every point this reads is inside the
-    // grid, since 2c + 2 ≤ 2n on extents 2n + 1
-    auto res = [&](int z, int y, int xx) {
+    rc[idx] = restrict_at<DIM, T>(c, [&](int z, int y, int xx) {
       return bt[(z * g.ny + y) * g.nx + xx] -
              op_global<DIM>(pg, om, xt, g, z, y, xx);
-    };
-    // h = r[f] + r[f + 1⃗] at fine f = 2c + (a, p, q), then pair sums over
-    // z (3-D), y and x in turn
-    const int fz = 2 * c.z, fy = 2 * c.y, fx = 2 * c.x;
-    constexpr int dz = DIM == 3 ? 1 : 0;
-    auto h = [&](int a, int p, int q) {
-      return res(fz + a, fy + p, fx + q) +
-             res(fz + a + dz, fy + p + 1, fx + q + 1);
-    };
-    T py[2];
-    for (int q = 0; q < 2; ++q) {
-      T pz[2];
-      for (int p = 0; p < 2; ++p) {
-        pz[p] = DIM == 3 ? h(0, p, q) + h(1, p, q) : h(0, p, q);
-      }
-      py[q] = pz[0] + pz[1];
-    }
-    rc[idx] = T(0.5) * (py[0] + py[1]);
+    });
   }
 }
 
@@ -761,48 +877,61 @@ __global__ void mg_prolong_correct_kernel(const T* __restrict__ x,
   }
 }
 
-// A_w x at grid point (y, x), in-row index p, of one row X in device
-// memory (zero outside the grid): the taps in weight-array order.
-template <typename T>
+// A_w x at grid point (z, y, x) of one row X in device memory (zero outside
+// the grid): the taps in weight-array order.
+template <int DIM, typename T>
 __device__ __forceinline__ T var_apply_global(const VarTaps& vt,
                                               const T* __restrict__ W,
                                               const T* __restrict__ X,
-                                              const Grid& g, int y, int x,
-                                              int p) {
-  const int S = g.ny * g.nx;
+                                              const Grid& g, int z, int y,
+                                              int x) {
+  const int S = int(row_size(g));
+  const int p = (z * g.ny + y) * g.nx + x;
   T a = T(0);
   for (int k = 0; k < vt.n_taps; ++k) {
+    const int zz = DIM == 3 ? z + vt.dz[k] : 0;
     const int yy = y + vt.dy[k];
     const int xx = x + vt.dx[k];
-    if (yy >= 0 && yy < g.ny && xx >= 0 && xx < g.nx) {
-      a += __ldg(W + int64_t(k) * S + p) * X[yy * g.nx + xx];
+    if (in_grid<DIM>(g, zz, yy, xx)) {
+      a += __ldg(W + int64_t(k) * S + p) * X[(zz * g.ny + yy) * g.nx + xx];
     }
   }
   return a;
 }
 
-// M x at grid point (y, x) of one row X in device memory (zero outside the
-// grid): the mass's weight groups, each tap sum times its weight.
-template <typename T>
+// M x at grid point (z, y, x) of one row X in device memory (zero outside
+// the grid): the mass's weight groups, each tap sum times its weight.
+template <int DIM, typename T>
 __device__ __forceinline__ T mass_global(const PairGroups& pm,
                                          const T* __restrict__ X,
-                                         const Grid& g, int y, int x) {
+                                         const Grid& g, int z, int y, int x) {
   T m = T(0);
   for (int gi = 0; gi < pm.n_groups; ++gi) {
     T acc = T(0);
     for (int k = pm.start[gi]; k < pm.start[gi + 1]; ++k) {
+      const int zz = DIM == 3 ? z + pm.dz[k] : 0;
       const int yy = y + pm.dy[k];
       const int xx = x + pm.dx[k];
-      if (yy >= 0 && yy < g.ny && xx >= 0 && xx < g.nx) {
-        acc += X[yy * g.nx + xx];
-      }
+      if (in_grid<DIM>(g, zz, yy, xx)) acc += X[(zz * g.ny + yy) * g.nx + xx];
     }
     m += T(pm.wm[gi]) * acc;
   }
   return m;
 }
 
-template <typename T>
+// Op_w x = A_w x + ω·M x at grid point (z, y, x) of one row X.
+template <int DIM, typename T>
+__device__ __forceinline__ T var_op_global(const VarTaps& vt,
+                                           const PairGroups& pm,
+                                           const T* __restrict__ W, T om,
+                                           const T* __restrict__ X,
+                                           const Grid& g, int z, int y,
+                                           int x) {
+  const T a = var_apply_global<DIM>(vt, W, X, g, z, y, x);
+  return a + om * mass_global<DIM>(pm, X, g, z, y, x);
+}
+
+template <int DIM, typename T>
 __global__ void mg_residual_var_kernel(const T* __restrict__ x,
                                        const T* __restrict__ b,
                                        const T* __restrict__ W,
@@ -810,28 +939,50 @@ __global__ void mg_residual_var_kernel(const T* __restrict__ x,
                                        T* __restrict__ out, int64_t nt,
                                        Grid g,
                                        const __grid_constant__ VarTaps vt,
-                                       const __grid_constant__ PairGroups pm) {
+                                       const __grid_constant__ PairGroups pm,
+                                       int rows_first) {
   const int64_t S = row_size(g);
-  FOR_EACH_INDEX(idx, nt * S) {
-    const Point q = point_of<2>(idx, g);
-    const T* xt = x + q.t * S;
-    const int p = q.y * g.nx + q.x;
-    const T a = var_apply_global(vt, W, xt, g, q.y, q.x, p);
-    out[idx] = b[idx] - (a + omega[q.t] * mass_global(pm, xt, g, q.y, q.x));
-  }
+  for_each_point(nt, S, rows_first, [&](int64_t t, int r) {
+    const Point q = point_in_row<DIM>(t, r, g);
+    const int64_t idx = t * S + r;
+    out[idx] = b[idx] - var_op_global<DIM>(vt, pm, W, omega[t], x + t * S, g,
+                                           q.z, q.y, q.x);
+  });
 }
 
-template <typename T>
+template <int DIM, typename T>
 __global__ void mg_apply_var_kernel(const T* __restrict__ x,
                                     const T* __restrict__ W,
                                     T* __restrict__ out, int64_t nt, Grid g,
-                                    const __grid_constant__ VarTaps vt) {
+                                    const __grid_constant__ VarTaps vt,
+                                    int rows_first) {
   const int64_t S = row_size(g);
-  FOR_EACH_INDEX(idx, nt * S) {
-    const Point q = point_of<2>(idx, g);
-    out[idx] = var_apply_global(vt, W, x + q.t * S, g, q.y, q.x,
-                                q.y * g.nx + q.x);
-  }
+  for_each_point(nt, S, rows_first, [&](int64_t t, int r) {
+    const Point q = point_in_row<DIM>(t, r, g);
+    out[t * S + r] = var_apply_global<DIM>(vt, W, x + t * S, g, q.z, q.y, q.x);
+  });
+}
+
+// K13: K8 with Op_w, 2^d · 2 weighted fine residuals per coarse point.
+template <int DIM, typename T>
+__global__ void mg_residual_restrict_var_kernel(
+    const T* __restrict__ x, const T* __restrict__ b, const T* __restrict__ W,
+    const T* __restrict__ omega, T* __restrict__ rc, int64_t nt, Grid g,
+    const __grid_constant__ VarTaps vt,
+    const __grid_constant__ PairGroups pm, int rows_first) {
+  const int64_t S = row_size(g);
+  const Grid gc = coarse_grid<DIM>(g);
+  const int64_t Sc = row_size(gc);
+  for_each_point(nt, Sc, rows_first, [&](int64_t t, int r) {
+    const T om = omega[t];
+    const T* xt = x + t * S;
+    const T* bt = b + t * S;
+    rc[t * Sc + r] = restrict_at<DIM, T>(
+        point_in_row<DIM>(t, r, gc), [&](int z, int y, int xx) {
+          return bt[(z * g.ny + y) * g.nx + xx] -
+                 var_op_global<DIM>(vt, pm, W, om, xt, g, z, y, xx);
+        });
+  });
 }
 
 #undef FOR_EACH_INDEX
@@ -849,6 +1000,28 @@ dim3 bricks(int64_t nt, const Grid& g) {
   return dim3(unsigned((g.nx + B::x - 1) / B::x),
               unsigned(((g.nz + B::z - 1) / B::z) * ((g.ny + B::y - 1) / B::y)),
               unsigned(nt));
+}
+
+// The same blocks with the row fastest (K10).
+template <int DIM>
+dim3 bricks_rows_first(int64_t nt, const Grid& g) {
+  const dim3 b = bricks<DIM>(nt, g);
+  return dim3(b.z, b.x, b.y);
+}
+
+// Whether the weighted kernels take the row fastest: where a level's
+// weights (ntaps, S) do not fit in the device's L2 (see the header).
+bool rows_first(const VarTaps* vt, int64_t S, size_t elem) {
+  int dev = 0, l2 = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev);
+  return int64_t(vt->n_taps) * S * int64_t(elem) > int64_t(l2);
+}
+
+// The blocks of `for_each_point` over (nt, S).
+int point_blocks(int64_t nt, int64_t S, bool rows_first) {
+  return blocks_for(rows_first ? nt * ((S + kThreads - 1) / kThreads) * kThreads
+                               : nt * S);
 }
 
 // Dynamic shared memory of a tiled kernel with halo H: nbuf buffers over
@@ -884,6 +1057,24 @@ int launch_smooth(const T* x, const T* b, const T* omega, const T* invD,
   mg_smooth_kernel<DIM, T><<<bricks<DIM>(nt, g), kThreads, bytes,
                              as_stream(stream)>>>(
       x, b, omega, invD, invT, invDel, out, g, *pg, nu, zero_init);
+  return int(cudaGetLastError());
+}
+
+template <int DIM, typename T>
+int launch_smooth_var(const T* x, const T* b, const T* W, const T* omega,
+                      const T* invT, const T* invDel, T* out, int64_t nt,
+                      Grid g, const VarTaps* vt, const PairGroups* pm, int nu,
+                      int zero_init, void* stream) {
+  size_t bytes = 0;
+  const int err = window_bytes<DIM, T>(mg_smooth_var_kernel<DIM, T>,
+                                       zero_init ? nu - 1 : nu, &bytes,
+                                       DIM == 2 ? 4 : 3);
+  if (err != 0) return err;
+  const bool rf = rows_first(vt, row_size(g), sizeof(T));
+  mg_smooth_var_kernel<DIM, T><<<rf ? bricks_rows_first<DIM>(nt, g)
+                                    : bricks<DIM>(nt, g),
+                                 kThreads, bytes, as_stream(stream)>>>(
+      x, b, W, omega, invT, invDel, out, g, *vt, *pm, nu, zero_init, rf);
   return int(cudaGetLastError());
 }
 
@@ -971,10 +1162,9 @@ template <int DIM, typename T>
 int launch_residual_restrict(const T* x, const T* b, const T* omega, T* rc,
                              int64_t nt, Grid g, const PairGroups* pg,
                              void* stream) {
-  const Grid gc{DIM == 3 ? (g.nz - 1) / 2 : 1, (g.ny - 1) / 2,
-                (g.nx - 1) / 2};
-  mg_residual_restrict_kernel<DIM, T><<<blocks_for(points(nt, gc)), kThreads,
-                                        0, as_stream(stream)>>>(
+  mg_residual_restrict_kernel<DIM, T><<<blocks_for(
+                                            points(nt, coarse_grid<DIM>(g))),
+                                        kThreads, 0, as_stream(stream)>>>(
       x, b, omega, rc, nt, g, *pg);
   return int(cudaGetLastError());
 }
@@ -987,21 +1177,38 @@ int launch_prolong_correct(const T* x, const T* ec, T* out, int64_t nt,
   return int(cudaGetLastError());
 }
 
-template <typename T>
+template <int DIM, typename T>
 int launch_residual_var(const T* x, const T* b, const T* W, const T* omega,
                         T* out, int64_t nt, Grid g, const VarTaps* vt,
                         const PairGroups* pm, void* stream) {
-  mg_residual_var_kernel<T><<<blocks_for(points(nt, g)), kThreads, 0,
-                              as_stream(stream)>>>(x, b, W, omega, out, nt,
-                                                   g, *vt, *pm);
+  const int64_t S = row_size(g);
+  const bool rf = rows_first(vt, S, sizeof(T));
+  mg_residual_var_kernel<DIM, T><<<point_blocks(nt, S, rf), kThreads, 0,
+                                   as_stream(stream)>>>(x, b, W, omega, out,
+                                                        nt, g, *vt, *pm, rf);
   return int(cudaGetLastError());
 }
 
-template <typename T>
+template <int DIM, typename T>
 int launch_apply_var(const T* x, const T* W, T* out, int64_t nt, Grid g,
                      const VarTaps* vt, void* stream) {
-  mg_apply_var_kernel<T><<<blocks_for(points(nt, g)), kThreads, 0,
-                           as_stream(stream)>>>(x, W, out, nt, g, *vt);
+  const int64_t S = row_size(g);
+  const bool rf = rows_first(vt, S, sizeof(T));
+  mg_apply_var_kernel<DIM, T><<<point_blocks(nt, S, rf), kThreads, 0,
+                                as_stream(stream)>>>(x, W, out, nt, g, *vt,
+                                                     rf);
+  return int(cudaGetLastError());
+}
+
+template <int DIM, typename T>
+int launch_residual_restrict_var(const T* x, const T* b, const T* W,
+                                 const T* omega, T* rc, int64_t nt, Grid g,
+                                 const VarTaps* vt, const PairGroups* pm,
+                                 void* stream) {
+  const bool rf = rows_first(vt, row_size(g), sizeof(T));
+  mg_residual_restrict_var_kernel<DIM, T><<<
+      point_blocks(nt, row_size(coarse_grid<DIM>(g)), rf), kThreads, 0,
+      as_stream(stream)>>>(x, b, W, omega, rc, nt, g, *vt, *pm, rf);
   return int(cudaGetLastError());
 }
 
@@ -1015,9 +1222,9 @@ int launch_apply_var(const T* x, const T* W, T* out, int64_t nt, Grid g,
 // the launch. The shift and Chebyshev columns are (T,) vectors; nt ≤ 65535
 // (the row is blockIdx.z of the tiled kernels). (nz, ny, nx, dim) is the
 // grid of one row, nz = 1 and dim = 2 in 2-D, with fewer than 2^31 points;
-// K6, K7 and the weighted K11, K12, K14, K15 take 2-D grids (ny, nx). The
-// weighted ones take W (ntaps, ny, nx), the A taps (VarTaps) and the mass's
-// weight groups (PairGroups, wa = 0).
+// K6, K7, K14 and K15 take 2-D grids (ny, nx). The weighted ones take W
+// (ntaps, *grid), the A taps (VarTaps) and the mass's weight groups
+// (PairGroups, wa = 0).
 extern "C" {
 
 int mg_pairs_size() { return int(sizeof(PairGroups)); }
@@ -1074,18 +1281,38 @@ int mg_var_taps_size() { return int(sizeof(VarTaps)); }
     const Grid g{int(nz), int(ny), int(nx)};                                  \
     return BY_DIM(launch_prolong_correct, T, x, ec, out, nt, g, stream);      \
   }                                                                           \
+  int mg_smooth_var_##SFX(const T* x, const T* b, const T* W,                \
+                          const T* omega, const T* invT, const T* invDel,     \
+                          T* out, int64_t nt, int64_t nz, int64_t ny,         \
+                          int64_t nx, int dim, const VarTaps* vt,             \
+                          const PairGroups* pm, int nu, int zero_init,        \
+                          void* stream) {                                     \
+    const Grid g{int(nz), int(ny), int(nx)};                                  \
+    return BY_DIM(launch_smooth_var, T, x, b, W, omega, invT, invDel, out,    \
+                  nt, g, vt, pm, nu, zero_init, stream);                      \
+  }                                                                           \
   int mg_residual_var_##SFX(const T* x, const T* b, const T* W,               \
-                            const T* omega, T* out, int64_t nt, int64_t ny,   \
-                            int64_t nx, const VarTaps* vt,                    \
-                            const PairGroups* pm, void* stream) {             \
-    return launch_residual_var<T>(x, b, W, omega, out, nt,                    \
-                                  Grid{1, int(ny), int(nx)}, vt, pm, stream); \
+                            const T* omega, T* out, int64_t nt, int64_t nz,   \
+                            int64_t ny, int64_t nx, int dim,                  \
+                            const VarTaps* vt, const PairGroups* pm,          \
+                            void* stream) {                                   \
+    const Grid g{int(nz), int(ny), int(nx)};                                  \
+    return BY_DIM(launch_residual_var, T, x, b, W, omega, out, nt, g, vt, pm, \
+                  stream);                                                    \
   }                                                                           \
   int mg_apply_var_##SFX(const T* x, const T* W, T* out, int64_t nt,          \
-                         int64_t ny, int64_t nx, const VarTaps* vt,           \
-                         void* stream) {                                      \
-    return launch_apply_var<T>(x, W, out, nt, Grid{1, int(ny), int(nx)}, vt,  \
-                               stream);                                       \
+                         int64_t nz, int64_t ny, int64_t nx, int dim,         \
+                         const VarTaps* vt, void* stream) {                   \
+    const Grid g{int(nz), int(ny), int(nx)};                                  \
+    return BY_DIM(launch_apply_var, T, x, W, out, nt, g, vt, stream);         \
+  }                                                                           \
+  int mg_residual_restrict_var_##SFX(                                         \
+      const T* x, const T* b, const T* W, const T* omega, T* rc, int64_t nt,  \
+      int64_t nz, int64_t ny, int64_t nx, int dim, const VarTaps* vt,         \
+      const PairGroups* pm, void* stream) {                                   \
+    const Grid g{int(nz), int(ny), int(nx)};                                  \
+    return BY_DIM(launch_residual_restrict_var, T, x, b, W, omega, rc, nt, g, \
+                  vt, pm, stream);                                            \
   }                                                                           \
   int mg_fused_pre_var_##SFX(const T* b, const T* W, const T* omega,          \
                              const T* invT, const T* invDel, T* xo, T* rco,   \

@@ -12,9 +12,8 @@ assembly and quadrature (``fem.assemble_p1``, ``fem.spacetime_loads``,
 ``fem.l2_error_spacetime``) call.
 
 This slice carries the smooth family and the variable-coefficient family
-(``varcoef2d`` solves; ``varcoef3d`` is registered, and its solve raises
-until its slice); the singular, moving-peak and L-shape problems come with
-the slices that need them (ROADMAP.md, queue 1).
+(``varcoef2d`` and ``varcoef3d`` solve); the singular, moving-peak and
+L-shape problems come with the slices that need them (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations

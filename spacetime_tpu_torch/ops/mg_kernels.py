@@ -1,5 +1,5 @@
-"""The multigrid V-cycle kernels: K3–K9 on 2-D and 3-D grids, and the
-weighted K11, K12, K14 and K15 on 2-D grids.
+"""The multigrid V-cycle kernels: K3–K9 on 2-D and 3-D grids (K6, K7 2-D
+only), and the weighted K10–K15 (K14, K15 2-D only).
 
 The counterpart of ``spacetime_tpu/ops/mg_pallas.py``. ``MSKernelLevel``
 mirrors its ``MSPallasLevel`` for one multigrid level, Op = A + ω⊙M with one
@@ -21,7 +21,8 @@ K3, K4, K5, K8 and K9 take 2-D and 3-D grids. K6 and K7 are 2-D only: in
 3-D the V-cycle runs the semi-fused stages K3 → K8 → (coarser levels) → K9
 → K3, as the JAX package does on its blocked 3-D levels, and the 3-D forms
 of K6/K7 are not ported yet (ROADMAP.md queue 1 item 4); their wrappers
-raise on a 3-D grid.
+raise on a 3-D grid. The sweep takes ν ≤ 8 in 2-D and ν ≤ 3 in 3-D
+(``MAX_NU``).
 
 For a CUDA tensor each wrapper launches the CUDA kernel of csrc/mg.cu
 (float32 and float64) and counts the launch, with one count per kernel,
@@ -37,15 +38,23 @@ weighted (Galerkin) hierarchy, Op = A_w + ω⊙M with per-node A weights W
 (ntaps, *gs) and the constant mass stencil; its Jacobi diagonal is per
 node, 1/(W[center] + ω·c_M):
 
-    K11 ``residual``     b − Op_w x (``_residual_var_call``)
-    K12 ``apply_A``      A_w x (``_apply_var_call``)
-    K14 ``fused_pre``    x = zero-init sweep on b, r_c = R(b − Op_w x)
-                         (``_fused_pre_var_call``)
-    K15 ``fused_post``   smooth(x + P e_c, b) (``_fused_post_var_call``)
+    K10 ``smooth``            degree-ν sweep (``_smooth_var_call``), from
+                              x or from x = 0
+    K11 ``residual``          b − Op_w x (``_residual_var_call``)
+    K12 ``apply_A``           A_w x (``_apply_var_call``)
+    K13 ``residual_restrict`` r_c = R(b − Op_w x)
+                              (``_residual_restrict_var_call``)
+    K14 ``fused_pre``         x = zero-init sweep on b, r_c = R(b − Op_w x)
+                              (``_fused_pre_var_call``); 2-D
+    K15 ``fused_post``        smooth(x + P e_c, b)
+                              (``_fused_post_var_call``); 2-D
+    K9  ``prolong_correct``   x + P e_c, which does not depend on the
+                              coefficients: the constant level's kernel
 
-They take 2-D grids. The weighted sweep (K10) and residual + restriction
-(K13), which the semi-fused and plain branches of asymmetric V(ν, ν_post)
-cycles and 3-D levels run, are not ported yet (ROADMAP.md queue 1 item 6).
+K10–K13 take 2-D and 3-D grids; 3-D levels, 2-D V(ν, ν_post) cycles and
+ν ∉ {2, 3} run the semi-fused stages K10 → K13 → (coarser levels) → K9 →
+K10, the fused K14/K15 the rest of 2-D. The weighted sweep has the
+constant sweep's ν limits.
 
 The sharded-slab forms of the Pallas kernels (``vmask``, ``lead``) and the
 banded transfer matrices (``Ux``/``Wx``, a device of the TPU's matrix unit)
@@ -83,8 +92,11 @@ _OPS = {
     "fused_post": ("K7 mg_fused_post", f"{_MG}:1475", (2,)),
     "residual_restrict": ("K8 mg_residual_restrict", f"{_MG}:1683", (2, 3)),
     "prolong_correct": ("K9 mg_prolong_correct", f"{_MG}:1913", (2, 3)),
-    "residual_var": ("K11 mg_residual_var", f"{_MG}:956", (2,)),
-    "apply_var": ("K12 mg_apply_var", f"{_MG}:1020", (2,)),
+    "smooth_var": ("K10 mg_smooth_var", f"{_MG}:856", (2, 3)),
+    "residual_var": ("K11 mg_residual_var", f"{_MG}:956", (2, 3)),
+    "apply_var": ("K12 mg_apply_var", f"{_MG}:1020", (2, 3)),
+    "residual_restrict_var": ("K13 mg_residual_restrict_var", f"{_MG}:1822",
+                              (2, 3)),
     "fused_pre_var": ("K14 mg_fused_pre_var", f"{_MG}:2071", (2,)),
     "fused_post_var": ("K15 mg_fused_post_var", f"{_MG}:2196", (2,)),
 }
@@ -119,6 +131,8 @@ class _KernelLevel:
     def __init__(self, gs, nu: int, nu_post: int | None):
         self.gs = tuple(gs)
         self.dim = len(self.gs)
+        if self.dim not in (2, 3):
+            raise ValueError(f"grid {self.gs}: the kernels take 2-D and 3-D")
         self.nu = nu
         self.nu_post = nu if nu_post is None else nu_post
 
@@ -173,6 +187,38 @@ class _KernelLevel:
             check_tensor(name, cols[name], X.dtype, X.device, (T,))
         return k, T, tuple(cols[name].data_ptr() for name in self._COLS)
 
+    def residual_restrict_plain(self, x, b, *args):
+        """R(b − Op x); ``args`` are the level's own after ``b``."""
+        return transfer(self.residual_plain(x, b, *args), self.dim,
+                        restrict=True)
+
+    def prolong_correct_plain(self, x, ec):
+        return x + transfer(ec, self.dim, restrict=False)
+
+    def prolong_correct(self, x, ec):
+        """K9: x + P e_c; the prolonged correction is never stored."""
+        if x.device.type == "cpu":
+            return self.prolong_correct_plain(x, ec)
+        k, T, _ = self._prepare("prolong_correct", x, None, odd=True)
+        check_tensor("ec", ec, x.dtype, x.device, (T,) + self.coarse_gs)
+        out = torch.empty_like(x)
+        k.launch(x.device, x.data_ptr(), ec.data_ptr(), out.data_ptr(), T,
+                 *self._zyx())
+        return out
+
+    def _only_2d(self, what: str) -> None:
+        if self.dim != 2:
+            raise NotImplementedError(
+                f"{what} on the 3-D grid {self.gs}: the 3-D fused stages "
+                "are not ported yet (ROADMAP.md queue 1, item 4); 3-D levels "
+                "run the semi-fused stages"
+            )
+
+    def _zyx(self):
+        """(nz, ny, nx, dim): the grid as the kernels take it (nz = 1 in
+        2-D)."""
+        return (1,) * (3 - self.dim) + self.gs + (self.dim,)
+
 
 class MSKernelLevel(_KernelLevel):
     """K3–K9 for one multigrid level on a 2-D or 3-D grid; ``gs``
@@ -185,8 +231,6 @@ class MSKernelLevel(_KernelLevel):
                  gs=None):
         super().__init__(gs if gs is not None else A_st.grid_shape, nu,
                          nu_post)
-        if self.dim not in (2, 3):
-            raise ValueError(f"grid {self.gs}: the kernels take 2-D and 3-D")
         self.groups_A = weight_groups(A_st.disps, A_st.weights)
         self.pairs = pair_groups(
             self.groups_A, weight_groups(M_st.disps, M_st.weights)
@@ -221,18 +265,11 @@ class MSKernelLevel(_KernelLevel):
     def fused_pre_plain(self, b, cols):
         self._only_2d("K6 fused_pre")
         x = self.smooth_plain(None, b, cols, zero_init=True)
-        return x, transfer(self.residual_plain(x, b, cols), 2, restrict=True)
+        return x, self.residual_restrict_plain(x, b, cols)
 
     def fused_post_plain(self, x, b, ec, cols):
         self._only_2d("K7 fused_post")
-        return self.smooth_plain(x + transfer(ec, 2, restrict=False), b, cols)
-
-    def residual_restrict_plain(self, x, b, cols):
-        return transfer(self.residual_plain(x, b, cols), self.dim,
-                        restrict=True)
-
-    def prolong_correct_plain(self, x, ec):
-        return x + transfer(ec, self.dim, restrict=False)
+        return self.smooth_plain(self.prolong_correct_plain(x, ec), b, cols)
 
     # --------------------------------------------------------- wrappers
 
@@ -311,38 +348,14 @@ class MSKernelLevel(_KernelLevel):
                  T, *self._zyx(), self._op_table())
         return rc
 
-    def prolong_correct(self, x, ec):
-        """K9: x + P e_c; the prolonged correction is never stored."""
-        if x.device.type == "cpu":
-            return self.prolong_correct_plain(x, ec)
-        k, T, _ = self._prepare("prolong_correct", x, None, odd=True)
-        check_tensor("ec", ec, x.dtype, x.device, (T,) + self.coarse_gs)
-        out = torch.empty_like(x)
-        k.launch(x.device, x.data_ptr(), ec.data_ptr(), out.data_ptr(), T,
-                 *self._zyx())
-        return out
-
-    def _only_2d(self, what: str) -> None:
-        if self.dim != 2:
-            raise NotImplementedError(
-                f"{what} on the 3-D grid {self.gs}: the 3-D forms of K6/K7 "
-                "are not ported yet (ROADMAP.md queue 1, item 4); 3-D levels "
-                "run the semi-fused stages"
-            )
-
-    def _zyx(self):
-        """(nz, ny, nx, dim): the grid as the kernels take it (nz = 1 in
-        2-D)."""
-        return (1,) * (3 - self.dim) + self.gs + (self.dim,)
-
     def _op_table(self):
         return ctypes.addressof(self.structs[0])
 
 
 class VarMSKernelLevel(_KernelLevel):
-    """K11, K12, K14 and K15 for one level ``lev`` of a
-    ``GalerkinMultiShiftMultigrid`` on a 2-D grid; ``gs`` overrides the
-    level's grid (the kernels take the weights W per call, of shape
+    """K10–K15 (and K9) for one level ``lev`` of a
+    ``GalerkinMultiShiftMultigrid`` on a 2-D or 3-D grid; ``gs`` overrides
+    the level's grid (the kernels take the weights W per call, of shape
     (ntaps, *gs)). Its columns are ω, 1/θ, 1/δ (``var_row_params``, the
     exact per-ω Gershgorin bounds of ``mg_pallas.py:1128-1148``)."""
 
@@ -350,13 +363,6 @@ class VarMSKernelLevel(_KernelLevel):
 
     def __init__(self, lev, nu: int, nu_post: int | None = None, gs=None):
         super().__init__(gs if gs is not None else lev.gs, nu, nu_post)
-        if self.dim != 2:
-            raise NotImplementedError(
-                f"weighted kernel level on the {self.dim}-D grid {self.gs}: "
-                "the weighted kernels take 2-D grids; the 3-D weighted "
-                "V-cycle (K10, K13) is not ported yet (ROADMAP.md queue 1, "
-                "item 6)"
-            )
         self.A_vs = dataclasses.replace(lev.A_vs, grid_shape=self.gs)
         self.kc = lev.kc
         self.cM = lev.cM
@@ -381,10 +387,10 @@ class VarMSKernelLevel(_KernelLevel):
     def op_plain(self, x, cols, W):
         return var_op(self.A_vs, self.groups_M, self._vlp(cols, W), x)
 
-    def smooth_plain(self, x, b, cols, W, zero_init=False):
+    def smooth_plain(self, x, b, cols, W, zero_init=False, post=False):
         return var_smooth(self.A_vs, self.groups_M, self.kc, self.cM,
                           self._vlp(cols, W), None if zero_init else x, b,
-                          self.nu)
+                          self.nu_post if post else self.nu)
 
     def residual_plain(self, x, b, cols, W):
         return b - self.op_plain(x, cols, W)
@@ -393,15 +399,32 @@ class VarMSKernelLevel(_KernelLevel):
         return self.A_vs.apply(x, W)
 
     def fused_pre_plain(self, b, cols, W):
+        self._only_2d("K14 fused_pre")
         x = self.smooth_plain(None, b, cols, W, zero_init=True)
-        return x, transfer(self.residual_plain(x, b, cols, W), 2,
-                           restrict=True)
+        return x, self.residual_restrict_plain(x, b, cols, W)
 
     def fused_post_plain(self, x, b, ec, cols, W):
-        return self.smooth_plain(x + transfer(ec, 2, restrict=False), b,
-                                 cols, W)
+        self._only_2d("K15 fused_post")
+        return self.smooth_plain(self.prolong_correct_plain(x, ec), b, cols,
+                                 W)
 
     # --------------------------------------------------------- wrappers
+
+    def smooth(self, x, b, cols, W, zero_init=False, post=False):
+        """K10: the degree-ν sweep (ν_post with ``post``); x is ignored
+        with ``zero_init``."""
+        if b.device.type == "cpu":
+            return self.smooth_plain(x, b, cols, W, zero_init, post)
+        nu = self.nu_post if post else self.nu
+        k, T, cp = self._prepare("smooth_var", b, cols, nu=nu)
+        if not zero_init:
+            check_tensor("x", x, b.dtype, b.device, b.shape)
+        self._check_W(W, b)
+        out = torch.empty_like(b)
+        k.launch(b.device, None if zero_init else x.data_ptr(), b.data_ptr(),
+                 W.data_ptr(), *cp, out.data_ptr(), T, *self._zyx(),
+                 *self._tables(), nu, int(zero_init))
+        return out
 
     def residual(self, x, b, cols, W):
         """K11: b − (A_w x + ω⊙M x)."""
@@ -412,7 +435,7 @@ class VarMSKernelLevel(_KernelLevel):
         self._check_W(W, b)
         out = torch.empty_like(b)
         k.launch(b.device, x.data_ptr(), b.data_ptr(), W.data_ptr(), cp[0],
-                 out.data_ptr(), T, *self.gs, *self._tables())
+                 out.data_ptr(), T, *self._zyx(), *self._tables())
         return out
 
     def apply_A(self, x, W):
@@ -424,14 +447,27 @@ class VarMSKernelLevel(_KernelLevel):
         self._check_W(W, x)
         out = torch.empty_like(x)
         k.launch(x.device, x.data_ptr(), W.data_ptr(), out.data_ptr(), T,
-                 *self.gs, self._tables()[0])
+                 *self._zyx(), self._tables()[0])
         return out
+
+    def residual_restrict(self, x, b, cols, W):
+        """K13: r_c = R(b − Op_w x); the fine residual is never stored."""
+        if b.device.type == "cpu":
+            return self.residual_restrict_plain(x, b, cols, W)
+        k, T, cp = self._prepare("residual_restrict_var", b, cols, odd=True)
+        check_tensor("x", x, b.dtype, b.device, b.shape)
+        self._check_W(W, b)
+        rc = b.new_empty((T,) + self.coarse_gs)
+        k.launch(b.device, x.data_ptr(), b.data_ptr(), W.data_ptr(), cp[0],
+                 rc.data_ptr(), T, *self._zyx(), *self._tables())
+        return rc
 
     def fused_pre(self, b, cols, W):
         """K14: (x, r_c), x the zero-init sweep on b and
         r_c = R(b − Op_w x)."""
         if b.device.type == "cpu":
             return self.fused_pre_plain(b, cols, W)
+        self._only_2d("K14 fused_pre")
         k, T, cp = self._prepare("fused_pre_var", b, cols, nu=self.nu,
                                  odd=True)
         self._check_W(W, b)
@@ -445,6 +481,7 @@ class VarMSKernelLevel(_KernelLevel):
         """K15: smooth(x + P e_c, b)."""
         if b.device.type == "cpu":
             return self.fused_post_plain(x, b, ec, cols, W)
+        self._only_2d("K15 fused_post")
         k, T, cp = self._prepare("fused_post_var", b, cols, nu=self.nu,
                                  odd=True)
         check_tensor("x", x, b.dtype, b.device, b.shape)

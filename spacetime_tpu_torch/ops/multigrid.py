@@ -31,9 +31,9 @@ Galerkin RAP of the assembled fine matrix, the constant mass stencil, and
 the diagonals and row sums of the exact per-ω Gershgorin bounds.
 ``GalerkinMultiShiftMG`` applies its V-cycle to tensors: Op = A_w + ω⊙M,
 the Jacobi diagonal per node, and with per-level
-``ops.mg_kernels.VarMSKernelLevel``s the fused kernel stages (K14, K15)
-and the residual kernel (K11) as the JAX package dispatches its Pallas
-levels (``spacetime_tpu/ops/multigrid.py:746-800``).
+``ops.mg_kernels.VarMSKernelLevel``s the same dispatch with the weighted
+kernels (``spacetime_tpu/ops/multigrid.py:746-800``): fused K14/K15, else
+semi-fused K10 → K13 → K9 → K10, and K11 for the later cycles.
 """
 
 from __future__ import annotations
@@ -389,7 +389,60 @@ def cheb_smooth(op, lp, x, b, nu: int):
     return x
 
 
-class MultiShiftMG:
+class _VCycle:
+    """The V-cycle and the cycles of a solve, shared by the constant and
+    the weighted hierarchy; a subclass gives ``op``, ``smooth`` and the
+    arguments its kernel levels take after the fields (``_kernel_args``)."""
+
+    def vcycle(self, b, lps, coarse_solve, lvl: int = 0, kernels=None):
+        """One V-cycle from x = 0. ``kernels``: per-level kernel levels,
+        whose row columns are ``lps[lvl]["cols"]``."""
+        if lvl == len(self.msmg.levels):
+            return coarse_solve(b)
+        lp = lps[lvl]
+        kl = kernels[lvl] if kernels is not None else None
+        if kl is not None and kl.fused_ok:
+            args = self._kernel_args(lp)
+            x, rc = kl.fused_pre(b, *args)
+            ec = self.vcycle(rc, lps, coarse_solve, lvl + 1, kernels)
+            return kl.fused_post(x, b, ec, *args)
+        if kl is not None:
+            if not kl.semi_ok:
+                raise ValueError(
+                    f"level {lvl}, grid {kl.gs}: the P1 transfers need odd "
+                    "extents 2n+1 (an even n on every level above the coarse "
+                    "grid)"
+                )
+            # the fine residual and the prolonged correction never reach
+            # device memory
+            args = self._kernel_args(lp)
+            x = kl.smooth(None, b, *args, zero_init=True)
+            rc = kl.residual_restrict(x, b, *args)
+            ec = self.vcycle(rc, lps, coarse_solve, lvl + 1, kernels)
+            x = kl.prolong_correct(x, ec)
+            return kl.smooth(x, b, *args, post=True)
+        x = self.smooth(lvl, lp, None, b)
+        r = b - self.op(lvl, lp, x)
+        ec = self.vcycle(
+            transfer(r, self.dim, restrict=True), lps, coarse_solve, lvl + 1,
+            kernels,
+        )
+        x = x + transfer(ec, self.dim, restrict=False)
+        return self.smooth(lvl, lp, x, b, nu=self.nu_post)
+
+    def solve(self, b, lps, coarse_solve, cycles: int = 2, kernels=None):
+        """``cycles`` V-cycles from a zero initial guess."""
+        x = self.vcycle(b, lps, coarse_solve, kernels=kernels)
+        for _ in range(cycles - 1):
+            if kernels is not None and kernels[0] is not None:
+                r = kernels[0].residual(x, b, *self._kernel_args(lps[0]))
+            else:
+                r = b - self.op(0, lps[0], x)
+            x = x + self.vcycle(r, lps, coarse_solve, kernels=kernels)
+        return x
+
+
+class MultiShiftMG(_VCycle):
     """V-cycles of a host ``MultiShiftMultigrid`` on tensors."""
 
     def __init__(self, msmg, nu: int | None = None):
@@ -414,50 +467,9 @@ class MultiShiftMG:
         nu = self.nu if nu is None else nu
         return cheb_smooth(lambda v: self.op(lvl, lp, v), lp, x, b, nu)
 
-    def vcycle(self, b, lps, coarse_solve, lvl: int = 0, kernels=None):
-        """One V-cycle from x = 0. ``kernels``: per-level
-        ``MSKernelLevel``s, whose row columns are ``lps[lvl]["cols"]``."""
-        if lvl == len(self.msmg.levels):
-            return coarse_solve(b)
-        lp = lps[lvl]
-        kl = kernels[lvl] if kernels is not None else None
-        if kl is not None and kl.fused_ok:
-            x, rc = kl.fused_pre(b, lp["cols"])
-            ec = self.vcycle(rc, lps, coarse_solve, lvl + 1, kernels)
-            return kl.fused_post(x, b, ec, lp["cols"])
-        if kl is not None:
-            if not kl.semi_ok:
-                raise ValueError(
-                    f"level {lvl}, grid {kl.gs}: the P1 transfers need odd "
-                    "extents 2n+1 (an even n on every level above the coarse "
-                    "grid)"
-                )
-            # the fine residual and the prolonged correction never reach
-            # device memory
-            x = kl.smooth(None, b, lp["cols"], zero_init=True)
-            rc = kl.residual_restrict(x, b, lp["cols"])
-            ec = self.vcycle(rc, lps, coarse_solve, lvl + 1, kernels)
-            x = kl.prolong_correct(x, ec)
-            return kl.smooth(x, b, lp["cols"], post=True)
-        x = self.smooth(lvl, lp, b * 0.0, b)
-        r = b - self.op(lvl, lp, x)
-        ec = self.vcycle(
-            transfer(r, self.dim, restrict=True), lps, coarse_solve, lvl + 1,
-            kernels,
-        )
-        x = x + transfer(ec, self.dim, restrict=False)
-        return self.smooth(lvl, lp, x, b, nu=self.nu_post)
-
-    def solve(self, b, lps, coarse_solve, cycles: int = 2, kernels=None):
-        """``cycles`` V-cycles from a zero initial guess."""
-        x = self.vcycle(b, lps, coarse_solve, kernels=kernels)
-        for _ in range(cycles - 1):
-            if kernels is not None and kernels[0] is not None:
-                r = kernels[0].residual(x, b, lps[0]["cols"])
-            else:
-                r = b - self.op(0, lps[0], x)
-            x = x + self.vcycle(r, lps, coarse_solve, kernels=kernels)
-        return x
+    @staticmethod
+    def _kernel_args(lp):
+        return (lp["cols"],)
 
 
 def var_op(A_vs, groups_M, lp, x):
@@ -478,7 +490,7 @@ def var_smooth(A_vs, groups_M, kc: int, cM: float, lp, x, b, nu: int):
                        nu)
 
 
-class GalerkinMultiShiftMG:
+class GalerkinMultiShiftMG(_VCycle):
     """V-cycles of a host ``GalerkinMultiShiftMultigrid`` on tensors."""
 
     def __init__(self, gmsmg, nu: int | None = None):
@@ -498,43 +510,9 @@ class GalerkinMultiShiftMG:
         return var_smooth(lev.A_vs, self._groups_M[lvl], lev.kc, lev.cM, lp,
                           x, b, self.nu if nu is None else nu)
 
-    def vcycle(self, b, lps, coarse_solve, lvl: int = 0, kernels=None):
-        """One V-cycle from x = 0. ``kernels``: per-level
-        ``VarMSKernelLevel``s, whose row columns are ``lps[lvl]["cols"]``;
-        only their fused stages are ported, so a kernel level that takes
-        the semi-fused or plain branch (K10, K13) raises."""
-        if lvl == len(self.msmg.levels):
-            return coarse_solve(b)
-        lp = lps[lvl]
-        kl = kernels[lvl] if kernels is not None else None
-        if kl is not None:
-            if not kl.fused_ok:
-                raise NotImplementedError(
-                    f"level {lvl}, grid {kl.gs}, nu={kl.nu}, nu_post="
-                    f"{kl.nu_post}: the weighted V-cycle's semi-fused and "
-                    "plain stages (K10, K13) are not ported yet (ROADMAP.md "
-                    "queue 1, item 6)"
-                )
-            x, rc = kl.fused_pre(b, lp["cols"], lp["Aw"])
-            ec = self.vcycle(rc, lps, coarse_solve, lvl + 1, kernels)
-            return kl.fused_post(x, b, ec, lp["cols"], lp["Aw"])
-        x = self.smooth(lvl, lp, None, b)
-        r = b - self.op(lvl, lp, x)
-        ec = self.vcycle(transfer(r, self.dim, restrict=True), lps,
-                         coarse_solve, lvl + 1, kernels)
-        x = x + transfer(ec, self.dim, restrict=False)
-        return self.smooth(lvl, lp, x, b, nu=self.nu_post)
-
-    def solve(self, b, lps, coarse_solve, cycles: int = 2, kernels=None):
-        """``cycles`` V-cycles from a zero initial guess."""
-        x = self.vcycle(b, lps, coarse_solve, kernels=kernels)
-        for _ in range(cycles - 1):
-            if kernels is not None and kernels[0] is not None:
-                r = kernels[0].residual(x, b, lps[0]["cols"], lps[0]["Aw"])
-            else:
-                r = b - self.op(0, lps[0], x)
-            x = x + self.vcycle(r, lps, coarse_solve, kernels=kernels)
-        return x
+    @staticmethod
+    def _kernel_args(lp):
+        return (lp["cols"], lp["Aw"])
 
 
 def chebyshev_stencil_inverse(st, inv_diag: float, lmin: float, lmax: float,

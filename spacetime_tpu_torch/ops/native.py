@@ -239,9 +239,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             "mg_fused_post": [P, P, P, P, P, P, P, P, I64, I64, I64, P, I, P],
             "mg_residual_restrict": [P, P, P, P, *grid, P, P],
             "mg_prolong_correct": [P, P, P, *grid, P],
-            # (nt, ny, nx): a 2-D grid; then the A taps and the M groups
-            "mg_residual_var": [P, P, P, P, P, I64, I64, I64, P, P, P],
-            "mg_apply_var": [P, P, P, I64, I64, I64, P, P],
+            # the weighted ones: W after the fields; the A taps and the M
+            # groups after the grid
+            "mg_smooth_var": [P, P, P, P, P, P, P, *grid, P, P, I, I, P],
+            "mg_residual_var": [P, P, P, P, P, *grid, P, P, P],
+            "mg_apply_var": [P, P, P, *grid, P, P],
+            "mg_residual_restrict_var": [P, P, P, P, P, *grid, P, P, P],
+            # (nt, ny, nx): a 2-D grid
             "mg_fused_pre_var": [P, P, P, P, P, P, P, I64, I64, I64, P, P,
                                  I, P],
             "mg_fused_post_var": [P, P, P, P, P, P, P, P, I64, I64, I64, P, P,

@@ -4,7 +4,8 @@ The counterpart of ``spacetime_tpu.solver.heateq.HeatSolver`` on structured
 grids with multi-shift multigrid inner solves (``inner="mg"``) on uniform
 dyadic time grids, in two spatial formats: constant stencils (``"stencil"``:
 ``smooth2d``, ``smooth3d``) and, for coefficient-weighted systems, per-node
-A weights with the constant mass stencil (``"vstencil"``: ``varcoef2d``).
+A weights with the constant mass stencil (``"vstencil"``: ``varcoef2d``,
+``varcoef3d``).
 The same stabilized minimal-residual formulation, the same operator algebra
 and the same operation order, so float64 residual histories agree with the
 JAX package to rounding. Host setup (assembly, stencils, the multigrid
@@ -23,22 +24,24 @@ stencil kernel.
 
 Weighted (``"vstencil"``): the inner solver is the Galerkin hierarchy
 (``GalerkinMultiShiftMultigrid``), whose V-cycle levels run the weighted
-fused stages (K14, K15) and whose later cycles start with the weighted
-residual (K11); K_X's middle application and the A_w of B, Bᵀ and the stab
-term run the weighted stencil kernel (K12), while their M applications stay
-plain PyTorch (as the JAX package computes B, Bᵀ and stab in XLA on this
-format). K_H ≈ M⁻¹ is the degree-30 Chebyshev on the constant mass stencil,
-as on the constant format.
+fused stages (K14, K15) in 2-D, else the weighted semi-fused stages (K10
+sweep, K13 residual + restriction, K9, K10 sweep), which every 3-D level
+and 2-D V(ν, ν_post) cycles and ν ∉ {2, 3} run, and whose later cycles
+start with the weighted residual (K11); K_X's middle application and the
+A_w of B, Bᵀ and the stab term run the weighted stencil kernel (K12), while
+their M applications stay plain PyTorch (as the JAX package computes B, Bᵀ
+and stab in XLA on this format). K_H ≈ M⁻¹ is the degree-30 Chebyshev on
+the constant mass stencil, as on the constant format. The sweep kernels
+take ν ≤ 8 in 2-D and ν ≤ 3 in 3-D; a solver asked for more raises.
 
 All kernels are CUDA kernels for CUDA tensors and their plain twins on the
 CPU; on CUDA no level falls back to the plain form, whatever its size.
 
 Outside this slice (raising ``NotImplementedError`` with the ROADMAP.md slice
 that ports it): dense and Chebyshev inner solves, the DIA / blocked-ELL
-spatial formats and unstructured meshes, 3-D weighted systems and weighted
-V(ν, ν_post) cycles, graded time grids, on-device load quadrature, the
-fused/flexible PCG variants, checkpointing, double-single refinement legs
-and multi-device runs.
+spatial formats and unstructured meshes, graded time grids, on-device load
+quadrature, the fused/flexible PCG variants, checkpointing, double-single
+refinement legs and multi-device runs.
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ from ..fem import (
 from ..models import Problem, get_problem
 from ..ops import kron
 from ..ops import wavelets as wav
-from ..ops.mg_kernels import MSKernelLevel, VarMSKernelLevel
+from ..ops.mg_kernels import MAX_NU, MSKernelLevel, VarMSKernelLevel
 from ..ops.multigrid import (GalerkinMultiShiftMG, GalerkinMultiShiftMultigrid,
                              MultiShiftMG, MultiShiftMultigrid,
                              chebyshev_stencil_inverse,
@@ -185,11 +188,6 @@ class HeatSolver:
         M_st = StencilOperator.from_dia(DiaMatrix.from_csr(system.M), self.gs)
         self._groups_M = weight_groups(M_st.disps, M_st.weights)
         if self.weighted:
-            if dim != 2:
-                raise _later(
-                    f"a {dim}-D coefficient-weighted system (varcoef3d)",
-                    "weighted semi-fused V-cycle, K10 and K13 (item 6)",
-                )
             self.taps = None
         else:
             A_st = StencilOperator.from_dia(
@@ -207,10 +205,12 @@ class HeatSolver:
                 f"mg_cycles={mg_cycles} / mg_cycles_kx={mg_cycles_kx}: "
                 "V-cycle counts must be >= 1"
             )
-        if min(n for n in (mg_nu, mg_nu_kx, mg_nu_post) if n is not None) < 1:
+        nus = [n for n in (mg_nu, mg_nu_kx, mg_nu_post) if n is not None]
+        if not 1 <= min(nus) <= max(nus) <= MAX_NU[dim]:
             raise ValueError(
                 f"mg_nu={mg_nu} / mg_nu_kx={mg_nu_kx} / mg_nu_post="
-                f"{mg_nu_post}: smoothing step counts must be >= 1"
+                f"{mg_nu_post}: smoothing step counts must be >= 1, and the "
+                f"{dim}-D sweep kernels take at most {MAX_NU[dim]}"
             )
         if space_n is None:
             if len(set(self.gs)) != 1:
@@ -227,15 +227,6 @@ class HeatSolver:
             mg_coarse = 32 if dim == 2 else 16
         n_coarse = min(mg_coarse, max(space_n // 2, 4))
         if self.weighted:
-            if (mg_nu_post not in (None, mg_nu)
-                    or not {mg_nu, self.mg_nu_kx} <= {2, 3}):
-                raise _later(
-                    f"a weighted V(nu, nu_post) cycle with mg_nu={mg_nu}, "
-                    f"mg_nu_kx={self.mg_nu_kx}, mg_nu_post={mg_nu_post} "
-                    "(only the fused stages, nu = nu_post in {2, 3}, are "
-                    "ported)",
-                    "weighted semi-fused V-cycle, K10 and K13 (item 6)",
-                )
             # Galerkin RAP off the assembled fine matrices (the coefficients
             # are not re-assembled per level)
             msmg, (A_c, M_c) = GalerkinMultiShiftMultigrid.build(

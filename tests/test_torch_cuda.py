@@ -1,6 +1,6 @@
 """The CUDA kernels K1 (B), K2 (Bᵀ), the multigrid kernels K3–K9 (2-D and
-3-D) and the weighted K11, K12, K14 and K15 (2-D) on the card, against their
-plain twins. Marked ``cuda``: they skip where
+3-D) and the weighted K10–K13 (2-D and 3-D), K14 and K15 (2-D) on the card,
+against their plain twins, and small solves on the card against the CPU. Marked ``cuda``: they skip where
 ``torch.cuda.is_available()`` is False (the kernels have no CPU mode). This
 file imports no JAX, so on a machine with a GPU and without JAX it runs as
 
@@ -292,3 +292,118 @@ def test_small_varcoef_solve_matches_cpu(var_msmg):
     assert counts["K14 mg_fused_pre_var f64"] == counts[
         "K15 mg_fused_post_var f64"]
     assert counts["K6 mg_fused_pre f64"] == counts["K4 mg_residual f64"] == 0
+
+
+def _var_inputs(msmg, kl, T, dtype, seed):
+    """x, b, e_c, the columns of random shifts and the finest level's
+    weights cut (or tiled) to the grid, on the card."""
+    rng = np.random.default_rng(seed)
+    mk = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
+    omega = np.abs(rng.standard_normal(T)) * 20
+    cols = kl.columns(var_row_params(msmg, omega, dtype, "cuda")[0])
+    Aw = msmg.levels[0].Aw
+    grow = [(0, 0)] + [(0, max(n - m, 0)) for n, m in zip(kl.gs, Aw.shape[1:])]
+    cut = (slice(None),) + tuple(slice(0, n) for n in kl.gs)
+    W = mk(np.ascontiguousarray(np.pad(Aw, grow, mode="wrap")[cut]))
+    x, b = mk(rng.standard_normal((T,) + kl.gs)), mk(rng.standard_normal((T,) + kl.gs))
+    return x, b, mk(rng.standard_normal((T,) + kl.coarse_gs)), cols, W
+
+
+def _check_semi_var(kl, x, b, ec, cols, W, dtype):
+    """K10 (from x, from 0, the post-sweep), K13 and K9 of one weighted
+    level against their twins; returns the launch counts."""
+    mg_kernels.reset_launch_counts()
+    _close(kl.smooth(x, b, cols, W), kl.smooth_plain(x, b, cols, W), dtype)
+    _close(kl.smooth(x, b, cols, W, post=True),
+           kl.smooth_plain(x, b, cols, W, post=True), dtype)
+    _close(kl.smooth(None, b, cols, W, zero_init=True),
+           kl.smooth_plain(None, b, cols, W, zero_init=True), dtype)
+    _close(kl.residual_restrict(x, b, cols, W),
+           kl.residual_restrict_plain(x, b, cols, W), dtype)
+    _close(kl.prolong_correct(x, ec), kl.prolong_correct_plain(x, ec), dtype)
+    return mg_kernels.launch_counts()
+
+
+@pytest.mark.parametrize("gs", [(15, 31), (33, 63)])
+@pytest.mark.parametrize("nu", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_var_semi_kernels_match_twins(var_msmg, dtype, nu, gs):
+    """K10 and K13 in 2-D, ν_post = ν % 3 + 1."""
+    kl = VarMSKernelLevel(var_msmg.levels[0], nu, nu_post=nu % 3 + 1, gs=gs)
+    counts = _check_semi_var(kl, *_var_inputs(var_msmg, kl, 5, dtype, nu),
+                             dtype)
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    assert counts[f"K10 mg_smooth_var {sfx}"] == 3
+    assert counts[f"K13 mg_residual_restrict_var {sfx}"] == 1
+    assert counts[f"K9 mg_prolong_correct {sfx}"] == 1
+    assert sum(counts.values()) == 5
+
+
+@pytest.fixture(scope="module")
+def var_msmg3d():
+    """The varcoef3d Galerkin hierarchy at 32 cells (finest grid 31³)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from spacetime_tpu_torch.fem import P1System, unit_cube_mesh
+    from spacetime_tpu_torch.models import get_problem
+
+    system = P1System.from_problem(get_problem("varcoef3d"),
+                                   unit_cube_mesh(32))
+    return GalerkinMultiShiftMultigrid.build(
+        3, 32, system.A, system.M, nu=2, n_coarse=16)[0]
+
+
+# ragged extents: one brick; bricks with a last plane / row of one point
+# and a partial brick in x; 127³, whose W (123 MB in f32) does not fit in
+# the L2, so the kernels take the row fastest
+@pytest.mark.parametrize("gs", [(7, 9, 15), (17, 25, 31), (127, 127, 127)])
+@pytest.mark.parametrize("nu", [1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_var_kernels_3d_match_twins(var_msmg3d, dtype, nu, gs):
+    """K10, K11, K12, K13 (and K9) in 3-D; a 3-D weighted sweep of degree
+    above 3 raises."""
+    kl = VarMSKernelLevel(var_msmg3d.levels[0], nu, nu_post=nu % 3 + 1, gs=gs)
+    x, b, ec, cols, W = _var_inputs(var_msmg3d, kl, 5, dtype, nu)
+    _check_semi_var(kl, x, b, ec, cols, W, dtype)
+    _close(kl.residual(x, b, cols, W), kl.residual_plain(x, b, cols, W),
+           dtype)
+    _close(kl.apply_A(x, W), kl.apply_A_plain(x, W), dtype)
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    counts = mg_kernels.launch_counts()
+    assert counts[f"K10 mg_smooth_var_3d {sfx}"] == 3
+    for name in ("K11 mg_residual_var", "K12 mg_apply_var",
+                 "K13 mg_residual_restrict_var", "K9 mg_prolong_correct"):
+        assert counts[f"{name}_3d {sfx}"] == 1, (name, counts)
+    assert sum(counts.values()) == 7
+    with pytest.raises(ValueError, match="nu=4"):
+        VarMSKernelLevel(var_msmg3d.levels[0], 4, gs=gs).smooth(x, b, cols, W)
+    with pytest.raises(NotImplementedError, match="3-D"):
+        kl.fused_pre(b, cols, W)
+
+
+@pytest.mark.parametrize(
+    "name, n, J, kw",
+    [("varcoef3d", 8, 2, dict(mg_coarse=4)),
+     ("varcoef2d", 16, 3, dict(mg_coarse=8, mg_nu_post=1))],
+    ids=["varcoef3d-9^3x4", "varcoef2d-17^2x8-V(2,1)"])
+def test_small_weighted_semi_solve_matches_cpu(var_msmg, name, n, J, kw):
+    """float64 solves on the semi-fused weighted stages: the card's K10,
+    K13, K9 (and K11, K12) take the CPU twins' iterations, and no fused or
+    constant-stencil V-cycle kernel runs."""
+    kw = dict(dtype=torch.float64, inner="mg", **kw)
+    cpu = build_solver(name, n, J, device="cpu", **kw).solve(tol=1e-8)
+    mg_kernels.reset_launch_counts()
+    gpu = build_solver(name, n, J, device="cuda", **kw).solve(tol=1e-8)
+    assert gpu.iterations == cpu.iterations
+    np.testing.assert_allclose(gpu.residuals, cpu.residuals, rtol=1e-10)
+    counts = mg_kernels.launch_counts()
+    d = "_3d" if name == "varcoef3d" else ""
+    for op in ("K10 mg_smooth_var", "K11 mg_residual_var", "K12 mg_apply_var",
+               "K13 mg_residual_restrict_var", "K9 mg_prolong_correct"):
+        assert counts[f"{op}{d} f64"] > 0, counts
+    assert counts[f"K10 mg_smooth_var{d} f64"] == 2 * counts[
+        f"K13 mg_residual_restrict_var{d} f64"]
+    allowed = {f"{op}{d} f64" for op in (
+        "K10 mg_smooth_var", "K11 mg_residual_var", "K12 mg_apply_var",
+        "K13 mg_residual_restrict_var", "K9 mg_prolong_correct")}
+    assert all(c == 0 for k, c in counts.items() if k not in allowed), counts

@@ -98,7 +98,8 @@ _NO_JAX_PACKAGE = textwrap.dedent(
         if not mod.name.endswith("__main__"):
             importlib.import_module(mod.name)
     its = []
-    for name, n in (("smooth2d", 8), ("smooth3d", 8), ("varcoef2d", 8)):
+    for name, n in (("smooth2d", 8), ("smooth3d", 8), ("varcoef2d", 8),
+                    ("varcoef3d", 8)):
         res = build_solver(name, n, 2, device="cpu", inner="mg").solve(tol=1e-8)
         assert res.converged and res.l2_error > 0, name
         its.append(res.iterations)
@@ -111,9 +112,9 @@ _NO_JAX_PACKAGE = textwrap.dedent(
 
 
 def test_solves_without_the_jax_package():
-    """Every port module imports, and a 2-D, a 3-D and a weighted 2-D
-    (varcoef2d) solve run, with the JAX package and JAX blocked from
-    import."""
+    """Every port module imports, and a 2-D, a 3-D and weighted 2-D and
+    3-D (varcoef2d, varcoef3d) solves run, with the JAX package and JAX
+    blocked from import."""
     out = subprocess.run(
         [sys.executable, "-c", _NO_JAX_PACKAGE],
         cwd=REPO, capture_output=True, text=True, timeout=300,

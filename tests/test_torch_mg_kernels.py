@@ -371,13 +371,14 @@ def test_levels_dispatch_by_device(hierarchy):
     assert not MSKernelLevel(lev.A_st, lev.M_st, 2, nu_post=1).fused_ok
     assert not MSKernelLevel(lev.A_st, lev.M_st, 2, gs=(8, 7)).semi_ok
     names = {(3, "mg_smooth"), (4, "mg_residual"), (5, "mg_apply"),
-             (8, "mg_residual_restrict"), (9, "mg_prolong_correct")}
+             (8, "mg_residual_restrict"), (9, "mg_prolong_correct"),
+             (10, "mg_smooth_var"), (11, "mg_residual_var"),
+             (12, "mg_apply_var"), (13, "mg_residual_restrict_var")}
     assert set(mg_kernels.launch_counts()) == {
         f"K{i} {name}{d} {sfx}" for i, name in names for d in ("", "_3d")
         for sfx in ("f32", "f64")
     } | {f"K{i} {name} {sfx}" for i, name in
-         ((6, "mg_fused_pre"), (7, "mg_fused_post"), (11, "mg_residual_var"),
-          (12, "mg_apply_var"), (14, "mg_fused_pre_var"),
+         ((6, "mg_fused_pre"), (7, "mg_fused_post"), (14, "mg_fused_pre_var"),
           (15, "mg_fused_post_var")) for sfx in ("f32", "f64")}
 
 

@@ -3,8 +3,10 @@ package: the weighted P1 assembly, the Galerkin hierarchy and the loads
 (host copies), the weighted kernels' plain twins (K11, K12, K14, K15)
 against the JAX XLA form (float64) and ``VarMSPallasLevel`` in interpret
 mode (float32), the weighted V-cycle with kernel levels, the solver, the
-conversion of the weighted params, and the paths that still raise. Inputs
-are made with numpy from a seed; CPU tensors run the twins.
+conversion of the weighted params, and the paths that still raise (the
+semi-fused weighted V-cycle and varcoef3d are held against the JAX package
+in ``tests/test_torch_varcoef3d.py``). Inputs are made with numpy from a
+seed; CPU tensors run the twins.
 
 Tolerances, relative to max|JAX|: 1e-12 in float64 (sum order); in float32
 1e-5, and 1e-4 for r_c and the ``fused_post`` output, whose Pallas
@@ -342,14 +344,21 @@ def test_params_from_jax_weighted(dtype):
 
 
 def test_unported_weighted_paths_raise():
+    """What raises on the weighted format: the DIA / ELL formats, the
+    constant-stencil format, a 3-D sweep of degree above 3, the fused stages
+    on a 3-D grid and transfers on even extents. Weighted V(ν, ν_post)
+    cycles, ν ∉ {2, 3} and varcoef3d build and solve on the semi-fused
+    stages."""
     system = fem.P1System.from_problem(get_problem("varcoef2d"),
                                        fem.unit_square_mesh(16))
     grid = fem.uniform_time_grid(2)
     mk = lambda **kw: HeatSolver(get_problem("varcoef2d"), system, grid,
                                  device="cpu", **{**KW, **kw})
     for kw in (dict(mg_nu_post=1), dict(mg_nu=4), dict(mg_nu_kx=1)):
-        with pytest.raises(NotImplementedError, match="K10 and K13"):
-            mk(**kw)
+        s = mk(**kw)
+        assert not all(k.fused_ok for k in s._kl_ky + s._kl_kx), kw
+        assert all(k.semi_ok for k in s._kl_ky + s._kl_kx), kw
+        assert s.solve(tol=1e-8, compute_error=False).converged, kw
     assert mk(mg_nu=3, mg_nu_post=3).spatial_format == "vstencil"
     with pytest.raises(ValueError, match="'stencil' needs a translation"):
         mk(spatial_format="stencil")
@@ -359,18 +368,29 @@ def test_unported_weighted_paths_raise():
     with pytest.raises(ValueError, match="coefficient-weighted"):
         build_solver("smooth2d", 16, 2, device="cpu", spatial_format="vstencil",
                      **KW)
-    with pytest.raises(NotImplementedError, match="varcoef3d"):
-        build_solver("varcoef3d", 8, 2, device="cpu", inner="mg")
+    s3 = build_solver("varcoef3d", 8, 2, device="cpu", inner="mg")
+    assert s3.spatial_format == "vstencil" and len(s3.gs) == 3
+    assert s3.solve(tol=1e-8, compute_error=False).converged
+    for kw in (dict(mg_nu=4), dict(mg_nu_post=4), dict(mg_nu_kx=5)):
+        with pytest.raises(ValueError, match="3-D sweep kernels take at "
+                                             "most 3"):
+            build_solver("varcoef3d", 8, 2, device="cpu", inner="mg", **kw)
     msmg = mk().msmg
     lev = msmg.levels[0]
     kl = VarMSKernelLevel(lev, 2, nu_post=1)
-    assert not kl.fused_ok
-    with pytest.raises(NotImplementedError, match="K10, K13"):
+    assert not kl.fused_ok and kl.semi_ok
+    even = VarMSKernelLevel(lev, 2, nu_post=1, gs=(14, 15))
+    with pytest.raises(ValueError, match="odd extents"):
         mg.GalerkinMultiShiftMG(msmg).vcycle(
-            torch.zeros((1, 15, 15), dtype=torch.float64), [None],
-            lambda bc: bc, kernels=[kl])
+            torch.zeros((1, 14, 15), dtype=torch.float64), [None],
+            lambda bc: bc, kernels=[even])
+    kl3 = VarMSKernelLevel(dataclasses.replace(lev, gs=(7, 7, 7)), 2)
+    assert not kl3.fused_ok and kl3.semi_ok
+    x3 = torch.zeros((1, 7, 7, 7), dtype=torch.float64)
     with pytest.raises(NotImplementedError, match="3-D"):
-        VarMSKernelLevel(dataclasses.replace(lev, gs=(7, 7, 7)), 2)
+        kl3.fused_pre(x3, None, None)
+    with pytest.raises(NotImplementedError, match="3-D"):
+        kl3.fused_post(x3, x3, x3[:, :3, :3, :3], None, None)
 
 
 def test_var_levels_dispatch_by_device():
