@@ -80,13 +80,36 @@ Phases (every check asserts; any failure exits non-zero):
               semi-fused K10 → K13 → K9 → K10 in place of K14/K15):
               ``solve(tol=1e-6)`` within ±1 of the JAX package's 17
               iterations, L2 within 1% of its value; ``solve_refined``.
+22. K20 — the lshape2d n=256, J=6 solver's setup (``ell``, ``cheb``, f32);
+              the blocked-ELL SpMM against its twin in float32 and float64
+              on that solver's A (T ∈ {1, 32, 64, 65}) and M (T=64), the
+              n=32 A (T=33) and a ragged random matrix (m=300, T=5), within
+              1e-5·max|twin| (f32) and 1e-13 (f64); median times at T ∈
+              {1, 32, 64} beside ``torch.sparse.mm`` (cuSPARSE CSR), the
+              bound from the nonzeros and the bound of the stored blocks.
+23. chained sweeps — K3 and K10 above the tiled ν (ν = 9 in 2-D at
+              127²×65 and 15×31×5; ν = 4, 5 in 3-D at 63³×33, 15³×17 and
+              7×9×15×5), from x and from 0, against their twins.
+24. ν paths — smooth3d 17³×16 f64 ``mg_nu=4``: the JAX package's 17
+              iterations exactly, L2 within 1e-6; f32 ``solve_refined`` with
+              ν = 4 (smooth3d, varcoef3d 17³×16) and ν = 9 (smooth2d,
+              varcoef2d 33²×16): each launches the chained sweep in both
+              dtypes and never the tiled one.
+25. oracle rows — cfg1, ladder-32, cfg3, moving-peak-32, lshape-32-J5 (on
+              ``ell``) and varcoef-32-J5 in float64 with dense inner
+              solves: the iterations of ``baseline_oracle.json`` and its
+              7-digit residual histories.
+26. L-shape — lshape2d n=256, J=6 (3.16 MDoF), ``ell`` + ``cheb``, f32:
+              ``solve(tol=1e-6)`` twice, 15 ± 1 iterations, exactly
+              ``k20_per_solve`` K20 launches and no other kernel, L2 within
+              1% of the float64 ``dia`` solve's.
 
 Launch counters are zeroed just before each path (phases 7–8, 9, 10, 11,
-12, 13, 15, 16, 17, 19, 20, 21) and read just after it; each path asserts
-the kernels it must have launched, and a weighted path that it ran only
-the kernels of its branch (K9 the one constant kernel of the semi-fused
-stages). The last two lines are a JSON object describing the kernels and
-``{"ok": true, "device": ...}``.
+12, 13, 15, 16, 17, 19, 20, 21, each solve of 24 and 25, and 26) and read
+just after it; each path asserts the kernels it must have launched, and a
+weighted path that it ran only the kernels of its branch (K9 the one
+constant kernel of the semi-fused stages). The last two lines are a JSON
+object describing the kernels and ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -168,6 +191,47 @@ REF_VAR3D_F64 = {"n": 16, "levels": 4, "iterations": 18,
                  "l2": 3.8913328499968662e-03}
 REF_VAR_V21 = {"n": 128, "levels": 6, "iterations": 17,
                "l2": 5.631016437524917e-05}
+# smooth3d 17³×16 f64 with mg_nu=4 (every sweep above the tiled ν ≤ 3, so
+# the chained sweep): the JAX package on the CPU (``HeatSolver(..., inner=
+# "mg", mg_nu=4, rhs="host").solve(tol=1e-8)``).
+REF_3D_NU4 = {"n": 16, "levels": 4, "iterations": 17,
+              "l2": 3.9991208990437874e-03}
+# lshape2d at n = 256, J = 6 (m = 48,641, 65 time nodes, 3.16 MDoF), f32,
+# blocked ELL, Chebyshev inner solves, tol 1e-6. Iterations: the JAX
+# package's run of this configuration on its TPU (results_tpu/
+# lshape_scale.log: 15 iterations to rel 6.058e-07, format "dia", the same
+# operator). At n = 64 and 128 on a CPU the port's iteration counts equal
+# the JAX package's, float32 taking 2 more than float64, as at this size on
+# an H100 (15 against 11). L2: the port's float64 "dia" solve of the same
+# configuration on an H100
+# (``python -m spacetime_tpu_torch.run --device cuda --dtype f64 --problem
+# lshape2d --space-n 256 --time-levels 6 --spatial dia --inner cheb``).
+REF_LSHAPE = {"n": 256, "levels": 6, "iterations": 15, "l2": 5.148414e-05,
+              "l2_band": 0.01}
+# The oracle's rows solved in float64 on the card (dense inner solves;
+# cfg1b, the other ladders and varcoef3d-8-J3 are held on the CPU,
+# tests/test_torch_oracle.py): (config, problem, cells, levels, tol,
+# spatial format)
+ORACLE_ROWS = [
+    ("cfg1-2d-65x65x64-tol1e-6", "smooth2d", 64, 6, 1e-6, "auto"),
+    ("2d-ladder-32x32x32", "smooth2d", 32, 5, 1e-6, "auto"),
+    ("cfg3-3d-17x17x17x16", "smooth3d", 16, 4, 1e-6, "auto"),
+    ("moving-peak-32x32x32", "moving_peak2d", 32, 5, 1e-6, "auto"),
+    ("lshape-32-J5", "lshape2d", 32, 5, 1e-6, "ell"),
+    ("varcoef-32-J5", "varcoef2d", 32, 5, 1e-6, "auto"),
+]
+# K20's checks: T rows of the n = 256 L-shape's A (K_X's levels take 1 to
+# 32 rows, K_Y's 64, B and the rhs 65) and M, the n = 32 A (the oracle
+# row) and a ragged random matrix (m = 300); the timed T at n = 256
+ELL_T = (1, 32, 64, 65)
+ELL_TIMED = (1, 32, 64)
+# The chained sweeps (ν above the tiled kernels' 8 in 2-D and 3 in 3-D):
+# (T, grid, ν, timed); the timed shapes are K_X's row count at the 2-D
+# cfg2 fine level and at 63³, the 3-D paths' shapes (17³×16: 15³, T=17)
+CHAIN_SHAPES = {2: [(65, (127, 127), 9, True), (5, (15, 31), 9, False)],
+                3: [(33, (63,) * 3, 4, True), (33, (63,) * 3, 5, False),
+                    (17, (15,) * 3, 4, False), (5, (7, 9, 15), 5, False)]}
+CHAIN_MAIN = {2: (65, (127, 127)), 3: (33, (63,) * 3)}
 # (T, grid) of the multigrid kernel checks: the 2-D flagship's fine and
 # first coarse level, cfg2's fine level at K_X's row count, the 3-D
 # flagship's two finest levels, and ragged shapes.
@@ -201,6 +265,7 @@ TOL = {torch.float32: 1e-5, torch.float64: 1e-13}
 # HBM3 at 3.35 TB/s; 67 TFLOP/s float32 and 34 TFLOP/s float64 outside the
 # tensor cores (the kernels use no tensor core).
 HBM_BYTES_PER_S = 3.35e12
+DEVICE = "cuda"  # where the checks' tensors live
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 
 
@@ -368,9 +433,9 @@ def var_inputs(msmg, kl, T, dtype, rng, lvl=0) -> dict:
     the grid and that level's columns of random shifts, on the card."""
     from spacetime_tpu_torch.ops.multigrid import var_row_params
 
-    mk = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
+    mk = lambda a: torch.as_tensor(a, dtype=dtype, device=DEVICE)
     omega = np.abs(rng.standard_normal(T)) * 20
-    lp = var_row_params(msmg, omega, dtype, "cuda")[lvl]
+    lp = var_row_params(msmg, omega, dtype, DEVICE)[lvl]
     Aw = msmg.levels[lvl].Aw
     grow = [(0, 0)] + [(0, max(n - m, 0)) for n, m in zip(kl.gs, Aw.shape[1:])]
     cut = (slice(None),) + tuple(slice(0, n) for n in kl.gs)
@@ -383,12 +448,16 @@ def var_inputs(msmg, kl, T, dtype, rng, lvl=0) -> dict:
     }
 
 
-def check_forms(kl, forms, bound_fn, T, dtype, results, library=None) -> None:
+def check_forms(kl, forms, bound_fn, T, dtype, results, library=None,
+                timed=None) -> None:
     """Every form of one kernel level against its twin; device times of
-    the timed shapes (ν = 2) into ``results[(op, dtype, dim)]["forms"]``.
-    ``library``: (form, fn), one library call computing that form, timed
-    beside it and held to its twin."""
+    the timed shapes (ν = 2 and a shape of MG_TIMED, unless ``timed`` says)
+    into ``results[(op, dtype, dim)]["forms"]``. ``library``: (form, fn),
+    one library call computing that form, timed beside it and held to its
+    twin."""
     gs, nu = kl.gs, kl.nu
+    if timed is None:
+        timed = nu == 2 and (T, gs) in MG_TIMED
     for form, (op, kfn, tfn) in forms.items():
         got, want = kfn(), tfn()
         torch.cuda.synchronize()
@@ -403,7 +472,7 @@ def check_forms(kl, forms, bound_fn, T, dtype, results, library=None) -> None:
         del got, want
         line = (f"  {form:17s} {str(dtype)[6:]:8s} nu={nu} T={T:3d} "
                 f"gs={gs}: max|kernel-twin| {err:.3e} (max|twin| {scale:.3e})")
-        if nu == 2 and (T, gs) in MG_TIMED:
+        if timed:
             ms, plain_ms = device_ms(kfn), device_ms(tfn)
             entry = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
                      **bound_fn(form, kl, T, dtype)}
@@ -499,15 +568,325 @@ def mg_inputs(msmg, kl, T, dtype, rng) -> dict:
     shifts, on the card."""
     from spacetime_tpu_torch.ops.multigrid import row_params
 
-    mk = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
+    mk = lambda a: torch.as_tensor(a, dtype=dtype, device=DEVICE)
     omega = np.abs(rng.standard_normal(T)) * 20
-    lp = row_params(msmg, omega, dtype, "cuda")[0]
+    lp = row_params(msmg, omega, dtype, DEVICE)[0]
     return {
         "x": mk(rng.standard_normal((T,) + kl.gs)),
         "b": mk(rng.standard_normal((T,) + kl.gs)),
         "ec": mk(rng.standard_normal((T,) + kl.coarse_gs)),
         "cols": kl.columns(lp),
     }
+
+
+def chain_forms(kl, x, var: bool) -> dict:
+    """{form: (kernel op, kernel_fn, twin_fn)}: the K3 / K10 sweep of a
+    level whose ν is above the tiled kernels', from x and from 0 (the
+    wrappers chain ``cheb_step`` launches)."""
+    X, B = x["x"], x["b"]
+    args = (x["cols"], x["W"]) if var else (x["cols"],)
+    op = "cheb_step_var" if var else "cheb_step"
+    return {
+        "smooth": (op, lambda: (kl.smooth(X, B, *args),),
+                   lambda: (kl.smooth_plain(X, B, *args),)),
+        "smooth_zero": (
+            op, lambda: (kl.smooth(None, B, *args, zero_init=True),),
+            lambda: (kl.smooth_plain(None, B, *args, zero_init=True),)),
+    }
+
+
+def ell_bound(csr, T, dtype) -> dict:
+    """The least time of A·X for T rows, from the matrix's nonzeros (what
+    the data needs): values, int32 column indices and row pointers of the
+    CSR, X and Y once each; 2·nnz·T operations."""
+    s = torch.finfo(dtype).bits // 8
+    m, nnz = csr.shape[0], csr.nnz
+    return bound(nnz * (s + 4) + (m + 1) * 4 + 2 * T * m * s,
+                 2 * nnz * T, dtype)
+
+
+def ell_block_bound(ell, T, dtype) -> dict:
+    """The same for the blocked layout K20 reads: every stored block once
+    (zeros included), X and Y; 2·T·128² operations per block."""
+    s = torch.finfo(dtype).bits // 8
+    nrb, nslots, br, bc = ell.blocks.shape
+    m = ell.shape[0]
+    nb = nrb * nslots
+    return bound(nb * br * bc * s + nb * 4 + 2 * T * m * s,
+                 2 * T * br * bc * nb, dtype)
+
+
+def csr_on_card(csr, dtype):
+    """The matrix as a torch CSR tensor on the card (cuSPARSE's input)."""
+    return torch.sparse_csr_tensor(
+        torch.as_tensor(csr.indptr, dtype=torch.int64),
+        torch.as_tensor(csr.indices, dtype=torch.int64),
+        torch.as_tensor(csr.data, dtype=dtype), size=csr.shape,
+        device=DEVICE, check_invariants=False)
+
+
+def seven_digits(rel) -> list:
+    """The oracle table's rounding (scripts/record_baseline.py)."""
+    return [float(f"{x:.6e}") for x in rel]
+
+
+def k20_per_solve(solver, iterations: int) -> int:
+    """K20 launches of one ``solve`` on the "ell" format with Chebyshev
+    inner solves: one per SpMV of A or M. S = B (2) + K_Y (dA − 1) + Bᵀ (2)
+    + stab (1) + trace row (dM + 1); K_X = Σ_j 4(d_j − 1) + 1 over the
+    wavelet levels' shifted solves; the rhs = Bᵀ K_Y + M K_H; PCG applies
+    S and K_X once before its loop and once per iteration."""
+    dA, dM = solver._cheb_spec["A"][2], solver._cheb_spec["M"][2]
+    per_S = dA + dM + 5
+    per_KX = sum(4 * (d - 1) + 1 for *_, d in solver._cheb_spec["shift"])
+    return (dA + 1) + dM + (iterations + 1) * (per_S + per_KX)
+
+
+
+def phase_k20(build_solver, spmv):
+    """Phase 22: the L-shape solver's setup, and K20 against its twin at
+    the shapes of its path (``ELL_T``), the oracle row's n = 32 and a
+    ragged matrix, in float32 and float64; median times at n = 256 (T of
+    ``ELL_TIMED``) beside its bounds and ``torch.sparse.mm``. Returns the
+    solver and the records ({dtype: {"max_abs_err", "forms"}})."""
+    import scipy.sparse as sp
+
+    from spacetime_tpu_torch.fem import P1System, l_shape_mesh
+    from spacetime_tpu_torch.ops.blocked_ell import BlockedEll
+
+    f32, f64 = torch.float32, torch.float64
+    n, J = REF_LSHAPE["n"], REF_LSHAPE["levels"]
+    phase(f"22 K20 (blocked-ELL SpMM) against its twin; the lshape2d n={n}, "
+          f"J={J} solver's setup (ell, inner cheb, f32)")
+    t0 = time.perf_counter()
+    lsh = build_solver("lshape2d", n, J, dtype=f32, device=DEVICE,
+                       spatial_format="ell", inner="cheb")
+    spec = lsh._cheb_spec
+    print(f"setup {time.perf_counter() - t0:.2f} s (m={lsh.m}, N={lsh.N}, "
+          f"{(lsh.N + 1) * lsh.m:,} DoF; blocks {lsh._ell['A'].blocks.shape}"
+          f"; Chebyshev degrees A {spec['A'][2]}, M {spec['M'][2]}, shifts "
+          f"{[d for *_, d in spec['shift']]})", flush=True)
+    small = P1System.from_mesh(l_shape_mesh(32))
+    rnd = sp.random(300, 300, density=0.02, random_state=3, format="csr")
+    ell_mats = [("A n=256", lsh._ell["A"], lsh.system.A, ELL_T),
+                ("M n=256", lsh._ell["M"], lsh.system.M, (64,)),
+                ("A n=32", BlockedEll.from_csr(small.A), small.A, (33,)),
+                ("random m=300", BlockedEll.from_csr(rnd), rnd, (5,))]
+    rng = np.random.default_rng(SEED + 6)
+    results = {}
+    for dtype in (f32, f64):
+        rec = results.setdefault(dtype, {"max_abs_err": 0.0, "forms": {}})
+        for label, ell, csr, Ts in ell_mats:
+            p = spmv.ell_params(ell, dtype, DEVICE)
+            m = ell.shape[0]
+            for T in Ts:
+                X = torch.as_tensor(rng.standard_normal((T, m)), dtype=dtype,
+                                    device=DEVICE)
+                kfn = lambda: spmv.spmm(X, p["blocks"], p["colidx"], m)
+                tfn = lambda: spmv.spmm_plain(X, p["blocks"], p["colidx"], m)
+                got, want = kfn(), tfn()
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                scale = float(want.abs().max())
+                assert err <= TOL[dtype] * scale, (label, dtype, T, err, scale)
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                line = (f"  {label:12s} {str(dtype)[6:]:8s} T={T:3d}: "
+                        f"max|kernel-twin| {err:.3e} (max|twin| {scale:.3e})")
+                if label == "A n=256" and T in ELL_TIMED:
+                    A_sp, Xt = csr_on_card(csr, dtype), X.t().contiguous()
+                    lib = lambda: torch.sparse.mm(A_sp, Xt)
+                    lerr = float((lib().t() - want).abs().max())
+                    assert lerr <= TOL[dtype] * scale, (lerr, scale)
+                    entry = {"ms": device_ms(kfn), "plain_ms": device_ms(tfn),
+                             "library_ms": device_ms(lib),
+                             **ell_bound(csr, T, dtype)}
+                    blk = ell_block_bound(ell, T, dtype)
+                    entry["block_bound_ms"] = blk["bound_ms"]
+                    entry["block_bound_by"] = blk["bound_by"]
+                    rec["forms"][f"A n=256 T={T}"] = entry
+                    line += (f"; kernel {entry['ms']:.4f} ms, twin "
+                             f"{entry['plain_ms']:.4f} ms, torch.sparse.mm "
+                             f"(cuSPARSE CSR) {entry['library_ms']:.4f} ms "
+                             f"(max|lib-twin| {lerr:.3e}); bound "
+                             f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}"
+                             f", nnz), blocks' bound {blk['bound_ms']:.4f} ms "
+                             f"({blk['bound_by']})")
+                print(line, flush=True)
+                del X, got, want
+            del p
+        torch.cuda.empty_cache()
+    return lsh, results
+
+
+def phase_chains(build_solver, mg_results):
+    """Phase 23: the K3 / K10 sweeps above the tiled ν (chained one-step
+    launches) against their twins at ``CHAIN_SHAPES``, constant and
+    weighted, float32 and float64; median times at the timed shapes."""
+    from spacetime_tpu_torch.fem import P1System, unit_cube_mesh
+    from spacetime_tpu_torch.models import get_problem
+    from spacetime_tpu_torch.ops.mg_kernels import (MSKernelLevel,
+                                                    VarMSKernelLevel)
+    from spacetime_tpu_torch.ops.multigrid import GalerkinMultiShiftMultigrid
+
+    phase("23 the chained sweeps (K3, K10 above the tiled nu) against their "
+          "twins")
+    rng = np.random.default_rng(SEED + 7)
+    const = {d: build_solver(f"smooth{d}d", 8, 1, dtype=torch.float32,
+                             device=DEVICE, inner="mg").msmg for d in (2, 3)}
+    system3 = P1System.from_problem(get_problem("varcoef3d"),
+                                    unit_cube_mesh(32))
+    varh = {2: var_hierarchy(128),
+            3: GalerkinMultiShiftMultigrid.build(
+                3, 32, system3.A, system3.M, n_coarse=16)[0]}
+    for dtype in (torch.float32, torch.float64):
+        for dim, shapes in CHAIN_SHAPES.items():
+            for T, gs, nu, timed in shapes:
+                lev = const[dim].levels[0]
+                kl = MSKernelLevel(lev.A_st, lev.M_st, nu, gs=gs)
+                x = mg_inputs(const[dim], kl, T, dtype, rng)
+                check_forms(kl, chain_forms(kl, x, False), mg_bound, T, dtype,
+                            mg_results, timed=timed)
+                vk = VarMSKernelLevel(varh[dim].levels[0], nu, gs=gs)
+                x = var_inputs(varh[dim], vk, T, dtype, rng)
+                check_forms(vk, chain_forms(vk, x, True), var_bound, T, dtype,
+                            mg_results, timed=timed)
+                del x
+                torch.cuda.empty_cache()
+
+
+def phase_nu_paths(build_solver, paths):
+    """Phase 24: ν above the tiled kernels on the main path: smooth3d
+    17³×16 f64 with mg_nu=4 to the JAX package's count and L2, then f32
+    ``solve_refined`` (f32 inner, f64 legs) with ν = 4 in 3-D and 9 in 2-D,
+    constant and weighted: each launches the chained sweep in both dtypes
+    and never the tiled one."""
+    f32, f64 = torch.float32, torch.float64
+    n3, J3 = REF_3D_NU4["n"], REF_3D_NU4["levels"]
+    phase(f"24 sweeps above the tiled nu on the main path: smooth3d "
+          f"{n3 + 1}^3 x {2 ** J3} f64 mg_nu=4; f32 solve_refined with nu 4 "
+          "(3-D) and 9 (2-D), constant and weighted")
+    s = build_solver("smooth3d", n3, J3, dtype=f64, device=DEVICE, inner="mg",
+                     mg_nu=4)
+    s.assemble_rhs_host()
+    paths.start()
+    r = s.solve(tol=1e-8)
+    rel = r.residuals[-1] / r.residuals[0]
+    print(f"smooth3d mg_nu=4 f64: iterations {r.iterations} (JAX CPU "
+          f"{REF_3D_NU4['iterations']}), converged {r.converged}, rel "
+          f"{rel:.3e}, L2 {r.l2_error:.10e} (JAX CPU {REF_3D_NU4['l2']:.10e}),"
+          f" solve {r.solve_seconds:.4f} s")
+    assert r.converged and rel <= 1e-8, rel
+    assert r.iterations == REF_3D_NU4["iterations"], r.iterations
+    assert abs(r.l2_error / REF_3D_NU4["l2"] - 1.0) <= 1e-6, r.l2_error
+    counts = paths.stop("smooth3d mg_nu=4 f64", per=r.iterations)
+    assert counts[("cheb_step", f64, 3)] > 0, counts
+    assert counts[("smooth", f64, 3)] == 0, counts
+    del s
+    for name, n, J, nu, kw in (("smooth3d", 16, 4, 4, {}),
+                               ("varcoef3d", 16, 4, 4, {}),
+                               ("smooth2d", 32, 4, 9, {"mg_coarse": 8}),
+                               ("varcoef2d", 32, 4, 9, {"mg_coarse": 8})):
+        s = build_solver(name, n, J, dtype=f32, device=DEVICE, inner="mg",
+                         mg_nu=nu, **kw)
+        for dt in (f32, f64):
+            s.assemble_rhs_host(dt)
+        paths.start()
+        r = s.solve_refined(tol=1e-8, compute_error=False)
+        rel = r.residuals[-1] / r.residuals[0]
+        print(f"{name} {n + 1}^{s.problem.dim} x {2 ** J} mg_nu={nu} f32 "
+              f"solve_refined: inner iterations {r.iterations} in "
+              f"{len(r.residuals) - 1} rounds, converged {r.converged}, rel "
+              f"{rel:.3e}, solve {r.solve_seconds:.4f} s")
+        assert r.converged and rel <= 1e-8, rel
+        counts = paths.stop(f"{name} mg_nu={nu}")
+        var = name.startswith("varcoef")
+        dim = s.problem.dim
+        for dt in (f32, f64):
+            assert counts[("cheb_step_var" if var else "cheb_step", dt,
+                           dim)] > 0, (dt, counts)
+            assert counts[("smooth_var" if var else "smooth", dt, dim)] == 0
+        del s
+    torch.cuda.empty_cache()
+
+
+def phase_oracle_rows(build_solver, paths):
+    """Phase 25: the oracle's rows of ``ORACLE_ROWS`` in float64 on the
+    card: its iteration counts, its 7-digit histories and its L2."""
+    f64 = torch.float64
+    phase("25 the oracle's rows in float64 on the card (dense inner solves)")
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "baseline_oracle.json")) as f:
+        oracle = {row["config"]: row for row in json.load(f)}
+    for label, problem, n, J, tol, fmt in ORACLE_ROWS:
+        row = oracle[label]
+        t0 = time.perf_counter()
+        s = build_solver(problem, n, J, dtype=f64, device=DEVICE,
+                         spatial_format=fmt)
+        s.assemble_rhs_host()
+        setup_s = time.perf_counter() - t0
+        assert s.inner == "dense", s.inner
+        paths.start()
+        r = s.solve(tol=tol)
+        counts = paths.stop(f"oracle {label}")
+        rel = r.residuals / r.residuals[0]
+        print(f"{label} ({s.spatial_format}, m={s.m}): iterations "
+              f"{r.iterations} (oracle {row['iters']}), L2 {r.l2_error:.10e} "
+              f"(oracle {row['l2_error']:.10e}); setup and loads {setup_s:.2f}"
+              f" s, solve {r.solve_seconds:.4f} s")
+        assert r.converged and r.iterations == row["iters"], r.iterations
+        assert seven_digits(rel) == row["rel_residuals"], (
+            seven_digits(rel), row["rel_residuals"])
+        assert abs(r.l2_error / row["l2_error"] - 1.0) <= 1e-9, r.l2_error
+        if fmt == "ell":
+            assert counts[("spmm", f64)] > 0, counts
+        elif s.spatial_format == "stencil":
+            assert counts[("B", f64)] > 0 and counts[("BT", f64)] > 0, counts
+        else:
+            assert counts[("apply_var", f64, s.problem.dim)] > 0, counts
+        del s
+    torch.cuda.empty_cache()
+
+
+def phase_lshape(lsh, paths):
+    """Phase 26: the L-shape at n = 256 (``lsh``, ell + cheb, f32):
+    ``solve(tol=1e-6)`` twice, iterations within ±1 of the JAX package's,
+    exactly ``k20_per_solve`` K20 launches and no other kernel, L2 within
+    1% of the float64 solve's."""
+    f32 = torch.float32
+    phase(f"26 lshape2d n={REF_LSHAPE['n']}, J={REF_LSHAPE['levels']} "
+          f"({(lsh.N + 1) * lsh.m:,} DoF), ell + cheb, f32: solve(tol=1e-6) "
+          "twice")
+    t0 = time.perf_counter()
+    lsh.assemble_rhs_host()
+    print(f"loads {time.perf_counter() - t0:.2f} s", flush=True)
+    paths.start()
+    runs = []
+    for call in (1, 2):
+        r = lsh.solve(tol=1e-6, compute_error=False)
+        rel = r.residuals[-1] / r.residuals[0]
+        print(f"solve call {call}: iterations {r.iterations} (JAX package, "
+              f"TPU: {REF_LSHAPE['iterations']}), converged {r.converged}, "
+              f"rel {rel:.3e}, solve {r.solve_seconds:.4f} s", flush=True)
+        assert r.converged and rel <= 1e-6, rel
+        assert abs(r.iterations - REF_LSHAPE["iterations"]) <= 1, r.iterations
+        runs.append(r)
+    counts = paths.stop("lshape n=256 ell cheb f32",
+                        per=sum(x.iterations for x in runs))
+    want = sum(k20_per_solve(lsh, x.iterations) for x in runs)
+    print(f"K20 launches {counts[('spmm', f32)]} (expected {want}: "
+          f"{k20_per_solve(lsh, 1) - k20_per_solve(lsh, 0)} per PCG "
+          "iteration)")
+    assert counts[("spmm", f32)] == want, (counts[("spmm", f32)], want)
+    assert all(c == 0 for key, c in counts.items() if key != ("spmm", f32)), (
+        counts)
+    t0 = time.perf_counter()
+    l2 = lsh._l2_error(runs[0].U)
+    print(f"L2(IxOmega) {l2:.6e} (the port's float64 dia solve "
+          f"{REF_LSHAPE['l2']}), host error loop {time.perf_counter() - t0:.2f}"
+          f" s; steady solve {runs[1].solve_seconds:.4f} s")
+    assert abs(l2 / REF_LSHAPE["l2"] - 1.0) <= REF_LSHAPE["l2_band"], l2
+
+
 
 
 def device_ms(fn) -> float:
@@ -522,8 +901,8 @@ class Paths:
     """Launch counts of every kernel per main path: zeroed just before a
     path, read just after it."""
 
-    def __init__(self, kron, mgk):
-        self.modules = (kron, mgk)
+    def __init__(self, *modules):
+        self.modules = modules
         self.counts = {}  # path -> {kernel key: launches}
 
     def start(self) -> None:
@@ -554,7 +933,7 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from spacetime_tpu_torch.ops import kron, mg_kernels, native
+    from spacetime_tpu_torch.ops import kron, mg_kernels, native, spmv
     from spacetime_tpu_torch.ops.mg_kernels import (MSKernelLevel,
                                                     VarMSKernelLevel)
     from spacetime_tpu_torch.solver import build_solver
@@ -658,7 +1037,7 @@ def main() -> int:
                     torch.cuda.empty_cache()
     del small3
 
-    paths = Paths(kron, mg_kernels)
+    paths = Paths(kron, mg_kernels, spmv)
     f32, f64 = torch.float32, torch.float64
     phase("7 solve(tol=1e-6), f32")
     paths.start()
@@ -953,7 +1332,7 @@ def main() -> int:
         (flag.N + 1,) + flag.gs), dtype=f32, device="cuda")
     V = U[:-1].contiguous()
     hh, Aw = p["h_half"], p["Aw"]
-    plain_B = lambda: (flag._spmv_M(U[1:] - U[:-1])
+    plain_B = lambda: (flag._spmv_M(U[1:] - U[:-1], p)
                        + hh * kl0.apply_A_plain(U[1:] + U[:-1], Aw))
     plain_BT = lambda: kl0.apply_A_plain(V, Aw)
     b_ms = {"B": (device_ms(lambda: flag.apply_B(U, p)), device_ms(plain_B)),
@@ -1114,6 +1493,13 @@ def main() -> int:
     var_path("weighted V(2,1)", its + r.iterations, len(v21.msmg.levels),
              f32, legs=f64, semi=True)
     del v21
+
+    lsh, ell_results = phase_k20(build_solver, spmv)
+    phase_chains(build_solver, mg_results)
+    phase_nu_paths(build_solver, paths)
+    phase_oracle_rows(build_solver, paths)
+    phase_lshape(lsh, paths)
+    del lsh
     phase(None)
 
     kernels = []
@@ -1141,10 +1527,14 @@ def main() -> int:
                  "smooth_var": "smooth", "residual_var": "residual",
                  "apply_var": "apply_A",
                  "residual_restrict_var": "residual_restrict",
-                 "fused_pre_var": "fused_pre", "fused_post_var": "fused_post"}
+                 "fused_pre_var": "fused_pre", "fused_post_var": "fused_post",
+                 "cheb_step": "smooth", "cheb_step_var": "smooth"}
     for (op, dtype, dim), k in mg_kernels.KERNELS.items():
         rec = mg_results[(op, dtype, dim)]
-        T, gs = MG_MAIN[("var" if op.endswith("_var") else "const", dim)]
+        chained = op.startswith("cheb_step")
+        T, gs = (CHAIN_MAIN[dim] if chained else
+                 MG_MAIN[("var" if op.endswith("_var") else "const", dim)])
+        nu = CHAIN_SHAPES[dim][0][2] if chained else 2
         at = rec["forms"][f"{main_form[op]} {shape_key(T, gs)}"]
         kernels.append({
             "name": k.name,
@@ -1155,7 +1545,25 @@ def main() -> int:
             "max_abs_err": rec["max_abs_err"],
             **{key: at[key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-            "form": f"{main_form[op]}, nu=2, at T={T}, {'x'.join(map(str, gs))}",
+            "form": f"{main_form[op]}, nu={nu}, at T={T}, "
+                    f"{'x'.join(map(str, gs))}",
+            "forms": rec["forms"],
+        })
+    for (op, dtype), k in spmv.KERNELS.items():
+        rec = ell_results[dtype]
+        at = rec["forms"]["A n=256 T=64"]
+        kernels.append({
+            "name": k.name,
+            "route": "cuda",
+            "source": spmv.SOURCE,
+            "replaces": k.replaces,
+            "launches": paths.total((op, dtype)),
+            "max_abs_err": rec["max_abs_err"],
+            **{key: at[key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "form": "A of the lshape2d n=256 solve (m=48641) at T=64; "
+                    "library_ms is torch.sparse.mm (cuSPARSE CSR), bound_ms "
+                    "from the nonzeros",
             "forms": rec["forms"],
         })
     assert all(k["launches"] > 0 for k in kernels), [

@@ -6,21 +6,22 @@ needs (meshes, P1 assembly, load quadrature, time grids, the wavelet
 structure, the multigrid hierarchy) is its own copy, kept bit-for-bit equal
 to the JAX package's by the tests. The device side is PyTorch, and the
 Pallas kernels of the JAX package on its path are CUDA kernels written for
-``sm_90a``: B and Bᵀ (``csrc/kron.cu``) and the multigrid V-cycle kernels
-(``csrc/mg.cu``).
+``sm_90a``: B and Bᵀ (``csrc/kron.cu``), the multigrid V-cycle kernels
+(``csrc/mg.cu``) and the blocked-ELL SpMM (``csrc/ell.cu``).
 
-The port covers the structured main path in 2-D and 3-D (``smooth2d``,
-``smooth3d``): constant stencils, multi-shift geometric multigrid inner
-solves, standard PCG on uniform dyadic time grids, and mixed-precision
-refinement with native f64 residual legs; and coefficient-weighted
-problems in 2-D (``varcoef2d``): per-node A weights and the Galerkin
-multigrid hierarchy.
+The port covers uniform dyadic time grids in 2-D and 3-D: constant stencils
+(``smooth2d``, ``smooth3d``, ``moving_peak2d``), coefficient-weighted
+problems (``varcoef2d``, ``varcoef3d``: per-node A weights and the Galerkin
+multigrid hierarchy) and the L-shaped domain (``lshape2d``: the flat DIA or
+blocked-ELL formats); dense, Chebyshev and multigrid inner solves; standard
+PCG and mixed-precision refinement with native f64 residual legs.
 
-- ``fem``     — structured meshes, P1 assembly, loads, time grids, L2 error;
+- ``fem``     — structured meshes and the L-shape, P1 assembly, loads,
+                time grids, L2 error;
 - ``models``  — problems with exact solutions as torch functions;
-- ``ops``     — stencils, the B/Bᵀ kernels and their plain twins, the
-                wavelet transform and the multigrid hierarchy and V-cycle
-                with its kernels;
+- ``ops``     — stencils, DIA and blocked ELL, the kernels and their plain
+                twins, the wavelet transform, the multigrid hierarchy and
+                V-cycle, the Chebyshev helpers;
 - ``solver``  — PCG and ``HeatSolver``;
 - ``convert`` — the JAX solver's params in the port's layout (tests);
 - ``run``     — the command-line interface (``python -m spacetime_tpu_torch``).

@@ -1,20 +1,34 @@
 """The JAX solver's params in the port's layout.
 
-``params_from_jax`` takes the params pytree of a JAX ``HeatSolver``
-(``inner="mg"``, the stencil or the weighted ``"vstencil"`` format) with its
+``params_from_jax`` takes the params pytree of a JAX ``HeatSolver`` with its
 leaves as numpy arrays, and returns the dict
-``spacetime_tpu_torch.solver.HeatSolver.params_for`` builds. The JAX
-package pre-broadcasts per-time-row scales to (T, *gs[:-1], 1) and the
-kernels' h columns and multigrid ``cols`` to (T, 1, 128) lanes; the port
-keeps (T, 1, ..., 1) columns and (T,) vectors. A JAX level built without
-Pallas kernels (f64, or below its size gate) has no ``cols``; the port's
-kernels run on every level, so its columns are then taken from the level's
-row params, which hold the same values. The weighted tree's A weights
-(``Aw``, per level and the finest) are carried as they are; its levels have
-no 1/D column (the diagonal is per node). Its ``cheb_invM`` and
-``cheb_coefM`` are dropped: M is the constant mass stencil, so the Jacobi
-vector holds one value, and the port's K_H is the constant format's stencil
-Chebyshev, the same recurrence. Tests hold the two solvers' params equal through this.
+``spacetime_tpu_torch.solver.HeatSolver.params_for`` builds for the same
+format and inner solver:
+
+- every format: the per-time-row scales and the wavelet tensors. The JAX
+  package pre-broadcasts per-row scales to (T, *gs[:-1], 1) and the
+  kernels' h columns and multigrid ``cols`` to (T, 1, 128) lanes; the port
+  keeps (T, 1, ..., 1) columns and (T,) vectors;
+- ``"stencil"``: ``kron`` (taken from the row scales where the JAX solver
+  built no Pallas B/Bᵀ); ``"vstencil"``: the weights ``Aw``; ``"dia"``:
+  ``dia_Mv``/``dia_Av``; ``"ell"``: also ``ell_M``/``ell_A`` (blocks,
+  colidx int32). A JAX f64 solver on ``"ell"`` holds no ELL arrays (it
+  falls back to DIA) and the port's ``"ell"`` format needs them, so only
+  f32 JAX trees carry that format over;
+- ``inner="dense"``: ``Kx_inv``, ``Minv`` and the ``sandwich`` list;
+- ``inner="cheb"``: the Jacobi vectors ``cheb_invA``/``invM``/``invS`` and
+  the coefficient rows ``cheb_coefA``/``coefM``/``coefS`` as lists of
+  (α_k, β_k) Python floats (the port loops over them where JAX scans);
+- ``inner="mg"``: the coarse inverses and each level's row params. A JAX
+  level built without Pallas kernels (f64, or below its size gate) has no
+  ``cols``; the port's kernels run on every level, so its columns are then
+  taken from the level's row params, which hold the same values. The
+  weighted tree's levels carry their ``Aw``; its ``cheb_invM`` and
+  ``cheb_coefM`` are dropped: M is the constant mass stencil, so the Jacobi
+  vector holds one value, and the port's K_H is the constant format's
+  stencil Chebyshev, the same recurrence.
+
+Tests hold the two solvers' params and operators equal through this.
 """
 
 from __future__ import annotations
@@ -23,6 +37,7 @@ import numpy as np
 import torch
 
 from .ops.mg_kernels import MSKernelLevel, VarMSKernelLevel
+from .ops.multigrid import coef_rows
 from .ops.stencil import row_scale
 
 
@@ -48,14 +63,37 @@ def params_from_jax(tree: dict, device, dtype) -> dict:
             ]
         }
     weighted = "Aw" in tree
+    flat = "dia_Mv" in tree
     if weighted:
         p["Aw"] = mk(tree["Aw"])
-        level, rows = VarMSKernelLevel, ("omega", "inv_theta", "inv_delta")
+    elif flat:
+        p["dia_Mv"], p["dia_Av"] = mk(tree["dia_Mv"]), mk(tree["dia_Av"])
+        for k in ("ell_M", "ell_A"):
+            if k in tree:
+                p[k] = {"blocks": mk(tree[k]["blocks"]),
+                        "colidx": torch.tensor(np.asarray(tree[k]["colidx"]),
+                                               dtype=torch.int32,
+                                               device=device)}
     else:
         kr = tree.get("kron")
         h128 = _rows(kr["h128"]) if kr is not None else _rows(tree["h_half"])
         hs128 = _rows(kr["hs128"]) if kr is not None else _rows(tree["h_stab"])
         p["kron"] = {"h128": mk(h128), "hs128": mk(hs128)}
+    if "Kx_inv" in tree:
+        p["Kx_inv"], p["Minv"] = mk(tree["Kx_inv"]), mk(tree["Minv"])
+        p["sandwich"] = [mk(S) for S in tree["sandwich"]]
+    if "cheb_coefA" in tree:
+        for k in ("cheb_invA", "cheb_invM"):
+            p[k] = mk(tree[k])
+        p["cheb_invS"] = [mk(v) for v in tree["cheb_invS"]]
+        p["cheb_coefA"] = coef_rows(tree["cheb_coefA"], dtype)
+        p["cheb_coefM"] = coef_rows(tree["cheb_coefM"], dtype)
+        p["cheb_coefS"] = [coef_rows(c, dtype) for c in tree["cheb_coefS"]]
+    if "ms_ky" not in tree:
+        return p
+    if weighted:
+        level, rows = VarMSKernelLevel, ("omega", "inv_theta", "inv_delta")
+    else:
         level = MSKernelLevel
         rows = ("omega", "inv_diag", "inv_theta", "inv_delta")
     p["mg_cinv_ky"] = mk(tree["mg_cinv_ky"])

@@ -59,6 +59,23 @@
 // The x + P e_c stage of the weighted V-cycle does not depend on the
 // coefficients: it is K9.
 //
+// The chained sweeps, for ν above what the tiled K3/K10 hold (ν ≤ 8 in
+// 2-D, ν ≤ 3 in 3-D; MAX_NU in ops/mg_kernels.py):
+//
+//   mg_cheb_step     (K3's chain): one step of the recurrence in device
+//                memory, Op applied to d, r, d and x updated; the wrapper
+//                launches it ν times (the first from b and x or 0). 2-D
+//                and 3-D.
+//   mg_cheb_step_var (K10's chain): the same with Op_w and the per-node
+//                diagonal. 2-D and 3-D.
+//
+// One step per launch rather than sweeps of ≤ MAX_NU steps carrying (x, r,
+// d, ρ) across launches: a tiled sweep that starts from a stored r and d
+// needs two more window buffers, which the 3-D f64 brick has no room for
+// (three buffers take 174.6 KB at ν = 3), and each chained launch would
+// still recompute its halo. The step kernel is one thread per point like
+// K4; a step reads d (its taps), r and x and writes r, d and x.
+//
 // What bounds them: memory traffic and instruction count, not arithmetic.
 // A sweep applies Op ν times (7 taps in 2-D, 15 in 3-D) to data that is
 // read once: the tiled kernels keep every intermediate (r, d, x) in shared
@@ -89,8 +106,8 @@
 //   for ragged extents. Tiles start at multiples of 32, so fine tiles start
 //   at even offsets and a coarse point's four fine pairs lie in its own
 //   tile plus one fine row and column of halo. A 3-D brick with three
-//   double buffers takes 174.6 KB of shared memory at ν = 3, so the 3-D
-//   sweep takes ν ≤ 3.
+//   double buffers takes 174.6 KB of shared memory at ν = 3, so the tiled
+//   3-D sweep takes ν ≤ 3 (above it, the chained sweep).
 // - The restriction and the prolongation are exact pair sums; the Pallas
 //   kernels' banded 0/1 matrices on the MXU (`_dot_last`, :1253) are a TPU
 //   device and are not ported.
@@ -985,6 +1002,82 @@ __global__ void mg_residual_restrict_var_kernel(
   });
 }
 
+// One step of the degree-ν Chebyshev–Jacobi recurrence at flat index idx,
+// in device memory (the chained sweeps, see mg_cheb_step_kernel): the
+// first step takes x (null: x = 0) and b and writes r = D⁻¹(b − Op x),
+// d_out = r/θ and x_out = x + d_out; a later one reads d_in and r and
+// writes r −= D⁻¹ Op d_in, d_out = c1·d_in + c2/δ·r, x_out += d_out.
+// op_at(f) is Op applied to field f at this point.
+template <typename T, typename OpAt>
+__device__ __forceinline__ void cheb_step_at(
+    int64_t idx, int first, const T* __restrict__ x, const T* __restrict__ b,
+    T iD, T iT, T iDel, T* __restrict__ r, const T* __restrict__ d_in,
+    T* __restrict__ d_out, T* __restrict__ xo, double c1, double c2,
+    const OpAt& op_at) {
+  if (first) {
+    const T ri = iD * (x == nullptr ? b[idx] : b[idx] - op_at(x));
+    const T d = ri * iT;
+    r[idx] = ri;
+    d_out[idx] = d;
+    xo[idx] = x == nullptr ? d : x[idx] + d;
+  } else {
+    const T ri = r[idx] - iD * op_at(d_in);
+    const T d = T(c1) * d_in[idx] + (T(c2) * iDel) * ri;
+    r[idx] = ri;
+    d_out[idx] = d;
+    xo[idx] = xo[idx] + d;
+  }
+}
+
+// K3's chained sweep: one Chebyshev step with the constant pair groups,
+// one thread per point. Op reads d_in's neighbours, so d ping-pongs between
+// two buffers across the chain; r and x_out are read and written by their
+// own point's thread only.
+template <int DIM, typename T>
+__global__ void mg_cheb_step_kernel(
+    const T* __restrict__ x, const T* __restrict__ b,
+    const T* __restrict__ omega, const T* __restrict__ invD,
+    const T* __restrict__ invT, const T* __restrict__ invDel,
+    T* __restrict__ r, const T* __restrict__ d_in, T* __restrict__ d_out,
+    T* __restrict__ xo, int64_t nt, Grid g,
+    const __grid_constant__ PairGroups pg, int first, double c1,
+    double c2) {
+  const int64_t S = row_size(g);
+  FOR_EACH_INDEX(idx, nt * S) {
+    const Point p = point_of<DIM>(idx, g);
+    const T om = omega[p.t];
+    cheb_step_at(idx, first, x, b, invD[p.t], invT[p.t], invDel[p.t], r,
+                 d_in, d_out, xo, c1, c2, [&](const T* f) {
+                   return op_global<DIM>(pg, om, f + p.t * S, g, p.z, p.y,
+                                         p.x);
+                 });
+  }
+}
+
+// K10's chained sweep: the same step with Op_w and the per-node 1/D.
+template <int DIM, typename T>
+__global__ void mg_cheb_step_var_kernel(
+    const T* __restrict__ x, const T* __restrict__ b, const T* __restrict__ W,
+    const T* __restrict__ omega, const T* __restrict__ invT,
+    const T* __restrict__ invDel, T* __restrict__ r,
+    const T* __restrict__ d_in, T* __restrict__ d_out, T* __restrict__ xo,
+    int64_t nt, Grid g, const __grid_constant__ VarTaps vt,
+    const __grid_constant__ PairGroups pm, int first, double c1,
+    double c2) {
+  const int S = int(row_size(g));
+  FOR_EACH_INDEX(idx, nt * S) {
+    const Point p = point_of<DIM>(idx, g);
+    const T om = omega[p.t];
+    const int gi = int(idx - p.t * S);
+    cheb_step_at(idx, first, x, b, var_inv_diag_at(vt, W, S, om, gi),
+                 invT[p.t], invDel[p.t], r, d_in, d_out, xo, c1, c2,
+                 [&](const T* f) {
+                   return var_op_global<DIM>(vt, pm, W, om, f + p.t * S, g,
+                                             p.z, p.y, p.x);
+                 });
+  }
+}
+
 #undef FOR_EACH_INDEX
 
 int blocks_for(int64_t total) {
@@ -1212,6 +1305,32 @@ int launch_residual_restrict_var(const T* x, const T* b, const T* W,
   return int(cudaGetLastError());
 }
 
+template <int DIM, typename T>
+int launch_cheb_step(const T* x, const T* b, const T* omega, const T* invD,
+                     const T* invT, const T* invDel, T* r, const T* d_in,
+                     T* d_out, T* xo, int64_t nt, Grid g,
+                     const PairGroups* pg, int first, double c1, double c2,
+                     void* stream) {
+  mg_cheb_step_kernel<DIM, T><<<blocks_for(points(nt, g)), kThreads, 0,
+                                as_stream(stream)>>>(
+      x, b, omega, invD, invT, invDel, r, d_in, d_out, xo, nt, g, *pg, first,
+      c1, c2);
+  return int(cudaGetLastError());
+}
+
+template <int DIM, typename T>
+int launch_cheb_step_var(const T* x, const T* b, const T* W, const T* omega,
+                         const T* invT, const T* invDel, T* r, const T* d_in,
+                         T* d_out, T* xo, int64_t nt, Grid g,
+                         const VarTaps* vt, const PairGroups* pm, int first,
+                         double c1, double c2, void* stream) {
+  mg_cheb_step_var_kernel<DIM, T><<<blocks_for(points(nt, g)), kThreads, 0,
+                                    as_stream(stream)>>>(
+      x, b, W, omega, invT, invDel, r, d_in, d_out, xo, nt, g, *vt, *pm,
+      first, c1, c2);
+  return int(cudaGetLastError());
+}
+
 // The 2-D or 3-D instantiation of launcher L for a runtime dim.
 #define BY_DIM(L, T, ...) \
   (dim == 3 ? L<3, T>(__VA_ARGS__) : L<2, T>(__VA_ARGS__))
@@ -1331,6 +1450,25 @@ int mg_var_taps_size() { return int(sizeof(VarTaps)); }
     return launch_fused_post_var<T>(x, b, ec, W, omega, invT, invDel, out,    \
                                     nt, Grid{1, int(ny), int(nx)}, vt, pm,    \
                                     nu, stream);                              \
+  }                                                                           \
+  int mg_cheb_step_##SFX(const T* x, const T* b, const T* omega,              \
+                         const T* invD, const T* invT, const T* invDel, T* r, \
+                         const T* d_in, T* d_out, T* xo, int64_t nt,          \
+                         int64_t nz, int64_t ny, int64_t nx, int dim,         \
+                         const PairGroups* pg, int first, double c1,          \
+                         double c2, void* stream) {                           \
+    const Grid g{int(nz), int(ny), int(nx)};                                  \
+    return BY_DIM(launch_cheb_step, T, x, b, omega, invD, invT, invDel, r,    \
+                  d_in, d_out, xo, nt, g, pg, first, c1, c2, stream);         \
+  }                                                                           \
+  int mg_cheb_step_var_##SFX(                                                 \
+      const T* x, const T* b, const T* W, const T* omega, const T* invT,      \
+      const T* invDel, T* r, const T* d_in, T* d_out, T* xo, int64_t nt,      \
+      int64_t nz, int64_t ny, int64_t nx, int dim, const VarTaps* vt,         \
+      const PairGroups* pm, int first, double c1, double c2, void* stream) {  \
+    const Grid g{int(nz), int(ny), int(nx)};                                  \
+    return BY_DIM(launch_cheb_step_var, T, x, b, W, omega, invT, invDel, r,   \
+                  d_in, d_out, xo, nt, g, vt, pm, first, c1, c2, stream);     \
   }
 
 MG_ENTRY_POINTS(float, f32)

@@ -1,17 +1,19 @@
-"""Structured simplicial meshes of the unit square and the unit cube.
+"""Simplicial meshes: the structured unit square and unit cube, and the
+L-shaped domain.
 
-The port's copy of the structured half of ``spacetime_tpu/fem/mesh.py``:
-the same vertex order, elements, boundary mask and interior indices, so the
-assembled operators are the JAX package's bit for bit. Structured meshes
+The port's copy of ``spacetime_tpu/fem/mesh.py`` as far as the port runs
+it: the same vertex order, elements, boundary mask and interior indices, so
+the assembled operators are the JAX package's bit for bit. Structured meshes
 carry a ``grid_shape``, which makes the interior P1 operators constant
-stencils. The unstructured meshes (the L-shaped domain, red refinement,
-imported meshes) belong to the unstructured slice of the port (ROADMAP.md
-queue 1).
+stencils; the L-shaped domain has none and runs the flat-dof formats
+(``"dia"``, ``"ell"``). Red refinement and imported meshes belong to queue 1
+item 5 of ROADMAP.md.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import numpy as np
 
@@ -124,13 +126,66 @@ def unit_cube_mesh(n: int) -> Mesh:
     return Mesh(vertices, tets, on_bdry, interior, grid_shape=(n - 1, n - 1, n - 1))
 
 
+def _boundary_vertex_mask(num_vertices: int, elements: np.ndarray) -> np.ndarray:
+    """Topological boundary detection: a facet (edge in 2D, face in 3D) is on
+    the boundary iff it belongs to exactly one element; boundary vertices are
+    the vertices of boundary facets (the whole boundary is Dirichlet)."""
+    k = elements.shape[1]  # d+1 vertices per simplex
+    d = k - 1
+    facets = np.concatenate(
+        [elements[:, list(c)] for c in itertools.combinations(range(k), d)],
+        axis=0,
+    )
+    F = np.sort(facets.astype(np.int64), axis=1)
+    order = np.lexsort(F.T[::-1])
+    Fs = F[order]
+    new = np.ones(len(Fs), dtype=bool)
+    new[1:] = (Fs[1:] != Fs[:-1]).any(axis=1)
+    grp = np.cumsum(new) - 1
+    counts = np.bincount(grp)
+    bdry = Fs[new][counts == 1]
+    mask = np.zeros(num_vertices, dtype=bool)
+    mask[bdry.ravel()] = True
+    return mask
+
+
+def l_shape_mesh(n: int) -> Mesh:
+    """L-shaped domain (0,1)² minus the closed quadrant [½,1]², n×n base cells
+    (n even), SW–NE diagonals; no ``grid_shape``."""
+    if n < 4 or n % 2:
+        raise ValueError("need even n >= 4")
+    xs = np.linspace(0.0, 1.0, n + 1)
+    X, Y = np.meshgrid(xs, xs, indexing="xy")
+    vertices_full = np.stack([X.ravel(), Y.ravel()], axis=1)
+
+    ix, iy = np.meshgrid(np.arange(n), np.arange(n), indexing="xy")
+    keep = ~((ix >= n // 2) & (iy >= n // 2))
+    ix, iy = ix[keep].ravel(), iy[keep].ravel()
+    v00 = iy * (n + 1) + ix
+    v10 = v00 + 1
+    v01 = v00 + (n + 1)
+    v11 = v01 + 1
+    tris = np.concatenate(
+        [np.stack([v00, v10, v11], axis=1), np.stack([v00, v11, v01], axis=1)],
+        axis=0,
+    )
+    used = np.unique(tris)
+    remap = np.full(vertices_full.shape[0], -1, dtype=np.int64)
+    remap[used] = np.arange(used.size)
+    vertices = vertices_full[used]
+    tris = remap[tris].astype(np.int32)
+
+    on_bdry = _boundary_vertex_mask(vertices.shape[0], tris)
+    interior = np.flatnonzero(~on_bdry).astype(np.int32)
+    return Mesh(vertices, tris, on_bdry, interior, grid_shape=None)
+
+
 def domain_mesh(domain: str, dim: int, n: int) -> Mesh:
     """Mesh factory keyed by a problem's domain tag."""
     if domain == "unit":
         return unit_square_mesh(n) if dim == 2 else unit_cube_mesh(n)
     if domain == "lshape":
-        raise NotImplementedError(
-            "the L-shaped domain is not ported yet: it belongs to the "
-            "unstructured slice of the port (ROADMAP.md queue 1)"
-        )
+        if dim != 2:
+            raise ValueError("lshape domain is 2D")
+        return l_shape_mesh(n)
     raise ValueError(f"unknown domain {domain!r}")

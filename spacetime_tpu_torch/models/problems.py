@@ -11,9 +11,10 @@ evaluate in float64 and return numpy arrays, which is what the host
 assembly and quadrature (``fem.assemble_p1``, ``fem.spacetime_loads``,
 ``fem.l2_error_spacetime``) call.
 
-This slice carries the smooth family and the variable-coefficient family
-(``varcoef2d`` and ``varcoef3d`` solve); the singular, moving-peak and
-L-shape problems come with the slices that need them (ROADMAP.md, queue 1).
+The port carries the smooth family, the variable-coefficient family
+(``varcoef2d``, ``varcoef3d``), ``moving_peak2d`` and ``lshape2d`` (on the
+L-shaped domain, ``domain="lshape"``); the singular problems come with the
+graded time grids (ROADMAP.md queue 1 item 1).
 """
 
 from __future__ import annotations
@@ -170,8 +171,27 @@ def _varcoef(dim):
                    reaction=reaction)
 
 
-PROBLEMS = {p.name: p for p in [_smooth(2), _smooth(3), _varcoef(2),
-                                _varcoef(3)]}
+def _moving_peak2d():
+    def u(t, x):
+        cx = 0.25 + 0.5 * t
+        cy = 0.5
+        r2 = (x[0] - cx) ** 2 + (x[1] - cy) ** 2
+        return 16.0 * _prod(x * (1.0 - x)) * torch.exp(-50.0 * r2)
+
+    return Problem(name="moving_peak2d", dim=2, exact=u)
+
+
+def _lshape2d():
+    def u(t, x):
+        # sin(2πx)·sin(2πy) vanishes on x, y ∈ {0, ½, 1}: on the whole
+        # boundary of the L-shaped domain, reentrant edges included
+        return torch.exp(-t) * _prod(torch.sin(2.0 * math.pi * x))
+
+    return Problem(name="lshape2d", dim=2, exact=u, domain="lshape")
+
+
+PROBLEMS = {p.name: p for p in [_smooth(2), _smooth(3), _moving_peak2d(),
+                                _lshape2d(), _varcoef(2), _varcoef(3)]}
 
 
 def get_problem(name: str) -> Problem:
@@ -180,8 +200,8 @@ def get_problem(name: str) -> Problem:
     except KeyError:
         raise KeyError(
             f"unknown problem {name!r}; available: {sorted(PROBLEMS)} (the "
-            "other problems of the JAX package come with later slices of "
-            "the port, ROADMAP.md queue 1)"
+            "singular problems of the JAX package come with the graded time "
+            "grids, ROADMAP.md queue 1 item 1)"
         ) from None
 
 

@@ -21,8 +21,12 @@ K3, K4, K5, K8 and K9 take 2-D and 3-D grids. K6 and K7 are 2-D only: in
 3-D the V-cycle runs the semi-fused stages K3 → K8 → (coarser levels) → K9
 → K3, as the JAX package does on its blocked 3-D levels, and the 3-D forms
 of K6/K7 are not ported yet (ROADMAP.md queue 1 item 4); their wrappers
-raise on a 3-D grid. The sweep takes ν ≤ 8 in 2-D and ν ≤ 3 in 3-D
-(``MAX_NU``).
+raise on a 3-D grid. The tiled sweep holds ν ≤ 8 in 2-D and ν ≤ 3 in 3-D
+(``MAX_NU``, its halo in shared memory); above that the K3 and K10
+wrappers chain ν launches of a one-step kernel (``mg_cheb_step``,
+``mg_cheb_step_var``) that keeps r and d in device memory, so every ν ≥ 1
+runs, as in the JAX package. The fused stages keep ν ∈ {2, 3}, as JAX's
+do.
 
 For a CUDA tensor each wrapper launches the CUDA kernel of csrc/mg.cu
 (float32 and float64) and counts the launch, with one count per kernel,
@@ -53,8 +57,8 @@ node, 1/(W[center] + ω·c_M):
 
 K10–K13 take 2-D and 3-D grids; 3-D levels, 2-D V(ν, ν_post) cycles and
 ν ∉ {2, 3} run the semi-fused stages K10 → K13 → (coarser levels) → K9 →
-K10, the fused K14/K15 the rest of 2-D. The weighted sweep has the
-constant sweep's ν limits.
+K10, the fused K14/K15 the rest of 2-D. The weighted sweep chains as the
+constant one does above ``MAX_NU``.
 
 The sharded-slab forms of the Pallas kernels (``vmask``, ``lead``) and the
 banded transfer matrices (``Ux``/``Wx``, a device of the TPU's matrix unit)
@@ -77,10 +81,11 @@ from .multigrid import (cheb_smooth, ms_op, pair_groups, transfer, var_op,
 from .stencil import grouped_apply, weight_groups
 
 SOURCE = "spacetime_tpu_torch/csrc/mg.cu"
-# The sweep's halo: a tile grows by ν cells per side. 2-D tiles are 32 × 32;
-# a 3-D brick of 8 × 8 × 32 with three float64 buffers fits the 227 KB of
-# shared memory up to ν = 3.
+# The tiled sweep's halo: a tile grows by ν cells per side. 2-D tiles are
+# 32 × 32; a 3-D brick of 8 × 8 × 32 with three float64 buffers fits the
+# 227 KB of shared memory up to ν = 3. Above it the sweep is chained.
 MAX_NU = {2: 8, 3: 3}
+SIGMA = 5.0 / 3.0  # the sweep's σ (``ops.multigrid.cheb_smooth``)
 MAX_ROWS = 65535  # the time row is blockIdx.z of the tiled kernels
 MAX_ROW_POINTS = 2 ** 31  # in-row indices are 32-bit
 _MG = "spacetime_tpu/ops/mg_pallas.py"
@@ -99,6 +104,9 @@ _OPS = {
                               (2, 3)),
     "fused_pre_var": ("K14 mg_fused_pre_var", f"{_MG}:2071", (2,)),
     "fused_post_var": ("K15 mg_fused_post_var", f"{_MG}:2196", (2,)),
+    # the chained sweeps above MAX_NU, one Chebyshev step per launch
+    "cheb_step": ("K3 mg_cheb_step", f"{_MG}:190", (2, 3)),
+    "cheb_step_var": ("K10 mg_cheb_step_var", f"{_MG}:856", (2, 3)),
 }
 KERNELS = {
     (op, dtype, dim): native.Kernel(
@@ -164,7 +172,7 @@ class _KernelLevel:
         col = (-1,) + (1,) * self.dim
         return {self._COLS[k]: v.reshape(col) for k, v in cols.items()}
 
-    def _prepare(self, op, X, cols, nu=None, odd=False):
+    def _prepare(self, op, X, cols, odd=False):
         """Check the main field and the columns; returns the kernel, T and
         the columns' pointers in ``_COLS`` order."""
         k = native.kernel_for(KERNELS, "mg", op, X, self.dim)
@@ -175,9 +183,6 @@ class _KernelLevel:
         if math.prod(self.gs) >= MAX_ROW_POINTS:
             raise ValueError(f"grid {self.gs}: a time row of the kernels "
                              f"holds fewer than {MAX_ROW_POINTS} points")
-        if nu is not None and not 1 <= nu <= MAX_NU[self.dim]:
-            raise ValueError(f"nu={nu}: the {self.dim}-D sweep kernels take "
-                             f"1 to {MAX_NU[self.dim]}")
         if odd and not self.semi_ok:
             raise ValueError(f"grid {self.gs}: the transfer stages need odd "
                              "extents 2n+1")
@@ -186,6 +191,38 @@ class _KernelLevel:
         for name in self._COLS:
             check_tensor(name, cols[name], X.dtype, X.device, (T,))
         return k, T, tuple(cols[name].data_ptr() for name in self._COLS)
+
+    def _sweep(self, op, x, b, nu, zero_init, pre, cols, tables):
+        """K3 / K10: the tiled sweep ``op`` for ν ≤ MAX_NU, else ν chained
+        launches of the one-step kernel ``cheb_step`` (+ "_var"). ``pre``
+        are the fields between b and the columns (W), ``tables`` the
+        kernel's tables."""
+        if nu < 1:
+            raise ValueError(f"nu={nu}: a sweep takes at least one step")
+        chained = nu > MAX_NU[self.dim]
+        k, T, cp = self._prepare(
+            op.replace("smooth", "cheb_step") if chained else op, b, cols)
+        if not zero_init:
+            check_tensor("x", x, b.dtype, b.device, b.shape)
+        xp = None if zero_init else x.data_ptr()
+        out = torch.empty_like(b)
+        if not chained:
+            k.launch(b.device, xp, b.data_ptr(), *pre, *cp, out.data_ptr(),
+                     T, *self._zyx(), *tables, nu, int(zero_init))
+            return out
+        r, d = torch.empty_like(b), (torch.empty_like(b), torch.empty_like(b))
+        step = lambda x_in, d_in, d_out, first, c1, c2: k.launch(
+            b.device, x_in, b.data_ptr(), *pre, *cp, r.data_ptr(), d_in,
+            d_out.data_ptr(), out.data_ptr(), T, *self._zyx(), *tables,
+            first, c1, c2)
+        step(xp, None, d[0], 1, 0.0, 0.0)
+        rho = 1.0 / SIGMA
+        for s in range(1, nu):
+            rho_new = 1.0 / (2.0 * SIGMA - rho)
+            step(None, d[(s - 1) % 2].data_ptr(), d[s % 2], 0, rho_new * rho,
+                 2.0 * rho_new)
+            rho = rho_new
+        return out
 
     def residual_restrict_plain(self, x, b, *args):
         """R(b − Op x); ``args`` are the level's own after ``b``."""
@@ -210,7 +247,7 @@ class _KernelLevel:
         if self.dim != 2:
             raise NotImplementedError(
                 f"{what} on the 3-D grid {self.gs}: the 3-D fused stages "
-                "are not ported yet (ROADMAP.md queue 1, item 4); 3-D levels "
+                "are not ported yet (ROADMAP.md queue 1 item 4); 3-D levels "
                 "run the semi-fused stages"
             )
 
@@ -278,17 +315,8 @@ class MSKernelLevel(_KernelLevel):
         ``zero_init``."""
         if b.device.type == "cpu":
             return self.smooth_plain(x, b, cols, zero_init, post)
-        nu = self.nu_post if post else self.nu
-        k, T, cp = self._prepare("smooth", b, cols, nu=nu)
-        if not zero_init:
-            check_tensor("x", x, b.dtype, b.device, b.shape)
-        out = torch.empty_like(b)
-        k.launch(
-            b.device, None if zero_init else x.data_ptr(), b.data_ptr(),
-            *cp, out.data_ptr(), T, *self._zyx(), self._op_table(), nu,
-            int(zero_init),
-        )
-        return out
+        return self._sweep("smooth", x, b, self.nu_post if post else self.nu,
+                           zero_init, (), cols, (self._op_table(),))
 
     def residual(self, x, b, cols):
         """K4: b − Op x."""
@@ -316,7 +344,7 @@ class MSKernelLevel(_KernelLevel):
         if b.device.type == "cpu":
             return self.fused_pre_plain(b, cols)
         self._only_2d("K6 fused_pre")
-        k, T, cp = self._prepare("fused_pre", b, cols, nu=self.nu, odd=True)
+        k, T, cp = self._prepare("fused_pre", b, cols, odd=True)
         x = torch.empty_like(b)
         rc = b.new_empty((T,) + self.coarse_gs)
         k.launch(b.device, b.data_ptr(), *cp, x.data_ptr(),
@@ -328,7 +356,7 @@ class MSKernelLevel(_KernelLevel):
         if b.device.type == "cpu":
             return self.fused_post_plain(x, b, ec, cols)
         self._only_2d("K7 fused_post")
-        k, T, cp = self._prepare("fused_post", b, cols, nu=self.nu, odd=True)
+        k, T, cp = self._prepare("fused_post", b, cols, odd=True)
         check_tensor("x", x, b.dtype, b.device, b.shape)
         check_tensor("ec", ec, b.dtype, b.device, (T,) + self.coarse_gs)
         out = torch.empty_like(b)
@@ -415,16 +443,10 @@ class VarMSKernelLevel(_KernelLevel):
         with ``zero_init``."""
         if b.device.type == "cpu":
             return self.smooth_plain(x, b, cols, W, zero_init, post)
-        nu = self.nu_post if post else self.nu
-        k, T, cp = self._prepare("smooth_var", b, cols, nu=nu)
-        if not zero_init:
-            check_tensor("x", x, b.dtype, b.device, b.shape)
         self._check_W(W, b)
-        out = torch.empty_like(b)
-        k.launch(b.device, None if zero_init else x.data_ptr(), b.data_ptr(),
-                 W.data_ptr(), *cp, out.data_ptr(), T, *self._zyx(),
-                 *self._tables(), nu, int(zero_init))
-        return out
+        return self._sweep("smooth_var", x, b,
+                           self.nu_post if post else self.nu, zero_init,
+                           (W.data_ptr(),), cols, self._tables())
 
     def residual(self, x, b, cols, W):
         """K11: b − (A_w x + ω⊙M x)."""
@@ -468,8 +490,7 @@ class VarMSKernelLevel(_KernelLevel):
         if b.device.type == "cpu":
             return self.fused_pre_plain(b, cols, W)
         self._only_2d("K14 fused_pre")
-        k, T, cp = self._prepare("fused_pre_var", b, cols, nu=self.nu,
-                                 odd=True)
+        k, T, cp = self._prepare("fused_pre_var", b, cols, odd=True)
         self._check_W(W, b)
         x = torch.empty_like(b)
         rc = b.new_empty((T,) + self.coarse_gs)
@@ -482,8 +503,7 @@ class VarMSKernelLevel(_KernelLevel):
         if b.device.type == "cpu":
             return self.fused_post_plain(x, b, ec, cols, W)
         self._only_2d("K15 fused_post")
-        k, T, cp = self._prepare("fused_post_var", b, cols, nu=self.nu,
-                                 odd=True)
+        k, T, cp = self._prepare("fused_post_var", b, cols, odd=True)
         check_tensor("x", x, b.dtype, b.device, b.shape)
         check_tensor("ec", ec, b.dtype, b.device, (T,) + self.coarse_gs)
         self._check_W(W, b)

@@ -171,6 +171,21 @@ class _GMSLevel:
     n: int  # cells per side
     gs: tuple[int, ...]  # interior grid (n-1,)*dim
 
+    @classmethod
+    def from_matrices(cls, A, M, gs: tuple[int, ...]) -> "_GMSLevel":
+        """The level of the interior CSR matrices A, M on the grid ``gs``
+        ((n-1,)*dim)."""
+        dim, n = len(gs), gs[0] + 1
+        A_vs, Aw = VarStencilOperator.from_dia(DiaMatrix.from_csr(A), gs)
+        kc = A_vs.disps.index((0,) * dim)
+        M_st = StencilOperator.from_dia(DiaMatrix.from_csr(M), gs)
+        cM = dict(zip(M_st.disps, M_st.weights))[(0,) * dim]
+        dA = np.asarray(A.diagonal())
+        dM = np.asarray(M.diagonal())
+        rsA = np.asarray(np.abs(A).sum(axis=1)).ravel()
+        rsM = np.asarray(np.abs(M).sum(axis=1)).ravel()
+        return cls(A_vs, Aw, kc, M_st, cM, dA, dM, rsA, rsM, n, gs)
+
 
 @dataclasses.dataclass(frozen=True)
 class GalerkinMultiShiftMultigrid:
@@ -200,18 +215,7 @@ class GalerkinMultiShiftMultigrid:
         while n > n_coarse:
             if n % 2:
                 raise ValueError(f"level size {n} not even (n_fine={n_fine})")
-            gs = (n - 1,) * dim
-            A_vs, Aw = VarStencilOperator.from_dia(DiaMatrix.from_csr(A), gs)
-            kc = A_vs.disps.index((0,) * dim)
-            M_st = StencilOperator.from_dia(DiaMatrix.from_csr(M), gs)
-            cM = dict(zip(M_st.disps, M_st.weights))[(0,) * dim]
-            dA = np.asarray(A.diagonal())
-            dM = np.asarray(M.diagonal())
-            rsA = np.asarray(np.abs(A).sum(axis=1)).ravel()
-            rsM = np.asarray(np.abs(M).sum(axis=1)).ravel()
-            levels.append(
-                _GMSLevel(A_vs, Aw, kc, M_st, cM, dA, dM, rsA, rsM, n, gs)
-            )
+            levels.append(_GMSLevel.from_matrices(A, M, (n - 1,) * dim))
             A = galerkin_coarsen(A, dim, n // 2)
             M = galerkin_coarsen(M, dim, n // 2)
             n //= 2
@@ -540,3 +544,113 @@ def chebyshev_stencil_inverse(st, inv_diag: float, lmin: float, lmax: float,
         return x
 
     return solve
+
+
+# ------------------------------------------- generic Chebyshev inner solves
+
+
+def generic_spectral_bounds(
+    Op, safety: float = 0.9, known_lmin: float | None = None
+) -> tuple[float, float]:
+    """(lmin, lmax) of D⁻¹·Op for an SPD sparse matrix (the calibration of
+    the ``inner="cheb"`` solves): lmax the Gershgorin row-sum bound of
+    D^-1/2 Op D^-1/2; lmin the smallest eigenvalue of that matrix by one
+    loose shift-invert Lanczos solve backed off by its residual (LOBPCG
+    where that fails), shrunk by ``safety``. ``known_lmin`` (a certified
+    lower bound, ½ for P1 mass matrices) skips the eigensolve, and lmax is
+    then max_i rs_i/d_i. The JAX package's function of that name, step for
+    step (its deterministic start vector included)."""
+    import scipy.sparse.linalg as spla
+
+    d = np.asarray(Op.diagonal())
+    if known_lmin is not None:
+        rs = np.asarray(np.abs(sp.csr_matrix(Op)).sum(axis=1)).ravel()
+        return safety * known_lmin, float((rs / d).max())
+    s = 1.0 / np.sqrt(d)
+    B = sp.csr_matrix(Op).multiply(s[:, None]).multiply(s[None, :]).tocsc()
+    gersh = float(np.abs(B).sum(axis=1).max())
+    try:
+        v0 = np.random.default_rng(0).standard_normal(B.shape[0])
+        lam, V = spla.eigsh(B, k=1, sigma=0.0, which="LM", tol=1e-2, v0=v0)
+        v = V[:, 0]
+        lam = float(lam[0])
+        resid = float(
+            np.linalg.norm(B @ v - lam * v) / max(np.linalg.norm(v), 1e-300)
+        )
+        if resid >= 0.5 * lam:
+            # the loose Ritz pair certifies nothing useful: re-run tighter,
+            # warm-started from it
+            lam, V = spla.eigsh(
+                B, k=1, sigma=0.0, which="LM", tol=1e-4, v0=v
+            )
+            v = V[:, 0]
+            lam = float(lam[0])
+            resid = float(
+                np.linalg.norm(B @ v - lam * v)
+                / max(np.linalg.norm(v), 1e-300)
+            )
+        lmin = lam - resid if resid < 0.5 * lam else 0.1 * lam
+    except RuntimeError:  # a singular factorization or no ARPACK convergence
+        rng = np.random.default_rng(0)
+        X = rng.standard_normal((B.shape[0], 1))
+        w, V = spla.lobpcg(B.tocsr(), X, largest=False, maxiter=200, tol=1e-4)
+        lam = float(w[0])
+        v = V[:, 0]
+        resid = float(
+            np.linalg.norm(B @ v - lam * v) / max(np.linalg.norm(v), 1e-300)
+        )
+        lmin = max(lam - resid, 0.1 * lam)
+    if not np.isfinite(lmin) or lmin <= 0.0:
+        raise ValueError(
+            f"spectral lower-bound estimation failed (lmin={lmin}); the "
+            "operator may not be SPD"
+        )
+    return safety * lmin, gersh
+
+
+def chebyshev_coefficients(lmin: float, lmax: float, degree: int) -> np.ndarray:
+    """The data-independent scalars of the Chebyshev recurrence: row k =
+    (α_k, β_k) with d ← α_k·d + β_k·r. Shape (degree-1, 2)."""
+    theta = 0.5 * (lmax + lmin)
+    delta = 0.5 * (lmax - lmin)
+    sigma = theta / delta
+    rho = 1.0 / sigma
+    out = np.empty((max(degree - 1, 0), 2))
+    for k in range(degree - 1):
+        rho_new = 1.0 / (2.0 * sigma - rho)
+        out[k, 0] = rho_new * rho
+        out[k, 1] = 2.0 * rho_new / delta
+        rho = rho_new
+    return out
+
+
+def coef_rows(coef, dtype) -> list[tuple[float, float]]:
+    """``chebyshev_coefficients`` rows as Python floats rounded to ``dtype``
+    (the values JAX's scan reads from its ``dtype`` array)."""
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    return [(float(a), float(c)) for a, c in np.asarray(coef).astype(npdt)]
+
+
+def chebyshev_degree(lmin: float, lmax: float, eps: float) -> int:
+    """Smallest degree with error factor 2·((√κ−1)/(√κ+1))^d ≤ eps."""
+    kappa = lmax / lmin
+    q = (np.sqrt(kappa) - 1.0) / (np.sqrt(kappa) + 1.0)
+    if q <= 0:
+        return 1
+    return max(1, int(np.ceil(np.log(eps / 2.0) / np.log(q))))
+
+
+def cheb_run(b, invd, spmv, theta: float, coef):
+    """The Chebyshev–Jacobi polynomial of ``chebyshev_coefficients`` applied
+    to ``b`` (the twin of the JAX solver's ``_cheb_run``, a Python loop over
+    the coefficient rows where JAX scans them): ``invd`` the Jacobi vector,
+    ``spmv`` the operator, ``coef`` the rows as (α_k, β_k) Python floats
+    (already rounded to the working dtype)."""
+    r = invd * b
+    d = r / theta
+    x = d
+    for a, c in coef:
+        r = r - invd * spmv(d)
+        d = a * d + c * r
+        x = x + d
+    return x

@@ -222,6 +222,7 @@ def build(state: _Library | None = None) -> Path:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I64, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    D = ctypes.c_double
     grid = (I64, I64, I64, I64, I)
     lib.spacetime_error_string.argtypes = [I]
     lib.spacetime_error_string.restype = ctypes.c_char_p
@@ -250,6 +251,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                  I, P],
             "mg_fused_post_var": [P, P, P, P, P, P, P, P, I64, I64, I64, P, P,
                                   I, P],
+            # one Chebyshev step of the K3 / K10 chains (ν above MAX_NU):
+            # x, b, [W,] the columns, r, d_in, d_out, x_out, the grid, the
+            # tables, first, c1, c2
+            "mg_cheb_step": [P, P, P, P, P, P, P, P, P, P, *grid, P, I, D, D,
+                             P],
+            "mg_cheb_step_var": [P, P, P, P, P, P, P, P, P, P, *grid, P, P, I,
+                                 D, D, P],
+            # ell.cu: X, nt, n, blocks, colidx, nrb, nslots, Y, n_out
+            "ell_spmm": [P, I64, I64, P, P, I64, I64, P, I64, P],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, f"{name}_{sfx}")

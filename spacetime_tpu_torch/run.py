@@ -1,6 +1,15 @@
 """Command-line interface of the PyTorch port.
 
 Examples:
+    # cfg1 (smooth2d, 65² vertices, 64 steps, f64, dense inner solves) on
+    # the GPU: the defaults
+    python -m spacetime_tpu_torch.run
+
+    # the L-shape at 3.16 MDoF on the GPU: Chebyshev inner solves, every
+    # SpMV of A and M the blocked-ELL kernel K20
+    python -m spacetime_tpu_torch.run --device cuda --dtype f32 \
+        --problem lshape2d --space-n 256 --time-levels 6 --spatial ell
+
     # the 129²×64 mixed-precision solve on the GPU
     python -m spacetime_tpu_torch.run --device cuda --dtype f32 \
         --space-n 128 --time-levels 6 --refined
@@ -34,6 +43,10 @@ Examples:
     python -m spacetime_tpu_torch.run --device cpu --space-n 32 \
         --time-levels 4 --inner mg
 
+    # the oracle's lshape-32-J5 row on the CPU, blocked ELL, dense inner
+    python -m spacetime_tpu_torch.run --device cpu --problem lshape2d \
+        --space-n 32 --time-levels 5 --spatial ell
+
 Prints the iteration count, the final relative residual, the L2(I×Ω) error
 against the exact solution and per-phase times.
 """
@@ -52,7 +65,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--problem", default="smooth2d")
     p.add_argument("--space-n", type=int, default=64,
-                   help="cells per side of the structured spatial mesh")
+                   help="cells per side of the spatial mesh")
     p.add_argument("--time-levels", type=int, default=6,
                    help="dyadic time levels (2^J uniform timesteps)")
     p.add_argument("--tol", type=float, default=None,
@@ -61,10 +74,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--maxiter", type=int, default=200)
     p.add_argument("--dtype", choices=["f32", "f64"], default="f64")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
-    p.add_argument("--inner", choices=["auto", "mg"], default="auto",
-                   help="inner spatial solver (auto = mg above 4096 "
-                        "spatial unknowns; the dense inverses below that "
-                        "are a later slice of the port)")
+    p.add_argument("--inner", choices=["auto", "dense", "mg", "cheb"],
+                   default="auto",
+                   help="inner spatial solver: dense inverses, multigrid or "
+                        "Chebyshev polynomials (auto = dense at <= 4096 "
+                        "spatial unknowns, mg on structured grids, cheb "
+                        "otherwise)")
+    p.add_argument("--spatial", choices=["auto", "stencil", "vstencil", "dia",
+                                         "ell"], default="auto",
+                   help="spatial operator format (auto = stencil / vstencil "
+                        "on structured grids, dia on the L-shape; ell runs "
+                        "the blocked-ELL SpMM kernel K20)")
+    p.add_argument("--cheb-eps", type=float, default=1e-3,
+                   help="accuracy of the K_Y / K_H Chebyshev polynomials of "
+                        "--inner cheb")
     p.add_argument("--mg-cycles", type=int, default=3)
     p.add_argument("--mg-cycles-kx", type=int, default=None,
                    help="V-cycles per shifted solve inside K_X (default 2)")
@@ -158,14 +181,16 @@ def main(argv=None) -> int:
     with timer("setup"):
         solver = build_solver(
             args.problem, args.space_n, args.time_levels, dtype=dtype,
-            device=device, inner=args.inner, mg_cycles=args.mg_cycles,
+            device=device, inner=args.inner, spatial_format=args.spatial,
+            cheb_eps=args.cheb_eps, mg_cycles=args.mg_cycles,
             mg_cycles_kx=args.mg_cycles_kx, mg_nu_kx=args.mg_nu_kx,
             mg_nu_post=args.mg_nu_post,
         )
     print(
         f"problem={args.problem} mesh={args.space_n}^{solver.problem.dim} "
         f"(m={solver.m}) timesteps={solver.N} "
-        f"-> {(solver.N + 1) * solver.m:,} space-time DoF; device={device}"
+        f"-> {(solver.N + 1) * solver.m:,} space-time DoF; "
+        f"format={solver.spatial_format} inner={solver.inner}; device={device}"
         + (f" ({torch.cuda.get_device_name(device)})"
            if device.type == "cuda" else "")
     )

@@ -1,47 +1,60 @@
 """The space-time heat-equation solver on PyTorch tensors.
 
-The counterpart of ``spacetime_tpu.solver.heateq.HeatSolver`` on structured
-grids with multi-shift multigrid inner solves (``inner="mg"``) on uniform
-dyadic time grids, in two spatial formats: constant stencils (``"stencil"``:
-``smooth2d``, ``smooth3d``) and, for coefficient-weighted systems, per-node
-A weights with the constant mass stencil (``"vstencil"``: ``varcoef2d``,
-``varcoef3d``).
-The same stabilized minimal-residual formulation, the same operator algebra
-and the same operation order, so float64 residual histories agree with the
-JAX package to rounding. Host setup (assembly, stencils, the multigrid
-hierarchy, the wavelet structure, the quadrature of the loads) runs on the
-port's own copies of the JAX package's host modules (``fem``,
-``ops.sparse``, ``ops.stencil``, ``ops.wavelets``, ``ops.multigrid``);
+The counterpart of ``spacetime_tpu.solver.heateq.HeatSolver`` on uniform
+dyadic time grids, with the same stabilized minimal-residual formulation,
+the same operator algebra and the same operation order, so float64 residual
+histories agree with the JAX package (and the NumPy oracle) to rounding.
+Host setup (assembly, stencils, blocked ELL, the multigrid hierarchy,
+spectral bounds, dense inverses, the wavelet structure, the quadrature of
+the loads) runs on the port's own copies of the JAX package's host modules;
 every per-iteration operation runs on ``device``.
 
-Constant stencils: B and Bᵀ run as the stab-fused pair of ``ops.kron`` in
-``apply_S`` and as the plain Bᵀ in ``rhs_device``. Every V-cycle level of
-K_Y and K_X runs the multigrid kernels of ``ops.mg_kernels``: the fused
-pre/post stages in 2-D, else the semi-fused stages (sweep, residual +
-restriction, prolongation + correction, sweep), which every 3-D level runs;
-and the stiffness application between the two shifted solves of K_X is the
-stencil kernel.
+Spatial formats (``spatial_format``; "auto" picks as the JAX package does):
 
-Weighted (``"vstencil"``): the inner solver is the Galerkin hierarchy
-(``GalerkinMultiShiftMultigrid``), whose V-cycle levels run the weighted
-fused stages (K14, K15) in 2-D, else the weighted semi-fused stages (K10
-sweep, K13 residual + restriction, K9, K10 sweep), which every 3-D level
-and 2-D V(ν, ν_post) cycles and ν ∉ {2, 3} run, and whose later cycles
-start with the weighted residual (K11); K_X's middle application and the
-A_w of B, Bᵀ and the stab term run the weighted stencil kernel (K12), while
-their M applications stay plain PyTorch (as the JAX package computes B, Bᵀ
-and stab in XLA on this format). K_H ≈ M⁻¹ is the degree-30 Chebyshev on
-the constant mass stencil, as on the constant format. The sweep kernels
-take ν ≤ 8 in 2-D and ν ≤ 3 in 3-D; a solver asked for more raises.
+- ``"stencil"``: constant stencils on structured grids (``smooth2d``,
+  ``smooth3d``, ``moving_peak2d``). B and Bᵀ run as the stab-fused pair of
+  ``ops.kron`` (K1, K2) in ``apply_S`` and as the plain Bᵀ in
+  ``rhs_device``.
+- ``"vstencil"``: per-node A weights with the constant mass stencil, for
+  coefficient-weighted systems on structured grids (``varcoef2d``,
+  ``varcoef3d``). A_w runs the weighted stencil kernel (K12); B, Bᵀ and the
+  stab term are plain PyTorch around it, as the JAX package computes them
+  in XLA.
+- ``"dia"`` and ``"ell"``: the flat dof layout ``gs = (m,)`` of meshes
+  without a grid (the L-shaped domain), A and M by diagonals
+  (``ops.sparse.dia_matvec``, plain PyTorch as the JAX package's XLA form)
+  or in blocked ELL (K20, ``ops.spmv``). B, Bᵀ, stab and the inner solves
+  run on these. The JAX package falls back to DIA for f64 on ``"ell"``,
+  because Pallas on the TPU has no f64; on CUDA the port runs K20 in both
+  dtypes, so every SpMV of A and M on this format is K20.
+
+Inner solvers (``inner``; "auto": dense at m ≤ 4096, multigrid on
+structured grids, Chebyshev otherwise):
+
+- ``"dense"``: exact inverses precomputed on the host, K_Y = A⁻¹, K_H = M⁻¹
+  and one sandwich (A+ω_jM)⁻¹A(A+ω_jM)⁻¹ per wavelet level, applied as
+  ``torch.matmul`` (TF32 off, ``utils.device``), as the JAX package leaves
+  them to XLA.
+- ``"cheb"``: fixed Chebyshev–Jacobi polynomials in the spatial operators
+  (degrees from the spectral bounds and ``cheb_eps``; the wavelet
+  sandwiches at 30·``cheb_eps``), a Python loop over the coefficient rows
+  (``ops.multigrid.cheb_run``) where JAX scans them.
+- ``"mg"``: multi-shift multigrid on structured grids. Constant stencils:
+  every V-cycle level runs the kernels of ``ops.mg_kernels`` (fused K6/K7
+  in 2-D, else the semi-fused K3, K8, K9, K3), K_X's middle application is
+  K5, K_H ≈ M⁻¹ the degree-30 stencil Chebyshev. Weighted: the Galerkin
+  hierarchy with the weighted kernels (K14/K15 fused, else K10, K13, K9,
+  K10; K11 starts later cycles; K12 in K_X). The sweeps take any ν ≥ 1
+  (above the tiled kernels' halo they chain one-step launches).
 
 All kernels are CUDA kernels for CUDA tensors and their plain twins on the
-CPU; on CUDA no level falls back to the plain form, whatever its size.
+CPU; on CUDA no level or format falls back to the plain form.
 
-Outside this slice (raising ``NotImplementedError`` with the ROADMAP.md slice
-that ports it): dense and Chebyshev inner solves, the DIA / blocked-ELL
-spatial formats and unstructured meshes, graded time grids, on-device load
-quadrature, the fused/flexible PCG variants, checkpointing, double-single
-refinement legs and multi-device runs.
+Outside the port so far (raising ``NotImplementedError`` with the ROADMAP.md
+queue 1 item that ports it): graded time grids, multigrid on the flat
+formats (the nested and algebraic hierarchies), on-device load quadrature,
+the fused/flexible PCG variants, checkpointing, double-single refinement
+legs and multi-device runs.
 """
 
 from __future__ import annotations
@@ -62,26 +75,29 @@ from ..fem import (
     uniform_time_grid,
 )
 from ..models import Problem, get_problem
-from ..ops import kron
+from ..ops import kron, spmv
 from ..ops import wavelets as wav
-from ..ops.mg_kernels import MAX_NU, MSKernelLevel, VarMSKernelLevel
+from ..ops.blocked_ell import BlockedEll
+from ..ops.mg_kernels import MSKernelLevel, VarMSKernelLevel
 from ..ops.multigrid import (GalerkinMultiShiftMG, GalerkinMultiShiftMultigrid,
-                             MultiShiftMG, MultiShiftMultigrid,
-                             chebyshev_stencil_inverse,
-                             mass_spectral_bounds, row_params, var_row_params)
-from ..ops.sparse import DiaMatrix
+                             MultiShiftMG, MultiShiftMultigrid, _GMSLevel,
+                             cheb_run, chebyshev_coefficients, coef_rows,
+                             chebyshev_degree, chebyshev_stencil_inverse,
+                             generic_spectral_bounds, mass_spectral_bounds,
+                             row_params, var_row_params)
+from ..ops.sparse import DiaMatrix, dia_matvec
 from ..ops.stencil import (StencilOperator, grouped_apply, row_scale,
                            weight_groups)
 from ..utils.device import resolve_device, synchronize
 from .pcg import pcg
 
 _DTYPES = (torch.float32, torch.float64)
+_FORMATS = ("auto", "stencil", "vstencil", "dia", "ell")
 
 
-def _later(what: str, slice_name: str) -> NotImplementedError:
+def _later(what: str, item: int, title: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet: it belongs to the {slice_name} slice of "
-        "the port (ROADMAP.md queue 1)"
+        f"{what} is not ported yet: ROADMAP.md queue 1 item {item} ({title})"
     )
 
 
@@ -121,7 +137,9 @@ def _assert_dtype(tree, dtype):
     elif isinstance(tree, (list, tuple)):
         for v in tree:
             _assert_dtype(v, dtype)
-    elif tree.dtype != dtype:
+    elif isinstance(tree, torch.Tensor) and tree.is_floating_point() and (
+        tree.dtype != dtype
+    ):
         raise RuntimeError(f"params tensor of dtype {tree.dtype}, expected {dtype}")
 
 
@@ -146,8 +164,12 @@ class HeatSolver:
         space_n: int | None = None,
         pcg_variant: str = "standard",
         rhs: str = "auto",
+        cheb_eps: float = 1e-3,
         device: str | torch.device = "cuda",
     ):
+        """``cheb_eps``: relative accuracy of the K_Y / K_H Chebyshev
+        polynomials of ``inner="cheb"`` (the wavelet sandwich runs at 30×
+        it); the polynomials are fixed at setup."""
         t0 = _time.perf_counter()
         self.device = resolve_device(device)
         if dtype not in _DTYPES:
@@ -160,58 +182,172 @@ class HeatSolver:
         self.m = system.m
         self.wt = wav.build_wavelet_transform(grid)
         if not self.wt.is_uniform:
-            raise _later("a graded or non-dyadic time grid", "graded time-grid")
+            raise _later("a graded or non-dyadic time grid", 1,
+                         "graded time grids")
 
-        # --- spatial operators: constant or weighted stencils ---------------
+        # --- spatial format ------------------------------------------------
         gs = system.mesh.grid_shape
-        if spatial_format in ("dia", "ell"):
-            raise _later(f"spatial_format={spatial_format!r}",
-                         "unstructured (item 7)")
-        if spatial_format not in ("auto", "stencil", "vstencil"):
+        weighted = system.weighted
+        structured = gs is not None and min(gs) >= 3
+        if spatial_format not in _FORMATS:
             raise ValueError(f"unknown spatial_format {spatial_format!r}")
-        if spatial_format == "stencil" and system.weighted:
+        if spatial_format == "auto":
+            spatial_format = ("dia" if not structured
+                              else "vstencil" if weighted else "stencil")
+        if spatial_format == "stencil" and weighted:
             raise ValueError(
                 "spatial_format='stencil' needs a translation-invariant "
-                "operator; coefficient-weighted systems use 'vstencil'"
+                "operator; coefficient-weighted systems use 'vstencil', "
+                "'dia' or 'ell'"
             )
-        if spatial_format == "vstencil" and not system.weighted:
+        if spatial_format in ("stencil", "vstencil") and not structured:
             raise ValueError(
-                "spatial_format='vstencil' with inner='mg' needs a "
-                "coefficient-weighted system (P1System.weighted)"
+                f"spatial_format={spatial_format!r} needs a structured grid "
+                "(mesh.grid_shape)"
             )
-        if gs is None or min(gs) < 3:
-            raise _later("an unstructured spatial mesh", "unstructured")
-        self.gs = tuple(gs)
-        dim = len(self.gs)
-        self.weighted = system.weighted
-        self.spatial_format = "vstencil" if self.weighted else "stencil"
-        M_st = StencilOperator.from_dia(DiaMatrix.from_csr(system.M), self.gs)
-        self._groups_M = weight_groups(M_st.disps, M_st.weights)
-        if self.weighted:
-            self.taps = None
-        else:
+        if spatial_format == "vstencil" and not weighted:
+            raise ValueError(
+                "spatial_format='vstencil' needs a coefficient-weighted "
+                "system (P1System.weighted)"
+            )
+        self.spatial_format = spatial_format
+        self.weighted = weighted
+        self.flat = spatial_format in ("dia", "ell")
+        self.gs = (self.m,) if self.flat else tuple(gs)
+        dim = system.mesh.dim
+        self._host = {"h": time_matrices(grid)["h"]}
+        self.taps = None
+        if spatial_format in ("stencil", "vstencil"):
+            M_st = StencilOperator.from_dia(DiaMatrix.from_csr(system.M),
+                                            self.gs)
+            self._groups_M = weight_groups(M_st.disps, M_st.weights)
+        if spatial_format == "stencil":
             A_st = StencilOperator.from_dia(
                 DiaMatrix.from_csr(system.A), self.gs)
             self.taps = kron.KronTaps.from_stencils(M_st, A_st)
+        if self.flat:
+            dia = {"M": DiaMatrix.from_csr(system.M),
+                   "A": DiaMatrix.from_csr(system.A)}
+            self._dia_off = {k: d.offsets for k, d in dia.items()}
+            self._host.update(dia_Mv=dia["M"].vals, dia_Av=dia["A"].vals)
+            if spatial_format == "ell":
+                self._ell = {"M": BlockedEll.from_csr(system.M),
+                             "A": BlockedEll.from_csr(system.A)}
 
-        # --- inner solver: multi-shift multigrid -----------------------------
+        # --- inner solver ----------------------------------------------------
+        structured_sq = (structured and len(set(gs)) == 1
+                         and (gs[0] + 1) % 2 == 0)
         if inner == "auto":
-            inner = "dense" if self.m <= 4096 else "mg"
-        if inner != "mg":
-            raise _later(f"inner={inner!r}", "dense / Chebyshev inner solver")
+            if self.m <= 4096:
+                inner = "dense"
+            elif spatial_format == "stencil" or (weighted and structured_sq):
+                inner = "mg"
+            else:
+                inner = "cheb"
+        if inner == "amg" or (inner == "mg" and self.flat):
+            raise _later(
+                f"inner={inner!r} on the {spatial_format!r} format (the "
+                "nested and smoothed-aggregation hierarchies)", 5,
+                "unstructured hierarchies and K16–K19")
+        if inner not in ("dense", "cheb", "mg"):
+            raise ValueError(f"unknown inner solver {inner!r}")
         self.inner = inner
         if mg_cycles < 1 or (mg_cycles_kx is not None and mg_cycles_kx < 1):
             raise ValueError(
                 f"mg_cycles={mg_cycles} / mg_cycles_kx={mg_cycles_kx}: "
                 "V-cycle counts must be >= 1"
             )
-        nus = [n for n in (mg_nu, mg_nu_kx, mg_nu_post) if n is not None]
-        if not 1 <= min(nus) <= max(nus) <= MAX_NU[dim]:
+        if mg_nu < 1 or (mg_nu_kx is not None and mg_nu_kx < 1) or (
+            mg_nu_post is not None and mg_nu_post < 1
+        ):
             raise ValueError(
                 f"mg_nu={mg_nu} / mg_nu_kx={mg_nu_kx} / mg_nu_post="
-                f"{mg_nu_post}: smoothing step counts must be >= 1, and the "
-                f"{dim}-D sweep kernels take at most {MAX_NU[dim]}"
+                f"{mg_nu_post}: smoothing step counts must be >= 1"
             )
+        omegas = [
+            float(self.wt.level_shift[j]) for j in range(self.wt.num_levels + 1)
+        ]
+        self._kl_A = None  # the finest weighted level's K12 (vstencil)
+        if inner == "dense":
+            A_dense = system.A.toarray()
+            M_dense = system.M.toarray()
+            self._host["Kx_inv"] = np.linalg.inv(A_dense)
+            self._host["Minv"] = np.linalg.inv(M_dense)
+            sandwiches = []
+            for omega in omegas:
+                Sj = np.linalg.inv(A_dense + omega * M_dense)
+                sandwiches.append(Sj @ A_dense @ Sj)
+            self._host["sandwich"] = sandwiches
+        elif inner == "cheb":
+            self._setup_cheb(system, omegas, cheb_eps)
+        else:
+            self._setup_mg(system, dim, omegas, mg_cycles, mg_cycles_kx,
+                           mg_nu, mg_nu_kx, mg_nu_post, mg_coarse, space_n)
+        if spatial_format == "vstencil" and self._kl_A is None:
+            fine = _GMSLevel.from_matrices(system.A, system.M, self.gs)
+            self._kl_A = VarMSKernelLevel(fine, 1)
+            self._host["Aw"] = fine.Aw
+
+        if pcg_variant != "standard":
+            raise _later(f"pcg_variant={pcg_variant!r}", 6,
+                         "PCG variants, checkpointing and the rest of the CLI")
+        self.pcg_variant = pcg_variant
+        if rhs == "device":
+            raise _later("rhs='device' (on-device load quadrature)", 3,
+                         "on-device loads and L2 error")
+        if rhs not in ("auto", "host"):
+            raise ValueError(f"unknown rhs mode {rhs!r}")
+        self.rhs_mode = "host"
+        self._params_cache: dict = {}
+        self._rhs_host = None
+        self._rhs_dev: dict = {}
+        self.rhs_seconds = 0.0
+        self.params = self.params_for(dtype)
+        self.setup_seconds = _time.perf_counter() - t0
+
+    def _setup_cheb(self, system, omegas, cheb_eps):
+        """Spectral bounds, degrees, Jacobi vectors and coefficient rows of
+        the Chebyshev inner solves (the JAX package's ``inner="cheb"``
+        setup): K_Y and K_H at ``cheb_eps``, the shifted solves of the
+        wavelet sandwiches at 30·``cheb_eps``, their bounds from A's and M's
+        by the row-wise mediant inequality."""
+        dA = np.asarray(system.A.diagonal())
+        dM = np.asarray(system.M.diagonal())
+        rsA = np.asarray(np.abs(system.A).sum(axis=1)).ravel()
+        rsM = np.asarray(np.abs(system.M).sum(axis=1)).ravel()
+        laA, _ = generic_spectral_bounds(system.A)
+        # P1 mass: λmin(D⁻¹M) ≥ 1/2 on any simplicial mesh
+        laM, _ = generic_spectral_bounds(system.M, known_lmin=0.5)
+        self._cheb_spec = {
+            "A": (laA, float((rsA / dA).max()),
+                  chebyshev_degree(laA, (rsA / dA).max(), cheb_eps)),
+            "M": (laM, float((rsM / dM).max()),
+                  chebyshev_degree(laM, (rsM / dM).max(), cheb_eps)),
+        }
+        shifts = []
+        for omega in omegas:
+            d_w = dA + omega * dM
+            lmin_w = float(((laA * dA + omega * laM * dM) / d_w).min())
+            lmax_w = float(((rsA + omega * rsM) / d_w).max())
+            shifts.append(
+                (omega, lmin_w, lmax_w,
+                 chebyshev_degree(lmin_w, lmax_w, 30.0 * cheb_eps))
+            )
+        self._cheb_spec["shift"] = shifts
+        self._host["cheb_invA"] = 1.0 / dA
+        self._host["cheb_invM"] = 1.0 / dM
+        self._host["cheb_invS"] = [1.0 / (dA + omega * dM) for omega in omegas]
+        self._host["cheb_coefA"] = chebyshev_coefficients(*self._cheb_spec["A"])
+        self._host["cheb_coefM"] = chebyshev_coefficients(*self._cheb_spec["M"])
+        self._host["cheb_coefS"] = [
+            chebyshev_coefficients(lmin_w, lmax_w, deg)
+            for (_, lmin_w, lmax_w, deg) in shifts
+        ]
+
+    def _setup_mg(self, system, dim, omegas, mg_cycles, mg_cycles_kx, mg_nu,
+                  mg_nu_kx, mg_nu_post, mg_coarse, space_n):
+        """The multigrid hierarchy (constant or Galerkin), its kernel levels
+        per ν and the dense coarse inverses."""
         if space_n is None:
             if len(set(self.gs)) != 1:
                 raise ValueError("pass space_n for non-square grids")
@@ -267,98 +403,119 @@ class HeatSolver:
         self._kl_kx = (
             self._kl_ky if self.mg_nu_kx == mg_nu else mk_levels(self.mg_nu_kx)
         )
-        omegas = [
-            float(self.wt.level_shift[j]) for j in range(self.wt.num_levels + 1)
-        ]
-        self._host = {
-            "h": time_matrices(grid)["h"],
+        if self.weighted:
+            self._kl_A = self._kl_ky[0]
+        self._host.update({
             "omega_ky": np.zeros(self.N),
             "omega_kx": np.asarray(
                 [float(self.wt.level_shift[j]) for j in self.wt.node_level]
             ),
             "mg_cinv_ky": np.linalg.inv(A_c),
             "mg_cinv": [np.linalg.inv(A_c + w * M_c) for w in omegas],
-        }
+        })
         # K_H ≈ M⁻¹: M is the constant mass stencil on both formats, so the
         # JAX package's per-node Jacobi vector of the weighted format holds
         # one value, the stencil's 1/center
+        M_st = StencilOperator.from_dia(DiaMatrix.from_csr(system.M), self.gs)
         lmin, lmax = mass_spectral_bounds(dim)
         center = dict(zip(M_st.disps, M_st.weights))[(0,) * dim]
         self._cheb_Minv = chebyshev_stencil_inverse(
             M_st, 1.0 / center, lmin, lmax, 30
         )
 
-        if pcg_variant != "standard":
-            raise _later(
-                f"pcg_variant={pcg_variant!r}", "PCG variants and checkpointing"
-            )
-        self.pcg_variant = pcg_variant
-        if rhs == "device":
-            raise _later(
-                "rhs='device' (on-device load quadrature)",
-                "device_spacetime_loads",
-            )
-        if rhs not in ("auto", "host"):
-            raise ValueError(f"unknown rhs mode {rhs!r}")
-        self.rhs_mode = "host"
-        self._params_cache: dict = {}
-        self._rhs_host = None
-        self._rhs_dev: dict = {}
-        self.rhs_seconds = 0.0
-        self.params = self.params_for(dtype)
-        self.setup_seconds = _time.perf_counter() - t0
-
     # ------------------------------------------------------------- params
 
     def params_for(self, dtype: torch.dtype) -> dict:
         """Device tensors of the operators in ``dtype`` (cached). Per-time-row
-        scales are (T, 1, 1) columns; ``kron`` holds the (T,) vectors h/2 and
-        h/16 the B/Bᵀ kernels read, and each multigrid level's ``cols`` the
-        (T,) views of its row columns that the mg kernels read. The weighted
-        format has no ``kron``; it holds each level's weights "Aw" (one
-        tensor per level, shared by K_Y's and K_X's row params; the finest
-        also as ``Aw``)."""
+        scales are (T, 1, ..., 1) columns over the layout's axes. By format:
+        ``kron`` (stencil: the (T,) vectors h/2 and h/16 of K1/K2), ``Aw``
+        (vstencil: the finest level's weights), ``dia_Mv``/``dia_Av``
+        (dia, ell) and ``ell_M``/``ell_A`` (ell: blocks and colidx). By
+        inner solver: ``Kx_inv``, ``Minv``, ``sandwich`` (dense); the
+        Jacobi vectors ``cheb_inv*`` and coefficient rows ``cheb_coef*``
+        (cheb; the rows as Python floats rounded to ``dtype``); the coarse
+        inverses and each level's row params with their kernels' ``cols``
+        (mg; the weighted levels' weights "Aw" shared between K_Y's and
+        K_X's row params)."""
         if dtype in self._params_cache:
             return self._params_cache[dtype]
-        dev, dim = self.device, len(self.gs)
+        dev, nd = self.device, len(self.gs)
         cast = lambda x: torch.as_tensor(x, dtype=dtype, device=dev).contiguous()
         h = self._host["h"]
         p = {
-            "h_half": row_scale(0.5 * h, dim, dtype, dev),
-            "h_stab": row_scale(h / 16.0, dim, dtype, dev),
-            "inv_h": row_scale(1.0 / h, dim, dtype, dev),
+            "h_half": row_scale(0.5 * h, nd, dtype, dev),
+            "h_stab": row_scale(h / 16.0, nd, dtype, dev),
+            "inv_h": row_scale(1.0 / h, nd, dtype, dev),
             "wavelet": wav.wavelet_params(self.wt, dtype, dev),
         }
-        p["mg_cinv_ky"] = cast(self._host["mg_cinv_ky"])
-        p["mg_cinv"] = [cast(S) for S in self._host["mg_cinv"]]
-        if self.weighted:
-            Aw = [cast(lev.Aw) for lev in self.msmg.levels]
-            rows = lambda om: var_row_params(self.msmg, om, dtype, dev, Aw)
-            p["Aw"] = Aw[0]
-        else:
+        if self.spatial_format == "stencil":
             p["kron"] = {
                 "h128": p["h_half"].reshape(self.N),
                 "hs128": p["h_stab"].reshape(self.N),
             }
-            rows = lambda om: row_params(self.msmg, om, dtype, dev)
-        p["ms_ky"] = rows(self._host["omega_ky"])
-        p["ms_kx"] = rows(self._host["omega_kx"])
-        for lp in p["ms_ky"] + p["ms_kx"]:
-            lp["cols"] = self._kl_ky[0].columns(lp)
+        if self.flat:
+            p["dia_Mv"] = cast(self._host["dia_Mv"])
+            p["dia_Av"] = cast(self._host["dia_Av"])
+        if self.spatial_format == "ell":
+            for k, ell in self._ell.items():
+                p["ell_" + k] = spmv.ell_params(ell, dtype, dev)
+        if self.inner == "dense":
+            p["Kx_inv"] = cast(self._host["Kx_inv"])
+            p["Minv"] = cast(self._host["Minv"])
+            p["sandwich"] = [cast(S) for S in self._host["sandwich"]]
+        elif self.inner == "cheb":
+            gsh = lambda v: cast(v).reshape(self.gs)
+            p["cheb_invA"] = gsh(self._host["cheb_invA"])
+            p["cheb_invM"] = gsh(self._host["cheb_invM"])
+            p["cheb_invS"] = [gsh(v) for v in self._host["cheb_invS"]]
+            p["cheb_coefA"] = coef_rows(self._host["cheb_coefA"], dtype)
+            p["cheb_coefM"] = coef_rows(self._host["cheb_coefM"], dtype)
+            p["cheb_coefS"] = [coef_rows(c, dtype)
+                               for c in self._host["cheb_coefS"]]
+        if self.inner == "mg":
+            p["mg_cinv_ky"] = cast(self._host["mg_cinv_ky"])
+            p["mg_cinv"] = [cast(S) for S in self._host["mg_cinv"]]
+            if self.weighted:
+                Aw = [cast(lev.Aw) for lev in self.msmg.levels]
+                rows = lambda om: var_row_params(self.msmg, om, dtype, dev, Aw)
+                p["Aw"] = Aw[0]
+            else:
+                rows = lambda om: row_params(self.msmg, om, dtype, dev)
+            p["ms_ky"] = rows(self._host["omega_ky"])
+            p["ms_kx"] = rows(self._host["omega_kx"])
+            for lp in p["ms_ky"] + p["ms_kx"]:
+                lp["cols"] = self._kl_ky[0].columns(lp)
+        elif self.spatial_format == "vstencil":
+            p["Aw"] = cast(self._host["Aw"])
         self._params_cache[dtype] = p
         return p
 
     # ---------------------------------------------------------- operators
-    # U has shape (N_t+1, *gs); V (test side) has shape (N_t, *gs).
+    # U has shape (N_t+1, *gs); V (test side) has shape (N_t, *gs); gs is
+    # (m,) on the flat formats.
 
-    def _spmv_M(self, X):
+    def _spmv_flat(self, which: str, X, p):
+        """A or M on the flat formats: K20 on "ell" (the kernel on CUDA,
+        its twin on the CPU), ``dia_matvec`` on "dia"."""
+        if self.spatial_format == "ell":
+            ell = p["ell_" + which]
+            Y = spmv.spmm(X.reshape(-1, self.m).contiguous(), ell["blocks"],
+                          ell["colidx"], self.m)
+            return Y.reshape(X.shape)
+        return dia_matvec(p[f"dia_{which}v"], self._dia_off[which], X)
+
+    def _spmv_M(self, X, p):
+        if self.flat:
+            return self._spmv_flat("M", X, p)
         return grouped_apply(self._groups_M, self.gs, X)
 
     def _spmv_A(self, X, p):
         """A X; on the weighted format the finest level's K12 wrapper (the
         kernel on CUDA, ``VarStencilOperator.apply`` on the CPU)."""
+        if self.flat:
+            return self._spmv_flat("A", X, p)
         if self.weighted:
-            return self._kl_ky[0].apply_A(X, p["Aw"])
+            return self._kl_A.apply_A(X, p["Aw"])
         return grouped_apply(self.taps.groups_A, self.gs, X)
 
     def _zrow(self, like):
@@ -366,30 +523,41 @@ class HeatSolver:
 
     def apply_B(self, U, p=None):
         p = self.params if p is None else p
-        if self.weighted:
+        if self.taps is None:
             DU = U[1:] - U[:-1]
             SU = U[1:] + U[:-1]
-            return self._spmv_M(DU) + p["h_half"] * self._spmv_A(SU, p)
+            return self._spmv_M(DU, p) + p["h_half"] * self._spmv_A(SU, p)
         return kron.apply_B(U, p["kron"]["h128"], self.taps)
 
     def apply_BT(self, V, p=None):
         p = self.params if p is None else p
-        if self.weighted:
-            VM = self._spmv_M(V)
+        if self.taps is None:
+            VM = self._spmv_M(V, p)
             VA = p["h_half"] * self._spmv_A(V, p)
             z = self._zrow(V)
             return torch.cat([-VM + VA, z]) + torch.cat([z, VM + VA])
         return kron.apply_BT(V, p["kron"]["h128"], self.taps)
 
+    def _cheb_theta(self, which: str) -> float:
+        lmin, lmax = self._cheb_spec[which][:2]
+        return 0.5 * (lmax + lmin)
+
     def apply_KY(self, V, p=None):
         p = self.params if p is None else p
+        if self.inner == "dense":
+            flat = V.reshape(-1, self.m)
+            sol = (flat @ p["Kx_inv"]).reshape(V.shape)
+        elif self.inner == "cheb":
+            sol = cheb_run(V, p["cheb_invA"], lambda x: self._spmv_A(x, p),
+                           self._cheb_theta("A"), p["cheb_coefA"])
+        else:
+            def coarse(bc):
+                return (bc.reshape(bc.shape[0], -1) @ p["mg_cinv_ky"]
+                        ).reshape(bc.shape)
 
-        def coarse(bc):
-            return (bc.reshape(bc.shape[0], -1) @ p["mg_cinv_ky"]).reshape(bc.shape)
-
-        sol = self._mg_ky.solve(
-            V, p["ms_ky"], coarse, self.mg_cycles, kernels=self._kl_ky
-        )
+            sol = self._mg_ky.solve(
+                V, p["ms_ky"], coarse, self.mg_cycles, kernels=self._kl_ky
+            )
         return sol * p["inv_h"]
 
     def apply_stab(self, U, p=None):
@@ -400,13 +568,20 @@ class HeatSolver:
         z = self._zrow(U)
         return torch.cat([z, W]) - torch.cat([W, z])
 
-    def _apply_Minv(self, X, p=None):
-        """K_H ≈ M_x⁻¹ on (..., *gs) blocks (degree-30 Chebyshev)."""
+    def _apply_Minv(self, X, p):
+        """K_H ≈ M_x⁻¹ on (..., *gs) blocks: the dense inverse, the
+        Chebyshev polynomial of ``cheb_eps``, or (mg) the degree-30 stencil
+        Chebyshev."""
+        if self.inner == "dense":
+            return (X.reshape(-1, self.m) @ p["Minv"]).reshape(X.shape)
+        if self.inner == "cheb":
+            return cheb_run(X, p["cheb_invM"], lambda x: self._spmv_M(x, p),
+                            self._cheb_theta("M"), p["cheb_coefM"])
         return self._cheb_Minv(X)
 
     def _trace_row(self, U, p):
         """Row 0 of the trace term: M·K_H·M·U[0], shape (1, *gs)."""
-        return self._spmv_M(self._apply_Minv(self._spmv_M(U[0:1]), p))
+        return self._spmv_M(self._apply_Minv(self._spmv_M(U[0:1], p), p), p)
 
     def apply_trace(self, U, p=None):
         p = self.params if p is None else p
@@ -417,7 +592,7 @@ class HeatSolver:
         """S = Bᵀ K_Y B + stab + trace, with stab fused into B and Bᵀ on the
         constant format."""
         p = self.params if p is None else p
-        if self.weighted:
+        if self.taps is None:
             out = self.apply_BT(self.apply_KY(self.apply_B(U, p), p), p)
             out = out + self.apply_stab(U, p)
         else:
@@ -447,16 +622,45 @@ class HeatSolver:
             self.mg_cycles_kx, kernels=self._kl_kx,
         )
 
+    def _cheb_shift_solve(self, b, j, p):
+        """≈ (A + ω_j M)⁻¹ b."""
+        omega, lmin, lmax, _ = self._cheb_spec["shift"][j]
+        spmv_w = lambda x: self._spmv_A(x, p) + omega * self._spmv_M(x, p)
+        return cheb_run(b, p["cheb_invS"][j], spmv_w, 0.5 * (lmax + lmin),
+                        p["cheb_coefS"][j])
+
+    def _sandwich_rows(self, rows, j, p):
+        """K_j = (A+ω_j M)⁻¹ A (A+ω_j M)⁻¹ on (k, m) rows: the precomputed
+        dense product, or two Chebyshev shifted solves around A."""
+        if self.inner == "cheb":
+            X = rows.reshape((rows.shape[0],) + self.gs)
+            Y = self._cheb_shift_solve(X, j, p)
+            Y = self._cheb_shift_solve(self._spmv_A(Y, p), j, p)
+            return Y.reshape(rows.shape)
+        return rows @ p["sandwich"][j]
+
     def apply_KX(self, R, p=None):
         """The wavelet-in-time preconditioner W (K_j)_j W'."""
         p = self.params if p is None else p
-        X = wav.adjoint(self.wt, R.reshape((self.N + 1,) + self.gs), p["wavelet"])
-        X = self._ms_solve_kx(X, p)
-        kl = self._kl_kx[0]
-        X = (kl.apply_A(X, p["ms_kx"][0]["Aw"]) if self.weighted
-             else kl.apply_A(X))
-        X = self._ms_solve_kx(X, p)
-        return wav.forward(self.wt, X, p["wavelet"]).reshape(R.shape)
+        if self.inner == "mg":
+            X = wav.adjoint(self.wt, R.reshape((self.N + 1,) + self.gs),
+                            p["wavelet"])
+            X = self._ms_solve_kx(X, p)
+            kl = self._kl_kx[0]
+            X = (kl.apply_A(X, p["ms_kx"][0]["Aw"]) if self.weighted
+                 else kl.apply_A(X))
+            X = self._ms_solve_kx(X, p)
+            return wav.forward(self.wt, X, p["wavelet"]).reshape(R.shape)
+        # level rows are strided slices: level 0 = rows {0, N}, level j the
+        # odd multiples of N >> j
+        C = wav.adjoint(self.wt, R.reshape(self.N + 1, self.m), p["wavelet"])
+        N = self.N
+        C[0::N] = self._sandwich_rows(C[0::N], 0, p)
+        for j in range(1, self.wt.num_levels + 1):
+            st = N >> j
+            sl = slice(st, N, 2 * st)
+            C[sl] = self._sandwich_rows(C[sl], j, p)
+        return wav.forward(self.wt, C, p["wavelet"]).reshape(R.shape)
 
     # ---------------------------------------------------------------- rhs
 
@@ -491,7 +695,7 @@ class HeatSolver:
         z = self._zrow(gL)
         f = f - torch.cat([z, corr]) + torch.cat([corr, z])
         u0g = u0_vec.reshape((1,) + self.gs)
-        f0 = self._spmv_M(self._apply_Minv(u0g, p))
+        f0 = self._spmv_M(self._apply_Minv(u0g, p), p)
         f[0] += f0[0]
         return f
 
@@ -516,7 +720,8 @@ class HeatSolver:
         """Standard PCG on S u = f to ||r|| <= tol·||f||. ``x0`` warm-starts
         it ((N+1, m) or device layout)."""
         if (checkpoint_path, checkpoint_every, resume_state) != (None,) * 3:
-            raise _later("checkpointing", "PCG variants and checkpointing")
+            raise _later("checkpointing", 6,
+                         "PCG variants, checkpointing and the rest of the CLI")
         gL, gR, u0_vec = self.assemble_rhs_host()
         x0_dev = None
         if x0 is not None:
@@ -653,7 +858,7 @@ def build_solver(
     device: str | torch.device = "cuda",
     **kwargs,
 ) -> HeatSolver:
-    """A ``HeatSolver`` for a registered problem on its structured mesh with
+    """A ``HeatSolver`` for a registered problem on its domain's mesh with
     ``space_n`` cells per side and a uniform grid of 2^``time_levels``
     timesteps (the construction half of the JAX package's
     ``solve_heat_equation_tpu``). ``kwargs`` go to ``HeatSolver``."""

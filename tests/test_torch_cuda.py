@@ -1,6 +1,8 @@
 """The CUDA kernels K1 (B), K2 (Bᵀ), the multigrid kernels K3–K9 (2-D and
-3-D) and the weighted K10–K13 (2-D and 3-D), K14 and K15 (2-D) on the card,
-against their plain twins, and small solves on the card against the CPU. Marked ``cuda``: they skip where
+3-D), the weighted K10–K13 (2-D and 3-D), K14 and K15 (2-D), the chained
+sweeps of K3/K10 above the tiled ν and the blocked-ELL SpMM K20 on the
+card, against their plain twins, and small solves on the card against the
+CPU. Marked ``cuda``: they skip where
 ``torch.cuda.is_available()`` is False (the kernels have no CPU mode). This
 file imports no JAX, so on a machine with a GPU and without JAX it runs as
 
@@ -13,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from spacetime_tpu_torch.ops import kron, mg_kernels
+from spacetime_tpu_torch.ops import kron, mg_kernels, spmv
 from spacetime_tpu_torch.ops.mg_kernels import MSKernelLevel, VarMSKernelLevel
 from spacetime_tpu_torch.ops.multigrid import (GalerkinMultiShiftMultigrid,
                                                row_params, var_row_params)
@@ -144,8 +146,8 @@ def test_mg_wrappers_check_inputs(msmg):
     with pytest.raises(ValueError, match="odd extents"):
         MSKernelLevel(lev.A_st, lev.M_st, 2, gs=(16, 31)).fused_pre(
             torch.zeros((T, 16, 31), device="cuda"), cols)
-    with pytest.raises(ValueError, match="nu=9"):
-        MSKernelLevel(lev.A_st, lev.M_st, 9, gs=gs).smooth(b, b, cols)
+    with pytest.raises(ValueError, match="nu=0"):
+        MSKernelLevel(lev.A_st, lev.M_st, 0, gs=gs).smooth(b, b, cols)
 
 
 @pytest.fixture(scope="module")
@@ -375,8 +377,11 @@ def test_var_kernels_3d_match_twins(var_msmg3d, dtype, nu, gs):
                  "K13 mg_residual_restrict_var", "K9 mg_prolong_correct"):
         assert counts[f"{name}_3d {sfx}"] == 1, (name, counts)
     assert sum(counts.values()) == 7
-    with pytest.raises(ValueError, match="nu=4"):
-        VarMSKernelLevel(var_msmg3d.levels[0], 4, gs=gs).smooth(x, b, cols, W)
+    # above the tiled sweep's ν ≤ 3 the sweep chains one-step launches
+    kl4 = VarMSKernelLevel(var_msmg3d.levels[0], 4, gs=gs)
+    mg_kernels.reset_launch_counts()
+    _close(kl4.smooth(x, b, cols, W), kl4.smooth_plain(x, b, cols, W), dtype)
+    assert mg_kernels.launch_counts()[f"K10 mg_cheb_step_var_3d {sfx}"] == 4
     with pytest.raises(NotImplementedError, match="3-D"):
         kl.fused_pre(b, cols, W)
 
@@ -407,3 +412,112 @@ def test_small_weighted_semi_solve_matches_cpu(var_msmg, name, n, J, kw):
         "K10 mg_smooth_var", "K11 mg_residual_var", "K12 mg_apply_var",
         "K13 mg_residual_restrict_var", "K9 mg_prolong_correct")}
     assert all(c == 0 for k, c in counts.items() if k not in allowed), counts
+
+
+# ν above the tiled sweeps' halo (8 in 2-D, 3 in 3-D): the K3 and K10
+# wrappers chain ν one-step launches
+@pytest.mark.parametrize("dim, nu", [(2, 9), (3, 4), (3, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chained_sweeps_match_twins(msmg, msmg3d, var_msmg, var_msmg3d,
+                                    dtype, dim, nu):
+    T = 5
+    gs = (15, 31) if dim == 2 else (7, 9, 15)
+    d = "_3d" if dim == 3 else ""
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    lev = (msmg if dim == 2 else msmg3d).levels[0]
+    kl = MSKernelLevel(lev.A_st, lev.M_st, nu, gs=gs)
+    x, b, _, cols = _level_inputs(msmg if dim == 2 else msmg3d, kl, T,
+                                  dtype, nu)
+    mg_kernels.reset_launch_counts()
+    _close(kl.smooth(x, b, cols), kl.smooth_plain(x, b, cols), dtype)
+    _close(kl.smooth(None, b, cols, zero_init=True),
+           kl.smooth_plain(None, b, cols, zero_init=True), dtype)
+    vk = VarMSKernelLevel((var_msmg if dim == 2 else var_msmg3d).levels[0],
+                          nu, gs=gs)
+    x, b, _, cols, W = _var_inputs(var_msmg if dim == 2 else var_msmg3d, vk,
+                                   T, dtype, nu)
+    _close(vk.smooth(x, b, cols, W), vk.smooth_plain(x, b, cols, W), dtype)
+    _close(vk.smooth(None, b, cols, W, zero_init=True),
+           vk.smooth_plain(None, b, cols, W, zero_init=True), dtype)
+    counts = mg_kernels.launch_counts()
+    assert counts[f"K3 mg_cheb_step{d} {sfx}"] == 2 * nu
+    assert counts[f"K10 mg_cheb_step_var{d} {sfx}"] == 2 * nu
+    assert sum(counts.values()) == 4 * nu
+
+
+def test_small_3d_solve_nu4_matches_cpu(msmg3d):
+    """smooth3d 9³×4 in float64 with ``mg_nu=4``: every sweep chains."""
+    kw = dict(dtype=torch.float64, inner="mg", mg_nu=4)
+    cpu = build_solver("smooth3d", 8, 2, device="cpu", **kw).solve(tol=1e-8)
+    mg_kernels.reset_launch_counts()
+    gpu = build_solver("smooth3d", 8, 2, device="cuda", **kw).solve(tol=1e-8)
+    assert gpu.iterations == cpu.iterations
+    np.testing.assert_allclose(gpu.residuals, cpu.residuals, rtol=1e-10)
+    counts = mg_kernels.launch_counts()
+    assert counts["K3 mg_cheb_step_3d f64"] > 0
+    assert counts["K3 mg_smooth_3d f64"] == 0
+
+
+@pytest.fixture(scope="module")
+def ell_mats():
+    """Blocked-ELL matrices: the L-shape's A and M at n = 32 (m = 705, 6
+    block rows × 3 slots) and a random one with m = 300 (not a multiple of
+    128)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import scipy.sparse as sp
+
+    from spacetime_tpu_torch.fem import P1System, l_shape_mesh
+    from spacetime_tpu_torch.ops.blocked_ell import BlockedEll
+
+    system = P1System.from_mesh(l_shape_mesh(32))
+    R = sp.random(300, 300, density=0.02, random_state=3, format="csr")
+    return [BlockedEll.from_csr(A) for A in (system.A, system.M, R)]
+
+
+@pytest.mark.parametrize("T", [1, 5, 33, 64, 65])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ell_spmm_matches_twin(ell_mats, dtype, T):
+    rng = np.random.default_rng(T)
+    spmv.reset_launch_counts()
+    for ell in ell_mats:
+        op = spmv.EllOperator(ell, dtype, "cuda")
+        X = torch.as_tensor(rng.standard_normal((T, op.m)), dtype=dtype,
+                            device="cuda")
+        want = spmv.spmm_plain(X, op.params["blocks"], op.params["colidx"],
+                               op.m)
+        _close(op.apply(X), want, dtype)
+        np.testing.assert_allclose(
+            want.cpu().numpy(), ell.matvec_np(X.cpu().numpy()),
+            rtol=0, atol=TOL[dtype] * float(want.abs().max()))
+        Xp = torch.nn.functional.pad(X, (0, op.mp - op.m))
+        got = op.apply_padded(Xp)
+        assert got.shape == (T, op.nrb * ell.br)
+        _close(got[:, :op.m], want, dtype)
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    assert spmv.launch_counts()[f"K20 ell_spmm {sfx}"] == 2 * len(ell_mats)
+
+
+def test_ell_wrapper_checks_inputs(ell_mats):
+    op = spmv.EllOperator(ell_mats[0], torch.float32, "cuda")
+    X = torch.zeros((3, op.m), device="cuda")
+    with pytest.raises(TypeError, match="dtype"):
+        op.apply(X.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        op.apply(torch.zeros((op.m, 3), device="cuda").t())
+    with pytest.raises(TypeError, match="float32 and float64"):
+        op.apply(X.half())
+
+
+@pytest.mark.parametrize("inner", ["dense", "cheb"])
+def test_small_ell_solve_matches_cpu(ell_mats, inner):
+    """lshape2d 17²-cell L-shape, 8 steps, float64 on the "ell" format: the
+    card's K20 and the CPU twin take the same iterations; every SpMV of A
+    and M is K20 (f64 too, where the JAX package falls back to DIA)."""
+    kw = dict(dtype=torch.float64, spatial_format="ell", inner=inner)
+    cpu = build_solver("lshape2d", 16, 3, device="cpu", **kw).solve(tol=1e-8)
+    spmv.reset_launch_counts()
+    gpu = build_solver("lshape2d", 16, 3, device="cuda", **kw).solve(tol=1e-8)
+    assert gpu.iterations == cpu.iterations
+    np.testing.assert_allclose(gpu.residuals, cpu.residuals, rtol=1e-10)
+    assert spmv.launch_counts()["K20 ell_spmm f64"] > 0

@@ -148,5 +148,11 @@ def test_spacetime_loads_equal(dim, n):
 
 
 def test_lshape_is_later():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fem.domain_mesh("lshape", 2, 8)
+    """The L-shaped domain is ported (``tests/test_torch_oracle.py`` holds
+    it bit for bit); what is later is unstructured refinement, and the
+    domain is 2-D only, as in the JAX package."""
+    mesh = fem.domain_mesh("lshape", 2, 8)
+    assert mesh.grid_shape is None and not hasattr(mesh, "refined_from")
+    _equal(mesh.interior, jfem.domain_mesh("lshape", 2, 8).interior)
+    with pytest.raises(ValueError, match="2D"):
+        fem.domain_mesh("lshape", 3, 8)

@@ -373,7 +373,8 @@ def test_levels_dispatch_by_device(hierarchy):
     names = {(3, "mg_smooth"), (4, "mg_residual"), (5, "mg_apply"),
              (8, "mg_residual_restrict"), (9, "mg_prolong_correct"),
              (10, "mg_smooth_var"), (11, "mg_residual_var"),
-             (12, "mg_apply_var"), (13, "mg_residual_restrict_var")}
+             (12, "mg_apply_var"), (13, "mg_residual_restrict_var"),
+             (3, "mg_cheb_step"), (10, "mg_cheb_step_var")}
     assert set(mg_kernels.launch_counts()) == {
         f"K{i} {name}{d} {sfx}" for i, name in names for d in ("", "_3d")
         for sfx in ("f32", "f64")

@@ -193,6 +193,32 @@ def test_solve_v21_semi_branch_matches_jax(case):
     np.testing.assert_allclose(pr.residuals, jr.residuals, rtol=1e-10)
 
 
+@pytest.mark.parametrize(
+    "name, n, J, kw",
+    [("smooth3d", 8, 2, dict(mg_nu=4, mg_nu_kx=5)),
+     ("smooth2d", 8, 2, dict(mg_nu=9, mg_coarse=4)),
+     ("varcoef2d", 8, 2, dict(mg_nu=9, mg_coarse=4))],
+    ids=["smooth3d-nu4-kx5", "smooth2d-nu9", "varcoef2d-nu9"])
+def test_sweeps_above_the_tiled_nu_match_jax(name, n, J, kw):
+    """ν above the tiled sweeps' halo (3 in 3-D, 8 in 2-D), where the card
+    chains one-step launches: the JAX package's iterations and histories in
+    float64, on the constant and the weighted formats (the weighted 3-D
+    case, ν = 4 and 5, is in ``test_torch_varcoef.py``)."""
+    jp = jax_problem(name)
+    system = P1System.from_problem(
+        jp, (unit_cube_mesh if jp.dim == 3 else unit_square_mesh)(n))
+    js = JaxHeatSolver(jp, system, uniform_time_grid(J), dtype=jnp.float64,
+                       rhs="host", inner="mg", **kw)
+    ps = HeatSolver(get_problem(name), system, uniform_time_grid(J),
+                    dtype=torch.float64, device="cpu", inner="mg", **kw)
+    assert all(not k.fused_ok for k in ps._kl_ky)
+    jr, pr = js.solve(tol=1e-8), ps.solve(tol=1e-8)
+    assert jr.converged and pr.converged
+    assert pr.iterations == jr.iterations
+    np.testing.assert_allclose(pr.residuals, jr.residuals, rtol=1e-10)
+    np.testing.assert_allclose(pr.l2_error, jr.l2_error, rtol=1e-9)
+
+
 def test_cli_runs_on_cpu():
     out = subprocess.run(
         [sys.executable, "-m", "spacetime_tpu_torch.run", "--device", "cpu",

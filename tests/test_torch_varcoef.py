@@ -344,11 +344,11 @@ def test_params_from_jax_weighted(dtype):
 
 
 def test_unported_weighted_paths_raise():
-    """What raises on the weighted format: the DIA / ELL formats, the
-    constant-stencil format, a 3-D sweep of degree above 3, the fused stages
-    on a 3-D grid and transfers on even extents. Weighted V(ν, ν_post)
-    cycles, ν ∉ {2, 3} and varcoef3d build and solve on the semi-fused
-    stages."""
+    """What raises on the weighted format: multigrid on the DIA / ELL
+    formats, the constant-stencil format, the fused stages on a 3-D grid and
+    transfers on even extents. Weighted V(ν, ν_post) cycles, ν ∉ {2, 3} and
+    varcoef3d build and solve on the semi-fused stages, and 3-D sweeps of
+    degree above the tiled kernels' 3 take the JAX package's iterations."""
     system = fem.P1System.from_problem(get_problem("varcoef2d"),
                                        fem.unit_square_mesh(16))
     grid = fem.uniform_time_grid(2)
@@ -371,10 +371,17 @@ def test_unported_weighted_paths_raise():
     s3 = build_solver("varcoef3d", 8, 2, device="cpu", inner="mg")
     assert s3.spatial_format == "vstencil" and len(s3.gs) == 3
     assert s3.solve(tol=1e-8, compute_error=False).converged
-    for kw in (dict(mg_nu=4), dict(mg_nu_post=4), dict(mg_nu_kx=5)):
-        with pytest.raises(ValueError, match="3-D sweep kernels take at "
-                                             "most 3"):
-            build_solver("varcoef3d", 8, 2, device="cpu", inner="mg", **kw)
+    system3 = jfem.P1System.from_problem(jax_problem("varcoef3d"),
+                                         jfem.unit_cube_mesh(8))
+    kw = dict(mg_nu=4, mg_nu_post=4, mg_nu_kx=5)
+    ps = build_solver("varcoef3d", 8, 2, device="cpu", inner="mg", **kw)
+    js = JaxHeatSolver(jax_problem("varcoef3d"), system3,
+                       jfem.uniform_time_grid(2), dtype=jnp.float64,
+                       rhs="host", inner="mg", **kw)
+    pr = ps.solve(tol=1e-8, compute_error=False)
+    jr = js.solve(tol=1e-8, compute_error=False)
+    assert pr.converged and pr.iterations == jr.iterations
+    np.testing.assert_allclose(pr.residuals, jr.residuals, rtol=1e-10)
     msmg = mk().msmg
     lev = msmg.levels[0]
     kl = VarMSKernelLevel(lev, 2, nu_post=1)
