@@ -5,7 +5,7 @@ element loops vectorised over all simplices, scipy CSR out, the same
 operations in the same order, so the matrices and the loads equal the JAX
 package's bit for bit, the weighted spatial form ∫κ∇u·∇v + c·uv included.
 It runs once per solver; no iteration touches it. On-device load
-quadrature is queue 1 item 2 (ROADMAP.md).
+quadrature is queue 1 item 3 (ROADMAP.md).
 """
 
 from __future__ import annotations

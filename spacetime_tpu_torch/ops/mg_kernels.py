@@ -76,8 +76,8 @@ import torch
 
 from . import native
 from .native import check_tensor
-from .multigrid import (cheb_smooth, ms_op, pair_groups, transfer, var_op,
-                        var_smooth)
+from .multigrid import (_SIGMA, cheb_smooth, chebyshev_steps, ms_op,
+                        pair_groups, transfer, var_op, var_smooth)
 from .stencil import grouped_apply, weight_groups
 
 SOURCE = "spacetime_tpu_torch/csrc/mg.cu"
@@ -85,7 +85,6 @@ SOURCE = "spacetime_tpu_torch/csrc/mg.cu"
 # 32 × 32; a 3-D brick of 8 × 8 × 32 with three float64 buffers fits the
 # 227 KB of shared memory up to ν = 3. Above it the sweep is chained.
 MAX_NU = {2: 8, 3: 3}
-SIGMA = 5.0 / 3.0  # the sweep's σ (``ops.multigrid.cheb_smooth``)
 MAX_ROWS = 65535  # the time row is blockIdx.z of the tiled kernels
 MAX_ROW_POINTS = 2 ** 31  # in-row indices are 32-bit
 _MG = "spacetime_tpu/ops/mg_pallas.py"
@@ -216,12 +215,8 @@ class _KernelLevel:
             d_out.data_ptr(), out.data_ptr(), T, *self._zyx(), *tables,
             first, c1, c2)
         step(xp, None, d[0], 1, 0.0, 0.0)
-        rho = 1.0 / SIGMA
-        for s in range(1, nu):
-            rho_new = 1.0 / (2.0 * SIGMA - rho)
-            step(None, d[(s - 1) % 2].data_ptr(), d[s % 2], 0, rho_new * rho,
-                 2.0 * rho_new)
-            rho = rho_new
+        for s, (c1, c2) in enumerate(chebyshev_steps(_SIGMA, nu), 1):
+            step(None, d[(s - 1) % 2].data_ptr(), d[s % 2], 0, c1, c2)
         return out
 
     def residual_restrict_plain(self, x, b, *args):

@@ -383,13 +383,10 @@ def cheb_smooth(op, lp, x, b, nu: int):
     r = lp["inv_diag"] * (b if x is None else b - op(x))
     d = r * lp["inv_theta"]
     x = d if x is None else x + d
-    rho = 1.0 / _SIGMA
-    for _ in range(nu - 1):
-        rho_new = 1.0 / (2.0 * _SIGMA - rho)
+    for a, c in chebyshev_steps(_SIGMA, nu):
         r = r - lp["inv_diag"] * op(d)
-        d = rho_new * rho * d + (2.0 * rho_new) * lp["inv_delta"] * r
+        d = a * d + c * lp["inv_delta"] * r
         x = x + d
-        rho = rho_new
     return x
 
 
@@ -528,19 +525,16 @@ def chebyshev_stencil_inverse(st, inv_diag: float, lmin: float, lmax: float,
     gs = tuple(st.grid_shape)
     theta = 0.5 * (lmax + lmin)
     delta = 0.5 * (lmax - lmin)
-    sigma = theta / delta
+    steps = chebyshev_steps(theta / delta, degree)
 
     def solve(b):
         r = inv_diag * b
         d = r / theta
         x = d
-        rho = 1.0 / sigma
-        for _ in range(degree - 1):
-            rho_new = 1.0 / (2.0 * sigma - rho)
+        for a, c in steps:
             r = r - inv_diag * grouped_apply(groups, gs, d)
-            d = rho_new * rho * d + (2.0 * rho_new / delta) * r
+            d = a * d + (c / delta) * r
             x = x + d
-            rho = rho_new
         return x
 
     return solve
@@ -613,13 +607,21 @@ def chebyshev_coefficients(lmin: float, lmax: float, degree: int) -> np.ndarray:
     (α_k, β_k) with d ← α_k·d + β_k·r. Shape (degree-1, 2)."""
     theta = 0.5 * (lmax + lmin)
     delta = 0.5 * (lmax - lmin)
-    sigma = theta / delta
-    rho = 1.0 / sigma
     out = np.empty((max(degree - 1, 0), 2))
-    for k in range(degree - 1):
+    for k, (a, c) in enumerate(chebyshev_steps(theta / delta, degree)):
+        out[k] = a, c / delta
+    return out
+
+
+def chebyshev_steps(sigma: float, degree: int) -> list[tuple[float, float]]:
+    """The scalars (ρ_{k+1}·ρ_k, 2·ρ_{k+1}) of the Chebyshev recurrence's
+    degree − 1 steps, from ρ_0 = 1/σ with σ = θ/δ: each step is
+    d ← ρ_{k+1}·ρ_k·d + (2·ρ_{k+1}/δ)·r."""
+    rho = 1.0 / sigma
+    out = []
+    for _ in range(degree - 1):
         rho_new = 1.0 / (2.0 * sigma - rho)
-        out[k, 0] = rho_new * rho
-        out[k, 1] = 2.0 * rho_new / delta
+        out.append((rho_new * rho, 2.0 * rho_new))
         rho = rho_new
     return out
 

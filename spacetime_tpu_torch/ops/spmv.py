@@ -84,14 +84,22 @@ def spmm(X, blocks, colidx, n_out: int):
 class EllOperator:
     """A ``BlockedEll`` matrix on a device: ``apply`` (T, m) -> (T, m) and
     ``apply_padded`` (T, mp) -> (T, nrb·br), both K20. The tensors live in
-    ``params`` ({"blocks", "colidx"}), which the solver keeps per dtype."""
+    ``params`` ({"blocks", "colidx"}) in ``dtype``; ``params_for`` gives
+    them in another dtype, which the solver keeps in its params per dtype
+    and passes as ``p``."""
 
     def __init__(self, ell: BlockedEll, dtype=torch.float32, device="cpu"):
         self.ell = ell
         self.m = ell.shape[0]
         self.mp = ell.padded_shape[1]
         self.nrb, self.nslots = ell.colidx.shape
+        self.dtype, self.device = dtype, device
         self.params = ell_params(ell, dtype, device)
+
+    def params_for(self, dtype) -> dict:
+        if dtype == self.dtype:
+            return self.params
+        return ell_params(self.ell, dtype, self.device)
 
     def apply(self, U, p=None):
         """A·U[t] for every row of U (T, m), on the unpadded rows."""

@@ -213,7 +213,11 @@ def main(argv=None) -> int:
                     tol=1e-6 if args.tol is None else args.tol,
                     maxiter=args.maxiter, compute_error=False,
                 )
-        wall = time.perf_counter() - t0
+            # the traced solve's wall, without the profiler's teardown (its
+            # event processing, tens of seconds at 10⁶ launches)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t0
         if args.repeat > 1:
             print(f"solve call {call}: {res.iterations} iterations, "
                   f"{res.solve_seconds:.4f} s")

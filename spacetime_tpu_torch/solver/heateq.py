@@ -231,8 +231,11 @@ class HeatSolver:
             self._dia_off = {k: d.offsets for k, d in dia.items()}
             self._host.update(dia_Mv=dia["M"].vals, dia_Av=dia["A"].vals)
             if spatial_format == "ell":
-                self._ell = {"M": BlockedEll.from_csr(system.M),
-                             "A": BlockedEll.from_csr(system.A)}
+                self._ell = {
+                    k: spmv.EllOperator(BlockedEll.from_csr(mat), dtype,
+                                        self.device)
+                    for k, mat in (("M", system.M), ("A", system.A))
+                }
 
         # --- inner solver ----------------------------------------------------
         structured_sq = (structured and len(set(gs)) == 1
@@ -457,8 +460,8 @@ class HeatSolver:
             p["dia_Mv"] = cast(self._host["dia_Mv"])
             p["dia_Av"] = cast(self._host["dia_Av"])
         if self.spatial_format == "ell":
-            for k, ell in self._ell.items():
-                p["ell_" + k] = spmv.ell_params(ell, dtype, dev)
+            for k, op in self._ell.items():
+                p["ell_" + k] = op.params_for(dtype)
         if self.inner == "dense":
             p["Kx_inv"] = cast(self._host["Kx_inv"])
             p["Minv"] = cast(self._host["Minv"])
@@ -495,12 +498,11 @@ class HeatSolver:
     # (m,) on the flat formats.
 
     def _spmv_flat(self, which: str, X, p):
-        """A or M on the flat formats: K20 on "ell" (the kernel on CUDA,
-        its twin on the CPU), ``dia_matvec`` on "dia"."""
+        """A or M on the flat formats: K20 on "ell" (``EllOperator.apply``:
+        the kernel on CUDA, its twin on the CPU), ``dia_matvec`` on "dia"."""
         if self.spatial_format == "ell":
-            ell = p["ell_" + which]
-            Y = spmv.spmm(X.reshape(-1, self.m).contiguous(), ell["blocks"],
-                          ell["colidx"], self.m)
+            Y = self._ell[which].apply(X.reshape(-1, self.m).contiguous(),
+                                       p["ell_" + which])
             return Y.reshape(X.shape)
         return dia_matvec(p[f"dia_{which}v"], self._dia_off[which], X)
 

@@ -475,7 +475,9 @@ def ell_mats():
     return [BlockedEll.from_csr(A) for A in (system.A, system.M, R)]
 
 
-@pytest.mark.parametrize("T", [1, 5, 33, 64, 65])
+# every tile variant of csrc/ell.cu: 1 row per thread (T ≤ 8), 2 (≤ 16),
+# 4 (≤ 32) and 8, at the variants' edges and a ragged last tile
+@pytest.mark.parametrize("T", [1, 5, 16, 32, 33, 64, 65])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_ell_spmm_matches_twin(ell_mats, dtype, T):
     rng = np.random.default_rng(T)
