@@ -105,10 +105,30 @@ Phases (every check asserts; any failure exits non-zero):
               ``solve(tol=1e-6)`` twice, 15 ± 1 iterations, exactly
               ``k20_per_solve`` K20 launches and no other kernel, L2 within
               1% of the JAX package's on the CPU (``dia``, f32).
+27. K16–K19 — the setup of lshape2d on 32 cells red-refined 4 times, J=7
+              (25.2 MDoF, nested multigrid) and of the AMG solver on phase
+              26's n=256 system; K16 (from 0, from x, chained), K17 and K18
+              against their twins on the nested fine level (T=129, 128) and
+              its second level (T=129), K19 and the K20 transfers on the AMG
+              ELL level (m=8191, T=65, 64), f32 and f64, within 1e-5 (f32)
+              and 1e-13 (f64) of max|twin|; times at the fine level (T=129)
+              and the ELL level beside ``torch.sparse.mm`` (K18, and two of
+              them for K19) and their bounds.
+28. nested  — the 25.2 MDoF solve, f32, ``solve(tol=1e-6)`` twice: 15 ± 1
+              iterations (the JAX package's on the TPU), L2 within 1% of
+              its 1.2846e-05, exactly ``flat_per_solve`` launches of K16–K18
+              and no other kernel; steady seconds and launches per solve.
+29. AMG     — the n=256 solve, f32, twice: the JAX package's 16 iterations
+              on the CPU ± 1, L2 within 1% of its value, ``flat_per_solve``
+              launches of K16–K20; then float64 solves of ``FLAT_F64``
+              (nested L-shape, AMG with an ELL level, nested tetrahedra
+              whose fine level chains K16) to the JAX package's iterations
+              and L2 (1e-6), and an f32 ``solve_refined`` with ν = 4 on the
+              tetrahedra, which chains K16 in both dtypes.
 
 Launch counters are zeroed just before each path (phases 7–8, 9, 10, 11,
-12, 13, 15, 16, 17, 19, 20, 21, each solve of 24 and 25, and 26) and read
-just after it; each path asserts the kernels it must have launched, and a
+12, 13, 15, 16, 17, 19, 20, 21, each solve of 24, 25 and 29, 26, 28 and
+the f32 AMG solves of 29) and read just after it; each path asserts the kernels it must have launched, and a
 weighted path that it ran only the kernels of its branch (K9 the one
 constant kernel of the semi-fused stages). The last two lines are a JSON
 object describing the kernels and ``{"ok": true, "device": ...}``.
@@ -208,6 +228,41 @@ REF_3D_NU4 = {"n": 16, "levels": 4, "iterations": 17,
 # dwarfs f32 rounding, so the band is 1%.
 REF_LSHAPE = {"n": 256, "levels": 6, "iterations": 15,
               "l2": 5.147463862566411e-05, "l2_band": 0.01}
+# lshape2d on the base mesh of 32 cells red-refined 4 times (m = 195,585,
+# 128 steps, 25.2 MDoF), f32, nested multigrid (levels 195,585 / 48,641 /
+# 12,033 / 2,945, coarse 705): the JAX package on the TPU took 15
+# iterations to L2 1.2846e-05 (results_tpu/r3_lshape_dia2.log; 15 and
+# 1.2832e-05 in results_tpu/lshape_nested_mg.log). The discretization
+# error dwarfs f32 rounding, so the band is 1%.
+REF_NESTED = {"n": 32, "refine": 4, "levels": 7, "iterations": 15,
+              "l2": 1.284616544786488e-05, "l2_band": 0.01}
+# lshape2d n = 256, J = 6, f32, smoothed-aggregation multigrid (levels
+# 48,641 DIA / 8,191 ELL): the JAX package on the CPU (``JAX_ENABLE_X64=1
+# python -m spacetime_tpu.run --backend jax --device cpu --problem lshape2d
+# --space-n 256 --time-levels 6 --dtype f32 --inner amg --rhs host``): 16
+# iterations to rel 9.213e-07, the count of its TPU run
+# (results_tpu/lshape_amg.log).
+REF_AMG = {"n": 256, "levels": 6, "iterations": 16,
+           "l2": 5.150423435807143e-05, "l2_band": 0.01}
+# Small float64 solves of the flat hierarchies (every kernel's f64 form in
+# a solve; the 3-D nested fine level, bandwidth 993, runs the chained K16 in
+# f64): (label, problem, cells, refinements, time levels, solver options,
+# the JAX package's iterations and L2 on the CPU: ``HeatSolver(problem,
+# P1System.from_problem(problem, refine_hierarchy(mesh, refinements)),
+# uniform_time_grid(levels), rhs="host", **options).solve(tol=1e-8)``)
+FLAT_F64 = [
+    ("nested lshape2d", "lshape2d", 8, 3, 4, {"inner": "mg"}, 15,
+     0.0008227597063555218),
+    ("amg lshape2d", "lshape2d", 64, 0, 3,
+     {"inner": "amg", "mg_coarse": 300}, 19, 0.0008201615145908035),
+    ("nested smooth3d", "smooth3d", 8, 2, 3, {"inner": "mg"}, 18,
+     0.001007288869638708),
+]
+# T of the K16–K18 checks (K_Y's 128 rows and K_X's 129 at the nested
+# fine level, K_X's at the AMG fine level) and of K19's (K_X's and K_Y's
+# rows at the AMG n = 256 ELL level)
+DIA_T = (129, 128)
+PAIR_T = (65, 64)
 # The oracle's rows solved in float64 on the card (dense inner solves;
 # cfg1b, the other ladders and varcoef3d-8-J3 are held on the CPU,
 # tests/test_torch_oracle.py): (config, problem, cells, levels, tol,
@@ -892,6 +947,373 @@ def phase_lshape(lsh, paths):
 
 
 
+def dia_bound(form, kl, T, dtype) -> dict:
+    """Bytes (fields, the union-offset values and diagonals each once) and
+    operations of one K16–K18 form at T rows: an application of Op is
+    4·ndu + 2 operations per point, a recurrence step ~8 more."""
+    sz = torch.finfo(dtype).bits // 8
+    m, nd, nu = kl.m, len(kl.offsets), kl.nu
+    op = 4 * nd + 2
+    if form.startswith("apply"):
+        return bound(sz * (2 * T * m + nd * m), 2 * nd * T * m, dtype)
+    if form.startswith("residual"):
+        return bound(sz * (3 * T * m + 2 * nd * m), (op + 1) * T * m, dtype)
+    zero = "from 0" in form
+    nops = nu - 1 if zero else nu
+    nbytes = sz * ((2 if zero else 3) * T * m + 2 * nd * m + 2 * m)
+    return bound(nbytes, T * m * (nops * op + 8 * nu + 3), dtype)
+
+
+def pair_bound(csrs, T, dtype) -> dict:
+    """The least time of (A·X, M·X) from the two matrices' nonzeros: their
+    values, column indices and row pointers, X once and both outputs; 2·nnz
+    operations per row of X."""
+    sz = torch.finfo(dtype).bits // 8
+    m = csrs[0].shape[0]
+    nnz = sum(c.nnz for c in csrs)
+    return bound(nnz * (sz + 4) + 2 * (m + 1) * 4 + 3 * T * m * sz,
+                 2 * nnz * T, dtype)
+
+
+def pair_block_bound(ek, T, dtype) -> dict:
+    """The same for the stored blocks K19 reads (zeros included)."""
+    sz = torch.finfo(dtype).bits // 8
+    nrb, nslots = ek._colop.shape
+    nb = nrb * nslots
+    return bound(2 * nb * 128 * 128 * sz + nb * 4 + 3 * T * ek.m * sz,
+                 4 * T * 128 * 128 * nb, dtype)
+
+
+def flat_per_solve(solver, iterations: int) -> dict:
+    """K16–K20 launches of one ``solve`` with a nested or SA hierarchy
+    (``ops.multigrid.NestedMultiShiftMG`` / ``SAMultiShiftMG``), every level
+    on its kernels: per V-cycle a DIA level takes two K16 sweeps, one K17
+    and, with factored transfers, two K18; an ELL level (ν−1) + 1 + ν_post
+    K19 pair products and two K20 transfers. K_Y is ``mg_cycles`` V-cycles
+    and ``mg_cycles``−1 residuals (K17) at the fine level; K_X two such
+    solves of ``mg_cycles_kx`` cycles around one K18. The rhs takes one
+    K_Y; PCG one S (one K_Y) and one K_X before its loop and per
+    iteration. The tiled K16 is one launch per sweep (the chained form ν)."""
+    ms = solver.msmg
+    per_v = dict.fromkeys(("smooth", "cheb_step", "residual", "apply",
+                           "spmm_pair", "spmm"), 0)
+    nu_post = ms.nu_post or solver.mg_nu
+    for kl, lev in zip(solver._kl_ky, ms.levels):
+        if kl.kind == "dia":
+            sz = 4 if solver.dtype == torch.float32 else 8
+            for nu in (kl.nu, kl.nu_post):  # the pre and the post sweep
+                if kl.tile_for(nu, sz):
+                    per_v["smooth"] += 1
+                else:
+                    per_v["cheb_step"] += nu
+            per_v["residual"] += 1
+            if (getattr(ms, "factored_transfers", False)
+                    and getattr(lev, "agg", None) is not None):
+                per_v["apply"] += 2
+        else:
+            per_v["spmm_pair"] += (solver.mg_nu - 1) + 1 + nu_post
+            per_v["spmm"] += 2
+    n_ky, n_kx = 1 + (iterations + 1), iterations + 1
+    cycles = solver.mg_cycles * n_ky + 2 * solver.mg_cycles_kx * n_kx
+    out = {k: v * cycles for k, v in per_v.items()}
+    out["residual"] += ((solver.mg_cycles - 1) * n_ky
+                        + 2 * (solver.mg_cycles_kx - 1) * n_kx)
+    out["apply"] += n_kx
+    return out
+
+
+def check_dia_forms(kl, lev, T, dtype, rng, results, label, timed, A_csr):
+    """K16 (from 0, from x, and chained from x), K17 and K18 of ``kl``
+    against their twins at T rows; times and bounds where ``timed``, K18
+    beside ``torch.sparse.mm`` (A in CSR)."""
+    from spacetime_tpu_torch.ops.dia_kernels import DiaKernelLevel
+
+    mk = lambda a: torch.as_tensor(a, dtype=dtype, device=DEVICE)
+    omega = np.abs(rng.standard_normal(T)) * 100.0
+    omega[:: 2] = 0.0
+    lam = 1.1 * np.array([((lev.rsA + w * lev.rsM) / (lev.dA + w * lev.dM))
+                          .max() for w in omega])
+    cols = {"omega": mk(omega), "invT": mk(1.0 / (0.625 * lam)),
+            "invDel": mk(1.0 / (0.375 * lam))}
+    x, b = (mk(rng.standard_normal((T, lev.m))) for _ in range(2))
+    vals = kl.values(lev, dtype, DEVICE)
+    chained = DiaKernelLevel(lev, kl.nu)
+    chained.smem_budget = 0
+    forms = {
+        ("smooth", "smooth from 0"): (
+            lambda: kl.smooth(None, b, cols, vals, zero_init=True),
+            lambda: kl.smooth_plain(None, b, cols, vals, zero_init=True)),
+        ("smooth", "smooth from x"): (
+            lambda: kl.smooth(x, b, cols, vals),
+            lambda: kl.smooth_plain(x, b, cols, vals)),
+        ("cheb_step", "chained from x"): (
+            lambda: chained.smooth(x, b, cols, vals),
+            lambda: chained.smooth_plain(x, b, cols, vals)),
+        ("residual", "residual"): (
+            lambda: kl.residual(x, b, cols, vals),
+            lambda: kl.residual_plain(x, b, cols, vals)),
+        ("apply", "apply"): (lambda: kl.apply_A(x, vals),
+                             lambda: kl.apply_A_plain(x, vals)),
+    }
+    for (op, form), (kfn, tfn) in forms.items():
+        got, want = kfn(), tfn()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        del got, want
+        assert err <= TOL[dtype] * scale, (label, form, dtype, T, err, scale)
+        rec = results.setdefault((op, dtype), {"max_abs_err": 0.0,
+                                               "forms": {}})
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        line = (f"  {form:15s} {str(dtype)[6:]:8s} {label} T={T}: "
+                f"max|kernel-twin| {err:.3e} (max|twin| {scale:.3e})")
+        if timed:
+            entry = {"ms": device_ms(kfn), "plain_ms": device_ms(tfn),
+                     "max_abs_err": err, "library_ms": None,
+                     **dia_bound(form, kl, T, dtype)}
+            if op == "apply":
+                A_sp, xt = csr_on_card(A_csr, dtype), x.t().contiguous()
+                lib = lambda: torch.sparse.mm(A_sp, xt)
+                lerr = float((lib().t() - tfn()).abs().max())
+                assert lerr <= TOL[dtype] * scale, (lerr, scale)
+                entry["library_ms"] = device_ms(lib)
+                line += f"; torch.sparse.mm {entry['library_ms']:.4f} ms"
+            rec["forms"][f"{form} T={T} m={lev.m}"] = entry
+            line += (f"; kernel {entry['ms']:.4f} ms, twin "
+                     f"{entry['plain_ms']:.4f} ms, bound "
+                     f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})")
+        print(line, flush=True)
+    del x, b, vals
+    torch.cuda.empty_cache()
+
+
+def phase_flat_kernels(build_solver, lsh, spmv):
+    """Phase 27: the nested 25.2 MDoF solver's and the AMG n = 256
+    solver's setup (the latter on phase 26's system and loads); K16–K18
+    against their twins on the nested fine level (T = 129, 128) and its
+    second level (T = 129), K19 and the K20 transfers on the AMG ELL level
+    (T = 65, 64), float32 and float64, with times, bounds and
+    ``torch.sparse.mm`` beside K18 and K19. Returns the two solvers and
+    the records ({(op, dtype): {"max_abs_err", "forms"}})."""
+    from spacetime_tpu_torch.solver import HeatSolver
+
+    f32, f64 = torch.float32, torch.float64
+    n, r, J = REF_NESTED["n"], REF_NESTED["refine"], REF_NESTED["levels"]
+    phase(f"27 K16-K19 against their twins; the nested lshape2d {n} cells "
+          f"refined {r}x, J={J} solver and the AMG n={REF_AMG['n']} solver")
+    t0 = time.perf_counter()
+    nst = build_solver("lshape2d", n, J, dtype=f32, device=DEVICE, refine=r,
+                       inner="mg")
+    assert nst.mg_flavor == "NestedMultiShiftMultigrid", nst.mg_flavor
+    print(f"nested setup {time.perf_counter() - t0:.2f} s (m={nst.m}, "
+          f"N={nst.N}, {(nst.N + 1) * nst.m:,} DoF; levels "
+          f"{[lev.m for lev in nst.msmg.levels]}, offsets "
+          f"{[len(k.offsets) for k in nst._kl_ky]}, bandwidths "
+          f"{[k.bw for k in nst._kl_ky]}, K16 tiles f32 "
+          f"{[k.tile_for(k.nu, 4) for k in nst._kl_ky]}, f64 "
+          f"{[k.tile_for(k.nu, 8) for k in nst._kl_ky]})", flush=True)
+    t0 = time.perf_counter()
+    amg = HeatSolver(lsh.problem, lsh.system, lsh.grid, dtype=f32,
+                     device=DEVICE, inner="amg")
+    amg._rhs_host = lsh._rhs_host_arrays()
+    print(f"AMG setup {time.perf_counter() - t0:.2f} s (levels "
+          f"{[(lev.m, lev.fmt) for lev in amg.msmg.levels]})", flush=True)
+    rng = np.random.default_rng(SEED + 8)
+    results = {}
+    levs = nst.msmg.levels
+    for dtype in (f32, f64):
+        for li, Ts in ((0, DIA_T), (1, DIA_T[:1])):
+            lev = levs[li]
+            A = _dia_to_csr(lev.offA, lev.Av)
+            for T in Ts:
+                check_dia_forms(nst._kl_ky[li], lev, T, dtype, rng, results,
+                                f"nested L{li} m={lev.m}",
+                                li == 0 and T == DIA_T[0], A)
+        lev = [lv for lv in amg.msmg.levels if lv.fmt == "ell"][0]
+        ek = [k for k in amg._kl_ky if k.kind == "ell"][0]
+        v = ek.values(lev, dtype, DEVICE)
+        csrs = [_ell_to_csr(lev.eidx, w, lev.m) for w in (lev.ewA, lev.ewM)]
+        for T in PAIR_T:
+            X = torch.as_tensor(rng.standard_normal((T, ek.m)), dtype=dtype,
+                                device=DEVICE)
+            E = torch.as_tensor(rng.standard_normal((T, ek.mc)), dtype=dtype,
+                                device=DEVICE)
+            forms = {
+                ("spmm_pair", "pair"): (
+                    lambda: ek.op_pair(X, v),
+                    lambda: spmv.spmm_pair_plain(X, v["bA"], v["bM"],
+                                                 v["colop"], ek.m)),
+                ("spmm", "interp"): (
+                    lambda: (ek.interp(E, v),),
+                    lambda: (spmv.spmm_plain(E, v["bP"], v["colP"], ek.m),)),
+                ("spmm", "restrict"): (
+                    lambda: (ek.restrict(X, v),),
+                    lambda: (spmv.spmm_plain(X, v["bR"], v["colR"], ek.mc),)),
+            }
+            for (op, form), (kfn, tfn) in forms.items():
+                got, want = kfn(), tfn()
+                torch.cuda.synchronize()
+                err = max(float((g - w).abs().max()) for g, w in
+                          zip(got, want))
+                scale = max(float(w.abs().max()) for w in want)
+                assert err <= TOL[dtype] * scale, (form, dtype, T, err)
+                line = (f"  {form:9s} {str(dtype)[6:]:8s} AMG L1 m={ek.m} "
+                        f"T={T}: max|kernel-twin| {err:.3e} (max|twin| "
+                        f"{scale:.3e})")
+                if op == "spmm_pair":
+                    rec = results.setdefault((op, dtype), {
+                        "max_abs_err": 0.0, "forms": {}})
+                    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                    sps = [csr_on_card(c, dtype) for c in csrs]
+                    Xt = X.t().contiguous()
+                    lib = lambda: tuple(torch.sparse.mm(a, Xt) for a in sps)
+                    lerr = max(float((g.t() - w).abs().max())
+                               for g, w in zip(lib(), want))
+                    assert lerr <= TOL[dtype] * scale, (lerr, scale)
+                    entry = {"ms": device_ms(kfn), "plain_ms": device_ms(tfn),
+                             "library_ms": device_ms(lib), "max_abs_err": err,
+                             **pair_bound(csrs, T, dtype)}
+                    blk = pair_block_bound(ek, T, dtype)
+                    entry["block_bound_ms"] = blk["bound_ms"]
+                    entry["block_bound_by"] = blk["bound_by"]
+                    rec["forms"][f"pair T={T} m={ek.m}"] = entry
+                    line += (f"; kernel {entry['ms']:.4f} ms, twin "
+                             f"{entry['plain_ms']:.4f} ms, 2x torch.sparse.mm"
+                             f" {entry['library_ms']:.4f} ms (max|lib-twin| "
+                             f"{lerr:.3e}); bound {entry['bound_ms']:.4f} ms "
+                             f"({entry['bound_by']}, nnz), blocks' bound "
+                             f"{blk['bound_ms']:.4f} ms ({blk['bound_by']})")
+                print(line, flush=True)
+                del got, want
+            del X, E
+        del v
+        torch.cuda.empty_cache()
+    return nst, amg, results
+
+
+def _dia_to_csr(offsets, vals):
+    """A DIA level's (m, ndiag) values as CSR (for ``torch.sparse.mm``)."""
+    import scipy.sparse as sp
+
+    m = vals.shape[0]
+    rows = np.repeat(np.arange(m), len(offsets))
+    cols = rows + np.tile(np.asarray(offsets), m)
+    keep = (cols >= 0) & (cols < m) & (vals.ravel() != 0)
+    return sp.csr_matrix((vals.ravel()[keep], (rows[keep], cols[keep])),
+                         shape=(m, m))
+
+
+def _ell_to_csr(eidx, w, m):
+    """An ELL level's gather rows as CSR (pad slots carry weight 0)."""
+    import scipy.sparse as sp
+
+    rows = np.repeat(np.arange(eidx.shape[0]), eidx.shape[1])
+    keep = w.ravel() != 0
+    return sp.csr_matrix((w.ravel()[keep], (rows[keep],
+                                            eidx.ravel()[keep])),
+                         shape=(eidx.shape[0], m))
+
+
+def run_flat_solve(solver, paths, label, ref, calls=2):
+    """``solve(tol=1e-6)`` ``calls`` times on ``solver`` (loads assembled),
+    iterations within ±1 of ``ref``, exactly ``flat_per_solve`` launches of
+    K16–K20 per solve and no other kernel; L2 of the first within the
+    band of ``ref``. Returns the runs and the path's counts."""
+    f32 = torch.float32
+    paths.start()
+    runs = []
+    for call in range(1, calls + 1):
+        r = solver.solve(tol=1e-6, compute_error=False)
+        rel = r.residuals[-1] / r.residuals[0]
+        print(f"solve call {call}: iterations {r.iterations} (reference "
+              f"{ref['iterations']}), converged {r.converged}, rel "
+              f"{rel:.3e}, solve {r.solve_seconds:.4f} s", flush=True)
+        assert r.converged and rel <= 1e-6, rel
+        assert abs(r.iterations - ref["iterations"]) <= 1, r.iterations
+        runs.append(r)
+    counts = paths.stop(label, per=sum(x.iterations for x in runs))
+    want = {}
+    for x in runs:
+        for op, c in flat_per_solve(solver, x.iterations).items():
+            want[op] = want.get(op, 0) + c
+    per_it = {op: flat_per_solve(solver, 1)[op] - flat_per_solve(solver, 0)[op]
+              for op in want}
+    print(f"expected launches {want}; per solve "
+          f"{[flat_per_solve(solver, x.iterations) for x in runs]}; per PCG "
+          f"iteration {per_it}")
+    for op, c in want.items():
+        assert counts[(op, f32)] == c, (op, counts[(op, f32)], c)
+    flat_keys = {(op, f32) for op in want}
+    assert all(c == 0 for key, c in counts.items() if key not in flat_keys), (
+        counts)
+    t0 = time.perf_counter()
+    l2 = solver._l2_error(runs[0].U)
+    print(f"L2(IxOmega) {l2:.6e} (reference {ref['l2']:.6e}), host error "
+          f"loop {time.perf_counter() - t0:.2f} s; steady solve "
+          f"{runs[-1].solve_seconds:.4f} s")
+    assert abs(l2 / ref["l2"] - 1.0) <= ref["l2_band"], l2
+    return runs, counts
+
+
+def phase_flat_solves(build_solver, nst, amg, paths):
+    """Phases 28 and 29: the nested 25.2 MDoF solve and the AMG n = 256
+    solve, f32, twice each; then the small float64 solves of ``FLAT_F64``
+    (the JAX package's iterations and L2), which run every kernel's f64
+    form, the chained K16 among them, and an f32 ``solve_refined`` with ν
+    = 4 on the 3-D nested mesh, which chains K16 in both dtypes."""
+    f64 = torch.float64
+    phase(f"28 nested lshape2d, {(nst.N + 1) * nst.m:,} DoF, f32: "
+          "solve(tol=1e-6) twice")
+    t0 = time.perf_counter()
+    nst.assemble_rhs_host()
+    print(f"loads {time.perf_counter() - t0:.2f} s", flush=True)
+    run_flat_solve(nst, paths, "nested lshape2d 25.2 MDoF f32", REF_NESTED)
+    phase(f"29 AMG lshape2d n={REF_AMG['n']}, {(amg.N + 1) * amg.m:,} DoF, "
+          "f32: solve(tol=1e-6) twice; small float64 nested and AMG solves")
+    run_flat_solve(amg, paths, "AMG lshape2d n=256 f32", REF_AMG)
+    for label, problem, n, r, J, kw, its, l2 in FLAT_F64:
+        s = build_solver(problem, n, J, dtype=f64, device=DEVICE, refine=r,
+                         **kw)
+        s.assemble_rhs_host()
+        paths.start()
+        res = s.solve(tol=1e-8)
+        counts = paths.stop(f"{label} f64")
+        rel = res.residuals[-1] / res.residuals[0]
+        print(f"{label} {n} cells refined {r}x, J={J} (levels "
+              f"{[(lev.m, getattr(lev, 'fmt', 'dia')) for lev in s.msmg.levels]}"
+              f"): iterations {res.iterations} (JAX CPU {its}), rel "
+              f"{rel:.3e}, L2 {res.l2_error:.10e} (JAX CPU {l2}), solve "
+              f"{res.solve_seconds:.4f} s", flush=True)
+        assert res.converged and rel <= 1e-8, rel
+        if its is not None:
+            assert res.iterations == its, res.iterations
+            assert abs(res.l2_error / l2 - 1.0) <= 1e-6, res.l2_error
+        want = flat_per_solve(s, res.iterations)
+        for op, c in want.items():
+            assert counts[(op, f64)] == c, (label, op, counts[(op, f64)], c)
+        del s
+    # ν = 4 on the 3-D fine level (bandwidth 993): the window no longer
+    # fits in f32 either, so both dtypes of the refinement run the chained
+    # K16
+    label, problem, n, r, J, kw, *_ = FLAT_F64[2]
+    s = build_solver(problem, n, J, dtype=torch.float32, device=DEVICE,
+                     refine=r, mg_nu=4, **kw)
+    for dt in (torch.float32, f64):
+        s.assemble_rhs_host(dt)
+    paths.start()
+    res = s.solve_refined(tol=1e-8, compute_error=False)
+    counts = paths.stop(f"{label} mg_nu=4 solve_refined")
+    rel = res.residuals[-1] / res.residuals[0]
+    print(f"{label} mg_nu=4 f32 solve_refined: inner iterations "
+          f"{res.iterations} in {len(res.residuals) - 1} rounds, rel "
+          f"{rel:.3e}, solve {res.solve_seconds:.4f} s", flush=True)
+    assert res.converged and rel <= 1e-8, rel
+    for dt in (torch.float32, f64):
+        assert counts[("cheb_step", dt)] > 0, (dt, counts)
+    del s
+    torch.cuda.empty_cache()
+
+
 def device_ms(fn) -> float:
     """Median device ms of ``fn()`` (``utils.profiling.device_ms``, imported
     once ``main`` has put the repository on the path)."""
@@ -936,7 +1358,8 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from spacetime_tpu_torch.ops import kron, mg_kernels, native, spmv
+    from spacetime_tpu_torch.ops import (dia_kernels, kron, mg_kernels, native,
+                                         spmv)
     from spacetime_tpu_torch.ops.mg_kernels import (MSKernelLevel,
                                                     VarMSKernelLevel)
     from spacetime_tpu_torch.solver import build_solver
@@ -1040,7 +1463,7 @@ def main() -> int:
                     torch.cuda.empty_cache()
     del small3
 
-    paths = Paths(kron, mg_kernels, spmv)
+    paths = Paths(kron, mg_kernels, spmv, dia_kernels)
     f32, f64 = torch.float32, torch.float64
     phase("7 solve(tol=1e-6), f32")
     paths.start()
@@ -1502,7 +1925,10 @@ def main() -> int:
     phase_nu_paths(build_solver, paths)
     phase_oracle_rows(build_solver, paths)
     phase_lshape(lsh, paths)
+    nst, amg, flat_results = phase_flat_kernels(build_solver, lsh, spmv)
     del lsh
+    phase_flat_solves(build_solver, nst, amg, paths)
+    del nst, amg
     phase(None)
 
     kernels = []
@@ -1552,23 +1978,43 @@ def main() -> int:
                     f"{'x'.join(map(str, gs))}",
             "forms": rec["forms"],
         })
-    for (op, dtype), k in spmv.KERNELS.items():
-        rec = ell_results[dtype]
-        at = rec["forms"]["A n=256 T=64"]
-        kernels.append({
-            "name": k.name,
-            "route": "cuda",
-            "source": spmv.SOURCE,
-            "replaces": k.replaces,
-            "launches": paths.total((op, dtype)),
-            "max_abs_err": rec["max_abs_err"],
-            **{key: at[key] for key in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-            "form": "A of the lshape2d n=256 solve (m=48641) at T=64; "
-                    "library_ms is torch.sparse.mm (cuSPARSE CSR), bound_ms "
-                    "from the nonzeros",
-            "forms": rec["forms"],
-        })
+    m_fine = {"smooth": "smooth from x", "cheb_step": "chained from x",
+              "residual": "residual", "apply": "apply"}
+    flat_forms = {
+        ("spmm", "ell"): ("A n=256 T=64", spmv.SOURCE,
+                          "A of the lshape2d n=256 solve (m=48641) at T=64; "
+                          "library_ms is torch.sparse.mm (cuSPARSE CSR), "
+                          "bound_ms from the nonzeros"),
+        ("spmm_pair", "ell"): (f"pair T={PAIR_T[0]} m=8191", spmv.SOURCE,
+                               f"the AMG n=256 ELL level (m=8191) at "
+                               f"T={PAIR_T[0]}; library_ms is two "
+                               "torch.sparse.mm (cuSPARSE CSR), bound_ms "
+                               "from the nonzeros"),
+        **{(op, "dia"): (f"{form} T={DIA_T[0]} m=", dia_kernels.SOURCE,
+                         f"{form}, nu=2, at the nested fine level at "
+                         f"T={DIA_T[0]}")
+           for op, form in m_fine.items()},
+    }
+    for module, fam in ((spmv, "ell"), (dia_kernels, "dia")):
+        for (op, dtype), k in module.KERNELS.items():
+            at_key, source, form = flat_forms[(op, fam)]
+            rec = (ell_results[dtype] if op == "spmm"
+                   else flat_results[(op, dtype)])
+            # the one timed shape of the key's prefix
+            at = next(v for f, v in rec["forms"].items()
+                      if f.startswith(at_key))
+            kernels.append({
+                "name": k.name,
+                "route": "cuda",
+                "source": source,
+                "replaces": k.replaces,
+                "launches": paths.total((op, dtype)),
+                "max_abs_err": rec["max_abs_err"],
+                **{key: at[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                "form": form,
+                "forms": rec["forms"],
+            })
     assert all(k["launches"] > 0 for k in kernels), [
         k["name"] for k in kernels if not k["launches"]]
     print(smi)

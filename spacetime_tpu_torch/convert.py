@@ -26,7 +26,15 @@ format and inner solver:
   weighted tree's levels carry their ``Aw``; its ``cheb_invM`` and
   ``cheb_coefM`` are dropped: M is the constant mass stencil, so the Jacobi
   vector holds one value, and the port's K_H is the constant format's
-  stencil Chebyshev, the same recurrence.
+  stencil Chebyshev, the same recurrence;
+- the flat hierarchies (nested red refinement, smoothed aggregation: levels
+  with gather transfers ``Pidx``): each level's diagonals, transfers, DIA
+  values or ELL gather rows and factored-transfer arrays, ``cheb_invM`` and
+  ``cheb_coefM``, and the kernels' values ``kv``: the union-offset DIA
+  values (from the level's ``Av``/``Mv`` and the offsets of ``hierarchy``,
+  the host structure of either package) or the blocked-ELL arrays,
+  re-laid from the level's gather rows (the JAX kernels' ``plv``/``ellv``
+  are left: the same values in the TPU's layout).
 
 Tests hold the two solvers' params and operators equal through this.
 """
@@ -47,7 +55,40 @@ def _rows(a) -> np.ndarray:
     return a.reshape(a.shape[0], -1)[:, 0].copy()
 
 
-def params_from_jax(tree: dict, device, dtype) -> dict:
+def _flat_level(lp, lev, device, dtype, shared: dict, li: int) -> dict:
+    """One level of a flat hierarchy's row params; ``shared`` keeps the
+    shift-independent tensors of level ``li`` for the next shift vector."""
+    from types import SimpleNamespace
+
+    from .ops.dia_kernels import DiaKernelLevel
+    from .ops.spmv import EllKernelLevel
+
+    mk = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=device)
+    ids = lambda a: torch.tensor(np.asarray(a, np.int64), device=device)
+    col = lambda a: mk(_rows(a)).reshape(-1, 1)
+    q = {k: col(lp[k]) for k in ("omega", "inv_theta", "inv_delta")}
+    q["cols"] = {"omega": q["omega"].reshape(-1),
+                 "invT": q["inv_theta"].reshape(-1),
+                 "invDel": q["inv_delta"].reshape(-1)}
+    if li not in shared:
+        host = {k: np.asarray(v) for k, v in lp.items()
+                if k not in ("omega", "inv_theta", "inv_delta", "cols",
+                             "plv", "ellv")}
+        a = {k: (ids(v) if k in ("Pidx", "Ridx", "eidx", "agg", "mem_idx")
+                 else mk(v)) for k, v in host.items()}
+        if "Av" in host:
+            ns = SimpleNamespace(fmt="dia", m=host["dA"].shape[0],
+                                 offA=lev.offA, offM=lev.offM, **host)
+            a["kv"] = DiaKernelLevel(ns, 1).values(ns, dtype, device)
+        else:
+            ns = SimpleNamespace(fmt="ell", **host)
+            a["kv"] = EllKernelLevel(ns).values(ns, dtype, device)
+        shared[li] = a
+    q.update(shared[li])
+    return q
+
+
+def params_from_jax(tree: dict, device, dtype, hierarchy=None) -> dict:
     mk = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=device)
     dim = np.asarray(tree["h_half"]).ndim - 1
     col = lambda a: row_scale(_rows(a), dim, dtype, device)
@@ -90,6 +131,17 @@ def params_from_jax(tree: dict, device, dtype) -> dict:
         p["cheb_coefM"] = coef_rows(tree["cheb_coefM"], dtype)
         p["cheb_coefS"] = [coef_rows(c, dtype) for c in tree["cheb_coefS"]]
     if "ms_ky" not in tree:
+        return p
+    if "Pidx" in tree["ms_ky"][0]:
+        p["mg_cinv_ky"] = mk(tree["mg_cinv_ky"])
+        p["mg_cinv"] = [mk(S) for S in tree["mg_cinv"]]
+        p["cheb_invM"] = mk(tree["cheb_invM"])
+        p["cheb_coefM"] = coef_rows(tree["cheb_coefM"], dtype)
+        shared: dict = {}
+        for name in ("ms_ky", "ms_kx"):
+            p[name] = [_flat_level(lp, lev, device, dtype, shared, li)
+                       for li, (lp, lev) in enumerate(
+                           zip(tree[name], hierarchy.levels))]
         return p
     if weighted:
         level, rows = VarMSKernelLevel, ("omega", "inv_theta", "inv_delta")

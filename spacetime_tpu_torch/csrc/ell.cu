@@ -1,5 +1,8 @@
 // K20: the blocked-ELL SpMM batched over time rows, for sm_90a, in float
-// and double (replaces spacetime_tpu/ops/spmv_pallas.py:55 _spmm_call).
+// and double (replaces spacetime_tpu/ops/spmv_pallas.py:55 _spmm_call),
+// and K19, its pair form (replaces spacetime_tpu/ops/ell_pallas.py:140
+// _spmm_pair_call): (A·X, M·X) for two matrices that share one
+// block-column index, so each staged X stripe feeds both products.
 //
 // A sparse m×m matrix in blocked ELL (spacetime_tpu_torch/ops/
 // blocked_ell.py): block row rb holds nslots dense 128×128 blocks,
@@ -35,6 +38,12 @@
 // FMA contraction. The blocks are 99% zeros (a P1 row has ≤ 7 nonzeros on
 // 11 diagonals, of the 640 values stored per row at n = 256); skipping
 // them, and the tensor cores, are later work.
+//
+// K19 is the same kernel with a second block tile and a second set of
+// accumulators (NMAT = 2): the X stripe is staged once per chunk for both,
+// 41 KB of shared memory at TT = 64 in either type. It inherits K20's
+// cost, the stored zeros: on the smoothed-aggregation coarse levels the
+// pair reads 2·nslots blocks per block row.
 
 #include <cuda_runtime.h>
 
@@ -48,31 +57,41 @@ constexpr int kTy = 8;
 constexpr int kThreads = kTx * kTy;
 constexpr int kCols = kBlock / kTx;  // output columns per thread
 
-template <typename T, int RPT>
+// NMAT matrices (1: K20, 2: K19) on one block-column index: blocks[j]
+// and Y[j] for j < NMAT
+template <typename T, int NMAT>
+struct Mats {
+  const T* blocks[NMAT];
+  T* Y[NMAT];
+};
+
+template <typename T, int RPT, int NMAT>
 __global__ void __launch_bounds__(kThreads)
     ell_spmm_kernel(const T* __restrict__ X, int64_t nt, int64_t n,
-                    const T* __restrict__ blocks,
-                    const int* __restrict__ colidx, int nslots,
-                    T* __restrict__ Y, int64_t n_out) {
+                    Mats<T, NMAT> mats, const int* __restrict__ colidx,
+                    int nslots, int64_t n_out) {
   constexpr int TT = kTy * RPT;
   // the k range staged at a time: 32 (f32) or 16 (f64) columns, so that
-  // both tiles stay under the 48 KB of static shared memory
+  // the tiles stay under the 48 KB of static shared memory
   constexpr int kChunk = sizeof(T) == 4 ? 32 : 16;
   __shared__ T xs[TT][kChunk];
-  __shared__ T bs[kChunk][kBlock + 1];
+  __shared__ T bs[NMAT][kChunk][kBlock + 1];
   const int tx = int(threadIdx.x) % kTx;
   const int ty = int(threadIdx.x) / kTx;
   const int64_t rb = blockIdx.x;
   const int64_t t0 = int64_t(blockIdx.y) * TT;
-  T acc[RPT][kCols];
+  T acc[NMAT][RPT][kCols];
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
+  for (int j = 0; j < NMAT; ++j) {
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[r][c] = T(0);
+    for (int r = 0; r < RPT; ++r) {
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) acc[j][r][c] = T(0);
+    }
   }
   for (int s = 0; s < nslots; ++s) {
     const int64_t col0 = int64_t(colidx[rb * nslots + s]) * kBlock;
-    const T* blk = blocks + (rb * nslots + s) * int64_t(kBlock * kBlock);
+    const int64_t boff = (rb * nslots + s) * int64_t(kBlock * kBlock);
     for (int k0 = 0; k0 < kBlock; k0 += kChunk) {
       // the X stripe: TT rows × kChunk columns, zero past the rows and
       // columns
@@ -83,74 +102,82 @@ __global__ void __launch_bounds__(kThreads)
         const int64_t col = col0 + k0 + k;
         xs[t][k] = (row < nt && col < n) ? X[row * n + col] : T(0);
       }
-      // the block's 128 rows × kChunk columns, transposed
-      for (int e = threadIdx.x; e < kBlock * kChunk; e += kThreads) {
-        const int i = e / kChunk;
-        const int k = e % kChunk;
-        bs[k][i] = blk[int64_t(i) * kBlock + k0 + k];
+      // each block's 128 rows × kChunk columns, transposed
+#pragma unroll
+      for (int j = 0; j < NMAT; ++j) {
+        const T* blk = mats.blocks[j] + boff;
+        for (int e = threadIdx.x; e < kBlock * kChunk; e += kThreads) {
+          const int i = e / kChunk;
+          const int k = e % kChunk;
+          bs[j][k][i] = blk[int64_t(i) * kBlock + k0 + k];
+        }
       }
       __syncthreads();
 #pragma unroll 4
       for (int k = 0; k < kChunk; ++k) {
-        T b[kCols];
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) b[c] = bs[k][tx + kTx * c];
+        for (int j = 0; j < NMAT; ++j) {
+          T b[kCols];
 #pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-          const T x = xs[ty + kTy * r][k];
+          for (int c = 0; c < kCols; ++c) b[c] = bs[j][k][tx + kTx * c];
 #pragma unroll
-          for (int c = 0; c < kCols; ++c) acc[r][c] = fma(x, b[c], acc[r][c]);
+          for (int r = 0; r < RPT; ++r) {
+            const T x = xs[ty + kTy * r][k];
+#pragma unroll
+            for (int c = 0; c < kCols; ++c) {
+              acc[j][r][c] = fma(x, b[c], acc[j][r][c]);
+            }
+          }
         }
       }
       __syncthreads();
     }
   }
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int64_t row = t0 + ty + kTy * r;
-    if (row >= nt) continue;
+  for (int j = 0; j < NMAT; ++j) {
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int64_t col = rb * kBlock + tx + kTx * c;
-      if (col < n_out) Y[row * n_out + col] = acc[r][c];
+    for (int r = 0; r < RPT; ++r) {
+      const int64_t row = t0 + ty + kTy * r;
+      if (row >= nt) continue;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const int64_t col = rb * kBlock + tx + kTx * c;
+        if (col < n_out) mats.Y[j][row * n_out + col] = acc[j][r][c];
+      }
     }
   }
 }
 
-template <typename T, int RPT>
-int launch(const T* X, int64_t nt, int64_t n, const T* blocks,
-           const int* colidx, int64_t nrb, int64_t nslots, T* Y,
-           int64_t n_out, void* stream) {
+template <typename T, int RPT, int NMAT>
+int launch(const T* X, int64_t nt, int64_t n, const Mats<T, NMAT>& mats,
+           const int* colidx, int64_t nrb, int64_t nslots, int64_t n_out,
+           void* stream) {
   constexpr int TT = kTy * RPT;
   const dim3 grid(unsigned(nrb), unsigned((nt + TT - 1) / TT));
-  ell_spmm_kernel<T, RPT><<<grid, kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      X, nt, n, blocks, colidx, int(nslots), Y, n_out);
+  ell_spmm_kernel<T, RPT, NMAT><<<grid, kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      X, nt, n, mats, colidx, int(nslots), n_out);
   return int(cudaGetLastError());
 }
 
 // The time-row tile: the fewest rows per thread that cover min(T, 64).
-template <typename T>
-int launch_spmm(const T* X, int64_t nt, int64_t n, const T* blocks,
-                const int* colidx, int64_t nrb, int64_t nslots, T* Y,
+template <typename T, int NMAT>
+int launch_spmm(const T* X, int64_t nt, int64_t n, const Mats<T, NMAT>& mats,
+                const int* colidx, int64_t nrb, int64_t nslots,
                 int64_t n_out, void* stream) {
   if (nt > int64_t(kTy) * 8 * 65535 || nrb > 0x7fffffff) {
     return int(cudaErrorInvalidValue);
   }
   if (nt <= kTy) {
-    return launch<T, 1>(X, nt, n, blocks, colidx, nrb, nslots, Y, n_out,
-                        stream);
+    return launch<T, 1>(X, nt, n, mats, colidx, nrb, nslots, n_out, stream);
   }
   if (nt <= 2 * kTy) {
-    return launch<T, 2>(X, nt, n, blocks, colidx, nrb, nslots, Y, n_out,
-                        stream);
+    return launch<T, 2>(X, nt, n, mats, colidx, nrb, nslots, n_out, stream);
   }
   if (nt <= 4 * kTy) {
-    return launch<T, 4>(X, nt, n, blocks, colidx, nrb, nslots, Y, n_out,
-                        stream);
+    return launch<T, 4>(X, nt, n, mats, colidx, nrb, nslots, n_out, stream);
   }
-  return launch<T, 8>(X, nt, n, blocks, colidx, nrb, nslots, Y, n_out,
-                      stream);
+  return launch<T, 8>(X, nt, n, mats, colidx, nrb, nslots, n_out, stream);
 }
 
 }  // namespace
@@ -160,18 +187,26 @@ int launch_spmm(const T* X, int64_t nt, int64_t n, const T* blocks,
 // nslots) int32, Y (nt, n_out) with n_out ≤ nrb·128, all contiguous.
 extern "C" {
 
-int ell_spmm_f32(const float* X, int64_t nt, int64_t n, const float* blocks,
-                 const int* colidx, int64_t nrb, int64_t nslots, float* Y,
-                 int64_t n_out, void* stream) {
-  return launch_spmm<float>(X, nt, n, blocks, colidx, nrb, nslots, Y, n_out,
-                            stream);
-}
+#define ELL_ENTRY_POINTS(T, SFX)                                              \
+  int ell_spmm_##SFX(const T* X, int64_t nt, int64_t n, const T* blocks,      \
+                     const int* colidx, int64_t nrb, int64_t nslots, T* Y,    \
+                     int64_t n_out, void* stream) {                           \
+    const Mats<T, 1> mats{{blocks}, {Y}};                                     \
+    return launch_spmm<T, 1>(X, nt, n, mats, colidx, nrb, nslots, n_out,      \
+                             stream);                                         \
+  }                                                                           \
+  int ell_spmm_pair_##SFX(const T* X, int64_t nt, int64_t n,                  \
+                          const T* blocksA, const T* blocksM,                 \
+                          const int* colidx, int64_t nrb, int64_t nslots,     \
+                          T* YA, T* YM, int64_t n_out, void* stream) {        \
+    const Mats<T, 2> mats{{blocksA, blocksM}, {YA, YM}};                      \
+    return launch_spmm<T, 2>(X, nt, n, mats, colidx, nrb, nslots, n_out,      \
+                             stream);                                         \
+  }
 
-int ell_spmm_f64(const double* X, int64_t nt, int64_t n,
-                 const double* blocks, const int* colidx, int64_t nrb,
-                 int64_t nslots, double* Y, int64_t n_out, void* stream) {
-  return launch_spmm<double>(X, nt, n, blocks, colidx, nrb, nslots, Y, n_out,
-                             stream);
-}
+ELL_ENTRY_POINTS(float, f32)
+ELL_ENTRY_POINTS(double, f64)
+
+#undef ELL_ENTRY_POINTS
 
 }  // extern "C"

@@ -6,8 +6,12 @@ it: the same vertex order, elements, boundary mask and interior indices, so
 the assembled operators are the JAX package's bit for bit. Structured meshes
 carry a ``grid_shape``, which makes the interior P1 operators constant
 stencils; the L-shaped domain has none and runs the flat-dof formats
-(``"dia"``, ``"ell"``). Red refinement and imported meshes belong to queue 1
-item 5 of ROADMAP.md.
+(``"dia"``, ``"ell"``). ``refine_uniform`` red-refines any triangle or
+tetrahedron mesh and records the parent edges (``Mesh.refined_from``);
+``refine_hierarchy`` lex-sorts each level to keep the matrices banded, and
+``nested_interpolation`` is the exact nested-P1 embedding the unstructured
+multigrid hierarchy (``ops.multigrid.NestedMultiShiftMultigrid``) is built
+from. Imported meshes belong to queue 1 item 5 of ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import dataclasses
 import itertools
 
 import numpy as np
+import scipy.sparse as sp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +33,10 @@ class Mesh:
       boundary: (nv,) bool mask of Dirichlet-boundary vertices.
       interior: (m,) int32 indices of interior (free) vertices.
       grid_shape: per-axis interior node counts (z, y, x order).
+      refined_from: for meshes made by ``refine_uniform``, the tuple
+        (coarse_mesh, parent_edges): parent_edges[i] = (a, b) are the
+        coarse vertices whose midpoint is fine vertex i (a == b for
+        inherited vertices).
     """
 
     vertices: np.ndarray
@@ -35,6 +44,7 @@ class Mesh:
     boundary: np.ndarray
     interior: np.ndarray
     grid_shape: tuple[int, ...] | None = None
+    refined_from: tuple | None = None
 
     @property
     def dim(self) -> int:
@@ -178,6 +188,115 @@ def l_shape_mesh(n: int) -> Mesh:
     on_bdry = _boundary_vertex_mask(vertices.shape[0], tris)
     interior = np.flatnonzero(~on_bdry).astype(np.int32)
     return Mesh(vertices, tris, on_bdry, interior, grid_shape=None)
+
+
+_TET_CHILDREN_CORNERS = [(0, 4, 5, 6), (4, 1, 7, 8), (5, 7, 2, 9), (6, 8, 9, 3)]
+# Bey's red refinement of the inner octahedron along the m02–m13 diagonal
+# (local ids: 4=m01, 5=m02, 6=m03, 7=m12, 8=m13, 9=m23).
+_TET_CHILDREN_OCTA = [(4, 5, 6, 8), (4, 5, 7, 8), (5, 6, 8, 9), (5, 7, 8, 9)]
+
+
+def refine_uniform(mesh: Mesh) -> Mesh:
+    """Red uniform refinement of a triangle or tetrahedron mesh: every edge
+    is bisected; a triangle splits into 4 similar children, a tetrahedron
+    into 4 corner tets and 4 octahedron tets (Bey's rule). The result has
+    no ``grid_shape`` and records its parents in ``refined_from``."""
+    V, E = mesh.vertices, mesh.elements.astype(np.int64)
+    k = E.shape[1]
+    pair_ids = list(itertools.combinations(range(k), 2))
+    edges = np.sort(
+        np.concatenate([E[:, list(c)] for c in pair_ids], axis=0), axis=1
+    )
+    uniq, inv = np.unique(edges, axis=0, return_inverse=True)
+    mid_ids = V.shape[0] + inv.reshape(len(pair_ids), -1)  # (npairs, ne)
+    midpoints = 0.5 * (V[uniq[:, 0]] + V[uniq[:, 1]])
+    vertices = np.concatenate([V, midpoints], axis=0)
+
+    if k == 3:  # triangles: local ids 3=m01, 4=m02, 5=m12
+        loc = np.stack([E[:, 0], E[:, 1], E[:, 2], *mid_ids], axis=1)
+        children = [(0, 3, 4), (1, 5, 3), (2, 4, 5), (3, 5, 4)]
+    elif k == 4:  # tets: pair order (01,02,03,12,13,23) -> local ids 4..9
+        loc = np.stack([E[:, 0], E[:, 1], E[:, 2], E[:, 3], *mid_ids], axis=1)
+        children = _TET_CHILDREN_CORNERS + _TET_CHILDREN_OCTA
+    else:
+        raise ValueError(f"unsupported element arity {k}")
+    elements = np.concatenate([loc[:, list(c)] for c in children], axis=0)
+    elements = elements.astype(np.int32)
+
+    on_bdry = _boundary_vertex_mask(vertices.shape[0], elements)
+    interior = np.flatnonzero(~on_bdry).astype(np.int32)
+    # inherited vertices are their own parents; new ones are midpoints of
+    # the unique coarse edges
+    nv = V.shape[0]
+    own = np.stack([np.arange(nv), np.arange(nv)], axis=1)
+    parent_edges = np.concatenate([own, uniq], axis=0).astype(np.int32)
+    return Mesh(vertices, elements, on_bdry, interior, grid_shape=None,
+                refined_from=(mesh, parent_edges))
+
+
+def sort_vertices_lex(mesh: Mesh) -> Mesh:
+    """Reorder the vertices lexicographically (last coordinate major, first
+    fastest), which makes a refined grid-like mesh's matrices banded again
+    (``refine_uniform`` appends the midpoints after the inherited
+    vertices); the parent links are row-permuted along."""
+    key = tuple(mesh.vertices[:, d] for d in range(mesh.dim))
+    order = np.lexsort(key)
+    inv = np.empty(order.size, dtype=np.int64)
+    inv[order] = np.arange(order.size)
+    boundary = mesh.boundary[order]
+    refined_from = mesh.refined_from
+    if refined_from is not None:
+        coarse, pe = refined_from
+        refined_from = (coarse, pe[order])
+    return Mesh(
+        mesh.vertices[order],
+        inv[mesh.elements.astype(np.int64)].astype(np.int32),
+        boundary,
+        np.flatnonzero(~boundary).astype(np.int32),
+        grid_shape=None,
+        refined_from=refined_from,
+    )
+
+
+def refine_hierarchy(base: Mesh, refines: int, sort: bool = True) -> Mesh:
+    """``refines`` red refinements of ``base``, each level lex-sorted
+    (``sort``), with the parent chain recorded in ``refined_from``."""
+    mesh = base
+    for _ in range(refines):
+        mesh = refine_uniform(mesh)
+        if sort:
+            mesh = sort_vertices_lex(mesh)
+    return mesh
+
+
+def nested_interpolation(fine: Mesh) -> sp.csr_matrix:
+    """The nested-P1 embedding P (interior fine × interior coarse, CSR) of
+    a mesh made by ``refine_uniform``: an inherited vertex takes its
+    parent's value (weight 1), a midpoint the mean of its edge's ends
+    (½, ½); Dirichlet parents are dropped. Restriction is Pᵀ."""
+    if fine.refined_from is None:
+        raise ValueError("mesh carries no refinement record (refined_from)")
+    coarse, pe = fine.refined_from
+    c2i = np.full(coarse.num_vertices, -1, dtype=np.int64)
+    c2i[coarse.interior] = np.arange(coarse.num_interior)
+    fi = fine.interior.astype(np.int64)
+    rows, cols, vals = [], [], []
+    for side in (0, 1):
+        parent = pe[fi, side].astype(np.int64)
+        # ½ per edge end; an inherited vertex lists itself twice, and the
+        # duplicate sum restores its weight 1
+        w = np.full(fi.size, 0.5)
+        ci = c2i[parent]
+        keep = ci >= 0
+        rows.append(np.arange(fi.size)[keep])
+        cols.append(ci[keep])
+        vals.append(w[keep])
+    P = sp.csr_matrix(
+        (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+        shape=(fine.num_interior, coarse.num_interior),
+    )
+    P.sum_duplicates()
+    return P
 
 
 def domain_mesh(domain: str, dim: int, n: int) -> Mesh:

@@ -34,6 +34,20 @@ the Jacobi diagonal per node, and with per-level
 ``ops.mg_kernels.VarMSKernelLevel``s the same dispatch with the weighted
 kernels (``spacetime_tpu/ops/multigrid.py:746-800``): fused K14/K15, else
 semi-fused K10 → K13 → K9 → K10, and K11 for the later cycles.
+
+The unstructured hierarchies live in the flat (T, m) dof layout (JAX
+``ops/multigrid.py:803-1562``). ``NestedMultiShiftMultigrid.build`` walks a
+red-refinement chain (``fem.refine_hierarchy``) with Galerkin RAP through
+``fem.nested_interpolation``: DIA level operators, gather-row transfers.
+``SAMultiShiftMultigrid.build`` aggregates A's graph (``_sa_aggregate``,
+``sa_prolongator``): a banded DIA fine level with factored transfers, ELL
+gather rows on the aggregated levels. ``flat_level_arrays`` and
+``flat_row_params`` put their tensors on a device. ``NestedMultiShiftMG``
+and ``SAMultiShiftMG`` run their V-cycles, with per-level kernel levels:
+``ops.dia_kernels.DiaKernelLevel`` (K16 sweeps, K17 residuals, K18 in the
+factored transfers) on DIA levels and ``ops.spmv.EllKernelLevel`` (K19
+operator pair, K20 transfers) on ELL levels; without them, the JAX
+package's XLA form.
 """
 
 from __future__ import annotations
@@ -48,7 +62,7 @@ import torch
 import torch.nn.functional as F
 
 from ..fem import P1System, unit_cube_mesh, unit_square_mesh
-from .sparse import DiaMatrix
+from .sparse import DiaMatrix, dia_matvec
 from .stencil import (StencilOperator, VarStencilOperator, grouped_apply,
                       row_scale, tap, weight_groups, zero_pad)
 
@@ -656,3 +670,493 @@ def cheb_run(b, invd, spmv, theta: float, coef):
         d = a * d + c * r
         x = x + d
     return x
+
+
+# ---------------------------------------- unstructured hierarchies (host)
+
+
+def _rap(A, P) -> sp.csr_matrix:
+    """Galerkin RAP Pᵀ A P, symmetrised and pruned of the rounding noise
+    (for nested P1 spaces it equals coarse re-assembly)."""
+    Ac = (P.T @ A @ P).tocsr()
+    Ac = 0.5 * (Ac + Ac.T)
+    Ac.data[np.abs(Ac.data) < 1e-13 * np.abs(Ac.data).max()] = 0.0
+    Ac.eliminate_zeros()
+    return Ac
+
+
+def _ell_rows(P):
+    """CSR rows as fixed-width (idx, w) gather arrays, padded with weight 0
+    (pad index 0 is harmless under weight 0)."""
+    P = P.tocsr()
+    n = P.shape[0]
+    counts = np.diff(P.indptr)
+    K = max(int(counts.max()) if counts.size else 0, 1)
+    idx = np.zeros((n, K), np.int32)
+    w = np.zeros((n, K), np.float64)
+    rows = np.repeat(np.arange(n), counts)
+    pos = np.arange(P.nnz) - np.repeat(P.indptr[:-1], counts)
+    idx[rows, pos] = P.indices
+    w[rows, pos] = P.data
+    return idx, w
+
+
+def _level_stats(A, M) -> dict:
+    """The diagonals and |row| sums of a level's matrices (its Chebyshev
+    bounds)."""
+    return dict(dA=np.asarray(A.diagonal()), dM=np.asarray(M.diagonal()),
+                rsA=np.asarray(np.abs(A).sum(axis=1)).ravel(),
+                rsM=np.asarray(np.abs(M).sum(axis=1)).ravel())
+
+
+@dataclasses.dataclass(frozen=True)
+class _NestedLevel:
+    offA: tuple[int, ...]
+    offM: tuple[int, ...]
+    Av: np.ndarray  # (m, ndiagA) DIA values
+    Mv: np.ndarray
+    dA: np.ndarray  # (m,) diagonals / |row| sums for the Chebyshev bounds
+    dM: np.ndarray
+    rsA: np.ndarray
+    rsM: np.ndarray
+    m: int
+    Pidx: np.ndarray  # (m, ≤2) prolongation gather (coarse dof ids)
+    Pw: np.ndarray
+    Ridx: np.ndarray  # (m_c, K) restriction gather (fine dof ids)
+    Rw: np.ndarray
+
+
+@dataclasses.dataclass(frozen=True)
+class NestedMultiShiftMultigrid:
+    """The multi-shift V-cycle's structure on a nested red-refinement
+    hierarchy (a mesh from ``fem.refine_hierarchy``): the P1 spaces are
+    nested, so Galerkin RAP through ``fem.nested_interpolation`` is coarse
+    re-assembly and geometric multigrid needs no structured grid. Levels
+    live in the flat (…, m_l) dof layout: DIA level operators (lex-sorted
+    meshes keep them banded), gather-row transfers of P and Pᵀ, the
+    Jacobi term 1/(dA + ω·dM) per node. ``nu_post`` as in
+    ``MultiShiftMultigrid``."""
+
+    levels: tuple
+    nu: int
+    nu_post: int | None = None
+
+    @classmethod
+    def build(cls, fine_mesh, A_fine, M_fine, nu: int = 2,
+              m_coarse: int = 1024):
+        """Walk the mesh's ``refined_from`` chain, Galerkin-coarsening the
+        fine matrices, until the chain ends or a level has at most
+        ``m_coarse`` dofs. Returns (structure, (A_c, M_c) dense)."""
+        from ..fem.mesh import nested_interpolation
+
+        A = sp.csr_matrix(A_fine)
+        M = sp.csr_matrix(M_fine)
+        mesh = fine_mesh
+        levels = []
+        while mesh.refined_from is not None and A.shape[0] > m_coarse:
+            P = nested_interpolation(mesh)
+            dia_A = DiaMatrix.from_csr(A)
+            dia_M = DiaMatrix.from_csr(M)
+            Pidx, Pw = _ell_rows(P)
+            Ridx, Rw = _ell_rows(P.T.tocsr())
+            st = _level_stats(A, M)
+            levels.append(_NestedLevel(
+                dia_A.offsets, dia_M.offsets, dia_A.vals, dia_M.vals,
+                st["dA"], st["dM"], st["rsA"], st["rsM"], A.shape[0], Pidx,
+                Pw, Ridx, Rw))
+            A = _rap(A, P)
+            M = _rap(M, P)
+            mesh = mesh.refined_from[0]
+        if not levels:
+            raise ValueError(
+                "mesh carries no refinement chain above m_coarse — build it "
+                "with fem.refine_hierarchy(base, refines)")
+        if A.shape[0] > 8192:
+            raise ValueError(
+                f"coarsest level still has {A.shape[0]} dofs (> 8192): the "
+                "dense coarse inverses would not fit — start from a coarser "
+                "base mesh or refine more")
+        return cls(tuple(levels), nu), (A.toarray(), M.toarray())
+
+
+def _sa_aggregate(A, theta: float):
+    """The strength graph |a_ij| ≥ θ·√(a_ii·a_jj) and its greedy 3-pass
+    aggregation: (agg, n_agg). The JAX package's Python reference loop (its
+    native core gives the same output bit for bit and is not ported)."""
+    A = sp.csr_matrix(A)
+    n = A.shape[0]
+    d = np.asarray(A.diagonal())
+    C = A.tocoo()
+    off = C.row != C.col
+    strong = off & (np.abs(C.data) >= theta * np.sqrt(d[C.row] * d[C.col]))
+    S = sp.csr_matrix(
+        (np.ones(int(strong.sum()), np.int8),
+         (C.row[strong], C.col[strong])), shape=A.shape)
+    indptr, indices = S.indptr, S.indices
+    agg = np.full(n, -1, np.int64)
+    na = 0
+    for i in range(n):  # pass 1: roots with untouched neighbourhoods
+        nbrs = indices[indptr[i]: indptr[i + 1]]
+        if agg[i] == -1 and (agg[nbrs] == -1).all():
+            agg[i] = na
+            agg[nbrs] = na
+            na += 1
+    pass1 = agg.copy()
+    for i in range(n):  # pass 2: stragglers join a pass-1 aggregate
+        if pass1[i] != -1:
+            continue
+        hit = pass1[indices[indptr[i]: indptr[i + 1]]]
+        hit = hit[hit != -1]
+        if hit.size:
+            agg[i] = hit[0]
+    for i in range(n):  # pass 3: leftovers form their own aggregates
+        if agg[i] != -1:
+            continue
+        agg[i] = na
+        for j in indices[indptr[i]: indptr[i + 1]]:
+            if agg[j] == -1:
+                agg[j] = na
+        na += 1
+    return agg, na
+
+
+def sa_prolongator(A, theta: float = 0.08, return_parts: bool = False):
+    """The smoothed-aggregation prolongator of one coarsening step of an
+    SPD A (the JAX package's function, step for step, without its
+    aggressive two-pass aggregation, which no solver uses): aggregation
+    (``_sa_aggregate``), the tentative prolongator T of unit columns, and one
+    damped-Jacobi step P = (I − ω D⁻¹A)·T with ω = 4/(3·λmax(D⁻¹A)), λmax
+    by 25 power steps from a fixed seed, times 1.05. ``return_parts``
+    also returns the factors of P: (P, agg, tw = 1/√count, wd = ω/diag)."""
+    A = sp.csr_matrix(A)
+    n = A.shape[0]
+    d = np.asarray(A.diagonal())
+    agg, na = _sa_aggregate(A, theta)
+    counts = np.bincount(agg, minlength=na).astype(np.float64)
+    T = sp.csr_matrix(
+        (1.0 / np.sqrt(counts[agg]), (np.arange(n), agg)), shape=(n, na))
+    DinvA = A.multiply((1.0 / d)[:, None]).tocsr()
+    v = np.random.default_rng(1).standard_normal(n)
+    for _ in range(25):
+        v = DinvA @ v
+        v /= np.linalg.norm(v)
+    lmax = 1.05 * float(v @ (DinvA @ v))
+    P = (T - (4.0 / (3.0 * lmax)) * (DinvA @ T)).tocsr()
+    P.data[np.abs(P.data) < 1e-13] = 0.0
+    P.eliminate_zeros()
+    if return_parts:
+        tw = 1.0 / np.sqrt(counts[agg])
+        wd = (4.0 / (3.0 * lmax)) / d
+        return P, agg, tw, wd
+    return P
+
+
+@dataclasses.dataclass(frozen=True)
+class _SALevel:
+    m: int
+    fmt: str  # "dia" | "ell": the level operators' storage
+    offA: tuple[int, ...] | None
+    offM: tuple[int, ...] | None
+    Av: np.ndarray | None  # (m, ndiag) DIA values
+    Mv: np.ndarray | None
+    eidx: np.ndarray | None  # (m, K) ELL column ids of the A/M union
+    ewA: np.ndarray | None  # (m, K) values on eidx
+    ewM: np.ndarray | None
+    dA: np.ndarray
+    dM: np.ndarray
+    rsA: np.ndarray
+    rsM: np.ndarray
+    Pidx: np.ndarray  # (m, Kp) prolongation gather
+    Pw: np.ndarray
+    Ridx: np.ndarray  # (m_c, Kr) restriction gather
+    Rw: np.ndarray
+    # the factored transfers of a DIA level, P = (I − ω D⁻¹A)·T
+    agg: np.ndarray | None = None  # (m,) parent aggregate
+    tw: np.ndarray | None = None  # (m,) 1/√count
+    wd: np.ndarray | None = None  # (m,) ω/diag(A)
+    mem_idx: np.ndarray | None = None  # (m_c, Kmax) member fine ids
+    mem_w: np.ndarray | None = None  # (m_c, Kmax) 0/1 validity
+
+
+# The default of SAMultiShiftMultigrid.build's factored transfers on DIA
+# levels (P·e and Pᵀ·r by one banded A application plus a parent gather /
+# a member sum, in place of the K-wide gathers); read once by build.
+SA_FACTORED_TRANSFERS = True
+
+
+@dataclasses.dataclass(frozen=True)
+class SAMultiShiftMultigrid(NestedMultiShiftMultigrid):
+    """The multi-shift V-cycle's structure on a smoothed-aggregation
+    hierarchy, for meshes without a refinement record: coarse spaces from
+    ``sa_prolongator`` on A's graph, A and M both Galerkin-coarsened
+    through the same P. A level stays DIA while its diagonals cost at most
+    4× its nonzeros (the lex-sorted fine level), else it is stored as ELL
+    rows of the A/M union pattern (the aggregated levels)."""
+
+    factored_transfers: bool = True
+
+    _DIA_MAX_WASTE = 4.0
+
+    @classmethod
+    def build(cls, A_fine, M_fine, nu: int = 2, m_coarse: int = 1024,
+              factored_transfers: bool | None = None):
+        """Aggregate-coarsen (A, M) to at most ``m_coarse`` dofs (or until
+        aggregation stops). Returns (structure, (A_c, M_c) dense)."""
+        A = sp.csr_matrix(A_fine)
+        M = sp.csr_matrix(M_fine)
+        levels = []
+        while A.shape[0] > m_coarse:
+            P, agg, tw, wd = sa_prolongator(A, return_parts=True)
+            if P.shape[1] >= A.shape[0]:
+                break  # no coarsening progress
+            Ac = _rap(A, P)
+            Mc = _rap(M, P)
+            levels.append(cls._make_level(A, M, P, parts=(agg, tw, wd)))
+            A, M = Ac, Mc
+        if not levels:
+            raise ValueError(
+                f"smoothed aggregation built no levels above m_coarse="
+                f"{m_coarse} (m={A.shape[0]})")
+        if A.shape[0] > 8192:
+            raise ValueError(
+                f"coarsest level still has {A.shape[0]} dofs (> 8192): "
+                "aggregation stalled")
+        ft = (SA_FACTORED_TRANSFERS if factored_transfers is None
+              else bool(factored_transfers))
+        return (cls(tuple(levels), nu, factored_transfers=ft),
+                (A.toarray(), M.toarray()))
+
+    @classmethod
+    def _make_level(cls, A, M, P, parts=None) -> _SALevel:
+        m = A.shape[0]
+        dia_A = DiaMatrix.from_csr(A)
+        dia_M = DiaMatrix.from_csr(M)
+        ndiag = max(len(dia_A.offsets), len(dia_M.offsets))
+        use_dia = ndiag * m <= cls._DIA_MAX_WASTE * max(A.nnz, M.nnz)
+        if use_dia:
+            op = dict(offA=dia_A.offsets, offM=dia_M.offsets, Av=dia_A.vals,
+                      Mv=dia_M.vals, eidx=None, ewA=None, ewM=None)
+        else:
+            # the union pattern, so one gather of x serves A and M; the
+            # all-ones pattern's weights are the validity mask of the slots
+            patt = ((A != 0) + (M != 0)).tocsr()
+            eidx, valid = _ell_rows(sp.csr_matrix(
+                (np.ones(patt.nnz), patt.indices, patt.indptr),
+                shape=patt.shape))
+            rows = np.arange(m)[:, None]
+            dense = lambda W: (np.asarray(W.todense()) if sp.issparse(W)
+                               else np.asarray(W))
+            op = dict(offA=None, offM=None, Av=None, Mv=None, eidx=eidx,
+                      ewA=dense(A[rows, eidx]) * valid,
+                      ewM=dense(M[rows, eidx]) * valid)
+        Pidx, Pw = _ell_rows(P)
+        Ridx, Rw = _ell_rows(P.T.tocsr())
+        fact: dict = {}
+        if parts is not None and use_dia:
+            agg, tw, wd = parts
+            mc = P.shape[1]
+            counts = np.bincount(agg, minlength=mc)
+            Kmax = max(int(counts.max()), 1)
+            order = np.argsort(agg, kind="stable")
+            starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+            pos = np.arange(m) - np.repeat(starts, counts)
+            mem_idx = np.zeros((mc, Kmax), np.int32)
+            mem_w = np.zeros((mc, Kmax), np.float64)
+            mem_idx[agg[order], pos] = order
+            mem_w[agg[order], pos] = 1.0
+            fact = dict(agg=agg.astype(np.int32), tw=tw, wd=wd,
+                        mem_idx=mem_idx, mem_w=mem_w)
+        st = _level_stats(A, M)
+        return _SALevel(m=m, fmt="dia" if use_dia else "ell", Pidx=Pidx,
+                        Pw=Pw, Ridx=Ridx, Rw=Rw, **st, **op, **fact)
+
+
+def flat_level_arrays(msmg, dtype, device, kernels=None) -> list[dict]:
+    """The shift-independent tensors of each level of a nested or SA
+    hierarchy in ``dtype`` (shared by every shift vector's row params):
+    the diagonals, the gather transfers (int64 ids), the DIA values or the
+    ELL gather rows, the factored-transfer arrays, and ``kv``, the values
+    of the level's kernel level (``kernels[l].values``) where one is
+    given."""
+    cast = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                     device=device)
+    ids = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
+    out = []
+    for li, lev in enumerate(msmg.levels):
+        a = {"dA": cast(lev.dA), "dM": cast(lev.dM), "Pidx": ids(lev.Pidx),
+             "Pw": cast(lev.Pw), "Ridx": ids(lev.Ridx), "Rw": cast(lev.Rw)}
+        if getattr(lev, "fmt", "dia") == "dia":
+            a.update(Av=cast(lev.Av), Mv=cast(lev.Mv))
+            if getattr(lev, "agg", None) is not None:
+                a.update(agg=ids(lev.agg), tw=cast(lev.tw), wd=cast(lev.wd),
+                         mem_idx=ids(lev.mem_idx), mem_w=cast(lev.mem_w))
+        else:
+            a.update(eidx=ids(lev.eidx), ewA=cast(lev.ewA),
+                     ewM=cast(lev.ewM))
+        if kernels is not None and kernels[li] is not None:
+            a["kv"] = kernels[li].values(lev, dtype, device)
+        out.append(a)
+    return out
+
+
+def flat_row_params(msmg, omega_rows: np.ndarray, dtype, device,
+                    arrays: list[dict]) -> list[dict]:
+    """Per-level row params of a nested or SA hierarchy for a per-row
+    shift vector: the ω, 1/θ, 1/δ columns (T, 1) from the exact Gershgorin
+    bound of D(ω)⁻¹(A + ωM) at the distinct shifts (the JAX package's
+    ``row_params``), their (T,) views ``cols`` for the kernels, and the
+    level's ``arrays`` (``flat_level_arrays``)."""
+    omega_rows = np.asarray(omega_rows, np.float64)
+    uniq, inv = np.unique(omega_rows, return_inverse=True)
+    out = []
+    for lev, a in zip(msmg.levels, arrays):
+        lam_u = np.empty(uniq.size)
+        for k, w in enumerate(uniq):
+            lam_u[k] = ((lev.rsA + w * lev.rsM) / (lev.dA + w * lev.dM)).max()
+        lam = 1.1 * lam_u[inv]
+        col = lambda v: row_scale(v, 1, dtype, device)
+        lp = {"omega": col(omega_rows), "inv_theta": col(1.0 / (0.625 * lam)),
+              "inv_delta": col(1.0 / (0.375 * lam)), **a}
+        lp["cols"] = {"omega": lp["omega"].reshape(-1),
+                      "invT": lp["inv_theta"].reshape(-1),
+                      "invDel": lp["inv_delta"].reshape(-1)}
+        out.append(lp)
+    return out
+
+
+# -------------------------------------- unstructured hierarchies (device)
+
+
+class NestedMultiShiftMG:
+    """V-cycles of a host ``NestedMultiShiftMultigrid`` on (T, m) tensors.
+    ``vcycle`` and ``solve`` take an optional per-level list of kernel
+    levels: ``ops.dia_kernels.DiaKernelLevel`` (kind "dia": K16 sweeps, K17
+    residuals; values under ``lp["kv"]``) and, on the SA hierarchy,
+    ``ops.spmv.EllKernelLevel`` (kind "ell"). Without one a level runs the
+    JAX package's XLA form (``op``, ``smooth``, the gather transfers)."""
+
+    def __init__(self, msmg, nu: int | None = None):
+        self.msmg = msmg
+        self.nu = msmg.nu if nu is None else nu
+        self.nu_post = msmg.nu_post
+
+    def op(self, lvl: int, lp, x, kl=None):
+        """A x + ω⊙M x by the DIA matvecs."""
+        lev = self.msmg.levels[lvl]
+        return (dia_matvec(lp["Av"], lev.offA, x)
+                + lp["omega"] * dia_matvec(lp["Mv"], lev.offM, x))
+
+    def smooth(self, lvl: int, lp, x, b, nu: int | None = None, kl=None):
+        """The degree-ν sweep (x = 0 where None) with the per-node Jacobi
+        term 1/(dA + ω·dM); ``kl`` an ELL kernel level applies Op."""
+        cols = {"inv_diag": 1.0 / (lp["dA"] + lp["omega"] * lp["dM"]),
+                "inv_theta": lp["inv_theta"], "inv_delta": lp["inv_delta"]}
+        return cheb_smooth(lambda v: self.op(lvl, lp, v, kl), cols, x, b,
+                           self.nu if nu is None else nu)
+
+    @staticmethod
+    def gather_apply(w, idx, v):
+        """(…, n_src) -> (…, n_dst): Σ_k w[:, k]·v[…, idx[:, k]]."""
+        out = None
+        for k in range(idx.shape[-1]):
+            term = w[:, k] * v.index_select(-1, idx[:, k])
+            out = term if out is None else out + term
+        return out
+
+    def restrict(self, lvl: int, lp, r, kl=None):
+        return self.gather_apply(lp["Rw"], lp["Ridx"], r)
+
+    def interp(self, lvl: int, lp, e, kl=None):
+        return self.gather_apply(lp["Pw"], lp["Pidx"], e)
+
+    def vcycle(self, b, lps, coarse_solve, lvl: int = 0, kernels=None):
+        """One V-cycle from x = 0."""
+        if lvl == len(self.msmg.levels):
+            return coarse_solve(b)
+        lp = lps[lvl]
+        kl = kernels[lvl] if kernels is not None else None
+        dia = kl is not None and kl.kind == "dia"
+        if dia:
+            x = kl.smooth(None, b, lp["cols"], lp["kv"], zero_init=True)
+            r = kl.residual(x, b, lp["cols"], lp["kv"])
+        else:
+            x = self.smooth(lvl, lp, None, b, kl=kl)
+            r = b - self.op(lvl, lp, x, kl)
+        ec = self.vcycle(self.restrict(lvl, lp, r, kl), lps, coarse_solve,
+                         lvl + 1, kernels)
+        x = x + self.interp(lvl, lp, ec, kl)
+        if dia:
+            return kl.smooth(x, b, lp["cols"], lp["kv"], post=True)
+        return self.smooth(lvl, lp, x, b, nu=self.nu_post, kl=kl)
+
+    def solve(self, b, lps, coarse_solve, cycles: int = 2, kernels=None):
+        """``cycles`` V-cycles from a zero initial guess; the later cycles
+        start from the residual (K17 on a DIA kernel level)."""
+        x = self.vcycle(b, lps, coarse_solve, kernels=kernels)
+        kl = kernels[0] if kernels is not None else None
+        for _ in range(cycles - 1):
+            if kl is not None and kl.kind == "dia":
+                r = kl.residual(x, b, lps[0]["cols"], lps[0]["kv"])
+            else:
+                r = b - self.op(0, lps[0], x, kl)
+            x = x + self.vcycle(r, lps, coarse_solve, kernels=kernels)
+        return x
+
+
+class SAMultiShiftMG(NestedMultiShiftMG):
+    """V-cycles of a host ``SAMultiShiftMultigrid``: DIA levels as in the
+    nested hierarchy, with the factored transfers where the level has them
+    (the banded A application by K18 on a kernel level); ELL levels by the
+    union-pattern gather form, or with an ``EllKernelLevel`` the operator
+    pair by K19 and both transfers by K20."""
+
+    def op(self, lvl: int, lp, x, kl=None):
+        if getattr(self.msmg.levels[lvl], "fmt", "dia") == "dia":
+            return super().op(lvl, lp, x)
+        if kl is not None:
+            yA, yM = kl.op_pair(x, lp["kv"])
+            return yA + lp["omega"] * yM
+        outA = outM = None
+        for k in range(lp["eidx"].shape[-1]):
+            g = x.index_select(-1, lp["eidx"][:, k])
+            tA = lp["ewA"][:, k] * g
+            tM = lp["ewM"][:, k] * g
+            outA = tA if outA is None else outA + tA
+            outM = tM if outM is None else outM + tM
+        return outA + lp["omega"] * outM
+
+    def _fact(self, lvl: int, lp) -> bool:
+        lev = self.msmg.levels[lvl]
+        return (self.msmg.factored_transfers
+                and getattr(lev, "fmt", "dia") == "dia" and "agg" in lp)
+
+    def apply_A_fact(self, lvl: int, lp, kl, v):
+        """A v for the factored transfers: K18 on a kernel level, else the
+        DIA matvec."""
+        if kl is not None:
+            return kl.apply_A(v, lp["kv"])
+        return dia_matvec(lp["Av"], self.msmg.levels[lvl].offA, v)
+
+    def restrict_fact(self, lvl: int, lp, kl, r):
+        """Pᵀ r = Tᵀ(I − ω A D⁻¹) r: one A application and a member sum."""
+        u = r - self.apply_A_fact(lvl, lp, kl, lp["wd"] * r)
+        return self.gather_apply(lp["mem_w"], lp["mem_idx"], lp["tw"] * u)
+
+    def interp_fact(self, lvl: int, lp, kl, e):
+        """P e = (I − ω D⁻¹A) T e: a parent gather and one A application."""
+        g = lp["tw"] * e.index_select(-1, lp["agg"])
+        return g - lp["wd"] * self.apply_A_fact(lvl, lp, kl, g)
+
+    def restrict(self, lvl: int, lp, r, kl=None):
+        if kl is not None and kl.kind == "ell":
+            return kl.restrict(r, lp["kv"])
+        if self._fact(lvl, lp):
+            return self.restrict_fact(lvl, lp, kl, r)
+        return super().restrict(lvl, lp, r)
+
+    def interp(self, lvl: int, lp, e, kl=None):
+        if kl is not None and kl.kind == "ell":
+            return kl.interp(e, lp["kv"])
+        if self._fact(lvl, lp):
+            return self.interp_fact(lvl, lp, kl, e)
+        return super().interp(lvl, lp, e)

@@ -35,6 +35,7 @@ NVCC_FLAGS = (
 MAX_GROUPS = 16
 MAX_TAPS = 32
 MAX_VAR_TAPS = 27  # the 3^d neighbourhood
+MAX_DIAG = 64  # the union offsets of a DIA level (csrc/dia.cu)
 
 
 class TapsStruct(ctypes.Structure):
@@ -135,6 +136,29 @@ def var_taps_struct(disps, kc: int, cm: float, dim: int) -> VarTapsStruct:
     st.n_taps, st.kc, st.cm = len(disps), kc, cm
     for k, d in enumerate(disps):
         st.dz[k], st.dy[k], st.dx[k] = (0,) * (3 - dim) + tuple(d)
+    return st
+
+
+class DiaOffsetsStruct(ctypes.Structure):
+    """ctypes mirror of ``struct DiaOffsets`` in csrc/dia.cu."""
+
+    _fields_ = [
+        ("n", ctypes.c_int),
+        ("bw", ctypes.c_int),
+        ("off", ctypes.c_int * MAX_DIAG),
+    ]
+
+
+def dia_offsets_struct(offsets) -> DiaOffsetsStruct:
+    """The sorted union offsets of a DIA level and their bandwidth."""
+    if not 1 <= len(offsets) <= MAX_DIAG:
+        raise ValueError(f"{len(offsets)} diagonals; the DIA kernels take 1 "
+                         f"to {MAX_DIAG}")
+    st = DiaOffsetsStruct()
+    st.n = len(offsets)
+    st.bw = max(abs(o) for o in offsets)
+    for k, o in enumerate(offsets):
+        st.off[k] = o
     return st
 
 
@@ -260,6 +284,17 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                  D, D, P],
             # ell.cu: X, nt, n, blocks, colidx, nrb, nslots, Y, n_out
             "ell_spmm": [P, I64, I64, P, P, I64, I64, P, I64, P],
+            # X, nt, n, blocksA, blocksM, colidx, nrb, nslots, YA, YM, n_out
+            "ell_spmm_pair": [P, I64, I64, P, P, P, I64, I64, P, P, I64, P],
+            # dia.cu: x, b, vA, vM, dA, dM, the columns, out, nt, m, the
+            # offsets, tile, nu, zero_init
+            "dia_smooth": [P, P, P, P, P, P, P, P, P, P, I64, I64, P, I, I, I,
+                           P],
+            # ... r, d_in, d_out, x_out, nt, m, the offsets, first, c1, c2
+            "dia_cheb_step": [P, P, P, P, P, P, P, P, P, P, P, P, P, I64, I64,
+                              P, I, D, D, P],
+            "dia_residual": [P, P, P, P, P, P, I64, I64, P, P],
+            "dia_apply": [P, P, P, I64, I64, P, P],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, f"{name}_{sfx}")
@@ -267,7 +302,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             fn.restype = I
     for size_fn, struct in (("kron_taps_size", TapsStruct),
                             ("mg_pairs_size", PairGroupsStruct),
-                            ("mg_var_taps_size", VarTapsStruct)):
+                            ("mg_var_taps_size", VarTapsStruct),
+                            ("dia_offsets_size", DiaOffsetsStruct)):
         fn = getattr(lib, size_fn)
         fn.argtypes = []
         fn.restype = I

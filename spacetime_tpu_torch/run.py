@@ -47,6 +47,17 @@ Examples:
     python -m spacetime_tpu_torch.run --device cpu --problem lshape2d \
         --space-n 32 --time-levels 5 --spatial ell
 
+    # the L-shape at 25.2 MDoF on the GPU: the base mesh of 32 cells per
+    # side red-refined 4 times, nested multigrid (auto inner = mg on a
+    # refinement chain; K16–K18 on every level)
+    python -m spacetime_tpu_torch.run --device cuda --dtype f32 \
+        --problem lshape2d --space-n 32 --refine 4 --time-levels 7
+
+    # smoothed-aggregation multigrid on the 256-cell L-shape (3.16 MDoF):
+    # K16–K18 on the banded fine level, K19/K20 on the aggregated ones
+    python -m spacetime_tpu_torch.run --device cuda --dtype f32 \
+        --problem lshape2d --space-n 256 --time-levels 6 --inner amg
+
 Prints the iteration count, the final relative residual, the L2(I×Ω) error
 against the exact solution and per-phase times.
 """
@@ -66,6 +77,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--problem", default="smooth2d")
     p.add_argument("--space-n", type=int, default=64,
                    help="cells per side of the spatial mesh")
+    p.add_argument("--refine", type=int, default=0, metavar="K",
+                   help="red-refine the spatial mesh K times, recording the "
+                        "refinement chain (the nested multigrid hierarchy "
+                        "of inner=mg on unstructured meshes)")
     p.add_argument("--time-levels", type=int, default=6,
                    help="dyadic time levels (2^J uniform timesteps)")
     p.add_argument("--tol", type=float, default=None,
@@ -74,11 +89,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--maxiter", type=int, default=200)
     p.add_argument("--dtype", choices=["f32", "f64"], default="f64")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
-    p.add_argument("--inner", choices=["auto", "dense", "mg", "cheb"],
+    p.add_argument("--inner", choices=["auto", "dense", "mg", "cheb", "amg"],
                    default="auto",
-                   help="inner spatial solver: dense inverses, multigrid or "
-                        "Chebyshev polynomials (auto = dense at <= 4096 "
-                        "spatial unknowns, mg on structured grids, cheb "
+                   help="inner spatial solver: dense inverses, multigrid "
+                        "(structured grids, or the nested hierarchy of a "
+                        "--refine chain), smoothed-aggregation multigrid "
+                        "(amg, the flat formats) or Chebyshev polynomials "
+                        "(auto = dense at <= 4096 spatial unknowns, mg on "
+                        "structured grids and refinement chains, cheb "
                         "otherwise)")
     p.add_argument("--spatial", choices=["auto", "stencil", "vstencil", "dia",
                                          "ell"], default="auto",
@@ -181,16 +199,22 @@ def main(argv=None) -> int:
     with timer("setup"):
         solver = build_solver(
             args.problem, args.space_n, args.time_levels, dtype=dtype,
-            device=device, inner=args.inner, spatial_format=args.spatial,
+            device=device, refine=args.refine, inner=args.inner, spatial_format=args.spatial,
             cheb_eps=args.cheb_eps, mg_cycles=args.mg_cycles,
             mg_cycles_kx=args.mg_cycles_kx, mg_nu_kx=args.mg_nu_kx,
             mg_nu_post=args.mg_nu_post,
         )
+    flavor = solver.mg_flavor
+    if flavor:
+        flavor = (f" ({flavor}: levels "
+                  f"{[int(lev.m) for lev in solver.msmg.levels]})")
     print(
-        f"problem={args.problem} mesh={args.space_n}^{solver.problem.dim} "
+        f"problem={args.problem} mesh={args.space_n}^{solver.problem.dim}"
+        f"{f' refined {args.refine}x' if args.refine else ''} "
         f"(m={solver.m}) timesteps={solver.N} "
         f"-> {(solver.N + 1) * solver.m:,} space-time DoF; "
-        f"format={solver.spatial_format} inner={solver.inner}; device={device}"
+        f"format={solver.spatial_format} inner={solver.inner}{flavor or ''}; "
+        f"device={device}"
         + (f" ({torch.cuda.get_device_name(device)})"
            if device.type == "cuda" else "")
     )

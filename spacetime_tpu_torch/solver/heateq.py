@@ -29,7 +29,7 @@ Spatial formats (``spatial_format``; "auto" picks as the JAX package does):
   dtypes, so every SpMV of A and M on this format is K20.
 
 Inner solvers (``inner``; "auto": dense at m ≤ 4096, multigrid on
-structured grids, Chebyshev otherwise):
+structured grids and refinement chains, Chebyshev otherwise):
 
 - ``"dense"``: exact inverses precomputed on the host, K_Y = A⁻¹, K_H = M⁻¹
   and one sandwich (A+ω_jM)⁻¹A(A+ω_jM)⁻¹ per wavelet level, applied as
@@ -39,6 +39,14 @@ structured grids, Chebyshev otherwise):
   (degrees from the spectral bounds and ``cheb_eps``; the wavelet
   sandwiches at 30·``cheb_eps``), a Python loop over the coefficient rows
   (``ops.multigrid.cheb_run``) where JAX scans them.
+- ``"mg"`` on the flat formats of a mesh with a refinement chain
+  (``fem.refine_hierarchy``): the nested hierarchy; ``"amg"``: the
+  smoothed-aggregation hierarchy (any flat-format mesh). Every DIA level
+  runs K16–K18 (``ops.dia_kernels``), every aggregated ELL level K19 and
+  the K20 transfers (``ops.spmv``), in f32 and f64, with no size gate;
+  K_X's middle A is K18; K_H ≈ M⁻¹ the Chebyshev polynomial in M of
+  ``inner="cheb"`` at 1e-3. ``inner`` then reads "mg" and ``mg_flavor``
+  names the hierarchy.
 - ``"mg"``: multi-shift multigrid on structured grids. Constant stencils:
   every V-cycle level runs the kernels of ``ops.mg_kernels`` (fused K6/K7
   in 2-D, else the semi-fused K3, K8, K9, K3), K_X's middle application is
@@ -51,8 +59,8 @@ All kernels are CUDA kernels for CUDA tensors and their plain twins on the
 CPU; on CUDA no level or format falls back to the plain form.
 
 Outside the port so far (raising ``NotImplementedError`` with the ROADMAP.md
-queue 1 item that ports it): graded time grids, multigrid on the flat
-formats (the nested and algebraic hierarchies), on-device load quadrature,
+queue 1 item that ports it): graded time grids, the Galerkin hierarchy of a
+weighted structured grid on the flat formats, on-device load quadrature,
 the fused/flexible PCG variants, checkpointing, double-single refinement
 legs and multi-device runs.
 """
@@ -70,6 +78,7 @@ from ..fem import (
     TimeGrid,
     domain_mesh,
     l2_error_spacetime,
+    refine_hierarchy,
     spacetime_loads,
     time_matrices,
     uniform_time_grid,
@@ -78,11 +87,15 @@ from ..models import Problem, get_problem
 from ..ops import kron, spmv
 from ..ops import wavelets as wav
 from ..ops.blocked_ell import BlockedEll
+from ..ops.dia_kernels import DiaKernelLevel
 from ..ops.mg_kernels import MSKernelLevel, VarMSKernelLevel
 from ..ops.multigrid import (GalerkinMultiShiftMG, GalerkinMultiShiftMultigrid,
-                             MultiShiftMG, MultiShiftMultigrid, _GMSLevel,
+                             MultiShiftMG, MultiShiftMultigrid,
+                             NestedMultiShiftMG, NestedMultiShiftMultigrid,
+                             SAMultiShiftMG, SAMultiShiftMultigrid, _GMSLevel,
                              cheb_run, chebyshev_coefficients, coef_rows,
                              chebyshev_degree, chebyshev_stencil_inverse,
+                             flat_level_arrays, flat_row_params,
                              generic_spectral_bounds, mass_spectral_bounds,
                              row_params, var_row_params)
 from ..ops.sparse import DiaMatrix, dia_matvec
@@ -240,20 +253,33 @@ class HeatSolver:
         # --- inner solver ----------------------------------------------------
         structured_sq = (structured and len(set(gs)) == 1
                          and (gs[0] + 1) % 2 == 0)
+        refined = system.mesh.refined_from is not None
         if inner == "auto":
             if self.m <= 4096:
                 inner = "dense"
-            elif spatial_format == "stencil" or (weighted and structured_sq):
+            elif (spatial_format == "stencil" or (weighted and structured_sq)
+                  or refined):
+                # structured grids, weighted structured grids and meshes
+                # with a recorded refinement chain have nested P1 spaces
                 inner = "mg"
             else:
                 inner = "cheb"
-        if inner == "amg" or (inner == "mg" and self.flat):
-            raise _later(
-                f"inner={inner!r} on the {spatial_format!r} format (the "
-                "nested and smoothed-aggregation hierarchies)", 5,
-                "unstructured hierarchies and K16–K19")
-        if inner not in ("dense", "cheb", "mg"):
+        if inner not in ("dense", "cheb", "mg", "amg"):
             raise ValueError(f"unknown inner solver {inner!r}")
+        if inner == "amg" and not self.flat:
+            raise ValueError(
+                "inner='amg' runs in the flat dof layout (spatial_format "
+                "'dia'/'ell'); structured grids already have geometric "
+                "multigrid (inner='mg')")
+        if inner == "mg" and self.flat and not refined:
+            if weighted and structured_sq:
+                raise _later(
+                    f"inner='mg' on the {spatial_format!r} format of a "
+                    "weighted structured grid (the Galerkin hierarchy in the "
+                    "flat layout)", 5, "unstructured hierarchies")
+            raise ValueError(
+                "inner='mg' on the flat formats needs a mesh with a "
+                "refinement chain (fem.refine_hierarchy)")
         self.inner = inner
         if mg_cycles < 1 or (mg_cycles_kx is not None and mg_cycles_kx < 1):
             raise ValueError(
@@ -271,6 +297,8 @@ class HeatSolver:
             float(self.wt.level_shift[j]) for j in range(self.wt.num_levels + 1)
         ]
         self._kl_A = None  # the finest weighted level's K12 (vstencil)
+        self._flat_mg = False
+        self.mg_flavor = None
         if inner == "dense":
             A_dense = system.A.toarray()
             M_dense = system.M.toarray()
@@ -283,6 +311,10 @@ class HeatSolver:
             self._host["sandwich"] = sandwiches
         elif inner == "cheb":
             self._setup_cheb(system, omegas, cheb_eps)
+        elif self.flat:
+            self._setup_flat_mg(system, omegas, inner, mg_cycles,
+                                mg_cycles_kx, mg_nu, mg_nu_kx, mg_nu_post,
+                                mg_coarse)
         else:
             self._setup_mg(system, dim, omegas, mg_cycles, mg_cycles_kx,
                            mg_nu, mg_nu_kx, mg_nu_post, mg_coarse, space_n)
@@ -346,6 +378,69 @@ class HeatSolver:
             chebyshev_coefficients(lmin_w, lmax_w, deg)
             for (_, lmin_w, lmax_w, deg) in shifts
         ]
+
+    def _setup_flat_mg(self, system, omegas, inner, mg_cycles, mg_cycles_kx,
+                       mg_nu, mg_nu_kx, mg_nu_post, mg_coarse):
+        """The flat-layout hierarchies: nested red refinement (``mg`` on a
+        mesh with a refinement chain) or smoothed aggregation (``amg``);
+        their kernel levels (K16–K18 on every DIA level, K19/K20 on every
+        ELL level), the dense coarse inverses and K_H ≈ M⁻¹ as a Chebyshev
+        polynomial in M (bounds from ``generic_spectral_bounds`` with
+        λmin(D⁻¹M) ≥ ½, degree for 1e-3). ``inner`` becomes "mg";
+        ``mg_flavor`` names the hierarchy (JAX ``_finish_flat_mg``)."""
+        self.mg_cycles = mg_cycles
+        self.mg_cycles_kx = 2 if mg_cycles_kx is None else mg_cycles_kx
+        self.mg_nu = mg_nu
+        self.mg_nu_kx = mg_nu if mg_nu_kx is None else mg_nu_kx
+        self.mg_nu_post = mg_nu_post
+        # always coarsen at least once where a chain exists
+        m_coarse = min(1024 if mg_coarse is None else mg_coarse,
+                       max(self.m // 4, 1))
+        if inner == "amg":
+            msmg, (A_c, M_c) = SAMultiShiftMultigrid.build(
+                system.A, system.M, nu=mg_nu, m_coarse=m_coarse)
+            mg_cls = SAMultiShiftMG
+        else:
+            msmg, (A_c, M_c) = NestedMultiShiftMultigrid.build(
+                system.mesh, system.A, system.M, nu=mg_nu, m_coarse=m_coarse)
+            mg_cls = NestedMultiShiftMG
+        if mg_nu_post is not None:
+            msmg = dataclasses.replace(msmg, nu_post=mg_nu_post)
+        self.inner = "mg"
+        self.mg_flavor = type(msmg).__name__
+        self._flat_mg = True
+        self.msmg = msmg
+        self._mg_ky = mg_cls(msmg)
+        self._mg_kx = mg_cls(msmg, nu=self.mg_nu_kx)
+        # every level runs its kernels: no size gate, no f64 fallback
+        ell = {li: spmv.EllKernelLevel(lev)
+               for li, lev in enumerate(msmg.levels)
+               if getattr(lev, "fmt", "dia") == "ell"}
+        mk_levels = lambda nu: [
+            ell[li] if li in ell else DiaKernelLevel(lev, nu,
+                                                     nu_post=mg_nu_post)
+            for li, lev in enumerate(msmg.levels)
+        ]
+        self._kl_ky = mk_levels(mg_nu)
+        self._kl_kx = (self._kl_ky if self.mg_nu_kx == mg_nu
+                       else mk_levels(self.mg_nu_kx))
+        self._host.update({
+            "omega_ky": np.zeros(self.N),
+            "omega_kx": np.asarray(
+                [float(self.wt.level_shift[j]) for j in self.wt.node_level]
+            ),
+            "mg_cinv_ky": np.linalg.inv(A_c),
+            "mg_cinv": [np.linalg.inv(A_c + w * M_c) for w in omegas],
+        })
+        dM = np.asarray(system.M.diagonal())
+        rsM = np.asarray(np.abs(system.M).sum(axis=1)).ravel()
+        laM, _ = generic_spectral_bounds(system.M, known_lmin=0.5)
+        lmaxM = float((rsM / dM).max())
+        self._cheb_spec = {
+            "M": (laM, lmaxM, chebyshev_degree(laM, lmaxM, 1e-3))}
+        self._host["cheb_invM"] = 1.0 / dM
+        self._host["cheb_coefM"] = chebyshev_coefficients(
+            *self._cheb_spec["M"])
 
     def _setup_mg(self, system, dim, omegas, mg_cycles, mg_cycles_kx, mg_nu,
                   mg_nu_kx, mg_nu_post, mg_coarse, space_n):
@@ -478,6 +573,16 @@ class HeatSolver:
         if self.inner == "mg":
             p["mg_cinv_ky"] = cast(self._host["mg_cinv_ky"])
             p["mg_cinv"] = [cast(S) for S in self._host["mg_cinv"]]
+        if self._flat_mg:
+            # the level arrays and kernel values are shift-independent:
+            # one copy serves K_Y's and K_X's row params
+            arrays = flat_level_arrays(self.msmg, dtype, dev, self._kl_ky)
+            for name in ("ky", "kx"):
+                p["ms_" + name] = flat_row_params(
+                    self.msmg, self._host["omega_" + name], dtype, dev, arrays)
+            p["cheb_invM"] = cast(self._host["cheb_invM"]).reshape(self.gs)
+            p["cheb_coefM"] = coef_rows(self._host["cheb_coefM"], dtype)
+        elif self.inner == "mg":
             if self.weighted:
                 Aw = [cast(lev.Aw) for lev in self.msmg.levels]
                 rows = lambda om: var_row_params(self.msmg, om, dtype, dev, Aw)
@@ -576,7 +681,7 @@ class HeatSolver:
         Chebyshev."""
         if self.inner == "dense":
             return (X.reshape(-1, self.m) @ p["Minv"]).reshape(X.shape)
-        if self.inner == "cheb":
+        if self.inner == "cheb" or self._flat_mg:
             return cheb_run(X, p["cheb_invM"], lambda x: self._spmv_M(x, p),
                             self._cheb_theta("M"), p["cheb_coefM"])
         return self._cheb_Minv(X)
@@ -649,8 +754,14 @@ class HeatSolver:
                             p["wavelet"])
             X = self._ms_solve_kx(X, p)
             kl = self._kl_kx[0]
-            X = (kl.apply_A(X, p["ms_kx"][0]["Aw"]) if self.weighted
-                 else kl.apply_A(X))
+            if self._flat_mg:
+                # K18 on a DIA fine level (its union-layout values)
+                X = (kl.apply_A(X, p["ms_kx"][0]["kv"]) if kl.kind == "dia"
+                     else self._spmv_A(X, p))
+            elif self.weighted:
+                X = kl.apply_A(X, p["ms_kx"][0]["Aw"])
+            else:
+                X = kl.apply_A(X)
             X = self._ms_solve_kx(X, p)
             return wav.forward(self.wt, X, p["wavelet"]).reshape(R.shape)
         # level rows are strided slices: level 0 = rows {0, N}, level j the
@@ -858,14 +969,19 @@ def build_solver(
     time_levels: int = 4,
     dtype: torch.dtype = torch.float64,
     device: str | torch.device = "cuda",
+    refine: int = 0,
     **kwargs,
 ) -> HeatSolver:
     """A ``HeatSolver`` for a registered problem on its domain's mesh with
-    ``space_n`` cells per side and a uniform grid of 2^``time_levels``
-    timesteps (the construction half of the JAX package's
-    ``solve_heat_equation_tpu``). ``kwargs`` go to ``HeatSolver``."""
+    ``space_n`` cells per side, red-refined ``refine`` times with its
+    refinement chain recorded (``fem.refine_hierarchy``), and a uniform
+    grid of 2^``time_levels`` timesteps (the construction half of the JAX
+    package's ``solve_heat_equation_tpu``). ``kwargs`` go to
+    ``HeatSolver``."""
     problem = get_problem(problem_name)
     mesh = domain_mesh(problem.domain, problem.dim, space_n)
+    if refine > 0:
+        mesh = refine_hierarchy(mesh, refine)
     system = P1System.from_problem(problem, mesh)
     grid = uniform_time_grid(time_levels, T=problem.T)
     return HeatSolver(problem, system, grid, dtype=dtype, device=device, **kwargs)

@@ -1,7 +1,8 @@
 """The CUDA kernels K1 (B), K2 (Bᵀ), the multigrid kernels K3–K9 (2-D and
 3-D), the weighted K10–K13 (2-D and 3-D), K14 and K15 (2-D), the chained
-sweeps of K3/K10 above the tiled ν and the blocked-ELL SpMM K20 on the
-card, against their plain twins, and small solves on the card against the
+sweeps of K3/K10 above the tiled ν, the blocked-ELL SpMM K20, the
+banded-DIA K16–K18 (one tile, many tiles, chained) and the pair SpMM K19 on
+the card, against their plain twins, and small solves on the card against the
 CPU. Marked ``cuda``: they skip where
 ``torch.cuda.is_available()`` is False (the kernels have no CPU mode). This
 file imports no JAX, so on a machine with a GPU and without JAX it runs as
@@ -523,3 +524,139 @@ def test_small_ell_solve_matches_cpu(ell_mats, inner):
     assert gpu.iterations == cpu.iterations
     np.testing.assert_allclose(gpu.residuals, cpu.residuals, rtol=1e-10)
     assert spmv.launch_counts()["K20 ell_spmm f64"] > 0
+
+
+@pytest.fixture(scope="module")
+def flat_levels():
+    """The fine level of the L-shape of 8 cells refined three times (m =
+    2,945, bandwidth 65) and the aggregated ELL level (m = 511) of the
+    64-cell L-shape's smoothed-aggregation hierarchy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from spacetime_tpu_torch.fem import (P1System, l_shape_mesh,
+                                         refine_hierarchy)
+    from spacetime_tpu_torch.ops.multigrid import (NestedMultiShiftMultigrid,
+                                                   SAMultiShiftMultigrid)
+
+    mesh = refine_hierarchy(l_shape_mesh(8), 3)
+    s = P1System.from_mesh(mesh)
+    nested, _ = NestedMultiShiftMultigrid.build(mesh, s.A, s.M, m_coarse=64)
+    s = P1System.from_mesh(l_shape_mesh(64))
+    sa, _ = SAMultiShiftMultigrid.build(s.A, s.M, m_coarse=300)
+    return nested.levels[0], [lev for lev in sa.levels if lev.fmt == "ell"][0]
+
+
+def _dia_inputs(lev, T, dtype, seed):
+    rng = np.random.default_rng(seed)
+    mk = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
+    omega = np.abs(rng.standard_normal(T)) * 50.0
+    lam = 1.1 * np.array([((lev.rsA + w * lev.rsM)
+                           / (lev.dA + w * lev.dM)).max() for w in omega])
+    cols = {"omega": mk(omega), "invT": mk(1.0 / (0.625 * lam)),
+            "invDel": mk(1.0 / (0.375 * lam))}
+    return (cols, mk(rng.standard_normal((T, lev.m))),
+            mk(rng.standard_normal((T, lev.m))))
+
+
+# the tiled K16 with its default tiles (1,024 dofs), with tiles of 512
+# against a halo of 2νbw = 260 or 390, and chained (no shared memory)
+@pytest.mark.parametrize("plan", ["default", "tiles", "chained"])
+@pytest.mark.parametrize("T", [1, 9, 65])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dia_kernels_match_twins(flat_levels, dtype, T, plan):
+    from spacetime_tpu_torch.ops import dia_kernels
+    from spacetime_tpu_torch.ops.dia_kernels import DiaKernelLevel
+
+    lev = flat_levels[0]
+    kl = DiaKernelLevel(lev, 2, nu_post=3)
+    if plan == "tiles":
+        kl.min_tile = dia_kernels.THREADS
+    elif plan == "chained":
+        kl.smem_budget = 0
+    tile = kl.tile_for(2, torch.finfo(dtype).bits // 8)
+    assert (tile is None) == (plan == "chained")
+    if plan == "tiles":
+        assert -(-lev.m // tile) > 4
+    cols, x, b = _dia_inputs(lev, T, dtype, T)
+    vals = kl.values(lev, dtype, "cuda")
+    dia_kernels.reset_launch_counts()
+    for zero_init, post in ((True, False), (False, False), (False, True)):
+        _close(kl.smooth(x, b, cols, vals, zero_init=zero_init, post=post),
+               kl.smooth_plain(x, b, cols, vals, zero_init, post), dtype)
+    _close(kl.residual(x, b, cols, vals), kl.residual_plain(x, b, cols, vals),
+           dtype)
+    _close(kl.apply_A(x, vals), kl.apply_A_plain(x, vals), dtype)
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    counts = dia_kernels.launch_counts()
+    if plan == "chained":
+        assert counts[f"K16 dia_cheb_step {sfx}"] == 2 + 2 + 3
+        assert counts[f"K16 dia_smooth {sfx}"] == 0
+    else:
+        assert counts[f"K16 dia_smooth {sfx}"] == 3
+    assert counts[f"K17 dia_residual {sfx}"] == 1
+    assert counts[f"K18 dia_apply {sfx}"] == 1
+
+
+@pytest.mark.parametrize("T", [1, 9, 33, 65])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ell_pair_and_transfers_match_twins(flat_levels, dtype, T):
+    lev = flat_levels[1]
+    ek = spmv.EllKernelLevel(lev)
+    v = ek.values(lev, dtype, "cuda")
+    rng = np.random.default_rng(T)
+    x = torch.as_tensor(rng.standard_normal((T, ek.m)), dtype=dtype,
+                        device="cuda")
+    e = torch.as_tensor(rng.standard_normal((T, ek.mc)), dtype=dtype,
+                        device="cuda")
+    spmv.reset_launch_counts()
+    got, want = ek.op_pair(x, v), spmv.spmm_pair_plain(
+        x, v["bA"], v["bM"], v["colop"], ek.m)
+    for g, w in zip(got, want):
+        _close(g, w, dtype)
+    _close(ek.interp(e, v), spmv.spmm_plain(e, v["bP"], v["colP"], ek.m),
+           dtype)
+    _close(ek.restrict(x, v), spmv.spmm_plain(x, v["bR"], v["colR"], ek.mc),
+           dtype)
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    assert spmv.launch_counts()[f"K19 ell_spmm_pair {sfx}"] == 1
+    assert spmv.launch_counts()[f"K20 ell_spmm {sfx}"] == 2
+
+
+def test_dia_wrappers_check_inputs(flat_levels):
+    from spacetime_tpu_torch.ops.dia_kernels import DiaKernelLevel
+
+    lev = flat_levels[0]
+    kl = DiaKernelLevel(lev, 2)
+    cols, x, b = _dia_inputs(lev, 3, torch.float32, 0)
+    vals = kl.values(lev, torch.float32, "cuda")
+    with pytest.raises(TypeError, match="dtype"):
+        kl.residual(x.double(), b.double(), cols, vals)
+    with pytest.raises(ValueError, match="shape"):
+        kl.apply_A(x[:, :-1].contiguous(), vals)
+    with pytest.raises(TypeError, match="float32 and float64"):
+        kl.apply_A(x.half(), vals)
+
+
+@pytest.mark.parametrize("name, kw", [
+    ("nested", dict(refine=2, inner="mg")),
+    ("amg", dict(inner="amg", mg_coarse=300)),
+])
+def test_small_flat_mg_solve_matches_cpu(flat_levels, name, kw):
+    """float64 L-shape solves with the nested hierarchy (8 cells refined
+    twice) and the SA hierarchy (64 cells, an ELL level), 4 steps: the
+    card's K16–K20 and the CPU twins take the same iterations."""
+    from spacetime_tpu_torch.ops import dia_kernels
+
+    n = 8 if name == "nested" else 64
+    cpu = build_solver("lshape2d", n, 2, device="cpu", **kw).solve(tol=1e-8)
+    dia_kernels.reset_launch_counts()
+    spmv.reset_launch_counts()
+    gpu = build_solver("lshape2d", n, 2, device="cuda", **kw).solve(tol=1e-8)
+    assert gpu.iterations == cpu.iterations
+    np.testing.assert_allclose(gpu.residuals, cpu.residuals, rtol=1e-10)
+    counts = {**dia_kernels.launch_counts(), **spmv.launch_counts()}
+    for k in ("K16 dia_smooth", "K17 dia_residual", "K18 dia_apply"):
+        assert counts[f"{k} f64"] > 0, k
+    if name == "amg":
+        assert counts["K19 ell_spmm_pair f64"] > 0
+        assert counts["K20 ell_spmm f64"] > 0

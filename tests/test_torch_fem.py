@@ -149,10 +149,11 @@ def test_spacetime_loads_equal(dim, n):
 
 def test_lshape_is_later():
     """The L-shaped domain is ported (``tests/test_torch_oracle.py`` holds
-    it bit for bit); what is later is unstructured refinement, and the
-    domain is 2-D only, as in the JAX package."""
+    it bit for bit; its red refinement ``tests/test_torch_nested.py``); it
+    carries no grid and no refinement record, and is 2-D only, as in the
+    JAX package."""
     mesh = fem.domain_mesh("lshape", 2, 8)
-    assert mesh.grid_shape is None and not hasattr(mesh, "refined_from")
+    assert mesh.grid_shape is None and mesh.refined_from is None
     _equal(mesh.interior, jfem.domain_mesh("lshape", 2, 8).interior)
     with pytest.raises(ValueError, match="2D"):
         fem.domain_mesh("lshape", 3, 8)

@@ -104,7 +104,9 @@ _NO_JAX_PACKAGE = textwrap.dedent(
                         ("varcoef3d", 8, {"inner": "mg"}),
                         ("smooth2d", 8, {"inner": "dense"}),
                         ("lshape2d", 8, {"spatial_format": "ell",
-                                         "inner": "cheb"})):
+                                         "inner": "cheb"}),
+                        ("lshape2d", 8, {"refine": 2, "inner": "mg"}),
+                        ("lshape2d", 24, {"inner": "amg"})):
         res = build_solver(name, n, 2, device="cpu", **kw).solve(tol=1e-8)
         assert res.converged and res.l2_error > 0, name
         its.append(res.iterations)
@@ -118,9 +120,11 @@ _NO_JAX_PACKAGE = textwrap.dedent(
 
 def test_solves_without_the_jax_package():
     """Every port module imports, and a 2-D, a 3-D and weighted 2-D and
-    3-D (varcoef2d, varcoef3d) multigrid solves, a dense one and an L-shape
-    solve on the blocked-ELL format with Chebyshev inner solves run, with
-    the JAX package and JAX blocked from import."""
+    3-D (varcoef2d, varcoef3d) multigrid solves, a dense one, an L-shape
+    solve on the blocked-ELL format with Chebyshev inner solves, and
+    L-shape solves with the nested (refined twice) and the smoothed-
+    aggregation hierarchies run, with the JAX package and JAX blocked from
+    import."""
     out = subprocess.run(
         [sys.executable, "-c", _NO_JAX_PACKAGE],
         cwd=REPO, capture_output=True, text=True, timeout=300,
@@ -169,6 +173,6 @@ def test_unsupported_device_and_dtype_raise():
     with pytest.raises(ValueError, match="CUDA tensors launch the kernel"):
         kron.apply_B(U, solver.params["kron"]["h128"], solver.taps)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_solver("lshape2d", 8, 2, device="cpu", inner="amg")
+        build_solver("lshape2d", 8, 2, device="cpu", rhs="device")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solver.solve_refined(legs="ds")

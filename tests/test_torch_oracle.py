@@ -154,9 +154,15 @@ def test_flat_formats_refuse_mg():
     problem = get_problem("lshape2d")
     system = fem.P1System.from_mesh(fem.l_shape_mesh(8))
     grid = fem.uniform_time_grid(2)
-    for inner in ("mg", "amg"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            HeatSolver(problem, system, grid, device="cpu", inner=inner)
+    # multigrid on the flat formats needs a refinement chain (the nested
+    # hierarchy, tests/test_torch_nested.py); smoothed aggregation needs
+    # the flat layout (tests/test_torch_amg.py)
+    with pytest.raises(ValueError, match="refinement chain"):
+        HeatSolver(problem, system, grid, device="cpu", inner="mg")
+    with pytest.raises(ValueError, match="flat dof layout"):
+        HeatSolver(get_problem("smooth2d"),
+                   fem.P1System.from_mesh(fem.unit_square_mesh(8)), grid,
+                   device="cpu", inner="amg")
     with pytest.raises(ValueError, match="structured grid"):
         HeatSolver(problem, system, grid, device="cpu",
                    spatial_format="stencil")
