@@ -107,10 +107,11 @@ Phases (every check asserts; any failure exits non-zero):
               1% of the JAX package's on the CPU (``dia``, f32).
 27. K16–K19 — the setup of lshape2d on 32 cells red-refined 4 times, J=7
               (25.2 MDoF, nested multigrid) and of the AMG solver on phase
-              26's n=256 system; K16 (from 0, from x, chained), K17 and K18
-              against their twins on the nested fine level (T=129, 128) and
-              its second level (T=129), K19 and the K20 transfers on the AMG
-              ELL level (m=8191, T=65, 64), f32 and f64, within 1e-5 (f32)
+              26's n=256 system; K16 (from 0, from x), K17 and K18 against
+              their twins on the nested fine level (T=129, 128), its second
+              level (T=129) and the AMG DIA fine level (m=48641, T=65, 64),
+              K19 and the K20 transfers on the AMG ELL level (m=8191, T=65,
+              64), f32 and f64, within 1e-5 (f32)
               and 1e-13 (f64) of max|twin|; times at the fine level (T=129)
               and the ELL level beside ``torch.sparse.mm`` (K18, and two of
               them for K19) and their bounds.
@@ -121,10 +122,10 @@ Phases (every check asserts; any failure exits non-zero):
 29. AMG     — the n=256 solve, f32, twice: the JAX package's 16 iterations
               on the CPU ± 1, L2 within 1% of its value, ``flat_per_solve``
               launches of K16–K20; then float64 solves of ``FLAT_F64``
-              (nested L-shape, AMG with an ELL level, nested tetrahedra
-              whose fine level chains K16) to the JAX package's iterations
-              and L2 (1e-6), and an f32 ``solve_refined`` with ν = 4 on the
-              tetrahedra, which chains K16 in both dtypes.
+              (nested L-shape, AMG with an ELL level, nested tetrahedra) to
+              the JAX package's iterations and L2 (1e-6), and an f32
+              ``solve_refined`` with ν = 4 on the tetrahedra, K16 at ν = 4
+              in both dtypes.
 
 Launch counters are zeroed just before each path (phases 7–8, 9, 10, 11,
 12, 13, 15, 16, 17, 19, 20, 21, each solve of 24, 25 and 29, 26, 28 and
@@ -245,8 +246,7 @@ REF_NESTED = {"n": 32, "refine": 4, "levels": 7, "iterations": 15,
 REF_AMG = {"n": 256, "levels": 6, "iterations": 16,
            "l2": 5.150423435807143e-05, "l2_band": 0.01}
 # Small float64 solves of the flat hierarchies (every kernel's f64 form in
-# a solve; the 3-D nested fine level, bandwidth 993, runs the chained K16 in
-# f64): (label, problem, cells, refinements, time levels, solver options,
+# a solve, 2-D and 3-D): (label, problem, cells, refinements, time levels, solver options,
 # the JAX package's iterations and L2 on the CPU: ``HeatSolver(problem,
 # P1System.from_problem(problem, refine_hierarchy(mesh, refinements)),
 # uniform_time_grid(levels), rhs="host", **options).solve(tol=1e-8)``)
@@ -258,9 +258,9 @@ FLAT_F64 = [
     ("nested smooth3d", "smooth3d", 8, 2, 3, {"inner": "mg"}, 18,
      0.001007288869638708),
 ]
-# T of the K16–K18 checks (K_Y's 128 rows and K_X's 129 at the nested
-# fine level, K_X's at the AMG fine level) and of K19's (K_X's and K_Y's
-# rows at the AMG n = 256 ELL level)
+# T of the K16–K18 checks at the nested fine level (K_X's 129 rows and
+# K_Y's 128) and of the K16–K18 and K19 checks at the AMG n = 256 levels
+# (K_X's 65 and K_Y's 64 at its DIA fine level and its ELL level)
 DIA_T = (129, 128)
 PAIR_T = (65, 64)
 # The oracle's rows solved in float64 on the card (dense inner solves;
@@ -987,28 +987,23 @@ def pair_block_bound(ek, T, dtype) -> dict:
 def flat_per_solve(solver, iterations: int) -> dict:
     """K16–K20 launches of one ``solve`` with a nested or SA hierarchy
     (``ops.multigrid.NestedMultiShiftMG`` / ``SAMultiShiftMG``), every level
-    on its kernels: per V-cycle a DIA level takes two K16 sweeps, one K17
-    and, with factored transfers, two K18; an ELL level (ν−1) + 1 + ν_post
+    on its kernels: per V-cycle a DIA level takes ν + ν_post K16 launches
+    (one per step of its two sweeps), one K17 and, with factored transfers
+    (the SA DIA levels), two K18; an ELL level (ν−1) + 1 + ν_post
     K19 pair products and two K20 transfers. K_Y is ``mg_cycles`` V-cycles
     and ``mg_cycles``−1 residuals (K17) at the fine level; K_X two such
     solves of ``mg_cycles_kx`` cycles around one K18. The rhs takes one
     K_Y; PCG one S (one K_Y) and one K_X before its loop and per
-    iteration. The tiled K16 is one launch per sweep (the chained form ν)."""
+    iteration."""
     ms = solver.msmg
-    per_v = dict.fromkeys(("smooth", "cheb_step", "residual", "apply",
-                           "spmm_pair", "spmm"), 0)
+    per_v = dict.fromkeys(("smooth", "residual", "apply", "spmm_pair",
+                           "spmm"), 0)
     nu_post = ms.nu_post or solver.mg_nu
     for kl, lev in zip(solver._kl_ky, ms.levels):
         if kl.kind == "dia":
-            sz = 4 if solver.dtype == torch.float32 else 8
-            for nu in (kl.nu, kl.nu_post):  # the pre and the post sweep
-                if kl.tile_for(nu, sz):
-                    per_v["smooth"] += 1
-                else:
-                    per_v["cheb_step"] += nu
+            per_v["smooth"] += kl.nu + kl.nu_post
             per_v["residual"] += 1
-            if (getattr(ms, "factored_transfers", False)
-                    and getattr(lev, "agg", None) is not None):
+            if getattr(lev, "agg", None) is not None:
                 per_v["apply"] += 2
         else:
             per_v["spmm_pair"] += (solver.mg_nu - 1) + 1 + nu_post
@@ -1023,11 +1018,9 @@ def flat_per_solve(solver, iterations: int) -> dict:
 
 
 def check_dia_forms(kl, lev, T, dtype, rng, results, label, timed, A_csr):
-    """K16 (from 0, from x, and chained from x), K17 and K18 of ``kl``
-    against their twins at T rows; times and bounds where ``timed``, K18
-    beside ``torch.sparse.mm`` (A in CSR)."""
-    from spacetime_tpu_torch.ops.dia_kernels import DiaKernelLevel
-
+    """K16 (from 0 and from x), K17 and K18 of ``kl`` against their twins
+    at T rows; times and bounds where ``timed``, K18 beside
+    ``torch.sparse.mm`` (A in CSR)."""
     mk = lambda a: torch.as_tensor(a, dtype=dtype, device=DEVICE)
     omega = np.abs(rng.standard_normal(T)) * 100.0
     omega[:: 2] = 0.0
@@ -1037,8 +1030,6 @@ def check_dia_forms(kl, lev, T, dtype, rng, results, label, timed, A_csr):
             "invDel": mk(1.0 / (0.375 * lam))}
     x, b = (mk(rng.standard_normal((T, lev.m))) for _ in range(2))
     vals = kl.values(lev, dtype, DEVICE)
-    chained = DiaKernelLevel(lev, kl.nu)
-    chained.smem_budget = 0
     forms = {
         ("smooth", "smooth from 0"): (
             lambda: kl.smooth(None, b, cols, vals, zero_init=True),
@@ -1046,9 +1037,6 @@ def check_dia_forms(kl, lev, T, dtype, rng, results, label, timed, A_csr):
         ("smooth", "smooth from x"): (
             lambda: kl.smooth(x, b, cols, vals),
             lambda: kl.smooth_plain(x, b, cols, vals)),
-        ("cheb_step", "chained from x"): (
-            lambda: chained.smooth(x, b, cols, vals),
-            lambda: chained.smooth_plain(x, b, cols, vals)),
         ("residual", "residual"): (
             lambda: kl.residual(x, b, cols, vals),
             lambda: kl.residual_plain(x, b, cols, vals)),
@@ -1090,9 +1078,10 @@ def check_dia_forms(kl, lev, T, dtype, rng, results, label, timed, A_csr):
 def phase_flat_kernels(build_solver, lsh, spmv):
     """Phase 27: the nested 25.2 MDoF solver's and the AMG n = 256
     solver's setup (the latter on phase 26's system and loads); K16–K18
-    against their twins on the nested fine level (T = 129, 128) and its
-    second level (T = 129), K19 and the K20 transfers on the AMG ELL level
-    (T = 65, 64), float32 and float64, with times, bounds and
+    against their twins on the nested fine level (T = 129, 128), its
+    second level (T = 129) and the AMG DIA fine level (T = 65, 64), K19
+    and the K20 transfers on the AMG ELL level (T = 65, 64), float32 and
+    float64, with times, bounds and
     ``torch.sparse.mm`` beside K18 and K19. Returns the two solvers and
     the records ({(op, dtype): {"max_abs_err", "forms"}})."""
     from spacetime_tpu_torch.solver import HeatSolver
@@ -1109,9 +1098,7 @@ def phase_flat_kernels(build_solver, lsh, spmv):
           f"N={nst.N}, {(nst.N + 1) * nst.m:,} DoF; levels "
           f"{[lev.m for lev in nst.msmg.levels]}, offsets "
           f"{[len(k.offsets) for k in nst._kl_ky]}, bandwidths "
-          f"{[k.bw for k in nst._kl_ky]}, K16 tiles f32 "
-          f"{[k.tile_for(k.nu, 4) for k in nst._kl_ky]}, f64 "
-          f"{[k.tile_for(k.nu, 8) for k in nst._kl_ky]})", flush=True)
+          f"{[max(map(abs, k.offsets)) for k in nst._kl_ky]})", flush=True)
     t0 = time.perf_counter()
     amg = HeatSolver(lsh.problem, lsh.system, lsh.grid, dtype=f32,
                      device=DEVICE, inner="amg")
@@ -1129,6 +1116,11 @@ def phase_flat_kernels(build_solver, lsh, spmv):
                 check_dia_forms(nst._kl_ky[li], lev, T, dtype, rng, results,
                                 f"nested L{li} m={lev.m}",
                                 li == 0 and T == DIA_T[0], A)
+        lev = amg.msmg.levels[0]
+        assert lev.fmt == "dia" and amg._kl_ky[0].kind == "dia", lev.fmt
+        for T in PAIR_T:
+            check_dia_forms(amg._kl_ky[0], lev, T, dtype, rng, results,
+                            f"AMG L0 m={lev.m}", False, None)
         lev = [lv for lv in amg.msmg.levels if lv.fmt == "ell"][0]
         ek = [k for k in amg._kl_ky if k.kind == "ell"][0]
         v = ek.values(lev, dtype, DEVICE)
@@ -1259,8 +1251,8 @@ def phase_flat_solves(build_solver, nst, amg, paths):
     """Phases 28 and 29: the nested 25.2 MDoF solve and the AMG n = 256
     solve, f32, twice each; then the small float64 solves of ``FLAT_F64``
     (the JAX package's iterations and L2), which run every kernel's f64
-    form, the chained K16 among them, and an f32 ``solve_refined`` with ν
-    = 4 on the 3-D nested mesh, which chains K16 in both dtypes."""
+    form, and an f32 ``solve_refined`` with ν = 4 on the 3-D nested mesh,
+    which runs K16 at ν = 4 in both dtypes."""
     f64 = torch.float64
     phase(f"28 nested lshape2d, {(nst.N + 1) * nst.m:,} DoF, f32: "
           "solve(tol=1e-6) twice")
@@ -1292,9 +1284,7 @@ def phase_flat_solves(build_solver, nst, amg, paths):
         for op, c in want.items():
             assert counts[(op, f64)] == c, (label, op, counts[(op, f64)], c)
         del s
-    # ν = 4 on the 3-D fine level (bandwidth 993): the window no longer
-    # fits in f32 either, so both dtypes of the refinement run the chained
-    # K16
+    # ν = 4 on the 3-D nested levels, K16 in both dtypes of the refinement
     label, problem, n, r, J, kw, *_ = FLAT_F64[2]
     s = build_solver(problem, n, J, dtype=torch.float32, device=DEVICE,
                      refine=r, mg_nu=4, **kw)
@@ -1309,7 +1299,7 @@ def phase_flat_solves(build_solver, nst, amg, paths):
           f"{rel:.3e}, solve {res.solve_seconds:.4f} s", flush=True)
     assert res.converged and rel <= 1e-8, rel
     for dt in (torch.float32, f64):
-        assert counts[("cheb_step", dt)] > 0, (dt, counts)
+        assert counts[("smooth", dt)] > 0, (dt, counts)
     del s
     torch.cuda.empty_cache()
 
@@ -1978,8 +1968,8 @@ def main() -> int:
                     f"{'x'.join(map(str, gs))}",
             "forms": rec["forms"],
         })
-    m_fine = {"smooth": "smooth from x", "cheb_step": "chained from x",
-              "residual": "residual", "apply": "apply"}
+    m_fine = {"smooth": "smooth from x", "residual": "residual",
+              "apply": "apply"}
     flat_forms = {
         ("spmm", "ell"): ("A n=256 T=64", spmv.SOURCE,
                           "A of the lshape2d n=256 solve (m=48641) at T=64; "

@@ -24,16 +24,12 @@
 // K17 0.096 ms, K18 0.063 ms. The values (17 MB there) are read by every
 // time row and stay in the 50 MB L2.
 //
-// Design, the simple one. K17 and K18: one thread per (row, dof), the taps
-// read from device memory through the L1. K16: one block per (row, tile of
-// `tile` dofs) holds a window of tile + 2ν·bw dofs (bw = max|off|) of x,
-// r and d in shared memory, and the tile's running x; each of the ν
-// applications of Op eats bw dofs of halo per side, which replaces the
-// TPU kernel's shrinking lane windows; outside [0, m) 1/D, r and d are 0,
-// as the TPU kernel's guarded reciprocal makes them. Where the window does
-// not fit in shared memory (3-D meshes, large ν: the wrapper decides),
-// K16 runs as ν launches of a one-step kernel (`dia_cheb_step`, K3's
-// chained design in csrc/mg.cu) with r and d in device memory.
+// Design, the simple one: one thread per (row, dof), the taps read from
+// device memory through the L1, 0 outside [0, m). K16 runs as ν launches
+// of a one-step kernel (K3's chained design in csrc/mg.cu) with r and d in
+// device memory: a sweep's halo of ν bandwidths (~1,030 dofs per side at
+// n = 512) would make a shared-memory window half halo, and the chained
+// form measured faster than such a window on the nested fine level.
 
 #include <cuda_runtime.h>
 
@@ -45,33 +41,15 @@ constexpr int kMaxDiag = 64;
 // of internal linkage would hide them from the library's symbol table
 struct DiaOffsets {
   int n;   // union offsets
-  int bw;  // max |off|
   int off[kMaxDiag];
 };
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr double kSigma = 5.0 / 3.0;
 
-// (Σ_k vA[k, g]·y[i + off_k], Σ_k vM[k, g]·y[i + off_k]) from a window y
-// whose position i holds dof g
-template <typename T>
-__device__ __forceinline__ void pair_sums(const T* __restrict__ vA,
-                                          const T* __restrict__ vM, int64_t m,
-                                          int64_t g, const T* y, int i,
-                                          const DiaOffsets& o, T& oA, T& oM) {
-  T sa = T(0), sm = T(0);
-  for (int k = 0; k < o.n; ++k) {
-    const T yv = y[i + o.off[k]];
-    sa += vA[k * m + g] * yv;
-    sm += vM[k * m + g] * yv;
-  }
-  oA = sa;
-  oM = sm;
-}
-
-// the same on a row of device memory, reading 0 outside [0, m)
+// (Σ_k vA[k, g]·y[g + off_k], Σ_k vM[k, g]·y[g + off_k]) on a row of
+// device memory, reading 0 outside [0, m)
 template <typename T>
 __device__ __forceinline__ void pair_sums_row(const T* __restrict__ vA,
                                               const T* __restrict__ vM,
@@ -97,110 +75,20 @@ __device__ __forceinline__ T inv_diag(const T* __restrict__ dA,
   return T(1) / (dA[g] + om * dM[g]);
 }
 
-// K16, tiled: block (tile index, row). Shared memory: x window (then the
-// second d buffer), r, d (tile + 2ν·bw each, window coordinates) and the
-// tile's running x.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    dia_smooth_kernel(const T* __restrict__ x, const T* __restrict__ b,
-                      const T* __restrict__ vA, const T* __restrict__ vM,
-                      const T* __restrict__ dA, const T* __restrict__ dM,
-                      const T* __restrict__ omega, const T* __restrict__ invT,
-                      const T* __restrict__ invDel, T* __restrict__ out,
-                      int64_t m, DiaOffsets o, int tile, int nu,
-                      int zero_init) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const smem = reinterpret_cast<T*>(smem_raw);
-  const int bw = o.bw;
-  const int H = nu * bw;
-  const int W0 = tile + 2 * H;
-  T* bx = smem;
-  T* br = bx + W0;
-  T* bd = br + W0;
-  T* acc = bd + W0;
-  const int64_t t = blockIdx.y;
-  const int64_t g0 = int64_t(blockIdx.x) * tile - H;
-  const T om = omega[t];
-  const T iT = invT[t];
-  const T iDel = invDel[t];
-  const T* brow = b + t * m;
-  if (!zero_init) {
-    const T* xrow = x + t * m;
-    for (int i = threadIdx.x; i < W0; i += kThreads) {
-      const int64_t g = g0 + i;
-      bx[i] = (g >= 0 && g < m) ? xrow[g] : T(0);
-    }
-    __syncthreads();
-  }
-  // the first step on the window less one bandwidth per side
-  for (int i = bw + threadIdx.x; i < W0 - bw; i += kThreads) {
-    const int64_t g = g0 + i;
-    T r = T(0), d = T(0);
-    if (g >= 0 && g < m) {
-      const T invd = inv_diag(dA, dM, g, om);
-      T rhs = brow[g];
-      if (!zero_init) {
-        T oA, oM;
-        pair_sums(vA, vM, m, g, bx, i, o, oA, oM);
-        rhs = rhs - (oA + om * oM);
-      }
-      r = invd * rhs;
-      d = r * iT;
-    }
-    br[i] = r;
-    bd[i] = d;
-    if (i >= H && i < H + tile) acc[i - H] = zero_init ? d : bx[i] + d;
-  }
-  __syncthreads();
-  T* dcur = bd;
-  T* dnext = bx;
-  double rho = 1.0 / kSigma;
-  for (int k = 1; k < nu; ++k) {
-    const double rho_new = 1.0 / (2.0 * kSigma - rho);
-    const T a = T(rho_new * rho);
-    const T c = T(2.0 * rho_new);
-    for (int i = (k + 1) * bw + threadIdx.x; i < W0 - (k + 1) * bw;
-         i += kThreads) {
-      const int64_t g = g0 + i;
-      T dn = T(0);
-      if (g >= 0 && g < m) {
-        const T invd = inv_diag(dA, dM, g, om);
-        T oA, oM;
-        pair_sums(vA, vM, m, g, dcur, i, o, oA, oM);
-        const T r = br[i] - invd * (oA + om * oM);
-        br[i] = r;
-        dn = a * dcur[i] + c * iDel * r;
-      }
-      dnext[i] = dn;
-      if (i >= H && i < H + tile) acc[i - H] += dn;
-    }
-    __syncthreads();
-    T* tmp = dcur;
-    dcur = dnext;
-    dnext = tmp;
-    rho = rho_new;
-  }
-  T* orow = out + t * m;
-  for (int j = threadIdx.x; j < tile; j += kThreads) {
-    const int64_t g = g0 + H + j;
-    if (g < m) orow[g] = acc[j];
-  }
-}
-
-// K16, chained: one Chebyshev step per launch, one thread per (row, dof).
+// K16: one Chebyshev step per launch, one thread per (row, dof).
 // first: r = 1/D·(b − Op x) (b with x = null), d_out = r/θ, x_out = x +
 // d_out; else r −= 1/D·Op d_in, d_out = c1·d_in + c2/δ·r, x_out += d_out.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    dia_cheb_step_kernel(const T* __restrict__ x, const T* __restrict__ b,
-                         const T* __restrict__ vA, const T* __restrict__ vM,
-                         const T* __restrict__ dA, const T* __restrict__ dM,
-                         const T* __restrict__ omega,
-                         const T* __restrict__ invT,
-                         const T* __restrict__ invDel, T* __restrict__ r,
-                         const T* __restrict__ d_in, T* __restrict__ d_out,
-                         T* __restrict__ x_out, int64_t m, DiaOffsets o,
-                         int first, T c1, T c2) {
+    dia_smooth_step_kernel(const T* __restrict__ x, const T* __restrict__ b,
+                           const T* __restrict__ vA, const T* __restrict__ vM,
+                           const T* __restrict__ dA, const T* __restrict__ dM,
+                           const T* __restrict__ omega,
+                           const T* __restrict__ invT,
+                           const T* __restrict__ invDel, T* __restrict__ r,
+                           const T* __restrict__ d_in, T* __restrict__ d_out,
+                           T* __restrict__ x_out, int64_t m, DiaOffsets o,
+                           int first, T c1, T c2) {
   const int64_t g = int64_t(blockIdx.x) * kThreads + threadIdx.x;
   if (g >= m) return;
   const int64_t t = blockIdx.y;
@@ -263,56 +151,24 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 bool bad_shape(int64_t nt, int64_t m, const DiaOffsets* o) {
-  return nt < 1 || nt > 65535 || m < 1 || o->n < 1 || o->n > kMaxDiag ||
-         o->bw < 0;
+  return nt < 1 || nt > 65535 || m < 1 || o->n < 1 || o->n > kMaxDiag;
 }
 
 dim3 point_grid(int64_t nt, int64_t m) {
   return dim3(unsigned((m + kThreads - 1) / kThreads), unsigned(nt));
 }
 
-// the shared memory of one tiled K16 block, in bytes
-int64_t smooth_smem(int tile, int nu, int bw, int64_t itemsize) {
-  return (3 * (int64_t(tile) + 2 * int64_t(nu) * bw) + tile) * itemsize;
-}
-
 template <typename T>
-int launch_smooth(const T* x, const T* b, const T* vA, const T* vM,
-                  const T* dA, const T* dM, const T* omega, const T* invT,
-                  const T* invDel, T* out, int64_t nt, int64_t m,
-                  const DiaOffsets* o, int tile, int nu, int zero_init,
-                  void* stream) {
-  if (bad_shape(nt, m, o) || tile < 1 || nu < 1) {
-    return int(cudaErrorInvalidValue);
-  }
-  const int64_t smem = smooth_smem(tile, nu, o->bw, sizeof(T));
-  int dev = 0, limit = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (smem > limit) return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      dia_smooth_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid(unsigned((m + tile - 1) / tile), unsigned(nt));
-  dia_smooth_kernel<T><<<grid, kThreads, size_t(smem),
-                         static_cast<cudaStream_t>(stream)>>>(
-      x, b, vA, vM, dA, dM, omega, invT, invDel, out, m, *o, tile, nu,
-      zero_init);
-  return int(cudaGetLastError());
-}
-
-template <typename T>
-int launch_cheb_step(const T* x, const T* b, const T* vA, const T* vM,
-                     const T* dA, const T* dM, const T* omega, const T* invT,
-                     const T* invDel, T* r, const T* d_in, T* d_out,
-                     T* x_out, int64_t nt, int64_t m, const DiaOffsets* o,
-                     int first, double c1, double c2, void* stream) {
+int launch_smooth_step(const T* x, const T* b, const T* vA, const T* vM,
+                       const T* dA, const T* dM, const T* omega, const T* invT,
+                       const T* invDel, T* r, const T* d_in, T* d_out,
+                       T* x_out, int64_t nt, int64_t m, const DiaOffsets* o,
+                       int first, double c1, double c2, void* stream) {
   if (bad_shape(nt, m, o) || (!first && d_in == nullptr)) {
     return int(cudaErrorInvalidValue);
   }
-  dia_cheb_step_kernel<T><<<point_grid(nt, m), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
+  dia_smooth_step_kernel<T><<<point_grid(nt, m), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
       x, b, vA, vM, dA, dM, omega, invT, invDel, r, d_in, d_out, x_out, m, *o,
       first, T(c1), T(c2));
   return int(cudaGetLastError());
@@ -351,21 +207,13 @@ int dia_offsets_size() { return int(sizeof(DiaOffsets)); }
 #define DIA_ENTRY_POINTS(T, SFX)                                              \
   int dia_smooth_##SFX(const T* x, const T* b, const T* vA, const T* vM,      \
                        const T* dA, const T* dM, const T* omega,              \
-                       const T* invT, const T* invDel, T* out, int64_t nt,    \
-                       int64_t m, const DiaOffsets* o, int tile, int nu,      \
-                       int zero_init, void* stream) {                         \
-    return launch_smooth<T>(x, b, vA, vM, dA, dM, omega, invT, invDel, out,   \
-                            nt, m, o, tile, nu, zero_init, stream);           \
-  }                                                                           \
-  int dia_cheb_step_##SFX(const T* x, const T* b, const T* vA, const T* vM,   \
-                          const T* dA, const T* dM, const T* omega,           \
-                          const T* invT, const T* invDel, T* r,               \
-                          const T* d_in, T* d_out, T* x_out, int64_t nt,      \
-                          int64_t m, const DiaOffsets* o, int first,          \
-                          double c1, double c2, void* stream) {               \
-    return launch_cheb_step<T>(x, b, vA, vM, dA, dM, omega, invT, invDel, r,  \
-                               d_in, d_out, x_out, nt, m, o, first, c1, c2,   \
-                               stream);                                       \
+                       const T* invT, const T* invDel, T* r, const T* d_in,   \
+                       T* d_out, T* x_out, int64_t nt, int64_t m,             \
+                       const DiaOffsets* o, int first, double c1, double c2,  \
+                       void* stream) {                                        \
+    return launch_smooth_step<T>(x, b, vA, vM, dA, dM, omega, invT, invDel,   \
+                                 r, d_in, d_out, x_out, nt, m, o, first, c1,  \
+                                 c2, stream);                                 \
   }                                                                           \
   int dia_residual_##SFX(const T* x, const T* b, const T* vA, const T* vM,    \
                          const T* omega, T* out, int64_t nt, int64_t m,       \

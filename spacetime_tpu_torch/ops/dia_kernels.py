@@ -15,10 +15,8 @@ Op = A + ω⊙M with one shift per time row on the flat (T, m) layout:
 
 A and M are held on the union of their diagonal offsets
 (``union_offsets``, the JAX package's ``_union_offsets``) as (ndu, m)
-values, so one tap of x serves both. K16 runs one launch per sweep where a
-dof tile with its ν·bw halo fits in shared memory (``tile_for``), else ν
-launches of its one-step form (``dia_cheb_step``, counted under its own
-name), as K3 does above its tiled ν.
+values, so one tap of x serves both. K16 runs a sweep as ν launches of
+its one-step kernel, as K3 does above its tiled ν (``mg_cheb_step``).
 
 For a CUDA tensor each wrapper launches the kernel of csrc/dia.cu (float32
 and float64) and counts the launch; a CPU tensor goes to the plain PyTorch
@@ -45,7 +43,6 @@ SOURCE = "spacetime_tpu_torch/csrc/dia.cu"
 _DIA = "spacetime_tpu/ops/dia_pallas.py"
 _OPS = {
     "smooth": ("K16 dia_smooth", f"{_DIA}:156"),
-    "cheb_step": ("K16 dia_cheb_step", f"{_DIA}:156"),
     "residual": ("K17 dia_residual", f"{_DIA}:258"),
     "apply": ("K18 dia_apply", f"{_DIA}:315"),
 }
@@ -55,9 +52,6 @@ KERNELS = {
     for dtype, sfx in ((torch.float32, "f32"), (torch.float64, "f64"))
 }
 MAX_ROWS = 65535  # the time row is blockIdx.y
-THREADS = 256  # csrc/dia.cu kThreads: tiles are multiples of it
-SMEM_BUDGET = 200 * 1024  # bytes of one tiled K16 block
-MIN_TILE = 1024
 
 
 def reset_launch_counts() -> None:
@@ -126,13 +120,8 @@ class DiaKernelLevel:
         self.m = int(lev.m)
         self.offsets, self._vA, self._vM = union_offsets(
             lev.offA, lev.Av, lev.offM, lev.Mv)
-        self.bw = max(abs(o) for o in self.offsets)
         self.nu = nu
         self.nu_post = nu if nu_post is None else nu_post
-        # the tiled sweep's plan; tests lower them to force many tiles or
-        # the chained form
-        self.min_tile = MIN_TILE
-        self.smem_budget = SMEM_BUDGET
 
     @functools.cached_property
     def struct(self):
@@ -150,20 +139,6 @@ class DiaKernelLevel:
                                       device=device)
         return {"vA": cast(self._vA), "vM": cast(self._vM),
                 "dA": cast(lev.dA), "dM": cast(lev.dM)}
-
-    def tile_for(self, nu: int, itemsize: int) -> int | None:
-        """The dofs per block of the tiled K16 at degree ``nu``: at least
-        ``min_tile`` and the halo 2ν·bw, the largest that keeps the block's
-        shared memory, 3 windows and the tile, under ``smem_budget``; None
-        (chain) where that tile would be less than the halo."""
-        halo = 2 * nu * self.bw
-        want = max(self.min_tile, halo)
-        want = -(-want // THREADS) * THREADS
-        fit = (self.smem_budget // itemsize - 3 * halo) // 4
-        tile = min(want, fit // THREADS * THREADS)
-        if tile < THREADS or tile < halo:
-            return None
-        return tile
 
     # ------------------------------------------------------------ twins
 
@@ -210,32 +185,25 @@ class DiaKernelLevel:
                                                           "invDel"))
 
     def smooth(self, x, b, cols, vals, zero_init=False, post=False):
-        """K16: the degree-ν sweep (ν_post with ``post``); x is ignored with
-        ``zero_init``."""
+        """K16: the degree-ν sweep (ν_post with ``post``) as ν one-step
+        launches; x is ignored with ``zero_init``."""
         if b.device.type == "cpu":
             return self.smooth_plain(x, b, cols, vals, zero_init, post)
         nu = self.nu_post if post else self.nu
-        tile = self.tile_for(nu, b.element_size())
-        k, T, cp = self._prepare("smooth" if tile else "cheb_step", b, cols,
-                                 vals)
+        k, T, cp = self._prepare("smooth", b, cols, vals)
         for name in ("dA", "dM"):
             check_tensor(name, vals[name], b.dtype, b.device, (self.m,))
         if not zero_init:
             check_tensor("x", x, b.dtype, b.device, b.shape)
-        xp = None if zero_init else x.data_ptr()
         fields = (b.data_ptr(), vals["vA"].data_ptr(), vals["vM"].data_ptr(),
                   vals["dA"].data_ptr(), vals["dM"].data_ptr(), *cp)
         offs = ctypes.addressof(self.struct)
-        out = torch.empty_like(b)
-        if tile:
-            k.launch(b.device, xp, *fields, out.data_ptr(), T, self.m, offs,
-                     tile, nu, int(zero_init))
-            return out
-        r, d = torch.empty_like(b), (torch.empty_like(b), torch.empty_like(b))
+        out, r = torch.empty_like(b), torch.empty_like(b)
+        d = (torch.empty_like(b), torch.empty_like(b))
         step = lambda x_in, d_in, d_out, first, c1, c2: k.launch(
             b.device, x_in, *fields, r.data_ptr(), d_in, d_out.data_ptr(),
             out.data_ptr(), T, self.m, offs, first, c1, c2)
-        step(xp, None, d[0], 1, 0.0, 0.0)
+        step(None if zero_init else x.data_ptr(), None, d[0], 1, 0.0, 0.0)
         for s, (c1, c2) in enumerate(chebyshev_steps(_SIGMA, nu), 1):
             step(None, d[(s - 1) % 2].data_ptr(), d[s % 2], 0, c1, c2)
         return out

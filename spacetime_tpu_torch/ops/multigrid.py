@@ -878,12 +878,6 @@ class _SALevel:
     mem_w: np.ndarray | None = None  # (m_c, Kmax) 0/1 validity
 
 
-# The default of SAMultiShiftMultigrid.build's factored transfers on DIA
-# levels (P·e and Pᵀ·r by one banded A application plus a parent gather /
-# a member sum, in place of the K-wide gathers); read once by build.
-SA_FACTORED_TRANSFERS = True
-
-
 @dataclasses.dataclass(frozen=True)
 class SAMultiShiftMultigrid(NestedMultiShiftMultigrid):
     """The multi-shift V-cycle's structure on a smoothed-aggregation
@@ -893,13 +887,10 @@ class SAMultiShiftMultigrid(NestedMultiShiftMultigrid):
     4× its nonzeros (the lex-sorted fine level), else it is stored as ELL
     rows of the A/M union pattern (the aggregated levels)."""
 
-    factored_transfers: bool = True
-
     _DIA_MAX_WASTE = 4.0
 
     @classmethod
-    def build(cls, A_fine, M_fine, nu: int = 2, m_coarse: int = 1024,
-              factored_transfers: bool | None = None):
+    def build(cls, A_fine, M_fine, nu: int = 2, m_coarse: int = 1024):
         """Aggregate-coarsen (A, M) to at most ``m_coarse`` dofs (or until
         aggregation stops). Returns (structure, (A_c, M_c) dense)."""
         A = sp.csr_matrix(A_fine)
@@ -921,10 +912,7 @@ class SAMultiShiftMultigrid(NestedMultiShiftMultigrid):
             raise ValueError(
                 f"coarsest level still has {A.shape[0]} dofs (> 8192): "
                 "aggregation stalled")
-        ft = (SA_FACTORED_TRANSFERS if factored_transfers is None
-              else bool(factored_transfers))
-        return (cls(tuple(levels), nu, factored_transfers=ft),
-                (A.toarray(), M.toarray()))
+        return cls(tuple(levels), nu), (A.toarray(), M.toarray())
 
     @classmethod
     def _make_level(cls, A, M, P, parts=None) -> _SALevel:
@@ -1126,9 +1114,12 @@ class SAMultiShiftMG(NestedMultiShiftMG):
         return outA + lp["omega"] * outM
 
     def _fact(self, lvl: int, lp) -> bool:
-        lev = self.msmg.levels[lvl]
-        return (self.msmg.factored_transfers
-                and getattr(lev, "fmt", "dia") == "dia" and "agg" in lp)
+        """Whether level ``lvl`` transfers through the factors of its P: a
+        DIA level whose row params carry its aggregates (P·e and Pᵀ·r by
+        one banded A application and a parent gather or a member sum, in
+        place of the K-wide gathers)."""
+        return (getattr(self.msmg.levels[lvl], "fmt", "dia") == "dia"
+                and "agg" in lp)
 
     def apply_A_fact(self, lvl: int, lp, kl, v):
         """A v for the factored transfers: K18 on a kernel level, else the

@@ -144,19 +144,17 @@ class DiaOffsetsStruct(ctypes.Structure):
 
     _fields_ = [
         ("n", ctypes.c_int),
-        ("bw", ctypes.c_int),
         ("off", ctypes.c_int * MAX_DIAG),
     ]
 
 
 def dia_offsets_struct(offsets) -> DiaOffsetsStruct:
-    """The sorted union offsets of a DIA level and their bandwidth."""
+    """The sorted union offsets of a DIA level."""
     if not 1 <= len(offsets) <= MAX_DIAG:
         raise ValueError(f"{len(offsets)} diagonals; the DIA kernels take 1 "
                          f"to {MAX_DIAG}")
     st = DiaOffsetsStruct()
     st.n = len(offsets)
-    st.bw = max(abs(o) for o in offsets)
     for k, o in enumerate(offsets):
         st.off[k] = o
     return st
@@ -286,13 +284,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             "ell_spmm": [P, I64, I64, P, P, I64, I64, P, I64, P],
             # X, nt, n, blocksA, blocksM, colidx, nrb, nslots, YA, YM, n_out
             "ell_spmm_pair": [P, I64, I64, P, P, P, I64, I64, P, P, I64, P],
-            # dia.cu: x, b, vA, vM, dA, dM, the columns, out, nt, m, the
-            # offsets, tile, nu, zero_init
-            "dia_smooth": [P, P, P, P, P, P, P, P, P, P, I64, I64, P, I, I, I,
-                           P],
-            # ... r, d_in, d_out, x_out, nt, m, the offsets, first, c1, c2
-            "dia_cheb_step": [P, P, P, P, P, P, P, P, P, P, P, P, P, I64, I64,
-                              P, I, D, D, P],
+            # dia.cu, one K16 step: x, b, vA, vM, dA, dM, the columns, r,
+            # d_in, d_out, x_out, nt, m, the offsets, first, c1, c2
+            "dia_smooth": [P, P, P, P, P, P, P, P, P, P, P, P, P, I64, I64, P,
+                           I, D, D, P],
             "dia_residual": [P, P, P, P, P, P, I64, I64, P, P],
             "dia_apply": [P, P, P, I64, I64, P, P],
         }

@@ -1,7 +1,7 @@
 """The CUDA kernels K1 (B), K2 (Bᵀ), the multigrid kernels K3–K9 (2-D and
 3-D), the weighted K10–K13 (2-D and 3-D), K14 and K15 (2-D), the chained
 sweeps of K3/K10 above the tiled ν, the blocked-ELL SpMM K20, the
-banded-DIA K16–K18 (one tile, many tiles, chained) and the pair SpMM K19 on
+banded-DIA K16–K18 (K16 at ν 1, 2, 3, 4) and the pair SpMM K19 on
 the card, against their plain twins, and small solves on the card against the
 CPU. Marked ``cuda``: they skip where
 ``torch.cuda.is_available()`` is False (the kernels have no CPU mode). This
@@ -558,25 +558,17 @@ def _dia_inputs(lev, T, dtype, seed):
             mk(rng.standard_normal((T, lev.m))))
 
 
-# the tiled K16 with its default tiles (1,024 dofs), with tiles of 512
-# against a halo of 2νbw = 260 or 390, and chained (no shared memory)
-@pytest.mark.parametrize("plan", ["default", "tiles", "chained"])
+# K16 from 0 and from x at ν = 2, 1 and 4, and its post-sweep at ν_post =
+# 3, 1 and 2
+@pytest.mark.parametrize("nu, nu_post", [(2, 3), (1, 1), (4, 2)])
 @pytest.mark.parametrize("T", [1, 9, 65])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_dia_kernels_match_twins(flat_levels, dtype, T, plan):
+def test_dia_kernels_match_twins(flat_levels, dtype, T, nu, nu_post):
     from spacetime_tpu_torch.ops import dia_kernels
     from spacetime_tpu_torch.ops.dia_kernels import DiaKernelLevel
 
     lev = flat_levels[0]
-    kl = DiaKernelLevel(lev, 2, nu_post=3)
-    if plan == "tiles":
-        kl.min_tile = dia_kernels.THREADS
-    elif plan == "chained":
-        kl.smem_budget = 0
-    tile = kl.tile_for(2, torch.finfo(dtype).bits // 8)
-    assert (tile is None) == (plan == "chained")
-    if plan == "tiles":
-        assert -(-lev.m // tile) > 4
+    kl = DiaKernelLevel(lev, nu, nu_post=nu_post)
     cols, x, b = _dia_inputs(lev, T, dtype, T)
     vals = kl.values(lev, dtype, "cuda")
     dia_kernels.reset_launch_counts()
@@ -588,11 +580,7 @@ def test_dia_kernels_match_twins(flat_levels, dtype, T, plan):
     _close(kl.apply_A(x, vals), kl.apply_A_plain(x, vals), dtype)
     sfx = "f32" if dtype == torch.float32 else "f64"
     counts = dia_kernels.launch_counts()
-    if plan == "chained":
-        assert counts[f"K16 dia_cheb_step {sfx}"] == 2 + 2 + 3
-        assert counts[f"K16 dia_smooth {sfx}"] == 0
-    else:
-        assert counts[f"K16 dia_smooth {sfx}"] == 3
+    assert counts[f"K16 dia_smooth {sfx}"] == nu + nu + nu_post
     assert counts[f"K17 dia_residual {sfx}"] == 1
     assert counts[f"K18 dia_apply {sfx}"] == 1
 

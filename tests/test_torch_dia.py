@@ -107,18 +107,22 @@ def test_k17_k18_twins_match_pallas(nested, blocked, T):
     assert all(n == 0 for n in dia_kernels.launch_counts().values())
 
 
-def test_tile_plan(nested):
-    """The tiled K16's plan: at least the halo per tile, within the shared
-    memory budget; the chained form where the tile would be smaller."""
-    kl = DiaKernelLevel(nested[0], 2)
-    halo = 2 * 2 * kl.bw
-    tile = kl.tile_for(2, 4)
-    assert tile % dia_kernels.THREADS == 0 and tile >= max(halo, 1024)
-    assert (4 * tile + 3 * halo) * 8 <= dia_kernels.SMEM_BUDGET
-    kl.min_tile = dia_kernels.THREADS
-    assert kl.tile_for(2, 8) >= halo
-    kl.smem_budget = 0
-    assert kl.tile_for(2, 4) is None
+@pytest.mark.parametrize("op, line", [("smooth", 156), ("residual", 258),
+                                      ("apply", 315)])
+def test_kernel_registry(op, line):
+    """K16–K18 in f32 and f64, each naming the JAX kernel it replaces by
+    file and line (the line that defines the Pallas call)."""
+    from spacetime_tpu.ops import dia_pallas
+
+    for dtype, sfx in ((torch.float32, "f32"), (torch.float64, "f64")):
+        k = dia_kernels.KERNELS[(op, dtype)]
+        assert k.symbol == f"dia_{op}_{sfx}" and k.name.endswith(sfx)
+        assert k.replaces == f"spacetime_tpu/ops/dia_pallas.py:{line}"
+    with open(dia_pallas.__file__) as f:
+        assert f.read().splitlines()[line - 1].lstrip().startswith(
+            f"def _dia_{op}_call")
+    assert {o for o, _ in dia_kernels.KERNELS} == {"smooth", "residual",
+                                                    "apply"}
 
 
 @pytest.fixture(scope="module")

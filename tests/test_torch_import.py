@@ -176,3 +176,64 @@ def test_unsupported_device_and_dtype_raise():
         build_solver("lshape2d", 8, 2, device="cpu", rhs="device")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solver.solve_refined(legs="ds")
+
+
+def _c_entry_points() -> dict:
+    """{symbol: [ctypes type, ...]} of the C entry points of csrc/*.cu (the
+    ``_##SFX`` macros expanded for f32 and f64)."""
+    import ctypes
+    import re
+
+    kinds = {"int64_t": ctypes.c_int64, "int": ctypes.c_int,
+             "double": ctypes.c_double}
+    out = {}
+    for src in sorted((REPO / "spacetime_tpu_torch" / "csrc").glob("*.cu")):
+        text = src.read_text().replace("\\\n", " ")
+        block = text[text.index('extern "C" {'):]
+        for name, params in re.findall(r"\bint\s+([\w#]+)\s*\(([^)]*)\)\s*\{",
+                                       block):
+            types = []
+            for p in filter(None, (q.strip() for q in params.split(","))):
+                types.append(ctypes.c_void_p if "*" in p
+                             else kinds[p.rsplit(None, 1)[0]])
+            for sfx in ("f32", "f64"):
+                out[name.replace("##SFX", sfx)] = types
+    return out
+
+
+def test_bound_signatures_match_the_sources():
+    """Every symbol ``ops.native`` binds is a C entry point of csrc/ with the
+    argument types it is bound with."""
+    import ctypes
+
+    from spacetime_tpu_torch.ops import native
+
+    sizes = {"kron_taps_size": native.TapsStruct,
+             "mg_pairs_size": native.PairGroupsStruct,
+             "mg_var_taps_size": native.VarTapsStruct,
+             "dia_offsets_size": native.DiaOffsetsStruct}
+
+    class Fn:
+        def __init__(self, name):
+            self.name = name
+
+        def __call__(self):
+            return ctypes.sizeof(sizes[self.name])
+
+    class Lib:
+        def __init__(self):
+            self.fns = {}
+
+        def __getattr__(self, name):
+            return self.fns.setdefault(name, Fn(name))
+
+    lib = Lib()
+    native._bind(lib)
+    entries = _c_entry_points()
+    bound = {n: f for n, f in lib.fns.items() if hasattr(f, "argtypes")
+             and n not in ("spacetime_error_string",)}
+    assert {"dia_smooth_f32", "ell_spmm_pair_f64", "mg_smooth_f32"} <= set(
+        bound)
+    for name, fn in bound.items():
+        assert name in entries, name
+        assert fn.argtypes == entries[name], name
