@@ -20,11 +20,15 @@ Phases (every check asserts; any failure exits non-zero):
               against their twins in float32 and float64 with ν ∈ {2, 3}, at
               511² and 255² (T=129), 127² (T=65) and a ragged 15×31 (T=5);
               median device times (ν = 2) at 511²×129 and 127²×65.
-6. mg kernels 3-D — K3 (from x and from 0), K4, K5, K8 and K9 at 127³ and
-              63³ (T=65: the 3-D flagship's two finest levels) and a ragged
-              7×9×15 (T=5), float32 and float64, ν ∈ {2, 3}; median device
-              times (ν = 2) at 127³×65 and 63³×65. K5 is also timed against
-              ``F.conv2d`` / ``F.conv3d`` with its stencil (the library call).
+6. mg kernels 3-D — K3 (from x and from 0), K4, K5, K6, K7, K8 and K9 at
+              127³ and 63³ (T=65: the 3-D flagship's two finest levels) and a
+              ragged 7×9×15 (T=5), float32 and float64, ν ∈ {2, 3} (K6 in
+              float64 at ν = 3 on 4-plane bricks); median device times (ν =
+              2) at 127³×65 and 63³×65, and ν = 3 for K6/K7 at 127³×65. K5 is also timed
+              against ``F.conv2d`` / ``F.conv3d`` with its stencil (the
+              library call). Beside each timed fused stage, in 2-D and 3-D,
+              the semi-fused pair it replaces: K3 from 0 + K8 for K6, K9 + K3
+              from x for K7 (``semi_pair_ms``).
 7. solve    — cfg2 ``solve(tol=1e-6)``: 16 ± 1 PCG iterations, L2 within 1%
               of 5.748e-05.
 8. refined  — cfg2 ``solve_refined(tol=1e-8)`` twice: converged in 2 inner
@@ -42,9 +46,10 @@ Phases (every check asserts; any failure exits non-zero):
               iterations ± 1, L2 within 1e-6 of 5.7525369e-05.
 12. smooth3d — 65³×32 (8.3 MDoF), f32, inner mg: ``solve(tol=1e-6)`` twice,
               the JAX package's 14 iterations ± 1, L2 within 1% of its
-              2.5223e-04; every level runs K3/K8/K9, none K6/K7.
+              2.5223e-04; every level runs the fused K6/K7, none K3/K8/K9.
 13. smooth3d f64 — 17³×16, ``solve(tol=1e-8)``: the JAX package's 18
-              iterations exactly, L2 within 1e-6 of 3.999081e-03.
+              iterations exactly, L2 within 1e-6 of 3.999081e-03; K6/K7 on
+              every level, no K3/K8/K9.
 14. weighted mg kernels — K10 (sweep from x and from 0), K11, K12, K13,
               K14 and K15 against their twins in float32 and float64 with
               ν ∈ {1, 2, 3} (K14/K15 at ν ∈ {2, 3}), at 511² and 255²
@@ -63,19 +68,21 @@ Phases (every check asserts; any failure exits non-zero):
               ``solve(tol=1e-8)``: the JAX package's 18 iterations exactly,
               L2 within 1e-6 of its value.
 18. weighted mg kernels 3-D — the varcoef3d 65³×32 f32 solver's setup;
-              K10 (from x and from 0), K11, K12 and K13 against their twins
-              in float32 and float64 with ν ∈ {1, 2, 3}, at 63³ and 31³
+              K10 (from x and from 0), K11, K12, K13, K14 and K15 (ν ∈ {2,
+              3}) against their twins in float32 and float64 with ν ∈ {1, 2,
+              3}, at 63³ and 31³
               (T=33, the weights of that solver's two Galerkin levels), a
               ragged 7×9×15 (T=5, the 63³ weights cut to it) and 127³
               (T=33, the 63³ weights tiled to it: W outside the L2, the
-              row-first order); median device times (ν = 2) at 63³×33 and
-              127³×33.
+              row-first order); median device times (ν = 2, and ν = 3 for
+              K14/K15, beside their semi-fused pairs K10 from 0 + K13 and K9
+              + K10 from x) at 63³×33 and 127³×33.
 19. varcoef3d 65³×32 f32 — ``solve(tol=1e-6)`` twice, within ±1 of the
               JAX package's 14 iterations, L2 within 1% of its value;
               ``solve_refined(tol=1e-8)`` converges. Every level runs the
-              semi-fused K10 → K13 → K9 → K10.
+              fused K14/K15, none K10/K13/K9.
 20. varcoef3d f64 — 17³×16, ``solve(tol=1e-8)``: the JAX package's 18
-              iterations exactly, L2 within 1e-6 of its value.
+              iterations exactly, L2 within 1e-6 of its value; K14/K15.
 21. weighted V(2,1) — varcoef2d 129²×64 f32 with ``mg_nu_post=1`` (the
               semi-fused K10 → K13 → K9 → K10 in place of K14/K15):
               ``solve(tol=1e-6)`` within ±1 of the JAX package's 17
@@ -97,7 +104,8 @@ Phases (every check asserts; any failure exits non-zero):
               ν = 4 (smooth3d, varcoef3d 17³×16) and ν = 9 (smooth2d,
               varcoef2d 33²×16): each launches the chained sweep in both
               dtypes and never the tiled one.
-25. oracle rows — cfg1, ladder-32, cfg3, moving-peak-32, lshape-32-J5 (on
+25. oracle rows — cfg1, ladder-32, cfg3, cfg4 (singular2d, graded J4+4),
+              singular3d-8 (graded J2+3), moving-peak-32, lshape-32-J5 (on
               ``ell``) and varcoef-32-J5 in float64 with dense inner
               solves: the iterations of ``baseline_oracle.json`` and its
               7-digit residual histories.
@@ -126,13 +134,28 @@ Phases (every check asserts; any failure exits non-zero):
               the JAX package's iterations and L2 (1e-6), and an f32
               ``solve_refined`` with ν = 4 on the tetrahedra, K16 at ν = 4
               in both dtypes.
+30. 3-D V(2,1) — smooth3d and varcoef3d 33³×16 with ``mg_nu_post=1``
+              (the semi-fused K3 → K8 → K9 → K3, K10 → K13 → K9 → K10 in
+              place of the fused stages), f32 ``solve(tol=1e-6)`` and f64
+              ``solve(tol=1e-8)``: the JAX package's CPU iterations ± 1, L2
+              within 1% (f32) and 1e-6 (f64) of its values; no fused
+              launch.
+31. singular3d — 65³ on a graded grid, J5+4 (36 steps, 9.25 MDoF), f32,
+              inner mg: ``solve(tol=1e-6)`` twice, the JAX package's CPU
+              iterations ± 1, L2 within 1% of its value; K6/K7 on every
+              level.
+32. singular2d — 513² on a graded grid, J7+6 (134 steps, 35.2 MDoF), f32,
+              inner mg: ``solve(tol=1e-6)`` twice, 17 ± 1 iterations (the
+              TPU's), L2 within 20% of the TPU's 1.17e-05 (f32 rounding, as
+              REF_FLAGSHIP); K6/K7 on every level.
 
 Launch counters are zeroed just before each path (phases 7–8, 9, 10, 11,
-12, 13, 15, 16, 17, 19, 20, 21, each solve of 24, 25 and 29, 26, 28 and
-the f32 AMG solves of 29) and read just after it; each path asserts the kernels it must have launched, and a
-weighted path that it ran only the kernels of its branch (K9 the one
-constant kernel of the semi-fused stages). The last two lines are a JSON
-object describing the kernels and ``{"ok": true, "device": ...}``.
+12, 13, 15, 16, 17, 19, 20, 21, each solve of 24, 25 and 29, 26, 28, the
+f32 AMG solves of 29, each solve of 30, 31 and 32) and read just after it;
+each path asserts the kernels it must have launched, and a path that it
+ran only the kernels of its branch (K9 the one constant kernel of the
+weighted semi-fused stages). The last two lines are a JSON object
+describing the kernels and ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -258,6 +281,37 @@ FLAT_F64 = [
     ("nested smooth3d", "smooth3d", 8, 2, 3, {"inner": "mg"}, 18,
      0.001007288869638708),
 ]
+# 3-D V(2,1) cycles (mg_nu_post=1) at 33³×16, the JAX package on the CPU
+# (``JAX_ENABLE_X64=1 python -m spacetime_tpu.run --backend jax --device cpu
+# --rhs host --inner mg --mg-nu-post 1 --space-n 32 --time-levels 4``, with
+# ``--problem smooth3d`` / ``varcoef3d`` and ``--dtype f32`` (tol 1e-6) or
+# ``--dtype f64 --tol 1e-8``)
+REF_V21_3D = {
+    "n": 32, "levels": 4,
+    ("smooth3d", "float32"): {"iterations": 14, "l2": 0.0010079629696780642},
+    ("smooth3d", "float64"): {"iterations": 19, "l2": 0.0010079707661571947},
+    ("varcoef3d", "float32"): {"iterations": 14, "l2": 0.0009808898473296574},
+    ("varcoef3d", "float64"): {"iterations": 19, "l2": 0.0009809012450097626},
+}
+# singular3d (u = t^¾ Πsin(πx)) at 65³ on the graded grid J5+4 (36 steps,
+# 9.25 MDoF), f32, inner mg (coarse 16), tol 1e-6: the JAX package on the
+# CPU (``JAX_ENABLE_X64=1 python -m spacetime_tpu.run --backend jax --device
+# cpu --rhs host --inner mg --problem singular3d --space-n 64 --time-levels
+# 5 --extra-levels 4 --dtype f32``): 15 iterations; its TPU run took 14 to
+# L2 2.40e-04 (BASELINE.md), and the port is held within ±1 of both. At 65³
+# the discretization error dwarfs f32 rounding, so the band is 1%.
+REF_SINGULAR3D = {"problem": "singular3d", "n": 64, "levels": 5, "extra": 4,
+                  "iterations": 15, "tpu_iterations": 14,
+                  "l2": 0.00023987905864560177, "l2_band": 0.01,
+                  "source": "JAX CPU"}
+# singular2d at 513² on the graded grid J7+6 (134 steps, 35.2 MDoF), f32,
+# inner mg: the JAX package's TPU run (BASELINE.md, "cfg4 at scale": 17
+# iterations, L2 1.17e-05). Its CPU run at this size was not made; an f32
+# solve's L2 at 513² carries the rounding of the f32 operator, so the band
+# is 20% (as REF_FLAGSHIP's).
+REF_SINGULAR2D = {"problem": "singular2d", "n": 512, "levels": 7, "extra": 6,
+                  "iterations": 17, "l2": 1.17e-05, "l2_band": 0.2,
+                  "source": "TPU"}
 # T of the K16–K18 checks at the nested fine level (K_X's 129 rows and
 # K_Y's 128) and of the K16–K18 and K19 checks at the AMG n = 256 levels
 # (K_X's 65 and K_Y's 64 at its DIA fine level and its ELL level)
@@ -265,15 +319,17 @@ DIA_T = (129, 128)
 PAIR_T = (65, 64)
 # The oracle's rows solved in float64 on the card (dense inner solves;
 # cfg1b, the other ladders and varcoef3d-8-J3 are held on the CPU,
-# tests/test_torch_oracle.py): (config, problem, cells, levels, tol,
-# spatial format)
+# tests/test_torch_oracle.py): (config, problem, cells, levels, extra
+# levels toward t = 0, tol, spatial format)
 ORACLE_ROWS = [
-    ("cfg1-2d-65x65x64-tol1e-6", "smooth2d", 64, 6, 1e-6, "auto"),
-    ("2d-ladder-32x32x32", "smooth2d", 32, 5, 1e-6, "auto"),
-    ("cfg3-3d-17x17x17x16", "smooth3d", 16, 4, 1e-6, "auto"),
-    ("moving-peak-32x32x32", "moving_peak2d", 32, 5, 1e-6, "auto"),
-    ("lshape-32-J5", "lshape2d", 32, 5, 1e-6, "ell"),
-    ("varcoef-32-J5", "varcoef2d", 32, 5, 1e-6, "auto"),
+    ("cfg1-2d-65x65x64-tol1e-6", "smooth2d", 64, 6, 0, 1e-6, "auto"),
+    ("2d-ladder-32x32x32", "smooth2d", 32, 5, 0, 1e-6, "auto"),
+    ("cfg3-3d-17x17x17x16", "smooth3d", 16, 4, 0, 1e-6, "auto"),
+    ("cfg4-singular-graded-32-J4+4", "singular2d", 32, 4, 4, 1e-6, "auto"),
+    ("singular3d-graded-8-J2+3", "singular3d", 8, 2, 3, 1e-6, "auto"),
+    ("moving-peak-32x32x32", "moving_peak2d", 32, 5, 0, 1e-6, "auto"),
+    ("lshape-32-J5", "lshape2d", 32, 5, 0, 1e-6, "ell"),
+    ("varcoef-32-J5", "varcoef2d", 32, 5, 0, 1e-6, "auto"),
 ]
 # K20's checks: T rows of the n = 256 L-shape's A (K_X's wavelet levels
 # take 1, 2, 4, ..., 32 rows, K_Y's 64, B and the rhs 65; every tile
@@ -311,6 +367,10 @@ VAR_SHAPES_3D = [(33, (63, 63, 63), 0), (33, (31, 31, 31), 1),
                  (5, (7, 9, 15), 0), (33, (127, 127, 127), 0)]
 MG_TIMED = [(129, (511, 511)), (65, (127, 127)), (65, (127, 127, 127)),
             (65, (63, 63, 63)), (33, (63, 63, 63)), (33, (127, 127, 127))]
+# where the 3-D fused stages are also timed at ν = 3: the shapes of the
+# kernel table's 3-D rows (K6/K7 at 127³×65, K14/K15 at 63³ and 127³ ×33)
+FUSED_NU3_TIMED = [(65, (127, 127, 127)), (33, (63, 63, 63)),
+                   (33, (127, 127, 127))]
 # the shape of each kernel's headline numbers in the JSON line, by family
 # (constant or weighted) and dimension
 MG_MAIN = {("const", 2): (129, (511, 511)), ("const", 3): (65, (127,) * 3),
@@ -506,16 +566,21 @@ def var_inputs(msmg, kl, T, dtype, rng, lvl=0) -> dict:
 
 
 def check_forms(kl, forms, bound_fn, T, dtype, results, library=None,
-                timed=None) -> None:
+                timed=None, pairs=None) -> None:
     """Every form of one kernel level against its twin; device times of
-    the timed shapes (ν = 2 and a shape of MG_TIMED, unless ``timed`` says)
-    into ``results[(op, dtype, dim)]["forms"]``. ``library``: (form, fn),
-    one library call computing that form, timed beside it and held to its
-    twin."""
+    the timed shapes (ν = 2 and a shape of MG_TIMED, unless ``timed`` says;
+    the fused forms at ν = 3 too at FUSED_NU3_TIMED, under "nu=3") into
+    ``results[(op, dtype, dim)]["forms"]``. ``library``: (form, fn), one
+    library call computing that form, timed beside it and held to its twin.
+    ``pairs``: {form: fn}, the semi-fused stages a fused form replaces,
+    timed beside it (``semi_pair_ms``)."""
     gs, nu = kl.gs, kl.nu
-    if timed is None:
+    auto = timed is None
+    if auto:
         timed = nu == 2 and (T, gs) in MG_TIMED
     for form, (op, kfn, tfn) in forms.items():
+        fused3 = (auto and nu == 3 and form.startswith("fused")
+                  and (T, gs) in FUSED_NU3_TIMED)
         got, want = kfn(), tfn()
         torch.cuda.synchronize()
         rec = results.setdefault(
@@ -529,12 +594,15 @@ def check_forms(kl, forms, bound_fn, T, dtype, results, library=None,
         del got, want
         line = (f"  {form:17s} {str(dtype)[6:]:8s} nu={nu} T={T:3d} "
                 f"gs={gs}: max|kernel-twin| {err:.3e} (max|twin| {scale:.3e})")
-        if timed:
+        if timed or fused3:
             ms, plain_ms = device_ms(kfn), device_ms(tfn)
             entry = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
                      **bound_fn(form, kl, T, dtype)}
             line += (f"; kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound "
                      f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})")
+            if pairs is not None and form in pairs:
+                entry["semi_pair_ms"] = device_ms(pairs[form])
+                line += f", semi-fused pair {entry['semi_pair_ms']:.4f} ms"
             if library is not None and library[0] == form:
                 lib = library[1]
                 lerr = float((lib() - tfn()[0]).abs().max())
@@ -542,8 +610,43 @@ def check_forms(kl, forms, bound_fn, T, dtype, results, library=None,
                 line += (f", conv{kl.dim}d {entry['library_ms']:.4f} ms "
                          f"(max|conv-twin| {lerr:.3e})")
                 assert lerr <= TOL[dtype] * scale, (lerr, scale)
-            rec["forms"][f"{form} {shape_key(T, gs)}"] = entry
+            tag = " nu=3" if fused3 else ""
+            rec["forms"][f"{form}{tag} {shape_key(T, gs)}"] = entry
         print(line, flush=True)
+
+
+def semi_pairs(kl, x, var: bool) -> dict:
+    """{fused form: fn}: the semi-fused stages each fused stage replaces,
+    launched back to back: K3 (K10) from 0 then K8 (K13) for ``fused_pre``,
+    K9 then K3 (K10) from x for ``fused_post``."""
+    X, B, EC = x["x"], x["b"], x["ec"]
+    a = (x["cols"], x["W"]) if var else (x["cols"],)
+
+    def pre():
+        x0 = kl.smooth(None, B, *a, zero_init=True)
+        return x0, kl.residual_restrict(x0, B, *a)
+
+    return {"fused_pre": pre,
+            "fused_post": lambda: kl.smooth(kl.prolong_correct(X, EC), B, *a,
+                                            post=True)}
+
+
+def fused_path(counts, dtypes, dim) -> None:
+    """A constant-stencil multigrid path on the fused stages: K1, K2, K4,
+    K5, K6 and K7 of ``dim`` launched in each of ``dtypes``, as many K6 as
+    K7; no K3, K8, K9 or weighted kernel, no V-cycle kernel of the other
+    dimension and no flat-format kernel."""
+    for dt in dtypes:
+        assert counts[("B", dt)] > 0 and counts[("BT", dt)] > 0, (dt, counts)
+        got = {op: counts[(op, dt, dim)]
+               for op in ("fused_pre", "fused_post", "residual", "apply")}
+        assert all(got.values()), (dt, got)
+        assert got["fused_pre"] == got["fused_post"], (dt, got)
+    for key, n in counts.items():
+        ran = (len(key) == 2 and key[0] in ("B", "BT") and key[1] in dtypes) or (
+            len(key) == 3 and key[1] in dtypes and key[2] == dim
+            and key[0] in ("fused_pre", "fused_post", "residual", "apply"))
+        assert ran or n == 0, (key, n, counts)
 
 
 def seeded_inputs(taps, T, dtype, rng) -> dict:
@@ -578,7 +681,8 @@ def kernel_forms(kron, taps, x) -> dict:
 
 def mg_forms(kl, x) -> dict:
     """{form: (kernel op, kernel_fn, twin_fn)} of one MSKernelLevel; each fn
-    returns a tuple of tensors. K6/K7 (fused) on 2-D levels only."""
+    returns a tuple of tensors. K6/K7 (fused) where the level takes them
+    (ν = ν_post ∈ {2, 3}, 2-D and 3-D)."""
     X, B, EC, c = x["x"], x["b"], x["ec"], x["cols"]
     forms = {
         "smooth": ("smooth", lambda: (kl.smooth(X, B, c),),
@@ -871,15 +975,16 @@ def phase_oracle_rows(build_solver, paths):
     """Phase 25: the oracle's rows of ``ORACLE_ROWS`` in float64 on the
     card: its iteration counts, its 7-digit histories and its L2."""
     f64 = torch.float64
-    phase("25 the oracle's rows in float64 on the card (dense inner solves)")
+    phase("25 the oracle's rows in float64 on the card (dense inner solves; "
+          "the singular rows on graded time grids)")
     root = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(root, "baseline_oracle.json")) as f:
         oracle = {row["config"]: row for row in json.load(f)}
-    for label, problem, n, J, tol, fmt in ORACLE_ROWS:
+    for label, problem, n, J, extra, tol, fmt in ORACLE_ROWS:
         row = oracle[label]
         t0 = time.perf_counter()
         s = build_solver(problem, n, J, dtype=f64, device=DEVICE,
-                         spatial_format=fmt)
+                         spatial_format=fmt, extra_time_levels=extra)
         s.assemble_rhs_host()
         setup_s = time.perf_counter() - t0
         assert s.inner == "dense", s.inner
@@ -945,6 +1050,112 @@ def phase_lshape(lsh, paths):
     assert abs(l2 / REF_LSHAPE["l2"] - 1.0) <= REF_LSHAPE["l2_band"], l2
 
 
+
+
+def semi_path(counts, dtype, dim, var: bool) -> None:
+    """A multigrid path on the semi-fused stages in ``dtype``: K3 (K10) =
+    2·K8 (K13) = 2·K9 launched, and no fused stage in any dtype."""
+    sm, rr = ("smooth_var", "residual_restrict_var") if var else (
+        "smooth", "residual_restrict")
+    got = {op: counts[(op, dtype, dim)] for op in (sm, rr, "prolong_correct")}
+    assert all(got.values()), got
+    assert got[sm] == 2 * got[rr] == 2 * got["prolong_correct"], got
+    assert all(n == 0 for key, n in counts.items()
+               if key[0].startswith("fused")), counts
+
+
+def phase_v21_3d(build_solver, paths):
+    """Phase 30: 3-D V(2,1) cycles (``mg_nu_post=1``), where the fused
+    stages do not apply: smooth3d and varcoef3d 33³×16, f32 to tol 1e-6 and
+    f64 to 1e-8, held to the JAX package's CPU iterations (± 1 in f32,
+    exactly in f64) and L2; every level on the semi-fused stages."""
+    n, J = REF_V21_3D["n"], REF_V21_3D["levels"]
+    phase(f"30 3-D V(2,1): smooth3d and varcoef3d {n + 1}^3 x {2 ** J} with "
+          "mg_nu_post=1, f32 and f64")
+    for name in ("smooth3d", "varcoef3d"):
+        for dtype, tol in ((torch.float32, 1e-6), (torch.float64, 1e-8)):
+            ref = REF_V21_3D[(name, str(dtype)[6:])]
+            s = build_solver(name, n, J, dtype=dtype, device=DEVICE,
+                             inner="mg", mg_nu_post=1)
+            s.assemble_rhs_host()
+            assert not any(k.fused_ok for k in s._kl_ky + s._kl_kx)
+            paths.start()
+            r = s.solve(tol=tol)
+            counts = paths.stop(f"{name} V(2,1) {str(dtype)[6:]}",
+                                per=r.iterations)
+            rel = r.residuals[-1] / r.residuals[0]
+            print(f"{name} V(2,1) {str(dtype)[6:]}: iterations "
+                  f"{r.iterations} (JAX CPU {ref['iterations']}), converged "
+                  f"{r.converged}, rel {rel:.3e}, L2 {r.l2_error:.10e} (JAX "
+                  f"CPU {ref['l2']:.10e}), solve {r.solve_seconds:.4f} s")
+            assert r.converged and rel <= tol, rel
+            f64 = dtype == torch.float64
+            assert abs(r.iterations - ref["iterations"]) <= (0 if f64 else 1)
+            assert abs(r.l2_error / ref["l2"] - 1.0) <= (1e-6 if f64
+                                                         else 0.01), r.l2_error
+            semi_path(counts, dtype, 3, name == "varcoef3d")
+            del s
+    torch.cuda.empty_cache()
+
+
+def run_singular(s, paths, label, ref, dim):
+    """Two ``solve(tol=1e-6)`` calls of a singular solver on its graded
+    grid: the iterations within ±1 of ``ref``'s (and of its TPU count),
+    the fused stages on every
+    level, L2 within ``ref['l2_band']`` of ``ref['l2']``; prints the steady
+    time and the launches per PCG iteration."""
+    f32 = torch.float32
+    t0 = time.perf_counter()
+    s.assemble_rhs_host()
+    print(f"setup {s.setup_seconds:.2f} s ({(s.N + 1) * s.m:,} DoF, "
+          f"{s.N} graded steps, smallest {s.grid.h.min():.3e}, levels "
+          f"{[lev.n for lev in s.msmg.levels]}, coarse {s.msmg.n_coarse}); "
+          f"loads {time.perf_counter() - t0:.2f} s", flush=True)
+    assert not s.wt.is_uniform and s.inner == "mg"
+    torch.cuda.reset_peak_memory_stats()
+    paths.start()
+    runs = []
+    for call in (1, 2):
+        r = s.solve(tol=1e-6, compute_error=False)
+        rel = r.residuals[-1] / r.residuals[0]
+        print(f"solve call {call}: iterations {r.iterations} "
+              f"({ref['source']} {ref['iterations']}), converged "
+              f"{r.converged}, rel {rel:.3e}, solve {r.solve_seconds:.4f} s",
+              flush=True)
+        assert r.converged and rel <= 1e-6, rel
+        for want in (ref["iterations"], ref.get("tpu_iterations",
+                                                ref["iterations"])):
+            assert abs(r.iterations - want) <= 1, (r.iterations, want)
+        runs.append(r)
+    counts = paths.stop(label, per=sum(x.iterations for x in runs))
+    fused_path(counts, (f32,), dim)
+    print(f"steady solve: {runs[1].solve_seconds:.4f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    l2 = s._l2_error(runs[0].U)
+    print(f"L2(IxOmega) {l2:.6e} ({ref['source']} {ref['l2']:.6e}, band "
+          f"{ref['l2_band']:.0%}), host error loop "
+          f"{time.perf_counter() - t0:.2f} s")
+    assert abs(l2 / ref["l2"] - 1.0) <= ref["l2_band"], l2
+
+
+def phase_singular(build_solver, paths):
+    """Phases 31–32: the singular problems on time grids graded toward
+    t = 0 at scale, f32, inner mg: singular3d 65³ J5+4 against the JAX
+    package's CPU run, singular2d 513² J7+6 against the TPU's count and
+    L2."""
+    for num, ref in ((31, REF_SINGULAR3D), (32, REF_SINGULAR2D)):
+        dim = 3 if ref["problem"] == "singular3d" else 2
+        t0 = time.perf_counter()
+        phase(f"{num} {ref['problem']} {ref['n'] + 1}^{dim}, graded J"
+              f"{ref['levels']}+{ref['extra']}, f32, inner mg")
+        s = build_solver(ref["problem"], ref["n"], ref["levels"],
+                         extra_time_levels=ref["extra"], dtype=torch.float32,
+                         device=DEVICE, inner="mg")
+        print(f"built in {time.perf_counter() - t0:.2f} s")
+        run_singular(s, paths, f"{ref['problem']} graded f32", ref, dim)
+        del s
+        torch.cuda.empty_cache()
 
 
 def dia_bound(form, kl, T, dtype) -> dict:
@@ -1435,7 +1646,7 @@ def main() -> int:
     for title, msmg, mg_shapes, seed in (
         ("5 mg kernels K3-K9 (2-D) against their plain twins",
          solver.msmg, MG_SHAPES, SEED + 1),
-        ("6 mg kernels K3-K5, K8, K9 (3-D) against their plain twins",
+        ("6 mg kernels K3-K9 (3-D) against their plain twins",
          small3.msmg, MG_SHAPES_3D, SEED + 2),
     ):
         phase(title)
@@ -1448,7 +1659,8 @@ def main() -> int:
                     x = mg_inputs(msmg, kl, T, dtype, rng)
                     check_forms(kl, mg_forms(kl, x), mg_bound, T, dtype,
                                 mg_results,
-                                library=("apply_A", stencil_conv(kl, x["x"])))
+                                library=("apply_A", stencil_conv(kl, x["x"])),
+                                pairs=semi_pairs(kl, x, False))
                     del x
                     torch.cuda.empty_cache()
     del small3
@@ -1615,13 +1827,7 @@ def main() -> int:
     print(f"L2(IxOmega) {l2:.6e} (JAX CPU {REF_3D['l2']:.6e}), host error "
           f"loop {time.perf_counter() - t0:.2f} s")
     assert abs(l2 / REF_3D["l2"] - 1.0) <= REF_3D["l2_band"], l2
-    must = [(op, f32) for op in ("B", "BT")]
-    must += [(op, f32, 3) for op in ("smooth", "residual", "apply",
-                                     "residual_restrict", "prolong_correct")]
-    assert all(counts[key] > 0 for key in must), counts
-    # every launch of the V-cycle kernels was a 3-D one: no K6/K7
-    assert all(n == 0 for key, n in counts.items() if len(key) == 3
-               and key[2] == 2), counts
+    fused_path(counts, (f32,), 3)
     del s3, runs, r
     torch.cuda.empty_cache()
 
@@ -1639,12 +1845,7 @@ def main() -> int:
     assert r.converged and rel <= 1e-8, rel
     assert r.iterations == REF_3D_F64["iterations"], r.iterations
     assert abs(r.l2_error / REF_3D_F64["l2"] - 1.0) <= 1e-6, r.l2_error
-    counts = paths.stop("smooth3d f64")
-    assert all(counts[(op, f64, 3)] > 0 for op in (
-        "smooth", "residual", "apply", "residual_restrict",
-        "prolong_correct")), counts
-    assert all(n == 0 for key, n in counts.items() if len(key) == 3
-               and key[2] == 2), counts
+    fused_path(paths.stop("smooth3d f64"), (f64,), 3)
     del s3
     torch.cuda.empty_cache()
 
@@ -1661,7 +1862,7 @@ def main() -> int:
                     kl = VarMSKernelLevel(msmg.levels[0], nu, gs=gs)
                     x = var_inputs(msmg, kl, T, dtype, rng)
                     check_forms(kl, var_forms(kl, x), var_bound, T, dtype,
-                                mg_results)
+                                mg_results, pairs=semi_pairs(kl, x, True))
                     del x
                     torch.cuda.empty_cache()
         del msmg
@@ -1811,7 +2012,7 @@ def main() -> int:
     del s
 
     n, J = REF_VAR3D["n"], REF_VAR3D["levels"]
-    phase(f"18 weighted mg kernels K10-K13 (3-D) against their twins; the "
+    phase(f"18 weighted mg kernels K10-K15 (3-D) against their twins; the "
           f"varcoef3d {n + 1}^3 x {2 ** J} solver's setup")
     t0 = time.perf_counter()
     var3 = build_solver("varcoef3d", n, J, dtype=f32, device="cuda")
@@ -1828,7 +2029,7 @@ def main() -> int:
                 kl = VarMSKernelLevel(msmg.levels[lvl], nu, gs=gs)
                 x = var_inputs(msmg, kl, T, dtype, rng, lvl)
                 check_forms(kl, var_forms(kl, x), var_bound, T, dtype,
-                            mg_results)
+                            mg_results, pairs=semi_pairs(kl, x, True))
                 del x
                 torch.cuda.empty_cache()
 
@@ -1864,7 +2065,7 @@ def main() -> int:
     assert r.converged and rel <= 1e-8, rel
     var_path("varcoef3d 65^3 f32",
              sum(x.iterations for x in runs) + r.iterations, L, f32,
-             legs=f64, dim=3, semi=True)
+             legs=f64, dim=3)
     del var3, runs, r
     torch.cuda.empty_cache()
 
@@ -1881,8 +2082,7 @@ def main() -> int:
     assert r.converged and rel <= 1e-8, rel
     assert r.iterations == REF_VAR3D_F64["iterations"], r.iterations
     assert abs(r.l2_error / REF_VAR3D_F64["l2"] - 1.0) <= 1e-6, r.l2_error
-    var_path("varcoef3d f64", r.iterations, len(s.msmg.levels), f64, dim=3,
-             semi=True)
+    var_path("varcoef3d f64", r.iterations, len(s.msmg.levels), f64, dim=3)
     del s
 
     n, J = REF_VAR_V21["n"], REF_VAR_V21["levels"]
@@ -1919,6 +2119,8 @@ def main() -> int:
     del lsh
     phase_flat_solves(build_solver, nst, amg, paths)
     del nst, amg
+    phase_v21_3d(build_solver, paths)
+    phase_singular(build_solver, paths)
     phase(None)
 
     kernels = []

@@ -5,7 +5,10 @@ leaves as numpy arrays, and returns the dict
 ``spacetime_tpu_torch.solver.HeatSolver.params_for`` builds for the same
 format and inner solver:
 
-- every format: the per-time-row scales and the wavelet tensors. The JAX
+- every format: the per-time-row scales and the wavelet tensors (on a
+  graded grid the lifting's gather indices ``idx``/``pl``/``pr``,
+  ``root_idx`` and ``root_s``, and the level permutation ``perm`` /
+  ``inv_perm``, as int64 where they are indices). The JAX
   package pre-broadcasts per-row scales to (T, *gs[:-1], 1) and the
   kernels' h columns and multigrid ``cols`` to (T, 1, 128) lanes; the port
   keeps (T, 1, ..., 1) columns and (T,) vectors;
@@ -93,16 +96,25 @@ def params_from_jax(tree: dict, device, dtype, hierarchy=None) -> dict:
     dim = np.asarray(tree["h_half"]).ndim - 1
     col = lambda a: row_scale(_rows(a), dim, dtype, device)
     p = {k: col(tree[k]) for k in ("h_half", "h_stab", "inv_h")}
+    ids = lambda a: torch.tensor(np.asarray(a, np.int64), device=device)
     wt = tree["wavelet"]
     if "Wd" in wt:
         p["wavelet"] = {"Wd": mk(wt["Wd"]), "WdT": mk(wt["WdT"])}
     else:
         p["wavelet"] = {
             "levels": [
-                {k: mk(np.asarray(lw[k]).reshape(-1)) for k in ("wl", "wr", "s")}
+                {k: (ids(v) if k in ("idx", "pl", "pr")
+                     else mk(np.asarray(v).reshape(-1)))
+                 for k, v in lw.items()}
                 for lw in wt["levels"]
             ]
         }
+        if "root_idx" in wt:
+            p["wavelet"]["root_idx"] = ids(wt["root_idx"])
+            p["wavelet"]["root_s"] = mk(np.asarray(wt["root_s"]).reshape(-1))
+    for k in ("perm", "inv_perm"):
+        if k in tree:
+            p[k] = ids(tree[k])
     weighted = "Aw" in tree
     flat = "dia_Mv" in tree
     if weighted:

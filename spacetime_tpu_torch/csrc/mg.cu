@@ -25,9 +25,9 @@
 //   mg_apply     (K5, replaces _apply_stencil_call, :375): A x, one stencil
 //                (the pair table with every wM = 0). 2-D and 3-D.
 //   mg_fused_pre (K6, replaces _fused_pre_call, :1318): x = the zero-init
-//                sweep on b, then r_c = R(b − Op x). 2-D.
+//                sweep on b, then r_c = R(b − Op x). 2-D and 3-D.
 //   mg_fused_post (K7, replaces _fused_post_call, :1475): the sweep from
-//                x + P e_c. 2-D.
+//                x + P e_c. 2-D and 3-D.
 //   mg_residual_restrict (K8, replaces _residual_restrict_call, :1683):
 //                r_c = R(b − Op x); the fine residual is never stored.
 //                2-D and 3-D.
@@ -52,9 +52,9 @@
 //   mg_residual_restrict_var (K13, replaces _residual_restrict_var_call,
 //                :1822): r_c = R(b − Op_w x). 2-D and 3-D.
 //   mg_fused_pre_var  (K14, replaces _fused_pre_var_call, :2071): K6 with
-//                Op_w and the per-node diagonal. 2-D.
+//                Op_w and the per-node diagonal. 2-D and 3-D.
 //   mg_fused_post_var (K15, replaces _fused_post_var_call, :2196): K7 with
-//                Op_w and the per-node diagonal. 2-D.
+//                Op_w and the per-node diagonal. 2-D and 3-D.
 //
 // The x + P e_c stage of the weighted V-cycle does not depend on the
 // coefficients: it is K9.
@@ -103,28 +103,35 @@
 //   prolonged field (:1525); in 3-D the halo grows in z as well. Points of
 //   the window outside the grid hold 0 in every buffer, which is the
 //   Dirichlet ghost (`_domain_mask`, :122) for bricks on the boundary and
-//   for ragged extents. Tiles start at multiples of 32, so fine tiles start
-//   at even offsets and a coarse point's four fine pairs lie in its own
-//   tile plus one fine row and column of halo. A 3-D brick with three
-//   double buffers takes 174.6 KB of shared memory at ν = 3, so the tiled
-//   3-D sweep takes ν ≤ 3 (above it, the chained sweep).
-// - The restriction and the prolongation are exact pair sums; the Pallas
-//   kernels' banded 0/1 matrices on the MXU (`_dot_last`, :1253) are a TPU
-//   device and are not ported.
+//   for ragged extents. Bricks start at even offsets (multiples of 32, 8
+//   or 4), so a coarse point's 2^d fine pairs lie in its own brick plus
+//   one fine plane, row and column of halo. A 3-D brick with three double
+//   buffers takes 174.6 KB of shared memory at halo 3, so the tiled 3-D
+//   sweep takes ν ≤ 3 (above it, the chained sweep); the 3-D K6/K14 at
+//   ν = 3 (halo 4) in float64 take bricks of 4 × 8 × 32 (184.3 KB,
+//   `brick_depth`). The fused stages do in one launch what K3 + K8 (pre)
+//   and K9 + K3 (post) do in two: x never makes the round trip through
+//   device memory between the sweep and the transfer, at the price of the
+//   redundant work on the halo (a 3-D K6 window at ν = 2 holds 3.6× its
+//   brick).
+// - The restriction and the prolongation are exact pair sums, one device
+//   function each (`restrict_at`, `prolong_at`) that K8, K9 and the fused
+//   stages share; the Pallas kernels' banded 0/1 matrices on the MXU
+//   (`_dot_last`, :1253) are a TPU device and are not ported.
 // - The weighted kernels are the same designs with the operator swapped
 //   (K10 as K3, K11/K12 as K4/K5, K13 as K8, K14/K15 as K6/K7). W has no
 //   time axis: every row of a level reads the same (ntaps, *gs) field,
 //   7.3 MB in f32 at 511² and 15.0 MB at 63³, which the 50 MB L2 holds, so
 //   the kernels read it through the read-only path (__ldg) at each Op
 //   evaluation rather than staging it. Where W does not fit in the L2 (123
-//   MB in f32 at 127³), K10–K13 take the row as the fastest-varying block
-//   index (`rows_first`): the rows of one brick (K10) or chunk of points
-//   (K11–K13) then run back to back and share its part of W there. Where W
-//   fits, the rows go slowest, as in the other kernels: that order was
-//   7–20% faster for K10 and K12 at 63³ and 511² on the H100 (PERF.md).
+//   MB in f32 at 127³), K10–K15 take the row as the fastest-varying block
+//   index (`rows_first`): the rows of one brick (K10, K14, K15) or chunk of
+//   points (K11–K13) then run back to back and share its part of W there.
+//   Where W fits, the rows go slowest, as in the other kernels: that order
+//   was 7–20% faster for K10 and K12 at 63³ and 511² on the H100 (PERF.md).
 //   The 2-D K10, K14 and K15 keep 1/D
 //   in a fourth shared buffer beside X, D and R, computed once per window;
-//   the 3-D K10 recomputes it from W[kc] at each use, since four f64
+//   the 3-D ones recompute it from W[kc] at each use, since four f64
 //   buffers of an 8 × 8 × 32 brick at ν = 3 (238 KB) exceed the 227 KB a
 //   block may take. Their bound is their constant twin's bytes plus one
 //   read of W.
@@ -252,11 +259,16 @@ __device__ __forceinline__ T op_shared(const PairGroups& pg, const T* w,
 
 // A brick of one row and its halo in shared memory: window point
 // (lz, ly, lx) is grid point (z0 + lz, y0 + ly, x0 + lx), at offset
-// lz·sz + ly·sy + lx. The halo is H in y and x, and in z in 3-D.
+// lz·sz + ly·sy + lx. The halo is H in y and x, and in z in 3-D. The
+// brick's depth bz is BrickOf<3>::z but for the 3-D fused pre-stages in
+// float64 at ν = 3, whose window of 8 planes exceeds a block's shared
+// memory (`brick_depth`); it stays even, so a coarse point's fine pairs lie
+// in its own brick plus one plane of halo. bz = 1 in 2-D.
 struct Window {
   Grid g;
   int z0, y0, x0;
   int H;
+  int bz;
   int sy, sz;  // x extent of the window; x · y extents
   int volume;  // points in the window
 };
@@ -264,7 +276,8 @@ struct Window {
 // The window of x brick bx and (z brick, y brick) pair byz.
 template <int DIM>
 __device__ __forceinline__ Window make_window(const Grid& g, int H, int bx,
-                                              int byz) {
+                                              int byz,
+                                              int bz = BrickOf<DIM>::z) {
   using B = BrickOf<DIM>;
   const int hz = DIM == 3 ? H : 0;
   const int nyb = (g.ny + B::y - 1) / B::y;
@@ -272,14 +285,19 @@ __device__ __forceinline__ Window make_window(const Grid& g, int H, int bx,
   const int yb = byz - zb * nyb;
   const int sy = B::x + 2 * H;
   const int sz = sy * (B::y + 2 * H);
-  return Window{g, zb * B::z - hz, yb * B::y - H, bx * B::x - H,
-                H, sy, sz, sz * (B::z + 2 * hz)};
+  return Window{g, zb * bz - hz, yb * B::y - H, bx * B::x - H,
+                H, bz, sy, sz, sz * (bz + 2 * hz)};
 }
 
-// blockIdx.x walks the x bricks, blockIdx.y the (z brick, y brick) pairs.
+// blockIdx.x walks the x bricks, blockIdx.y the (z brick, y brick) pairs;
+// with rows_first, blockIdx.y and blockIdx.z do (`bricks_rows_first`).
 template <int DIM>
-__device__ __forceinline__ Window make_window(const Grid& g, int H) {
-  return make_window<DIM>(g, H, int(blockIdx.x), int(blockIdx.y));
+__device__ __forceinline__ Window make_window(const Grid& g, int H,
+                                              bool rows_first = false,
+                                              int bz = BrickOf<DIM>::z) {
+  return rows_first
+             ? make_window<DIM>(g, H, int(blockIdx.y), int(blockIdx.z), bz)
+             : make_window<DIM>(g, H, int(blockIdx.x), int(blockIdx.y), bz);
 }
 
 // f(offset, grid z, grid y, grid x, index in the row, inside the grid) for
@@ -290,7 +308,7 @@ __device__ __forceinline__ void for_region(const Window& w, int h, F f) {
   using B = BrickOf<DIM>;
   const int nx = B::x + 2 * h;
   const int nyx = (B::y + 2 * h) * nx;
-  const int n = DIM == 3 ? (B::z + 2 * h) * nyx : nyx;
+  const int n = DIM == 3 ? (w.bz + 2 * h) * nyx : nyx;
   const int s = w.H - h;
   const int sz = DIM == 3 ? s : 0;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
@@ -544,9 +562,7 @@ __global__ void __launch_bounds__(kThreads)
   const int S = int(row_size(g));
   const RowCoef<T> c = row_coef(omega, invT, invDel, t);
   const int H = zero_init ? nu - 1 : nu;
-  const Window win =
-      rows_first ? make_window<DIM>(g, H, int(blockIdx.y), int(blockIdx.z))
-                 : make_window<DIM>(g, H);
+  const Window win = make_window<DIM>(g, H, rows_first != 0);
   T* X = window_buffers<T>();
   T* D = X + win.volume;
   T* R = D + win.volume;
@@ -564,183 +580,6 @@ __global__ void __launch_bounds__(kThreads)
                   zero_init ? H : H - 1);
   T* ot = out + t * S;
   for_region<DIM>(win, 0, [&](int o, int, int, int, int gi, bool in) {
-    if (in) ot[gi] = X[o];
-  });
-}
-
-// The end of K6/K14, after the zero-init sweep left x valid on the tile
-// grown by 2 (H = nu + 1): the residual on the tile grown by 1 (one fine
-// row and column past the tile is what the restriction reads), x written
-// out, then r_c = R r for the tile's coarse points.
-template <typename T, typename Op>
-__device__ void fused_pre_tail(const Op& op, const T* __restrict__ bt,
-                               const Window& win, const T* X, T* R,
-                               T* __restrict__ xt, T* __restrict__ rct) {
-  const int nyc = (win.g.ny - 1) / 2;
-  const int nxc = (win.g.nx - 1) / 2;
-  for_region<2>(win, 1, [&](int o, int, int, int, int gi, bool in) {
-    R[o] = in ? bt[gi] - op(X, o, gi) : T(0);
-  });
-  for_region<2>(win, 0, [&](int o, int, int, int, int gi, bool in) {
-    if (in) xt[gi] = X[o];
-  });
-  __syncthreads();
-  const int p = win.sy;
-  for (int i = threadIdx.x; i < kHalfTile * kHalfTile; i += blockDim.x) {
-    const int lcy = i / kHalfTile;
-    const int lcx = i % kHalfTile;
-    const int cy = int(blockIdx.y) * kHalfTile + lcy;
-    const int cx = int(blockIdx.x) * kHalfTile + lcx;
-    if (cy >= nyc || cx >= nxc) continue;
-    const int o = (win.H + 2 * lcy) * p + win.H + 2 * lcx;  // fine (2cy, 2cx)
-    auto h = [&](int dy, int dx) {
-      const int q = o + dy * p + dx;
-      return R[q] + R[q + p + 1];
-    };
-    const T p0 = h(0, 0) + h(1, 0);
-    const T p1 = h(0, 1) + h(1, 1);
-    rct[cy * nxc + cx] = T(0.5) * (p0 + p1);
-  }
-}
-
-// The start of K7/K15: X = x + P e_c on the whole window (halo nu), zero
-// outside the grid.
-template <typename T>
-__device__ void prolong_window(const T* __restrict__ xt,
-                               const T* __restrict__ et, const Window& win,
-                               T* X) {
-  const int nyc = (win.g.ny - 1) / 2;
-  const int nxc = (win.g.nx - 1) / 2;
-  auto coarse = [&](int cy, int cx) {
-    return (cy >= 0 && cy < nyc && cx >= 0 && cx < nxc) ? et[cy * nxc + cx]
-                                                        : T(0);
-  };
-  for_region<2>(win, win.H, [&](int o, int, int fy, int fx, int gi, bool in) {
-    if (!in) {
-      X[o] = T(0);
-      return;
-    }
-    const T e0 = coarse(fy / 2, fx / 2);
-    const T e1 =
-        (fy >= 1 && fx >= 1) ? coarse((fy - 1) / 2, (fx - 1) / 2) : T(0);
-    X[o] = xt[gi] + T(0.5) * (e0 + e1);
-  });
-}
-
-__device__ __forceinline__ int64_t coarse_row(const Grid& g) {
-  return int64_t((g.ny - 1) / 2) * ((g.nx - 1) / 2);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    mg_fused_pre_kernel(const T* __restrict__ b, const T* __restrict__ omega,
-                        const T* __restrict__ invD,
-                        const T* __restrict__ invT,
-                        const T* __restrict__ invDel, T* __restrict__ xo,
-                        T* __restrict__ rco, Grid g,
-                        const __grid_constant__ PairGroups pg, int nu) {
-  __shared__ T wts[kMaxPairGroups];
-  __shared__ int toff[kMaxPairTaps];
-  const int64_t t = blockIdx.z;
-  const int64_t S = row_size(g);
-  const RowCoef<T> c = row_coef(omega, invT, invDel, t);
-  const Window win = make_window<2>(g, nu + 1);
-  T* X = window_buffers<T>();
-  T* D = X + win.volume;
-  T* R = D + win.volume;
-  const T* bt = b + t * S;
-  row_tables(pg, c.om, win, wts, toff);
-  const ConstOp<T> op{pg, wts, toff, invD[t]};
-  cheb_sweep<2>(op, c, bt, win, X, D, R, nu, true, win.H);
-  fused_pre_tail(op, bt, win, X, R, xo + t * S, rco + t * coarse_row(g));
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    mg_fused_post_kernel(const T* __restrict__ x, const T* __restrict__ b,
-                         const T* __restrict__ ec,
-                         const T* __restrict__ omega,
-                         const T* __restrict__ invD,
-                         const T* __restrict__ invT,
-                         const T* __restrict__ invDel, T* __restrict__ out,
-                         Grid g, const __grid_constant__ PairGroups pg,
-                         int nu) {
-  __shared__ T wts[kMaxPairGroups];
-  __shared__ int toff[kMaxPairTaps];
-  const int64_t t = blockIdx.z;
-  const int64_t S = row_size(g);
-  const RowCoef<T> c = row_coef(omega, invT, invDel, t);
-  const Window win = make_window<2>(g, nu);
-  T* X = window_buffers<T>();
-  T* D = X + win.volume;
-  T* R = D + win.volume;
-  prolong_window(x + t * S, ec + t * coarse_row(g), win, X);
-  row_tables(pg, c.om, win, wts, toff);
-  cheb_sweep<2>(ConstOp<T>{pg, wts, toff, invD[t]}, c, b + t * S, win, X, D,
-                R, nu, false, win.H - 1);
-  T* ot = out + t * S;
-  for_region<2>(win, 0, [&](int o, int, int, int, int gi, bool in) {
-    if (in) ot[gi] = X[o];
-  });
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    mg_fused_pre_var_kernel(const T* __restrict__ b, const T* __restrict__ W,
-                            const T* __restrict__ omega,
-                            const T* __restrict__ invT,
-                            const T* __restrict__ invDel, T* __restrict__ xo,
-                            T* __restrict__ rco, Grid g,
-                            const __grid_constant__ VarTaps vt,
-                            const __grid_constant__ PairGroups pm, int nu) {
-  __shared__ T wm[kMaxPairGroups];
-  __shared__ int atoff[kMaxVarTaps];
-  __shared__ int mtoff[kMaxPairTaps];
-  const int64_t t = blockIdx.z;
-  const int S = g.ny * g.nx;
-  const RowCoef<T> c = row_coef(omega, invT, invDel, t);
-  const Window win = make_window<2>(g, nu + 1);
-  T* X = window_buffers<T>();
-  T* D = X + win.volume;
-  T* R = D + win.volume;
-  T* iD = R + win.volume;
-  const T* bt = b + t * S;
-  var_inv_diag<2>(vt, W, S, c.om, win, iD);
-  var_tables(vt, pm, win, wm, atoff, mtoff);
-  const VarOp<T> op{vt, pm, W, S, c.om, wm, atoff, mtoff, iD};
-  cheb_sweep<2>(op, c, bt, win, X, D, R, nu, true, win.H);
-  fused_pre_tail(op, bt, win, X, R, xo + t * S, rco + t * coarse_row(g));
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    mg_fused_post_var_kernel(const T* __restrict__ x, const T* __restrict__ b,
-                             const T* __restrict__ ec,
-                             const T* __restrict__ W,
-                             const T* __restrict__ omega,
-                             const T* __restrict__ invT,
-                             const T* __restrict__ invDel,
-                             T* __restrict__ out, Grid g,
-                             const __grid_constant__ VarTaps vt,
-                             const __grid_constant__ PairGroups pm, int nu) {
-  __shared__ T wm[kMaxPairGroups];
-  __shared__ int atoff[kMaxVarTaps];
-  __shared__ int mtoff[kMaxPairTaps];
-  const int64_t t = blockIdx.z;
-  const int S = g.ny * g.nx;
-  const RowCoef<T> c = row_coef(omega, invT, invDel, t);
-  const Window win = make_window<2>(g, nu);
-  T* X = window_buffers<T>();
-  T* D = X + win.volume;
-  T* R = D + win.volume;
-  T* iD = R + win.volume;
-  prolong_window(x + t * S, ec + t * coarse_row(g), win, X);
-  var_inv_diag<2>(vt, W, S, c.om, win, iD);
-  var_tables(vt, pm, win, wm, atoff, mtoff);
-  cheb_sweep<2>(VarOp<T>{vt, pm, W, S, c.om, wm, atoff, mtoff, iD}, c,
-                b + t * S, win, X, D, R, nu, false, win.H - 1);
-  T* ot = out + t * S;
-  for_region<2>(win, 0, [&](int o, int, int, int, int gi, bool in) {
     if (in) ot[gi] = X[o];
   });
 }
@@ -870,6 +709,24 @@ __global__ void mg_residual_restrict_kernel(
   }
 }
 
+// P e_c at fine point (z, y, x) of the grid, et the coarse row:
+// ½(e[⌊f/2⌋] + e[⌊(f − 1⃗)/2⌋]), zero beyond the coarse grid.
+template <int DIM, typename T>
+__device__ __forceinline__ T prolong_at(const T* __restrict__ et,
+                                        const Grid& gc, int z, int y, int x) {
+  auto coarse = [&](int cz, int cy, int cx) {
+    return (cz < gc.nz && cy < gc.ny && cx < gc.nx)
+               ? et[(cz * gc.ny + cy) * gc.nx + cx]
+               : T(0);
+  };
+  const T e0 = coarse(z / 2, y / 2, x / 2);
+  const T e1 = (y >= 1 && x >= 1 && (DIM == 2 || z >= 1))
+                   ? coarse(DIM == 3 ? (z - 1) / 2 : 0, (y - 1) / 2,
+                            (x - 1) / 2)
+                   : T(0);
+  return T(0.5) * (e0 + e1);
+}
+
 template <int DIM, typename T>
 __global__ void mg_prolong_correct_kernel(const T* __restrict__ x,
                                           const T* __restrict__ ec,
@@ -879,19 +736,184 @@ __global__ void mg_prolong_correct_kernel(const T* __restrict__ x,
   const int64_t Sc = row_size(gc);
   FOR_EACH_INDEX(idx, nt * row_size(g)) {
     const Point f = point_of<DIM>(idx, g);
-    const T* et = ec + f.t * Sc;
-    auto coarse = [&](int cz, int cy, int cx) {
-      return (cz < gc.nz && cy < gc.ny && cx < gc.nx)
-                 ? et[(cz * gc.ny + cy) * gc.nx + cx]
-                 : T(0);
-    };
-    const T e0 = coarse(f.z / 2, f.y / 2, f.x / 2);
-    const T e1 = (f.y >= 1 && f.x >= 1 && (DIM == 2 || f.z >= 1))
-                     ? coarse(DIM == 3 ? (f.z - 1) / 2 : 0, (f.y - 1) / 2,
-                              (f.x - 1) / 2)
-                     : T(0);
-    out[idx] = x[idx] + T(0.5) * (e0 + e1);
+    out[idx] = x[idx] + prolong_at<DIM>(ec + f.t * Sc, gc, f.z, f.y, f.x);
   }
+}
+
+// The fused stages K6/K7 and K14/K15 on the tiled window, 2-D and 3-D.
+//
+// The end of K6/K14, after the zero-init sweep left x valid on the brick
+// grown by 2 (H = nu + 1): the residual on the brick grown by 1 (one fine
+// plane, row and column past the brick is what the restriction reads), x
+// written out, then r_c = R r for the brick's coarse points, with K8's
+// pair sums (`restrict_at`).
+template <int DIM, typename T, typename Op>
+__device__ void fused_pre_tail(const Op& op, const T* __restrict__ bt,
+                               const Window& win, const T* X, T* R,
+                               T* __restrict__ xt, T* __restrict__ rct) {
+  using B = BrickOf<DIM>;
+  for_region<DIM>(win, 1, [&](int o, int, int, int, int gi, bool in) {
+    R[o] = in ? bt[gi] - op(X, o, gi) : T(0);
+  });
+  for_region<DIM>(win, 0, [&](int o, int, int, int, int gi, bool in) {
+    if (in) xt[gi] = X[o];
+  });
+  __syncthreads();
+  const Grid gc = coarse_grid<DIM>(win.g);
+  const int hz = DIM == 3 ? win.H : 0;
+  // the brick's first coarse point and its coarse extents
+  const int cz0 = (win.z0 + hz) / 2, cy0 = (win.y0 + win.H) / 2;
+  const int cx0 = (win.x0 + win.H) / 2;
+  constexpr int ncy = B::y / 2, ncx = B::x / 2;
+  const int n = (DIM == 3 ? win.bz / 2 : 1) * ncy * ncx;
+  auto res = [&](int z, int y, int x) {
+    return R[(z - win.z0) * win.sz + (y - win.y0) * win.sy + (x - win.x0)];
+  };
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int lz = i / (ncy * ncx);
+    const int r = i - lz * (ncy * ncx);
+    const Point c{0, cz0 + lz, cy0 + r / ncx, cx0 + r % ncx};
+    if (c.z >= gc.nz || c.y >= gc.ny || c.x >= gc.nx) continue;
+    rct[(c.z * gc.ny + c.y) * gc.nx + c.x] = restrict_at<DIM, T>(c, res);
+  }
+}
+
+// The start of K7/K15: X = x + P e_c on the whole window (halo nu), zero
+// outside the grid, with K9's prolongation (`prolong_at`).
+template <int DIM, typename T>
+__device__ void prolong_window(const T* __restrict__ xt,
+                               const T* __restrict__ et, const Window& win,
+                               T* X) {
+  const Grid gc = coarse_grid<DIM>(win.g);
+  for_region<DIM>(win, win.H, [&](int o, int fz, int fy, int fx, int gi,
+                                  bool in) {
+    X[o] = in ? xt[gi] + prolong_at<DIM>(et, gc, fz, fy, fx) : T(0);
+  });
+}
+
+// The blocks of the fused kernels are K3's (K10's for K14/K15, with
+// rows_first where W does not fit in the L2), their brick bz planes deep.
+template <int DIM, typename T>
+__global__ void __launch_bounds__(kThreads)
+    mg_fused_pre_kernel(const T* __restrict__ b, const T* __restrict__ omega,
+                        const T* __restrict__ invD,
+                        const T* __restrict__ invT,
+                        const T* __restrict__ invDel, T* __restrict__ xo,
+                        T* __restrict__ rco, Grid g,
+                        const __grid_constant__ PairGroups pg, int nu,
+                        int bz) {
+  __shared__ T wts[kMaxPairGroups];
+  __shared__ int toff[kMaxPairTaps];
+  const int64_t t = blockIdx.z;
+  const int64_t S = row_size(g);
+  const RowCoef<T> c = row_coef(omega, invT, invDel, t);
+  const Window win = make_window<DIM>(g, nu + 1, false, bz);
+  T* X = window_buffers<T>();
+  T* D = X + win.volume;
+  T* R = D + win.volume;
+  const T* bt = b + t * S;
+  row_tables(pg, c.om, win, wts, toff);
+  const ConstOp<T> op{pg, wts, toff, invD[t]};
+  cheb_sweep<DIM>(op, c, bt, win, X, D, R, nu, true, win.H);
+  fused_pre_tail<DIM>(op, bt, win, X, R, xo + t * S,
+                      rco + t * row_size(coarse_grid<DIM>(g)));
+}
+
+template <int DIM, typename T>
+__global__ void __launch_bounds__(kThreads)
+    mg_fused_post_kernel(const T* __restrict__ x, const T* __restrict__ b,
+                         const T* __restrict__ ec,
+                         const T* __restrict__ omega,
+                         const T* __restrict__ invD,
+                         const T* __restrict__ invT,
+                         const T* __restrict__ invDel, T* __restrict__ out,
+                         Grid g, const __grid_constant__ PairGroups pg,
+                         int nu) {
+  __shared__ T wts[kMaxPairGroups];
+  __shared__ int toff[kMaxPairTaps];
+  const int64_t t = blockIdx.z;
+  const int64_t S = row_size(g);
+  const RowCoef<T> c = row_coef(omega, invT, invDel, t);
+  const Window win = make_window<DIM>(g, nu);
+  T* X = window_buffers<T>();
+  T* D = X + win.volume;
+  T* R = D + win.volume;
+  prolong_window<DIM>(x + t * S, ec + t * row_size(coarse_grid<DIM>(g)), win,
+                      X);
+  row_tables(pg, c.om, win, wts, toff);
+  cheb_sweep<DIM>(ConstOp<T>{pg, wts, toff, invD[t]}, c, b + t * S, win, X,
+                  D, R, nu, false, win.H - 1);
+  T* ot = out + t * S;
+  for_region<DIM>(win, 0, [&](int o, int, int, int, int gi, bool in) {
+    if (in) ot[gi] = X[o];
+  });
+}
+
+// K14/K15: 1/D is a fourth window buffer in 2-D and recomputed from W in
+// 3-D, as in K10.
+template <int DIM, typename T>
+__global__ void __launch_bounds__(kThreads)
+    mg_fused_pre_var_kernel(const T* __restrict__ b, const T* __restrict__ W,
+                            const T* __restrict__ omega,
+                            const T* __restrict__ invT,
+                            const T* __restrict__ invDel, T* __restrict__ xo,
+                            T* __restrict__ rco, Grid g,
+                            const __grid_constant__ VarTaps vt,
+                            const __grid_constant__ PairGroups pm, int nu,
+                            int bz, int rows_first) {
+  __shared__ T wm[kMaxPairGroups];
+  __shared__ int atoff[kMaxVarTaps];
+  __shared__ int mtoff[kMaxPairTaps];
+  const int64_t t = rows_first ? blockIdx.x : blockIdx.z;
+  const int S = int(row_size(g));
+  const RowCoef<T> c = row_coef(omega, invT, invDel, t);
+  const Window win = make_window<DIM>(g, nu + 1, rows_first != 0, bz);
+  T* X = window_buffers<T>();
+  T* D = X + win.volume;
+  T* R = D + win.volume;
+  T* iD = DIM == 2 ? R + win.volume : nullptr;
+  const T* bt = b + t * S;
+  if constexpr (DIM == 2) var_inv_diag<2>(vt, W, S, c.om, win, iD);
+  var_tables(vt, pm, win, wm, atoff, mtoff);
+  const VarOp<T> op{vt, pm, W, S, c.om, wm, atoff, mtoff, iD};
+  cheb_sweep<DIM>(op, c, bt, win, X, D, R, nu, true, win.H);
+  fused_pre_tail<DIM>(op, bt, win, X, R, xo + t * S,
+                      rco + t * row_size(coarse_grid<DIM>(g)));
+}
+
+template <int DIM, typename T>
+__global__ void __launch_bounds__(kThreads)
+    mg_fused_post_var_kernel(const T* __restrict__ x, const T* __restrict__ b,
+                             const T* __restrict__ ec,
+                             const T* __restrict__ W,
+                             const T* __restrict__ omega,
+                             const T* __restrict__ invT,
+                             const T* __restrict__ invDel,
+                             T* __restrict__ out, Grid g,
+                             const __grid_constant__ VarTaps vt,
+                             const __grid_constant__ PairGroups pm, int nu,
+                             int rows_first) {
+  __shared__ T wm[kMaxPairGroups];
+  __shared__ int atoff[kMaxVarTaps];
+  __shared__ int mtoff[kMaxPairTaps];
+  const int64_t t = rows_first ? blockIdx.x : blockIdx.z;
+  const int S = int(row_size(g));
+  const RowCoef<T> c = row_coef(omega, invT, invDel, t);
+  const Window win = make_window<DIM>(g, nu, rows_first != 0);
+  T* X = window_buffers<T>();
+  T* D = X + win.volume;
+  T* R = D + win.volume;
+  T* iD = DIM == 2 ? R + win.volume : nullptr;
+  prolong_window<DIM>(x + t * S, ec + t * row_size(coarse_grid<DIM>(g)), win,
+                      X);
+  if constexpr (DIM == 2) var_inv_diag<2>(vt, W, S, c.om, win, iD);
+  var_tables(vt, pm, win, wm, atoff, mtoff);
+  cheb_sweep<DIM>(VarOp<T>{vt, pm, W, S, c.om, wm, atoff, mtoff, iD}, c,
+                  b + t * S, win, X, D, R, nu, false, win.H - 1);
+  T* ot = out + t * S;
+  for_region<DIM>(win, 0, [&](int o, int, int, int, int gi, bool in) {
+    if (in) ot[gi] = X[o];
+  });
 }
 
 // A_w x at grid point (z, y, x) of one row X in device memory (zero outside
@@ -1086,20 +1108,28 @@ int blocks_for(int64_t total) {
   return int(b < kMaxBlocks ? b : kMaxBlocks);
 }
 
-// The blocks of a tiled kernel: x bricks, (z brick, y brick) pairs, rows.
+// The blocks of a tiled kernel: x bricks, (z brick, y brick) pairs, rows;
+// bricks bz planes deep in 3-D.
 template <int DIM>
-dim3 bricks(int64_t nt, const Grid& g) {
+dim3 bricks(int64_t nt, const Grid& g, int bz = BrickOf<DIM>::z) {
   using B = BrickOf<DIM>;
   return dim3(unsigned((g.nx + B::x - 1) / B::x),
-              unsigned(((g.nz + B::z - 1) / B::z) * ((g.ny + B::y - 1) / B::y)),
+              unsigned(((g.nz + bz - 1) / bz) * ((g.ny + B::y - 1) / B::y)),
               unsigned(nt));
 }
 
-// The same blocks with the row fastest (K10).
+// The same blocks with the row fastest (K10, K14, K15).
 template <int DIM>
-dim3 bricks_rows_first(int64_t nt, const Grid& g) {
-  const dim3 b = bricks<DIM>(nt, g);
+dim3 bricks_rows_first(int64_t nt, const Grid& g, int bz = BrickOf<DIM>::z) {
+  const dim3 b = bricks<DIM>(nt, g, bz);
   return dim3(b.z, b.x, b.y);
+}
+
+template <int DIM>
+dim3 bricks_for(bool rows_first, int64_t nt, const Grid& g,
+                int bz = BrickOf<DIM>::z) {
+  return rows_first ? bricks_rows_first<DIM>(nt, g, bz)
+                    : bricks<DIM>(nt, g, bz);
 }
 
 // Whether the weighted kernels take the row fastest: where a level's
@@ -1117,16 +1147,40 @@ int point_blocks(int64_t nt, int64_t S, bool rows_first) {
                                : nt * S);
 }
 
+// Shared memory of nbuf buffers over the window of halo H around a brick
+// bz planes deep.
+template <int DIM, typename T>
+size_t window_size(int H, int nbuf, int bz) {
+  using B = BrickOf<DIM>;
+  const size_t hz = DIM == 3 ? size_t(H) : 0;
+  return nbuf * sizeof(T) * (B::x + 2 * size_t(H)) * (B::y + 2 * size_t(H)) *
+         ((DIM == 3 ? size_t(bz) : 1) + 2 * hz);
+}
+
+// The depth of a 3-D brick: BrickOf<3>::z planes, or half of it where that
+// window would exceed the shared memory a block may take (less 1 KB for
+// the static tables): three float64 buffers at halo 4, the fused
+// pre-stages at ν = 3, take 245.8 KB against the H100's 227 KB.
+template <int DIM, typename T>
+int brick_depth(int H, int nbuf) {
+  constexpr int bz = BrickOf<DIM>::z;
+  if (DIM == 2) return bz;
+  int dev = 0, limit = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  return window_size<DIM, T>(H, nbuf, bz) + 1024 <= size_t(limit) ? bz
+                                                                   : bz / 2;
+}
+
 // Dynamic shared memory of a tiled kernel with halo H: nbuf buffers over
-// the window (three, four for the weighted kernels' 1/D). Raises the
+// the window (three, four for the weighted kernels' 1/D in 2-D). Raises the
 // kernel's limit above the 48 KB default where needed; returns the
 // cudaError_t of that.
 template <int DIM, typename T, typename K>
-int window_bytes(K kernel, int H, size_t* bytes, int nbuf = 3) {
-  using B = BrickOf<DIM>;
-  const size_t hz = DIM == 3 ? size_t(H) : 0;
-  *bytes = nbuf * sizeof(T) * (B::x + 2 * size_t(H)) *
-           (B::y + 2 * size_t(H)) * (B::z + 2 * hz);
+int window_bytes(K kernel, int H, size_t* bytes, int nbuf = 3,
+                 int bz = BrickOf<DIM>::z) {
+  *bytes = window_size<DIM, T>(H, nbuf, bz);
   if (*bytes > size_t(kDefaultSmem)) {
     return int(cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(*bytes)));
@@ -1164,69 +1218,74 @@ int launch_smooth_var(const T* x, const T* b, const T* W, const T* omega,
                                        DIM == 2 ? 4 : 3);
   if (err != 0) return err;
   const bool rf = rows_first(vt, row_size(g), sizeof(T));
-  mg_smooth_var_kernel<DIM, T><<<rf ? bricks_rows_first<DIM>(nt, g)
-                                    : bricks<DIM>(nt, g),
-                                 kThreads, bytes, as_stream(stream)>>>(
+  mg_smooth_var_kernel<DIM, T><<<bricks_for<DIM>(rf, nt, g), kThreads, bytes,
+                                 as_stream(stream)>>>(
       x, b, W, omega, invT, invDel, out, g, *vt, *pm, nu, zero_init, rf);
   return int(cudaGetLastError());
 }
 
-template <typename T>
+template <int DIM, typename T>
 int launch_fused_pre(const T* b, const T* omega, const T* invD,
                      const T* invT, const T* invDel, T* xo, T* rco,
                      int64_t nt, Grid g, const PairGroups* pg, int nu,
                      void* stream) {
+  const int bz = brick_depth<DIM, T>(nu + 1, 3);
   size_t bytes = 0;
-  const int err =
-      window_bytes<2, T>(mg_fused_pre_kernel<T>, nu + 1, &bytes);
+  const int err = window_bytes<DIM, T>(mg_fused_pre_kernel<DIM, T>, nu + 1,
+                                       &bytes, 3, bz);
   if (err != 0) return err;
-  mg_fused_pre_kernel<T><<<bricks<2>(nt, g), kThreads, bytes,
-                           as_stream(stream)>>>(b, omega, invD, invT, invDel,
-                                                xo, rco, g, *pg, nu);
+  mg_fused_pre_kernel<DIM, T><<<bricks<DIM>(nt, g, bz), kThreads, bytes,
+                                as_stream(stream)>>>(
+      b, omega, invD, invT, invDel, xo, rco, g, *pg, nu, bz);
   return int(cudaGetLastError());
 }
 
-template <typename T>
+template <int DIM, typename T>
 int launch_fused_post(const T* x, const T* b, const T* ec, const T* omega,
                       const T* invD, const T* invT, const T* invDel, T* out,
                       int64_t nt, Grid g, const PairGroups* pg, int nu,
                       void* stream) {
   size_t bytes = 0;
-  const int err = window_bytes<2, T>(mg_fused_post_kernel<T>, nu, &bytes);
+  const int err =
+      window_bytes<DIM, T>(mg_fused_post_kernel<DIM, T>, nu, &bytes);
   if (err != 0) return err;
-  mg_fused_post_kernel<T><<<bricks<2>(nt, g), kThreads, bytes,
-                            as_stream(stream)>>>(
+  mg_fused_post_kernel<DIM, T><<<bricks<DIM>(nt, g), kThreads, bytes,
+                                 as_stream(stream)>>>(
       x, b, ec, omega, invD, invT, invDel, out, g, *pg, nu);
   return int(cudaGetLastError());
 }
 
-template <typename T>
+template <int DIM, typename T>
 int launch_fused_pre_var(const T* b, const T* W, const T* omega,
                          const T* invT, const T* invDel, T* xo, T* rco,
                          int64_t nt, Grid g, const VarTaps* vt,
                          const PairGroups* pm, int nu, void* stream) {
+  const int nbuf = DIM == 2 ? 4 : 3;
+  const int bz = brick_depth<DIM, T>(nu + 1, nbuf);
   size_t bytes = 0;
-  const int err =
-      window_bytes<2, T>(mg_fused_pre_var_kernel<T>, nu + 1, &bytes, 4);
+  const int err = window_bytes<DIM, T>(mg_fused_pre_var_kernel<DIM, T>,
+                                       nu + 1, &bytes, nbuf, bz);
   if (err != 0) return err;
-  mg_fused_pre_var_kernel<T><<<bricks<2>(nt, g), kThreads, bytes,
-                               as_stream(stream)>>>(
-      b, W, omega, invT, invDel, xo, rco, g, *vt, *pm, nu);
+  const bool rf = rows_first(vt, row_size(g), sizeof(T));
+  mg_fused_pre_var_kernel<DIM, T><<<bricks_for<DIM>(rf, nt, g, bz), kThreads,
+                                    bytes, as_stream(stream)>>>(
+      b, W, omega, invT, invDel, xo, rco, g, *vt, *pm, nu, bz, rf);
   return int(cudaGetLastError());
 }
 
-template <typename T>
+template <int DIM, typename T>
 int launch_fused_post_var(const T* x, const T* b, const T* ec, const T* W,
                           const T* omega, const T* invT, const T* invDel,
                           T* out, int64_t nt, Grid g, const VarTaps* vt,
                           const PairGroups* pm, int nu, void* stream) {
   size_t bytes = 0;
-  const int err =
-      window_bytes<2, T>(mg_fused_post_var_kernel<T>, nu, &bytes, 4);
+  const int err = window_bytes<DIM, T>(mg_fused_post_var_kernel<DIM, T>, nu,
+                                       &bytes, DIM == 2 ? 4 : 3);
   if (err != 0) return err;
-  mg_fused_post_var_kernel<T><<<bricks<2>(nt, g), kThreads, bytes,
-                                as_stream(stream)>>>(
-      x, b, ec, W, omega, invT, invDel, out, g, *vt, *pm, nu);
+  const bool rf = rows_first(vt, row_size(g), sizeof(T));
+  mg_fused_post_var_kernel<DIM, T><<<bricks_for<DIM>(rf, nt, g), kThreads,
+                                     bytes, as_stream(stream)>>>(
+      x, b, ec, W, omega, invT, invDel, out, g, *vt, *pm, nu, rf);
   return int(cudaGetLastError());
 }
 
@@ -1340,8 +1399,8 @@ int launch_cheb_step_var(const T* x, const T* b, const T* W, const T* omega,
 // Plain C entry points (bound with ctypes). Each returns the cudaError_t of
 // the launch. The shift and Chebyshev columns are (T,) vectors; nt ≤ 65535
 // (the row is blockIdx.z of the tiled kernels). (nz, ny, nx, dim) is the
-// grid of one row, nz = 1 and dim = 2 in 2-D, with fewer than 2^31 points;
-// K6, K7, K14 and K15 take 2-D grids (ny, nx). The weighted ones take W
+// grid of one row, nz = 1 and dim = 2 in 2-D, with fewer than 2^31 points.
+// The weighted ones take W
 // (ntaps, *grid), the A taps (VarTaps) and the mass's weight groups
 // (PairGroups, wa = 0).
 extern "C" {
@@ -1373,18 +1432,21 @@ int mg_var_taps_size() { return int(sizeof(VarTaps)); }
   }                                                                           \
   int mg_fused_pre_##SFX(const T* b, const T* omega, const T* invD,           \
                          const T* invT, const T* invDel, T* xo, T* rco,       \
-                         int64_t nt, int64_t ny, int64_t nx,                  \
-                         const PairGroups* pg, int nu, void* stream) {        \
-    return launch_fused_pre<T>(b, omega, invD, invT, invDel, xo, rco, nt,     \
-                               Grid{1, int(ny), int(nx)}, pg, nu, stream);    \
+                         int64_t nt, int64_t nz, int64_t ny, int64_t nx,      \
+                         int dim, const PairGroups* pg, int nu,               \
+                         void* stream) {                                      \
+    const Grid g{int(nz), int(ny), int(nx)};                                  \
+    return BY_DIM(launch_fused_pre, T, b, omega, invD, invT, invDel, xo, rco, \
+                  nt, g, pg, nu, stream);                                     \
   }                                                                           \
   int mg_fused_post_##SFX(const T* x, const T* b, const T* ec,                \
                           const T* omega, const T* invD, const T* invT,       \
-                          const T* invDel, T* out, int64_t nt, int64_t ny,    \
-                          int64_t nx, const PairGroups* pg, int nu,           \
-                          void* stream) {                                     \
-    return launch_fused_post<T>(x, b, ec, omega, invD, invT, invDel, out, nt, \
-                                Grid{1, int(ny), int(nx)}, pg, nu, stream);   \
+                          const T* invDel, T* out, int64_t nt, int64_t nz,    \
+                          int64_t ny, int64_t nx, int dim,                    \
+                          const PairGroups* pg, int nu, void* stream) {       \
+    const Grid g{int(nz), int(ny), int(nx)};                                  \
+    return BY_DIM(launch_fused_post, T, x, b, ec, omega, invD, invT, invDel,  \
+                  out, nt, g, pg, nu, stream);                                \
   }                                                                           \
   int mg_residual_restrict_##SFX(const T* x, const T* b, const T* omega,      \
                                  T* rc, int64_t nt, int64_t nz, int64_t ny,   \
@@ -1433,23 +1495,22 @@ int mg_var_taps_size() { return int(sizeof(VarTaps)); }
     return BY_DIM(launch_residual_restrict_var, T, x, b, W, omega, rc, nt, g, \
                   vt, pm, stream);                                            \
   }                                                                           \
-  int mg_fused_pre_var_##SFX(const T* b, const T* W, const T* omega,          \
-                             const T* invT, const T* invDel, T* xo, T* rco,   \
-                             int64_t nt, int64_t ny, int64_t nx,              \
-                             const VarTaps* vt, const PairGroups* pm, int nu, \
-                             void* stream) {                                  \
-    return launch_fused_pre_var<T>(b, W, omega, invT, invDel, xo, rco, nt,    \
-                                   Grid{1, int(ny), int(nx)}, vt, pm, nu,     \
-                                   stream);                                   \
+  int mg_fused_pre_var_##SFX(                                                 \
+      const T* b, const T* W, const T* omega, const T* invT, const T* invDel, \
+      T* xo, T* rco, int64_t nt, int64_t nz, int64_t ny, int64_t nx, int dim, \
+      const VarTaps* vt, const PairGroups* pm, int nu, void* stream) {        \
+    const Grid g{int(nz), int(ny), int(nx)};                                  \
+    return BY_DIM(launch_fused_pre_var, T, b, W, omega, invT, invDel, xo,     \
+                  rco, nt, g, vt, pm, nu, stream);                            \
   }                                                                           \
   int mg_fused_post_var_##SFX(                                                \
       const T* x, const T* b, const T* ec, const T* W, const T* omega,        \
-      const T* invT, const T* invDel, T* out, int64_t nt, int64_t ny,         \
-      int64_t nx, const VarTaps* vt, const PairGroups* pm, int nu,            \
-      void* stream) {                                                         \
-    return launch_fused_post_var<T>(x, b, ec, W, omega, invT, invDel, out,    \
-                                    nt, Grid{1, int(ny), int(nx)}, vt, pm,    \
-                                    nu, stream);                              \
+      const T* invT, const T* invDel, T* out, int64_t nt, int64_t nz,         \
+      int64_t ny, int64_t nx, int dim, const VarTaps* vt,                     \
+      const PairGroups* pm, int nu, void* stream) {                           \
+    const Grid g{int(nz), int(ny), int(nx)};                                  \
+    return BY_DIM(launch_fused_post_var, T, x, b, ec, W, omega, invT, invDel, \
+                  out, nt, g, vt, pm, nu, stream);                            \
   }                                                                           \
   int mg_cheb_step_##SFX(const T* x, const T* b, const T* omega,              \
                          const T* invD, const T* invT, const T* invDel, T* r, \

@@ -9,7 +9,8 @@ from .errors import l2_error_spacetime
 from .mesh import (Mesh, domain_mesh, l_shape_mesh, nested_interpolation,
                    refine_hierarchy, refine_uniform, sort_vertices_lex,
                    unit_cube_mesh, unit_square_mesh)
-from .timegrid import TimeGrid, time_matrices, uniform_time_grid
+from .timegrid import (TimeGrid, graded_time_grid, time_matrices,
+                       uniform_time_grid)
 
 __all__ = [
     "Mesh",
@@ -28,5 +29,6 @@ __all__ = [
     "l2_error_spacetime",
     "TimeGrid",
     "uniform_time_grid",
+    "graded_time_grid",
     "time_matrices",
 ]

@@ -1,10 +1,10 @@
 """Dyadic time grids and the banded time matrices.
 
-The port's copy of ``spacetime_tpu/fem/timegrid.py`` for uniform grids: a
-grid is built by recursive bisection, so every node carries its creation
-level and its two creation parents, which is what the wavelet transform
-needs. Graded grids belong to the graded time-grid slice of the port
-(ROADMAP.md queue 1).
+The port's copy of ``spacetime_tpu/fem/timegrid.py``: a grid is built by
+recursive bisection, so every node carries its creation level and its two
+creation parents, which is what the wavelet transform needs. Uniform grids
+bisect every interval to a level; graded grids bisect the intervals that
+touch a critical time further (the singular problems, graded toward t = 0).
 """
 
 from __future__ import annotations
@@ -88,6 +88,23 @@ def _build(T: float, refine: Callable[[float, float, int], bool]) -> TimeGrid:
 def uniform_time_grid(num_levels: int, T: float = 1.0) -> TimeGrid:
     """Uniform dyadic grid with 2**num_levels intervals on [0, T]."""
     return _build(T, lambda a, b, lvl: lvl < num_levels)
+
+
+def graded_time_grid(
+    num_levels: int, extra_levels: int, t_crit: float = 0.0, T: float = 1.0
+) -> TimeGrid:
+    """Locally refined dyadic grid: uniform to ``num_levels``, plus up to
+    ``extra_levels`` further bisections of the intervals touching
+    ``t_crit`` (the grid of the singular problems, which need refinement
+    toward t = 0 to keep the optimal convergence rate). With
+    ``extra_levels = 0`` it is the uniform grid."""
+
+    def refine(a: float, b: float, lvl: int) -> bool:
+        if lvl < num_levels:
+            return True
+        return a <= t_crit <= b and lvl < num_levels + extra_levels
+
+    return _build(T, refine)
 
 
 def time_matrices(grid: TimeGrid):

@@ -11,10 +11,12 @@ evaluate in float64 and return numpy arrays, which is what the host
 assembly and quadrature (``fem.assemble_p1``, ``fem.spacetime_loads``,
 ``fem.l2_error_spacetime``) call.
 
-The port carries the smooth family, the variable-coefficient family
-(``varcoef2d``, ``varcoef3d``), ``moving_peak2d`` and ``lshape2d`` (on the
-L-shaped domain, ``domain="lshape"``); the singular problems come with the
-graded time grids (ROADMAP.md queue 1 item 1).
+The port carries every problem of the JAX package: the smooth family, the
+singular family (``singular2d``, ``singular3d``: u = t^¾ ∏ sin(πx), whose
+u_t blows up at t = 0, solved on time grids graded toward it,
+``graded_time``), the variable-coefficient family (``varcoef2d``,
+``varcoef3d``), ``moving_peak2d`` and ``lshape2d`` (on the L-shaped domain,
+``domain="lshape"``).
 """
 
 from __future__ import annotations
@@ -153,6 +155,15 @@ def _smooth(dim):
     return Problem(name=f"smooth{dim}d", dim=dim, exact=u)
 
 
+def _singular(dim, alpha=0.75):
+    def u(t, x):
+        # u_t ~ t^(α−1) blows up as t → 0: uniform time grids lose the
+        # optimal rate, grids graded toward t = 0 restore it
+        return t ** alpha * _prod(torch.sin(math.pi * x))
+
+    return Problem(name=f"singular{dim}d", dim=dim, exact=u, graded_time=True)
+
+
 def _varcoef(dim):
     """Smooth positive diffusion κ and nonnegative reaction c around the
     smooth family's exact solution: the weighted spatial form
@@ -190,8 +201,9 @@ def _lshape2d():
     return Problem(name="lshape2d", dim=2, exact=u, domain="lshape")
 
 
-PROBLEMS = {p.name: p for p in [_smooth(2), _smooth(3), _moving_peak2d(),
-                                _lshape2d(), _varcoef(2), _varcoef(3)]}
+PROBLEMS = {p.name: p for p in [_smooth(2), _smooth(3), _singular(2),
+                                _singular(3), _moving_peak2d(), _lshape2d(),
+                                _varcoef(2), _varcoef(3)]}
 
 
 def get_problem(name: str) -> Problem:
@@ -199,9 +211,7 @@ def get_problem(name: str) -> Problem:
         return PROBLEMS[name]
     except KeyError:
         raise KeyError(
-            f"unknown problem {name!r}; available: {sorted(PROBLEMS)} (the "
-            "singular problems of the JAX package come with the graded time "
-            "grids, ROADMAP.md queue 1 item 1)"
+            f"unknown problem {name!r}; available: {sorted(PROBLEMS)}"
         ) from None
 
 

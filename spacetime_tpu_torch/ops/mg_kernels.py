@@ -1,5 +1,5 @@
-"""The multigrid V-cycle kernels: K3–K9 on 2-D and 3-D grids (K6, K7 2-D
-only), and the weighted K10–K15 (K14, K15 2-D only).
+"""The multigrid V-cycle kernels: K3–K9 and the weighted K10–K15, on 2-D
+and 3-D grids.
 
 The counterpart of ``spacetime_tpu/ops/mg_pallas.py``. ``MSKernelLevel``
 mirrors its ``MSPallasLevel`` for one multigrid level, Op = A + ω⊙M with one
@@ -12,18 +12,18 @@ shift per time row:
     K5 ``apply_A``           A x, the stiffness stencil alone
                              (``_apply_stencil_call``)
     K6 ``fused_pre``         x = zero-init sweep on b, r_c = R(b − Op x)
-                             (``_fused_pre_call``): returns (x, r_c); 2-D
-    K7 ``fused_post``        smooth(x + P e_c, b) (``_fused_post_call``); 2-D
+                             (``_fused_pre_call``): returns (x, r_c)
+    K7 ``fused_post``        smooth(x + P e_c, b) (``_fused_post_call``)
     K8 ``residual_restrict`` r_c = R(b − Op x) (``_residual_restrict_call``)
     K9 ``prolong_correct``   x + P e_c (``_prolong_correct_call``)
 
-K3, K4, K5, K8 and K9 take 2-D and 3-D grids. K6 and K7 are 2-D only: in
-3-D the V-cycle runs the semi-fused stages K3 → K8 → (coarser levels) → K9
-→ K3, as the JAX package does on its blocked 3-D levels, and the 3-D forms
-of K6/K7 are not ported yet (ROADMAP.md queue 1 item 4); their wrappers
-raise on a 3-D grid. The tiled sweep holds ν ≤ 8 in 2-D and ν ≤ 3 in 3-D
-(``MAX_NU``, its halo in shared memory); above that the K3 and K10
-wrappers chain ν launches of a one-step kernel (``mg_cheb_step``,
+Every kernel takes 2-D and 3-D grids. The V-cycle runs the fused stages K6
+→ (coarser levels) → K7 wherever ``fused_ok`` holds (ν = ν_post ∈ {2, 3}
+and odd extents, as ``MSPallasLevel.fused_ok``), in 2-D and 3-D alike, and
+the semi-fused stages K3 → K8 → (coarser levels) → K9 → K3 elsewhere
+(V(ν, ν_post ≠ ν) cycles, ν ∉ {2, 3}). The tiled sweep holds ν ≤ 8 in 2-D
+and ν ≤ 3 in 3-D (``MAX_NU``, its halo in shared memory); above that the K3
+and K10 wrappers chain ν launches of a one-step kernel (``mg_cheb_step``,
 ``mg_cheb_step_var``) that keeps r and d in device memory, so every ν ≥ 1
 runs, as in the JAX package. The fused stages keep ν ∈ {2, 3}, as JAX's
 do.
@@ -49,16 +49,16 @@ node, 1/(W[center] + ω·c_M):
     K13 ``residual_restrict`` r_c = R(b − Op_w x)
                               (``_residual_restrict_var_call``)
     K14 ``fused_pre``         x = zero-init sweep on b, r_c = R(b − Op_w x)
-                              (``_fused_pre_var_call``); 2-D
+                              (``_fused_pre_var_call``)
     K15 ``fused_post``        smooth(x + P e_c, b)
-                              (``_fused_post_var_call``); 2-D
+                              (``_fused_post_var_call``)
     K9  ``prolong_correct``   x + P e_c, which does not depend on the
                               coefficients: the constant level's kernel
 
-K10–K13 take 2-D and 3-D grids; 3-D levels, 2-D V(ν, ν_post) cycles and
-ν ∉ {2, 3} run the semi-fused stages K10 → K13 → (coarser levels) → K9 →
-K10, the fused K14/K15 the rest of 2-D. The weighted sweep chains as the
-constant one does above ``MAX_NU``.
+V(ν, ν_post ≠ ν) cycles and ν ∉ {2, 3} run the semi-fused stages K10 → K13
+→ (coarser levels) → K9 → K10, every other level the fused K14/K15, in 2-D
+and 3-D. The weighted sweep chains as the constant one does above
+``MAX_NU``.
 
 The sharded-slab forms of the Pallas kernels (``vmask``, ``lead``) and the
 banded transfer matrices (``Ux``/``Wx``, a device of the TPU's matrix unit)
@@ -83,7 +83,9 @@ from .stencil import grouped_apply, weight_groups
 SOURCE = "spacetime_tpu_torch/csrc/mg.cu"
 # The tiled sweep's halo: a tile grows by ν cells per side. 2-D tiles are
 # 32 × 32; a 3-D brick of 8 × 8 × 32 with three float64 buffers fits the
-# 227 KB of shared memory up to ν = 3. Above it the sweep is chained.
+# 227 KB of shared memory up to ν = 3. Above it the sweep is chained. (The
+# fused pre-stage's halo is ν + 1: in 3-D float64 at ν = 3 its brick is 4
+# planes deep, ``brick_depth`` in csrc/mg.cu.)
 MAX_NU = {2: 8, 3: 3}
 MAX_ROWS = 65535  # the time row is blockIdx.z of the tiled kernels
 MAX_ROW_POINTS = 2 ** 31  # in-row indices are 32-bit
@@ -92,8 +94,8 @@ _OPS = {
     "smooth": ("K3 mg_smooth", f"{_MG}:190", (2, 3)),
     "residual": ("K4 mg_residual", f"{_MG}:316", (2, 3)),
     "apply": ("K5 mg_apply", f"{_MG}:375", (2, 3)),
-    "fused_pre": ("K6 mg_fused_pre", f"{_MG}:1318", (2,)),
-    "fused_post": ("K7 mg_fused_post", f"{_MG}:1475", (2,)),
+    "fused_pre": ("K6 mg_fused_pre", f"{_MG}:1318", (2, 3)),
+    "fused_post": ("K7 mg_fused_post", f"{_MG}:1475", (2, 3)),
     "residual_restrict": ("K8 mg_residual_restrict", f"{_MG}:1683", (2, 3)),
     "prolong_correct": ("K9 mg_prolong_correct", f"{_MG}:1913", (2, 3)),
     "smooth_var": ("K10 mg_smooth_var", f"{_MG}:856", (2, 3)),
@@ -101,8 +103,8 @@ _OPS = {
     "apply_var": ("K12 mg_apply_var", f"{_MG}:1020", (2, 3)),
     "residual_restrict_var": ("K13 mg_residual_restrict_var", f"{_MG}:1822",
                               (2, 3)),
-    "fused_pre_var": ("K14 mg_fused_pre_var", f"{_MG}:2071", (2,)),
-    "fused_post_var": ("K15 mg_fused_post_var", f"{_MG}:2196", (2,)),
+    "fused_pre_var": ("K14 mg_fused_pre_var", f"{_MG}:2071", (2, 3)),
+    "fused_post_var": ("K15 mg_fused_post_var", f"{_MG}:2196", (2, 3)),
     # the chained sweeps above MAX_NU, one Chebyshev step per launch
     "cheb_step": ("K3 mg_cheb_step", f"{_MG}:190", (2, 3)),
     "cheb_step_var": ("K10 mg_cheb_step_var", f"{_MG}:856", (2, 3)),
@@ -150,11 +152,11 @@ class _KernelLevel:
 
     @property
     def fused_ok(self) -> bool:
-        """The fused stages bake one ν (as ``MSPallasLevel.fused_ok``; the
-        Pallas slab-alignment clause has no counterpart here) and need odd
-        extents, as the semi-fused ones do. 2-D only."""
-        return (self.dim == 2 and self.semi_ok and self.nu_post == self.nu
-                and 2 <= self.nu <= 3)
+        """The fused stages bake one ν ∈ {2, 3} (as
+        ``MSPallasLevel.fused_ok``; the Pallas slab-alignment clause has no
+        counterpart here) and need odd extents, as the semi-fused ones do;
+        2-D and 3-D."""
+        return self.semi_ok and self.nu_post == self.nu and 2 <= self.nu <= 3
 
     @property
     def semi_ok(self) -> bool:
@@ -238,14 +240,6 @@ class _KernelLevel:
                  *self._zyx())
         return out
 
-    def _only_2d(self, what: str) -> None:
-        if self.dim != 2:
-            raise NotImplementedError(
-                f"{what} on the 3-D grid {self.gs}: the 3-D fused stages "
-                "are not ported yet (ROADMAP.md queue 1 item 4); 3-D levels "
-                "run the semi-fused stages"
-            )
-
     def _zyx(self):
         """(nz, ny, nx, dim): the grid as the kernels take it (nz = 1 in
         2-D)."""
@@ -295,12 +289,10 @@ class MSKernelLevel(_KernelLevel):
         return grouped_apply(self.groups_A, self.gs, x)
 
     def fused_pre_plain(self, b, cols):
-        self._only_2d("K6 fused_pre")
         x = self.smooth_plain(None, b, cols, zero_init=True)
         return x, self.residual_restrict_plain(x, b, cols)
 
     def fused_post_plain(self, x, b, ec, cols):
-        self._only_2d("K7 fused_post")
         return self.smooth_plain(self.prolong_correct_plain(x, ec), b, cols)
 
     # --------------------------------------------------------- wrappers
@@ -338,25 +330,23 @@ class MSKernelLevel(_KernelLevel):
         """K6: (x, r_c), x the zero-init sweep on b and r_c = R(b − Op x)."""
         if b.device.type == "cpu":
             return self.fused_pre_plain(b, cols)
-        self._only_2d("K6 fused_pre")
         k, T, cp = self._prepare("fused_pre", b, cols, odd=True)
         x = torch.empty_like(b)
         rc = b.new_empty((T,) + self.coarse_gs)
         k.launch(b.device, b.data_ptr(), *cp, x.data_ptr(),
-                 rc.data_ptr(), T, *self.gs, self._op_table(), self.nu)
+                 rc.data_ptr(), T, *self._zyx(), self._op_table(), self.nu)
         return x, rc
 
     def fused_post(self, x, b, ec, cols):
         """K7: smooth(x + P e_c, b)."""
         if b.device.type == "cpu":
             return self.fused_post_plain(x, b, ec, cols)
-        self._only_2d("K7 fused_post")
         k, T, cp = self._prepare("fused_post", b, cols, odd=True)
         check_tensor("x", x, b.dtype, b.device, b.shape)
         check_tensor("ec", ec, b.dtype, b.device, (T,) + self.coarse_gs)
         out = torch.empty_like(b)
         k.launch(b.device, x.data_ptr(), b.data_ptr(), ec.data_ptr(),
-                 *cp, out.data_ptr(), T, *self.gs, self._op_table(),
+                 *cp, out.data_ptr(), T, *self._zyx(), self._op_table(),
                  self.nu)
         return out
 
@@ -422,12 +412,10 @@ class VarMSKernelLevel(_KernelLevel):
         return self.A_vs.apply(x, W)
 
     def fused_pre_plain(self, b, cols, W):
-        self._only_2d("K14 fused_pre")
         x = self.smooth_plain(None, b, cols, W, zero_init=True)
         return x, self.residual_restrict_plain(x, b, cols, W)
 
     def fused_post_plain(self, x, b, ec, cols, W):
-        self._only_2d("K15 fused_post")
         return self.smooth_plain(self.prolong_correct_plain(x, ec), b, cols,
                                  W)
 
@@ -484,27 +472,25 @@ class VarMSKernelLevel(_KernelLevel):
         r_c = R(b − Op_w x)."""
         if b.device.type == "cpu":
             return self.fused_pre_plain(b, cols, W)
-        self._only_2d("K14 fused_pre")
         k, T, cp = self._prepare("fused_pre_var", b, cols, odd=True)
         self._check_W(W, b)
         x = torch.empty_like(b)
         rc = b.new_empty((T,) + self.coarse_gs)
         k.launch(b.device, b.data_ptr(), W.data_ptr(), *cp, x.data_ptr(),
-                 rc.data_ptr(), T, *self.gs, *self._tables(), self.nu)
+                 rc.data_ptr(), T, *self._zyx(), *self._tables(), self.nu)
         return x, rc
 
     def fused_post(self, x, b, ec, cols, W):
         """K15: smooth(x + P e_c, b)."""
         if b.device.type == "cpu":
             return self.fused_post_plain(x, b, ec, cols, W)
-        self._only_2d("K15 fused_post")
         k, T, cp = self._prepare("fused_post_var", b, cols, odd=True)
         check_tensor("x", x, b.dtype, b.device, b.shape)
         check_tensor("ec", ec, b.dtype, b.device, (T,) + self.coarse_gs)
         self._check_W(W, b)
         out = torch.empty_like(b)
         k.launch(b.device, x.data_ptr(), b.data_ptr(), ec.data_ptr(),
-                 W.data_ptr(), *cp, out.data_ptr(), T, *self.gs,
+                 W.data_ptr(), *cp, out.data_ptr(), T, *self._zyx(),
                  *self._tables(), self.nu)
         return out
 

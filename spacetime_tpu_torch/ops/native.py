@@ -258,8 +258,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             "mg_smooth": [P, P, P, P, P, P, P, *grid, P, I, I, P],
             "mg_residual": [P, P, P, P, *grid, P, P],
             "mg_apply": [P, P, *grid, P, P],
-            "mg_fused_pre": [P, P, P, P, P, P, P, I64, I64, I64, P, I, P],
-            "mg_fused_post": [P, P, P, P, P, P, P, P, I64, I64, I64, P, I, P],
+            "mg_fused_pre": [P, P, P, P, P, P, P, *grid, P, I, P],
+            "mg_fused_post": [P, P, P, P, P, P, P, P, *grid, P, I, P],
             "mg_residual_restrict": [P, P, P, P, *grid, P, P],
             "mg_prolong_correct": [P, P, P, *grid, P],
             # the weighted ones: W after the fields; the A taps and the M
@@ -268,11 +268,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             "mg_residual_var": [P, P, P, P, P, *grid, P, P, P],
             "mg_apply_var": [P, P, P, *grid, P, P],
             "mg_residual_restrict_var": [P, P, P, P, P, *grid, P, P, P],
-            # (nt, ny, nx): a 2-D grid
-            "mg_fused_pre_var": [P, P, P, P, P, P, P, I64, I64, I64, P, P,
-                                 I, P],
-            "mg_fused_post_var": [P, P, P, P, P, P, P, P, I64, I64, I64, P, P,
-                                  I, P],
+            "mg_fused_pre_var": [P, P, P, P, P, P, P, *grid, P, P, I, P],
+            "mg_fused_post_var": [P, P, P, P, P, P, P, P, *grid, P, P, I, P],
             # one Chebyshev step of the K3 / K10 chains (ν above MAX_NU):
             # x, b, [W,] the columns, r, d_in, d_out, x_out, the grid, the
             # tables, first, c1, c2

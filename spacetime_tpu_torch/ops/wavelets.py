@@ -13,16 +13,16 @@ it on the host. The device side (``jax_params`` / ``forward_jax`` /
 - float32 (and N+1 ≤ 1025 nodes): the dense (N+1)² synthesis matrix, applied
   as one ``torch.matmul`` over an (N+1, -1) view — a plain product, in full
   float32 (``utils.device`` turns TF32 off);
-- float64: the lifting pyramid on strided slices of a uniform dyadic grid,
-  in the JAX package's operation order.
-
-Graded grids need the gather form of the lifting; it belongs to the graded
-time-grid slice of the port.
+- float64 (and float32 above 1025 nodes): the lifting pyramid in the JAX
+  package's operation order, on strided slices of a uniform dyadic grid,
+  and in its gather form (``index_select`` / ``index_add_`` with each
+  level's node and parent indices) on a graded grid.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -90,7 +90,7 @@ class WaveletTransform:
         n = self.grid.num_nodes
         return self.forward_np(np.eye(n))
 
-    @property
+    @functools.cached_property
     def is_uniform(self) -> bool:
         """True iff the grid is the full uniform dyadic grid (N = 2^J)."""
         N = self.grid.num_intervals
@@ -203,26 +203,37 @@ def _use_dense(wt, dtype) -> bool:
 
 def wavelet_params(wt, dtype, device) -> dict:
     """The transform's tensors for ``dtype``: {"Wd", "WdT"} (dense) or
-    {"levels": [{"wl", "wr", "s"}, ...]} (lifting; (n_j,) per level j)."""
-    if not wt.is_uniform:
-        raise NotImplementedError(
-            "graded time grids need the gather form of the wavelet lifting: "
-            "the graded time-grid slice of the port (ROADMAP.md queue 1)"
-        )
+    {"levels": [{"wl", "wr", "s"}, ...]} (lifting; (n_j,) per level j); on
+    a graded grid the lifting's levels also carry their "idx", "pl", "pr"
+    (int64) and the tree its "root_idx" and "root_s" (the gather form, the
+    JAX package's ``_lifting_params(gather=True)``)."""
     mk = lambda a: torch.as_tensor(a, dtype=dtype, device=device).contiguous()
+    ix = lambda a: torch.as_tensor(a, dtype=torch.int64, device=device)
     if _use_dense(wt, dtype):
         Wd = wt.dense()
         return {"Wd": mk(Wd), "WdT": mk(Wd.T)}
-    return {
-        "levels": [
-            {"wl": mk(lev.wl), "wr": mk(lev.wr), "s": mk(lev.s)}
-            for lev in wt.levels
-        ]
-    }
+    gather = not wt.is_uniform
+    levels = []
+    for lev in wt.levels:
+        d = {"wl": mk(lev.wl), "wr": mk(lev.wr), "s": mk(lev.s)}
+        if gather:
+            d.update(idx=ix(lev.idx), pl=ix(lev.pl), pr=ix(lev.pr))
+        levels.append(d)
+    out = {"levels": levels}
+    if gather:
+        out.update(root_idx=ix(wt.root_idx), root_s=mk(wt.root_s))
+    return out
 
 
 def _gemm_axis0(Wmat, x):
     return torch.matmul(Wmat, x.reshape(x.shape[0], -1)).reshape(x.shape)
+
+
+def _check_strided(wt) -> None:
+    if not wt.is_uniform:
+        raise ValueError(
+            "a graded time grid needs the gather form of the lifting: "
+            "params from wavelet_params on that grid")
 
 
 def _stride_slices(N: int, j: int):
@@ -239,6 +250,9 @@ def forward(wt, c, wp):
     if "Wd" in wp:
         return _gemm_axis0(wp["Wd"], c)
     r = lambda a: a.reshape(a.shape[:1] + (1,) * (c.ndim - 1))
+    if "root_idx" in wp:
+        return _forward_gather(c, wp, r)
+    _check_strided(wt)
     N = wt.grid.num_intervals
     v = torch.zeros_like(c)
     v[0] = float(wt.root_s[0]) * c[0]
@@ -258,6 +272,9 @@ def adjoint(wt, x, wp):
     if "WdT" in wp:
         return _gemm_axis0(wp["WdT"], x)
     r = lambda a: a.reshape(a.shape[:1] + (1,) * (x.ndim - 1))
+    if "root_idx" in wp:
+        return _adjoint_gather(x, wp, r)
+    _check_strided(wt)
     N = wt.grid.num_intervals
     y = x.clone()
     for j in range(wt.num_levels, 0, -1):
@@ -271,4 +288,38 @@ def adjoint(wt, x, wp):
         y[mid] = r(lw["s"]) * (t + r(lw["wl"]) * a + r(lw["wr"]) * b)
     y[0] *= float(wt.root_s[0])
     y[N] *= float(wt.root_s[1])
+    return y
+
+
+# The gather form of the lifting (graded grids), in the JAX package's order
+# (``forward_jax`` / ``adjoint_jax`` with "root_idx"): within one level a
+# node is the left parent of at most one new node and the right parent of
+# at most one, and ``index_add_`` adds as JAX's ``.at[].add`` does.
+
+
+def _forward_gather(c, wp, r):
+    v = torch.zeros_like(c)
+    ridx = wp["root_idx"]
+    v[ridx] = r(wp["root_s"]) * c.index_select(0, ridx)
+    for lw in wp["levels"]:
+        t = r(lw["s"]) * c.index_select(0, lw["idx"])
+        interp = 0.5 * (v.index_select(0, lw["pl"])
+                        + v.index_select(0, lw["pr"]))
+        v.index_add_(0, lw["pl"], r(lw["wl"]) * t)
+        v.index_add_(0, lw["pr"], r(lw["wr"]) * t)
+        v[lw["idx"]] = t + interp
+    return v
+
+
+def _adjoint_gather(x, wp, r):
+    y = x.clone()
+    for lw in reversed(wp["levels"]):
+        t = y.index_select(0, lw["idx"])
+        a = y.index_select(0, lw["pl"])
+        b = y.index_select(0, lw["pr"])
+        y.index_add_(0, lw["pl"], 0.5 * t)
+        y.index_add_(0, lw["pr"], 0.5 * t)
+        y[lw["idx"]] = r(lw["s"]) * (t + r(lw["wl"]) * a + r(lw["wr"]) * b)
+    ridx = wp["root_idx"]
+    y[ridx] = y.index_select(0, ridx) * r(wp["root_s"])
     return y

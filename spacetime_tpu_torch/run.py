@@ -30,7 +30,7 @@ Examples:
         --no-error --repeat 2
 
     # the weighted 3-D solve at 129³×32 (67.6 MDoF): every Galerkin level
-    # runs the semi-fused stages (K10, K13, K9); --profile DIR traces it
+    # runs the fused stages (K14, K15); --profile DIR traces it
     python -m spacetime_tpu_torch.run --device cuda --dtype f32 \
         --problem varcoef3d --space-n 128 --time-levels 5 --inner mg \
         --no-error --repeat 2
@@ -38,6 +38,12 @@ Examples:
     # a weighted V(2,1) cycle (the semi-fused stages in 2-D)
     python -m spacetime_tpu_torch.run --device cuda --dtype f32 \
         --problem varcoef2d --space-n 128 --time-levels 6 --mg-nu-post 1
+
+    # the singular 3-D problem on a time grid graded toward t = 0: 2^5
+    # uniform steps, 4 more bisections at t = 0 (36 steps, 9.25 MDoF)
+    python -m spacetime_tpu_torch.run --device cuda --dtype f32 \
+        --problem singular3d --space-n 64 --time-levels 5 --extra-levels 4 \
+        --inner mg
 
     # a small f64 solve on the CPU (plain PyTorch twins of the kernels)
     python -m spacetime_tpu_torch.run --device cpu --space-n 32 \
@@ -83,6 +89,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "of inner=mg on unstructured meshes)")
     p.add_argument("--time-levels", type=int, default=6,
                    help="dyadic time levels (2^J uniform timesteps)")
+    p.add_argument("--extra-levels", type=int, default=0,
+                   help="extra time levels refined toward t=0 (graded grid; "
+                        "the singular problems)")
     p.add_argument("--tol", type=float, default=None,
                    help="relative residual target (default 1e-6, or 1e-8 "
                         "with --refined)")
@@ -199,7 +208,9 @@ def main(argv=None) -> int:
     with timer("setup"):
         solver = build_solver(
             args.problem, args.space_n, args.time_levels, dtype=dtype,
-            device=device, refine=args.refine, inner=args.inner, spatial_format=args.spatial,
+            device=device, refine=args.refine,
+            extra_time_levels=args.extra_levels, inner=args.inner,
+            spatial_format=args.spatial,
             cheb_eps=args.cheb_eps, mg_cycles=args.mg_cycles,
             mg_cycles_kx=args.mg_cycles_kx, mg_nu_kx=args.mg_nu_kx,
             mg_nu_post=args.mg_nu_post,

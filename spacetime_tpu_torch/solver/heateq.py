@@ -1,9 +1,10 @@
 """The space-time heat-equation solver on PyTorch tensors.
 
 The counterpart of ``spacetime_tpu.solver.heateq.HeatSolver`` on uniform
-dyadic time grids, with the same stabilized minimal-residual formulation,
-the same operator algebra and the same operation order, so float64 residual
-histories agree with the JAX package (and the NumPy oracle) to rounding.
+and graded dyadic time grids, with the same stabilized minimal-residual
+formulation, the same operator algebra and the same operation order, so
+float64 residual histories agree with the JAX package (and the NumPy
+oracle) to rounding.
 Host setup (assembly, stencils, blocked ELL, the multigrid hierarchy,
 spectral bounds, dense inverses, the wavelet structure, the quadrature of
 the loads) runs on the port's own copies of the JAX package's host modules;
@@ -49,20 +50,29 @@ structured grids and refinement chains, Chebyshev otherwise):
   names the hierarchy.
 - ``"mg"``: multi-shift multigrid on structured grids. Constant stencils:
   every V-cycle level runs the kernels of ``ops.mg_kernels`` (fused K6/K7
-  in 2-D, else the semi-fused K3, K8, K9, K3), K_X's middle application is
-  K5, K_H ≈ M⁻¹ the degree-30 stencil Chebyshev. Weighted: the Galerkin
-  hierarchy with the weighted kernels (K14/K15 fused, else K10, K13, K9,
-  K10; K11 starts later cycles; K12 in K_X). The sweeps take any ν ≥ 1
-  (above the tiled kernels' halo they chain one-step launches).
+  in 2-D and 3-D where ν = ν_post ∈ {2, 3}, else the semi-fused K3, K8, K9,
+  K3), K_X's middle application is K5, K_H ≈ M⁻¹ the degree-30 stencil
+  Chebyshev. Weighted: the Galerkin hierarchy with the weighted kernels
+  (K14/K15 fused, else K10, K13, K9, K10; K11 starts later cycles; K12 in
+  K_X). The sweeps take any ν ≥ 1 (above the tiled kernels' halo they
+  chain one-step launches).
 
 All kernels are CUDA kernels for CUDA tensors and their plain twins on the
 CPU; on CUDA no level or format falls back to the plain form.
 
+Time grids: uniform (2^J steps) or graded toward t = 0 (``build_solver``'s
+``extra_time_levels``, the singular problems). On a graded grid the wavelet
+lifting runs in its gather form (``ops.wavelets``), and the per-level
+solves of K_X (the coarse-grid solves of its V-cycle, the dense and
+Chebyshev sandwiches) take each wavelet level's rows by the permutation
+``perm`` that sorts the nodes by level, and put them back by ``inv_perm``;
+on a uniform grid the levels are strided slices.
+
 Outside the port so far (raising ``NotImplementedError`` with the ROADMAP.md
-queue 1 item that ports it): graded time grids, the Galerkin hierarchy of a
-weighted structured grid on the flat formats, on-device load quadrature,
-the fused/flexible PCG variants, checkpointing, double-single refinement
-legs and multi-device runs.
+queue 1 item that ports it): the Galerkin hierarchy of a weighted
+structured grid on the flat formats, on-device load quadrature, the
+fused/flexible PCG variants, checkpointing, double-single refinement legs
+and multi-device runs.
 """
 
 from __future__ import annotations
@@ -77,6 +87,7 @@ from ..fem import (
     P1System,
     TimeGrid,
     domain_mesh,
+    graded_time_grid,
     l2_error_spacetime,
     refine_hierarchy,
     spacetime_loads,
@@ -194,9 +205,9 @@ class HeatSolver:
         self.N = grid.num_intervals
         self.m = system.m
         self.wt = wav.build_wavelet_transform(grid)
-        if not self.wt.is_uniform:
-            raise _later("a graded or non-dyadic time grid", 1,
-                         "graded time grids")
+        # the wavelet levels' rows in ``perm`` order (graded grids)
+        self.level_bounds = np.concatenate(
+            [[0], np.cumsum(self.wt.level_counts)]).astype(int)
 
         # --- spatial format ------------------------------------------------
         gs = system.mesh.grid_shape
@@ -546,6 +557,13 @@ class HeatSolver:
             "inv_h": row_scale(1.0 / h, nd, dtype, dev),
             "wavelet": wav.wavelet_params(self.wt, dtype, dev),
         }
+        if not self.wt.is_uniform:
+            perm = self.wt.perm_by_level
+            inv_perm = np.empty_like(perm)
+            inv_perm[perm] = np.arange(self.N + 1)
+            p["perm"] = torch.as_tensor(perm, dtype=torch.int64, device=dev)
+            p["inv_perm"] = torch.as_tensor(inv_perm, dtype=torch.int64,
+                                            device=dev)
         if self.spatial_format == "stencil":
             p["kron"] = {
                 "h128": p["h_half"].reshape(self.N),
@@ -710,18 +728,32 @@ class HeatSolver:
         out[0] += self._trace_row(U, p)[0]
         return out
 
+    def _by_level(self, C, solve, p):
+        """``solve(rows, j)`` on each wavelet level j's rows of C (N+1, ...):
+        strided slices in time order on a uniform grid (written into a
+        copy, never into C), the rows gathered by ``perm`` and put back by
+        ``inv_perm`` on a graded one."""
+        if self.wt.is_uniform:
+            C = C.clone()
+            N = self.N
+            C[0::N] = solve(C[0::N], 0)
+            for j in range(1, self.wt.num_levels + 1):
+                st = N >> j
+                sl = slice(st, N, 2 * st)
+                C[sl] = solve(C[sl], j)
+            return C
+        Cs = C.index_select(0, p["perm"])
+        b = self.level_bounds
+        pieces = [solve(Cs[b[j]:b[j + 1]], j)
+                  for j in range(self.wt.num_levels + 1) if b[j] < b[j + 1]]
+        return torch.cat(pieces).index_select(0, p["inv_perm"])
+
     def _coarse_by_level(self, bc, p):
         """Coarsest-grid solve of the K_X V-cycle: each wavelet level's rows
-        (strided slices in time order) use their own shifted dense inverse.
-        Writes into a copy, never into ``bc``."""
-        flat = bc.reshape(bc.shape[0], -1).clone()
-        N = self.N
-        flat[0::N] = flat[0::N] @ p["mg_cinv"][0]
-        for j in range(1, self.wt.num_levels + 1):
-            st = N >> j
-            sl = slice(st, N, 2 * st)
-            flat[sl] = flat[sl] @ p["mg_cinv"][j]
-        return flat.reshape(bc.shape)
+        use their own shifted dense inverse."""
+        flat = bc.reshape(bc.shape[0], -1)
+        return self._by_level(flat, lambda rows, j: rows @ p["mg_cinv"][j],
+                              p).reshape(bc.shape)
 
     def _ms_solve_kx(self, X, p):
         return self._mg_kx.solve(
@@ -764,15 +796,9 @@ class HeatSolver:
                 X = kl.apply_A(X)
             X = self._ms_solve_kx(X, p)
             return wav.forward(self.wt, X, p["wavelet"]).reshape(R.shape)
-        # level rows are strided slices: level 0 = rows {0, N}, level j the
-        # odd multiples of N >> j
         C = wav.adjoint(self.wt, R.reshape(self.N + 1, self.m), p["wavelet"])
-        N = self.N
-        C[0::N] = self._sandwich_rows(C[0::N], 0, p)
-        for j in range(1, self.wt.num_levels + 1):
-            st = N >> j
-            sl = slice(st, N, 2 * st)
-            C[sl] = self._sandwich_rows(C[sl], j, p)
+        C = self._by_level(C, lambda rows, j: self._sandwich_rows(rows, j, p),
+                           p)
         return wav.forward(self.wt, C, p["wavelet"]).reshape(R.shape)
 
     # ---------------------------------------------------------------- rhs
@@ -970,18 +996,26 @@ def build_solver(
     dtype: torch.dtype = torch.float64,
     device: str | torch.device = "cuda",
     refine: int = 0,
+    extra_time_levels: int = 0,
     **kwargs,
 ) -> HeatSolver:
     """A ``HeatSolver`` for a registered problem on its domain's mesh with
     ``space_n`` cells per side, red-refined ``refine`` times with its
-    refinement chain recorded (``fem.refine_hierarchy``), and a uniform
-    grid of 2^``time_levels`` timesteps (the construction half of the JAX
-    package's ``solve_heat_equation_tpu``). ``kwargs`` go to
+    refinement chain recorded (``fem.refine_hierarchy``), and a time grid
+    of 2^``time_levels`` uniform timesteps, refined ``extra_time_levels``
+    more times toward t = 0 (``fem.graded_time_grid``, the grid of the
+    problems with ``graded_time``). The construction half of the JAX
+    package's ``solve_heat_equation_tpu``; ``kwargs`` go to
     ``HeatSolver``."""
+    if extra_time_levels < 0:
+        raise ValueError(f"extra_time_levels={extra_time_levels} < 0")
     problem = get_problem(problem_name)
     mesh = domain_mesh(problem.domain, problem.dim, space_n)
     if refine > 0:
         mesh = refine_hierarchy(mesh, refine)
     system = P1System.from_problem(problem, mesh)
-    grid = uniform_time_grid(time_levels, T=problem.T)
+    if extra_time_levels > 0:
+        grid = graded_time_grid(time_levels, extra_time_levels, T=problem.T)
+    else:
+        grid = uniform_time_grid(time_levels, T=problem.T)
     return HeatSolver(problem, system, grid, dtype=dtype, device=device, **kwargs)

@@ -1,5 +1,6 @@
-"""The CUDA kernels K1 (B), K2 (Bᵀ), the multigrid kernels K3–K9 (2-D and
-3-D), the weighted K10–K13 (2-D and 3-D), K14 and K15 (2-D), the chained
+"""The CUDA kernels K1 (B), K2 (Bᵀ), the multigrid kernels K3–K9 and the
+weighted K10–K15 (2-D and 3-D, the fused K6/K7 and K14/K15 at ν 2 and 3,
+the 3-D float64 K6/K14 at ν = 3 on their 4-plane bricks), the chained
 sweeps of K3/K10 above the tiled ν, the blocked-ELL SpMM K20, the
 banded-DIA K16–K18 (K16 at ν 1, 2, 3, 4) and the pair SpMM K19 on
 the card, against their plain twins, and small solves on the card against the
@@ -195,8 +196,18 @@ def test_mg_kernels_3d_match_twins(msmg3d, dtype, nu, gs):
                  "K9 mg_prolong_correct"):
         assert counts[f"{name}_3d {sfx}"] == 1, (name, counts)
     assert sum(counts.values()) == 7
-    with pytest.raises(NotImplementedError, match="3-D"):
-        kl.fused_pre(b, cols)
+    # the fused stages at the same ν (ν_post = ν)
+    kf = MSKernelLevel(lev.A_st, lev.M_st, nu, gs=gs)
+    assert kf.fused_ok
+    mg_kernels.reset_launch_counts()
+    for got, want in zip(kf.fused_pre(b, cols), kf.fused_pre_plain(b, cols)):
+        _close(got, want, dtype)
+    _close(kf.fused_post(x, b, ec, cols), kf.fused_post_plain(x, b, ec, cols),
+           dtype)
+    counts = mg_kernels.launch_counts()
+    for name in ("K6 mg_fused_pre", "K7 mg_fused_post"):
+        assert counts[f"{name}_3d {sfx}"] == 1, (name, counts)
+    assert sum(counts.values()) == 2
 
 
 @pytest.mark.parametrize("gs", [(15, 31), (33, 65), (47, 71)])
@@ -215,18 +226,25 @@ def test_transfer_kernels_2d_match_twins(msmg, dtype, gs):
     assert counts[f"K9 mg_prolong_correct {sfx}"] == 1
 
 
-def test_small_3d_solve_matches_cpu(msmg3d):
-    kw = dict(dtype=torch.float64, inner="mg")
+@pytest.mark.parametrize("nu_post", [None, 1], ids=["V(2,2)", "V(2,1)"])
+def test_small_3d_solve_matches_cpu(msmg3d, nu_post):
+    """smooth3d 9³×4 in float64: V(2,2) runs the fused K6/K7 on every
+    level, V(2,1) the semi-fused K3, K8, K9."""
+    kw = dict(dtype=torch.float64, inner="mg", mg_nu_post=nu_post)
     cpu = build_solver("smooth3d", 8, 2, device="cpu", **kw).solve(tol=1e-8)
     mg_kernels.reset_launch_counts()
     gpu = build_solver("smooth3d", 8, 2, device="cuda", **kw).solve(tol=1e-8)
     assert gpu.iterations == cpu.iterations
     np.testing.assert_allclose(gpu.residuals, cpu.residuals, rtol=1e-10)
     counts = mg_kernels.launch_counts()
-    for name in ("K3 mg_smooth_3d", "K8 mg_residual_restrict_3d",
-                 "K9 mg_prolong_correct_3d"):
+    fused = ("K6 mg_fused_pre_3d", "K7 mg_fused_post_3d")
+    semi = ("K3 mg_smooth_3d", "K8 mg_residual_restrict_3d",
+            "K9 mg_prolong_correct_3d")
+    ran, idle = (fused, semi) if nu_post is None else (semi, fused)
+    for name in ran + ("K4 mg_residual_3d", "K5 mg_apply_3d"):
         assert counts[f"{name} f64"] > 0, counts
-    assert counts["K6 mg_fused_pre f64"] == counts["K7 mg_fused_post f64"] == 0
+    for name in idle + ("K6 mg_fused_pre",):
+        assert counts[f"{name} f64"] == 0, counts
 
 
 @pytest.fixture(scope="module")
@@ -363,8 +381,8 @@ def var_msmg3d():
 @pytest.mark.parametrize("nu", [1, 2, 3])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_var_kernels_3d_match_twins(var_msmg3d, dtype, nu, gs):
-    """K10, K11, K12, K13 (and K9) in 3-D; a 3-D weighted sweep of degree
-    above 3 raises."""
+    """K10, K11, K12, K13 (and K9) in 3-D, the chained sweep above ν = 3,
+    and K14/K15 at ν = 2 and 3."""
     kl = VarMSKernelLevel(var_msmg3d.levels[0], nu, nu_post=nu % 3 + 1, gs=gs)
     x, b, ec, cols, W = _var_inputs(var_msmg3d, kl, 5, dtype, nu)
     _check_semi_var(kl, x, b, ec, cols, W, dtype)
@@ -383,8 +401,19 @@ def test_var_kernels_3d_match_twins(var_msmg3d, dtype, nu, gs):
     mg_kernels.reset_launch_counts()
     _close(kl4.smooth(x, b, cols, W), kl4.smooth_plain(x, b, cols, W), dtype)
     assert mg_kernels.launch_counts()[f"K10 mg_cheb_step_var_3d {sfx}"] == 4
-    with pytest.raises(NotImplementedError, match="3-D"):
-        kl.fused_pre(b, cols, W)
+    kf = VarMSKernelLevel(var_msmg3d.levels[0], nu, gs=gs)
+    assert kf.fused_ok == (nu > 1)
+    if kf.fused_ok:
+        mg_kernels.reset_launch_counts()
+        for got, want in zip(kf.fused_pre(b, cols, W),
+                             kf.fused_pre_plain(b, cols, W)):
+            _close(got, want, dtype)
+        _close(kf.fused_post(x, b, ec, cols, W),
+               kf.fused_post_plain(x, b, ec, cols, W), dtype)
+        counts = mg_kernels.launch_counts()
+        for name in ("K14 mg_fused_pre_var", "K15 mg_fused_post_var"):
+            assert counts[f"{name}_3d {sfx}"] == 1, (name, counts)
+        assert sum(counts.values()) == 2
 
 
 @pytest.mark.parametrize(
@@ -393,9 +422,10 @@ def test_var_kernels_3d_match_twins(var_msmg3d, dtype, nu, gs):
      ("varcoef2d", 16, 3, dict(mg_coarse=8, mg_nu_post=1))],
     ids=["varcoef3d-9^3x4", "varcoef2d-17^2x8-V(2,1)"])
 def test_small_weighted_semi_solve_matches_cpu(var_msmg, name, n, J, kw):
-    """float64 solves on the semi-fused weighted stages: the card's K10,
-    K13, K9 (and K11, K12) take the CPU twins' iterations, and no fused or
-    constant-stencil V-cycle kernel runs."""
+    """float64 weighted solves: the card's kernels take the CPU twins'
+    iterations. varcoef3d (ν = ν_post = 2) runs the fused K14/K15 on every
+    level (and K11, K12), the 2-D V(2,1) the semi-fused K10, K13, K9; no
+    other V-cycle kernel runs."""
     kw = dict(dtype=torch.float64, inner="mg", **kw)
     cpu = build_solver(name, n, J, device="cpu", **kw).solve(tol=1e-8)
     mg_kernels.reset_launch_counts()
@@ -403,15 +433,19 @@ def test_small_weighted_semi_solve_matches_cpu(var_msmg, name, n, J, kw):
     assert gpu.iterations == cpu.iterations
     np.testing.assert_allclose(gpu.residuals, cpu.residuals, rtol=1e-10)
     counts = mg_kernels.launch_counts()
-    d = "_3d" if name == "varcoef3d" else ""
-    for op in ("K10 mg_smooth_var", "K11 mg_residual_var", "K12 mg_apply_var",
-               "K13 mg_residual_restrict_var", "K9 mg_prolong_correct"):
-        assert counts[f"{op}{d} f64"] > 0, counts
-    assert counts[f"K10 mg_smooth_var{d} f64"] == 2 * counts[
-        f"K13 mg_residual_restrict_var{d} f64"]
-    allowed = {f"{op}{d} f64" for op in (
-        "K10 mg_smooth_var", "K11 mg_residual_var", "K12 mg_apply_var",
-        "K13 mg_residual_restrict_var", "K9 mg_prolong_correct")}
+    if name == "varcoef3d":
+        ops = ("K14 mg_fused_pre_var_3d", "K15 mg_fused_post_var_3d",
+               "K11 mg_residual_var_3d", "K12 mg_apply_var_3d")
+        assert counts["K14 mg_fused_pre_var_3d f64"] == counts[
+            "K15 mg_fused_post_var_3d f64"]
+    else:
+        ops = ("K10 mg_smooth_var", "K11 mg_residual_var", "K12 mg_apply_var",
+               "K13 mg_residual_restrict_var", "K9 mg_prolong_correct")
+        assert counts["K10 mg_smooth_var f64"] == 2 * counts[
+            "K13 mg_residual_restrict_var f64"]
+    for op in ops:
+        assert counts[f"{op} f64"] > 0, counts
+    allowed = {f"{op} f64" for op in ops}
     assert all(c == 0 for k, c in counts.items() if k not in allowed), counts
 
 

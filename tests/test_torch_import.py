@@ -106,7 +106,9 @@ _NO_JAX_PACKAGE = textwrap.dedent(
                         ("lshape2d", 8, {"spatial_format": "ell",
                                          "inner": "cheb"}),
                         ("lshape2d", 8, {"refine": 2, "inner": "mg"}),
-                        ("lshape2d", 24, {"inner": "amg"})):
+                        ("lshape2d", 24, {"inner": "amg"}),
+                        ("singular3d", 8, {"inner": "mg",
+                                           "extra_time_levels": 2})):
         res = build_solver(name, n, 2, device="cpu", **kw).solve(tol=1e-8)
         assert res.converged and res.l2_error > 0, name
         its.append(res.iterations)
@@ -123,8 +125,8 @@ def test_solves_without_the_jax_package():
     3-D (varcoef2d, varcoef3d) multigrid solves, a dense one, an L-shape
     solve on the blocked-ELL format with Chebyshev inner solves, and
     L-shape solves with the nested (refined twice) and the smoothed-
-    aggregation hierarchies run, with the JAX package and JAX blocked from
-    import."""
+    aggregation hierarchies, and a singular3d multigrid solve on a graded
+    time grid run, with the JAX package and JAX blocked from import."""
     out = subprocess.run(
         [sys.executable, "-c", _NO_JAX_PACKAGE],
         cwd=REPO, capture_output=True, text=True, timeout=300,

@@ -164,7 +164,7 @@ def semi_cases(hierarchy, hierarchy3d):
             "prolong_correct": pj.prolong_correct(J(x), J(ec), tx),
         }
         kl = MSKernelLevel(lev.A_st, lev.M_st, nu, gs=gs)
-        assert kl.semi_ok and kl.fused_ok == (len(gs) == 2)
+        assert kl.semi_ok and kl.fused_ok
         tc = MSKernelLevel.columns(mg.row_params(msmg, omega, tdt, "cpu")[-1])
         got = {
             "smooth": kl.smooth(P(x), P(b), tc),
@@ -208,6 +208,13 @@ class _SemiOnly(MSPallasLevel):
     fused_ok = False
 
 
+class _SemiKernels(MSKernelLevel):
+    """A kernel level held to the semi-fused branch where ``fused_ok``
+    would hold (ν = ν_post ∈ {2, 3}, 2-D and 3-D alike)."""
+
+    fused_ok = False
+
+
 def _semi_vcycle_pair(msmg, A_c, M_c, nu_post, cycles):
     """The JAX V-cycle with semi-fused interpret-mode Pallas levels and the
     port's with kernel levels, float64, from one seeded right-hand side."""
@@ -235,7 +242,7 @@ def _semi_vcycle_pair(msmg, A_c, M_c, nu_post, cycles):
     lps_t = mg.row_params(msmg, omega, torch.float64, "cpu")
     for lp in lps_t:
         lp["cols"] = MSKernelLevel.columns(lp)
-    kernels = [MSKernelLevel(lev.A_st, lev.M_st, msmg.nu, nu_post=nu_post)
+    kernels = [_SemiKernels(lev.A_st, lev.M_st, msmg.nu, nu_post=nu_post)
                for lev in msmg.levels]
     ct = torch.as_tensor(cinv)
     got = mg.MultiShiftMG(msmg).solve(
@@ -248,7 +255,9 @@ def _semi_vcycle_pair(msmg, A_c, M_c, nu_post, cycles):
 
 @pytest.mark.parametrize("nu_post", [None, 1])
 def test_semi_vcycle_3d_matches_jax_pallas_f64(hierarchy3d, nu_post):
-    """3-D: every level runs K3 → K8 → ... → K9 → K3 on both sides."""
+    """3-D: every level runs K3 → K8 → ... → K9 → K3 on both sides (held
+    to that branch at V(2,2), where both would take the fused stages;
+    tests/test_torch_fused3d.py holds those)."""
     msmg, (A_c, M_c) = hierarchy3d
     want, got, kernels = _semi_vcycle_pair(msmg, A_c, M_c, nu_post, 2)
     assert all(k.semi_ok and not k.fused_ok for k in kernels)
@@ -353,34 +362,33 @@ def test_levels_dispatch_by_device(hierarchy):
     with pytest.raises(ValueError, match="no mg kernel for device meta"):
         kl.apply_A(meta)
     kl3 = MSKernelLevel(lev.A_st, lev.M_st, 2, gs=(7, 7, 7))
-    assert kl3.semi_ok and not kl3.fused_ok
+    assert kl3.semi_ok and kl3.fused_ok
+    assert not MSKernelLevel(lev.A_st, lev.M_st, 2, nu_post=1,
+                             gs=(7, 7, 7)).fused_ok
     cols3 = MSKernelLevel.columns(
         mg.row_params(msmg, np.ones(3), torch.float64, "cpu")[0])
-    b3 = torch.zeros((3, 7, 7, 7), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="3-D"):
-        kl3.fused_pre(b3, cols3)
-    with pytest.raises(NotImplementedError, match="3-D"):
-        kl3.fused_post(b3, b3, torch.zeros((3, 3, 3, 3), dtype=torch.float64),
-                       cols3)
     meta3 = torch.empty((3, 7, 7, 7), device="meta")
-    with pytest.raises(ValueError, match="no mg kernel for device meta"):
-        kl3.residual_restrict(meta3, meta3, cols3)
-    with pytest.raises(ValueError, match="no mg kernel for device meta"):
-        kl3.prolong_correct(meta3, meta3[:, :3, :3, :3])
+    for call in (lambda: kl3.fused_pre(meta3, cols3),
+                 lambda: kl3.fused_post(meta3, meta3, meta3[:, :3, :3, :3],
+                                        cols3),
+                 lambda: kl3.residual_restrict(meta3, meta3, cols3),
+                 lambda: kl3.prolong_correct(meta3, meta3[:, :3, :3, :3])):
+        with pytest.raises(ValueError, match="no mg kernel for device meta"):
+            call()
     assert not MSKernelLevel(lev.A_st, lev.M_st, 4).fused_ok
     assert not MSKernelLevel(lev.A_st, lev.M_st, 2, nu_post=1).fused_ok
     assert not MSKernelLevel(lev.A_st, lev.M_st, 2, gs=(8, 7)).semi_ok
     names = {(3, "mg_smooth"), (4, "mg_residual"), (5, "mg_apply"),
+             (6, "mg_fused_pre"), (7, "mg_fused_post"),
              (8, "mg_residual_restrict"), (9, "mg_prolong_correct"),
              (10, "mg_smooth_var"), (11, "mg_residual_var"),
              (12, "mg_apply_var"), (13, "mg_residual_restrict_var"),
+             (14, "mg_fused_pre_var"), (15, "mg_fused_post_var"),
              (3, "mg_cheb_step"), (10, "mg_cheb_step_var")}
     assert set(mg_kernels.launch_counts()) == {
         f"K{i} {name}{d} {sfx}" for i, name in names for d in ("", "_3d")
         for sfx in ("f32", "f64")
-    } | {f"K{i} {name} {sfx}" for i, name in
-         ((6, "mg_fused_pre"), (7, "mg_fused_post"), (14, "mg_fused_pre_var"),
-          (15, "mg_fused_post_var")) for sfx in ("f32", "f64")}
+    }
 
 
 def test_convert_carries_columns():

@@ -75,11 +75,25 @@ def test_wavelet_dense_f32(wavelet_case):
 
 
 def test_wavelet_graded_raises():
+    """A graded grid takes the gather form of the lifting in float64 (it
+    no longer raises; tests/test_torch_graded.py holds it to the JAX
+    package), and the dense synthesis in float32; a gather-form tree that
+    lost its index arrays raises rather than run the uniform form."""
     from spacetime_tpu.fem.timegrid import graded_time_grid
 
     wt = build_wavelet_transform(graded_time_grid(2, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        wav.wavelet_params(wt, torch.float64, "cpu")
+    assert not wt.is_uniform
+    wp = wav.wavelet_params(wt, torch.float64, "cpu")
+    assert {"root_idx", "root_s"} <= set(wp)
+    assert all({"idx", "pl", "pr"} <= set(lw) for lw in wp["levels"])
+    assert set(wav.wavelet_params(wt, torch.float32, "cpu")) == {"Wd", "WdT"}
+    X = torch.ones((wt.grid.num_nodes, 2), dtype=torch.float64)
+    broken = {"levels": [{k: lw[k] for k in ("wl", "wr", "s")}
+                         for lw in wp["levels"]]}
+    with pytest.raises(ValueError, match="graded"):
+        wav.forward(wt, X, broken)
+    with pytest.raises(ValueError, match="graded"):
+        wav.adjoint(wt, X, broken)
 
 
 @pytest.mark.parametrize("dim, n, nc", [(2, 16, 8), (3, 8, 4)])

@@ -1,5 +1,6 @@
 """The port's float64 solves against the oracle's table (``baseline_oracle.json``,
-``scripts/record_baseline.py``): the ten rows on uniform time grids, each
+``scripts/record_baseline.py``): all twelve rows, the two singular ones on
+time grids graded toward t = 0, each
 solved by the port with the inner solver and format ``"auto"`` picks (dense
 inverses at these sizes; ``"stencil"``, ``"vstencil"`` or the L-shape's
 ``"dia"``, and that row again on ``"ell"``). Iteration counts are equal and
@@ -27,22 +28,25 @@ from spacetime_tpu_torch.solver import HeatSolver, build_solver
 REPO = Path(__file__).resolve().parent.parent
 ORACLE = {r["config"]: r for r in json.loads(
     (REPO / "baseline_oracle.json").read_text())}
-# (config, problem, cells, time levels, tol, spatial format); the graded
-# rows (cfg4, singular3d) need the graded time grids, a later slice
+# (config, problem, cells, time levels, extra levels toward t = 0, tol,
+# spatial format)
 ROWS = [
-    ("cfg1-2d-65x65x64-tol1e-6", "smooth2d", 64, 6, 1e-6, "auto"),
-    ("cfg1b-2d-65x65x64-tol1e-8", "smooth2d", 64, 6, 1e-8, "auto"),
-    ("2d-ladder-8x8x8", "smooth2d", 8, 3, 1e-6, "auto"),
-    ("2d-ladder-16x16x16", "smooth2d", 16, 4, 1e-6, "auto"),
-    ("2d-ladder-32x32x32", "smooth2d", 32, 5, 1e-6, "auto"),
-    ("cfg3-3d-17x17x17x16", "smooth3d", 16, 4, 1e-6, "auto"),
-    ("moving-peak-32x32x32", "moving_peak2d", 32, 5, 1e-6, "auto"),
-    ("lshape-32-J5", "lshape2d", 32, 5, 1e-6, "auto"),
-    ("lshape-32-J5", "lshape2d", 32, 5, 1e-6, "ell"),
-    ("varcoef-32-J5", "varcoef2d", 32, 5, 1e-6, "auto"),
-    ("varcoef3d-8-J3", "varcoef3d", 8, 3, 1e-6, "auto"),
+    ("cfg1-2d-65x65x64-tol1e-6", "smooth2d", 64, 6, 0, 1e-6, "auto"),
+    ("cfg1b-2d-65x65x64-tol1e-8", "smooth2d", 64, 6, 0, 1e-8, "auto"),
+    ("2d-ladder-8x8x8", "smooth2d", 8, 3, 0, 1e-6, "auto"),
+    ("2d-ladder-16x16x16", "smooth2d", 16, 4, 0, 1e-6, "auto"),
+    ("2d-ladder-32x32x32", "smooth2d", 32, 5, 0, 1e-6, "auto"),
+    ("cfg3-3d-17x17x17x16", "smooth3d", 16, 4, 0, 1e-6, "auto"),
+    ("cfg4-singular-graded-32-J4+4", "singular2d", 32, 4, 4, 1e-6, "auto"),
+    ("singular3d-graded-8-J2+3", "singular3d", 8, 2, 3, 1e-6, "auto"),
+    ("moving-peak-32x32x32", "moving_peak2d", 32, 5, 0, 1e-6, "auto"),
+    ("lshape-32-J5", "lshape2d", 32, 5, 0, 1e-6, "auto"),
+    ("lshape-32-J5", "lshape2d", 32, 5, 0, 1e-6, "ell"),
+    ("varcoef-32-J5", "varcoef2d", 32, 5, 0, 1e-6, "auto"),
+    ("varcoef3d-8-J3", "varcoef3d", 8, 3, 0, 1e-6, "auto"),
 ]
 FORMATS = {"smooth2d": "stencil", "smooth3d": "stencil",
+           "singular2d": "stencil", "singular3d": "stencil",
            "moving_peak2d": "stencil", "lshape2d": "dia",
            "varcoef2d": "vstencil", "varcoef3d": "vstencil"}
 # the smallest rows, whose whole history is also held to the JAX f64
@@ -68,11 +72,12 @@ def solvers():
     share theirs."""
     cache = {}
 
-    def get(problem, n, J, fmt):
-        key = (problem, n, J, fmt)
+    def get(problem, n, J, extra, fmt):
+        key = (problem, n, J, extra, fmt)
         if key not in cache:
             cache[key] = build_solver(problem, n, J, dtype=torch.float64,
-                                      device="cpu", spatial_format=fmt)
+                                      device="cpu", spatial_format=fmt,
+                                      extra_time_levels=extra)
         return cache[key]
 
     return get
@@ -84,12 +89,12 @@ def _seven_digits(rel):
 
 
 @pytest.mark.parametrize(
-    "label, problem, n, J, tol, fmt", ROWS,
-    ids=[f"{r[0]}-{r[5]}" for r in ROWS])
-def test_row_matches_oracle(solvers, label, problem, n, J, tol, fmt):
+    "label, problem, n, J, extra, tol, fmt", ROWS,
+    ids=[f"{r[0]}-{r[6]}" for r in ROWS])
+def test_row_matches_oracle(solvers, label, problem, n, J, extra, tol, fmt):
     row = ORACLE[label]
-    s = solvers(problem, n, J, fmt)
-    assert s.inner == "dense"
+    s = solvers(problem, n, J, extra, fmt)
+    assert s.inner == "dense" and s.wt.is_uniform == (extra == 0)
     assert s.spatial_format == (FORMATS[problem] if fmt == "auto" else fmt)
     r = s.solve(tol=tol)
     assert r.converged and r.iterations == row["iters"]

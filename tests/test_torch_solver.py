@@ -159,7 +159,7 @@ def test_solve_refined_needs_f64_tensors(case, monkeypatch):
 @pytest.mark.parametrize("n", [8, 16], ids=["9^3x8", "17^3x8"])
 def test_solve_3d_f64_histories_match_jax(n):
     """smooth3d, ``inner="mg"`` (the 3-D coarse default: levels down to 4 /
-    8 cells): every V-cycle level runs the semi-fused stages' twins."""
+    8 cells): every V-cycle level runs the fused stages' twins (K6/K7)."""
     system = P1System.from_mesh(unit_cube_mesh(n))
     grid = uniform_time_grid(3)
     kw = dict(inner="mg", space_n=n)
@@ -168,7 +168,7 @@ def test_solve_3d_f64_histories_match_jax(n):
     ps = HeatSolver(get_problem("smooth3d"), system, grid,
                     dtype=torch.float64, device="cpu", **kw)
     assert ps.msmg.n_coarse == js.msmg.n_coarse == n // 2
-    assert all(k.semi_ok and not k.fused_ok for k in ps._kl_ky + ps._kl_kx)
+    assert all(k.fused_ok for k in ps._kl_ky + ps._kl_kx)
     jr, pr = js.solve(tol=1e-8), ps.solve(tol=1e-8)
     assert jr.converged and pr.converged
     assert pr.iterations == jr.iterations

@@ -345,10 +345,11 @@ def test_params_from_jax_weighted(dtype):
 
 def test_unported_weighted_paths_raise():
     """What raises on the weighted format: multigrid on the DIA / ELL
-    formats, the constant-stencil format, the fused stages on a 3-D grid and
-    transfers on even extents. Weighted V(ν, ν_post) cycles, ν ∉ {2, 3} and
-    varcoef3d build and solve on the semi-fused stages, and 3-D sweeps of
-    degree above the tiled kernels' 3 take the JAX package's iterations."""
+    formats, the constant-stencil format and transfers on even extents.
+    Weighted V(ν, ν_post) cycles and ν ∉ {2, 3} build and solve on the
+    semi-fused stages, varcoef3d on the fused ones (2-D and 3-D alike), and
+    3-D sweeps of degree above the tiled kernels' 3 take the JAX package's
+    iterations."""
     system = fem.P1System.from_problem(get_problem("varcoef2d"),
                                        fem.unit_square_mesh(16))
     grid = fem.uniform_time_grid(2)
@@ -392,12 +393,14 @@ def test_unported_weighted_paths_raise():
             torch.zeros((1, 14, 15), dtype=torch.float64), [None],
             lambda bc: bc, kernels=[even])
     kl3 = VarMSKernelLevel(dataclasses.replace(lev, gs=(7, 7, 7)), 2)
-    assert not kl3.fused_ok and kl3.semi_ok
-    x3 = torch.zeros((1, 7, 7, 7), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="3-D"):
-        kl3.fused_pre(x3, None, None)
-    with pytest.raises(NotImplementedError, match="3-D"):
-        kl3.fused_post(x3, x3, x3[:, :3, :3, :3], None, None)
+    assert kl3.fused_ok and kl3.semi_ok
+    assert all(k.fused_ok and k.dim == 3 for k in s3._kl_ky + s3._kl_kx)
+    even3 = VarMSKernelLevel(dataclasses.replace(lev, gs=(8, 7, 7)), 2)
+    assert not even3.fused_ok and not even3.semi_ok
+    with pytest.raises(ValueError, match="odd extents"):
+        mg.GalerkinMultiShiftMG(msmg).vcycle(
+            torch.zeros((1, 8, 7, 7), dtype=torch.float64), [None],
+            lambda bc: bc, kernels=[even3])
 
 
 def test_var_levels_dispatch_by_device():
