@@ -21,10 +21,12 @@ Phases (every check asserts; any failure exits non-zero):
               511² and 255² (T=129), 127² (T=65) and a ragged 15×31 (T=5);
               median device times (ν = 2) at 511²×129 and 127²×65.
 6. mg kernels 3-D — K3 (from x and from 0), K4, K5, K6, K7, K8 and K9 at
-              127³ and 63³ (T=65: the 3-D flagship's two finest levels) and a
+              63³ (T=65) and 31³ (T=33: the smooth3d 65³×32 solve's levels
+              at K_X's rows; the 129³ flagship's finest level, 127³, is
+              solved by ``run.py`` only) and a
               ragged 7×9×15 (T=5), float32 and float64, ν ∈ {2, 3} (K6 in
               float64 at ν = 3 on 4-plane bricks); median device times (ν =
-              2) at 127³×65 and 63³×65, and ν = 3 for K6/K7 at 127³×65. K5 is also timed
+              2) at 63³×65, and ν = 3 for K6/K7 there. K5 is also timed
               against ``F.conv2d`` / ``F.conv3d`` with its stencil (the
               library call). Beside each timed fused stage, in 2-D and 3-D,
               the semi-fused pair it replaces: K3 from 0 + K8 for K6, K9 + K3
@@ -149,9 +151,37 @@ Phases (every check asserts; any failure exits non-zero):
               TPU's), L2 within 20% of the TPU's 1.17e-05 (f32 rounding, as
               REF_FLAGSHIP); K6/K7 on every level.
 
+33. sharded-slab forms — K3 with its validity field (from x and from 0),
+              K6, K7, K8 and K9 with ``lead`` against their twins at the
+              (time 2 × space 2) mesh's finest slabs, f32 and f64: the 2-D
+              flagship's (T 65 and 64, own 256, h 3, 511 columns) and
+              smooth3d 65³×32's (T 17, own 32, 63² planes); each timed
+              (ν = 2) beside the serial form at the owned shape (one plane
+              more: the serial transfers take odd extents) and its bound,
+              the halo planes and the field counted.
+34. time mesh — four ranks on the card over gloo (halos through host
+              memory): cfg2 f64, the serial port's 21 iterations, history
+              within rtol 1e-9 of its; cfg4 (singular2d graded J4+4, f64)
+              on three ranks, the general layout: the oracle's 13
+              iterations, 7-digit history and L2.
+35. time × space mesh (2 × 2) — cfg2 f64 (the serial port's 21 and its
+              history), cfg2 V(2,1) f32 (the semi-fused sharded stages,
+              within ±1 of the serial port's iterations), smooth2d 33²×16
+              f64 V(2,1), and the 513²×128 flagship f32 ``solve(tol=1e-6)``
+              twice: 17 ± 2 iterations, L2 within 20% of 3.812e-06, K6/K7
+              lead on every sharded level (4 launches per rank and
+              V-cycle), steady seconds beside the serial port's; every
+              rank prints its launches, exchanges and bytes staged per
+              iteration.
+36. 3-D on (2 × 2) — smooth3d 65³×32 f32: 14 ± 1 iterations, L2 within 1%
+              of 2.5223e-04, the 3-D lead forms launched; smooth3d 17³×16
+              f64 V(2,2) and V(2,1) and f32 V(2,1) (the remaining 3-D
+              forms).
+
 Launch counters are zeroed just before each path (phases 7–8, 9, 10, 11,
 12, 13, 15, 16, 17, 19, 20, 21, each solve of 24, 25 and 29, 26, 28, the
-f32 AMG solves of 29, each solve of 30, 31 and 32) and read just after it;
+f32 AMG solves of 29, each solve of 30, 31 and 32, and on every rank each
+solve of 34–36, summed over the ranks) and read just after it;
 each path asserts the kernels it must have launched, and a path that it
 ran only the kernels of its branch (K9 the one constant kernel of the
 weighted semi-fused stages). The last two lines are a JSON object
@@ -350,7 +380,7 @@ CHAIN_MAIN = {2: (65, (127, 127)), 3: (33, (63,) * 3)}
 # flagship's two finest levels, and ragged shapes.
 MG_SHAPES = [(129, (511, 511)), (129, (255, 255)), (65, (127, 127)),
              (5, (15, 31))]
-MG_SHAPES_3D = [(65, (127, 127, 127)), (65, (63, 63, 63)), (5, (7, 9, 15))]
+MG_SHAPES_3D = [(65, (63, 63, 63)), (33, (31, 31, 31)), (5, (7, 9, 15))]
 # (T, grid, cells of the assembly its weights come from) of the weighted
 # kernels' checks: the varcoef2d flagship's two finest levels, its 129²
 # run's finest level at K_X's row count, and a ragged grid (the 127²
@@ -365,15 +395,15 @@ VAR_SHAPES = [(129, (511, 511), 512), (129, (255, 255), 256),
 # to it)
 VAR_SHAPES_3D = [(33, (63, 63, 63), 0), (33, (31, 31, 31), 1),
                  (5, (7, 9, 15), 0), (33, (127, 127, 127), 0)]
-MG_TIMED = [(129, (511, 511)), (65, (127, 127)), (65, (127, 127, 127)),
-            (65, (63, 63, 63)), (33, (63, 63, 63)), (33, (127, 127, 127))]
+MG_TIMED = [(129, (511, 511)), (65, (127, 127)), (65, (63, 63, 63)),
+            (33, (63, 63, 63)), (33, (127, 127, 127))]
 # where the 3-D fused stages are also timed at ν = 3: the shapes of the
-# kernel table's 3-D rows (K6/K7 at 127³×65, K14/K15 at 63³ and 127³ ×33)
-FUSED_NU3_TIMED = [(65, (127, 127, 127)), (33, (63, 63, 63)),
+# kernel table's 3-D rows (K6/K7 at 63³×65, K14/K15 at 63³ and 127³ ×33)
+FUSED_NU3_TIMED = [(65, (63, 63, 63)), (33, (63, 63, 63)),
                    (33, (127, 127, 127))]
 # the shape of each kernel's headline numbers in the JSON line, by family
 # (constant or weighted) and dimension
-MG_MAIN = {("const", 2): (129, (511, 511)), ("const", 3): (65, (127,) * 3),
+MG_MAIN = {("const", 2): (129, (511, 511)), ("const", 3): (65, (63,) * 3),
            ("var", 2): (129, (511, 511)), ("var", 3): (33, (63,) * 3)}
 # max|kernel − twin| ≤ tol · max|twin|. f32: FMA contraction and the order
 # of the tap sums differ from PyTorch's; f64: the same, at f64 rounding.
@@ -1515,6 +1545,337 @@ def phase_flat_solves(build_solver, nst, amg, paths):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------ the meshes (phases 33-36)
+
+# The sharded-slab forms' checks at the finest slab of the (time 2 × space
+# 2) mesh: the 2-D flagship's (513²×128: R = 64 test rows, R + 1 = 65 trial
+# rows per time rank; 511 planes over 2 space ranks, Rs = 256 owned planes,
+# halo kw = ν + 1 = 3, 511 columns) and smooth3d 65³×32's (R + 1 = 17, Rs =
+# 32, 63² planes). The validity field is space rank 1's (its last planes
+# are grid padding and halo past the domain).
+SH_SLABS = {2: {"T": (65, 64), "own": 256, "rest": (511,)},
+            3: {"T": (17,), "own": 32, "rest": (63, 63)}}
+SH_H = 3
+
+
+def sh_inputs(msmg, kl, T, own, h, hc, dtype, rng) -> dict:
+    """x, b on the slab, x on the owned planes, e_c with hc and with 1
+    coarse halo planes, the slab's validity field and random columns."""
+    from spacetime_tpu_torch.ops.multigrid import row_params
+
+    mk = lambda a: torch.as_tensor(a, dtype=dtype, device=DEVICE)
+    E, rest = kl.gs[0], kl.gs[1:]
+    crest = kl.coarse_gs[1:]
+    gid = own - h + np.arange(E)
+    e0 = 2 * own - 1  # the real planes of a 2-rank axis (511, 63)
+    vm = ((gid >= 0) & (gid < e0)).astype(np.float64)
+    omega = np.abs(rng.standard_normal(T)) * 20
+    lp = row_params(msmg, omega, dtype, DEVICE)[0]
+    return {
+        "x": mk(rng.standard_normal((T,) + kl.gs)),
+        "b": mk(rng.standard_normal((T,) + kl.gs)),
+        "x_own": mk(rng.standard_normal((T, own) + rest)),
+        "ec": mk(rng.standard_normal((T, own // 2 + 2 * hc) + crest)),
+        "ec1": mk(rng.standard_normal((T, own // 2 + 2) + crest)),
+        "vm": mk(np.broadcast_to(vm.reshape((1, E) + (1,) * len(rest)),
+                                 (1, E) + rest).copy()),
+        "cols": kl.columns(lp),
+    }
+
+
+def sh_forms(kl, x, own, h, hc) -> dict:
+    """{form: (kernel op, kernel_fn, twin_fn)} of the sharded-slab forms."""
+    X, B, XO, EC, EC1, VM, c = (x[k] for k in (
+        "x", "b", "x_own", "ec", "ec1", "vm", "cols"))
+    return {
+        "smooth": ("sh_smooth", lambda: (kl.smooth(X, B, c, vmask=VM),),
+                   lambda: (kl.smooth_plain(X, B, c, vmask=VM),)),
+        "smooth_zero": (
+            "sh_smooth",
+            lambda: (kl.smooth(None, B, c, zero_init=True, vmask=VM),),
+            lambda: (kl.smooth_plain(None, B, c, zero_init=True, vmask=VM),)),
+        "fused_pre": ("sh_fused_pre",
+                      lambda: kl.sh_fused_pre(B, c, VM, own, h),
+                      lambda: kl.sh_fused_pre_plain(B, c, VM, own, h)),
+        "fused_post": (
+            "sh_fused_post",
+            lambda: (kl.sh_fused_post(X, B, EC, c, VM, own, h, hc),),
+            lambda: (kl.sh_fused_post_plain(X, B, EC, c, VM, own, h, hc),)),
+        "residual_restrict": (
+            "sh_residual_restrict",
+            lambda: (kl.sh_residual_restrict(X, B, c, own, h),),
+            lambda: (kl.sh_residual_restrict_plain(X, B, c, own, h),)),
+        "prolong_correct": (
+            "sh_prolong_correct",
+            lambda: (kl.sh_prolong_correct(XO, EC1, own, 1),),
+            lambda: (kl.sh_prolong_correct_plain(XO, EC1, own, 1),)),
+    }
+
+
+def sh_bound(form, kl, T, own, hc, dtype) -> dict:
+    """Bytes (each input read once, the halo planes and the validity field
+    included; each output written once) and operations of one sharded
+    form at T rows on the slab."""
+    m = int(np.prod(kl.gs))  # the slab, halo planes included
+    mo = own * int(np.prod(kl.gs[1:]))  # the owned planes
+    crest = int(np.prod(kl.coarse_gs[1:]))
+    mc = own // 2 * crest  # the owned coarse planes
+    s = torch.finfo(dtype).bits // 8
+    op = stencil_ops(kl.pairs)
+    nu = kl.nu
+    sweep = op * nu + 5 + 7 * (nu - 1)  # mg_bound's, one more multiply per r
+    sweep0 = 3 + (op + 7) * (nu - 1)
+    restrict = 2 ** (kl.dim + 1)
+    cols = 4 * T
+    nbytes, flops = {
+        "smooth": (s * (3 * T * m + m + cols), T * m * sweep),
+        "smooth_zero": (s * (2 * T * m + m + cols), T * m * sweep0),
+        "fused_pre": (s * (2 * T * m + m + T * mc + cols),
+                      T * m * (sweep0 + op + 1) + T * mc * restrict),
+        "fused_post": (s * (3 * T * m + m + T * (mc + 2 * hc * crest)
+                            + cols), T * m * (sweep + 3)),
+        "residual_restrict": (s * (2 * T * m + T * mc + T),
+                              T * m * (op + 1) + T * mc * restrict),
+        "prolong_correct": (s * (2 * T * mo + T * (mc + 2 * crest)),
+                            T * mo * 3),
+    }[form]
+    return bound(nbytes, flops, dtype)
+
+
+def phase_sharded_kernels(msmg2, msmg3) -> dict:
+    """Phase 33: the five sharded-slab forms against their twins at the
+    meshes' finest slabs, f32 and f64, and timed (ν = 2, h = 3) beside the
+    serial form at the owned shape and the bound."""
+    from spacetime_tpu_torch.ops.mg_kernels import MSKernelLevel
+
+    phase("33 sharded-slab kernel forms (K3 vmask, K6/K7/K8/K9 lead) against "
+          "their twins at the (2 x 2) mesh's finest slabs")
+    rng = np.random.default_rng(SEED + 33)
+    results = {}  # (op, dtype, dim) -> {"max_abs_err", "forms": {...}}
+    for dim, msmg in ((2, msmg2), (3, msmg3)):
+        sl = SH_SLABS[dim]
+        own, rest = sl["own"], sl["rest"]
+        lev = msmg.levels[0]
+        for dtype in (torch.float32, torch.float64):
+            for T in sl["T"]:
+                h = SH_H
+                hc = (h + 2) // 2
+                kl = MSKernelLevel(lev.A_st, lev.M_st, 2,
+                                   gs=(own + 2 * h,) + rest)
+                ser = MSKernelLevel(lev.A_st, lev.M_st, 2,
+                                    gs=(own + 1,) + rest)
+                x = sh_inputs(msmg, kl, T, own, h, hc, dtype, rng)
+                xs = mg_inputs(msmg, ser, T, dtype, rng)
+                serial = mg_forms(ser, xs)
+                for form, (op, kfn, tfn) in sh_forms(kl, x, own, h,
+                                                     hc).items():
+                    got, want = kfn(), tfn()
+                    torch.cuda.synchronize()
+                    rec = results.setdefault(
+                        (op, dtype, dim), {"max_abs_err": 0.0, "forms": {}})
+                    for g, w in zip(got, want):
+                        err = float((g - w).abs().max())
+                        scale = float(w.abs().max())
+                        assert err <= TOL[dtype] * scale, (
+                            form, dtype, T, kl.gs, err, scale)
+                        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                    del got, want
+                    ms, plain_ms = device_ms(kfn), device_ms(tfn)
+                    # the serial form at the owned shape, one plane more
+                    # (the serial transfers take odd extents)
+                    serial_ms = device_ms(serial[form][1])
+                    entry = {"ms": ms, "plain_ms": plain_ms,
+                             "library_ms": None, "serial_ms": serial_ms,
+                             "serial_shape": shape_key(T, ser.gs),
+                             **sh_bound(form, kl, T, own, hc, dtype)}
+                    rec["forms"][f"{form} {shape_key(T, kl.gs)}"] = entry
+                    print(f"  {form:17s} {str(dtype)[6:]:8s} T={T:3d} "
+                          f"slab={kl.gs} own={own} h={h}: max|kernel-twin| "
+                          f"{err:.3e} (max|twin| {scale:.3e}); kernel "
+                          f"{ms:.4f} ms, twin {plain_ms:.4f} ms, serial form "
+                          f"at {ser.gs} {serial_ms:.4f} ms, bound "
+                          f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})",
+                          flush=True)
+                del x, xs, serial
+                torch.cuda.empty_cache()
+    return results
+
+
+def mesh_run(mesh, specs, label):
+    """The specs on the mesh's ranks (one process each, gloo: the ranks
+    share the card); rank 0's results."""
+    from spacetime_tpu_torch.parallel.launch import solve_specs, spawn_ranks
+
+    print(f"mesh {dict(mesh.shape)} ({label}), gloo:")
+    for line in mesh.describe():
+        print(" ", line)
+    t0 = time.perf_counter()
+    out = spawn_ranks(solve_specs, mesh, "gloo", (specs,), timeout=600)
+    print(f"  ranks done in {time.perf_counter() - t0:.2f} s", flush=True)
+    for o in out:
+        assert not o["info"]["foreign"], o["info"]["foreign"]
+    return out
+
+
+def mesh_spec(problem, n, J, dtype, tol, extra=0, kw=None, calls=1,
+              error=False):
+    return {"problem": problem, "space_n": n, "time_levels": J,
+            "extra_time_levels": extra, "dtype": dtype, "kw": kw or {},
+            "loads": True, "print": True,
+            "runs": [("solve", {"tol": tol, "compute_error": error})] * calls}
+
+
+def add_launches(total: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def vcycles_per_solve(iterations: int, kw: dict) -> int:
+    """V-cycles of one mg ``solve``: the rhs's K_Y, PCG's S and K_X before
+    its loop and once per iteration; K_Y takes mg_cycles, K_X 2·mg_cycles_kx
+    (the two solves around A)."""
+    ky, kx = kw.get("mg_cycles", 3), 2 * kw.get("mg_cycles_kx", 2)
+    return 2 * ky + kx + iterations * (ky + kx)
+
+
+def check_mesh_history(r, ref, label) -> None:
+    """Iterations equal to the serial port's on the card, residual history
+    within rtol 1e-9."""
+    print(f"{label}: iterations {r['iterations']} (serial port "
+          f"{ref.iterations}), solve {r['solve_seconds']:.4f} s")
+    assert r["converged"] and r["iterations"] == ref.iterations, (
+        r["iterations"], ref.iterations)
+    np.testing.assert_allclose(r["residuals"], ref.residuals, rtol=1e-9)
+
+
+def phase_meshes(serial: dict, mesh_launches: dict) -> dict:
+    """Phases 34-36: the time mesh and the time × space mesh, four ranks
+    on the card (three for the general layout), over gloo."""
+    from spacetime_tpu_torch.parallel import (make_spacetime_mesh,
+                                              make_time_mesh)
+
+    f64 = "f64"
+    flag = {}
+    phase("34 the time mesh: cfg2 f64 on 4 ranks, cfg4 (graded, the "
+          "general layout) on 3")
+    out = mesh_run(make_time_mesh(4), [mesh_spec("smooth2d", SPACE_N,
+                                                 TIME_LEVELS, f64, 1e-8)],
+                   "cfg2 f64")
+    r = out[0]["runs"][0]
+    print(f"  layout {out[0]['info']}")
+    assert out[0]["info"]["aligned"]
+    check_mesh_history(r, serial["cfg2 f64"], "cfg2 f64 on the time mesh")
+    add_launches(mesh_launches, r["launches"])
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "baseline_oracle.json")) as f:
+        row = {x["config"]: x for x in json.load(f)}[
+            "cfg4-singular-graded-32-J4+4"]
+    out = mesh_run(make_time_mesh(3), [mesh_spec(
+        "singular2d", 32, 4, f64, 1e-6, extra=4, error=True)], "cfg4 f64")
+    r = out[0]["runs"][0]
+    print(f"  layout {out[0]['info']}")
+    print(f"cfg4 on 3 ranks: iterations {r['iterations']} (oracle "
+          f"{row['iters']}), L2 {r['l2_error']:.10e} (oracle "
+          f"{row['l2_error']:.10e})")
+    assert not out[0]["info"]["aligned"]
+    assert r["converged"] and r["iterations"] == row["iters"], r["iterations"]
+    assert seven_digits(r["residuals"] / r["residuals"][0]) == \
+        row["rel_residuals"]
+    assert abs(r["l2_error"] / row["l2_error"] - 1.0) <= 1e-9, r["l2_error"]
+
+    phase("35 the time x space mesh (2 x 2): cfg2 f64, cfg2 V(2,1) f32, the "
+          f"flagship {FLAGSHIP_N + 1}^2 x {2 ** FLAGSHIP_LEVELS} f32 (twice), "
+          "and the small f64 / V(2,1) runs of the remaining forms")
+    v21 = {"inner": "mg", "mg_nu_post": 1}
+    specs = [
+        mesh_spec("smooth2d", SPACE_N, TIME_LEVELS, f64, 1e-8),
+        mesh_spec("smooth2d", SPACE_N, TIME_LEVELS, "f32", 1e-6, kw=v21),
+        mesh_spec("smooth2d", 32, 4, f64, 1e-8, kw=v21),
+        mesh_spec("smooth2d", FLAGSHIP_N, FLAGSHIP_LEVELS, "f32", 1e-6,
+                  calls=2),
+    ]
+    out = mesh_run(make_spacetime_mesh(2, 2), specs, "time 2 x space 2")
+    info = [o["info"] for o in out]
+    for i in info:
+        print(f"  layout {i}")
+    check_mesh_history(out[0]["runs"][0], serial["cfg2 f64"],
+                       "cfg2 f64 on the (2 x 2) mesh")
+    r = out[1]["runs"][0]
+    print(f"cfg2 V(2,1) f32: iterations {r['iterations']} (serial port "
+          f"{serial['V(2,1)'].iterations})")
+    assert r["converged"] and abs(
+        r["iterations"] - serial["V(2,1)"].iterations) <= 1, r["iterations"]
+    for o in out[:3]:
+        for run in o["runs"]:
+            add_launches(mesh_launches, run["launches"])
+    for k in ("K3 mg_sh_smooth", "K8 mg_sh_residual_restrict",
+              "K9 mg_sh_prolong_correct"):
+        for dt in ("f32", "f64"):
+            assert mesh_launches.get(f"{k} {dt}", 0) > 0, (k, dt)
+    runs = out[3]["runs"]
+    fi = info[3]
+    assert fi["Rs"] == 256 and fi["sp_depth"] == 4, fi
+    assert all(fi["kernel_levels"]["ky"]) and all(fi["kernel_levels"]["kx"])
+    for call, r in enumerate(runs, 1):
+        print(f"flagship on the mesh, call {call}: iterations "
+              f"{r['iterations']}, solve {r['solve_seconds']:.4f} s; rank 0: "
+              f"{r['exchanges'] / r['iterations']:.1f} exchanges and "
+              f"{r['bytes_staged'] / r['iterations'] / 2**20:.2f} MiB "
+              "staged through host memory per PCG iteration, "
+              f"{r['comm_seconds']:.4f} s in its collectives (of "
+              f"{r['solve_seconds'] + r['transfer_seconds']:.4f} s with "
+              "the iterate's gather)")
+        assert r["converged"], r["residuals"]
+        assert abs(r["iterations"] - REF_FLAGSHIP["iterations"]) <= 2
+        vc = vcycles_per_solve(r["iterations"], {})
+        for k in ("K6 mg_sh_fused_pre f32", "K7 mg_sh_fused_post f32"):
+            per = r["launches"].get(k, 0) / (4 * vc)  # 4 ranks
+            print(f"  {k}: {r['launches'].get(k, 0)} launches on the 4 "
+                  f"ranks, {per:.2f} per rank and V-cycle (the sharded "
+                  f"levels: {fi['sp_depth']})")
+            assert per == fi["sp_depth"], (k, per)
+        add_launches(mesh_launches, r["launches"])
+    t0 = time.perf_counter()
+    l2 = serial["flagship l2"](runs[0]["U"])
+    print(f"flagship on the mesh: L2(IxOmega) {l2:.6e} (band "
+          f"{REF_FLAGSHIP['l2']:.4e} +- 20%), host error loop "
+          f"{time.perf_counter() - t0:.2f} s; steady solve "
+          f"{runs[1]['solve_seconds']:.4f} s against the serial port's "
+          f"{serial['flagship steady s']:.4f} s (four ranks on one card, "
+          "halos through host memory: a bring-up record, not a scaling "
+          "result)")
+    assert abs(l2 / REF_FLAGSHIP["l2"] - 1.0) <= REF_FLAGSHIP["l2_band"], l2
+    flag.update(iterations=runs[1]["iterations"],
+                steady_s=runs[1]["solve_seconds"],
+                exchanges=runs[1]["exchanges"],
+                bytes_staged=runs[1]["bytes_staged"], l2=l2)
+
+    n3, J3 = REF_3D["n"], REF_3D["levels"]
+    phase(f"36 3-D on the (2 x 2) mesh: smooth3d {n3 + 1}^3 x {2 ** J3} f32, "
+          "and 17^3 x 16 f64 V(2,2) / V(2,1) runs of the remaining forms")
+    specs = [mesh_spec("smooth3d", n3, J3, "f32", 1e-6),
+             mesh_spec("smooth3d", 16, 4, f64, 1e-8, kw={"inner": "mg"}),
+             mesh_spec("smooth3d", 16, 4, f64, 1e-8, kw=v21),
+             mesh_spec("smooth3d", 16, 4, "f32", 1e-6, kw=v21)]
+    out = mesh_run(make_spacetime_mesh(2, 2), specs, "time 2 x space 2")
+    r = out[0]["runs"][0]
+    l2 = serial["3d l2"](r["U"])
+    print(f"  layout {out[0]['info']}")
+    print(f"smooth3d {n3 + 1}^3 x {2 ** J3} on the mesh: iterations "
+          f"{r['iterations']} (JAX CPU {REF_3D['iterations']}), L2 "
+          f"{l2:.6e} (JAX CPU {REF_3D['l2']:.6e}), solve "
+          f"{r['solve_seconds']:.4f} s")
+    assert r["converged"] and abs(r["iterations"] - REF_3D["iterations"]) <= 1
+    assert abs(l2 / REF_3D["l2"] - 1.0) <= REF_3D["l2_band"], l2
+    for k in ("K6 mg_sh_fused_pre_3d f32", "K7 mg_sh_fused_post_3d f32"):
+        assert r["launches"].get(k, 0) > 0, (k, r["launches"])
+    for o in out:
+        for run in o["runs"]:
+            assert run["converged"], o["info"]
+            add_launches(mesh_launches, run["launches"])
+    return flag
+
+
 def device_ms(fn) -> float:
     """Median device ms of ``fn()`` (``utils.profiling.device_ms``, imported
     once ``main`` has put the repository on the path)."""
@@ -1579,6 +1940,17 @@ def main() -> int:
     for line in native.LIB.build_log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
+
+    from spacetime_tpu_torch.fem import l2_error_spacetime
+
+    def l2_of(s):
+        """The host L2 error of solver ``s``'s problem, mesh and grid,
+        without the solver (its device memory)."""
+        problem, mesh, grid = s.problem, s.system.mesh, s.grid
+        return lambda U: l2_error_spacetime(problem, mesh, grid,
+                                            np.asarray(U, np.float64))
+
+    serial = {}  # the serial port's results the meshes are held to
 
     phase("3 setup (cfg2: smooth2d 129x129 x 64 steps, f32, inner mg)")
     t0 = time.perf_counter()
@@ -1663,6 +2035,8 @@ def main() -> int:
                                 pairs=semi_pairs(kl, x, False))
                     del x
                     torch.cuda.empty_cache()
+    # the host hierarchies of the sharded forms' checks (phase 33)
+    msmg2, msmg3 = solver.msmg, small3.msmg
     del small3
 
     paths = Paths(kron, mg_kernels, spmv, dia_kernels)
@@ -1733,6 +2107,8 @@ def main() -> int:
     assert abs(l2 / REF_FLAGSHIP["l2"] - 1.0) <= REF_FLAGSHIP["l2_band"], l2
     print(f"steady solve: {runs[1].solve_seconds:.4f} s, "
           f"{runs[1].iterations} iterations")
+    serial["flagship steady s"] = runs[1].solve_seconds
+    serial["flagship l2"] = l2_of(flag)
     r = flag.solve_refined(tol=1e-8, compute_error=False)
     rel = r.residuals[-1] / r.residuals[0]
     l2 = flag._l2_error(r.U)
@@ -1762,6 +2138,7 @@ def main() -> int:
           f"converged {r.converged}, rel {rel:.3e}, solve {r.solve_seconds:.4f} s")
     assert r.converged and rel <= 1e-6, rel
     assert abs(r.iterations - REF_V21["iterations"]) <= 1, r.iterations
+    serial["V(2,1)"] = r
     r = v21.solve_refined(tol=1e-8, compute_error=False)
     print(f"solve_refined: inner iterations {r.iterations} in "
           f"{len(r.residuals) - 1} rounds, converged {r.converged}")
@@ -1787,6 +2164,7 @@ def main() -> int:
     assert r.converged and rel <= 1e-8, rel
     assert abs(r.iterations - REF_F64["iterations"]) <= 1, r.iterations
     assert abs(r.l2_error / REF_F64["l2"] - 1.0) <= 1e-6, r.l2_error
+    serial["cfg2 f64"] = r
     counts = paths.stop("f64")
     assert all(counts[(op, f64)] > 0 for op in ("B", "BT")), counts
     assert all(counts[(op, f64, 2)] > 0 for op in (
@@ -1828,6 +2206,7 @@ def main() -> int:
           f"loop {time.perf_counter() - t0:.2f} s")
     assert abs(l2 / REF_3D["l2"] - 1.0) <= REF_3D["l2_band"], l2
     fused_path(counts, (f32,), 3)
+    serial["3d l2"] = l2_of(s3)
     del s3, runs, r
     torch.cuda.empty_cache()
 
@@ -2121,6 +2500,9 @@ def main() -> int:
     del nst, amg
     phase_v21_3d(build_solver, paths)
     phase_singular(build_solver, paths)
+    sh_results = phase_sharded_kernels(msmg2, msmg3)
+    mesh_launches = {}  # kernel name -> launches on the meshes' ranks
+    phase_meshes(serial, mesh_launches)
     phase(None)
 
     kernels = []
@@ -2150,7 +2532,32 @@ def main() -> int:
                  "residual_restrict_var": "residual_restrict",
                  "fused_pre_var": "fused_pre", "fused_post_var": "fused_post",
                  "cheb_step": "smooth", "cheb_step_var": "smooth"}
+    sh_main = {"sh_smooth": "smooth", "sh_fused_pre": "fused_pre",
+               "sh_fused_post": "fused_post",
+               "sh_residual_restrict": "residual_restrict",
+               "sh_prolong_correct": "prolong_correct"}
     for (op, dtype, dim), k in mg_kernels.KERNELS.items():
+        if op in mg_kernels.SHARDED_OPS:
+            rec = sh_results[(op, dtype, dim)]
+            sl = SH_SLABS[dim]
+            T, gs = sl["T"][0], (sl["own"] + 2 * SH_H,) + sl["rest"]
+            at = rec["forms"][f"{sh_main[op]} {shape_key(T, gs)}"]
+            kernels.append({
+                "name": k.name,
+                "route": "cuda",
+                "source": mg_kernels.SOURCE,
+                "replaces": k.replaces,
+                "launches": mesh_launches.get(k.name, 0),
+                "max_abs_err": rec["max_abs_err"],
+                **{key: at[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                "form": f"{sh_main[op]}, nu=2, on the (2 x 2) mesh's finest "
+                        f"slab: own={sl['own']}, h={SH_H}, T={T}, "
+                        f"{'x'.join(map(str, gs))}; launches on the mesh "
+                        "ranks of phases 34-36",
+                "forms": rec["forms"],
+            })
+            continue
         rec = mg_results[(op, dtype, dim)]
         chained = op.startswith("cheb_step")
         T, gs = (CHAIN_MAIN[dim] if chained else

@@ -23,6 +23,8 @@ PCG and mixed-precision refinement with native f64 residual legs.
                 twins, the wavelet transform, the multigrid hierarchy and
                 V-cycle, the Chebyshev helpers;
 - ``solver``  — PCG and ``HeatSolver``;
+- ``parallel`` — meshes of ranks on ``torch.distributed``: the explicit
+                time-sharded and time × space solvers;
 - ``convert`` — the JAX solver's params in the port's layout (tests);
 - ``run``     — the command-line interface (``python -m spacetime_tpu_torch``).
 """

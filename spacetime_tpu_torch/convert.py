@@ -40,6 +40,15 @@ format and inner solver:
   are left: the same values in the TPU's layout).
 
 Tests hold the two solvers' params and operators equal through this.
+
+The mesh layouts (``parallel.explicit``, ``parallel.explicit2d``) carry a
+global state across to the ranks and back, as the JAX solvers' layout
+hooks do (``_dup_rows``, ``_pad_tests`` / ``_pad_all``, ``_prepare_x0``,
+``_device_iterate_flat``): ``to_time_layout`` / ``from_time_layout`` (the
+duplicated trial rows, the general layout's padding slots zeroed by its
+``m_trial``), ``pad_rows`` (the padded test rows), ``pad_planes`` /
+``slab`` (the padded plane slabs of the space axis). They index numpy
+arrays and torch tensors alike.
 """
 
 from __future__ import annotations
@@ -174,3 +183,60 @@ def params_from_jax(tree: dict, device, dtype, hierarchy=None) -> dict:
                 q["cols"] = level.columns(q)
             p[name].append(q)
     return p
+
+
+# ------------------------------------------------------------ mesh layouts
+
+
+def dup_index(N: int, P: int, R: int) -> np.ndarray:
+    """The global trial rows of the duplicated time layout, (P·(R+1),):
+    rank d holds rows dR .. dR+R; padding slots clipped to row N."""
+    idx = (np.arange(P)[:, None] * R + np.arange(R + 1)[None]).reshape(-1)
+    return np.minimum(idx, N)
+
+
+def to_time_layout(U, N: int, P: int, R: int, m_trial=None):
+    """(N+1, ...) per-trial-row array -> (P·(R+1), ...), the ranks' rows
+    stacked; ``m_trial`` (the general layout's) zeroes the padding slots."""
+    D = U[dup_index(N, P, R)]
+    if m_trial is not None:
+        m = np.asarray(m_trial).reshape((-1,) + (1,) * (D.ndim - 1))
+        D = D * (torch.as_tensor(m, dtype=D.dtype, device=D.device)
+                 if isinstance(D, torch.Tensor) else m)
+    return D
+
+
+def from_time_layout(Ud, N: int, P: int, R: int):
+    """(P·(R+1), ...) -> (N+1, ...): each rank's first R rows, the last
+    rank's slot R, cut to N+1 rows (the general layout's padding)."""
+    sel = np.concatenate([
+        (np.arange(P)[:, None] * (R + 1) + np.arange(R)[None]).reshape(-1),
+        [P * (R + 1) - 1]])
+    return Ud[sel[: N + 1]]
+
+
+def _pad_axis(X, axis: int, n: int):
+    if isinstance(X, torch.Tensor):
+        pad = [0, 0] * (X.ndim - axis)
+        pad[-1] = n - X.shape[axis]
+        return torch.nn.functional.pad(X, pad)
+    pad = [(0, 0)] * X.ndim
+    pad[axis] = (0, n - X.shape[axis])
+    return np.pad(X, pad)
+
+
+def pad_rows(X, rows: int):
+    """(N, ...) test rows zero-padded to the P·R rows of the layout."""
+    return _pad_axis(X, 0, rows)
+
+
+def pad_planes(X, Ps: int, Rs: int, axis: int = 1):
+    """The leading grid axis (``axis``) zero-padded to P_s·Rs planes."""
+    return _pad_axis(X, axis, Ps * Rs)
+
+
+def slab(Xp, ds: int, Rs: int, axis: int = 1):
+    """Space rank ds's Rs planes of a padded array."""
+    sl = [slice(None)] * Xp.ndim
+    sl[axis] = slice(ds * Rs, (ds + 1) * Rs)
+    return Xp[tuple(sl)]

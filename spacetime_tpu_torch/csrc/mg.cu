@@ -59,6 +59,35 @@
 // The x + P e_c stage of the weighted V-cycle does not depend on the
 // coefficients: it is K9.
 //
+// The sharded-slab forms, for the time×space mesh (spacetime_tpu_torch/
+// parallel/explicit2d.py): the grid is a slab of the leading grid axis (y
+// in 2-D, z in 3-D) of own + 2h planes, the even own planes a rank owns and
+// h planes of halo on each side, received from its neighbours. Points
+// outside the slab are the zero ghost, as outside a serial grid. A 0/1
+// validity field vm (one row of the slab) zeroes every update of the
+// sweep's residual on the planes of grid padding and on the halo planes
+// beyond the global domain. On the lead axis the transfers are offset
+// (`Lead`): the slab's coarse plane k sums the fine planes h + 2k, h + 2k
+// + 1 (and + 2), and a fine plane l reads the coarse planes ⌊(l + s)/2⌋
+// and ⌊(l + s − 1)/2⌋ of a coarse operand that carries hc halo planes,
+// s = 2hc − h (zero beyond it).
+//
+//   mg_sh_smooth (K3 with `vmask`, replaces _smooth_call, :190): the sweep
+//                with vm. Above the tiled ν, the chained steps
+//                (mg_cheb_step) take vm too. 2-D and 3-D.
+//   mg_sh_fused_pre (K6 with lead=(own, h), :1318): the zero-init sweep
+//                with vm on the whole slab (x at its full extent; the
+//                caller crops it), r_c on the own/2 owned coarse planes.
+//                The bricks of the lead axis start at −(h mod 2) so that
+//                a coarse point's fine pairs lie in one brick.
+//   mg_sh_fused_post (K7 with lead=(own, h, hc), :1475): x + P e_c with
+//                the offset prolongation, then the sweep with vm; the
+//                output at the slab's full extent.
+//   mg_sh_residual_restrict (K8 with lead=(own, h), :1683): the owned
+//                coarse planes of R(b − Op x).
+//   mg_sh_prolong_correct (K9 with lead=(own, hc), :1913): x + P e_c on
+//                the own planes, e_c with hc halo planes.
+//
 // The chained sweeps, for ν above what the tiled K3/K10 hold (ν ≤ 8 in
 // 2-D, ν ≤ 3 in 3-D; MAX_NU in ops/mg_kernels.py):
 //
@@ -196,6 +225,17 @@ struct Grid {
   int nz, ny, nx;
 };
 
+// The transfers on the leading grid axis (z in 3-D, y in 2-D): the
+// restriction's coarse plane k sums the fine planes off + 2k, off + 2k + 1
+// (and off + 2k + 2), a fine plane l of the prolongation reads the coarse
+// planes ⌊(l + s)/2⌋ and ⌊(l + s − 1)/2⌋, and the coarse operand holds nc
+// planes there. A serial grid of extent 2n + 1 is {0, 0, n}; a slab of
+// own + 2h planes is {h, ·, own/2} for the restriction and {·, 2hc − h,
+// own/2 + 2hc} for the prolongation (h = 0 for K9).
+struct Lead {
+  int off, s, nc;
+};
+
 // The brick a block of the tiled kernels owns: (z, y, x) extents.
 template <int DIM>
 struct BrickOf;
@@ -273,11 +313,14 @@ struct Window {
   int volume;  // points in the window
 };
 
-// The window of x brick bx and (z brick, y brick) pair byz.
+// The window of x brick bx and (z brick, y brick) pair byz. The bricks of
+// the leading axis (z in 3-D, y in 2-D) start `shift` planes before the
+// grid (0, or 1 for a slab whose coarse pairs start at an odd plane).
 template <int DIM>
 __device__ __forceinline__ Window make_window(const Grid& g, int H, int bx,
                                               int byz,
-                                              int bz = BrickOf<DIM>::z) {
+                                              int bz = BrickOf<DIM>::z,
+                                              int shift = 0) {
   using B = BrickOf<DIM>;
   const int hz = DIM == 3 ? H : 0;
   const int nyb = (g.ny + B::y - 1) / B::y;
@@ -285,7 +328,8 @@ __device__ __forceinline__ Window make_window(const Grid& g, int H, int bx,
   const int yb = byz - zb * nyb;
   const int sy = B::x + 2 * H;
   const int sz = sy * (B::y + 2 * H);
-  return Window{g, zb * bz - hz, yb * B::y - H, bx * B::x - H,
+  const int zs = DIM == 3 ? shift : 0, ys = DIM == 3 ? 0 : shift;
+  return Window{g, zb * bz - hz - zs, yb * B::y - H - ys, bx * B::x - H,
                 H, bz, sy, sz, sz * (bz + 2 * hz)};
 }
 
@@ -294,10 +338,12 @@ __device__ __forceinline__ Window make_window(const Grid& g, int H, int bx,
 template <int DIM>
 __device__ __forceinline__ Window make_window(const Grid& g, int H,
                                               bool rows_first = false,
-                                              int bz = BrickOf<DIM>::z) {
-  return rows_first
-             ? make_window<DIM>(g, H, int(blockIdx.y), int(blockIdx.z), bz)
-             : make_window<DIM>(g, H, int(blockIdx.x), int(blockIdx.y), bz);
+                                              int bz = BrickOf<DIM>::z,
+                                              int shift = 0) {
+  return rows_first ? make_window<DIM>(g, H, int(blockIdx.y),
+                                       int(blockIdx.z), bz, shift)
+                    : make_window<DIM>(g, H, int(blockIdx.x),
+                                       int(blockIdx.y), bz, shift);
 }
 
 // f(offset, grid z, grid y, grid x, index in the row, inside the grid) for
@@ -447,17 +493,27 @@ __device__ __forceinline__ void var_inv_diag(const VarTaps& vt,
   });
 }
 
+// The validity factor of a sharded slab's sweep at in-row index g: vm[g],
+// or 1 without a field (the serial grids).
+template <typename T>
+__device__ __forceinline__ T valid_at(const T* __restrict__ vm, int g) {
+  return vm == nullptr ? T(1) : __ldg(vm + g);
+}
+
 // The degree-nu sweep on the window. X holds x on the brick grown by hi + 1
 // cells (zero outside the grid) unless zero_init; b is the row in device
 // memory. On return X holds the smoothed x on the brick grown by
-// hi − (nu − 1) cells. Ends with a __syncthreads().
+// hi − (nu − 1) cells. vm (null on serial grids) is the slab's validity
+// field: every update of r is multiplied by it (`_smooth_call`'s vmask,
+// mg_pallas.py:199-205). Ends with a __syncthreads().
 template <int DIM, typename T, typename Op>
 __device__ void cheb_sweep(const Op& op, const RowCoef<T>& c,
                            const T* __restrict__ b, const Window& win, T* X,
-                           T* D, T* R, int nu, bool zero_init, int hi) {
+                           T* D, T* R, int nu, bool zero_init, int hi,
+                           const T* __restrict__ vm = nullptr) {
   if (zero_init) {
     for_region<DIM>(win, hi, [&](int o, int, int, int, int g, bool in) {
-      const T r = in ? op.inv_diag(o, g) * b[g] : T(0);
+      const T r = in ? valid_at(vm, g) * (op.inv_diag(o, g) * b[g]) : T(0);
       const T d = r * c.iT;
       R[o] = r;
       D[o] = d;
@@ -466,7 +522,8 @@ __device__ void cheb_sweep(const Op& op, const RowCoef<T>& c,
     __syncthreads();
   } else {
     for_region<DIM>(win, hi, [&](int o, int, int, int, int g, bool in) {
-      R[o] = in ? op.inv_diag(o, g) * (b[g] - op(X, o, g)) : T(0);
+      R[o] = in ? valid_at(vm, g) * (op.inv_diag(o, g) * (b[g] - op(X, o, g)))
+                : T(0);
     });
     __syncthreads();
     for_region<DIM>(win, hi, [&](int o, int, int, int, int, bool in) {
@@ -482,7 +539,7 @@ __device__ void cheb_sweep(const Op& op, const RowCoef<T>& c,
     const T c1 = T(rho_new * rho);
     const T c2 = T(2.0 * rho_new) * c.iDel;
     for_region<DIM>(win, hi - k, [&](int o, int, int, int, int g, bool in) {
-      if (in) R[o] = R[o] - op.inv_diag(o, g) * op(D, o, g);
+      if (in) R[o] = valid_at(vm, g) * (R[o] - op.inv_diag(o, g) * op(D, o, g));
     });
     __syncthreads();
     for_region<DIM>(win, hi - k, [&](int o, int, int, int, int, bool in) {
@@ -509,11 +566,12 @@ __host__ __device__ __forceinline__ int64_t row_size(const Grid& g) {
   return int64_t(g.nz) * g.ny * g.nx;
 }
 
+// K3; with vm (non-null) its sharded-slab form.
 template <int DIM, typename T>
 __global__ void __launch_bounds__(kThreads)
     mg_smooth_kernel(const T* __restrict__ x, const T* __restrict__ b,
-                     const T* __restrict__ omega, const T* __restrict__ invD,
-                     const T* __restrict__ invT,
+                     const T* __restrict__ vm, const T* __restrict__ omega,
+                     const T* __restrict__ invD, const T* __restrict__ invT,
                      const T* __restrict__ invDel, T* __restrict__ out,
                      Grid g, const __grid_constant__ PairGroups pg, int nu,
                      int zero_init) {
@@ -535,7 +593,7 @@ __global__ void __launch_bounds__(kThreads)
   }
   row_tables(pg, c.om, win, wts, toff);
   cheb_sweep<DIM>(ConstOp<T>{pg, wts, toff, invD[t]}, c, b + t * S, win, X,
-                  D, R, nu, zero_init != 0, zero_init ? H : H - 1);
+                  D, R, nu, zero_init != 0, zero_init ? H : H - 1, vm);
   T* ot = out + t * S;
   for_region<DIM>(win, 0, [&](int o, int, int, int, int gi, bool in) {
     if (in) ot[gi] = X[o];
@@ -637,6 +695,21 @@ __host__ __device__ __forceinline__ Grid coarse_grid(const Grid& g) {
   return Grid{DIM == 3 ? (g.nz - 1) / 2 : 1, (g.ny - 1) / 2, (g.nx - 1) / 2};
 }
 
+// The serial transfers of a grid: {0, 0, n} on a lead axis of 2n + 1.
+template <int DIM>
+__host__ __device__ __forceinline__ Lead serial_lead(const Grid& g) {
+  return Lead{0, 0, ((DIM == 3 ? g.nz : g.ny) - 1) / 2};
+}
+
+// The coarse grid of the transfers `ld` on a fine grid: its lead axis ld.nc
+// planes, the others as `coarse_grid`.
+template <int DIM>
+__host__ __device__ __forceinline__ Grid coarse_grid(const Grid& g,
+                                                     const Lead& ld) {
+  const Grid c = coarse_grid<DIM>(g);
+  return DIM == 3 ? Grid{ld.nc, c.ny, c.nx} : Grid{1, ld.nc, c.nx};
+}
+
 // The grid-stride loop of the one-thread-per-point kernels.
 #define FOR_EACH_INDEX(idx, total)                                       \
   for (int64_t idx = blockIdx.x * int64_t(blockDim.x) + threadIdx.x;     \
@@ -668,12 +741,16 @@ __global__ void mg_apply_kernel(const T* __restrict__ x, T* __restrict__ out,
 }
 
 // R r at coarse point c, res(z, y, x) the fine residual: h = r[f] + r[f + 1⃗]
-// at fine f = 2c + (a, p, q), then pair sums over z (3-D), y and x in turn.
-// Every fine point it reads is inside the grid, since 2c + 2 ≤ 2n on
-// extents 2n + 1.
+// at fine f = f0 + (a, p, q), f0 = 2c but on the lead axis, where it is
+// ld.off + 2c, then pair sums over z (3-D), y and x in turn. Every fine
+// point it reads is inside the grid, since 2c + 2 ≤ 2n on extents 2n + 1
+// (and off + own ≤ own + 2h − 1 on a slab).
 template <int DIM, typename T, typename Res>
-__device__ __forceinline__ T restrict_at(const Point& c, const Res& res) {
-  const int fz = 2 * c.z, fy = 2 * c.y, fx = 2 * c.x;
+__device__ __forceinline__ T restrict_at(const Point& c, const Lead& ld,
+                                         const Res& res) {
+  const int fz = 2 * c.z + (DIM == 3 ? ld.off : 0);
+  const int fy = 2 * c.y + (DIM == 3 ? 0 : ld.off);
+  const int fx = 2 * c.x;
   constexpr int dz = DIM == 3 ? 1 : 0;
   auto h = [&](int a, int p, int q) {
     return res(fz + a, fy + p, fx + q) +
@@ -690,53 +767,58 @@ __device__ __forceinline__ T restrict_at(const Point& c, const Res& res) {
   return T(0.5) * (py[0] + py[1]);
 }
 
+// K8 (ld serial) and its sharded-slab form (the owned coarse planes).
 template <int DIM, typename T>
 __global__ void mg_residual_restrict_kernel(
     const T* __restrict__ x, const T* __restrict__ b,
     const T* __restrict__ omega, T* __restrict__ rc, int64_t nt, Grid g,
-    const __grid_constant__ PairGroups pg) {
+    const __grid_constant__ PairGroups pg, Lead ld) {
   const int64_t S = row_size(g);
-  const Grid gc = coarse_grid<DIM>(g);
+  const Grid gc = coarse_grid<DIM>(g, ld);
   FOR_EACH_INDEX(idx, nt * row_size(gc)) {
     const Point c = point_of<DIM>(idx, gc);
     const T om = omega[c.t];
     const T* xt = x + c.t * S;
     const T* bt = b + c.t * S;
-    rc[idx] = restrict_at<DIM, T>(c, [&](int z, int y, int xx) {
+    rc[idx] = restrict_at<DIM, T>(c, ld, [&](int z, int y, int xx) {
       return bt[(z * g.ny + y) * g.nx + xx] -
              op_global<DIM>(pg, om, xt, g, z, y, xx);
     });
   }
 }
 
-// P e_c at fine point (z, y, x) of the grid, et the coarse row:
-// ½(e[⌊f/2⌋] + e[⌊(f − 1⃗)/2⌋]), zero beyond the coarse grid.
+// P e_c at fine point (z, y, x) of the grid, et the coarse row gc:
+// ½(e[⌊f/2⌋] + e[⌊(f − 1⃗)/2⌋]), zero beyond the coarse grid, the lead
+// axis's f shifted by ld.s.
 template <int DIM, typename T>
 __device__ __forceinline__ T prolong_at(const T* __restrict__ et,
-                                        const Grid& gc, int z, int y, int x) {
+                                        const Grid& gc, const Lead& ld, int z,
+                                        int y, int x) {
   auto coarse = [&](int cz, int cy, int cx) {
-    return (cz < gc.nz && cy < gc.ny && cx < gc.nx)
+    return (cz >= 0 && cz < gc.nz && cy >= 0 && cy < gc.ny && cx >= 0 &&
+            cx < gc.nx)
                ? et[(cz * gc.ny + cy) * gc.nx + cx]
                : T(0);
   };
-  const T e0 = coarse(z / 2, y / 2, x / 2);
-  const T e1 = (y >= 1 && x >= 1 && (DIM == 2 || z >= 1))
-                   ? coarse(DIM == 3 ? (z - 1) / 2 : 0, (y - 1) / 2,
-                            (x - 1) / 2)
-                   : T(0);
+  const int zs = DIM == 3 ? z + ld.s : 0;
+  const int ys = DIM == 3 ? y : y + ld.s;
+  const T e0 = coarse(zs >> 1, ys >> 1, x >> 1);
+  const T e1 = coarse(DIM == 3 ? (zs - 1) >> 1 : 0, (ys - 1) >> 1,
+                      (x - 1) >> 1);
   return T(0.5) * (e0 + e1);
 }
 
+// K9 (ld serial) and its sharded-slab form (e_c with halo planes).
 template <int DIM, typename T>
 __global__ void mg_prolong_correct_kernel(const T* __restrict__ x,
                                           const T* __restrict__ ec,
                                           T* __restrict__ out, int64_t nt,
-                                          Grid g) {
-  const Grid gc = coarse_grid<DIM>(g);
+                                          Grid g, Lead ld) {
+  const Grid gc = coarse_grid<DIM>(g, ld);
   const int64_t Sc = row_size(gc);
   FOR_EACH_INDEX(idx, nt * row_size(g)) {
     const Point f = point_of<DIM>(idx, g);
-    out[idx] = x[idx] + prolong_at<DIM>(ec + f.t * Sc, gc, f.z, f.y, f.x);
+    out[idx] = x[idx] + prolong_at<DIM>(ec + f.t * Sc, gc, ld, f.z, f.y, f.x);
   }
 }
 
@@ -746,11 +828,12 @@ __global__ void mg_prolong_correct_kernel(const T* __restrict__ x,
 // grown by 2 (H = nu + 1): the residual on the brick grown by 1 (one fine
 // plane, row and column past the brick is what the restriction reads), x
 // written out, then r_c = R r for the brick's coarse points, with K8's
-// pair sums (`restrict_at`).
+// pair sums (`restrict_at`). The brick starts at an even plane, or, on a
+// slab's lead axis, at one of the parity of ld.off.
 template <int DIM, typename T, typename Op>
 __device__ void fused_pre_tail(const Op& op, const T* __restrict__ bt,
-                               const Window& win, const T* X, T* R,
-                               T* __restrict__ xt, T* __restrict__ rct) {
+                               const Window& win, const Lead& ld, const T* X,
+                               T* R, T* __restrict__ xt, T* __restrict__ rct) {
   using B = BrickOf<DIM>;
   for_region<DIM>(win, 1, [&](int o, int, int, int, int gi, bool in) {
     R[o] = in ? bt[gi] - op(X, o, gi) : T(0);
@@ -759,10 +842,11 @@ __device__ void fused_pre_tail(const Op& op, const T* __restrict__ bt,
     if (in) xt[gi] = X[o];
   });
   __syncthreads();
-  const Grid gc = coarse_grid<DIM>(win.g);
+  const Grid gc = coarse_grid<DIM>(win.g, ld);
   const int hz = DIM == 3 ? win.H : 0;
   // the brick's first coarse point and its coarse extents
-  const int cz0 = (win.z0 + hz) / 2, cy0 = (win.y0 + win.H) / 2;
+  const int cz0 = (win.z0 + hz - (DIM == 3 ? ld.off : 0)) / 2;
+  const int cy0 = (win.y0 + win.H - (DIM == 3 ? 0 : ld.off)) / 2;
   const int cx0 = (win.x0 + win.H) / 2;
   constexpr int ncy = B::y / 2, ncx = B::x / 2;
   const int n = (DIM == 3 ? win.bz / 2 : 1) * ncy * ncx;
@@ -773,8 +857,10 @@ __device__ void fused_pre_tail(const Op& op, const T* __restrict__ bt,
     const int lz = i / (ncy * ncx);
     const int r = i - lz * (ncy * ncx);
     const Point c{0, cz0 + lz, cy0 + r / ncx, cx0 + r % ncx};
-    if (c.z >= gc.nz || c.y >= gc.ny || c.x >= gc.nx) continue;
-    rct[(c.z * gc.ny + c.y) * gc.nx + c.x] = restrict_at<DIM, T>(c, res);
+    if (c.z < 0 || c.y < 0 || c.z >= gc.nz || c.y >= gc.ny || c.x >= gc.nx) {
+      continue;
+    }
+    rct[(c.z * gc.ny + c.y) * gc.nx + c.x] = restrict_at<DIM, T>(c, ld, res);
   }
 }
 
@@ -783,52 +869,55 @@ __device__ void fused_pre_tail(const Op& op, const T* __restrict__ bt,
 template <int DIM, typename T>
 __device__ void prolong_window(const T* __restrict__ xt,
                                const T* __restrict__ et, const Window& win,
-                               T* X) {
-  const Grid gc = coarse_grid<DIM>(win.g);
+                               const Lead& ld, T* X) {
+  const Grid gc = coarse_grid<DIM>(win.g, ld);
   for_region<DIM>(win, win.H, [&](int o, int fz, int fy, int fx, int gi,
                                   bool in) {
-    X[o] = in ? xt[gi] + prolong_at<DIM>(et, gc, fz, fy, fx) : T(0);
+    X[o] = in ? xt[gi] + prolong_at<DIM>(et, gc, ld, fz, fy, fx) : T(0);
   });
 }
 
 // The blocks of the fused kernels are K3's (K10's for K14/K15, with
 // rows_first where W does not fit in the L2), their brick bz planes deep.
+// K6 (ld serial, vm null) and its sharded-slab form.
 template <int DIM, typename T>
 __global__ void __launch_bounds__(kThreads)
-    mg_fused_pre_kernel(const T* __restrict__ b, const T* __restrict__ omega,
+    mg_fused_pre_kernel(const T* __restrict__ b, const T* __restrict__ vm,
+                        const T* __restrict__ omega,
                         const T* __restrict__ invD,
                         const T* __restrict__ invT,
                         const T* __restrict__ invDel, T* __restrict__ xo,
                         T* __restrict__ rco, Grid g,
                         const __grid_constant__ PairGroups pg, int nu,
-                        int bz) {
+                        int bz, Lead ld) {
   __shared__ T wts[kMaxPairGroups];
   __shared__ int toff[kMaxPairTaps];
   const int64_t t = blockIdx.z;
   const int64_t S = row_size(g);
   const RowCoef<T> c = row_coef(omega, invT, invDel, t);
-  const Window win = make_window<DIM>(g, nu + 1, false, bz);
+  const Window win = make_window<DIM>(g, nu + 1, false, bz, ld.off & 1);
   T* X = window_buffers<T>();
   T* D = X + win.volume;
   T* R = D + win.volume;
   const T* bt = b + t * S;
   row_tables(pg, c.om, win, wts, toff);
   const ConstOp<T> op{pg, wts, toff, invD[t]};
-  cheb_sweep<DIM>(op, c, bt, win, X, D, R, nu, true, win.H);
-  fused_pre_tail<DIM>(op, bt, win, X, R, xo + t * S,
-                      rco + t * row_size(coarse_grid<DIM>(g)));
+  cheb_sweep<DIM>(op, c, bt, win, X, D, R, nu, true, win.H, vm);
+  fused_pre_tail<DIM>(op, bt, win, ld, X, R, xo + t * S,
+                      rco + t * row_size(coarse_grid<DIM>(g, ld)));
 }
 
+// K7 (ld serial, vm null) and its sharded-slab form.
 template <int DIM, typename T>
 __global__ void __launch_bounds__(kThreads)
     mg_fused_post_kernel(const T* __restrict__ x, const T* __restrict__ b,
-                         const T* __restrict__ ec,
+                         const T* __restrict__ ec, const T* __restrict__ vm,
                          const T* __restrict__ omega,
                          const T* __restrict__ invD,
                          const T* __restrict__ invT,
                          const T* __restrict__ invDel, T* __restrict__ out,
                          Grid g, const __grid_constant__ PairGroups pg,
-                         int nu) {
+                         int nu, Lead ld) {
   __shared__ T wts[kMaxPairGroups];
   __shared__ int toff[kMaxPairTaps];
   const int64_t t = blockIdx.z;
@@ -838,11 +927,11 @@ __global__ void __launch_bounds__(kThreads)
   T* X = window_buffers<T>();
   T* D = X + win.volume;
   T* R = D + win.volume;
-  prolong_window<DIM>(x + t * S, ec + t * row_size(coarse_grid<DIM>(g)), win,
-                      X);
+  prolong_window<DIM>(x + t * S, ec + t * row_size(coarse_grid<DIM>(g, ld)),
+                      win, ld, X);
   row_tables(pg, c.om, win, wts, toff);
   cheb_sweep<DIM>(ConstOp<T>{pg, wts, toff, invD[t]}, c, b + t * S, win, X,
-                  D, R, nu, false, win.H - 1);
+                  D, R, nu, false, win.H - 1, vm);
   T* ot = out + t * S;
   for_region<DIM>(win, 0, [&](int o, int, int, int, int gi, bool in) {
     if (in) ot[gi] = X[o];
@@ -877,7 +966,7 @@ __global__ void __launch_bounds__(kThreads)
   var_tables(vt, pm, win, wm, atoff, mtoff);
   const VarOp<T> op{vt, pm, W, S, c.om, wm, atoff, mtoff, iD};
   cheb_sweep<DIM>(op, c, bt, win, X, D, R, nu, true, win.H);
-  fused_pre_tail<DIM>(op, bt, win, X, R, xo + t * S,
+  fused_pre_tail<DIM>(op, bt, win, serial_lead<DIM>(g), X, R, xo + t * S,
                       rco + t * row_size(coarse_grid<DIM>(g)));
 }
 
@@ -905,7 +994,7 @@ __global__ void __launch_bounds__(kThreads)
   T* R = D + win.volume;
   T* iD = DIM == 2 ? R + win.volume : nullptr;
   prolong_window<DIM>(x + t * S, ec + t * row_size(coarse_grid<DIM>(g)), win,
-                      X);
+                      serial_lead<DIM>(g), X);
   if constexpr (DIM == 2) var_inv_diag<2>(vt, W, S, c.om, win, iD);
   var_tables(vt, pm, win, wm, atoff, mtoff);
   cheb_sweep<DIM>(VarOp<T>{vt, pm, W, S, c.om, wm, atoff, mtoff, iD}, c,
@@ -1017,7 +1106,8 @@ __global__ void mg_residual_restrict_var_kernel(
     const T* xt = x + t * S;
     const T* bt = b + t * S;
     rc[t * Sc + r] = restrict_at<DIM, T>(
-        point_in_row<DIM>(t, r, gc), [&](int z, int y, int xx) {
+        point_in_row<DIM>(t, r, gc), serial_lead<DIM>(g),
+        [&](int z, int y, int xx) {
           return bt[(z * g.ny + y) * g.nx + xx] -
                  var_op_global<DIM>(vt, pm, W, om, xt, g, z, y, xx);
         });
@@ -1029,21 +1119,22 @@ __global__ void mg_residual_restrict_var_kernel(
 // first step takes x (null: x = 0) and b and writes r = D⁻¹(b − Op x),
 // d_out = r/θ and x_out = x + d_out; a later one reads d_in and r and
 // writes r −= D⁻¹ Op d_in, d_out = c1·d_in + c2/δ·r, x_out += d_out.
-// op_at(f) is Op applied to field f at this point.
+// op_at(f) is Op applied to field f at this point; v the validity factor
+// of a sharded slab (1 on serial grids) multiplies each r.
 template <typename T, typename OpAt>
 __device__ __forceinline__ void cheb_step_at(
     int64_t idx, int first, const T* __restrict__ x, const T* __restrict__ b,
-    T iD, T iT, T iDel, T* __restrict__ r, const T* __restrict__ d_in,
+    T iD, T iT, T iDel, T v, T* __restrict__ r, const T* __restrict__ d_in,
     T* __restrict__ d_out, T* __restrict__ xo, double c1, double c2,
     const OpAt& op_at) {
   if (first) {
-    const T ri = iD * (x == nullptr ? b[idx] : b[idx] - op_at(x));
+    const T ri = v * (iD * (x == nullptr ? b[idx] : b[idx] - op_at(x)));
     const T d = ri * iT;
     r[idx] = ri;
     d_out[idx] = d;
     xo[idx] = x == nullptr ? d : x[idx] + d;
   } else {
-    const T ri = r[idx] - iD * op_at(d_in);
+    const T ri = v * (r[idx] - iD * op_at(d_in));
     const T d = T(c1) * d_in[idx] + (T(c2) * iDel) * ri;
     r[idx] = ri;
     d_out[idx] = d;
@@ -1054,11 +1145,12 @@ __device__ __forceinline__ void cheb_step_at(
 // K3's chained sweep: one Chebyshev step with the constant pair groups,
 // one thread per point. Op reads d_in's neighbours, so d ping-pongs between
 // two buffers across the chain; r and x_out are read and written by their
-// own point's thread only.
+// own point's thread only. vm: the sharded slab's validity field, or null.
 template <int DIM, typename T>
 __global__ void mg_cheb_step_kernel(
     const T* __restrict__ x, const T* __restrict__ b,
-    const T* __restrict__ omega, const T* __restrict__ invD,
+    const T* __restrict__ vm, const T* __restrict__ omega,
+    const T* __restrict__ invD,
     const T* __restrict__ invT, const T* __restrict__ invDel,
     T* __restrict__ r, const T* __restrict__ d_in, T* __restrict__ d_out,
     T* __restrict__ xo, int64_t nt, Grid g,
@@ -1068,8 +1160,9 @@ __global__ void mg_cheb_step_kernel(
   FOR_EACH_INDEX(idx, nt * S) {
     const Point p = point_of<DIM>(idx, g);
     const T om = omega[p.t];
-    cheb_step_at(idx, first, x, b, invD[p.t], invT[p.t], invDel[p.t], r,
-                 d_in, d_out, xo, c1, c2, [&](const T* f) {
+    cheb_step_at(idx, first, x, b, invD[p.t], invT[p.t], invDel[p.t],
+                 valid_at(vm, int(idx - p.t * S)), r, d_in, d_out, xo, c1,
+                 c2, [&](const T* f) {
                    return op_global<DIM>(pg, om, f + p.t * S, g, p.z, p.y,
                                          p.x);
                  });
@@ -1092,7 +1185,7 @@ __global__ void mg_cheb_step_var_kernel(
     const T om = omega[p.t];
     const int gi = int(idx - p.t * S);
     cheb_step_at(idx, first, x, b, var_inv_diag_at(vt, W, S, om, gi),
-                 invT[p.t], invDel[p.t], r, d_in, d_out, xo, c1, c2,
+                 invT[p.t], invDel[p.t], T(1), r, d_in, d_out, xo, c1, c2,
                  [&](const T* f) {
                    return var_op_global<DIM>(vt, pm, W, om, f + p.t * S, g,
                                              p.z, p.y, p.x);
@@ -1109,12 +1202,16 @@ int blocks_for(int64_t total) {
 }
 
 // The blocks of a tiled kernel: x bricks, (z brick, y brick) pairs, rows;
-// bricks bz planes deep in 3-D.
+// bricks bz planes deep in 3-D, those of the lead axis starting `shift`
+// planes before the grid (`make_window`).
 template <int DIM>
-dim3 bricks(int64_t nt, const Grid& g, int bz = BrickOf<DIM>::z) {
+dim3 bricks(int64_t nt, const Grid& g, int bz = BrickOf<DIM>::z,
+            int shift = 0) {
   using B = BrickOf<DIM>;
+  const int zs = DIM == 3 ? shift : 0, ys = DIM == 3 ? 0 : shift;
   return dim3(unsigned((g.nx + B::x - 1) / B::x),
-              unsigned(((g.nz + bz - 1) / bz) * ((g.ny + B::y - 1) / B::y)),
+              unsigned(((g.nz + zs + bz - 1) / bz) *
+                       ((g.ny + ys + B::y - 1) / B::y)),
               unsigned(nt));
 }
 
@@ -1193,17 +1290,17 @@ cudaStream_t as_stream(void* stream) {
 }
 
 template <int DIM, typename T>
-int launch_smooth(const T* x, const T* b, const T* omega, const T* invD,
-                  const T* invT, const T* invDel, T* out, int64_t nt,
-                  Grid g, const PairGroups* pg, int nu, int zero_init,
-                  void* stream) {
+int launch_smooth(const T* x, const T* b, const T* vm, const T* omega,
+                  const T* invD, const T* invT, const T* invDel, T* out,
+                  int64_t nt, Grid g, const PairGroups* pg, int nu,
+                  int zero_init, void* stream) {
   size_t bytes = 0;
   const int err = window_bytes<DIM, T>(mg_smooth_kernel<DIM, T>,
                                        zero_init ? nu - 1 : nu, &bytes);
   if (err != 0) return err;
   mg_smooth_kernel<DIM, T><<<bricks<DIM>(nt, g), kThreads, bytes,
                              as_stream(stream)>>>(
-      x, b, omega, invD, invT, invDel, out, g, *pg, nu, zero_init);
+      x, b, vm, omega, invD, invT, invDel, out, g, *pg, nu, zero_init);
   return int(cudaGetLastError());
 }
 
@@ -1225,33 +1322,33 @@ int launch_smooth_var(const T* x, const T* b, const T* W, const T* omega,
 }
 
 template <int DIM, typename T>
-int launch_fused_pre(const T* b, const T* omega, const T* invD,
+int launch_fused_pre(const T* b, const T* vm, const T* omega, const T* invD,
                      const T* invT, const T* invDel, T* xo, T* rco,
                      int64_t nt, Grid g, const PairGroups* pg, int nu,
-                     void* stream) {
+                     Lead ld, void* stream) {
   const int bz = brick_depth<DIM, T>(nu + 1, 3);
   size_t bytes = 0;
   const int err = window_bytes<DIM, T>(mg_fused_pre_kernel<DIM, T>, nu + 1,
                                        &bytes, 3, bz);
   if (err != 0) return err;
-  mg_fused_pre_kernel<DIM, T><<<bricks<DIM>(nt, g, bz), kThreads, bytes,
-                                as_stream(stream)>>>(
-      b, omega, invD, invT, invDel, xo, rco, g, *pg, nu, bz);
+  mg_fused_pre_kernel<DIM, T><<<bricks<DIM>(nt, g, bz, ld.off & 1), kThreads,
+                                bytes, as_stream(stream)>>>(
+      b, vm, omega, invD, invT, invDel, xo, rco, g, *pg, nu, bz, ld);
   return int(cudaGetLastError());
 }
 
 template <int DIM, typename T>
-int launch_fused_post(const T* x, const T* b, const T* ec, const T* omega,
-                      const T* invD, const T* invT, const T* invDel, T* out,
-                      int64_t nt, Grid g, const PairGroups* pg, int nu,
-                      void* stream) {
+int launch_fused_post(const T* x, const T* b, const T* ec, const T* vm,
+                      const T* omega, const T* invD, const T* invT,
+                      const T* invDel, T* out, int64_t nt, Grid g,
+                      const PairGroups* pg, int nu, Lead ld, void* stream) {
   size_t bytes = 0;
   const int err =
       window_bytes<DIM, T>(mg_fused_post_kernel<DIM, T>, nu, &bytes);
   if (err != 0) return err;
   mg_fused_post_kernel<DIM, T><<<bricks<DIM>(nt, g), kThreads, bytes,
                                  as_stream(stream)>>>(
-      x, b, ec, omega, invD, invT, invDel, out, g, *pg, nu);
+      x, b, ec, vm, omega, invD, invT, invDel, out, g, *pg, nu, ld);
   return int(cudaGetLastError());
 }
 
@@ -1313,19 +1410,19 @@ int launch_apply(const T* x, T* out, int64_t nt, Grid g,
 template <int DIM, typename T>
 int launch_residual_restrict(const T* x, const T* b, const T* omega, T* rc,
                              int64_t nt, Grid g, const PairGroups* pg,
-                             void* stream) {
-  mg_residual_restrict_kernel<DIM, T><<<blocks_for(
-                                            points(nt, coarse_grid<DIM>(g))),
-                                        kThreads, 0, as_stream(stream)>>>(
-      x, b, omega, rc, nt, g, *pg);
+                             Lead ld, void* stream) {
+  mg_residual_restrict_kernel<DIM, T><<<
+      blocks_for(points(nt, coarse_grid<DIM>(g, ld))), kThreads, 0,
+      as_stream(stream)>>>(x, b, omega, rc, nt, g, *pg, ld);
   return int(cudaGetLastError());
 }
 
 template <int DIM, typename T>
 int launch_prolong_correct(const T* x, const T* ec, T* out, int64_t nt,
-                           Grid g, void* stream) {
+                           Grid g, Lead ld, void* stream) {
   mg_prolong_correct_kernel<DIM, T><<<blocks_for(points(nt, g)), kThreads, 0,
-                                      as_stream(stream)>>>(x, ec, out, nt, g);
+                                      as_stream(stream)>>>(x, ec, out, nt, g,
+                                                           ld);
   return int(cudaGetLastError());
 }
 
@@ -1365,15 +1462,15 @@ int launch_residual_restrict_var(const T* x, const T* b, const T* W,
 }
 
 template <int DIM, typename T>
-int launch_cheb_step(const T* x, const T* b, const T* omega, const T* invD,
-                     const T* invT, const T* invDel, T* r, const T* d_in,
-                     T* d_out, T* xo, int64_t nt, Grid g,
+int launch_cheb_step(const T* x, const T* b, const T* vm, const T* omega,
+                     const T* invD, const T* invT, const T* invDel, T* r,
+                     const T* d_in, T* d_out, T* xo, int64_t nt, Grid g,
                      const PairGroups* pg, int first, double c1, double c2,
                      void* stream) {
   mg_cheb_step_kernel<DIM, T><<<blocks_for(points(nt, g)), kThreads, 0,
                                 as_stream(stream)>>>(
-      x, b, omega, invD, invT, invDel, r, d_in, d_out, xo, nt, g, *pg, first,
-      c1, c2);
+      x, b, vm, omega, invD, invT, invDel, r, d_in, d_out, xo, nt, g, *pg,
+      first, c1, c2);
   return int(cudaGetLastError());
 }
 
@@ -1394,12 +1491,19 @@ int launch_cheb_step_var(const T* x, const T* b, const T* W, const T* omega,
 #define BY_DIM(L, T, ...) \
   (dim == 3 ? L<3, T>(__VA_ARGS__) : L<2, T>(__VA_ARGS__))
 
+// The serial transfers of a grid with a runtime dim (`serial_lead`).
+Lead serial_lead_of(const Grid& g, int dim) {
+  return Lead{0, 0, ((dim == 3 ? g.nz : g.ny) - 1) / 2};
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes). Each returns the cudaError_t of
 // the launch. The shift and Chebyshev columns are (T,) vectors; nt ≤ 65535
 // (the row is blockIdx.z of the tiled kernels). (nz, ny, nx, dim) is the
-// grid of one row, nz = 1 and dim = 2 in 2-D, with fewer than 2^31 points.
+// grid of one row, nz = 1 and dim = 2 in 2-D, with fewer than 2^31 points;
+// in the sharded-slab forms (mg_sh_*) it is the slab, the lead axis own +
+// 2h planes (own for mg_sh_prolong_correct), and vm one row of it.
 // The weighted ones take W
 // (ntaps, *grid), the A taps (VarTaps) and the mass's weight groups
 // (PairGroups, wa = 0).
@@ -1415,8 +1519,17 @@ int mg_var_taps_size() { return int(sizeof(VarTaps)); }
                       const PairGroups* pg, int nu, int zero_init,            \
                       void* stream) {                                         \
     const Grid g{int(nz), int(ny), int(nx)};                                  \
-    return BY_DIM(launch_smooth, T, x, b, omega, invD, invT, invDel, out, nt, \
-                  g, pg, nu, zero_init, stream);                              \
+    return BY_DIM(launch_smooth, T, x, b, nullptr, omega, invD, invT, invDel, \
+                  out, nt, g, pg, nu, zero_init, stream);                     \
+  }                                                                           \
+  int mg_sh_smooth_##SFX(const T* x, const T* b, const T* vm, const T* omega, \
+                         const T* invD, const T* invT, const T* invDel,       \
+                         T* out, int64_t nt, int64_t nz, int64_t ny,          \
+                         int64_t nx, int dim, const PairGroups* pg, int nu,   \
+                         int zero_init, void* stream) {                       \
+    const Grid g{int(nz), int(ny), int(nx)};                                  \
+    return BY_DIM(launch_smooth, T, x, b, vm, omega, invD, invT, invDel, out, \
+                  nt, g, pg, nu, zero_init, stream);                          \
   }                                                                           \
   int mg_residual_##SFX(const T* x, const T* b, const T* omega, T* out,       \
                         int64_t nt, int64_t nz, int64_t ny, int64_t nx,       \
@@ -1436,8 +1549,18 @@ int mg_var_taps_size() { return int(sizeof(VarTaps)); }
                          int dim, const PairGroups* pg, int nu,               \
                          void* stream) {                                      \
     const Grid g{int(nz), int(ny), int(nx)};                                  \
-    return BY_DIM(launch_fused_pre, T, b, omega, invD, invT, invDel, xo, rco, \
-                  nt, g, pg, nu, stream);                                     \
+    return BY_DIM(launch_fused_pre, T, b, nullptr, omega, invD, invT, invDel, \
+                  xo, rco, nt, g, pg, nu, serial_lead_of(g, dim), stream);    \
+  }                                                                           \
+  int mg_sh_fused_pre_##SFX(const T* b, const T* vm, const T* omega,          \
+                            const T* invD, const T* invT, const T* invDel,    \
+                            T* xo, T* rco, int64_t nt, int64_t nz,            \
+                            int64_t ny, int64_t nx, int dim,                  \
+                            const PairGroups* pg, int nu, int own, int h,     \
+                            void* stream) {                                   \
+    const Grid g{int(nz), int(ny), int(nx)};                                  \
+    return BY_DIM(launch_fused_pre, T, b, vm, omega, invD, invT, invDel, xo,  \
+                  rco, nt, g, pg, nu, Lead{h, 0, own / 2}, stream);           \
   }                                                                           \
   int mg_fused_post_##SFX(const T* x, const T* b, const T* ec,                \
                           const T* omega, const T* invD, const T* invT,       \
@@ -1445,8 +1568,19 @@ int mg_var_taps_size() { return int(sizeof(VarTaps)); }
                           int64_t ny, int64_t nx, int dim,                    \
                           const PairGroups* pg, int nu, void* stream) {       \
     const Grid g{int(nz), int(ny), int(nx)};                                  \
-    return BY_DIM(launch_fused_post, T, x, b, ec, omega, invD, invT, invDel,  \
-                  out, nt, g, pg, nu, stream);                                \
+    return BY_DIM(launch_fused_post, T, x, b, ec, nullptr, omega, invD, invT, \
+                  invDel, out, nt, g, pg, nu, serial_lead_of(g, dim), stream);\
+  }                                                                           \
+  int mg_sh_fused_post_##SFX(const T* x, const T* b, const T* ec,             \
+                             const T* vm, const T* omega, const T* invD,      \
+                             const T* invT, const T* invDel, T* out,          \
+                             int64_t nt, int64_t nz, int64_t ny, int64_t nx,  \
+                             int dim, const PairGroups* pg, int nu, int own,  \
+                             int h, int hc, void* stream) {                   \
+    const Grid g{int(nz), int(ny), int(nx)};                                  \
+    return BY_DIM(launch_fused_post, T, x, b, ec, vm, omega, invD, invT,      \
+                  invDel, out, nt, g, pg, nu,                                 \
+                  Lead{0, 2 * hc - h, own / 2 + 2 * hc}, stream);             \
   }                                                                           \
   int mg_residual_restrict_##SFX(const T* x, const T* b, const T* omega,      \
                                  T* rc, int64_t nt, int64_t nz, int64_t ny,   \
@@ -1454,13 +1588,31 @@ int mg_var_taps_size() { return int(sizeof(VarTaps)); }
                                  void* stream) {                              \
     const Grid g{int(nz), int(ny), int(nx)};                                  \
     return BY_DIM(launch_residual_restrict, T, x, b, omega, rc, nt, g, pg,    \
-                  stream);                                                    \
+                  serial_lead_of(g, dim), stream);                            \
+  }                                                                           \
+  int mg_sh_residual_restrict_##SFX(const T* x, const T* b, const T* omega,   \
+                                    T* rc, int64_t nt, int64_t nz,            \
+                                    int64_t ny, int64_t nx, int dim,          \
+                                    const PairGroups* pg, int own, int h,     \
+                                    void* stream) {                           \
+    const Grid g{int(nz), int(ny), int(nx)};                                  \
+    return BY_DIM(launch_residual_restrict, T, x, b, omega, rc, nt, g, pg,    \
+                  Lead{h, 0, own / 2}, stream);                               \
   }                                                                           \
   int mg_prolong_correct_##SFX(const T* x, const T* ec, T* out, int64_t nt,   \
                                int64_t nz, int64_t ny, int64_t nx, int dim,   \
                                void* stream) {                                \
     const Grid g{int(nz), int(ny), int(nx)};                                  \
-    return BY_DIM(launch_prolong_correct, T, x, ec, out, nt, g, stream);      \
+    return BY_DIM(launch_prolong_correct, T, x, ec, out, nt, g,               \
+                  serial_lead_of(g, dim), stream);                            \
+  }                                                                           \
+  int mg_sh_prolong_correct_##SFX(const T* x, const T* ec, T* out,            \
+                                  int64_t nt, int64_t nz, int64_t ny,         \
+                                  int64_t nx, int dim, int own, int hc,       \
+                                  void* stream) {                             \
+    const Grid g{int(nz), int(ny), int(nx)};                                  \
+    return BY_DIM(launch_prolong_correct, T, x, ec, out, nt, g,               \
+                  Lead{0, 2 * hc, own / 2 + 2 * hc}, stream);                 \
   }                                                                           \
   int mg_smooth_var_##SFX(const T* x, const T* b, const T* W,                \
                           const T* omega, const T* invT, const T* invDel,     \
@@ -1512,15 +1664,15 @@ int mg_var_taps_size() { return int(sizeof(VarTaps)); }
     return BY_DIM(launch_fused_post_var, T, x, b, ec, W, omega, invT, invDel, \
                   out, nt, g, vt, pm, nu, stream);                            \
   }                                                                           \
-  int mg_cheb_step_##SFX(const T* x, const T* b, const T* omega,              \
-                         const T* invD, const T* invT, const T* invDel, T* r, \
-                         const T* d_in, T* d_out, T* xo, int64_t nt,          \
-                         int64_t nz, int64_t ny, int64_t nx, int dim,         \
-                         const PairGroups* pg, int first, double c1,          \
-                         double c2, void* stream) {                           \
+  int mg_cheb_step_##SFX(const T* x, const T* b, const T* vm,                \
+                         const T* omega, const T* invD, const T* invT,        \
+                         const T* invDel, T* r, const T* d_in, T* d_out,      \
+                         T* xo, int64_t nt, int64_t nz, int64_t ny,           \
+                         int64_t nx, int dim, const PairGroups* pg,           \
+                         int first, double c1, double c2, void* stream) {     \
     const Grid g{int(nz), int(ny), int(nx)};                                  \
-    return BY_DIM(launch_cheb_step, T, x, b, omega, invD, invT, invDel, r,    \
-                  d_in, d_out, xo, nt, g, pg, first, c1, c2, stream);         \
+    return BY_DIM(launch_cheb_step, T, x, b, vm, omega, invD, invT, invDel,   \
+                  r, d_in, d_out, xo, nt, g, pg, first, c1, c2, stream);      \
   }                                                                           \
   int mg_cheb_step_var_##SFX(                                                 \
       const T* x, const T* b, const T* W, const T* omega, const T* invT,      \

@@ -142,18 +142,24 @@ def load_vector(mesh: Mesh, f) -> np.ndarray:
     return out
 
 
-def spacetime_loads(problem, mesh: Mesh, grid) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+def spacetime_loads(problem, mesh: Mesh, grid, rows: slice | None = None
+                    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Half-interval space-time loads of the stabilized formulation.
 
     Returns (gL, gR, u0_vec): gL/gR (N, m_interior) with
     gL[j,k] = ∫_{left half of interval j} ∫_Ω g φ_k (2-point Gauss per
     half), and u0_vec[k] = ∫_Ω u0 φ_k, all on interior vertices.
-    ``problem`` gives ``g_many(ts, X)`` and ``u0(X)``.
+    ``problem`` gives ``g_many(ts, X)`` and ``u0(X)``. ``rows``: only these
+    intervals' rows of gL/gR (a time shard's), each equal to the full
+    computation's (every interval's loads are computed on their own).
     """
     idx = mesh.interior
     t = grid.t
     h = grid.h
-    N = grid.num_intervals
+    if rows is not None:
+        t = t[rows.start: rows.stop + 1]
+        h = h[rows]
+    N = h.size
     gq = 0.5 / np.sqrt(3.0)
 
     # Quadrature times: per interval, 2-point Gauss on each half.

@@ -60,9 +60,27 @@ V(ν, ν_post ≠ ν) cycles and ν ∉ {2, 3} run the semi-fused stages K10 →
 and 3-D. The weighted sweep chains as the constant one does above
 ``MAX_NU``.
 
-The sharded-slab forms of the Pallas kernels (``vmask``, ``lead``) and the
-banded transfer matrices (``Ux``/``Wx``, a device of the TPU's matrix unit)
-are not ported here.
+The sharded-slab forms, for a slab of the time×space mesh
+(``parallel.explicit2d``): ``MSKernelLevel`` on the halo-extended slab's
+grid (own + 2h planes on the leading axis, the other extents odd) holds
+
+    K3 ``smooth(..., vmask=)``   the sweep with the slab's 0/1 validity
+                                 field zeroing every update of r on padding
+                                 and out-of-domain halo planes
+    K6 ``sh_fused_pre``          ``lead=(own, h)``: x on the whole slab,
+                                 r_c on the own/2 owned coarse planes
+    K7 ``sh_fused_post``         ``lead=(own, h, hc)``: e_c with hc coarse
+                                 halo planes, the output on the whole slab
+    K8 ``sh_residual_restrict``  ``lead=(own, h)``: the owned coarse planes
+    K9 ``sh_prolong_correct``    ``lead=(own, hc)``: x on the own planes
+
+with the signatures of ``MSPallasLevel``'s (mg_pallas.py:544, 694-760) less
+the banded transfer matrices (``Ux``/``Wx``, a device of the TPU's matrix
+unit, not ported: the transfers are the pair sums of the serial forms, on
+the lead axis offset as ``ops.multigrid.restrict_lead`` / ``prolong_lead``
+say). The port has one layout, the unblocked one. Each is its own CUDA
+entry point (``mg_sh_*``) with its own launch count; above the tiled ν the
+vmask sweep chains ``mg_cheb_step`` with the field, counted there.
 """
 
 from __future__ import annotations
@@ -77,7 +95,8 @@ import torch
 from . import native
 from .native import check_tensor
 from .multigrid import (_SIGMA, cheb_smooth, chebyshev_steps, ms_op,
-                        pair_groups, transfer, var_op, var_smooth)
+                        pair_groups, prolong_lead, restrict_lead, transfer,
+                        var_op, var_smooth)
 from .stencil import grouped_apply, weight_groups
 
 SOURCE = "spacetime_tpu_torch/csrc/mg.cu"
@@ -108,7 +127,17 @@ _OPS = {
     # the chained sweeps above MAX_NU, one Chebyshev step per launch
     "cheb_step": ("K3 mg_cheb_step", f"{_MG}:190", (2, 3)),
     "cheb_step_var": ("K10 mg_cheb_step_var", f"{_MG}:856", (2, 3)),
+    # the sharded-slab forms (vmask, lead)
+    "sh_smooth": ("K3 mg_sh_smooth", f"{_MG}:190", (2, 3)),
+    "sh_fused_pre": ("K6 mg_sh_fused_pre", f"{_MG}:1318", (2, 3)),
+    "sh_fused_post": ("K7 mg_sh_fused_post", f"{_MG}:1475", (2, 3)),
+    "sh_residual_restrict": ("K8 mg_sh_residual_restrict", f"{_MG}:1683",
+                             (2, 3)),
+    "sh_prolong_correct": ("K9 mg_sh_prolong_correct", f"{_MG}:1913",
+                           (2, 3)),
 }
+SHARDED_OPS = ("sh_smooth", "sh_fused_pre", "sh_fused_post",
+               "sh_residual_restrict", "sh_prolong_correct")
 KERNELS = {
     (op, dtype, dim): native.Kernel(
         f"{name}{'_3d' if dim == 3 else ''} {sfx}", f"mg_{op}_{sfx}", replaces)
@@ -173,18 +202,24 @@ class _KernelLevel:
         col = (-1,) + (1,) * self.dim
         return {self._COLS[k]: v.reshape(col) for k, v in cols.items()}
 
-    def _prepare(self, op, X, cols, odd=False):
-        """Check the main field and the columns; returns the kernel, T and
-        the columns' pointers in ``_COLS`` order."""
+    def _prepare(self, op, X, cols, odd=False, gs=None):
+        """Check the main field (on ``gs``, else the level's grid) and the
+        columns; returns the kernel, T and the columns' pointers in
+        ``_COLS`` order. ``odd``: the transfers' odd extents, "lead" for a
+        slab's (every axis but the leading one)."""
+        gs = self.gs if gs is None else gs
         k = native.kernel_for(KERNELS, "mg", op, X, self.dim)
         T = X.shape[0]
         if not 1 <= T <= MAX_ROWS:
             raise ValueError(f"{T} time rows; the kernels take 1 to {MAX_ROWS}")
-        check_tensor("field", X, X.dtype, X.device, (T,) + self.gs)
-        if math.prod(self.gs) >= MAX_ROW_POINTS:
-            raise ValueError(f"grid {self.gs}: a time row of the kernels "
+        check_tensor("field", X, X.dtype, X.device, (T,) + gs)
+        if math.prod(gs) >= MAX_ROW_POINTS:
+            raise ValueError(f"grid {gs}: a time row of the kernels "
                              f"holds fewer than {MAX_ROW_POINTS} points")
-        if odd and not self.semi_ok:
+        if odd == "lead" and not all(n % 2 for n in gs[1:]):
+            raise ValueError(f"slab {gs}: the sharded transfer stages need "
+                             "odd extents 2n+1 off the leading axis")
+        if odd is True and not self.semi_ok:
             raise ValueError(f"grid {self.gs}: the transfer stages need odd "
                              "extents 2n+1")
         if cols is None:
@@ -193,16 +228,21 @@ class _KernelLevel:
             check_tensor(name, cols[name], X.dtype, X.device, (T,))
         return k, T, tuple(cols[name].data_ptr() for name in self._COLS)
 
-    def _sweep(self, op, x, b, nu, zero_init, pre, cols, tables):
+    def _sweep(self, op, x, b, nu, zero_init, pre, cols, tables,
+               step=None):
         """K3 / K10: the tiled sweep ``op`` for ν ≤ MAX_NU, else ν chained
-        launches of the one-step kernel ``cheb_step`` (+ "_var"). ``pre``
-        are the fields between b and the columns (W), ``tables`` the
-        kernel's tables."""
+        launches of the one-step kernel ``step`` (op, fields) (default
+        ``cheb_step`` (+ "_var") and ``pre``). ``pre`` are the fields
+        between b and the columns (W; the validity field of K3's slab
+        form), ``tables`` the kernel's tables."""
         if nu < 1:
             raise ValueError(f"nu={nu}: a sweep takes at least one step")
         chained = nu > MAX_NU[self.dim]
-        k, T, cp = self._prepare(
-            op.replace("smooth", "cheb_step") if chained else op, b, cols)
+        if step is None:
+            step = (op.replace("smooth", "cheb_step"), pre)
+        if chained:
+            op, pre = step
+        k, T, cp = self._prepare(op, b, cols)
         if not zero_init:
             check_tensor("x", x, b.dtype, b.device, b.shape)
         xp = None if zero_init else x.data_ptr()
@@ -275,11 +315,13 @@ class MSKernelLevel(_KernelLevel):
     def op_plain(self, x, cols):
         return ms_op(self.pairs, self.gs, self._lp(cols)["omega"], x)
 
-    def smooth_plain(self, x, b, cols, zero_init=False, post=False):
+    def smooth_plain(self, x, b, cols, zero_init=False, post=False,
+                     vmask=None):
         lp = self._lp(cols)
         return cheb_smooth(
             lambda v: ms_op(self.pairs, self.gs, lp["omega"], v), lp,
             b * 0.0 if zero_init else x, b, self.nu_post if post else self.nu,
+            vmask,
         )
 
     def residual_plain(self, x, b, cols):
@@ -295,15 +337,41 @@ class MSKernelLevel(_KernelLevel):
     def fused_post_plain(self, x, b, ec, cols):
         return self.smooth_plain(self.prolong_correct_plain(x, ec), b, cols)
 
+    # the sharded-slab forms: the level's grid is the slab, own + 2h planes
+    # on the leading axis
+
+    def sh_residual_restrict_plain(self, x, b, cols, own, h):
+        return restrict_lead(self.residual_plain(x, b, cols), self.dim, own,
+                             h)
+
+    def sh_prolong_correct_plain(self, x, ec, own, hc):
+        return x + prolong_lead(ec, self.dim, own, 2 * hc)
+
+    def sh_fused_pre_plain(self, b, cols, vmask, own, h):
+        x = self.smooth_plain(None, b, cols, zero_init=True, vmask=vmask)
+        return x, self.sh_residual_restrict_plain(x, b, cols, own, h)
+
+    def sh_fused_post_plain(self, x, b, ec, cols, vmask, own, h, hc):
+        xc = x + prolong_lead(ec, self.dim, self.gs[0], 2 * hc - h)
+        return self.smooth_plain(xc, b, cols, vmask=vmask)
+
     # --------------------------------------------------------- wrappers
 
-    def smooth(self, x, b, cols, zero_init=False, post=False):
+    def smooth(self, x, b, cols, zero_init=False, post=False, vmask=None):
         """K3: the degree-ν sweep (ν_post with ``post``); x is ignored with
-        ``zero_init``."""
+        ``zero_init``. ``vmask``: a slab's (1, *gs) 0/1 validity field (the
+        sharded form, ``mg_sh_smooth``)."""
         if b.device.type == "cpu":
-            return self.smooth_plain(x, b, cols, zero_init, post)
-        return self._sweep("smooth", x, b, self.nu_post if post else self.nu,
-                           zero_init, (), cols, (self._op_table(),))
+            return self.smooth_plain(x, b, cols, zero_init, post, vmask)
+        nu = self.nu_post if post else self.nu
+        if vmask is None:
+            return self._sweep("smooth", x, b, nu, zero_init, (), cols,
+                               (self._op_table(),),
+                               step=("cheb_step", (None,)))
+        self._check_vmask(vmask, b)
+        vm = (vmask.data_ptr(),)
+        return self._sweep("sh_smooth", x, b, nu, zero_init, vm, cols,
+                           (self._op_table(),), step=("cheb_step", vm))
 
     def residual(self, x, b, cols):
         """K4: b − Op x."""
@@ -363,6 +431,93 @@ class MSKernelLevel(_KernelLevel):
 
     def _op_table(self):
         return ctypes.addressof(self.structs[0])
+
+    def _check_vmask(self, vmask, X) -> None:
+        check_tensor("vmask", vmask, X.dtype, X.device, (1,) + self.gs)
+
+    def _check_lead(self, own: int, h: int, min_h: int) -> None:
+        if own % 2 or own < 2 or self.gs[0] != own + 2 * h or h < min_h:
+            raise ValueError(
+                f"slab {self.gs}, lead=(own={own}, h={h}): the sharded "
+                f"forms take an even own >= 2, h >= {min_h} and "
+                "gs[0] == own + 2h")
+
+    def _coarse_lead(self, nc: int):
+        return (nc,) + self.coarse_gs[1:]
+
+    def sh_fused_pre(self, b, cols, vmask, own: int, h: int):
+        """K6, ``lead=(own, h)``: (x, r_c) with x the zero-init sweep on the
+        whole slab (its edge planes are the caller's to crop) and r_c the
+        own/2 owned coarse planes of R(b − Op x); h ≥ ν + 1."""
+        if b.device.type == "cpu":
+            return self.sh_fused_pre_plain(b, cols, vmask, own, h)
+        self._check_lead(own, h, self.nu + 1)
+        self._check_fused()
+        k, T, cp = self._prepare("sh_fused_pre", b, cols, odd="lead")
+        self._check_vmask(vmask, b)
+        x = torch.empty_like(b)
+        rc = b.new_empty((T,) + self._coarse_lead(own // 2))
+        k.launch(b.device, b.data_ptr(), vmask.data_ptr(), *cp, x.data_ptr(),
+                 rc.data_ptr(), T, *self._zyx(), self._op_table(), self.nu,
+                 own, h)
+        return x, rc
+
+    def sh_fused_post(self, x, b, ec, cols, vmask, own: int, h: int,
+                      hc: int):
+        """K7, ``lead=(own, h, hc)``: smooth(x + P e_c, b) on the whole
+        slab, e_c with hc coarse halo planes (2hc ≥ h + 1); h ≥ ν."""
+        if b.device.type == "cpu":
+            return self.sh_fused_post_plain(x, b, ec, cols, vmask, own, h, hc)
+        self._check_lead(own, h, self.nu)
+        self._check_fused()
+        if 2 * hc < h + 1:
+            raise ValueError(f"hc={hc}: the coarse halo needs 2hc >= h + 1")
+        k, T, cp = self._prepare("sh_fused_post", b, cols, odd="lead")
+        check_tensor("x", x, b.dtype, b.device, b.shape)
+        check_tensor("ec", ec, b.dtype, b.device,
+                     (T,) + self._coarse_lead(own // 2 + 2 * hc))
+        self._check_vmask(vmask, b)
+        out = torch.empty_like(b)
+        k.launch(b.device, x.data_ptr(), b.data_ptr(), ec.data_ptr(),
+                 vmask.data_ptr(), *cp, out.data_ptr(), T, *self._zyx(),
+                 self._op_table(), self.nu, own, h, hc)
+        return out
+
+    def sh_residual_restrict(self, x, b, cols, own: int, h: int):
+        """K8, ``lead=(own, h)``: the own/2 owned coarse planes of
+        R(b − Op x) on the slab; h ≥ 2."""
+        if b.device.type == "cpu":
+            return self.sh_residual_restrict_plain(x, b, cols, own, h)
+        self._check_lead(own, h, 2)
+        k, T, cp = self._prepare("sh_residual_restrict", b, cols, odd="lead")
+        check_tensor("x", x, b.dtype, b.device, b.shape)
+        rc = b.new_empty((T,) + self._coarse_lead(own // 2))
+        k.launch(b.device, x.data_ptr(), b.data_ptr(), cp[0], rc.data_ptr(),
+                 T, *self._zyx(), self._op_table(), own, h)
+        return rc
+
+    def sh_prolong_correct(self, x, ec, own: int, hc: int):
+        """K9, ``lead=(own, hc)``: x + P e_c on the own planes (x unhaloed),
+        e_c with hc ≥ 1 coarse halo planes."""
+        if x.device.type == "cpu":
+            return self.sh_prolong_correct_plain(x, ec, own, hc)
+        gs = (own,) + self.gs[1:]
+        if own % 2 or own < 2 or hc < 1:
+            raise ValueError(f"lead=(own={own}, hc={hc}): the sharded K9 "
+                             "takes an even own >= 2 and hc >= 1")
+        k, T, _ = self._prepare("sh_prolong_correct", x, None, odd="lead",
+                                gs=gs)
+        check_tensor("ec", ec, x.dtype, x.device,
+                     (T,) + self._coarse_lead(own // 2 + 2 * hc))
+        out = torch.empty_like(x)
+        k.launch(x.device, x.data_ptr(), ec.data_ptr(), out.data_ptr(), T,
+                 *((1,) * (3 - self.dim) + gs + (self.dim,)), own, hc)
+        return out
+
+    def _check_fused(self) -> None:
+        if not (self.nu_post == self.nu and 2 <= self.nu <= 3):
+            raise ValueError(f"nu={self.nu}, nu_post={self.nu_post}: the "
+                             "fused stages bake one nu in {2, 3}")
 
 
 class VarMSKernelLevel(_KernelLevel):

@@ -367,6 +367,45 @@ def transfer(X, dim: int, *, restrict: bool):
     return 0.5 * (G + _shift1_zero(G, axes))
 
 
+def _window(R, axis: int, start: int, n: int):
+    """R[start : start + n] along ``axis``, zero where the range leaves R."""
+    lo = max(0, -start)
+    hi = max(0, start + n - R.shape[axis])
+    return _pad_axis(R, axis, lo, hi).narrow(axis, start + lo, n)
+
+
+def restrict_lead(X, dim: int, own: int, h: int):
+    """The restriction of a sharded slab (``lead=(own, h)``): X has own + 2h
+    planes on its leading grid axis, and coarse plane k of the output sums
+    the fine planes h + 2k, h + 2k + 1 (and h + 2k + 2); the other axes as
+    ``transfer``. Returns the own/2 owned coarse planes."""
+    axes = tuple(range(X.ndim - dim, X.ndim))
+    H = (X + _shift1_zero(X, axes, sign=-1)).narrow(axes[0], h, own)
+    shape = list(H.shape)
+    shape[axes[0]] //= 2
+    shape.insert(axes[0] + 1, 2)
+    H = H.reshape(shape).sum(dim=axes[0] + 1)
+    for a in axes[1:]:
+        H = _pairsum(H, a)
+    return 0.5 * H
+
+
+def prolong_lead(E, dim: int, n: int, s: int):
+    """The prolongation onto a sharded slab of ``n`` planes on the leading
+    grid axis: fine plane l reads the coarse planes ⌊(l + s)/2⌋ and
+    ⌊(l + s − 1)/2⌋ of E (zero beyond it), s = 2hc − h for a coarse operand
+    with hc halo planes and a fine one with h; the other axes as
+    ``transfer``."""
+    axes = tuple(range(E.ndim - dim, E.ndim))
+    R = torch.repeat_interleave(E, 2, dim=axes[0])
+    Gu = _window(R, axes[0], s, n)
+    Gw = _window(R, axes[0], s - 1, n)
+    for a in axes[1:]:
+        Gu = _repeat2_pad(Gu, a)
+        Gw = _repeat2_pad(Gw, a)
+    return 0.5 * (Gu + _shift1_zero(Gw, axes[1:]))
+
+
 # ------------------------------------------------------------- V-cycle
 
 
@@ -390,15 +429,20 @@ def ms_op(pairs, gs, omega, x):
     return out
 
 
-def cheb_smooth(op, lp, x, b, nu: int):
+def cheb_smooth(op, lp, x, b, nu: int, vmask=None):
     """The degree-``nu`` Chebyshev–Jacobi sweep on Op = ``op`` from ``x``
     (x = 0 where ``x`` is None), with the level's row columns ``lp``; 1/D
-    may be a per-node field."""
+    may be a per-node field. ``vmask``: a sharded slab's 0/1 validity
+    field, multiplying every r (``_smooth_call``'s vmask)."""
     r = lp["inv_diag"] * (b if x is None else b - op(x))
+    if vmask is not None:
+        r = vmask * r
     d = r * lp["inv_theta"]
     x = d if x is None else x + d
     for a, c in chebyshev_steps(_SIGMA, nu):
         r = r - lp["inv_diag"] * op(d)
+        if vmask is not None:
+            r = vmask * r
         d = a * d + c * lp["inv_delta"] * r
         x = x + d
     return x

@@ -262,6 +262,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             "mg_fused_post": [P, P, P, P, P, P, P, P, *grid, P, I, P],
             "mg_residual_restrict": [P, P, P, P, *grid, P, P],
             "mg_prolong_correct": [P, P, P, *grid, P],
+            # the sharded-slab forms: vm after the fields; (own, h[, hc])
+            # after the table and ν
+            "mg_sh_smooth": [P, P, P, P, P, P, P, P, *grid, P, I, I, P],
+            "mg_sh_fused_pre": [P, P, P, P, P, P, P, P, *grid, P, I, I, I, P],
+            "mg_sh_fused_post": [P, P, P, P, P, P, P, P, P, *grid, P, I, I, I,
+                                 I, P],
+            "mg_sh_residual_restrict": [P, P, P, P, *grid, P, I, I, P],
+            "mg_sh_prolong_correct": [P, P, P, *grid, I, I, P],
             # the weighted ones: W after the fields; the A taps and the M
             # groups after the grid
             "mg_smooth_var": [P, P, P, P, P, P, P, *grid, P, P, I, I, P],
@@ -271,10 +279,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             "mg_fused_pre_var": [P, P, P, P, P, P, P, *grid, P, P, I, P],
             "mg_fused_post_var": [P, P, P, P, P, P, P, P, *grid, P, P, I, P],
             # one Chebyshev step of the K3 / K10 chains (ν above MAX_NU):
-            # x, b, [W,] the columns, r, d_in, d_out, x_out, the grid, the
-            # tables, first, c1, c2
-            "mg_cheb_step": [P, P, P, P, P, P, P, P, P, P, *grid, P, I, D, D,
-                             P],
+            # x, b, vm (K3) or W (K10), the columns, r, d_in, d_out, x_out,
+            # the grid, the tables, first, c1, c2
+            "mg_cheb_step": [P, P, P, P, P, P, P, P, P, P, P, *grid, P, I, D,
+                             D, P],
             "mg_cheb_step_var": [P, P, P, P, P, P, P, P, P, P, *grid, P, P, I,
                                  D, D, P],
             # ell.cu: X, nt, n, blocks, colidx, nrb, nslots, Y, n_out

@@ -64,8 +64,19 @@ Examples:
     python -m spacetime_tpu_torch.run --device cuda --dtype f32 \
         --problem lshape2d --space-n 256 --time-levels 6 --inner amg
 
+    # the 513²×128 flagship on a (time 2 × space 2) mesh of four ranks on
+    # one card: one process per rank, halos through host memory (gloo)
+    python -m spacetime_tpu_torch.run --backend explicit2d --ranks 4 \
+        --space-devices 2 --comm gloo --device cuda --dtype f32 \
+        --space-n 512 --time-levels 7 --inner mg
+
+    # cfg2 in f64 on a time mesh of four ranks on the CPU
+    python -m spacetime_tpu_torch.run --backend explicit --ranks 4 \
+        --comm gloo --device cpu --space-n 128 --time-levels 6 --inner mg
+
 Prints the iteration count, the final relative residual, the L2(I×Ω) error
-against the exact solution and per-phase times.
+against the exact solution and per-phase times; on a mesh each rank prints
+its place and device first.
 """
 
 from __future__ import annotations
@@ -138,6 +149,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--repeat", type=int, default=1, metavar="K",
                    help="run the solve K times and report each (the last "
                         "is the steady time)")
+    p.add_argument("--backend", choices=["serial", "explicit", "explicit2d"],
+                   default="serial",
+                   help="serial = one device; explicit = a time mesh of "
+                        "--ranks ranks; explicit2d = a (time x space) mesh, "
+                        "--space-devices ranks on the space axis and the "
+                        "rest on time. One process per rank")
+    p.add_argument("--ranks", type=int, default=4, metavar="P",
+                   help="ranks of the mesh (explicit, explicit2d)")
+    p.add_argument("--space-devices", type=int, default=2, metavar="PS",
+                   help="space-axis ranks of the explicit2d mesh")
+    p.add_argument("--comm", choices=["gloo", "nccl"], default="gloo",
+                   help="torch.distributed backend of the mesh: nccl needs "
+                        "one card per rank; gloo runs any number of ranks "
+                        "per card (halos through host memory) and on the CPU")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="capture a torch.profiler trace of the solve into "
                         "DIR/trace.json.gz and write the per-kernel device "
@@ -191,8 +216,71 @@ def _write_profile(prof, path, device, wall_seconds) -> None:
         )
 
 
+def _main_mesh(args) -> int:
+    """A mesh run: the ranks in their own processes (``parallel.launch``);
+    rank 0's result printed here."""
+    import numpy as np
+
+    from .ops import native
+    from .parallel import make_spacetime_mesh, make_time_mesh
+    from .parallel.launch import solve_specs, spawn_ranks
+    from .utils import resolve_device
+
+    if args.profile or args.refine:
+        raise SystemExit("--profile and --refine run on --backend serial")
+    if args.backend == "explicit2d":
+        if args.ranks % args.space_devices:
+            raise SystemExit(f"--ranks {args.ranks} is not a multiple of "
+                             f"--space-devices {args.space_devices}")
+        mesh = make_spacetime_mesh(args.ranks // args.space_devices,
+                                   args.space_devices, args.device)
+    else:
+        mesh = make_time_mesh(args.ranks, args.device)
+    if args.device == "cuda":
+        resolve_device("cuda")
+        native.build()  # once, here: the ranks load it
+    print(f"mesh {dict(mesh.shape)} over {args.comm}:")
+    for line in mesh.describe():
+        print(" ", line)
+    tol = args.tol if args.tol is not None else (1e-8 if args.refined
+                                                 else 1e-6)
+    run = (("solve_refined", dict(tol=tol, inner_tol=args.refine_inner_tol,
+                                  compute_error=False))
+           if args.refined else
+           ("solve", dict(tol=tol, maxiter=args.maxiter,
+                          compute_error=False)))
+    kw = dict(inner=args.inner, spatial_format=args.spatial,
+              mg_cycles=args.mg_cycles, mg_cycles_kx=args.mg_cycles_kx,
+              mg_nu_kx=args.mg_nu_kx, mg_nu_post=args.mg_nu_post)
+    spec = dict(problem=args.problem, space_n=args.space_n,
+                time_levels=args.time_levels,
+                extra_time_levels=args.extra_levels, dtype=args.dtype,
+                kw=kw, runs=[run] * args.repeat, loads=True, print=True,
+                error=not args.no_error)
+    (out,) = spawn_ranks(solve_specs, mesh, args.comm, ([spec],))
+    info = out["info"]
+    print(f"layout {info}; {(info['N'] + 1) * info['m']:,} space-time DoF")
+    for call, r in enumerate(out["runs"], 1):
+        print(f"solve call {call}: {r['iterations']} iterations, "
+              f"{r['solve_seconds']:.4f} s; rank 0: {r['exchanges']} "
+              f"exchanges, {r['bytes_staged'] / 2**20:.1f} MiB staged "
+              f"through host memory, {r['comm_seconds']:.4f} s in the "
+              "collectives")
+    res = out["runs"][-1]
+    rel = np.asarray(res["residuals"]) / res["residuals"][0]
+    kind = "inner PCG iterations" if args.refined else "PCG iterations"
+    print(f"{kind}: {res['iterations']}, converged={res['converged']}, "
+          f"final relative residual {rel[-1]:.3e}")
+    if res.get("l2_error") is not None:
+        print(f"L2(IxOmega) error vs exact solution: {res['l2_error']:.6e}")
+    print("residual history:", " ".join(f"{x:.2e}" for x in rel))
+    return 0 if res["converged"] else 1
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.backend != "serial":
+        return _main_mesh(args)
 
     import time
 

@@ -71,8 +71,9 @@ on a uniform grid the levels are strided slices.
 Outside the port so far (raising ``NotImplementedError`` with the ROADMAP.md
 queue 1 item that ports it): the Galerkin hierarchy of a weighted
 structured grid on the flat formats, on-device load quadrature, the
-fused/flexible PCG variants, checkpointing, double-single refinement legs
-and multi-device runs.
+fused/flexible PCG variants, checkpointing and double-single refinement
+legs. Runs on a mesh of ranks (time, or time × space) are the solvers of
+``spacetime_tpu_torch.parallel``, built on this one.
 """
 
 from __future__ import annotations
@@ -846,6 +847,31 @@ class HeatSolver:
             np.asarray(U_flat, np.float64),
         )
 
+    # The layout of the solves' fields: the whole (N+1, *gs) array here; the
+    # mesh solvers (spacetime_tpu_torch.parallel) hold one rank's block and
+    # override these.
+
+    def _loads(self, dtype):
+        """(gL, gR, u0_vec) on the device in ``dtype``."""
+        return self.assemble_rhs_host(dtype)
+
+    def _x0(self, x0):
+        """A global (N+1, m) warm start in the solves' layout."""
+        return torch.as_tensor(
+            np.asarray(x0), dtype=self.dtype, device=self.device
+        ).reshape((self.N + 1,) + self.gs)
+
+    def _dot(self, p):
+        """PCG's inner product (None: the dot of the whole field)."""
+        return None
+
+    def _norm(self, x, p):
+        return torch.linalg.vector_norm(x)
+
+    def _flat(self, U) -> np.ndarray:
+        """A solve's field as the global (N+1, m) host array."""
+        return U.reshape(self.N + 1, self.m).cpu().numpy()
+
     def solve(
         self,
         tol: float = 1e-6,
@@ -861,25 +887,21 @@ class HeatSolver:
         if (checkpoint_path, checkpoint_every, resume_state) != (None,) * 3:
             raise _later("checkpointing", 6,
                          "PCG variants, checkpointing and the rest of the CLI")
-        gL, gR, u0_vec = self.assemble_rhs_host()
-        x0_dev = None
-        if x0 is not None:
-            x0_dev = torch.as_tensor(
-                np.asarray(x0), dtype=self.dtype, device=self.device
-            ).reshape((self.N + 1,) + self.gs)
+        gL, gR, u0_vec = self._loads(self.dtype)
+        x0_dev = None if x0 is None else self._x0(x0)
         p = self.params
         synchronize(self.device)
         t0 = _time.perf_counter()
         f = self.rhs_device(gL, gR, u0_vec, p)
         out = pcg(
             lambda U: self.apply_S(U, p), lambda R: self.apply_KX(R, p),
-            f, tol, maxiter, x0=x0_dev,
+            f, tol, maxiter, x0=x0_dev, dot=self._dot(p),
         )
         residuals = out.residuals.cpu().numpy()
         pres = out.precond_residuals.cpu().numpy()
         solve_seconds = _time.perf_counter() - t0
         t0 = _time.perf_counter()
-        U_flat = out.U.reshape(self.N + 1, self.m).cpu().numpy()
+        U_flat = self._flat(out.U)
         transfer_seconds = _time.perf_counter() - t0
         err = None
         if compute_error and self.problem.exact is not None:
@@ -923,7 +945,7 @@ class HeatSolver:
         p32 = self.params_for(torch.float32)
         _assert_dtype(p64, torch.float64)
         _assert_dtype(p32, torch.float32)
-        gL64, gR64, u064 = self.assemble_rhs_host(torch.float64)
+        gL64, gR64, u064 = self._loads(torch.float64)
         _assert_dtype([gL64, gR64, u064], torch.float64)
 
         S64 = lambda U: self.apply_S(U, p64)
@@ -933,7 +955,7 @@ class HeatSolver:
         synchronize(self.device)
         t0 = _time.perf_counter()
         f = self.rhs_device(gL64, gR64, u064, p64)
-        fnorm = float(torch.linalg.vector_norm(f))
+        fnorm = float(self._norm(f, p64))
         u = torch.zeros_like(f)
         hist = []
         iters_total = 0
@@ -946,7 +968,7 @@ class HeatSolver:
                 r, rnorm = f, fnorm
             else:
                 r = f - S64(u)
-                rnorm = float(torch.linalg.vector_norm(r))
+                rnorm = float(self._norm(r, p64))
                 f_real = rnorm / rnorm_prev
             rnorm_prev = rnorm
             hist.append(rnorm)
@@ -963,7 +985,8 @@ class HeatSolver:
             tol_k = min(tol_k, 0.3)
             r32 = (r / rnorm).to(torch.float32)
             del r
-            out = pcg(S32, KX32, r32, tol_k, inner_maxiter)
+            out = pcg(S32, KX32, r32, tol_k, inner_maxiter,
+                      dot=self._dot(p32))
             del r32
             iters_total += out.iterations
             u = u + rnorm * out.U.to(torch.float64)
@@ -971,7 +994,7 @@ class HeatSolver:
         synchronize(self.device)
         solve_seconds = _time.perf_counter() - t0
 
-        U_flat = u.reshape(self.N + 1, self.m).cpu().numpy()
+        U_flat = self._flat(u)
         err = None
         if compute_error and self.problem.exact is not None:
             err = self._l2_error(U_flat)

@@ -32,15 +32,24 @@ def pcg(
     tol: float,
     maxiter: int,
     x0: torch.Tensor | None = None,
+    dot: Callable | None = None,
 ) -> PCGResult:
-    """Solve S u = f with preconditioner K_X; stops at ||r|| <= tol*||f||."""
+    """Solve S u = f with preconditioner K_X; stops at ||r|| <= tol*||f||.
+
+    ``dot``: the global inner product of the caller's local blocks (the
+    mesh solvers: a masked local dot summed over the ranks); norms are then
+    sqrt(dot(x, x)), as in the JAX package's ``pcg(dot=)``."""
+    if dot is None:
+        dot, norm = _dot, torch.linalg.vector_norm
+    else:
+        norm = lambda x: torch.sqrt(dot(x, x))
     U = torch.zeros_like(f) if x0 is None else x0
     R = f - apply_S(U)
     Z = apply_KX(R)
     P = Z
-    rz = _dot(R, Z)
-    fnorm = torch.linalg.vector_norm(f)
-    rnorm = torch.linalg.vector_norm(R)
+    rz = dot(R, Z)
+    fnorm = norm(f)
+    rnorm = norm(R)
     res = torch.full((maxiter + 1,), float("nan"), dtype=f.dtype, device=f.device)
     pres = torch.full_like(res, float("nan"))
     res[0] = rnorm
@@ -51,13 +60,13 @@ def pcg(
     it = 0
     while it < maxiter and not done:
         SP = apply_S(P)
-        alpha = rz / _dot(P, SP)
+        alpha = rz / dot(P, SP)
         U = U + alpha * P
         R = R - alpha * SP
-        rnorm = torch.linalg.vector_norm(R)
+        rnorm = norm(R)
         res[it + 1] = rnorm
         Z = apply_KX(R)
-        rz_new = _dot(R, Z)
+        rz_new = dot(R, Z)
         pres[it + 1] = torch.sqrt(torch.clamp(rz_new, min=0.0))
         P = Z + (rz_new / rz) * P
         rz = rz_new

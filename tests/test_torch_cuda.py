@@ -2,9 +2,11 @@
 weighted K10–K15 (2-D and 3-D, the fused K6/K7 and K14/K15 at ν 2 and 3,
 the 3-D float64 K6/K14 at ν = 3 on their 4-plane bricks), the chained
 sweeps of K3/K10 above the tiled ν, the blocked-ELL SpMM K20, the
-banded-DIA K16–K18 (K16 at ν 1, 2, 3, 4) and the pair SpMM K19 on
-the card, against their plain twins, and small solves on the card against the
-CPU. Marked ``cuda``: they skip where
+banded-DIA K16–K18 (K16 at ν 1, 2, 3, 4), the pair SpMM K19 and the
+sharded-slab forms (K3 with ``vmask``, K6/K7/K8/K9 with ``lead``) on the
+card, against their plain twins, small solves on the card against the CPU,
+and a two-rank (time 1 × space 2) gloo solve on the card against the serial
+port. Marked ``cuda``: they skip where
 ``torch.cuda.is_available()`` is False (the kernels have no CPU mode). This
 file imports no JAX, so on a machine with a GPU and without JAX it runs as
 
@@ -659,6 +661,89 @@ def test_dia_wrappers_check_inputs(flat_levels):
         kl.apply_A(x.half(), vals)
 
 
+def _slab_vmask(E, rest, dtype):
+    """A (1, E, *rest) validity field: the first plane and the last two
+    invalid, as a slab at a mesh end with a padding plane has them."""
+    m = torch.ones(E, dtype=dtype)
+    m[[0, E - 2, E - 1]] = 0.0
+    return m.reshape((1, E) + (1,) * len(rest)).expand(
+        (1, E) + rest).contiguous().cuda()
+
+
+# (own, other extents): one brick on the lead axis, and several with a
+# ragged last one
+SLABS = {2: [(8, (15,)), (40, (33,))], 3: [(4, (7, 9)), (12, (9, 33))]}
+
+
+@pytest.mark.parametrize("slab", [0, 1])
+@pytest.mark.parametrize("dim, nu, h", [(2, 2, 3), (2, 3, 4), (2, 3, 5),
+                                        (3, 2, 3), (3, 2, 4), (3, 3, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sharded_kernels_match_twins(msmg, msmg3d, dtype, dim, nu, h, slab):
+    """The sharded-slab forms (K3 with vmask, K6/K7/K8/K9 with lead) at the
+    least coarse halos, odd and even h."""
+    T = 5
+    own, rest = SLABS[dim][slab]
+    gs = (own + 2 * h,) + rest
+    ms = msmg if dim == 2 else msmg3d
+    lev = ms.levels[0]
+    kl = MSKernelLevel(lev.A_st, lev.M_st, nu, gs=gs)
+    x, b, _, cols = _level_inputs(ms, kl, T, dtype, 10 * nu + h)
+    rng = np.random.default_rng(h)
+    mk = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
+    crest = kl.coarse_gs[1:]
+    hc = (h + 2) // 2
+    ec = mk(rng.standard_normal((T, own // 2 + 2 * hc) + crest))
+    ec1 = mk(rng.standard_normal((T, own // 2 + 2) + crest))
+    x_own = mk(rng.standard_normal((T, own) + rest))
+    vm = _slab_vmask(gs[0], rest, dtype)
+    mg_kernels.reset_launch_counts()
+    _close(kl.smooth(x, b, cols, vmask=vm),
+           kl.smooth_plain(x, b, cols, vmask=vm), dtype)
+    _close(kl.smooth(None, b, cols, zero_init=True, vmask=vm),
+           kl.smooth_plain(None, b, cols, zero_init=True, vmask=vm), dtype)
+    for got, want in zip(kl.sh_fused_pre(b, cols, vm, own, h),
+                         kl.sh_fused_pre_plain(b, cols, vm, own, h)):
+        _close(got, want, dtype)
+    _close(kl.sh_fused_post(x, b, ec, cols, vm, own, h, hc),
+           kl.sh_fused_post_plain(x, b, ec, cols, vm, own, h, hc), dtype)
+    _close(kl.sh_residual_restrict(x, b, cols, own, h),
+           kl.sh_residual_restrict_plain(x, b, cols, own, h), dtype)
+    _close(kl.sh_prolong_correct(x_own, ec1, own, 1),
+           kl.sh_prolong_correct_plain(x_own, ec1, own, 1), dtype)
+    d = "_3d" if dim == 3 else ""
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    counts = mg_kernels.launch_counts()
+    assert counts[f"K3 mg_sh_smooth{d} {sfx}"] == 2
+    for name in ("K6 mg_sh_fused_pre", "K7 mg_sh_fused_post",
+                 "K8 mg_sh_residual_restrict", "K9 mg_sh_prolong_correct"):
+        assert counts[f"{name}{d} {sfx}"] == 1, (name, counts)
+    assert sum(counts.values()) == 6
+
+
+@pytest.mark.parametrize("dim, nu", [(2, 9), (3, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sharded_chained_sweep_matches_twin(msmg, msmg3d, dtype, dim, nu):
+    """Above the tiled ν the vmask sweep chains mg_cheb_step with the
+    field."""
+    T = 5
+    own, rest = SLABS[dim][1]
+    gs = (own + 2 * (nu + 1),) + rest
+    ms = msmg if dim == 2 else msmg3d
+    lev = ms.levels[0]
+    kl = MSKernelLevel(lev.A_st, lev.M_st, nu, gs=gs)
+    x, b, _, cols = _level_inputs(ms, kl, T, dtype, nu)
+    vm = _slab_vmask(gs[0], rest, dtype)
+    mg_kernels.reset_launch_counts()
+    _close(kl.smooth(x, b, cols, vmask=vm),
+           kl.smooth_plain(x, b, cols, vmask=vm), dtype)
+    _close(kl.smooth(None, b, cols, zero_init=True, vmask=vm),
+           kl.smooth_plain(None, b, cols, zero_init=True, vmask=vm), dtype)
+    d = "_3d" if dim == 3 else ""
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    assert mg_kernels.launch_counts()[f"K3 mg_cheb_step{d} {sfx}"] == 2 * nu
+
+
 @pytest.mark.parametrize("name, kw", [
     ("nested", dict(refine=2, inner="mg")),
     ("amg", dict(inner="amg", mg_coarse=300)),
@@ -682,3 +767,30 @@ def test_small_flat_mg_solve_matches_cpu(flat_levels, name, kw):
     if name == "amg":
         assert counts["K19 ell_spmm_pair f64"] > 0
         assert counts["K20 ell_spmm f64"] > 0
+
+
+def test_two_rank_gloo_solve_matches_serial(msmg):
+    """A (time 1 × space 2) mesh of two ranks on the card over gloo (the
+    halos through host memory): the float64 smooth2d 17² × 16 solve takes
+    the serial port's iterations and history, and its one sharded level
+    runs the fused sharded stages K6/K7 (lead)."""
+    from spacetime_tpu_torch.ops import native
+    from spacetime_tpu_torch.parallel import make_spacetime_mesh
+    from spacetime_tpu_torch.parallel.launch import solve_specs, spawn_ranks
+
+    native.build()  # the ranks load this build
+    spec = {"problem": "smooth2d", "space_n": 16, "time_levels": 4,
+            "kw": {"inner": "mg", "space_n": 16},
+            "runs": [("solve", {"tol": 1e-8, "compute_error": False})]}
+    (out,) = spawn_ranks(solve_specs, make_spacetime_mesh(1, 2), "gloo",
+                         ([spec],))
+    ref = build_solver("smooth2d", 16, 4, device="cuda", inner="mg").solve(
+        tol=1e-8, compute_error=False)
+    r = out["runs"][0]
+    assert out["info"]["sp_depth"] == 1 and out["info"]["device"] == "cuda:0"
+    assert r["iterations"] == ref.iterations
+    np.testing.assert_allclose(r["residuals"], ref.residuals, rtol=1e-9)
+    np.testing.assert_allclose(r["U"], ref.U, atol=1e-10)
+    assert r["launches"]["K6 mg_sh_fused_pre f64"] > 0
+    assert r["launches"]["K7 mg_sh_fused_post f64"] > 0
+    assert r["bytes_staged"] > 0

@@ -2,6 +2,7 @@
 a missing GPU, and runs the plain twins (not the kernels) on CPU tensors."""
 
 import ast
+import os
 import subprocess
 import sys
 import textwrap
@@ -239,3 +240,48 @@ def test_bound_signatures_match_the_sources():
     for name, fn in bound.items():
         assert name in entries, name
         assert fn.argtypes == entries[name], name
+
+
+_MESH_NO_JAX = textwrap.dedent(
+    """
+    import sys
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in ("jax", "jaxlib", "spacetime_tpu"):
+                raise ImportError(f"{name} is blocked")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    from spacetime_tpu_torch.parallel import make_spacetime_mesh
+    from spacetime_tpu_torch.parallel.launch import solve_specs, spawn_ranks
+
+    if __name__ == "__main__":
+        spec = {"problem": "smooth2d", "space_n": 16, "time_levels": 3,
+                "kw": {"inner": "mg", "space_n": 16}}
+        (out,) = spawn_ranks(solve_specs, make_spacetime_mesh(2, 2, "cpu"),
+                             "gloo", ([spec],))
+        r = out["runs"][0]
+        assert r["converged"] and out["info"]["foreign"] == [], out["info"]
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib",
+                                               "spacetime_tpu"))
+        assert not loaded, loaded
+        print(r["iterations"])
+    """
+)
+
+
+def test_mesh_ranks_solve_without_the_jax_package(tmp_path):
+    """A (2 × 2) mesh of spawned CPU ranks solves with the JAX package and
+    JAX blocked from import in the parent; the ranks report no JAX loaded
+    (they are fresh processes that import the port alone)."""
+    script = tmp_path / "mesh_no_jax.py"
+    script.write_text(_MESH_NO_JAX)
+    out = subprocess.run(
+        [sys.executable, str(script)], cwd=REPO, capture_output=True,
+        text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(REPO)},
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) > 0
