@@ -279,9 +279,12 @@ REF_3D_NU4 = {"n": 16, "levels": 4, "iterations": 17,
 # --space-n 256 --time-levels 6 --dtype f32 --spatial dia --inner cheb
 # --rhs host``): 15 iterations to rel 8.003e-07, the count of its TPU run
 # (results_tpu/lshape_scale.log). The discretization error (5.1e-05)
-# dwarfs f32 rounding, so the band is 1%.
+# dwarfs f32 rounding, so the band is 1%. "blocked_steady_s": the steady
+# solve of this script's phase 26 on an NVIDIA H100 80GB HBM3 (700 W) when
+# K20 read the 128 × 128 blocks, printed beside the current one.
 REF_LSHAPE = {"n": 256, "levels": 6, "iterations": 15,
-              "l2": 5.147463862566411e-05, "l2_band": 0.01}
+              "l2": 5.147463862566411e-05, "l2_band": 0.01,
+              "blocked_steady_s": 15.7110}
 # lshape2d on the base mesh of 32 cells red-refined 4 times (m = 195,585,
 # 128 steps, 25.2 MDoF), f32, nested multigrid (levels 195,585 / 48,641 /
 # 12,033 / 2,945, coarse 705): the JAX package on the TPU took 15
@@ -295,9 +298,11 @@ REF_NESTED = {"n": 32, "refine": 4, "levels": 7, "iterations": 15,
 # python -m spacetime_tpu.run --backend jax --device cpu --problem lshape2d
 # --space-n 256 --time-levels 6 --dtype f32 --inner amg --rhs host``): 16
 # iterations to rel 9.213e-07, the count of its TPU run
-# (results_tpu/lshape_amg.log).
+# (results_tpu/lshape_amg.log). "blocked_steady_s" as REF_LSHAPE's, with
+# the blocked K19 and K20 (phase 29).
 REF_AMG = {"n": 256, "levels": 6, "iterations": 16,
-           "l2": 5.150423435807143e-05, "l2_band": 0.01}
+           "l2": 5.150423435807143e-05, "l2_band": 0.01,
+           "blocked_steady_s": 0.2835}
 # Small float64 solves of the flat hierarchies (every kernel's f64 form in
 # a solve, 2-D and 3-D): (label, problem, cells, refinements, time levels, solver options,
 # the JAX package's iterations and L2 on the CPU: ``HeatSolver(problem,
@@ -788,23 +793,36 @@ def chain_forms(kl, x, var: bool) -> dict:
 
 def ell_bound(csr, T, dtype) -> dict:
     """The least time of A·X for T rows, from the matrix's nonzeros (what
-    the data needs): values, int32 column indices and row pointers of the
-    CSR, X and Y once each; 2·nnz·T operations."""
+    the data needs; the L-shape's stiffness CSR also stores the zeros of
+    its diagonal edges, which are not counted): values, int32 column
+    indices and row pointers of the CSR, X and Y once each; 2·nnz·T
+    operations."""
     s = torch.finfo(dtype).bits // 8
-    m, nnz = csr.shape[0], csr.nnz
+    m, nnz = csr.shape[0], np.count_nonzero(csr.data)
     return bound(nnz * (s + 4) + (m + 1) * 4 + 2 * T * m * s,
                  2 * nnz * T, dtype)
 
 
-def ell_block_bound(ell, T, dtype) -> dict:
-    """The same for the blocked layout K20 reads: every stored block once
-    (zeros included), X and Y; 2·T·128² operations per block."""
+def packed_bound(pk, T, n_in, n_out, dtype) -> dict:
+    """The least time of K19/K20 on the layout they read: every packed
+    entry (pads included) once, its column and one value per matrix, the
+    slice offsets, X (T, n_in) once and each Y (T, n_out); 2 operations
+    per entry, matrix and time row."""
     s = torch.finfo(dtype).bits // 8
-    nrb, nslots, br, bc = ell.blocks.shape
-    m = ell.shape[0]
-    nb = nrb * nslots
-    return bound(nb * br * bc * s + nb * 4 + 2 * T * m * s,
-                 2 * T * br * bc * nb, dtype)
+    nmat, nent = pk.vals.shape
+    return bound(nent * (4 + nmat * s) + pk.slice_ptr.size * 4
+                 + T * (n_in + nmat * n_out) * s, 2 * nmat * nent * T, dtype)
+
+
+def layout_line(label, pk) -> str:
+    """The packed layout's entries, nonzeros, padding share and bytes."""
+    nmat, nent = pk.vals.shape
+    nz = int(np.any(pk.vals != 0, axis=0).sum())
+    w = np.diff(pk.slice_ptr) // 32
+    return (f"  layout {label}: {nent:,} entries for {nz:,} nonzeros "
+            f"(padding {1 - nz / max(nent, 1):.3f}), slice widths "
+            f"{int(w.min())}-{int(w.max())}, {nent * (4 + 4 * nmat):,} bytes "
+            f"f32, {nent * (4 + 8 * nmat):,} f64 ({nmat} value arrays)")
 
 
 def csr_on_card(csr, dtype):
@@ -847,8 +865,8 @@ def phase_k20(build_solver, spmv):
 
     f32, f64 = torch.float32, torch.float64
     n, J = REF_LSHAPE["n"], REF_LSHAPE["levels"]
-    phase(f"22 K20 (blocked-ELL SpMM) against its twin; the lshape2d n={n}, "
-          f"J={J} solver's setup (ell, inner cheb, f32)")
+    phase(f"22 K20 (packed blocked-ELL SpMM) against its twins; the lshape2d "
+          f"n={n}, J={J} solver's setup (ell, inner cheb, f32)")
     t0 = time.perf_counter()
     lsh = build_solver("lshape2d", n, J, dtype=f32, device=DEVICE,
                        spatial_format="ell", inner="cheb")
@@ -860,52 +878,65 @@ def phase_k20(build_solver, spmv):
           f"{[d for *_, d in spec['shift']]})", flush=True)
     small = P1System.from_mesh(l_shape_mesh(32))
     rnd = sp.random(300, 300, density=0.02, random_state=3, format="csr")
-    ell_mats = [("A n=256", lsh._ell["A"].ell, lsh.system.A, ELL_T),
-                ("M n=256", lsh._ell["M"].ell, lsh.system.M, (64,)),
-                ("A n=32", BlockedEll.from_csr(small.A), small.A, (33,)),
-                ("random m=300", BlockedEll.from_csr(rnd), rnd, (5,))]
+    ell_mats = [("A n=256", lsh._ell["A"], lsh.system.A, ELL_T),
+                ("M n=256", lsh._ell["M"], lsh.system.M, (64,)),
+                ("A n=32", spmv.EllOperator(BlockedEll.from_csr(small.A)),
+                 small.A, (33,)),
+                ("random m=300", spmv.EllOperator(BlockedEll.from_csr(rnd)),
+                 rnd, (5,))]
+    for label, op, csr, _ in ell_mats:
+        print(layout_line(label, op.packed), flush=True)
     rng = np.random.default_rng(SEED + 6)
     results = {}
     for dtype in (f32, f64):
         rec = results.setdefault(dtype, {"max_abs_err": 0.0, "forms": {}})
-        for label, ell, csr, Ts in ell_mats:
-            p = spmv.ell_params(ell, dtype, DEVICE)
-            m = ell.shape[0]
+        for label, op, csr, Ts in ell_mats:
+            p = spmv.packed_params(op.packed, dtype, DEVICE)
+            # the blocks only for the blocked twin: the kernel reads p
+            blocks = torch.as_tensor(op.ell.blocks, dtype=dtype,
+                                     device=DEVICE)
+            colidx = torch.as_tensor(op.ell.colidx, device=DEVICE)
+            m = op.m
             for T in Ts:
                 X = torch.as_tensor(rng.standard_normal((T, m)), dtype=dtype,
                                     device=DEVICE)
-                kfn = lambda: spmv.spmm(X, p["blocks"], p["colidx"], m)
-                tfn = lambda: spmv.spmm_plain(X, p["blocks"], p["colidx"], m)
-                got, want = kfn(), tfn()
+                kfn = lambda: spmv.spmm(X, p, m)
+                tfn = lambda: spmv.spmm_packed_plain(X, p, m)
+                bfn = lambda: spmv.spmm_plain(X, blocks, colidx, m)
+                got, want, wblk = kfn(), tfn(), bfn()
                 torch.cuda.synchronize()
                 err = float((got - want).abs().max())
-                scale = float(want.abs().max())
-                assert err <= TOL[dtype] * scale, (label, dtype, T, err, scale)
-                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                berr = float((got - wblk).abs().max())
+                scale = float(wblk.abs().max())
+                assert max(err, berr) <= TOL[dtype] * scale, (
+                    label, dtype, T, err, berr, scale)
+                rec["max_abs_err"] = max(rec["max_abs_err"], err, berr)
                 line = (f"  {label:12s} {str(dtype)[6:]:8s} T={T:3d}: "
-                        f"max|kernel-twin| {err:.3e} (max|twin| {scale:.3e})")
+                        f"max|kernel-twin| packed {err:.3e}, blocked "
+                        f"{berr:.3e} (max|twin| {scale:.3e})")
                 if label == "A n=256" and T in ELL_TIMED:
                     A_sp, Xt = csr_on_card(csr, dtype), X.t().contiguous()
                     lib = lambda: torch.sparse.mm(A_sp, Xt)
-                    lerr = float((lib().t() - want).abs().max())
+                    lerr = float((lib().t() - wblk).abs().max())
                     assert lerr <= TOL[dtype] * scale, (lerr, scale)
                     entry = {"ms": device_ms(kfn), "plain_ms": device_ms(tfn),
+                             "blocked_plain_ms": device_ms(bfn),
                              "library_ms": device_ms(lib),
                              **ell_bound(csr, T, dtype)}
-                    blk = ell_block_bound(ell, T, dtype)
-                    entry["block_bound_ms"] = blk["bound_ms"]
-                    entry["block_bound_by"] = blk["bound_by"]
+                    lay = packed_bound(op.packed, T, m, m, dtype)
+                    entry["layout_bound_ms"] = lay["bound_ms"]
                     rec["forms"][f"A n=256 T={T}"] = entry
-                    line += (f"; kernel {entry['ms']:.4f} ms, twin "
-                             f"{entry['plain_ms']:.4f} ms, torch.sparse.mm "
-                             f"(cuSPARSE CSR) {entry['library_ms']:.4f} ms "
-                             f"(max|lib-twin| {lerr:.3e}); bound "
-                             f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}"
-                             f", nnz), blocks' bound {blk['bound_ms']:.4f} ms "
-                             f"({blk['bound_by']})")
+                    line += (f"; kernel {entry['ms']:.4f} ms, packed twin "
+                             f"{entry['plain_ms']:.4f} ms, blocked twin "
+                             f"{entry['blocked_plain_ms']:.4f} ms, "
+                             f"torch.sparse.mm (cuSPARSE CSR) "
+                             f"{entry['library_ms']:.4f} ms (max|lib-twin| "
+                             f"{lerr:.3e}); bound {entry['bound_ms']:.4f} ms "
+                             f"({entry['bound_by']}, nnz), layout's bound "
+                             f"{lay['bound_ms']:.4f} ms ({lay['bound_by']})")
                 print(line, flush=True)
-                del X, got, want
-            del p
+                del X, got, want, wblk
+            del p, blocks
         torch.cuda.empty_cache()
     return lsh, results
 
@@ -1076,7 +1107,8 @@ def phase_lshape(lsh, paths):
     l2 = lsh._l2_error(runs[0].U)
     print(f"L2(IxOmega) {l2:.6e} (JAX CPU {REF_LSHAPE['l2']:.6e}), host "
           f"error loop {time.perf_counter() - t0:.2f}"
-          f" s; steady solve {runs[1].solve_seconds:.4f} s")
+          f" s; steady solve {runs[1].solve_seconds:.4f} s (with the blocked "
+          f"K20: {REF_LSHAPE['blocked_steady_s']} s)")
     assert abs(l2 / REF_LSHAPE["l2"] - 1.0) <= REF_LSHAPE["l2_band"], l2
 
 
@@ -1211,18 +1243,9 @@ def pair_bound(csrs, T, dtype) -> dict:
     operations per row of X."""
     sz = torch.finfo(dtype).bits // 8
     m = csrs[0].shape[0]
-    nnz = sum(c.nnz for c in csrs)
+    nnz = sum(np.count_nonzero(c.data) for c in csrs)
     return bound(nnz * (sz + 4) + 2 * (m + 1) * 4 + 3 * T * m * sz,
                  2 * nnz * T, dtype)
-
-
-def pair_block_bound(ek, T, dtype) -> dict:
-    """The same for the stored blocks K19 reads (zeros included)."""
-    sz = torch.finfo(dtype).bits // 8
-    nrb, nslots = ek._colop.shape
-    nb = nrb * nslots
-    return bound(2 * nb * 128 * 128 * sz + nb * 4 + 3 * T * ek.m * sz,
-                 4 * T * 128 * 128 * nb, dtype)
 
 
 def flat_per_solve(solver, iterations: int) -> dict:
@@ -1364,62 +1387,87 @@ def phase_flat_kernels(build_solver, lsh, spmv):
                             f"AMG L0 m={lev.m}", False, None)
         lev = [lv for lv in amg.msmg.levels if lv.fmt == "ell"][0]
         ek = [k for k in amg._kl_ky if k.kind == "ell"][0]
+        if dtype == f32:
+            for name, pk in ek.packed.items():
+                print(layout_line(f"AMG L1 {name}", pk), flush=True)
         v = ek.values(lev, dtype, DEVICE)
+        # the blocks only for the blocked twins: the kernels read v
+        blk = {k: (torch.as_tensor(c, device=DEVICE),
+                   [torch.as_tensor(b, dtype=dtype, device=DEVICE)
+                    for b in bs]) for k, (c, bs) in ek.blocked.items()}
         csrs = [_ell_to_csr(lev.eidx, w, lev.m) for w in (lev.ewA, lev.ewM)]
+        (cop, (bA, bM)), (cP, (bP,)), (cR, (bR,)) = (
+            blk["op"], blk["P"], blk["R"])
         for T in PAIR_T:
             X = torch.as_tensor(rng.standard_normal((T, ek.m)), dtype=dtype,
                                 device=DEVICE)
             E = torch.as_tensor(rng.standard_normal((T, ek.mc)), dtype=dtype,
                                 device=DEVICE)
-            forms = {
+            forms = {  # the kernel, its packed twin, its blocked twin
                 ("spmm_pair", "pair"): (
                     lambda: ek.op_pair(X, v),
-                    lambda: spmv.spmm_pair_plain(X, v["bA"], v["bM"],
-                                                 v["colop"], ek.m)),
+                    lambda: spmv.spmm_pair_packed_plain(X, v["op"], ek.m),
+                    lambda: spmv.spmm_pair_plain(X, bA, bM, cop, ek.m)),
                 ("spmm", "interp"): (
                     lambda: (ek.interp(E, v),),
-                    lambda: (spmv.spmm_plain(E, v["bP"], v["colP"], ek.m),)),
+                    lambda: (spmv.spmm_packed_plain(E, v["P"], ek.m),),
+                    lambda: (spmv.spmm_plain(E, bP, cP, ek.m),)),
                 ("spmm", "restrict"): (
                     lambda: (ek.restrict(X, v),),
-                    lambda: (spmv.spmm_plain(X, v["bR"], v["colR"], ek.mc),)),
+                    lambda: (spmv.spmm_packed_plain(X, v["R"], ek.mc),),
+                    lambda: (spmv.spmm_plain(X, bR, cR, ek.mc),)),
             }
-            for (op, form), (kfn, tfn) in forms.items():
-                got, want = kfn(), tfn()
+            for (op, form), (kfn, tfn, bfn) in forms.items():
+                got, want, wblk = kfn(), tfn(), bfn()
                 torch.cuda.synchronize()
                 err = max(float((g - w).abs().max()) for g, w in
                           zip(got, want))
-                scale = max(float(w.abs().max()) for w in want)
-                assert err <= TOL[dtype] * scale, (form, dtype, T, err)
+                berr = max(float((g - w).abs().max()) for g, w in
+                           zip(got, wblk))
+                scale = max(float(w.abs().max()) for w in wblk)
+                assert max(err, berr) <= TOL[dtype] * scale, (
+                    form, dtype, T, err, berr)
                 line = (f"  {form:9s} {str(dtype)[6:]:8s} AMG L1 m={ek.m} "
-                        f"T={T}: max|kernel-twin| {err:.3e} (max|twin| "
-                        f"{scale:.3e})")
+                        f"T={T}: max|kernel-twin| packed {err:.3e}, blocked "
+                        f"{berr:.3e} (max|twin| {scale:.3e})")
                 if op == "spmm_pair":
                     rec = results.setdefault((op, dtype), {
                         "max_abs_err": 0.0, "forms": {}})
-                    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                    rec["max_abs_err"] = max(rec["max_abs_err"], err, berr)
                     sps = [csr_on_card(c, dtype) for c in csrs]
                     Xt = X.t().contiguous()
                     lib = lambda: tuple(torch.sparse.mm(a, Xt) for a in sps)
                     lerr = max(float((g.t() - w).abs().max())
-                               for g, w in zip(lib(), want))
+                               for g, w in zip(lib(), wblk))
                     assert lerr <= TOL[dtype] * scale, (lerr, scale)
                     entry = {"ms": device_ms(kfn), "plain_ms": device_ms(tfn),
-                             "library_ms": device_ms(lib), "max_abs_err": err,
+                             "blocked_plain_ms": device_ms(bfn),
+                             "library_ms": device_ms(lib),
+                             "max_abs_err": max(err, berr),
                              **pair_bound(csrs, T, dtype)}
-                    blk = pair_block_bound(ek, T, dtype)
-                    entry["block_bound_ms"] = blk["bound_ms"]
-                    entry["block_bound_by"] = blk["bound_by"]
+                    lay = packed_bound(ek.packed["op"], T, ek.m, ek.m, dtype)
+                    entry["layout_bound_ms"] = lay["bound_ms"]
                     rec["forms"][f"pair T={T} m={ek.m}"] = entry
-                    line += (f"; kernel {entry['ms']:.4f} ms, twin "
-                             f"{entry['plain_ms']:.4f} ms, 2x torch.sparse.mm"
-                             f" {entry['library_ms']:.4f} ms (max|lib-twin| "
-                             f"{lerr:.3e}); bound {entry['bound_ms']:.4f} ms "
-                             f"({entry['bound_by']}, nnz), blocks' bound "
-                             f"{blk['bound_ms']:.4f} ms ({blk['bound_by']})")
+                    line += (f"; kernel {entry['ms']:.4f} ms, packed twin "
+                             f"{entry['plain_ms']:.4f} ms, blocked twin "
+                             f"{entry['blocked_plain_ms']:.4f} ms, 2x "
+                             f"torch.sparse.mm {entry['library_ms']:.4f} ms "
+                             f"(max|lib-twin| {lerr:.3e}); bound "
+                             f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}"
+                             f", nnz), layout's bound {lay['bound_ms']:.4f} ms"
+                             f" ({lay['bound_by']})")
+                else:
+                    pk, n_in, n_out = (
+                        (ek.packed["P"], ek.mc, ek.m) if form == "interp"
+                        else (ek.packed["R"], ek.m, ek.mc))
+                    lay = packed_bound(pk, T, n_in, n_out, dtype)
+                    line += (f"; kernel {device_ms(kfn):.4f} ms, packed twin "
+                             f"{device_ms(tfn):.4f} ms, layout's bound "
+                             f"{lay['bound_ms']:.4f} ms ({lay['bound_by']})")
                 print(line, flush=True)
-                del got, want
+                del got, want, wblk
             del X, E
-        del v
+        del v, blk
         torch.cuda.empty_cache()
     return nst, amg, results
 
@@ -1481,9 +1529,11 @@ def run_flat_solve(solver, paths, label, ref, calls=2):
         counts)
     t0 = time.perf_counter()
     l2 = solver._l2_error(runs[0].U)
+    blocked = (f" (with the blocked K19/K20: {ref['blocked_steady_s']} s)"
+               if "blocked_steady_s" in ref else "")
     print(f"L2(IxOmega) {l2:.6e} (reference {ref['l2']:.6e}), host error "
           f"loop {time.perf_counter() - t0:.2f} s; steady solve "
-          f"{runs[-1].solve_seconds:.4f} s")
+          f"{runs[-1].solve_seconds:.4f} s{blocked}")
     assert abs(l2 / ref["l2"] - 1.0) <= ref["l2_band"], l2
     return runs, counts
 

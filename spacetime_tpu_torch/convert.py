@@ -14,8 +14,8 @@ format and inner solver:
   keeps (T, 1, ..., 1) columns and (T,) vectors;
 - ``"stencil"``: ``kron`` (taken from the row scales where the JAX solver
   built no Pallas B/Bᵀ); ``"vstencil"``: the weights ``Aw``; ``"dia"``:
-  ``dia_Mv``/``dia_Av``; ``"ell"``: also ``ell_M``/``ell_A`` (blocks,
-  colidx int32). A JAX f64 solver on ``"ell"`` holds no ELL arrays (it
+  ``dia_Mv``/``dia_Av``; ``"ell"``: also ``ell_M``/``ell_A``, the JAX
+  blocks packed to K20's row-packed layout (``ell_params_from_jax``). A JAX f64 solver on ``"ell"`` holds no ELL arrays (it
   falls back to DIA) and the port's ``"ell"`` format needs them, so only
   f32 JAX trees carry that format over;
 - ``inner="dense"``: ``Kx_inv``, ``Minv`` and the ``sandwich`` list;
@@ -35,9 +35,10 @@ format and inner solver:
   values or ELL gather rows and factored-transfer arrays, ``cheb_invM`` and
   ``cheb_coefM``, and the kernels' values ``kv``: the union-offset DIA
   values (from the level's ``Av``/``Mv`` and the offsets of ``hierarchy``,
-  the host structure of either package) or the blocked-ELL arrays,
-  re-laid from the level's gather rows (the JAX kernels' ``plv``/``ellv``
-  are left: the same values in the TPU's layout).
+  the host structure of either package) or the packed K19/K20 layouts,
+  re-laid from the level's gather rows through blocked ELL (the JAX
+  kernels' ``plv``/``ellv`` are left: the same values in the TPU's
+  layout).
 
 Tests hold the two solvers' params and operators equal through this.
 
@@ -100,6 +101,17 @@ def _flat_level(lp, lev, device, dtype, shared: dict, li: int) -> dict:
     return q
 
 
+def ell_params_from_jax(ell: dict, m: int, dtype, device) -> dict:
+    """K20's packed params (``ops.spmv.packed_params``) of a JAX
+    ``EllOperator``'s ``{"blocks", "colidx"}`` for a matrix of ``m`` rows,
+    packed from those blocks by ``ops.spmv.pack_blocks``."""
+    from .ops.spmv import pack_blocks, packed_params
+
+    packed = pack_blocks([np.asarray(ell["blocks"])],
+                         np.asarray(ell["colidx"]), m)
+    return packed_params(packed, dtype, device)
+
+
 def params_from_jax(tree: dict, device, dtype, hierarchy=None) -> dict:
     mk = lambda a: torch.tensor(np.asarray(a), dtype=dtype, device=device)
     dim = np.asarray(tree["h_half"]).ndim - 1
@@ -130,12 +142,10 @@ def params_from_jax(tree: dict, device, dtype, hierarchy=None) -> dict:
         p["Aw"] = mk(tree["Aw"])
     elif flat:
         p["dia_Mv"], p["dia_Av"] = mk(tree["dia_Mv"]), mk(tree["dia_Av"])
+        m = np.asarray(tree["dia_Mv"]).shape[0]
         for k in ("ell_M", "ell_A"):
             if k in tree:
-                p[k] = {"blocks": mk(tree[k]["blocks"]),
-                        "colidx": torch.tensor(np.asarray(tree[k]["colidx"]),
-                                               dtype=torch.int32,
-                                               device=device)}
+                p[k] = ell_params_from_jax(tree[k], m, dtype, device)
     else:
         kr = tree.get("kron")
         h128 = _rows(kr["h128"]) if kr is not None else _rows(tree["h_half"])

@@ -285,10 +285,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                              D, P],
             "mg_cheb_step_var": [P, P, P, P, P, P, P, P, P, P, *grid, P, P, I,
                                  D, D, P],
-            # ell.cu: X, nt, n, blocks, colidx, nrb, nslots, Y, n_out
-            "ell_spmm": [P, I64, I64, P, P, I64, I64, P, I64, P],
-            # X, nt, n, blocksA, blocksM, colidx, nrb, nslots, YA, YM, n_out
-            "ell_spmm_pair": [P, I64, I64, P, P, P, I64, I64, P, P, I64, P],
+            # ell.cu: X, nt, n, slice_ptr, col, vals, nslices, Y, n_out
+            "ell_spmm": [P, I64, I64, P, P, P, I64, P, I64, P],
+            # X, nt, n, slice_ptr, col, valsA, valsM, nslices, YA, YM, n_out
+            "ell_spmm_pair": [P, I64, I64, P, P, P, P, I64, P, P, I64, P],
             # dia.cu, one K16 step: x, b, vA, vM, dA, dM, the columns, r,
             # d_in, d_out, x_out, nt, m, the offsets, first, c1, c2
             "dia_smooth": [P, P, P, P, P, P, P, P, P, P, P, P, P, I64, I64, P,

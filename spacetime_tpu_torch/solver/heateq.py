@@ -540,7 +540,7 @@ class HeatSolver:
         scales are (T, 1, ..., 1) columns over the layout's axes. By format:
         ``kron`` (stencil: the (T,) vectors h/2 and h/16 of K1/K2), ``Aw``
         (vstencil: the finest level's weights), ``dia_Mv``/``dia_Av``
-        (dia, ell) and ``ell_M``/``ell_A`` (ell: blocks and colidx). By
+        (dia, ell) and ``ell_M``/``ell_A`` (ell: K20's packed layout). By
         inner solver: ``Kx_inv``, ``Minv``, ``sandwich`` (dense); the
         Jacobi vectors ``cheb_inv*`` and coefficient rows ``cheb_coef*``
         (cheb; the rows as Python floats rounded to ``dtype``); the coarse

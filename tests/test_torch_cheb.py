@@ -140,6 +140,9 @@ def test_params_from_jax_reproduce_operators(problem, n, J, fmt, inner, dt,
     assert ("ell_A" in tree) == (fmt == "ell")
     p = params_from_jax(tree, "cpu", tdt)
     assert set(p) == set(ps.params)
+    for k in ("ell_A", "ell_M") if fmt == "ell" else ():
+        # the JAX blocks packed as the port packs its own
+        assert all(torch.equal(p[k][a], ps.params[k][a]) for a in p[k]), k
     rng = np.random.default_rng(n)
     npdt = np.float64 if dt == "f64" else np.float32
     U = rng.standard_normal((ps.N + 1,) + ps.gs).astype(npdt)

@@ -512,20 +512,28 @@ def ell_mats():
     return [BlockedEll.from_csr(A) for A in (system.A, system.M, R)]
 
 
-# every tile variant of csrc/ell.cu: 1 row per thread (T ≤ 8), 2 (≤ 16),
+# every time-row tile of csrc/ell.cu: 1 row per thread (T ≤ 8), 2 (≤ 16),
 # 4 (≤ 32) and 8, at the variants' edges and a ragged last tile
 @pytest.mark.parametrize("T", [1, 5, 16, 32, 33, 64, 65])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_ell_spmm_matches_twin(ell_mats, dtype, T):
+    """K20 on the packed layout against the blocked twin (the blocks
+    uploaded for the check), the packed twin and ``matvec_np``; the rows
+    of ``apply_padded`` past the matrix are exactly 0; the operator's
+    params hold no 128 × 128 block tensor."""
     rng = np.random.default_rng(T)
     spmv.reset_launch_counts()
     for ell in ell_mats:
         op = spmv.EllOperator(ell, dtype, "cuda")
+        assert all(t.dim() < 3 for t in op.params.values())
         X = torch.as_tensor(rng.standard_normal((T, op.m)), dtype=dtype,
                             device="cuda")
-        want = spmv.spmm_plain(X, op.params["blocks"], op.params["colidx"],
-                               op.m)
-        _close(op.apply(X), want, dtype)
+        want = spmv.spmm_plain(
+            X, torch.as_tensor(ell.blocks, dtype=dtype, device="cuda"),
+            torch.as_tensor(ell.colidx, device="cuda"), op.m)
+        got = op.apply(X)
+        _close(got, want, dtype)
+        _close(got, spmv.spmm_packed_plain(X, op.params, op.m), dtype)
         np.testing.assert_allclose(
             want.cpu().numpy(), ell.matvec_np(X.cpu().numpy()),
             rtol=0, atol=TOL[dtype] * float(want.abs().max()))
@@ -533,6 +541,7 @@ def test_ell_spmm_matches_twin(ell_mats, dtype, T):
         got = op.apply_padded(Xp)
         assert got.shape == (T, op.nrb * ell.br)
         _close(got[:, :op.m], want, dtype)
+        assert bool((got[:, op.m:] == 0).all())
     sfx = "f32" if dtype == torch.float32 else "f64"
     assert spmv.launch_counts()[f"K20 ell_spmm {sfx}"] == 2 * len(ell_mats)
 
@@ -546,6 +555,8 @@ def test_ell_wrapper_checks_inputs(ell_mats):
         op.apply(torch.zeros((op.m, 3), device="cuda").t())
     with pytest.raises(TypeError, match="float32 and float64"):
         op.apply(X.half())
+    with pytest.raises(ValueError, match="n_out"):
+        spmv.spmm(X, op.params, op.nrb * ell_mats[0].br + 1)
 
 
 @pytest.mark.parametrize("inner", ["dense", "cheb"])
@@ -621,26 +632,38 @@ def test_dia_kernels_match_twins(flat_levels, dtype, T, nu, nu_post):
     assert counts[f"K18 dia_apply {sfx}"] == 1
 
 
-@pytest.mark.parametrize("T", [1, 9, 33, 65])
+@pytest.mark.parametrize("T", [1, 5, 16, 32, 33, 64, 65])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_ell_pair_and_transfers_match_twins(flat_levels, dtype, T):
+    """K19 and the K20 transfers on an SA level against the blocked twins
+    (the level's blocks uploaded for the check) and the packed twins."""
     lev = flat_levels[1]
     ek = spmv.EllKernelLevel(lev)
     v = ek.values(lev, dtype, "cuda")
+    assert all(t.dim() < 3 for pv in v.values() for t in pv.values())
+    blk = {k: (torch.as_tensor(c, device="cuda"),
+               [torch.as_tensor(b, dtype=dtype, device="cuda") for b in bs])
+           for k, (c, bs) in ek.blocked.items()}
     rng = np.random.default_rng(T)
     x = torch.as_tensor(rng.standard_normal((T, ek.m)), dtype=dtype,
                         device="cuda")
     e = torch.as_tensor(rng.standard_normal((T, ek.mc)), dtype=dtype,
                         device="cuda")
     spmv.reset_launch_counts()
-    got, want = ek.op_pair(x, v), spmv.spmm_pair_plain(
-        x, v["bA"], v["bM"], v["colop"], ek.m)
-    for g, w in zip(got, want):
-        _close(g, w, dtype)
-    _close(ek.interp(e, v), spmv.spmm_plain(e, v["bP"], v["colP"], ek.m),
-           dtype)
-    _close(ek.restrict(x, v), spmv.spmm_plain(x, v["bR"], v["colR"], ek.mc),
-           dtype)
+    got = ek.op_pair(x, v)
+    c, (bA, bM) = blk["op"]
+    for want in (spmv.spmm_pair_plain(x, bA, bM, c, ek.m),
+                 spmv.spmm_pair_packed_plain(x, v["op"], ek.m)):
+        for g, w in zip(got, want):
+            _close(g, w, dtype)
+    got = ek.interp(e, v)
+    c, (bP,) = blk["P"]
+    _close(got, spmv.spmm_plain(e, bP, c, ek.m), dtype)
+    _close(got, spmv.spmm_packed_plain(e, v["P"], ek.m), dtype)
+    got = ek.restrict(x, v)
+    c, (bR,) = blk["R"]
+    _close(got, spmv.spmm_plain(x, bR, c, ek.mc), dtype)
+    _close(got, spmv.spmm_packed_plain(x, v["R"], ek.mc), dtype)
     sfx = "f32" if dtype == torch.float32 else "f64"
     assert spmv.launch_counts()[f"K19 ell_spmm_pair {sfx}"] == 1
     assert spmv.launch_counts()[f"K20 ell_spmm {sfx}"] == 2

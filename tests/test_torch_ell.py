@@ -1,7 +1,13 @@
 """The flat-dof formats against the JAX package: ``BlockedEll`` bit for bit,
-the K20 twin (``ops.spmv.spmm_plain``) and ``EllOperator`` against the JAX
-``_spmm_call`` in interpret mode, and ``dia_matvec``, in float32 and
-float64. The kernel itself runs on the card (``tests/test_torch_cuda.py``)."""
+the K20 blocked twin (``ops.spmv.spmm_plain``) and ``EllOperator`` (the
+packed twin on CPU tensors) against the JAX ``_spmm_call`` in interpret
+mode, and ``dia_matvec``, in float32 and float64; the row-packed layout
+that K19 and K20 read (``pack_blocks``: the nonzeros, their order, the
+pads, the widths), the packed twins against the blocked ones and numpy
+on the L-shape's A and M, a ragged random matrix and an SA level's pair,
+P and R, K19's packed twin against the JAX ``_spmm_pair_call`` in
+interpret mode, and ``convert.ell_params_from_jax``. The kernels
+themselves run on the card (``tests/test_torch_cuda.py``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -90,13 +96,14 @@ def test_spmm_twin_matches_jax_interpret(mats, name, dtype, T):
     want = _spmm_call(jnp.asarray(ell.colidx), jnp.asarray(ell.blocks, jdt),
                       jnp.asarray(Xp), nrb=nrb, nslots=nslots, br=ell.br,
                       bc=ell.bc, interpret=True)
-    p = spmv.ell_params(ell, dtype, "cpu")
     spmv.reset_launch_counts()
-    got = spmv.spmm_plain(torch.as_tensor(Xp), p["blocks"], p["colidx"],
-                          nrb * ell.br)
+    got = spmv.spmm_plain(torch.as_tensor(Xp),
+                          torch.as_tensor(ell.blocks, dtype=dtype),
+                          torch.as_tensor(ell.colidx), nrb * ell.br)
     assert got.dtype == dtype and got.shape == (T, nrb * ell.br)
     _close(got, want, dtype)
-    # the wrapper on a CPU tensor: the twin, unpadded rows in and out
+    # the wrapper on a CPU tensor: the packed twin, unpadded rows in and
+    # out
     op, jop = spmv.EllOperator(ell, dtype), JEllOperator(ell, jdt,
                                                          interpret=True)
     _close(op.apply(torch.as_tensor(X)), jop.apply(jnp.asarray(X)), dtype)
@@ -141,3 +148,144 @@ def test_ell_solver_runs_the_twin_on_cpu():
     assert r_ell.iterations == r_dia.iterations
     np.testing.assert_allclose(r_ell.residuals, r_dia.residuals, rtol=1e-10)
     assert all(n == 0 for n in spmv.launch_counts().values())
+
+
+# ------------------------------------------------ the packed layout (K19/K20)
+
+# max|packed twin − reference| ≤ tol · max|reference|: the same products,
+# summed entry by entry where the blocked twin sums block products
+PACK_TOL = {torch.float32: 1e-5, torch.float64: 1e-13}
+LAYOUTS = ["A", "M", "random", "op", "P", "R"]
+
+
+@pytest.fixture(scope="module")
+def layouts(mats):
+    """Each matrix of the packing checks as (blocks, colidx, m, ncols, ref):
+    the n = 32 L-shape's A and M and the ragged random m = 300 in
+    ``BlockedEll``, and the SA hierarchy's aggregated level of the 64-cell
+    L-shape (m = 511): the A/M pair on their union pattern, P and R = Pᵀ,
+    re-laid by ``ell_to_blocked``. ``ref`` (X (T, ncols) -> [Y (T, m)]) is
+    ``matvec_np``, or the level's gather rows summed in numpy."""
+    from spacetime_tpu_torch.ops.multigrid import SAMultiShiftMultigrid
+
+    out = {}
+    for name in ("A", "M", "random"):
+        ell = BlockedEll.from_csr(mats[name])
+        out[name] = ([ell.blocks], ell.colidx, ell.shape[0], ell.shape[1],
+                     lambda X, ell=ell: [ell.matvec_np(X)])
+    s = fem.P1System.from_mesh(fem.l_shape_mesh(64))
+    sa, _ = SAMultiShiftMultigrid.build(s.A, s.M, m_coarse=300)
+    lev = [lev for lev in sa.levels if lev.fmt == "ell"][0]
+    ek = spmv.EllKernelLevel(lev)
+    gather = lambda idx, ws: lambda X: [
+        np.einsum("tmk,mk->tm", X[:, idx], w) for w in ws]
+    refs = {"op": (ek.m, ek.m, gather(lev.eidx, [lev.ewA, lev.ewM])),
+            "P": (ek.m, ek.mc, gather(lev.Pidx, [lev.Pw])),
+            "R": (ek.mc, ek.m, gather(lev.Ridx, [lev.Rw]))}
+    for name, (m, ncols, ref) in refs.items():
+        colidx, blocks = ek.blocked[name]
+        out[name] = (blocks, colidx, m, ncols, ref)
+    return out
+
+
+@pytest.mark.parametrize("name", LAYOUTS)
+def test_pack_keeps_the_nonzeros(layouts, name):
+    """Every entry nonzero in any value array, in slot-then-column order and
+    no other, at the front of its row; pads 0 at a valid column; rows ≥ m
+    empty; each slice as wide as its longest row."""
+    blocks, colidx, m, ncols, _ = layouts[name]
+    pk = spmv.pack_blocks(blocks, colidx, m)
+    nrb, nslots, br, bc = blocks[0].shape
+    rows = spmv.WARP * (pk.slice_ptr.size - 1)
+    assert rows == nrb * br and pk.slice_ptr.dtype == np.int32
+    assert pk.col.dtype == np.int32 and pk.vals.shape == (len(blocks),
+                                                          pk.col.size)
+    width = np.diff(pk.slice_ptr) // spmv.WARP
+    assert (np.diff(pk.slice_ptr) % spmv.WARP == 0).all()
+    count = np.zeros(rows, int)
+    for r in range(rows):
+        rb, i = divmod(r, br)
+        want = [(colidx[rb, s] * bc + k, [b[rb, s, i, k] for b in blocks])
+                for s in range(nslots)
+                for k in np.flatnonzero(np.any([b[rb, s, i] != 0
+                                                for b in blocks], axis=0))]
+        sl, lane = divmod(r, spmv.WARP)
+        at = pk.slice_ptr[sl] + spmv.WARP * np.arange(width[sl]) + lane
+        kept = np.any(pk.vals[:, at] != 0, axis=0)
+        count[r] = kept.sum()
+        assert not kept[count[r]:].any(), r  # the pads come last
+        got = [(c, list(v)) for c, v in zip(pk.col[at][kept],
+                                             pk.vals[:, at][:, kept].T)]
+        assert got == want, r
+        assert (pk.col[at] < ncols).all() and (pk.col[at] >= 0).all()
+    assert not count[m:].any()
+    np.testing.assert_array_equal(width, count.reshape(-1, spmv.WARP).max(1))
+
+
+@pytest.mark.parametrize("T", [1, 5, 33])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", LAYOUTS)
+def test_packed_twin_matches_blocked_twin(layouts, name, dtype, T):
+    """The packed twin (the CPU path of ``spmm`` / ``spmm_pair``) against
+    the blocked twin and the numpy reference, no launch."""
+    blocks, colidx, m, ncols, ref = layouts[name]
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    X = np.random.default_rng(T).standard_normal((T, ncols)).astype(npdt)
+    p = spmv.packed_params(spmv.pack_blocks(blocks, colidx, m), dtype, "cpu")
+    Xt, ci = torch.as_tensor(X), torch.as_tensor(colidx)
+    spmv.reset_launch_counts()
+    if len(blocks) == 2:
+        got = spmv.spmm_pair(Xt, p, m)
+        blk = spmv.spmm_pair_plain(Xt, *(torch.as_tensor(b, dtype=dtype)
+                                         for b in blocks), ci, m)
+    else:
+        got = (spmv.spmm(Xt, p, m),)
+        blk = (spmv.spmm_plain(Xt, torch.as_tensor(blocks[0], dtype=dtype),
+                               ci, m),)
+    assert all(n == 0 for n in spmv.launch_counts().values())
+    for g, b, r in zip(got, blk, ref(X.astype(np.float64))):
+        assert g.dtype == dtype and g.shape == (T, m)
+        for want in (b.numpy(), r):
+            np.testing.assert_allclose(
+                g.numpy(), want, rtol=0,
+                atol=PACK_TOL[dtype] * np.abs(want).max())
+
+
+@pytest.mark.parametrize("T", [1, 33])
+def test_packed_pair_twin_matches_jax_interpret(layouts, T):
+    """K19's packed twin against the JAX ``_spmm_pair_call`` in interpret
+    mode (f32, as the TPU ran it) on the SA level's A/M pair."""
+    from spacetime_tpu.ops.ell_pallas import _spmm_pair_call
+
+    (bA, bM), colidx, m, ncols, _ = layouts["op"]
+    nrb, nslots, br, bc = bA.shape
+    X = np.random.default_rng(T).standard_normal((T, ncols)).astype(
+        np.float32)
+    Xp = np.pad(X, ((0, 0), (0, -(-ncols // bc) * bc - ncols)))
+    want = _spmm_pair_call(jnp.asarray(colidx), jnp.asarray(bA, jnp.float32),
+                           jnp.asarray(bM, jnp.float32), jnp.asarray(Xp),
+                           nrb=nrb, nslots=nslots, br=br, bc=bc,
+                           interpret=True)
+    p = spmv.packed_params(spmv.pack_blocks([bA, bM], colidx, m),
+                           torch.float32, "cpu")
+    for g, w in zip(spmv.spmm_pair_packed_plain(torch.as_tensor(X), p, m),
+                    want):
+        _close(g, np.asarray(w)[:, :m], torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["A", "M"])
+def test_ell_params_from_jax_equal_the_ports(mats, name, dtype):
+    """``convert.ell_params_from_jax`` on a JAX ``EllOperator``'s params
+    gives the port's own ``EllOperator`` params, exactly."""
+    from spacetime_tpu_torch.convert import ell_params_from_jax
+
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.float64
+    jell = JBlockedEll.from_csr(mats[name])
+    tree = {k: np.asarray(v) for k, v in JEllOperator(jell, jdt).params.items()}
+    got = ell_params_from_jax(tree, jell.shape[0], dtype, "cpu")
+    want = spmv.EllOperator(BlockedEll.from_csr(mats[name]), dtype).params
+    assert set(got) == set(want) == {"slice_ptr", "col", "vals"}
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        assert torch.equal(got[k], want[k]), k
