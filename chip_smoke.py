@@ -1238,13 +1238,16 @@ def dia_bound(form, kl, T, dtype) -> dict:
 
 
 def pair_bound(csrs, T, dtype) -> dict:
-    """The least time of (A·X, M·X) from the two matrices' nonzeros: their
-    values, column indices and row pointers, X once and both outputs; 2·nnz
-    operations per row of X."""
+    """The least time of (A·X, M·X) from the two matrices' nonzeros on their
+    one union pattern: its column indices and row pointers once, each
+    matrix's nonzero values, X once and both outputs; 2·nnz operations per
+    row of X."""
     sz = torch.finfo(dtype).bits // 8
     m = csrs[0].shape[0]
     nnz = sum(np.count_nonzero(c.data) for c in csrs)
-    return bound(nnz * (sz + 4) + 2 * (m + 1) * 4 + 3 * T * m * sz,
+    union = abs(csrs[0]) + abs(csrs[1])
+    union.eliminate_zeros()
+    return bound(union.nnz * 4 + nnz * sz + (m + 1) * 4 + 3 * T * m * sz,
                  2 * nnz * T, dtype)
 
 
@@ -1394,7 +1397,7 @@ def phase_flat_kernels(build_solver, lsh, spmv):
         # the blocks only for the blocked twins: the kernels read v
         blk = {k: (torch.as_tensor(c, device=DEVICE),
                    [torch.as_tensor(b, dtype=dtype, device=DEVICE)
-                    for b in bs]) for k, (c, bs) in ek.blocked.items()}
+                    for b in bs]) for k, (c, bs) in spmv.level_blocks(lev).items()}
         csrs = [_ell_to_csr(lev.eidx, w, lev.m) for w in (lev.ewA, lev.ewM)]
         (cop, (bA, bM)), (cP, (bP,)), (cR, (bR,)) = (
             blk["op"], blk["P"], blk["R"])

@@ -28,9 +28,9 @@ K19 (``spmm_pair``, the counterpart of ``spacetime_tpu/ops/ell_pallas.py``
 so each gather of X feeds both; its twins are ``spmm_pair_packed_plain``
 and ``spmm_pair_plain`` (two ``spmm_plain``). ``ell_to_blocked`` re-lays
 the smoothed-aggregation coarse levels' ELL gather rows (the A/M union
-pattern, P and Pᵀ) in blocked ELL, and ``EllKernelLevel`` packs and
-applies a level with them: ``op_pair`` by K19, ``interp`` and ``restrict``
-by K20. As for K20, the TPU's size gate (``ell_pallas_min_m``) has no
+pattern, P and Pᵀ) in blocked ELL (``level_blocks``), and
+``EllKernelLevel`` packs those blocks and applies a level with them:
+``op_pair`` by K19, ``interp`` and ``restrict`` by K20. As for K20, the TPU's size gate (``ell_pallas_min_m``) has no
 counterpart: every ELL level launches them, in f32 and f64.
 """
 
@@ -133,11 +133,16 @@ def pack_blocks(blocks, colidx, m: int) -> PackedEll:
 
 def packed_params(packed: PackedEll, dtype, device) -> dict:
     """The packed layout on ``device``: ``slice_ptr`` and ``col`` (int32),
-    ``vals`` (nmat, E) in ``dtype``."""
+    ``vals`` (nmat, E) in ``dtype``. On the CPU also ``twin_col`` and
+    ``twin_vals``, the packed twin's gathers (``_twin_gathers``), built
+    once here and not on every call."""
     idx = lambda a: torch.as_tensor(a, dtype=torch.int32, device=device)
-    return {"slice_ptr": idx(packed.slice_ptr), "col": idx(packed.col),
-            "vals": torch.as_tensor(packed.vals, dtype=dtype,
-                                    device=device).contiguous()}
+    p = {"slice_ptr": idx(packed.slice_ptr), "col": idx(packed.col),
+         "vals": torch.as_tensor(packed.vals, dtype=dtype,
+                                 device=device).contiguous()}
+    if torch.device(device).type == "cpu":
+        p["twin_col"], p["twin_vals"] = _twin_gathers(p)
+    return p
 
 
 def spmm_plain(X, blocks, colidx, n_out: int):
@@ -162,27 +167,39 @@ def spmm_pair_plain(X, blocksA, blocksM, colidx, n_out: int):
             spmm_plain(X, blocksM, colidx, n_out))
 
 
-def _packed_twin(X, p, n_out: int):
-    """The kernel's arithmetic on the packed layout ``p``: for each entry
-    column k, gather X at every row's k-th column, multiply by its values
-    and add, in order (0 past a slice's width); one Y per value array."""
+def _twin_gathers(p):
+    """Entry k of every row of the packed layout ``p`` as columns (wmax,
+    rows) int64 and values (nmat, wmax, rows), value 0 past a slice's
+    width."""
     ptr, col, vals = p["slice_ptr"].long(), p["col"].long(), p["vals"]
-    dev = X.device
-    T, n = X.shape
+    dev = vals.device
     width = (ptr[1:] - ptr[:-1]) // WARP
     k = torch.arange(int(width.max()) if width.numel() else 0, device=dev)
     live = k[None, :, None] < width[:, None, None]  # (nslices, wmax, WARP)
     at = torch.where(live, ptr[:-1, None, None] + WARP * k[None, :, None]
                      + torch.arange(WARP, device=dev), 0)
-    cols = col[at].transpose(0, 1).reshape(k.numel(), -1)  # (wmax, rows)
+    cols = col[at].transpose(0, 1).reshape(k.numel(), -1)
     v = (vals[:, at] * live).transpose(1, 2).reshape(vals.shape[0],
                                                      k.numel(), -1)
-    ncols = max(n, int(col.max()) + 1 if col.numel() else 0)
+    return cols, v.contiguous()
+
+
+def _packed_twin(X, p, n_out: int):
+    """The kernel's arithmetic on the packed layout ``p``: for each entry
+    column k, gather X at every row's k-th column, multiply by its values
+    and add, in order; one Y per value array."""
+    if "twin_col" in p:
+        cols, v = p["twin_col"], p["twin_vals"]
+    else:
+        cols, v = _twin_gathers(p)
+    T, n = X.shape
+    ncols = max(n, int(cols.max()) + 1 if cols.numel() else 0)
     Xp = F.pad(X, (0, ncols - n))  # columns ≥ n read as 0
-    acc = [X.new_zeros((T, cols.shape[1])) for _ in range(vals.shape[0])]
-    for kk in range(k.numel()):
+    acc = [X.new_zeros((T, cols.shape[1])) for _ in range(v.shape[0])]
+    for kk in range(cols.shape[0]):
         xk = Xp[:, cols[kk]]
-        acc = [a + xk * v[j, kk] for j, a in enumerate(acc)]
+        for j, a in enumerate(acc):
+            a.addcmul_(xk, v[j, kk])
     return tuple(a[:, :n_out].contiguous() for a in acc)
 
 
@@ -309,13 +326,26 @@ def ell_to_blocked(eidx, vals, br: int, bc: int, ncols: int, valid=None):
     return colidx, out
 
 
+def level_blocks(lev) -> dict:
+    """An aggregated (ELL-format) level ``lev`` in blocked ELL: ``"op"`` the
+    A/M pair on their union pattern, ``"P"`` (m × m_c) and ``"R"`` = Pᵀ,
+    each (colidx, [float64 blocks]) from ``ell_to_blocked``."""
+    m, mc = int(lev.eidx.shape[0]), int(lev.Ridx.shape[0])
+    valid = (np.asarray(lev.ewA) != 0) | (np.asarray(lev.ewM) != 0)
+    return {
+        "op": ell_to_blocked(lev.eidx, [lev.ewA, lev.ewM], BLOCK, BLOCK, m,
+                             valid),
+        "P": ell_to_blocked(lev.Pidx, [lev.Pw], BLOCK, BLOCK, mc),
+        "R": ell_to_blocked(lev.Ridx, [lev.Rw], BLOCK, BLOCK, m),
+    }
+
+
 class EllKernelLevel:
     """K19 and K20 for one aggregated (ELL-format) level ``lev`` of an
     ``SAMultiShiftMultigrid`` (the JAX package's ``EllPallasLevel``): the
     operator pair on the A/M union pattern, P (m × m_c) and R = Pᵀ. The
-    host keeps them in blocked ELL (``blocked``: colidx and float64 blocks,
-    for the checks) and packed (``packed``); ``values`` puts the packed
-    layouts on a device."""
+    host keeps them packed (``packed``), from ``level_blocks``; ``values``
+    puts the packed layouts on a device."""
 
     kind = "ell"
 
@@ -324,16 +354,9 @@ class EllKernelLevel:
             raise ValueError("EllKernelLevel needs ELL level storage")
         self.m = int(lev.eidx.shape[0])
         self.mc = int(lev.Ridx.shape[0])
-        valid = (np.asarray(lev.ewA) != 0) | (np.asarray(lev.ewM) != 0)
-        self.blocked = {
-            "op": ell_to_blocked(lev.eidx, [lev.ewA, lev.ewM], BLOCK, BLOCK,
-                                 self.m, valid),
-            "P": ell_to_blocked(lev.Pidx, [lev.Pw], BLOCK, BLOCK, self.mc),
-            "R": ell_to_blocked(lev.Ridx, [lev.Rw], BLOCK, BLOCK, self.m),
-        }
         rows = {"op": self.m, "P": self.m, "R": self.mc}
         self.packed = {k: pack_blocks(b, c, rows[k])
-                       for k, (c, b) in self.blocked.items()}
+                       for k, (c, b) in level_blocks(lev).items()}
 
     def values(self, lev, dtype, device) -> dict:
         return {k: packed_params(pk, dtype, device)

@@ -643,7 +643,7 @@ def test_ell_pair_and_transfers_match_twins(flat_levels, dtype, T):
     assert all(t.dim() < 3 for pv in v.values() for t in pv.values())
     blk = {k: (torch.as_tensor(c, device="cuda"),
                [torch.as_tensor(b, dtype=dtype, device="cuda") for b in bs])
-           for k, (c, bs) in ek.blocked.items()}
+           for k, (c, bs) in spmv.level_blocks(lev).items()}
     rng = np.random.default_rng(T)
     x = torch.as_tensor(rng.standard_normal((T, ek.m)), dtype=dtype,
                         device="cuda")

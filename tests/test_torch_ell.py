@@ -182,8 +182,9 @@ def layouts(mats):
     refs = {"op": (ek.m, ek.m, gather(lev.eidx, [lev.ewA, lev.ewM])),
             "P": (ek.m, ek.mc, gather(lev.Pidx, [lev.Pw])),
             "R": (ek.mc, ek.m, gather(lev.Ridx, [lev.Rw]))}
+    blocked = spmv.level_blocks(lev)
     for name, (m, ncols, ref) in refs.items():
-        colidx, blocks = ek.blocked[name]
+        colidx, blocks = blocked[name]
         out[name] = (blocks, colidx, m, ncols, ref)
     return out
 
@@ -285,7 +286,8 @@ def test_ell_params_from_jax_equal_the_ports(mats, name, dtype):
     tree = {k: np.asarray(v) for k, v in JEllOperator(jell, jdt).params.items()}
     got = ell_params_from_jax(tree, jell.shape[0], dtype, "cpu")
     want = spmv.EllOperator(BlockedEll.from_csr(mats[name]), dtype).params
-    assert set(got) == set(want) == {"slice_ptr", "col", "vals"}
+    assert set(got) == set(want) == {"slice_ptr", "col", "vals",
+                                     "twin_col", "twin_vals"}
     for k in want:
         assert got[k].dtype == want[k].dtype, k
         assert torch.equal(got[k], want[k]), k
