@@ -78,8 +78,9 @@
 //   mg_sh_fused_pre (K6 with lead=(own, h), :1318): the zero-init sweep
 //                with vm on the whole slab (x at its full extent; the
 //                caller crops it), r_c on the own/2 owned coarse planes.
-//                The bricks of the lead axis start at −(h mod 2) so that
-//                a coarse point's fine pairs lie in one brick.
+//                In 2-D the bricks of the lead axis start at −(h mod 2) so
+//                that a coarse point's fine pairs lie in one brick; in 3-D
+//                the march's chunks of coarse planes start at fine plane h.
 //   mg_sh_fused_post (K7 with lead=(own, h, hc), :1475): x + P e_c with
 //                the offset prolongation, then the sweep with vm; the
 //                output at the slab's full extent.
@@ -122,27 +123,45 @@
 //   kron.cu). K8 recomputes the residual at the 2^d · 2 fine points each
 //   coarse point sums (2× the fine residuals, as each is shared by up to
 //   2^d coarse points); K9 reads its two coarse values from global memory.
-// - K3, K6, K7: one block of 256 threads owns a brick of one time row
-//   (blockIdx.z = row): 32 × 32 in 2-D, 8 × 8 × 32 (z, y, x) in 3-D. It
-//   loads the brick and a halo into shared memory and runs the recurrence
-//   there, each Op application shrinking the valid halo by one cell, with
-//   __syncthreads() between the stages. Halo: ν−1 for the zero-init sweep
-//   (G of the Pallas kernel, :214), ν for the sweep from x, ν + 1 for K6
-//   (G + E, E = 2 for the residual and the restriction, :1342), ν for K7's
-//   prolonged field (:1525); in 3-D the halo grows in z as well. Points of
-//   the window outside the grid hold 0 in every buffer, which is the
-//   Dirichlet ghost (`_domain_mask`, :122) for bricks on the boundary and
-//   for ragged extents. Bricks start at even offsets (multiples of 32, 8
-//   or 4), so a coarse point's 2^d fine pairs lie in its own brick plus
-//   one fine plane, row and column of halo. A 3-D brick with three double
-//   buffers takes 174.6 KB of shared memory at halo 3, so the tiled 3-D
-//   sweep takes ν ≤ 3 (above it, the chained sweep); the 3-D K6/K14 at
-//   ν = 3 (halo 4) in float64 take bricks of 4 × 8 × 32 (184.3 KB,
-//   `brick_depth`). The fused stages do in one launch what K3 + K8 (pre)
-//   and K9 + K3 (post) do in two: x never makes the round trip through
-//   device memory between the sweep and the transfer, at the price of the
-//   redundant work on the halo (a 3-D K6 window at ν = 2 holds 3.6× its
-//   brick).
+// - K3, K7 (and the 2-D K6): one block of 256 threads owns a brick of one
+//   time row (blockIdx.z = row): 32 × 32 in 2-D, 8 × 8 × 32 (z, y, x) in
+//   3-D. It loads the brick and a halo into shared memory and runs the
+//   recurrence there, each Op application shrinking the valid halo by one
+//   cell, with __syncthreads() between the stages. Halo: ν−1 for the
+//   zero-init sweep (G of the Pallas kernel, :214), ν for the sweep from x,
+//   ν + 1 for K6 (G + E, E = 2 for the residual and the restriction,
+//   :1342), ν for K7's prolonged field (:1525); in 3-D the halo grows in z
+//   as well. Points of the window outside the grid hold 0 in every buffer,
+//   which is the Dirichlet ghost (`_domain_mask`, :122) for bricks on the
+//   boundary and for ragged extents. Bricks start at even offsets
+//   (multiples of 32 or 8), so a coarse point's 2^d fine pairs lie in its
+//   own brick plus one fine row and column (and plane) of halo. A 3-D brick
+//   with three double buffers takes 174.6 KB of shared memory at halo 3, so
+//   the tiled 3-D sweep takes ν ≤ 3 (above it, the chained sweep). The
+//   fused stages do in one launch what K3 + K8 (pre) and K9 + K3 (post) do
+//   in two: x never makes the round trip through device memory between the
+//   sweep and the transfer.
+// - The 3-D K6 and K14 march in z (`march_fused_pre`): a block owns a 16 ×
+//   32 (y, x) tile of one row and walks a chunk of its planes in order (the
+//   whole column where that fills the card), its pipeline's stages (the
+//   sweep's ν steps, the residual, the restriction) a plane apart. Each
+//   stage keeps the three planes the next one's Op reads (z − 1, z, z + 1)
+//   in a ring in shared memory, 3(ν + 1) planes of (16 + 2H) × (32 + 2H)
+//   points, H = ν + 1: 30.1 KB in f32 and 60.2 KB in f64 at ν = 2, 46.1
+//   and 92.2 KB at ν = 3, so an SM holds several blocks even in f64. The
+//   xy halo shrinks by a cell a stage as in the bricks; in z only a
+//   chunk's two ends are computed twice, where a brick recomputed ν + 1
+//   planes on each side of 8 (its window at ν = 2 held 3.6× the brick).
+//   Each thread keeps four fixed points of the window plane for the whole
+//   march, so no index is divided per point, holds their r and x in
+//   registers from one stage to the next, applies Op to all four tap by
+//   tap (`many`: four independent sums, each tap's offset read once), and
+//   loads b and the diagonal a plane ahead, so that no stage waits on
+//   device memory between two barriers. The taps' offsets in the ring are
+//   resolved once per block for each of its three rotations. An SM holds
+//   4 blocks of K6 in f32 and 2 otherwise (`march_min_blocks`). The
+//   Pallas kernel keeps z and x whole and blocks in y, so it never
+//   recomputed a z halo either.
 // - The restriction and the prolongation are exact pair sums, one device
 //   function each (`restrict_at`, `prolong_at`) that K8, K9 and the fused
 //   stages share; the Pallas kernels' banded 0/1 matrices on the MXU
@@ -155,15 +174,15 @@
 //   evaluation rather than staging it. Where W does not fit in the L2 (123
 //   MB in f32 at 127³), K10–K15 take the row as the fastest-varying block
 //   index (`rows_first`): the rows of one brick (K10, K14, K15) or chunk of
-//   points (K11–K13) then run back to back and share its part of W there.
-//   Where W fits, the rows go slowest, as in the other kernels: that order
-//   was 7–20% faster for K10 and K12 at 63³ and 511² on the H100 (PERF.md).
-//   The 2-D K10, K14 and K15 keep 1/D
-//   in a fourth shared buffer beside X, D and R, computed once per window;
-//   the 3-D ones recompute it from W[kc] at each use, since four f64
-//   buffers of an 8 × 8 × 32 brick at ν = 3 (238 KB) exceed the 227 KB a
-//   block may take. Their bound is their constant twin's bytes plus one
-//   read of W.
+//   points (K11–K13) then run back to back and share its part of W there
+//   (the 3-D K14: the rows of one tile and chunk). Where W fits, the rows
+//   go slowest, as in the other kernels: that order was 7–20% faster for
+//   K10 and K12 at 63³ and 511² on the H100 (PERF.md). The 2-D K10, K14
+//   and K15 keep 1/D in a fourth shared buffer beside X, D and R, computed
+//   once per window; the 3-D ones recompute it from W[kc] at each use,
+//   since four f64 buffers of an 8 × 8 × 32 brick at ν = 3 (238 KB) exceed
+//   the 227 KB a block may take (the 3-D K14 does as K10). Their bound is
+//   their constant twin's bytes plus one read of W.
 //
 // Sum order is the plain PyTorch twin's (spacetime_tpu_torch/ops/
 // mg_kernels.py): taps in table order within a group, one multiply per
@@ -283,44 +302,23 @@ __device__ __forceinline__ T op_global(const PairGroups& pg, T om,
   return out;
 }
 
-// Op at window offset o of a shared-memory buffer whose out-of-grid points
-// hold 0; w holds the row's group weights, toff the taps' window offsets.
-template <typename T>
-__device__ __forceinline__ T op_shared(const PairGroups& pg, const T* w,
-                                       const int* toff, const T* buf, int o) {
-  T out = T(0);
-  for (int g = 0; g < pg.n_groups; ++g) {
-    T acc = T(0);
-    for (int k = pg.start[g]; k < pg.start[g + 1]; ++k) acc += buf[o + toff[k]];
-    out += w[g] * acc;
-  }
-  return out;
-}
-
 // A brick of one row and its halo in shared memory: window point
 // (lz, ly, lx) is grid point (z0 + lz, y0 + ly, x0 + lx), at offset
-// lz·sz + ly·sy + lx. The halo is H in y and x, and in z in 3-D. The
-// brick's depth bz is BrickOf<3>::z but for the 3-D fused pre-stages in
-// float64 at ν = 3, whose window of 8 planes exceeds a block's shared
-// memory (`brick_depth`); it stays even, so a coarse point's fine pairs lie
-// in its own brick plus one plane of halo. bz = 1 in 2-D.
+// lz·sz + ly·sy + lx. The halo is H in y and x, and in z in 3-D.
 struct Window {
   Grid g;
   int z0, y0, x0;
   int H;
-  int bz;
   int sy, sz;  // x extent of the window; x · y extents
   int volume;  // points in the window
 };
 
-// The window of x brick bx and (z brick, y brick) pair byz. The bricks of
-// the leading axis (z in 3-D, y in 2-D) start `shift` planes before the
-// grid (0, or 1 for a slab whose coarse pairs start at an odd plane).
+// The window of x brick bx and (z brick, y brick) pair byz. In 2-D the
+// bricks of the leading axis y start `shift` rows before the grid (0, or 1
+// for a slab whose coarse pairs start at an odd row).
 template <int DIM>
 __device__ __forceinline__ Window make_window(const Grid& g, int H, int bx,
-                                              int byz,
-                                              int bz = BrickOf<DIM>::z,
-                                              int shift = 0) {
+                                              int byz, int shift = 0) {
   using B = BrickOf<DIM>;
   const int hz = DIM == 3 ? H : 0;
   const int nyb = (g.ny + B::y - 1) / B::y;
@@ -328,22 +326,19 @@ __device__ __forceinline__ Window make_window(const Grid& g, int H, int bx,
   const int yb = byz - zb * nyb;
   const int sy = B::x + 2 * H;
   const int sz = sy * (B::y + 2 * H);
-  const int zs = DIM == 3 ? shift : 0, ys = DIM == 3 ? 0 : shift;
-  return Window{g, zb * bz - hz - zs, yb * B::y - H - ys, bx * B::x - H,
-                H, bz, sy, sz, sz * (bz + 2 * hz)};
+  return Window{g,  zb * B::z - hz, yb * B::y - H - shift, bx * B::x - H, H,
+                sy, sz,             sz * (B::z + 2 * hz)};
 }
 
 // blockIdx.x walks the x bricks, blockIdx.y the (z brick, y brick) pairs;
-// with rows_first, blockIdx.y and blockIdx.z do (`bricks_rows_first`).
+// with rows_first, blockIdx.y and blockIdx.z do (`bricks_for`).
 template <int DIM>
 __device__ __forceinline__ Window make_window(const Grid& g, int H,
                                               bool rows_first = false,
-                                              int bz = BrickOf<DIM>::z,
                                               int shift = 0) {
-  return rows_first ? make_window<DIM>(g, H, int(blockIdx.y),
-                                       int(blockIdx.z), bz, shift)
-                    : make_window<DIM>(g, H, int(blockIdx.x),
-                                       int(blockIdx.y), bz, shift);
+  return rows_first
+             ? make_window<DIM>(g, H, int(blockIdx.y), int(blockIdx.z), shift)
+             : make_window<DIM>(g, H, int(blockIdx.x), int(blockIdx.y), shift);
 }
 
 // f(offset, grid z, grid y, grid x, index in the row, inside the grid) for
@@ -354,7 +349,7 @@ __device__ __forceinline__ void for_region(const Window& w, int h, F f) {
   using B = BrickOf<DIM>;
   const int nx = B::x + 2 * h;
   const int nyx = (B::y + 2 * h) * nx;
-  const int n = DIM == 3 ? (w.bz + 2 * h) * nyx : nyx;
+  const int n = DIM == 3 ? (B::z + 2 * h) * nyx : nyx;
   const int s = w.H - h;
   const int sz = DIM == 3 ? s : 0;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
@@ -397,20 +392,54 @@ struct ConstOp {
   const T* w;
   const int* toff;
   T iD;
-  __device__ __forceinline__ T operator()(const T* buf, int o, int) const {
-    return op_shared(pg, w, toff, buf, o);
+  __device__ __forceinline__ T operator()(const T* buf, int o, int gi) const {
+    T out[1];
+    many<1>(buf, {o}, {gi}, out);
+    return out[0];
+  }
+  // Op at N points at once (offsets o into buf, a shared-memory buffer
+  // whose out-of-grid points hold 0, every point's taps inside it), each
+  // tap's offset read once for all N: taps in table order within a group,
+  // one multiply per group, groups in order.
+  template <int N>
+  __device__ __forceinline__ void many(const T* buf, const int (&o)[N],
+                                       const int (&)[N], T (&out)[N]) const {
+#pragma unroll
+    for (int j = 0; j < N; ++j) out[j] = T(0);
+    for (int g = 0; g < pg.n_groups; ++g) {
+      T acc[N];
+#pragma unroll
+      for (int j = 0; j < N; ++j) acc[j] = T(0);
+      for (int k = pg.start[g]; k < pg.start[g + 1]; ++k) {
+        const T* const bk = buf + toff[k];
+#pragma unroll
+        for (int j = 0; j < N; ++j) acc[j] += bk[o[j]];
+      }
+#pragma unroll
+      for (int j = 0; j < N; ++j) out[j] += w[g] * acc[j];
+    }
   }
   __device__ __forceinline__ T inv_diag(int, int) const { return iD; }
+  // 1/D from what diag_at(gi) reads (the 3-D K6 loads it a plane ahead):
+  // nothing here, 1/D is the row's
+  __device__ __forceinline__ T diag_at(int) const { return T(0); }
+  __device__ __forceinline__ T inv_diag_of(T) const { return iD; }
 };
 
-// The weighted operator's per-node 1/D at in-row index gi of a grid point:
-// 0 where W[kc] + ω·cm ≤ 0 (`_inv_diag_var`).
+// The weighted operator's per-node 1/D from the centre weight w = W[kc] at
+// a grid point: 0 where w + ω·cm ≤ 0 (`_inv_diag_var`).
+template <typename T>
+__device__ __forceinline__ T var_inv_diag_of(const VarTaps& vt, T om, T w) {
+  const T den = w + T(vt.cm) * om;
+  return den > T(0) ? T(1) / den : T(0);
+}
+
+// The same at in-row index gi.
 template <typename T>
 __device__ __forceinline__ T var_inv_diag_at(const VarTaps& vt,
                                              const T* __restrict__ W, int S,
                                              T om, int gi) {
-  const T den = __ldg(W + int64_t(vt.kc) * S + gi) + T(vt.cm) * om;
-  return den > T(0) ? T(1) / den : T(0);
+  return var_inv_diag_of(vt, om, __ldg(W + int64_t(vt.kc) * S + gi));
 }
 
 // VarOp: Op_w = A_w + ω·M. atoff / mtoff are the A taps' and the M taps'
@@ -429,22 +458,48 @@ struct VarOp {
   const int* mtoff;
   const T* iD;
   __device__ __forceinline__ T operator()(const T* buf, int o, int gi) const {
-    T a = T(0);
+    T out[1];
+    many<1>(buf, {o}, {gi}, out);
+    return out[0];
+  }
+  // Op_w at N points at once (offsets o, in-row indices gi; each inside
+  // the window and the row), as ConstOp::many: the A taps in weight-array
+  // order, the mass's groups as ConstOp's, then a + ω·m.
+  template <int N>
+  __device__ __forceinline__ void many(const T* buf, const int (&o)[N],
+                                       const int (&gi)[N], T (&out)[N]) const {
+    T a[N], m[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) a[j] = m[j] = T(0);
     for (int k = 0; k < vt.n_taps; ++k) {
-      a += __ldg(W + int64_t(k) * S + gi) * buf[o + atoff[k]];
+      const T* const wk = W + int64_t(k) * S;
+      const T* const bk = buf + atoff[k];
+#pragma unroll
+      for (int j = 0; j < N; ++j) a[j] += __ldg(wk + gi[j]) * bk[o[j]];
     }
-    T m = T(0);
     for (int g = 0; g < pm.n_groups; ++g) {
-      T acc = T(0);
+      T acc[N];
+#pragma unroll
+      for (int j = 0; j < N; ++j) acc[j] = T(0);
       for (int k = pm.start[g]; k < pm.start[g + 1]; ++k) {
-        acc += buf[o + mtoff[k]];
+        const T* const bk = buf + mtoff[k];
+#pragma unroll
+        for (int j = 0; j < N; ++j) acc[j] += bk[o[j]];
       }
-      m += wm[g] * acc;
+#pragma unroll
+      for (int j = 0; j < N; ++j) m[j] += wm[g] * acc[j];
     }
-    return a + om * m;
+#pragma unroll
+    for (int j = 0; j < N; ++j) out[j] = a[j] + om * m[j];
   }
   __device__ __forceinline__ T inv_diag(int o, int gi) const {
     return iD != nullptr ? iD[o] : var_inv_diag_at(vt, W, S, om, gi);
+  }
+  __device__ __forceinline__ T diag_at(int gi) const {
+    return __ldg(W + int64_t(vt.kc) * S + gi);
+  }
+  __device__ __forceinline__ T inv_diag_of(T w) const {
+    return var_inv_diag_of(vt, om, w);
   }
 };
 
@@ -603,7 +658,7 @@ __global__ void __launch_bounds__(kThreads)
 // K10: K3 with Op_w. 1/D is a fourth window buffer in 2-D and recomputed
 // from W in 3-D (see the header). With rows_first, blockIdx.x is the row,
 // blockIdx.y the x brick and blockIdx.z the (z brick, y brick) pair
-// (`bricks_rows_first`).
+// (`bricks_for`).
 template <int DIM, typename T>
 __global__ void __launch_bounds__(kThreads)
     mg_smooth_var_kernel(const T* __restrict__ x, const T* __restrict__ b,
@@ -822,45 +877,39 @@ __global__ void mg_prolong_correct_kernel(const T* __restrict__ x,
   }
 }
 
-// The fused stages K6/K7 and K14/K15 on the tiled window, 2-D and 3-D.
+// The fused stages on the tiled window: K7/K15 in 2-D and 3-D, K6/K14 in
+// 2-D (the 3-D K6/K14 march in z, below).
 //
-// The end of K6/K14, after the zero-init sweep left x valid on the brick
-// grown by 2 (H = nu + 1): the residual on the brick grown by 1 (one fine
-// plane, row and column past the brick is what the restriction reads), x
-// written out, then r_c = R r for the brick's coarse points, with K8's
-// pair sums (`restrict_at`). The brick starts at an even plane, or, on a
-// slab's lead axis, at one of the parity of ld.off.
-template <int DIM, typename T, typename Op>
+// The end of the 2-D K6/K14, after the zero-init sweep left x valid on the
+// tile grown by 2 (H = nu + 1): the residual on the tile grown by 1 (one
+// fine row and column past the tile is what the restriction reads), x
+// written out, then r_c = R r for the tile's coarse points, with K8's pair
+// sums (`restrict_at`). The tile starts at an even row, or, on a slab's
+// lead axis y, at one of the parity of ld.off.
+template <typename T, typename Op>
 __device__ void fused_pre_tail(const Op& op, const T* __restrict__ bt,
                                const Window& win, const Lead& ld, const T* X,
                                T* R, T* __restrict__ xt, T* __restrict__ rct) {
-  using B = BrickOf<DIM>;
-  for_region<DIM>(win, 1, [&](int o, int, int, int, int gi, bool in) {
+  using B = BrickOf<2>;
+  for_region<2>(win, 1, [&](int o, int, int, int, int gi, bool in) {
     R[o] = in ? bt[gi] - op(X, o, gi) : T(0);
   });
-  for_region<DIM>(win, 0, [&](int o, int, int, int, int gi, bool in) {
+  for_region<2>(win, 0, [&](int o, int, int, int, int gi, bool in) {
     if (in) xt[gi] = X[o];
   });
   __syncthreads();
-  const Grid gc = coarse_grid<DIM>(win.g, ld);
-  const int hz = DIM == 3 ? win.H : 0;
-  // the brick's first coarse point and its coarse extents
-  const int cz0 = (win.z0 + hz - (DIM == 3 ? ld.off : 0)) / 2;
-  const int cy0 = (win.y0 + win.H - (DIM == 3 ? 0 : ld.off)) / 2;
+  const Grid gc = coarse_grid<2>(win.g, ld);
+  // the tile's first coarse point and its coarse extents
+  const int cy0 = (win.y0 + win.H - ld.off) / 2;
   const int cx0 = (win.x0 + win.H) / 2;
-  constexpr int ncy = B::y / 2, ncx = B::x / 2;
-  const int n = (DIM == 3 ? win.bz / 2 : 1) * ncy * ncx;
-  auto res = [&](int z, int y, int x) {
-    return R[(z - win.z0) * win.sz + (y - win.y0) * win.sy + (x - win.x0)];
+  constexpr int ncx = B::x / 2;
+  auto res = [&](int, int y, int x) {
+    return R[(y - win.y0) * win.sy + (x - win.x0)];
   };
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int lz = i / (ncy * ncx);
-    const int r = i - lz * (ncy * ncx);
-    const Point c{0, cz0 + lz, cy0 + r / ncx, cx0 + r % ncx};
-    if (c.z < 0 || c.y < 0 || c.z >= gc.nz || c.y >= gc.ny || c.x >= gc.nx) {
-      continue;
-    }
-    rct[(c.z * gc.ny + c.y) * gc.nx + c.x] = restrict_at<DIM, T>(c, ld, res);
+  for (int i = threadIdx.x; i < B::y / 2 * ncx; i += blockDim.x) {
+    const Point c{0, 0, cy0 + i / ncx, cx0 + i % ncx};
+    if (c.y < 0 || c.y >= gc.ny || c.x >= gc.nx) continue;
+    rct[c.y * gc.nx + c.x] = restrict_at<2, T>(c, ld, res);
   }
 }
 
@@ -878,9 +927,9 @@ __device__ void prolong_window(const T* __restrict__ xt,
 }
 
 // The blocks of the fused kernels are K3's (K10's for K14/K15, with
-// rows_first where W does not fit in the L2), their brick bz planes deep.
-// K6 (ld serial, vm null) and its sharded-slab form.
-template <int DIM, typename T>
+// rows_first where W does not fit in the L2). The 2-D K6 (ld serial, vm
+// null) and its sharded-slab form.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
     mg_fused_pre_kernel(const T* __restrict__ b, const T* __restrict__ vm,
                         const T* __restrict__ omega,
@@ -889,22 +938,22 @@ __global__ void __launch_bounds__(kThreads)
                         const T* __restrict__ invDel, T* __restrict__ xo,
                         T* __restrict__ rco, Grid g,
                         const __grid_constant__ PairGroups pg, int nu,
-                        int bz, Lead ld) {
+                        Lead ld) {
   __shared__ T wts[kMaxPairGroups];
   __shared__ int toff[kMaxPairTaps];
   const int64_t t = blockIdx.z;
   const int64_t S = row_size(g);
   const RowCoef<T> c = row_coef(omega, invT, invDel, t);
-  const Window win = make_window<DIM>(g, nu + 1, false, bz, ld.off & 1);
+  const Window win = make_window<2>(g, nu + 1, false, ld.off & 1);
   T* X = window_buffers<T>();
   T* D = X + win.volume;
   T* R = D + win.volume;
   const T* bt = b + t * S;
   row_tables(pg, c.om, win, wts, toff);
   const ConstOp<T> op{pg, wts, toff, invD[t]};
-  cheb_sweep<DIM>(op, c, bt, win, X, D, R, nu, true, win.H, vm);
-  fused_pre_tail<DIM>(op, bt, win, ld, X, R, xo + t * S,
-                      rco + t * row_size(coarse_grid<DIM>(g, ld)));
+  cheb_sweep<2>(op, c, bt, win, X, D, R, nu, true, win.H, vm);
+  fused_pre_tail(op, bt, win, ld, X, R, xo + t * S,
+                 rco + t * row_size(coarse_grid<2>(g, ld)));
 }
 
 // K7 (ld serial, vm null) and its sharded-slab form.
@@ -938,9 +987,9 @@ __global__ void __launch_bounds__(kThreads)
   });
 }
 
-// K14/K15: 1/D is a fourth window buffer in 2-D and recomputed from W in
-// 3-D, as in K10.
-template <int DIM, typename T>
+// The 2-D K14, and K15: 1/D is a fourth window buffer in 2-D and
+// recomputed from W in 3-D, as in K10.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
     mg_fused_pre_var_kernel(const T* __restrict__ b, const T* __restrict__ W,
                             const T* __restrict__ omega,
@@ -949,25 +998,354 @@ __global__ void __launch_bounds__(kThreads)
                             T* __restrict__ rco, Grid g,
                             const __grid_constant__ VarTaps vt,
                             const __grid_constant__ PairGroups pm, int nu,
-                            int bz, int rows_first) {
+                            int rows_first) {
   __shared__ T wm[kMaxPairGroups];
   __shared__ int atoff[kMaxVarTaps];
   __shared__ int mtoff[kMaxPairTaps];
   const int64_t t = rows_first ? blockIdx.x : blockIdx.z;
   const int S = int(row_size(g));
   const RowCoef<T> c = row_coef(omega, invT, invDel, t);
-  const Window win = make_window<DIM>(g, nu + 1, rows_first != 0, bz);
+  const Window win = make_window<2>(g, nu + 1, rows_first != 0);
   T* X = window_buffers<T>();
   T* D = X + win.volume;
   T* R = D + win.volume;
-  T* iD = DIM == 2 ? R + win.volume : nullptr;
+  T* iD = R + win.volume;
   const T* bt = b + t * S;
-  if constexpr (DIM == 2) var_inv_diag<2>(vt, W, S, c.om, win, iD);
+  var_inv_diag<2>(vt, W, S, c.om, win, iD);
   var_tables(vt, pm, win, wm, atoff, mtoff);
   const VarOp<T> op{vt, pm, W, S, c.om, wm, atoff, mtoff, iD};
-  cheb_sweep<DIM>(op, c, bt, win, X, D, R, nu, true, win.H);
-  fused_pre_tail<DIM>(op, bt, win, serial_lead<DIM>(g), X, R, xo + t * S,
-                      rco + t * row_size(coarse_grid<DIM>(g)));
+  cheb_sweep<2>(op, c, bt, win, X, D, R, nu, true, win.H);
+  fused_pre_tail(op, bt, win, serial_lead<2>(g), X, R, xo + t * S,
+                 rco + t * row_size(coarse_grid<2>(g)));
+}
+
+// The 3-D K6 and K14 march in z. A block owns a kMarchY × kMarchX (y, x)
+// tile of one time row and a chunk of coarse planes [k_lo, k_hi) (every
+// plane of the row where the launch fills the card without cutting it),
+// and walks the fine planes in order, one a step. Each stage of the
+// pipeline lags the one before by a plane and keeps, in shared memory, a
+// ring of the three planes the next stage's Op reads:
+//
+//   stage 0, plane t:       r = vm·D⁻¹b, d = r/θ, x = d        → ring of d
+//   stage k, plane t − k:   r = vm·(r − D⁻¹ Op d), d = c1 d + c2 r,
+//                           x += d  (k = 1 … ν−1)              → ring of d
+//                           (the last stage: x → the ring of x, and out)
+//   residual, plane t − ν:  b − Op x                           → ring of r
+//   restriction:            coarse plane k once fine planes off + 2k,
+//                           + 1, + 2 of the residual are in (`restrict_at`)
+//
+// Plane p lies in slot p mod 3 of each ring, so Op reads the taps of plane
+// p through the offset table of rotation p mod 3, resolved once per block.
+// Every thread keeps the same kMarchSlots points of the window plane for
+// the whole march, and the pointwise terms of each stage (r and x) in
+// registers; only d, x and the residual, which Op reads at neighbours, go
+// through shared memory. The xy halo shrinks by one cell a stage as in the
+// tiled sweep (stage k on the window grown by H − k, H = ν + 1); in z only
+// the chunk's two ends are computed twice.
+constexpr int kMarchY = 16, kMarchX = 32;
+constexpr int kMarchSlots = 4;
+
+template <int NU>
+struct March {
+  static constexpr int H = NU + 1;
+  static constexpr int WY = kMarchY + 2 * H, WX = kMarchX + 2 * H;
+  static constexpr int P = WY * WX;  // points of a window plane
+  static constexpr int kRings = NU + 1;  // d_0 … d_{ν−2}, x, the residual
+  static_assert(P <= kMarchSlots * kThreads, "window plane over the slots");
+};
+
+// The blocks an SM must hold of each march kernel (its register cap),
+// chosen by timing on the H100 (PERF.md): 4 for K6 in float32, else 2.
+template <typename T>
+__host__ __device__ constexpr int march_min_blocks(bool var) {
+  return !var && sizeof(T) == 4 ? 4 : 2;
+}
+
+template <int N>
+struct Int {
+  static constexpr int value = N;
+};
+
+__device__ __forceinline__ int mod3(int p) { return (p % 3 + 3) % 3; }
+
+// The window offsets of n taps on a ring of three planes, for each
+// rotation r (the tapped point's plane in slot r): off[r·stride + k].
+template <int NU>
+__device__ __forceinline__ void ring_offsets(int n, const int* dz,
+                                             const int* dy, const int* dx,
+                                             int stride, int* off) {
+  using M = March<NU>;
+  for (int i = threadIdx.x; i < 3 * n; i += blockDim.x) {
+    const int r = i / n, k = i - r * n;
+    off[r * stride + k] = mod3(r + dz[k]) * M::P + dy[k] * M::WX + dx[k];
+  }
+}
+
+// A block's tile (its first grid point) and chunk: the coarse planes
+// [k_lo, k_hi) it restricts to and the fine planes [f_lo, f_hi) of x it
+// writes (the first chunk from plane 0, the last to nz). blockIdx is (x
+// tile, (chunk, y tile), row), or with rows_first (row, x tile, (chunk, y
+// tile)) (`march_blocks`).
+struct MarchChunk {
+  int y0, x0;
+  int k_lo, k_hi;
+  int f_lo, f_hi;
+};
+
+__device__ __forceinline__ MarchChunk march_chunk(const Grid& g, const Lead& ld,
+                                                  int chunk, bool rows_first) {
+  const int bx = int(rows_first ? blockIdx.y : blockIdx.x);
+  const int bcy = int(rows_first ? blockIdx.z : blockIdx.y);
+  const int nty = (g.ny + kMarchY - 1) / kMarchY;
+  const int c = bcy / nty;
+  const int k_lo = c * chunk;
+  const int k_hi = min(k_lo + chunk, ld.nc);
+  return MarchChunk{(bcy - c * nty) * kMarchY, bx * kMarchX, k_lo, k_hi,
+                    c == 0 ? 0 : ld.off + 2 * k_lo,
+                    k_lo + chunk >= ld.nc ? g.nz : ld.off + 2 * k_hi};
+}
+
+// The march of one block: x on its fine planes (xt, the row) and r_c on
+// its coarse planes (rct). op_at(r) is the operator on a ring whose
+// centre plane lies in slot r (`ConstOp` / `VarOp` with that rotation's
+// offsets); vm the slab's validity field, or null.
+template <int NU, typename T, typename OpAt>
+__device__ void march_fused_pre(const OpAt& op_at, const RowCoef<T>& c,
+                                const T* __restrict__ bt,
+                                const T* __restrict__ vm, const Grid& g,
+                                const Lead& ld, const MarchChunk& mc,
+                                T* __restrict__ xt, T* __restrict__ rct) {
+  using M = March<NU>;
+  constexpr int H = M::H, P = M::P, WX = M::WX, S = kMarchSlots;
+  constexpr int kCentre = (M::WY / 2) * WX + WX / 2;  // taps stay inside
+  T* const ring = window_buffers<T>();  // ring k: 3 planes from ring + 3Pk
+  T* const X = ring + 3 * P * (NU - 1);
+  T* const RS = X + 3 * P;
+  const int plane = g.ny * g.nx;
+  // this thread's window points: offset, in-plane grid index, distance to
+  // the window's edge (−1 past the plane), inside the grid in y and x,
+  // and in the residual's region (the tile and one row and column past it)
+  int po[S], pxy[S], depth[S];
+  bool inxy[S], inres[S];
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    const int o = int(threadIdx.x) + j * kThreads;
+    const int ly = o / WX, lx = o - ly * WX;
+    const int gy = mc.y0 - H + ly, gx = mc.x0 - H + lx;
+    po[j] = o;
+    pxy[j] = gy * g.nx + gx;
+    depth[j] =
+        o < P ? min(min(ly, lx), min(M::WY - 1 - ly, WX - 1 - lx)) : -1;
+    inxy[j] = o < P && gy >= 0 && gy < g.ny && gx >= 0 && gx < g.nx;
+    inres[j] = o < P && ly >= H && ly <= H + kMarchY && lx >= H &&
+              lx <= H + kMarchX;
+  }
+  // this thread's coarse point of the tile, if any
+  const Grid gc = coarse_grid<3>(g, ld);
+  constexpr int ncx = kMarchX / 2;
+  const int cy = mc.y0 / 2 + int(threadIdx.x) / ncx;
+  const int cx = mc.x0 / 2 + int(threadIdx.x) % ncx;
+  const bool restricts =
+      threadIdx.x < kMarchY / 2 * ncx && cy < gc.ny && cx < gc.nx;
+  T c1[NU], c2[NU];
+  double rho = 1.0 / kSigma;
+#pragma unroll
+  for (int k = 1; k < NU; ++k) {
+    const double rho_new = 1.0 / (2.0 * kSigma - rho);
+    c1[k] = T(rho_new * rho);
+    c2[k] = T(2.0 * rho_new) * c.iDel;
+    rho = rho_new;
+  }
+  // the planes of each stage: the residual's r_lo … r_hi − 1; x on
+  // [x_lo, x_hi) (its own planes and those the residual reads); stage k on
+  // that grown by ν − 1 − k planes
+  const int r_lo = ld.off + 2 * mc.k_lo, r_hi = ld.off + 2 * mc.k_hi + 1;
+  const int x_lo = min(mc.f_lo, r_lo - 1), x_hi = max(mc.f_hi, r_hi + 1);
+  T rr[NU - 1][S], xr[NU - 1][S];  // r, x of stages 0 … ν−2, last plane
+  // b and the diagonal's entry (`diag_at`) of stage 0's plane, b of the
+  // residual's: loaded a step ahead, so that no stage waits on device
+  // memory between two barriers
+  const auto op0 = op_at(0);
+  T b0[S], d0[S], br[S];
+  auto load = [&](int p0, T (&b)[S], T (&d)[S], T (&bres)[S]) {
+    const bool zin = p0 >= 0 && p0 < g.nz;
+    const int pr = p0 - NU;
+    const bool rin = pr >= r_lo && pr < r_hi;
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      const int gi = p0 * plane + pxy[j];
+      b[j] = zin && inxy[j] ? bt[gi] : T(0);
+      d[j] = zin && inxy[j] ? op0.diag_at(gi) : T(0);
+      bres[j] = rin && inxy[j] && inres[j] ? bt[pr * plane + pxy[j]] : T(0);
+    }
+  };
+  load(x_lo - (NU - 1), b0, d0, br);
+  for (int t = x_lo - (NU - 1); t < x_hi + NU - 1; ++t) {
+    T rn[NU - 1][S], xn[NU - 1][S];
+    T b0n[S], d0n[S], brn[S];
+    load(t + 1, b0n, d0n, brn);
+    auto stage = [&](auto K) {
+      constexpr int k = decltype(K)::value;
+      const int p = t - k;
+      if (p < x_lo - (NU - 1 - k)) return;
+      const int rot = mod3(p);
+      const bool zin = p >= 0 && p < g.nz;
+      const auto op = op_at(rot);
+      const T* const din = ring + 3 * P * (k > 0 ? k - 1 : 0);
+      T* const out = (k < NU - 1 ? ring + 3 * P * k : X) + rot * P;
+      // Op d at this stage's points (the others read at the window's centre)
+      int oo[S], gg[S];
+      T opd[S];
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        const bool in = zin && inxy[j] && depth[j] >= k;
+        oo[j] = depth[j] >= k ? po[j] : kCentre;
+        gg[j] = in ? p * plane + pxy[j] : 0;
+      }
+      if constexpr (k > 0) op.many(din, oo, gg, opd);
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        if (depth[j] < k) continue;
+        const bool in = zin && inxy[j];
+        const int gi = gg[j];
+        T r = T(0), d = T(0), x = T(0);
+        if (in) {
+          if constexpr (k == 0) {
+            r = valid_at(vm, gi) * (op.inv_diag_of(d0[j]) * b0[j]);
+            d = r * c.iT;
+            x = d;
+          } else {
+            r = valid_at(vm, gi) *
+                (rr[k - 1][j] - op.inv_diag(po[j], gi) * opd[j]);
+            d = c1[k] * din[rot * P + po[j]] + c2[k] * r;
+            x = xr[k - 1][j] + d;
+          }
+        }
+        if constexpr (k < NU - 1) {
+          out[po[j]] = d;
+          rn[k][j] = r;
+          xn[k][j] = x;
+        } else {
+          out[po[j]] = x;
+          if (in && depth[j] >= H && p >= mc.f_lo && p < mc.f_hi) {
+            xt[gi] = x;
+          }
+        }
+      }
+    };
+    stage(Int<0>{});
+    __syncthreads();
+    stage(Int<1>{});
+    __syncthreads();
+    if constexpr (NU > 2) {
+      stage(Int<2>{});
+      __syncthreads();
+    }
+    const int p = t - NU;
+    if (p >= r_lo && p < r_hi) {
+      const int rot = mod3(p);
+      int oo[S], gg[S];
+      T opx[S];
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        oo[j] = inres[j] ? po[j] : kCentre;
+        gg[j] = inres[j] && inxy[j] ? p * plane + pxy[j] : 0;
+      }
+      op_at(rot).many(X, oo, gg, opx);
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        if (inres[j]) {
+          RS[rot * P + po[j]] = inxy[j] ? br[j] - opx[j] : T(0);
+        }
+      }
+      __syncthreads();
+      if (((p - ld.off) & 1) == 0 && p >= r_lo + 2 && restricts) {
+        const int kc = (p - ld.off) / 2 - 1;
+        const int fz = p - 2, s0 = mod3(fz);
+        rct[(kc * gc.ny + cy) * gc.nx + cx] = restrict_at<3, T>(
+            Point{0, kc, cy, cx}, ld, [&](int z, int y, int x) {
+              const int s = s0 + z - fz;
+              return RS[(s < 3 ? s : s - 3) * P +
+                        (y - mc.y0 + H) * WX + (x - mc.x0 + H)];
+            });
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+#pragma unroll
+      for (int k = 0; k < NU - 1; ++k) {
+        rr[k][j] = rn[k][j];
+        xr[k][j] = xn[k][j];
+      }
+      b0[j] = b0n[j];
+      d0[j] = d0n[j];
+      br[j] = brn[j];
+    }
+  }
+}
+
+// The 3-D K6 (ld serial, vm null) and its sharded-slab form.
+template <int NU, typename T>
+__global__ void __launch_bounds__(kThreads, march_min_blocks<T>(false))
+    mg_march_pre_kernel(const T* __restrict__ b, const T* __restrict__ vm,
+                        const T* __restrict__ omega,
+                        const T* __restrict__ invD,
+                        const T* __restrict__ invT,
+                        const T* __restrict__ invDel, T* __restrict__ xo,
+                        T* __restrict__ rco, Grid g,
+                        const __grid_constant__ PairGroups pg, Lead ld,
+                        int chunk) {
+  __shared__ T wts[kMaxPairGroups];
+  __shared__ int toff[3 * kMaxPairTaps];
+  const int64_t t = blockIdx.z;
+  const int64_t S = row_size(g);
+  const RowCoef<T> c = row_coef(omega, invT, invDel, t);
+  if (threadIdx.x < pg.n_groups) {
+    wts[threadIdx.x] = group_weight(pg, int(threadIdx.x), c.om);
+  }
+  ring_offsets<NU>(pg.start[pg.n_groups], pg.dz, pg.dy, pg.dx, kMaxPairTaps,
+                   toff);
+  __syncthreads();
+  const T iD = invD[t];
+  march_fused_pre<NU>(
+      [&](int r) {
+        return ConstOp<T>{pg, wts, toff + r * kMaxPairTaps, iD};
+      },
+      c, b + t * S, vm, g, ld, march_chunk(g, ld, chunk, false), xo + t * S,
+      rco + t * row_size(coarse_grid<3>(g, ld)));
+}
+
+// The 3-D K14: 1/D recomputed from W at each use, as in K10.
+template <int NU, typename T>
+__global__ void __launch_bounds__(kThreads, march_min_blocks<T>(true))
+    mg_march_pre_var_kernel(const T* __restrict__ b, const T* __restrict__ W,
+                            const T* __restrict__ omega,
+                            const T* __restrict__ invT,
+                            const T* __restrict__ invDel, T* __restrict__ xo,
+                            T* __restrict__ rco, Grid g,
+                            const __grid_constant__ VarTaps vt,
+                            const __grid_constant__ PairGroups pm, int chunk,
+                            int rows_first) {
+  __shared__ T wm[kMaxPairGroups];
+  __shared__ int atoff[3 * kMaxVarTaps];
+  __shared__ int mtoff[3 * kMaxPairTaps];
+  const int64_t t = rows_first ? blockIdx.x : blockIdx.z;
+  const int S = int(row_size(g));
+  const RowCoef<T> c = row_coef(omega, invT, invDel, t);
+  if (threadIdx.x < pm.n_groups) wm[threadIdx.x] = T(pm.wm[threadIdx.x]);
+  ring_offsets<NU>(vt.n_taps, vt.dz, vt.dy, vt.dx, kMaxVarTaps, atoff);
+  ring_offsets<NU>(pm.start[pm.n_groups], pm.dz, pm.dy, pm.dx, kMaxPairTaps,
+                   mtoff);
+  __syncthreads();
+  const Lead ld = serial_lead<3>(g);
+  march_fused_pre<NU>(
+      [&](int r) {
+        return VarOp<T>{vt, pm, W, S, c.om, wm, atoff + r * kMaxVarTaps,
+                        mtoff + r * kMaxPairTaps, nullptr};
+      },
+      c, b + t * S, static_cast<const T*>(nullptr), g, ld,
+      march_chunk(g, ld, chunk, rows_first != 0), xo + t * S,
+      rco + t * row_size(coarse_grid<3>(g)));
 }
 
 template <int DIM, typename T>
@@ -1202,31 +1580,22 @@ int blocks_for(int64_t total) {
 }
 
 // The blocks of a tiled kernel: x bricks, (z brick, y brick) pairs, rows;
-// bricks bz planes deep in 3-D, those of the lead axis starting `shift`
-// planes before the grid (`make_window`).
+// in 2-D the bricks of the lead axis y start `shift` rows before the grid
+// (`make_window`).
 template <int DIM>
-dim3 bricks(int64_t nt, const Grid& g, int bz = BrickOf<DIM>::z,
-            int shift = 0) {
+dim3 bricks(int64_t nt, const Grid& g, int shift = 0) {
   using B = BrickOf<DIM>;
-  const int zs = DIM == 3 ? shift : 0, ys = DIM == 3 ? 0 : shift;
   return dim3(unsigned((g.nx + B::x - 1) / B::x),
-              unsigned(((g.nz + zs + bz - 1) / bz) *
-                       ((g.ny + ys + B::y - 1) / B::y)),
+              unsigned(((g.nz + B::z - 1) / B::z) *
+                       ((g.ny + shift + B::y - 1) / B::y)),
               unsigned(nt));
 }
 
 // The same blocks with the row fastest (K10, K14, K15).
 template <int DIM>
-dim3 bricks_rows_first(int64_t nt, const Grid& g, int bz = BrickOf<DIM>::z) {
-  const dim3 b = bricks<DIM>(nt, g, bz);
-  return dim3(b.z, b.x, b.y);
-}
-
-template <int DIM>
-dim3 bricks_for(bool rows_first, int64_t nt, const Grid& g,
-                int bz = BrickOf<DIM>::z) {
-  return rows_first ? bricks_rows_first<DIM>(nt, g, bz)
-                    : bricks<DIM>(nt, g, bz);
+dim3 bricks_for(bool rows_first, int64_t nt, const Grid& g) {
+  const dim3 b = bricks<DIM>(nt, g);
+  return rows_first ? dim3(b.z, b.x, b.y) : b;
 }
 
 // Whether the weighted kernels take the row fastest: where a level's
@@ -1244,45 +1613,46 @@ int point_blocks(int64_t nt, int64_t S, bool rows_first) {
                                : nt * S);
 }
 
-// Shared memory of nbuf buffers over the window of halo H around a brick
-// bz planes deep.
-template <int DIM, typename T>
-size_t window_size(int H, int nbuf, int bz) {
-  using B = BrickOf<DIM>;
-  const size_t hz = DIM == 3 ? size_t(H) : 0;
-  return nbuf * sizeof(T) * (B::x + 2 * size_t(H)) * (B::y + 2 * size_t(H)) *
-         ((DIM == 3 ? size_t(bz) : 1) + 2 * hz);
-}
-
-// The depth of a 3-D brick: BrickOf<3>::z planes, or half of it where that
-// window would exceed the shared memory a block may take (less 1 KB for
-// the static tables): three float64 buffers at halo 4, the fused
-// pre-stages at ν = 3, take 245.8 KB against the H100's 227 KB.
-template <int DIM, typename T>
-int brick_depth(int H, int nbuf) {
-  constexpr int bz = BrickOf<DIM>::z;
-  if (DIM == 2) return bz;
-  int dev = 0, limit = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  return window_size<DIM, T>(H, nbuf, bz) + 1024 <= size_t(limit) ? bz
-                                                                   : bz / 2;
+// Raises a kernel's dynamic shared memory limit to `bytes` where that is
+// above the 48 KB default; returns the cudaError_t of that.
+template <typename K>
+int allow_smem(K kernel, size_t bytes) {
+  if (bytes > size_t(kDefaultSmem)) {
+    return int(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes)));
+  }
+  return 0;
 }
 
 // Dynamic shared memory of a tiled kernel with halo H: nbuf buffers over
-// the window (three, four for the weighted kernels' 1/D in 2-D). Raises the
-// kernel's limit above the 48 KB default where needed; returns the
-// cudaError_t of that.
+// the window (three, four for the weighted kernels' 1/D in 2-D), its limit
+// raised (`allow_smem`).
 template <int DIM, typename T, typename K>
-int window_bytes(K kernel, int H, size_t* bytes, int nbuf = 3,
-                 int bz = BrickOf<DIM>::z) {
-  *bytes = window_size<DIM, T>(H, nbuf, bz);
-  if (*bytes > size_t(kDefaultSmem)) {
-    return int(cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(*bytes)));
-  }
-  return 0;
+int window_bytes(K kernel, int H, size_t* bytes, int nbuf = 3) {
+  using B = BrickOf<DIM>;
+  const size_t hz = DIM == 3 ? size_t(H) : 0;
+  *bytes = nbuf * sizeof(T) * (B::x + 2 * size_t(H)) *
+           (B::y + 2 * size_t(H)) * (B::z + 2 * hz);
+  return allow_smem(kernel, *bytes);
+}
+
+// Dynamic shared memory of the 3-D K6/K14 at ν = NU: 3(ν + 1) window planes
+// (`March`), its limit raised (tests/test_torch_march.py checks the sum).
+template <int NU, typename T, typename K>
+int march_bytes(K kernel, size_t* bytes) {
+  *bytes = size_t(3 * March<NU>::kRings * March<NU>::P) * sizeof(T);
+  return allow_smem(kernel, *bytes);
+}
+
+// The blocks of the 3-D K6/K14: x tiles, (chunk, y tile) pairs of `chunk`
+// coarse planes (at least one chunk), rows; with rows_first, the row
+// fastest (`march_chunk`).
+dim3 march_blocks(bool rows_first, int64_t nt, const Grid& g, int nc,
+                  int chunk) {
+  const unsigned tx = unsigned((g.nx + kMarchX - 1) / kMarchX);
+  const unsigned tyc = unsigned((g.ny + kMarchY - 1) / kMarchY) *
+                       unsigned(nc > 0 ? (nc + chunk - 1) / chunk : 1);
+  return rows_first ? dim3(unsigned(nt), tx, tyc) : dim3(tx, tyc, unsigned(nt));
 }
 
 cudaStream_t as_stream(void* stream) {
@@ -1321,20 +1691,42 @@ int launch_smooth_var(const T* x, const T* b, const T* W, const T* omega,
   return int(cudaGetLastError());
 }
 
+template <int NU, typename T>
+int launch_march_pre(const T* b, const T* vm, const T* omega, const T* invD,
+                     const T* invT, const T* invDel, T* xo, T* rco,
+                     int64_t nt, Grid g, const PairGroups* pg, Lead ld,
+                     int chunk, void* stream) {
+  size_t bytes = 0;
+  const int err = march_bytes<NU, T>(mg_march_pre_kernel<NU, T>, &bytes);
+  if (err != 0) return err;
+  mg_march_pre_kernel<NU, T><<<march_blocks(false, nt, g, ld.nc, chunk),
+                               kThreads, bytes, as_stream(stream)>>>(
+      b, vm, omega, invD, invT, invDel, xo, rco, g, *pg, ld, chunk);
+  return int(cudaGetLastError());
+}
+
+// K6: the march in 3-D (ν ∈ {2, 3}, chunk ≥ 1 coarse planes), the brick
+// window in 2-D (chunk unused).
 template <int DIM, typename T>
 int launch_fused_pre(const T* b, const T* vm, const T* omega, const T* invD,
                      const T* invT, const T* invDel, T* xo, T* rco,
                      int64_t nt, Grid g, const PairGroups* pg, int nu,
-                     Lead ld, void* stream) {
-  const int bz = brick_depth<DIM, T>(nu + 1, 3);
-  size_t bytes = 0;
-  const int err = window_bytes<DIM, T>(mg_fused_pre_kernel<DIM, T>, nu + 1,
-                                       &bytes, 3, bz);
-  if (err != 0) return err;
-  mg_fused_pre_kernel<DIM, T><<<bricks<DIM>(nt, g, bz, ld.off & 1), kThreads,
-                                bytes, as_stream(stream)>>>(
-      b, vm, omega, invD, invT, invDel, xo, rco, g, *pg, nu, bz, ld);
-  return int(cudaGetLastError());
+                     Lead ld, int chunk, void* stream) {
+  if constexpr (DIM == 3) {
+    if (chunk < 1 || nu < 2 || nu > 3) return int(cudaErrorInvalidValue);
+    return (nu == 2 ? launch_march_pre<2, T> : launch_march_pre<3, T>)(
+        b, vm, omega, invD, invT, invDel, xo, rco, nt, g, pg, ld, chunk,
+        stream);
+  } else {
+    size_t bytes = 0;
+    const int err =
+        window_bytes<2, T>(mg_fused_pre_kernel<T>, nu + 1, &bytes);
+    if (err != 0) return err;
+    mg_fused_pre_kernel<T><<<bricks<2>(nt, g, ld.off & 1), kThreads, bytes,
+                             as_stream(stream)>>>(
+        b, vm, omega, invD, invT, invDel, xo, rco, g, *pg, nu, ld);
+    return int(cudaGetLastError());
+  }
 }
 
 template <int DIM, typename T>
@@ -1352,22 +1744,46 @@ int launch_fused_post(const T* x, const T* b, const T* ec, const T* vm,
   return int(cudaGetLastError());
 }
 
+template <int NU, typename T>
+int launch_march_pre_var(const T* b, const T* W, const T* omega,
+                         const T* invT, const T* invDel, T* xo, T* rco,
+                         int64_t nt, Grid g, const VarTaps* vt,
+                         const PairGroups* pm, int chunk, void* stream) {
+  size_t bytes = 0;
+  const int err =
+      march_bytes<NU, T>(mg_march_pre_var_kernel<NU, T>, &bytes);
+  if (err != 0) return err;
+  const bool rf = rows_first(vt, row_size(g), sizeof(T));
+  mg_march_pre_var_kernel<NU, T><<<
+      march_blocks(rf, nt, g, serial_lead<3>(g).nc, chunk), kThreads, bytes,
+      as_stream(stream)>>>(b, W, omega, invT, invDel, xo, rco, g, *vt, *pm,
+                           chunk, rf);
+  return int(cudaGetLastError());
+}
+
+// K14: the march in 3-D, the brick window in 2-D (as K6).
 template <int DIM, typename T>
 int launch_fused_pre_var(const T* b, const T* W, const T* omega,
                          const T* invT, const T* invDel, T* xo, T* rco,
                          int64_t nt, Grid g, const VarTaps* vt,
-                         const PairGroups* pm, int nu, void* stream) {
-  const int nbuf = DIM == 2 ? 4 : 3;
-  const int bz = brick_depth<DIM, T>(nu + 1, nbuf);
-  size_t bytes = 0;
-  const int err = window_bytes<DIM, T>(mg_fused_pre_var_kernel<DIM, T>,
-                                       nu + 1, &bytes, nbuf, bz);
-  if (err != 0) return err;
-  const bool rf = rows_first(vt, row_size(g), sizeof(T));
-  mg_fused_pre_var_kernel<DIM, T><<<bricks_for<DIM>(rf, nt, g, bz), kThreads,
-                                    bytes, as_stream(stream)>>>(
-      b, W, omega, invT, invDel, xo, rco, g, *vt, *pm, nu, bz, rf);
-  return int(cudaGetLastError());
+                         const PairGroups* pm, int nu, int chunk,
+                         void* stream) {
+  if constexpr (DIM == 3) {
+    if (chunk < 1 || nu < 2 || nu > 3) return int(cudaErrorInvalidValue);
+    return (nu == 2 ? launch_march_pre_var<2, T>
+                    : launch_march_pre_var<3, T>)(
+        b, W, omega, invT, invDel, xo, rco, nt, g, vt, pm, chunk, stream);
+  } else {
+    size_t bytes = 0;
+    const int err =
+        window_bytes<2, T>(mg_fused_pre_var_kernel<T>, nu + 1, &bytes, 4);
+    if (err != 0) return err;
+    const bool rf = rows_first(vt, row_size(g), sizeof(T));
+    mg_fused_pre_var_kernel<T><<<bricks_for<2>(rf, nt, g), kThreads, bytes,
+                                 as_stream(stream)>>>(
+        b, W, omega, invT, invDel, xo, rco, g, *vt, *pm, nu, rf);
+    return int(cudaGetLastError());
+  }
 }
 
 template <int DIM, typename T>
@@ -1487,6 +1903,22 @@ int launch_cheb_step_var(const T* x, const T* b, const T* W, const T* omega,
   return int(cudaGetLastError());
 }
 
+// Blocks per SM and dynamic shared bytes of the 3-D K6 (var = 0) or K14
+// (var = 1) at ν = NU, 256 threads a block.
+template <int NU, typename T>
+int march_occupancy(int var, int* blocks, int* bytes) {
+  size_t b = 0;
+  const auto k = mg_march_pre_kernel<NU, T>;
+  const auto kv = mg_march_pre_var_kernel<NU, T>;
+  int err = var ? march_bytes<NU, T>(kv, &b) : march_bytes<NU, T>(k, &b);
+  if (err != 0) return err;
+  *bytes = int(b);
+  return int(var ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                       blocks, kv, kThreads, b)
+                 : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                       blocks, k, kThreads, b));
+}
+
 // The 2-D or 3-D instantiation of launcher L for a runtime dim.
 #define BY_DIM(L, T, ...) \
   (dim == 3 ? L<3, T>(__VA_ARGS__) : L<2, T>(__VA_ARGS__))
@@ -1511,6 +1943,18 @@ extern "C" {
 
 int mg_pairs_size() { return int(sizeof(PairGroups)); }
 int mg_var_taps_size() { return int(sizeof(VarTaps)); }
+
+// Blocks per SM and dynamic shared bytes of the 3-D K6 (var = 0) or K14
+// (var = 1) at ν ∈ {2, 3}, in float64 if f64 (else float32).
+int mg_march_occupancy(int var, int nu, int f64, int* blocks, int* bytes) {
+  if (nu < 2 || nu > 3) return int(cudaErrorInvalidValue);
+  if (f64) {
+    return (nu == 2 ? march_occupancy<2, double>
+                    : march_occupancy<3, double>)(var, blocks, bytes);
+  }
+  return (nu == 2 ? march_occupancy<2, float> : march_occupancy<3, float>)(
+      var, blocks, bytes);
+}
 
 #define MG_ENTRY_POINTS(T, SFX)                                               \
   int mg_smooth_##SFX(const T* x, const T* b, const T* omega, const T* invD,  \
@@ -1546,21 +1990,22 @@ int mg_var_taps_size() { return int(sizeof(VarTaps)); }
   int mg_fused_pre_##SFX(const T* b, const T* omega, const T* invD,           \
                          const T* invT, const T* invDel, T* xo, T* rco,       \
                          int64_t nt, int64_t nz, int64_t ny, int64_t nx,      \
-                         int dim, const PairGroups* pg, int nu,               \
+                         int dim, const PairGroups* pg, int nu, int chunk,    \
                          void* stream) {                                      \
     const Grid g{int(nz), int(ny), int(nx)};                                  \
     return BY_DIM(launch_fused_pre, T, b, nullptr, omega, invD, invT, invDel, \
-                  xo, rco, nt, g, pg, nu, serial_lead_of(g, dim), stream);    \
+                  xo, rco, nt, g, pg, nu, serial_lead_of(g, dim), chunk,      \
+                  stream);                                                    \
   }                                                                           \
   int mg_sh_fused_pre_##SFX(const T* b, const T* vm, const T* omega,          \
                             const T* invD, const T* invT, const T* invDel,    \
                             T* xo, T* rco, int64_t nt, int64_t nz,            \
                             int64_t ny, int64_t nx, int dim,                  \
                             const PairGroups* pg, int nu, int own, int h,     \
-                            void* stream) {                                   \
+                            int chunk, void* stream) {                        \
     const Grid g{int(nz), int(ny), int(nx)};                                  \
     return BY_DIM(launch_fused_pre, T, b, vm, omega, invD, invT, invDel, xo,  \
-                  rco, nt, g, pg, nu, Lead{h, 0, own / 2}, stream);           \
+                  rco, nt, g, pg, nu, Lead{h, 0, own / 2}, chunk, stream);    \
   }                                                                           \
   int mg_fused_post_##SFX(const T* x, const T* b, const T* ec,                \
                           const T* omega, const T* invD, const T* invT,       \
@@ -1650,10 +2095,11 @@ int mg_var_taps_size() { return int(sizeof(VarTaps)); }
   int mg_fused_pre_var_##SFX(                                                 \
       const T* b, const T* W, const T* omega, const T* invT, const T* invDel, \
       T* xo, T* rco, int64_t nt, int64_t nz, int64_t ny, int64_t nx, int dim, \
-      const VarTaps* vt, const PairGroups* pm, int nu, void* stream) {        \
+      const VarTaps* vt, const PairGroups* pm, int nu, int chunk,             \
+      void* stream) {                                                         \
     const Grid g{int(nz), int(ny), int(nx)};                                  \
     return BY_DIM(launch_fused_pre_var, T, b, W, omega, invT, invDel, xo,     \
-                  rco, nt, g, vt, pm, nu, stream);                            \
+                  rco, nt, g, vt, pm, nu, chunk, stream);                     \
   }                                                                           \
   int mg_fused_post_var_##SFX(                                                \
       const T* x, const T* b, const T* ec, const T* W, const T* omega,        \

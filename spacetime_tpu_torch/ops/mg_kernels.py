@@ -26,7 +26,9 @@ and ν ≤ 3 in 3-D (``MAX_NU``, its halo in shared memory); above that the K3
 and K10 wrappers chain ν launches of a one-step kernel (``mg_cheb_step``,
 ``mg_cheb_step_var``) that keeps r and d in device memory, so every ν ≥ 1
 runs, as in the JAX package. The fused stages keep ν ∈ {2, 3}, as JAX's
-do.
+do. In 3-D the pre-stages K6 and K14 march in z: a block owns a
+``MARCH_TILE`` (y, x) tile of one row and a chunk of coarse planes, whose
+depth the wrapper picks (``march_chunk``) so that the launch fills the card.
 
 For a CUDA tensor each wrapper launches the CUDA kernel of csrc/mg.cu
 (float32 and float64) and counts the launch, with one count per kernel,
@@ -102,10 +104,12 @@ from .stencil import grouped_apply, weight_groups
 SOURCE = "spacetime_tpu_torch/csrc/mg.cu"
 # The tiled sweep's halo: a tile grows by ν cells per side. 2-D tiles are
 # 32 × 32; a 3-D brick of 8 × 8 × 32 with three float64 buffers fits the
-# 227 KB of shared memory up to ν = 3. Above it the sweep is chained. (The
-# fused pre-stage's halo is ν + 1: in 3-D float64 at ν = 3 its brick is 4
-# planes deep, ``brick_depth`` in csrc/mg.cu.)
+# 227 KB of shared memory up to ν = 3. Above it the sweep is chained.
 MAX_NU = {2: 8, 3: 3}
+# The (y, x) tile of a block of the 3-D K6/K14 (csrc/mg.cu ``March``): its
+# window plane grows by H = ν + 1 cells a side, and it keeps 3(ν + 1) such
+# planes in shared memory.
+MARCH_TILE = (16, 32)
 MAX_ROWS = 65535  # the time row is blockIdx.z of the tiled kernels
 MAX_ROW_POINTS = 2 ** 31  # in-row indices are 32-bit
 _MG = "spacetime_tpu/ops/mg_pallas.py"
@@ -149,6 +153,24 @@ KERNELS = {
 _LP_NAMES = {"omega": "omega", "invD": "inv_diag", "invT": "inv_theta",
              "invDel": "inv_delta"}
 _VAR_LP_NAMES = {k: v for k, v in _LP_NAMES.items() if k != "invD"}
+
+
+@functools.lru_cache(maxsize=None)
+def march_chunk(T: int, gs: tuple, nc: int, sms: int) -> int:
+    """Coarse planes per block of the 3-D K6/K14 on a (T, *gs) field with
+    nc coarse planes on its lead axis: every plane of the column, halved
+    while the launch gives fewer than two blocks to each of the card's
+    ``sms`` SMs, down to 2 (a block marches through ≥ 4 fine planes)."""
+    tiles = -(-gs[1] // MARCH_TILE[0]) * -(-gs[2] // MARCH_TILE[1])
+    chunk = max(nc, 1)
+    while chunk > 2 and T * tiles * -(-nc // chunk) < 2 * sms:
+        chunk = -(-chunk // 2)
+    return chunk
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def reset_launch_counts() -> None:
@@ -285,6 +307,13 @@ class _KernelLevel:
         2-D)."""
         return (1,) * (3 - self.dim) + self.gs + (self.dim,)
 
+    def _chunk(self, T: int, nc: int, device) -> int:
+        """The coarse planes a block of the 3-D K6/K14 marches through (nc
+        on the lead axis; unused in 2-D)."""
+        if self.dim == 2:
+            return 0
+        return march_chunk(T, self.gs, nc, _sm_count(device.index))
+
 
 class MSKernelLevel(_KernelLevel):
     """K3–K9 for one multigrid level on a 2-D or 3-D grid; ``gs``
@@ -402,7 +431,8 @@ class MSKernelLevel(_KernelLevel):
         x = torch.empty_like(b)
         rc = b.new_empty((T,) + self.coarse_gs)
         k.launch(b.device, b.data_ptr(), *cp, x.data_ptr(),
-                 rc.data_ptr(), T, *self._zyx(), self._op_table(), self.nu)
+                 rc.data_ptr(), T, *self._zyx(), self._op_table(), self.nu,
+                 self._chunk(T, self.coarse_gs[0], b.device))
         return x, rc
 
     def fused_post(self, x, b, ec, cols):
@@ -459,7 +489,7 @@ class MSKernelLevel(_KernelLevel):
         rc = b.new_empty((T,) + self._coarse_lead(own // 2))
         k.launch(b.device, b.data_ptr(), vmask.data_ptr(), *cp, x.data_ptr(),
                  rc.data_ptr(), T, *self._zyx(), self._op_table(), self.nu,
-                 own, h)
+                 own, h, self._chunk(T, own // 2, b.device))
         return x, rc
 
     def sh_fused_post(self, x, b, ec, cols, vmask, own: int, h: int,
@@ -632,7 +662,8 @@ class VarMSKernelLevel(_KernelLevel):
         x = torch.empty_like(b)
         rc = b.new_empty((T,) + self.coarse_gs)
         k.launch(b.device, b.data_ptr(), W.data_ptr(), *cp, x.data_ptr(),
-                 rc.data_ptr(), T, *self._zyx(), *self._tables(), self.nu)
+                 rc.data_ptr(), T, *self._zyx(), *self._tables(), self.nu,
+                 self._chunk(T, self.coarse_gs[0], b.device))
         return x, rc
 
     def fused_post(self, x, b, ec, cols, W):

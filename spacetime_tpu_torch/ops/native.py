@@ -258,14 +258,17 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             "mg_smooth": [P, P, P, P, P, P, P, *grid, P, I, I, P],
             "mg_residual": [P, P, P, P, *grid, P, P],
             "mg_apply": [P, P, *grid, P, P],
-            "mg_fused_pre": [P, P, P, P, P, P, P, *grid, P, I, P],
+            # the fused pre-stages: ν, then the 3-D march's coarse planes
+            # a block (unused in 2-D)
+            "mg_fused_pre": [P, P, P, P, P, P, P, *grid, P, I, I, P],
             "mg_fused_post": [P, P, P, P, P, P, P, P, *grid, P, I, P],
             "mg_residual_restrict": [P, P, P, P, *grid, P, P],
             "mg_prolong_correct": [P, P, P, *grid, P],
             # the sharded-slab forms: vm after the fields; (own, h[, hc])
             # after the table and ν
             "mg_sh_smooth": [P, P, P, P, P, P, P, P, *grid, P, I, I, P],
-            "mg_sh_fused_pre": [P, P, P, P, P, P, P, P, *grid, P, I, I, I, P],
+            "mg_sh_fused_pre": [P, P, P, P, P, P, P, P, *grid, P, I, I, I, I,
+                                P],
             "mg_sh_fused_post": [P, P, P, P, P, P, P, P, P, *grid, P, I, I, I,
                                  I, P],
             "mg_sh_residual_restrict": [P, P, P, P, *grid, P, I, I, P],
@@ -276,7 +279,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             "mg_residual_var": [P, P, P, P, P, *grid, P, P, P],
             "mg_apply_var": [P, P, P, *grid, P, P],
             "mg_residual_restrict_var": [P, P, P, P, P, *grid, P, P, P],
-            "mg_fused_pre_var": [P, P, P, P, P, P, P, *grid, P, P, I, P],
+            "mg_fused_pre_var": [P, P, P, P, P, P, P, *grid, P, P, I, I, P],
             "mg_fused_post_var": [P, P, P, P, P, P, P, P, *grid, P, P, I, P],
             # one Chebyshev step of the K3 / K10 chains (ν above MAX_NU):
             # x, b, vm (K3) or W (K10), the columns, r, d_in, d_out, x_out,
@@ -300,6 +303,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             fn = getattr(lib, f"{name}_{sfx}")
             fn.argtypes = argtypes
             fn.restype = I
+    lib.mg_march_occupancy.argtypes = [I, I, I, P, P]
+    lib.mg_march_occupancy.restype = I
     for size_fn, struct in (("kron_taps_size", TapsStruct),
                             ("mg_pairs_size", PairGroupsStruct),
                             ("mg_var_taps_size", VarTapsStruct),
