@@ -10,7 +10,8 @@ Phases (every check asserts; any failure exits non-zero):
 1. device   — CUDA is required; prints the card's name and power limit.
 2. build    — compiles csrc/*.cu with nvcc into build/ (at first use);
               prints each kernel's registers and shared memory (ptxas) and
-              the blocks per SM of the 3-D K6/K14 march instantiations.
+              the blocks per SM of the 3-D K6/K7/K14/K15 march
+              instantiations.
 3. setup    — the 129²×64 ("cfg2") f32 solver: smooth2d, multigrid inner.
 4. kernels  — K1 (B) and K2 (Bᵀ), plain and stab-fused, float32 and float64,
               against their plain PyTorch twins at the cfg2 shape (T=64,
@@ -26,15 +27,16 @@ Phases (every check asserts; any failure exits non-zero):
               63³ (T=65) and 31³ (T=33: the smooth3d 65³×32 solve's levels
               at K_X's rows; the 129³ flagship's finest level, 127³, is
               solved by ``run.py`` only) and a
-              ragged 7×9×15 (T=5), float32 and float64, ν ∈ {2, 3} (K6 on
-              the z-marching kernel); median device times (ν =
+              ragged 7×9×15 (T=5), float32 and float64, ν ∈ {2, 3} (K6 and
+              K7 on the z-marching kernels); median device times (ν =
               2) at 63³×65, and ν = 3 for K6/K7 there. K5 is also timed
               against ``F.conv2d`` / ``F.conv3d`` with its stencil (the
               library call). Beside each timed fused stage, in 2-D and 3-D,
               the semi-fused pair it replaces: K3 from 0 + K8 for K6, K9 + K3
-              from x for K7 (``semi_pair_ms``). K6 alone, with its pair, is
-              also held to its twin and timed at 127³×65 (the 129³ solve's
-              finest level), ν ∈ {2, 3}, float32 and float64 (``K6_BIG``).
+              from x for K7 (``semi_pair_ms``). K6 and K7 alone, with their
+              pairs, are also held to their twins and timed at 127³×65 (the
+              129³ solve's finest level), ν ∈ {2, 3}, float32 and float64
+              (``FUSED_BIG``; the fields made on the card).
 7. solve    — cfg2 ``solve(tol=1e-6)``: 16 ± 1 PCG iterations, L2 within 1%
               of 5.748e-05.
 8. refined  — cfg2 ``solve_refined(tol=1e-8)`` twice: converged in 2 inner
@@ -392,9 +394,9 @@ CHAIN_MAIN = {2: (65, (127, 127)), 3: (33, (63,) * 3)}
 MG_SHAPES = [(129, (511, 511)), (129, (255, 255)), (65, (127, 127)),
              (5, (15, 31))]
 MG_SHAPES_3D = [(65, (63, 63, 63)), (33, (31, 31, 31)), (5, (7, 9, 15))]
-# (T, grid) where phase 6 holds and times K6 alone, beside its pair: the
-# 129³×64 solve's finest level at K_X's rows
-K6_BIG = (65, (127, 127, 127))
+# (T, grid) where phase 6 holds and times the fused stages K6 and K7 alone,
+# beside their pairs: the 129³×64 solve's finest level at K_X's rows
+FUSED_BIG = (65, (127, 127, 127))
 # (T, grid, cells of the assembly its weights come from) of the weighted
 # kernels' checks: the varcoef2d flagship's two finest levels, its 129²
 # run's finest level at K_X's row count, and a ragged grid (the 127²
@@ -2003,11 +2005,15 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip())
     lib = native.LIB.get()
-    for var, nu, f64 in itertools.product((0, 1), (2, 3), (0, 1)):
+    # var 2: K15's instantiation that takes the row first (W beyond the L2)
+    for (post, var), nu, f64 in itertools.product(
+            ((0, 0), (0, 1), (1, 0), (1, 1), (1, 2)), (2, 3), (0, 1)):
         blocks, nbytes = ctypes.c_int(), ctypes.c_int()
         native.check(lib, "mg_march_occupancy", lib.mg_march_occupancy(
-            var, nu, f64, ctypes.byref(blocks), ctypes.byref(nbytes)))
-        print(f"  3-D {'K14' if var else 'K6'} march, nu={nu}, "
+            post, var, nu, f64, ctypes.byref(blocks), ctypes.byref(nbytes)))
+        name = (("K7", "K15", "K15 row-first")[var] if post
+                else ("K14" if var else "K6"))
+        print(f"  3-D {name} march, nu={nu}, "
               f"{'float64' if f64 else 'float32'}: {blocks.value} blocks "
               f"of 256 threads per SM, {nbytes.value} bytes of shared "
               "memory a block")
@@ -2106,29 +2112,32 @@ def main() -> int:
                                 pairs=semi_pairs(kl, x, False))
                     del x
                     torch.cuda.empty_cache()
-    # K6 and its pair at the 129³ solve's finest level: b alone, made on
-    # the card from the seed (the host's random fields of this size took
-    # most of this check's time), one field a dtype for both ν
+    # K6, K7 and their pairs at the 129³ solve's finest level: x, b and
+    # e_c made on the card from the seed (the host's random fields of this
+    # size took most of this check's time), one set a dtype for both ν
     from spacetime_tpu_torch.ops.multigrid import row_params
 
     t0 = time.perf_counter()
     lev0 = small3.msmg.levels[0]
-    T, gs = K6_BIG
+    T, gs = FUSED_BIG
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
     for dtype in (torch.float32, torch.float64):
-        b = torch.randn((T,) + gs, generator=gen, device=DEVICE, dtype=dtype)
+        big = {key: torch.randn((T,) + shape, generator=gen, device=DEVICE,
+                                dtype=dtype)
+               for key, shape in (("x", gs), ("b", gs),
+                                  ("ec", tuple((n - 1) // 2 for n in gs)))}
         for nu in (2, 3):
             kl = MSKernelLevel(lev0.A_st, lev0.M_st, nu, gs=gs)
-            cols = kl.columns(row_params(
+            x = dict(big, cols=kl.columns(row_params(
                 small3.msmg, np.abs(rng.standard_normal(T)) * 20, dtype,
-                DEVICE)[0])
-            x = {"x": b, "b": b, "ec": None, "cols": cols}
-            check_forms(kl, {"fused_pre": mg_forms(kl, x)["fused_pre"]},
+                DEVICE)[0]))
+            forms = mg_forms(kl, x)
+            check_forms(kl, {f: forms[f] for f in ("fused_pre", "fused_post")},
                         mg_bound, T, dtype, mg_results, timed=True,
                         pairs=semi_pairs(kl, x, False))
-        del b, x
+        del big, x, forms
         torch.cuda.empty_cache()
-    print(f"K6 at {shape_key(T, gs)}: {time.perf_counter() - t0:.2f} s")
+    print(f"K6, K7 at {shape_key(T, gs)}: {time.perf_counter() - t0:.2f} s")
     # the host hierarchies of the sharded forms' checks (phase 33)
     msmg2, msmg3 = solver.msmg, small3.msmg
     del small3

@@ -83,7 +83,8 @@
 //                the march's chunks of coarse planes start at fine plane h.
 //   mg_sh_fused_post (K7 with lead=(own, h, hc), :1475): x + P e_c with
 //                the offset prolongation, then the sweep with vm; the
-//                output at the slab's full extent.
+//                output at the slab's full extent. In 3-D the march's
+//                chunks of fine planes cover the slab from plane 0.
 //   mg_sh_residual_restrict (K8 with lead=(own, h), :1683): the owned
 //                coarse planes of R(b − Op x).
 //   mg_sh_prolong_correct (K9 with lead=(own, hc), :1913): x + P e_c on
@@ -123,43 +124,55 @@
 //   kron.cu). K8 recomputes the residual at the 2^d · 2 fine points each
 //   coarse point sums (2× the fine residuals, as each is shared by up to
 //   2^d coarse points); K9 reads its two coarse values from global memory.
-// - K3, K7 (and the 2-D K6): one block of 256 threads owns a brick of one
-//   time row (blockIdx.z = row): 32 × 32 in 2-D, 8 × 8 × 32 (z, y, x) in
-//   3-D. It loads the brick and a halo into shared memory and runs the
-//   recurrence there, each Op application shrinking the valid halo by one
-//   cell, with __syncthreads() between the stages. Halo: ν−1 for the
-//   zero-init sweep (G of the Pallas kernel, :214), ν for the sweep from x,
-//   ν + 1 for K6 (G + E, E = 2 for the residual and the restriction,
-//   :1342), ν for K7's prolonged field (:1525); in 3-D the halo grows in z
-//   as well. Points of the window outside the grid hold 0 in every buffer,
-//   which is the Dirichlet ghost (`_domain_mask`, :122) for bricks on the
-//   boundary and for ragged extents. Bricks start at even offsets
-//   (multiples of 32 or 8), so a coarse point's 2^d fine pairs lie in its
-//   own brick plus one fine row and column (and plane) of halo. A 3-D brick
-//   with three double buffers takes 174.6 KB of shared memory at halo 3, so
-//   the tiled 3-D sweep takes ν ≤ 3 (above it, the chained sweep). The
-//   fused stages do in one launch what K3 + K8 (pre) and K9 + K3 (post) do
-//   in two: x never makes the round trip through device memory between the
-//   sweep and the transfer.
-// - The 3-D K6 and K14 march in z (`march_fused_pre`): a block owns a 16 ×
-//   32 (y, x) tile of one row and walks a chunk of its planes in order (the
-//   whole column where that fills the card), its pipeline's stages (the
-//   sweep's ν steps, the residual, the restriction) a plane apart. Each
-//   stage keeps the three planes the next one's Op reads (z − 1, z, z + 1)
-//   in a ring in shared memory, 3(ν + 1) planes of (16 + 2H) × (32 + 2H)
-//   points, H = ν + 1: 30.1 KB in f32 and 60.2 KB in f64 at ν = 2, 46.1
-//   and 92.2 KB at ν = 3, so an SM holds several blocks even in f64. The
-//   xy halo shrinks by a cell a stage as in the bricks; in z only a
-//   chunk's two ends are computed twice, where a brick recomputed ν + 1
-//   planes on each side of 8 (its window at ν = 2 held 3.6× the brick).
-//   Each thread keeps four fixed points of the window plane for the whole
-//   march, so no index is divided per point, holds their r and x in
-//   registers from one stage to the next, applies Op to all four tap by
-//   tap (`many`: four independent sums, each tap's offset read once), and
-//   loads b and the diagonal a plane ahead, so that no stage waits on
-//   device memory between two barriers. The taps' offsets in the ring are
-//   resolved once per block for each of its three rotations. An SM holds
-//   4 blocks of K6 in f32 and 2 otherwise (`march_min_blocks`). The
+// - K3 and K10 (2-D and 3-D) and the 2-D fused stages K6, K7, K14, K15:
+//   one block of 256 threads owns a brick of one time row (blockIdx.z =
+//   row): 32 × 32 in 2-D, 8 × 8 × 32 (z, y, x) in 3-D. It loads the brick
+//   and a halo into shared memory and runs the recurrence there, each Op
+//   application shrinking the valid halo by one cell, with __syncthreads()
+//   between the stages. Halo: ν−1 for the zero-init sweep (G of the Pallas
+//   kernel, :214), ν for the sweep from x, ν + 1 for K6 (G + E, E = 2 for
+//   the residual and the restriction, :1342), ν for K7's prolonged field
+//   (:1525); in 3-D the halo grows in z as well. Points of the window
+//   outside the grid hold 0 in every buffer, which is the Dirichlet ghost
+//   (`_domain_mask`, :122) for bricks on the boundary and for ragged
+//   extents. Bricks start at even offsets (multiples of 32 or 8), so a
+//   coarse point's 2^d fine pairs lie in its own brick plus one fine row
+//   and column (and plane) of halo. A 3-D brick with three double buffers
+//   takes 174.6 KB of shared memory at halo 3, so the tiled 3-D sweep
+//   takes ν ≤ 3 (above it, the chained sweep). The fused stages do in one
+//   launch what K3 + K8 (pre) and K9 + K3 (post) do in two: x never makes
+//   the round trip through device memory between the sweep and the
+//   transfer.
+// - The 3-D fused stages march in z (K6 and K14 `march_fused_pre`, K7 and
+//   K15 `march_fused_post`): a block owns a 16 × 32 (y, x) tile of one row
+//   and walks a chunk of its planes in order (the whole column where that
+//   fills the card), its pipeline's stages a plane apart. Each stage keeps
+//   the three planes the next one's Op reads (z − 1, z, z + 1) in a ring
+//   in shared memory, three planes of the tile grown by H in y and x. The
+//   pre-stage (stages: the sweep's ν steps, the residual, the
+//   restriction) keeps ν + 1 rings at H = ν + 1: 30.1 KB in f32 and 60.2
+//   KB in f64 at ν = 2, 46.1 and 92.2 KB at ν = 3. The post-stage
+//   (stages: x + P e_c, then the sweep's ν steps; no residual, no
+//   restriction) keeps ν rings (x + P e_c, then d of steps 1 … ν−1) at H
+//   = ν: 17.3 and 34.6 KB at ν = 2, 30.1 and 60.2 KB at ν = 3. So an SM
+//   holds several blocks even in f64. The xy halo shrinks by a cell a
+//   stage as in the bricks; in z only a chunk's two ends are computed
+//   twice, where a brick recomputed ν (+ 1) planes on each side of 8 (its
+//   window held 2.5–3.6× the brick). Each thread keeps the same few points
+//   of the window plane for the whole march, so no index is divided per
+//   point, holds their r and x in registers from one stage to the next,
+//   applies Op to all of them tap by tap (`many`: independent sums, each
+//   tap's offset read once), and loads b and the diagonal (and in the
+//   post-stage x and e_c) a plane ahead, so that no stage waits on device
+//   memory between two barriers. The taps' offsets in the ring are
+//   resolved once per block for each of its three rotations. The
+//   pre-stage's points lie in the window's row order, four a thread; the
+//   post-stage's lie deepest first (the tile, then the frames of depth H −
+//   1 … 0, `march_post_point`), so that the points of stage k, those of
+//   depth ≥ k, are a prefix of them and each stage applies Op to only as
+//   many of a thread's points as its region fills (2 of 3 at ν = 2 for
+//   the last stage), and a warp's tile points are one aligned row of 32.
+//   The blocks an SM holds (`march_min_blocks`) were chosen by timing. The
 //   Pallas kernel keeps z and x whole and blocks in y, so it never
 //   recomputed a z halo either.
 // - The restriction and the prolongation are exact pair sums, one device
@@ -877,8 +890,8 @@ __global__ void mg_prolong_correct_kernel(const T* __restrict__ x,
   }
 }
 
-// The fused stages on the tiled window: K7/K15 in 2-D and 3-D, K6/K14 in
-// 2-D (the 3-D K6/K14 march in z, below).
+// The fused stages on the tiled window, in 2-D (in 3-D they march in z,
+// below).
 //
 // The end of the 2-D K6/K14, after the zero-init sweep left x valid on the
 // tile grown by 2 (H = nu + 1): the residual on the tile grown by 1 (one
@@ -913,16 +926,16 @@ __device__ void fused_pre_tail(const Op& op, const T* __restrict__ bt,
   }
 }
 
-// The start of K7/K15: X = x + P e_c on the whole window (halo nu), zero
-// outside the grid, with K9's prolongation (`prolong_at`).
-template <int DIM, typename T>
+// The start of the 2-D K7/K15: X = x + P e_c on the whole window (halo
+// nu), zero outside the grid, with K9's prolongation (`prolong_at`).
+template <typename T>
 __device__ void prolong_window(const T* __restrict__ xt,
                                const T* __restrict__ et, const Window& win,
                                const Lead& ld, T* X) {
-  const Grid gc = coarse_grid<DIM>(win.g, ld);
-  for_region<DIM>(win, win.H, [&](int o, int fz, int fy, int fx, int gi,
-                                  bool in) {
-    X[o] = in ? xt[gi] + prolong_at<DIM>(et, gc, ld, fz, fy, fx) : T(0);
+  const Grid gc = coarse_grid<2>(win.g, ld);
+  for_region<2>(win, win.H, [&](int o, int fz, int fy, int fx, int gi,
+                                bool in) {
+    X[o] = in ? xt[gi] + prolong_at<2>(et, gc, ld, fz, fy, fx) : T(0);
   });
 }
 
@@ -956,8 +969,8 @@ __global__ void __launch_bounds__(kThreads)
                  rco + t * row_size(coarse_grid<2>(g, ld)));
 }
 
-// K7 (ld serial, vm null) and its sharded-slab form.
-template <int DIM, typename T>
+// The 2-D K7 (ld serial, vm null) and its sharded-slab form.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
     mg_fused_post_kernel(const T* __restrict__ x, const T* __restrict__ b,
                          const T* __restrict__ ec, const T* __restrict__ vm,
@@ -972,23 +985,22 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t t = blockIdx.z;
   const int64_t S = row_size(g);
   const RowCoef<T> c = row_coef(omega, invT, invDel, t);
-  const Window win = make_window<DIM>(g, nu);
+  const Window win = make_window<2>(g, nu);
   T* X = window_buffers<T>();
   T* D = X + win.volume;
   T* R = D + win.volume;
-  prolong_window<DIM>(x + t * S, ec + t * row_size(coarse_grid<DIM>(g, ld)),
-                      win, ld, X);
+  prolong_window(x + t * S, ec + t * row_size(coarse_grid<2>(g, ld)), win,
+                 ld, X);
   row_tables(pg, c.om, win, wts, toff);
-  cheb_sweep<DIM>(ConstOp<T>{pg, wts, toff, invD[t]}, c, b + t * S, win, X,
-                  D, R, nu, false, win.H - 1, vm);
+  cheb_sweep<2>(ConstOp<T>{pg, wts, toff, invD[t]}, c, b + t * S, win, X, D,
+                R, nu, false, win.H - 1, vm);
   T* ot = out + t * S;
-  for_region<DIM>(win, 0, [&](int o, int, int, int, int gi, bool in) {
+  for_region<2>(win, 0, [&](int o, int, int, int, int gi, bool in) {
     if (in) ot[gi] = X[o];
   });
 }
 
-// The 2-D K14, and K15: 1/D is a fourth window buffer in 2-D and
-// recomputed from W in 3-D, as in K10.
+// The 2-D K14: 1/D is a fourth window buffer, as in the 2-D K10.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     mg_fused_pre_var_kernel(const T* __restrict__ b, const T* __restrict__ W,
@@ -1019,12 +1031,13 @@ __global__ void __launch_bounds__(kThreads)
                  rco + t * row_size(coarse_grid<2>(g)));
 }
 
-// The 3-D K6 and K14 march in z. A block owns a kMarchY × kMarchX (y, x)
-// tile of one time row and a chunk of coarse planes [k_lo, k_hi) (every
-// plane of the row where the launch fills the card without cutting it),
-// and walks the fine planes in order, one a step. Each stage of the
-// pipeline lags the one before by a plane and keeps, in shared memory, a
-// ring of the three planes the next stage's Op reads:
+// The 3-D fused stages march in z. A block owns a kMarchY × kMarchX (y, x)
+// tile of one time row and a chunk of planes (every plane of the row
+// where the launch fills the card without cutting it), and walks the fine
+// planes in order, one a step. Each stage of the pipeline lags the one
+// before by a plane and keeps, in shared memory, a ring of the three
+// planes the next stage's Op reads. K6 and K14 (`march_fused_pre`, H = ν
+// + 1, chunks of coarse planes):
 //
 //   stage 0, plane t:       r = vm·D⁻¹b, d = r/θ, x = d        → ring of d
 //   stage k, plane t − k:   r = vm·(r − D⁻¹ Op d), d = c1 d + c2 r,
@@ -1034,31 +1047,48 @@ __global__ void __launch_bounds__(kThreads)
 //   restriction:            coarse plane k once fine planes off + 2k,
 //                           + 1, + 2 of the residual are in (`restrict_at`)
 //
+// K7 and K15 (`march_fused_post`, H = ν, chunks of fine planes):
+//
+//   stage 0, plane t:       X₀ = x + P e_c                     → ring of X₀
+//   stage 1, plane t − 1:   r = vm·D⁻¹(b − Op X₀), d = r/θ, x = X₀ + d
+//                                                              → ring of d
+//   stage k, plane t − k:   r = vm·(r − D⁻¹ Op d), d = c1 d + c2 r,
+//                           x += d  (k = 2 … ν; the last: x → out)
+//
 // Plane p lies in slot p mod 3 of each ring, so Op reads the taps of plane
 // p through the offset table of rotation p mod 3, resolved once per block.
-// Every thread keeps the same kMarchSlots points of the window plane for
-// the whole march, and the pointwise terms of each stage (r and x) in
-// registers; only d, x and the residual, which Op reads at neighbours, go
-// through shared memory. The xy halo shrinks by one cell a stage as in the
-// tiled sweep (stage k on the window grown by H − k, H = ν + 1); in z only
-// the chunk's two ends are computed twice.
+// Every thread keeps the same points of the window plane for the whole
+// march, and the pointwise terms of each stage (r and x) in registers;
+// only what Op reads at neighbours goes through shared memory. The xy halo
+// shrinks by one cell a stage as in the tiled sweep (stage k on the tile
+// grown by H − k); in z only the chunk's two ends are computed twice.
 constexpr int kMarchY = 16, kMarchX = 32;
-constexpr int kMarchSlots = 4;
+constexpr int kMarchSlots = 4;  // the pre-stage's points a thread
 
-template <int NU>
+// The window plane of a march with halo H: the tile grown by H a side.
+template <int HALO>
 struct March {
-  static constexpr int H = NU + 1;
+  static constexpr int H = HALO;
   static constexpr int WY = kMarchY + 2 * H, WX = kMarchX + 2 * H;
   static constexpr int P = WY * WX;  // points of a window plane
-  static constexpr int kRings = NU + 1;  // d_0 … d_{ν−2}, x, the residual
-  static_assert(P <= kMarchSlots * kThreads, "window plane over the slots");
+  // the points of depth ≥ d: the tile grown by H − d
+  __host__ __device__ static constexpr int at_depth(int d) {
+    return (kMarchY + 2 * (H - d)) * (kMarchX + 2 * (H - d));
+  }
+  // the slots of kThreads threads that n points take
+  __host__ __device__ static constexpr int slots(int n) {
+    return (n + kThreads - 1) / kThreads;
+  }
 };
 
 // The blocks an SM must hold of each march kernel (its register cap),
-// chosen by timing on the H100 (PERF.md): 4 for K6 in float32, else 2.
+// chosen by timing on the H100 (PERF.md): in float32 4 for K6 and K7, and
+// for K15 where it takes the row first (W beyond the L2; at 2 where W
+// fits), else 2.
 template <typename T>
-__host__ __device__ constexpr int march_min_blocks(bool var) {
-  return !var && sizeof(T) == 4 ? 4 : 2;
+__host__ __device__ constexpr int march_min_blocks(bool var, bool post,
+                                                   bool rows_first = false) {
+  return sizeof(T) == 4 && (!var || (post && rows_first)) ? 4 : 2;
 }
 
 template <int N>
@@ -1068,41 +1098,63 @@ struct Int {
 
 __device__ __forceinline__ int mod3(int p) { return (p % 3 + 3) % 3; }
 
-// The window offsets of n taps on a ring of three planes, for each
-// rotation r (the tapped point's plane in slot r): off[r·stride + k].
-template <int NU>
+// The window offsets of n taps on a ring of three planes of halo H, for
+// each rotation r (the tapped point's plane in slot r): off[r·stride + k].
+template <int H>
 __device__ __forceinline__ void ring_offsets(int n, const int* dz,
                                              const int* dy, const int* dx,
                                              int stride, int* off) {
-  using M = March<NU>;
+  using M = March<H>;
   for (int i = threadIdx.x; i < 3 * n; i += blockDim.x) {
     const int r = i / n, k = i - r * n;
     off[r * stride + k] = mod3(r + dz[k]) * M::P + dy[k] * M::WX + dx[k];
   }
 }
 
-// A block's tile (its first grid point) and chunk: the coarse planes
-// [k_lo, k_hi) it restricts to and the fine planes [f_lo, f_hi) of x it
-// writes (the first chunk from plane 0, the last to nz). blockIdx is (x
+// A block's tile (its first grid point) and chunk index c. blockIdx is (x
 // tile, (chunk, y tile), row), or with rows_first (row, x tile, (chunk, y
 // tile)) (`march_blocks`).
+struct MarchTile {
+  int y0, x0, c;
+};
+
+__device__ __forceinline__ MarchTile march_tile(const Grid& g,
+                                                bool rows_first) {
+  const int bx = int(rows_first ? blockIdx.y : blockIdx.x);
+  const int bcy = int(rows_first ? blockIdx.z : blockIdx.y);
+  const int nty = (g.ny + kMarchY - 1) / kMarchY;
+  const int c = bcy / nty;
+  return MarchTile{(bcy - c * nty) * kMarchY, bx * kMarchX, c};
+}
+
+// A block's tile and chunk: the coarse planes [k_lo, k_hi) the pre-stage
+// restricts to (none in the post-stage) and the fine planes [f_lo, f_hi)
+// of x it writes.
 struct MarchChunk {
   int y0, x0;
   int k_lo, k_hi;
   int f_lo, f_hi;
 };
 
+// The pre-stage's: chunks of coarse planes, the first from fine plane 0,
+// the last to nz.
 __device__ __forceinline__ MarchChunk march_chunk(const Grid& g, const Lead& ld,
                                                   int chunk, bool rows_first) {
-  const int bx = int(rows_first ? blockIdx.y : blockIdx.x);
-  const int bcy = int(rows_first ? blockIdx.z : blockIdx.y);
-  const int nty = (g.ny + kMarchY - 1) / kMarchY;
-  const int c = bcy / nty;
-  const int k_lo = c * chunk;
+  const MarchTile mt = march_tile(g, rows_first);
+  const int k_lo = mt.c * chunk;
   const int k_hi = min(k_lo + chunk, ld.nc);
-  return MarchChunk{(bcy - c * nty) * kMarchY, bx * kMarchX, k_lo, k_hi,
-                    c == 0 ? 0 : ld.off + 2 * k_lo,
+  return MarchChunk{mt.y0, mt.x0, k_lo, k_hi,
+                    mt.c == 0 ? 0 : ld.off + 2 * k_lo,
                     k_lo + chunk >= ld.nc ? g.nz : ld.off + 2 * k_hi};
+}
+
+// The post-stage's: the fine planes [c·chunk, (c + 1)·chunk), cut at nz.
+__device__ __forceinline__ MarchChunk march_post_chunk(const Grid& g,
+                                                       int chunk,
+                                                       bool rows_first) {
+  const MarchTile mt = march_tile(g, rows_first);
+  const int f_lo = mt.c * chunk;
+  return MarchChunk{mt.y0, mt.x0, 0, 0, f_lo, min(f_lo + chunk, g.nz)};
 }
 
 // The march of one block: x on its fine planes (xt, the row) and r_c on
@@ -1115,8 +1167,9 @@ __device__ void march_fused_pre(const OpAt& op_at, const RowCoef<T>& c,
                                 const T* __restrict__ vm, const Grid& g,
                                 const Lead& ld, const MarchChunk& mc,
                                 T* __restrict__ xt, T* __restrict__ rct) {
-  using M = March<NU>;
+  using M = March<NU + 1>;
   constexpr int H = M::H, P = M::P, WX = M::WX, S = kMarchSlots;
+  static_assert(P <= S * kThreads, "window plane over the slots");
   constexpr int kCentre = (M::WY / 2) * WX + WX / 2;  // taps stay inside
   T* const ring = window_buffers<T>();  // ring k: 3 planes from ring + 3Pk
   T* const X = ring + 3 * P * (NU - 1);
@@ -1286,7 +1339,8 @@ __device__ void march_fused_pre(const OpAt& op_at, const RowCoef<T>& c,
 
 // The 3-D K6 (ld serial, vm null) and its sharded-slab form.
 template <int NU, typename T>
-__global__ void __launch_bounds__(kThreads, march_min_blocks<T>(false))
+__global__ void __launch_bounds__(kThreads,
+                                  march_min_blocks<T>(false, false))
     mg_march_pre_kernel(const T* __restrict__ b, const T* __restrict__ vm,
                         const T* __restrict__ omega,
                         const T* __restrict__ invD,
@@ -1303,8 +1357,8 @@ __global__ void __launch_bounds__(kThreads, march_min_blocks<T>(false))
   if (threadIdx.x < pg.n_groups) {
     wts[threadIdx.x] = group_weight(pg, int(threadIdx.x), c.om);
   }
-  ring_offsets<NU>(pg.start[pg.n_groups], pg.dz, pg.dy, pg.dx, kMaxPairTaps,
-                   toff);
+  ring_offsets<NU + 1>(pg.start[pg.n_groups], pg.dz, pg.dy, pg.dx,
+                       kMaxPairTaps, toff);
   __syncthreads();
   const T iD = invD[t];
   march_fused_pre<NU>(
@@ -1317,7 +1371,8 @@ __global__ void __launch_bounds__(kThreads, march_min_blocks<T>(false))
 
 // The 3-D K14: 1/D recomputed from W at each use, as in K10.
 template <int NU, typename T>
-__global__ void __launch_bounds__(kThreads, march_min_blocks<T>(true))
+__global__ void __launch_bounds__(kThreads,
+                                  march_min_blocks<T>(true, false))
     mg_march_pre_var_kernel(const T* __restrict__ b, const T* __restrict__ W,
                             const T* __restrict__ omega,
                             const T* __restrict__ invT,
@@ -1333,9 +1388,9 @@ __global__ void __launch_bounds__(kThreads, march_min_blocks<T>(true))
   const int S = int(row_size(g));
   const RowCoef<T> c = row_coef(omega, invT, invDel, t);
   if (threadIdx.x < pm.n_groups) wm[threadIdx.x] = T(pm.wm[threadIdx.x]);
-  ring_offsets<NU>(vt.n_taps, vt.dz, vt.dy, vt.dx, kMaxVarTaps, atoff);
-  ring_offsets<NU>(pm.start[pm.n_groups], pm.dz, pm.dy, pm.dx, kMaxPairTaps,
-                   mtoff);
+  ring_offsets<NU + 1>(vt.n_taps, vt.dz, vt.dy, vt.dx, kMaxVarTaps, atoff);
+  ring_offsets<NU + 1>(pm.start[pm.n_groups], pm.dz, pm.dy, pm.dx,
+                       kMaxPairTaps, mtoff);
   __syncthreads();
   const Lead ld = serial_lead<3>(g);
   march_fused_pre<NU>(
@@ -1348,7 +1403,275 @@ __global__ void __launch_bounds__(kThreads, march_min_blocks<T>(true))
       rco + t * row_size(coarse_grid<3>(g)));
 }
 
-template <int DIM, typename T>
+// Window point q of the post-stage's deepest-first order on March<H>'s
+// plane: the tile in row order (q < kMarchY·kMarchX: the first
+// kTileSlots slots of every thread), then the frames of depth H − 1, …,
+// 0, each its top row, its bottom row, then its left and right columns a
+// row at a time. Sets the point's window row and column and returns its
+// depth (H for the tile), or −1 for q past the plane.
+template <int H>
+__device__ __forceinline__ int march_post_point(int q, int& ly, int& lx) {
+  using M = March<H>;
+  ly = lx = 0;
+  if (q < kMarchY * kMarchX) {
+    ly = H + q / kMarchX;
+    lx = H + q % kMarchX;
+    return H;
+  }
+  for (int d = H - 1; d >= 0; --d) {
+    if (q >= M::at_depth(d)) continue;
+    const int i = q - M::at_depth(d + 1);
+    const int ww = M::WX - 2 * d;
+    if (i < 2 * ww) {
+      ly = i < ww ? d : M::WY - 1 - d;
+      lx = d + (i < ww ? i : i - ww);
+    } else {
+      ly = d + 1 + (i - 2 * ww) / 2;
+      lx = (i - 2 * ww) & 1 ? M::WX - 1 - d : d;
+    }
+    return d;
+  }
+  return -1;
+}
+
+// A thread's slots that hold tile points, for every thread.
+constexpr int kTileSlots = kMarchY * kMarchX / kThreads;
+
+// The post-stage's march of one block: x on its fine planes [mc.f_lo,
+// mc.f_hi) of the row (ot), from x (xt), b (bt) and e_c (et, the coarse
+// row of the transfers ld, read with K9's `prolong_at` arithmetic). op_at
+// as in march_fused_pre; vm the slab's validity field, or null.
+template <int NU, typename T, typename OpAt>
+__device__ void march_fused_post(const OpAt& op_at, const RowCoef<T>& c,
+                                 const T* __restrict__ xt,
+                                 const T* __restrict__ et,
+                                 const T* __restrict__ bt,
+                                 const T* __restrict__ vm, const Grid& g,
+                                 const Lead& ld, const MarchChunk& mc,
+                                 T* __restrict__ ot) {
+  using M = March<NU>;
+  constexpr int H = M::H, P = M::P, WX = M::WX;
+  // a thread's points: S over the window plane, S1 of them stage 1's
+  constexpr int S = M::slots(P), S1 = M::slots(M::at_depth(1));
+  constexpr int kCentre = (M::WY / 2) * WX + WX / 2;  // taps stay inside
+  static_assert(kTileSlots * kThreads == kMarchY * kMarchX, "tile slots");
+  T* const ring = window_buffers<T>();  // ring k: 3 planes from ring + 3Pk
+  const int plane = g.ny * g.nx;
+  const Grid gc = coarse_grid<3>(g, ld);
+  const int cplane = gc.ny * gc.nx;
+  // this thread's window points: offset, in-plane grid index, depth,
+  // inside the grid in y and x, and the in-plane indices of the two coarse
+  // points P e_c reads there (−1 beyond the coarse grid)
+  int po[S], pxy[S], depth[S], pc0[S], pc1[S];
+  bool inxy[S];
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    int ly, lx;
+    depth[j] = march_post_point<H>(int(threadIdx.x) + j * kThreads, ly, lx);
+    const int gy = mc.y0 - H + ly, gx = mc.x0 - H + lx;
+    po[j] = ly * WX + lx;
+    pxy[j] = gy * g.nx + gx;
+    inxy[j] = depth[j] >= 0 && gy >= 0 && gy < g.ny && gx >= 0 && gx < g.nx;
+    auto coarse = [&](int cy, int cx) {
+      return cy >= 0 && cy < gc.ny && cx >= 0 && cx < gc.nx ? cy * gc.nx + cx
+                                                            : -1;
+    };
+    pc0[j] = coarse(gy >> 1, gx >> 1);
+    pc1[j] = coarse((gy - 1) >> 1, (gx - 1) >> 1);
+  }
+  // whether slot j's point has depth ≥ k (the tile's slots always do)
+  auto deep = [&](int j, int k) { return j < kTileSlots || depth[j] >= k; };
+  T c1[NU], c2[NU];
+  double rho = 1.0 / kSigma;
+#pragma unroll
+  for (int k = 1; k < NU; ++k) {
+    const double rho_new = 1.0 / (2.0 * kSigma - rho);
+    c1[k] = T(rho_new * rho);
+    c2[k] = T(2.0 * rho_new) * c.iDel;
+    rho = rho_new;
+  }
+  // stage 0's x and coarse values, and stage 1's b and diagonal entry
+  // (`diag_at`): each loaded once its stage has used the last ones, a
+  // step before it needs them, so that no stage waits on device memory
+  // between two barriers
+  const auto op0 = op_at(0);
+  T xv[S], e0[S], e1[S], bv[S1], dv[S1];
+  auto load0 = [&](int p) {
+    const bool zin = p >= 0 && p < g.nz;
+    const int z0 = (p + ld.s) >> 1, z1 = (p + ld.s - 1) >> 1;
+    const bool in0 = z0 >= 0 && z0 < gc.nz, in1 = z1 >= 0 && z1 < gc.nz;
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      const bool in = zin && inxy[j];
+      xv[j] = in ? xt[p * plane + pxy[j]] : T(0);
+      e0[j] = in && in0 && pc0[j] >= 0 ? et[z0 * cplane + pc0[j]] : T(0);
+      e1[j] = in && in1 && pc1[j] >= 0 ? et[z1 * cplane + pc1[j]] : T(0);
+    }
+  };
+  auto load1 = [&](int p) {
+    const bool zin = p >= 0 && p < g.nz;
+#pragma unroll
+    for (int j = 0; j < S1; ++j) {
+      const bool in = zin && inxy[j] && deep(j, 1);
+      bv[j] = in ? bt[p * plane + pxy[j]] : T(0);
+      dv[j] = in ? op0.diag_at(p * plane + pxy[j]) : T(0);
+    }
+  };
+  T rr[NU - 1][S1], xr[NU - 1][S1];  // r, x of stages 1 … ν−1, last plane
+  const int t0 = mc.f_lo - NU;
+  load0(t0);
+  load1(t0 - 1);
+  for (int t = t0; t < mc.f_hi + NU; ++t) {
+    {  // stage 0: X₀ = x + P e_c on window plane t, 0 outside the grid
+      const bool zin = t >= 0 && t < g.nz;
+      T* const out = ring + mod3(t) * P;
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        if (deep(j, 0)) {
+          out[po[j]] =
+              zin && inxy[j] ? xv[j] + T(0.5) * (e0[j] + e1[j]) : T(0);
+        }
+      }
+    }
+    load0(t + 1);
+    __syncthreads();
+    T rn[NU - 1][S1], xn[NU - 1][S1];
+    auto stage = [&](auto K) {
+      constexpr int k = decltype(K)::value;
+      constexpr int NS = M::slots(M::at_depth(k));  // its points a thread
+      const int p = t - k;
+      if (p < mc.f_lo - (NU - k)) return;
+      const int rot = mod3(p);
+      const bool zin = p >= 0 && p < g.nz;
+      const auto op = op_at(rot);
+      const T* const din = ring + 3 * P * (k - 1);  // X₀, then d_{k−1}
+      // Op at this stage's points (the others read at the window's centre)
+      int oo[NS], gg[NS];
+      T opd[NS];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        oo[j] = deep(j, k) ? po[j] : kCentre;
+        gg[j] = zin && inxy[j] && deep(j, k) ? p * plane + pxy[j] : 0;
+      }
+      op.many(din, oo, gg, opd);
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        if (!deep(j, k)) continue;
+        const bool in = zin && inxy[j];
+        const int gi = gg[j];
+        T r = T(0), d = T(0), x = T(0);
+        if (in) {
+          if constexpr (k == 1) {
+            r = valid_at(vm, gi) * (op.inv_diag_of(dv[j]) * (bv[j] - opd[j]));
+            d = r * c.iT;
+            x = din[rot * P + po[j]] + d;
+          } else {
+            r = valid_at(vm, gi) *
+                (rr[k - 2][j] - op.inv_diag(po[j], gi) * opd[j]);
+            d = c1[k - 1] * din[rot * P + po[j]] + c2[k - 1] * r;
+            x = xr[k - 2][j] + d;
+          }
+        }
+        if constexpr (k < NU) {
+          ring[3 * P * k + rot * P + po[j]] = d;
+          rn[k - 1][j] = r;
+          xn[k - 1][j] = x;
+        } else if (in && p >= mc.f_lo && p < mc.f_hi) {
+          ot[gi] = x;
+        }
+      }
+    };
+    stage(Int<1>{});
+    load1(t);
+    __syncthreads();
+    stage(Int<2>{});
+    if constexpr (NU > 2) {
+      __syncthreads();
+      stage(Int<3>{});
+    }
+#pragma unroll
+    for (int k = 0; k < NU - 1; ++k) {
+#pragma unroll
+      for (int j = 0; j < S1; ++j) {
+        rr[k][j] = rn[k][j];
+        xr[k][j] = xn[k][j];
+      }
+    }
+  }
+}
+
+// The 3-D K7 (ld serial, vm null) and its sharded-slab form.
+template <int NU, typename T>
+__global__ void __launch_bounds__(kThreads,
+                                  march_min_blocks<T>(false, true))
+    mg_march_post_kernel(const T* __restrict__ x, const T* __restrict__ b,
+                         const T* __restrict__ ec, const T* __restrict__ vm,
+                         const T* __restrict__ omega,
+                         const T* __restrict__ invD,
+                         const T* __restrict__ invT,
+                         const T* __restrict__ invDel, T* __restrict__ out,
+                         Grid g, const __grid_constant__ PairGroups pg,
+                         Lead ld, int chunk) {
+  __shared__ T wts[kMaxPairGroups];
+  __shared__ int toff[3 * kMaxPairTaps];
+  const int64_t t = blockIdx.z;
+  const int64_t S = row_size(g);
+  const RowCoef<T> c = row_coef(omega, invT, invDel, t);
+  if (threadIdx.x < pg.n_groups) {
+    wts[threadIdx.x] = group_weight(pg, int(threadIdx.x), c.om);
+  }
+  ring_offsets<NU>(pg.start[pg.n_groups], pg.dz, pg.dy, pg.dx, kMaxPairTaps,
+                   toff);
+  __syncthreads();
+  const T iD = invD[t];
+  march_fused_post<NU>(
+      [&](int r) {
+        return ConstOp<T>{pg, wts, toff + r * kMaxPairTaps, iD};
+      },
+      c, x + t * S, ec + t * row_size(coarse_grid<3>(g, ld)), b + t * S, vm,
+      g, ld, march_post_chunk(g, chunk, false), out + t * S);
+}
+
+// The 3-D K15: 1/D recomputed from W at each use, as in K14; the row
+// first with RF, each order with its register cap.
+template <int NU, typename T, bool RF>
+__global__ void __launch_bounds__(kThreads,
+                                  march_min_blocks<T>(true, true, RF))
+    mg_march_post_var_kernel(const T* __restrict__ x,
+                             const T* __restrict__ b,
+                             const T* __restrict__ ec,
+                             const T* __restrict__ W,
+                             const T* __restrict__ omega,
+                             const T* __restrict__ invT,
+                             const T* __restrict__ invDel,
+                             T* __restrict__ out, Grid g,
+                             const __grid_constant__ VarTaps vt,
+                             const __grid_constant__ PairGroups pm,
+                             int chunk) {
+  __shared__ T wm[kMaxPairGroups];
+  __shared__ int atoff[3 * kMaxVarTaps];
+  __shared__ int mtoff[3 * kMaxPairTaps];
+  const int64_t t = RF ? blockIdx.x : blockIdx.z;
+  const int S = int(row_size(g));
+  const RowCoef<T> c = row_coef(omega, invT, invDel, t);
+  if (threadIdx.x < pm.n_groups) wm[threadIdx.x] = T(pm.wm[threadIdx.x]);
+  ring_offsets<NU>(vt.n_taps, vt.dz, vt.dy, vt.dx, kMaxVarTaps, atoff);
+  ring_offsets<NU>(pm.start[pm.n_groups], pm.dz, pm.dy, pm.dx, kMaxPairTaps,
+                   mtoff);
+  __syncthreads();
+  const Lead ld = serial_lead<3>(g);
+  march_fused_post<NU>(
+      [&](int r) {
+        return VarOp<T>{vt, pm, W, S, c.om, wm, atoff + r * kMaxVarTaps,
+                        mtoff + r * kMaxPairTaps, nullptr};
+      },
+      c, x + t * S, ec + t * row_size(coarse_grid<3>(g)), b + t * S,
+      static_cast<const T*>(nullptr), g, ld,
+      march_post_chunk(g, chunk, RF), out + t * S);
+}
+
+// The 2-D K15: 1/D a fourth window buffer, as in K14.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
     mg_fused_post_var_kernel(const T* __restrict__ x, const T* __restrict__ b,
                              const T* __restrict__ ec,
@@ -1366,19 +1689,19 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t t = rows_first ? blockIdx.x : blockIdx.z;
   const int S = int(row_size(g));
   const RowCoef<T> c = row_coef(omega, invT, invDel, t);
-  const Window win = make_window<DIM>(g, nu, rows_first != 0);
+  const Window win = make_window<2>(g, nu, rows_first != 0);
   T* X = window_buffers<T>();
   T* D = X + win.volume;
   T* R = D + win.volume;
-  T* iD = DIM == 2 ? R + win.volume : nullptr;
-  prolong_window<DIM>(x + t * S, ec + t * row_size(coarse_grid<DIM>(g)), win,
-                      serial_lead<DIM>(g), X);
-  if constexpr (DIM == 2) var_inv_diag<2>(vt, W, S, c.om, win, iD);
+  T* iD = R + win.volume;
+  prolong_window(x + t * S, ec + t * row_size(coarse_grid<2>(g)), win,
+                 serial_lead<2>(g), X);
+  var_inv_diag<2>(vt, W, S, c.om, win, iD);
   var_tables(vt, pm, win, wm, atoff, mtoff);
-  cheb_sweep<DIM>(VarOp<T>{vt, pm, W, S, c.om, wm, atoff, mtoff, iD}, c,
-                  b + t * S, win, X, D, R, nu, false, win.H - 1);
+  cheb_sweep<2>(VarOp<T>{vt, pm, W, S, c.om, wm, atoff, mtoff, iD}, c,
+                b + t * S, win, X, D, R, nu, false, win.H - 1);
   T* ot = out + t * S;
-  for_region<DIM>(win, 0, [&](int o, int, int, int, int gi, bool in) {
+  for_region<2>(win, 0, [&](int o, int, int, int, int gi, bool in) {
     if (in) ot[gi] = X[o];
   });
 }
@@ -1636,22 +1959,23 @@ int window_bytes(K kernel, int H, size_t* bytes, int nbuf = 3) {
   return allow_smem(kernel, *bytes);
 }
 
-// Dynamic shared memory of the 3-D K6/K14 at ν = NU: 3(ν + 1) window planes
-// (`March`), its limit raised (tests/test_torch_march.py checks the sum).
-template <int NU, typename T, typename K>
-int march_bytes(K kernel, size_t* bytes) {
-  *bytes = size_t(3 * March<NU>::kRings * March<NU>::P) * sizeof(T);
+// Dynamic shared memory of a march with halo H: `rings` rings of three
+// window planes (`March`; 3-D K6/K14 ν + 1 at H = ν + 1, K7/K15 ν at H =
+// ν), its limit raised (tests/test_torch_march.py checks the sum).
+template <int H, typename T, typename K>
+int march_bytes(K kernel, int rings, size_t* bytes) {
+  *bytes = size_t(3 * rings * March<H>::P) * sizeof(T);
   return allow_smem(kernel, *bytes);
 }
 
-// The blocks of the 3-D K6/K14: x tiles, (chunk, y tile) pairs of `chunk`
-// coarse planes (at least one chunk), rows; with rows_first, the row
-// fastest (`march_chunk`).
-dim3 march_blocks(bool rows_first, int64_t nt, const Grid& g, int nc,
+// The blocks of a march: x tiles, (chunk, y tile) pairs of `chunk` of the
+// n planes the chunks cut (K6/K14 coarse, K7/K15 fine; at least one
+// chunk), rows; with rows_first, the row fastest (`march_tile`).
+dim3 march_blocks(bool rows_first, int64_t nt, const Grid& g, int n,
                   int chunk) {
   const unsigned tx = unsigned((g.nx + kMarchX - 1) / kMarchX);
   const unsigned tyc = unsigned((g.ny + kMarchY - 1) / kMarchY) *
-                       unsigned(nc > 0 ? (nc + chunk - 1) / chunk : 1);
+                       unsigned(n > 0 ? (n + chunk - 1) / chunk : 1);
   return rows_first ? dim3(unsigned(nt), tx, tyc) : dim3(tx, tyc, unsigned(nt));
 }
 
@@ -1697,7 +2021,8 @@ int launch_march_pre(const T* b, const T* vm, const T* omega, const T* invD,
                      int64_t nt, Grid g, const PairGroups* pg, Lead ld,
                      int chunk, void* stream) {
   size_t bytes = 0;
-  const int err = march_bytes<NU, T>(mg_march_pre_kernel<NU, T>, &bytes);
+  const int err =
+      march_bytes<NU + 1, T>(mg_march_pre_kernel<NU, T>, NU + 1, &bytes);
   if (err != 0) return err;
   mg_march_pre_kernel<NU, T><<<march_blocks(false, nt, g, ld.nc, chunk),
                                kThreads, bytes, as_stream(stream)>>>(
@@ -1729,19 +2054,43 @@ int launch_fused_pre(const T* b, const T* vm, const T* omega, const T* invD,
   }
 }
 
+template <int NU, typename T>
+int launch_march_post(const T* x, const T* b, const T* ec, const T* vm,
+                      const T* omega, const T* invD, const T* invT,
+                      const T* invDel, T* out, int64_t nt, Grid g,
+                      const PairGroups* pg, Lead ld, int chunk,
+                      void* stream) {
+  size_t bytes = 0;
+  const int err = march_bytes<NU, T>(mg_march_post_kernel<NU, T>, NU, &bytes);
+  if (err != 0) return err;
+  mg_march_post_kernel<NU, T><<<march_blocks(false, nt, g, g.nz, chunk),
+                                kThreads, bytes, as_stream(stream)>>>(
+      x, b, ec, vm, omega, invD, invT, invDel, out, g, *pg, ld, chunk);
+  return int(cudaGetLastError());
+}
+
+// K7: the march in 3-D (ν ∈ {2, 3}, chunk ≥ 1 fine planes), the brick
+// window in 2-D (chunk unused).
 template <int DIM, typename T>
 int launch_fused_post(const T* x, const T* b, const T* ec, const T* vm,
                       const T* omega, const T* invD, const T* invT,
                       const T* invDel, T* out, int64_t nt, Grid g,
-                      const PairGroups* pg, int nu, Lead ld, void* stream) {
-  size_t bytes = 0;
-  const int err =
-      window_bytes<DIM, T>(mg_fused_post_kernel<DIM, T>, nu, &bytes);
-  if (err != 0) return err;
-  mg_fused_post_kernel<DIM, T><<<bricks<DIM>(nt, g), kThreads, bytes,
-                                 as_stream(stream)>>>(
-      x, b, ec, vm, omega, invD, invT, invDel, out, g, *pg, nu, ld);
-  return int(cudaGetLastError());
+                      const PairGroups* pg, int nu, Lead ld, int chunk,
+                      void* stream) {
+  if constexpr (DIM == 3) {
+    if (chunk < 1 || nu < 2 || nu > 3) return int(cudaErrorInvalidValue);
+    return (nu == 2 ? launch_march_post<2, T> : launch_march_post<3, T>)(
+        x, b, ec, vm, omega, invD, invT, invDel, out, nt, g, pg, ld, chunk,
+        stream);
+  } else {
+    size_t bytes = 0;
+    const int err = window_bytes<2, T>(mg_fused_post_kernel<T>, nu, &bytes);
+    if (err != 0) return err;
+    mg_fused_post_kernel<T><<<bricks<2>(nt, g), kThreads, bytes,
+                              as_stream(stream)>>>(
+        x, b, ec, vm, omega, invD, invT, invDel, out, g, *pg, nu, ld);
+    return int(cudaGetLastError());
+  }
 }
 
 template <int NU, typename T>
@@ -1750,8 +2099,8 @@ int launch_march_pre_var(const T* b, const T* W, const T* omega,
                          int64_t nt, Grid g, const VarTaps* vt,
                          const PairGroups* pm, int chunk, void* stream) {
   size_t bytes = 0;
-  const int err =
-      march_bytes<NU, T>(mg_march_pre_var_kernel<NU, T>, &bytes);
+  const int err = march_bytes<NU + 1, T>(mg_march_pre_var_kernel<NU, T>,
+                                          NU + 1, &bytes);
   if (err != 0) return err;
   const bool rf = rows_first(vt, row_size(g), sizeof(T));
   mg_march_pre_var_kernel<NU, T><<<
@@ -1786,20 +2135,48 @@ int launch_fused_pre_var(const T* b, const T* W, const T* omega,
   }
 }
 
+template <int NU, typename T, bool RF>
+int launch_march_post_var(const T* x, const T* b, const T* ec, const T* W,
+                          const T* omega, const T* invT, const T* invDel,
+                          T* out, int64_t nt, Grid g, const VarTaps* vt,
+                          const PairGroups* pm, int chunk, void* stream) {
+  size_t bytes = 0;
+  const int err =
+      march_bytes<NU, T>(mg_march_post_var_kernel<NU, T, RF>, NU, &bytes);
+  if (err != 0) return err;
+  mg_march_post_var_kernel<NU, T, RF><<<march_blocks(RF, nt, g, g.nz, chunk),
+                                        kThreads, bytes,
+                                        as_stream(stream)>>>(
+      x, b, ec, W, omega, invT, invDel, out, g, *vt, *pm, chunk);
+  return int(cudaGetLastError());
+}
+
+// K15: the march in 3-D, the brick window in 2-D (as K7).
 template <int DIM, typename T>
 int launch_fused_post_var(const T* x, const T* b, const T* ec, const T* W,
                           const T* omega, const T* invT, const T* invDel,
                           T* out, int64_t nt, Grid g, const VarTaps* vt,
-                          const PairGroups* pm, int nu, void* stream) {
-  size_t bytes = 0;
-  const int err = window_bytes<DIM, T>(mg_fused_post_var_kernel<DIM, T>, nu,
-                                       &bytes, DIM == 2 ? 4 : 3);
-  if (err != 0) return err;
-  const bool rf = rows_first(vt, row_size(g), sizeof(T));
-  mg_fused_post_var_kernel<DIM, T><<<bricks_for<DIM>(rf, nt, g), kThreads,
-                                     bytes, as_stream(stream)>>>(
-      x, b, ec, W, omega, invT, invDel, out, g, *vt, *pm, nu, rf);
-  return int(cudaGetLastError());
+                          const PairGroups* pm, int nu, int chunk,
+                          void* stream) {
+  if constexpr (DIM == 3) {
+    if (chunk < 1 || nu < 2 || nu > 3) return int(cudaErrorInvalidValue);
+    const bool rf = rows_first(vt, row_size(g), sizeof(T));
+    return (nu == 2 ? (rf ? launch_march_post_var<2, T, true>
+                          : launch_march_post_var<2, T, false>)
+                    : (rf ? launch_march_post_var<3, T, true>
+                          : launch_march_post_var<3, T, false>))(
+        x, b, ec, W, omega, invT, invDel, out, nt, g, vt, pm, chunk, stream);
+  } else {
+    size_t bytes = 0;
+    const int err =
+        window_bytes<2, T>(mg_fused_post_var_kernel<T>, nu, &bytes, 4);
+    if (err != 0) return err;
+    const bool rf = rows_first(vt, row_size(g), sizeof(T));
+    mg_fused_post_var_kernel<T><<<bricks_for<2>(rf, nt, g), kThreads, bytes,
+                                  as_stream(stream)>>>(
+        x, b, ec, W, omega, invT, invDel, out, g, *vt, *pm, nu, rf);
+    return int(cudaGetLastError());
+  }
 }
 
 int64_t points(int64_t nt, const Grid& g) {
@@ -1903,20 +2280,36 @@ int launch_cheb_step_var(const T* x, const T* b, const T* W, const T* omega,
   return int(cudaGetLastError());
 }
 
-// Blocks per SM and dynamic shared bytes of the 3-D K6 (var = 0) or K14
-// (var = 1) at ν = NU, 256 threads a block.
-template <int NU, typename T>
-int march_occupancy(int var, int* blocks, int* bytes) {
+// Blocks per SM and dynamic shared bytes of march kernel k with halo H and
+// `rings` rings, 256 threads a block.
+template <int H, typename T, typename K>
+int occupancy_of(K kernel, int rings, int* blocks, int* bytes) {
   size_t b = 0;
-  const auto k = mg_march_pre_kernel<NU, T>;
-  const auto kv = mg_march_pre_var_kernel<NU, T>;
-  int err = var ? march_bytes<NU, T>(kv, &b) : march_bytes<NU, T>(k, &b);
+  const int err = march_bytes<H, T>(kernel, rings, &b);
   if (err != 0) return err;
   *bytes = int(b);
-  return int(var ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                       blocks, kv, kThreads, b)
-                 : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                       blocks, k, kThreads, b));
+  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                           kThreads, b));
+}
+
+// The same for the 3-D K6 (post = 0, var = 0), K14 (0, 1), K7 (1, 0) or
+// K15 (1, 1; 1, 2 its row-first instantiation) at ν = NU.
+template <int NU, typename T>
+int march_occupancy(int post, int var, int* blocks, int* bytes) {
+  if (post) {
+    if (var == 2) {
+      return occupancy_of<NU, T>(mg_march_post_var_kernel<NU, T, true>, NU,
+                                 blocks, bytes);
+    }
+    return var ? occupancy_of<NU, T>(mg_march_post_var_kernel<NU, T, false>,
+                                     NU, blocks, bytes)
+               : occupancy_of<NU, T>(mg_march_post_kernel<NU, T>, NU, blocks,
+                                     bytes);
+  }
+  return var ? occupancy_of<NU + 1, T>(mg_march_pre_var_kernel<NU, T>,
+                                       NU + 1, blocks, bytes)
+             : occupancy_of<NU + 1, T>(mg_march_pre_kernel<NU, T>, NU + 1,
+                                       blocks, bytes);
 }
 
 // The 2-D or 3-D instantiation of launcher L for a runtime dim.
@@ -1944,16 +2337,18 @@ extern "C" {
 int mg_pairs_size() { return int(sizeof(PairGroups)); }
 int mg_var_taps_size() { return int(sizeof(VarTaps)); }
 
-// Blocks per SM and dynamic shared bytes of the 3-D K6 (var = 0) or K14
-// (var = 1) at ν ∈ {2, 3}, in float64 if f64 (else float32).
-int mg_march_occupancy(int var, int nu, int f64, int* blocks, int* bytes) {
+// Blocks per SM and dynamic shared bytes of the 3-D K6 (post = 0, var =
+// 0), K14 (0, 1), K7 (1, 0) or K15 (1, 1; row first 1, 2) at ν ∈ {2, 3},
+// in float64 if f64 (else float32).
+int mg_march_occupancy(int post, int var, int nu, int f64, int* blocks,
+                       int* bytes) {
   if (nu < 2 || nu > 3) return int(cudaErrorInvalidValue);
   if (f64) {
     return (nu == 2 ? march_occupancy<2, double>
-                    : march_occupancy<3, double>)(var, blocks, bytes);
+                    : march_occupancy<3, double>)(post, var, blocks, bytes);
   }
   return (nu == 2 ? march_occupancy<2, float> : march_occupancy<3, float>)(
-      var, blocks, bytes);
+      post, var, blocks, bytes);
 }
 
 #define MG_ENTRY_POINTS(T, SFX)                                               \
@@ -2011,21 +2406,23 @@ int mg_march_occupancy(int var, int nu, int f64, int* blocks, int* bytes) {
                           const T* omega, const T* invD, const T* invT,       \
                           const T* invDel, T* out, int64_t nt, int64_t nz,    \
                           int64_t ny, int64_t nx, int dim,                    \
-                          const PairGroups* pg, int nu, void* stream) {       \
+                          const PairGroups* pg, int nu, int chunk,            \
+                          void* stream) {                                     \
     const Grid g{int(nz), int(ny), int(nx)};                                  \
     return BY_DIM(launch_fused_post, T, x, b, ec, nullptr, omega, invD, invT, \
-                  invDel, out, nt, g, pg, nu, serial_lead_of(g, dim), stream);\
+                  invDel, out, nt, g, pg, nu, serial_lead_of(g, dim), chunk,  \
+                  stream);                                                    \
   }                                                                           \
   int mg_sh_fused_post_##SFX(const T* x, const T* b, const T* ec,             \
                              const T* vm, const T* omega, const T* invD,      \
                              const T* invT, const T* invDel, T* out,          \
                              int64_t nt, int64_t nz, int64_t ny, int64_t nx,  \
                              int dim, const PairGroups* pg, int nu, int own,  \
-                             int h, int hc, void* stream) {                   \
+                             int h, int hc, int chunk, void* stream) {        \
     const Grid g{int(nz), int(ny), int(nx)};                                  \
     return BY_DIM(launch_fused_post, T, x, b, ec, vm, omega, invD, invT,      \
                   invDel, out, nt, g, pg, nu,                                 \
-                  Lead{0, 2 * hc - h, own / 2 + 2 * hc}, stream);             \
+                  Lead{0, 2 * hc - h, own / 2 + 2 * hc}, chunk, stream);      \
   }                                                                           \
   int mg_residual_restrict_##SFX(const T* x, const T* b, const T* omega,      \
                                  T* rc, int64_t nt, int64_t nz, int64_t ny,   \
@@ -2105,10 +2502,10 @@ int mg_march_occupancy(int var, int nu, int f64, int* blocks, int* bytes) {
       const T* x, const T* b, const T* ec, const T* W, const T* omega,        \
       const T* invT, const T* invDel, T* out, int64_t nt, int64_t nz,         \
       int64_t ny, int64_t nx, int dim, const VarTaps* vt,                     \
-      const PairGroups* pm, int nu, void* stream) {                           \
+      const PairGroups* pm, int nu, int chunk, void* stream) {                \
     const Grid g{int(nz), int(ny), int(nx)};                                  \
     return BY_DIM(launch_fused_post_var, T, x, b, ec, W, omega, invT, invDel, \
-                  out, nt, g, vt, pm, nu, stream);                            \
+                  out, nt, g, vt, pm, nu, chunk, stream);                     \
   }                                                                           \
   int mg_cheb_step_##SFX(const T* x, const T* b, const T* vm,                \
                          const T* omega, const T* invD, const T* invT,        \

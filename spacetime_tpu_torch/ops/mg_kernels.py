@@ -26,9 +26,10 @@ and ν ≤ 3 in 3-D (``MAX_NU``, its halo in shared memory); above that the K3
 and K10 wrappers chain ν launches of a one-step kernel (``mg_cheb_step``,
 ``mg_cheb_step_var``) that keeps r and d in device memory, so every ν ≥ 1
 runs, as in the JAX package. The fused stages keep ν ∈ {2, 3}, as JAX's
-do. In 3-D the pre-stages K6 and K14 march in z: a block owns a
-``MARCH_TILE`` (y, x) tile of one row and a chunk of coarse planes, whose
-depth the wrapper picks (``march_chunk``) so that the launch fills the card.
+do. In 3-D the fused stages K6, K7, K14 and K15 march in z: a block owns a
+``MARCH_TILE`` (y, x) tile of one row and a chunk of planes (coarse for
+K6/K14, fine for K7/K15), whose depth the wrapper picks (``march_chunk``)
+so that the launch fills the card.
 
 For a CUDA tensor each wrapper launches the CUDA kernel of csrc/mg.cu
 (float32 and float64) and counts the launch, with one count per kernel,
@@ -106,10 +107,14 @@ SOURCE = "spacetime_tpu_torch/csrc/mg.cu"
 # 32 × 32; a 3-D brick of 8 × 8 × 32 with three float64 buffers fits the
 # 227 KB of shared memory up to ν = 3. Above it the sweep is chained.
 MAX_NU = {2: 8, 3: 3}
-# The (y, x) tile of a block of the 3-D K6/K14 (csrc/mg.cu ``March``): its
-# window plane grows by H = ν + 1 cells a side, and it keeps 3(ν + 1) such
-# planes in shared memory.
+# The (y, x) tile of a block of the 3-D fused stages (csrc/mg.cu
+# ``March``): its window plane grows by H cells a side, and it keeps 3R such
+# planes in shared memory (K6/K14: H = R = ν + 1; K7/K15: H = R = ν).
 MARCH_TILE = (16, 32)
+# The fewest planes a block of the march walks: 2 coarse for K6/K14, 4
+# fine for K7/K15 (4 fine planes either way; a chunk's ends are computed
+# twice).
+MARCH_LEAST = {"pre": 2, "post": 4}
 MAX_ROWS = 65535  # the time row is blockIdx.z of the tiled kernels
 MAX_ROW_POINTS = 2 ** 31  # in-row indices are 32-bit
 _MG = "spacetime_tpu/ops/mg_pallas.py"
@@ -156,15 +161,16 @@ _VAR_LP_NAMES = {k: v for k, v in _LP_NAMES.items() if k != "invD"}
 
 
 @functools.lru_cache(maxsize=None)
-def march_chunk(T: int, gs: tuple, nc: int, sms: int) -> int:
-    """Coarse planes per block of the 3-D K6/K14 on a (T, *gs) field with
-    nc coarse planes on its lead axis: every plane of the column, halved
-    while the launch gives fewer than two blocks to each of the card's
-    ``sms`` SMs, down to 2 (a block marches through ≥ 4 fine planes)."""
+def march_chunk(T: int, gs: tuple, n: int, sms: int, least: int = 2) -> int:
+    """Planes per block of the 3-D march on a (T, *gs) field whose lead
+    axis its chunks cut into n planes (K6/K14: the nc coarse planes, K7/K15:
+    the fine ones): every plane of the column, halved while the launch
+    gives fewer than two blocks to each of the card's ``sms`` SMs, down to
+    ``least`` (``MARCH_LEAST``: a block marches through ≥ 4 fine planes)."""
     tiles = -(-gs[1] // MARCH_TILE[0]) * -(-gs[2] // MARCH_TILE[1])
-    chunk = max(nc, 1)
-    while chunk > 2 and T * tiles * -(-nc // chunk) < 2 * sms:
-        chunk = -(-chunk // 2)
+    chunk = max(n, 1)
+    while chunk > least and T * tiles * -(-n // chunk) < 2 * sms:
+        chunk = max(-(-chunk // 2), least)
     return chunk
 
 
@@ -307,12 +313,14 @@ class _KernelLevel:
         2-D)."""
         return (1,) * (3 - self.dim) + self.gs + (self.dim,)
 
-    def _chunk(self, T: int, nc: int, device) -> int:
-        """The coarse planes a block of the 3-D K6/K14 marches through (nc
-        on the lead axis; unused in 2-D)."""
+    def _chunk(self, T: int, n: int, device, stage: str = "pre") -> int:
+        """The planes a block of the 3-D march walks through: of the nc
+        coarse planes on the lead axis (K6/K14, ``stage="pre"``) or of the
+        fine ones (K7/K15, "post"); unused in 2-D."""
         if self.dim == 2:
             return 0
-        return march_chunk(T, self.gs, nc, _sm_count(device.index))
+        return march_chunk(T, self.gs, n, _sm_count(device.index),
+                           MARCH_LEAST[stage])
 
 
 class MSKernelLevel(_KernelLevel):
@@ -445,7 +453,7 @@ class MSKernelLevel(_KernelLevel):
         out = torch.empty_like(b)
         k.launch(b.device, x.data_ptr(), b.data_ptr(), ec.data_ptr(),
                  *cp, out.data_ptr(), T, *self._zyx(), self._op_table(),
-                 self.nu)
+                 self.nu, self._chunk(T, self.gs[0], b.device, "post"))
         return out
 
     def residual_restrict(self, x, b, cols):
@@ -510,7 +518,8 @@ class MSKernelLevel(_KernelLevel):
         out = torch.empty_like(b)
         k.launch(b.device, x.data_ptr(), b.data_ptr(), ec.data_ptr(),
                  vmask.data_ptr(), *cp, out.data_ptr(), T, *self._zyx(),
-                 self._op_table(), self.nu, own, h, hc)
+                 self._op_table(), self.nu, own, h, hc,
+                 self._chunk(T, self.gs[0], b.device, "post"))
         return out
 
     def sh_residual_restrict(self, x, b, cols, own: int, h: int):
@@ -677,7 +686,8 @@ class VarMSKernelLevel(_KernelLevel):
         out = torch.empty_like(b)
         k.launch(b.device, x.data_ptr(), b.data_ptr(), ec.data_ptr(),
                  W.data_ptr(), *cp, out.data_ptr(), T, *self._zyx(),
-                 *self._tables(), self.nu)
+                 *self._tables(), self.nu,
+                 self._chunk(T, self.gs[0], b.device, "post"))
         return out
 
     def _check_W(self, W, X) -> None:

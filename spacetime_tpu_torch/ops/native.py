@@ -258,19 +258,19 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             "mg_smooth": [P, P, P, P, P, P, P, *grid, P, I, I, P],
             "mg_residual": [P, P, P, P, *grid, P, P],
             "mg_apply": [P, P, *grid, P, P],
-            # the fused pre-stages: ν, then the 3-D march's coarse planes
-            # a block (unused in 2-D)
+            # the fused stages: ν, then the planes a block of the 3-D
+            # march walks (K6 coarse, K7 fine; unused in 2-D)
             "mg_fused_pre": [P, P, P, P, P, P, P, *grid, P, I, I, P],
-            "mg_fused_post": [P, P, P, P, P, P, P, P, *grid, P, I, P],
+            "mg_fused_post": [P, P, P, P, P, P, P, P, *grid, P, I, I, P],
             "mg_residual_restrict": [P, P, P, P, *grid, P, P],
             "mg_prolong_correct": [P, P, P, *grid, P],
             # the sharded-slab forms: vm after the fields; (own, h[, hc])
-            # after the table and ν
+            # after the table and ν, then the fused ones' march chunk
             "mg_sh_smooth": [P, P, P, P, P, P, P, P, *grid, P, I, I, P],
             "mg_sh_fused_pre": [P, P, P, P, P, P, P, P, *grid, P, I, I, I, I,
                                 P],
             "mg_sh_fused_post": [P, P, P, P, P, P, P, P, P, *grid, P, I, I, I,
-                                 I, P],
+                                 I, I, P],
             "mg_sh_residual_restrict": [P, P, P, P, *grid, P, I, I, P],
             "mg_sh_prolong_correct": [P, P, P, *grid, I, I, P],
             # the weighted ones: W after the fields; the A taps and the M
@@ -280,7 +280,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             "mg_apply_var": [P, P, P, *grid, P, P],
             "mg_residual_restrict_var": [P, P, P, P, P, *grid, P, P, P],
             "mg_fused_pre_var": [P, P, P, P, P, P, P, *grid, P, P, I, I, P],
-            "mg_fused_post_var": [P, P, P, P, P, P, P, P, *grid, P, P, I, P],
+            "mg_fused_post_var": [P, P, P, P, P, P, P, P, *grid, P, P, I, I,
+                                  P],
             # one Chebyshev step of the K3 / K10 chains (ν above MAX_NU):
             # x, b, vm (K3) or W (K10), the columns, r, d_in, d_out, x_out,
             # the grid, the tables, first, c1, c2
@@ -303,7 +304,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             fn = getattr(lib, f"{name}_{sfx}")
             fn.argtypes = argtypes
             fn.restype = I
-    lib.mg_march_occupancy.argtypes = [I, I, I, P, P]
+    lib.mg_march_occupancy.argtypes = [I, I, I, I, P, P]
     lib.mg_march_occupancy.restype = I
     for size_fn, struct in (("kron_taps_size", TapsStruct),
                             ("mg_pairs_size", PairGroupsStruct),

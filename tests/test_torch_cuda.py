@@ -1,6 +1,6 @@
 """The CUDA kernels K1 (B), K2 (Bᵀ), the multigrid kernels K3–K9 and the
 weighted K10–K15 (2-D and 3-D, the fused K6/K7 and K14/K15 at ν 2 and 3,
-the 3-D K6/K14 on their z-marching kernel), the chained
+the 3-D K6/K7/K14/K15 on their z-marching kernels), the chained
 sweeps of K3/K10 above the tiled ν, the blocked-ELL SpMM K20, the
 banded-DIA K16–K18 (K16 at ν 1, 2, 3, 4), the pair SpMM K19 and the
 sharded-slab forms (K3 with ``vmask``, K6/K7/K8/K9 with ``lead``) on the
@@ -174,9 +174,12 @@ def _level_inputs(msmg, kl, T, dtype, seed):
 # point; several bricks in every direction. The 3-D K6 marches through
 # chunks of 2 coarse planes at T = 5 (``march_chunk``): a ragged last chunk
 # (nz 7, 19), two whole ones (nz 9), one (nz 5 = 2·2 + 1) and a single
-# coarse plane (nz 3); ny, nx off the 16 × 32 tile (19 × 35: four tiles)
+# coarse plane (nz 3); ny, nx off the 16 × 32 tile (19 × 35: four tiles).
+# The 3-D K7 through chunks of 4 fine planes (nz 3: one chunk of 3; nz
+# 9, 13: a last chunk of one plane; 13 × 35 × 67: nine tiles, the last
+# row and column of tiles 3 points wide)
 @pytest.mark.parametrize("gs", [(7, 9, 15), (9, 17, 33), (19, 21, 45),
-                                (3, 17, 33), (5, 19, 35)])
+                                (3, 17, 33), (5, 19, 35), (13, 35, 67)])
 @pytest.mark.parametrize("nu", [2, 3])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_mg_kernels_3d_match_twins(msmg3d, dtype, nu, gs):
@@ -382,11 +385,12 @@ def var_msmg3d():
 
 # ragged extents: one brick; bricks with a last plane / row of one point
 # and a partial brick in x; 127³, whose W (123 MB in f32) does not fit in
-# the L2, so the kernels take the row fastest (K14's march too); K14's
-# chunks as K6's in test_mg_kernels_3d_match_twins (a single coarse plane,
-# nz = 2·2 + 1 with tiles cut in y and x)
+# the L2, so the kernels take the row fastest (K14's and K15's marches
+# too); K14's and K15's chunks as K6's and K7's in
+# test_mg_kernels_3d_match_twins (a single coarse plane, nz = 2·2 + 1 with
+# tiles cut in y and x, 13 × 35 × 67: ragged chunks and tiles)
 @pytest.mark.parametrize("gs", [(7, 9, 15), (17, 25, 31), (127, 127, 127),
-                                (3, 17, 33), (5, 19, 35)])
+                                (3, 17, 33), (5, 19, 35), (13, 35, 67)])
 @pytest.mark.parametrize("nu", [1, 2, 3])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_var_kernels_3d_match_twins(var_msmg3d, dtype, nu, gs):
@@ -701,11 +705,14 @@ def _slab_vmask(E, rest, dtype):
 
 
 # (own, other extents): one brick on the lead axis, and several with a
-# ragged last one
-SLABS = {2: [(8, (15,)), (40, (33,))], 3: [(4, (7, 9)), (12, (9, 33))]}
+# ragged last one; in 3-D the sharded K7 marches through chunks of 4 fine
+# planes at T = 5, so every slab (10 to 26 planes) crosses chunk edges, at
+# odd and even h, and the third cuts its tiles in y and x
+SLABS = {2: [(8, (15,)), (40, (33,)), (24, (35,))],
+         3: [(4, (7, 9)), (12, (9, 33)), (16, (19, 35))]}
 
 
-@pytest.mark.parametrize("slab", [0, 1])
+@pytest.mark.parametrize("slab", [0, 1, 2])
 @pytest.mark.parametrize("dim, nu, h", [(2, 2, 3), (2, 3, 4), (2, 3, 5),
                                         (3, 2, 3), (3, 2, 4), (3, 3, 4),
                                         (3, 3, 5)])
