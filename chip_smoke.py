@@ -9,9 +9,10 @@ Phases (every check asserts; any failure exits non-zero):
 
 1. device   — CUDA is required; prints the card's name and power limit.
 2. build    — compiles csrc/*.cu with nvcc into build/ (at first use);
-              prints each kernel's registers and shared memory (ptxas) and
-              the blocks per SM of the 3-D K6/K7/K14/K15 march
-              instantiations.
+              prints each kernel's registers and shared memory (ptxas), the
+              blocks per SM of the 3-D K6/K7/K14/K15 march instantiations
+              and those of the 2-D K6/K7 ones (and their threads) on rows
+              of 511, 255, 127 and 63 columns.
 3. setup    — the 129²×64 ("cfg2") f32 solver: smooth2d, multigrid inner.
 4. kernels  — K1 (B) and K2 (Bᵀ), plain and stab-fused, float32 and float64,
               against their plain PyTorch twins at the cfg2 shape (T=64,
@@ -22,7 +23,9 @@ Phases (every check asserts; any failure exits non-zero):
 5. mg kernels — K3 (sweep from x and from 0), K4, K5, K6, K7, K8 and K9
               against their twins in float32 and float64 with ν ∈ {2, 3}, at
               511² and 255² (T=129), 127² (T=65) and a ragged 15×31 (T=5);
-              median device times (ν = 2) at 511²×129 and 127²×65.
+              median device times (ν = 2) at 511²×129 and 127²×65, and of
+              the y-marching K6 and K7 (with their semi-fused pairs) at
+              every one of these shapes, ν = 2 and 3.
 6. mg kernels 3-D — K3 (from x and from 0), K4, K5, K6, K7, K8 and K9 at
               63³ (T=65) and 31³ (T=33: the smooth3d 65³×32 solve's levels
               at K_X's rows; the 129³ flagship's finest level, 127³, is
@@ -164,7 +167,8 @@ Phases (every check asserts; any failure exits non-zero):
               smooth3d 65³×32's (T 17, own 32, 63² planes); each timed
               (ν = 2) beside the serial form at the owned shape (one plane
               more: the serial transfers take odd extents) and its bound,
-              the halo planes and the field counted.
+              the halo planes and the field counted; the 2-D K6 and K7
+              also at ν = 3 (h 4).
 34. time mesh — four ranks on the card over gloo (halos through host
               memory): cfg2 f64, the serial port's 21 iterations, history
               within rtol 1e-9 of its; cfg4 (singular2d graded J4+4, f64)
@@ -414,7 +418,8 @@ VAR_SHAPES_3D = [(33, (63, 63, 63), 0), (33, (31, 31, 31), 1),
 MG_TIMED = [(129, (511, 511)), (65, (127, 127)), (65, (63, 63, 63)),
             (33, (63, 63, 63)), (33, (127, 127, 127))]
 # where the 3-D fused stages are also timed at ν = 3: the shapes of the
-# kernel table's 3-D rows (K6/K7 at 63³×65, K14/K15 at 63³ and 127³ ×33)
+# kernel table's 3-D rows (K6/K7 at 63³×65, K14/K15 at 63³ and 127³ ×33);
+# the 2-D K6/K7 are timed at ν = 2 and 3 at every MG_SHAPES
 FUSED_NU3_TIMED = [(65, (63, 63, 63)), (33, (63, 63, 63)),
                    (33, (127, 127, 127))]
 # the shape of each kernel's headline numbers in the JSON line, by family
@@ -625,8 +630,12 @@ def check_forms(kl, forms, bound_fn, T, dtype, results, library=None,
     if auto:
         timed = nu == 2 and (T, gs) in MG_TIMED
     for form, (op, kfn, tfn) in forms.items():
-        fused3 = (auto and nu == 3 and form.startswith("fused")
-                  and (T, gs) in FUSED_NU3_TIMED)
+        # the fused stages also at ν = 3, and the 2-D K6/K7 at every
+        # MG_SHAPES
+        fused3 = (auto and form.startswith("fused")
+                  and ((nu == 3 and (T, gs) in FUSED_NU3_TIMED)
+                       or (op in ("fused_pre", "fused_post")
+                           and (T, gs) in MG_SHAPES)))
         got, want = kfn(), tfn()
         torch.cuda.synchronize()
         rec = results.setdefault(
@@ -1709,7 +1718,8 @@ def sh_bound(form, kl, T, own, hc, dtype) -> dict:
 def phase_sharded_kernels(msmg2, msmg3) -> dict:
     """Phase 33: the five sharded-slab forms against their twins at the
     meshes' finest slabs, f32 and f64, and timed (ν = 2, h = 3) beside the
-    serial form at the owned shape and the bound."""
+    serial form at the owned shape and the bound; the 2-D K6 and K7 also
+    at ν = 3 with the mesh's halo there, h = 4."""
     from spacetime_tpu_torch.ops.mg_kernels import MSKernelLevel
 
     phase("33 sharded-slab kernel forms (K3 vmask, K6/K7/K8/K9 lead) against "
@@ -1721,18 +1731,20 @@ def phase_sharded_kernels(msmg2, msmg3) -> dict:
         own, rest = sl["own"], sl["rest"]
         lev = msmg.levels[0]
         for dtype in (torch.float32, torch.float64):
-            for T in sl["T"]:
-                h = SH_H
+            nus = ((2, SH_H), (3, SH_H + 1)) if dim == 2 else ((2, SH_H),)
+            for T, (nu, h) in itertools.product(sl["T"], nus):
                 hc = (h + 2) // 2
-                kl = MSKernelLevel(lev.A_st, lev.M_st, 2,
+                kl = MSKernelLevel(lev.A_st, lev.M_st, nu,
                                    gs=(own + 2 * h,) + rest)
-                ser = MSKernelLevel(lev.A_st, lev.M_st, 2,
+                ser = MSKernelLevel(lev.A_st, lev.M_st, nu,
                                     gs=(own + 1,) + rest)
                 x = sh_inputs(msmg, kl, T, own, h, hc, dtype, rng)
                 xs = mg_inputs(msmg, ser, T, dtype, rng)
                 serial = mg_forms(ser, xs)
                 for form, (op, kfn, tfn) in sh_forms(kl, x, own, h,
                                                      hc).items():
+                    if nu == 3 and not form.startswith("fused"):
+                        continue
                     got, want = kfn(), tfn()
                     torch.cuda.synchronize()
                     rec = results.setdefault(
@@ -1752,8 +1764,9 @@ def phase_sharded_kernels(msmg2, msmg3) -> dict:
                              "library_ms": None, "serial_ms": serial_ms,
                              "serial_shape": shape_key(T, ser.gs),
                              **sh_bound(form, kl, T, own, hc, dtype)}
-                    rec["forms"][f"{form} {shape_key(T, kl.gs)}"] = entry
-                    print(f"  {form:17s} {str(dtype)[6:]:8s} T={T:3d} "
+                    tag = " nu=3" if nu == 3 else ""
+                    rec["forms"][f"{form}{tag} {shape_key(T, kl.gs)}"] = entry
+                    print(f"  {form:17s} {str(dtype)[6:]:8s} nu={nu} T={T:3d} "
                           f"slab={kl.gs} own={own} h={h}: max|kernel-twin| "
                           f"{err:.3e} (max|twin| {scale:.3e}); kernel "
                           f"{ms:.4f} ms, twin {plain_ms:.4f} ms, serial form "
@@ -2017,6 +2030,17 @@ def main() -> int:
               f"{'float64' if f64 else 'float32'}: {blocks.value} blocks "
               f"of 256 threads per SM, {nbytes.value} bytes of shared "
               "memory a block")
+    # the 2-D march's blocks take as many threads as their row needs
+    for post, nu, f64, nx in itertools.product((0, 1), (2, 3), (0, 1),
+                                               (511, 255, 127, 63)):
+        blocks, nbytes, threads, nseg = (ctypes.c_int() for _ in range(4))
+        native.check(lib, "mg_march2_occupancy", lib.mg_march2_occupancy(
+            post, nu, f64, nx, ctypes.byref(blocks), ctypes.byref(nbytes),
+            ctypes.byref(threads), ctypes.byref(nseg)))
+        print(f"  2-D {'K7' if post else 'K6'} march, nu={nu}, "
+              f"{'float64' if f64 else 'float32'}, {nx} columns: "
+              f"{blocks.value} blocks of {threads.value} threads per SM, "
+              f"{nbytes.value} bytes of shared memory a block")
 
     from spacetime_tpu_torch.fem import l2_error_spacetime
 

@@ -78,13 +78,12 @@
 //   mg_sh_fused_pre (K6 with lead=(own, h), :1318): the zero-init sweep
 //                with vm on the whole slab (x at its full extent; the
 //                caller crops it), r_c on the own/2 owned coarse planes.
-//                In 2-D the bricks of the lead axis start at −(h mod 2) so
-//                that a coarse point's fine pairs lie in one brick; in 3-D
-//                the march's chunks of coarse planes start at fine plane h.
+//                The march's chunks of coarse planes (rows in 2-D) start
+//                at fine plane h.
 //   mg_sh_fused_post (K7 with lead=(own, h, hc), :1475): x + P e_c with
 //                the offset prolongation, then the sweep with vm; the
-//                output at the slab's full extent. In 3-D the march's
-//                chunks of fine planes cover the slab from plane 0.
+//                output at the slab's full extent. The march's chunks of
+//                fine planes (rows) cover the slab from plane 0.
 //   mg_sh_residual_restrict (K8 with lead=(own, h), :1683): the owned
 //                coarse planes of R(b − Op x).
 //   mg_sh_prolong_correct (K9 with lead=(own, hc), :1913): x + P e_c on
@@ -124,7 +123,7 @@
 //   kron.cu). K8 recomputes the residual at the 2^d · 2 fine points each
 //   coarse point sums (2× the fine residuals, as each is shared by up to
 //   2^d coarse points); K9 reads its two coarse values from global memory.
-// - K3 and K10 (2-D and 3-D) and the 2-D fused stages K6, K7, K14, K15:
+// - K3 and K10 (2-D and 3-D) and the 2-D weighted fused stages K14, K15:
 //   one block of 256 threads owns a brick of one time row (blockIdx.z =
 //   row): 32 × 32 in 2-D, 8 × 8 × 32 (z, y, x) in 3-D. It loads the brick
 //   and a halo into shared memory and runs the recurrence there, each Op
@@ -175,6 +174,28 @@
 //   The blocks an SM holds (`march_min_blocks`) were chosen by timing. The
 //   Pallas kernel keeps z and x whole and blocks in y, so it never
 //   recomputed a z halo either.
+// - The 2-D K6 and K7 march in y (`march2_fused_pre`, `march2_fused_post`):
+//   the 3-D stages with a row of x in place of a plane. A block owns a
+//   segment of one time row's columns and a chunk of its rows and keeps
+//   rings of three window rows in shared memory. The segment is the whole
+//   row wherever it fits a block's 1,024 points (every 2-D level the
+//   solves run; 511 columns the widest), its two ghost columns zero from
+//   the start, so no point is computed twice in x, and a chunk recomputes
+//   only its two ends in y, where the 32 × 32 brick recomputed a halo of ν
+//   + 1 on every side (38² points for 1,024 owned); a wider row is cut
+//   into segments with an x halo that shrinks a cell a stage. K6 keeps ν +
+//   1 rings at H = ν + 1 (18.5 KB in f32 at 511 columns and ν = 2, 49.2 KB
+//   in f64 at ν = 3), K7 ν rings. A thread keeps 4 points of the row in
+//   f32 (a block of 128 threads at 511 columns) and 2 in f64, their r and
+//   x in registers, and loads b (and x, e_c) a row ahead. Op is applied
+//   with the tap loop unrolled and every tap's values loaded before they
+//   are summed, the groups' ends read from a mask (`row_many`): with the
+//   runtime loop over the groups of `many`, each tap waited on an indexed
+//   constant load and a branch, which took 0.62 ms of K6 at 129×511² f32
+//   where the march now takes 0.48 (PERF.md). The bricks went through
+//   shared memory for every term, with a runtime division and bounds test
+//   per point and window pass. The Pallas kernel keeps x whole and blocks
+//   in y.
 // - The restriction and the prolongation are exact pair sums, one device
 //   function each (`restrict_at`, `prolong_at`) that K8, K9 and the fused
 //   stages share; the Pallas kernels' banded 0/1 matrices on the MXU
@@ -326,12 +347,10 @@ struct Window {
   int volume;  // points in the window
 };
 
-// The window of x brick bx and (z brick, y brick) pair byz. In 2-D the
-// bricks of the leading axis y start `shift` rows before the grid (0, or 1
-// for a slab whose coarse pairs start at an odd row).
+// The window of x brick bx and (z brick, y brick) pair byz.
 template <int DIM>
 __device__ __forceinline__ Window make_window(const Grid& g, int H, int bx,
-                                              int byz, int shift = 0) {
+                                              int byz) {
   using B = BrickOf<DIM>;
   const int hz = DIM == 3 ? H : 0;
   const int nyb = (g.ny + B::y - 1) / B::y;
@@ -339,7 +358,7 @@ __device__ __forceinline__ Window make_window(const Grid& g, int H, int bx,
   const int yb = byz - zb * nyb;
   const int sy = B::x + 2 * H;
   const int sz = sy * (B::y + 2 * H);
-  return Window{g,  zb * B::z - hz, yb * B::y - H - shift, bx * B::x - H, H,
+  return Window{g,  zb * B::z - hz, yb * B::y - H, bx * B::x - H, H,
                 sy, sz,             sz * (B::z + 2 * hz)};
 }
 
@@ -347,11 +366,10 @@ __device__ __forceinline__ Window make_window(const Grid& g, int H, int bx,
 // with rows_first, blockIdx.y and blockIdx.z do (`bricks_for`).
 template <int DIM>
 __device__ __forceinline__ Window make_window(const Grid& g, int H,
-                                              bool rows_first = false,
-                                              int shift = 0) {
+                                              bool rows_first = false) {
   return rows_first
-             ? make_window<DIM>(g, H, int(blockIdx.y), int(blockIdx.z), shift)
-             : make_window<DIM>(g, H, int(blockIdx.x), int(blockIdx.y), shift);
+             ? make_window<DIM>(g, H, int(blockIdx.y), int(blockIdx.z))
+             : make_window<DIM>(g, H, int(blockIdx.x), int(blockIdx.y));
 }
 
 // f(offset, grid z, grid y, grid x, index in the row, inside the grid) for
@@ -392,6 +410,10 @@ __device__ __forceinline__ RowCoef<T> row_coef(const T* omega, const T* invT,
   return RowCoef<T>{omega[t], invT[t], invDel[t]};
 }
 
+// The most taps of a 2-D stencil (its 3 × 3 neighbourhood): the unrolled
+// tap loop of the 2-D marches (`row_many`).
+constexpr int kRowTaps = 9;
+
 // The operators of the sweep on a shared-memory window: op(buf, o, gi) is
 // Op applied to buf at window offset o (grid index gi in the row, valid
 // only inside the grid, where alone the kernels evaluate it) and
@@ -405,6 +427,10 @@ struct ConstOp {
   const T* w;
   const int* toff;
   T iD;
+  // the 2-D marches' (`row_many`): the taps where a group ends (bit k),
+  // and the weight of that group at each such tap
+  unsigned ends = 0;
+  const T* wend = nullptr;
   __device__ __forceinline__ T operator()(const T* buf, int o, int gi) const {
     T out[1];
     many<1>(buf, {o}, {gi}, out);
@@ -430,6 +456,43 @@ struct ConstOp {
       }
 #pragma unroll
       for (int j = 0; j < N; ++j) out[j] += w[g] * acc[j];
+    }
+  }
+  // Op at N points of a 2-D march's ring row, as `many` (its groups not
+  // empty), with the tap loop unrolled to kRowTaps, every tap's values
+  // loaded before they are summed (N loads a tap in flight) and the
+  // groups' ends read from the mask `ends` (no loop over the groups): the
+  // same sums in the same order.
+  template <int N>
+  __device__ __forceinline__ void row_many(const T* buf, const int (&o)[N],
+                                           const int (&)[N],
+                                           T (&out)[N]) const {
+    T v[kRowTaps][N];
+#pragma unroll
+    for (int k = 0; k < kRowTaps; ++k) {
+      if (ends >> k) {  // tap k exists: a group ends at it or after it
+        const T* const bk = buf + toff[k];
+#pragma unroll
+        for (int j = 0; j < N; ++j) v[k][j] = bk[o[j]];
+      }
+    }
+    T acc[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) out[j] = acc[j] = T(0);
+#pragma unroll
+    for (int k = 0; k < kRowTaps; ++k) {
+      if (ends >> k) {
+#pragma unroll
+        for (int j = 0; j < N; ++j) acc[j] += v[k][j];
+        if ((ends >> k) & 1u) {
+          const T wk = wend[k];
+#pragma unroll
+          for (int j = 0; j < N; ++j) {
+            out[j] += wk * acc[j];
+            acc[j] = T(0);
+          }
+        }
+      }
     }
   }
   __device__ __forceinline__ T inv_diag(int, int) const { return iD; }
@@ -890,15 +953,14 @@ __global__ void mg_prolong_correct_kernel(const T* __restrict__ x,
   }
 }
 
-// The fused stages on the tiled window, in 2-D (in 3-D they march in z,
-// below).
+// The weighted fused stages on the tiled window, in 2-D (K6 and K7, and
+// in 3-D all four, march: below).
 //
-// The end of the 2-D K6/K14, after the zero-init sweep left x valid on the
+// The end of the 2-D K14, after the zero-init sweep left x valid on the
 // tile grown by 2 (H = nu + 1): the residual on the tile grown by 1 (one
 // fine row and column past the tile is what the restriction reads), x
 // written out, then r_c = R r for the tile's coarse points, with K8's pair
-// sums (`restrict_at`). The tile starts at an even row, or, on a slab's
-// lead axis y, at one of the parity of ld.off.
+// sums (`restrict_at`). The tile starts at an even row.
 template <typename T, typename Op>
 __device__ void fused_pre_tail(const Op& op, const T* __restrict__ bt,
                                const Window& win, const Lead& ld, const T* X,
@@ -926,7 +988,7 @@ __device__ void fused_pre_tail(const Op& op, const T* __restrict__ bt,
   }
 }
 
-// The start of the 2-D K7/K15: X = x + P e_c on the whole window (halo
+// The start of the 2-D K15: X = x + P e_c on the whole window (halo
 // nu), zero outside the grid, with K9's prolongation (`prolong_at`).
 template <typename T>
 __device__ void prolong_window(const T* __restrict__ xt,
@@ -939,68 +1001,8 @@ __device__ void prolong_window(const T* __restrict__ xt,
   });
 }
 
-// The blocks of the fused kernels are K3's (K10's for K14/K15, with
-// rows_first where W does not fit in the L2). The 2-D K6 (ld serial, vm
-// null) and its sharded-slab form.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    mg_fused_pre_kernel(const T* __restrict__ b, const T* __restrict__ vm,
-                        const T* __restrict__ omega,
-                        const T* __restrict__ invD,
-                        const T* __restrict__ invT,
-                        const T* __restrict__ invDel, T* __restrict__ xo,
-                        T* __restrict__ rco, Grid g,
-                        const __grid_constant__ PairGroups pg, int nu,
-                        Lead ld) {
-  __shared__ T wts[kMaxPairGroups];
-  __shared__ int toff[kMaxPairTaps];
-  const int64_t t = blockIdx.z;
-  const int64_t S = row_size(g);
-  const RowCoef<T> c = row_coef(omega, invT, invDel, t);
-  const Window win = make_window<2>(g, nu + 1, false, ld.off & 1);
-  T* X = window_buffers<T>();
-  T* D = X + win.volume;
-  T* R = D + win.volume;
-  const T* bt = b + t * S;
-  row_tables(pg, c.om, win, wts, toff);
-  const ConstOp<T> op{pg, wts, toff, invD[t]};
-  cheb_sweep<2>(op, c, bt, win, X, D, R, nu, true, win.H, vm);
-  fused_pre_tail(op, bt, win, ld, X, R, xo + t * S,
-                 rco + t * row_size(coarse_grid<2>(g, ld)));
-}
-
-// The 2-D K7 (ld serial, vm null) and its sharded-slab form.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    mg_fused_post_kernel(const T* __restrict__ x, const T* __restrict__ b,
-                         const T* __restrict__ ec, const T* __restrict__ vm,
-                         const T* __restrict__ omega,
-                         const T* __restrict__ invD,
-                         const T* __restrict__ invT,
-                         const T* __restrict__ invDel, T* __restrict__ out,
-                         Grid g, const __grid_constant__ PairGroups pg,
-                         int nu, Lead ld) {
-  __shared__ T wts[kMaxPairGroups];
-  __shared__ int toff[kMaxPairTaps];
-  const int64_t t = blockIdx.z;
-  const int64_t S = row_size(g);
-  const RowCoef<T> c = row_coef(omega, invT, invDel, t);
-  const Window win = make_window<2>(g, nu);
-  T* X = window_buffers<T>();
-  T* D = X + win.volume;
-  T* R = D + win.volume;
-  prolong_window(x + t * S, ec + t * row_size(coarse_grid<2>(g, ld)), win,
-                 ld, X);
-  row_tables(pg, c.om, win, wts, toff);
-  cheb_sweep<2>(ConstOp<T>{pg, wts, toff, invD[t]}, c, b + t * S, win, X, D,
-                R, nu, false, win.H - 1, vm);
-  T* ot = out + t * S;
-  for_region<2>(win, 0, [&](int o, int, int, int, int gi, bool in) {
-    if (in) ot[gi] = X[o];
-  });
-}
-
-// The 2-D K14: 1/D is a fourth window buffer, as in the 2-D K10.
+// The 2-D K14, on K10's blocks (rows_first where W does not fit in the
+// L2): 1/D is a fourth window buffer, as in the 2-D K10.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     mg_fused_pre_var_kernel(const T* __restrict__ b, const T* __restrict__ W,
@@ -1670,6 +1672,565 @@ __global__ void __launch_bounds__(kThreads,
       march_post_chunk(g, chunk, RF), out + t * S);
 }
 
+// The 2-D fused stages march in y, as the 3-D ones march in z, with a row
+// of x in place of a plane: the stages of march_fused_pre and
+// march_fused_post above, one row a step, each stage a row behind the one
+// before, each keeping the three rows the next stage's Op reads (y − 1, y,
+// y + 1) in a ring in shared memory: row p in slot p mod 3, the taps'
+// offsets resolved once per block for each rotation. A block owns a
+// segment of one time row's columns and a chunk of its rows (coarse rows
+// for K6, fine rows for K7; `row_pre_chunk`, `row_post_chunk`). The
+// segment is the whole row wherever it fits a block's kMarch2Points
+// window points (every level of the 2-D solves and slabs, 511 columns the
+// widest): then the window is the row and its two ghost columns, zero in
+// every ring row from the start and never computed, no point is computed
+// twice in x, and in y only a chunk's two ends are. A wider row is cut
+// into segments of a multiple of 32 columns (so that a coarse point's fine
+// pairs lie in its segment; the last takes the rest of the row) that
+// carry an x halo of H, shrinking by a cell a stage as the 3-D tile's
+// does. A thread keeps march2_slots points of
+// the window row for the whole march (`row_point`: the segment's columns
+// in order, so that a warp's loads coalesce, then the halo outward,
+// deepest first), their r and x in registers, and applies Op to all of
+// them with every tap's values loaded before they are summed
+// (`ConstOp::row_many`); b (and in K7 x and e_c) is loaded a row ahead.
+// The block takes as many threads as its widest segment needs
+// (`row_plan`).
+constexpr int kMarch2Points = 1024;  // the most window points a block computes
+
+// A thread's points of the window row, the most threads a block takes and
+// the blocks an SM must hold (the register cap), chosen by timing on the
+// H100 (PERF.md): 4 points a thread in float32 at 2 blocks (128 registers
+// a thread), 2 in float64 at 1 (128 registers; at 2, 64 spilled).
+template <typename T>
+__host__ __device__ constexpr int march2_slots() {
+  return sizeof(T) == 4 ? 4 : 2;
+}
+template <typename T>
+__host__ __device__ constexpr int march2_threads() {
+  return kMarch2Points / march2_slots<T>();
+}
+template <typename T>
+__host__ __device__ constexpr int march2_min_blocks() {
+  return sizeof(T) == 4 ? 2 : 1;
+}
+
+// The segments of a row of nx columns for a march with halo H and S points
+// a thread: `seg` columns a block (nx: the whole row), `nseg` of them,
+// `wrow` window points a row (the ring's row stride) and `threads` a
+// block. A cut row's last segment takes the columns left past the others,
+// and fewer than H of them join the segment before it: a segment's right
+// halo lies in the grid (the joined segment has no right halo, so its
+// window still fits wrow).
+struct RowPlan {
+  int seg, nseg, wrow, threads;
+};
+
+__host__ __device__ __forceinline__ RowPlan row_plan(int nx, int H, int S) {
+  RowPlan p{nx, 1, nx + 2, 0};
+  int points = nx;
+  if (nx > kMarch2Points) {
+    p.seg = (kMarch2Points - 2 * H) / 32 * 32;
+    p.nseg = nx / p.seg + (nx % p.seg >= H ? 1 : 0);
+    p.wrow = p.seg + 2 * H;
+    points = p.wrow;
+  }
+  p.threads = ((points + S - 1) / S + 31) / 32 * 32;
+  return p;
+}
+
+// A block's segment and chunk: the columns [x0, x1) it owns with hl and hr
+// frame columns beside them (1, the zero ghost, at the grid's edge, else
+// the halo H), the coarse rows [k_lo, k_hi) the pre-stage restricts to
+// (none in the post-stage) and the fine rows [f_lo, f_hi) of x it writes.
+// blockIdx is (segment, chunk, time row).
+struct RowChunk {
+  int x0, x1, hl, hr;
+  int k_lo, k_hi;
+  int f_lo, f_hi;
+};
+
+__device__ __forceinline__ RowChunk row_segment(const Grid& g,
+                                                const RowPlan& rp, int H) {
+  const int x0 = int(blockIdx.x) * rp.seg;
+  const int x1 = int(blockIdx.x) + 1 == rp.nseg ? g.nx : x0 + rp.seg;
+  return RowChunk{x0, x1, x0 > 0 ? H : 1, x1 < g.nx ? H : 1, 0, 0, 0, 0};
+}
+
+// The pre-stage's: chunks of coarse rows, the first from fine row 0, the
+// last to ny (as `march_chunk`).
+__device__ __forceinline__ RowChunk row_pre_chunk(const Grid& g,
+                                                  const Lead& ld, int chunk,
+                                                  const RowPlan& rp, int H) {
+  RowChunk rc = row_segment(g, rp, H);
+  const int c = int(blockIdx.y);
+  rc.k_lo = c * chunk;
+  rc.k_hi = min(rc.k_lo + chunk, ld.nc);
+  rc.f_lo = c == 0 ? 0 : ld.off + 2 * rc.k_lo;
+  rc.f_hi = rc.k_lo + chunk >= ld.nc ? g.ny : ld.off + 2 * rc.k_hi;
+  return rc;
+}
+
+// The post-stage's: the fine rows [c·chunk, (c + 1)·chunk), cut at ny.
+__device__ __forceinline__ RowChunk row_post_chunk(const Grid& g, int chunk,
+                                                   const RowPlan& rp, int H) {
+  RowChunk rc = row_segment(g, rp, H);
+  rc.f_lo = int(blockIdx.y) * chunk;
+  rc.f_hi = min(rc.f_lo + chunk, g.ny);
+  return rc;
+}
+
+// Window point q of a block's row: the segment's columns in order, then
+// the left halo outward, then the right one (a frame of H columns; H ≥ 2);
+// the ghost columns are no thread's. Sets its grid column gx and returns
+// its depth: H on the segment, the distance to the window's edge in a
+// halo; −1 for q past the points.
+template <int H>
+__device__ __forceinline__ int row_point(const RowChunk& rc, int q, int& gx) {
+  const int n = rc.x1 - rc.x0;
+  gx = 0;
+  if (q < n) {
+    gx = rc.x0 + q;
+    return H;
+  }
+  q -= n;
+  if (rc.hl == H) {
+    if (q < H) {
+      gx = rc.x0 - 1 - q;
+      return H - 1 - q;
+    }
+    q -= H;
+  }
+  if (rc.hr == H && q < H) {
+    gx = rc.x1 + q;
+    return H - 1 - q;
+  }
+  return -1;
+}
+
+// Zero the ghost columns (window columns beside the grid's edges) of the
+// `rings` rings of a block's row march: they hold the Dirichlet ghost for
+// every stage and no thread writes them. Needs a __syncthreads() before
+// they are read.
+template <typename T>
+__device__ __forceinline__ void zero_ghosts(T* ring, int rings, int wrow,
+                                            const RowChunk& rc) {
+  const int right = rc.x1 - rc.x0 + rc.hl;  // the right ghost's offset
+  for (int i = threadIdx.x; i < 3 * rings; i += blockDim.x) {
+    if (rc.hl == 1) ring[i * wrow] = T(0);
+    if (rc.hr == 1) ring[i * wrow + right] = T(0);
+  }
+}
+
+// The group ends of a 2-D march's pair table (`ConstOp::row_many`): the
+// mask of the taps where a group ends, returned, and the row's weight of
+// that group at each such tap, written to wend (shared memory; needs a
+// __syncthreads() before it is read).
+template <typename T>
+__device__ __forceinline__ unsigned row_group_ends(const PairGroups& pg,
+                                                   T om, T* wend) {
+  if (threadIdx.x < pg.n_groups) {
+    wend[pg.start[threadIdx.x + 1] - 1] =
+        group_weight(pg, int(threadIdx.x), om);
+  }
+  unsigned ends = 0;
+  for (int g = 0; g < pg.n_groups; ++g) ends |= 1u << (pg.start[g + 1] - 1);
+  return ends;
+}
+
+// The ring offsets of n 2-D taps for each rotation r (the tapped point's
+// row in slot r), rows of wrow points: off[r·stride + k].
+__device__ __forceinline__ void row_ring_offsets(int n, const int* dy,
+                                                 const int* dx, int wrow,
+                                                 int stride, int* off) {
+  for (int i = threadIdx.x; i < 3 * n; i += blockDim.x) {
+    const int r = i / n, k = i - r * n;
+    off[r * stride + k] = mod3(r + dy[k]) * wrow + dx[k];
+  }
+}
+
+// The 2-D pre-stage's march of one block (K6's stages, see
+// march_fused_pre): x on its fine rows (xt, the time row) and r_c on its
+// coarse rows (rct). op_at(r) is the operator on a ring whose centre row
+// lies in slot r; vm the slab's validity field, or null.
+template <int NU, typename T, typename OpAt>
+__device__ void march2_fused_pre(const OpAt& op_at, const RowCoef<T>& c,
+                                 const T* __restrict__ bt,
+                                 const T* __restrict__ vm, const Grid& g,
+                                 const Lead& ld, const RowChunk& mc, int wrow,
+                                 T* __restrict__ xt, T* __restrict__ rct) {
+  constexpr int H = NU + 1, S = march2_slots<T>();
+  constexpr int kCentre = 1;  // a column whose taps stay in the window
+  T* const ring = window_buffers<T>();  // ring k: 3 rows from ring + 3·wrow·k
+  T* const X = ring + 3 * wrow * (NU - 1);
+  T* const RS = X + 3 * wrow;
+  const int wx0 = mc.x0 - mc.hl;  // the window's first column
+  zero_ghosts(ring, NU + 1, wrow, mc);
+  // this thread's window points (all inside the grid in x; depth −1 past
+  // the window): offset, grid column, depth, and in the residual's region
+  // (the segment and one column past)
+  int po[S], px[S], depth[S];
+  bool inres[S];
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    int gx;
+    depth[j] = row_point<H>(mc, int(threadIdx.x + j * blockDim.x), gx);
+    po[j] = depth[j] >= 0 ? gx - wx0 : kCentre;
+    px[j] = gx;
+    inres[j] = depth[j] >= 0 && gx >= mc.x0 && gx <= mc.x1;
+  }
+  // the segment's coarse columns
+  const Grid gc = coarse_grid<2>(g, ld);
+  const int cx_lo = mc.x0 / 2, cx_hi = min((mc.x1 + 1) / 2, gc.nx);
+  T c1[NU], c2[NU];
+  double rho = 1.0 / kSigma;
+#pragma unroll
+  for (int k = 1; k < NU; ++k) {
+    const double rho_new = 1.0 / (2.0 * kSigma - rho);
+    c1[k] = T(rho_new * rho);
+    c2[k] = T(2.0 * rho_new) * c.iDel;
+    rho = rho_new;
+  }
+  // the rows of each stage: the residual's r_lo … r_hi − 1; x on [x_lo,
+  // x_hi) (its own rows and those the residual reads); stage k on that
+  // grown by ν − 1 − k rows
+  const int r_lo = ld.off + 2 * mc.k_lo, r_hi = ld.off + 2 * mc.k_hi + 1;
+  const int x_lo = min(mc.f_lo, r_lo - 1), x_hi = max(mc.f_hi, r_hi + 1);
+  T rr[NU - 1][S], xr[NU - 1][S];  // r, x of stages 0 … ν−2, last row
+  // b and the diagonal's entry (`diag_at`) of stage 0's row, b of the
+  // residual's: loaded a step ahead
+  const auto op0 = op_at(0);
+  T b0[S], d0[S], br[S];
+  auto load = [&](int p0, T (&b)[S], T (&d)[S], T (&bres)[S]) {
+    const bool yin = p0 >= 0 && p0 < g.ny;
+    const int pr = p0 - NU;
+    const bool rin = pr >= r_lo && pr < r_hi;
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      const int gi = p0 * g.nx + px[j];
+      b[j] = yin && depth[j] >= 0 ? bt[gi] : T(0);
+      d[j] = yin && depth[j] >= 0 ? op0.diag_at(gi) : T(0);
+      bres[j] = rin && inres[j] ? bt[pr * g.nx + px[j]] : T(0);
+    }
+  };
+  load(x_lo - (NU - 1), b0, d0, br);
+  for (int t = x_lo - (NU - 1); t < x_hi + NU - 1; ++t) {
+    T rn[NU - 1][S], xn[NU - 1][S];
+    T b0n[S], d0n[S], brn[S];
+    load(t + 1, b0n, d0n, brn);
+    auto stage = [&](auto K) {
+      constexpr int k = decltype(K)::value;
+      const int p = t - k;
+      if (p < x_lo - (NU - 1 - k)) return;
+      const int rot = mod3(p);
+      const bool yin = p >= 0 && p < g.ny;
+      const auto op = op_at(rot);
+      const T* const din = ring + 3 * wrow * (k > 0 ? k - 1 : 0);
+      T* const out = (k < NU - 1 ? ring + 3 * wrow * k : X) + rot * wrow;
+      // Op d at this stage's points inside the grid (the others read at a
+      // column whose taps stay in the window)
+      int oo[S], gg[S];
+      T opd[S];
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        const bool in = yin && depth[j] >= k;
+        oo[j] = in ? po[j] : kCentre;
+        gg[j] = in ? p * g.nx + px[j] : 0;
+      }
+      if constexpr (k > 0) op.row_many(din, oo, gg, opd);
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        if (depth[j] < k) continue;
+        const int gi = gg[j];
+        T r = T(0), d = T(0), x = T(0);
+        if (yin) {
+          if constexpr (k == 0) {
+            r = valid_at(vm, gi) * (op.inv_diag_of(d0[j]) * b0[j]);
+            d = r * c.iT;
+            x = d;
+          } else {
+            r = valid_at(vm, gi) *
+                (rr[k - 1][j] - op.inv_diag(po[j], gi) * opd[j]);
+            d = c1[k] * din[rot * wrow + po[j]] + c2[k] * r;
+            x = xr[k - 1][j] + d;
+          }
+        }
+        if constexpr (k < NU - 1) {
+          out[po[j]] = d;
+          rn[k][j] = r;
+          xn[k][j] = x;
+        } else {
+          out[po[j]] = x;
+          if (yin && depth[j] >= H && p >= mc.f_lo && p < mc.f_hi) {
+            xt[gi] = x;
+          }
+        }
+      }
+    };
+    stage(Int<0>{});
+    __syncthreads();
+    stage(Int<1>{});
+    __syncthreads();
+    if constexpr (NU > 2) {
+      stage(Int<2>{});
+      __syncthreads();
+    }
+    const int p = t - NU;
+    if (p >= r_lo && p < r_hi) {
+      const int rot = mod3(p);
+      int oo[S], gg[S];
+      T opx[S];
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        oo[j] = inres[j] ? po[j] : kCentre;
+        gg[j] = inres[j] ? p * g.nx + px[j] : 0;
+      }
+      op_at(rot).row_many(X, oo, gg, opx);
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        if (inres[j]) RS[rot * wrow + po[j]] = br[j] - opx[j];
+      }
+      __syncthreads();
+      if (((p - ld.off) & 1) == 0 && p >= r_lo + 2) {
+        const int kc = (p - ld.off) / 2 - 1;
+        const int fy = p - 2, s0 = mod3(fy);
+        for (int cx = cx_lo + int(threadIdx.x); cx < cx_hi;
+             cx += int(blockDim.x)) {
+          rct[kc * gc.nx + cx] = restrict_at<2, T>(
+              Point{0, 0, kc, cx}, ld, [&](int, int y, int x) {
+                const int s = s0 + y - fy;
+                return RS[(s < 3 ? s : s - 3) * wrow + (x - wx0)];
+              });
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+#pragma unroll
+      for (int k = 0; k < NU - 1; ++k) {
+        rr[k][j] = rn[k][j];
+        xr[k][j] = xn[k][j];
+      }
+      b0[j] = b0n[j];
+      d0[j] = d0n[j];
+      br[j] = brn[j];
+    }
+  }
+}
+
+// The 2-D post-stage's march of one block (K7's stages, see
+// march_fused_post): x on its fine rows [mc.f_lo, mc.f_hi) of the time row
+// (ot), from x (xt), b (bt) and e_c (et, the coarse row of the transfers
+// ld, read with K9's `prolong_at` arithmetic). op_at as in
+// march2_fused_pre; vm the slab's validity field, or null.
+template <int NU, typename T, typename OpAt>
+__device__ void march2_fused_post(const OpAt& op_at, const RowCoef<T>& c,
+                                  const T* __restrict__ xt,
+                                  const T* __restrict__ et,
+                                  const T* __restrict__ bt,
+                                  const T* __restrict__ vm, const Grid& g,
+                                  const Lead& ld, const RowChunk& mc,
+                                  int wrow, T* __restrict__ ot) {
+  constexpr int H = NU, S = march2_slots<T>();
+  constexpr int kCentre = 1;  // a column whose taps stay in the window
+  T* const ring = window_buffers<T>();  // ring k: 3 rows from ring + 3·wrow·k
+  const Grid gc = coarse_grid<2>(g, ld);
+  const int wx0 = mc.x0 - mc.hl;
+  zero_ghosts(ring, NU, wrow, mc);
+  // this thread's window points (all inside the grid in x; depth −1 past
+  // the window): offset, grid column, depth, and the columns of the two
+  // coarse points P e_c reads there (−1 beyond the coarse grid)
+  int po[S], px[S], depth[S], pc0[S], pc1[S];
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    int gx;
+    depth[j] = row_point<H>(mc, int(threadIdx.x + j * blockDim.x), gx);
+    po[j] = depth[j] >= 0 ? gx - wx0 : kCentre;
+    px[j] = gx;
+    const int cx0 = gx >> 1, cx1 = (gx - 1) >> 1;
+    pc0[j] = cx0 >= 0 && cx0 < gc.nx ? cx0 : -1;
+    pc1[j] = cx1 >= 0 && cx1 < gc.nx ? cx1 : -1;
+  }
+  T c1[NU], c2[NU];
+  double rho = 1.0 / kSigma;
+#pragma unroll
+  for (int k = 1; k < NU; ++k) {
+    const double rho_new = 1.0 / (2.0 * kSigma - rho);
+    c1[k] = T(rho_new * rho);
+    c2[k] = T(2.0 * rho_new) * c.iDel;
+    rho = rho_new;
+  }
+  // stage 0's x and coarse values, and stage 1's b and diagonal entry
+  // (`diag_at`): each loaded once its stage has used the last ones, a step
+  // before it needs them
+  const auto op0 = op_at(0);
+  T xv[S], e0[S], e1[S], bv[S], dv[S];
+  auto load0 = [&](int p) {
+    const bool yin = p >= 0 && p < g.ny;
+    const int y0 = (p + ld.s) >> 1, y1 = (p + ld.s - 1) >> 1;
+    const bool in0 = y0 >= 0 && y0 < gc.ny, in1 = y1 >= 0 && y1 < gc.ny;
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      const bool in = yin && depth[j] >= 0;
+      xv[j] = in ? xt[p * g.nx + px[j]] : T(0);
+      e0[j] = in && in0 && pc0[j] >= 0 ? et[y0 * gc.nx + pc0[j]] : T(0);
+      e1[j] = in && in1 && pc1[j] >= 0 ? et[y1 * gc.nx + pc1[j]] : T(0);
+    }
+  };
+  auto load1 = [&](int p) {
+    const bool yin = p >= 0 && p < g.ny;
+#pragma unroll
+    for (int j = 0; j < S; ++j) {
+      const bool in = yin && depth[j] >= 1;
+      bv[j] = in ? bt[p * g.nx + px[j]] : T(0);
+      dv[j] = in ? op0.diag_at(p * g.nx + px[j]) : T(0);
+    }
+  };
+  T rr[NU - 1][S], xr[NU - 1][S];  // r, x of stages 1 … ν−1, last row
+  const int t0 = mc.f_lo - NU;
+  load0(t0);
+  load1(t0 - 1);
+  for (int t = t0; t < mc.f_hi + NU; ++t) {
+    {  // stage 0: X₀ = x + P e_c on window row t, 0 outside the grid
+      const bool yin = t >= 0 && t < g.ny;
+      T* const out = ring + mod3(t) * wrow;
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        if (depth[j] >= 0) {
+          out[po[j]] =
+              yin ? xv[j] + T(0.5) * (e0[j] + e1[j]) : T(0);
+        }
+      }
+    }
+    load0(t + 1);
+    __syncthreads();
+    T rn[NU - 1][S], xn[NU - 1][S];
+    auto stage = [&](auto K) {
+      constexpr int k = decltype(K)::value;
+      const int p = t - k;
+      if (p < mc.f_lo - (NU - k)) return;
+      const int rot = mod3(p);
+      const bool yin = p >= 0 && p < g.ny;
+      const auto op = op_at(rot);
+      const T* const din = ring + 3 * wrow * (k - 1);  // X₀, then d_{k−1}
+      // Op at this stage's points inside the grid (the others read at a
+      // column whose taps stay in the window)
+      int oo[S], gg[S];
+      T opd[S];
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        const bool in = yin && depth[j] >= k;
+        oo[j] = in ? po[j] : kCentre;
+        gg[j] = in ? p * g.nx + px[j] : 0;
+      }
+      op.row_many(din, oo, gg, opd);
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        if (depth[j] < k) continue;
+        const int gi = gg[j];
+        T r = T(0), d = T(0), x = T(0);
+        if (yin) {
+          if constexpr (k == 1) {
+            r = valid_at(vm, gi) * (op.inv_diag_of(dv[j]) * (bv[j] - opd[j]));
+            d = r * c.iT;
+            x = din[rot * wrow + po[j]] + d;
+          } else {
+            r = valid_at(vm, gi) *
+                (rr[k - 2][j] - op.inv_diag(po[j], gi) * opd[j]);
+            d = c1[k - 1] * din[rot * wrow + po[j]] + c2[k - 1] * r;
+            x = xr[k - 2][j] + d;
+          }
+        }
+        if constexpr (k < NU) {
+          ring[3 * wrow * k + rot * wrow + po[j]] = d;
+          rn[k - 1][j] = r;
+          xn[k - 1][j] = x;
+        } else if (yin && depth[j] >= H && p >= mc.f_lo && p < mc.f_hi) {
+          ot[gi] = x;
+        }
+      }
+    };
+    stage(Int<1>{});
+    load1(t);
+    __syncthreads();
+    stage(Int<2>{});
+    if constexpr (NU > 2) {
+      __syncthreads();
+      stage(Int<3>{});
+    }
+#pragma unroll
+    for (int k = 0; k < NU - 1; ++k) {
+#pragma unroll
+      for (int j = 0; j < S; ++j) {
+        rr[k][j] = rn[k][j];
+        xr[k][j] = xn[k][j];
+      }
+    }
+  }
+}
+
+// The 2-D K6 (ld serial, vm null) and its sharded-slab form.
+template <int NU, typename T>
+__global__ void __launch_bounds__(march2_threads<T>(),
+                                  march2_min_blocks<T>())
+    mg_march2_pre_kernel(const T* __restrict__ b, const T* __restrict__ vm,
+                         const T* __restrict__ omega,
+                         const T* __restrict__ invD,
+                         const T* __restrict__ invT,
+                         const T* __restrict__ invDel, T* __restrict__ xo,
+                         T* __restrict__ rco, Grid g,
+                         const __grid_constant__ PairGroups pg, Lead ld,
+                         int chunk, RowPlan rp) {
+  __shared__ T wend[kRowTaps];
+  __shared__ int toff[3 * kMaxPairTaps];
+  const int64_t t = blockIdx.z;
+  const int64_t S = row_size(g);
+  const RowCoef<T> c = row_coef(omega, invT, invDel, t);
+  const unsigned ends = row_group_ends(pg, c.om, wend);
+  row_ring_offsets(pg.start[pg.n_groups], pg.dy, pg.dx, rp.wrow,
+                   kMaxPairTaps, toff);
+  __syncthreads();
+  const T iD = invD[t];
+  march2_fused_pre<NU>(
+      [&](int r) {
+        return ConstOp<T>{pg, nullptr, toff + r * kMaxPairTaps, iD, ends,
+                          wend};
+      },
+      c, b + t * S, vm, g, ld, row_pre_chunk(g, ld, chunk, rp, NU + 1),
+      rp.wrow, xo + t * S, rco + t * row_size(coarse_grid<2>(g, ld)));
+}
+
+// The 2-D K7 (ld serial, vm null) and its sharded-slab form.
+template <int NU, typename T>
+__global__ void __launch_bounds__(march2_threads<T>(),
+                                  march2_min_blocks<T>())
+    mg_march2_post_kernel(const T* __restrict__ x, const T* __restrict__ b,
+                          const T* __restrict__ ec, const T* __restrict__ vm,
+                          const T* __restrict__ omega,
+                          const T* __restrict__ invD,
+                          const T* __restrict__ invT,
+                          const T* __restrict__ invDel, T* __restrict__ out,
+                          Grid g, const __grid_constant__ PairGroups pg,
+                          Lead ld, int chunk, RowPlan rp) {
+  __shared__ T wend[kRowTaps];
+  __shared__ int toff[3 * kMaxPairTaps];
+  const int64_t t = blockIdx.z;
+  const int64_t S = row_size(g);
+  const RowCoef<T> c = row_coef(omega, invT, invDel, t);
+  const unsigned ends = row_group_ends(pg, c.om, wend);
+  row_ring_offsets(pg.start[pg.n_groups], pg.dy, pg.dx, rp.wrow,
+                   kMaxPairTaps, toff);
+  __syncthreads();
+  const T iD = invD[t];
+  march2_fused_post<NU>(
+      [&](int r) {
+        return ConstOp<T>{pg, nullptr, toff + r * kMaxPairTaps, iD, ends,
+                          wend};
+      },
+      c, x + t * S, ec + t * row_size(coarse_grid<2>(g, ld)), b + t * S, vm,
+      g, ld, row_post_chunk(g, chunk, rp, NU), rp.wrow, out + t * S);
+}
+
 // The 2-D K15: 1/D a fourth window buffer, as in K14.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -1902,15 +2463,13 @@ int blocks_for(int64_t total) {
   return int(b < kMaxBlocks ? b : kMaxBlocks);
 }
 
-// The blocks of a tiled kernel: x bricks, (z brick, y brick) pairs, rows;
-// in 2-D the bricks of the lead axis y start `shift` rows before the grid
-// (`make_window`).
+// The blocks of a tiled kernel: x bricks, (z brick, y brick) pairs, rows.
 template <int DIM>
-dim3 bricks(int64_t nt, const Grid& g, int shift = 0) {
+dim3 bricks(int64_t nt, const Grid& g) {
   using B = BrickOf<DIM>;
   return dim3(unsigned((g.nx + B::x - 1) / B::x),
               unsigned(((g.nz + B::z - 1) / B::z) *
-                       ((g.ny + shift + B::y - 1) / B::y)),
+                       ((g.ny + B::y - 1) / B::y)),
               unsigned(nt));
 }
 
@@ -1966,6 +2525,22 @@ template <int H, typename T, typename K>
 int march_bytes(K kernel, int rings, size_t* bytes) {
   *bytes = size_t(3 * rings * March<H>::P) * sizeof(T);
   return allow_smem(kernel, *bytes);
+}
+
+// Dynamic shared memory of a 2-D march: `rings` rings of three window
+// rows of rp.wrow points (K6 ν + 1 at H = ν + 1, K7 ν at H = ν), its limit
+// raised (tests/test_torch_march.py checks the sum).
+template <typename T, typename K>
+int march2_bytes(K kernel, int rings, const RowPlan& rp, size_t* bytes) {
+  *bytes = size_t(3 * rings) * size_t(rp.wrow) * sizeof(T);
+  return allow_smem(kernel, *bytes);
+}
+
+// The blocks of a 2-D march: segments, chunks of `chunk` of the n rows
+// the chunks cut (K6 coarse, K7 fine; at least one chunk), time rows.
+dim3 row_blocks(int64_t nt, const RowPlan& rp, int n, int chunk) {
+  return dim3(unsigned(rp.nseg), unsigned(n > 0 ? (n + chunk - 1) / chunk : 1),
+              unsigned(nt));
 }
 
 // The blocks of a march: x tiles, (chunk, y tile) pairs of `chunk` of the
@@ -2030,27 +2605,49 @@ int launch_march_pre(const T* b, const T* vm, const T* omega, const T* invD,
   return int(cudaGetLastError());
 }
 
-// K6: the march in 3-D (ν ∈ {2, 3}, chunk ≥ 1 coarse planes), the brick
-// window in 2-D (chunk unused).
+// Whether a pair table suits the 2-D marches: at most kRowTaps taps, no
+// empty group (`ConstOp::row_many`).
+bool row_table_ok(const PairGroups& pg) {
+  if (pg.n_groups < 1 || pg.start[pg.n_groups] > kRowTaps) return false;
+  for (int g = 0; g < pg.n_groups; ++g) {
+    if (pg.start[g + 1] <= pg.start[g]) return false;
+  }
+  return true;
+}
+
+template <int NU, typename T>
+int launch_march2_pre(const T* b, const T* vm, const T* omega, const T* invD,
+                      const T* invT, const T* invDel, T* xo, T* rco,
+                      int64_t nt, Grid g, const PairGroups* pg, Lead ld,
+                      int chunk, void* stream) {
+  if (!row_table_ok(*pg)) return int(cudaErrorInvalidValue);
+  const RowPlan rp = row_plan(g.nx, NU + 1, march2_slots<T>());
+  size_t bytes = 0;
+  const int err =
+      march2_bytes<T>(mg_march2_pre_kernel<NU, T>, NU + 1, rp, &bytes);
+  if (err != 0) return err;
+  mg_march2_pre_kernel<NU, T><<<row_blocks(nt, rp, ld.nc, chunk), rp.threads,
+                                bytes, as_stream(stream)>>>(
+      b, vm, omega, invD, invT, invDel, xo, rco, g, *pg, ld, chunk, rp);
+  return int(cudaGetLastError());
+}
+
+// K6: the march in z in 3-D (chunk ≥ 1 coarse planes), in y in 2-D (chunk
+// ≥ 1 coarse rows); ν ∈ {2, 3}.
 template <int DIM, typename T>
 int launch_fused_pre(const T* b, const T* vm, const T* omega, const T* invD,
                      const T* invT, const T* invDel, T* xo, T* rco,
                      int64_t nt, Grid g, const PairGroups* pg, int nu,
                      Lead ld, int chunk, void* stream) {
+  if (chunk < 1 || nu < 2 || nu > 3) return int(cudaErrorInvalidValue);
   if constexpr (DIM == 3) {
-    if (chunk < 1 || nu < 2 || nu > 3) return int(cudaErrorInvalidValue);
     return (nu == 2 ? launch_march_pre<2, T> : launch_march_pre<3, T>)(
         b, vm, omega, invD, invT, invDel, xo, rco, nt, g, pg, ld, chunk,
         stream);
   } else {
-    size_t bytes = 0;
-    const int err =
-        window_bytes<2, T>(mg_fused_pre_kernel<T>, nu + 1, &bytes);
-    if (err != 0) return err;
-    mg_fused_pre_kernel<T><<<bricks<2>(nt, g, ld.off & 1), kThreads, bytes,
-                             as_stream(stream)>>>(
-        b, vm, omega, invD, invT, invDel, xo, rco, g, *pg, nu, ld);
-    return int(cudaGetLastError());
+    return (nu == 2 ? launch_march2_pre<2, T> : launch_march2_pre<3, T>)(
+        b, vm, omega, invD, invT, invDel, xo, rco, nt, g, pg, ld, chunk,
+        stream);
   }
 }
 
@@ -2069,27 +2666,41 @@ int launch_march_post(const T* x, const T* b, const T* ec, const T* vm,
   return int(cudaGetLastError());
 }
 
-// K7: the march in 3-D (ν ∈ {2, 3}, chunk ≥ 1 fine planes), the brick
-// window in 2-D (chunk unused).
+template <int NU, typename T>
+int launch_march2_post(const T* x, const T* b, const T* ec, const T* vm,
+                       const T* omega, const T* invD, const T* invT,
+                       const T* invDel, T* out, int64_t nt, Grid g,
+                       const PairGroups* pg, Lead ld, int chunk,
+                       void* stream) {
+  if (!row_table_ok(*pg)) return int(cudaErrorInvalidValue);
+  const RowPlan rp = row_plan(g.nx, NU, march2_slots<T>());
+  size_t bytes = 0;
+  const int err =
+      march2_bytes<T>(mg_march2_post_kernel<NU, T>, NU, rp, &bytes);
+  if (err != 0) return err;
+  mg_march2_post_kernel<NU, T><<<row_blocks(nt, rp, g.ny, chunk),
+                                 rp.threads, bytes, as_stream(stream)>>>(
+      x, b, ec, vm, omega, invD, invT, invDel, out, g, *pg, ld, chunk, rp);
+  return int(cudaGetLastError());
+}
+
+// K7: the march in z in 3-D (chunk ≥ 1 fine planes), in y in 2-D (chunk ≥
+// 1 fine rows); ν ∈ {2, 3}.
 template <int DIM, typename T>
 int launch_fused_post(const T* x, const T* b, const T* ec, const T* vm,
                       const T* omega, const T* invD, const T* invT,
                       const T* invDel, T* out, int64_t nt, Grid g,
                       const PairGroups* pg, int nu, Lead ld, int chunk,
                       void* stream) {
+  if (chunk < 1 || nu < 2 || nu > 3) return int(cudaErrorInvalidValue);
   if constexpr (DIM == 3) {
-    if (chunk < 1 || nu < 2 || nu > 3) return int(cudaErrorInvalidValue);
     return (nu == 2 ? launch_march_post<2, T> : launch_march_post<3, T>)(
         x, b, ec, vm, omega, invD, invT, invDel, out, nt, g, pg, ld, chunk,
         stream);
   } else {
-    size_t bytes = 0;
-    const int err = window_bytes<2, T>(mg_fused_post_kernel<T>, nu, &bytes);
-    if (err != 0) return err;
-    mg_fused_post_kernel<T><<<bricks<2>(nt, g), kThreads, bytes,
-                              as_stream(stream)>>>(
-        x, b, ec, vm, omega, invD, invT, invDel, out, g, *pg, nu, ld);
-    return int(cudaGetLastError());
+    return (nu == 2 ? launch_march2_post<2, T> : launch_march2_post<3, T>)(
+        x, b, ec, vm, omega, invD, invT, invDel, out, nt, g, pg, ld, chunk,
+        stream);
   }
 }
 
@@ -2312,6 +2923,27 @@ int march_occupancy(int post, int var, int* blocks, int* bytes) {
                                        blocks, bytes);
 }
 
+// Blocks per SM, dynamic shared bytes, threads a block and segments a row
+// of the 2-D K6 (post = 0) or K7 (post = 1) at ν = NU on rows of nx
+// columns.
+template <int NU, typename T>
+int march2_occupancy(int post, int nx, int* blocks, int* bytes,
+                     int* threads, int* nseg) {
+  const RowPlan rp = row_plan(nx, post ? NU : NU + 1, march2_slots<T>());
+  auto of = [&](auto kernel, int rings) {
+    size_t b = 0;
+    const int err = march2_bytes<T>(kernel, rings, rp, &b);
+    if (err != 0) return err;
+    *bytes = int(b);
+    *threads = rp.threads;
+    *nseg = rp.nseg;
+    return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, kernel, rp.threads, b));
+  };
+  return post ? of(mg_march2_post_kernel<NU, T>, NU)
+              : of(mg_march2_pre_kernel<NU, T>, NU + 1);
+}
+
 // The 2-D or 3-D instantiation of launcher L for a runtime dim.
 #define BY_DIM(L, T, ...) \
   (dim == 3 ? L<3, T>(__VA_ARGS__) : L<2, T>(__VA_ARGS__))
@@ -2349,6 +2981,21 @@ int mg_march_occupancy(int post, int var, int nu, int f64, int* blocks,
   }
   return (nu == 2 ? march_occupancy<2, float> : march_occupancy<3, float>)(
       post, var, blocks, bytes);
+}
+
+// The same for the 2-D K6 (post = 0) or K7 (post = 1) at ν ∈ {2, 3} on
+// rows of nx columns, and the threads of its blocks and the segments of a
+// row there (`row_plan`).
+int mg_march2_occupancy(int post, int nu, int f64, int nx, int* blocks,
+                        int* bytes, int* threads, int* nseg) {
+  if (nu < 2 || nu > 3 || nx < 1) return int(cudaErrorInvalidValue);
+  if (f64) {
+    return (nu == 2 ? march2_occupancy<2, double>
+                    : march2_occupancy<3, double>)(post, nx, blocks, bytes,
+                                                   threads, nseg);
+  }
+  return (nu == 2 ? march2_occupancy<2, float> : march2_occupancy<3, float>)(
+      post, nx, blocks, bytes, threads, nseg);
 }
 
 #define MG_ENTRY_POINTS(T, SFX)                                               \

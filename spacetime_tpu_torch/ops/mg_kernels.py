@@ -29,7 +29,9 @@ runs, as in the JAX package. The fused stages keep ν ∈ {2, 3}, as JAX's
 do. In 3-D the fused stages K6, K7, K14 and K15 march in z: a block owns a
 ``MARCH_TILE`` (y, x) tile of one row and a chunk of planes (coarse for
 K6/K14, fine for K7/K15), whose depth the wrapper picks (``march_chunk``)
-so that the launch fills the card.
+so that the launch fills the card. In 2-D K6 and K7 march in y: a block
+owns a segment of a row's columns (the whole row where it fits,
+csrc/mg.cu ``row_plan``) and a chunk of its rows (``march2_chunk``).
 
 For a CUDA tensor each wrapper launches the CUDA kernel of csrc/mg.cu
 (float32 and float64) and counts the launch, with one count per kernel,
@@ -175,6 +177,45 @@ def march_chunk(T: int, gs: tuple, n: int, sms: int, least: int = 2) -> int:
 
 
 @functools.lru_cache(maxsize=None)
+def march2_chunk(blocks_per_chunk: int, n: int, least: int, resident: int,
+                 sms: int, fine: int, extra: int) -> int:
+    """Rows per block of the 2-D march whose chunks cut a column of n rows
+    (K6: the nc coarse rows, ``fine`` = 2 fine rows each; K7: the fine
+    rows, 1), ``blocks_per_chunk`` blocks (T times the segments) for each
+    chunk: of the chunks down to ``least`` rows, the one whose launch
+    takes least time when its blocks run in waves of ``resident`` an SM
+    on ``sms`` SMs and a block walks fine·chunk + ``extra`` rows (K6 2ν +
+    1, K7 2ν), among those that give each SM two blocks where any do.
+    Timed on the H100 against half and twice its chunk (PERF.md §6,
+    ``tools.fused_ab --chunks``)."""
+    cap = resident * sms
+    best = None
+    for chunks in range(1, max(-(-n // least), 1) + 1):
+        chunk = -(-max(n, 1) // chunks)
+        blocks = blocks_per_chunk * -(-n // chunk) if n > 0 else blocks_per_chunk
+        cost = -(-blocks // cap) * (fine * chunk + extra)
+        key = (blocks < 2 * sms, cost, -chunk)
+        best = min(best, (key, chunk)) if best else (key, chunk)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def march2_plan(post: bool, nu: int, dtype, nx: int,
+                index: int) -> tuple[int, int]:
+    """(blocks an SM of device ``index`` holds, segments a row) of the 2-D
+    K6 (K7 with ``post``) on rows of nx columns (csrc/mg.cu
+    ``mg_march2_occupancy``: registers and shared memory, ``row_plan``)."""
+    lib = native.LIB.get()
+    out = [ctypes.c_int() for _ in range(4)]  # blocks, bytes, threads, nseg
+    with torch.cuda.device(index):
+        err = lib.mg_march2_occupancy(int(post), nu,
+                                      int(dtype == torch.float64), nx,
+                                      *map(ctypes.byref, out))
+    native.check(lib, "mg_march2_occupancy", err)
+    return max(out[0].value, 1), out[3].value
+
+
+@functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
@@ -313,13 +354,14 @@ class _KernelLevel:
         2-D)."""
         return (1,) * (3 - self.dim) + self.gs + (self.dim,)
 
-    def _chunk(self, T: int, n: int, device, stage: str = "pre") -> int:
-        """The planes a block of the 3-D march walks through: of the nc
-        coarse planes on the lead axis (K6/K14, ``stage="pre"``) or of the
-        fine ones (K7/K15, "post"); unused in 2-D."""
+    def _chunk(self, b, n: int, stage: str = "pre") -> int:
+        """The planes a block of the 3-D march on field ``b`` walks
+        through: of the nc coarse ones on the lead axis (K6/K14,
+        ``stage="pre"``) or of the fine ones (K7/K15, "post"); unused in
+        2-D, where K14/K15 do not march (``MSKernelLevel`` marches K6/K7)."""
         if self.dim == 2:
             return 0
-        return march_chunk(T, self.gs, n, _sm_count(device.index),
+        return march_chunk(b.shape[0], self.gs, n, _sm_count(b.device.index),
                            MARCH_LEAST[stage])
 
 
@@ -346,6 +388,18 @@ class MSKernelLevel(_KernelLevel):
             native.pair_groups_struct(self.pairs, self.dim),
             native.pair_groups_struct(pair_groups(self.groups_A, ()), self.dim),
         )
+
+    def _chunk(self, b, n: int, stage: str = "pre") -> int:
+        """As ``_KernelLevel._chunk``; in 2-D the rows a block of the row
+        march walks through (``march2_chunk``)."""
+        if self.dim == 3:
+            return super()._chunk(b, n, stage)
+        pre = stage == "pre"
+        resident, nseg = march2_plan(not pre, self.nu, b.dtype, self.gs[1],
+                                     b.device.index)
+        return march2_chunk(b.shape[0] * nseg, n, MARCH_LEAST[stage],
+                            resident, _sm_count(b.device.index),
+                            2 if pre else 1, 2 * self.nu + pre)
 
     # ------------------------------------------------------------ twins
 
@@ -440,7 +494,7 @@ class MSKernelLevel(_KernelLevel):
         rc = b.new_empty((T,) + self.coarse_gs)
         k.launch(b.device, b.data_ptr(), *cp, x.data_ptr(),
                  rc.data_ptr(), T, *self._zyx(), self._op_table(), self.nu,
-                 self._chunk(T, self.coarse_gs[0], b.device))
+                 self._chunk(b, self.coarse_gs[0]))
         return x, rc
 
     def fused_post(self, x, b, ec, cols):
@@ -453,7 +507,7 @@ class MSKernelLevel(_KernelLevel):
         out = torch.empty_like(b)
         k.launch(b.device, x.data_ptr(), b.data_ptr(), ec.data_ptr(),
                  *cp, out.data_ptr(), T, *self._zyx(), self._op_table(),
-                 self.nu, self._chunk(T, self.gs[0], b.device, "post"))
+                 self.nu, self._chunk(b, self.gs[0], "post"))
         return out
 
     def residual_restrict(self, x, b, cols):
@@ -497,7 +551,7 @@ class MSKernelLevel(_KernelLevel):
         rc = b.new_empty((T,) + self._coarse_lead(own // 2))
         k.launch(b.device, b.data_ptr(), vmask.data_ptr(), *cp, x.data_ptr(),
                  rc.data_ptr(), T, *self._zyx(), self._op_table(), self.nu,
-                 own, h, self._chunk(T, own // 2, b.device))
+                 own, h, self._chunk(b, own // 2))
         return x, rc
 
     def sh_fused_post(self, x, b, ec, cols, vmask, own: int, h: int,
@@ -519,7 +573,7 @@ class MSKernelLevel(_KernelLevel):
         k.launch(b.device, x.data_ptr(), b.data_ptr(), ec.data_ptr(),
                  vmask.data_ptr(), *cp, out.data_ptr(), T, *self._zyx(),
                  self._op_table(), self.nu, own, h, hc,
-                 self._chunk(T, self.gs[0], b.device, "post"))
+                 self._chunk(b, self.gs[0], "post"))
         return out
 
     def sh_residual_restrict(self, x, b, cols, own: int, h: int):
@@ -672,7 +726,7 @@ class VarMSKernelLevel(_KernelLevel):
         rc = b.new_empty((T,) + self.coarse_gs)
         k.launch(b.device, b.data_ptr(), W.data_ptr(), *cp, x.data_ptr(),
                  rc.data_ptr(), T, *self._zyx(), *self._tables(), self.nu,
-                 self._chunk(T, self.coarse_gs[0], b.device))
+                 self._chunk(b, self.coarse_gs[0]))
         return x, rc
 
     def fused_post(self, x, b, ec, cols, W):
@@ -687,7 +741,7 @@ class VarMSKernelLevel(_KernelLevel):
         k.launch(b.device, x.data_ptr(), b.data_ptr(), ec.data_ptr(),
                  W.data_ptr(), *cp, out.data_ptr(), T, *self._zyx(),
                  *self._tables(), self.nu,
-                 self._chunk(T, self.gs[0], b.device, "post"))
+                 self._chunk(b, self.gs[0], "post"))
         return out
 
     def _check_W(self, W, X) -> None:

@@ -258,8 +258,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             "mg_smooth": [P, P, P, P, P, P, P, *grid, P, I, I, P],
             "mg_residual": [P, P, P, P, *grid, P, P],
             "mg_apply": [P, P, *grid, P, P],
-            # the fused stages: ν, then the planes a block of the 3-D
-            # march walks (K6 coarse, K7 fine; unused in 2-D)
+            # the fused stages: ν, then the planes (rows in 2-D) a block of
+            # the march walks (K6 coarse, K7 fine)
             "mg_fused_pre": [P, P, P, P, P, P, P, *grid, P, I, I, P],
             "mg_fused_post": [P, P, P, P, P, P, P, P, *grid, P, I, I, P],
             "mg_residual_restrict": [P, P, P, P, *grid, P, P],
@@ -306,6 +306,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             fn.restype = I
     lib.mg_march_occupancy.argtypes = [I, I, I, I, P, P]
     lib.mg_march_occupancy.restype = I
+    # the 2-D march's: post, ν, f64, nx, then blocks, bytes, threads, nseg
+    lib.mg_march2_occupancy.argtypes = [I, I, I, I, P, P, P, P]
+    lib.mg_march2_occupancy.restype = I
     for size_fn, struct in (("kron_taps_size", TapsStruct),
                             ("mg_pairs_size", PairGroupsStruct),
                             ("mg_var_taps_size", VarTapsStruct),

@@ -14,16 +14,18 @@ two sources that sum alike agree bit for bit) into one library under
 ``data_ptr()``) and the stream is ignored. Registers, occupancy and
 ``__launch_bounds__`` have no meaning here, and nothing is timed.
 
-The check it runs: the 3-D fused stages K6, K7, K14 and K15 and the
-sharded K7 on ragged grids (ν ∈ {2, 3}, float32 and float64), with the
-march's chunks of 1 plane to the whole column, the weighted ones in both
-row orders (the stand-in's L2 is the H100's 50 MB, or ``EMU_L2_BYTES``:
-0 makes every W exceed it), each held to its plain twin within
-1e-5·max|twin| (f32) and 1e-13 (f64). With ``--parent DIR``
-(an unpacked ``git archive`` of an earlier commit) DIR's csrc/mg.cu is
-emulated too, its fused entry points bound as ``tools.fused_ab`` binds
-them, and each output must equal DIR's bit for bit. A CUDA construct the
-runtime stand-in below lacks fails the g++ build.
+The check it runs: the fused stages K6, K7, K14 and K15 in 2-D and 3-D
+and the sharded K6 (2-D) and K7 (2-D and 3-D) on ragged grids and slabs
+(ν ∈ {2, 3}, float32 and float64; in 2-D a row wider than one segment of
+the march), with the marches' chunks of 1 row (plane) to the whole
+column, the 3-D weighted ones in both row orders (the stand-in's L2 is
+the H100's 50 MB, or ``EMU_L2_BYTES``: 0 makes every W exceed it), each
+held to its plain twin within 1e-5·max|twin| (f32) and 1e-13 (f64). With
+``--parent DIR`` (an unpacked ``git archive`` of an earlier commit) DIR's
+csrc/mg.cu is emulated too, its fused entry points bound as
+``tools.fused_ab`` binds them, and each output must equal DIR's bit for
+bit. A CUDA construct the runtime stand-in below lacks fails the g++
+build.
 """
 
 from __future__ import annotations
@@ -51,8 +53,15 @@ L2 = 50 * 1024 * 1024  # the H100's, which the stand-in reports by default
 # nine tiles with ragged edges
 SHAPES = [(2, (7, 9, 15)), (2, (9, 17, 33)), (1, (3, 17, 33)),
           (1, (13, 35, 67))]
-# (own, other extents) of the sharded K7's slabs, at h ∈ {3, 4, 5}
+# (own, other extents) of the 3-D sharded K7's slabs, at h ∈ {3, 4, 5}
 SLABS = [(4, (7, 9)), (12, (9, 33))]
+# 2-D (T, grid): ragged; one row (no coarse row); one coarse row; rows
+# wider than one segment of the march (two segments, the second ragged;
+# two, a column past a multiple of the segment joined to the last)
+SHAPES_2D = [(2, (15, 31)), (2, (9, 65)), (1, (1, 9)), (1, (3, 17)),
+             (1, (7, 1055)), (1, (7, 1985))]
+# (own, other extents) of the 2-D sharded K6's and K7's slabs
+SLABS_2D = [(4, (15,)), (12, (33,)), (6, (1055,)), (6, (1985,))]
 
 RUNTIME = r"""
 #pragma once
@@ -195,6 +204,9 @@ def _call(lib, name, *args) -> None:
 
 
 def _close(label, got, want, dtype, ref=None) -> None:
+    if want.numel() == 0:  # r_c of a grid without a coarse row
+        assert got.shape == want.shape, (label, got.shape)
+        return
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
     assert err <= TOL[dtype] * scale, (label, err, scale)
@@ -202,106 +214,151 @@ def _close(label, got, want, dtype, ref=None) -> None:
         assert torch.equal(got, ref), (label, float((got - ref).abs().max()))
 
 
+def _pre_and_post(new, old, level, T, gs, x, b, ec, cols_of, pre, tables,
+                  twins, dtype, sfx, vsfx, chunks, l2s=(L2,)) -> int:
+    """K6 / K14 (vsfx "_var") and K7 / K15 of ``new`` at each chunk (each
+    of the L2 sizes ``l2s``) against their twins and, if given, ``old``'s
+    launch at the first chunk; returns the launches compared."""
+    cols = level.columns(cols_of())
+    cp = [cols[k].data_ptr() for k in level._COLS]
+    zyx = level._zyx()
+    post_twin, pre_twin = twins
+    n = 0
+    for stage, want in (("post", (post_twin(cols),)),
+                        ("pre", pre_twin(cols))):
+        ref = None
+        for lib, chunk, l2 in ([(old, chunks[stage][0], L2)] if old else []) + [
+                (new, c, l2) for c in chunks[stage] for l2 in l2s]:
+            os.environ["EMU_L2_BYTES"] = str(l2)
+            if stage == "post":
+                got = (torch.empty_like(b),)
+                _call(lib, f"mg_fused_post{vsfx}_{sfx}", x.data_ptr(),
+                      b.data_ptr(), ec.data_ptr(), *pre, *cp,
+                      got[0].data_ptr(), T, *zyx, *tables, level.nu, chunk)
+            else:
+                got = (torch.empty_like(b), b.new_empty((T,) + level.coarse_gs))
+                _call(lib, f"mg_fused_pre{vsfx}_{sfx}", b.data_ptr(), *pre,
+                      *cp, got[0].data_ptr(), got[1].data_ptr(), T, *zyx,
+                      *tables, level.nu, chunk)
+            n += 1
+            if lib is old:
+                ref = got
+                continue
+            for i, (g, w) in enumerate(zip(got, want)):
+                _close((stage, vsfx, sfx, gs, level.nu, chunk, l2), g, w,
+                       dtype, None if ref is None else ref[i])
+    os.environ["EMU_L2_BYTES"] = str(L2)
+    return n
+
+
+def _sharded(new, old, lev, const, slabs, dtype, sfx, mk, rng) -> int:
+    """The sharded K6 (2-D) and K7 (2-D and 3-D) of ``new`` on the slabs at
+    h ∈ {3, 4, 5}, chunks of 3 and 4 rows (planes) and the whole slab,
+    against their twins and ``old``'s."""
+    n = 0
+    for (own, rest), h in ((s, h) for s in slabs for h in (3, 4, 5)):
+        gs, T, hc = (own + 2 * h,) + rest, 2, (h + 2) // 2
+        for nu in (2, 3):
+            kl = MSKernelLevel(lev.A_st, lev.M_st, nu, gs=gs)
+            x, b = mk((T,) + gs), mk((T,) + gs)
+            ec = mk((T, own // 2 + 2 * hc) + kl.coarse_gs[1:])
+            vm = torch.ones((1,) + gs, dtype=dtype)
+            vm[:, :h - 1] = 0
+            vm[:, -1] = 0
+            cols = kl.columns(row_params(const, rng.uniform(0, 40, T),
+                                         dtype, "cpu")[0])
+            cp = [cols[k].data_ptr() for k in kl._COLS]
+            want = kl.sh_fused_post_plain(x, b, ec, cols, vm, own, h, hc)
+            ref = None
+            for lib, chunk in ([(old, 4)] if old else []) + [
+                    (new, c) for c in sorted({3, 4, gs[0]})]:
+                got = torch.empty_like(b)
+                _call(lib, f"mg_sh_fused_post_{sfx}", x.data_ptr(),
+                      b.data_ptr(), ec.data_ptr(), vm.data_ptr(), *cp,
+                      got.data_ptr(), T, *kl._zyx(), kl._op_table(), nu,
+                      own, h, hc, chunk)
+                n += 1
+                if lib is old:
+                    ref = got
+                    continue
+                _close(("sh post", sfx, gs, nu, chunk), got, want, dtype, ref)
+            if len(gs) == 3 or h < nu + 1:
+                continue
+            want = kl.sh_fused_pre_plain(b, cols, vm, own, h)
+            ref = None
+            for lib, chunk in ([(old, 2)] if old else []) + [
+                    (new, c) for c in sorted({1, 2, own // 2})]:
+                got = (torch.empty_like(b),
+                       b.new_empty((T,) + kl._coarse_lead(own // 2)))
+                _call(lib, f"mg_sh_fused_pre_{sfx}", b.data_ptr(),
+                      vm.data_ptr(), *cp, got[0].data_ptr(),
+                      got[1].data_ptr(), T, *kl._zyx(), kl._op_table(), nu,
+                      own, h, chunk)
+                n += 1
+                if lib is old:
+                    ref = got
+                    continue
+                for i, (g, w) in enumerate(zip(got, want)):
+                    _close(("sh pre", sfx, gs, nu, chunk), g, w, dtype,
+                           None if ref is None else ref[i])
+    return n
+
+
 def check(new, old) -> int:
     """The fused stages of ``new`` against the twins and, if given,
     ``old``'s; returns the number of launches compared."""
     from ..solver import build_solver
 
-    const = build_solver("smooth3d", 8, 2, device="cpu", inner="mg").msmg
-    var = build_solver("varcoef3d", 8, 2, device="cpu", inner="mg").msmg
-    lev, vlev = const.levels[0], var.levels[0]
-    rng = np.random.default_rng(0)
     n = 0
-    for dtype in (torch.float32, torch.float64):
-        sfx = "f32" if dtype == torch.float32 else "f64"
-        mk = lambda shape: torch.as_tensor(rng.standard_normal(shape),
-                                           dtype=dtype)
-        for (T, gs), nu in ((s, nu) for s in SHAPES for nu in (2, 3)):
-            kl = MSKernelLevel(lev.A_st, lev.M_st, nu, gs=gs)
-            vl = VarMSKernelLevel(vlev, nu, gs=gs)
-            x, b, ec = mk((T,) + gs), mk((T,) + gs), mk((T,) + kl.coarse_gs)
-            grow = [(0, 0)] + [(0, max(m - w, 0))
-                               for m, w in zip(gs, vlev.Aw.shape[1:])]
-            cut = (slice(None),) + tuple(slice(0, m) for m in gs)
-            W = torch.as_tensor(np.ascontiguousarray(np.pad(
-                np.asarray(vlev.Aw), grow, mode="wrap")[cut]), dtype=dtype)
-            for level, cols_of, pre, tables, post_twin, pre_twin, vsfx in (
-                (kl, lambda: row_params(const, rng.uniform(0, 40, T), dtype,
-                                        "cpu")[0], (), (kl._op_table(),),
-                 lambda c: kl.fused_post_plain(x, b, ec, c),
-                 lambda c: kl.fused_pre_plain(b, c), ""),
-                (vl, lambda: var_row_params(var, rng.uniform(0, 40, T), dtype,
-                                            "cpu")[0], (W.data_ptr(),),
-                 vl._tables(), lambda c: vl.fused_post_plain(x, b, ec, c, W),
-                 lambda c: vl.fused_pre_plain(b, c, W), "_var"),
-            ):
-                cols = level.columns(cols_of())
-                cp = [cols[k].data_ptr() for k in level._COLS]
-                zyx = level._zyx()
-                want = post_twin(cols)
-                ref = None
-                if old is not None:
-                    ref = torch.empty_like(b)
-                    _call(old, f"mg_fused_post{vsfx}_{sfx}", x.data_ptr(),
-                          b.data_ptr(), ec.data_ptr(), *pre, *cp,
-                          ref.data_ptr(), T, *zyx, *tables, nu)
-                # the weighted kernels in both row orders: W in the L2 and
-                # beyond it (an L2 of 0 bytes)
-                for chunk, l2 in ((c, l2) for c in sorted({1, 2, 4, gs[0]})
-                                  for l2 in ((L2, 0) if vsfx else (L2,))):
-                    os.environ["EMU_L2_BYTES"] = str(l2)
-                    got = torch.empty_like(b)
-                    _call(new, f"mg_fused_post{vsfx}_{sfx}", x.data_ptr(),
-                          b.data_ptr(), ec.data_ptr(), *pre, *cp,
-                          got.data_ptr(), T, *zyx, *tables, nu, chunk)
-                    _close(("post", vsfx, sfx, gs, nu, chunk, l2), got, want,
-                           dtype, ref)
-                    n += 1
-                os.environ["EMU_L2_BYTES"] = str(L2)
-                want = pre_twin(cols)
-                outs = {}
-                for which, lib in (("new", new), ("old", old)):
-                    if lib is None:
-                        continue
-                    xo, rc = torch.empty_like(b), b.new_empty(
-                        (T,) + level.coarse_gs)
-                    _call(lib, f"mg_fused_pre{vsfx}_{sfx}", b.data_ptr(),
-                          *pre, *cp, xo.data_ptr(), rc.data_ptr(), T, *zyx,
-                          *tables, nu, 2)
-                    outs[which] = (xo, rc)
-                    n += 1
-                for g, w, r in zip(outs["new"], want,
-                                   outs.get("old", (None, None))):
-                    _close(("pre", vsfx, sfx, gs, nu), g, w, dtype, r)
-        for (own, rest), h in ((s, h) for s in SLABS for h in (3, 4, 5)):
-            gs, T, hc = (own + 2 * h,) + rest, 2, (h + 2) // 2
-            for nu in (2, 3):
+    for dim, shapes, slabs in ((2, SHAPES_2D, SLABS_2D), (3, SHAPES, SLABS)):
+        const = build_solver("smooth3d" if dim == 3 else "smooth2d", 8, 2,
+                             device="cpu", inner="mg").msmg
+        var = build_solver("varcoef3d" if dim == 3 else "varcoef2d", 8, 2,
+                           device="cpu", inner="mg").msmg
+        lev, vlev = const.levels[0], var.levels[0]
+        rng = np.random.default_rng(dim)
+        for dtype in (torch.float32, torch.float64):
+            sfx = "f32" if dtype == torch.float32 else "f64"
+            mk = lambda shape: torch.as_tensor(rng.standard_normal(shape),
+                                               dtype=dtype)
+            for (T, gs), nu in ((s, nu) for s in shapes for nu in (2, 3)):
                 kl = MSKernelLevel(lev.A_st, lev.M_st, nu, gs=gs)
+                vl = VarMSKernelLevel(vlev, nu, gs=gs)
                 x, b = mk((T,) + gs), mk((T,) + gs)
-                ec = mk((T, own // 2 + 2 * hc) + kl.coarse_gs[1:])
-                vm = torch.ones((1,) + gs, dtype=dtype)
-                vm[:, :h - 1] = 0
-                vm[:, -1] = 0
-                cols = kl.columns(row_params(const, rng.uniform(0, 40, T),
-                                             dtype, "cpu")[0])
-                cp = [cols[k].data_ptr() for k in kl._COLS]
-                want = kl.sh_fused_post_plain(x, b, ec, cols, vm, own, h, hc)
-                ref = None
-                if old is not None:
-                    ref = torch.empty_like(b)
-                    _call(old, f"mg_sh_fused_post_{sfx}", x.data_ptr(),
-                          b.data_ptr(), ec.data_ptr(), vm.data_ptr(), *cp,
-                          ref.data_ptr(), T, *kl._zyx(), kl._op_table(), nu,
-                          own, h, hc)
-                for chunk in sorted({3, 4, gs[0]}):
-                    got = torch.empty_like(b)
-                    _call(new, f"mg_sh_fused_post_{sfx}", x.data_ptr(),
-                          b.data_ptr(), ec.data_ptr(), vm.data_ptr(), *cp,
-                          got.data_ptr(), T, *kl._zyx(), kl._op_table(), nu,
-                          own, h, hc, chunk)
-                    _close(("sh post", sfx, gs, nu, chunk), got, want, dtype,
-                           ref)
-                    n += 1
+                ec = mk((T,) + kl.coarse_gs)
+                grow = [(0, 0)] + [(0, max(m - w, 0))
+                                   for m, w in zip(gs, vlev.Aw.shape[1:])]
+                cut = (slice(None),) + tuple(slice(0, m) for m in gs)
+                W = torch.as_tensor(np.ascontiguousarray(np.pad(
+                    np.asarray(vlev.Aw), grow, mode="wrap")[cut]),
+                    dtype=dtype)
+                # K6/K7: every chunk of 1, 2, 4 rows (planes) and the whole
+                # column; the 2-D K14/K15 (bricks) take no chunk
+                const_chunks = {
+                    "pre": sorted({1, 2, 4, max(kl.coarse_gs[0], 1)}),
+                    "post": sorted({1, 2, 4, gs[0]})}
+                n += _pre_and_post(
+                    new, old, kl, T, gs, x, b, ec,
+                    lambda: row_params(const, rng.uniform(0, 40, T), dtype,
+                                       "cpu")[0], (), (kl._op_table(),),
+                    (lambda c: kl.fused_post_plain(x, b, ec, c),
+                     lambda c: kl.fused_pre_plain(b, c)),
+                    dtype, sfx, "", const_chunks)
+                # the weighted ones in both row orders where they march (W
+                # in the L2 and beyond it: an L2 of 0 bytes)
+                var_chunks = const_chunks if dim == 3 else {
+                    "pre": [1], "post": [1]}
+                n += _pre_and_post(
+                    new, old, vl, T, gs, x, b, ec,
+                    lambda: var_row_params(var, rng.uniform(0, 40, T),
+                                           dtype, "cpu")[0], (W.data_ptr(),),
+                    vl._tables(),
+                    (lambda c: vl.fused_post_plain(x, b, ec, c, W),
+                     lambda c: vl.fused_pre_plain(b, c, W)),
+                    dtype, sfx, "_var", var_chunks,
+                    (L2, 0) if dim == 3 else (L2,))
+            n += _sharded(new, old, lev, const, slabs, dtype, sfx, mk,
+                          rng)
     return n
 
 

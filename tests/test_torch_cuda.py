@@ -1,6 +1,8 @@
 """The CUDA kernels K1 (B), K2 (Bᵀ), the multigrid kernels K3–K9 and the
 weighted K10–K15 (2-D and 3-D, the fused K6/K7 and K14/K15 at ν 2 and 3,
-the 3-D K6/K7/K14/K15 on their z-marching kernels), the chained
+the 3-D K6/K7/K14/K15 on their z-marching kernels, the 2-D K6/K7 on their
+y-marching ones, serial and sharded, at chunks of one row to the whole
+column), the chained
 sweeps of K3/K10 above the tiled ν, the blocked-ELL SpMM K20, the
 banded-DIA K16–K18 (K16 at ν 1, 2, 3, 4), the pair SpMM K19 and the
 sharded-slab forms (K3 with ``vmask``, K6/K7/K8/K9 with ``lead``) on the
@@ -757,6 +759,96 @@ def test_sharded_kernels_match_twins(msmg, msmg3d, dtype, dim, nu, h, slab):
                  "K8 mg_sh_residual_restrict", "K9 mg_sh_prolong_correct"):
         assert counts[f"{name}{d} {sfx}"] == 1, (name, counts)
     assert sum(counts.values()) == 6
+
+
+# The 2-D K6 and K7 march in y: the flagship's levels at K_X's rows, a
+# ragged grid, one coarse row, and rows wider than one segment of the
+# march (two, the second ragged; two, the last 993 columns wide: a column
+# left past a multiple of the segment joins the last); each at chunks of
+# one row (one coarse row for K6) to the whole column, the wrapper's pick
+# among them
+ROW_MARCH = [(129, (511, 511)), (129, (255, 255)), (65, (127, 127)),
+             (129, (63, 63)), (5, (15, 31)), (3, (3, 17)), (3, (9, 1055)),
+             (3, (9, 1985))]
+
+
+def _chunks_of(kl, b, n, stage, least):
+    """{1, least, the wrapper's chunk on field b, the whole column}."""
+    return sorted({1, least, kl._chunk(b, n, stage), max(n, 1)})
+
+
+@pytest.mark.parametrize("shape", ROW_MARCH,
+                         ids=lambda s: "x".join(map(str, (s[0],) + s[1])))
+@pytest.mark.parametrize("nu", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_row_march_matches_twins(msmg, dtype, nu, shape):
+    T, gs = shape
+    lev = msmg.levels[0]
+    kl = MSKernelLevel(lev.A_st, lev.M_st, nu, gs=gs)
+    x, b, ec, cols = _level_inputs(msmg, kl, T, dtype, nu)
+    pre, post = kl.fused_pre_plain(b, cols), kl.fused_post_plain(x, b, ec,
+                                                                 cols)
+    chunks = {st: _chunks_of(kl, b, n, st, least)
+              for st, n, least in (("pre", kl.coarse_gs[0], 2),
+                                   ("post", gs[0], 4))}
+    mg_kernels.reset_launch_counts()
+    for chunk in chunks["pre"]:
+        kl._chunk = lambda *_, c=chunk: c
+        for got, want in zip(kl.fused_pre(b, cols), pre):
+            _close(got, want, dtype)
+    for chunk in chunks["post"]:
+        kl._chunk = lambda *_, c=chunk: c
+        _close(kl.fused_post(x, b, ec, cols), post, dtype)
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    counts = mg_kernels.launch_counts()
+    assert counts[f"K6 mg_fused_pre {sfx}"] == len(chunks["pre"])
+    assert counts[f"K7 mg_fused_post {sfx}"] == len(chunks["post"])
+    assert sum(counts.values()) == len(chunks["pre"]) + len(chunks["post"])
+
+
+# (T, own, h, other extents): the (2 × 2) flagship's finest slab (h = ν +
+# 1, its mesh's halo) and small ones, the last two rows wider than one
+# segment
+ROW_SLABS = [(65, 256, 0, (511,)), (5, 4, 3, (15,)), (5, 12, 4, (33,)),
+             (5, 6, 5, (1055,)), (5, 6, 5, (1985,))]
+
+
+@pytest.mark.parametrize("slab", ROW_SLABS,
+                         ids=lambda s: f"T{s[0]}-own{s[1]}-h{s[2]}-{s[3][0]}")
+@pytest.mark.parametrize("nu", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sharded_row_march_matches_twins(msmg, dtype, nu, slab):
+    """The 2-D sharded K6 and K7 (``lead``) at chunks of one row to the
+    whole slab; h at least ν + 1."""
+    T, own, h, rest = slab
+    h = max(h, nu + 1)
+    gs = (own + 2 * h,) + rest
+    lev = msmg.levels[0]
+    kl = MSKernelLevel(lev.A_st, lev.M_st, nu, gs=gs)
+    x, b, _, cols = _level_inputs(msmg, kl, T, dtype, 10 * nu + h)
+    rng = np.random.default_rng(h)
+    hc = (h + 2) // 2
+    ec = torch.as_tensor(
+        rng.standard_normal((T, own // 2 + 2 * hc) + kl.coarse_gs[1:]),
+        dtype=dtype, device="cuda")
+    vm = _slab_vmask(gs[0], rest, dtype)
+    pre = kl.sh_fused_pre_plain(b, cols, vm, own, h)
+    post = kl.sh_fused_post_plain(x, b, ec, cols, vm, own, h, hc)
+    chunks = {st: _chunks_of(kl, b, n, st, least)
+              for st, n, least in (("pre", own // 2, 2),
+                                   ("post", gs[0], 4))}
+    mg_kernels.reset_launch_counts()
+    for chunk in chunks["pre"]:
+        kl._chunk = lambda *_, c=chunk: c
+        for got, want in zip(kl.sh_fused_pre(b, cols, vm, own, h), pre):
+            _close(got, want, dtype)
+    for chunk in chunks["post"]:
+        kl._chunk = lambda *_, c=chunk: c
+        _close(kl.sh_fused_post(x, b, ec, cols, vm, own, h, hc), post, dtype)
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    counts = mg_kernels.launch_counts()
+    assert counts[f"K6 mg_sh_fused_pre {sfx}"] == len(chunks["pre"])
+    assert counts[f"K7 mg_sh_fused_post {sfx}"] == len(chunks["post"])
 
 
 @pytest.mark.parametrize("dim, nu", [(2, 9), (3, 4)])
