@@ -217,11 +217,18 @@ SPACE_N, TIME_LEVELS = 128, 6
 FLAGSHIP_N, FLAGSHIP_LEVELS = 512, 7
 FLAGSHIP_KRON = (2 ** FLAGSHIP_LEVELS, (FLAGSHIP_N - 1,) * 2)
 # (T, grid, timed) of the K1/K2 checks besides cfg2's own: the 2-D
-# flagship's, a ragged 2-D grid, the 129³×64, 65³×32 and 17³×16 solves' and
-# a ragged 3-D grid.
-KRON_SHAPES = [FLAGSHIP_KRON + (True,), (5, (9, 13), False),
-               (64, (127,) * 3, True), (32, (63,) * 3, True),
-               (16, (15,) * 3, False), (5, (7, 9, 15), False)]
+# flagship's, a rank's halo-extended slab on its (2 × 2) mesh (its 64 time
+# rows by 256 + 2 rows of y by 511), a ragged 2-D grid, the 129³×64,
+# 65³×32 and 17³×16 solves' and a ragged 3-D grid; then the edges of the
+# time march: T = 1 in 2-D and 3-D, a row wider than one segment (four),
+# and T = 13 at 511², whose chunks (the card's plan, printed: 2 and 4 rows
+# in f32 on an H100) divide neither its 13 nor its 14 rows.
+KRON_SHAPES = [FLAGSHIP_KRON + (True,), (64, (258, 511), True),
+               (5, (9, 13), False), (64, (127,) * 3, True),
+               (32, (63,) * 3, True), (16, (15,) * 3, False),
+               (5, (7, 9, 15), False), (1, (9, 13), False),
+               (1, (7, 9, 15), False), (5, (5, 1985), False),
+               (13, (511, 511), False)]
 REF_SOLVE = {"iterations": 16, "l2": 5.748e-05}
 REF_REFINED = {"iterations": 25, "rounds": 2, "l2": 5.7525e-05}
 # The JAX package at 513²×128, f32, device loads (results_tpu/
@@ -2030,6 +2037,17 @@ def main() -> int:
               f"{'float64' if f64 else 'float32'}: {blocks.value} blocks "
               f"of 256 threads per SM, {nbytes.value} bytes of shared "
               "memory a block")
+    # K1/K2's time march (stab forms) at the flagships' grids
+    for (bt, f64), gs in itertools.product(
+            itertools.product((0, 1), (0, 1)), ((511, 511), (127,) * 3)):
+        dtype = torch.float64 if f64 else torch.float32
+        pencil = kron.PENCIL[(bool(bt), len(gs), dtype)]
+        blocks, nbytes, threads, tiles = kron.kron_occupancy(
+            bool(bt), True, dtype, gs, pencil, 0)
+        print(f"  {'K2' if bt else 'K1'} march, {'x'.join(map(str, gs))}, "
+              f"{str(dtype)[6:]}, pencil {pencil}: {blocks} blocks of "
+              f"{threads} threads per SM, {nbytes} bytes of shared memory a "
+              f"block, {tiles} blocks a chunk of time rows")
     # the 2-D march's blocks take as many threads as their row needs
     for post, nu, f64, nx in itertools.product((0, 1), (2, 3), (0, 1),
                                                (511, 255, 127, 63)):
@@ -2076,6 +2094,9 @@ def main() -> int:
     for dtype in (torch.float32, torch.float64):
         for T, taps, timed in shapes:
             forms = kernel_forms(kron, taps, seeded_inputs(taps, T, dtype, rng))
+            print(f"  T={T} gs={taps.gs} {str(dtype)[6:]}: (pencil, chunk) "
+                  f"K1 {kron.kron_plan(False, True, dtype, taps.gs, T, 0)}, "
+                  f"K2 {kron.kron_plan(True, True, dtype, taps.gs, T, 0)}")
             for form, (kfn, tfn) in forms.items():
                 got, want = kfn(), tfn()
                 torch.cuda.synchronize()

@@ -16,6 +16,11 @@ the mixed-precision solve run the same kernels) and counts the launch; a
 CPU tensor goes to the plain PyTorch twin of the same arithmetic; any other
 device raises. The twins are also what the kernels are checked against.
 
+The kernels march in time: a block owns a spatial tile (in 2-D ``PENCIL``
+rows of y by the row, or a segment of it; in 3-D ``PENCIL`` planes of z by
+8 × 32) and a chunk of consecutive output rows, which ``kron_plan`` picks
+so that the launch takes the fewest waves of the blocks an SM holds.
+
 ``h_half`` and ``h_stab`` are the (T,) vectors h/2 and h/16.
 """
 
@@ -28,6 +33,7 @@ import functools
 import torch
 
 from . import native
+from .mg_kernels import _sm_count, march2_chunk
 from .stencil import grouped_apply, weight_groups
 
 
@@ -75,6 +81,48 @@ KERNELS = {
     ("BT", torch.float32): Kernel("K2 kron_BT f32", "kron_BT_f32", _BT_REPLACES),
     ("BT", torch.float64): Kernel("K2 kron_BT f64", "kron_BT_f64", _BT_REPLACES),
 }
+
+
+# The points a block owns along the pencil axis (y in 2-D, z in 3-D), by
+# kernel (Bᵀ or not), dimension and dtype: 4 or 8 (csrc/kron.cu
+# instantiates those), chosen by timing on the H100 (PERF.md §6,
+# ``tools.fused_ab --kron --pencils``).
+PENCIL = {(False, 2, torch.float32): 8, (True, 2, torch.float32): 4,
+          (False, 2, torch.float64): 4, (True, 2, torch.float64): 4,
+          (False, 3, torch.float32): 8, (True, 3, torch.float32): 8,
+          (False, 3, torch.float64): 4, (True, 3, torch.float64): 4}
+
+
+@functools.lru_cache(maxsize=None)
+def kron_occupancy(bt: bool, stab: bool, dtype, gs: tuple, pencil: int,
+                   index: int) -> tuple[int, int, int, int]:
+    """(blocks an SM of device ``index`` holds, shared bytes a block,
+    threads a block, blocks a chunk of time rows) of K1 (K2 with ``bt``)
+    on grid ``gs`` (csrc/kron.cu ``kron_occupancy``)."""
+    lib = native.LIB.get()
+    out = [ctypes.c_int() for _ in range(4)]
+    zyx = (1,) * (3 - len(gs)) + tuple(gs)
+    with torch.cuda.device(index):
+        err = lib.kron_occupancy(int(bt), int(stab),
+                                 int(dtype == torch.float64), len(gs),
+                                 pencil, *zyx, *map(ctypes.byref, out))
+    native.check(lib, "kron_occupancy", err)
+    return tuple(o.value for o in out)
+
+
+def kron_plan(bt: bool, stab: bool, dtype, gs: tuple, T: int,
+              index: int) -> tuple[int, int]:
+    """(pencil, chunk) of a K1 (K2 with ``bt``) launch on a (T, *gs)
+    field: its ``PENCIL`` and the output rows a block marches
+    through, of T (K1) or T + 1 (K2), by ``march2_chunk``'s rule (the
+    fewest waves of the blocks an SM holds, a block walking chunk + 1
+    rows, two blocks an SM where the rows allow it)."""
+    pencil = PENCIL[(bool(bt), len(gs), dtype)]
+    resident, _, _, tiles = kron_occupancy(bt, stab, dtype, tuple(gs), pencil,
+                                           index)
+    chunk = march2_chunk(tiles, T + int(bt), 1, max(resident, 1),
+                         _sm_count(index), 1, 1)
+    return pencil, chunk
 
 
 def reset_launch_counts() -> None:
@@ -145,11 +193,13 @@ def _launch_B(U, h_half, h_stab, taps: KronTaps, stab: bool):
     out = torch.empty((T,) + taps.gs, dtype=U.dtype, device=U.device)
     W = torch.empty_like(out) if stab else None
     tM, tA = taps.structs
+    plan = kron_plan(False, stab, U.dtype, taps.gs, T, U.device.index)
     k.launch(
         U.device, U.data_ptr(), h_half.data_ptr(),
         h_stab.data_ptr() if stab else None,
         out.data_ptr(), W.data_ptr() if stab else None,
-        T, *taps.zyx(), ctypes.addressof(tM), ctypes.addressof(tA), int(stab),
+        T, *taps.zyx(), len(taps.gs), ctypes.addressof(tM),
+        ctypes.addressof(tA), int(stab), *plan,
     )
     return (out, W) if stab else out
 
@@ -165,11 +215,12 @@ def _launch_BT(V, W, h_half, taps: KronTaps, stab: bool):
         native.check_tensor("W", W, V.dtype, V.device, (T,) + taps.gs)
     out = torch.empty((T + 1,) + taps.gs, dtype=V.dtype, device=V.device)
     tM, tA = taps.structs
+    plan = kron_plan(True, stab, V.dtype, taps.gs, T, V.device.index)
     k.launch(
         V.device, V.data_ptr(), h_half.data_ptr(),
         W.data_ptr() if stab else None,
-        out.data_ptr(), T, *taps.zyx(), ctypes.addressof(tM),
-        ctypes.addressof(tA), int(stab),
+        out.data_ptr(), T, *taps.zyx(), len(taps.gs), ctypes.addressof(tM),
+        ctypes.addressof(tA), int(stab), *plan,
     )
     return out
 

@@ -242,68 +242,82 @@ def build(state: _Library | None = None) -> Path:
     return LIBRARY
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+def entry_signatures() -> dict:
+    """The ctypes argument types of each entry point of the library, by
+    name without its dtype suffix (the f32 and f64 forms take the same)."""
     P, I64, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     D = ctypes.c_double
     grid = (I64, I64, I64, I64, I)
+    return {
+        # kron.cu
+        # the grid's (nt, nz, ny, nx, dim), the tables, stab, then the
+        # march's pencil and chunk
+        "kron_B": [P, P, P, P, P, I64, I64, I64, I64, I, P, P, I, I, I,
+                   P],
+        "kron_BT": [P, P, P, P, I64, I64, I64, I64, I, P, P, I, I, I, P],
+        # mg.cu
+        # (nt, nz, ny, nx, dim): the grid, nz = 1 in 2-D
+        "mg_smooth": [P, P, P, P, P, P, P, *grid, P, I, I, P],
+        "mg_residual": [P, P, P, P, *grid, P, P],
+        "mg_apply": [P, P, *grid, P, P],
+        # the fused stages: ν, then the planes (rows in 2-D) a block of
+        # the march walks (K6 coarse, K7 fine)
+        "mg_fused_pre": [P, P, P, P, P, P, P, *grid, P, I, I, P],
+        "mg_fused_post": [P, P, P, P, P, P, P, P, *grid, P, I, I, P],
+        "mg_residual_restrict": [P, P, P, P, *grid, P, P],
+        "mg_prolong_correct": [P, P, P, *grid, P],
+        # the sharded-slab forms: vm after the fields; (own, h[, hc])
+        # after the table and ν, then the fused ones' march chunk
+        "mg_sh_smooth": [P, P, P, P, P, P, P, P, *grid, P, I, I, P],
+        "mg_sh_fused_pre": [P, P, P, P, P, P, P, P, *grid, P, I, I, I, I,
+                            P],
+        "mg_sh_fused_post": [P, P, P, P, P, P, P, P, P, *grid, P, I, I, I,
+                             I, I, P],
+        "mg_sh_residual_restrict": [P, P, P, P, *grid, P, I, I, P],
+        "mg_sh_prolong_correct": [P, P, P, *grid, I, I, P],
+        # the weighted ones: W after the fields; the A taps and the M
+        # groups after the grid
+        "mg_smooth_var": [P, P, P, P, P, P, P, *grid, P, P, I, I, P],
+        "mg_residual_var": [P, P, P, P, P, *grid, P, P, P],
+        "mg_apply_var": [P, P, P, *grid, P, P],
+        "mg_residual_restrict_var": [P, P, P, P, P, *grid, P, P, P],
+        "mg_fused_pre_var": [P, P, P, P, P, P, P, *grid, P, P, I, I, P],
+        "mg_fused_post_var": [P, P, P, P, P, P, P, P, *grid, P, P, I, I,
+                              P],
+        # one Chebyshev step of the K3 / K10 chains (ν above MAX_NU):
+        # x, b, vm (K3) or W (K10), the columns, r, d_in, d_out, x_out,
+        # the grid, the tables, first, c1, c2
+        "mg_cheb_step": [P, P, P, P, P, P, P, P, P, P, P, *grid, P, I, D,
+                         D, P],
+        "mg_cheb_step_var": [P, P, P, P, P, P, P, P, P, P, *grid, P, P, I,
+                             D, D, P],
+        # ell.cu: X, nt, n, slice_ptr, col, vals, nslices, Y, n_out
+        "ell_spmm": [P, I64, I64, P, P, P, I64, P, I64, P],
+        # X, nt, n, slice_ptr, col, valsA, valsM, nslices, YA, YM, n_out
+        "ell_spmm_pair": [P, I64, I64, P, P, P, P, I64, P, P, I64, P],
+        # dia.cu, one K16 step: x, b, vA, vM, dA, dM, the columns, r,
+        # d_in, d_out, x_out, nt, m, the offsets, first, c1, c2
+        "dia_smooth": [P, P, P, P, P, P, P, P, P, P, P, P, P, I64, I64, P,
+                       I, D, D, P],
+        "dia_residual": [P, P, P, P, P, P, I64, I64, P, P],
+        "dia_apply": [P, P, P, I64, I64, P, P],
+    }
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    P, I64, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.spacetime_error_string.argtypes = [I]
     lib.spacetime_error_string.restype = ctypes.c_char_p
+    signatures = entry_signatures()
     for sfx in ("f32", "f64"):
-        signatures = {
-            # kron.cu
-            "kron_B": [P, P, P, P, P, I64, I64, I64, I64, P, P, I, P],
-            "kron_BT": [P, P, P, P, I64, I64, I64, I64, P, P, I, P],
-            # mg.cu
-            # (nt, nz, ny, nx, dim): the grid, nz = 1 in 2-D
-            "mg_smooth": [P, P, P, P, P, P, P, *grid, P, I, I, P],
-            "mg_residual": [P, P, P, P, *grid, P, P],
-            "mg_apply": [P, P, *grid, P, P],
-            # the fused stages: ν, then the planes (rows in 2-D) a block of
-            # the march walks (K6 coarse, K7 fine)
-            "mg_fused_pre": [P, P, P, P, P, P, P, *grid, P, I, I, P],
-            "mg_fused_post": [P, P, P, P, P, P, P, P, *grid, P, I, I, P],
-            "mg_residual_restrict": [P, P, P, P, *grid, P, P],
-            "mg_prolong_correct": [P, P, P, *grid, P],
-            # the sharded-slab forms: vm after the fields; (own, h[, hc])
-            # after the table and ν, then the fused ones' march chunk
-            "mg_sh_smooth": [P, P, P, P, P, P, P, P, *grid, P, I, I, P],
-            "mg_sh_fused_pre": [P, P, P, P, P, P, P, P, *grid, P, I, I, I, I,
-                                P],
-            "mg_sh_fused_post": [P, P, P, P, P, P, P, P, P, *grid, P, I, I, I,
-                                 I, I, P],
-            "mg_sh_residual_restrict": [P, P, P, P, *grid, P, I, I, P],
-            "mg_sh_prolong_correct": [P, P, P, *grid, I, I, P],
-            # the weighted ones: W after the fields; the A taps and the M
-            # groups after the grid
-            "mg_smooth_var": [P, P, P, P, P, P, P, *grid, P, P, I, I, P],
-            "mg_residual_var": [P, P, P, P, P, *grid, P, P, P],
-            "mg_apply_var": [P, P, P, *grid, P, P],
-            "mg_residual_restrict_var": [P, P, P, P, P, *grid, P, P, P],
-            "mg_fused_pre_var": [P, P, P, P, P, P, P, *grid, P, P, I, I, P],
-            "mg_fused_post_var": [P, P, P, P, P, P, P, P, *grid, P, P, I, I,
-                                  P],
-            # one Chebyshev step of the K3 / K10 chains (ν above MAX_NU):
-            # x, b, vm (K3) or W (K10), the columns, r, d_in, d_out, x_out,
-            # the grid, the tables, first, c1, c2
-            "mg_cheb_step": [P, P, P, P, P, P, P, P, P, P, P, *grid, P, I, D,
-                             D, P],
-            "mg_cheb_step_var": [P, P, P, P, P, P, P, P, P, P, *grid, P, P, I,
-                                 D, D, P],
-            # ell.cu: X, nt, n, slice_ptr, col, vals, nslices, Y, n_out
-            "ell_spmm": [P, I64, I64, P, P, P, I64, P, I64, P],
-            # X, nt, n, slice_ptr, col, valsA, valsM, nslices, YA, YM, n_out
-            "ell_spmm_pair": [P, I64, I64, P, P, P, P, I64, P, P, I64, P],
-            # dia.cu, one K16 step: x, b, vA, vM, dA, dM, the columns, r,
-            # d_in, d_out, x_out, nt, m, the offsets, first, c1, c2
-            "dia_smooth": [P, P, P, P, P, P, P, P, P, P, P, P, P, I64, I64, P,
-                           I, D, D, P],
-            "dia_residual": [P, P, P, P, P, P, I64, I64, P, P],
-            "dia_apply": [P, P, P, I64, I64, P, P],
-        }
         for name, argtypes in signatures.items():
             fn = getattr(lib, f"{name}_{sfx}")
             fn.argtypes = argtypes
             fn.restype = I
+    # bt, stab, f64, dim, pencil, nz, ny, nx, then blocks, bytes, threads,
+    # blocks a chunk
+    lib.kron_occupancy.argtypes = [I, I, I, I, I, I64, I64, I64, P, P, P, P]
+    lib.kron_occupancy.restype = I
     lib.mg_march_occupancy.argtypes = [I, I, I, I, P, P]
     lib.mg_march_occupancy.restype = I
     # the 2-D march's: post, ν, f64, nx, then blocks, bytes, threads, nseg

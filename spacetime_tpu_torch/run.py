@@ -164,19 +164,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "one card per rank; gloo runs any number of ranks "
                         "per card (halos through host memory) and on the CPU")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="capture a torch.profiler trace of the solve into "
-                        "DIR/trace.json.gz and write the per-kernel device "
-                        "times to DIR/kernels.txt")
+                   help="capture a torch.profiler trace of the (last) "
+                        "solve into DIR/trace.json.gz and write the "
+                        "per-kernel device times to DIR/kernels.txt")
     return p
 
 
-def _profiled(args, device):
-    """A torch.profiler context for the solve, or a null context."""
+def _profiled(args, device, last: bool):
+    """A torch.profiler context for the last solve call, or a null
+    context."""
     import contextlib
 
     import torch
 
-    if not args.profile:
+    if not args.profile or not last:
         return contextlib.nullcontext()
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
@@ -325,7 +326,8 @@ def main(argv=None) -> int:
         torch.cuda.reset_peak_memory_stats(device)
     for call in range(1, args.repeat + 1):
         t0 = time.perf_counter()
-        with timer("solve"), _profiled(args, device) as prof:
+        with timer("solve"), _profiled(args, device,
+                                       call == args.repeat) as prof:
             if args.refined:
                 res = solver.solve_refined(
                     tol=1e-8 if args.tol is None else args.tol,

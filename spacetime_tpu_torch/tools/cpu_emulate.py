@@ -20,18 +20,23 @@ and the sharded K6 (2-D) and K7 (2-D and 3-D) on ragged grids and slabs
 the march), with the marches' chunks of 1 row (plane) to the whole
 column, the 3-D weighted ones in both row orders (the stand-in's L2 is
 the H100's 50 MB, or ``EMU_L2_BYTES``: 0 makes every W exceed it), each
-held to its plain twin within 1e-5·max|twin| (f32) and 1e-13 (f64). With
-``--parent DIR`` (an unpacked ``git archive`` of an earlier commit) DIR's
-csrc/mg.cu is emulated too, its fused entry points bound as
-``tools.fused_ab`` binds them, and each output must equal DIR's bit for
-bit. A CUDA construct the runtime stand-in below lacks fails the g++
-build.
+held to its plain twin within 1e-5·max|twin| (f32) and 1e-13 (f64); and
+K1 and K2 (csrc/kron.cu: B, Bᵀ and their stab forms, float32 and float64)
+on ragged 2-D and 3-D grids, T = 1, 2 and 5, a 2-D row wider than one
+segment, at both pencils (4, 8) and chunks of 1 row to all of them,
+held to their twins the same way. With ``--parent DIR`` (an unpacked
+``git archive`` of an earlier commit) DIR's csrc/mg.cu and csrc/kron.cu
+are emulated too, their entry points bound as ``tools.fused_ab`` binds
+them, and each output must equal DIR's bit for bit. ``--only kron`` (or
+``fused``) runs one of the two checks. A CUDA construct the runtime
+stand-in below lacks fails the g++ build.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import itertools
 import os
 import subprocess
 import sys
@@ -43,7 +48,7 @@ import torch
 from ..ops import native
 from ..ops.mg_kernels import MSKernelLevel, VarMSKernelLevel
 from ..ops.multigrid import row_params, var_row_params
-from .fused_ab import bind_parent
+from .fused_ab import bind_parent, bind_parent_kron
 
 REPO = Path(__file__).resolve().parents[2]
 OUT = REPO / "build" / "cpu_emulate"
@@ -62,6 +67,11 @@ SHAPES_2D = [(2, (15, 31)), (2, (9, 65)), (1, (1, 9)), (1, (3, 17)),
              (1, (7, 1055)), (1, (7, 1985))]
 # (own, other extents) of the 2-D sharded K6's and K7's slabs
 SLABS_2D = [(4, (15,)), (12, (33,)), (6, (1055,)), (6, (1985,))]
+# (T, grid) of K1/K2: T = 1, 2 and 5 on ragged 2-D grids (one row, rows
+# of one pencil's points and past it), a row wider than one segment
+# (four), ragged 3-D grids (one plane; several bricks in y and x)
+KRON_SHAPES = [(1, (1, 9)), (2, (9, 13)), (5, (10, 7)), (2, (5, 1985)),
+               (1, (1, 5, 7)), (2, (5, 9, 33)), (5, (9, 17, 35))]
 
 RUNTIME = r"""
 #pragma once
@@ -362,19 +372,105 @@ def check(new, old) -> int:
     return n
 
 
+def build_kron(csrc: Path = native.CSRC, name: str = "this_kron",
+               bind=None) -> ctypes.CDLL:
+    """``csrc``'s kron.cu and common.cu alone (K1 and K2), bound with this
+    tree's signatures (``bind``: another tree's binder)."""
+    so = build([csrc / "kron.cu", csrc / "common.cu"], name)
+    if bind is not None:
+        return bind(so)
+    signatures = native.entry_signatures()
+    for op, sfx in itertools.product(("kron_B", "kron_BT"), ("f32", "f64")):
+        fn = getattr(so, f"{op}_{sfx}")
+        fn.argtypes, fn.restype = signatures[op], ctypes.c_int
+    return so
+
+
+def check_kron(new, old, shapes=KRON_SHAPES, pencils=(4, 8),
+               chunks=(1, 2, 3)) -> int:
+    """K1 and K2 of ``new`` (every form and dtype, at each of ``pencils``
+    and each of ``chunks`` rows and all of them) on each (T, grid) of
+    ``shapes`` against their twins and, if given, ``old``'s; returns the
+    number of launches compared."""
+    import dataclasses
+
+    from ..ops import kron
+    from ..solver import build_solver
+
+    n = 0
+    taps_of = {dim: build_solver("smooth3d" if dim == 3 else "smooth2d", 8, 2,
+                                 device="cpu", inner="mg").taps
+               for dim in (2, 3)}
+    rng = np.random.default_rng(14)
+    for (T, gs), dtype in ((s, d) for s in shapes
+                           for d in (torch.float32, torch.float64)):
+        sfx = "f32" if dtype == torch.float32 else "f64"
+        taps = dataclasses.replace(taps_of[len(gs)], gs=gs)
+        tM, tA = (ctypes.addressof(t) for t in taps.structs)
+        mk = lambda shape: torch.as_tensor(rng.standard_normal(shape),
+                                           dtype=dtype)
+        U, V, W = mk((T + 1,) + gs), mk((T,) + gs), mk((T,) + gs)
+        h = rng.uniform(0.5, 1.5, T) / T
+        hh, hs = (torch.as_tensor(v, dtype=dtype) for v in (0.5 * h, h / 16))
+        for bt, stab in itertools.product((0, 1), (0, 1)):
+            if bt:
+                twin = ((kron.apply_BT_stab_plain(V, W, hh, taps),) if stab
+                        else (kron.apply_BT_plain(V, hh, taps),))
+                outs = lambda: (torch.empty((T + 1,) + gs, dtype=dtype),)
+                args = lambda o: (V.data_ptr(), hh.data_ptr(),
+                                  W.data_ptr() if stab else None,
+                                  o[0].data_ptr(), T, *taps.zyx())
+            else:
+                twin = (kron.apply_B_stab_plain(U, hh, hs, taps) if stab
+                        else (kron.apply_B_plain(U, hh, taps),))
+                outs = lambda: tuple(torch.empty((T,) + gs, dtype=dtype)
+                                     for _ in range(1 + stab))
+                args = lambda o: (U.data_ptr(), hh.data_ptr(),
+                                  hs.data_ptr() if stab else None,
+                                  o[0].data_ptr(),
+                                  o[1].data_ptr() if stab else None, T,
+                                  *taps.zyx())
+            name = f"kron_{'BT' if bt else 'B'}_{sfx}"
+            ref = None
+            if old is not None:
+                ref = outs()
+                _call(old, name, *args(ref), tM, tA, stab)
+                n += 1
+            rows = T + bt
+            for pencil, chunk in itertools.product(
+                    pencils, sorted({*chunks, rows})):
+                got = outs()
+                _call(new, name, *args(got), len(gs), tM, tA, stab, pencil,
+                      chunk)
+                n += 1
+                for i, (g, w) in enumerate(zip(got, twin)):
+                    _close((name, stab, T, gs, pencil, chunk), g, w, dtype,
+                           None if ref is None else ref[i])
+    return n
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--parent", type=Path, default=None)
+    p.add_argument("--only", choices=["fused", "kron"], default=None)
     args = p.parse_args()
-    new = native._bind(build(sorted(native.CSRC.glob("*.cu")), "this"))
-    old = None
+    old = old_kron = None
     if args.parent is not None:
         csrc = args.parent.resolve() / "spacetime_tpu_torch" / "csrc"
-        old = bind_parent(build([csrc / "mg.cu", csrc / "common.cu"],
-                                "parent"))
-    n = check(new, old)
+        if args.only != "kron":
+            old = bind_parent(build([csrc / "mg.cu", csrc / "common.cu"],
+                                    "parent"))
+        if args.only != "fused":
+            old_kron = build_kron(csrc, "parent_kron", bind_parent_kron)
+    n = 0
+    if args.only != "kron":
+        new = native._bind(build(sorted(native.CSRC.glob("*.cu")), "this"))
+        n += check(new, old)
+    if args.only != "fused":
+        n += check_kron(build_kron(), old_kron)
     print(f"{n} emulated launches held to their twins"
-          + (" and equal to the parent's bit for bit" if old else ""))
+          + (" and equal to the parent's bit for bit"
+             if args.parent is not None else ""))
     return 0
 
 

@@ -1,9 +1,10 @@
-"""The fused stages K6, K7, K14 and K15 against an earlier tree's, on one
-GPU; the 2-D solves against the earlier tree's; the callers of the solves'
-copies.
+"""The fused stages K6, K7, K14 and K15, or K1 and K2, against an earlier
+tree's, on one GPU; the solves against the earlier tree's; the callers of
+the solves' copies.
 
     python -m spacetime_tpu_torch.tools.fused_ab --parent DIR [--dims 2,3]
-        [--chunks] [--solves [2d|3d|all]] [--copies]
+        [--chunks] [--kron [--pencils]] [--solves [2d|3d|all|NAME]
+        [--solves-only] [--traces TDIR]] [--copies]
 
 DIR is the root of another checkout of the repository (an unpacked
 ``git archive`` of an earlier commit, say). Its ``csrc/mg.cu`` and
@@ -34,11 +35,22 @@ this tree's wrapper picks.
 - ``--chunks``: the 2-D K6 and K7 of this tree at the chunk of rows the
   wrapper picks (``ops.mg_kernels.march2_chunk``) and at half and twice
   it, at the 2-D shapes, f32 and f64, ν ∈ {2, 3}.
+- ``--kron`` (in place of ``kernels``): DIR's ``csrc/kron.cu`` and
+  ``csrc/common.cu`` built into ``DIR/build/parent_kron/``, its K1/K2
+  bound with the signatures before the time march; every form (B, B
+  stab, Bᵀ, Bᵀ stab), f32 and f64, at ``KRON_AB_SHAPES`` (the 2-D
+  flagship, the (2 × 2) mesh's halo-extended slab, cfg2, 129³×64 and
+  65³×32): max|new − old|, both held to the twin, median device times
+  old, new, new, old, the plan (pencil, chunk) and ptxas's registers;
+  with ``--pencils`` this tree's time at each pencil too.
 - ``--solves``: steady ``solve`` seconds, f32, ``inner="mg"``, by ``run.py
-  --repeat 3`` in DIR, this tree, this tree, DIR (one process each): 2d
-  (the default) smooth2d 513²×128, singular2d 513² J7+6, cfg2 (129²×64)
-  and varcoef2d 513²×128 (the control: its K14/K15 are not changed); 3d
-  smooth3d, varcoef3d and singular3d 65³ J5+4.
+  --repeat 3`` in DIR, this tree, this tree, DIR (one process each; see
+  ``run_solves``): 2d (the default) smooth2d 513²×128, singular2d 513²
+  J7+6, cfg2 (129²×64) and varcoef2d 513²×128 (the control: its B, Bᵀ
+  and K14/K15 are not changed); 3d smooth3d, varcoef3d and singular3d 65³
+  J5+4 and smooth3d 129³×64 (``--repeat 2``); or one solve by name.
+  ``--solves-only`` skips the fused stages; ``--traces TDIR`` traces
+  smooth2d 513² and smooth3d 129³ in their second run of this tree.
 - ``--copies``: the steady f32 ``solve`` of smooth2d 513²×128 and
   singular2d 513² J7+6 traced by ``torch.profiler``, the solver's
   functions labelled (``record_function``) for the trace alone; prints
@@ -56,6 +68,7 @@ import contextlib
 import ctypes
 import functools
 import inspect
+import itertools
 import json
 import re
 import subprocess
@@ -95,10 +108,20 @@ SOLVES = {
                        "--time-levels", "5"]),
         ("singular3d", ["--problem", "singular3d", "--space-n", "64",
                         "--time-levels", "5", "--extra-levels", "4"]),
+        # the 3-D flagship, 129³×64: two solves a run (its loads take
+        # minutes)
+        ("smooth3d-129", ["--problem", "smooth3d", "--space-n", "128",
+                          "--time-levels", "6", "--repeat", "2"]),
     ],
 }
 # the solves --copies traces: (problem, cells, time levels, extra levels)
 COPY_TRACES = [("smooth2d", 512, 7, 0), ("singular2d", 512, 7, 6)]
+# (T, grid) of the K1/K2 A/B: the 2-D flagship, a rank's halo-extended
+# slab on its (2 × 2) mesh (256 + 2 rows), cfg2, the 129³×64 and 65³×32
+# solves (chip_smoke.py phase 4's timed shapes)
+KRON_AB_SHAPES = [(128, (511, 511)), (64, (258, 511)), (64, (127, 127)),
+                  (64, (127,) * 3), (32, (63,) * 3)]
+KRON_FORMS = ("B", "B_stab", "BT", "BT_stab")
 
 
 def build_parent(parent: Path) -> ctypes.CDLL:
@@ -134,6 +157,153 @@ def bind_parent(so: ctypes.CDLL) -> ctypes.CDLL:
             fn = getattr(so, f"{name}_{sfx}")
             fn.argtypes, fn.restype = argtypes, I
     return so
+
+
+def bind_parent_kron(so: ctypes.CDLL) -> ctypes.CDLL:
+    """The parent's K1/K2 entry points ``kron_B`` and ``kron_BT`` (f32 and
+    f64) of library ``so``, bound with the signatures of a tree whose
+    kernels take no plan (csrc/kron.cu before the time march)."""
+    P, I64, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    signatures = {"kron_B": [P] * 5 + [I64] * 4 + [P, P, I, P],
+                  "kron_BT": [P] * 4 + [I64] * 4 + [P, P, I, P]}
+    for sfx in ("f32", "f64"):
+        for name, argtypes in signatures.items():
+            fn = getattr(so, f"{name}_{sfx}")
+            fn.argtypes, fn.restype = argtypes, I
+    return so
+
+
+def build_parent_kron(parent: Path) -> ctypes.CDLL:
+    """DIR's csrc/kron.cu and csrc/common.cu as one library, its K1/K2
+    bound with that tree's signatures (``bind_parent_kron``)."""
+    out = parent / "build" / "parent_kron"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / "libparent_kron.so"
+    csrc = parent / "spacetime_tpu_torch" / "csrc"
+    cmd = [native._nvcc(), *native.ARCH_FLAGS, "-std=c++17", "-O3",
+           "-Xcompiler", "-fPIC", "-shared", "-o", str(lib),
+           str(csrc / "kron.cu"), str(csrc / "common.cu")]
+    subprocess.run(cmd, check=True, capture_output=True, text=True)
+    return bind_parent_kron(ctypes.CDLL(str(lib)))
+
+
+def kron_forms(kron, taps, x, so) -> dict:
+    """{form: (this tree's launch, the twin, the parent's launch)} of K1
+    and K2 on the inputs ``x``, the parent's from library ``so``; each
+    returns a tuple of tensors."""
+    U, V, W, hh, hs = x["U"], x["V"], x["W"], x["hh"], x["hs"]
+    T, gs = V.shape[0], taps.gs
+    tM, tA = (ctypes.addressof(t) for t in taps.structs)
+    sfx = "f32" if V.dtype == torch.float32 else "f64"
+    out = {"B": V.new_empty(V.shape), "W": V.new_empty(V.shape),
+           "BT": V.new_empty((T + 1,) + gs)}
+
+    def old_B(stab):
+        _call(so, f"kron_B_{sfx}", U.data_ptr(), hh.data_ptr(),
+              hs.data_ptr() if stab else None, out["B"].data_ptr(),
+              out["W"].data_ptr() if stab else None, T, *taps.zyx(), tM, tA,
+              stab)
+        return (out["B"], out["W"]) if stab else (out["B"],)
+
+    def old_BT(stab):
+        _call(so, f"kron_BT_{sfx}", V.data_ptr(), hh.data_ptr(),
+              W.data_ptr() if stab else None, out["BT"].data_ptr(), T,
+              *taps.zyx(), tM, tA, stab)
+        return (out["BT"],)
+
+    return {
+        "B": (lambda: (kron.apply_B(U, hh, taps),),
+              lambda: (kron.apply_B_plain(U, hh, taps),),
+              lambda: old_B(0)),
+        "B_stab": (lambda: kron.apply_B_stab(U, hh, hs, taps),
+                   lambda: kron.apply_B_stab_plain(U, hh, hs, taps),
+                   lambda: old_B(1)),
+        "BT": (lambda: (kron.apply_BT(V, hh, taps),),
+               lambda: (kron.apply_BT_plain(V, hh, taps),),
+               lambda: old_BT(0)),
+        "BT_stab": (lambda: (kron.apply_BT_stab(V, W, hh, taps),),
+                    lambda: (kron.apply_BT_stab_plain(V, W, hh, taps),),
+                    lambda: old_BT(1)),
+    }
+
+
+def kron_inputs(taps, T, dtype, rng) -> dict:
+    """U (T+1, *gs), V and W (T, *gs) and the h/2, h/16 columns of a random
+    positive h, on the card."""
+    mk = _fields(rng, dtype)
+    h = torch.as_tensor(rng.uniform(0.5, 1.5, T) / T, dtype=dtype,
+                        device="cuda")
+    gs = taps.gs
+    return {"U": mk((T + 1,) + gs), "V": mk((T,) + gs), "W": mk((T,) + gs),
+            "hh": 0.5 * h, "hs": h / 16.0}
+
+
+def run_kron(parent: Path, pencils: bool) -> None:
+    """K1 and K2 of this tree against DIR's at ``KRON_AB_SHAPES``, every
+    form, f32 and f64: max|new − old|, both held to the twin, the median
+    device times old, new, new, old; with ``pencils``, this tree's time at
+    each pencil (4, 8) beside the one the wrapper picks."""
+    import dataclasses
+
+    from ..ops import kron
+    from ..solver import build_solver
+
+    so = build_parent_kron(parent)
+    native.LIB.get()
+    entry = None  # ptxas's registers and spills of each K1/K2 kernel
+    for line in native.LIB.build_log.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"(kron_BT?_kernel\w*?E[fd])E", line)
+            entry = m.group(1) if m else None
+        elif entry and ("Used" in line or "spill" in line):
+            print("ptxas:", entry, line.split(":", 1)[-1].strip(), flush=True)
+    taps_of = {dim: build_solver("smooth3d" if dim == 3 else "smooth2d", 8, 1,
+                                 dtype=torch.float32, device="cuda",
+                                 inner="mg").taps for dim in (2, 3)}
+    rng = np.random.default_rng(14)
+    for dtype, (T, gs) in itertools.product((torch.float32, torch.float64),
+                                            KRON_AB_SHAPES):
+        taps = dataclasses.replace(taps_of[len(gs)], gs=gs)
+        x = kron_inputs(taps, T, dtype, rng)
+        for form, (new_fn, twin_fn, old_fn) in kron_forms(kron, taps, x,
+                                                          so).items():
+            bt, stab = form.startswith("BT"), form.endswith("stab")
+            new, twin = tuple(t.clone() for t in new_fn()), twin_fn()
+            old = old_fn()
+            torch.cuda.synchronize()
+            rec = {"kernel": "K2" if bt else "K1", "form": form, "T": T,
+                   "gs": list(gs), "dtype": str(dtype)[6:],
+                   "plan": list(kron.kron_plan(bt, stab, dtype, gs, T, 0)),
+                   "max_abs_new_old": max(_err(a, b)
+                                          for a, b in zip(new, old))}
+            for name, got in (("new", new), ("old", old)):
+                errs = [(_err(g, w), float(w.abs().max()))
+                        for g, w in zip(got, twin)]
+                rec[f"max_abs_{name}_twin"] = max(e for e, _ in errs)
+                assert all(e <= TOL[dtype] * sc for e, sc in errs), (
+                    form, name, errs)
+            del new, old, twin
+            times = {"old": [], "new": []}
+            for which in ("old", "new", "new", "old"):
+                times[which].append(device_ms(new_fn if which == "new"
+                                              else old_fn))
+            rec.update({f"{k}_ms": float(np.mean(v)) for k, v in
+                        times.items()})
+            rec["new_ms_runs"], rec["old_ms_runs"] = times["new"], times["old"]
+            if pencils:
+                key = (bt, len(gs), dtype)
+                picked = kron.PENCIL[key]
+                rec["pencil_ms"] = {}
+                for pencil in (4, 8):
+                    kron.PENCIL[key] = pencil
+                    rec["pencil_ms"][pencil] = [
+                        device_ms(new_fn),
+                        list(kron.kron_plan(bt, stab, dtype, gs, T, 0)),
+                        kron.kron_occupancy(bt, stab, dtype, gs, pencil, 0)]
+                kron.PENCIL[key] = picked
+            _emit(rec)
+        del x
+        torch.cuda.empty_cache()
 
 
 def _call(so, name, *args):
@@ -408,26 +578,89 @@ def run_kernels(parent: Path, dims, chunks: bool) -> None:
             run_chunks(small.levels[0], small, rng)
 
 
-def run_solves(parent: Path, which: str) -> None:
-    """run.py --repeat 3 in the parent and this tree, in turns."""
-    runs = SOLVES["2d"] + SOLVES["3d"] if which == "all" else SOLVES[which]
-    for name, args in runs:
-        for tree, root in (("parent", parent), ("change", REPO),
-                           ("change", REPO), ("parent", parent)):
-            cmd = [sys.executable, "-m", "spacetime_tpu_torch.run",
-                   "--device", "cuda", "--dtype", "f32", "--inner", "mg",
-                   "--no-error", "--repeat", "3", *args]
-            t0 = time.perf_counter()
-            out = subprocess.run(cmd, cwd=root, capture_output=True,
-                                 text=True, timeout=900)
-            if out.returncode != 0:
-                raise RuntimeError(f"{tree} {name}: {out.stderr[-2000:]}")
-            calls = [(int(i), float(s)) for i, s in re.findall(
-                r"solve call \d+: (\d+) iterations, ([0-9.]+) s", out.stdout)]
-            _emit({"solve": name, "tree": tree, "iterations":
-                   [i for i, _ in calls], "seconds": [s for _, s in calls],
-                   "steady_s": min(s for _, s in calls[1:]),
-                   "wall_s": time.perf_counter() - t0})
+# the solves --solves also traces in this tree, with --traces DIR, and
+# those whose runs take the card one at a time (their loads' memory)
+TRACED = ("smooth2d", "smooth3d-129")
+ALONE = ("smooth3d-129",)
+# run.py of the tree in the working directory, given the path P and
+# run.py's arguments: after the solver's loads it creates P.ready and waits
+# for P.go before it solves
+HOLD = """
+import os, pathlib, runpy, sys, time
+from spacetime_tpu_torch.solver import heateq
+hold, loads = sys.argv[1], heateq.HeatSolver.assemble_rhs_host
+def held(self, *args, **kwargs):
+    out = loads(self, *args, **kwargs)
+    pathlib.Path(hold + ".ready").touch()
+    while not os.path.exists(hold + ".go"):
+        time.sleep(0.05)
+    return out
+heateq.HeatSolver.assemble_rhs_host = held
+sys.argv = ["run.py"] + sys.argv[2:]
+runpy.run_module("spacetime_tpu_torch.run", run_name="__main__")
+"""
+
+
+def run_solves(parent: Path, which: str, traces: Path | None = None) -> None:
+    """run.py --repeat 3 (or the run's own --repeat) in the parent and this
+    tree, in turns: parent, change, change, parent. The runs of a solve
+    start two at a time (one at a time where ``ALONE``: their loads fill
+    the card's memory), assemble their loads together and solve one after
+    the other (``HOLD``), so that no solve shares the card. With
+    ``traces``, the second change run of the solves in ``TRACED`` solves
+    once more, under ``--profile traces/NAME`` (run.py traces the last
+    call); that call is left out of its steady time."""
+    import tempfile
+
+    runs = {"all": SOLVES["2d"] + SOLVES["3d"]}.get(which) or [
+        r for r in SOLVES["2d"] + SOLVES["3d"]
+        if which in SOLVES and r in SOLVES[which] or r[0] == which]
+    order = (("parent", parent), ("change", REPO), ("change", REPO),
+             ("parent", parent))
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, args in runs:
+            step = 1 if name in ALONE else 2
+            for first in range(0, len(order), step):
+                procs = []
+                for k in range(first, first + step):
+                    tree, root = order[k]
+                    hold = str(Path(tmp) / f"{name}.{k}")
+                    traced = traces is not None and k == 2 and name in TRACED
+                    repeat = int(dict(zip(args, args[1:])).get("--repeat", 3))
+                    extra = (["--repeat", str(repeat + 1), "--profile",
+                              str(traces / name)] if traced else [])
+                    cmd = [sys.executable, "-c", HOLD, hold, "--device",
+                           "cuda", "--dtype", "f32", "--inner", "mg",
+                           "--no-error", "--repeat", "3", *args, *extra]
+                    procs.append((tree, hold, traced, time.perf_counter(),
+                                  subprocess.Popen(
+                                      cmd, cwd=root, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True)))
+                for tree, hold, _, _, proc in procs:
+                    while not Path(hold + ".ready").exists():
+                        if proc.poll() is not None:
+                            raise RuntimeError(
+                                f"{tree} {name}: {proc.stderr.read()[-2000:]}")
+                        time.sleep(0.1)
+                for tree, hold, traced, t0, proc in procs:
+                    Path(hold + ".go").touch()
+                    out, err = proc.communicate(timeout=2400)
+                    if proc.returncode != 0:
+                        raise RuntimeError(f"{tree} {name}: {err[-2000:]}")
+                    calls = [(int(i), float(sec)) for i, sec in re.findall(
+                        r"solve call \d+: (\d+) iterations, ([0-9.]+) s",
+                        out)]
+                    timed = calls[1:-1] if traced else calls[1:]
+                    rec = {"solve": name, "tree": tree, "iterations":
+                           [i for i, _ in calls], "seconds": [sec for _, sec
+                                                              in calls],
+                           "steady_s": min(sec for _, sec in timed),
+                           "wall_s": time.perf_counter() - t0}
+                    if traced:
+                        busy = re.search(r"device busy .*", out)
+                        rec.update(trace=str(traces / name),
+                                   busy=busy.group(0) if busy else None)
+                    _emit(rec)
 
 
 def _device_us(e) -> float:
@@ -544,8 +777,18 @@ def main() -> int:
     p.add_argument("--chunks", action="store_true",
                    help="time the 2-D K6/K7 at half and twice their chunk")
     p.add_argument("--solves", nargs="?", const="2d", default=None,
-                   choices=["2d", "3d", "all"])
+                   help="2d, 3d, all, or one solve's name (smooth3d-129, "
+                        "say)")
     p.add_argument("--copies", action="store_true")
+    p.add_argument("--solves-only", action="store_true",
+                   help="skip the fused stages' comparison")
+    p.add_argument("--traces", type=Path, default=None,
+                   help="with --solves, trace the solves of TRACED into "
+                        "DIR/NAME beside the A/B")
+    p.add_argument("--kron", action="store_true",
+                   help="K1/K2 against DIR's in place of the fused stages")
+    p.add_argument("--pencils", action="store_true",
+                   help="with --kron, time K1/K2 at each pencil")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("fused_ab needs an NVIDIA GPU", file=sys.stderr)
@@ -555,11 +798,14 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
     dims = [int(d) for d in args.dims.split(",") if d]
-    run_kernels(args.parent.resolve(), dims, args.chunks)
+    if args.kron:
+        run_kron(args.parent.resolve(), args.pencils)
+    elif not args.solves_only:
+        run_kernels(args.parent.resolve(), dims, args.chunks)
     if args.copies:
         trace_copies()
     if args.solves:
-        run_solves(args.parent.resolve(), args.solves)
+        run_solves(args.parent.resolve(), args.solves, args.traces)
     return 0
 
 

@@ -1,4 +1,6 @@
-"""The CUDA kernels K1 (B), K2 (Bᵀ), the multigrid kernels K3–K9 and the
+"""The CUDA kernels K1 (B), K2 (Bᵀ; marching in time, at the march's edges:
+T = 1, chunks that do not divide the rows, a row of four segments, every
+pencil), the multigrid kernels K3–K9 and the
 weighted K10–K15 (2-D and 3-D, the fused K6/K7 and K14/K15 at ν 2 and 3,
 the 3-D K6/K7/K14/K15 on their z-marching kernels, the 2-D K6/K7 on their
 y-marching ones, serial and sharded, at chunks of one row to the whole
@@ -16,6 +18,7 @@ file imports no JAX, so on a machine with a GPU and without JAX it runs as
 """
 
 import dataclasses
+import itertools
 
 import numpy as np
 import pytest
@@ -74,6 +77,35 @@ def test_kernels_match_twins(taps, dtype, T):
     counts = kron.launch_counts()
     assert counts[f"K1 kron_B {name}"] == 2
     assert counts[f"K2 kron_BT {name}"] == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("T, gs", [(1, (5, 1985)), (7, (5, 1985)),
+                                   (1, (1, 5, 7)), (5, (9, 17, 35))],
+                         ids=["T1-1985", "T7-1985", "T1-3d", "T5-3d"])
+def test_kron_march_edges_match_twins(taps, dtype, T, gs, monkeypatch):
+    """K1/K2, every form, at the march's edges: T = 1, a row of four
+    segments, ragged bricks; each pencil, at the wrapper's chunk and at
+    chunks of 1 and 3 rows (which do not divide the rows)."""
+    if len(gs) == 3:
+        taps = build_solver("smooth3d", 8, 1, device="cpu",
+                            inner="mg").taps
+    taps = dataclasses.replace(taps, gs=gs)
+    U, V, W, hh, hs = _inputs(taps, T, dtype)
+    want = (kron.apply_B_plain(U, hh, taps),
+            *kron.apply_B_stab_plain(U, hh, hs, taps),
+            kron.apply_BT_plain(V, hh, taps),
+            kron.apply_BT_stab_plain(V, W, hh, taps))
+    plan = kron.kron_plan
+    for pencil, chunk in itertools.product((4, 8), (None, 1, 3)):
+        for bt in (False, True):
+            monkeypatch.setitem(kron.PENCIL, (bt, len(gs), dtype), pencil)
+        monkeypatch.setattr(kron, "kron_plan", lambda *a, c=chunk: (
+            pencil, c if c is not None else plan(*a)[1]))
+        got = (kron.apply_B(U, hh, taps), *kron.apply_B_stab(U, hh, hs, taps),
+               kron.apply_BT(V, hh, taps), kron.apply_BT_stab(V, W, hh, taps))
+        for g, w in zip(got, want):
+            _close(g, w, dtype)
 
 
 def test_wrappers_check_inputs(taps):
