@@ -12,7 +12,8 @@ Phases (every check asserts; any failure exits non-zero):
               prints each kernel's registers and shared memory (ptxas), the
               blocks per SM of the 3-D K6/K7/K14/K15 march instantiations
               and those of the 2-D K6/K7 ones (and their threads) on rows
-              of 511, 255, 127 and 63 columns.
+              of 511, 255, 127 and 63 columns, and the blocks per SM and
+              a chunk of K4/K5's march.
 3. setup    — the 129²×64 ("cfg2") f32 solver: smooth2d, multigrid inner.
 4. kernels  — K1 (B) and K2 (Bᵀ), plain and stab-fused, float32 and float64,
               against their plain PyTorch twins at the cfg2 shape (T=64,
@@ -25,7 +26,9 @@ Phases (every check asserts; any failure exits non-zero):
               511² and 255² (T=129), 127² (T=65) and a ragged 15×31 (T=5);
               median device times (ν = 2) at 511²×129 and 127²×65, and of
               the y-marching K6 and K7 (with their semi-fused pairs) at
-              every one of these shapes, ν = 2 and 3.
+              every one of these shapes, ν = 2 and 3. K4 and K5 (they
+              march in y) also at the (2 x 2) mesh's slab (T=65,
+              262×511) and a row of three segments (T=5, 9×1985).
 6. mg kernels 3-D — K3 (from x and from 0), K4, K5, K6, K7, K8 and K9 at
               63³ (T=65) and 31³ (T=33: the smooth3d 65³×32 solve's levels
               at K_X's rows; the 129³ flagship's finest level, 127³, is
@@ -39,7 +42,9 @@ Phases (every check asserts; any failure exits non-zero):
               from x for K7 (``semi_pair_ms``). K6 and K7 alone, with their
               pairs, are also held to their twins and timed at 127³×65 (the
               129³ solve's finest level), ν ∈ {2, 3}, float32 and float64
-              (``FUSED_BIG``; the fields made on the card).
+              (``FUSED_BIG``; the fields made on the card). K4 and K5
+              (they march in z) also at the 3-D mesh's slab (T=17,
+              38×63²).
 7. solve    — cfg2 ``solve(tol=1e-6)``: 16 ± 1 PCG iterations, L2 within 1%
               of 5.748e-05.
 8. refined  — cfg2 ``solve_refined(tol=1e-8)`` twice: converged in 2 inner
@@ -405,6 +410,12 @@ CHAIN_MAIN = {2: (65, (127, 127)), 3: (33, (63,) * 3)}
 MG_SHAPES = [(129, (511, 511)), (129, (255, 255)), (65, (127, 127)),
              (5, (15, 31))]
 MG_SHAPES_3D = [(65, (63, 63, 63)), (33, (31, 31, 31)), (5, (7, 9, 15))]
+# (T, grid) where phases 5 and 6 also hold K4 and K5 to their twins: the
+# (2 x 2) mesh's halo-extended slabs (the flagship's finest, own 256 and
+# kw = 3, 262 x 511; smooth3d 65³'s, own 32, 38 x 63²) and, in 2-D, rows
+# wider than one segment of the march (three, the last ragged)
+STENCIL_EXTRA = {2: [(65, (262, 511)), (5, (9, 1985))],
+                 3: [(17, (38, 63, 63))]}
 # (T, grid) where phase 6 holds and times the fused stages K6 and K7 alone,
 # beside their pairs: the 129³×64 solve's finest level at K_X's rows
 FUSED_BIG = (65, (127, 127, 127))
@@ -2059,6 +2070,17 @@ def main() -> int:
               f"{'float64' if f64 else 'float32'}, {nx} columns: "
               f"{blocks.value} blocks of {threads.value} threads per SM, "
               f"{nbytes.value} bytes of shared memory a block")
+    # K4/K5's march: segments of a row (2-D), 16 x 32 tiles (3-D)
+    for (res, f64), gs in itertools.product(
+            itertools.product((1, 0), (0, 1)),
+            ((511, 511), (255, 255), (127, 127), (262, 511), (9, 1985),
+             (127,) * 3, (63,) * 3)):
+        blocks, tiles = mg_kernels.stencil_plan(
+            bool(res), len(gs), torch.float64 if f64 else torch.float32,
+            gs[-2:], 0)
+        print(f"  {'K4' if res else 'K5'} march, {'x'.join(map(str, gs))}, "
+              f"{'float64' if f64 else 'float32'}: {blocks} blocks per SM, "
+              f"{tiles} blocks a chunk")
 
     from spacetime_tpu_torch.fem import l2_error_spacetime
 
@@ -2157,6 +2179,15 @@ def main() -> int:
                                 pairs=semi_pairs(kl, x, False))
                     del x
                     torch.cuda.empty_cache()
+            # K4 and K5 at the mesh's slab (and the 2-D wide row)
+            for T, gs in STENCIL_EXTRA[len(mg_shapes[0][1])]:
+                kl = MSKernelLevel(lev0.A_st, lev0.M_st, 2, gs=gs)
+                x = mg_inputs(msmg, kl, T, dtype, rng)
+                forms = mg_forms(kl, x)
+                check_forms(kl, {f: forms[f] for f in ("residual", "apply_A")},
+                            mg_bound, T, dtype, mg_results, timed=False)
+                del x, forms
+                torch.cuda.empty_cache()
     # K6, K7 and their pairs at the 129³ solve's finest level: x, b and
     # e_c made on the card from the seed (the host's random fields of this
     # size took most of this check's time), one set a dtype for both ν

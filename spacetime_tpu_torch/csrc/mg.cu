@@ -104,7 +104,7 @@
 // needs two more window buffers, which the 3-D f64 brick has no room for
 // (three buffers take 174.6 KB at ν = 3), and each chained launch would
 // still recompute its halo. The step kernel is one thread per point like
-// K4; a step reads d (its taps), r and x and writes r, d and x.
+// K8; a step reads d (its taps), r and x and writes r, d and x.
 //
 // What bounds them: memory traffic and instruction count, not arithmetic.
 // A sweep applies Op ν times (7 taps in 2-D, 15 in 3-D) to data that is
@@ -115,14 +115,34 @@
 // e_c and writes x: the fine residual and the prolonged correction never
 // reach device memory.
 //
-// Design, the simple one:
-// - K4, K5, K8, K9: one thread per output point (K8: per coarse point),
-//   x fastest so that a warp's loads coalesce, 32-bit indices within a
-//   time row (64-bit only for the row's offset), the pair
-//   table passed by value as a __grid_constant__ kernel parameter (as
-//   kron.cu). K8 recomputes the residual at the 2^d · 2 fine points each
-//   coarse point sums (2× the fine residuals, as each is shared by up to
-//   2^d coarse points); K9 reads its two coarse values from global memory.
+// Design:
+// - K8, K9: one thread per output point (K8: per coarse point), x fastest
+//   so that a warp's loads coalesce, 32-bit indices within a time row
+//   (64-bit only for the row's offset), the pair table passed by value as
+//   a __grid_constant__ kernel parameter (as kron.cu). K8 recomputes the
+//   residual at the 2^d · 2 fine points each coarse point sums (2× the
+//   fine residuals, as each is shared by up to 2^d coarse points); K9
+//   reads its two coarse values from global memory.
+// - K4 and K5 are one kernel (`mg_stencil_kernel`; K5 the residual with
+//   no b on the table of A alone) that marches along the leading axis: a
+//   block owns a segment of one time row's columns (2-D: the whole row up
+//   to 1,024 columns, `row_plan` with a halo of 1) or a 16 × 32 (y, x)
+//   tile with a frame of one (3-D: 18 · 34 loads for 512 points, 1.20 a
+//   point) and walks a chunk of the rows (planes), whose depth the wrapper
+//   picks for whole waves of the blocks an SM holds (`stencil_chunk`).
+//   x's window planes pass through a ring of four slots in shared memory:
+//   a step stores the plane two ahead (from registers loaded D steps
+//   before, D = 2 in 2-D but the f64 K4, else 1) while it reads the three
+//   around its own, so one barrier a step; the ghost columns (rows, in
+//   3-D) outside the grid hold 0 in every slot from the start, and planes
+//   off the grid are loaded as 0, so no tap tests a bound. Each thread
+//   keeps the same points of the plane for the whole march (no index is
+//   divided per point), loads its b a step (D steps) ahead, and applies
+//   the operator with the taps unrolled (9 in 2-D, 16 in 3-D) and the
+//   groups' ends from a mask (`row_many`), the row's group weights computed
+//   once a block: no runtime loop over groups or taps, no bounds test and
+//   one load of x a point (1.2 in 3-D), where a thread a point issued
+//   them at every tap and was bound by instructions (PERF.md).
 // - K3 and K10 (2-D and 3-D) and the 2-D weighted fused stages K14, K15:
 //   one block of 256 threads owns a brick of one time row (blockIdx.z =
 //   row): 32 × 32 in 2-D, 8 × 8 × 32 (z, y, x) in 3-D. It loads the brick
@@ -413,6 +433,9 @@ __device__ __forceinline__ RowCoef<T> row_coef(const T* omega, const T* invT,
 // The most taps of a 2-D stencil (its 3 × 3 neighbourhood): the unrolled
 // tap loop of the 2-D marches (`row_many`).
 constexpr int kRowTaps = 9;
+// The most taps of a 3-D stencil K4 and K5 take (`row_many` unrolled to
+// it): the P1 stencils of the Kuhn simplices have 15.
+constexpr int kCubeTaps = 16;
 
 // The operators of the sweep on a shared-memory window: op(buf, o, gi) is
 // Op applied to buf at window offset o (grid index gi in the row, valid
@@ -459,17 +482,17 @@ struct ConstOp {
     }
   }
   // Op at N points of a 2-D march's ring row, as `many` (its groups not
-  // empty), with the tap loop unrolled to kRowTaps, every tap's values
-  // loaded before they are summed (N loads a tap in flight) and the
-  // groups' ends read from the mask `ends` (no loop over the groups): the
-  // same sums in the same order.
-  template <int N>
+  // empty), with the tap loop unrolled to K (kRowTaps; K4 and K5 in 3-D
+  // kCubeTaps), every tap's values loaded before they are summed (N loads
+  // a tap in flight) and the groups' ends read from the mask `ends` (no
+  // loop over the groups): the same sums in the same order.
+  template <int N, int K = kRowTaps>
   __device__ __forceinline__ void row_many(const T* buf, const int (&o)[N],
                                            const int (&)[N],
                                            T (&out)[N]) const {
-    T v[kRowTaps][N];
+    T v[K][N];
 #pragma unroll
-    for (int k = 0; k < kRowTaps; ++k) {
+    for (int k = 0; k < K; ++k) {
       if (ends >> k) {  // tap k exists: a group ends at it or after it
         const T* const bk = buf + toff[k];
 #pragma unroll
@@ -480,7 +503,7 @@ struct ConstOp {
 #pragma unroll
     for (int j = 0; j < N; ++j) out[j] = acc[j] = T(0);
 #pragma unroll
-    for (int k = 0; k < kRowTaps; ++k) {
+    for (int k = 0; k < K; ++k) {
       if (ends >> k) {
 #pragma unroll
         for (int j = 0; j < N; ++j) acc[j] += v[k][j];
@@ -845,31 +868,6 @@ __host__ __device__ __forceinline__ Grid coarse_grid(const Grid& g,
 #define FOR_EACH_INDEX(idx, total)                                       \
   for (int64_t idx = blockIdx.x * int64_t(blockDim.x) + threadIdx.x;     \
        idx < (total); idx += int64_t(gridDim.x) * blockDim.x)
-
-template <int DIM, typename T>
-__global__ void mg_residual_kernel(const T* __restrict__ x,
-                                   const T* __restrict__ b,
-                                   const T* __restrict__ omega,
-                                   T* __restrict__ out, int64_t nt, Grid g,
-                                   const __grid_constant__ PairGroups pg) {
-  const int64_t S = row_size(g);
-  FOR_EACH_INDEX(idx, nt * S) {
-    const Point p = point_of<DIM>(idx, g);
-    out[idx] = b[idx] -
-               op_global<DIM>(pg, omega[p.t], x + p.t * S, g, p.z, p.y, p.x);
-  }
-}
-
-template <int DIM, typename T>
-__global__ void mg_apply_kernel(const T* __restrict__ x, T* __restrict__ out,
-                                int64_t nt, Grid g,
-                                const __grid_constant__ PairGroups pg) {
-  const int64_t S = row_size(g);
-  FOR_EACH_INDEX(idx, nt * S) {
-    const Point p = point_of<DIM>(idx, g);
-    out[idx] = op_global<DIM>(pg, T(0), x + p.t * S, g, p.z, p.y, p.x);
-  }
-}
 
 // R r at coarse point c, res(z, y, x) the fine residual: h = r[f] + r[f + 1⃗]
 // at fine f = f0 + (a, p, q), f0 = 2c but on the lead axis, where it is
@@ -2231,6 +2229,232 @@ __global__ void __launch_bounds__(march2_threads<T>(),
       g, ld, row_post_chunk(g, chunk, rp, NU), rp.wrow, out + t * S);
 }
 
+// K4 and K5 march along the leading grid axis (y in 2-D, z in 3-D; see
+// the header): a ring of kStencilRing window planes (rows) of x in shared
+// memory, the plane two ahead written while the step reads the three
+// around its own, one barrier a step. (Copies by cp.async into deeper
+// rings of x and b were slower on the H100: PERF.md.)
+constexpr int kStencilRing = 4;
+// The 3-D window plane: the 16 × 32 tile with a frame of one.
+constexpr int kStencilWX = kMarchX + 2;
+constexpr int kStencilPlane = (kMarchY + 2) * kStencilWX;
+
+// A thread's tile points (a row's in 2-D) and window points it loads, the
+// most threads a block takes, the blocks an SM must hold (the register
+// cap) and the steps ahead its loads are issued, chosen by timing on the
+// H100 (PERF.md): 2-D as the 2-D marches, 4 points a thread in float32 and
+// 2 in float64, at least 3 blocks an SM in float32, 1 (K4) and 2 (K5) in
+// float64, loads two steps ahead but the float64 K4's one; 3-D kThreads
+// threads, two tile points and three window points a thread, 4 blocks an
+// SM in float32 and 2 in float64, loads one step ahead.
+template <int DIM, typename T>
+__host__ __device__ constexpr int stencil_slots() {
+  return DIM == 2 ? march2_slots<T>() : kMarchY * kMarchX / kThreads;
+}
+template <int DIM, typename T>
+__host__ __device__ constexpr int stencil_loads() {
+  return DIM == 2 ? march2_slots<T>()
+                  : (kStencilPlane + kThreads - 1) / kThreads;
+}
+template <int DIM, typename T>
+__host__ __device__ constexpr int stencil_threads() {
+  return DIM == 2 ? march2_threads<T>() : kThreads;
+}
+template <int DIM, typename T, bool RES>
+__host__ __device__ constexpr int stencil_min_blocks() {
+  return sizeof(T) == 4 ? (DIM == 2 ? 3 : 4) : (DIM == 2 && RES ? 1 : 2);
+}
+template <int DIM, typename T, bool RES>
+__host__ __device__ constexpr int stencil_ahead() {
+  return DIM == 2 && (sizeof(T) == 4 || !RES) ? 2 : 1;
+}
+
+// A launch of K4 or K5 on grid g: `tiles` blocks a chunk of the leading
+// axis (2-D: the segments of a row, `row_plan` with a halo of 1; 3-D: the
+// 16 × 32 tiles of a plane), threads a block, window points a ring plane.
+struct StencilPlan {
+  int tiles, threads, plane;
+};
+
+template <int DIM, typename T>
+__host__ __device__ __forceinline__ StencilPlan stencil_plan(const Grid& g) {
+  if constexpr (DIM == 2) {
+    const RowPlan rp = row_plan(g.nx, 1, stencil_slots<2, T>());
+    return StencilPlan{rp.nseg, rp.threads, rp.wrow};
+  } else {
+    return StencilPlan{((g.ny + kMarchY - 1) / kMarchY) *
+                           ((g.nx + kMarchX - 1) / kMarchX),
+                       kThreads, kStencilPlane};
+  }
+}
+
+// K4 (RES: out = b − Op x, Op = A + ω⊙M of the pair table) and K5 (out =
+// A x, the table of A alone, every wM = 0) on a block's segment (2-D) or
+// tile (3-D) of time row blockIdx.z, planes [c·chunk, (c + 1)·chunk) of
+// the leading axis, c = blockIdx.y. Sums as `op_global`: the ring holds 0
+// at the zero ghost, and adding it to a tap sum changes no value.
+template <int DIM, typename T, bool RES>
+__global__ void __launch_bounds__(stencil_threads<DIM, T>(),
+                                  stencil_min_blocks<DIM, T, RES>())
+    mg_stencil_kernel(const T* __restrict__ x, const T* __restrict__ b,
+                      const T* __restrict__ omega, T* __restrict__ out,
+                      Grid g, const __grid_constant__ PairGroups pg,
+                      int chunk) {
+  constexpr int L = stencil_loads<DIM, T>(), N = stencil_slots<DIM, T>();
+  constexpr int K = DIM == 2 ? kRowTaps : kCubeTaps;
+  __shared__ T wend[kMaxPairTaps];
+  __shared__ int toff[kStencilRing * kMaxPairTaps];
+  T* const ring = window_buffers<T>();  // slot s: ring + s·P
+  const int64_t t = blockIdx.z;
+  const int64_t S = row_size(g);
+  const int P = stencil_plan<DIM, T>(g).plane;
+  const int n = DIM == 3 ? g.nz : g.ny;  // the planes (rows) the march cuts
+  const int plane = DIM == 3 ? g.ny * g.nx : g.nx;
+  const unsigned ends = row_group_ends(pg, RES ? omega[t] : T(0), wend);
+  // each tap's offset in the ring for each rotation r (the tapped point's
+  // plane in slot r)
+  const int ntaps = pg.start[pg.n_groups];
+  for (int i = threadIdx.x; i < kStencilRing * ntaps; i += blockDim.x) {
+    const int r = i / ntaps, k = i - r * ntaps;
+    const int lead = DIM == 3 ? pg.dz[k] : pg.dy[k];
+    const int in_plane =
+        DIM == 3 ? pg.dy[k] * kStencilWX + pg.dx[k] : pg.dx[k];
+    toff[r * kMaxPairTaps + k] =
+        ((r + lead) & (kStencilRing - 1)) * P + in_plane;
+  }
+  // this thread's window points of x, loaded in every plane: offset in the
+  // plane (−1: none) and in-plane grid index; and its output points: the
+  // offset (one whose taps stay in the window where it has none), the
+  // in-plane grid index and whether it lies in the grid
+  int lo[L], li[L], co[N], ci[N];
+  bool cin[N];
+  if constexpr (DIM == 2) {
+    // the segment's columns [x0, x1) at window columns 1 … n, then the
+    // halo columns past a cut (window 0 and n + 1); the ghost columns of
+    // the grid's edges hold 0 in every slot and are no thread's
+    const RowPlan rp = row_plan(g.nx, 1, N);
+    const int x0 = int(blockIdx.x) * rp.seg;
+    const int x1 = int(blockIdx.x) + 1 == rp.nseg ? g.nx : x0 + rp.seg;
+    const int w = x1 - x0;
+    const bool hl = x0 > 0, hr = x1 < g.nx;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int q = int(threadIdx.x) + j * int(blockDim.x);
+      lo[j] = -1;
+      li[j] = 0;
+      if (q < w) {
+        lo[j] = q + 1;
+        li[j] = x0 + q;
+      } else if (hl && q == w) {
+        lo[j] = 0;
+        li[j] = x0 - 1;
+      } else if (hr && q == w + int(hl)) {
+        lo[j] = w + 1;
+        li[j] = x1;
+      }
+      cin[j] = q < w;
+      co[j] = cin[j] ? q + 1 : 1;
+      ci[j] = li[j];
+    }
+    for (int s = threadIdx.x; s < kStencilRing; s += blockDim.x) {
+      if (!hl) ring[s * P] = T(0);
+      if (!hr) ring[s * P + w + 1] = T(0);
+    }
+  } else {
+    // the tile (y0, x0); window point q at (q / WX − 1, q % WX − 1) from
+    // it, tile point q at (q / 32, q % 32): a warp on one row of 32. The
+    // window points outside the grid in y and x hold 0 in every slot.
+    const int ntx = (g.nx + kMarchX - 1) / kMarchX;
+    const int ty = int(blockIdx.x) / ntx;
+    const int y0 = ty * kMarchY, x0 = (int(blockIdx.x) - ty * ntx) * kMarchX;
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      const int q = int(threadIdx.x) + j * kThreads;
+      const int wy = q / kStencilWX, wx = q - wy * kStencilWX;
+      const int gy = y0 - 1 + wy, gx = x0 - 1 + wx;
+      const bool in = q < P && gy >= 0 && gy < g.ny && gx >= 0 && gx < g.nx;
+      lo[j] = in ? q : -1;
+      li[j] = gy * g.nx + gx;
+      if (q < P && !in) {
+#pragma unroll
+        for (int s = 0; s < kStencilRing; ++s) ring[s * P + q] = T(0);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int q = int(threadIdx.x) + j * kThreads;
+      const int ly = q / kMarchX, lx = q - ly * kMarchX;
+      co[j] = (ly + 1) * kStencilWX + lx + 1;
+      ci[j] = (y0 + ly) * g.nx + x0 + lx;
+      cin[j] = y0 + ly < g.ny && x0 + lx < g.nx;
+    }
+  }
+  const int f_lo = int(blockIdx.y) * chunk, f_hi = min(f_lo + chunk, n);
+  const T* const xt = x + t * S;
+  const T* const bt = RES ? b + t * S : nullptr;
+  T* const ot = out + t * S;
+  // x of plane p (0 off the grid and past the chunk's last tapped plane)
+  auto load = [&](int p, T (&v)[L]) {
+    const bool in = p >= 0 && p < n && p <= f_hi;
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      v[j] = in && lo[j] >= 0 ? xt[p * plane + li[j]] : T(0);
+    }
+  };
+  auto put = [&](int p, const T (&v)[L]) {
+    T* const s = ring + (p & (kStencilRing - 1)) * P;
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      if (lo[j] >= 0) s[lo[j]] = v[j];
+    }
+  };
+  auto load_b = [&](int p, T (&v)[N]) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      v[j] = RES && p < f_hi && cin[j] ? bt[p * plane + ci[j]] : T(0);
+    }
+  };
+  // x's planes D ahead of the ring and b's D ahead of the step, in D sets
+  // of registers: a step's loads consumed D steps later
+  constexpr int D = stencil_ahead<DIM, T, RES>();
+  T xs[D][L], bs[D][N];
+  for (int p = f_lo - 1; p <= f_lo + 1; ++p) {
+    load(p, xs[0]);
+    put(p, xs[0]);
+  }
+#pragma unroll
+  for (int u = 0; u < D; ++u) {
+    load(f_lo + 2 + u, xs[u]);
+    load_b(f_lo + u, bs[u]);
+  }
+  __syncthreads();
+  // step p: x's plane p + 2 from xv into slot (p − 2) mod 4, last read a
+  // step before; the loads of x's plane p + 2 + D into xv and of b's p + D;
+  // out's plane p; b's p + D into bv
+  auto step = [&](int p, T (&xv)[L], T (&bv)[N]) {
+    put(p + 2, xv);
+    load(p + 2 + D, xv);
+    T bn[N], opx[N];
+    load_b(p + D, bn);
+    const ConstOp<T> op{pg, nullptr,
+                        toff + (p & (kStencilRing - 1)) * kMaxPairTaps, T(0),
+                        ends, wend};
+    op.template row_many<N, K>(ring, co, ci, opx);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if (cin[j]) ot[p * plane + ci[j]] = RES ? bv[j] - opx[j] : opx[j];
+      bv[j] = bn[j];
+    }
+    __syncthreads();
+  };
+  for (int p = f_lo; p < f_hi; p += D) {
+#pragma unroll
+    for (int u = 0; u < D; ++u) {
+      if (p + u < f_hi) step(p + u, xs[u], bs[u]);
+    }
+  }
+}
+
 // The 2-D K15: 1/D a fourth window buffer, as in K14.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -2605,12 +2829,17 @@ int launch_march_pre(const T* b, const T* vm, const T* omega, const T* invD,
   return int(cudaGetLastError());
 }
 
-// Whether a pair table suits the 2-D marches: at most kRowTaps taps, no
-// empty group (`ConstOp::row_many`).
-bool row_table_ok(const PairGroups& pg) {
-  if (pg.n_groups < 1 || pg.start[pg.n_groups] > kRowTaps) return false;
+// Whether a pair table suits the masked tap loop (`ConstOp::row_many`) of
+// the 2-D marches and of K4/K5: at most `taps` taps, no empty group, every
+// tap within one cell of its point.
+bool row_table_ok(const PairGroups& pg, int taps = kRowTaps) {
+  if (pg.n_groups < 1 || pg.start[pg.n_groups] > taps) return false;
   for (int g = 0; g < pg.n_groups; ++g) {
     if (pg.start[g + 1] <= pg.start[g]) return false;
+  }
+  auto far = [](int d) { return d < -1 || d > 1; };
+  for (int k = 0; k < pg.start[pg.n_groups]; ++k) {
+    if (far(pg.dz[k]) || far(pg.dy[k]) || far(pg.dx[k])) return false;
   }
   return true;
 }
@@ -2794,21 +3023,41 @@ int64_t points(int64_t nt, const Grid& g) {
   return nt * int64_t(g.nz) * g.ny * g.nx;
 }
 
-template <int DIM, typename T>
-int launch_residual(const T* x, const T* b, const T* omega, T* out,
-                    int64_t nt, Grid g, const PairGroups* pg, void* stream) {
-  mg_residual_kernel<DIM, T><<<blocks_for(points(nt, g)), kThreads, 0,
-                               as_stream(stream)>>>(x, b, omega, out, nt, g,
-                                                    *pg);
+// K4 (RES) or K5: the march (chunk ≥ 1 planes, rows in 2-D) on a table of
+// at most kRowTaps (2-D) or kCubeTaps (3-D) taps.
+template <int DIM, typename T, bool RES>
+int launch_stencil(const T* x, const T* b, const T* omega, T* out,
+                   int64_t nt, Grid g, const PairGroups* pg, int chunk,
+                   void* stream) {
+  if (chunk < 1 || !row_table_ok(*pg, DIM == 2 ? kRowTaps : kCubeTaps)) {
+    return int(cudaErrorInvalidValue);
+  }
+  const StencilPlan sp = stencil_plan<DIM, T>(g);
+  const size_t bytes = size_t(kStencilRing) * sp.plane * sizeof(T);
+  const int err = allow_smem(mg_stencil_kernel<DIM, T, RES>, bytes);
+  if (err != 0) return err;
+  const int n = DIM == 3 ? g.nz : g.ny;
+  mg_stencil_kernel<DIM, T, RES><<<
+      dim3(unsigned(sp.tiles), unsigned((n + chunk - 1) / chunk),
+           unsigned(nt)),
+      sp.threads, bytes, as_stream(stream)>>>(x, b, omega, out, g, *pg,
+                                              chunk);
   return int(cudaGetLastError());
 }
 
 template <int DIM, typename T>
+int launch_residual(const T* x, const T* b, const T* omega, T* out,
+                    int64_t nt, Grid g, const PairGroups* pg, int chunk,
+                    void* stream) {
+  return launch_stencil<DIM, T, true>(x, b, omega, out, nt, g, pg, chunk,
+                                      stream);
+}
+
+template <int DIM, typename T>
 int launch_apply(const T* x, T* out, int64_t nt, Grid g,
-                 const PairGroups* pg, void* stream) {
-  mg_apply_kernel<DIM, T><<<blocks_for(points(nt, g)), kThreads, 0,
-                            as_stream(stream)>>>(x, out, nt, g, *pg);
-  return int(cudaGetLastError());
+                 const PairGroups* pg, int chunk, void* stream) {
+  return launch_stencil<DIM, T, false>(x, nullptr, nullptr, out, nt, g, pg,
+                                       chunk, stream);
 }
 
 template <int DIM, typename T>
@@ -2944,6 +3193,26 @@ int march2_occupancy(int post, int nx, int* blocks, int* bytes,
               : of(mg_march2_pre_kernel<NU, T>, NU + 1);
 }
 
+// Blocks per SM, dynamic shared bytes, threads a block and blocks a chunk
+// of the leading axis (`stencil_plan`) of K4 (res) or K5 on grid g.
+template <int DIM, typename T>
+int stencil_occupancy(int res, const Grid& g, int* blocks, int* bytes,
+                      int* threads, int* tiles) {
+  const StencilPlan sp = stencil_plan<DIM, T>(g);
+  const size_t b = size_t(kStencilRing) * sp.plane * sizeof(T);
+  auto of = [&](auto kernel) {
+    const int err = allow_smem(kernel, b);
+    if (err != 0) return err;
+    *bytes = int(b);
+    *threads = sp.threads;
+    *tiles = sp.tiles;
+    return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, kernel, sp.threads, b));
+  };
+  return res ? of(mg_stencil_kernel<DIM, T, true>)
+             : of(mg_stencil_kernel<DIM, T, false>);
+}
+
 // The 2-D or 3-D instantiation of launcher L for a runtime dim.
 #define BY_DIM(L, T, ...) \
   (dim == 3 ? L<3, T>(__VA_ARGS__) : L<2, T>(__VA_ARGS__))
@@ -2998,6 +3267,21 @@ int mg_march2_occupancy(int post, int nu, int f64, int nx, int* blocks,
       post, nx, blocks, bytes, threads, nseg);
 }
 
+// The same for K4 (res = 1) or K5 (res = 0) of dim on planes (rows in
+// 2-D) of ny × nx points: blocks per SM, dynamic shared bytes, threads a
+// block and blocks a chunk of the leading axis (`stencil_plan`).
+int mg_stencil_occupancy(int res, int dim, int f64, int64_t ny, int64_t nx,
+                         int* blocks, int* bytes, int* threads, int* tiles) {
+  if (ny < 1 || nx < 1) return int(cudaErrorInvalidValue);
+  const Grid g{1, int(ny), int(nx)};
+  if (f64) {
+    return BY_DIM(stencil_occupancy, double, res, g, blocks, bytes, threads,
+                  tiles);
+  }
+  return BY_DIM(stencil_occupancy, float, res, g, blocks, bytes, threads,
+                tiles);
+}
+
 #define MG_ENTRY_POINTS(T, SFX)                                               \
   int mg_smooth_##SFX(const T* x, const T* b, const T* omega, const T* invD,  \
                       const T* invT, const T* invDel, T* out, int64_t nt,     \
@@ -3019,15 +3303,17 @@ int mg_march2_occupancy(int post, int nu, int f64, int nx, int* blocks,
   }                                                                           \
   int mg_residual_##SFX(const T* x, const T* b, const T* omega, T* out,       \
                         int64_t nt, int64_t nz, int64_t ny, int64_t nx,       \
-                        int dim, const PairGroups* pg, void* stream) {        \
+                        int dim, const PairGroups* pg, int chunk,             \
+                        void* stream) {                                       \
     const Grid g{int(nz), int(ny), int(nx)};                                  \
-    return BY_DIM(launch_residual, T, x, b, omega, out, nt, g, pg, stream);   \
+    return BY_DIM(launch_residual, T, x, b, omega, out, nt, g, pg, chunk,     \
+                  stream);                                                    \
   }                                                                           \
   int mg_apply_##SFX(const T* x, T* out, int64_t nt, int64_t nz, int64_t ny,  \
-                     int64_t nx, int dim, const PairGroups* pg,               \
+                     int64_t nx, int dim, const PairGroups* pg, int chunk,    \
                      void* stream) {                                          \
     const Grid g{int(nz), int(ny), int(nx)};                                  \
-    return BY_DIM(launch_apply, T, x, out, nt, g, pg, stream);                \
+    return BY_DIM(launch_apply, T, x, out, nt, g, pg, chunk, stream);         \
   }                                                                           \
   int mg_fused_pre_##SFX(const T* b, const T* omega, const T* invD,           \
                          const T* invT, const T* invDel, T* xo, T* rco,       \

@@ -31,7 +31,10 @@ do. In 3-D the fused stages K6, K7, K14 and K15 march in z: a block owns a
 K6/K14, fine for K7/K15), whose depth the wrapper picks (``march_chunk``)
 so that the launch fills the card. In 2-D K6 and K7 march in y: a block
 owns a segment of a row's columns (the whole row where it fits,
-csrc/mg.cu ``row_plan``) and a chunk of its rows (``march2_chunk``).
+csrc/mg.cu ``row_plan``) and a chunk of its rows (``march2_chunk``). K4
+and K5 march too, in y (2-D: a segment of a row) and in z (3-D: a
+``MARCH_TILE`` tile), with chunks by the same wave rule
+(``stencil_chunk``).
 
 For a CUDA tensor each wrapper launches the CUDA kernel of csrc/mg.cu
 (float32 and float64) and counts the launch, with one count per kernel,
@@ -213,6 +216,32 @@ def march2_plan(post: bool, nu: int, dtype, nx: int,
                                       *map(ctypes.byref, out))
     native.check(lib, "mg_march2_occupancy", err)
     return max(out[0].value, 1), out[3].value
+
+
+@functools.lru_cache(maxsize=None)
+def stencil_plan(res: bool, dim: int, dtype, plane: tuple,
+                 index: int) -> tuple[int, int]:
+    """(blocks an SM of device ``index`` holds, blocks a chunk) of K4
+    (K5 without ``res``) on planes (rows in 2-D) of ``plane`` = (ny, nx)
+    points: the segments of a row in 2-D, the ``MARCH_TILE`` tiles of a
+    plane in 3-D (csrc/mg.cu ``mg_stencil_occupancy``)."""
+    lib = native.LIB.get()
+    out = [ctypes.c_int() for _ in range(4)]  # blocks, bytes, threads, tiles
+    with torch.cuda.device(index):
+        err = lib.mg_stencil_occupancy(int(res), dim,
+                                       int(dtype == torch.float64), *plane,
+                                       *map(ctypes.byref, out))
+    native.check(lib, "mg_stencil_occupancy", err)
+    return max(out[0].value, 1), out[3].value
+
+
+def stencil_chunk(T: int, n: int, resident: int, tiles: int,
+                  sms: int) -> int:
+    """Planes (rows in 2-D) per block of the K4 / K5 march on T rows of n
+    planes, ``tiles`` blocks a chunk, ``resident`` blocks an SM: the wave
+    rule of ``march2_chunk``, a block walking its chunk and the two planes
+    around it."""
+    return march2_chunk(T * tiles, n, 1, resident, sms, 1, 2)
 
 
 @functools.lru_cache(maxsize=None)
@@ -472,7 +501,8 @@ class MSKernelLevel(_KernelLevel):
         check_tensor("x", x, b.dtype, b.device, b.shape)
         out = torch.empty_like(b)
         k.launch(b.device, x.data_ptr(), b.data_ptr(), cp[0],
-                 out.data_ptr(), T, *self._zyx(), self._op_table())
+                 out.data_ptr(), T, *self._zyx(), self._op_table(),
+                 self._stencil_chunk(b, True))
         return out
 
     def apply_A(self, x):
@@ -482,8 +512,18 @@ class MSKernelLevel(_KernelLevel):
         k, T, _ = self._prepare("apply", x, None)
         out = torch.empty_like(x)
         k.launch(x.device, x.data_ptr(), out.data_ptr(), T, *self._zyx(),
-                 ctypes.addressof(self.structs[1]))
+                 ctypes.addressof(self.structs[1]),
+                 self._stencil_chunk(x, False))
         return out
+
+    def _stencil_chunk(self, X, res: bool) -> int:
+        """The planes (rows in 2-D) a block of K4 (``res``) or K5 on field
+        X walks through (``stencil_chunk``)."""
+        index = X.device.index
+        resident, tiles = stencil_plan(res, self.dim, X.dtype, self.gs[-2:],
+                                       index)
+        return stencil_chunk(X.shape[0], self.gs[0], resident, tiles,
+                             _sm_count(index))
 
     def fused_pre(self, b, cols):
         """K6: (x, r_c), x the zero-init sweep on b and r_c = R(b − Op x)."""

@@ -258,8 +258,10 @@ def entry_signatures() -> dict:
         # mg.cu
         # (nt, nz, ny, nx, dim): the grid, nz = 1 in 2-D
         "mg_smooth": [P, P, P, P, P, P, P, *grid, P, I, I, P],
-        "mg_residual": [P, P, P, P, *grid, P, P],
-        "mg_apply": [P, P, *grid, P, P],
+        # K4 and K5: the table, then the planes (rows in 2-D) a block of
+        # the march walks
+        "mg_residual": [P, P, P, P, *grid, P, I, P],
+        "mg_apply": [P, P, *grid, P, I, P],
         # the fused stages: ν, then the planes (rows in 2-D) a block of
         # the march walks (K6 coarse, K7 fine)
         "mg_fused_pre": [P, P, P, P, P, P, P, *grid, P, I, I, P],
@@ -323,6 +325,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # the 2-D march's: post, ν, f64, nx, then blocks, bytes, threads, nseg
     lib.mg_march2_occupancy.argtypes = [I, I, I, I, P, P, P, P]
     lib.mg_march2_occupancy.restype = I
+    # K4 / K5's: res, dim, f64, ny, nx, then blocks, bytes, threads, blocks
+    # a chunk
+    lib.mg_stencil_occupancy.argtypes = [I, I, I, I64, I64, P, P, P, P]
+    lib.mg_stencil_occupancy.restype = I
     for size_fn, struct in (("kron_taps_size", TapsStruct),
                             ("mg_pairs_size", PairGroupsStruct),
                             ("mg_var_taps_size", VarTapsStruct),

@@ -2,6 +2,7 @@
 machine without a GPU or nvcc.
 
     python -m spacetime_tpu_torch.tools.cpu_emulate [--parent DIR]
+        [--only fused|kron|stencil]
 
 Each source of ``spacetime_tpu_torch/csrc`` is translated to C++ (a launch
 ``k<<<grid, block, smem, stream>>>(args)`` becomes a call that runs the
@@ -24,11 +25,15 @@ held to its plain twin within 1e-5·max|twin| (f32) and 1e-13 (f64); and
 K1 and K2 (csrc/kron.cu: B, Bᵀ and their stab forms, float32 and float64)
 on ragged 2-D and 3-D grids, T = 1, 2 and 5, a 2-D row wider than one
 segment, at both pencils (4, 8) and chunks of 1 row to all of them,
-held to their twins the same way. With ``--parent DIR`` (an unpacked
-``git archive`` of an earlier commit) DIR's csrc/mg.cu and csrc/kron.cu
-are emulated too, their entry points bound as ``tools.fused_ab`` binds
-them, and each output must equal DIR's bit for bit. ``--only kron`` (or
-``fused``) runs one of the two checks. A CUDA construct the runtime
+held to their twins the same way; and K4 and K5 (csrc/mg.cu
+``mg_residual``, ``mg_apply``, float32 and float64) on ragged 2-D and 3-D
+grids and slabs, T = 1, 2 and 5, 2-D rows wider than one segment, at
+every chunk from one row (plane) to the whole column, held to their
+twins the same way. With ``--parent DIR`` (an unpacked ``git archive`` of
+an earlier commit) DIR's csrc/mg.cu and csrc/kron.cu are emulated too,
+their entry points bound as ``tools.fused_ab`` binds them, and each
+output must equal DIR's bit for bit. ``--only fused`` (or ``kron``,
+``stencil``) runs one of the three checks. A CUDA construct the runtime
 stand-in below lacks fails the g++ build.
 """
 
@@ -72,6 +77,13 @@ SLABS_2D = [(4, (15,)), (12, (33,)), (6, (1055,)), (6, (1985,))]
 # (four), ragged 3-D grids (one plane; several bricks in y and x)
 KRON_SHAPES = [(1, (1, 9)), (2, (9, 13)), (5, (10, 7)), (2, (5, 1985)),
                (1, (1, 5, 7)), (2, (5, 9, 33)), (5, (9, 17, 35))]
+# (T, grid) of K4/K5: T = 1, 2 and 5 on ragged 2-D grids (one row; an even
+# row count, as a rank's halo-extended slab), rows wider than one segment
+# (two and a ragged third of one column; two, the second ragged), ragged
+# 3-D grids (one plane; one tile; tiles ragged in y and x)
+STENCIL_SHAPES = [(1, (1, 9)), (5, (10, 15)), (2, (9, 65)), (2, (4, 1985)),
+                  (1, (5, 1055)), (2, (1, 5, 7)), (1, (7, 9, 15)),
+                  (5, (3, 17, 33)), (1, (6, 35, 67))]
 
 RUNTIME = r"""
 #pragma once
@@ -372,6 +384,65 @@ def check(new, old) -> int:
     return n
 
 
+def check_stencil(new, old, shapes=STENCIL_SHAPES) -> int:
+    """K4 (``mg_residual``) and K5 (``mg_apply``) of ``new`` on each (T,
+    grid) of ``shapes``, float32 and float64, at every chunk from one
+    plane (row in 2-D) to the whole column, against their twins and, if
+    given, ``old``'s (an earlier tree's, which take no chunk); returns the
+    number of launches compared."""
+    from ..solver import build_solver
+
+    n = 0
+    msmg = {dim: build_solver("smooth3d" if dim == 3 else "smooth2d", 8, 2,
+                              device="cpu", inner="mg").msmg
+            for dim in {len(gs) for _, gs in shapes}}
+    rng = np.random.default_rng(15)
+    for (T, gs), dtype in itertools.product(
+            shapes, (torch.float32, torch.float64)):
+        sfx = "f32" if dtype == torch.float32 else "f64"
+        lev = msmg[len(gs)].levels[0]
+        kl = MSKernelLevel(lev.A_st, lev.M_st, 2, gs=gs)
+        mk = lambda shape: torch.as_tensor(rng.standard_normal(shape),
+                                           dtype=dtype)
+        x, b = mk((T,) + gs), mk((T,) + gs)
+        cols = kl.columns(row_params(msmg[len(gs)], rng.uniform(0, 40, T),
+                                     dtype, "cpu")[0])
+        forms = {
+            "residual": (kl.residual_plain(x, b, cols),
+                         (x.data_ptr(), b.data_ptr(),
+                          cols["omega"].data_ptr()), kl._op_table()),
+            "apply": (kl.apply_A_plain(x), (x.data_ptr(),),
+                      ctypes.addressof(kl.structs[1])),
+        }
+        for op, (want, fields, table) in forms.items():
+            name = f"mg_{op}_{sfx}"
+            ref = None
+            if old is not None:
+                ref = torch.empty_like(x)
+                _call(old, name, *fields, ref.data_ptr(), T, *kl._zyx(),
+                      table)
+                n += 1
+            for chunk in range(1, gs[0] + 1):
+                got = torch.empty_like(x)
+                _call(new, name, *fields, got.data_ptr(), T, *kl._zyx(),
+                      table, chunk)
+                n += 1
+                _close((name, T, gs, chunk), got, want, dtype, ref)
+    return n
+
+
+def build_stencil(name: str = "this_stencil") -> ctypes.CDLL:
+    """This tree's mg.cu and common.cu alone, K4 and K5 (``mg_residual``,
+    ``mg_apply``) bound with their signatures."""
+    so = build([native.CSRC / "mg.cu", native.CSRC / "common.cu"], name)
+    signatures = native.entry_signatures()
+    for op, sfx in itertools.product(("mg_residual", "mg_apply"),
+                                     ("f32", "f64")):
+        fn = getattr(so, f"{op}_{sfx}")
+        fn.argtypes, fn.restype = signatures[op], ctypes.c_int
+    return so
+
+
 def build_kron(csrc: Path = native.CSRC, name: str = "this_kron",
                bind=None) -> ctypes.CDLL:
     """``csrc``'s kron.cu and common.cu alone (K1 and K2), bound with this
@@ -452,21 +523,25 @@ def check_kron(new, old, shapes=KRON_SHAPES, pencils=(4, 8),
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--parent", type=Path, default=None)
-    p.add_argument("--only", choices=["fused", "kron"], default=None)
+    p.add_argument("--only", choices=["fused", "kron", "stencil"],
+                   default=None)
     args = p.parse_args()
+    run = {args.only} if args.only else {"fused", "kron", "stencil"}
     old = old_kron = None
     if args.parent is not None:
         csrc = args.parent.resolve() / "spacetime_tpu_torch" / "csrc"
-        if args.only != "kron":
+        if run & {"fused", "stencil"}:
             old = bind_parent(build([csrc / "mg.cu", csrc / "common.cu"],
                                     "parent"))
-        if args.only != "fused":
+        if "kron" in run:
             old_kron = build_kron(csrc, "parent_kron", bind_parent_kron)
     n = 0
-    if args.only != "kron":
+    if "fused" in run:
         new = native._bind(build(sorted(native.CSRC.glob("*.cu")), "this"))
         n += check(new, old)
-    if args.only != "fused":
+    if "stencil" in run:
+        n += check_stencil(new if "fused" in run else build_stencil(), old)
+    if "kron" in run:
         n += check_kron(build_kron(), old_kron)
     print(f"{n} emulated launches held to their twins"
           + (" and equal to the parent's bit for bit"

@@ -1,10 +1,11 @@
-"""The fused stages K6, K7, K14 and K15, or K1 and K2, against an earlier
-tree's, on one GPU; the solves against the earlier tree's; the callers of
-the solves' copies.
+"""The fused stages K6, K7, K14 and K15, or K1 and K2, or K4 and K5,
+against an earlier tree's, on one GPU; the solves against the earlier
+tree's; the callers of the solves' copies.
 
     python -m spacetime_tpu_torch.tools.fused_ab --parent DIR [--dims 2,3]
-        [--chunks] [--kron [--pencils]] [--solves [2d|3d|all|NAME]
-        [--solves-only] [--traces TDIR]] [--copies]
+        [--chunks] [--kron [--pencils]] [--stencil]
+        [--solves [2d|3d|all|NAME][,...] [--solves-only] [--traces TDIR]]
+        [--copies]
 
 DIR is the root of another checkout of the repository (an unpacked
 ``git archive`` of an earlier commit, say). Its ``csrc/mg.cu`` and
@@ -14,8 +15,9 @@ loads them (``ops.native``). Of DIR's library the tool binds the fused
 entry points ``mg_fused_pre``, ``mg_fused_pre_var``, ``mg_fused_post``,
 ``mg_fused_post_var``, ``mg_sh_fused_pre`` and ``mg_sh_fused_post`` (f32
 and f64) with the signatures of a tree whose fused stages all take the
-march's chunk (the 2-D K6/K7/K14/K15 ignoring it); each gets the chunk
-this tree's wrapper picks.
+march's chunk (the 2-D K6/K7/K14/K15 ignoring it), and its K4/K5
+``mg_residual`` and ``mg_apply`` with those before their march (no
+chunk); each fused stage gets the chunk this tree's wrapper picks.
 
 - ``kernels`` (always), ν ∈ {2, 3}, float32 and float64: in 2-D (``--dims``
   2) K6 and K7 at 129×511², 129×255² and 65×127² (the 2-D flagship's
@@ -43,12 +45,18 @@ this tree's wrapper picks.
   65³×32): max|new − old|, both held to the twin, median device times
   old, new, new, old, the plan (pencil, chunk) and ptxas's registers;
   with ``--pencils`` this tree's time at each pencil too.
+- ``--stencil`` (in place of ``kernels``): K4 and K5 against DIR's
+  (bound with the signatures before their march, ``bind_parent``) at
+  ``STENCIL_AB_SHAPES``, float32 and float64: max|new − old|, both held
+  to the twin, median device times old, new, twin, new, old, the HBM
+  bound, the chunk and blocks an SM, and ptxas's registers.
 - ``--solves``: steady ``solve`` seconds, f32, ``inner="mg"``, by ``run.py
   --repeat 3`` in DIR, this tree, this tree, DIR (one process each; see
   ``run_solves``): 2d (the default) smooth2d 513²×128, singular2d 513²
-  J7+6, cfg2 (129²×64) and varcoef2d 513²×128 (the control: its B, Bᵀ
-  and K14/K15 are not changed); 3d smooth3d, varcoef3d and singular3d 65³
-  J5+4 and smooth3d 129³×64 (``--repeat 2``); or one solve by name.
+  J7+6, cfg2 (129²×64) and varcoef2d 513²×128 (the control: its kernels
+  K14/K15 are not changed); 3d smooth3d, varcoef3d and singular3d 65³
+  J5+4 and smooth3d 129³×64 (``--repeat 2``); or solves by name, and
+  these, comma-separated.
   ``--solves-only`` skips the fused stages; ``--traces TDIR`` traces
   smooth2d 513² and smooth3d 129³ in their second run of this tree.
 - ``--copies``: the steady f32 ``solve`` of smooth2d 513²×128 and
@@ -86,6 +94,7 @@ from ..utils.profiling import device_ms
 
 REPO = Path(__file__).resolve().parents[2]
 TOL = {torch.float32: 1e-5, torch.float64: 1e-13}
+HBM_BYTES_PER_MS = 3.35e9  # the H100 SXM's HBM3, 3.35 TB/s (data sheet)
 # (T, grid) of K6/K7 and of K14/K15, by dimension
 CONST_SHAPES = {2: [(129, (511, 511)), (129, (255, 255)), (65, (127, 127))],
                 3: [(65, (63,) * 3), (65, (127,) * 3)]}
@@ -122,6 +131,14 @@ COPY_TRACES = [("smooth2d", 512, 7, 0), ("singular2d", 512, 7, 6)]
 KRON_AB_SHAPES = [(128, (511, 511)), (64, (258, 511)), (64, (127, 127)),
                   (64, (127,) * 3), (32, (63,) * 3)]
 KRON_FORMS = ("B", "B_stab", "BT", "BT_stab")
+# (T, grid) of the K4/K5 A/B: the 2-D flagship's two finest levels and
+# cfg2's at K_X's rows, a rank's halo-extended slab on the (2 × 2)
+# flagship mesh (own 256, kw = ν + 1 = 3; parallel/explicit2d.py), rows
+# wider than one segment (three, the last ragged), the 129³×64 solve's
+# finest level and the 65³×32 solve's at K_X's and K_Y's rows
+STENCIL_AB_SHAPES = [(129, (511, 511)), (129, (255, 255)), (65, (127, 127)),
+                     (65, (262, 511)), (33, (255, 1985)), (65, (127,) * 3),
+                     (65, (63,) * 3), (33, (63,) * 3)]
 
 
 def build_parent(parent: Path) -> ctypes.CDLL:
@@ -140,8 +157,8 @@ def build_parent(parent: Path) -> ctypes.CDLL:
 
 
 def bind_parent(so: ctypes.CDLL) -> ctypes.CDLL:
-    """The parent's fused entry points of library ``so``, bound with that
-    tree's signatures."""
+    """The parent's fused entry points and its K4/K5 of library ``so``,
+    bound with that tree's signatures."""
     P, I64, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     grid = [I64, I64, I64, I64, I]
     signatures = {
@@ -151,6 +168,9 @@ def bind_parent(so: ctypes.CDLL) -> ctypes.CDLL:
         "mg_fused_post_var": [P] * 8 + grid + [P, P, I, I, P],
         "mg_sh_fused_pre": [P] * 8 + grid + [P, I, I, I, I, P],
         "mg_sh_fused_post": [P] * 9 + grid + [P, I, I, I, I, I, P],
+        # K4 and K5 before their march: no chunk
+        "mg_residual": [P] * 4 + grid + [P, P],
+        "mg_apply": [P] * 2 + grid + [P, P],
     }
     for sfx in ("f32", "f64"):
         for name, argtypes in signatures.items():
@@ -306,6 +326,69 @@ def run_kron(parent: Path, pencils: bool) -> None:
         torch.cuda.empty_cache()
 
 
+def run_stencil(parent: Path) -> None:
+    """K4 and K5 of this tree against DIR's (before their march: no chunk)
+    at ``STENCIL_AB_SHAPES``, float32 and float64: max|new − old|, both
+    held to the twin, median device times old, new, twin, new, old, the
+    HBM bound (each input read once, the output written once), the chunk
+    and blocks an SM; ptxas's registers of each K4/K5 kernel."""
+    from ..ops import mg_kernels
+    from ..solver import build_solver
+
+    so = build_parent(parent)
+    native.LIB.get()
+    entry = None
+    for line in native.LIB.build_log.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"(mg_stencil_kernel\w*?Lb[01]E)", line)
+            entry = m.group(1) if m else None
+        elif entry and ("Used" in line or "spill" in line):
+            print("ptxas:", entry, line.split(":", 1)[-1].strip(), flush=True)
+    msmg = {dim: build_solver("smooth3d" if dim == 3 else "smooth2d", 8, 1,
+                              dtype=torch.float32, device="cuda",
+                              inner="mg").msmg for dim in (2, 3)}
+    rng = np.random.default_rng(15)
+    for dtype, (T, gs) in itertools.product((torch.float32, torch.float64),
+                                            STENCIL_AB_SHAPES):
+        sfx = "f32" if dtype == torch.float32 else "f64"
+        s = torch.finfo(dtype).bits // 8
+        lev = msmg[len(gs)].levels[0]
+        kl = MSKernelLevel(lev.A_st, lev.M_st, 2, gs=gs)
+        mk = _fields(rng, dtype)
+        x, b = mk((T,) + gs), mk((T,) + gs)
+        cols = kl.columns(row_params(
+            msmg[len(gs)], np.abs(rng.standard_normal(T)) * 20, dtype,
+            "cuda")[0])
+        out = torch.empty_like(x)
+        m = T * int(np.prod(gs))
+
+        def old_res():
+            _call(so, f"mg_residual_{sfx}", x.data_ptr(), b.data_ptr(),
+                  cols["omega"].data_ptr(), out.data_ptr(), T, *kl._zyx(),
+                  kl._op_table())
+            return (out,)
+
+        def old_apply():
+            _call(so, f"mg_apply_{sfx}", x.data_ptr(), out.data_ptr(), T,
+                  *kl._zyx(), ctypes.addressof(kl.structs[1]))
+            return (out,)
+
+        for label, res, new_fn, old_fn, twin_fn, nbytes in (
+                ("K4", True, lambda: (kl.residual(x, b, cols),), old_res,
+                 lambda: (kl.residual_plain(x, b, cols),), s * (3 * m + T)),
+                ("K5", False, lambda: (kl.apply_A(x),), old_apply,
+                 lambda: (kl.apply_A_plain(x),), s * 2 * m)):
+            resident, tiles = mg_kernels.stencil_plan(
+                res, kl.dim, dtype, gs[-2:], x.device.index)
+            compare(label, kl, T, dtype, new_fn, old_fn, twin_fn,
+                    extra={"chunk": kl._stencil_chunk(x, res),
+                           "blocks_per_sm": resident, "tiles": tiles,
+                           "bound_ms": nbytes / HBM_BYTES_PER_MS},
+                    time_twin=True)
+        del x, b, out
+        torch.cuda.empty_cache()
+
+
 def _call(so, name, *args):
     err = getattr(so, name)(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -321,9 +404,9 @@ def _err(got, want) -> float:
 
 
 def compare(label, kl, T, dtype, new_fn, old_fn, twin_fn, pair_fn=None,
-            extra=None) -> None:
+            extra=None, time_twin=False) -> None:
     """new against old and both against the twin; times (tuples of fields
-    from each function)."""
+    from each function), the twin's too with ``time_twin``."""
     new, old, twin = new_fn(), old_fn(), twin_fn()
     torch.cuda.synchronize()
     rec = {"kernel": label, "T": T, "gs": list(kl.gs), "nu": kl.nu,
@@ -334,9 +417,10 @@ def compare(label, kl, T, dtype, new_fn, old_fn, twin_fn, pair_fn=None,
         rec[f"max_abs_{name}_twin"] = max(e for e, _ in errs)
         assert all(e <= TOL[dtype] * s for e, s in errs), (label, name, errs)
     del new, old, twin
-    fns = {"old": old_fn, "new": new_fn, "pair": pair_fn}
+    fns = {"old": old_fn, "new": new_fn, "pair": pair_fn,
+           "twin": twin_fn if time_twin else None}
     times = {"old": [], "new": []}
-    for which in ("old", "new", "pair", "new", "old"):
+    for which in ("old", "new", "pair", "twin", "new", "old"):
         if fns[which] is not None:
             times.setdefault(which, []).append(device_ms(fns[which]))
     rec.update({f"{k}_ms": float(np.mean(v)) for k, v in times.items()})
@@ -612,9 +696,10 @@ def run_solves(parent: Path, which: str, traces: Path | None = None) -> None:
     call); that call is left out of its steady time."""
     import tempfile
 
-    runs = {"all": SOLVES["2d"] + SOLVES["3d"]}.get(which) or [
-        r for r in SOLVES["2d"] + SOLVES["3d"]
-        if which in SOLVES and r in SOLVES[which] or r[0] == which]
+    names = which.split(",")
+    runs = [r for r in SOLVES["2d"] + SOLVES["3d"]
+            if any(w == "all" or r in SOLVES.get(w, ()) or r[0] == w
+                   for w in names)]
     order = (("parent", parent), ("change", REPO), ("change", REPO),
              ("parent", parent))
     with tempfile.TemporaryDirectory() as tmp:
@@ -777,8 +862,8 @@ def main() -> int:
     p.add_argument("--chunks", action="store_true",
                    help="time the 2-D K6/K7 at half and twice their chunk")
     p.add_argument("--solves", nargs="?", const="2d", default=None,
-                   help="2d, 3d, all, or one solve's name (smooth3d-129, "
-                        "say)")
+                   help="2d, 3d, all, or solves' names (smooth3d-129, "
+                        "say), comma-separated")
     p.add_argument("--copies", action="store_true")
     p.add_argument("--solves-only", action="store_true",
                    help="skip the fused stages' comparison")
@@ -789,6 +874,8 @@ def main() -> int:
                    help="K1/K2 against DIR's in place of the fused stages")
     p.add_argument("--pencils", action="store_true",
                    help="with --kron, time K1/K2 at each pencil")
+    p.add_argument("--stencil", action="store_true",
+                   help="K4/K5 against DIR's in place of the fused stages")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("fused_ab needs an NVIDIA GPU", file=sys.stderr)
@@ -800,6 +887,8 @@ def main() -> int:
     dims = [int(d) for d in args.dims.split(",") if d]
     if args.kron:
         run_kron(args.parent.resolve(), args.pencils)
+    elif args.stencil:
+        run_stencil(args.parent.resolve())
     elif not args.solves_only:
         run_kernels(args.parent.resolve(), dims, args.chunks)
     if args.copies:

@@ -253,6 +253,39 @@ def test_mg_kernels_3d_match_twins(msmg3d, dtype, nu, gs):
     assert sum(counts.values()) == 2
 
 
+# K4 and K5 march along the leading axis (tests/test_torch_stencil_plan.py):
+# T = 1, 2 and 5; one row; even rows (a mesh rank's slab, 262 × 511); rows
+# of one segment, of two and of three (the last of one column); one plane;
+# 3-D tiles ragged in y and x; the 3-D mesh's slab (38 × 63²)
+@pytest.mark.parametrize("T,gs", [(1, (1, 9)), (5, (10, 15)),
+                                  (3, (262, 511)), (2, (4, 1024)),
+                                  (2, (5, 1055)), (1, (3, 1985)),
+                                  (2, (1, 5, 7)), (5, (3, 17, 33)),
+                                  (1, (6, 35, 67)), (2, (38, 63, 63))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_stencil_march_matches_twins(msmg, msmg3d, dtype, T, gs,
+                                     monkeypatch):
+    """K4 and K5 at the wrapper's chunk, one plane (row) a block and the
+    whole column, against their twins; one launch each a call."""
+    ms = msmg3d if len(gs) == 3 else msmg
+    lev = ms.levels[0]
+    kl = MSKernelLevel(lev.A_st, lev.M_st, 2, gs=gs)
+    x, b, _, cols = _level_inputs(ms, kl, T, dtype, T)
+    want = (kl.residual_plain(x, b, cols), kl.apply_A_plain(x))
+    sfx = ("_3d " if len(gs) == 3 else " ") + (
+        "f32" if dtype == torch.float32 else "f64")
+    for chunk in (None, 1, gs[0]):
+        if chunk is not None:
+            monkeypatch.setattr(kl, "_stencil_chunk", lambda *_: chunk)
+        mg_kernels.reset_launch_counts()
+        _close(kl.residual(x, b, cols), want[0], dtype)
+        _close(kl.apply_A(x), want[1], dtype)
+        counts = mg_kernels.launch_counts()
+        assert counts[f"K4 mg_residual{sfx}"] == 1, counts
+        assert counts[f"K5 mg_apply{sfx}"] == 1, counts
+        assert sum(counts.values()) == 2
+
+
 @pytest.mark.parametrize("gs", [(15, 31), (33, 65), (47, 71)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_transfer_kernels_2d_match_twins(msmg, dtype, gs):
