@@ -11,8 +11,8 @@ Phases (every check asserts; any failure exits non-zero):
 2. build    — compiles csrc/*.cu with nvcc into build/ (at first use);
               prints each kernel's registers and shared memory (ptxas), the
               blocks per SM of the 3-D K6/K7/K14/K15 march instantiations
-              and those of the 2-D K6/K7 ones (and their threads) on rows
-              of 511, 255, 127 and 63 columns, and the blocks per SM and
+              and those of the 2-D K6/K7/K14/K15 ones (and their threads)
+              on rows of 511, 255, 127 and 63 columns, and the blocks per SM and
               a chunk of K4/K5's march.
 3. setup    — the 129²×64 ("cfg2") f32 solver: smooth2d, multigrid inner.
 4. kernels  — K1 (B) and K2 (Bᵀ), plain and stab-fused, float32 and float64,
@@ -71,7 +71,10 @@ Phases (every check asserts; any failure exits non-zero):
               ν ∈ {1, 2, 3} (K14/K15 at ν ∈ {2, 3}), at 511² and 255²
               (T=129), 127² (T=65) and a ragged 15×31 (T=5), W the weights
               of the varcoef2d assembly at that size; median device times
-              (ν = 2) at 511²×129 and 127²×65.
+              (ν = 2) at 511²×129 and 127²×65, and of the y-marching K14
+              and K15 (with their semi-fused pairs) at 511² and 255²
+              (T=129) and 127² (T=65), ν = 2 and 3, with their chunks and
+              blocks per SM.
 15. varcoef2d 129²×64 f32 — ``solve(tol=1e-6)`` within ±1 of the JAX
               package's 16 iterations, L2 within 1% of its value;
               ``solve_refined(tol=1e-8)``: rounds and inner iterations within
@@ -437,9 +440,11 @@ MG_TIMED = [(129, (511, 511)), (65, (127, 127)), (65, (63, 63, 63)),
             (33, (63, 63, 63)), (33, (127, 127, 127))]
 # where the 3-D fused stages are also timed at ν = 3: the shapes of the
 # kernel table's 3-D rows (K6/K7 at 63³×65, K14/K15 at 63³ and 127³ ×33);
-# the 2-D K6/K7 are timed at ν = 2 and 3 at every MG_SHAPES
+# the 2-D K6/K7 are timed at ν = 2 and 3 at every MG_SHAPES, the 2-D
+# K14/K15 at VAR2_TIMED
 FUSED_NU3_TIMED = [(65, (63, 63, 63)), (33, (63, 63, 63)),
                    (33, (127, 127, 127))]
+VAR2_TIMED = [(129, (511, 511)), (129, (255, 255)), (65, (127, 127))]
 # the shape of each kernel's headline numbers in the JSON line, by family
 # (constant or weighted) and dimension
 MG_MAIN = {("const", 2): (129, (511, 511)), ("const", 3): (65, (63,) * 3),
@@ -648,12 +653,14 @@ def check_forms(kl, forms, bound_fn, T, dtype, results, library=None,
     if auto:
         timed = nu == 2 and (T, gs) in MG_TIMED
     for form, (op, kfn, tfn) in forms.items():
-        # the fused stages also at ν = 3, and the 2-D K6/K7 at every
-        # MG_SHAPES
+        # the fused stages also at ν = 3, the 2-D K6/K7 at every
+        # MG_SHAPES and the 2-D K14/K15 at VAR2_TIMED
         fused3 = (auto and form.startswith("fused")
                   and ((nu == 3 and (T, gs) in FUSED_NU3_TIMED)
                        or (op in ("fused_pre", "fused_post")
-                           and (T, gs) in MG_SHAPES)))
+                           and (T, gs) in MG_SHAPES)
+                       or (op in ("fused_pre_var", "fused_post_var")
+                           and (T, gs) in VAR2_TIMED)))
         got, want = kfn(), tfn()
         torch.cuda.synchronize()
         rec = results.setdefault(
@@ -2060,13 +2067,14 @@ def main() -> int:
               f"{threads} threads per SM, {nbytes} bytes of shared memory a "
               f"block, {tiles} blocks a chunk of time rows")
     # the 2-D march's blocks take as many threads as their row needs
-    for post, nu, f64, nx in itertools.product((0, 1), (2, 3), (0, 1),
-                                               (511, 255, 127, 63)):
+    for post, var, nu, f64, nx in itertools.product(
+            (0, 1), (0, 1), (2, 3), (0, 1), (511, 255, 127, 63)):
         blocks, nbytes, threads, nseg = (ctypes.c_int() for _ in range(4))
         native.check(lib, "mg_march2_occupancy", lib.mg_march2_occupancy(
-            post, nu, f64, nx, ctypes.byref(blocks), ctypes.byref(nbytes),
-            ctypes.byref(threads), ctypes.byref(nseg)))
-        print(f"  2-D {'K7' if post else 'K6'} march, nu={nu}, "
+            post, var, nu, f64, nx, ctypes.byref(blocks),
+            ctypes.byref(nbytes), ctypes.byref(threads), ctypes.byref(nseg)))
+        name = (("K7", "K15") if post else ("K6", "K14"))[var]
+        print(f"  2-D {name} march, nu={nu}, "
               f"{'float64' if f64 else 'float32'}, {nx} columns: "
               f"{blocks.value} blocks of {threads.value} threads per SM, "
               f"{nbytes.value} bytes of shared memory a block")
@@ -2419,6 +2427,19 @@ def main() -> int:
                 for nu in (1, 2, 3):
                     kl = VarMSKernelLevel(msmg.levels[0], nu, gs=gs)
                     x = var_inputs(msmg, kl, T, dtype, rng)
+                    if kl.fused_ok:  # the y-march's plan
+                        plans = []
+                        for name, stage, m in (
+                                ("K14", "pre", kl.coarse_gs[0]),
+                                ("K15", "post", gs[0])):
+                            blocks, _ = mg_kernels.march2_plan(
+                                stage == "post", True, nu, dtype, gs[1], 0)
+                            unit = "coarse rows" if stage == "pre" else "rows"
+                            plans.append(
+                                f"{name} chunk {kl._chunk(x['b'], m, stage)}"
+                                f" {unit}, {blocks} blocks per SM")
+                        print(f"  2-D march {str(dtype)[6:]} nu={nu} T={T} "
+                              f"gs={gs}: {'; '.join(plans)}")
                     check_forms(kl, var_forms(kl, x), var_bound, T, dtype,
                                 mg_results, pairs=semi_pairs(kl, x, True))
                     del x

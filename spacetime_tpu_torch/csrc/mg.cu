@@ -143,25 +143,22 @@
 //   once a block: no runtime loop over groups or taps, no bounds test and
 //   one load of x a point (1.2 in 3-D), where a thread a point issued
 //   them at every tap and was bound by instructions (PERF.md).
-// - K3 and K10 (2-D and 3-D) and the 2-D weighted fused stages K14, K15:
-//   one block of 256 threads owns a brick of one time row (blockIdx.z =
-//   row): 32 × 32 in 2-D, 8 × 8 × 32 (z, y, x) in 3-D. It loads the brick
-//   and a halo into shared memory and runs the recurrence there, each Op
-//   application shrinking the valid halo by one cell, with __syncthreads()
-//   between the stages. Halo: ν−1 for the zero-init sweep (G of the Pallas
-//   kernel, :214), ν for the sweep from x, ν + 1 for K6 (G + E, E = 2 for
-//   the residual and the restriction, :1342), ν for K7's prolonged field
-//   (:1525); in 3-D the halo grows in z as well. Points of the window
-//   outside the grid hold 0 in every buffer, which is the Dirichlet ghost
+// - K3 and K10 (2-D and 3-D): one block of 256 threads owns a brick of
+//   one time row (blockIdx.z = row): 32 × 32 in 2-D, 8 × 8 × 32 (z, y, x)
+//   in 3-D. It loads the brick and a halo into shared memory and runs the
+//   recurrence there, each Op application shrinking the valid halo by one
+//   cell, with __syncthreads() between the stages. Halo: ν−1 for the
+//   zero-init sweep (G of the Pallas kernel, :214), ν for the sweep from
+//   x; in 3-D the halo grows in z as well. Points of the window outside
+//   the grid hold 0 in every buffer, which is the Dirichlet ghost
 //   (`_domain_mask`, :122) for bricks on the boundary and for ragged
-//   extents. Bricks start at even offsets (multiples of 32 or 8), so a
-//   coarse point's 2^d fine pairs lie in its own brick plus one fine row
-//   and column (and plane) of halo. A 3-D brick with three double buffers
-//   takes 174.6 KB of shared memory at halo 3, so the tiled 3-D sweep
-//   takes ν ≤ 3 (above it, the chained sweep). The fused stages do in one
-//   launch what K3 + K8 (pre) and K9 + K3 (post) do in two: x never makes
-//   the round trip through device memory between the sweep and the
-//   transfer.
+//   extents. A 3-D brick with three double buffers takes 174.6 KB of
+//   shared memory at halo 3, so the tiled 3-D sweep takes ν ≤ 3 (above
+//   it, the chained sweep). The fused stages (below) do in one launch
+//   what K3 + K8 (pre) and K9 + K3 (post) do in two: x never makes the
+//   round trip through device memory between the sweep and the transfer;
+//   their halo is ν + 1 for K6 (G + E, E = 2 for the residual and the
+//   restriction, :1342) and ν for K7's prolonged field (:1525).
 // - The 3-D fused stages march in z (K6 and K14 `march_fused_pre`, K7 and
 //   K15 `march_fused_post`): a block owns a 16 × 32 (y, x) tile of one row
 //   and walks a chunk of its planes in order (the whole column where that
@@ -194,8 +191,9 @@
 //   The blocks an SM holds (`march_min_blocks`) were chosen by timing. The
 //   Pallas kernel keeps z and x whole and blocks in y, so it never
 //   recomputed a z halo either.
-// - The 2-D K6 and K7 march in y (`march2_fused_pre`, `march2_fused_post`):
-//   the 3-D stages with a row of x in place of a plane. A block owns a
+// - The 2-D K6, K7, K14 and K15 march in y (`march2_fused_pre`,
+//   `march2_fused_post`): the 3-D stages with a row of x in place of a
+//   plane. A block owns a
 //   segment of one time row's columns and a chunk of its rows and keeps
 //   rings of three window rows in shared memory. The segment is the whole
 //   row wherever it fits a block's 1,024 points (every 2-D level the
@@ -215,7 +213,15 @@
 //   where the march now takes 0.48 (PERF.md). The bricks went through
 //   shared memory for every term, with a runtime division and bounds test
 //   per point and window pass. The Pallas kernel keeps x whole and blocks
-//   in y.
+//   in y. K14 and K15 march on the same plan and apply Op_w the same way
+//   (`VarOp::row_many`: the 7 A taps unrolled, their weights at the point
+//   read from the L2 through __ldg first, the ring's values as they are
+//   summed, the mass's groups ended by a mask); a point's 1/D comes from
+//   W[kc] loaded a row ahead with b, at the row's first stage, and rides
+//   in registers through its later stages, so the bricks' fourth window
+//   buffer (1/D) is gone. Staging each row's W in a shared-memory ring by
+//   cp.async instead (a thread's values, ν + 2 rows) was about 2× slower
+//   (PERF.md).
 // - The restriction and the prolongation are exact pair sums, one device
 //   function each (`restrict_at`, `prolong_at`) that K8, K9 and the fused
 //   stages share; the Pallas kernels' banded 0/1 matrices on the MXU
@@ -226,17 +232,25 @@
 //   7.3 MB in f32 at 511² and 15.0 MB at 63³, which the 50 MB L2 holds, so
 //   the kernels read it through the read-only path (__ldg) at each Op
 //   evaluation rather than staging it. Where W does not fit in the L2 (123
-//   MB in f32 at 127³), K10–K15 take the row as the fastest-varying block
-//   index (`rows_first`): the rows of one brick (K10, K14, K15) or chunk of
-//   points (K11–K13) then run back to back and share its part of W there
-//   (the 3-D K14: the rows of one tile and chunk). Where W fits, the rows
-//   go slowest, as in the other kernels: that order was 7–20% faster for
-//   K10 and K12 at 63³ and 511² on the H100 (PERF.md). The 2-D K10, K14
-//   and K15 keep 1/D in a fourth shared buffer beside X, D and R, computed
-//   once per window; the 3-D ones recompute it from W[kc] at each use,
-//   since four f64 buffers of an 8 × 8 × 32 brick at ν = 3 (238 KB) exceed
-//   the 227 KB a block may take (the 3-D K14 does as K10). Their bound is
-//   their constant twin's bytes plus one read of W.
+//   MB in f32 at 127³), K10–K13 and the 3-D K14/K15 take the row as the
+//   fastest-varying block index (`rows_first`): the rows of one brick
+//   (K10) or chunk of points (K11–K13) then run back to back and share its
+//   part of W there (the 3-D K14/K15: the rows of one tile and chunk).
+//   Where W fits, the rows go slowest, as in the other kernels: that order
+//   was 7–20% faster for K10 and K12 at 63³ and 511² on the H100
+//   (PERF.md). The 2-D K14/K15 keep the time row slowest at every size: no
+//   2-D level of the solves comes near the L2 (W at 511² is 7.3 MB). On a
+//   level whose W exceeded it (a 2-D grid past ~1,370² in f32) each wave
+//   of resident blocks, the chunks of a few time rows, would read the
+//   whole of W from HBM again: up to 7 values a point for every such wave
+//   (28 bytes in f32, against the 12 that x, b and r_c move), where the
+//   row-first order shares a chunk's W across the time rows. The 2-D K10
+//   keeps 1/D in a fourth
+//   shared buffer beside X, D and R, computed once per window; the 3-D
+//   K10 and the 3-D K14/K15 recompute it from W[kc] at each use, since
+//   four f64 buffers of an 8 × 8 × 32 brick at ν = 3 (238 KB) exceed the
+//   227 KB a block may take; the 2-D K14/K15 carry it (above). Their
+//   bound is their constant twin's bytes plus one read of W.
 //
 // Sum order is the plain PyTorch twin's (spacetime_tpu_torch/ops/
 // mg_kernels.py): taps in table order within a group, one multiply per
@@ -436,6 +450,11 @@ constexpr int kRowTaps = 9;
 // The most taps of a 3-D stencil K4 and K5 take (`row_many` unrolled to
 // it): the P1 stencils of the Kuhn simplices have 15.
 constexpr int kCubeTaps = 16;
+// The most A taps and mass taps of a 2-D weighted stencil (`VarOp::
+// row_many`): the P1 stencils of the triangles have 7, a point and six
+// neighbours (unrolled to kRowTaps = 9, the idle taps' registers spilled
+// more).
+constexpr int kVarRowTaps = 7;
 
 // The operators of the sweep on a shared-memory window: op(buf, o, gi) is
 // Op applied to buf at window offset o (grid index gi in the row, valid
@@ -523,6 +542,8 @@ struct ConstOp {
   // nothing here, 1/D is the row's
   __device__ __forceinline__ T diag_at(int) const { return T(0); }
   __device__ __forceinline__ T inv_diag_of(T) const { return iD; }
+  // 1/D is one per row: the 2-D marches read it where they use it
+  static constexpr bool kPerNode = false;
 };
 
 // The weighted operator's per-node 1/D from the centre weight w = W[kc] at
@@ -556,6 +577,10 @@ struct VarOp {
   const int* atoff;
   const int* mtoff;
   const T* iD;
+  // the 2-D marches' (`row_many`): the mass taps where a group ends (bit
+  // k), and that group's weight at each such tap
+  unsigned mends = 0;
+  const T* mwend = nullptr;
   __device__ __forceinline__ T operator()(const T* buf, int o, int gi) const {
     T out[1];
     many<1>(buf, {o}, {gi}, out);
@@ -591,6 +616,66 @@ struct VarOp {
 #pragma unroll
     for (int j = 0; j < N; ++j) out[j] = a[j] + om * m[j];
   }
+  // Op_w at N points of a 2-D march's ring row, as `many`, with the tap
+  // loops unrolled to kVarRowTaps (at most so many taps in each table,
+  // `var_row_table_ok`): the A taps in
+  // weight-array order, every tap's weights (read at the point, gi, from
+  // the L2) loaded before the first is used and the ring's values read as
+  // they are summed; the mass's groups ended by the mask `mends`, each sum
+  // times `mwend` at its last tap (ConstOp::row_many's form); then a + ω·m.
+  // The same sums in the same order as `many`. (Loading the ring's values
+  // before the sums too, as ConstOp::row_many does, holds 7 more values a
+  // point in registers: at the march's 128 registers a thread they
+  // spilled; PERF.md §6.)
+  template <int N>
+  __device__ __forceinline__ void row_many(const T* buf, const int (&o)[N],
+                                           const int (&gi)[N],
+                                           T (&out)[N]) const {
+    constexpr int K = kVarRowTaps;
+    T a[N], m[N];
+    {
+      T w[K][N];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (k < vt.n_taps) {
+          const T* const wk = W + int64_t(k) * S;
+#pragma unroll
+          for (int j = 0; j < N; ++j) w[k][j] = __ldg(wk + gi[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < N; ++j) a[j] = T(0);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (k < vt.n_taps) {
+          const T* const bk = buf + atoff[k];
+#pragma unroll
+          for (int j = 0; j < N; ++j) a[j] += w[k][j] * bk[o[j]];
+        }
+      }
+    }
+    T acc[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) m[j] = acc[j] = T(0);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (mends >> k) {  // tap k exists: a group ends at it or after it
+        const T* const bk = buf + mtoff[k];
+#pragma unroll
+        for (int j = 0; j < N; ++j) acc[j] += bk[o[j]];
+        if ((mends >> k) & 1u) {
+          const T wk = mwend[k];
+#pragma unroll
+          for (int j = 0; j < N; ++j) {
+            m[j] += wk * acc[j];
+            acc[j] = T(0);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j) out[j] = a[j] + om * m[j];
+  }
   __device__ __forceinline__ T inv_diag(int o, int gi) const {
     return iD != nullptr ? iD[o] : var_inv_diag_at(vt, W, S, om, gi);
   }
@@ -600,6 +685,9 @@ struct VarOp {
   __device__ __forceinline__ T inv_diag_of(T w) const {
     return var_inv_diag_of(vt, om, w);
   }
+  // 1/D is per node: the 2-D marches carry each point's from the stage
+  // that read its diagonal to the later stages of that row, in registers
+  static constexpr bool kPerNode = true;
 };
 
 // The row's group weights and the taps' window offsets, in shared memory.
@@ -949,86 +1037,6 @@ __global__ void mg_prolong_correct_kernel(const T* __restrict__ x,
     const Point f = point_of<DIM>(idx, g);
     out[idx] = x[idx] + prolong_at<DIM>(ec + f.t * Sc, gc, ld, f.z, f.y, f.x);
   }
-}
-
-// The weighted fused stages on the tiled window, in 2-D (K6 and K7, and
-// in 3-D all four, march: below).
-//
-// The end of the 2-D K14, after the zero-init sweep left x valid on the
-// tile grown by 2 (H = nu + 1): the residual on the tile grown by 1 (one
-// fine row and column past the tile is what the restriction reads), x
-// written out, then r_c = R r for the tile's coarse points, with K8's pair
-// sums (`restrict_at`). The tile starts at an even row.
-template <typename T, typename Op>
-__device__ void fused_pre_tail(const Op& op, const T* __restrict__ bt,
-                               const Window& win, const Lead& ld, const T* X,
-                               T* R, T* __restrict__ xt, T* __restrict__ rct) {
-  using B = BrickOf<2>;
-  for_region<2>(win, 1, [&](int o, int, int, int, int gi, bool in) {
-    R[o] = in ? bt[gi] - op(X, o, gi) : T(0);
-  });
-  for_region<2>(win, 0, [&](int o, int, int, int, int gi, bool in) {
-    if (in) xt[gi] = X[o];
-  });
-  __syncthreads();
-  const Grid gc = coarse_grid<2>(win.g, ld);
-  // the tile's first coarse point and its coarse extents
-  const int cy0 = (win.y0 + win.H - ld.off) / 2;
-  const int cx0 = (win.x0 + win.H) / 2;
-  constexpr int ncx = B::x / 2;
-  auto res = [&](int, int y, int x) {
-    return R[(y - win.y0) * win.sy + (x - win.x0)];
-  };
-  for (int i = threadIdx.x; i < B::y / 2 * ncx; i += blockDim.x) {
-    const Point c{0, 0, cy0 + i / ncx, cx0 + i % ncx};
-    if (c.y < 0 || c.y >= gc.ny || c.x >= gc.nx) continue;
-    rct[c.y * gc.nx + c.x] = restrict_at<2, T>(c, ld, res);
-  }
-}
-
-// The start of the 2-D K15: X = x + P e_c on the whole window (halo
-// nu), zero outside the grid, with K9's prolongation (`prolong_at`).
-template <typename T>
-__device__ void prolong_window(const T* __restrict__ xt,
-                               const T* __restrict__ et, const Window& win,
-                               const Lead& ld, T* X) {
-  const Grid gc = coarse_grid<2>(win.g, ld);
-  for_region<2>(win, win.H, [&](int o, int fz, int fy, int fx, int gi,
-                                bool in) {
-    X[o] = in ? xt[gi] + prolong_at<2>(et, gc, ld, fz, fy, fx) : T(0);
-  });
-}
-
-// The 2-D K14, on K10's blocks (rows_first where W does not fit in the
-// L2): 1/D is a fourth window buffer, as in the 2-D K10.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    mg_fused_pre_var_kernel(const T* __restrict__ b, const T* __restrict__ W,
-                            const T* __restrict__ omega,
-                            const T* __restrict__ invT,
-                            const T* __restrict__ invDel, T* __restrict__ xo,
-                            T* __restrict__ rco, Grid g,
-                            const __grid_constant__ VarTaps vt,
-                            const __grid_constant__ PairGroups pm, int nu,
-                            int rows_first) {
-  __shared__ T wm[kMaxPairGroups];
-  __shared__ int atoff[kMaxVarTaps];
-  __shared__ int mtoff[kMaxPairTaps];
-  const int64_t t = rows_first ? blockIdx.x : blockIdx.z;
-  const int S = int(row_size(g));
-  const RowCoef<T> c = row_coef(omega, invT, invDel, t);
-  const Window win = make_window<2>(g, nu + 1, rows_first != 0);
-  T* X = window_buffers<T>();
-  T* D = X + win.volume;
-  T* R = D + win.volume;
-  T* iD = R + win.volume;
-  const T* bt = b + t * S;
-  var_inv_diag<2>(vt, W, S, c.om, win, iD);
-  var_tables(vt, pm, win, wm, atoff, mtoff);
-  const VarOp<T> op{vt, pm, W, S, c.om, wm, atoff, mtoff, iD};
-  cheb_sweep<2>(op, c, bt, win, X, D, R, nu, true, win.H);
-  fused_pre_tail(op, bt, win, serial_lead<2>(g), X, R, xo + t * S,
-                 rco + t * row_size(coarse_grid<2>(g)));
 }
 
 // The 3-D fused stages march in z. A block owns a kMarchY × kMarchX (y, x)
@@ -1699,7 +1707,9 @@ constexpr int kMarch2Points = 1024;  // the most window points a block computes
 // A thread's points of the window row, the most threads a block takes and
 // the blocks an SM must hold (the register cap), chosen by timing on the
 // H100 (PERF.md): 4 points a thread in float32 at 2 blocks (128 registers
-// a thread), 2 in float64 at 1 (128 registers; at 2, 64 spilled).
+// a thread), 2 in float64 at 1 (128 registers; at 2, 64 spilled). K14 and
+// K15 take the same: 2 points a thread in float32, or 1 in float64 at 512
+// points a block, were slower for them at 511 columns (PERF.md).
 template <typename T>
 __host__ __device__ constexpr int march2_slots() {
   return sizeof(T) == 4 ? 4 : 2;
@@ -1820,20 +1830,27 @@ __device__ __forceinline__ void zero_ghosts(T* ring, int rings, int wrow,
   }
 }
 
-// The group ends of a 2-D march's pair table (`ConstOp::row_many`): the
-// mask of the taps where a group ends, returned, and the row's weight of
-// that group at each such tap, written to wend (shared memory; needs a
+// The group ends of a 2-D march's table of weight groups (`row_many`):
+// the mask of the taps where a group ends, returned, and weight(g) of each
+// group g at its last tap, written to wend (shared memory; needs a
 // __syncthreads() before it is read).
-template <typename T>
-__device__ __forceinline__ unsigned row_group_ends(const PairGroups& pg,
-                                                   T om, T* wend) {
+template <typename T, typename Weight>
+__device__ __forceinline__ unsigned group_ends(const PairGroups& pg,
+                                               Weight weight, T* wend) {
   if (threadIdx.x < pg.n_groups) {
-    wend[pg.start[threadIdx.x + 1] - 1] =
-        group_weight(pg, int(threadIdx.x), om);
+    wend[pg.start[threadIdx.x + 1] - 1] = weight(int(threadIdx.x));
   }
   unsigned ends = 0;
   for (int g = 0; g < pg.n_groups; ++g) ends |= 1u << (pg.start[g + 1] - 1);
   return ends;
+}
+
+// The same for a pair table, the weights the row's (`group_weight`).
+template <typename T>
+__device__ __forceinline__ unsigned row_group_ends(const PairGroups& pg,
+                                                   T om, T* wend) {
+  return group_ends(pg, [&](int g) { return group_weight(pg, g, om); },
+                    wend);
 }
 
 // The ring offsets of n 2-D taps for each rotation r (the tapped point's
@@ -1847,10 +1864,13 @@ __device__ __forceinline__ void row_ring_offsets(int n, const int* dy,
   }
 }
 
-// The 2-D pre-stage's march of one block (K6's stages, see
+// The 2-D pre-stage's march of one block (K6's and K14's stages, see
 // march_fused_pre): x on its fine rows (xt, the time row) and r_c on its
-// coarse rows (rct). op_at(r) is the operator on a ring whose centre row
-// lies in slot r; vm the slab's validity field, or null.
+// coarse rows (rct). op_at(r) is the operator on a
+// ring whose centre row lies in slot r; vm the slab's validity field, or
+// null. A per-node 1/D (`kPerNode`) is computed once a point, at stage 0
+// from the diagonal loaded a row ahead, and carried in registers to the
+// row's later stages.
 template <int NU, typename T, typename OpAt>
 __device__ void march2_fused_pre(const OpAt& op_at, const RowCoef<T>& c,
                                  const T* __restrict__ bt,
@@ -1858,6 +1878,7 @@ __device__ void march2_fused_pre(const OpAt& op_at, const RowCoef<T>& c,
                                  const Lead& ld, const RowChunk& mc, int wrow,
                                  T* __restrict__ xt, T* __restrict__ rct) {
   constexpr int H = NU + 1, S = march2_slots<T>();
+  constexpr bool kCarry = decltype(op_at(0))::kPerNode;
   constexpr int kCentre = 1;  // a column whose taps stay in the window
   T* const ring = window_buffers<T>();  // ring k: 3 rows from ring + 3·wrow·k
   T* const X = ring + 3 * wrow * (NU - 1);
@@ -1894,7 +1915,8 @@ __device__ void march2_fused_pre(const OpAt& op_at, const RowCoef<T>& c,
   // grown by ν − 1 − k rows
   const int r_lo = ld.off + 2 * mc.k_lo, r_hi = ld.off + 2 * mc.k_hi + 1;
   const int x_lo = min(mc.f_lo, r_lo - 1), x_hi = max(mc.f_hi, r_hi + 1);
-  T rr[NU - 1][S], xr[NU - 1][S];  // r, x of stages 0 … ν−2, last row
+  // r, x (and a per-node 1/D) of stages 0 … ν−2, last row
+  T rr[NU - 1][S], xr[NU - 1][S], ir[NU - 1][S];
   // b and the diagonal's entry (`diag_at`) of stage 0's row, b of the
   // residual's: loaded a step ahead
   const auto op0 = op_at(0);
@@ -1913,7 +1935,7 @@ __device__ void march2_fused_pre(const OpAt& op_at, const RowCoef<T>& c,
   };
   load(x_lo - (NU - 1), b0, d0, br);
   for (int t = x_lo - (NU - 1); t < x_hi + NU - 1; ++t) {
-    T rn[NU - 1][S], xn[NU - 1][S];
+    T rn[NU - 1][S], xn[NU - 1][S], idn[NU - 1][S];
     T b0n[S], d0n[S], brn[S];
     load(t + 1, b0n, d0n, brn);
     auto stage = [&](auto K) {
@@ -1940,15 +1962,16 @@ __device__ void march2_fused_pre(const OpAt& op_at, const RowCoef<T>& c,
       for (int j = 0; j < S; ++j) {
         if (depth[j] < k) continue;
         const int gi = gg[j];
-        T r = T(0), d = T(0), x = T(0);
+        T r = T(0), d = T(0), x = T(0), id = T(0);
         if (yin) {
           if constexpr (k == 0) {
-            r = valid_at(vm, gi) * (op.inv_diag_of(d0[j]) * b0[j]);
+            id = op.inv_diag_of(d0[j]);
+            r = valid_at(vm, gi) * (id * b0[j]);
             d = r * c.iT;
             x = d;
           } else {
-            r = valid_at(vm, gi) *
-                (rr[k - 1][j] - op.inv_diag(po[j], gi) * opd[j]);
+            id = kCarry ? ir[k - 1][j] : op.inv_diag(po[j], gi);
+            r = valid_at(vm, gi) * (rr[k - 1][j] - id * opd[j]);
             d = c1[k] * din[rot * wrow + po[j]] + c2[k] * r;
             x = xr[k - 1][j] + d;
           }
@@ -1957,6 +1980,7 @@ __device__ void march2_fused_pre(const OpAt& op_at, const RowCoef<T>& c,
           out[po[j]] = d;
           rn[k][j] = r;
           xn[k][j] = x;
+          if constexpr (kCarry) idn[k][j] = id;
         } else {
           out[po[j]] = x;
           if (yin && depth[j] >= H && p >= mc.f_lo && p < mc.f_hi) {
@@ -2008,6 +2032,7 @@ __device__ void march2_fused_pre(const OpAt& op_at, const RowCoef<T>& c,
       for (int k = 0; k < NU - 1; ++k) {
         rr[k][j] = rn[k][j];
         xr[k][j] = xn[k][j];
+        if constexpr (kCarry) ir[k][j] = idn[k][j];
       }
       b0[j] = b0n[j];
       d0[j] = d0n[j];
@@ -2016,11 +2041,13 @@ __device__ void march2_fused_pre(const OpAt& op_at, const RowCoef<T>& c,
   }
 }
 
-// The 2-D post-stage's march of one block (K7's stages, see
-// march_fused_post): x on its fine rows [mc.f_lo, mc.f_hi) of the time row
-// (ot), from x (xt), b (bt) and e_c (et, the coarse row of the transfers
-// ld, read with K9's `prolong_at` arithmetic). op_at as in
-// march2_fused_pre; vm the slab's validity field, or null.
+// The 2-D post-stage's march of one block (K7's and K15's stages, see
+// march_fused_post): x on its fine rows [mc.f_lo, mc.f_hi) of the time
+// row (ot), from x (xt), b (bt) and e_c (et, the
+// coarse row of the transfers ld, read with K9's `prolong_at`
+// arithmetic). op_at as in march2_fused_pre, a per-node 1/D computed at
+// stage 1 and carried to the row's later stages; vm the slab's validity
+// field, or null.
 template <int NU, typename T, typename OpAt>
 __device__ void march2_fused_post(const OpAt& op_at, const RowCoef<T>& c,
                                   const T* __restrict__ xt,
@@ -2030,6 +2057,7 @@ __device__ void march2_fused_post(const OpAt& op_at, const RowCoef<T>& c,
                                   const Lead& ld, const RowChunk& mc,
                                   int wrow, T* __restrict__ ot) {
   constexpr int H = NU, S = march2_slots<T>();
+  constexpr bool kCarry = decltype(op_at(0))::kPerNode;
   constexpr int kCentre = 1;  // a column whose taps stay in the window
   T* const ring = window_buffers<T>();  // ring k: 3 rows from ring + 3·wrow·k
   const Grid gc = coarse_grid<2>(g, ld);
@@ -2084,7 +2112,8 @@ __device__ void march2_fused_post(const OpAt& op_at, const RowCoef<T>& c,
       dv[j] = in ? op0.diag_at(p * g.nx + px[j]) : T(0);
     }
   };
-  T rr[NU - 1][S], xr[NU - 1][S];  // r, x of stages 1 … ν−1, last row
+  // r, x (and a per-node 1/D) of stages 1 … ν−1, last row
+  T rr[NU - 1][S], xr[NU - 1][S], ir[NU - 1][S];
   const int t0 = mc.f_lo - NU;
   load0(t0);
   load1(t0 - 1);
@@ -2102,7 +2131,7 @@ __device__ void march2_fused_post(const OpAt& op_at, const RowCoef<T>& c,
     }
     load0(t + 1);
     __syncthreads();
-    T rn[NU - 1][S], xn[NU - 1][S];
+    T rn[NU - 1][S], xn[NU - 1][S], idn[NU - 1][S];
     auto stage = [&](auto K) {
       constexpr int k = decltype(K)::value;
       const int p = t - k;
@@ -2126,15 +2155,16 @@ __device__ void march2_fused_post(const OpAt& op_at, const RowCoef<T>& c,
       for (int j = 0; j < S; ++j) {
         if (depth[j] < k) continue;
         const int gi = gg[j];
-        T r = T(0), d = T(0), x = T(0);
+        T r = T(0), d = T(0), x = T(0), id = T(0);
         if (yin) {
           if constexpr (k == 1) {
-            r = valid_at(vm, gi) * (op.inv_diag_of(dv[j]) * (bv[j] - opd[j]));
+            id = op.inv_diag_of(dv[j]);
+            r = valid_at(vm, gi) * (id * (bv[j] - opd[j]));
             d = r * c.iT;
             x = din[rot * wrow + po[j]] + d;
           } else {
-            r = valid_at(vm, gi) *
-                (rr[k - 2][j] - op.inv_diag(po[j], gi) * opd[j]);
+            id = kCarry ? ir[k - 2][j] : op.inv_diag(po[j], gi);
+            r = valid_at(vm, gi) * (rr[k - 2][j] - id * opd[j]);
             d = c1[k - 1] * din[rot * wrow + po[j]] + c2[k - 1] * r;
             x = xr[k - 2][j] + d;
           }
@@ -2143,6 +2173,7 @@ __device__ void march2_fused_post(const OpAt& op_at, const RowCoef<T>& c,
           ring[3 * wrow * k + rot * wrow + po[j]] = d;
           rn[k - 1][j] = r;
           xn[k - 1][j] = x;
+          if constexpr (kCarry) idn[k - 1][j] = id;
         } else if (yin && depth[j] >= H && p >= mc.f_lo && p < mc.f_hi) {
           ot[gi] = x;
         }
@@ -2162,6 +2193,7 @@ __device__ void march2_fused_post(const OpAt& op_at, const RowCoef<T>& c,
       for (int j = 0; j < S; ++j) {
         rr[k][j] = rn[k][j];
         xr[k][j] = xn[k][j];
+        if constexpr (kCarry) ir[k][j] = idn[k][j];
       }
     }
   }
@@ -2227,6 +2259,97 @@ __global__ void __launch_bounds__(march2_threads<T>(),
       },
       c, x + t * S, ec + t * row_size(coarse_grid<2>(g, ld)), b + t * S, vm,
       g, ld, row_post_chunk(g, chunk, rp, NU), rp.wrow, out + t * S);
+}
+
+// The weighted 2-D marches' tables in shared memory (K14, K15): the mass
+// groups' weights at their last taps, the A and M taps' ring offsets per
+// rotation.
+template <typename T>
+struct Var2Tables {
+  T mwend[kRowTaps];
+  int atoff[3 * kMaxVarTaps];
+  int mtoff[3 * kMaxPairTaps];
+};
+
+// Fills tb for rows of wrow points and returns the mass's group-end mask.
+// Ends with a __syncthreads().
+template <typename T>
+__device__ __forceinline__ unsigned var2_tables(const VarTaps& vt,
+                                                const PairGroups& pm,
+                                                int wrow, Var2Tables<T>& tb) {
+  const unsigned mends =
+      group_ends(pm, [&](int g) { return T(pm.wm[g]); }, tb.mwend);
+  row_ring_offsets(vt.n_taps, vt.dy, vt.dx, wrow, kMaxVarTaps, tb.atoff);
+  row_ring_offsets(pm.start[pm.n_groups], pm.dy, pm.dx, wrow, kMaxPairTaps,
+                   tb.mtoff);
+  __syncthreads();
+  return mends;
+}
+
+// The 2-D K14: K6's march with Op_w (`VarOp::row_many`), 1/D from W[kc]
+// read a row ahead and carried through the row's stages; the time row is
+// the slowest block index (see the header).
+template <int NU, typename T>
+__global__ void __launch_bounds__(march2_threads<T>(),
+                                  march2_min_blocks<T>())
+    mg_march2_pre_var_kernel(const T* __restrict__ b,
+                             const T* __restrict__ W,
+                             const T* __restrict__ omega,
+                             const T* __restrict__ invT,
+                             const T* __restrict__ invDel,
+                             T* __restrict__ xo, T* __restrict__ rco, Grid g,
+                             const __grid_constant__ VarTaps vt,
+                             const __grid_constant__ PairGroups pm,
+                             int chunk, RowPlan rp) {
+  __shared__ Var2Tables<T> tb;
+  const int64_t t = blockIdx.z;
+  const int S = int(row_size(g));
+  const RowCoef<T> c = row_coef(omega, invT, invDel, t);
+  const unsigned mends = var2_tables(vt, pm, rp.wrow, tb);
+  const Lead ld = serial_lead<2>(g);
+  march2_fused_pre<NU>(
+      [&](int r) {
+        return VarOp<T>{vt, pm, W, S, c.om, nullptr,
+                        tb.atoff + r * kMaxVarTaps,
+                        tb.mtoff + r * kMaxPairTaps, nullptr, mends,
+                        tb.mwend};
+      },
+      c, b + t * S, static_cast<const T*>(nullptr), g, ld,
+      row_pre_chunk(g, ld, chunk, rp, NU + 1), rp.wrow, xo + t * S,
+      rco + t * row_size(coarse_grid<2>(g)));
+}
+
+// The 2-D K15: K7's march with Op_w, as K14.
+template <int NU, typename T>
+__global__ void __launch_bounds__(march2_threads<T>(),
+                                  march2_min_blocks<T>())
+    mg_march2_post_var_kernel(const T* __restrict__ x,
+                              const T* __restrict__ b,
+                              const T* __restrict__ ec,
+                              const T* __restrict__ W,
+                              const T* __restrict__ omega,
+                              const T* __restrict__ invT,
+                              const T* __restrict__ invDel,
+                              T* __restrict__ out, Grid g,
+                              const __grid_constant__ VarTaps vt,
+                              const __grid_constant__ PairGroups pm,
+                              int chunk, RowPlan rp) {
+  __shared__ Var2Tables<T> tb;
+  const int64_t t = blockIdx.z;
+  const int S = int(row_size(g));
+  const RowCoef<T> c = row_coef(omega, invT, invDel, t);
+  const unsigned mends = var2_tables(vt, pm, rp.wrow, tb);
+  const Lead ld = serial_lead<2>(g);
+  march2_fused_post<NU>(
+      [&](int r) {
+        return VarOp<T>{vt, pm, W, S, c.om, nullptr,
+                        tb.atoff + r * kMaxVarTaps,
+                        tb.mtoff + r * kMaxPairTaps, nullptr, mends,
+                        tb.mwend};
+      },
+      c, x + t * S, ec + t * row_size(coarse_grid<2>(g)), b + t * S,
+      static_cast<const T*>(nullptr), g, ld, row_post_chunk(g, chunk, rp, NU),
+      rp.wrow, out + t * S);
 }
 
 // K4 and K5 march along the leading grid axis (y in 2-D, z in 3-D; see
@@ -2453,42 +2576,6 @@ __global__ void __launch_bounds__(stencil_threads<DIM, T>(),
       if (p + u < f_hi) step(p + u, xs[u], bs[u]);
     }
   }
-}
-
-// The 2-D K15: 1/D a fourth window buffer, as in K14.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    mg_fused_post_var_kernel(const T* __restrict__ x, const T* __restrict__ b,
-                             const T* __restrict__ ec,
-                             const T* __restrict__ W,
-                             const T* __restrict__ omega,
-                             const T* __restrict__ invT,
-                             const T* __restrict__ invDel,
-                             T* __restrict__ out, Grid g,
-                             const __grid_constant__ VarTaps vt,
-                             const __grid_constant__ PairGroups pm, int nu,
-                             int rows_first) {
-  __shared__ T wm[kMaxPairGroups];
-  __shared__ int atoff[kMaxVarTaps];
-  __shared__ int mtoff[kMaxPairTaps];
-  const int64_t t = rows_first ? blockIdx.x : blockIdx.z;
-  const int S = int(row_size(g));
-  const RowCoef<T> c = row_coef(omega, invT, invDel, t);
-  const Window win = make_window<2>(g, nu, rows_first != 0);
-  T* X = window_buffers<T>();
-  T* D = X + win.volume;
-  T* R = D + win.volume;
-  T* iD = R + win.volume;
-  prolong_window(x + t * S, ec + t * row_size(coarse_grid<2>(g)), win,
-                 serial_lead<2>(g), X);
-  var_inv_diag<2>(vt, W, S, c.om, win, iD);
-  var_tables(vt, pm, win, wm, atoff, mtoff);
-  cheb_sweep<2>(VarOp<T>{vt, pm, W, S, c.om, wm, atoff, mtoff, iD}, c,
-                b + t * S, win, X, D, R, nu, false, win.H - 1);
-  T* ot = out + t * S;
-  for_region<2>(win, 0, [&](int o, int, int, int, int gi, bool in) {
-    if (in) ot[gi] = X[o];
-  });
 }
 
 // A_w x at grid point (z, y, x) of one row X in device memory (zero outside
@@ -2950,28 +3037,57 @@ int launch_march_pre_var(const T* b, const T* W, const T* omega,
   return int(cudaGetLastError());
 }
 
-// K14: the march in 3-D, the brick window in 2-D (as K6).
+// Whether a weighted table suits the 2-D marches' `VarOp::row_many`: at
+// most kVarRowTaps A taps, the centre among them, every tap within one
+// cell of its point, and a mass table of at most kVarRowTaps taps as
+// `row_table_ok` takes it.
+bool var_row_table_ok(const VarTaps& vt, const PairGroups& pm) {
+  if (vt.n_taps < 1 || vt.n_taps > kVarRowTaps || vt.kc < 0 ||
+      vt.kc >= vt.n_taps) {
+    return false;
+  }
+  auto far = [](int d) { return d < -1 || d > 1; };
+  for (int k = 0; k < vt.n_taps; ++k) {
+    if (far(vt.dz[k]) || far(vt.dy[k]) || far(vt.dx[k])) return false;
+  }
+  return row_table_ok(pm, kVarRowTaps);
+}
+
+template <int NU, typename T>
+int launch_march2_pre_var(const T* b, const T* W, const T* omega,
+                          const T* invT, const T* invDel, T* xo, T* rco,
+                          int64_t nt, Grid g, const VarTaps* vt,
+                          const PairGroups* pm, int chunk, void* stream) {
+  if (!var_row_table_ok(*vt, *pm)) return int(cudaErrorInvalidValue);
+  const RowPlan rp = row_plan(g.nx, NU + 1, march2_slots<T>());
+  size_t bytes = 0;
+  const int err =
+      march2_bytes<T>(mg_march2_pre_var_kernel<NU, T>, NU + 1, rp, &bytes);
+  if (err != 0) return err;
+  mg_march2_pre_var_kernel<NU, T><<<
+      row_blocks(nt, rp, serial_lead<2>(g).nc, chunk), rp.threads, bytes,
+      as_stream(stream)>>>(b, W, omega, invT, invDel, xo, rco, g, *vt, *pm,
+                           chunk, rp);
+  return int(cudaGetLastError());
+}
+
+// K14: the march in z in 3-D (chunk ≥ 1 coarse planes), in y in 2-D
+// (chunk ≥ 1 coarse rows); ν ∈ {2, 3}.
 template <int DIM, typename T>
 int launch_fused_pre_var(const T* b, const T* W, const T* omega,
                          const T* invT, const T* invDel, T* xo, T* rco,
                          int64_t nt, Grid g, const VarTaps* vt,
                          const PairGroups* pm, int nu, int chunk,
                          void* stream) {
+  if (chunk < 1 || nu < 2 || nu > 3) return int(cudaErrorInvalidValue);
   if constexpr (DIM == 3) {
-    if (chunk < 1 || nu < 2 || nu > 3) return int(cudaErrorInvalidValue);
     return (nu == 2 ? launch_march_pre_var<2, T>
                     : launch_march_pre_var<3, T>)(
         b, W, omega, invT, invDel, xo, rco, nt, g, vt, pm, chunk, stream);
   } else {
-    size_t bytes = 0;
-    const int err =
-        window_bytes<2, T>(mg_fused_pre_var_kernel<T>, nu + 1, &bytes, 4);
-    if (err != 0) return err;
-    const bool rf = rows_first(vt, row_size(g), sizeof(T));
-    mg_fused_pre_var_kernel<T><<<bricks_for<2>(rf, nt, g), kThreads, bytes,
-                                 as_stream(stream)>>>(
-        b, W, omega, invT, invDel, xo, rco, g, *vt, *pm, nu, rf);
-    return int(cudaGetLastError());
+    return (nu == 2 ? launch_march2_pre_var<2, T>
+                    : launch_march2_pre_var<3, T>)(
+        b, W, omega, invT, invDel, xo, rco, nt, g, vt, pm, chunk, stream);
   }
 }
 
@@ -2991,15 +3107,34 @@ int launch_march_post_var(const T* x, const T* b, const T* ec, const T* W,
   return int(cudaGetLastError());
 }
 
-// K15: the march in 3-D, the brick window in 2-D (as K7).
+template <int NU, typename T>
+int launch_march2_post_var(const T* x, const T* b, const T* ec, const T* W,
+                           const T* omega, const T* invT, const T* invDel,
+                           T* out, int64_t nt, Grid g, const VarTaps* vt,
+                           const PairGroups* pm, int chunk, void* stream) {
+  if (!var_row_table_ok(*vt, *pm)) return int(cudaErrorInvalidValue);
+  const RowPlan rp = row_plan(g.nx, NU, march2_slots<T>());
+  size_t bytes = 0;
+  const int err =
+      march2_bytes<T>(mg_march2_post_var_kernel<NU, T>, NU, rp, &bytes);
+  if (err != 0) return err;
+  mg_march2_post_var_kernel<NU, T><<<row_blocks(nt, rp, g.ny, chunk),
+                                     rp.threads, bytes,
+                                     as_stream(stream)>>>(
+      x, b, ec, W, omega, invT, invDel, out, g, *vt, *pm, chunk, rp);
+  return int(cudaGetLastError());
+}
+
+// K15: the march in z in 3-D (chunk ≥ 1 fine planes), in y in 2-D (chunk
+// ≥ 1 fine rows); ν ∈ {2, 3}.
 template <int DIM, typename T>
 int launch_fused_post_var(const T* x, const T* b, const T* ec, const T* W,
                           const T* omega, const T* invT, const T* invDel,
                           T* out, int64_t nt, Grid g, const VarTaps* vt,
                           const PairGroups* pm, int nu, int chunk,
                           void* stream) {
+  if (chunk < 1 || nu < 2 || nu > 3) return int(cudaErrorInvalidValue);
   if constexpr (DIM == 3) {
-    if (chunk < 1 || nu < 2 || nu > 3) return int(cudaErrorInvalidValue);
     const bool rf = rows_first(vt, row_size(g), sizeof(T));
     return (nu == 2 ? (rf ? launch_march_post_var<2, T, true>
                           : launch_march_post_var<2, T, false>)
@@ -3007,15 +3142,9 @@ int launch_fused_post_var(const T* x, const T* b, const T* ec, const T* W,
                           : launch_march_post_var<3, T, false>))(
         x, b, ec, W, omega, invT, invDel, out, nt, g, vt, pm, chunk, stream);
   } else {
-    size_t bytes = 0;
-    const int err =
-        window_bytes<2, T>(mg_fused_post_var_kernel<T>, nu, &bytes, 4);
-    if (err != 0) return err;
-    const bool rf = rows_first(vt, row_size(g), sizeof(T));
-    mg_fused_post_var_kernel<T><<<bricks_for<2>(rf, nt, g), kThreads, bytes,
-                                  as_stream(stream)>>>(
-        x, b, ec, W, omega, invT, invDel, out, g, *vt, *pm, nu, rf);
-    return int(cudaGetLastError());
+    return (nu == 2 ? launch_march2_post_var<2, T>
+                    : launch_march2_post_var<3, T>)(
+        x, b, ec, W, omega, invT, invDel, out, nt, g, vt, pm, chunk, stream);
   }
 }
 
@@ -3173,10 +3302,10 @@ int march_occupancy(int post, int var, int* blocks, int* bytes) {
 }
 
 // Blocks per SM, dynamic shared bytes, threads a block and segments a row
-// of the 2-D K6 (post = 0) or K7 (post = 1) at ν = NU on rows of nx
-// columns.
+// of the 2-D K6 (post = 0, var = 0), K14 (0, 1), K7 (1, 0) or K15 (1, 1)
+// at ν = NU on rows of nx columns.
 template <int NU, typename T>
-int march2_occupancy(int post, int nx, int* blocks, int* bytes,
+int march2_occupancy(int post, int var, int nx, int* blocks, int* bytes,
                      int* threads, int* nseg) {
   const RowPlan rp = row_plan(nx, post ? NU : NU + 1, march2_slots<T>());
   auto of = [&](auto kernel, int rings) {
@@ -3189,6 +3318,10 @@ int march2_occupancy(int post, int nx, int* blocks, int* bytes,
     return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         blocks, kernel, rp.threads, b));
   };
+  if (var) {
+    return post ? of(mg_march2_post_var_kernel<NU, T>, NU)
+                : of(mg_march2_pre_var_kernel<NU, T>, NU + 1);
+  }
   return post ? of(mg_march2_post_kernel<NU, T>, NU)
               : of(mg_march2_pre_kernel<NU, T>, NU + 1);
 }
@@ -3252,19 +3385,19 @@ int mg_march_occupancy(int post, int var, int nu, int f64, int* blocks,
       post, var, blocks, bytes);
 }
 
-// The same for the 2-D K6 (post = 0) or K7 (post = 1) at ν ∈ {2, 3} on
-// rows of nx columns, and the threads of its blocks and the segments of a
-// row there (`row_plan`).
-int mg_march2_occupancy(int post, int nu, int f64, int nx, int* blocks,
-                        int* bytes, int* threads, int* nseg) {
+// The same for the 2-D K6 (post = 0, var = 0), K14 (0, 1), K7 (1, 0) or
+// K15 (1, 1) at ν ∈ {2, 3} on rows of nx columns, and the threads of its
+// blocks and the segments of a row there (`row_plan`).
+int mg_march2_occupancy(int post, int var, int nu, int f64, int nx,
+                        int* blocks, int* bytes, int* threads, int* nseg) {
   if (nu < 2 || nu > 3 || nx < 1) return int(cudaErrorInvalidValue);
   if (f64) {
     return (nu == 2 ? march2_occupancy<2, double>
-                    : march2_occupancy<3, double>)(post, nx, blocks, bytes,
-                                                   threads, nseg);
+                    : march2_occupancy<3, double>)(post, var, nx, blocks,
+                                                   bytes, threads, nseg);
   }
   return (nu == 2 ? march2_occupancy<2, float> : march2_occupancy<3, float>)(
-      post, nx, blocks, bytes, threads, nseg);
+      post, var, nx, blocks, bytes, threads, nseg);
 }
 
 // The same for K4 (res = 1) or K5 (res = 0) of dim on planes (rows in

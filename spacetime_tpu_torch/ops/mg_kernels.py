@@ -29,9 +29,10 @@ runs, as in the JAX package. The fused stages keep ν ∈ {2, 3}, as JAX's
 do. In 3-D the fused stages K6, K7, K14 and K15 march in z: a block owns a
 ``MARCH_TILE`` (y, x) tile of one row and a chunk of planes (coarse for
 K6/K14, fine for K7/K15), whose depth the wrapper picks (``march_chunk``)
-so that the launch fills the card. In 2-D K6 and K7 march in y: a block
-owns a segment of a row's columns (the whole row where it fits,
-csrc/mg.cu ``row_plan``) and a chunk of its rows (``march2_chunk``). K4
+so that the launch fills the card. In 2-D K6, K7, K14 and K15 march in
+y: a block owns a segment of a row's columns (the whole row where it
+fits, csrc/mg.cu ``row_plan``) and a chunk of its rows (``march2_chunk``,
+the same wave rule for the weighted pair with its own blocks an SM). K4
 and K5 march too, in y (2-D: a segment of a row) and in z (3-D: a
 ``MARCH_TILE`` tile), with chunks by the same wave rule
 (``stencil_chunk``).
@@ -203,15 +204,16 @@ def march2_chunk(blocks_per_chunk: int, n: int, least: int, resident: int,
 
 
 @functools.lru_cache(maxsize=None)
-def march2_plan(post: bool, nu: int, dtype, nx: int,
+def march2_plan(post: bool, var: bool, nu: int, dtype, nx: int,
                 index: int) -> tuple[int, int]:
     """(blocks an SM of device ``index`` holds, segments a row) of the 2-D
-    K6 (K7 with ``post``) on rows of nx columns (csrc/mg.cu
-    ``mg_march2_occupancy``: registers and shared memory, ``row_plan``)."""
+    K6 (K7 with ``post``; K14 and K15 with ``var``) on rows of nx columns
+    (csrc/mg.cu ``mg_march2_occupancy``: registers and shared memory,
+    ``row_plan``)."""
     lib = native.LIB.get()
     out = [ctypes.c_int() for _ in range(4)]  # blocks, bytes, threads, nseg
     with torch.cuda.device(index):
-        err = lib.mg_march2_occupancy(int(post), nu,
+        err = lib.mg_march2_occupancy(int(post), int(var), nu,
                                       int(dtype == torch.float64), nx,
                                       *map(ctypes.byref, out))
     native.check(lib, "mg_march2_occupancy", err)
@@ -263,6 +265,7 @@ class _KernelLevel:
     ν, the stage gates and the checks before a launch."""
 
     _COLS: dict  # the kernels' columns -> the row params' names
+    _VAR = False  # the weighted kernels (K10–K15)
 
     def __init__(self, gs, nu: int, nu_post: int | None):
         self.gs = tuple(gs)
@@ -384,14 +387,20 @@ class _KernelLevel:
         return (1,) * (3 - self.dim) + self.gs + (self.dim,)
 
     def _chunk(self, b, n: int, stage: str = "pre") -> int:
-        """The planes a block of the 3-D march on field ``b`` walks
-        through: of the nc coarse ones on the lead axis (K6/K14,
-        ``stage="pre"``) or of the fine ones (K7/K15, "post"); unused in
-        2-D, where K14/K15 do not march (``MSKernelLevel`` marches K6/K7)."""
-        if self.dim == 2:
-            return 0
-        return march_chunk(b.shape[0], self.gs, n, _sm_count(b.device.index),
-                           MARCH_LEAST[stage])
+        """The planes (rows in 2-D) a block of the march of the fused
+        stages on field ``b`` walks through: of the nc coarse ones on the
+        lead axis (K6/K14, ``stage="pre"``) or of the fine ones (K7/K15,
+        "post"); in 3-D by ``march_chunk``, in 2-D by ``march2_chunk``."""
+        index = b.device.index
+        if self.dim == 3:
+            return march_chunk(b.shape[0], self.gs, n, _sm_count(index),
+                               MARCH_LEAST[stage])
+        pre = stage == "pre"
+        resident, nseg = march2_plan(not pre, self._VAR, self.nu, b.dtype,
+                                     self.gs[1], index)
+        return march2_chunk(b.shape[0] * nseg, n, MARCH_LEAST[stage],
+                            resident, _sm_count(index), 2 if pre else 1,
+                            2 * self.nu + pre)
 
 
 class MSKernelLevel(_KernelLevel):
@@ -417,18 +426,6 @@ class MSKernelLevel(_KernelLevel):
             native.pair_groups_struct(self.pairs, self.dim),
             native.pair_groups_struct(pair_groups(self.groups_A, ()), self.dim),
         )
-
-    def _chunk(self, b, n: int, stage: str = "pre") -> int:
-        """As ``_KernelLevel._chunk``; in 2-D the rows a block of the row
-        march walks through (``march2_chunk``)."""
-        if self.dim == 3:
-            return super()._chunk(b, n, stage)
-        pre = stage == "pre"
-        resident, nseg = march2_plan(not pre, self.nu, b.dtype, self.gs[1],
-                                     b.device.index)
-        return march2_chunk(b.shape[0] * nseg, n, MARCH_LEAST[stage],
-                            resident, _sm_count(b.device.index),
-                            2 if pre else 1, 2 * self.nu + pre)
 
     # ------------------------------------------------------------ twins
 
@@ -661,6 +658,7 @@ class VarMSKernelLevel(_KernelLevel):
     exact per-ω Gershgorin bounds of ``mg_pallas.py:1128-1148``)."""
 
     _COLS = _VAR_LP_NAMES
+    _VAR = True
 
     def __init__(self, lev, nu: int, nu_post: int | None = None, gs=None):
         super().__init__(gs if gs is not None else lev.gs, nu, nu_post)

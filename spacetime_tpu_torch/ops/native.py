@@ -323,7 +323,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mg_march_occupancy.argtypes = [I, I, I, I, P, P]
     lib.mg_march_occupancy.restype = I
     # the 2-D march's: post, ν, f64, nx, then blocks, bytes, threads, nseg
-    lib.mg_march2_occupancy.argtypes = [I, I, I, I, P, P, P, P]
+    lib.mg_march2_occupancy.argtypes = [I, I, I, I, I, P, P, P, P]
     lib.mg_march2_occupancy.restype = I
     # K4 / K5's: res, dim, f64, ny, nx, then blocks, bytes, threads, blocks
     # a chunk

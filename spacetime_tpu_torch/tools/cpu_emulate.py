@@ -354,9 +354,9 @@ def check(new, old) -> int:
                 W = torch.as_tensor(np.ascontiguousarray(np.pad(
                     np.asarray(vlev.Aw), grow, mode="wrap")[cut]),
                     dtype=dtype)
-                # K6/K7: every chunk of 1, 2, 4 rows (planes) and the whole
-                # column; the 2-D K14/K15 (bricks) take no chunk
-                const_chunks = {
+                # the fused stages: every chunk of 1, 2, 4 rows (planes) and
+                # the whole column
+                chunks = {
                     "pre": sorted({1, 2, 4, max(kl.coarse_gs[0], 1)}),
                     "post": sorted({1, 2, 4, gs[0]})}
                 n += _pre_and_post(
@@ -365,11 +365,9 @@ def check(new, old) -> int:
                                        "cpu")[0], (), (kl._op_table(),),
                     (lambda c: kl.fused_post_plain(x, b, ec, c),
                      lambda c: kl.fused_pre_plain(b, c)),
-                    dtype, sfx, "", const_chunks)
-                # the weighted ones in both row orders where they march (W
-                # in the L2 and beyond it: an L2 of 0 bytes)
-                var_chunks = const_chunks if dim == 3 else {
-                    "pre": [1], "post": [1]}
+                    dtype, sfx, "", chunks)
+                # the weighted ones, in 3-D in both row orders (W in the L2
+                # and beyond it: an L2 of 0 bytes)
                 n += _pre_and_post(
                     new, old, vl, T, gs, x, b, ec,
                     lambda: var_row_params(var, rng.uniform(0, 40, T),
@@ -377,7 +375,7 @@ def check(new, old) -> int:
                     vl._tables(),
                     (lambda c: vl.fused_post_plain(x, b, ec, c, W),
                      lambda c: vl.fused_pre_plain(b, c, W)),
-                    dtype, sfx, "_var", var_chunks,
+                    dtype, sfx, "_var", chunks,
                     (L2, 0) if dim == 3 else (L2,))
             n += _sharded(new, old, lev, const, slabs, dtype, sfx, mk,
                           rng)

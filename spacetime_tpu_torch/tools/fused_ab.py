@@ -3,7 +3,7 @@ against an earlier tree's, on one GPU; the solves against the earlier
 tree's; the callers of the solves' copies.
 
     python -m spacetime_tpu_torch.tools.fused_ab --parent DIR [--dims 2,3]
-        [--chunks] [--kron [--pencils]] [--stencil]
+        [--family const,var] [--chunks] [--kron [--pencils]] [--stencil]
         [--solves [2d|3d|all|NAME][,...] [--solves-only] [--traces TDIR]]
         [--copies]
 
@@ -23,20 +23,23 @@ chunk); each fused stage gets the chunk this tree's wrapper picks.
   2) K6 and K7 at 129×511², 129×255² and 65×127² (the 2-D flagship's
   levels at K_X's rows), the sharded K6 and K7 at the (2 × 2) flagship's
   finest slab 65×(256 + 2h)×511 (own 256, h = ν + 1, the mesh's halo), K14
-  and K15 at 129×511² (varcoef2d weights tiled to it); in 3-D (``--dims``
+  and K15 at 129×511², 129×255² and 65×127² (varcoef2d weights tiled to
+  them); in 3-D (``--dims``
   3) K6 and K7 at 65×63³ and 65×127³, K14 and K15 at 33×63³ and 33×127³
   (the varcoef3d 65³ solver's finest weights, tiled to 127³), the sharded
   K7 at the (2 × 2) smooth3d 65³ mesh's finest slab 17×38×63² (own 32, h
-  3). Each launch of this tree and of DIR on the same inputs, max|new −
+  3); ``--family`` const (K6, K7 and the sharded forms) or var (K14,
+  K15) alone. Each launch of this tree and of DIR on the same inputs, max|new −
   old| and both held to the plain twin within 1e-5·max|twin| (f32) and
   1e-13 (f64); median device times of new, old and the semi-fused pair (K3
   from 0 + K8, K9 + K3 from x, K10 from 0 + K13, K9 + K10 from x; none for
   the sharded forms, whose mesh path runs K8/K9 on the own planes only)
   in the order old, new, pair, new, old. Also the blocks per SM of each
-  march instantiation (the 2-D ones on rows of 511 columns).
-- ``--chunks``: the 2-D K6 and K7 of this tree at the chunk of rows the
-  wrapper picks (``ops.mg_kernels.march2_chunk``) and at half and twice
-  it, at the 2-D shapes, f32 and f64, ν ∈ {2, 3}.
+  march instantiation (the 2-D ones on rows of 511 columns) and ptxas's
+  registers and spills of the 2-D march kernels.
+- ``--chunks``: the 2-D K6, K7, K14 and K15 of this tree at the chunk of
+  rows the wrapper picks (``ops.mg_kernels.march2_chunk``) and at half and
+  twice it, at the 2-D shapes, f32 and f64, ν ∈ {2, 3}.
 - ``--kron`` (in place of ``kernels``): DIR's ``csrc/kron.cu`` and
   ``csrc/common.cu`` built into ``DIR/build/parent_kron/``, its K1/K2
   bound with the signatures before the time march; every form (B, B
@@ -52,13 +55,15 @@ chunk); each fused stage gets the chunk this tree's wrapper picks.
   bound, the chunk and blocks an SM, and ptxas's registers.
 - ``--solves``: steady ``solve`` seconds, f32, ``inner="mg"``, by ``run.py
   --repeat 3`` in DIR, this tree, this tree, DIR (one process each; see
-  ``run_solves``): 2d (the default) smooth2d 513²×128, singular2d 513²
-  J7+6, cfg2 (129²×64) and varcoef2d 513²×128 (the control: its kernels
-  K14/K15 are not changed); 3d smooth3d, varcoef3d and singular3d 65³
+  ``run_solves``): 2d (the default) varcoef2d 513²×128 (its K14/K15 march
+  in y since the 2-D weighted redesign), the controls smooth2d 513²×128
+  and singular2d 513² J7+6 (they launch no weighted kernel), and cfg2
+  (129²×64); 3d smooth3d, varcoef3d and singular3d 65³
   J5+4 and smooth3d 129³×64 (``--repeat 2``); or solves by name, and
   these, comma-separated.
   ``--solves-only`` skips the fused stages; ``--traces TDIR`` traces
-  smooth2d 513² and smooth3d 129³ in their second run of this tree.
+  varcoef2d 513², smooth2d 513² and smooth3d 129³ in their second run of
+  this tree.
 - ``--copies``: the steady f32 ``solve`` of smooth2d 513²×128 and
   singular2d 513² J7+6 traced by ``torch.profiler``, the solver's
   functions labelled (``record_function``) for the trace alone; prints
@@ -98,17 +103,18 @@ HBM_BYTES_PER_MS = 3.35e9  # the H100 SXM's HBM3, 3.35 TB/s (data sheet)
 # (T, grid) of K6/K7 and of K14/K15, by dimension
 CONST_SHAPES = {2: [(129, (511, 511)), (129, (255, 255)), (65, (127, 127))],
                 3: [(65, (63,) * 3), (65, (127,) * 3)]}
-VAR_SHAPES = {2: [(129, (511, 511))], 3: [(33, (63,) * 3), (33, (127,) * 3)]}
+VAR_SHAPES = {2: [(129, (511, 511)), (129, (255, 255)), (65, (127, 127))],
+              3: [(33, (63,) * 3), (33, (127,) * 3)]}
 # (T, own, h, the other extents) of the sharded stages' slab (h 0: ν + 1)
 SLABS = {2: (65, 256, 0, (511,)), 3: (17, 32, 3, (63, 63))}
 SOLVES = {
     "2d": [
+        ("varcoef2d", ["--problem", "varcoef2d", "--space-n", "512",
+                       "--time-levels", "7"]),
         ("smooth2d", ["--space-n", "512", "--time-levels", "7"]),
         ("singular2d", ["--problem", "singular2d", "--space-n", "512",
                         "--time-levels", "7", "--extra-levels", "6"]),
         ("cfg2", ["--space-n", "128", "--time-levels", "6"]),
-        ("varcoef2d", ["--problem", "varcoef2d", "--space-n", "512",
-                       "--time-levels", "7"]),
     ],
     "3d": [
         ("smooth3d", ["--problem", "smooth3d", "--space-n", "64",
@@ -442,18 +448,26 @@ def occupancy() -> None:
                else ("K14" if var else "K6"), "nu": nu,
                "dtype": "float64" if f64 else "float32",
                "blocks_per_sm": blocks.value, "smem_bytes": nbytes.value})
-    for post, nu, f64 in ((p, n, f) for p in (0, 1) for n in (2, 3)
-                          for f in (0, 1)):
+    for post, var, nu, f64 in itertools.product((0, 1), (0, 1), (2, 3),
+                                                (0, 1)):
         blocks, nbytes, threads, nseg = (ctypes.c_int() for _ in range(4))
-        err = lib.mg_march2_occupancy(post, nu, f64, 511, ctypes.byref(blocks),
+        err = lib.mg_march2_occupancy(post, var, nu, f64, 511,
+                                      ctypes.byref(blocks),
                                       ctypes.byref(nbytes),
                                       ctypes.byref(threads),
                                       ctypes.byref(nseg))
         native.check(lib, "mg_march2_occupancy", err)
-        _emit({"march": "2-D K7" if post else "2-D K6", "nu": nu,
-               "dtype": "float64" if f64 else "float32", "nx": 511,
+        _emit({"march": "2-D " + (("K7", "K15") if post else ("K6", "K14"))[var],
+               "nu": nu, "dtype": "float64" if f64 else "float32", "nx": 511,
                "blocks_per_sm": blocks.value, "smem_bytes": nbytes.value,
                "threads": threads.value})
+    entry = None  # ptxas's registers and spills of the 2-D march kernels
+    for line in native.LIB.build_log.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"(mg_march2_\w+?_kernel\w*?E[fd])E", line)
+            entry = m.group(1) if m else None
+        elif entry and ("Used" in line or "spill" in line):
+            print("ptxas:", entry, line.split(":", 1)[-1].strip(), flush=True)
 
 
 def _fields(rng, dtype):
@@ -557,25 +571,33 @@ def run_const(so, lev, msmg, dim, rng) -> None:
             torch.cuda.empty_cache()
 
 
-def run_var(so, dim, rng) -> None:
-    """K14 and K15 of ``dim``: W of the varcoef solver's finest level
-    tiled to each shape."""
+def var_hierarchy(dim: int):
+    """The varcoef solver's Galerkin hierarchy (65³ in 3-D, 129² in 2-D),
+    on the card."""
     from ..solver import build_solver
 
-    var = build_solver("varcoef3d" if dim == 3 else "varcoef2d",
-                       64 if dim == 3 else 128, 5, dtype=torch.float32,
-                       device="cuda").msmg
+    return build_solver("varcoef3d" if dim == 3 else "varcoef2d",
+                        64 if dim == 3 else 128, 5, dtype=torch.float32,
+                        device="cuda").msmg
+
+
+def tiled_weights(var, gs, dtype):
+    """W of ``var``'s finest level tiled (or cut) to the grid gs."""
     Aw = var.levels[0].Aw
+    grow = [(0, 0)] + [(0, max(n - m, 0)) for n, m in zip(gs, Aw.shape[1:])]
+    cut = (slice(None),) + tuple(slice(0, n) for n in gs)
+    return torch.as_tensor(np.ascontiguousarray(
+        np.pad(Aw, grow, mode="wrap")[cut]), dtype=dtype, device="cuda")
+
+
+def run_var(so, var, dim, rng) -> None:
+    """K14 and K15 of ``dim``: W of the varcoef hierarchy ``var``'s finest
+    level tiled to each shape."""
     for dtype in (torch.float32, torch.float64):
         sfx = "f32" if dtype == torch.float32 else "f64"
         mk = _fields(rng, dtype)
         for T, gs in VAR_SHAPES[dim]:
-            grow = [(0, 0)] + [(0, max(n - m, 0))
-                               for n, m in zip(gs, Aw.shape[1:])]
-            cut = (slice(None),) + tuple(slice(0, n) for n in gs)
-            W = torch.as_tensor(np.ascontiguousarray(
-                np.pad(Aw, grow, mode="wrap")[cut]), dtype=dtype,
-                device="cuda")
+            W = tiled_weights(var, gs, dtype)
             for nu in (2, 3):
                 kl = VarMSKernelLevel(var.levels[0], nu, gs=gs)
                 b, x = mk((T,) + gs), mk((T,) + gs)
@@ -608,45 +630,58 @@ def run_var(so, dim, rng) -> None:
 
                 compare("K14", kl, T, dtype,
                         lambda: kl.fused_pre(b, cols, W), old_pre,
-                        lambda: kl.fused_pre_plain(b, cols, W), pair_pre)
+                        lambda: kl.fused_pre_plain(b, cols, W), pair_pre,
+                        {"chunk": pre_chunk})
                 compare("K15", kl, T, dtype,
                         lambda: (kl.fused_post(x, b, ec, cols, W),), old_post,
                         lambda: (kl.fused_post_plain(x, b, ec, cols, W),),
                         lambda: (kl.smooth(kl.prolong_correct(x, ec), b,
-                                           cols, W),))
+                                           cols, W),), {"chunk": post_chunk})
                 del b, x, ec, xo, rc, out
                 torch.cuda.empty_cache()
             del W
 
 
-def run_chunks(lev, msmg, rng) -> None:
-    """This tree's 2-D K6 and K7 at the chunk their wrapper picks
+def run_chunks(lev, msmg, var, rng) -> None:
+    """This tree's 2-D K6 and K7 (``lev`` of ``msmg``) and K14 and K15 (the
+    finest level of ``var``) at the chunk their wrapper picks
     (``march2_chunk``) and at half and twice it."""
     for dtype in (torch.float32, torch.float64):
         mk = _fields(rng, dtype)
-        for (T, gs), nu in ((s, n) for s in CONST_SHAPES[2] for n in (2, 3)):
-            kl = MSKernelLevel(lev.A_st, lev.M_st, nu, gs=gs)
+        for names, (T, gs), nu in itertools.chain(
+                ((("K6", "K7"), s, n) for s in CONST_SHAPES[2]
+                 for n in (2, 3)),
+                ((("K14", "K15"), s, n) for s in VAR_SHAPES[2]
+                 for n in (2, 3))):
+            omega = np.abs(rng.standard_normal(T)) * 20
+            if names[0] == "K6":
+                kl = MSKernelLevel(lev.A_st, lev.M_st, nu, gs=gs)
+                cols = kl.columns(row_params(msmg, omega, dtype, "cuda")[0])
+                W = ()
+            else:
+                kl = VarMSKernelLevel(var.levels[0], nu, gs=gs)
+                cols = kl.columns(var_row_params(var, omega, dtype,
+                                                 "cuda")[0])
+                W = (tiled_weights(var, gs, dtype),)
             b, x = mk((T,) + gs), mk((T,) + gs)
             ec = mk((T,) + kl.coarse_gs)
-            cols = kl.columns(row_params(
-                msmg, np.abs(rng.standard_normal(T)) * 20, dtype, "cuda")[0])
             for stage, n in (("pre", kl.coarse_gs[0]), ("post", gs[0])):
-                fn = ((lambda: kl.fused_pre(b, cols)) if stage == "pre" else
-                      (lambda: kl.fused_post(x, b, ec, cols)))
+                fn = ((lambda: kl.fused_pre(b, cols, *W)) if stage == "pre"
+                      else (lambda: kl.fused_post(x, b, ec, cols, *W)))
                 picked = kl._chunk(b, n, stage)
                 for chunk in sorted({max(picked // 2, 1), picked,
                                      min(2 * picked, n)}):
                     kl._chunk = lambda *_, c=chunk: c
-                    _emit({"kernel": "K6" if stage == "pre" else "K7",
+                    _emit({"kernel": names[stage == "post"],
                            "T": T, "gs": list(gs), "nu": nu,
                            "dtype": str(dtype)[6:], "picked": picked,
                            "chunk": chunk, "ms": device_ms(fn)})
                     del kl._chunk
-            del b, x, ec
+            del b, x, ec, W
             torch.cuda.empty_cache()
 
 
-def run_kernels(parent: Path, dims, chunks: bool) -> None:
+def run_kernels(parent: Path, dims, families, chunks: bool) -> None:
     from ..solver import build_solver
 
     so = build_parent(parent)
@@ -656,15 +691,18 @@ def run_kernels(parent: Path, dims, chunks: bool) -> None:
         small = build_solver("smooth3d" if dim == 3 else "smooth2d", 8, 1,
                              dtype=torch.float32, device="cuda",
                              inner="mg").msmg
-        run_const(so, small.levels[0], small, dim, rng)
-        run_var(so, dim, rng)
+        var = var_hierarchy(dim)
+        if "const" in families:
+            run_const(so, small.levels[0], small, dim, rng)
+        if "var" in families:
+            run_var(so, var, dim, rng)
         if dim == 2 and chunks:
-            run_chunks(small.levels[0], small, rng)
+            run_chunks(small.levels[0], small, var, rng)
 
 
 # the solves --solves also traces in this tree, with --traces DIR, and
 # those whose runs take the card one at a time (their loads' memory)
-TRACED = ("smooth2d", "smooth3d-129")
+TRACED = ("varcoef2d", "smooth2d", "smooth3d-129")
 ALONE = ("smooth3d-129",)
 # run.py of the tree in the working directory, given the path P and
 # run.py's arguments: after the solver's loads it creates P.ready and waits
@@ -859,6 +897,9 @@ def main() -> int:
     p.add_argument("--parent", required=True, type=Path)
     p.add_argument("--dims", default="2,3",
                    help="the dimensions whose kernels are compared")
+    p.add_argument("--family", default="const,var",
+                   help="the fused stages compared: const (K6, K7), var "
+                        "(K14, K15), comma-separated")
     p.add_argument("--chunks", action="store_true",
                    help="time the 2-D K6/K7 at half and twice their chunk")
     p.add_argument("--solves", nargs="?", const="2d", default=None,
@@ -890,7 +931,8 @@ def main() -> int:
     elif args.stencil:
         run_stencil(args.parent.resolve())
     elif not args.solves_only:
-        run_kernels(args.parent.resolve(), dims, args.chunks)
+        run_kernels(args.parent.resolve(), dims, args.family.split(","),
+                    args.chunks)
     if args.copies:
         trace_copies()
     if args.solves:

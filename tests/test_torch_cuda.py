@@ -2,9 +2,9 @@
 T = 1, chunks that do not divide the rows, a row of four segments, every
 pencil), the multigrid kernels K3–K9 and the
 weighted K10–K15 (2-D and 3-D, the fused K6/K7 and K14/K15 at ν 2 and 3,
-the 3-D K6/K7/K14/K15 on their z-marching kernels, the 2-D K6/K7 on their
-y-marching ones, serial and sharded, at chunks of one row to the whole
-column), the chained
+the 3-D K6/K7/K14/K15 on their z-marching kernels, the 2-D K6/K7 (serial
+and sharded) and K14/K15 on their y-marching ones, at chunks of one row to
+the whole column), the chained
 sweeps of K3/K10 above the tiled ν, the blocked-ELL SpMM K20, the
 banded-DIA K16–K18 (K16 at ν 1, 2, 3, 4), the pair SpMM K19 and the
 sharded-slab forms (K3 with ``vmask``, K6/K7/K8/K9 with ``lead``) on the
@@ -868,6 +868,43 @@ def test_row_march_matches_twins(msmg, dtype, nu, shape):
     counts = mg_kernels.launch_counts()
     assert counts[f"K6 mg_fused_pre {sfx}"] == len(chunks["pre"])
     assert counts[f"K7 mg_fused_post {sfx}"] == len(chunks["post"])
+    assert sum(counts.values()) == len(chunks["pre"]) + len(chunks["post"])
+
+
+# The 2-D K14 and K15 march in y as K6 and K7 do: varcoef2d 513²'s levels
+# at K_X's rows (the 63² finest weights of ``var_msmg`` tiled to each), a
+# ragged grid, one coarse row and a row of two segments, the second 993
+# columns wide; chunks of one row to the whole column
+VAR_ROW_MARCH = [(129, (511, 511)), (129, (255, 255)), (65, (127, 127)),
+                 (129, (63, 63)), (5, (15, 31)), (3, (3, 17)),
+                 (3, (9, 1985))]
+
+
+@pytest.mark.parametrize("shape", VAR_ROW_MARCH,
+                         ids=lambda s: "x".join(map(str, (s[0],) + s[1])))
+@pytest.mark.parametrize("nu", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_var_row_march_matches_twins(var_msmg, dtype, nu, shape):
+    T, gs = shape
+    kl = VarMSKernelLevel(var_msmg.levels[0], nu, gs=gs)
+    x, b, ec, cols, W = _var_inputs(var_msmg, kl, T, dtype, nu)
+    pre = kl.fused_pre_plain(b, cols, W)
+    post = kl.fused_post_plain(x, b, ec, cols, W)
+    chunks = {st: _chunks_of(kl, b, n, st, least)
+              for st, n, least in (("pre", kl.coarse_gs[0], 2),
+                                   ("post", gs[0], 4))}
+    mg_kernels.reset_launch_counts()
+    for chunk in chunks["pre"]:
+        kl._chunk = lambda *_, c=chunk: c
+        for got, want in zip(kl.fused_pre(b, cols, W), pre):
+            _close(got, want, dtype)
+    for chunk in chunks["post"]:
+        kl._chunk = lambda *_, c=chunk: c
+        _close(kl.fused_post(x, b, ec, cols, W), post, dtype)
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    counts = mg_kernels.launch_counts()
+    assert counts[f"K14 mg_fused_pre_var {sfx}"] == len(chunks["pre"])
+    assert counts[f"K15 mg_fused_post_var {sfx}"] == len(chunks["post"])
     assert sum(counts.values()) == len(chunks["pre"]) + len(chunks["post"])
 
 

@@ -1,7 +1,7 @@
 """The plan of the fused stages that march: the 3-D K6, K7, K14 and K15 in
 z (``ops/mg_kernels.py`` ``march_chunk``, csrc/mg.cu ``march_chunk``,
-``march_post_chunk`` and ``march_bytes``) and the 2-D K6 and K7 in y
-(csrc/mg.cu ``row_plan``, ``ops/mg_kernels.py`` ``march2_chunk``): the chunks a launch cuts a row's column
+``march_post_chunk`` and ``march_bytes``) and the 2-D K6, K7, K14 and K15
+in y (csrc/mg.cu ``row_plan``, ``ops/mg_kernels.py`` ``march2_chunk``): the chunks a launch cuts a row's column
 into write every fine plane (row) of x once (and, in the pre-stages,
 every coarse one of r_c once), the post-stages' reach lies in the grid or
 its zero ghost, the 2-D segments cover a row once, and a block's shared
@@ -342,9 +342,112 @@ def test_row_plan_is_the_librarys():
                                                  (2, 3), MARCH2_SLOTS):
         out = [ctypes.c_int() for _ in range(4)]  # blocks, bytes, threads, nseg
         native.check(lib, "mg_march2_occupancy", lib.mg_march2_occupancy(
-            post, nu, int(dtype == torch.float64), nx, *map(ctypes.byref, out)))
+            post, 0, nu, int(dtype == torch.float64), nx,
+            *map(ctypes.byref, out)))
         halo = nu if post else nu + 1  # and the rings
         want = (row_smem_bytes(halo, nx, halo, dtype),
                 block_threads(nx, halo, dtype), row_plan(nx, halo)[1])
         assert tuple(o.value for o in out[1:]) == want, (nx, post, nu, dtype)
         assert out[0].value >= 1
+
+
+# The 2-D K14 and K15 march in y with K6 and K7's plan (csrc/mg.cu
+# ``row_plan``, ``march2_slots``). (T, grid, lead offset, coarse rows):
+# varcoef2d 513²×128's four levels at K_X's (129) and K_Y's (128) rows, a
+# ragged grid, one row, one coarse row and rows wider than one segment
+VAR_LEVELS_2D = ([(T, (n, n), 0, (n - 1) // 2) for T in (129, 128)
+                  for n in (511, 255, 127, 63)]
+                 + [(5, (15, 31), 0, 7), (1, (1, 9), 0, 0),
+                    (5, (3, 17), 0, 1), (5, (7, 1055), 0, 3),
+                    (5, (7, 1985), 0, 3)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nu", [2, 3])
+@pytest.mark.parametrize("pre", [True, False], ids=["K14", "K15"])
+def test_var_row_march_plan_covers_each_row_once(pre, nu, dtype):
+    """K14 writes every fine row of x and every coarse row of r_c once,
+    K15 every fine row once with its reach in the grid or its ghost; the
+    segments cover a row once (two at 1,985 columns, the last 993 wide);
+    ν + 1 (K14) or ν (K15) rings fit a block's shared memory."""
+    halo = nu + 1 if pre else nu
+    least = MARCH_LEAST["pre" if pre else "post"]
+    assert row_smem_bytes(halo, MARCH2_POINTS, halo, dtype) <= SMEM_PER_BLOCK
+    assert row_plan(1985, halo)[:2] == (992, 2)
+    for T, (ny, nx), off, nc in VAR_LEVELS_2D:
+        nseg = check_segments(nx, halo)
+        n = nc if pre else ny
+        chunk = row_chunk(T, (ny, nx), n, nu, dtype, pre)
+        assert chunk >= 1
+        fine, coarse = [], []
+        if pre:
+            for f, k in chunk_planes(ny, off, nc, chunk):
+                fine += f
+                coarse += k
+                assert not k or 2 * k[-1] + 2 < ny
+        else:
+            for f in post_chunk_planes(ny, chunk):
+                fine += f
+                assert f and len(f) <= chunk
+                # stage 0 reaches ν rows past each end, and the coarse rows
+                # ⌊y/2⌋, ⌊(y − 1)/2⌋ of the rows in the grid lie in e_c or
+                # its zero ghost
+                assert -nu <= f[0] - nu and f[-1] + nu < ny + nu
+                assert all(-1 <= c <= ny // 2 for y in f
+                           for c in (y // 2, (y - 1) // 2))
+            coarse = list(range(nc))
+        assert fine == list(range(ny)), (ny, nx, chunk)
+        assert coarse == list(range(nc)), (ny, nx, chunk)
+        blocks = T * nseg * max(1, -(-n // chunk))
+        most = T * nseg * max(1, -(-n // least))
+        assert chunk == max(n, 1) or chunk >= least, (ny, chunk)
+        assert blocks >= min(2 * SMS, most), (ny, chunk, blocks)
+
+
+def test_var_row_march_chunks_of_varcoef2d():
+    """The chunks K14 (coarse rows) and K15 (fine rows) take at varcoef2d
+    513²×128's four levels, K_X's 129 rows and K_Y's 128, f32 and f64."""
+    f32, f64 = torch.float32, torch.float64
+    want = {  # (T, n): (K14, K15) in f32; f64
+        (129, 511): ((64, 128), (64, 128)),
+        (129, 255): ((16, 32), (32, 64)),
+        (129, 127): ((4, 8), (8, 16)),
+        (129, 63): ((2, 4), (2, 4)),
+        (128, 511): ((64, 128), (64, 128)),
+        (128, 255): ((16, 32), (32, 64)),
+        (128, 127): ((4, 8), (8, 16)),
+        (128, 63): ((2, 4), (2, 4)),
+    }
+    for (T, n), (w32, w64) in want.items():
+        for dtype, w in ((f32, w32), (f64, w64)):
+            got = tuple(row_chunk(T, (n, n), m, 2, dtype, pre)
+                        for pre, m in ((True, (n - 1) // 2), (False, n)))
+            assert got == w, (T, n, dtype, got)
+
+
+@pytest.mark.cuda
+def test_var_row_plan_is_the_librarys():
+    """The plan of the 2-D K14 and K15 (csrc/mg.cu ``mg_march2_occupancy``
+    with var) is K6 and K7's, as this file models it: segments, threads
+    and shared bytes a block at every width checked here, and at 511
+    columns the blocks an SM that ``row_chunk`` takes (512 threads)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from spacetime_tpu_torch.ops import native
+
+    lib = native.LIB.get()
+    widths = {gs[1] for _, gs, _, _ in VAR_LEVELS_2D} | {1024, 1986, 2015}
+    for nx, post, nu, dtype in itertools.product(sorted(widths), (0, 1),
+                                                 (2, 3), MARCH2_SLOTS):
+        out = [ctypes.c_int() for _ in range(4)]  # blocks, bytes, threads, nseg
+        native.check(lib, "mg_march2_occupancy", lib.mg_march2_occupancy(
+            post, 1, nu, int(dtype == torch.float64), nx,
+            *map(ctypes.byref, out)))
+        halo = nu if post else nu + 1  # and the rings
+        threads = block_threads(nx, halo, dtype)
+        want = (row_smem_bytes(halo, nx, halo, dtype), threads,
+                row_plan(nx, halo)[1])
+        assert tuple(o.value for o in out[1:]) == want, (nx, post, nu, dtype)
+        if nx == 511:
+            assert out[0].value == min(512 // threads, 32), (
+                post, nu, dtype, out[0].value)
