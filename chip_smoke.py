@@ -134,14 +134,18 @@ Phases (every check asserts; any failure exits non-zero):
               1% of the JAX package's on the CPU (``dia``, f32).
 27. K16–K19 — the setup of lshape2d on 32 cells red-refined 4 times, J=7
               (25.2 MDoF, nested multigrid) and of the AMG solver on phase
-              26's n=256 system; K16 (from 0, from x), K17 and K18 against
-              their twins on the nested fine level (T=129, 128), its second
-              level (T=129) and the AMG DIA fine level (m=48641, T=65, 64),
-              K19 and the K20 transfers on the AMG ELL level (m=8191, T=65,
-              64), f32 and f64, within 1e-5 (f32)
-              and 1e-13 (f64) of max|twin|; times at the fine level (T=129)
-              and the ELL level beside ``torch.sparse.mm`` (K18, and two of
-              them for K19) and their bounds.
+              26's n=256 system; each DIA level's plan of the K16/K17 march
+              (form, segment, chunk and blocks an SM of each launch mode),
+              the tetrahedra's of ``FLAT_F64`` too; K16 (from 0, from x),
+              K17 and K18 against their twins on the nested fine level
+              (T=129, 128), its second level (T=129), the AMG DIA fine
+              level (m=48641, T=65, 64) and the nested tetrahedra's fine
+              level (m=29791, 15 offsets; T=9, 129), K19 and the K20
+              transfers on the AMG ELL level (m=8191, T=65, 64), f32 and
+              f64, within 1e-5 (f32) and 1e-13 (f64) of max|twin|; times at
+              the nested and tetrahedra fine levels (T=129) and the ELL
+              level beside ``torch.sparse.mm`` (K18, and two of them for
+              K19) and their bounds.
 28. nested  — the 25.2 MDoF solve, f32, ``solve(tol=1e-6)`` twice: 15 ± 1
               iterations (the JAX package's on the TPU), L2 within 1% of
               its 1.2846e-05, exactly ``flat_per_solve`` launches of K16–K18
@@ -379,6 +383,10 @@ REF_SINGULAR2D = {"problem": "singular2d", "n": 512, "levels": 7, "extra": 6,
 # (K_X's 65 and K_Y's 64 at its DIA fine level and its ELL level)
 DIA_T = (129, 128)
 PAIR_T = (65, 64)
+# (T, timed) of the K16–K18 checks at the fine level of FLAT_F64's nested
+# tetrahedra (m = 29,791, 15 offsets): its solve's K_X rows, and 129 rows,
+# timed
+TET_T = ((9, False), (129, True))
 # The oracle's rows solved in float64 on the card (dense inner solves;
 # cfg1b, the other ladders and varcoef3d-8-J3 are held on the CPU,
 # tests/test_torch_oracle.py): (config, problem, cells, levels, extra
@@ -1396,6 +1404,7 @@ def phase_flat_kernels(build_solver, lsh, spmv):
     float64, with times, bounds and
     ``torch.sparse.mm`` beside K18 and K19. Returns the two solvers and
     the records ({(op, dtype): {"max_abs_err", "forms"}})."""
+    from spacetime_tpu_torch.ops import dia_kernels
     from spacetime_tpu_torch.solver import HeatSolver
 
     f32, f64 = torch.float32, torch.float64
@@ -1417,6 +1426,28 @@ def phase_flat_kernels(build_solver, lsh, spmv):
     amg._rhs_host = lsh._rhs_host_arrays()
     print(f"AMG setup {time.perf_counter() - t0:.2f} s (levels "
           f"{[(lev.m, lev.fmt) for lev in amg.msmg.levels]})", flush=True)
+    label, problem, n_tet, r_tet, J_tet, kw, *_ = FLAT_F64[2]
+    tet = build_solver(problem, n_tet, J_tet, dtype=f32, device=DEVICE,
+                       refine=r_tet, **kw)
+    # K16/K17's march: each DIA level's plan (csrc/dia.cu, ops/dia_kernels.py
+    # dia_plan) in each mode, at the T its solve's K_X takes
+    for name, s, T in (("nested", nst, DIA_T[0]), ("AMG", amg, PAIR_T[0]),
+                       (label, tet, 2 ** J_tet + 1)):
+        for (kl, lev), dtype in itertools.product(
+                zip(s._kl_ky, s.msmg.levels), (f32, f64)):
+            if kl.kind != "dia":
+                continue
+            plans = {mode: dia_kernels.dia_plan(mode, dtype, len(kl.offsets),
+                                                T, lev.m, 0)
+                     for mode in dia_kernels.MODES}
+            p = plans["step"]
+            print(f"  {name} m={lev.m} ({len(kl.offsets)} offsets), "
+                  f"{str(dtype)[6:]}, T={T}: "
+                  f"{dia_kernels.FORM_NAMES[p['form']]}, segments of "
+                  f"{p['threads']} dofs x {p['segments']}, "
+                  f"{p['smem_bytes']} shared bytes; (chunk, blocks an SM) "
+                  + ", ".join(f"{mode} ({q['chunk']}, {q['blocks_per_sm']})"
+                              for mode, q in plans.items()), flush=True)
     rng = np.random.default_rng(SEED + 8)
     results = {}
     levs = nst.msmg.levels
@@ -1433,6 +1464,11 @@ def phase_flat_kernels(build_solver, lsh, spmv):
         for T in PAIR_T:
             check_dia_forms(amg._kl_ky[0], lev, T, dtype, rng, results,
                             f"AMG L0 m={lev.m}", False, None)
+        lev = tet.msmg.levels[0]
+        for T, timed in TET_T:
+            check_dia_forms(tet._kl_ky[0], lev, T, dtype, rng, results,
+                            f"{label} L0 m={lev.m}", timed,
+                            _dia_to_csr(lev.offA, lev.Av))
         lev = [lv for lv in amg.msmg.levels if lv.fmt == "ell"][0]
         ek = [k for k in amg._kl_ky if k.kind == "ell"][0]
         if dtype == f32:
@@ -1517,6 +1553,7 @@ def phase_flat_kernels(build_solver, lsh, spmv):
             del X, E
         del v, blk
         torch.cuda.empty_cache()
+    del tet
     return nst, amg, results
 
 

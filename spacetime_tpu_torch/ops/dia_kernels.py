@@ -15,8 +15,12 @@ Op = A + ω⊙M with one shift per time row on the flat (T, m) layout:
 
 A and M are held on the union of their diagonal offsets
 (``union_offsets``, the JAX package's ``_union_offsets``) as (ndu, m)
-values, so one tap of x serves both. K16 runs a sweep as ν launches of
-its one-step kernel, as K3 does above its tiled ν (``mg_cheb_step``).
+values, so one tap of x serves both. K16 and K17 march in time: a block
+owns a segment of the dofs, holds their values on chip (registers up to
+16 offsets, else a shared tile: ``dia_form``) and walks a chunk of the
+time rows (``dia_chunk``; ``dia_plan`` gives a launch's whole plan). K16
+runs a sweep as ν launches of its one-step march, as K3 does above its
+tiled ν (``mg_cheb_step``); K18 is one thread per (row, dof).
 
 For a CUDA tensor each wrapper launches the kernel of csrc/dia.cu (float32
 and float64) and counts the launch; a CPU tensor goes to the plain PyTorch
@@ -36,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from . import native
+from .mg_kernels import _sm_count, march2_chunk
 from .multigrid import cheb_smooth, chebyshev_steps, _SIGMA
 from .native import check_tensor
 
@@ -51,7 +56,68 @@ KERNELS = {
     for op, (name, replaces) in _OPS.items()
     for dtype, sfx in ((torch.float32, "f32"), (torch.float64, "f64"))
 }
-MAX_ROWS = 65535  # the time row is blockIdx.y
+MAX_ROWS = 65535  # a chunk of time rows is blockIdx.y
+
+# What a march launch computes (csrc/dia.cu ``Mode``): K17, K16's first
+# step from x and from x = 0, a later K16 step; and the fields a point
+# moves in one time row of each (read or written once), against which
+# ``dia_chunk`` weighs the held values' load
+MODES = {"residual": 0, "first": 1, "first_zero": 2, "step": 3}
+ROW_FIELDS = {"residual": 3, "first": 5, "first_zero": 4, "step": 6}
+# Where the march holds the values (csrc/dia.cu ``Form``): a shared tile
+# [k][dof], or registers
+SHARED, REGISTERS = 0, 1
+FORM_NAMES = {SHARED: "shared", REGISTERS: "registers"}
+MAX_REG_TAPS = 16  # the most offsets the register form holds
+
+
+def dia_form(nd: int) -> int:
+    """The form that holds ``nd`` offsets' values: registers up to
+    ``MAX_REG_TAPS``, else the shared tile."""
+    return REGISTERS if nd <= MAX_REG_TAPS else SHARED
+
+
+@functools.lru_cache(maxsize=None)
+def dia_occupancy(mode: str, dtype, nd: int, form: int,
+                  index: int) -> tuple[int, int, int]:
+    """(blocks an SM of device ``index`` holds, dynamic shared bytes,
+    threads a block: the dofs of a segment) of the march in ``mode`` and
+    ``form`` on ``nd`` offsets (csrc/dia.cu ``dia_march_occupancy``)."""
+    lib = native.LIB.get()
+    out = [ctypes.c_int() for _ in range(3)]
+    with torch.cuda.device(index):
+        err = lib.dia_march_occupancy(MODES[mode], int(dtype == torch.float64),
+                                      nd, form, *map(ctypes.byref, out))
+    native.check(lib, "dia_march_occupancy", err)
+    return max(out[0].value, 1), out[1].value, out[2].value
+
+
+def dia_chunk(mode: str, T: int, segments: int, nd: int, resident: int,
+              sms: int) -> int:
+    """Time rows a block of the march walks: ``march2_chunk``'s wave rule
+    over T rows, ``segments`` blocks a chunk of rows and ``resident`` an
+    SM, the held values' load (2·nd values a dof, and the diagonals in
+    K16) counted as the rows whose fields (``ROW_FIELDS``) move as many
+    bytes; the values-free first step from 0 counts none."""
+    held = 0 if mode == "first_zero" else 2 * nd + (mode != "residual") * 2
+    return march2_chunk(segments, T, 1, resident, sms, 1,
+                        -(-held // ROW_FIELDS[mode]))
+
+
+@functools.lru_cache(maxsize=None)
+def dia_plan(mode: str, dtype, nd: int, T: int, m: int, index: int,
+             form: int | None = None) -> dict:
+    """The march's launch on T rows of m dofs: its form (``dia_form``
+    unless given), threads a block (a segment's dofs), segments, blocks an
+    SM, dynamic shared bytes and chunk of time rows. Cached: a solve asks
+    it at every launch."""
+    form = dia_form(nd) if form is None else form
+    resident, nbytes, threads = dia_occupancy(mode, dtype, nd, form, index)
+    segments = -(-m // threads)
+    return {"form": form, "threads": threads, "segments": segments,
+            "blocks_per_sm": resident, "smem_bytes": nbytes,
+            "chunk": dia_chunk(mode, T, segments, nd, resident,
+                               _sm_count(index))}
 
 
 def reset_launch_counts() -> None:
@@ -184,9 +250,15 @@ class DiaKernelLevel:
         return k, T, tuple(cols[n].data_ptr() for n in ("omega", "invT",
                                                           "invDel"))
 
+    def plan(self, mode: str, X) -> dict:
+        """``dia_plan`` of the march in ``mode`` on field X."""
+        return dia_plan(mode, X.dtype, len(self.offsets), X.shape[0], self.m,
+                        X.device.index)
+
     def smooth(self, x, b, cols, vals, zero_init=False, post=False):
         """K16: the degree-ν sweep (ν_post with ``post``) as ν one-step
-        launches; x is ignored with ``zero_init``."""
+        launches of the march; x is ignored with ``zero_init``. The last
+        step writes the output alone."""
         if b.device.type == "cpu":
             return self.smooth_plain(x, b, cols, vals, zero_init, post)
         nu = self.nu_post if post else self.nu
@@ -200,24 +272,43 @@ class DiaKernelLevel:
         offs = ctypes.addressof(self.struct)
         out, r = torch.empty_like(b), torch.empty_like(b)
         d = (torch.empty_like(b), torch.empty_like(b))
-        step = lambda x_in, d_in, d_out, first, c1, c2: k.launch(
-            b.device, x_in, *fields, r.data_ptr(), d_in, d_out.data_ptr(),
-            out.data_ptr(), T, self.m, offs, first, c1, c2)
-        step(None if zero_init else x.data_ptr(), None, d[0], 1, 0.0, 0.0)
-        for s, (c1, c2) in enumerate(chebyshev_steps(_SIGMA, nu), 1):
-            step(None, d[(s - 1) % 2].data_ptr(), d[s % 2], 0, c1, c2)
+
+        def step(mode, d_in, d_out, c1, c2, last):
+            p = self.plan(mode, b)
+            k.launch(b.device, x.data_ptr() if mode == "first" else None,
+                     *fields, r.data_ptr(),
+                     None if d_in is None else d[d_in].data_ptr(),
+                     d[d_out].data_ptr(), out.data_ptr(), T, self.m, offs,
+                     int(mode != "step"), c1, c2, int(last), p["form"],
+                     p["chunk"])
+
+        self.sweep(step, nu, zero_init)
         return out
 
+    @staticmethod
+    def sweep(step, nu: int, zero_init: bool) -> None:
+        """A K16 sweep's ν launches as calls ``step(mode, d_in, d_out, c1,
+        c2, last)``: the first step (``mode`` "first" or "first_zero") and
+        ν − 1 later ones ("step"), each reading d from slot ``d_in`` of two
+        (None for the first) and writing slot ``d_out``, the recurrence's
+        scalars c1, c2, ``last`` on the sweep's last launch."""
+        steps = chebyshev_steps(_SIGMA, nu)
+        step("first_zero" if zero_init else "first", None, 0, 0.0, 0.0,
+             not steps)
+        for s, (c1, c2) in enumerate(steps, 1):
+            step("step", (s - 1) % 2, s % 2, c1, c2, s == len(steps))
+
     def residual(self, x, b, cols, vals):
-        """K17: b − Op x."""
+        """K17: b − Op x, the march's residual step."""
         if b.device.type == "cpu":
             return self.residual_plain(x, b, cols, vals)
         k, T, cp = self._prepare("residual", b, cols, vals)
         check_tensor("x", x, b.dtype, b.device, b.shape)
         out = torch.empty_like(b)
+        p = self.plan("residual", b)
         k.launch(b.device, x.data_ptr(), b.data_ptr(), vals["vA"].data_ptr(),
                  vals["vM"].data_ptr(), cp[0], out.data_ptr(), T, self.m,
-                 ctypes.addressof(self.struct))
+                 ctypes.addressof(self.struct), p["form"], p["chunk"])
         return out
 
     def apply_A(self, x, vals):

@@ -298,10 +298,11 @@ def entry_signatures() -> dict:
         # X, nt, n, slice_ptr, col, valsA, valsM, nslices, YA, YM, n_out
         "ell_spmm_pair": [P, I64, I64, P, P, P, P, I64, P, P, I64, P],
         # dia.cu, one K16 step: x, b, vA, vM, dA, dM, the columns, r,
-        # d_in, d_out, x_out, nt, m, the offsets, first, c1, c2
+        # d_in, d_out, x_out, nt, m, the offsets, first, c1, c2, last,
+        # then the march's form and chunk (K17 too)
         "dia_smooth": [P, P, P, P, P, P, P, P, P, P, P, P, P, I64, I64, P,
-                       I, D, D, P],
-        "dia_residual": [P, P, P, P, P, P, I64, I64, P, P],
+                       I, D, D, I, I, I, P],
+        "dia_residual": [P, P, P, P, P, P, I64, I64, P, I, I, P],
         "dia_apply": [P, P, P, I64, I64, P, P],
     }
 
@@ -329,6 +330,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # a chunk
     lib.mg_stencil_occupancy.argtypes = [I, I, I, I64, I64, P, P, P, P]
     lib.mg_stencil_occupancy.restype = I
+    # the DIA march's: mode, f64, offsets, form, then blocks, bytes, threads
+    lib.dia_march_occupancy.argtypes = [I, I, I, I, P, P, P]
+    lib.dia_march_occupancy.restype = I
     for size_fn, struct in (("kron_taps_size", TapsStruct),
                             ("mg_pairs_size", PairGroupsStruct),
                             ("mg_var_taps_size", VarTapsStruct),

@@ -2,7 +2,7 @@
 machine without a GPU or nvcc.
 
     python -m spacetime_tpu_torch.tools.cpu_emulate [--parent DIR]
-        [--only fused|kron|stencil]
+        [--only fused|kron|stencil|dia]
 
 Each source of ``spacetime_tpu_torch/csrc`` is translated to C++ (a launch
 ``k<<<grid, block, smem, stream>>>(args)`` becomes a call that runs the
@@ -29,12 +29,18 @@ held to their twins the same way; and K4 and K5 (csrc/mg.cu
 ``mg_residual``, ``mg_apply``, float32 and float64) on ragged 2-D and 3-D
 grids and slabs, T = 1, 2 and 5, 2-D rows wider than one segment, at
 every chunk from one row (plane) to the whole column, held to their
-twins the same way. With ``--parent DIR`` (an unpacked ``git archive`` of
-an earlier commit) DIR's csrc/mg.cu and csrc/kron.cu are emulated too,
-their entry points bound as ``tools.fused_ab`` binds them, and each
-output must equal DIR's bit for bit. ``--only fused`` (or ``kron``,
-``stencil``) runs one of the three checks. A CUDA construct the runtime
-stand-in below lacks fails the g++ build.
+twins the same way; and K16 and K17 (csrc/dia.cu ``dia_smooth``,
+``dia_residual``, float32 and float64) on a nested L-shape level (11
+offsets), a nested tetrahedra level (15) and a synthetic level of more
+than 16 (the shared form alone), T = 1, 2 and 5, K16 from 0 and from x at
+ν ∈ {2, 3, 4}, in every form that takes the level and at every chunk
+from one time row to all, held to their twins the same way. With
+``--parent DIR`` (an unpacked ``git archive`` of an earlier commit) DIR's
+csrc/mg.cu, csrc/kron.cu and csrc/dia.cu are emulated too, their entry
+points bound as ``tools.fused_ab`` binds them, and each output must equal
+DIR's bit for bit. ``--only fused`` (or ``kron``, ``stencil``, ``dia``)
+runs one of the four checks. A CUDA construct the runtime stand-in below
+lacks fails the g++ build.
 """
 
 from __future__ import annotations
@@ -53,7 +59,8 @@ import torch
 from ..ops import native
 from ..ops.mg_kernels import MSKernelLevel, VarMSKernelLevel
 from ..ops.multigrid import row_params, var_row_params
-from .fused_ab import bind_parent, bind_parent_kron
+from .fused_ab import (bind_parent, bind_parent_dia, bind_parent_kron,
+                       dia_columns, dia_lib_residual, dia_lib_smooth)
 
 REPO = Path(__file__).resolve().parents[2]
 OUT = REPO / "build" / "cpu_emulate"
@@ -84,6 +91,11 @@ KRON_SHAPES = [(1, (1, 9)), (2, (9, 13)), (5, (10, 7)), (2, (5, 1985)),
 STENCIL_SHAPES = [(1, (1, 9)), (5, (10, 15)), (2, (9, 65)), (2, (4, 1985)),
                   (1, (5, 1055)), (2, (1, 5, 7)), (1, (7, 9, 15)),
                   (5, (3, 17, 33)), (1, (6, 35, 67))]
+# (problem, cells, refinements) of the nested levels K16/K17 are emulated
+# on: the L-shape's fine level (m = 705, 11 offsets: three segments of the
+# register form, the last ragged) and the tetrahedra's (m = 343, 15)
+DIA_LEVELS = [("lshape2d", 8, 2), ("smooth3d", 4, 1)]
+DIA_T = (1, 2, 5)
 
 RUNTIME = r"""
 #pragma once
@@ -518,14 +530,111 @@ def check_kron(new, old, shapes=KRON_SHAPES, pencils=(4, 8),
     return n
 
 
+def synthetic_level(nd: int, m: int, seed: int = 17):
+    """A DIA level of ``nd`` union offsets within ±40 on m dofs (A on the
+    even-indexed ones and 0, M on the others and 0), diagonally dominant,
+    in the attributes ``DiaKernelLevel`` and ``dia_columns`` read."""
+    import types
+
+    rng = np.random.default_rng(seed)
+    offs = sorted({0, *rng.choice(np.r_[-40:0, 1:41], nd - 1,
+                                  replace=False).tolist()})
+    offA = [o for i, o in enumerate(offs) if i % 2 == 0 or o == 0]
+    offM = [o for i, o in enumerate(offs) if i % 2 == 1 or o == 0]
+
+    def mat(off, scale):
+        v = -rng.uniform(0.1, 1.0, (m, len(off))) * scale
+        v[:, off.index(0)] = np.abs(v).sum(1) + scale
+        return v
+
+    Av, Mv = mat(offA, 1.0), mat(offM, 0.01)
+    return types.SimpleNamespace(
+        m=m, offA=tuple(offA), Av=Av, offM=tuple(offM), Mv=Mv, fmt="dia",
+        dA=Av[:, offA.index(0)].copy(), dM=Mv[:, offM.index(0)].copy(),
+        rsA=np.abs(Av).sum(1), rsM=np.abs(Mv).sum(1))
+
+
+def dia_levels(synthetic: int = 20) -> list:
+    """(label, level) of the K16/K17 emulation: ``DIA_LEVELS`` and a
+    synthetic level of ``synthetic`` offsets on 300 dofs."""
+    from ..solver import build_solver
+
+    out = []
+    for problem, n, r in DIA_LEVELS:
+        s = build_solver(problem, n, 2, dtype=torch.float64, device="cpu",
+                         refine=r, inner="mg")
+        out.append((f"{problem} {n} cells refined {r}x", s.msmg.levels[0]))
+    out.append((f"{synthetic} offsets", synthetic_level(synthetic, 300)))
+    return out
+
+
+def build_dia(csrc: Path = native.CSRC, name: str = "this_dia",
+              bind=None) -> ctypes.CDLL:
+    """``csrc``'s dia.cu and common.cu alone (K16–K18), bound with this
+    tree's signatures (``bind``: another tree's binder)."""
+    so = build([csrc / "dia.cu", csrc / "common.cu"], name)
+    if bind is not None:
+        return bind(so)
+    signatures = native.entry_signatures()
+    for op, sfx in itertools.product(("dia_smooth", "dia_residual"),
+                                     ("f32", "f64")):
+        fn = getattr(so, f"{op}_{sfx}")
+        fn.argtypes, fn.restype = signatures[op], ctypes.c_int
+    return so
+
+
+def check_dia(new, old, levels=None, Ts=DIA_T, nus=(2, 3, 4)) -> int:
+    """K17 and K16 (from 0 and from x at each of ``nus``) of ``new`` on
+    each level of ``levels`` (``dia_levels()``) at T of ``Ts``, float32
+    and float64, in every form that takes the level (the shared tile; the
+    registers, with and without the row ahead, up to 16 offsets) and at
+    every chunk of 1 to T rows, against their twins and, if given,
+    ``old``'s (before the march: no form, chunk or last); returns the
+    number of launches compared."""
+    from ..ops import dia_kernels as dk
+
+    n = 0
+    rng = np.random.default_rng(16)
+    for (label, lev), dtype, T in itertools.product(
+            levels or dia_levels(), (torch.float32, torch.float64), Ts):
+        kl = dk.DiaKernelLevel(lev, 2)
+        vals = kl.values(lev, dtype, "cpu")
+        cols = dia_columns(lev, T, dtype, "cpu", rng)
+        x, b = (torch.as_tensor(rng.standard_normal((T, lev.m)), dtype=dtype)
+                for _ in range(2))
+        nd = len(kl.offsets)
+        forms = [dk.SHARED] + ([dk.REGISTERS] if nd <= dk.MAX_REG_TAPS
+                               else [])
+        plans = list(itertools.product(forms, range(1, T + 1)))
+        runs = [(kl.residual_plain(x, b, cols, vals),
+                 lambda so, p: dia_lib_residual(_call, so, kl, x, b, cols,
+                                                vals, p), 1, "residual")]
+        for nu, zero in itertools.product(nus, (True, False)):
+            kn = dk.DiaKernelLevel(lev, nu)
+            runs.append((kn.smooth_plain(x, b, cols, vals, zero_init=zero),
+                         lambda so, p, kn=kn, z=zero: dia_lib_smooth(
+                             _call, so, kn, x, b, cols, vals, kn.nu, z, p),
+                         nu, f"smooth nu={nu} from {'0' if zero else 'x'}"))
+        for want, run, launches, form in runs:
+            ref = None
+            if old is not None:
+                ref = run(old, None)
+                n += launches
+            for plan in plans:
+                _close((label, form, str(dtype), T, plan), run(new, plan),
+                       want, dtype, ref)
+                n += launches
+    return n
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--parent", type=Path, default=None)
-    p.add_argument("--only", choices=["fused", "kron", "stencil"],
+    p.add_argument("--only", choices=["fused", "kron", "stencil", "dia"],
                    default=None)
     args = p.parse_args()
-    run = {args.only} if args.only else {"fused", "kron", "stencil"}
-    old = old_kron = None
+    run = {args.only} if args.only else {"fused", "kron", "stencil", "dia"}
+    old = old_kron = old_dia = None
     if args.parent is not None:
         csrc = args.parent.resolve() / "spacetime_tpu_torch" / "csrc"
         if run & {"fused", "stencil"}:
@@ -533,6 +642,8 @@ def main() -> int:
                                     "parent"))
         if "kron" in run:
             old_kron = build_kron(csrc, "parent_kron", bind_parent_kron)
+        if "dia" in run:
+            old_dia = build_dia(csrc, "parent_dia", bind_parent_dia)
     n = 0
     if "fused" in run:
         new = native._bind(build(sorted(native.CSRC.glob("*.cu")), "this"))
@@ -541,6 +652,8 @@ def main() -> int:
         n += check_stencil(new if "fused" in run else build_stencil(), old)
     if "kron" in run:
         n += check_kron(build_kron(), old_kron)
+    if "dia" in run:
+        n += check_dia(build_dia(), old_dia)
     print(f"{n} emulated launches held to their twins"
           + (" and equal to the parent's bit for bit"
              if args.parent is not None else ""))

@@ -1,11 +1,11 @@
-"""The fused stages K6, K7, K14 and K15, or K1 and K2, or K4 and K5,
-against an earlier tree's, on one GPU; the solves against the earlier
-tree's; the callers of the solves' copies.
+"""The fused stages K6, K7, K14 and K15, or K1 and K2, or K4 and K5, or
+K16 and K17, against an earlier tree's, on one GPU; the solves against
+the earlier tree's; the callers of the solves' copies.
 
     python -m spacetime_tpu_torch.tools.fused_ab --parent DIR [--dims 2,3]
         [--family const,var] [--chunks] [--kron [--pencils]] [--stencil]
-        [--solves [2d|3d|all|NAME][,...] [--solves-only] [--traces TDIR]]
-        [--copies]
+        [--dia] [--solves [2d|3d|flat|all|NAME][,...] [--solves-only]
+        [--traces TDIR]] [--copies]
 
 DIR is the root of another checkout of the repository (an unpacked
 ``git archive`` of an earlier commit, say). Its ``csrc/mg.cu`` and
@@ -53,17 +53,29 @@ chunk); each fused stage gets the chunk this tree's wrapper picks.
   ``STENCIL_AB_SHAPES``, float32 and float64: max|new − old|, both held
   to the twin, median device times old, new, twin, new, old, the HBM
   bound, the chunk and blocks an SM, and ptxas's registers.
-- ``--solves``: steady ``solve`` seconds, f32, ``inner="mg"``, by ``run.py
-  --repeat 3`` in DIR, this tree, this tree, DIR (one process each; see
-  ``run_solves``): 2d (the default) varcoef2d 513²×128 (its K14/K15 march
-  in y since the 2-D weighted redesign), the controls smooth2d 513²×128
-  and singular2d 513² J7+6 (they launch no weighted kernel), and cfg2
-  (129²×64); 3d smooth3d, varcoef3d and singular3d 65³
-  J5+4 and smooth3d 129³×64 (``--repeat 2``); or solves by name, and
-  these, comma-separated.
-  ``--solves-only`` skips the fused stages; ``--traces TDIR`` traces
-  varcoef2d 513², smooth2d 513² and smooth3d 129³ in their second run of
-  this tree.
+- ``--dia`` (in place of ``kernels``): K16 (from 0 and from x, ν ∈ {2,
+  3}) and K17 against DIR's ``csrc/dia.cu`` (built into
+  ``DIR/build/parent_dia/``, bound with the signatures before the time
+  march, ``bind_parent_dia``) at ``DIA_AB``: the nested lshape2d 25.2 MDoF
+  solve's fine level at T = 129 and 128 and its second level at 129, the
+  AMG n = 256 DIA level at T = 65 and 64; float32 and float64. max|new −
+  old|, both held to the twin, median device times old, new, twin, new,
+  old, the HBM bound, the plan (form, chunk, threads, blocks an SM), this
+  tree's time in each form that takes the level (shared, registers,
+  registers a row ahead) and ptxas's registers; with ``--chunks`` this
+  tree's time at half and twice the chunk too.
+- ``--solves``: steady ``solve`` seconds, f32, ``inner="mg"`` unless the
+  solve names another, by ``run.py --repeat 3`` in DIR, this tree, this
+  tree, DIR (one process each; see ``run_solves``): 2d (the default)
+  varcoef2d 513²×128 (its K14/K15 march in y since the 2-D weighted
+  redesign), the controls smooth2d 513²×128 and singular2d 513² J7+6
+  (they launch no weighted kernel), and cfg2 (129²×64); 3d smooth3d,
+  varcoef3d and singular3d 65³ J5+4 and smooth3d 129³×64 (``--repeat
+  2``); flat the nested lshape2d 32 cells refined 4×, J = 7 (25.2 MDoF,
+  K16–K18) and AMG lshape2d n = 256, J = 6; or solves by name, and these,
+  comma-separated. ``--solves-only`` skips the fused stages; ``--traces
+  TDIR`` traces varcoef2d 513², smooth2d 513², smooth3d 129³ and the
+  nested lshape2d in their second run of this tree.
 - ``--copies``: the steady f32 ``solve`` of smooth2d 513²×128 and
   singular2d 513² J7+6 traced by ``torch.profiler``, the solver's
   functions labelled (``record_function``) for the trace alone; prints
@@ -127,6 +139,12 @@ SOLVES = {
         # minutes)
         ("smooth3d-129", ["--problem", "smooth3d", "--space-n", "128",
                           "--time-levels", "6", "--repeat", "2"]),
+    ],
+    "flat": [
+        ("nested-lshape2d", ["--problem", "lshape2d", "--space-n", "32",
+                             "--refine", "4", "--time-levels", "7"]),
+        ("amg-lshape2d", ["--problem", "lshape2d", "--space-n", "256",
+                          "--time-levels", "6", "--inner", "amg"]),
     ],
 }
 # the solves --copies traces: (problem, cells, time levels, extra levels)
@@ -395,6 +413,179 @@ def run_stencil(parent: Path) -> None:
         torch.cuda.empty_cache()
 
 
+# (label, level of the solver, T) of the K16/K17 A/B: the nested 25.2 MDoF
+# solve's fine level at K_X's 129 rows and K_Y's 128 and its second level
+# at 129 (nested), the AMG n = 256 solve's DIA fine level at 65 and 64 (amg)
+DIA_AB = [("nested", 0, 129), ("nested", 0, 128), ("nested", 1, 129),
+          ("amg", 0, 65), ("amg", 0, 64)]
+
+
+def bind_parent_dia(so: ctypes.CDLL) -> ctypes.CDLL:
+    """The parent's K16 and K17 entry points ``dia_smooth`` and
+    ``dia_residual`` (f32 and f64) of library ``so``, bound with the
+    signatures before their time march (no last, form or chunk)."""
+    P, I64, I, D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_double
+    signatures = {"dia_smooth": [P] * 13 + [I64, I64, P, I, D, D, P],
+                  "dia_residual": [P] * 6 + [I64, I64, P, P]}
+    for sfx in ("f32", "f64"):
+        for name, argtypes in signatures.items():
+            fn = getattr(so, f"{name}_{sfx}")
+            fn.argtypes, fn.restype = argtypes, I
+    return so
+
+
+def build_parent_dia(parent: Path) -> ctypes.CDLL:
+    """DIR's csrc/dia.cu and csrc/common.cu as one library, its K16/K17
+    bound with that tree's signatures (``bind_parent_dia``)."""
+    out = parent / "build" / "parent_dia"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / "libparent_dia.so"
+    csrc = parent / "spacetime_tpu_torch" / "csrc"
+    cmd = [native._nvcc(), *native.ARCH_FLAGS, "-std=c++17", "-O3",
+           "-Xcompiler", "-fPIC", "-shared", "-o", str(lib),
+           str(csrc / "dia.cu"), str(csrc / "common.cu")]
+    subprocess.run(cmd, check=True, capture_output=True, text=True)
+    return bind_parent_dia(ctypes.CDLL(str(lib)))
+
+
+def dia_columns(lev, T, dtype, device, rng) -> dict:
+    """ω (every other row 0, the rest up to ~300), 1/θ and 1/δ of a DIA
+    level's Chebyshev bounds at each ω, as (T,) tensors."""
+    mk = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    omega = np.abs(rng.standard_normal(T)) * 100.0
+    omega[::2] = 0.0
+    lam = 1.1 * np.array([((lev.rsA + w * lev.rsM) / (lev.dA + w * lev.dM))
+                          .max() for w in omega])
+    return {"omega": mk(omega), "invT": mk(1.0 / (0.625 * lam)),
+            "invDel": mk(1.0 / (0.375 * lam))}
+
+
+def dia_lib_smooth(call, so, kl, x, b, cols, vals, nu, zero_init,
+                   plan=None):
+    """K16's sweep by library ``so``'s ``dia_smooth`` entry point (``call``
+    passes the stream): with ``plan`` = (form, chunk) this tree's, in that
+    form and chunk; without, a parent's from before the march."""
+    T = b.shape[0]
+    sfx = "f32" if b.dtype == torch.float32 else "f64"
+    out, r = torch.empty_like(b), torch.empty_like(b)
+    d = (torch.empty_like(b), torch.empty_like(b))
+    fields = (b.data_ptr(), vals["vA"].data_ptr(), vals["vM"].data_ptr(),
+              vals["dA"].data_ptr(), vals["dM"].data_ptr(),
+              *(cols[n].data_ptr() for n in ("omega", "invT", "invDel")))
+
+    def step(mode, d_in, d_out, c1, c2, last):
+        tail = [] if plan is None else [int(last), *plan]
+        call(so, f"dia_smooth_{sfx}",
+             x.data_ptr() if mode == "first" else None, *fields, r.data_ptr(),
+             None if d_in is None else d[d_in].data_ptr(),
+             d[d_out].data_ptr(), out.data_ptr(), T, kl.m,
+             ctypes.addressof(kl.struct), int(mode != "step"), c1, c2, *tail)
+
+    kl.sweep(step, nu, zero_init)
+    return out
+
+
+def dia_lib_residual(call, so, kl, x, b, cols, vals, plan=None):
+    """K17 by library ``so``'s ``dia_residual`` (as ``dia_lib_smooth``)."""
+    sfx = "f32" if b.dtype == torch.float32 else "f64"
+    out = torch.empty_like(b)
+    call(so, f"dia_residual_{sfx}", x.data_ptr(), b.data_ptr(),
+         vals["vA"].data_ptr(), vals["vM"].data_ptr(),
+         cols["omega"].data_ptr(), out.data_ptr(), b.shape[0], kl.m,
+         ctypes.addressof(kl.struct), *(() if plan is None else plan))
+    return out
+
+
+def dia_bound_ms(form: str, kl, T: int, dtype) -> float:
+    """The HBM bound of K16 (ν = kl.nu, from x or from 0) or K17 at T rows:
+    each field read once and the output written once, the values (and
+    K16's diagonals) once, at 3.35 TB/s."""
+    sz, m, nd = torch.finfo(dtype).bits // 8, kl.m, len(kl.offsets)
+    if form == "residual":
+        return sz * (3 * T * m + 2 * nd * m + T) / HBM_BYTES_PER_MS
+    fields = 2 if form == "smooth from 0" else 3
+    return sz * (fields * T * m + (2 * nd + 2) * m + 3 * T) / HBM_BYTES_PER_MS
+
+
+def run_dia(parent: Path, chunks: bool) -> None:
+    """K16 and K17 of this tree against DIR's (before their march) at
+    ``DIA_AB``, float32 and float64, ν ∈ {2, 3}: max|new − old|, both held
+    to the twin, median device times old, new, twin, new, old, the bound,
+    the plan, this tree's time in every form that takes the level and,
+    with ``chunks``, at half and twice its chunk; ptxas's registers of
+    each march kernel."""
+    from ..ops import dia_kernels as dk
+    from ..solver import build_solver
+
+    so = build_parent_dia(parent)
+    lib = native.LIB.get()
+    entry = None
+    for line in native.LIB.build_log.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"(dia_march_kernelI[fd]Li\d+ELi\d+E)", line)
+            entry = m.group(1) if m else None
+        elif entry and ("Used" in line or "spill" in line):
+            print("ptxas:", entry, line.split(":", 1)[-1].strip(), flush=True)
+    t0 = time.perf_counter()
+    solvers = {
+        "nested": build_solver("lshape2d", 32, 7, dtype=torch.float32,
+                               device="cuda", refine=4, inner="mg"),
+        "amg": build_solver("lshape2d", 256, 6, dtype=torch.float32,
+                            device="cuda", inner="amg"),
+    }
+    print(f"setup {time.perf_counter() - t0:.2f} s", flush=True)
+    rng = np.random.default_rng(17)
+    for dtype, (name, li, T) in itertools.product(
+            (torch.float32, torch.float64), DIA_AB):
+        lev = solvers[name].msmg.levels[li]
+        base = solvers[name]._kl_ky[li]
+        assert base.kind == "dia", (name, li)
+        vals = base.values(lev, dtype, "cuda")
+        cols = dia_columns(lev, T, dtype, "cuda", rng)
+        mk = _fields(rng, dtype)
+        x, b = mk((T, lev.m)), mk((T, lev.m))
+        nd = len(base.offsets)
+        forms = [dk.SHARED] + ([dk.REGISTERS] if nd <= dk.MAX_REG_TAPS
+                               else [])
+        cases = [("residual", 2, "residual", lambda kl: (
+            lambda: (kl.residual(x, b, cols, vals),),
+            lambda: (dia_lib_residual(_call, so, kl, x, b, cols, vals),),
+            lambda: (kl.residual_plain(x, b, cols, vals),),
+            lambda p: (dia_lib_residual(_call, lib, kl, x, b, cols, vals,
+                                        p),)))]
+        for nu, zero in itertools.product((2, 3), (True, False)):
+            cases.append(("step", nu,
+                          "smooth from 0" if zero else "smooth from x",
+                          lambda kl, z=zero: (
+                lambda: (kl.smooth(x, b, cols, vals, zero_init=z),),
+                lambda: (dia_lib_smooth(_call, so, kl, x, b, cols, vals,
+                                        kl.nu, z),),
+                lambda: (kl.smooth_plain(x, b, cols, vals, zero_init=z),),
+                lambda p: (dia_lib_smooth(_call, lib, kl, x, b, cols, vals,
+                                          kl.nu, z, p),))))
+        for mode, nu, form, fns in cases:
+            kl = dk.DiaKernelLevel(lev, nu)
+            new_fn, old_fn, twin_fn, plan_fn = fns(kl)
+            plan = kl.plan(mode, b)
+            # each form's time, every launch at the chunk of ``mode`` (a
+            # sweep's later steps, or K17) that the form's plan picks
+            form_ms = {f: device_ms(lambda f=f: plan_fn(
+                (f, dk.dia_plan(mode, dtype, nd, T, lev.m, 0, f)["chunk"])))
+                       for f in forms}
+            extra = {"level": f"{name} L{li} m={lev.m}", "form": form,
+                     "nd": nd, "plan": plan, "form_ms": form_ms,
+                     "bound_ms": dia_bound_ms(form, kl, T, dtype)}
+            if chunks:
+                c = plan["chunk"]
+                extra["chunk_ms"] = {k: device_ms(lambda k=k: plan_fn(
+                    (plan["form"], k))) for k in sorted(
+                        {max(c // 2, 1), c, min(2 * c, T)})}
+            compare("K17" if mode == "residual" else "K16", kl, T, dtype,
+                    new_fn, old_fn, twin_fn, extra=extra, time_twin=True)
+        del x, b, vals
+        torch.cuda.empty_cache()
+
+
 def _call(so, name, *args):
     err = getattr(so, name)(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -415,7 +606,8 @@ def compare(label, kl, T, dtype, new_fn, old_fn, twin_fn, pair_fn=None,
     from each function), the twin's too with ``time_twin``."""
     new, old, twin = new_fn(), old_fn(), twin_fn()
     torch.cuda.synchronize()
-    rec = {"kernel": label, "T": T, "gs": list(kl.gs), "nu": kl.nu,
+    rec = {"kernel": label, "T": T,
+           "gs": list(kl.gs) if hasattr(kl, "gs") else [kl.m], "nu": kl.nu,
            "dtype": str(dtype)[6:], **(extra or {})}
     rec["max_abs_new_old"] = max(_err(a, b) for a, b in zip(new, old))
     for name, got in (("new", new), ("old", old)):
@@ -702,7 +894,7 @@ def run_kernels(parent: Path, dims, families, chunks: bool) -> None:
 
 # the solves --solves also traces in this tree, with --traces DIR, and
 # those whose runs take the card one at a time (their loads' memory)
-TRACED = ("varcoef2d", "smooth2d", "smooth3d-129")
+TRACED = ("varcoef2d", "smooth2d", "smooth3d-129", "nested-lshape2d")
 ALONE = ("smooth3d-129",)
 # run.py of the tree in the working directory, given the path P and
 # run.py's arguments: after the solver's loads it creates P.ready and waits
@@ -735,7 +927,7 @@ def run_solves(parent: Path, which: str, traces: Path | None = None) -> None:
     import tempfile
 
     names = which.split(",")
-    runs = [r for r in SOLVES["2d"] + SOLVES["3d"]
+    runs = [r for r in itertools.chain(*SOLVES.values())
             if any(w == "all" or r in SOLVES.get(w, ()) or r[0] == w
                    for w in names)]
     order = (("parent", parent), ("change", REPO), ("change", REPO),
@@ -917,6 +1109,8 @@ def main() -> int:
                    help="with --kron, time K1/K2 at each pencil")
     p.add_argument("--stencil", action="store_true",
                    help="K4/K5 against DIR's in place of the fused stages")
+    p.add_argument("--dia", action="store_true",
+                   help="K16/K17 against DIR's in place of the fused stages")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("fused_ab needs an NVIDIA GPU", file=sys.stderr)
@@ -930,6 +1124,8 @@ def main() -> int:
         run_kron(args.parent.resolve(), args.pencils)
     elif args.stencil:
         run_stencil(args.parent.resolve())
+    elif args.dia:
+        run_dia(args.parent.resolve(), args.chunks)
     elif not args.solves_only:
         run_kernels(args.parent.resolve(), dims, args.family.split(","),
                     args.chunks)
