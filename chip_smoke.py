@@ -135,12 +135,13 @@ Phases (every check asserts; any failure exits non-zero):
 27. K16–K19 — the setup of lshape2d on 32 cells red-refined 4 times, J=7
               (25.2 MDoF, nested multigrid) and of the AMG solver on phase
               26's n=256 system; each DIA level's plan of the K16/K17 march
-              (form, segment, chunk and blocks an SM of each launch mode),
+              (where the values are held, segment, chunk and blocks an SM
+              of each launch mode),
               the tetrahedra's of ``FLAT_F64`` too; K16 (from 0, from x),
               K17 and K18 against their twins on the nested fine level
               (T=129, 128), its second level (T=129), the AMG DIA fine
               level (m=48641, T=65, 64) and the nested tetrahedra's fine
-              level (m=29791, 15 offsets; T=9, 129), K19 and the K20
+              level (m=29791, 15 offsets; T=129), K19 and the K20
               transfers on the AMG ELL level (m=8191, T=65, 64), f32 and
               f64, within 1e-5 (f32) and 1e-13 (f64) of max|twin|; times at
               the nested and tetrahedra fine levels (T=129) and the ELL
@@ -383,10 +384,9 @@ REF_SINGULAR2D = {"problem": "singular2d", "n": 512, "levels": 7, "extra": 6,
 # (K_X's 65 and K_Y's 64 at its DIA fine level and its ELL level)
 DIA_T = (129, 128)
 PAIR_T = (65, 64)
-# (T, timed) of the K16–K18 checks at the fine level of FLAT_F64's nested
-# tetrahedra (m = 29,791, 15 offsets): its solve's K_X rows, and 129 rows,
-# timed
-TET_T = ((9, False), (129, True))
+# Time rows of the timed K16–K18 checks at the fine level of FLAT_F64's
+# nested tetrahedra (m = 29,791, 15 offsets)
+TET_T = 129
 # The oracle's rows solved in float64 on the card (dense inner solves;
 # cfg1b, the other ladders and varcoef3d-8-J3 are held on the CPU,
 # tests/test_torch_oracle.py): (config, problem, cells, levels, extra
@@ -1426,9 +1426,11 @@ def phase_flat_kernels(build_solver, lsh, spmv):
     amg._rhs_host = lsh._rhs_host_arrays()
     print(f"AMG setup {time.perf_counter() - t0:.2f} s (levels "
           f"{[(lev.m, lev.fmt) for lev in amg.msmg.levels]})", flush=True)
+    t_tet = time.perf_counter()
     label, problem, n_tet, r_tet, J_tet, kw, *_ = FLAT_F64[2]
     tet = build_solver(problem, n_tet, J_tet, dtype=f32, device=DEVICE,
                        refine=r_tet, **kw)
+    t_tet = time.perf_counter() - t_tet
     # K16/K17's march: each DIA level's plan (csrc/dia.cu, ops/dia_kernels.py
     # dia_plan) in each mode, at the T its solve's K_X takes
     for name, s, T in (("nested", nst, DIA_T[0]), ("AMG", amg, PAIR_T[0]),
@@ -1442,8 +1444,8 @@ def phase_flat_kernels(build_solver, lsh, spmv):
                      for mode in dia_kernels.MODES}
             p = plans["step"]
             print(f"  {name} m={lev.m} ({len(kl.offsets)} offsets), "
-                  f"{str(dtype)[6:]}, T={T}: "
-                  f"{dia_kernels.FORM_NAMES[p['form']]}, segments of "
+                  f"{str(dtype)[6:]}, T={T}: values in {p['held']}, "
+                  f"segments of "
                   f"{p['threads']} dofs x {p['segments']}, "
                   f"{p['smem_bytes']} shared bytes; (chunk, blocks an SM) "
                   + ", ".join(f"{mode} ({q['chunk']}, {q['blocks_per_sm']})"
@@ -1464,11 +1466,12 @@ def phase_flat_kernels(build_solver, lsh, spmv):
         for T in PAIR_T:
             check_dia_forms(amg._kl_ky[0], lev, T, dtype, rng, results,
                             f"AMG L0 m={lev.m}", False, None)
+        t0 = time.perf_counter()
         lev = tet.msmg.levels[0]
-        for T, timed in TET_T:
-            check_dia_forms(tet._kl_ky[0], lev, T, dtype, rng, results,
-                            f"{label} L0 m={lev.m}", timed,
-                            _dia_to_csr(lev.offA, lev.Av))
+        check_dia_forms(tet._kl_ky[0], lev, TET_T, dtype, rng, results,
+                        f"{label} L0 m={lev.m}", True,
+                        _dia_to_csr(lev.offA, lev.Av))
+        t_tet += time.perf_counter() - t0
         lev = [lv for lv in amg.msmg.levels if lv.fmt == "ell"][0]
         ek = [k for k in amg._kl_ky if k.kind == "ell"][0]
         if dtype == f32:
@@ -1554,6 +1557,8 @@ def phase_flat_kernels(build_solver, lsh, spmv):
         del v, blk
         torch.cuda.empty_cache()
     del tet
+    print(f"the tetrahedra level's setup and checks: {t_tet:.2f} s",
+          flush=True)
     return nst, amg, results
 
 
@@ -2732,6 +2737,7 @@ def main() -> int:
     phase_oracle_rows(build_solver, paths)
     phase_lshape(lsh, paths)
     nst, amg, flat_results = phase_flat_kernels(build_solver, lsh, spmv)
+    m_nested = nst.m
     del lsh
     phase_flat_solves(build_solver, nst, amg, paths)
     del nst, amg
@@ -2826,7 +2832,8 @@ def main() -> int:
                                f"T={PAIR_T[0]}; library_ms is two "
                                "torch.sparse.mm (cuSPARSE CSR), bound_ms "
                                "from the nonzeros"),
-        **{(op, "dia"): (f"{form} T={DIA_T[0]} m=", dia_kernels.SOURCE,
+        **{(op, "dia"): (f"{form} T={DIA_T[0]} m={m_nested}",
+                         dia_kernels.SOURCE,
                          f"{form}, nu=2, at the nested fine level at "
                          f"T={DIA_T[0]}")
            for op, form in m_fine.items()},
@@ -2836,9 +2843,7 @@ def main() -> int:
             at_key, source, form = flat_forms[(op, fam)]
             rec = (ell_results[dtype] if op == "spmm"
                    else flat_results[(op, dtype)])
-            # the one timed shape of the key's prefix
-            at = next(v for f, v in rec["forms"].items()
-                      if f.startswith(at_key))
+            at = rec["forms"][at_key]
             kernels.append({
                 "name": k.name,
                 "route": "cuda",

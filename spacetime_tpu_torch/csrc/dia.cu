@@ -76,8 +76,6 @@ constexpr int kDefaultSmem = 48 * 1024;
 // What a march launch computes (`MODE`): K17, K16's first step from x or
 // from x = 0, and a later step of K16.
 enum Mode { kResidual = 0, kFirst = 1, kFirstZero = 2, kStep = 3 };
-// Where the values are held (the entry points' `form`).
-enum Form { kShared = 0, kRegisters = 1 };
 
 // The register form's least blocks an SM (`__launch_bounds__`): 3 for a
 // K16 step in float, else 1 (the compiler's own choice), by timing on the
@@ -295,30 +293,22 @@ bool bad_shape(int64_t nt, int64_t m, const DiaOffsets* o) {
   return nt < 1 || nt > 65535 || m < 1 || o->n < 1 || o->n > kMaxDiag;
 }
 
-// The march's kernel for (T, MODE) in `form` with n offsets, as a call of
-// f(kernel, threads a block, dynamic shared bytes); cudaErrorInvalidValue
-// for a form that does not take n offsets (the registers: more than 16).
-// The march's kernel for (T, MODE) in `form` with n offsets, as a call of
-// f(kernel, threads a block, dynamic shared bytes); cudaErrorInvalidValue
-// for a form that does not take n offsets (the registers: more than 16).
+// The march's kernel for (T, MODE) with n offsets, as a call of f(kernel,
+// threads a block, dynamic shared bytes): the values in registers up to 16
+// offsets, the taps unrolled to 12 or 16, else in the shared tile;
+// cudaErrorInvalidValue for a table of no offsets or more than kMaxDiag.
 template <typename T, int MODE, typename F>
-int by_held_form(int form, int n, F f) {
-  if (form == kShared) {
-    return f(dia_march_kernel<T, MODE, 0>, kTileThreads,
-             size_t(2 * n) * kTileThreads * sizeof(T));
-  }
-  if (form != kRegisters || n > kMaxRegTaps) return int(cudaErrorInvalidValue);
-  return n <= 12 ? f(dia_march_kernel<T, MODE, 12>, kThreads, size_t(0))
-                 : f(dia_march_kernel<T, MODE, 16>, kThreads, size_t(0));
-}
-
-template <typename T, int MODE, typename F>
-int by_form(int form, int n, F f) {
+int by_form(int n, F f) {
   if (n < 1 || n > kMaxDiag) return int(cudaErrorInvalidValue);
   if constexpr (MODE == kFirstZero) {  // holds no values: one kernel
     return f(dia_march_kernel<T, kFirstZero, 1>, kThreads, size_t(0));
   } else {
-    return by_held_form<T, MODE>(form, n, f);
+    if (n > kMaxRegTaps) {
+      return f(dia_march_kernel<T, MODE, 0>, kTileThreads,
+               size_t(2 * n) * kTileThreads * sizeof(T));
+    }
+    return n <= 12 ? f(dia_march_kernel<T, MODE, 12>, kThreads, size_t(0))
+                   : f(dia_march_kernel<T, MODE, 16>, kThreads, size_t(0));
   }
 }
 
@@ -336,10 +326,9 @@ int launch_march(const T* x, const T* b, const T* vA, const T* vM,
                  const T* dA, const T* dM, const T* omega, const T* invT,
                  const T* invDel, T* r, const T* d_in, T* d_out, T* x_out,
                  int64_t nt, int64_t m, const DiaOffsets* o, int last,
-                 double c1, double c2, int form, int chunk, void* stream) {
+                 double c1, double c2, int chunk, void* stream) {
   if (bad_shape(nt, m, o) || chunk < 1) return int(cudaErrorInvalidValue);
-  return by_form<T, MODE>(form, o->n, [&](auto kernel, int threads,
-                                          size_t bytes) {
+  return by_form<T, MODE>(o->n, [&](auto kernel, int threads, size_t bytes) {
     const int err = allow_smem(kernel, bytes);
     if (err != 0) return err;
     const dim3 grid(unsigned((m + threads - 1) / threads),
@@ -356,17 +345,17 @@ int launch_smooth_step(const T* x, const T* b, const T* vA, const T* vM,
                        const T* dA, const T* dM, const T* omega, const T* invT,
                        const T* invDel, T* r, const T* d_in, T* d_out,
                        T* x_out, int64_t nt, int64_t m, const DiaOffsets* o,
-                       int first, double c1, double c2, int last, int form,
-                       int chunk, void* stream) {
+                       int first, double c1, double c2, int last, int chunk,
+                       void* stream) {
   if (!first) {
     if (d_in == nullptr) return int(cudaErrorInvalidValue);
     return launch_march<T, kStep>(x, b, vA, vM, dA, dM, omega, invT, invDel,
                                   r, d_in, d_out, x_out, nt, m, o, last, c1,
-                                  c2, form, chunk, stream);
+                                  c2, chunk, stream);
   }
   return (x != nullptr ? launch_march<T, kFirst> : launch_march<T, kFirstZero>)(
       x, b, vA, vM, dA, dM, omega, invT, invDel, r, d_in, d_out, x_out, nt, m,
-      o, last, c1, c2, form, chunk, stream);
+      o, last, c1, c2, chunk, stream);
 }
 
 template <typename T>
@@ -380,9 +369,8 @@ int launch_apply(const T* x, const T* vA, T* out, int64_t nt, int64_t m,
 }
 
 template <typename T, int MODE>
-int march_occupancy(int form, int n, int* blocks, int* bytes, int* threads) {
-  return by_form<T, MODE>(form, n, [&](auto kernel, int nthreads,
-                                       size_t nbytes) {
+int march_occupancy(int n, int* blocks, int* bytes, int* threads) {
+  return by_form<T, MODE>(n, [&](auto kernel, int nthreads, size_t nbytes) {
     const int err = allow_smem(kernel, nbytes);
     if (err != 0) return err;
     *bytes = int(nbytes);
@@ -396,24 +384,25 @@ int march_occupancy(int form, int n, int* blocks, int* bytes, int* threads) {
 
 // Plain C entry points (bound with ctypes); each returns the cudaError_t of
 // its launch. Fields (nt, m), values (ndu, m), diagonals (m,), columns
-// (nt,), all contiguous; the offsets by pointer. K16 and K17 take the form
-// (0 the shared tile, 1 registers) and the time rows a block walks (chunk
-// ≥ 1); a K16 step with `last` writes x_out alone.
+// (nt,), all contiguous; the offsets by pointer. K16 and K17 take the time
+// rows a block walks (chunk ≥ 1); a K16 step with `last` writes x_out
+// alone.
 extern "C" {
 
 int dia_offsets_size() { return int(sizeof(DiaOffsets)); }
 
 // The march's plan for `mode` (0 K17, 1 a first K16 step from x, 2 from x
-// = 0, 3 a later step), the dtype, n offsets and the form: blocks an SM
-// holds, dynamic shared bytes and threads a block (a segment's dofs).
-int dia_march_occupancy(int mode, int f64, int n, int form, int* blocks,
-                        int* bytes, int* threads) {
+// = 0, 3 a later step), the dtype and n offsets: blocks an SM holds,
+// dynamic shared bytes (none where the values sit in registers) and
+// threads a block (a segment's dofs).
+int dia_march_occupancy(int mode, int f64, int n, int* blocks, int* bytes,
+                        int* threads) {
   switch (mode * 2 + (f64 ? 1 : 0)) {
 #define DIA_OCC(M)                                                         \
   case 2 * M:                                                              \
-    return march_occupancy<float, M>(form, n, blocks, bytes, threads);     \
+    return march_occupancy<float, M>(n, blocks, bytes, threads);           \
   case 2 * M + 1:                                                          \
-    return march_occupancy<double, M>(form, n, blocks, bytes, threads);
+    return march_occupancy<double, M>(n, blocks, bytes, threads);
     DIA_OCC(kResidual)
     DIA_OCC(kFirst)
     DIA_OCC(kFirstZero)
@@ -430,19 +419,18 @@ int dia_march_occupancy(int mode, int f64, int n, int form, int* blocks,
                        const T* invT, const T* invDel, T* r, const T* d_in,   \
                        T* d_out, T* x_out, int64_t nt, int64_t m,             \
                        const DiaOffsets* o, int first, double c1, double c2,  \
-                       int last, int form, int chunk, void* stream) {         \
+                       int last, int chunk, void* stream) {                   \
     return launch_smooth_step<T>(x, b, vA, vM, dA, dM, omega, invT, invDel,   \
                                  r, d_in, d_out, x_out, nt, m, o, first, c1,  \
-                                 c2, last, form, chunk, stream);              \
+                                 c2, last, chunk, stream);                    \
   }                                                                           \
   int dia_residual_##SFX(const T* x, const T* b, const T* vA, const T* vM,    \
                          const T* omega, T* out, int64_t nt, int64_t m,       \
-                         const DiaOffsets* o, int form, int chunk,            \
-                         void* stream) {                                      \
+                         const DiaOffsets* o, int chunk, void* stream) {      \
     return launch_march<T, kResidual>(x, b, vA, vM, nullptr, nullptr, omega,  \
                                       nullptr, nullptr, nullptr, nullptr,     \
                                       nullptr, out, nt, m, o, 0, 0.0, 0.0,    \
-                                      form, chunk, stream);                   \
+                                      chunk, stream);                         \
   }                                                                           \
   int dia_apply_##SFX(const T* x, const T* vA, T* out, int64_t nt, int64_t m, \
                       const DiaOffsets* o, void* stream) {                    \

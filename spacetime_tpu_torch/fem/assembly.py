@@ -10,12 +10,34 @@ quadrature is queue 1 item 3 (ROADMAP.md).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import scipy.sparse as sp
+import torch
 
 from .mesh import Mesh
+
+
+def host_map(fn, items):
+    """``fn`` over ``items`` on ``torch.get_num_threads()`` host threads (a
+    mesh rank's share of the cores), results in order: numpy's and scipy's
+    kernels release the GIL, so the quadratures' rows overlap. At most one
+    call a thread is in flight."""
+    workers = max(1, torch.get_num_threads())
+    if workers == 1:
+        yield from map(fn, items)
+        return
+    with ThreadPoolExecutor(workers) as pool:
+        pending = collections.deque()
+        for item in items:
+            pending.append(pool.submit(fn, item))
+            if len(pending) >= workers:
+                yield pending.popleft().result()
+        while pending:
+            yield pending.popleft().result()
 
 
 def _check_nondegenerate(det: np.ndarray, what: str) -> None:
@@ -197,14 +219,21 @@ def spacetime_loads(problem, mesh: Mesh, grid, rows: slice | None = None
     )
 
     def half_loads(times_flat: np.ndarray) -> np.ndarray:
-        """(k,) times -> (k, m) interior loads, one g evaluation per chunk;
-        the chunk bounds the g-values buffer to ~1 GB."""
+        """(k,) times -> (k, m) interior loads, one g evaluation per chunk
+        (the chunk bounds the g-values buffer to ~1 GB), S2 applied to each
+        time's row on the host's threads (``host_map``): a row's sums are
+        those of S2 on the whole chunk, with no transposed copy of it."""
         out = np.empty((times_flat.size, idx.size))
         chunk = max(1, int(1.2e8 // max(pts.shape[0], 1)))
         for lo in range(0, times_flat.size, chunk):
             ts = times_flat[lo : lo + chunk]
             fvals = problem.g_many(ts, pts)  # (k, ne*nq)
-            out[lo : lo + ts.size] = S2.dot(fvals.T).T
+
+            def fold(i):
+                out[lo + i] = S2.dot(fvals[i])
+
+            for _ in host_map(fold, range(ts.size)):
+                pass
         return out
 
     loads = half_loads(tq.reshape(-1)).reshape(N, 2, 2, idx.size)

@@ -16,9 +16,10 @@ Op = A + ω⊙M with one shift per time row on the flat (T, m) layout:
 A and M are held on the union of their diagonal offsets
 (``union_offsets``, the JAX package's ``_union_offsets``) as (ndu, m)
 values, so one tap of x serves both. K16 and K17 march in time: a block
-owns a segment of the dofs, holds their values on chip (registers up to
-16 offsets, else a shared tile: ``dia_form``) and walks a chunk of the
-time rows (``dia_chunk``; ``dia_plan`` gives a launch's whole plan). K16
+owns a segment of the dofs, holds their values on chip (csrc/dia.cu
+chooses registers up to 16 offsets, else a shared tile) and walks a chunk
+of the time rows (``dia_chunk``; ``dia_plan`` gives a launch's whole
+plan). K16
 runs a sweep as ν launches of its one-step march, as K3 does above its
 tiled ν (``mg_cheb_step``); K18 is one thread per (row, dof).
 
@@ -64,30 +65,19 @@ MAX_ROWS = 65535  # a chunk of time rows is blockIdx.y
 # ``dia_chunk`` weighs the held values' load
 MODES = {"residual": 0, "first": 1, "first_zero": 2, "step": 3}
 ROW_FIELDS = {"residual": 3, "first": 5, "first_zero": 4, "step": 6}
-# Where the march holds the values (csrc/dia.cu ``Form``): a shared tile
-# [k][dof], or registers
-SHARED, REGISTERS = 0, 1
-FORM_NAMES = {SHARED: "shared", REGISTERS: "registers"}
-MAX_REG_TAPS = 16  # the most offsets the register form holds
-
-
-def dia_form(nd: int) -> int:
-    """The form that holds ``nd`` offsets' values: registers up to
-    ``MAX_REG_TAPS``, else the shared tile."""
-    return REGISTERS if nd <= MAX_REG_TAPS else SHARED
 
 
 @functools.lru_cache(maxsize=None)
-def dia_occupancy(mode: str, dtype, nd: int, form: int,
+def dia_occupancy(mode: str, dtype, nd: int,
                   index: int) -> tuple[int, int, int]:
     """(blocks an SM of device ``index`` holds, dynamic shared bytes,
-    threads a block: the dofs of a segment) of the march in ``mode`` and
-    ``form`` on ``nd`` offsets (csrc/dia.cu ``dia_march_occupancy``)."""
+    threads a block: the dofs of a segment) of the march in ``mode`` on
+    ``nd`` offsets (csrc/dia.cu ``dia_march_occupancy``)."""
     lib = native.LIB.get()
     out = [ctypes.c_int() for _ in range(3)]
     with torch.cuda.device(index):
         err = lib.dia_march_occupancy(MODES[mode], int(dtype == torch.float64),
-                                      nd, form, *map(ctypes.byref, out))
+                                      nd, *map(ctypes.byref, out))
     native.check(lib, "dia_march_occupancy", err)
     return max(out[0].value, 1), out[1].value, out[2].value
 
@@ -105,16 +95,17 @@ def dia_chunk(mode: str, T: int, segments: int, nd: int, resident: int,
 
 
 @functools.lru_cache(maxsize=None)
-def dia_plan(mode: str, dtype, nd: int, T: int, m: int, index: int,
-             form: int | None = None) -> dict:
-    """The march's launch on T rows of m dofs: its form (``dia_form``
-    unless given), threads a block (a segment's dofs), segments, blocks an
-    SM, dynamic shared bytes and chunk of time rows. Cached: a solve asks
-    it at every launch."""
-    form = dia_form(nd) if form is None else form
-    resident, nbytes, threads = dia_occupancy(mode, dtype, nd, form, index)
+def dia_plan(mode: str, dtype, nd: int, T: int, m: int, index: int) -> dict:
+    """The march's launch on T rows of m dofs: where it holds the values
+    (``held``: the library's shared tile where it asks shared bytes, else
+    registers; none in the first step from 0), threads a block (a
+    segment's dofs), segments, blocks an SM, dynamic shared bytes and chunk
+    of time rows. Cached: a solve asks it at every launch."""
+    resident, nbytes, threads = dia_occupancy(mode, dtype, nd, index)
     segments = -(-m // threads)
-    return {"form": form, "threads": threads, "segments": segments,
+    held = ("none" if mode == "first_zero"
+            else "shared" if nbytes else "registers")
+    return {"held": held, "threads": threads, "segments": segments,
             "blocks_per_sm": resident, "smem_bytes": nbytes,
             "chunk": dia_chunk(mode, T, segments, nd, resident,
                                _sm_count(index))}
@@ -279,8 +270,7 @@ class DiaKernelLevel:
                      *fields, r.data_ptr(),
                      None if d_in is None else d[d_in].data_ptr(),
                      d[d_out].data_ptr(), out.data_ptr(), T, self.m, offs,
-                     int(mode != "step"), c1, c2, int(last), p["form"],
-                     p["chunk"])
+                     int(mode != "step"), c1, c2, int(last), p["chunk"])
 
         self.sweep(step, nu, zero_init)
         return out
@@ -308,7 +298,7 @@ class DiaKernelLevel:
         p = self.plan("residual", b)
         k.launch(b.device, x.data_ptr(), b.data_ptr(), vals["vA"].data_ptr(),
                  vals["vM"].data_ptr(), cp[0], out.data_ptr(), T, self.m,
-                 ctypes.addressof(self.struct), p["form"], p["chunk"])
+                 ctypes.addressof(self.struct), p["chunk"])
         return out
 
     def apply_A(self, x, vals):

@@ -299,10 +299,10 @@ def entry_signatures() -> dict:
         "ell_spmm_pair": [P, I64, I64, P, P, P, P, I64, P, P, I64, P],
         # dia.cu, one K16 step: x, b, vA, vM, dA, dM, the columns, r,
         # d_in, d_out, x_out, nt, m, the offsets, first, c1, c2, last,
-        # then the march's form and chunk (K17 too)
+        # then the march's chunk (K17 too)
         "dia_smooth": [P, P, P, P, P, P, P, P, P, P, P, P, P, I64, I64, P,
-                       I, D, D, I, I, I, P],
-        "dia_residual": [P, P, P, P, P, P, I64, I64, P, I, I, P],
+                       I, D, D, I, I, P],
+        "dia_residual": [P, P, P, P, P, P, I64, I64, P, I, P],
         "dia_apply": [P, P, P, I64, I64, P, P],
     }
 
@@ -330,8 +330,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # a chunk
     lib.mg_stencil_occupancy.argtypes = [I, I, I, I64, I64, P, P, P, P]
     lib.mg_stencil_occupancy.restype = I
-    # the DIA march's: mode, f64, offsets, form, then blocks, bytes, threads
-    lib.dia_march_occupancy.argtypes = [I, I, I, I, P, P, P]
+    # the DIA march's: mode, f64, offsets, then blocks, bytes, threads
+    lib.dia_march_occupancy.argtypes = [I, I, I, P, P, P]
     lib.dia_march_occupancy.restype = I
     for size_fn, struct in (("kron_taps_size", TapsStruct),
                             ("mg_pairs_size", PairGroupsStruct),

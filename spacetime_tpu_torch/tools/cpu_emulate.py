@@ -32,9 +32,9 @@ every chunk from one row (plane) to the whole column, held to their
 twins the same way; and K16 and K17 (csrc/dia.cu ``dia_smooth``,
 ``dia_residual``, float32 and float64) on a nested L-shape level (11
 offsets), a nested tetrahedra level (15) and a synthetic level of more
-than 16 (the shared form alone), T = 1, 2 and 5, K16 from 0 and from x at
-ν ∈ {2, 3, 4}, in every form that takes the level and at every chunk
-from one time row to all, held to their twins the same way. With
+than 16 (held in the shared tile), T = 1, 2 and 5, K16 from 0 and from x
+at ν ∈ {2, 3, 4}, at every chunk from one time row to all, held to their
+twins the same way. With
 ``--parent DIR`` (an unpacked ``git archive`` of an earlier commit) DIR's
 csrc/mg.cu, csrc/kron.cu and csrc/dia.cu are emulated too, their entry
 points bound as ``tools.fused_ab`` binds them, and each output must equal
@@ -571,7 +571,8 @@ def dia_levels(synthetic: int = 20) -> list:
 def build_dia(csrc: Path = native.CSRC, name: str = "this_dia",
               bind=None) -> ctypes.CDLL:
     """``csrc``'s dia.cu and common.cu alone (K16–K18), bound with this
-    tree's signatures (``bind``: another tree's binder)."""
+    tree's signatures, ``dia_march_occupancy`` too (``bind``: another
+    tree's binder)."""
     so = build([csrc / "dia.cu", csrc / "common.cu"], name)
     if bind is not None:
         return bind(so)
@@ -580,16 +581,18 @@ def build_dia(csrc: Path = native.CSRC, name: str = "this_dia",
                                      ("f32", "f64")):
         fn = getattr(so, f"{op}_{sfx}")
         fn.argtypes, fn.restype = signatures[op], ctypes.c_int
+    I, P = ctypes.c_int, ctypes.c_void_p
+    so.dia_march_occupancy.argtypes = [I, I, I, P, P, P]
+    so.dia_march_occupancy.restype = I
     return so
 
 
 def check_dia(new, old, levels=None, Ts=DIA_T, nus=(2, 3, 4)) -> int:
     """K17 and K16 (from 0 and from x at each of ``nus``) of ``new`` on
     each level of ``levels`` (``dia_levels()``) at T of ``Ts``, float32
-    and float64, in every form that takes the level (the shared tile; the
-    registers, with and without the row ahead, up to 16 offsets) and at
-    every chunk of 1 to T rows, against their twins and, if given,
-    ``old``'s (before the march: no form, chunk or last); returns the
+    and float64, at every chunk of 1 to T rows (the values in registers up
+    to 16 offsets, else in the shared tile), against their twins and, if
+    given, ``old``'s (before the march: no chunk or last); returns the
     number of launches compared."""
     from ..ops import dia_kernels as dk
 
@@ -602,26 +605,22 @@ def check_dia(new, old, levels=None, Ts=DIA_T, nus=(2, 3, 4)) -> int:
         cols = dia_columns(lev, T, dtype, "cpu", rng)
         x, b = (torch.as_tensor(rng.standard_normal((T, lev.m)), dtype=dtype)
                 for _ in range(2))
-        nd = len(kl.offsets)
-        forms = [dk.SHARED] + ([dk.REGISTERS] if nd <= dk.MAX_REG_TAPS
-                               else [])
-        plans = list(itertools.product(forms, range(1, T + 1)))
         runs = [(kl.residual_plain(x, b, cols, vals),
-                 lambda so, p: dia_lib_residual(_call, so, kl, x, b, cols,
-                                                vals, p), 1, "residual")]
+                 lambda so, c: dia_lib_residual(_call, so, kl, x, b, cols,
+                                                vals, c), 1, "residual")]
         for nu, zero in itertools.product(nus, (True, False)):
             kn = dk.DiaKernelLevel(lev, nu)
             runs.append((kn.smooth_plain(x, b, cols, vals, zero_init=zero),
-                         lambda so, p, kn=kn, z=zero: dia_lib_smooth(
-                             _call, so, kn, x, b, cols, vals, kn.nu, z, p),
+                         lambda so, c, kn=kn, z=zero: dia_lib_smooth(
+                             _call, so, kn, x, b, cols, vals, kn.nu, z, c),
                          nu, f"smooth nu={nu} from {'0' if zero else 'x'}"))
         for want, run, launches, form in runs:
             ref = None
             if old is not None:
                 ref = run(old, None)
                 n += launches
-            for plan in plans:
-                _close((label, form, str(dtype), T, plan), run(new, plan),
+            for chunk in range(1, T + 1):
+                _close((label, form, str(dtype), T, chunk), run(new, chunk),
                        want, dtype, ref)
                 n += launches
     return n

@@ -60,9 +60,8 @@ chunk); each fused stage gets the chunk this tree's wrapper picks.
   solve's fine level at T = 129 and 128 and its second level at 129, the
   AMG n = 256 DIA level at T = 65 and 64; float32 and float64. max|new −
   old|, both held to the twin, median device times old, new, twin, new,
-  old, the HBM bound, the plan (form, chunk, threads, blocks an SM), this
-  tree's time in each form that takes the level (shared, registers,
-  registers a row ahead) and ptxas's registers; with ``--chunks`` this
+  old, the HBM bound, the plan (where the values are held, chunk,
+  threads, blocks an SM) and ptxas's registers; with ``--chunks`` this
   tree's time at half and twice the chunk too.
 - ``--solves``: steady ``solve`` seconds, f32, ``inner="mg"`` unless the
   solve names another, by ``run.py --repeat 3`` in DIR, this tree, this
@@ -423,7 +422,7 @@ DIA_AB = [("nested", 0, 129), ("nested", 0, 128), ("nested", 1, 129),
 def bind_parent_dia(so: ctypes.CDLL) -> ctypes.CDLL:
     """The parent's K16 and K17 entry points ``dia_smooth`` and
     ``dia_residual`` (f32 and f64) of library ``so``, bound with the
-    signatures before their time march (no last, form or chunk)."""
+    signatures before their time march (no last or chunk)."""
     P, I64, I, D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_double
     signatures = {"dia_smooth": [P] * 13 + [I64, I64, P, I, D, D, P],
                   "dia_residual": [P] * 6 + [I64, I64, P, P]}
@@ -461,10 +460,10 @@ def dia_columns(lev, T, dtype, device, rng) -> dict:
 
 
 def dia_lib_smooth(call, so, kl, x, b, cols, vals, nu, zero_init,
-                   plan=None):
+                   chunk=None):
     """K16's sweep by library ``so``'s ``dia_smooth`` entry point (``call``
-    passes the stream): with ``plan`` = (form, chunk) this tree's, in that
-    form and chunk; without, a parent's from before the march."""
+    passes the stream): with ``chunk`` this tree's, at that chunk of rows;
+    without, a parent's from before the march."""
     T = b.shape[0]
     sfx = "f32" if b.dtype == torch.float32 else "f64"
     out, r = torch.empty_like(b), torch.empty_like(b)
@@ -474,7 +473,7 @@ def dia_lib_smooth(call, so, kl, x, b, cols, vals, nu, zero_init,
               *(cols[n].data_ptr() for n in ("omega", "invT", "invDel")))
 
     def step(mode, d_in, d_out, c1, c2, last):
-        tail = [] if plan is None else [int(last), *plan]
+        tail = [] if chunk is None else [int(last), chunk]
         call(so, f"dia_smooth_{sfx}",
              x.data_ptr() if mode == "first" else None, *fields, r.data_ptr(),
              None if d_in is None else d[d_in].data_ptr(),
@@ -485,14 +484,14 @@ def dia_lib_smooth(call, so, kl, x, b, cols, vals, nu, zero_init,
     return out
 
 
-def dia_lib_residual(call, so, kl, x, b, cols, vals, plan=None):
+def dia_lib_residual(call, so, kl, x, b, cols, vals, chunk=None):
     """K17 by library ``so``'s ``dia_residual`` (as ``dia_lib_smooth``)."""
     sfx = "f32" if b.dtype == torch.float32 else "f64"
     out = torch.empty_like(b)
     call(so, f"dia_residual_{sfx}", x.data_ptr(), b.data_ptr(),
          vals["vA"].data_ptr(), vals["vM"].data_ptr(),
          cols["omega"].data_ptr(), out.data_ptr(), b.shape[0], kl.m,
-         ctypes.addressof(kl.struct), *(() if plan is None else plan))
+         ctypes.addressof(kl.struct), *(() if chunk is None else (chunk,)))
     return out
 
 
@@ -511,9 +510,8 @@ def run_dia(parent: Path, chunks: bool) -> None:
     """K16 and K17 of this tree against DIR's (before their march) at
     ``DIA_AB``, float32 and float64, ν ∈ {2, 3}: max|new − old|, both held
     to the twin, median device times old, new, twin, new, old, the bound,
-    the plan, this tree's time in every form that takes the level and,
-    with ``chunks``, at half and twice its chunk; ptxas's registers of
-    each march kernel."""
+    the plan and, with ``chunks``, this tree's time at half and twice its
+    chunk; ptxas's registers of each march kernel."""
     from ..ops import dia_kernels as dk
     from ..solver import build_solver
 
@@ -545,14 +543,12 @@ def run_dia(parent: Path, chunks: bool) -> None:
         mk = _fields(rng, dtype)
         x, b = mk((T, lev.m)), mk((T, lev.m))
         nd = len(base.offsets)
-        forms = [dk.SHARED] + ([dk.REGISTERS] if nd <= dk.MAX_REG_TAPS
-                               else [])
         cases = [("residual", 2, "residual", lambda kl: (
             lambda: (kl.residual(x, b, cols, vals),),
             lambda: (dia_lib_residual(_call, so, kl, x, b, cols, vals),),
             lambda: (kl.residual_plain(x, b, cols, vals),),
-            lambda p: (dia_lib_residual(_call, lib, kl, x, b, cols, vals,
-                                        p),)))]
+            lambda c: (dia_lib_residual(_call, lib, kl, x, b, cols, vals,
+                                        c),)))]
         for nu, zero in itertools.product((2, 3), (True, False)):
             cases.append(("step", nu,
                           "smooth from 0" if zero else "smooth from x",
@@ -561,25 +557,22 @@ def run_dia(parent: Path, chunks: bool) -> None:
                 lambda: (dia_lib_smooth(_call, so, kl, x, b, cols, vals,
                                         kl.nu, z),),
                 lambda: (kl.smooth_plain(x, b, cols, vals, zero_init=z),),
-                lambda p: (dia_lib_smooth(_call, lib, kl, x, b, cols, vals,
-                                          kl.nu, z, p),))))
+                lambda c: (dia_lib_smooth(_call, lib, kl, x, b, cols, vals,
+                                          kl.nu, z, c),))))
         for mode, nu, form, fns in cases:
             kl = dk.DiaKernelLevel(lev, nu)
             new_fn, old_fn, twin_fn, plan_fn = fns(kl)
             plan = kl.plan(mode, b)
-            # each form's time, every launch at the chunk of ``mode`` (a
-            # sweep's later steps, or K17) that the form's plan picks
-            form_ms = {f: device_ms(lambda f=f: plan_fn(
-                (f, dk.dia_plan(mode, dtype, nd, T, lev.m, 0, f)["chunk"])))
-                       for f in forms}
             extra = {"level": f"{name} L{li} m={lev.m}", "form": form,
-                     "nd": nd, "plan": plan, "form_ms": form_ms,
+                     "nd": nd, "plan": plan,
                      "bound_ms": dia_bound_ms(form, kl, T, dtype)}
             if chunks:
+                # every launch at the chunk of ``mode`` (a sweep's later
+                # steps, or K17), halved and doubled
                 c = plan["chunk"]
-                extra["chunk_ms"] = {k: device_ms(lambda k=k: plan_fn(
-                    (plan["form"], k))) for k in sorted(
-                        {max(c // 2, 1), c, min(2 * c, T)})}
+                extra["chunk_ms"] = {k: device_ms(lambda k=k: plan_fn(k))
+                                     for k in sorted({max(c // 2, 1), c,
+                                                      min(2 * c, T)})}
             compare("K17" if mode == "residual" else "K16", kl, T, dtype,
                     new_fn, old_fn, twin_fn, extra=extra, time_twin=True)
         del x, b, vals

@@ -1,12 +1,12 @@
 """The launch plan of K16 (the DIA Chebyshev sweep's steps) and K17 (the
 DIA residual), which march in time (csrc/dia.cu ``dia_march_kernel``,
-``by_form``; ``ops/dia_kernels.py`` ``dia_form``, ``dia_chunk``,
-``dia_plan``): the blocks of a launch (segments of the dofs by chunks of
-the time rows) write every (row, dof) once, at every chunk from one row
-to all of them; the form holds the level's values in registers up to 16
-offsets and in a shared tile that fits the H100 past them; the chunks at
-the repo's levels fill the card. The kernels' logic itself runs on the CPU
-in ``tools.cpu_emulate`` (g++), held here to the twins at a few shapes."""
+``by_form``; ``ops/dia_kernels.py`` ``dia_chunk``, ``dia_plan``): the
+blocks of a launch (segments of the dofs by chunks of the time rows) write
+every (row, dof) once, at every chunk from one row to all of them; the
+library holds the level's values in registers up to 16 offsets and in a
+shared tile that fits the H100 past them; the chunks at the repo's levels
+fill the card. The library's logic itself runs on the CPU in
+``tools.cpu_emulate`` (g++), held here to the twins at a few shapes."""
 
 import ctypes
 import itertools
@@ -20,7 +20,11 @@ from spacetime_tpu_torch.ops import dia_kernels as dk
 
 SMEM_PER_BLOCK = 232_448  # the most dynamic shared memory an H100 block takes
 SMS = 132  # the H100's SMs
-SEG = {dk.SHARED: 128, dk.REGISTERS: 256}  # dofs a segment
+# dofs a segment where csrc/dia.cu holds the values in its shared tile
+# (TILE) or in registers (REGS, up to MAX_REG_TAPS offsets)
+TILE, REGS = 0, 1
+SEG = {TILE: 128, REGS: 256}
+MAX_REG_TAPS = 16
 MAX_DIAG = 64
 MODES = tuple(dk.MODES)
 
@@ -31,6 +35,29 @@ MODES = tuple(dk.MODES)
 LEVELS = [(195_585, 11), (48_641, 11), (12_033, 11), (2_945, 11),
           (29_791, 15), (705, 11), (343, 15), (161, 11), (300, 20)]
 TS = (129, 128, 65, 64, 1, 2, 5)
+
+
+def held(nd: int) -> int:
+    """Where the library holds ``nd`` offsets' values."""
+    return REGS if nd <= MAX_REG_TAPS else TILE
+
+
+def want_occupancy(mode: int, f64: int, nd: int) -> tuple[int, int]:
+    """(dynamic shared bytes, threads a block) of the march in ``mode`` on
+    ``nd`` offsets: the first step from 0 holds no values."""
+    if mode == dk.MODES["first_zero"] or held(nd) == REGS:
+        return 0, SEG[REGS]
+    return 2 * nd * SEG[TILE] * (8 if f64 else 4), SEG[TILE]
+
+
+@pytest.fixture(scope="module")
+def emulated():
+    """csrc/dia.cu compiled for the CPU by ``tools.cpu_emulate``."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to compile the emulated kernels")
+    from spacetime_tpu_torch.tools import cpu_emulate
+
+    return cpu_emulate.build_dia(name="test_dia")
 
 
 def blocks(m: int, T: int, form: int, chunk: int):
@@ -62,16 +89,24 @@ def test_march_writes_each_row_and_dof_once(form):
             assert (rows == 1).all(), (T, chunk)
 
 
-def test_form_by_offsets():
-    """Registers up to 16 offsets (every level of the repo's solves), a
-    shared tile [k][dof] past them that fits an H100 block at 64 in f64."""
-    for nd in range(1, MAX_DIAG + 1):
-        assert dk.dia_form(nd) == (dk.REGISTERS if nd <= dk.MAX_REG_TAPS
-                                   else dk.SHARED)
-    for dtype in (torch.float32, torch.float64):
-        tile = 2 * MAX_DIAG * SEG[dk.SHARED] * (torch.finfo(dtype).bits // 8)
-        assert tile <= SMEM_PER_BLOCK
-    assert all(nd <= dk.MAX_REG_TAPS for m, nd in LEVELS if m != 300)
+def test_form_by_offsets(emulated):
+    """The library (csrc/dia.cu ``dia_march_occupancy``, emulated) holds
+    the values in registers up to 16 offsets (every level of the repo's
+    solves) and in a shared tile [k][dof] past them, which fits an H100
+    block at 64 in f64; it refuses no offsets and more than 64."""
+    for mode, f64 in itertools.product(range(4), (0, 1)):
+        for nd in range(MAX_DIAG + 2):
+            out = [ctypes.c_int() for _ in range(3)]
+            err = emulated.dia_march_occupancy(mode, f64, nd,
+                                               *map(ctypes.byref, out))
+            if not 1 <= nd <= MAX_DIAG:
+                assert err != 0, (mode, nd)
+                continue
+            assert err == 0, (mode, f64, nd)
+            assert (out[1].value, out[2].value) == want_occupancy(mode, f64,
+                                                                  nd)
+            assert out[1].value <= SMEM_PER_BLOCK
+    assert all(held(nd) == REGS for m, nd in LEVELS if m != 300)
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -82,7 +117,7 @@ def test_chunks_at_the_repos_levels(mode):
     weighed as rows."""
     for (m, nd), T, resident in itertools.product(LEVELS, (129, 65, 1),
                                                   (1, 2, 4, 8)):
-        seg = -(-m // SEG[dk.dia_form(nd)])
+        seg = -(-m // SEG[held(nd)])
         chunk = dk.dia_chunk(mode, T, seg, nd, resident, SMS)
         assert 1 <= chunk <= T, (m, T, chunk)
         if seg * T >= 2 * SMS:
@@ -99,66 +134,60 @@ def test_chunks_at_the_repos_levels(mode):
         "step", 129, 764, 11, 4, SMS)
 
 
-def test_dia_emulated_against_the_twins():
+def test_dia_emulated_against_the_twins(emulated):
     """csrc/dia.cu compiled for the CPU (``tools.cpu_emulate``): K17 and
     K16 from 0 and from x at ν = 2, float32 and float64, T = 3 at every
-    chunk, on the nested L-shape's level of 705 dofs (11 offsets, three
-    segments, every form) and a synthetic level of 20 offsets (the shared
-    form), against their twins."""
-    if shutil.which("g++") is None:
-        pytest.skip("needs g++ to compile the emulated kernels")
+    chunk, on the nested L-shape's level of 705 dofs (11 offsets in
+    registers, three segments) and a synthetic level of 20 offsets (the
+    shared tile), against their twins."""
     from spacetime_tpu_torch.tools import cpu_emulate
 
     levels = cpu_emulate.dia_levels()
-    n = cpu_emulate.check_dia(cpu_emulate.build_dia(name="test_dia"), None,
-                              levels=[levels[0], levels[2]], Ts=(3,),
-                              nus=(2,))
-    # per dtype: 3 chunks of 2 forms (705) and of 1 (20 offsets), each a
-    # K17 launch and two sweeps of 2
-    assert n == 2 * 3 * (2 + 1) * 5
+    n = cpu_emulate.check_dia(emulated, None, levels=[levels[0], levels[2]],
+                              Ts=(3,), nus=(2,))
+    # per dtype: 3 chunks at each of the 2 levels, each a K17 launch and
+    # two sweeps of 2
+    assert n == 2 * 3 * 2 * 5
 
 
 @pytest.mark.cuda
 def test_dia_plan_is_the_librarys():
     """This file's plan is the library's (csrc/dia.cu
     ``dia_march_occupancy``): threads a block and shared bytes of every
-    mode, dtype and form at 1 to 64 offsets; the register forms refuse more
-    than 16 (``cudaErrorInvalidValue``)."""
+    mode and dtype at 1 to 64 offsets, and ``dia_plan``'s; no offsets and
+    more than 64 are refused (``cudaErrorInvalidValue``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     from spacetime_tpu_torch.ops import native
 
     lib = native.LIB.get()
-    for mode, f64, nd, form in itertools.product(
-            range(4), (0, 1), (1, 11, 12, 13, 15, 16, 17, 20, 64), sorted(SEG)):
+    for mode, f64, nd in itertools.product(
+            range(4), (0, 1), (0, 1, 11, 12, 13, 15, 16, 17, 20, 64, 65)):
         out = [ctypes.c_int() for _ in range(3)]
-        err = lib.dia_march_occupancy(mode, f64, nd, form,
-                                      *map(ctypes.byref, out))
-        if mode == dk.MODES["first_zero"]:
-            assert err == 0 and out[2].value == 256 and out[1].value == 0
+        err = lib.dia_march_occupancy(mode, f64, nd, *map(ctypes.byref, out))
+        if not 1 <= nd <= MAX_DIAG:
+            assert err != 0, (mode, nd)
             continue
-        if form != dk.SHARED and nd > dk.MAX_REG_TAPS:
-            assert err != 0, (mode, nd, form)
-            continue
-        assert err == 0, (mode, f64, nd, form)
-        size = 8 if f64 else 4
-        want = 2 * nd * SEG[form] * size if form == dk.SHARED else 0
-        assert (out[1].value, out[2].value) == (want, SEG[form])
+        assert err == 0, (mode, f64, nd)
+        want = want_occupancy(mode, f64, nd)
+        assert (out[1].value, out[2].value) == want
         assert out[0].value >= 1
         dtype = torch.float64 if f64 else torch.float32
-        plan = dk.dia_plan(MODES[mode], dtype, nd, 129, 195_585, 0, form)
-        assert plan["threads"] == SEG[form]
-        assert plan["segments"] == -(-195_585 // SEG[form])
+        plan = dk.dia_plan(MODES[mode], dtype, nd, 129, 195_585, 0)
+        assert plan["threads"] == want[1]
+        assert plan["segments"] == -(-195_585 // want[1])
+        assert plan["held"] == ("none" if MODES[mode] == "first_zero"
+                                else "shared" if want[0] else "registers")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_dia_march_matches_twins_at_every_chunk(dtype):
-    """K17 and K16 (from 0 and from x, ν = 2 and 3) on the card in every
-    form that takes the level and at every chunk of 1 to T = 5 rows, on the
-    nested L-shape of 8 cells refined three times (m = 2,945, 11 offsets)
-    and a synthetic level of 20 offsets, against their twins; the wrappers
-    at their own plan, too."""
+    """K17 and K16 (from 0 and from x, ν = 2 and 3) on the card at every
+    chunk of 1 to T = 5 rows, on the nested L-shape of 8 cells refined
+    three times (m = 2,945, 11 offsets: registers) and a synthetic level of
+    20 offsets (the shared tile), against their twins; the wrappers at
+    their own plan, too."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     from spacetime_tpu_torch.fem import (P1System, l_shape_mesh,
@@ -184,22 +213,19 @@ def test_dia_march_matches_twins_at_every_chunk(dtype):
         for nu in (2, 3):
             kl = dk.DiaKernelLevel(lev, nu)
             vals = kl.values(lev, dtype, "cuda")
-            nd = len(kl.offsets)
-            forms = [dk.SHARED] + ([dk.REGISTERS]
-                                   if nd <= dk.MAX_REG_TAPS else [])
             runs = [(kl.residual_plain(x, b, cols, vals),
-                     lambda p: dia_lib_residual(_call, lib, kl, x, b, cols,
-                                                vals, p),
+                     lambda c: dia_lib_residual(_call, lib, kl, x, b, cols,
+                                                vals, c),
                      lambda: kl.residual(x, b, cols, vals))]
             for zero in (True, False):
                 runs.append((
                     kl.smooth_plain(x, b, cols, vals, zero_init=zero),
-                    lambda p, z=zero: dia_lib_smooth(_call, lib, kl, x, b,
-                                                     cols, vals, nu, z, p),
+                    lambda c, z=zero: dia_lib_smooth(_call, lib, kl, x, b,
+                                                     cols, vals, nu, z, c),
                     lambda z=zero: kl.smooth(x, b, cols, vals, zero_init=z)))
             for want, run, wrapper in runs:
                 scale = float(want.abs().max())
-                for plan in itertools.product(forms, range(1, T + 1)):
-                    err = float((run(plan) - want).abs().max())
-                    assert err <= tol * scale, (lev.m, nu, plan, err)
+                for chunk in range(1, T + 1):
+                    err = float((run(chunk) - want).abs().max())
+                    assert err <= tol * scale, (lev.m, nu, chunk, err)
                 assert float((wrapper() - want).abs().max()) <= tol * scale
