@@ -71,10 +71,13 @@ Phases (every check asserts; any failure exits non-zero):
               ν ∈ {1, 2, 3} (K14/K15 at ν ∈ {2, 3}), at 511² and 255²
               (T=129), 127² (T=65) and a ragged 15×31 (T=5), W the weights
               of the varcoef2d assembly at that size; median device times
-              (ν = 2) at 511²×129 and 127²×65, and of the y-marching K14
-              and K15 (with their semi-fused pairs) at 511² and 255²
-              (T=129) and 127² (T=65), ν = 2 and 3, with their chunks and
-              blocks per SM.
+              (ν = 2) at 511²×129 and 127²×65, K11 and K12 (they march in
+              time) with their chunks of time rows, blocks per SM and
+              shared bytes, K12 at 511²×129 beside
+              ``torch.sparse.mm`` with A_w in CSR (the library call), and
+              of the y-marching K14 and K15 (with their semi-fused pairs)
+              at 511² and 255² (T=129) and 127² (T=65), ν = 2 and 3, with
+              their chunks and blocks per SM.
 15. varcoef2d 129²×64 f32 — ``solve(tol=1e-6)`` within ±1 of the JAX
               package's 16 iterations, L2 within 1% of its value;
               ``solve_refined(tol=1e-8)``: rounds and inner iterations within
@@ -93,9 +96,12 @@ Phases (every check asserts; any failure exits non-zero):
               (T=33, the weights of that solver's two Galerkin levels), a
               ragged 7×9×15 (T=5, the 63³ weights cut to it) and 127³
               (T=33, the 63³ weights tiled to it: W outside the L2, the
-              row-first order); median device times (ν = 2, and ν = 3 for
-              K14/K15, beside their semi-fused pairs K10 from 0 + K13 and K9
-              + K10 from x) at 63³×33 and 127³×33.
+              row-first order of K10, K13, K15); median device times (ν =
+              2, and ν = 3 for K14/K15, beside their semi-fused pairs K10
+              from 0 + K13 and K9 + K10 from x) at 63³×33 and 127³×33, K11
+              and K12 with their chunks of time rows, blocks per SM and
+              shared bytes, K12 at 63³×33 beside
+              ``torch.sparse.mm`` with A_w in CSR.
 19. varcoef3d 65³×32 f32 — ``solve(tol=1e-6)`` twice, within ±1 of the
               JAX package's 14 iterations, L2 within 1% of its value;
               ``solve_refined(tol=1e-8)`` converges. Every level runs the
@@ -196,10 +202,10 @@ Phases (every check asserts; any failure exits non-zero):
               V-cycle), steady seconds beside the serial port's; every
               rank prints its launches, exchanges and bytes staged per
               iteration.
-36. 3-D on (2 × 2) — smooth3d 65³×32 f32: 14 ± 1 iterations, L2 within 1%
-              of 2.5223e-04, the 3-D lead forms launched; smooth3d 17³×16
-              f64 V(2,2) and V(2,1) and f32 V(2,1) (the remaining 3-D
-              forms).
+36. 3-D on (2 × 2) — smooth3d 33³×16 f32: 14 ± 1 iterations, L2 within 1%
+              of 1.0080e-03 (the JAX package on the CPU), the 3-D lead
+              forms launched; smooth3d 17³×16 f64 V(2,2) and V(2,1) and
+              f32 V(2,1) (the remaining 3-D forms).
 
 Launch counters are zeroed just before each path (phases 7–8, 9, 10, 11,
 12, 13, 15, 16, 17, 19, 20, 21, each solve of 24, 25 and 29, 26, 28, the
@@ -264,6 +270,12 @@ REF_F64 = {"iterations": 21, "l2": 5.752536865509208e-05}
 # the f32 band is 1%.
 REF_3D = {"n": 64, "levels": 5, "iterations": 14, "l2": 2.522348342273894e-04,
           "l2_band": 0.01}
+# smooth3d at 33³×16 f32, inner mg, tol 1e-6: the JAX package on the CPU
+# (``JAX_ENABLE_X64=1 python -m spacetime_tpu.run --backend jax --device
+# cpu --rhs host --inner mg --problem smooth3d --space-n 32 --time-levels 4
+# --dtype f32``); phase 36 holds the (2 × 2) mesh to it
+REF_MESH_3D = {"n": 32, "levels": 4, "iterations": 14,
+               "l2": 0.0010079810427846328, "l2_band": 0.01}
 REF_3D_F64 = {"n": 16, "levels": 4, "iterations": 18,
               "l2": 3.999081235687421e-03}
 # varcoef2d (κ = 1 + ½·Πsin(πx), c = 1 + x₀; the weighted Galerkin V-cycle).
@@ -444,6 +456,9 @@ VAR_SHAPES = [(129, (511, 511), 512), (129, (255, 255), 256),
 # to it)
 VAR_SHAPES_3D = [(33, (63, 63, 63), 0), (33, (31, 31, 31), 1),
                  (5, (7, 9, 15), 0), (33, (127, 127, 127), 0)]
+# (T, grid) where K12 is timed beside its library call (``var_library``):
+# the weighted headline shapes of MG_MAIN
+VAR_LIBRARY = [(129, (511, 511)), (33, (63, 63, 63))]
 MG_TIMED = [(129, (511, 511)), (65, (127, 127)), (65, (63, 63, 63)),
             (33, (63, 63, 63)), (33, (127, 127, 127))]
 # where the 3-D fused stages are also timed at ν = 3: the shapes of the
@@ -648,14 +663,16 @@ def var_inputs(msmg, kl, T, dtype, rng, lvl=0) -> dict:
 
 
 def check_forms(kl, forms, bound_fn, T, dtype, results, library=None,
-                timed=None, pairs=None) -> None:
+                timed=None, pairs=None, plans=None) -> None:
     """Every form of one kernel level against its twin; device times of
     the timed shapes (ν = 2 and a shape of MG_TIMED, unless ``timed`` says;
     the fused forms at ν = 3 too at FUSED_NU3_TIMED, under "nu=3") into
-    ``results[(op, dtype, dim)]["forms"]``. ``library``: (form, fn), one
-    library call computing that form, timed beside it and held to its twin.
+    ``results[(op, dtype, dim)]["forms"]``. ``library``: (form, fn, label,
+    as_twin), one library call computing that form, timed beside it and
+    held to its twin (its result in the twin's layout by ``as_twin``).
     ``pairs``: {form: fn}, the semi-fused stages a fused form replaces,
-    timed beside it (``semi_pair_ms``)."""
+    timed beside it (``semi_pair_ms``). ``plans``: {form: dict}, a
+    launch's plan, printed and kept beside its time."""
     gs, nu = kl.gs, kl.nu
     auto = timed is None
     if auto:
@@ -692,12 +709,18 @@ def check_forms(kl, forms, bound_fn, T, dtype, results, library=None,
                 entry["semi_pair_ms"] = device_ms(pairs[form])
                 line += f", semi-fused pair {entry['semi_pair_ms']:.4f} ms"
             if library is not None and library[0] == form:
-                lib = library[1]
-                lerr = float((lib() - tfn()[0]).abs().max())
+                _, lib, label, as_twin = library
+                lerr = float((as_twin(lib()) - tfn()[0]).abs().max())
                 entry["library_ms"] = device_ms(lib)
-                line += (f", conv{kl.dim}d {entry['library_ms']:.4f} ms "
-                         f"(max|conv-twin| {lerr:.3e})")
+                line += (f", {label} {entry['library_ms']:.4f} ms "
+                         f"(max|library-twin| {lerr:.3e})")
                 assert lerr <= TOL[dtype] * scale, (lerr, scale)
+            if plans is not None and form in plans:
+                entry.update(plans[form])
+                line += (f"; chunk {plans[form]['chunk']} time rows, "
+                         f"{plans[form]['blocks_per_sm']} blocks per SM, "
+                         f"{plans[form]['tiles']} blocks a chunk, "
+                         f"{plans[form]['smem_bytes']} shared bytes")
             tag = " nu=3" if form.startswith("fused") and nu == 3 else ""
             rec["forms"][f"{form}{tag} {shape_key(T, gs)}"] = entry
         print(line, flush=True)
@@ -799,8 +822,9 @@ def mg_forms(kl, x) -> dict:
 
 
 def stencil_conv(kl, X):
-    """A x as one library call: ``F.conv2d`` / ``F.conv3d`` with the A
-    stencil as a 3^d kernel and zero padding 1 (TF32 is off)."""
+    """K5's library call (``check_forms``): A x as ``F.conv2d`` /
+    ``F.conv3d`` with the A stencil as a 3^d kernel and zero padding 1
+    (TF32 is off)."""
     import torch.nn.functional as F
 
     w = X.new_zeros((3,) * kl.dim)
@@ -809,7 +833,50 @@ def stencil_conv(kl, X):
             w[tuple(di + 1 for di in d)] = wt
     conv = F.conv3d if kl.dim == 3 else F.conv2d
     Xc, wc = X.unsqueeze(1), w[None, None]
-    return lambda: conv(Xc, wc, padding=1).squeeze(1)
+    return ("apply_A", lambda: conv(Xc, wc, padding=1).squeeze(1),
+            f"conv{kl.dim}d", lambda y: y)
+
+
+def var_library(kl, x):
+    """K12's library call (``check_forms``): A_w x as one
+    ``torch.sparse.mm`` (cuSPARSE) of A_w in CSR, row p holding W[k][p] at
+    the column of p + d_k for each tap k inside the grid, on x as (m, T)."""
+    X, W = x["x"], x["W"]
+    T, gs = X.shape[0], kl.gs
+    m = int(np.prod(gs))
+    idx = torch.arange(m, device=X.device).reshape(gs)
+    rows, cols, vals = [], [], []
+    for k, d in enumerate(kl.A_vs.disps):
+        src = tuple(slice(max(0, -di), n - max(0, di)) for di, n in zip(d, gs))
+        dst = tuple(slice(max(0, di), n - max(0, -di)) for di, n in zip(d, gs))
+        rows.append(idx[src].reshape(-1))
+        cols.append(idx[dst].reshape(-1))
+        vals.append(W[k][src].reshape(-1))
+    A = torch.sparse_coo_tensor(
+        torch.stack([torch.cat(rows), torch.cat(cols)]), torch.cat(vals),
+        (m, m)).coalesce().to_sparse_csr()
+    xt = X.reshape(T, m).t().contiguous()
+    return ("apply_A", lambda: torch.sparse.mm(A, xt),
+            "torch.sparse.mm (cuSPARSE CSR)",
+            lambda y: y.t().reshape((T,) + gs))
+
+
+def var_march_plans(kl, X) -> dict:
+    """{form: plan} of K11 (residual) and K12 (apply_A) on field X: the
+    time rows a block walks, blocks an SM, blocks a chunk of time rows and
+    shared bytes a block (past 7 taps the weights' tile; csrc/mg.cu
+    ``mg_var_stencil_occupancy``)."""
+    from spacetime_tpu_torch.ops import mg_kernels
+
+    ntaps = len(kl.A_vs.disps)
+    out = {}
+    for form, res in (("residual", True), ("apply_A", False)):
+        resident, tiles, smem, _ = mg_kernels.var_stencil_plan(
+            res, kl.dim, X.dtype, ntaps, kl.gs, X.device.index)
+        out[form] = {"chunk": kl._var_stencil_chunk(X, res),
+                     "blocks_per_sm": resident, "tiles": tiles,
+                     "smem_bytes": smem}
+    return out
 
 
 def mg_inputs(msmg, kl, T, dtype, rng) -> dict:
@@ -1994,7 +2061,7 @@ def phase_meshes(serial: dict, mesh_launches: dict) -> dict:
                 exchanges=runs[1]["exchanges"],
                 bytes_staged=runs[1]["bytes_staged"], l2=l2)
 
-    n3, J3 = REF_3D["n"], REF_3D["levels"]
+    n3, J3 = REF_MESH_3D["n"], REF_MESH_3D["levels"]
     phase(f"36 3-D on the (2 x 2) mesh: smooth3d {n3 + 1}^3 x {2 ** J3} f32, "
           "and 17^3 x 16 f64 V(2,2) / V(2,1) runs of the remaining forms")
     specs = [mesh_spec("smooth3d", n3, J3, "f32", 1e-6),
@@ -2003,14 +2070,15 @@ def phase_meshes(serial: dict, mesh_launches: dict) -> dict:
              mesh_spec("smooth3d", 16, 4, "f32", 1e-6, kw=v21)]
     out = mesh_run(make_spacetime_mesh(2, 2), specs, "time 2 x space 2")
     r = out[0]["runs"][0]
-    l2 = serial["3d l2"](r["U"])
+    l2 = serial["mesh 3d l2"](r["U"])
     print(f"  layout {out[0]['info']}")
     print(f"smooth3d {n3 + 1}^3 x {2 ** J3} on the mesh: iterations "
-          f"{r['iterations']} (JAX CPU {REF_3D['iterations']}), L2 "
-          f"{l2:.6e} (JAX CPU {REF_3D['l2']:.6e}), solve "
+          f"{r['iterations']} (JAX CPU {REF_MESH_3D['iterations']}), L2 "
+          f"{l2:.6e} (JAX CPU {REF_MESH_3D['l2']:.6e}), solve "
           f"{r['solve_seconds']:.4f} s")
-    assert r["converged"] and abs(r["iterations"] - REF_3D["iterations"]) <= 1
-    assert abs(l2 / REF_3D["l2"] - 1.0) <= REF_3D["l2_band"], l2
+    assert r["converged"] and abs(
+        r["iterations"] - REF_MESH_3D["iterations"]) <= 1
+    assert abs(l2 / REF_MESH_3D["l2"] - 1.0) <= REF_MESH_3D["l2_band"], l2
     for k in ("K6 mg_sh_fused_pre_3d f32", "K7 mg_sh_fused_post_3d f32"):
         assert r["launches"].get(k, 0) > 0, (k, r["launches"])
     for o in out:
@@ -2225,7 +2293,7 @@ def main() -> int:
                     x = mg_inputs(msmg, kl, T, dtype, rng)
                     check_forms(kl, mg_forms(kl, x), mg_bound, T, dtype,
                                 mg_results,
-                                library=("apply_A", stencil_conv(kl, x["x"])),
+                                library=stencil_conv(kl, x["x"]),
                                 pairs=semi_pairs(kl, x, False))
                     del x
                     torch.cuda.empty_cache()
@@ -2435,7 +2503,6 @@ def main() -> int:
           f"loop {time.perf_counter() - t0:.2f} s")
     assert abs(l2 / REF_3D["l2"] - 1.0) <= REF_3D["l2_band"], l2
     fused_path(counts, (f32,), 3)
-    serial["3d l2"] = l2_of(s3)
     del s3, runs, r
     torch.cuda.empty_cache()
 
@@ -2483,7 +2550,10 @@ def main() -> int:
                         print(f"  2-D march {str(dtype)[6:]} nu={nu} T={T} "
                               f"gs={gs}: {'; '.join(plans)}")
                     check_forms(kl, var_forms(kl, x), var_bound, T, dtype,
-                                mg_results, pairs=semi_pairs(kl, x, True))
+                                mg_results, pairs=semi_pairs(kl, x, True),
+                                library=(var_library(kl, x) if nu == 2 and (
+                                    T, gs) in VAR_LIBRARY else None),
+                                plans=var_march_plans(kl, x["x"]))
                     del x
                     torch.cuda.empty_cache()
         del msmg
@@ -2650,7 +2720,10 @@ def main() -> int:
                 kl = VarMSKernelLevel(msmg.levels[lvl], nu, gs=gs)
                 x = var_inputs(msmg, kl, T, dtype, rng, lvl)
                 check_forms(kl, var_forms(kl, x), var_bound, T, dtype,
-                            mg_results, pairs=semi_pairs(kl, x, True))
+                            mg_results, pairs=semi_pairs(kl, x, True),
+                            library=(var_library(kl, x) if nu == 2 and (
+                                T, gs) in VAR_LIBRARY else None),
+                            plans=var_march_plans(kl, x["x"]))
                 del x
                 torch.cuda.empty_cache()
 
@@ -2745,6 +2818,15 @@ def main() -> int:
     phase_singular(build_solver, paths)
     sh_results = phase_sharded_kernels(msmg2, msmg3)
     mesh_launches = {}  # kernel name -> launches on the meshes' ranks
+    # phase 36's host L2 error on its problem, mesh and time grid
+    from spacetime_tpu_torch.fem import domain_mesh, uniform_time_grid
+    from spacetime_tpu_torch.models import get_problem
+
+    p3 = get_problem("smooth3d")
+    mesh3 = domain_mesh(p3.domain, p3.dim, REF_MESH_3D["n"])
+    grid3 = uniform_time_grid(REF_MESH_3D["levels"], T=p3.T)
+    serial["mesh 3d l2"] = lambda U: l2_error_spacetime(
+        p3, mesh3, grid3, np.asarray(U, np.float64))
     phase_meshes(serial, mesh_launches)
     phase(None)
 

@@ -46,9 +46,9 @@
 //                with Op_w and the per-node diagonal, from x or from 0.
 //                2-D and 3-D.
 //   mg_residual_var   (K11, replaces _residual_var_call, :956):
-//                b − Op_w x. 2-D and 3-D.
+//                b − Op_w x. 2-D and 3-D; it marches in time.
 //   mg_apply_var      (K12, replaces _apply_var_call, :1020): A_w x. 2-D
-//                and 3-D.
+//                and 3-D; K11's march without b and the mass.
 //   mg_residual_restrict_var (K13, replaces _residual_restrict_var_call,
 //                :1822): r_c = R(b − Op_w x). 2-D and 3-D.
 //   mg_fused_pre_var  (K14, replaces _fused_pre_var_call, :2071): K6 with
@@ -226,18 +226,43 @@
 //   function each (`restrict_at`, `prolong_at`) that K8, K9 and the fused
 //   stages share; the Pallas kernels' banded 0/1 matrices on the MXU
 //   (`_dot_last`, :1253) are a TPU device and are not ported.
-// - The weighted kernels are the same designs with the operator swapped
-//   (K10 as K3, K11/K12 as K4/K5, K13 as K8, K14/K15 as K6/K7). W has no
+// - K11 and K12 march in time (`mg_var_stencil_kernel`, one template;
+//   K12 without b and the mass): W has no time axis, so a block owns a
+//   spatial tile, loads its points' weights once and walks a chunk of
+//   consecutive time rows with them on chip. The tile is K1's
+//   (csrc/kron.cu): in 2-D a few rows of y by a segment of the row (K12
+//   the whole row up to 574 columns, K11 segments of up to 254 at more
+//   blocks an SM; `var_seg`, `var_pencil`), in 3-D 2 planes of z by
+//   8 × 32; each thread loads one window column
+//   (the tile grown by one on every side) along the pencil a row ahead in
+//   registers, 0 past the grid, into one of two alternating shared
+//   buffers (one barrier a row), and computes the tile's column of the
+//   same index. The weights sit in registers up to kVarRowTaps A taps (the
+//   7 of the 2-D stencils), else in a shared tile [tap][point] that each
+//   thread fills and reads in its own column (the 15 of 3-D): the choice
+//   comes from the tap count alone (`var_form`). The taps' window offsets
+//   and the mass's group weights are resolved once a block in shared
+//   memory, the tap loops unrolled and the mass's groups ended by a mask
+//   (`row_many`'s form); b is loaded a row ahead and ω once a row. The
+//   chunk is the wrapper's (`ops/mg_kernels.py` `var_stencil_chunk`).
+//   The one-thread-a-point form before it re-read each point's weights at
+//   every time row (942 MB from the L2 at 129×511², f32; at 127³ W, 123
+//   MB, left the L2 and came from HBM a row at a time) behind a runtime
+//   tap loop with a bounds test a tap; it took 5–10× the bytes' bound
+//   (PERF.md §6).
+// - The other weighted kernels are the same designs with the operator
+//   swapped (K10 as K3, K13 as K8, K14/K15 as K6/K7). W has no
 //   time axis: every row of a level reads the same (ntaps, *gs) field,
 //   7.3 MB in f32 at 511² and 15.0 MB at 63³, which the 50 MB L2 holds, so
 //   the kernels read it through the read-only path (__ldg) at each Op
 //   evaluation rather than staging it. Where W does not fit in the L2 (123
-//   MB in f32 at 127³), K10–K13 and the 3-D K14/K15 take the row as the
+//   MB in f32 at 127³), K10, K13 and the 3-D K14/K15 take the row as the
 //   fastest-varying block index (`rows_first`): the rows of one brick
-//   (K10) or chunk of points (K11–K13) then run back to back and share its
+//   (K10) or chunk of points (K13) then run back to back and share its
 //   part of W there (the 3-D K14/K15: the rows of one tile and chunk).
 //   Where W fits, the rows go slowest, as in the other kernels: that order
-//   was 7–20% faster for K10 and K12 at 63³ and 511² on the H100
+//   was 7–20% faster for K10 and the one-thread-a-point K12 at 63³ and
+//   511² on the H100
 //   (PERF.md). The 2-D K14/K15 keep the time row slowest at every size: no
 //   2-D level of the solves comes near the L2 (W at 511² is 7.3 MB). On a
 //   level whose W exceeded it (a 2-D grid past ~1,370² in f32) each wave
@@ -264,6 +289,17 @@
 
 constexpr int kMaxPairGroups = 16;
 constexpr int kMaxPairTaps = 32;
+
+// c + a·b as nvcc contracted the multiply-adds of the one-thread-a-point
+// K11 and K12 that the time march replaced (one rounding on the card),
+// written out so that the march's sums round as theirs did; in the CPU
+// emulation, which contracts nothing, it rounds twice, as they did there
+// (csrc/kron.cu `KRON_MADD`).
+#ifdef __CUDA_ARCH__
+#define VAR_MADD(a, b, c) fma((a), (b), (c))
+#else
+#define VAR_MADD(a, b, c) ((c) + (a) * (b))
+#endif
 
 // (wA, wM) pair groups of two stencils on one grid: group g holds taps
 // [start[g], start[g+1]); dz = 0 in 2-D. Mirrored by ctypes in
@@ -2632,36 +2668,307 @@ __device__ __forceinline__ T var_op_global(const VarTaps& vt,
   return a + om * mass_global<DIM>(pm, X, g, z, y, x);
 }
 
-template <int DIM, typename T>
-__global__ void mg_residual_var_kernel(const T* __restrict__ x,
-                                       const T* __restrict__ b,
-                                       const T* __restrict__ W,
-                                       const T* __restrict__ omega,
-                                       T* __restrict__ out, int64_t nt,
-                                       Grid g,
-                                       const __grid_constant__ VarTaps vt,
-                                       const __grid_constant__ PairGroups pm,
-                                       int rows_first) {
-  const int64_t S = row_size(g);
-  for_each_point(nt, S, rows_first, [&](int64_t t, int r) {
-    const Point q = point_in_row<DIM>(t, r, g);
-    const int64_t idx = t * S + r;
-    out[idx] = b[idx] - var_op_global<DIM>(vt, pm, W, omega[t], x + t * S, g,
-                                           q.z, q.y, q.x);
-  });
+// K11 and K12 march in time (`mg_var_stencil_kernel`, see the header). A
+// block owns a spatial tile and its window, the tile grown by one on every
+// side: in 2-D var_pencil rows of y by a segment of the row (the whole row
+// up to var_seg columns, wider rows in balanced segments), in 3-D
+// var_pencil planes of z by a kVarTileY × kVarTileX (y, x) tile.
+constexpr int kVarTileY = 8, kVarTileX = 32;
+
+// The plan of each kernel, by timing on the H100 (PERF.md §6,
+// `tools.var_tune`): the widest 2-D segment (K11 254 columns, K12 574),
+// the points a block owns along the pencil axis (y in 2-D, z in 3-D) and
+// the blocks an SM must hold (the register cap). K11 holds b and the
+// mass's sums beside the weights, and ran fastest on narrow segments at
+// three or more blocks an SM: in 2-D 4 rows in float32, 2 in float64.
+// K12 ran fastest on whole rows: 4 rows at two blocks an SM (float64
+// one). In 3-D both take 2 planes at two blocks (the shared tile of 15
+// weights a point and x's buffers: 41.6 KB in float32, 83.2 KB in
+// float64).
+template <bool RES>
+__host__ __device__ constexpr int var_seg() {
+  return RES ? 254 : 574;
+}
+template <int DIM, typename T, bool RES>
+__host__ __device__ constexpr int var_pencil() {
+  return DIM == 3 || (RES && sizeof(T) == 8) ? 2 : 4;
+}
+template <int DIM, typename T, bool RES>
+__host__ __device__ constexpr int var_min_blocks() {
+  return DIM == 3 ? 2 : RES ? 3 : (sizeof(T) == 4 ? 2 : 1);
+}
+// The window's stride along the pencil, a constant, so that a column's
+// points lie at immediate offsets: the widest 2-D window row, the 3-D
+// window plane.
+template <int DIM, bool RES>
+__host__ __device__ constexpr int var_stride() {
+  return DIM == 2 ? var_seg<RES>() + 2 : (kVarTileY + 2) * (kVarTileX + 2);
+}
+// The threads a block takes at most: one per window column.
+template <int DIM, bool RES>
+__host__ __device__ constexpr int var_max_threads() {
+  return (var_stride<DIM, RES>() + 31) / 32 * 32;
+}
+// The most A taps (and mass taps) of a table the march takes: the ±1
+// neighbourhood in 2-D, the 15 of the Kuhn simplices' stencils in 3-D
+// (kCubeTaps).
+template <int DIM>
+__host__ __device__ constexpr int var_taps() {
+  return DIM == 2 ? kRowTaps : kCubeTaps;
 }
 
-template <int DIM, typename T>
-__global__ void mg_apply_var_kernel(const T* __restrict__ x,
-                                    const T* __restrict__ W,
-                                    T* __restrict__ out, int64_t nt, Grid g,
-                                    const __grid_constant__ VarTaps vt,
-                                    int rows_first) {
+// A launch of the march on grid g: the owned plane tile ix × iy (2-D: a
+// segment, iy = 1) and its window's row stride wx and plane points wyx;
+// xt × yt plane tiles (2-D: the segments), the pencil axis of np points at
+// stride pstride cut into pt pencils; threads a block.
+struct VarPlan {
+  int ix, iy, wx, wyx, xt, yt, np, pstride, pt, threads;
+};
+
+template <int DIM, typename T, bool RES>
+__host__ __device__ __forceinline__ VarPlan var_plan(const Grid& g) {
+  constexpr int P = var_pencil<DIM, T, RES>();
+  VarPlan p{};
+  if constexpr (DIM == 2) {
+    p.xt = (g.nx + var_seg<RES>() - 1) / var_seg<RES>();
+    p.ix = (g.nx + p.xt - 1) / p.xt;  // balanced; the last takes the rest
+    p.iy = 1;
+    p.wx = p.ix + 2;
+    p.wyx = p.wx;
+    p.yt = 1;
+    p.np = g.ny;
+    p.pstride = g.nx;
+  } else {
+    p.ix = kVarTileX;
+    p.iy = kVarTileY;
+    p.wx = kVarTileX + 2;
+    p.wyx = (kVarTileY + 2) * p.wx;
+    p.xt = (g.nx + kVarTileX - 1) / kVarTileX;
+    p.yt = (g.ny + kVarTileY - 1) / kVarTileY;
+    p.np = g.nz;
+    p.pstride = g.ny * g.nx;
+  }
+  p.pt = (p.np + P - 1) / P;
+  p.threads = (p.wyx + 31) / 32 * 32;
+  return p;
+}
+
+// A thread's two roles (csrc/kron.cu `Col`). As a loader, its window
+// column: `load` whether it lies in the grid, gbase its in-row index at
+// pencil point 0, [klo, khi) the window's pencil points in the grid
+// (window point k is pencil point p0 − 1 + k, p0 the block's first owned
+// one). As a computer (threads t < iy·ix, a 3-D warp on one row of x),
+// the tile's column t: `own` whether it lies in the grid, oc its window
+// plane position, obase its in-row index at pencil point p0, and kown its
+// owned points in the grid (window points 1 … kown).
+struct VarCol {
+  int t, gbase, p0, klo, khi, kown, oc, obase;
+  bool load, own;
+};
+
+template <int DIM>
+__device__ __forceinline__ VarCol var_column(const Grid& g, const VarPlan& pl,
+                                             int P) {
+  VarCol c{};
+  c.t = int(threadIdx.x);
+  int py = 0, px = c.t, gy = 0, x0 = 0, y0 = 0, ylim = 1;
+  if (DIM == 3) {
+    const int bx = int(blockIdx.x) % pl.xt, by = int(blockIdx.x) / pl.xt;
+    py = c.t / pl.wx;
+    px = c.t - py * pl.wx;
+    x0 = bx * kVarTileX;
+    y0 = by * kVarTileY;
+    gy = y0 - 1 + py;
+    ylim = g.ny;
+  } else {
+    x0 = int(blockIdx.x) * pl.ix;
+  }
+  const int gx = x0 - 1 + px;
+  c.load = c.t < pl.wyx && gy >= 0 && gy < ylim && gx >= 0 && gx < g.nx;
+  c.gbase = (DIM == 3 ? gy * g.nx : 0) + gx;
+  const int qy = DIM == 3 ? c.t / kVarTileX : 0;
+  const int qx = DIM == 3 ? c.t % kVarTileX : c.t;
+  c.own = c.t < pl.iy * pl.ix && y0 + qy < ylim && x0 + qx < g.nx;
+  c.oc = (DIM == 3 ? (qy + 1) * pl.wx : 0) + qx + 1;
+  c.p0 = int(blockIdx.y) * P;
+  c.obase = (DIM == 3 ? (y0 + qy) * g.nx : 0) + x0 + qx + c.p0 * pl.pstride;
+  c.klo = c.p0 == 0 ? 1 : 0;
+  c.khi = min(P + 2, pl.np - c.p0 + 1);
+  c.kown = min(P, pl.np - c.p0);
+  return c;
+}
+
+// The window column of one time row (`row`: its first value) into v, 0
+// outside the grid.
+template <int WP, typename T>
+__device__ __forceinline__ void var_load_col(const T* __restrict__ row,
+                                             const VarCol& c,
+                                             const VarPlan& pl, T (&v)[WP]) {
+  const T* base = row + c.gbase + (c.p0 - 1) * pl.pstride;
+#pragma unroll
+  for (int k = 0; k < WP; ++k) {
+    v[k] = c.load && k >= c.klo && k < c.khi ? __ldg(base + k * pl.pstride)
+                                             : T(0);
+  }
+}
+
+// The values of one time row at a column's owned points (`row`: its first
+// value), 0 past the grid.
+template <int P, typename T>
+__device__ __forceinline__ void var_load_own(const T* __restrict__ row,
+                                             const VarCol& c,
+                                             const VarPlan& pl, T (&v)[P]) {
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    v[j] = c.own && j < c.kown ? __ldg(row + c.obase + j * pl.pstride)
+                               : T(0);
+  }
+}
+
+// K11 (RES: out = b − (A_w x + ω·M x)) and K12 (out = A_w x) on the tile
+// of blockIdx (x: plane tile, y: pencil) for the time rows [t0, t1) of
+// chunk blockIdx.z. The weights of the tile's points are loaded once: in
+// registers (REG, at most kVarRowTaps taps) or in a shared tile [tap][pencil
+// point][column] after x's buffers, each thread's column its own. Sums as
+// `var_apply_global` and `mass_global`: the A taps in weight-array order,
+// the mass's groups in order, each group's sum times its weight, then a +
+// ω·m; a tap past the grid reads the window's 0, which changes no sum
+// (w·0 added to a sum that is never −0), where those kernels skipped it.
+template <int DIM, typename T, bool RES, bool REG>
+__global__ void __launch_bounds__(var_max_threads<DIM, RES>(),
+                                  var_min_blocks<DIM, T, RES>())
+    mg_var_stencil_kernel(const T* __restrict__ x, const T* __restrict__ b,
+                          const T* __restrict__ W,
+                          const T* __restrict__ omega, T* __restrict__ out,
+                          int nt, Grid g, VarPlan pl, int chunk,
+                          const __grid_constant__ VarTaps vt,
+                          const __grid_constant__ PairGroups pm) {
+  constexpr int P = var_pencil<DIM, T, RES>(), WP = P + 2;
+  constexpr int ST = var_stride<DIM, RES>();
+  constexpr int KA = REG ? kVarRowTaps : var_taps<DIM>();
+  constexpr int KM = var_taps<DIM>();
+  T* const xs = window_buffers<T>();  // 2 × WP × ST, then the shared tile
+  __shared__ int atoff[kMaxVarTaps];
+  __shared__ int mtoff[kMaxPairTaps];
+  __shared__ T mwend[kMaxPairTaps];
+  const VarCol c = var_column<DIM>(g, pl, P);
+  const int na = vt.n_taps;
+  auto window_offset = [&](int dz, int dy, int dx) {
+    return DIM == 2 ? dy * ST + dx : dz * ST + dy * pl.wx + dx;
+  };
+  for (int k = threadIdx.x; k < na; k += blockDim.x) {
+    atoff[k] = window_offset(vt.dz[k], vt.dy[k], vt.dx[k]);
+  }
+  unsigned mends = 0;
+  if constexpr (RES) {
+    for (int k = threadIdx.x; k < pm.start[pm.n_groups]; k += blockDim.x) {
+      mtoff[k] = window_offset(pm.dz[k], pm.dy[k], pm.dx[k]);
+    }
+    mends = group_ends(pm, [&](int gi) { return T(pm.wm[gi]); }, mwend);
+  }
   const int64_t S = row_size(g);
-  for_each_point(nt, S, rows_first, [&](int64_t t, int r) {
-    const Point q = point_in_row<DIM>(t, r, g);
-    out[t * S + r] = var_apply_global<DIM>(vt, W, x + t * S, g, q.z, q.y, q.x);
-  });
+  // the weights of the column's points, once for the chunk
+  const int nc = pl.iy * pl.ix;  // the shared tile's stride
+  T* const ws = xs + 2 * WP * ST + c.t;
+  T w[REG ? KA : 1][P];
+  if constexpr (REG) {
+#pragma unroll
+    for (int k = 0; k < KA; ++k) {
+      if (k < na) {
+        var_load_own<P>(W + int64_t(k) * S, c, pl, w[k]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < P; ++j) w[k][j] = T(0);
+      }
+    }
+  } else if (c.own) {
+    for (int k = 0; k < na; ++k) {
+      T v[P];
+      var_load_own<P>(W + int64_t(k) * S, c, pl, v);
+#pragma unroll
+      for (int j = 0; j < P; ++j) ws[(k * P + j) * nc] = v[j];
+    }
+  }
+  const int t0 = int(blockIdx.z) * chunk, t1 = min(t0 + chunk, nt);
+  int o[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) o[j] = (1 + j) * ST + c.oc;
+  T u[WP], bv[RES ? P : 1];  // x's column and b at the owned points
+  var_load_col<WP>(x + int64_t(t0) * S, c, pl, u);
+  if constexpr (RES) var_load_own<P>(b + int64_t(t0) * S, c, pl, bv);
+  for (int t = t0; t < t1; ++t) {
+    T* const buf = xs + ((t - t0) & 1) * WP * ST;
+    if (c.t < pl.wyx) {
+#pragma unroll
+      for (int k = 0; k < WP; ++k) buf[k * ST + c.t] = u[k];
+    }
+    // the next row's x and b, in flight across the barrier and the sums
+    T bn[RES ? P : 1];
+    if (t + 1 < t1) {
+      var_load_col<WP>(x + int64_t(t + 1) * S, c, pl, u);
+      if constexpr (RES) var_load_own<P>(b + int64_t(t + 1) * S, c, pl, bn);
+    }
+    __syncthreads();
+    if (c.own) {
+      T a[P];
+#pragma unroll
+      for (int j = 0; j < P; ++j) a[j] = T(0);
+#pragma unroll
+      for (int k = 0; k < KA; ++k) {
+        if (k < na) {
+          const T* const bk = buf + atoff[k];
+#pragma unroll
+          for (int j = 0; j < P; ++j) {
+            T wkj;
+            if constexpr (REG) {
+              wkj = w[k][j];
+            } else {
+              wkj = ws[(k * P + j) * nc];
+            }
+            a[j] = VAR_MADD(wkj, bk[o[j]], a[j]);
+          }
+        }
+      }
+      T* const orow = out + int64_t(t) * S + c.obase;
+      if constexpr (RES) {
+        const T om = omega[t];
+        T m[P], acc[P];
+#pragma unroll
+        for (int j = 0; j < P; ++j) m[j] = acc[j] = T(0);
+#pragma unroll
+        for (int k = 0; k < KM; ++k) {
+          if (mends >> k) {  // tap k exists: a group ends at it or after it
+            const T* const bk = buf + mtoff[k];
+#pragma unroll
+            for (int j = 0; j < P; ++j) acc[j] += bk[o[j]];
+            if ((mends >> k) & 1u) {
+              const T wk = mwend[k];
+#pragma unroll
+              for (int j = 0; j < P; ++j) {
+                m[j] = VAR_MADD(wk, acc[j], m[j]);
+                acc[j] = T(0);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+          if (j < c.kown) {
+            orow[j * pl.pstride] = bv[j] - VAR_MADD(om, m[j], a[j]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+          if (j < c.kown) orow[j * pl.pstride] = a[j];
+        }
+      }
+    }
+    if constexpr (RES) {
+#pragma unroll
+      for (int j = 0; j < P; ++j) bv[j] = bn[j];
+    }
+  }
 }
 
 // K13: K8 with Op_w, 2^d · 2 weighted fine residuals per coarse point.
@@ -3208,27 +3515,79 @@ int launch_prolong_correct(const T* x, const T* ec, T* out, int64_t nt,
   return int(cudaGetLastError());
 }
 
+// Whether a weighted table suits the march of K11 and K12: 1 to
+// var_taps A taps, every one within one cell of its point (dz = 0 in
+// 2-D), and for K11 (pm) a mass table as `row_table_ok` takes it.
+bool var_stencil_table_ok(const VarTaps& vt, const PairGroups* pm, int dim) {
+  const int cap = dim == 2 ? kRowTaps : kCubeTaps;
+  if (vt.n_taps < 1 || vt.n_taps > cap) return false;
+  auto far = [](int d) { return d < -1 || d > 1; };
+  for (int k = 0; k < vt.n_taps; ++k) {
+    if (far(vt.dz[k]) || far(vt.dy[k]) || far(vt.dx[k]) ||
+        (dim == 2 && vt.dz[k] != 0)) {
+      return false;
+    }
+  }
+  return pm == nullptr || row_table_ok(*pm, cap);
+}
+
+// The march's kernel for K11 (RES) or K12 with n A taps, as a call of
+// f(kernel, taps of its shared tile): the weights in registers up to
+// kVarRowTaps taps, else in the shared tile.
+template <int DIM, typename T, bool RES, typename F>
+int var_form(int n, F f) {
+  return n <= kVarRowTaps ? f(mg_var_stencil_kernel<DIM, T, RES, true>, 0)
+                          : f(mg_var_stencil_kernel<DIM, T, RES, false>, n);
+}
+
+// Dynamic shared memory of the march: x's two window buffers and the
+// shared tile of `tile` taps (none in registers).
+template <int DIM, typename T, bool RES>
+size_t var_stencil_bytes(const VarPlan& pl, int tile) {
+  constexpr int P = var_pencil<DIM, T, RES>();
+  return (size_t(2 * (P + 2)) * var_stride<DIM, RES>() +
+          size_t(tile) * P * pl.iy * pl.ix) *
+         sizeof(T);
+}
+
+// The mass table K12 passes (it reads none).
+constexpr PairGroups kNoPairs{};
+
+// K11 (RES) or K12: the march (chunk ≥ 1 time rows).
+template <int DIM, typename T, bool RES>
+int launch_var_stencil(const T* x, const T* b, const T* W, const T* omega,
+                       T* out, int64_t nt, Grid g, const VarTaps* vt,
+                       const PairGroups* pm, int chunk, void* stream) {
+  if (chunk < 1 || !var_stencil_table_ok(*vt, RES ? pm : nullptr, DIM)) {
+    return int(cudaErrorInvalidValue);
+  }
+  const VarPlan pl = var_plan<DIM, T, RES>(g);
+  return var_form<DIM, T, RES>(vt->n_taps, [&](auto kernel, int tile) {
+    const size_t bytes = var_stencil_bytes<DIM, T, RES>(pl, tile);
+    const int err = allow_smem(kernel, bytes);
+    if (err != 0) return err;
+    kernel<<<dim3(unsigned(pl.xt * pl.yt), unsigned(pl.pt),
+                  unsigned((nt + chunk - 1) / chunk)),
+             pl.threads, bytes, as_stream(stream)>>>(
+        x, b, W, omega, out, int(nt), g, pl, chunk, *vt,
+        RES ? *pm : kNoPairs);
+    return int(cudaGetLastError());
+  });
+}
+
 template <int DIM, typename T>
 int launch_residual_var(const T* x, const T* b, const T* W, const T* omega,
                         T* out, int64_t nt, Grid g, const VarTaps* vt,
-                        const PairGroups* pm, void* stream) {
-  const int64_t S = row_size(g);
-  const bool rf = rows_first(vt, S, sizeof(T));
-  mg_residual_var_kernel<DIM, T><<<point_blocks(nt, S, rf), kThreads, 0,
-                                   as_stream(stream)>>>(x, b, W, omega, out,
-                                                        nt, g, *vt, *pm, rf);
-  return int(cudaGetLastError());
+                        const PairGroups* pm, int chunk, void* stream) {
+  return launch_var_stencil<DIM, T, true>(x, b, W, omega, out, nt, g, vt, pm,
+                                          chunk, stream);
 }
 
 template <int DIM, typename T>
 int launch_apply_var(const T* x, const T* W, T* out, int64_t nt, Grid g,
-                     const VarTaps* vt, void* stream) {
-  const int64_t S = row_size(g);
-  const bool rf = rows_first(vt, S, sizeof(T));
-  mg_apply_var_kernel<DIM, T><<<point_blocks(nt, S, rf), kThreads, 0,
-                                as_stream(stream)>>>(x, W, out, nt, g, *vt,
-                                                     rf);
-  return int(cudaGetLastError());
+                     const VarTaps* vt, int chunk, void* stream) {
+  return launch_var_stencil<DIM, T, false>(x, nullptr, W, nullptr, out, nt,
+                                           g, vt, nullptr, chunk, stream);
 }
 
 template <int DIM, typename T>
@@ -3346,6 +3705,34 @@ int stencil_occupancy(int res, const Grid& g, int* blocks, int* bytes,
              : of(mg_stencil_kernel<DIM, T, false>);
 }
 
+// Blocks per SM, dynamic shared bytes, threads a block and blocks a chunk
+// of time rows (tiles × pencils) of K11 (res) or K12 with n A taps on
+// grid g.
+template <int DIM, typename T, bool RES>
+int var_stencil_occupancy_of(int n, const Grid& g, int* blocks, int* bytes,
+                             int* threads, int* tiles) {
+  const VarPlan pl = var_plan<DIM, T, RES>(g);
+  return var_form<DIM, T, RES>(n, [&](auto kernel, int tile) {
+    const size_t b = var_stencil_bytes<DIM, T, RES>(pl, tile);
+    const int err = allow_smem(kernel, b);
+    if (err != 0) return err;
+    *bytes = int(b);
+    *threads = pl.threads;
+    *tiles = pl.xt * pl.yt * pl.pt;
+    return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, kernel, pl.threads, b));
+  });
+}
+
+template <int DIM, typename T>
+int var_stencil_occupancy(int res, int n, const Grid& g, int* blocks,
+                          int* bytes, int* threads, int* tiles) {
+  if (n < 1 || n > var_taps<DIM>()) return int(cudaErrorInvalidValue);
+  return (res ? var_stencil_occupancy_of<DIM, T, true>
+              : var_stencil_occupancy_of<DIM, T, false>)(n, g, blocks, bytes,
+                                                         threads, tiles);
+}
+
 // The 2-D or 3-D instantiation of launcher L for a runtime dim.
 #define BY_DIM(L, T, ...) \
   (dim == 3 ? L<3, T>(__VA_ARGS__) : L<2, T>(__VA_ARGS__))
@@ -3413,6 +3800,25 @@ int mg_stencil_occupancy(int res, int dim, int f64, int64_t ny, int64_t nx,
   }
   return BY_DIM(stencil_occupancy, float, res, g, blocks, bytes, threads,
                 tiles);
+}
+
+// The same for K11 (res = 1) or K12 (res = 0) of dim with n A taps on a
+// grid of nz × ny × nx points (nz = 1 in 2-D): blocks per SM, dynamic
+// shared bytes, threads a block and blocks a chunk of time rows.
+int mg_var_stencil_occupancy(int res, int dim, int f64, int n, int64_t nz,
+                             int64_t ny, int64_t nx, int* blocks, int* bytes,
+                             int* threads, int* tiles) {
+  if (nz < 1 || ny < 1 || nx < 1 || nz * ny * nx >= (int64_t(1) << 31) ||
+      (dim == 2 && nz != 1)) {
+    return int(cudaErrorInvalidValue);
+  }
+  const Grid g{int(nz), int(ny), int(nx)};
+  if (f64) {
+    return BY_DIM(var_stencil_occupancy, double, res, n, g, blocks, bytes,
+                  threads, tiles);
+  }
+  return BY_DIM(var_stencil_occupancy, float, res, n, g, blocks, bytes,
+                threads, tiles);
 }
 
 #define MG_ENTRY_POINTS(T, SFX)                                               \
@@ -3536,16 +3942,16 @@ int mg_stencil_occupancy(int res, int dim, int f64, int64_t ny, int64_t nx,
                             const T* omega, T* out, int64_t nt, int64_t nz,   \
                             int64_t ny, int64_t nx, int dim,                  \
                             const VarTaps* vt, const PairGroups* pm,          \
-                            void* stream) {                                   \
+                            int chunk, void* stream) {                        \
     const Grid g{int(nz), int(ny), int(nx)};                                  \
     return BY_DIM(launch_residual_var, T, x, b, W, omega, out, nt, g, vt, pm, \
-                  stream);                                                    \
+                  chunk, stream);                                             \
   }                                                                           \
   int mg_apply_var_##SFX(const T* x, const T* W, T* out, int64_t nt,          \
                          int64_t nz, int64_t ny, int64_t nx, int dim,         \
-                         const VarTaps* vt, void* stream) {                   \
+                         const VarTaps* vt, int chunk, void* stream) {        \
     const Grid g{int(nz), int(ny), int(nx)};                                  \
-    return BY_DIM(launch_apply_var, T, x, W, out, nt, g, vt, stream);         \
+    return BY_DIM(launch_apply_var, T, x, W, out, nt, g, vt, chunk, stream);  \
   }                                                                           \
   int mg_residual_restrict_var_##SFX(                                         \
       const T* x, const T* b, const T* W, const T* omega, T* rc, int64_t nt,  \

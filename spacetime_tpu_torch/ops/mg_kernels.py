@@ -35,7 +35,9 @@ fits, csrc/mg.cu ``row_plan``) and a chunk of its rows (``march2_chunk``,
 the same wave rule for the weighted pair with its own blocks an SM). K4
 and K5 march too, in y (2-D: a segment of a row) and in z (3-D: a
 ``MARCH_TILE`` tile), with chunks by the same wave rule
-(``stencil_chunk``).
+(``stencil_chunk``). The weighted K11 and K12 march in time: a block
+owns a tile of rows (planes in 3-D) of the grid, holds its points' weights
+on chip and walks a chunk of the time rows (``var_stencil_chunk``).
 
 For a CUDA tensor each wrapper launches the CUDA kernel of csrc/mg.cu
 (float32 and float64) and counts the launch, with one count per kernel,
@@ -244,6 +246,37 @@ def stencil_chunk(T: int, n: int, resident: int, tiles: int,
     rule of ``march2_chunk``, a block walking its chunk and the two planes
     around it."""
     return march2_chunk(T * tiles, n, 1, resident, sms, 1, 2)
+
+
+@functools.lru_cache(maxsize=None)
+def var_stencil_plan(res: bool, dim: int, dtype, ntaps: int, gs: tuple,
+                     index: int) -> tuple[int, int, int, int]:
+    """(blocks an SM of device ``index`` holds, blocks a chunk of time
+    rows, dynamic shared bytes, threads a block) of K11 (K12 without
+    ``res``) with ``ntaps`` A taps on grid ``gs``: its tiles and pencils,
+    the weights held in registers or in the shared tile by the tap count
+    (csrc/mg.cu ``mg_var_stencil_occupancy``)."""
+    lib = native.LIB.get()
+    out = [ctypes.c_int() for _ in range(4)]  # blocks, bytes, threads, tiles
+    zyx = (1,) * (3 - len(gs)) + tuple(gs)
+    with torch.cuda.device(index):
+        err = lib.mg_var_stencil_occupancy(int(res), len(gs),
+                                           int(dtype == torch.float64), ntaps,
+                                           *zyx, *map(ctypes.byref, out))
+    native.check(lib, "mg_var_stencil_occupancy", err)
+    return max(out[0].value, 1), out[3].value, out[1].value, out[2].value
+
+
+def var_stencil_chunk(T: int, res: bool, ntaps: int, resident: int,
+                      tiles: int, sms: int) -> int:
+    """Time rows per block of the K11 (``res``) / K12 march on T rows,
+    ``tiles`` blocks a chunk, ``resident`` blocks an SM: the wave rule of
+    ``march2_chunk``, the weights' load (``ntaps`` values a point, once a
+    chunk) counted as the rows whose fields (x, b and the output; K12 x
+    and the output) move as many bytes, as ``dia_kernels.dia_chunk``
+    counts the DIA values."""
+    return march2_chunk(tiles, T, 1, resident, sms, 1,
+                        -(-ntaps // (3 if res else 2)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -726,7 +759,8 @@ class VarMSKernelLevel(_KernelLevel):
         self._check_W(W, b)
         out = torch.empty_like(b)
         k.launch(b.device, x.data_ptr(), b.data_ptr(), W.data_ptr(), cp[0],
-                 out.data_ptr(), T, *self._zyx(), *self._tables())
+                 out.data_ptr(), T, *self._zyx(), *self._tables(),
+                 self._var_stencil_chunk(b, True))
         return out
 
     def apply_A(self, x, W):
@@ -738,8 +772,18 @@ class VarMSKernelLevel(_KernelLevel):
         self._check_W(W, x)
         out = torch.empty_like(x)
         k.launch(x.device, x.data_ptr(), W.data_ptr(), out.data_ptr(), T,
-                 *self._zyx(), self._tables()[0])
+                 *self._zyx(), self._tables()[0],
+                 self._var_stencil_chunk(x, False))
         return out
+
+    def _var_stencil_chunk(self, X, res: bool) -> int:
+        """The time rows a block of K11 (``res``) or K12 on field X walks
+        through (``var_stencil_chunk``)."""
+        index, ntaps = X.device.index, len(self.A_vs.disps)
+        resident, tiles, _, _ = var_stencil_plan(res, self.dim, X.dtype,
+                                                 ntaps, self.gs, index)
+        return var_stencil_chunk(X.shape[0], res, ntaps, resident, tiles,
+                                 _sm_count(index))
 
     def residual_restrict(self, x, b, cols, W):
         """K13: r_c = R(b − Op_w x); the fine residual is never stored."""

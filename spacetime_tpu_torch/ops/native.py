@@ -278,10 +278,11 @@ def entry_signatures() -> dict:
         "mg_sh_residual_restrict": [P, P, P, P, *grid, P, I, I, P],
         "mg_sh_prolong_correct": [P, P, P, *grid, I, I, P],
         # the weighted ones: W after the fields; the A taps and the M
-        # groups after the grid
+        # groups after the grid (K11 and K12: then the time rows a block
+        # of the march walks)
         "mg_smooth_var": [P, P, P, P, P, P, P, *grid, P, P, I, I, P],
-        "mg_residual_var": [P, P, P, P, P, *grid, P, P, P],
-        "mg_apply_var": [P, P, P, *grid, P, P],
+        "mg_residual_var": [P, P, P, P, P, *grid, P, P, I, P],
+        "mg_apply_var": [P, P, P, *grid, P, I, P],
         "mg_residual_restrict_var": [P, P, P, P, P, *grid, P, P, P],
         "mg_fused_pre_var": [P, P, P, P, P, P, P, *grid, P, P, I, I, P],
         "mg_fused_post_var": [P, P, P, P, P, P, P, P, *grid, P, P, I, I,
@@ -330,6 +331,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # a chunk
     lib.mg_stencil_occupancy.argtypes = [I, I, I, I64, I64, P, P, P, P]
     lib.mg_stencil_occupancy.restype = I
+    # K11 / K12's: res, dim, f64, A taps, nz, ny, nx, then blocks, bytes,
+    # threads, blocks a chunk of time rows
+    lib.mg_var_stencil_occupancy.argtypes = [I, I, I, I, I64, I64, I64, P, P,
+                                             P, P]
+    lib.mg_var_stencil_occupancy.restype = I
     # the DIA march's: mode, f64, offsets, then blocks, bytes, threads
     lib.dia_march_occupancy.argtypes = [I, I, I, P, P, P]
     lib.dia_march_occupancy.restype = I

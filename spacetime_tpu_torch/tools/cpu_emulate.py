@@ -2,7 +2,7 @@
 machine without a GPU or nvcc.
 
     python -m spacetime_tpu_torch.tools.cpu_emulate [--parent DIR]
-        [--only fused|kron|stencil|dia]
+        [--only fused|kron|stencil|dia|var_stencil]
 
 Each source of ``spacetime_tpu_torch/csrc`` is translated to C++ (a launch
 ``k<<<grid, block, smem, stream>>>(args)`` becomes a call that runs the
@@ -34,19 +34,26 @@ twins the same way; and K16 and K17 (csrc/dia.cu ``dia_smooth``,
 offsets), a nested tetrahedra level (15) and a synthetic level of more
 than 16 (held in the shared tile), T = 1, 2 and 5, K16 from 0 and from x
 at ν ∈ {2, 3, 4}, at every chunk from one time row to all, held to their
-twins the same way. With
+twins the same way; and K11 and K12 (csrc/mg.cu ``mg_residual_var``,
+``mg_apply_var``, float32 and float64) on ragged 2-D and 3-D grids, T = 1,
+2 and 5, 2-D rows wider than one segment (…×1055, …×1985), the weights in
+both homes of the march (the varcoef tables, 7 A taps in 2-D in registers
+and 15 in 3-D in the shared tile, and ``OTHER_TAPS``, 9 in 2-D and 7 in
+3-D, the other way round), at every chunk from one time row to all, held
+to their twins the same way. With
 ``--parent DIR`` (an unpacked ``git archive`` of an earlier commit) DIR's
 csrc/mg.cu, csrc/kron.cu and csrc/dia.cu are emulated too, their entry
 points bound as ``tools.fused_ab`` binds them, and each output must equal
-DIR's bit for bit. ``--only fused`` (or ``kron``, ``stencil``, ``dia``)
-runs one of the four checks. A CUDA construct the runtime stand-in below
-lacks fails the g++ build.
+DIR's bit for bit. ``--only fused`` (or ``kron``, ``stencil``, ``dia``,
+``var_stencil``) runs one of the five checks. A CUDA construct the
+runtime stand-in below lacks fails the g++ build.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import itertools
 import os
 import subprocess
@@ -91,6 +98,19 @@ KRON_SHAPES = [(1, (1, 9)), (2, (9, 13)), (5, (10, 7)), (2, (5, 1985)),
 STENCIL_SHAPES = [(1, (1, 9)), (5, (10, 15)), (2, (9, 65)), (2, (4, 1985)),
                   (1, (5, 1055)), (2, (1, 5, 7)), (1, (7, 9, 15)),
                   (5, (3, 17, 33)), (1, (6, 35, 67))]
+# (T, grid) of K11/K12: T = 1, 2 and 5 on ragged 2-D grids (one row; rows
+# of one pencil and past it), rows wider than one segment (two, the second
+# ragged; four), ragged 3-D grids (one plane; tiles ragged in y and x and
+# planes past one pencil)
+VAR_STENCIL_SHAPES = [(1, (1, 9)), (5, (10, 15)), (2, (9, 65)),
+                      (2, (5, 1055)), (1, (3, 1985)), (2, (1, 5, 7)),
+                      (5, (3, 9, 15)), (1, (5, 17, 35))]
+# the tables of each dimension whose weights the march holds in the other
+# home: 2-D the 3 × 3 neighbourhood (9 taps: the shared tile), 3-D the
+# 7-point star (registers)
+OTHER_TAPS = {2: tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)),
+              3: ((0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0),
+                  (0, 0, -1), (0, 0, 1))}
 # (problem, cells, refinements) of the nested levels K16/K17 are emulated
 # on: the L-shape's fine level (m = 705, 11 offsets: three segments of the
 # register form, the last ragged) and the tetrahedra's (m = 343, 15)
@@ -453,6 +473,98 @@ def build_stencil(name: str = "this_stencil") -> ctypes.CDLL:
     return so
 
 
+def build_var_stencil(name: str = "this_var_stencil") -> ctypes.CDLL:
+    """This tree's mg.cu and common.cu alone, K11 and K12
+    (``mg_residual_var``, ``mg_apply_var``) bound with their signatures."""
+    so = build([native.CSRC / "mg.cu", native.CSRC / "common.cu"], name)
+    signatures = native.entry_signatures()
+    for op, sfx in itertools.product(("mg_residual_var", "mg_apply_var"),
+                                     ("f32", "f64")):
+        fn = getattr(so, f"{op}_{sfx}")
+        fn.argtypes, fn.restype = signatures[op], ctypes.c_int
+    return so
+
+
+@functools.lru_cache(maxsize=None)
+def _var_msmg(dim: int):
+    """The Galerkin hierarchy of a small varcoef solver of ``dim``."""
+    from ..solver import build_solver
+
+    return build_solver("varcoef3d" if dim == 3 else "varcoef2d", 8, 2,
+                        device="cpu", inner="mg").msmg
+
+
+def var_levels(dim: int, gs: tuple):
+    """The two weighted levels K11/K12 are emulated on at grid ``gs``: the
+    varcoef solver's finest level (7 A taps in 2-D, 15 in 3-D) and one of
+    ``OTHER_TAPS`` with its mass, as (level, W of float64 on the grid,
+    the level's hierarchy)."""
+    import types
+
+    from ..ops.stencil import VarStencilOperator
+
+    var = _var_msmg(dim)
+    lev = var.levels[0]
+    grow = [(0, 0)] + [(0, max(m - w, 0)) for m, w in zip(gs, lev.Aw.shape[1:])]
+    cut = (slice(None),) + tuple(slice(0, m) for m in gs)
+    W = np.ascontiguousarray(np.pad(np.asarray(lev.Aw), grow,
+                                    mode="wrap")[cut])
+    disps = OTHER_TAPS[dim]
+    rng = np.random.default_rng(dim)
+    other = types.SimpleNamespace(
+        A_vs=VarStencilOperator(disps, gs), gs=gs,
+        kc=disps.index((0,) * dim), cM=lev.cM, M_st=lev.M_st)
+    Wo = rng.uniform(-1.0, 1.0, (len(disps),) + gs)
+    return [(lev, W, var), (other, Wo, var)]
+
+
+def check_var_stencil(new, old, shapes=VAR_STENCIL_SHAPES) -> int:
+    """K11 (``mg_residual_var``) and K12 (``mg_apply_var``) of ``new`` on
+    each (T, grid) of ``shapes``, float32 and float64, with the weights in
+    both homes (``var_levels``), at every chunk from one time row to all of
+    them, against their twins and, if given, ``old``'s (bound by
+    ``tools.fused_ab.bind_parent``: before the march it takes no chunk);
+    returns the number of launches compared."""
+    n = 0
+    rng = np.random.default_rng(11)
+    for (T, gs), dtype in itertools.product(
+            shapes, (torch.float32, torch.float64)):
+        sfx = "f32" if dtype == torch.float32 else "f64"
+        mk = lambda shape: torch.as_tensor(rng.standard_normal(shape),
+                                           dtype=dtype)
+        x, b = mk((T,) + gs), mk((T,) + gs)
+        for lev, Wn, var in var_levels(len(gs), gs):
+            kl = VarMSKernelLevel(lev, 2, gs=gs)
+            W = torch.as_tensor(Wn, dtype=dtype)
+            cols = kl.columns(var_row_params(var, rng.uniform(0, 40, T),
+                                             dtype, "cpu")[0])
+            vt, pm = kl._tables()
+            forms = {
+                "residual_var": (kl.residual_plain(x, b, cols, W),
+                                 (x.data_ptr(), b.data_ptr(), W.data_ptr(),
+                                  cols["omega"].data_ptr()), (vt, pm)),
+                "apply_var": (kl.apply_A_plain(x, W),
+                              (x.data_ptr(), W.data_ptr()), (vt,)),
+            }
+            old_chunk = hasattr(old, "mg_var_stencil_occupancy")
+            for op, (want, fields, tables) in forms.items():
+                name = f"mg_{op}_{sfx}"
+                ref = None
+                if old is not None:
+                    ref = torch.empty_like(x)
+                    _call(old, name, *fields, ref.data_ptr(), T, *kl._zyx(),
+                          *tables, *((T,) if old_chunk else ()))
+                    n += 1
+                for chunk in range(1, T + 1):
+                    got = torch.empty_like(x)
+                    _call(new, name, *fields, got.data_ptr(), T, *kl._zyx(),
+                          *tables, chunk)
+                    n += 1
+                    _close((name, len(lev.A_vs.disps), T, gs, chunk), got,
+                           want, dtype, ref)
+    return n
+
+
 def build_kron(csrc: Path = native.CSRC, name: str = "this_kron",
                bind=None) -> ctypes.CDLL:
     """``csrc``'s kron.cu and common.cu alone (K1 and K2), bound with this
@@ -629,14 +741,15 @@ def check_dia(new, old, levels=None, Ts=DIA_T, nus=(2, 3, 4)) -> int:
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--parent", type=Path, default=None)
-    p.add_argument("--only", choices=["fused", "kron", "stencil", "dia"],
-                   default=None)
+    p.add_argument("--only", choices=["fused", "kron", "stencil", "dia",
+                                      "var_stencil"], default=None)
     args = p.parse_args()
-    run = {args.only} if args.only else {"fused", "kron", "stencil", "dia"}
+    run = ({args.only} if args.only
+           else {"fused", "kron", "stencil", "dia", "var_stencil"})
     old = old_kron = old_dia = None
     if args.parent is not None:
         csrc = args.parent.resolve() / "spacetime_tpu_torch" / "csrc"
-        if run & {"fused", "stencil"}:
+        if run & {"fused", "stencil", "var_stencil"}:
             old = bind_parent(build([csrc / "mg.cu", csrc / "common.cu"],
                                     "parent"))
         if "kron" in run:
@@ -649,6 +762,9 @@ def main() -> int:
         n += check(new, old)
     if "stencil" in run:
         n += check_stencil(new if "fused" in run else build_stencil(), old)
+    if "var_stencil" in run:
+        n += check_var_stencil(
+            new if "fused" in run else build_var_stencil(), old)
     if "kron" in run:
         n += check_kron(build_kron(), old_kron)
     if "dia" in run:

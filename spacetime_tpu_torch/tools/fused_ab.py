@@ -1,11 +1,11 @@
 """The fused stages K6, K7, K14 and K15, or K1 and K2, or K4 and K5, or
-K16 and K17, against an earlier tree's, on one GPU; the solves against
-the earlier tree's; the callers of the solves' copies.
+K16 and K17, or K11 and K12, against an earlier tree's, on one GPU; the
+solves against the earlier tree's; the callers of the solves' copies.
 
     python -m spacetime_tpu_torch.tools.fused_ab --parent DIR [--dims 2,3]
         [--family const,var] [--chunks] [--kron [--pencils]] [--stencil]
-        [--dia] [--solves [2d|3d|flat|all|NAME][,...] [--solves-only]
-        [--traces TDIR]] [--copies]
+        [--dia] [--var-stencil] [--solves [2d|3d|flat|all|NAME][,...]
+        [--solves-only] [--traces TDIR]] [--copies]
 
 DIR is the root of another checkout of the repository (an unpacked
 ``git archive`` of an earlier commit, say). Its ``csrc/mg.cu`` and
@@ -17,7 +17,10 @@ entry points ``mg_fused_pre``, ``mg_fused_pre_var``, ``mg_fused_post``,
 and f64) with the signatures of a tree whose fused stages all take the
 march's chunk (the 2-D K6/K7/K14/K15 ignoring it), and its K4/K5
 ``mg_residual`` and ``mg_apply`` with those before their march (no
-chunk); each fused stage gets the chunk this tree's wrapper picks.
+chunk), and its K11/K12 ``mg_residual_var`` and ``mg_apply_var`` with
+those before their time march (no chunk) or, where DIR's library has
+``mg_var_stencil_occupancy``, with the chunk; each fused stage gets the
+chunk this tree's wrapper picks.
 
 - ``kernels`` (always), ν ∈ {2, 3}, float32 and float64: in 2-D (``--dims``
   2) K6 and K7 at 129×511², 129×255² and 65×127² (the 2-D flagship's
@@ -62,6 +65,14 @@ chunk); each fused stage gets the chunk this tree's wrapper picks.
   old|, both held to the twin, median device times old, new, twin, new,
   old, the HBM bound, the plan (where the values are held, chunk,
   threads, blocks an SM) and ptxas's registers; with ``--chunks`` this
+  tree's time at half and twice the chunk too.
+- ``--var-stencil`` (in place of ``kernels``): K11 and K12 against DIR's
+  at ``VAR_STENCIL_AB_SHAPES`` (varcoef2d 513²'s two finest levels and
+  129²'s at K_X's rows, a row of four segments, varcoef3d 65³'s finest at
+  33 and 65 rows and 127³, W past the L2), float32 and float64: max|new −
+  old|, both held to the twin, median device times old, new, twin, new,
+  old, the HBM bound, the plan (chunk, blocks an SM, blocks a chunk,
+  shared bytes) and ptxas's registers; with ``--chunks`` this
   tree's time at half and twice the chunk too.
 - ``--solves``: steady ``solve`` seconds, f32, ``inner="mg"`` unless the
   solve names another, by ``run.py --repeat 3`` in DIR, this tree, this
@@ -180,8 +191,8 @@ def build_parent(parent: Path) -> ctypes.CDLL:
 
 
 def bind_parent(so: ctypes.CDLL) -> ctypes.CDLL:
-    """The parent's fused entry points and its K4/K5 of library ``so``,
-    bound with that tree's signatures."""
+    """The parent's fused entry points, its K4/K5 and its K11/K12 of
+    library ``so``, bound with that tree's signatures."""
     P, I64, I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     grid = [I64, I64, I64, I64, I]
     signatures = {
@@ -195,6 +206,11 @@ def bind_parent(so: ctypes.CDLL) -> ctypes.CDLL:
         "mg_residual": [P] * 4 + grid + [P, P],
         "mg_apply": [P] * 2 + grid + [P, P],
     }
+    # K11 and K12: before their time march no chunk; a tree with the march
+    # has its occupancy entry point
+    chunk = [I] if hasattr(so, "mg_var_stencil_occupancy") else []
+    signatures["mg_residual_var"] = [P] * 5 + grid + [P, P] + chunk + [P]
+    signatures["mg_apply_var"] = [P] * 3 + grid + [P] + chunk + [P]
     for sfx in ("f32", "f64"):
         for name, argtypes in signatures.items():
             fn = getattr(so, f"{name}_{sfx}")
@@ -409,6 +425,92 @@ def run_stencil(parent: Path) -> None:
                            "bound_ms": nbytes / HBM_BYTES_PER_MS},
                     time_twin=True)
         del x, b, out
+        torch.cuda.empty_cache()
+
+
+# (T, grid) of the K11/K12 A/B: the varcoef2d 513² solve's two finest
+# levels and its 129² run's finest at K_X's rows, a row of four segments,
+# the varcoef3d 65³ solve's finest level at K_X's and at 65 rows, and the
+# 129³×32 solve's finest (W, 123 MB in float32, past the L2)
+VAR_STENCIL_AB_SHAPES = [(129, (511, 511)), (129, (255, 255)),
+                         (65, (127, 127)), (33, (255, 1985)),
+                         (33, (63,) * 3), (65, (63,) * 3), (33, (127,) * 3)]
+
+
+def run_var_stencil(parent: Path, chunks: bool) -> None:
+    """K11 and K12 of this tree against DIR's (bound by ``bind_parent``)
+    at ``VAR_STENCIL_AB_SHAPES``, float32 and float64, W of the varcoef
+    solvers' finest level tiled to each: max|new − old|, both held to the
+    twin, median device times old, new, twin, new, old, the HBM bound
+    (x, b and the output once, W once), the plan (chunk, blocks an SM,
+    blocks a chunk, threads, shared bytes: past 7 taps the weights' tile);
+    with ``chunks`` this tree's time at
+    half and twice its chunk too; ptxas's registers of each kernel."""
+    from ..ops import mg_kernels
+
+    so = build_parent(parent)
+    native.LIB.get()
+    entry = None
+    for line in native.LIB.build_log.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"(mg_var_stencil_kernel\w*?Lb[01]ELb[01]E)", line)
+            entry = m.group(1) if m else None
+        elif entry and ("Used" in line or "spill" in line):
+            print("ptxas:", entry, line.split(":", 1)[-1].strip(), flush=True)
+    var = {dim: var_hierarchy(dim) for dim in (2, 3)}
+    rng = np.random.default_rng(11)
+    for dtype, (T, gs) in itertools.product((torch.float32, torch.float64),
+                                            VAR_STENCIL_AB_SHAPES):
+        sfx = "f32" if dtype == torch.float32 else "f64"
+        s = torch.finfo(dtype).bits // 8
+        ms = var[len(gs)]
+        kl = VarMSKernelLevel(ms.levels[0], 2, gs=gs)
+        W = tiled_weights(ms, gs, dtype)
+        mk = _fields(rng, dtype)
+        x, b = mk((T,) + gs), mk((T,) + gs)
+        cols = kl.columns(var_row_params(
+            ms, np.abs(rng.standard_normal(T)) * 20, dtype, "cuda")[0])
+        out = torch.empty_like(x)
+        m, nw = T * int(np.prod(gs)), W.numel()
+        tables = kl._tables()
+
+        def old_res(chunk=()):
+            _call(so, f"mg_residual_var_{sfx}", x.data_ptr(), b.data_ptr(),
+                  W.data_ptr(), cols["omega"].data_ptr(), out.data_ptr(), T,
+                  *kl._zyx(), *tables, *chunk)
+            return (out,)
+
+        def old_apply(chunk=()):
+            _call(so, f"mg_apply_var_{sfx}", x.data_ptr(), W.data_ptr(),
+                  out.data_ptr(), T, *kl._zyx(), tables[0], *chunk)
+            return (out,)
+
+        ntaps = len(kl.A_vs.disps)
+        for label, res, new_fn, old_fn, twin_fn, nbytes in (
+                ("K11", True, lambda: (kl.residual(x, b, cols, W),), old_res,
+                 lambda: (kl.residual_plain(x, b, cols, W),),
+                 s * (3 * m + nw + T)),
+                ("K12", False, lambda: (kl.apply_A(x, W),), old_apply,
+                 lambda: (kl.apply_A_plain(x, W),), s * (2 * m + nw))):
+            resident, tiles, smem, threads = mg_kernels.var_stencil_plan(
+                res, kl.dim, dtype, ntaps, gs, x.device.index)
+            chunk = kl._var_stencil_chunk(x, res)
+            # a parent with the march takes the chunk too
+            old_chunk = ((chunk,) if hasattr(so, "mg_var_stencil_occupancy")
+                         else ())
+            extra = {"chunk": chunk, "blocks_per_sm": resident,
+                     "tiles": tiles, "threads": threads, "smem_bytes": smem,
+                     "bound_ms": nbytes / HBM_BYTES_PER_MS}
+            if chunks:
+                extra["chunk_ms"] = {}
+                for c in sorted({max(chunk // 2, 1), chunk, min(2 * chunk, T)}):
+                    kl._var_stencil_chunk = lambda *_, c=c: c
+                    extra["chunk_ms"][c] = device_ms(new_fn)
+                del kl._var_stencil_chunk
+            compare(label, kl, T, dtype, new_fn,
+                    lambda f=old_fn: f(old_chunk), twin_fn, extra=extra,
+                    time_twin=True)
+        del x, b, out, W
         torch.cuda.empty_cache()
 
 
@@ -1104,6 +1206,8 @@ def main() -> int:
                    help="K4/K5 against DIR's in place of the fused stages")
     p.add_argument("--dia", action="store_true",
                    help="K16/K17 against DIR's in place of the fused stages")
+    p.add_argument("--var-stencil", action="store_true",
+                   help="K11/K12 against DIR's in place of the fused stages")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("fused_ab needs an NVIDIA GPU", file=sys.stderr)
@@ -1119,6 +1223,8 @@ def main() -> int:
         run_stencil(args.parent.resolve())
     elif args.dia:
         run_dia(args.parent.resolve(), args.chunks)
+    elif args.var_stencil:
+        run_var_stencil(args.parent.resolve(), args.chunks)
     elif not args.solves_only:
         run_kernels(args.parent.resolve(), dims, args.family.split(","),
                     args.chunks)

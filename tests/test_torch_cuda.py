@@ -4,7 +4,8 @@ pencil), the multigrid kernels K3–K9 and the
 weighted K10–K15 (2-D and 3-D, the fused K6/K7 and K14/K15 at ν 2 and 3,
 the 3-D K6/K7/K14/K15 on their z-marching kernels, the 2-D K6/K7 (serial
 and sharded) and K14/K15 on their y-marching ones, at chunks of one row to
-the whole column), the chained
+the whole column; K11/K12 on their time march, at chunks of one time row
+to all, the weights in registers and in the shared tile), the chained
 sweeps of K3/K10 above the tiled ν, the blocked-ELL SpMM K20, the
 banded-DIA K16–K18 (K16 at ν 1, 2, 3, 4), the pair SpMM K19 and the
 sharded-slab forms (K3 with ``vmask``, K6/K7/K8/K9 with ``lead``) on the
@@ -906,6 +907,62 @@ def test_var_row_march_matches_twins(var_msmg, dtype, nu, shape):
     assert counts[f"K14 mg_fused_pre_var {sfx}"] == len(chunks["pre"])
     assert counts[f"K15 mg_fused_post_var {sfx}"] == len(chunks["post"])
     assert sum(counts.values()) == len(chunks["pre"]) + len(chunks["post"])
+
+
+# K11 and K12 march in time (tests/test_torch_var_stencil_plan.py): a
+# ragged 2-D grid, rows of two segments (the second ragged) and of four, a
+# ragged 3-D grid and the 3-D level whose W leaves the L2 (127³, the
+# varcoef3d 65³ solve's finest weights tiled to it); the weights of the
+# varcoef tables and of ``tools.cpu_emulate.OTHER_TAPS`` (in registers and
+# in the shared tile, in both dimensions); chunks of one time row, the
+# wrapper's and all of them
+@pytest.mark.parametrize("T,gs", [(5, (15, 31)), (3, (9, 1055)),
+                                  (2, (5, 1985)), (5, (7, 9, 15)),
+                                  (3, (127, 127, 127))],
+                         ids=lambda v: "x".join(map(str, v))
+                         if isinstance(v, tuple) else str(v))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_var_stencil_march_matches_twins(dtype, T, gs):
+    from spacetime_tpu_torch.tools import cpu_emulate
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    sfx = ("_3d " if len(gs) == 3 else " ") + (
+        "f32" if dtype == torch.float32 else "f64")
+    rng = np.random.default_rng(T)
+    mk = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
+    x, b = (mk(rng.standard_normal((T,) + gs)) for _ in range(2))
+    for lev, Wn, var in cpu_emulate.var_levels(len(gs), gs):
+        kl = VarMSKernelLevel(lev, 2, gs=gs)
+        W = mk(Wn)
+        cols = kl.columns(var_row_params(
+            var, np.abs(rng.standard_normal(T)) * 20, dtype, "cuda")[0])
+        want = (kl.residual_plain(x, b, cols, W), kl.apply_A_plain(x, W))
+        for chunk in sorted({1, kl._var_stencil_chunk(x, True), T}):
+            kl._var_stencil_chunk = lambda *_, c=chunk: c
+            mg_kernels.reset_launch_counts()
+            _close(kl.residual(x, b, cols, W), want[0], dtype)
+            _close(kl.apply_A(x, W), want[1], dtype)
+            counts = mg_kernels.launch_counts()
+            assert counts[f"K11 mg_residual_var{sfx}"] == 1, counts
+            assert counts[f"K12 mg_apply_var{sfx}"] == 1, counts
+            assert sum(counts.values()) == 2
+
+
+def test_var_stencil_refuses_a_wide_table(var_msmg):
+    """A weighted table past the march's cap (a tap two cells away)
+    raises: the launch returns cudaErrorInvalidValue, and no other kernel
+    takes it."""
+    from spacetime_tpu_torch.ops.stencil import VarStencilOperator
+
+    lev = var_msmg.levels[0]
+    kl = VarMSKernelLevel(lev, 2, gs=(15, 31))
+    kl.A_vs = VarStencilOperator(kl.A_vs.disps[:-1] + ((0, 2),), (15, 31))
+    x, b, _, cols, W = _var_inputs(var_msmg, kl, 3, torch.float32, 1)
+    with pytest.raises(RuntimeError, match="mg_residual_var"):
+        kl.residual(x, b, cols, W)
+    with pytest.raises(RuntimeError, match="mg_apply_var"):
+        kl.apply_A(x, W)
 
 
 # (T, own, h, other extents): the (2 × 2) flagship's finest slab (h = ν +
