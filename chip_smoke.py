@@ -71,9 +71,11 @@ Phases (every check asserts; any failure exits non-zero):
               ν ∈ {1, 2, 3} (K14/K15 at ν ∈ {2, 3}), at 511² and 255²
               (T=129), 127² (T=65) and a ragged 15×31 (T=5), W the weights
               of the varcoef2d assembly at that size; median device times
-              (ν = 2) at 511²×129 and 127²×65, K11 and K12 (they march in
-              time) with their chunks of time rows, blocks per SM and
-              shared bytes, K12 at 511²×129 beside
+              (ν = 2) at 511²×129 and 127²×65, K10's (ν = 2, its step
+              launches on the time march) at every shape, with each
+              launch's mode, chunk and blocks per SM, K11 and K12 (they
+              march in time) with their chunks of time rows, blocks per SM
+              and shared bytes, K12 at 511²×129 beside
               ``torch.sparse.mm`` with A_w in CSR (the library call), and
               of the y-marching K14 and K15 (with their semi-fused pairs)
               at 511² and 255² (T=129) and 127² (T=65), ν = 2 and 3, with
@@ -96,11 +98,12 @@ Phases (every check asserts; any failure exits non-zero):
               (T=33, the weights of that solver's two Galerkin levels), a
               ragged 7×9×15 (T=5, the 63³ weights cut to it) and 127³
               (T=33, the 63³ weights tiled to it: W outside the L2, the
-              row-first order of K10, K13, K15); median device times (ν =
-              2, and ν = 3 for K14/K15, beside their semi-fused pairs K10
-              from 0 + K13 and K9 + K10 from x) at 63³×33 and 127³×33, K11
-              and K12 with their chunks of time rows, blocks per SM and
-              shared bytes, K12 at 63³×33 beside
+              row-first order of K13, K15); median device times (ν = 2,
+              and ν = 3 for K14/K15, beside their semi-fused pairs K10
+              from 0 + K13 and K9 + K10 from x) at 63³×33 and 127³×33,
+              K10's (ν = 2) at every shape with each launch's mode, chunk
+              and blocks per SM, K11 and K12 with their chunks of time
+              rows, blocks per SM and shared bytes, K12 at 63³×33 beside
               ``torch.sparse.mm`` with A_w in CSR.
 19. varcoef3d 65³×32 f32 — ``solve(tol=1e-6)`` twice, within ±1 of the
               JAX package's 14 iterations, L2 within 1% of its value;
@@ -121,14 +124,16 @@ Phases (every check asserts; any failure exits non-zero):
               median times at T ∈ {1, 2, 4, 8, 16, 32, 64} beside
               ``torch.sparse.mm`` (cuSPARSE CSR), the bound from the
               nonzeros and the bound of the stored blocks.
-23. chained sweeps — K3 and K10 above the tiled ν (ν = 9 in 2-D at
-              127²×65 and 15×31×5; ν = 4, 5 in 3-D at 63³×33, 15³×17 and
-              7×9×15×5), from x and from 0, against their twins.
+23. chained sweeps — K3 above its tiled ν and K10's steps at the same
+              ν (ν = 9 in 2-D at 127²×65 and 15×31×5; ν = 4, 5 in 3-D at
+              63³×33, 15³×17 and 7×9×15×5), from x and from 0, against
+              their twins; times with each K10 launch's mode, chunk and
+              blocks per SM.
 24. ν paths — smooth3d 17³×16 f64 ``mg_nu=4``: the JAX package's 17
               iterations exactly, L2 within 1e-6; f32 ``solve_refined`` with
               ν = 4 (smooth3d, varcoef3d 17³×16) and ν = 9 (smooth2d,
-              varcoef2d 33²×16): each launches the chained sweep in both
-              dtypes and never the tiled one.
+              varcoef2d 33²×16): each launches K3's chained sweep (K10's
+              steps) in both dtypes and never the tiled K3.
 25. oracle rows — cfg1, ladder-32, cfg3, cfg4 (singular2d, graded J4+4),
               singular3d-8 (graded J2+3), moving-peak-32, lshape-32-J5 (on
               ``ell``) and varcoef-32-J5 in float64 with dense inner
@@ -140,7 +145,7 @@ Phases (every check asserts; any failure exits non-zero):
               1% of the JAX package's on the CPU (``dia``, f32).
 27. K16–K19 — the setup of lshape2d on 32 cells red-refined 4 times, J=7
               (25.2 MDoF, nested multigrid) and of the AMG solver on phase
-              26's n=256 system; each DIA level's plan of the K16/K17 march
+              26's n=256 system; each DIA level's plan of the K16–K18 march
               (where the values are held, segment, chunk and blocks an SM
               of each launch mode),
               the tetrahedra's of ``FLAT_F64`` too; K16 (from 0, from x),
@@ -149,8 +154,10 @@ Phases (every check asserts; any failure exits non-zero):
               level (m=48641, T=65, 64) and the nested tetrahedra's fine
               level (m=29791, 15 offsets; T=129), K19 and the K20
               transfers on the AMG ELL level (m=8191, T=65, 64), f32 and
-              f64, within 1e-5 (f32) and 1e-13 (f64) of max|twin|; times at
-              the nested and tetrahedra fine levels (T=129) and the ELL
+              f64, within 1e-5 (f32) and 1e-13 (f64) of max|twin|; times
+              (with each timed launch's mode, chunk and blocks an SM) at
+              the nested and tetrahedra fine levels (T=129), K18's also at
+              the AMG DIA level (T=65, 15 launches an iteration), and the ELL
               level beside ``torch.sparse.mm`` (K18, and two of them for
               K19) and their bounds.
 28. nested  — the 25.2 MDoF solve, f32, ``solve(tol=1e-6)`` twice: 15 ± 1
@@ -686,6 +693,8 @@ def check_forms(kl, forms, bound_fn, T, dtype, results, library=None,
                            and (T, gs) in MG_SHAPES)
                        or (op in ("fused_pre_var", "fused_post_var")
                            and (T, gs) in VAR2_TIMED)))
+        # K10's steps at ν = 2 at every shape of phases 14 and 18
+        fused3 = fused3 or (auto and op == "smooth_var" and nu == 2)
         got, want = kfn(), tfn()
         torch.cuda.synchronize()
         rec = results.setdefault(
@@ -721,7 +730,10 @@ def check_forms(kl, forms, bound_fn, T, dtype, results, library=None,
                          f"{plans[form]['blocks_per_sm']} blocks per SM, "
                          f"{plans[form]['tiles']} blocks a chunk, "
                          f"{plans[form]['smem_bytes']} shared bytes")
-            tag = " nu=3" if form.startswith("fused") and nu == 3 else ""
+                if "steps" in plans[form]:
+                    line += f" (launches: {plans[form]['steps']})"
+            tag = (" nu=3" if form.startswith("fused") and nu == 3
+                   else f" nu={nu}" if nu > 3 else "")
             rec["forms"][f"{form}{tag} {shape_key(T, gs)}"] = entry
         print(line, flush=True)
 
@@ -862,20 +874,34 @@ def var_library(kl, x):
 
 
 def var_march_plans(kl, X) -> dict:
-    """{form: plan} of K11 (residual) and K12 (apply_A) on field X: the
-    time rows a block walks, blocks an SM, blocks a chunk of time rows and
-    shared bytes a block (past 7 taps the weights' tile; csrc/mg.cu
-    ``mg_var_stencil_occupancy``)."""
+    """{form: plan} of K11 (residual), K12 (apply_A) and K10 (smooth,
+    smooth_zero) on field X: the time rows a block walks, blocks an SM,
+    blocks a chunk of time rows and shared bytes a block (past 7 taps the
+    weights' tile; csrc/mg.cu ``mg_var_stencil_occupancy``); K10's those of
+    its later step, and under "steps" each launch's mode, chunk and blocks
+    an SM."""
     from spacetime_tpu_torch.ops import mg_kernels
 
     ntaps = len(kl.A_vs.disps)
-    out = {}
-    for form, res in (("residual", True), ("apply_A", False)):
+
+    def plan(mode, last=False):
         resident, tiles, smem, _ = mg_kernels.var_stencil_plan(
-            res, kl.dim, X.dtype, ntaps, kl.gs, X.device.index)
-        out[form] = {"chunk": kl._var_stencil_chunk(X, res),
-                     "blocks_per_sm": resident, "tiles": tiles,
-                     "smem_bytes": smem}
+            mode, kl.dim, X.dtype, ntaps, kl.gs, X.device.index)
+        return {"chunk": kl._var_stencil_chunk(X, mode, last),
+                "blocks_per_sm": resident, "tiles": tiles,
+                "smem_bytes": smem}
+
+    out = {"residual": plan("residual"), "apply_A": plan("apply")}
+    for form in ("smooth", "smooth_zero"):
+        launches = []
+        mg_kernels.chebyshev_launches(
+            lambda mode, d_in, d_out, c1, c2, last: launches.append(
+                (mode, last)), kl.nu, form == "smooth_zero", first_two=True)
+        steps = [(f"{mode}{' last' if last else ''}", plan(mode, last))
+                 for mode, last in launches]
+        out[form] = dict(steps[-1][1], steps="; ".join(
+            f"{name}: chunk {p['chunk']}, {p['blocks_per_sm']} blocks/SM"
+            for name, p in steps))
     return out
 
 
@@ -897,11 +923,12 @@ def mg_inputs(msmg, kl, T, dtype, rng) -> dict:
 
 def chain_forms(kl, x, var: bool) -> dict:
     """{form: (kernel op, kernel_fn, twin_fn)}: the K3 / K10 sweep of a
-    level whose ν is above the tiled kernels', from x and from 0 (the
-    wrappers chain ``cheb_step`` launches)."""
+    level whose ν is above the tiled K3's, from x and from 0 (K3's wrapper
+    chains ``cheb_step`` launches; K10's launches its steps at every
+    ν)."""
     X, B = x["x"], x["b"]
     args = (x["cols"], x["W"]) if var else (x["cols"],)
-    op = "cheb_step_var" if var else "cheb_step"
+    op = "smooth_var" if var else "cheb_step"
     return {
         "smooth": (op, lambda: (kl.smooth(X, B, *args),),
                    lambda: (kl.smooth_plain(X, B, *args),)),
@@ -1092,7 +1119,8 @@ def phase_chains(build_solver, mg_results):
                 vk = VarMSKernelLevel(varh[dim].levels[0], nu, gs=gs)
                 x = var_inputs(varh[dim], vk, T, dtype, rng)
                 check_forms(vk, chain_forms(vk, x, True), var_bound, T, dtype,
-                            mg_results, timed=timed)
+                            mg_results, timed=timed,
+                            plans=var_march_plans(vk, x["x"]))
                 del x
                 torch.cuda.empty_cache()
 
@@ -1145,9 +1173,10 @@ def phase_nu_paths(build_solver, paths):
         var = name.startswith("varcoef")
         dim = s.problem.dim
         for dt in (f32, f64):
-            assert counts[("cheb_step_var" if var else "cheb_step", dt,
+            assert counts[("smooth_var" if var else "cheb_step", dt,
                            dim)] > 0, (dt, counts)
-            assert counts[("smooth_var" if var else "smooth", dt, dim)] == 0
+            if not var:  # K10's steps are one kernel at every ν
+                assert counts[("smooth", dt, dim)] == 0
         del s
     torch.cuda.empty_cache()
 
@@ -1236,7 +1265,9 @@ def phase_lshape(lsh, paths):
 
 def semi_path(counts, dtype, dim, var: bool) -> None:
     """A multigrid path on the semi-fused stages in ``dtype``: K3 (K10) =
-    2·K8 (K13) = 2·K9 launched, and no fused stage in any dtype."""
+    2·K8 (K13) = 2·K9 launched (at V(2,1) K10's pre-sweep from 0 is one
+    launch of its two steps, its post-sweep one step), and no fused stage
+    in any dtype."""
     sm, rr = ("smooth_var", "residual_restrict_var") if var else (
         "smooth", "residual_restrict")
     got = {op: counts[(op, dtype, dim)] for op in (sm, rr, "prolong_correct")}
@@ -1406,7 +1437,8 @@ def flat_per_solve(solver, iterations: int) -> dict:
 
 def check_dia_forms(kl, lev, T, dtype, rng, results, label, timed, A_csr):
     """K16 (from 0 and from x), K17 and K18 of ``kl`` against their twins
-    at T rows; times and bounds where ``timed``, K18 beside
+    at T rows; times, bounds and each launch's mode, chunk and blocks an
+    SM where ``timed`` (True: every form; "apply": K18 alone), K18 beside
     ``torch.sparse.mm`` (A in CSR)."""
     mk = lambda a: torch.as_tensor(a, dtype=dtype, device=DEVICE)
     omega = np.abs(rng.standard_normal(T)) * 100.0
@@ -1442,10 +1474,13 @@ def check_dia_forms(kl, lev, T, dtype, rng, results, label, timed, A_csr):
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         line = (f"  {form:15s} {str(dtype)[6:]:8s} {label} T={T}: "
                 f"max|kernel-twin| {err:.3e} (max|twin| {scale:.3e})")
-        if timed:
+        if timed is True or timed == op:
+            modes = {"smooth from 0": ("first_zero", "step"),
+                     "smooth from x": ("first", "step")}.get(form, (op,))
+            plans = {mode: kl.plan(mode, x) for mode in modes}
             entry = {"ms": device_ms(kfn), "plain_ms": device_ms(tfn),
                      "max_abs_err": err, "library_ms": None,
-                     **dia_bound(form, kl, T, dtype)}
+                     "plans": plans, **dia_bound(form, kl, T, dtype)}
             if op == "apply":
                 A_sp, xt = csr_on_card(A_csr, dtype), x.t().contiguous()
                 lib = lambda: torch.sparse.mm(A_sp, xt)
@@ -1456,7 +1491,11 @@ def check_dia_forms(kl, lev, T, dtype, rng, results, label, timed, A_csr):
             rec["forms"][f"{form} T={T} m={lev.m}"] = entry
             line += (f"; kernel {entry['ms']:.4f} ms, twin "
                      f"{entry['plain_ms']:.4f} ms, bound "
-                     f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})")
+                     f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}); "
+                     + ", ".join(f"{mode}: chunk {p['chunk']}, "
+                                 f"{p['blocks_per_sm']} blocks/SM, values "
+                                 f"in {p['held']}"
+                                 for mode, p in plans.items()))
         print(line, flush=True)
     del x, b, vals
     torch.cuda.empty_cache()
@@ -1530,9 +1569,11 @@ def phase_flat_kernels(build_solver, lsh, spmv):
                                 li == 0 and T == DIA_T[0], A)
         lev = amg.msmg.levels[0]
         assert lev.fmt == "dia" and amg._kl_ky[0].kind == "dia", lev.fmt
-        for T in PAIR_T:
+        for T in PAIR_T:  # K18 timed at K_X's rows: 15 an iteration there
             check_dia_forms(amg._kl_ky[0], lev, T, dtype, rng, results,
-                            f"AMG L0 m={lev.m}", False, None)
+                            f"AMG L0 m={lev.m}",
+                            "apply" if T == PAIR_T[0] else False,
+                            _dia_to_csr(lev.offA, lev.Av))
         t0 = time.perf_counter()
         lev = tet.msmg.levels[0]
         check_dia_forms(tet._kl_ky[0], lev, TET_T, dtype, rng, results,
@@ -2562,8 +2603,9 @@ def main() -> int:
                  semi=False):
         """The weighted path's counts in ``dtype`` (and in the refinement
         legs' dtype ``legs``): K11, K12 and the V-cycle stages of the
-        path's branch launched, the fused K14 = K15 or (``semi``) the
-        semi-fused K10 = 2·K13 = 2·K9, a whole number of V-cycles over the
+        path's branch launched, the fused K14 = K15 or (``semi``, V(2,1))
+        the semi-fused K10 = 2·K13 = 2·K9 (K10's pre-sweep from 0 one
+        launch of its two steps), a whole number of V-cycles over the
         ``levels`` kernel levels, at least 7 per PCG iteration in ``dtype``
         (3 for K_Y, 2 × 2 for K_X); no other kernel, and none of another
         dimension."""
@@ -2856,7 +2898,7 @@ def main() -> int:
                  "apply_var": "apply_A",
                  "residual_restrict_var": "residual_restrict",
                  "fused_pre_var": "fused_pre", "fused_post_var": "fused_post",
-                 "cheb_step": "smooth", "cheb_step_var": "smooth"}
+                 "cheb_step": "smooth"}
     sh_main = {"sh_smooth": "smooth", "sh_fused_pre": "fused_pre",
                "sh_fused_post": "fused_post",
                "sh_residual_restrict": "residual_restrict",
@@ -2888,7 +2930,8 @@ def main() -> int:
         T, gs = (CHAIN_MAIN[dim] if chained else
                  MG_MAIN[("var" if op.endswith("_var") else "const", dim)])
         nu = CHAIN_SHAPES[dim][0][2] if chained else 2
-        at = rec["forms"][f"{main_form[op]} {shape_key(T, gs)}"]
+        tag = f" nu={nu}" if nu > 3 else ""
+        at = rec["forms"][f"{main_form[op]}{tag} {shape_key(T, gs)}"]
         kernels.append({
             "name": k.name,
             "route": "cuda",

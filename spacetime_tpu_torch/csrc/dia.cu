@@ -23,19 +23,22 @@
 // output once each, the values and diagonals once): 0.096 ms at 3.35 TB/s;
 // K17 0.096 ms, K18 0.063 ms. The values (17 MB there) have no time axis.
 //
-// Design. K16 and K17 march in time (`dia_march_kernel`): a block owns a
+// Design. K16, K17 and K18 march in time (`dia_march_kernel`, one
+// template, `Mode` the kernel and the step): a block owns a
 // segment of the level's dofs, one thread a dof, and walks a chunk of time
 // rows (`chunk`, picked by ops/dia_kernels.py `dia_chunk`). It loads its
-// dofs' values vA, vM on the union offsets and dA, dM once, and holds them
+// dofs' values vA, vM on the union offsets and dA, dM once (K18 vA
+// alone), and holds them
 // on chip for the whole chunk: in registers where the offsets number at
 // most 16 (every level the repo solves: 11 in 2-D, 15 on tetrahedra), the
 // taps unrolled to `NT` ∈ {12, 16} with those past the table's count
 // predicated off; else in a shared-memory tile [k][dof] of 128 dofs that
 // each thread fills and reads in its own column (no barrier), the taps
-// read as they are summed. A time row then reads only fields: the taps of
-// x (or d) at the offsets, which coalesce along the segment and come
-// mostly from the L1 and L2 (whether each lies in [0, m) is a mask worked
-// out once a chunk), and the point's b (or r and the running x). The row
+// read as they are summed (K18's tile is half of K17's: vA alone). A time
+// row then reads only fields: the taps of x (or d) at the offsets, which
+// coalesce along the segment and come mostly from the L1 and L2 (whether
+// each lies in [0, m) is a mask worked out once a chunk), and the point's
+// b (or r and the running x; K18 nothing more). The row
 // `kPrefetchRows` ahead is requested into the L2 (no register holds it):
 // a row's loads then wait on the L2 and not on HBM, and the bytes in
 // flight an SM set the pace of such a march. 1/D is computed per row from
@@ -47,10 +50,8 @@
 // make a fused window half halo, and such a window lost to the chain on
 // the H100 (PERF.md §6). The last step of a sweep writes x
 // alone: r and d are dead after it. Every sum is a plain DIA matvec's
-// (taps in offset order into A's and M's sums apart, then oA + ω·oM), so
-// the outputs do not depend on the form or the chunk. K18 is one thread
-// per (row, dof), the taps and values read from device memory through the
-// L1.
+// (taps in offset order into A's and M's sums apart, then oA + ω·oM; K18
+// A's sum alone), so the outputs do not depend on the form or the chunk.
 
 #include <cuda_runtime.h>
 
@@ -67,22 +68,22 @@ struct DiaOffsets {
 
 namespace {
 
-constexpr int kThreads = 256;      // K18's block; the register form's segment
+constexpr int kThreads = 256;      // the register form's segment
 constexpr int kTileThreads = 128;  // the shared form's segment
 constexpr int kMaxRegTaps = 16;    // the most offsets the register form holds
 constexpr int kPrefetchRows = 2;   // rows ahead whose fields go to the L2
 constexpr int kDefaultSmem = 48 * 1024;
 
 // What a march launch computes (`MODE`): K17, K16's first step from x or
-// from x = 0, and a later step of K16.
-enum Mode { kResidual = 0, kFirst = 1, kFirstZero = 2, kStep = 3 };
+// from x = 0, a later step of K16, and K18.
+enum Mode { kResidual = 0, kFirst = 1, kFirstZero = 2, kStep = 3, kApply = 4 };
 
 // The register form's least blocks an SM (`__launch_bounds__`): 3 for a
 // K16 step in float, else 1 (the compiler's own choice), by timing on the
 // H100 (PERF.md §6).
 template <typename T, int MODE>
 constexpr int min_blocks() {
-  return MODE != kResidual && sizeof(T) == 4 ? 3 : 1;
+  return MODE != kResidual && MODE != kApply && sizeof(T) == 4 ? 3 : 1;
 }
 
 cudaStream_t as_stream(void* stream) {
@@ -91,11 +92,12 @@ cudaStream_t as_stream(void* stream) {
 
 // The fields one time row of a march reads at its point: the taps of y (x,
 // or d for a later K16 step) in registers (NT of them; none for the shared
-// form, which reads them as it sums), and the point's own values.
+// form, which reads them as it sums), and the point's own values (K17 and
+// a first step: b, x; a later step: r, x_out, d_in; K18: none).
 template <typename T, int NT>
 struct Row {
   T y[NT > 0 ? NT : 1];
-  T p0, p1, p2;  // K17 and a first step: b, x; a later step: r, x_out, d_in
+  T p0, p1, p2;
 };
 
 // Requests the L2 line of p ahead of its load (no register holds it).
@@ -115,6 +117,8 @@ __device__ __forceinline__ void prefetch_row(const T* x, const T* b,
     prefetch_l2(d_in + tg);
     prefetch_l2(r + tg);
     prefetch_l2(x_out + tg);
+  } else if constexpr (MODE == kApply) {
+    prefetch_l2(x + tg);
   } else {
     prefetch_l2(b + tg);
     if constexpr (MODE != kFirstZero) prefetch_l2(x + tg);
@@ -151,16 +155,17 @@ __device__ __forceinline__ void load_row(Row<T, NT>& w, const T* __restrict__ x,
     w.p0 = r[tg];
     w.p1 = x_out[tg];
     w.p2 = d_in[tg];
-  } else {
+  } else if constexpr (MODE != kApply) {
     w.p0 = b[tg];
     if constexpr (MODE == kFirst) w.p1 = x[tg];
   }
 }
 
-// K16 and K17, marching over a chunk of time rows with the values held on
-// chip: in registers, the taps unrolled to NT (NT > 0), or in the shared
-// tile, the taps read as summed (NT = 0). In a K16 step `first` chooses the
-// mode (from x, from x = 0 with x null); K17 writes b − Op x to x_out.
+// K16, K17 and K18, marching over a chunk of time rows with the values
+// held on chip: in registers, the taps unrolled to NT (NT > 0), or in the
+// shared tile, the taps read as summed (NT = 0). In a K16 step `first`
+// chooses the mode (from x, from x = 0 with x null); K17 writes b − Op x
+// to x_out, K18 A x (vM, dA, dM, b, ω and the columns unread).
 template <typename T, int MODE, int NT>
 __global__ void __launch_bounds__(NT > 0 ? kThreads : kTileThreads,
                                   NT > 0 ? min_blocks<T, MODE>() : 1)
@@ -173,7 +178,8 @@ __global__ void __launch_bounds__(NT > 0 ? kThreads : kTileThreads,
                      T* __restrict__ x_out, int64_t nt, int64_t m,
                      DiaOffsets o, int chunk, int last, T c1, T c2) {
   constexpr int kSeg = NT > 0 ? kThreads : kTileThreads;
-  constexpr bool kOp = MODE != kFirstZero;  // applies Op
+  constexpr bool kOp = MODE != kFirstZero;  // applies Op (K18: A alone)
+  constexpr bool kM = kOp && MODE != kApply;  // holds and sums M
   const int64_t g = int64_t(blockIdx.x) * kSeg + threadIdx.x;
   if (g >= m) return;
   const int64_t t0 = int64_t(blockIdx.y) * chunk;
@@ -191,7 +197,7 @@ __global__ void __launch_bounds__(NT > 0 ? kThreads : kTileThreads,
 #pragma unroll
     for (int k = 0; k < NT; ++k) {
       a[k] = k < o.n ? vA[k * m + g] : T(0);
-      mm[k] = k < o.n ? vM[k * m + g] : T(0);
+      if constexpr (kM) mm[k] = k < o.n ? vM[k * m + g] : T(0);
     }
   } else if constexpr (kOp) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -199,11 +205,11 @@ __global__ void __launch_bounds__(NT > 0 ? kThreads : kTileThreads,
     sM = sA + o.n * kSeg;
     for (int k = 0; k < o.n; ++k) {
       sA[k * kSeg] = vA[k * m + g];
-      sM[k * kSeg] = vM[k * m + g];
+      if constexpr (kM) sM[k * kSeg] = vM[k * m + g];
     }
   }
   T dAg = T(0), dMg = T(0);
-  if constexpr (MODE != kResidual) {
+  if constexpr (MODE != kResidual && MODE != kApply) {
     dAg = dA[g];
     dMg = dM[g];
   }
@@ -215,7 +221,7 @@ __global__ void __launch_bounds__(NT > 0 ? kThreads : kTileThreads,
       prefetch_row<T, MODE>(x, b, r, d_in, x_out, tg + kPrefetchRows * m);
     }
     load_row<T, MODE>(w, x, b, r, d_in, x_out, tg, valid, o);
-    const T om = omega[t];
+    const T om = MODE != kApply ? omega[t] : T(0);
     // (Σ_k vA[k, g]·y[g + off_k], Σ_k vM[k, g]·y[g + off_k]), 0 outside
     // [0, m), the taps in offset order
     T oA = T(0), oM = T(0);
@@ -225,7 +231,7 @@ __global__ void __launch_bounds__(NT > 0 ? kThreads : kTileThreads,
       for (int k = 0; k < NT; ++k) {
         if (k < o.n) {
           sa += a[k] * w.y[k];
-          sm += mm[k] * w.y[k];
+          if constexpr (kM) sm += mm[k] * w.y[k];
         }
       }
       oA = sa;
@@ -236,12 +242,14 @@ __global__ void __launch_bounds__(NT > 0 ? kThreads : kTileThreads,
       for (int k = 0; k < o.n; ++k) {
         const T yv = (valid >> k) & 1 ? y[o.off[k]] : T(0);
         sa += sA[k * kSeg] * yv;
-        sm += sM[k * kSeg] * yv;
+        if constexpr (kM) sm += sM[k * kSeg] * yv;
       }
       oA = sa;
       oM = sm;
     }
-    if constexpr (MODE == kResidual) {
+    if constexpr (MODE == kApply) {
+      x_out[tg] = oA;
+    } else if constexpr (MODE == kResidual) {
       x_out[tg] = w.p0 - (oA + om * oM);
     } else {
       const T invd = T(1) / (dAg + om * dMg);
@@ -272,31 +280,15 @@ __global__ void __launch_bounds__(NT > 0 ? kThreads : kTileThreads,
   }
 }
 
-// K18: A x, one thread per (row, dof)
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    dia_apply_kernel(const T* __restrict__ x, const T* __restrict__ vA,
-                     T* __restrict__ out, int64_t m, DiaOffsets o) {
-  const int64_t g = int64_t(blockIdx.x) * kThreads + threadIdx.x;
-  if (g >= m) return;
-  const int64_t t = blockIdx.y;
-  const T* xrow = x + t * m;
-  T s = T(0);
-  for (int k = 0; k < o.n; ++k) {
-    const int64_t j = g + o.off[k];
-    s += vA[k * m + g] * ((j >= 0 && j < m) ? xrow[j] : T(0));
-  }
-  out[t * m + g] = s;
-}
-
 bool bad_shape(int64_t nt, int64_t m, const DiaOffsets* o) {
   return nt < 1 || nt > 65535 || m < 1 || o->n < 1 || o->n > kMaxDiag;
 }
 
 // The march's kernel for (T, MODE) with n offsets, as a call of f(kernel,
 // threads a block, dynamic shared bytes): the values in registers up to 16
-// offsets, the taps unrolled to 12 or 16, else in the shared tile;
-// cudaErrorInvalidValue for a table of no offsets or more than kMaxDiag.
+// offsets, the taps unrolled to 12 or 16, else in the shared tile (vA and
+// vM; K18 vA alone); cudaErrorInvalidValue for a table of no offsets or
+// more than kMaxDiag.
 template <typename T, int MODE, typename F>
 int by_form(int n, F f) {
   if (n < 1 || n > kMaxDiag) return int(cudaErrorInvalidValue);
@@ -305,7 +297,8 @@ int by_form(int n, F f) {
   } else {
     if (n > kMaxRegTaps) {
       return f(dia_march_kernel<T, MODE, 0>, kTileThreads,
-               size_t(2 * n) * kTileThreads * sizeof(T));
+               size_t((MODE == kApply ? 1 : 2) * n) * kTileThreads *
+                   sizeof(T));
     }
     return n <= 12 ? f(dia_march_kernel<T, MODE, 12>, kThreads, size_t(0))
                    : f(dia_march_kernel<T, MODE, 16>, kThreads, size_t(0));
@@ -358,16 +351,6 @@ int launch_smooth_step(const T* x, const T* b, const T* vA, const T* vM,
       o, last, c1, c2, chunk, stream);
 }
 
-template <typename T>
-int launch_apply(const T* x, const T* vA, T* out, int64_t nt, int64_t m,
-                 const DiaOffsets* o, void* stream) {
-  if (bad_shape(nt, m, o)) return int(cudaErrorInvalidValue);
-  const dim3 grid(unsigned((m + kThreads - 1) / kThreads), unsigned(nt));
-  dia_apply_kernel<T><<<grid, kThreads, 0, as_stream(stream)>>>(x, vA, out, m,
-                                                                *o);
-  return int(cudaGetLastError());
-}
-
 template <typename T, int MODE>
 int march_occupancy(int n, int* blocks, int* bytes, int* threads) {
   return by_form<T, MODE>(n, [&](auto kernel, int nthreads, size_t nbytes) {
@@ -384,15 +367,14 @@ int march_occupancy(int n, int* blocks, int* bytes, int* threads) {
 
 // Plain C entry points (bound with ctypes); each returns the cudaError_t of
 // its launch. Fields (nt, m), values (ndu, m), diagonals (m,), columns
-// (nt,), all contiguous; the offsets by pointer. K16 and K17 take the time
-// rows a block walks (chunk ≥ 1); a K16 step with `last` writes x_out
-// alone.
+// (nt,), all contiguous; the offsets by pointer. Each takes the time rows
+// a block walks (chunk ≥ 1); a K16 step with `last` writes x_out alone.
 extern "C" {
 
 int dia_offsets_size() { return int(sizeof(DiaOffsets)); }
 
 // The march's plan for `mode` (0 K17, 1 a first K16 step from x, 2 from x
-// = 0, 3 a later step), the dtype and n offsets: blocks an SM holds,
+// = 0, 3 a later step, 4 K18), the dtype and n offsets: blocks an SM holds,
 // dynamic shared bytes (none where the values sit in registers) and
 // threads a block (a segment's dofs).
 int dia_march_occupancy(int mode, int f64, int n, int* blocks, int* bytes,
@@ -407,6 +389,7 @@ int dia_march_occupancy(int mode, int f64, int n, int* blocks, int* bytes,
     DIA_OCC(kFirst)
     DIA_OCC(kFirstZero)
     DIA_OCC(kStep)
+    DIA_OCC(kApply)
 #undef DIA_OCC
     default:
       return int(cudaErrorInvalidValue);
@@ -433,8 +416,11 @@ int dia_march_occupancy(int mode, int f64, int n, int* blocks, int* bytes,
                                       chunk, stream);                         \
   }                                                                           \
   int dia_apply_##SFX(const T* x, const T* vA, T* out, int64_t nt, int64_t m, \
-                      const DiaOffsets* o, void* stream) {                    \
-    return launch_apply<T>(x, vA, out, nt, m, o, stream);                     \
+                      const DiaOffsets* o, int chunk, void* stream) {         \
+    return launch_march<T, kApply>(x, nullptr, vA, nullptr, nullptr, nullptr, \
+                                   nullptr, nullptr, nullptr, nullptr,        \
+                                   nullptr, nullptr, out, nt, m, o, 0, 0.0,   \
+                                   0.0, chunk, stream);                       \
   }
 
 DIA_ENTRY_POINTS(float, f32)

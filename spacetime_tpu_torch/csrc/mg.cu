@@ -42,9 +42,11 @@
 // diagonal is per node, 1/D[p] = 1/(W[kc][p] + ω_t·c_M) (0 where the
 // denominator is ≤ 0, `_inv_diag_var`, mg_pallas.py:842).
 //
-//   mg_smooth_var     (K10, replaces _smooth_var_call, :856): the sweep
-//                with Op_w and the per-node diagonal, from x or from 0.
-//                2-D and 3-D.
+//   mg_smooth_var     (K10, replaces _smooth_var_call, :856): one step of
+//                the sweep with Op_w and the per-node diagonal (the first
+//                from x or from 0, or a later one), r and d in device
+//                memory; the wrapper launches it ν times. 2-D and 3-D; it
+//                marches in time as K11 does.
 //   mg_residual_var   (K11, replaces _residual_var_call, :956):
 //                b − Op_w x. 2-D and 3-D; it marches in time.
 //   mg_apply_var      (K12, replaces _apply_var_call, :1020): A_w x. 2-D
@@ -89,22 +91,21 @@
 //   mg_sh_prolong_correct (K9 with lead=(own, hc), :1913): x + P e_c on
 //                the own planes, e_c with hc halo planes.
 //
-// The chained sweeps, for ν above what the tiled K3/K10 hold (ν ≤ 8 in
-// 2-D, ν ≤ 3 in 3-D; MAX_NU in ops/mg_kernels.py):
+// The chained sweep, for ν above what the tiled K3 holds (ν ≤ 8 in 2-D,
+// ν ≤ 3 in 3-D; MAX_NU in ops/mg_kernels.py):
 //
 //   mg_cheb_step     (K3's chain): one step of the recurrence in device
 //                memory, Op applied to d, r, d and x updated; the wrapper
 //                launches it ν times (the first from b and x or 0). 2-D
 //                and 3-D.
-//   mg_cheb_step_var (K10's chain): the same with Op_w and the per-node
-//                diagonal. 2-D and 3-D.
 //
 // One step per launch rather than sweeps of ≤ MAX_NU steps carrying (x, r,
 // d, ρ) across launches: a tiled sweep that starts from a stored r and d
 // needs two more window buffers, which the 3-D f64 brick has no room for
 // (three buffers take 174.6 KB at ν = 3), and each chained launch would
 // still recompute its halo. The step kernel is one thread per point like
-// K8; a step reads d (its taps), r and x and writes r, d and x.
+// K8; a step reads d (its taps), r and x and writes r, d and x. K10 runs
+// every sweep as such steps, each a launch of the weighted time march.
 //
 // What bounds them: memory traffic and instruction count, not arithmetic.
 // A sweep applies Op ν times (7 taps in 2-D, 15 in 3-D) to data that is
@@ -143,7 +144,7 @@
 //   once a block: no runtime loop over groups or taps, no bounds test and
 //   one load of x a point (1.2 in 3-D), where a thread a point issued
 //   them at every tap and was bound by instructions (PERF.md).
-// - K3 and K10 (2-D and 3-D): one block of 256 threads owns a brick of
+// - K3 (2-D and 3-D): one block of 256 threads owns a brick of
 //   one time row (blockIdx.z = row): 32 × 32 in 2-D, 8 × 8 × 32 (z, y, x)
 //   in 3-D. It loads the brick and a halo into shared memory and runs the
 //   recurrence there, each Op application shrinking the valid halo by one
@@ -226,13 +227,14 @@
 //   function each (`restrict_at`, `prolong_at`) that K8, K9 and the fused
 //   stages share; the Pallas kernels' banded 0/1 matrices on the MXU
 //   (`_dot_last`, :1253) are a TPU device and are not ported.
-// - K11 and K12 march in time (`mg_var_stencil_kernel`, one template;
-//   K12 without b and the mass): W has no time axis, so a block owns a
+// - K10, K11 and K12 march in time (`mg_var_stencil_kernel`, one
+//   template, `VarMode` the kernel and the step; K12 without b and the
+//   mass): W has no time axis, so a block owns a
 //   spatial tile, loads its points' weights once and walks a chunk of
 //   consecutive time rows with them on chip. The tile is K1's
 //   (csrc/kron.cu): in 2-D a few rows of y by a segment of the row (K12
-//   the whole row up to 574 columns, K11 segments of up to 254 at more
-//   blocks an SM; `var_seg`, `var_pencil`), in 3-D 2 planes of z by
+//   the whole row up to 574 columns, K11 and K10 segments of up to 254
+//   at more blocks an SM; `var_seg`, `var_pencil`), in 3-D 2 planes of z by
 //   8 × 32; each thread loads one window column
 //   (the tile grown by one on every side) along the pencil a row ahead in
 //   registers, 0 past the grid, into one of two alternating shared
@@ -245,37 +247,47 @@
 //   memory, the tap loops unrolled and the mass's groups ended by a mask
 //   (`row_many`'s form); b is loaded a row ahead and ω once a row. The
 //   chunk is the wrapper's (`ops/mg_kernels.py` `var_stencil_chunk`).
+//   K10 is a sweep of ν such launches, as K16's in csrc/dia.cu: the first
+//   step from x (the window holds x; r = D⁻¹(b − Op_w x), d = r/θ, x_out
+//   = x + d), the first from 0 (no window and no Op: r = D⁻¹b, d = r/θ,
+//   x_out = d) and a later step (the window holds d_in; r −= D⁻¹ Op_w
+//   d_in, d_out = c1·d_in + c2/δ·r, x_out += d_out), r and d ping-ponging
+//   in device memory, the last step writing x_out alone. A step holds its
+//   points' W[kc] beside the weights for 1/D and loads b (r and x_out) a
+//   row ahead. It is the chained one-step kernel's recurrence (`cheb_
+//   step_at`), bit for bit, at every ν. The brick it replaced recomputed
+//   a halo of ν at each of its ν stages behind a barrier a stage and
+//   read W through the L1 at each Op of each row (from HBM at 127³); the
+//   chain above the brick's ν ran one thread a point with a runtime tap
+//   loop (PERF.md §6).
 //   The one-thread-a-point form before it re-read each point's weights at
 //   every time row (942 MB from the L2 at 129×511², f32; at 127³ W, 123
 //   MB, left the L2 and came from HBM a row at a time) behind a runtime
 //   tap loop with a bounds test a tap; it took 5–10× the bytes' bound
 //   (PERF.md §6).
 // - The other weighted kernels are the same designs with the operator
-//   swapped (K10 as K3, K13 as K8, K14/K15 as K6/K7). W has no
+//   swapped (K13 as K8, K14/K15 as K6/K7). W has no
 //   time axis: every row of a level reads the same (ntaps, *gs) field,
 //   7.3 MB in f32 at 511² and 15.0 MB at 63³, which the 50 MB L2 holds, so
 //   the kernels read it through the read-only path (__ldg) at each Op
 //   evaluation rather than staging it. Where W does not fit in the L2 (123
-//   MB in f32 at 127³), K10, K13 and the 3-D K14/K15 take the row as the
-//   fastest-varying block index (`rows_first`): the rows of one brick
-//   (K10) or chunk of points (K13) then run back to back and share its
-//   part of W there (the 3-D K14/K15: the rows of one tile and chunk).
-//   Where W fits, the rows go slowest, as in the other kernels: that order
-//   was 7–20% faster for K10 and the one-thread-a-point K12 at 63³ and
-//   511² on the H100
+//   MB in f32 at 127³), K13 and the 3-D K14/K15 take the row as the
+//   fastest-varying block index (`rows_first`): the rows of one chunk of
+//   points (K13) then run back to back and share its part of W there (the
+//   3-D K14/K15: the rows of one tile and chunk). Where W fits, the rows
+//   go slowest, as in the other kernels: that order was 7–20% faster for
+//   the brick K10 and the one-thread-a-point K12 at 63³ and 511² on the
+//   H100
 //   (PERF.md). The 2-D K14/K15 keep the time row slowest at every size: no
 //   2-D level of the solves comes near the L2 (W at 511² is 7.3 MB). On a
 //   level whose W exceeded it (a 2-D grid past ~1,370² in f32) each wave
 //   of resident blocks, the chunks of a few time rows, would read the
 //   whole of W from HBM again: up to 7 values a point for every such wave
 //   (28 bytes in f32, against the 12 that x, b and r_c move), where the
-//   row-first order shares a chunk's W across the time rows. The 2-D K10
-//   keeps 1/D in a fourth
-//   shared buffer beside X, D and R, computed once per window; the 3-D
-//   K10 and the 3-D K14/K15 recompute it from W[kc] at each use, since
-//   four f64 buffers of an 8 × 8 × 32 brick at ν = 3 (238 KB) exceed the
-//   227 KB a block may take; the 2-D K14/K15 carry it (above). Their
-//   bound is their constant twin's bytes plus one read of W.
+//   row-first order shares a chunk's W across the time rows. The 3-D
+//   K14/K15 recompute 1/D from W[kc] at each use; the 2-D K14/K15 carry
+//   it (above). Their bound is their constant twin's bytes plus one read
+//   of W.
 //
 // Sum order is the plain PyTorch twin's (spacetime_tpu_torch/ops/
 // mg_kernels.py): taps in table order within a group, one multiply per
@@ -299,6 +311,23 @@ constexpr int kMaxPairTaps = 32;
 #define VAR_MADD(a, b, c) fma((a), (b), (c))
 #else
 #define VAR_MADD(a, b, c) ((c) + (a) * (b))
+#endif
+
+// a + b rounded once and never contracted with a product that feeds it
+// (where the chained K10 step stored that product, nvcc kept the two
+// roundings; the time march's last step stores it not).
+#ifdef __CUDA_ARCH__
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+#else
+template <typename T>
+__host__ __device__ inline T add_rn(T a, T b) {
+  return a + b;
+}
 #endif
 
 // (wA, wM) pair groups of two stencils on one grid: group g holds taps
@@ -417,10 +446,11 @@ struct Window {
   int volume;  // points in the window
 };
 
-// The window of x brick bx and (z brick, y brick) pair byz.
+// The window of the block's brick: blockIdx.x walks the x bricks,
+// blockIdx.y the (z brick, y brick) pairs.
 template <int DIM>
-__device__ __forceinline__ Window make_window(const Grid& g, int H, int bx,
-                                              int byz) {
+__device__ __forceinline__ Window make_window(const Grid& g, int H) {
+  const int bx = int(blockIdx.x), byz = int(blockIdx.y);
   using B = BrickOf<DIM>;
   const int hz = DIM == 3 ? H : 0;
   const int nyb = (g.ny + B::y - 1) / B::y;
@@ -430,16 +460,6 @@ __device__ __forceinline__ Window make_window(const Grid& g, int H, int bx,
   const int sz = sy * (B::y + 2 * H);
   return Window{g,  zb * B::z - hz, yb * B::y - H, bx * B::x - H, H,
                 sy, sz,             sz * (B::z + 2 * hz)};
-}
-
-// blockIdx.x walks the x bricks, blockIdx.y the (z brick, y brick) pairs;
-// with rows_first, blockIdx.y and blockIdx.z do (`bricks_for`).
-template <int DIM>
-__device__ __forceinline__ Window make_window(const Grid& g, int H,
-                                              bool rows_first = false) {
-  return rows_first
-             ? make_window<DIM>(g, H, int(blockIdx.y), int(blockIdx.z))
-             : make_window<DIM>(g, H, int(blockIdx.x), int(blockIdx.y));
 }
 
 // f(offset, grid z, grid y, grid x, index in the row, inside the grid) for
@@ -590,6 +610,15 @@ __device__ __forceinline__ T var_inv_diag_of(const VarTaps& vt, T om, T w) {
   return den > T(0) ? T(1) / den : T(0);
 }
 
+// The same with its multiply-add written out (`VAR_MADD`), as nvcc
+// contracted it in the chained K10 step: the time march computes it for
+// several points of a row at once, where the product c_M·ω may be shared.
+template <typename T>
+__device__ __forceinline__ T var_inv_diag_madd(const VarTaps& vt, T om, T w) {
+  const T den = VAR_MADD(T(vt.cm), om, w);
+  return den > T(0) ? T(1) / den : T(0);
+}
+
 // The same at in-row index gi.
 template <typename T>
 __device__ __forceinline__ T var_inv_diag_at(const VarTaps& vt,
@@ -600,8 +629,8 @@ __device__ __forceinline__ T var_inv_diag_at(const VarTaps& vt,
 
 // VarOp: Op_w = A_w + ω·M. atoff / mtoff are the A taps' and the M taps'
 // window offsets, wm the M group weights (shared memory), W the level's
-// weights (device memory, tap k at W + k·S), iD the per-node 1/D over the
-// window (shared memory), or null to recompute it from W at each use.
+// weights (device memory, tap k at W + k·S); the per-node 1/D is
+// recomputed from W[kc] at each use (`inv_diag`).
 template <typename T>
 struct VarOp {
   const VarTaps& vt;
@@ -612,16 +641,10 @@ struct VarOp {
   const T* wm;
   const int* atoff;
   const int* mtoff;
-  const T* iD;
   // the 2-D marches' (`row_many`): the mass taps where a group ends (bit
   // k), and that group's weight at each such tap
   unsigned mends = 0;
   const T* mwend = nullptr;
-  __device__ __forceinline__ T operator()(const T* buf, int o, int gi) const {
-    T out[1];
-    many<1>(buf, {o}, {gi}, out);
-    return out[0];
-  }
   // Op_w at N points at once (offsets o, in-row indices gi; each inside
   // the window and the row), as ConstOp::many: the A taps in weight-array
   // order, the mass's groups as ConstOp's, then a + ω·m.
@@ -712,8 +735,8 @@ struct VarOp {
 #pragma unroll
     for (int j = 0; j < N; ++j) out[j] = a[j] + om * m[j];
   }
-  __device__ __forceinline__ T inv_diag(int o, int gi) const {
-    return iD != nullptr ? iD[o] : var_inv_diag_at(vt, W, S, om, gi);
+  __device__ __forceinline__ T inv_diag(int, int gi) const {
+    return var_inv_diag_at(vt, W, S, om, gi);
   }
   __device__ __forceinline__ T diag_at(int gi) const {
     return __ldg(W + int64_t(vt.kc) * S + gi);
@@ -756,19 +779,6 @@ __device__ __forceinline__ void var_tables(const VarTaps& vt,
     mtoff[k] = pm.dz[k] * win.sz + pm.dy[k] * win.sy + pm.dx[k];
   }
   __syncthreads();
-}
-
-// The per-node 1/D of the weighted operator over the whole window: 0
-// outside the grid and where W[kc] + ω·cm ≤ 0. Needs a __syncthreads()
-// before it is read.
-template <int DIM, typename T>
-__device__ __forceinline__ void var_inv_diag(const VarTaps& vt,
-                                             const T* __restrict__ W, int S,
-                                             T om, const Window& win,
-                                             T* iD) {
-  for_region<DIM>(win, win.H, [&](int o, int, int, int, int gi, bool in) {
-    iD[o] = in ? var_inv_diag_at(vt, W, S, om, gi) : T(0);
-  });
 }
 
 // The validity factor of a sharded slab's sweep at in-row index g: vm[g],
@@ -872,48 +882,6 @@ __global__ void __launch_bounds__(kThreads)
   row_tables(pg, c.om, win, wts, toff);
   cheb_sweep<DIM>(ConstOp<T>{pg, wts, toff, invD[t]}, c, b + t * S, win, X,
                   D, R, nu, zero_init != 0, zero_init ? H : H - 1, vm);
-  T* ot = out + t * S;
-  for_region<DIM>(win, 0, [&](int o, int, int, int, int gi, bool in) {
-    if (in) ot[gi] = X[o];
-  });
-}
-
-// K10: K3 with Op_w. 1/D is a fourth window buffer in 2-D and recomputed
-// from W in 3-D (see the header). With rows_first, blockIdx.x is the row,
-// blockIdx.y the x brick and blockIdx.z the (z brick, y brick) pair
-// (`bricks_for`).
-template <int DIM, typename T>
-__global__ void __launch_bounds__(kThreads)
-    mg_smooth_var_kernel(const T* __restrict__ x, const T* __restrict__ b,
-                         const T* __restrict__ W, const T* __restrict__ omega,
-                         const T* __restrict__ invT,
-                         const T* __restrict__ invDel, T* __restrict__ out,
-                         Grid g, const __grid_constant__ VarTaps vt,
-                         const __grid_constant__ PairGroups pm, int nu,
-                         int zero_init, int rows_first) {
-  __shared__ T wm[kMaxPairGroups];
-  __shared__ int atoff[kMaxVarTaps];
-  __shared__ int mtoff[kMaxPairTaps];
-  const int64_t t = rows_first ? blockIdx.x : blockIdx.z;
-  const int S = int(row_size(g));
-  const RowCoef<T> c = row_coef(omega, invT, invDel, t);
-  const int H = zero_init ? nu - 1 : nu;
-  const Window win = make_window<DIM>(g, H, rows_first != 0);
-  T* X = window_buffers<T>();
-  T* D = X + win.volume;
-  T* R = D + win.volume;
-  T* iD = DIM == 2 ? R + win.volume : nullptr;
-  if (!zero_init) {
-    const T* xt = x + t * S;
-    for_region<DIM>(win, H, [&](int o, int, int, int, int gi, bool in) {
-      X[o] = in ? xt[gi] : T(0);
-    });
-  }
-  if constexpr (DIM == 2) var_inv_diag<2>(vt, W, S, c.om, win, iD);
-  var_tables(vt, pm, win, wm, atoff, mtoff);
-  cheb_sweep<DIM>(VarOp<T>{vt, pm, W, S, c.om, wm, atoff, mtoff, iD}, c,
-                  b + t * S, win, X, D, R, nu, zero_init != 0,
-                  zero_init ? H : H - 1);
   T* ot = out + t * S;
   for_region<DIM>(win, 0, [&](int o, int, int, int, int gi, bool in) {
     if (in) ot[gi] = X[o];
@@ -1413,7 +1381,7 @@ __global__ void __launch_bounds__(kThreads,
       rco + t * row_size(coarse_grid<3>(g, ld)));
 }
 
-// The 3-D K14: 1/D recomputed from W at each use, as in K10.
+// The 3-D K14: 1/D recomputed from W at each use (`VarOp::inv_diag`).
 template <int NU, typename T>
 __global__ void __launch_bounds__(kThreads,
                                   march_min_blocks<T>(true, false))
@@ -1440,7 +1408,7 @@ __global__ void __launch_bounds__(kThreads,
   march_fused_pre<NU>(
       [&](int r) {
         return VarOp<T>{vt, pm, W, S, c.om, wm, atoff + r * kMaxVarTaps,
-                        mtoff + r * kMaxPairTaps, nullptr};
+                        mtoff + r * kMaxPairTaps};
       },
       c, b + t * S, static_cast<const T*>(nullptr), g, ld,
       march_chunk(g, ld, chunk, rows_first != 0), xo + t * S,
@@ -1707,7 +1675,7 @@ __global__ void __launch_bounds__(kThreads,
   march_fused_post<NU>(
       [&](int r) {
         return VarOp<T>{vt, pm, W, S, c.om, wm, atoff + r * kMaxVarTaps,
-                        mtoff + r * kMaxPairTaps, nullptr};
+                        mtoff + r * kMaxPairTaps};
       },
       c, x + t * S, ec + t * row_size(coarse_grid<3>(g)), b + t * S,
       static_cast<const T*>(nullptr), g, ld,
@@ -2347,8 +2315,7 @@ __global__ void __launch_bounds__(march2_threads<T>(),
       [&](int r) {
         return VarOp<T>{vt, pm, W, S, c.om, nullptr,
                         tb.atoff + r * kMaxVarTaps,
-                        tb.mtoff + r * kMaxPairTaps, nullptr, mends,
-                        tb.mwend};
+                        tb.mtoff + r * kMaxPairTaps, mends, tb.mwend};
       },
       c, b + t * S, static_cast<const T*>(nullptr), g, ld,
       row_pre_chunk(g, ld, chunk, rp, NU + 1), rp.wrow, xo + t * S,
@@ -2380,8 +2347,7 @@ __global__ void __launch_bounds__(march2_threads<T>(),
       [&](int r) {
         return VarOp<T>{vt, pm, W, S, c.om, nullptr,
                         tb.atoff + r * kMaxVarTaps,
-                        tb.mtoff + r * kMaxPairTaps, nullptr, mends,
-                        tb.mwend};
+                        tb.mtoff + r * kMaxPairTaps, mends, tb.mwend};
       },
       c, x + t * S, ec + t * row_size(coarse_grid<2>(g)), b + t * S,
       static_cast<const T*>(nullptr), g, ld, row_post_chunk(g, chunk, rp, NU),
@@ -2668,46 +2634,64 @@ __device__ __forceinline__ T var_op_global(const VarTaps& vt,
   return a + om * mass_global<DIM>(pm, X, g, z, y, x);
 }
 
-// K11 and K12 march in time (`mg_var_stencil_kernel`, see the header). A
-// block owns a spatial tile and its window, the tile grown by one on every
-// side: in 2-D var_pencil rows of y by a segment of the row (the whole row
-// up to var_seg columns, wider rows in balanced segments), in 3-D
-// var_pencil planes of z by a kVarTileY × kVarTileX (y, x) tile.
+// K10, K11 and K12 march in time (`mg_var_stencil_kernel`, see the
+// header). A block owns a spatial tile and its window, the tile grown by
+// one on every side: in 2-D var_pencil rows of y by a segment of the row
+// (the whole row up to var_seg columns, wider rows in balanced segments),
+// in 3-D var_pencil planes of z by a kVarTileY × kVarTileX (y, x) tile.
 constexpr int kVarTileY = 8, kVarTileX = 32;
 
+// What a launch of the march computes (`MODE`): K12 (A_w x), K11 (b −
+// Op_w x), and the steps of K10's sweep: the first from x, the first from
+// x = 0 (no Op), a later one (Op_w applied to d), and the first two from
+// x = 0 in one launch (ν ≥ 2: the window holds the first step's d =
+// D⁻¹b/θ, made from b as it is stored).
+enum VarMode {
+  kVarApply = 0,
+  kVarResidual = 1,
+  kVarFirst = 2,
+  kVarFirstZero = 3,
+  kVarStep = 4,
+  kVarFirstTwo = 5
+};
+
 // The plan of each kernel, by timing on the H100 (PERF.md §6,
-// `tools.var_tune`): the widest 2-D segment (K11 254 columns, K12 574),
-// the points a block owns along the pencil axis (y in 2-D, z in 3-D) and
-// the blocks an SM must hold (the register cap). K11 holds b and the
-// mass's sums beside the weights, and ran fastest on narrow segments at
-// three or more blocks an SM: in 2-D 4 rows in float32, 2 in float64.
-// K12 ran fastest on whole rows: 4 rows at two blocks an SM (float64
-// one). In 3-D both take 2 planes at two blocks (the shared tile of 15
-// weights a point and x's buffers: 41.6 KB in float32, 83.2 KB in
-// float64).
-template <bool RES>
+// `tools.var_tune`): the widest 2-D segment (K11 and K10 254 columns,
+// K12 574), the points a block owns along the pencil axis (y in 2-D, z in
+// 3-D) and the blocks an SM must hold (the register cap). K11 holds b and
+// the mass's sums beside the weights, and ran fastest on narrow segments
+// at three or more blocks an SM: in 2-D 4 rows in float32, 2 in float64.
+// K10's steps take K11's tiles; they hold a point's 1/D and a second own
+// field (x_out) beside b or r, and take two blocks an SM in 2-D. K12 ran
+// fastest on whole rows: 4 rows at two blocks an SM (float64 one). In
+// 3-D all take 2 planes at two blocks (the shared tile of 15 weights a
+// point and x's buffers: 41.6 KB in float32, 83.2 KB in float64).
+template <int MODE>
 __host__ __device__ constexpr int var_seg() {
-  return RES ? 254 : 574;
+  return MODE == kVarApply ? 574 : 254;
 }
-template <int DIM, typename T, bool RES>
+template <int DIM, typename T, int MODE>
 __host__ __device__ constexpr int var_pencil() {
-  return DIM == 3 || (RES && sizeof(T) == 8) ? 2 : 4;
+  return DIM == 3 || (MODE != kVarApply && sizeof(T) == 8) ? 2 : 4;
 }
-template <int DIM, typename T, bool RES>
+constexpr int kVarStepBlocks = 2;  // K10's steps in 2-D
+template <int DIM, typename T, int MODE>
 __host__ __device__ constexpr int var_min_blocks() {
-  return DIM == 3 ? 2 : RES ? 3 : (sizeof(T) == 4 ? 2 : 1);
+  if (DIM == 3) return 2;
+  if (MODE == kVarApply) return sizeof(T) == 4 ? 2 : 1;
+  return MODE == kVarResidual ? 3 : kVarStepBlocks;
 }
 // The window's stride along the pencil, a constant, so that a column's
 // points lie at immediate offsets: the widest 2-D window row, the 3-D
 // window plane.
-template <int DIM, bool RES>
+template <int DIM, int MODE>
 __host__ __device__ constexpr int var_stride() {
-  return DIM == 2 ? var_seg<RES>() + 2 : (kVarTileY + 2) * (kVarTileX + 2);
+  return DIM == 2 ? var_seg<MODE>() + 2 : (kVarTileY + 2) * (kVarTileX + 2);
 }
 // The threads a block takes at most: one per window column.
-template <int DIM, bool RES>
+template <int DIM, int MODE>
 __host__ __device__ constexpr int var_max_threads() {
-  return (var_stride<DIM, RES>() + 31) / 32 * 32;
+  return (var_stride<DIM, MODE>() + 31) / 32 * 32;
 }
 // The most A taps (and mass taps) of a table the march takes: the ±1
 // neighbourhood in 2-D, the 15 of the Kuhn simplices' stencils in 3-D
@@ -2725,12 +2709,12 @@ struct VarPlan {
   int ix, iy, wx, wyx, xt, yt, np, pstride, pt, threads;
 };
 
-template <int DIM, typename T, bool RES>
+template <int DIM, typename T, int MODE>
 __host__ __device__ __forceinline__ VarPlan var_plan(const Grid& g) {
-  constexpr int P = var_pencil<DIM, T, RES>();
+  constexpr int P = var_pencil<DIM, T, MODE>();
   VarPlan p{};
   if constexpr (DIM == 2) {
-    p.xt = (g.nx + var_seg<RES>() - 1) / var_seg<RES>();
+    p.xt = (g.nx + var_seg<MODE>() - 1) / var_seg<MODE>();
     p.ix = (g.nx + p.xt - 1) / p.xt;  // balanced; the last takes the rest
     p.iy = 1;
     p.wx = p.ix + 2;
@@ -2813,38 +2797,72 @@ __device__ __forceinline__ void var_load_col(const T* __restrict__ row,
 }
 
 // The values of one time row at a column's owned points (`row`: its first
-// value), 0 past the grid.
-template <int P, typename T>
+// value), 0 past the grid; through the read-only path (NC) or, for a field
+// the launch writes back in place, plain loads.
+template <int P, bool NC = true, typename T>
 __device__ __forceinline__ void var_load_own(const T* __restrict__ row,
                                              const VarCol& c,
                                              const VarPlan& pl, T (&v)[P]) {
 #pragma unroll
   for (int j = 0; j < P; ++j) {
-    v[j] = c.own && j < c.kown ? __ldg(row + c.obase + j * pl.pstride)
-                               : T(0);
+    const T* p = row + c.obase + j * pl.pstride;
+    v[j] = c.own && j < c.kown ? (NC ? __ldg(p) : *p) : T(0);
   }
 }
 
-// K11 (RES: out = b − (A_w x + ω·M x)) and K12 (out = A_w x) on the tile
-// of blockIdx (x: plane tile, y: pencil) for the time rows [t0, t1) of
-// chunk blockIdx.z. The weights of the tile's points are loaded once: in
-// registers (REG, at most kVarRowTaps taps) or in a shared tile [tap][pencil
-// point][column] after x's buffers, each thread's column its own. Sums as
-// `var_apply_global` and `mass_global`: the A taps in weight-array order,
-// the mass's groups in order, each group's sum times its weight, then a +
-// ω·m; a tap past the grid reads the window's 0, which changes no sum
-// (w·0 added to a sum that is never −0), where those kernels skipped it.
-template <int DIM, typename T, bool RES, bool REG>
-__global__ void __launch_bounds__(var_max_threads<DIM, RES>(),
-                                  var_min_blocks<DIM, T, RES>())
+// The Chebyshev step's fields and scalars of a K10 launch (the chained
+// form of the sweep, `cheb_step_at`'s): the columns 1/θ and 1/δ, r (read
+// and written in place by a later step), d_in (the field Op reads in a
+// later step) and d_out, `last` (the sweep's last step writes x_out
+// alone) and the recurrence's c1, c2. K11 and K12 pass none.
+template <typename T>
+struct VarSweep {
+  const T* invT;
+  const T* invDel;
+  T* r;
+  const T* d_in;
+  T* d_out;
+  int last;
+  double c1, c2;
+};
+
+// K12 (kVarApply: out = A_w x), K11 (kVarResidual: out = b − (A_w x + ω·M
+// x)) and the steps of K10 (`MODE`, with `sw`) on the tile of blockIdx (x:
+// plane tile, y: pencil) for the time rows [t0, t1) of chunk blockIdx.z.
+// The weights of the tile's points are loaded once: in registers (REG, at
+// most kVarRowTaps taps) or in a shared tile [tap][pencil point][column]
+// after the field's buffers, each thread's column its own; K10's steps
+// also hold W[kc] (its 1/D) in registers (the first two from 0 along the
+// loaded window column too), and the first step from 0, which applies no
+// Op, holds that alone. Sums as `var_apply_global` and
+// `mass_global`: the A taps in weight-array order, the mass's groups in
+// order, each group's sum times its weight, then a + ω·m; a tap past the
+// grid reads the window's 0, which changes no sum (w·0 added to a sum that
+// is never −0), where those kernels skipped it. A step's recurrence is
+// `cheb_step_at`'s, its scalars rounded as there (T(c1), T(c2)·1/δ), and
+// the contractions nvcc made in the chained step written out: 1/D's
+// denominator W[kc] + c_M·ω (`var_inv_diag_madd`), r − D⁻¹·Op d and
+// (c2/δ)·r + c1·d_in one fma each (c1·d_in rounded first), x + r/θ two
+// roundings (`add_rn`). The window of a later step holds d_in, the first
+// from x's x and the first two from 0's the first step's d, and each
+// reads its point's own value there.
+template <int DIM, typename T, int MODE, bool REG>
+__global__ void __launch_bounds__(var_max_threads<DIM, MODE>(),
+                                  var_min_blocks<DIM, T, MODE>())
     mg_var_stencil_kernel(const T* __restrict__ x, const T* __restrict__ b,
                           const T* __restrict__ W,
                           const T* __restrict__ omega, T* __restrict__ out,
                           int nt, Grid g, VarPlan pl, int chunk,
                           const __grid_constant__ VarTaps vt,
-                          const __grid_constant__ PairGroups pm) {
-  constexpr int P = var_pencil<DIM, T, RES>(), WP = P + 2;
-  constexpr int ST = var_stride<DIM, RES>();
+                          const __grid_constant__ PairGroups pm,
+                          VarSweep<T> sw) {
+  constexpr bool kOp = MODE != kVarFirstZero;        // applies A_w
+  constexpr bool kMass = kOp && MODE != kVarApply;    // and ω·M
+  constexpr bool kSweep = MODE >= kVarFirst;          // a step of K10
+  constexpr bool kOwn = MODE != kVarApply;            // b (or r) at a point
+  constexpr bool kTwo = MODE == kVarFirstTwo;         // the window: D⁻¹b/θ
+  constexpr int P = var_pencil<DIM, T, MODE>(), WP = P + 2;
+  constexpr int ST = var_stride<DIM, MODE>();
   constexpr int KA = REG ? kVarRowTaps : var_taps<DIM>();
   constexpr int KM = var_taps<DIM>();
   T* const xs = window_buffers<T>();  // 2 × WP × ST, then the shared tile
@@ -2856,11 +2874,13 @@ __global__ void __launch_bounds__(var_max_threads<DIM, RES>(),
   auto window_offset = [&](int dz, int dy, int dx) {
     return DIM == 2 ? dy * ST + dx : dz * ST + dy * pl.wx + dx;
   };
-  for (int k = threadIdx.x; k < na; k += blockDim.x) {
-    atoff[k] = window_offset(vt.dz[k], vt.dy[k], vt.dx[k]);
-  }
   unsigned mends = 0;
-  if constexpr (RES) {
+  if constexpr (kOp) {
+    for (int k = threadIdx.x; k < na; k += blockDim.x) {
+      atoff[k] = window_offset(vt.dz[k], vt.dy[k], vt.dx[k]);
+    }
+  }
+  if constexpr (kMass) {
     for (int k = threadIdx.x; k < pm.start[pm.n_groups]; k += blockDim.x) {
       mtoff[k] = window_offset(pm.dz[k], pm.dy[k], pm.dx[k]);
     }
@@ -2871,7 +2891,7 @@ __global__ void __launch_bounds__(var_max_threads<DIM, RES>(),
   const int nc = pl.iy * pl.ix;  // the shared tile's stride
   T* const ws = xs + 2 * WP * ST + c.t;
   T w[REG ? KA : 1][P];
-  if constexpr (REG) {
+  if constexpr (kOp && REG) {
 #pragma unroll
     for (int k = 0; k < KA; ++k) {
       if (k < na) {
@@ -2881,7 +2901,7 @@ __global__ void __launch_bounds__(var_max_threads<DIM, RES>(),
         for (int j = 0; j < P; ++j) w[k][j] = T(0);
       }
     }
-  } else if (c.own) {
+  } else if (kOp && c.own) {
     for (int k = 0; k < na; ++k) {
       T v[P];
       var_load_own<P>(W + int64_t(k) * S, c, pl, v);
@@ -2889,52 +2909,81 @@ __global__ void __launch_bounds__(var_max_threads<DIM, RES>(),
       for (int j = 0; j < P; ++j) ws[(k * P + j) * nc] = v[j];
     }
   }
+  T wc[kSweep ? P : 1];  // W[kc], the Jacobi diagonal's weight
+  if constexpr (kSweep) var_load_own<P>(W + int64_t(vt.kc) * S, c, pl, wc);
+  T wcol[kTwo ? WP : 1];  // W[kc] along the loaded window column
+  if constexpr (kTwo) var_load_col<WP>(W + int64_t(vt.kc) * S, c, pl, wcol);
   const int t0 = int(blockIdx.z) * chunk, t1 = min(t0 + chunk, nt);
   int o[P];
 #pragma unroll
   for (int j = 0; j < P; ++j) o[j] = (1 + j) * ST + c.oc;
-  T u[WP], bv[RES ? P : 1];  // x's column and b at the owned points
-  var_load_col<WP>(x + int64_t(t0) * S, c, pl, u);
-  if constexpr (RES) var_load_own<P>(b + int64_t(t0) * S, c, pl, bv);
+  // the field Op reads: x, or d_in in a later step; b in the first two
+  // steps from 0 (their window holds the first step's d, made from it)
+  const T* const y = MODE == kVarStep ? sw.d_in : kTwo ? b : x;
+  // the row's own fields at the column's points: b, or r and x_out in a
+  // later step (written back in place: plain loads)
+  auto load_own = [&](int t, T(&p0)[P], T(&p1)[P]) {
+    if constexpr (MODE == kVarStep) {
+      var_load_own<P, false>(sw.r + int64_t(t) * S, c, pl, p0);
+      var_load_own<P, false>(out + int64_t(t) * S, c, pl, p1);
+    } else if constexpr (kOwn) {
+      var_load_own<P>(b + int64_t(t) * S, c, pl, p0);
+    }
+  };
+  T u[kOp ? WP : 1];  // the window column of y
+  T p0[P], p1[P];     // the own fields
+  if constexpr (kOp) var_load_col<WP>(y + int64_t(t0) * S, c, pl, u);
+  load_own(t0, p0, p1);
   for (int t = t0; t < t1; ++t) {
     T* const buf = xs + ((t - t0) & 1) * WP * ST;
-    if (c.t < pl.wyx) {
+    if constexpr (kTwo) {  // the first step's d = (D⁻¹·b)·(1/θ)
+      const T om = omega[t], iT = sw.invT[t];
+      if (c.t < pl.wyx) {
 #pragma unroll
-      for (int k = 0; k < WP; ++k) buf[k * ST + c.t] = u[k];
+        for (int k = 0; k < WP; ++k) {
+          buf[k * ST + c.t] = var_inv_diag_madd(vt, om, wcol[k]) * u[k] * iT;
+        }
+      }
+    } else if constexpr (kOp) {
+      if (c.t < pl.wyx) {
+#pragma unroll
+        for (int k = 0; k < WP; ++k) buf[k * ST + c.t] = u[k];
+      }
     }
-    // the next row's x and b, in flight across the barrier and the sums
-    T bn[RES ? P : 1];
+    // the next row's window and own fields, in flight across the barrier
+    // and the sums
+    T n0[P], n1[P];
     if (t + 1 < t1) {
-      var_load_col<WP>(x + int64_t(t + 1) * S, c, pl, u);
-      if constexpr (RES) var_load_own<P>(b + int64_t(t + 1) * S, c, pl, bn);
+      if constexpr (kOp) var_load_col<WP>(y + int64_t(t + 1) * S, c, pl, u);
+      load_own(t + 1, n0, n1);
     }
-    __syncthreads();
+    if constexpr (kOp) __syncthreads();
     if (c.own) {
-      T a[P];
+      T a[P], m[P];
 #pragma unroll
-      for (int j = 0; j < P; ++j) a[j] = T(0);
+      for (int j = 0; j < P; ++j) a[j] = m[j] = T(0);
+      if constexpr (kOp) {
 #pragma unroll
-      for (int k = 0; k < KA; ++k) {
-        if (k < na) {
-          const T* const bk = buf + atoff[k];
+        for (int k = 0; k < KA; ++k) {
+          if (k < na) {
+            const T* const bk = buf + atoff[k];
 #pragma unroll
-          for (int j = 0; j < P; ++j) {
-            T wkj;
-            if constexpr (REG) {
-              wkj = w[k][j];
-            } else {
-              wkj = ws[(k * P + j) * nc];
+            for (int j = 0; j < P; ++j) {
+              T wkj;
+              if constexpr (REG) {
+                wkj = w[k][j];
+              } else {
+                wkj = ws[(k * P + j) * nc];
+              }
+              a[j] = VAR_MADD(wkj, bk[o[j]], a[j]);
             }
-            a[j] = VAR_MADD(wkj, bk[o[j]], a[j]);
           }
         }
       }
-      T* const orow = out + int64_t(t) * S + c.obase;
-      if constexpr (RES) {
-        const T om = omega[t];
-        T m[P], acc[P];
+      if constexpr (kMass) {
+        T acc[P];
 #pragma unroll
-        for (int j = 0; j < P; ++j) m[j] = acc[j] = T(0);
+        for (int j = 0; j < P; ++j) acc[j] = T(0);
 #pragma unroll
         for (int k = 0; k < KM; ++k) {
           if (mends >> k) {  // tap k exists: a group ends at it or after it
@@ -2951,22 +3000,60 @@ __global__ void __launch_bounds__(var_max_threads<DIM, RES>(),
             }
           }
         }
+      }
+      const int64_t base = int64_t(t) * S + c.obase;
+      const T om = kMass || kSweep ? omega[t] : T(0);
+      if constexpr (kSweep) {
+        const T iT = sw.invT[t];
+        const T c1 = T(sw.c1);
+        const T c2d = T(sw.c2) * sw.invDel[t];
 #pragma unroll
         for (int j = 0; j < P; ++j) {
           if (j < c.kown) {
-            orow[j * pl.pstride] = bv[j] - VAR_MADD(om, m[j], a[j]);
+            const T iD = var_inv_diag_madd(vt, om, wc[j]);
+            T ri, d, xo;
+            if constexpr (MODE == kVarStep) {
+              ri = VAR_MADD(-iD, VAR_MADD(om, m[j], a[j]), p0[j]);
+              d = VAR_MADD(c2d, ri, c1 * buf[o[j]]);
+              xo = p1[j] + d;
+            } else if constexpr (MODE == kVarFirst) {
+              ri = iD * (p0[j] - VAR_MADD(om, m[j], a[j]));
+              d = ri * iT;
+              xo = add_rn(buf[o[j]], d);
+            } else if constexpr (kTwo) {
+              // step 1 from 0: r = D⁻¹b, d = x = the window's value here;
+              // step 2 on them (c1, c2 its scalars)
+              const T r1 = iD * p0[j], d1 = buf[o[j]];
+              ri = VAR_MADD(-iD, VAR_MADD(om, m[j], a[j]), r1);
+              d = VAR_MADD(c2d, ri, c1 * d1);
+              xo = d1 + d;
+            } else {
+              ri = iD * p0[j];
+              d = ri * iT;
+              xo = d;
+            }
+            const int64_t q = base + j * pl.pstride;
+            if (!sw.last) {
+              sw.r[q] = ri;
+              sw.d_out[q] = d;
+            }
+            out[q] = xo;
           }
         }
       } else {
 #pragma unroll
         for (int j = 0; j < P; ++j) {
-          if (j < c.kown) orow[j * pl.pstride] = a[j];
+          if (j < c.kown) {
+            out[base + j * pl.pstride] =
+                kMass ? p0[j] - VAR_MADD(om, m[j], a[j]) : a[j];
+          }
         }
       }
     }
-    if constexpr (RES) {
 #pragma unroll
-      for (int j = 0; j < P; ++j) bv[j] = bn[j];
+    for (int j = 0; j < P; ++j) {
+      p0[j] = n0[j];
+      p1[j] = n1[j];
     }
   }
 }
@@ -3049,30 +3136,6 @@ __global__ void mg_cheb_step_kernel(
   }
 }
 
-// K10's chained sweep: the same step with Op_w and the per-node 1/D.
-template <int DIM, typename T>
-__global__ void mg_cheb_step_var_kernel(
-    const T* __restrict__ x, const T* __restrict__ b, const T* __restrict__ W,
-    const T* __restrict__ omega, const T* __restrict__ invT,
-    const T* __restrict__ invDel, T* __restrict__ r,
-    const T* __restrict__ d_in, T* __restrict__ d_out, T* __restrict__ xo,
-    int64_t nt, Grid g, const __grid_constant__ VarTaps vt,
-    const __grid_constant__ PairGroups pm, int first, double c1,
-    double c2) {
-  const int S = int(row_size(g));
-  FOR_EACH_INDEX(idx, nt * S) {
-    const Point p = point_of<DIM>(idx, g);
-    const T om = omega[p.t];
-    const int gi = int(idx - p.t * S);
-    cheb_step_at(idx, first, x, b, var_inv_diag_at(vt, W, S, om, gi),
-                 invT[p.t], invDel[p.t], T(1), r, d_in, d_out, xo, c1, c2,
-                 [&](const T* f) {
-                   return var_op_global<DIM>(vt, pm, W, om, f + p.t * S, g,
-                                             p.z, p.y, p.x);
-                 });
-  }
-}
-
 #undef FOR_EACH_INDEX
 
 int blocks_for(int64_t total) {
@@ -3089,13 +3152,6 @@ dim3 bricks(int64_t nt, const Grid& g) {
               unsigned(((g.nz + B::z - 1) / B::z) *
                        ((g.ny + B::y - 1) / B::y)),
               unsigned(nt));
-}
-
-// The same blocks with the row fastest (K10, K14, K15).
-template <int DIM>
-dim3 bricks_for(bool rows_first, int64_t nt, const Grid& g) {
-  const dim3 b = bricks<DIM>(nt, g);
-  return rows_first ? dim3(b.z, b.x, b.y) : b;
 }
 
 // Whether the weighted kernels take the row fastest: where a level's
@@ -3124,14 +3180,13 @@ int allow_smem(K kernel, size_t bytes) {
   return 0;
 }
 
-// Dynamic shared memory of a tiled kernel with halo H: nbuf buffers over
-// the window (three, four for the weighted kernels' 1/D in 2-D), its limit
-// raised (`allow_smem`).
+// Dynamic shared memory of a tiled kernel with halo H: three buffers over
+// the window, its limit raised (`allow_smem`).
 template <int DIM, typename T, typename K>
-int window_bytes(K kernel, int H, size_t* bytes, int nbuf = 3) {
+int window_bytes(K kernel, int H, size_t* bytes) {
   using B = BrickOf<DIM>;
   const size_t hz = DIM == 3 ? size_t(H) : 0;
-  *bytes = nbuf * sizeof(T) * (B::x + 2 * size_t(H)) *
+  *bytes = 3 * sizeof(T) * (B::x + 2 * size_t(H)) *
            (B::y + 2 * size_t(H)) * (B::z + 2 * hz);
   return allow_smem(kernel, *bytes);
 }
@@ -3188,23 +3243,6 @@ int launch_smooth(const T* x, const T* b, const T* vm, const T* omega,
   mg_smooth_kernel<DIM, T><<<bricks<DIM>(nt, g), kThreads, bytes,
                              as_stream(stream)>>>(
       x, b, vm, omega, invD, invT, invDel, out, g, *pg, nu, zero_init);
-  return int(cudaGetLastError());
-}
-
-template <int DIM, typename T>
-int launch_smooth_var(const T* x, const T* b, const T* W, const T* omega,
-                      const T* invT, const T* invDel, T* out, int64_t nt,
-                      Grid g, const VarTaps* vt, const PairGroups* pm, int nu,
-                      int zero_init, void* stream) {
-  size_t bytes = 0;
-  const int err = window_bytes<DIM, T>(mg_smooth_var_kernel<DIM, T>,
-                                       zero_init ? nu - 1 : nu, &bytes,
-                                       DIM == 2 ? 4 : 3);
-  if (err != 0) return err;
-  const bool rf = rows_first(vt, row_size(g), sizeof(T));
-  mg_smooth_var_kernel<DIM, T><<<bricks_for<DIM>(rf, nt, g), kThreads, bytes,
-                                 as_stream(stream)>>>(
-      x, b, W, omega, invT, invDel, out, g, *vt, *pm, nu, zero_init, rf);
   return int(cudaGetLastError());
 }
 
@@ -3515,9 +3553,9 @@ int launch_prolong_correct(const T* x, const T* ec, T* out, int64_t nt,
   return int(cudaGetLastError());
 }
 
-// Whether a weighted table suits the march of K11 and K12: 1 to
+// Whether a weighted table suits the march of K10, K11 and K12: 1 to
 // var_taps A taps, every one within one cell of its point (dz = 0 in
-// 2-D), and for K11 (pm) a mass table as `row_table_ok` takes it.
+// 2-D), and for K10 and K11 (pm) a mass table as `row_table_ok` takes it.
 bool var_stencil_table_ok(const VarTaps& vt, const PairGroups* pm, int dim) {
   const int cap = dim == 2 ? kRowTaps : kCubeTaps;
   if (vt.n_taps < 1 || vt.n_taps > cap) return false;
@@ -3531,21 +3569,27 @@ bool var_stencil_table_ok(const VarTaps& vt, const PairGroups* pm, int dim) {
   return pm == nullptr || row_table_ok(*pm, cap);
 }
 
-// The march's kernel for K11 (RES) or K12 with n A taps, as a call of
-// f(kernel, taps of its shared tile): the weights in registers up to
-// kVarRowTaps taps, else in the shared tile.
-template <int DIM, typename T, bool RES, typename F>
+// The march's kernel for `MODE` with n A taps, as a call of f(kernel,
+// taps of its shared tile): the weights in registers up to kVarRowTaps
+// taps, else in the shared tile; the first step from 0 holds W[kc] alone.
+template <int DIM, typename T, int MODE, typename F>
 int var_form(int n, F f) {
-  return n <= kVarRowTaps ? f(mg_var_stencil_kernel<DIM, T, RES, true>, 0)
-                          : f(mg_var_stencil_kernel<DIM, T, RES, false>, n);
+  if constexpr (MODE == kVarFirstZero) {
+    return f(mg_var_stencil_kernel<DIM, T, MODE, true>, 0);
+  } else {
+    return n <= kVarRowTaps ? f(mg_var_stencil_kernel<DIM, T, MODE, true>, 0)
+                            : f(mg_var_stencil_kernel<DIM, T, MODE, false>, n);
+  }
 }
 
-// Dynamic shared memory of the march: x's two window buffers and the
-// shared tile of `tile` taps (none in registers).
-template <int DIM, typename T, bool RES>
+// Dynamic shared memory of the march: the field's two window buffers and
+// the shared tile of `tile` taps (none in registers; the first step from
+// 0 takes none).
+template <int DIM, typename T, int MODE>
 size_t var_stencil_bytes(const VarPlan& pl, int tile) {
-  constexpr int P = var_pencil<DIM, T, RES>();
-  return (size_t(2 * (P + 2)) * var_stride<DIM, RES>() +
+  if (MODE == kVarFirstZero) return 0;
+  constexpr int P = var_pencil<DIM, T, MODE>();
+  return (size_t(2 * (P + 2)) * var_stride<DIM, MODE>() +
           size_t(tile) * P * pl.iy * pl.ix) *
          sizeof(T);
 }
@@ -3553,24 +3597,26 @@ size_t var_stencil_bytes(const VarPlan& pl, int tile) {
 // The mass table K12 passes (it reads none).
 constexpr PairGroups kNoPairs{};
 
-// K11 (RES) or K12: the march (chunk ≥ 1 time rows).
-template <int DIM, typename T, bool RES>
+// The march in `MODE` (chunk ≥ 1 time rows); `sw` the K10 step's.
+template <int DIM, typename T, int MODE>
 int launch_var_stencil(const T* x, const T* b, const T* W, const T* omega,
                        T* out, int64_t nt, Grid g, const VarTaps* vt,
-                       const PairGroups* pm, int chunk, void* stream) {
-  if (chunk < 1 || !var_stencil_table_ok(*vt, RES ? pm : nullptr, DIM)) {
+                       const PairGroups* pm, int chunk, void* stream,
+                       const VarSweep<T>& sw = VarSweep<T>{}) {
+  constexpr bool kMass = MODE != kVarApply;
+  if (chunk < 1 || !var_stencil_table_ok(*vt, kMass ? pm : nullptr, DIM)) {
     return int(cudaErrorInvalidValue);
   }
-  const VarPlan pl = var_plan<DIM, T, RES>(g);
-  return var_form<DIM, T, RES>(vt->n_taps, [&](auto kernel, int tile) {
-    const size_t bytes = var_stencil_bytes<DIM, T, RES>(pl, tile);
+  const VarPlan pl = var_plan<DIM, T, MODE>(g);
+  return var_form<DIM, T, MODE>(vt->n_taps, [&](auto kernel, int tile) {
+    const size_t bytes = var_stencil_bytes<DIM, T, MODE>(pl, tile);
     const int err = allow_smem(kernel, bytes);
     if (err != 0) return err;
     kernel<<<dim3(unsigned(pl.xt * pl.yt), unsigned(pl.pt),
                   unsigned((nt + chunk - 1) / chunk)),
              pl.threads, bytes, as_stream(stream)>>>(
         x, b, W, omega, out, int(nt), g, pl, chunk, *vt,
-        RES ? *pm : kNoPairs);
+        kMass ? *pm : kNoPairs, sw);
     return int(cudaGetLastError());
   });
 }
@@ -3579,15 +3625,42 @@ template <int DIM, typename T>
 int launch_residual_var(const T* x, const T* b, const T* W, const T* omega,
                         T* out, int64_t nt, Grid g, const VarTaps* vt,
                         const PairGroups* pm, int chunk, void* stream) {
-  return launch_var_stencil<DIM, T, true>(x, b, W, omega, out, nt, g, vt, pm,
-                                          chunk, stream);
+  return launch_var_stencil<DIM, T, kVarResidual>(x, b, W, omega, out, nt, g,
+                                                  vt, pm, chunk, stream);
 }
 
 template <int DIM, typename T>
 int launch_apply_var(const T* x, const T* W, T* out, int64_t nt, Grid g,
                      const VarTaps* vt, int chunk, void* stream) {
-  return launch_var_stencil<DIM, T, false>(x, nullptr, W, nullptr, out, nt,
-                                           g, vt, nullptr, chunk, stream);
+  return launch_var_stencil<DIM, T, kVarApply>(x, nullptr, W, nullptr, out,
+                                               nt, g, vt, nullptr, chunk,
+                                               stream);
+}
+
+// One step of K10's sweep: with first = 1 the first from x (x non-null)
+// or from x = 0, with first = 2 the first two from x = 0 (x null; c1, c2
+// the second's), else a later one (d_in non-null); with `last` it writes
+// x_out alone.
+template <int DIM, typename T>
+int launch_smooth_var(const T* x, const T* b, const T* W, const T* omega,
+                      const T* invT, const T* invDel, T* r, const T* d_in,
+                      T* d_out, T* xo, int64_t nt, Grid g, const VarTaps* vt,
+                      const PairGroups* pm, int first, double c1, double c2,
+                      int last, int chunk, void* stream) {
+  const VarSweep<T> sw{invT, invDel, r, d_in, d_out, last, c1, c2};
+  if (!first) {
+    if (d_in == nullptr) return int(cudaErrorInvalidValue);
+    return launch_var_stencil<DIM, T, kVarStep>(
+        nullptr, nullptr, W, omega, xo, nt, g, vt, pm, chunk, stream, sw);
+  }
+  if (first == 2) {
+    if (x != nullptr) return int(cudaErrorInvalidValue);
+    return launch_var_stencil<DIM, T, kVarFirstTwo>(
+        nullptr, b, W, omega, xo, nt, g, vt, pm, chunk, stream, sw);
+  }
+  return (x != nullptr ? launch_var_stencil<DIM, T, kVarFirst>
+                       : launch_var_stencil<DIM, T, kVarFirstZero>)(
+      x, b, W, omega, xo, nt, g, vt, pm, chunk, stream, sw);
 }
 
 template <int DIM, typename T>
@@ -3611,19 +3684,6 @@ int launch_cheb_step(const T* x, const T* b, const T* vm, const T* omega,
   mg_cheb_step_kernel<DIM, T><<<blocks_for(points(nt, g)), kThreads, 0,
                                 as_stream(stream)>>>(
       x, b, vm, omega, invD, invT, invDel, r, d_in, d_out, xo, nt, g, *pg,
-      first, c1, c2);
-  return int(cudaGetLastError());
-}
-
-template <int DIM, typename T>
-int launch_cheb_step_var(const T* x, const T* b, const T* W, const T* omega,
-                         const T* invT, const T* invDel, T* r, const T* d_in,
-                         T* d_out, T* xo, int64_t nt, Grid g,
-                         const VarTaps* vt, const PairGroups* pm, int first,
-                         double c1, double c2, void* stream) {
-  mg_cheb_step_var_kernel<DIM, T><<<blocks_for(points(nt, g)), kThreads, 0,
-                                    as_stream(stream)>>>(
-      x, b, W, omega, invT, invDel, r, d_in, d_out, xo, nt, g, *vt, *pm,
       first, c1, c2);
   return int(cudaGetLastError());
 }
@@ -3706,14 +3766,14 @@ int stencil_occupancy(int res, const Grid& g, int* blocks, int* bytes,
 }
 
 // Blocks per SM, dynamic shared bytes, threads a block and blocks a chunk
-// of time rows (tiles × pencils) of K11 (res) or K12 with n A taps on
+// of time rows (tiles × pencils) of the march in `MODE` with n A taps on
 // grid g.
-template <int DIM, typename T, bool RES>
+template <int DIM, typename T, int MODE>
 int var_stencil_occupancy_of(int n, const Grid& g, int* blocks, int* bytes,
                              int* threads, int* tiles) {
-  const VarPlan pl = var_plan<DIM, T, RES>(g);
-  return var_form<DIM, T, RES>(n, [&](auto kernel, int tile) {
-    const size_t b = var_stencil_bytes<DIM, T, RES>(pl, tile);
+  const VarPlan pl = var_plan<DIM, T, MODE>(g);
+  return var_form<DIM, T, MODE>(n, [&](auto kernel, int tile) {
+    const size_t b = var_stencil_bytes<DIM, T, MODE>(pl, tile);
     const int err = allow_smem(kernel, b);
     if (err != 0) return err;
     *bytes = int(b);
@@ -3725,12 +3785,24 @@ int var_stencil_occupancy_of(int n, const Grid& g, int* blocks, int* bytes,
 }
 
 template <int DIM, typename T>
-int var_stencil_occupancy(int res, int n, const Grid& g, int* blocks,
+int var_stencil_occupancy(int mode, int n, const Grid& g, int* blocks,
                           int* bytes, int* threads, int* tiles) {
   if (n < 1 || n > var_taps<DIM>()) return int(cudaErrorInvalidValue);
-  return (res ? var_stencil_occupancy_of<DIM, T, true>
-              : var_stencil_occupancy_of<DIM, T, false>)(n, g, blocks, bytes,
-                                                         threads, tiles);
+  switch (mode) {
+#define VAR_OCC(M)                                                           \
+  case M:                                                                    \
+    return var_stencil_occupancy_of<DIM, T, M>(n, g, blocks, bytes, threads, \
+                                               tiles);
+    VAR_OCC(kVarApply)
+    VAR_OCC(kVarResidual)
+    VAR_OCC(kVarFirst)
+    VAR_OCC(kVarFirstZero)
+    VAR_OCC(kVarStep)
+    VAR_OCC(kVarFirstTwo)
+#undef VAR_OCC
+    default:
+      return int(cudaErrorInvalidValue);
+  }
 }
 
 // The 2-D or 3-D instantiation of launcher L for a runtime dim.
@@ -3802,10 +3874,12 @@ int mg_stencil_occupancy(int res, int dim, int f64, int64_t ny, int64_t nx,
                 tiles);
 }
 
-// The same for K11 (res = 1) or K12 (res = 0) of dim with n A taps on a
+// The same for the weighted march of dim in `mode` (0 K12, 1 K11, 2 a
+// first K10 step from x, 3 from x = 0, 4 a later step, 5 the first two
+// from x = 0) with n A taps on a
 // grid of nz × ny × nx points (nz = 1 in 2-D): blocks per SM, dynamic
 // shared bytes, threads a block and blocks a chunk of time rows.
-int mg_var_stencil_occupancy(int res, int dim, int f64, int n, int64_t nz,
+int mg_var_stencil_occupancy(int mode, int dim, int f64, int n, int64_t nz,
                              int64_t ny, int64_t nx, int* blocks, int* bytes,
                              int* threads, int* tiles) {
   if (nz < 1 || ny < 1 || nx < 1 || nz * ny * nx >= (int64_t(1) << 31) ||
@@ -3814,10 +3888,10 @@ int mg_var_stencil_occupancy(int res, int dim, int f64, int n, int64_t nz,
   }
   const Grid g{int(nz), int(ny), int(nx)};
   if (f64) {
-    return BY_DIM(var_stencil_occupancy, double, res, n, g, blocks, bytes,
+    return BY_DIM(var_stencil_occupancy, double, mode, n, g, blocks, bytes,
                   threads, tiles);
   }
-  return BY_DIM(var_stencil_occupancy, float, res, n, g, blocks, bytes,
+  return BY_DIM(var_stencil_occupancy, float, mode, n, g, blocks, bytes,
                 threads, tiles);
 }
 
@@ -3928,15 +4002,16 @@ int mg_var_stencil_occupancy(int res, int dim, int f64, int n, int64_t nz,
     return BY_DIM(launch_prolong_correct, T, x, ec, out, nt, g,               \
                   Lead{0, 2 * hc, own / 2 + 2 * hc}, stream);                 \
   }                                                                           \
-  int mg_smooth_var_##SFX(const T* x, const T* b, const T* W,                \
-                          const T* omega, const T* invT, const T* invDel,     \
-                          T* out, int64_t nt, int64_t nz, int64_t ny,         \
-                          int64_t nx, int dim, const VarTaps* vt,             \
-                          const PairGroups* pm, int nu, int zero_init,        \
-                          void* stream) {                                     \
+  int mg_smooth_var_##SFX(                                                    \
+      const T* x, const T* b, const T* W, const T* omega, const T* invT,      \
+      const T* invDel, T* r, const T* d_in, T* d_out, T* xo, int64_t nt,      \
+      int64_t nz, int64_t ny, int64_t nx, int dim, const VarTaps* vt,         \
+      const PairGroups* pm, int first, double c1, double c2, int last,        \
+      int chunk, void* stream) {                                              \
     const Grid g{int(nz), int(ny), int(nx)};                                  \
-    return BY_DIM(launch_smooth_var, T, x, b, W, omega, invT, invDel, out,    \
-                  nt, g, vt, pm, nu, zero_init, stream);                      \
+    return BY_DIM(launch_smooth_var, T, x, b, W, omega, invT, invDel, r,      \
+                  d_in, d_out, xo, nt, g, vt, pm, first, c1, c2, last, chunk, \
+                  stream);                                                    \
   }                                                                           \
   int mg_residual_var_##SFX(const T* x, const T* b, const T* W,               \
                             const T* omega, T* out, int64_t nt, int64_t nz,   \
@@ -3988,15 +4063,6 @@ int mg_var_stencil_occupancy(int res, int dim, int f64, int n, int64_t nz,
     const Grid g{int(nz), int(ny), int(nx)};                                  \
     return BY_DIM(launch_cheb_step, T, x, b, vm, omega, invD, invT, invDel,   \
                   r, d_in, d_out, xo, nt, g, pg, first, c1, c2, stream);      \
-  }                                                                           \
-  int mg_cheb_step_var_##SFX(                                                 \
-      const T* x, const T* b, const T* W, const T* omega, const T* invT,      \
-      const T* invDel, T* r, const T* d_in, T* d_out, T* xo, int64_t nt,      \
-      int64_t nz, int64_t ny, int64_t nx, int dim, const VarTaps* vt,         \
-      const PairGroups* pm, int first, double c1, double c2, void* stream) {  \
-    const Grid g{int(nz), int(ny), int(nx)};                                  \
-    return BY_DIM(launch_cheb_step_var, T, x, b, W, omega, invT, invDel, r,   \
-                  d_in, d_out, xo, nt, g, vt, pm, first, c1, c2, stream);     \
   }
 
 MG_ENTRY_POINTS(float, f32)

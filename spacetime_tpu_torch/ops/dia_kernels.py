@@ -15,13 +15,13 @@ Op = A + ω⊙M with one shift per time row on the flat (T, m) layout:
 
 A and M are held on the union of their diagonal offsets
 (``union_offsets``, the JAX package's ``_union_offsets``) as (ndu, m)
-values, so one tap of x serves both. K16 and K17 march in time: a block
-owns a segment of the dofs, holds their values on chip (csrc/dia.cu
-chooses registers up to 16 offsets, else a shared tile) and walks a chunk
-of the time rows (``dia_chunk``; ``dia_plan`` gives a launch's whole
-plan). K16
-runs a sweep as ν launches of its one-step march, as K3 does above its
-tiled ν (``mg_cheb_step``); K18 is one thread per (row, dof).
+values, so one tap of x serves both. K16, K17 and K18 march in time
+(one kernel, a mode each): a block owns a segment of the dofs, holds
+their values on chip (csrc/dia.cu chooses registers up to 16 offsets,
+else a shared tile; K18 holds vA alone) and walks a chunk of the time
+rows (``dia_chunk``; ``dia_plan`` gives a launch's whole plan). K16 runs
+a sweep as ν launches of its one-step march (``chebyshev_launches``), as
+K3 does above its tiled ν (``mg_cheb_step``) and K10 at every ν.
 
 For a CUDA tensor each wrapper launches the kernel of csrc/dia.cu (float32
 and float64) and counts the launch; a CPU tensor goes to the plain PyTorch
@@ -41,8 +41,8 @@ import torch
 import torch.nn.functional as F
 
 from . import native
-from .mg_kernels import _sm_count, march2_chunk
-from .multigrid import cheb_smooth, chebyshev_steps, _SIGMA
+from .mg_kernels import _sm_count, chebyshev_launches, march2_chunk
+from .multigrid import cheb_smooth
 from .native import check_tensor
 
 SOURCE = "spacetime_tpu_torch/csrc/dia.cu"
@@ -60,11 +60,12 @@ KERNELS = {
 MAX_ROWS = 65535  # a chunk of time rows is blockIdx.y
 
 # What a march launch computes (csrc/dia.cu ``Mode``): K17, K16's first
-# step from x and from x = 0, a later K16 step; and the fields a point
-# moves in one time row of each (read or written once), against which
-# ``dia_chunk`` weighs the held values' load
-MODES = {"residual": 0, "first": 1, "first_zero": 2, "step": 3}
-ROW_FIELDS = {"residual": 3, "first": 5, "first_zero": 4, "step": 6}
+# step from x and from x = 0, a later K16 step, K18; and the fields a
+# point moves in one time row of each (read or written once), against
+# which ``dia_chunk`` weighs the held values' load
+MODES = {"residual": 0, "first": 1, "first_zero": 2, "step": 3, "apply": 4}
+ROW_FIELDS = {"residual": 3, "first": 5, "first_zero": 4, "step": 6,
+              "apply": 2}
 
 
 @functools.lru_cache(maxsize=None)
@@ -87,9 +88,10 @@ def dia_chunk(mode: str, T: int, segments: int, nd: int, resident: int,
     """Time rows a block of the march walks: ``march2_chunk``'s wave rule
     over T rows, ``segments`` blocks a chunk of rows and ``resident`` an
     SM, the held values' load (2·nd values a dof, and the diagonals in
-    K16) counted as the rows whose fields (``ROW_FIELDS``) move as many
-    bytes; the values-free first step from 0 counts none."""
-    held = 0 if mode == "first_zero" else 2 * nd + (mode != "residual") * 2
+    K16; nd in K18) counted as the rows whose fields (``ROW_FIELDS``) move
+    as many bytes; the values-free first step from 0 counts none."""
+    held = {"first_zero": 0, "apply": nd,
+            "residual": 2 * nd}.get(mode, 2 * nd + 2)
     return march2_chunk(segments, T, 1, resident, sms, 1,
                         -(-held // ROW_FIELDS[mode]))
 
@@ -275,18 +277,7 @@ class DiaKernelLevel:
         self.sweep(step, nu, zero_init)
         return out
 
-    @staticmethod
-    def sweep(step, nu: int, zero_init: bool) -> None:
-        """A K16 sweep's ν launches as calls ``step(mode, d_in, d_out, c1,
-        c2, last)``: the first step (``mode`` "first" or "first_zero") and
-        ν − 1 later ones ("step"), each reading d from slot ``d_in`` of two
-        (None for the first) and writing slot ``d_out``, the recurrence's
-        scalars c1, c2, ``last`` on the sweep's last launch."""
-        steps = chebyshev_steps(_SIGMA, nu)
-        step("first_zero" if zero_init else "first", None, 0, 0.0, 0.0,
-             not steps)
-        for s, (c1, c2) in enumerate(steps, 1):
-            step("step", (s - 1) % 2, s % 2, c1, c2, s == len(steps))
+    sweep = staticmethod(chebyshev_launches)
 
     def residual(self, x, b, cols, vals):
         """K17: b − Op x, the march's residual step."""
@@ -302,12 +293,12 @@ class DiaKernelLevel:
         return out
 
     def apply_A(self, x, vals):
-        """K18: A x."""
+        """K18: A x, the march's apply mode."""
         if x.device.type == "cpu":
             return self.apply_A_plain(x, vals)
         k, T, _ = self._prepare("apply", x, None, vals, with_m=False)
         out = torch.empty_like(x)
         k.launch(x.device, x.data_ptr(), vals["vA"].data_ptr(),
-                 out.data_ptr(), T, self.m,
-                 ctypes.addressof(self.struct))
+                 out.data_ptr(), T, self.m, ctypes.addressof(self.struct),
+                 self.plan("apply", x)["chunk"])
         return out

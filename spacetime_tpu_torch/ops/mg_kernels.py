@@ -21,12 +21,12 @@ Every kernel takes 2-D and 3-D grids. The V-cycle runs the fused stages K6
 → (coarser levels) → K7 wherever ``fused_ok`` holds (ν = ν_post ∈ {2, 3}
 and odd extents, as ``MSPallasLevel.fused_ok``), in 2-D and 3-D alike, and
 the semi-fused stages K3 → K8 → (coarser levels) → K9 → K3 elsewhere
-(V(ν, ν_post ≠ ν) cycles, ν ∉ {2, 3}). The tiled sweep holds ν ≤ 8 in 2-D
-and ν ≤ 3 in 3-D (``MAX_NU``, its halo in shared memory); above that the K3
-and K10 wrappers chain ν launches of a one-step kernel (``mg_cheb_step``,
-``mg_cheb_step_var``) that keeps r and d in device memory, so every ν ≥ 1
-runs, as in the JAX package. The fused stages keep ν ∈ {2, 3}, as JAX's
-do. In 3-D the fused stages K6, K7, K14 and K15 march in z: a block owns a
+(V(ν, ν_post ≠ ν) cycles, ν ∉ {2, 3}). The tiled K3 holds ν ≤ 8 in 2-D
+and ν ≤ 3 in 3-D (``MAX_NU``, its halo in shared memory); above that its
+wrapper chains ν launches of a one-step kernel (``mg_cheb_step``) that
+keeps r and d in device memory, so every ν ≥ 1 runs, as in the JAX
+package. The fused stages keep ν ∈ {2, 3}, as JAX's do. In 3-D the fused
+stages K6, K7, K14 and K15 march in z: a block owns a
 ``MARCH_TILE`` (y, x) tile of one row and a chunk of planes (coarse for
 K6/K14, fine for K7/K15), whose depth the wrapper picks (``march_chunk``)
 so that the launch fills the card. In 2-D K6, K7, K14 and K15 march in
@@ -35,9 +35,12 @@ fits, csrc/mg.cu ``row_plan``) and a chunk of its rows (``march2_chunk``,
 the same wave rule for the weighted pair with its own blocks an SM). K4
 and K5 march too, in y (2-D: a segment of a row) and in z (3-D: a
 ``MARCH_TILE`` tile), with chunks by the same wave rule
-(``stencil_chunk``). The weighted K11 and K12 march in time: a block
-owns a tile of rows (planes in 3-D) of the grid, holds its points' weights
-on chip and walks a chunk of the time rows (``var_stencil_chunk``).
+(``stencil_chunk``). The weighted K10, K11 and K12 march in time: a
+block owns a tile of rows (planes in 3-D) of the grid, holds its points'
+weights on chip and walks a chunk of the time rows (``var_stencil_chunk``);
+K10 runs a sweep as one-step launches of that march at every ν
+(``chebyshev_launches``; from 0 the first two steps are one launch), r and
+d in device memory.
 
 For a CUDA tensor each wrapper launches the CUDA kernel of csrc/mg.cu
 (float32 and float64) and counts the launch, with one count per kernel,
@@ -54,7 +57,7 @@ weighted (Galerkin) hierarchy, Op = A_w + ω⊙M with per-node A weights W
 node, 1/(W[center] + ω·c_M):
 
     K10 ``smooth``            degree-ν sweep (``_smooth_var_call``), from
-                              x or from x = 0
+                              x or from x = 0, as step launches
     K11 ``residual``          b − Op_w x (``_residual_var_call``)
     K12 ``apply_A``           A_w x (``_apply_var_call``)
     K13 ``residual_restrict`` r_c = R(b − Op_w x)
@@ -68,8 +71,7 @@ node, 1/(W[center] + ω·c_M):
 
 V(ν, ν_post ≠ ν) cycles and ν ∉ {2, 3} run the semi-fused stages K10 → K13
 → (coarser levels) → K9 → K10, every other level the fused K14/K15, in 2-D
-and 3-D. The weighted sweep chains as the constant one does above
-``MAX_NU``.
+and 3-D.
 
 The sharded-slab forms, for a slab of the time×space mesh
 (``parallel.explicit2d``): ``MSKernelLevel`` on the halo-extended slab's
@@ -111,7 +113,7 @@ from .multigrid import (_SIGMA, cheb_smooth, chebyshev_steps, ms_op,
 from .stencil import grouped_apply, weight_groups
 
 SOURCE = "spacetime_tpu_torch/csrc/mg.cu"
-# The tiled sweep's halo: a tile grows by ν cells per side. 2-D tiles are
+# The tiled K3's halo: a tile grows by ν cells per side. 2-D tiles are
 # 32 × 32; a 3-D brick of 8 × 8 × 32 with three float64 buffers fits the
 # 227 KB of shared memory up to ν = 3. Above it the sweep is chained.
 MAX_NU = {2: 8, 3: 3}
@@ -141,9 +143,8 @@ _OPS = {
                               (2, 3)),
     "fused_pre_var": ("K14 mg_fused_pre_var", f"{_MG}:2071", (2, 3)),
     "fused_post_var": ("K15 mg_fused_post_var", f"{_MG}:2196", (2, 3)),
-    # the chained sweeps above MAX_NU, one Chebyshev step per launch
+    # K3's chained sweep above MAX_NU, one Chebyshev step per launch
     "cheb_step": ("K3 mg_cheb_step", f"{_MG}:190", (2, 3)),
-    "cheb_step_var": ("K10 mg_cheb_step_var", f"{_MG}:856", (2, 3)),
     # the sharded-slab forms (vmask, lead)
     "sh_smooth": ("K3 mg_sh_smooth", f"{_MG}:190", (2, 3)),
     "sh_fused_pre": ("K6 mg_sh_fused_pre", f"{_MG}:1318", (2, 3)),
@@ -248,35 +249,94 @@ def stencil_chunk(T: int, n: int, resident: int, tiles: int,
     return march2_chunk(T * tiles, n, 1, resident, sms, 1, 2)
 
 
+# What a launch of the weighted time march computes (csrc/mg.cu
+# ``VarMode``): K12, K11, K10's first step from x and from x = 0, a later
+# K10 step, K10's first two steps from x = 0 in one launch
+VAR_MODES = {"apply": 0, "residual": 1, "first": 2, "first_zero": 3,
+             "step": 4, "first_two": 5}
+# the ``first`` argument of K10's entry point for each of its modes
+_VAR_FIRST = {"first": 1, "first_zero": 1, "first_two": 2, "step": 0}
+
+
+def var_row_fields(mode: str, last: bool = False) -> int:
+    """The fields a point moves in one time row of the march in ``mode``
+    (each read or written once): K12 x and the output, K11 x, b and the
+    output; a K10 step as ``dia_kernels.ROW_FIELDS`` counts K16's (from x
+    5, from 0 4, a later step 6; the first two from 0 4: b, r, d and x),
+    two fewer (r and d_out unwritten) in a sweep's ``last`` step."""
+    fields = {"apply": 2, "residual": 3, "first": 5, "first_zero": 4,
+              "step": 6, "first_two": 4}[mode]
+    return fields - 2 * (last and mode not in ("apply", "residual"))
+
+
+def var_held(mode: str, ntaps: int) -> int:
+    """The values a point of the march holds for a chunk: its ``ntaps``
+    weights, and W[kc] beside them in a K10 step (that alone from 0; at
+    its own points and along its window column in the first two from
+    0)."""
+    return {"apply": ntaps, "residual": ntaps, "first_zero": 1,
+            "first_two": ntaps + 2}.get(mode, ntaps + 1)
+
+
 @functools.lru_cache(maxsize=None)
-def var_stencil_plan(res: bool, dim: int, dtype, ntaps: int, gs: tuple,
+def var_stencil_plan(mode: str, dim: int, dtype, ntaps: int, gs: tuple,
                      index: int) -> tuple[int, int, int, int]:
     """(blocks an SM of device ``index`` holds, blocks a chunk of time
-    rows, dynamic shared bytes, threads a block) of K11 (K12 without
-    ``res``) with ``ntaps`` A taps on grid ``gs``: its tiles and pencils,
-    the weights held in registers or in the shared tile by the tap count
-    (csrc/mg.cu ``mg_var_stencil_occupancy``)."""
+    rows, dynamic shared bytes, threads a block) of the weighted march in
+    ``mode`` (``VAR_MODES``) with ``ntaps`` A taps on grid ``gs``: its
+    tiles and pencils, the weights held in registers or in the shared tile
+    by the tap count (csrc/mg.cu ``mg_var_stencil_occupancy``)."""
     lib = native.LIB.get()
     out = [ctypes.c_int() for _ in range(4)]  # blocks, bytes, threads, tiles
     zyx = (1,) * (3 - len(gs)) + tuple(gs)
     with torch.cuda.device(index):
-        err = lib.mg_var_stencil_occupancy(int(res), len(gs),
+        err = lib.mg_var_stencil_occupancy(VAR_MODES[mode], len(gs),
                                            int(dtype == torch.float64), ntaps,
                                            *zyx, *map(ctypes.byref, out))
     native.check(lib, "mg_var_stencil_occupancy", err)
     return max(out[0].value, 1), out[3].value, out[1].value, out[2].value
 
 
-def var_stencil_chunk(T: int, res: bool, ntaps: int, resident: int,
-                      tiles: int, sms: int) -> int:
-    """Time rows per block of the K11 (``res``) / K12 march on T rows,
+def var_stencil_chunk(T: int, mode: str, ntaps: int, resident: int,
+                      tiles: int, sms: int, last: bool = False) -> int:
+    """Time rows per block of the weighted march in ``mode`` on T rows,
     ``tiles`` blocks a chunk, ``resident`` blocks an SM: the wave rule of
-    ``march2_chunk``, the weights' load (``ntaps`` values a point, once a
-    chunk) counted as the rows whose fields (x, b and the output; K12 x
-    and the output) move as many bytes, as ``dia_kernels.dia_chunk``
-    counts the DIA values."""
+    ``march2_chunk``, the held values' load (``var_held``, once a chunk)
+    counted as the rows whose fields (``var_row_fields``) move as many
+    bytes, as ``dia_kernels.dia_chunk`` counts the DIA values."""
     return march2_chunk(tiles, T, 1, resident, sms, 1,
-                        -(-ntaps // (3 if res else 2)))
+                        -(-var_held(mode, ntaps)
+                          // var_row_fields(mode, last)))
+
+
+def chebyshev_launches(step, nu: int, zero_init: bool,
+                       first_two: bool = False) -> None:
+    """A sweep's one-step launches (K10, K16) as calls ``step(mode, d_in,
+    d_out, c1, c2, last)``: the first step (``mode`` "first" or
+    "first_zero") and ν − 1 later ones ("step"), each reading d from slot
+    ``d_in`` of two (None for the first) and writing slot ``d_out``, the
+    recurrence's scalars c1, c2, ``last`` on the sweep's last launch. With
+    ``first_two`` a sweep from 0 of ν ≥ 2 starts with one launch of its
+    first two steps ("first_two", the second's scalars), then ν − 2 later
+    ones."""
+    if nu < 1:
+        raise ValueError(f"nu={nu}: a sweep takes at least one step")
+    steps = chebyshev_steps(_SIGMA, nu)
+    start = 1
+    if zero_init and first_two and steps:
+        step("first_two", None, 1, *steps[0], len(steps) == 1)
+        start = 2
+    else:
+        step("first_zero" if zero_init else "first", None, 0, 0.0, 0.0,
+             not steps)
+    for s in range(start, len(steps) + 1):
+        step("step", (s - 1) % 2, s % 2, *steps[s - 1], s == len(steps))
+
+
+def k10_launches(nu: int, zero_init: bool) -> int:
+    """K10's launches for a sweep of ν steps (``chebyshev_launches`` with
+    its first two steps from 0 in one launch)."""
+    return nu - 1 if zero_init and nu >= 2 else nu
 
 
 @functools.lru_cache(maxsize=None)
@@ -361,39 +421,6 @@ class _KernelLevel:
         for name in self._COLS:
             check_tensor(name, cols[name], X.dtype, X.device, (T,))
         return k, T, tuple(cols[name].data_ptr() for name in self._COLS)
-
-    def _sweep(self, op, x, b, nu, zero_init, pre, cols, tables,
-               step=None):
-        """K3 / K10: the tiled sweep ``op`` for ν ≤ MAX_NU, else ν chained
-        launches of the one-step kernel ``step`` (op, fields) (default
-        ``cheb_step`` (+ "_var") and ``pre``). ``pre`` are the fields
-        between b and the columns (W; the validity field of K3's slab
-        form), ``tables`` the kernel's tables."""
-        if nu < 1:
-            raise ValueError(f"nu={nu}: a sweep takes at least one step")
-        chained = nu > MAX_NU[self.dim]
-        if step is None:
-            step = (op.replace("smooth", "cheb_step"), pre)
-        if chained:
-            op, pre = step
-        k, T, cp = self._prepare(op, b, cols)
-        if not zero_init:
-            check_tensor("x", x, b.dtype, b.device, b.shape)
-        xp = None if zero_init else x.data_ptr()
-        out = torch.empty_like(b)
-        if not chained:
-            k.launch(b.device, xp, b.data_ptr(), *pre, *cp, out.data_ptr(),
-                     T, *self._zyx(), *tables, nu, int(zero_init))
-            return out
-        r, d = torch.empty_like(b), (torch.empty_like(b), torch.empty_like(b))
-        step = lambda x_in, d_in, d_out, first, c1, c2: k.launch(
-            b.device, x_in, b.data_ptr(), *pre, *cp, r.data_ptr(), d_in,
-            d_out.data_ptr(), out.data_ptr(), T, *self._zyx(), *tables,
-            first, c1, c2)
-        step(xp, None, d[0], 1, 0.0, 0.0)
-        for s, (c1, c2) in enumerate(chebyshev_steps(_SIGMA, nu), 1):
-            step(None, d[(s - 1) % 2].data_ptr(), d[s % 2], 0, c1, c2)
-        return out
 
     def residual_restrict_plain(self, x, b, *args):
         """R(b − Op x); ``args`` are the level's own after ``b``."""
@@ -506,6 +533,38 @@ class MSKernelLevel(_KernelLevel):
         return self.smooth_plain(xc, b, cols, vmask=vmask)
 
     # --------------------------------------------------------- wrappers
+
+    def _sweep(self, op, x, b, nu, zero_init, pre, cols, tables, step):
+        """K3: the tiled sweep ``op`` for ν ≤ MAX_NU, else ν chained
+        launches of the one-step kernel ``step`` (op, fields). ``pre`` are
+        the fields between b and the columns (the validity field of the
+        slab form), ``tables`` the kernel's tables."""
+        if nu < 1:
+            raise ValueError(f"nu={nu}: a sweep takes at least one step")
+        chained = nu > MAX_NU[self.dim]
+        if chained:
+            op, pre = step
+        k, T, cp = self._prepare(op, b, cols)
+        if not zero_init:
+            check_tensor("x", x, b.dtype, b.device, b.shape)
+        xp = None if zero_init else x.data_ptr()
+        out = torch.empty_like(b)
+        if not chained:
+            k.launch(b.device, xp, b.data_ptr(), *pre, *cp, out.data_ptr(),
+                     T, *self._zyx(), *tables, nu, int(zero_init))
+            return out
+        r, d = torch.empty_like(b), (torch.empty_like(b), torch.empty_like(b))
+
+        def chain(mode, d_in, d_out, c1, c2, last):
+            first = mode != "step"
+            k.launch(b.device, xp if first else None, b.data_ptr(), *pre,
+                     *cp, r.data_ptr(),
+                     None if d_in is None else d[d_in].data_ptr(),
+                     d[d_out].data_ptr(), out.data_ptr(), T, *self._zyx(),
+                     *tables, int(first), c1, c2)
+
+        chebyshev_launches(chain, nu, zero_init)
+        return out
 
     def smooth(self, x, b, cols, zero_init=False, post=False, vmask=None):
         """K3: the degree-ν sweep (ν_post with ``post``); x is ignored with
@@ -741,14 +800,30 @@ class VarMSKernelLevel(_KernelLevel):
     # --------------------------------------------------------- wrappers
 
     def smooth(self, x, b, cols, W, zero_init=False, post=False):
-        """K10: the degree-ν sweep (ν_post with ``post``); x is ignored
-        with ``zero_init``."""
+        """K10: the degree-ν sweep (ν_post with ``post``) as one-step
+        launches of the time march (``chebyshev_launches``; from 0 the
+        first two steps are one launch); x is ignored with ``zero_init``.
+        The last launch writes the output alone."""
         if b.device.type == "cpu":
             return self.smooth_plain(x, b, cols, W, zero_init, post)
+        nu = self.nu_post if post else self.nu
+        k, T, cp = self._prepare("smooth_var", b, cols)
         self._check_W(W, b)
-        return self._sweep("smooth_var", x, b,
-                           self.nu_post if post else self.nu, zero_init,
-                           (W.data_ptr(),), cols, self._tables())
+        if not zero_init:
+            check_tensor("x", x, b.dtype, b.device, b.shape)
+        out, r = torch.empty_like(b), torch.empty_like(b)
+        d = (torch.empty_like(b), torch.empty_like(b))
+
+        def step(mode, d_in, d_out, c1, c2, last):
+            k.launch(b.device, x.data_ptr() if mode == "first" else None,
+                     b.data_ptr(), W.data_ptr(), *cp, r.data_ptr(),
+                     None if d_in is None else d[d_in].data_ptr(),
+                     d[d_out].data_ptr(), out.data_ptr(), T, *self._zyx(),
+                     *self._tables(), _VAR_FIRST[mode], c1, c2, int(last),
+                     self._var_stencil_chunk(b, mode, last))
+
+        chebyshev_launches(step, nu, zero_init, first_two=True)
+        return out
 
     def residual(self, x, b, cols, W):
         """K11: b − (A_w x + ω⊙M x)."""
@@ -760,7 +835,7 @@ class VarMSKernelLevel(_KernelLevel):
         out = torch.empty_like(b)
         k.launch(b.device, x.data_ptr(), b.data_ptr(), W.data_ptr(), cp[0],
                  out.data_ptr(), T, *self._zyx(), *self._tables(),
-                 self._var_stencil_chunk(b, True))
+                 self._var_stencil_chunk(b, "residual"))
         return out
 
     def apply_A(self, x, W):
@@ -773,17 +848,17 @@ class VarMSKernelLevel(_KernelLevel):
         out = torch.empty_like(x)
         k.launch(x.device, x.data_ptr(), W.data_ptr(), out.data_ptr(), T,
                  *self._zyx(), self._tables()[0],
-                 self._var_stencil_chunk(x, False))
+                 self._var_stencil_chunk(x, "apply"))
         return out
 
-    def _var_stencil_chunk(self, X, res: bool) -> int:
-        """The time rows a block of K11 (``res``) or K12 on field X walks
-        through (``var_stencil_chunk``)."""
+    def _var_stencil_chunk(self, X, mode: str, last: bool = False) -> int:
+        """The time rows a block of the weighted march in ``mode`` (K10's
+        ``last`` step) on field X walks through (``var_stencil_chunk``)."""
         index, ntaps = X.device.index, len(self.A_vs.disps)
-        resident, tiles, _, _ = var_stencil_plan(res, self.dim, X.dtype,
+        resident, tiles, _, _ = var_stencil_plan(mode, self.dim, X.dtype,
                                                  ntaps, self.gs, index)
-        return var_stencil_chunk(X.shape[0], res, ntaps, resident, tiles,
-                                 _sm_count(index))
+        return var_stencil_chunk(X.shape[0], mode, ntaps, resident, tiles,
+                                 _sm_count(index), last)
 
     def residual_restrict(self, x, b, cols, W):
         """K13: r_c = R(b − Op_w x); the fine residual is never stored."""

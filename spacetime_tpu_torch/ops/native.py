@@ -278,33 +278,34 @@ def entry_signatures() -> dict:
         "mg_sh_residual_restrict": [P, P, P, P, *grid, P, I, I, P],
         "mg_sh_prolong_correct": [P, P, P, *grid, I, I, P],
         # the weighted ones: W after the fields; the A taps and the M
-        # groups after the grid (K11 and K12: then the time rows a block
-        # of the march walks)
-        "mg_smooth_var": [P, P, P, P, P, P, P, *grid, P, P, I, I, P],
+        # groups after the grid (K10, K11 and K12: then the time rows a
+        # block of the march walks). K10, one step of the sweep: x, b, W,
+        # the columns, r, d_in, d_out, x_out, the grid, the tables, first,
+        # c1, c2, last, chunk
+        "mg_smooth_var": [P, P, P, P, P, P, P, P, P, P, *grid, P, P, I, D,
+                          D, I, I, P],
         "mg_residual_var": [P, P, P, P, P, *grid, P, P, I, P],
         "mg_apply_var": [P, P, P, *grid, P, I, P],
         "mg_residual_restrict_var": [P, P, P, P, P, *grid, P, P, P],
         "mg_fused_pre_var": [P, P, P, P, P, P, P, *grid, P, P, I, I, P],
         "mg_fused_post_var": [P, P, P, P, P, P, P, P, *grid, P, P, I, I,
                               P],
-        # one Chebyshev step of the K3 / K10 chains (ν above MAX_NU):
-        # x, b, vm (K3) or W (K10), the columns, r, d_in, d_out, x_out,
-        # the grid, the tables, first, c1, c2
+        # one Chebyshev step of the K3 chain (ν above MAX_NU): x, b, vm,
+        # the columns, r, d_in, d_out, x_out, the grid, the table, first,
+        # c1, c2
         "mg_cheb_step": [P, P, P, P, P, P, P, P, P, P, P, *grid, P, I, D,
                          D, P],
-        "mg_cheb_step_var": [P, P, P, P, P, P, P, P, P, P, *grid, P, P, I,
-                             D, D, P],
         # ell.cu: X, nt, n, slice_ptr, col, vals, nslices, Y, n_out
         "ell_spmm": [P, I64, I64, P, P, P, I64, P, I64, P],
         # X, nt, n, slice_ptr, col, valsA, valsM, nslices, YA, YM, n_out
         "ell_spmm_pair": [P, I64, I64, P, P, P, P, I64, P, P, I64, P],
         # dia.cu, one K16 step: x, b, vA, vM, dA, dM, the columns, r,
         # d_in, d_out, x_out, nt, m, the offsets, first, c1, c2, last,
-        # then the march's chunk (K17 too)
+        # then the march's chunk (K17 and K18 too)
         "dia_smooth": [P, P, P, P, P, P, P, P, P, P, P, P, P, I64, I64, P,
                        I, D, D, I, I, P],
         "dia_residual": [P, P, P, P, P, P, I64, I64, P, I, P],
-        "dia_apply": [P, P, P, I64, I64, P, P],
+        "dia_apply": [P, P, P, I64, I64, P, I, P],
     }
 
 
@@ -331,8 +332,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # a chunk
     lib.mg_stencil_occupancy.argtypes = [I, I, I, I64, I64, P, P, P, P]
     lib.mg_stencil_occupancy.restype = I
-    # K11 / K12's: res, dim, f64, A taps, nz, ny, nx, then blocks, bytes,
-    # threads, blocks a chunk of time rows
+    # the weighted time march's (K10–K12): mode, dim, f64, A taps, nz,
+    # ny, nx, then blocks, bytes, threads, blocks a chunk of time rows
     lib.mg_var_stencil_occupancy.argtypes = [I, I, I, I, I64, I64, I64, P, P,
                                              P, P]
     lib.mg_var_stencil_occupancy.restype = I

@@ -67,7 +67,9 @@ from ..ops import native
 from ..ops.mg_kernels import MSKernelLevel, VarMSKernelLevel
 from ..ops.multigrid import row_params, var_row_params
 from .fused_ab import (bind_parent, bind_parent_dia, bind_parent_kron,
-                       dia_columns, dia_lib_residual, dia_lib_smooth)
+                       dia_columns, dia_lib_apply, dia_lib_residual,
+                       dia_lib_smooth, parent_dia_apply_marches,
+                       var_lib_smooth)
 
 REPO = Path(__file__).resolve().parents[2]
 OUT = REPO / "build" / "cpu_emulate"
@@ -105,6 +107,9 @@ STENCIL_SHAPES = [(1, (1, 9)), (5, (10, 15)), (2, (9, 65)), (2, (4, 1985)),
 VAR_STENCIL_SHAPES = [(1, (1, 9)), (5, (10, 15)), (2, (9, 65)),
                       (2, (5, 1055)), (1, (3, 1985)), (2, (1, 5, 7)),
                       (5, (3, 9, 15)), (1, (5, 17, 35))]
+# K10's ν in the emulation, by dimension: 1 to 4 and 9 in 2-D (8 the most
+# the tiled parent held there), 1 to 5 in 3-D (3 there)
+VAR_SWEEP_NU = {2: (1, 2, 3, 4, 9), 3: (1, 2, 3, 4, 5)}
 # the tables of each dimension whose weights the march holds in the other
 # home: 2-D the 3 × 3 neighbourhood (9 taps: the shared tile), 3-D the
 # 7-point star (registers)
@@ -116,6 +121,8 @@ OTHER_TAPS = {2: tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)),
 # register form, the last ragged) and the tetrahedra's (m = 343, 15)
 DIA_LEVELS = [("lshape2d", 8, 2), ("smooth3d", 4, 1)]
 DIA_T = (1, 2, 5)
+# K18 also at the nested solves' K_X rows (every chunk of 129)
+DIA_APPLY_T = (129,)
 
 RUNTIME = r"""
 #pragma once
@@ -474,12 +481,17 @@ def build_stencil(name: str = "this_stencil") -> ctypes.CDLL:
 
 
 def build_var_stencil(name: str = "this_var_stencil") -> ctypes.CDLL:
-    """This tree's mg.cu and common.cu alone, K11 and K12
-    (``mg_residual_var``, ``mg_apply_var``) bound with their signatures."""
+    """This tree's mg.cu and common.cu alone, K10, K11 and K12
+    (``mg_smooth_var``, ``mg_residual_var``, ``mg_apply_var``) and the
+    march's occupancy bound with their signatures."""
     so = build([native.CSRC / "mg.cu", native.CSRC / "common.cu"], name)
     signatures = native.entry_signatures()
-    for op, sfx in itertools.product(("mg_residual_var", "mg_apply_var"),
-                                     ("f32", "f64")):
+    I, I64, P = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
+    so.mg_var_stencil_occupancy.argtypes = [I, I, I, I, I64, I64, I64, P, P,
+                                            P, P]
+    so.mg_var_stencil_occupancy.restype = I
+    for op, sfx in itertools.product(("mg_smooth_var", "mg_residual_var",
+                                      "mg_apply_var"), ("f32", "f64")):
         fn = getattr(so, f"{op}_{sfx}")
         fn.argtypes, fn.restype = signatures[op], ctypes.c_int
     return so
@@ -562,6 +574,80 @@ def check_var_stencil(new, old, shapes=VAR_STENCIL_SHAPES) -> int:
                     n += 1
                     _close((name, len(lev.A_vs.disps), T, gs, chunk), got,
                            want, dtype, ref)
+    return n
+
+
+def sweep_levels(dim: int, gs: tuple):
+    """``var_levels`` for K10's sweep: the other table's W made diagonally
+    dominant (its center the sum of |W| over the taps, plus 1/2), so that
+    every 1/D is positive, as the twin takes it."""
+    out = var_levels(dim, gs)
+    lev, Wo, var = out[1]
+    Wo = Wo.copy()
+    Wo[lev.kc] = np.abs(Wo).sum(0) + 0.5
+    out[1] = (lev, Wo, var)
+    return out
+
+
+def check_var_sweep(new, old, shapes=VAR_STENCIL_SHAPES, nus=None,
+                    chunks=None) -> int:
+    """K10 (``mg_smooth_var``: the sweep's step launches) of ``new`` on each
+    (T, grid) of ``shapes``, float32 and float64, from x and from 0 at
+    each ν of ``nus`` (``VAR_SWEEP_NU`` by dimension), with the weights in
+    both homes (``sweep_levels``), at every chunk from one time row to all
+    of them (``chunks``: those only), against the twin
+    (``VarMSKernelLevel.smooth_plain``) within 1e-5·max|twin| (f32) and
+    1e-13 (f64) and, if given, bit for bit against ``old``'s chained
+    steps (``mg_cheb_step_var``); where ``old`` has a tiled sweep for the
+    ν (``mg_smooth_var``, ν ≤ ``MAX_NU``) its max|new − old| is printed.
+    Returns the number of launches compared."""
+    from ..ops.mg_kernels import MAX_NU, k10_launches
+
+    n = 0
+    worst = {}
+    rng = np.random.default_rng(10)
+    for (T, gs), dtype in itertools.product(
+            shapes, (torch.float32, torch.float64)):
+        sfx = "f32" if dtype == torch.float32 else "f64"
+        dim = len(gs)
+        mk = lambda shape: torch.as_tensor(rng.standard_normal(shape),
+                                           dtype=dtype)
+        x, b = mk((T,) + gs), mk((T,) + gs)
+        for (lev, Wn, var), nu, zero in itertools.product(
+                sweep_levels(dim, gs), (nus or VAR_SWEEP_NU)[dim],
+                (True, False)):
+            kl = VarMSKernelLevel(lev, nu, gs=gs)
+            W = torch.as_tensor(Wn, dtype=dtype)
+            cols = kl.columns(var_row_params(var, rng.uniform(0, 40, T),
+                                             dtype, "cpu")[0])
+            want = kl.smooth_plain(x, b, cols, W, zero_init=zero)
+            ref = None
+            label = (len(lev.A_vs.disps), T, gs, nu,
+                     "from 0" if zero else "from x")
+            if old is not None:
+                ref = var_lib_smooth(_call, old, kl, x, b, W, cols, nu, zero)
+                n += nu
+                if nu <= MAX_NU[dim]:
+                    tiled = torch.empty_like(b)
+                    cp = [cols[k].data_ptr() for k in kl._COLS]
+                    _call(old, f"mg_smooth_var_{sfx}",
+                          None if zero else x.data_ptr(), b.data_ptr(),
+                          W.data_ptr(), *cp, tiled.data_ptr(), T,
+                          *kl._zyx(), *kl._tables(), nu, int(zero))
+                    n += 1
+                    _close(("tiled",) + label, tiled, want, dtype)
+                    key = (sfx, dim)
+                    worst[key] = max(worst.get(key, 0.0),
+                                     float((tiled - ref).abs().max()))
+            for chunk in chunks or range(1, T + 1):
+                got = var_lib_smooth(_call, new, kl, x, b, W, cols, nu,
+                                     zero, min(chunk, T))
+                n += k10_launches(nu, zero)
+                _close(("mg_smooth_var", sfx) + label + (chunk,), got,
+                       want, dtype, ref)
+    for (sfx, dim), err in sorted(worst.items()):
+        print(f"K10 {dim}-D {sfx}: max|steps - the tiled sweep| {err:.3e} "
+              "(the parent's tiled kernel, ν within its halo)")
     return n
 
 
@@ -689,8 +775,8 @@ def build_dia(csrc: Path = native.CSRC, name: str = "this_dia",
     if bind is not None:
         return bind(so)
     signatures = native.entry_signatures()
-    for op, sfx in itertools.product(("dia_smooth", "dia_residual"),
-                                     ("f32", "f64")):
+    for op, sfx in itertools.product(("dia_smooth", "dia_residual",
+                                      "dia_apply"), ("f32", "f64")):
         fn = getattr(so, f"{op}_{sfx}")
         fn.argtypes, fn.restype = signatures[op], ctypes.c_int
     I, P = ctypes.c_int, ctypes.c_void_p
@@ -699,37 +785,53 @@ def build_dia(csrc: Path = native.CSRC, name: str = "this_dia",
     return so
 
 
-def check_dia(new, old, levels=None, Ts=DIA_T, nus=(2, 3, 4)) -> int:
-    """K17 and K16 (from 0 and from x at each of ``nus``) of ``new`` on
-    each level of ``levels`` (``dia_levels()``) at T of ``Ts``, float32
-    and float64, at every chunk of 1 to T rows (the values in registers up
-    to 16 offsets, else in the shared tile), against their twins and, if
-    given, ``old``'s (before the march: no chunk or last); returns the
-    number of launches compared."""
+def check_dia(new, old, levels=None, Ts=DIA_T, nus=(2, 3, 4),
+              apply_Ts=DIA_APPLY_T) -> int:
+    """K17, K16 (from 0 and from x at each of ``nus``) and K18 of ``new``
+    on each level of ``levels`` (``dia_levels()``) at T of ``Ts`` (K18
+    also at ``apply_Ts``), float32 and float64, at every chunk of 1 to T
+    rows (the values in registers up to 16 offsets, else in the shared
+    tile), against their twins and, if given, ``old``'s (a march's at the
+    chunk of T rows, one from before the march without a chunk); returns
+    the number of launches compared."""
     from ..ops import dia_kernels as dk
 
     n = 0
     rng = np.random.default_rng(16)
+    if old is None:
+        old_chunk = lambda T, op: None
+    else:  # a parent whose K16/K17 (and K18) march takes the chunk
+        march = {"smooth": hasattr(old, "dia_march_occupancy"),
+                 "residual": hasattr(old, "dia_march_occupancy"),
+                 "apply": parent_dia_apply_marches(old)}
+        old_chunk = lambda T, op: T if march[op] else None
     for (label, lev), dtype, T in itertools.product(
-            levels or dia_levels(), (torch.float32, torch.float64), Ts):
+            levels or dia_levels(), (torch.float32, torch.float64),
+            sorted({*Ts, *apply_Ts})):
         kl = dk.DiaKernelLevel(lev, 2)
         vals = kl.values(lev, dtype, "cpu")
         cols = dia_columns(lev, T, dtype, "cpu", rng)
         x, b = (torch.as_tensor(rng.standard_normal((T, lev.m)), dtype=dtype)
                 for _ in range(2))
-        runs = [(kl.residual_plain(x, b, cols, vals),
-                 lambda so, c: dia_lib_residual(_call, so, kl, x, b, cols,
-                                                vals, c), 1, "residual")]
-        for nu, zero in itertools.product(nus, (True, False)):
-            kn = dk.DiaKernelLevel(lev, nu)
-            runs.append((kn.smooth_plain(x, b, cols, vals, zero_init=zero),
-                         lambda so, c, kn=kn, z=zero: dia_lib_smooth(
-                             _call, so, kn, x, b, cols, vals, kn.nu, z, c),
-                         nu, f"smooth nu={nu} from {'0' if zero else 'x'}"))
-        for want, run, launches, form in runs:
+        runs = [(kl.apply_A_plain(x, vals),
+                 lambda so, c: dia_lib_apply(_call, so, kl, x, vals, c), 1,
+                 "apply", "apply")]
+        if T in Ts:
+            runs.append((kl.residual_plain(x, b, cols, vals),
+                         lambda so, c: dia_lib_residual(
+                             _call, so, kl, x, b, cols, vals, c), 1,
+                         "residual", "residual"))
+            for nu, zero in itertools.product(nus, (True, False)):
+                kn = dk.DiaKernelLevel(lev, nu)
+                runs.append((
+                    kn.smooth_plain(x, b, cols, vals, zero_init=zero),
+                    lambda so, c, kn=kn, z=zero: dia_lib_smooth(
+                        _call, so, kn, x, b, cols, vals, kn.nu, z, c),
+                    nu, "smooth", f"smooth nu={nu} from {'0' if zero else 'x'}"))
+        for want, run, launches, op, form in runs:
             ref = None
             if old is not None:
-                ref = run(old, None)
+                ref = run(old, old_chunk(T, op))
                 n += launches
             for chunk in range(1, T + 1):
                 _close((label, form, str(dtype), T, chunk), run(new, chunk),
@@ -763,8 +865,9 @@ def main() -> int:
     if "stencil" in run:
         n += check_stencil(new if "fused" in run else build_stencil(), old)
     if "var_stencil" in run:
-        n += check_var_stencil(
-            new if "fused" in run else build_var_stencil(), old)
+        lib = new if "fused" in run else build_var_stencil()
+        n += check_var_stencil(lib, old)
+        n += check_var_sweep(lib, old)
     if "kron" in run:
         n += check_kron(build_kron(), old_kron)
     if "dia" in run:

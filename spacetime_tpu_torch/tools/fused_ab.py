@@ -82,8 +82,9 @@ chunk this tree's wrapper picks.
   (they launch no weighted kernel), and cfg2 (129²×64); 3d smooth3d,
   varcoef3d and singular3d 65³ J5+4 and smooth3d 129³×64 (``--repeat
   2``); flat the nested lshape2d 32 cells refined 4×, J = 7 (25.2 MDoF,
-  K16–K18) and AMG lshape2d n = 256, J = 6; or solves by name, and these,
-  comma-separated. ``--solves-only`` skips the fused stages; ``--traces
+  K16–K18) and AMG lshape2d n = 256, J = 6; v21 the weighted V(2,1)
+  cycles (``--mg-nu-post 1``: K10 → K13 → K9 → K10) of varcoef2d
+  129²×64 and 513²×128; or solves by name, and these, comma-separated. ``--solves-only`` skips the fused stages; ``--traces
   TDIR`` traces varcoef2d 513², smooth2d 513², smooth3d 129³ and the
   nested lshape2d in their second run of this tree.
 - ``--copies``: the steady f32 ``solve`` of smooth2d 513²×128 and
@@ -150,6 +151,13 @@ SOLVES = {
         ("smooth3d-129", ["--problem", "smooth3d", "--space-n", "128",
                           "--time-levels", "6", "--repeat", "2"]),
     ],
+    # the weighted V(2,1) cycles, K10 → K13 → K9 → K10 on every level
+    "v21": [
+        ("varcoef2d-v21", ["--problem", "varcoef2d", "--space-n", "128",
+                           "--time-levels", "6", "--mg-nu-post", "1"]),
+        ("varcoef2d-513-v21", ["--problem", "varcoef2d", "--space-n", "512",
+                               "--time-levels", "7", "--mg-nu-post", "1"]),
+    ],
     "flat": [
         ("nested-lshape2d", ["--problem", "lshape2d", "--space-n", "32",
                              "--refine", "4", "--time-levels", "7"]),
@@ -211,6 +219,13 @@ def bind_parent(so: ctypes.CDLL) -> ctypes.CDLL:
     chunk = [I] if hasattr(so, "mg_var_stencil_occupancy") else []
     signatures["mg_residual_var"] = [P] * 5 + grid + [P, P] + chunk + [P]
     signatures["mg_apply_var"] = [P] * 3 + grid + [P] + chunk + [P]
+    # K10 before its time march: the tiled sweep (x, b, W, the columns,
+    # out, the grid, the tables, ν, zero_init) and the chained step
+    if hasattr(so, "mg_cheb_step_var_f32"):
+        D = ctypes.c_double
+        signatures["mg_smooth_var"] = [P] * 7 + grid + [P, P, I, I, P]
+        signatures["mg_cheb_step_var"] = [P] * 10 + grid + [P, P, I, D, D,
+                                                             P]
     for sfx in ("f32", "f64"):
         for name, argtypes in signatures.items():
             fn = getattr(so, f"{name}_{sfx}")
@@ -453,7 +468,7 @@ def run_var_stencil(parent: Path, chunks: bool) -> None:
     entry = None
     for line in native.LIB.build_log.splitlines():
         if "Compiling entry" in line:
-            m = re.search(r"(mg_var_stencil_kernel\w*?Lb[01]ELb[01]E)", line)
+            m = re.search(r"(mg_var_stencil_kernel\w*?Li\d+ELb[01]E)", line)
             entry = m.group(1) if m else None
         elif entry and ("Used" in line or "spill" in line):
             print("ptxas:", entry, line.split(":", 1)[-1].strip(), flush=True)
@@ -487,10 +502,10 @@ def run_var_stencil(parent: Path, chunks: bool) -> None:
 
         ntaps = len(kl.A_vs.disps)
         for label, res, new_fn, old_fn, twin_fn, nbytes in (
-                ("K11", True, lambda: (kl.residual(x, b, cols, W),), old_res,
-                 lambda: (kl.residual_plain(x, b, cols, W),),
+                ("K11", "residual", lambda: (kl.residual(x, b, cols, W),),
+                 old_res, lambda: (kl.residual_plain(x, b, cols, W),),
                  s * (3 * m + nw + T)),
-                ("K12", False, lambda: (kl.apply_A(x, W),), old_apply,
+                ("K12", "apply", lambda: (kl.apply_A(x, W),), old_apply,
                  lambda: (kl.apply_A_plain(x, W),), s * (2 * m + nw))):
             resident, tiles, smem, threads = mg_kernels.var_stencil_plan(
                 res, kl.dim, dtype, ntaps, gs, x.device.index)
@@ -514,25 +529,48 @@ def run_var_stencil(parent: Path, chunks: bool) -> None:
         torch.cuda.empty_cache()
 
 
-# (label, level of the solver, T) of the K16/K17 A/B: the nested 25.2 MDoF
+# (label, level of the solver, T) of the K16–K18 A/B: the nested 25.2 MDoF
 # solve's fine level at K_X's 129 rows and K_Y's 128 and its second level
-# at 129 (nested), the AMG n = 256 solve's DIA fine level at 65 and 64 (amg)
+# at 129 (nested), the AMG n = 256 solve's DIA fine level at 65 and 64
+# (amg), the nested tetrahedra's fine level (smooth3d 8 cells refined 2×,
+# 15 offsets) and a synthetic level of 20 offsets (the shared tile) on as
+# many dofs as the nested fine level, at 129
 DIA_AB = [("nested", 0, 129), ("nested", 0, 128), ("nested", 1, 129),
-          ("amg", 0, 65), ("amg", 0, 64)]
+          ("amg", 0, 65), ("amg", 0, 64), ("tet", 0, 129),
+          ("synthetic", 0, 129)]
 
 
 def bind_parent_dia(so: ctypes.CDLL) -> ctypes.CDLL:
-    """The parent's K16 and K17 entry points ``dia_smooth`` and
-    ``dia_residual`` (f32 and f64) of library ``so``, bound with the
-    signatures before their time march (no last or chunk)."""
+    """The parent's K16, K17 and K18 entry points ``dia_smooth``,
+    ``dia_residual`` and ``dia_apply`` (f32 and f64) of library ``so``,
+    bound with that tree's signatures: K16 and K17 with the march's last
+    and chunk where the library has ``dia_march_occupancy``, else without;
+    K18 with the chunk where its march takes the apply mode (4)."""
     P, I64, I, D = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_double
-    signatures = {"dia_smooth": [P] * 13 + [I64, I64, P, I, D, D, P],
-                  "dia_residual": [P] * 6 + [I64, I64, P, P]}
+    march = hasattr(so, "dia_march_occupancy")
+    signatures = {"dia_smooth": [P] * 13 + [I64, I64, P, I, D, D]
+                  + ([I, I] if march else []) + [P],
+                  "dia_residual": [P] * 6 + [I64, I64, P]
+                  + ([I] if march else []) + [P],
+                  "dia_apply": [P] * 3 + [I64, I64, P]
+                  + ([I] if parent_dia_apply_marches(so) else []) + [P]}
     for sfx in ("f32", "f64"):
         for name, argtypes in signatures.items():
             fn = getattr(so, f"{name}_{sfx}")
             fn.argtypes, fn.restype = argtypes, I
     return so
+
+
+def parent_dia_apply_marches(so) -> bool:
+    """Whether library ``so``'s K18 is a mode of the DIA march (it takes a
+    chunk): its ``dia_march_occupancy`` knows mode 4."""
+    if not hasattr(so, "dia_march_occupancy"):
+        return False
+    out = [ctypes.c_int() for _ in range(3)]
+    fn = so.dia_march_occupancy
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    return fn(4, 0, 11, *map(ctypes.byref, out)) == 0
 
 
 def build_parent_dia(parent: Path) -> ctypes.CDLL:
@@ -586,6 +624,48 @@ def dia_lib_smooth(call, so, kl, x, b, cols, vals, nu, zero_init,
     return out
 
 
+def dia_lib_apply(call, so, kl, x, vals, chunk=None):
+    """K18 by library ``so``'s ``dia_apply`` (as ``dia_lib_smooth``: with
+    ``chunk`` a march's, at that chunk of rows; without, one from before
+    the march)."""
+    sfx = "f32" if x.dtype == torch.float32 else "f64"
+    out = torch.empty_like(x)
+    call(so, f"dia_apply_{sfx}", x.data_ptr(), vals["vA"].data_ptr(),
+         out.data_ptr(), x.shape[0], kl.m, ctypes.addressof(kl.struct),
+         *(() if chunk is None else (chunk,)))
+    return out
+
+
+def var_lib_smooth(call, so, kl, x, b, W, cols, nu, zero_init, chunk=None):
+    """K10's sweep of ``nu`` steps by library ``so`` (``call`` passes the
+    stream): with ``chunk`` (time rows, or a function of a launch's mode
+    and ``last`` giving them) this tree's launches (``mg_smooth_var``, from
+    0 the first two steps in one); without, an earlier tree's chained steps
+    (``mg_cheb_step_var``, one thread a point)."""
+    from ..ops.mg_kernels import _VAR_FIRST, chebyshev_launches
+
+    T = b.shape[0]
+    sfx = "f32" if b.dtype == torch.float32 else "f64"
+    out, r = torch.empty_like(b), torch.empty_like(b)
+    d = (torch.empty_like(b), torch.empty_like(b))
+    cp = [cols[k].data_ptr() for k in kl._COLS]
+
+    def step(mode, d_in, d_out, c1, c2, last):
+        args = (x.data_ptr() if mode == "first" else None, b.data_ptr(),
+                W.data_ptr(), *cp, r.data_ptr(),
+                None if d_in is None else d[d_in].data_ptr(),
+                d[d_out].data_ptr(), out.data_ptr(), T, *kl._zyx(),
+                *kl._tables(), _VAR_FIRST[mode], c1, c2)
+        if chunk is None:
+            call(so, f"mg_cheb_step_var_{sfx}", *args)
+        else:
+            call(so, f"mg_smooth_var_{sfx}", *args, int(last),
+                 chunk(mode, last) if callable(chunk) else chunk)
+
+    chebyshev_launches(step, nu, zero_init, first_two=chunk is not None)
+    return out
+
+
 def dia_lib_residual(call, so, kl, x, b, cols, vals, chunk=None):
     """K17 by library ``so``'s ``dia_residual`` (as ``dia_lib_smooth``)."""
     sfx = "f32" if b.dtype == torch.float32 else "f64"
@@ -598,10 +678,12 @@ def dia_lib_residual(call, so, kl, x, b, cols, vals, chunk=None):
 
 
 def dia_bound_ms(form: str, kl, T: int, dtype) -> float:
-    """The HBM bound of K16 (ν = kl.nu, from x or from 0) or K17 at T rows:
-    each field read once and the output written once, the values (and
-    K16's diagonals) once, at 3.35 TB/s."""
+    """The HBM bound of K16 (ν = kl.nu, from x or from 0), K17 or K18 at T
+    rows: each field read once and the output written once, the values
+    (and K16's diagonals) once, at 3.35 TB/s."""
     sz, m, nd = torch.finfo(dtype).bits // 8, kl.m, len(kl.offsets)
+    if form == "apply":
+        return sz * (2 * T * m + nd * m) / HBM_BYTES_PER_MS
     if form == "residual":
         return sz * (3 * T * m + 2 * nd * m + T) / HBM_BYTES_PER_MS
     fields = 2 if form == "smooth from 0" else 3
@@ -609,15 +691,22 @@ def dia_bound_ms(form: str, kl, T: int, dtype) -> float:
 
 
 def run_dia(parent: Path, chunks: bool) -> None:
-    """K16 and K17 of this tree against DIR's (before their march) at
-    ``DIA_AB``, float32 and float64, ν ∈ {2, 3}: max|new − old|, both held
-    to the twin, median device times old, new, twin, new, old, the bound,
-    the plan and, with ``chunks``, this tree's time at half and twice its
-    chunk; ptxas's registers of each march kernel."""
+    """K16, K17 and K18 of this tree against DIR's at ``DIA_AB``, float32
+    and float64, K16 at ν ∈ {2, 3}: max|new − old|, both held to the twin,
+    median device times old, new, twin, new, old, the bound, the plan and,
+    with ``chunks``, this tree's time at half and twice its chunk; K18
+    beside ``torch.sparse.mm`` (A in CSR) at the nested fine level;
+    ptxas's registers of each march kernel. DIR's K16/K17 take the chunk
+    this tree picks where they march (``bind_parent_dia``)."""
+    import types
+
     from ..ops import dia_kernels as dk
     from ..solver import build_solver
+    from .cpu_emulate import synthetic_level
 
     so = build_parent_dia(parent)
+    old_march = hasattr(so, "dia_march_occupancy")
+    old_apply_march = parent_dia_apply_marches(so)
     lib = native.LIB.get()
     entry = None
     for line in native.LIB.build_log.splitlines():
@@ -632,7 +721,14 @@ def run_dia(parent: Path, chunks: bool) -> None:
                                device="cuda", refine=4, inner="mg"),
         "amg": build_solver("lshape2d", 256, 6, dtype=torch.float32,
                             device="cuda", inner="amg"),
+        "tet": build_solver("smooth3d", 8, 3, dtype=torch.float32,
+                            device="cuda", refine=2, inner="mg"),
     }
+    m_fine = solvers["nested"].m
+    synth = synthetic_level(20, m_fine)
+    solvers["synthetic"] = types.SimpleNamespace(
+        msmg=types.SimpleNamespace(levels=[synth]),
+        _kl_ky=[dk.DiaKernelLevel(synth, 2)])
     print(f"setup {time.perf_counter() - t0:.2f} s", flush=True)
     rng = np.random.default_rng(17)
     for dtype, (name, li, T) in itertools.product(
@@ -645,19 +741,28 @@ def run_dia(parent: Path, chunks: bool) -> None:
         mk = _fields(rng, dtype)
         x, b = mk((T, lev.m)), mk((T, lev.m))
         nd = len(base.offsets)
-        cases = [("residual", 2, "residual", lambda kl: (
+        old_c = lambda kl, mode, on: kl.plan(mode, b)["chunk"] if on else None
+        cases = [("apply", 2, "apply", lambda kl: (
+            lambda: (kl.apply_A(x, vals),),
+            lambda: (dia_lib_apply(_call, so, kl, x, vals,
+                                   old_c(kl, "apply", old_apply_march)),),
+            lambda: (kl.apply_A_plain(x, vals),),
+            lambda c: (dia_lib_apply(_call, lib, kl, x, vals, c),)))]
+        cases.append(("residual", 2, "residual", lambda kl: (
             lambda: (kl.residual(x, b, cols, vals),),
-            lambda: (dia_lib_residual(_call, so, kl, x, b, cols, vals),),
+            lambda: (dia_lib_residual(_call, so, kl, x, b, cols, vals,
+                                      old_c(kl, "residual", old_march)),),
             lambda: (kl.residual_plain(x, b, cols, vals),),
             lambda c: (dia_lib_residual(_call, lib, kl, x, b, cols, vals,
-                                        c),)))]
+                                        c),))))
         for nu, zero in itertools.product((2, 3), (True, False)):
             cases.append(("step", nu,
                           "smooth from 0" if zero else "smooth from x",
                           lambda kl, z=zero: (
                 lambda: (kl.smooth(x, b, cols, vals, zero_init=z),),
                 lambda: (dia_lib_smooth(_call, so, kl, x, b, cols, vals,
-                                        kl.nu, z),),
+                                        kl.nu, z,
+                                        old_c(kl, "step", old_march)),),
                 lambda: (kl.smooth_plain(x, b, cols, vals, zero_init=z),),
                 lambda c: (dia_lib_smooth(_call, lib, kl, x, b, cols, vals,
                                           kl.nu, z, c),))))
@@ -670,14 +775,195 @@ def run_dia(parent: Path, chunks: bool) -> None:
                      "bound_ms": dia_bound_ms(form, kl, T, dtype)}
             if chunks:
                 # every launch at the chunk of ``mode`` (a sweep's later
-                # steps, or K17), halved and doubled
+                # steps, K17 or K18), halved and doubled; K18 also at 1 to
+                # 8 rows (its rows are latency-bound where a level has few
+                # segments)
                 c = plan["chunk"]
+                ks = {max(c // 2, 1), c, min(2 * c, T)}
+                if mode == "apply":
+                    ks |= {k for k in (1, 2, 4, 8) if k < T}
                 extra["chunk_ms"] = {k: device_ms(lambda k=k: plan_fn(k))
-                                     for k in sorted({max(c // 2, 1), c,
-                                                      min(2 * c, T)})}
-            compare("K17" if mode == "residual" else "K16", kl, T, dtype,
-                    new_fn, old_fn, twin_fn, extra=extra, time_twin=True)
+                                     for k in sorted(ks)}
+            if mode == "apply" and name == "nested" and li == 0:
+                extra["library_ms"] = device_ms(
+                    sparse_apply(lev, dtype, x))
+            label = {"apply": "K18", "residual": "K17"}.get(mode, "K16")
+            compare(label, kl, T, dtype, new_fn, old_fn, twin_fn,
+                    extra=extra, time_twin=True)
         del x, b, vals
+        torch.cuda.empty_cache()
+
+
+def sparse_apply(lev, dtype, x):
+    """K18's library call: ``torch.sparse.mm`` with the level's A in CSR
+    on the card, on x's rows as columns."""
+    import scipy.sparse as sp
+
+    m = lev.Av.shape[0]
+    rows = np.repeat(np.arange(m), len(lev.offA))
+    cols = rows + np.tile(np.asarray(lev.offA), m)
+    keep = (cols >= 0) & (cols < m) & (lev.Av.ravel() != 0)
+    A = sp.csr_matrix((lev.Av.ravel()[keep], (rows[keep], cols[keep])),
+                      shape=(m, m))
+    A_sp = torch.sparse_csr_tensor(
+        torch.as_tensor(A.indptr, dtype=torch.int64),
+        torch.as_tensor(A.indices, dtype=torch.int64),
+        torch.as_tensor(A.data, dtype=dtype), size=A.shape).to("cuda")
+    xt = x.t().contiguous()
+    return lambda: (torch.sparse.mm(A_sp, xt),)
+
+
+# (T, grid) of the K10 A/B: the varcoef2d 513² solve's two finest levels and
+# its 129² run's finest at K_X's rows, a row of eight segments, the
+# varcoef3d 65³ solve's finest level and the 129³×32 solve's (W past the
+# L2); ν 1, 2, 3 from x and from 0, and the ν above the old tiled kernel
+VAR_SWEEP_AB_SHAPES = [(129, (511, 511)), (129, (255, 255)), (65, (127, 127)),
+                       (33, (255, 1985)), (33, (63,) * 3), (33, (127,) * 3)]
+VAR_SWEEP_CHAINED = {2: 9, 3: 4}
+# where the K15 march stands in for K10 from x at ν = 2 (e_c = 0)
+MARCH_AS_K10 = [(129, (511, 511)), (33, (127,) * 3)]
+# (T, grid) where K10 is held to DIR's chain bit for bit on both tables of
+# ``cpu_emulate.sweep_levels`` (the varcoef weights and the other home's),
+# ν 1–5 from x and from 0, at chunks of 1, 3 and T rows: ragged 2-D and 3-D
+# grids, a row of five segments
+VAR_SWEEP_EXACT = [(9, (15, 31)), (5, (33, 1055)), (5, (7, 9, 15)),
+                   (9, (17, 33, 65))]
+
+
+def var_sweep_exact(so, lib) -> None:
+    """K10 of library ``lib`` (this tree's, launched as its wrapper does)
+    against DIR's chained steps (``so``) bit for bit at
+    ``VAR_SWEEP_EXACT``, float32 and float64; prints one JSON line a case
+    and a summary of the cases that differ."""
+    from .cpu_emulate import sweep_levels
+
+    rng = np.random.default_rng(1)
+    cases = differ = 0
+    for dtype, (T, gs) in itertools.product((torch.float32, torch.float64),
+                                            VAR_SWEEP_EXACT):
+        mk = _fields(rng, dtype)
+        x, b = mk((T,) + gs), mk((T,) + gs)
+        for (lev, Wn, var), nu, zero in itertools.product(
+                sweep_levels(len(gs), gs), range(1, 6), (False, True)):
+            kl = VarMSKernelLevel(lev, nu, gs=gs)
+            W = torch.as_tensor(Wn, dtype=dtype, device="cuda")
+            cols = kl.columns(var_row_params(
+                var, np.abs(rng.standard_normal(T)) * 20, dtype, "cuda")[0])
+            old = var_lib_smooth(_call, so, kl, x, b, W, cols, nu, zero)
+            errs = {c: _err(var_lib_smooth(_call, lib, kl, x, b, W, cols, nu,
+                                           zero, c), old)
+                    for c in sorted({1, 3, T})}
+            cases += 1
+            differ += any(errs.values())
+            _emit({"kernel": "K10 exact", "T": T, "gs": list(gs),
+                   "taps": len(lev.A_vs.disps), "nu": nu,
+                   "form": "from 0" if zero else "from x",
+                   "dtype": str(dtype)[6:], "max_abs_new_old": errs})
+    _emit({"kernel": "K10 exact", "cases": cases, "differ": differ})
+
+
+def run_var_sweep(parent: Path, chunks: bool) -> None:
+    """K10 of this tree (its step launches on the time march) against DIR's
+    chained steps (``mg_cheb_step_var``: bit for bit, max|new − old|; first
+    at the small ragged ``VAR_SWEEP_EXACT`` on both homes of the weights,
+    every chunk kind, ``var_sweep_exact``) and
+    DIR's tiled sweep (``mg_smooth_var`` within its ν: max|new − tiled|),
+    both held to the twin, at ``VAR_SWEEP_AB_SHAPES``, float32 and float64,
+    ν = 1, 2, 3 from x and from 0 and ν = 9 (2-D) / 4 (3-D): median device
+    times old (the chain), new, tiled (as "pair"), twin, new, old, the
+    HBM bound (x, b and the output once, W once), each launch's plan; with
+    ``chunks`` this tree's time with every step at half and twice the
+    later step's chunk. At ``MARCH_AS_K10``, ν = 2 from x, the time of
+    this tree's K15 with e_c = 0 (its march computing a K10 from x, less
+    the prolongation's arithmetic but reading e_c) beside K10's."""
+    from ..ops import mg_kernels
+
+    so = build_parent(parent)
+    lib = native.LIB.get()
+    entry = None
+    for line in native.LIB.build_log.splitlines():
+        if "Compiling entry" in line:
+            m = re.search(r"(mg_var_stencil_kernel\w*?Li\d+ELb[01]E)", line)
+            entry = m.group(1) if m else None
+        elif entry and ("Used" in line or "spill" in line):
+            print("ptxas:", entry, line.split(":", 1)[-1].strip(), flush=True)
+    var_sweep_exact(so, lib)
+    var = {dim: var_hierarchy(dim) for dim in (2, 3)}
+    rng = np.random.default_rng(10)
+    for dtype, (T, gs) in itertools.product((torch.float32, torch.float64),
+                                            VAR_SWEEP_AB_SHAPES):
+        sfx = "f32" if dtype == torch.float32 else "f64"
+        sz = torch.finfo(dtype).bits // 8
+        dim = len(gs)
+        ms = var[dim]
+        W = tiled_weights(ms, gs, dtype)
+        mk = _fields(rng, dtype)
+        x, b = mk((T,) + gs), mk((T,) + gs)
+        omega = np.abs(rng.standard_normal(T)) * 20
+        m, nw = T * int(np.prod(gs)), W.numel()
+        for nu, zero in itertools.chain(
+                itertools.product((1, 2, 3), (False, True)),
+                ((VAR_SWEEP_CHAINED[dim], False),
+                 (VAR_SWEEP_CHAINED[dim], True))):
+            kl = VarMSKernelLevel(ms.levels[0], nu, gs=gs)
+            cols = kl.columns(var_row_params(ms, omega, dtype, "cuda")[0])
+            cp = [cols[k].data_ptr() for k in kl._COLS]
+            tiled_out = torch.empty_like(b)
+
+            def tiled():
+                _call(so, f"mg_smooth_var_{sfx}",
+                      None if zero else x.data_ptr(), b.data_ptr(),
+                      W.data_ptr(), *cp, tiled_out.data_ptr(), T,
+                      *kl._zyx(), *kl._tables(), nu, int(zero))
+                return (tiled_out,)
+
+            new_fn = lambda: (kl.smooth(x, b, cols, W, zero_init=zero),)
+            old_fn = lambda: (var_lib_smooth(_call, so, kl, x, b, W, cols, nu,
+                                             zero),)
+            twin_fn = lambda: (kl.smooth_plain(x, b, cols, W,
+                                               zero_init=zero),)
+            in_tile = nu <= mg_kernels.MAX_NU[dim]
+            launches = []
+            mg_kernels.chebyshev_launches(
+                lambda mode, d_in, d_out, c1, c2, last: launches.append(
+                    (mode, last)), nu, zero, first_two=True)
+            plans = []
+            for mode, last in launches:
+                resident, tiles, smem, _ = mg_kernels.var_stencil_plan(
+                    mode, dim, dtype, len(kl.A_vs.disps), gs, 0)
+                plans.append({"mode": mode, "last": last,
+                              "chunk": kl._var_stencil_chunk(x, mode, last),
+                              "blocks_per_sm": resident, "tiles": tiles,
+                              "smem_bytes": smem})
+            extra = {"form": "from 0" if zero else "from x", "plans": plans,
+                     "bound_ms": sz * ((2 if zero else 3) * m + nw + 3 * T)
+                     / HBM_BYTES_PER_MS}
+            if in_tile:
+                torch.cuda.synchronize()
+                extra["max_abs_new_tiled"] = _err(new_fn()[0], tiled()[0])
+            if chunks:
+                c = plans[-1]["chunk"]
+                extra["chunk_ms"] = {}
+                for k in sorted({max(c // 2, 1), c, min(2 * c, T)}):
+                    extra["chunk_ms"][k] = device_ms(
+                        lambda k=k: (var_lib_smooth(_call, lib, kl, x, b, W,
+                                                    cols, nu, zero, k),))
+            compare("K10", kl, T, dtype, new_fn, old_fn, twin_fn,
+                    pair_fn=tiled if in_tile else None, extra=extra,
+                    time_twin=True)
+            if (T, gs) in MARCH_AS_K10 and nu == 2 and not zero:
+                ec = torch.zeros((T,) + kl.coarse_gs, dtype=dtype,
+                                 device="cuda")
+                march = lambda: (kl.fused_post(x, b, ec, cols, W),)
+                _close_twin = _err(march()[0], twin_fn()[0])
+                k10 = device_ms(new_fn)
+                k15 = device_ms(march)
+                _emit({"kernel": "K15 march as K10 from x", "T": T,
+                       "gs": list(gs), "nu": 2, "dtype": str(dtype)[6:],
+                       "max_abs_twin": _close_twin, "march_ms": k15,
+                       "k10_ms": k10, "k10_again_ms": device_ms(new_fn),
+                       "march_again_ms": device_ms(march)})
+        del x, b, W
         torch.cuda.empty_cache()
 
 
@@ -1205,9 +1491,12 @@ def main() -> int:
     p.add_argument("--stencil", action="store_true",
                    help="K4/K5 against DIR's in place of the fused stages")
     p.add_argument("--dia", action="store_true",
-                   help="K16/K17 against DIR's in place of the fused stages")
+                   help="K16-K18 against DIR's in place of the fused stages")
     p.add_argument("--var-stencil", action="store_true",
                    help="K11/K12 against DIR's in place of the fused stages")
+    p.add_argument("--var-sweep", action="store_true",
+                   help="K10 against DIR's chained and tiled sweeps in place "
+                        "of the fused stages")
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("fused_ab needs an NVIDIA GPU", file=sys.stderr)
@@ -1225,6 +1514,8 @@ def main() -> int:
         run_dia(args.parent.resolve(), args.chunks)
     elif args.var_stencil:
         run_var_stencil(args.parent.resolve(), args.chunks)
+    elif args.var_sweep:
+        run_var_sweep(args.parent.resolve(), args.chunks)
     elif not args.solves_only:
         run_kernels(args.parent.resolve(), dims, args.family.split(","),
                     args.chunks)

@@ -5,9 +5,10 @@ weighted K10–K15 (2-D and 3-D, the fused K6/K7 and K14/K15 at ν 2 and 3,
 the 3-D K6/K7/K14/K15 on their z-marching kernels, the 2-D K6/K7 (serial
 and sharded) and K14/K15 on their y-marching ones, at chunks of one row to
 the whole column; K11/K12 on their time march, at chunks of one time row
-to all, the weights in registers and in the shared tile), the chained
-sweeps of K3/K10 above the tiled ν, the blocked-ELL SpMM K20, the
-banded-DIA K16–K18 (K16 at ν 1, 2, 3, 4), the pair SpMM K19 and the
+to all, the weights in registers and in the shared tile; K10's steps on
+that march at every ν), the chained sweep of K3 above the tiled ν, the
+blocked-ELL SpMM K20, the banded-DIA K16–K18 (K16 at ν 1, 2, 3, 4; K18 on
+the DIA march past 16 offsets too), the pair SpMM K19 and the
 sharded-slab forms (K3 with ``vmask``, K6/K7/K8/K9 with ``lead``) on the
 card, against their plain twins, small solves on the card against the CPU,
 and a two-rank (time 1 × space 2) gloo solve on the card against the serial
@@ -431,10 +432,12 @@ def test_var_semi_kernels_match_twins(var_msmg, dtype, nu, gs):
     counts = _check_semi_var(kl, *_var_inputs(var_msmg, kl, 5, dtype, nu),
                              dtype)
     sfx = "f32" if dtype == torch.float32 else "f64"
-    assert counts[f"K10 mg_smooth_var {sfx}"] == 3
+    # from x, from 0 (its first two steps one launch), the post-sweep
+    steps = nu + mg_kernels.k10_launches(nu, True) + kl.nu_post
+    assert counts[f"K10 mg_smooth_var {sfx}"] == steps
     assert counts[f"K13 mg_residual_restrict_var {sfx}"] == 1
     assert counts[f"K9 mg_prolong_correct {sfx}"] == 1
-    assert sum(counts.values()) == 5
+    assert sum(counts.values()) == steps + 2
 
 
 @pytest.fixture(scope="module")
@@ -462,8 +465,8 @@ def var_msmg3d():
 @pytest.mark.parametrize("nu", [1, 2, 3])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_var_kernels_3d_match_twins(var_msmg3d, dtype, nu, gs):
-    """K10, K11, K12, K13 (and K9) in 3-D, the chained sweep above ν = 3,
-    and K14/K15 at ν = 2 and 3."""
+    """K10, K11, K12, K13 (and K9) in 3-D, K10 at ν = 4, and K14/K15 at ν =
+    2 and 3."""
     kl = VarMSKernelLevel(var_msmg3d.levels[0], nu, nu_post=nu % 3 + 1, gs=gs)
     x, b, ec, cols, W = _var_inputs(var_msmg3d, kl, 5, dtype, nu)
     _check_semi_var(kl, x, b, ec, cols, W, dtype)
@@ -472,16 +475,17 @@ def test_var_kernels_3d_match_twins(var_msmg3d, dtype, nu, gs):
     _close(kl.apply_A(x, W), kl.apply_A_plain(x, W), dtype)
     sfx = "f32" if dtype == torch.float32 else "f64"
     counts = mg_kernels.launch_counts()
-    assert counts[f"K10 mg_smooth_var_3d {sfx}"] == 3
+    steps = nu + mg_kernels.k10_launches(nu, True) + kl.nu_post
+    assert counts[f"K10 mg_smooth_var_3d {sfx}"] == steps
     for name in ("K11 mg_residual_var", "K12 mg_apply_var",
                  "K13 mg_residual_restrict_var", "K9 mg_prolong_correct"):
         assert counts[f"{name}_3d {sfx}"] == 1, (name, counts)
-    assert sum(counts.values()) == 7
-    # above the tiled sweep's ν ≤ 3 the sweep chains one-step launches
+    assert sum(counts.values()) == steps + 4
+    # every ν is ν step launches, above the old tiled ν ≤ 3 too
     kl4 = VarMSKernelLevel(var_msmg3d.levels[0], 4, gs=gs)
     mg_kernels.reset_launch_counts()
     _close(kl4.smooth(x, b, cols, W), kl4.smooth_plain(x, b, cols, W), dtype)
-    assert mg_kernels.launch_counts()[f"K10 mg_cheb_step_var_3d {sfx}"] == 4
+    assert mg_kernels.launch_counts()[f"K10 mg_smooth_var_3d {sfx}"] == 4
     kf = VarMSKernelLevel(var_msmg3d.levels[0], nu, gs=gs)
     assert kf.fused_ok == (nu > 1)
     if kf.fused_ok:
@@ -522,6 +526,8 @@ def test_small_weighted_semi_solve_matches_cpu(var_msmg, name, n, J, kw):
     else:
         ops = ("K10 mg_smooth_var", "K11 mg_residual_var", "K12 mg_apply_var",
                "K13 mg_residual_restrict_var", "K9 mg_prolong_correct")
+        # V(2,1): one K10 launch for the pre-sweep from 0 (its two steps)
+        # and one for the post-sweep, a level and cycle
         assert counts["K10 mg_smooth_var f64"] == 2 * counts[
             "K13 mg_residual_restrict_var f64"]
     for op in ops:
@@ -530,8 +536,8 @@ def test_small_weighted_semi_solve_matches_cpu(var_msmg, name, n, J, kw):
     assert all(c == 0 for k, c in counts.items() if k not in allowed), counts
 
 
-# ν above the tiled sweeps' halo (8 in 2-D, 3 in 3-D): the K3 and K10
-# wrappers chain ν one-step launches
+# ν above the tiled K3's halo (8 in 2-D, 3 in 3-D): its wrapper chains ν
+# one-step launches, as K10's does at every ν
 @pytest.mark.parametrize("dim, nu", [(2, 9), (3, 4), (3, 5)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_chained_sweeps_match_twins(msmg, msmg3d, var_msmg, var_msmg3d,
@@ -557,8 +563,8 @@ def test_chained_sweeps_match_twins(msmg, msmg3d, var_msmg, var_msmg3d,
            vk.smooth_plain(None, b, cols, W, zero_init=True), dtype)
     counts = mg_kernels.launch_counts()
     assert counts[f"K3 mg_cheb_step{d} {sfx}"] == 2 * nu
-    assert counts[f"K10 mg_cheb_step_var{d} {sfx}"] == 2 * nu
-    assert sum(counts.values()) == 4 * nu
+    assert counts[f"K10 mg_smooth_var{d} {sfx}"] == 2 * nu - 1
+    assert sum(counts.values()) == 4 * nu - 1
 
 
 def test_small_3d_solve_nu4_matches_cpu(msmg3d):
@@ -938,7 +944,7 @@ def test_var_stencil_march_matches_twins(dtype, T, gs):
         cols = kl.columns(var_row_params(
             var, np.abs(rng.standard_normal(T)) * 20, dtype, "cuda")[0])
         want = (kl.residual_plain(x, b, cols, W), kl.apply_A_plain(x, W))
-        for chunk in sorted({1, kl._var_stencil_chunk(x, True), T}):
+        for chunk in sorted({1, kl._var_stencil_chunk(x, "residual"), T}):
             kl._var_stencil_chunk = lambda *_, c=chunk: c
             mg_kernels.reset_launch_counts()
             _close(kl.residual(x, b, cols, W), want[0], dtype)
@@ -951,8 +957,8 @@ def test_var_stencil_march_matches_twins(dtype, T, gs):
 
 def test_var_stencil_refuses_a_wide_table(var_msmg):
     """A weighted table past the march's cap (a tap two cells away)
-    raises: the launch returns cudaErrorInvalidValue, and no other kernel
-    takes it."""
+    raises in K11, K12 and every step of K10: the launch returns
+    cudaErrorInvalidValue, and no other kernel takes it."""
     from spacetime_tpu_torch.ops.stencil import VarStencilOperator
 
     lev = var_msmg.levels[0]
@@ -963,6 +969,81 @@ def test_var_stencil_refuses_a_wide_table(var_msmg):
         kl.residual(x, b, cols, W)
     with pytest.raises(RuntimeError, match="mg_apply_var"):
         kl.apply_A(x, W)
+    for zero in (True, False):
+        with pytest.raises(RuntimeError, match="mg_smooth_var"):
+            kl.smooth(x, b, cols, W, zero_init=zero)
+
+
+# K10's steps on the weighted time march: ragged 2-D and 3-D grids, rows of
+# two and four segments, the weights in registers and in the shared tile
+# (the varcoef tables and ``tools.cpu_emulate.OTHER_TAPS``, its center made
+# dominant), ν = 1 to 4 from x and from 0, at chunks of one time row, the
+# wrapper's and all of them (every step at that chunk), against the twin
+@pytest.mark.parametrize("T,gs", [(5, (15, 31)), (3, (9, 1055)),
+                                  (2, (5, 1985)), (5, (7, 9, 15)),
+                                  (3, (13, 35, 67))],
+                         ids=lambda v: "x".join(map(str, v))
+                         if isinstance(v, tuple) else str(v))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_var_sweep_steps_match_twins(dtype, T, gs):
+    from spacetime_tpu_torch.ops import native
+    from spacetime_tpu_torch.tools import cpu_emulate
+    from spacetime_tpu_torch.tools.fused_ab import _call, var_lib_smooth
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    sfx = ("_3d " if len(gs) == 3 else " ") + (
+        "f32" if dtype == torch.float32 else "f64")
+    rng = np.random.default_rng(T)
+    mk = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
+    x, b = (mk(rng.standard_normal((T,) + gs)) for _ in range(2))
+    lib = native.LIB.get()
+    for (lev, Wn, var), nu in itertools.product(
+            cpu_emulate.sweep_levels(len(gs), gs), (1, 2, 3, 4)):
+        kl = VarMSKernelLevel(lev, nu, gs=gs)
+        W = mk(Wn)
+        cols = kl.columns(var_row_params(
+            var, np.abs(rng.standard_normal(T)) * 20, dtype, "cuda")[0])
+        for zero in (True, False):
+            want = kl.smooth_plain(x, b, cols, W, zero_init=zero)
+            for chunk in sorted({1, kl._var_stencil_chunk(x, "step"), T}):
+                _close(var_lib_smooth(_call, lib, kl, x, b, W, cols, nu, zero,
+                                      chunk), want, dtype)
+            mg_kernels.reset_launch_counts()
+            _close(kl.smooth(x, b, cols, W, zero_init=zero), want, dtype)
+            counts = mg_kernels.launch_counts()
+            launches = mg_kernels.k10_launches(nu, zero)
+            assert counts[f"K10 mg_smooth_var{sfx}"] == launches, counts
+            assert sum(counts.values()) == launches
+
+
+# K18 on the DIA march: the nested L-shape level (11 offsets, registers),
+# synthetic levels of 12, 16 (registers), 17 and 40 (the shared tile)
+# offsets on ragged dof counts, T = 1, 5 and 129, every chunk of T ≤ 5 and
+# the wrapper's, against the twin
+@pytest.mark.parametrize("nd", ["nested", 12, 16, 17, 40])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dia_apply_march_matches_twin(flat_levels, dtype, nd):
+    from spacetime_tpu_torch.ops import dia_kernels, native
+    from spacetime_tpu_torch.ops.dia_kernels import DiaKernelLevel
+    from spacetime_tpu_torch.tools.cpu_emulate import synthetic_level
+    from spacetime_tpu_torch.tools.fused_ab import _call, dia_lib_apply
+
+    lev = (flat_levels[0] if nd == "nested"
+           else synthetic_level(nd, 1000 + 37 * nd))
+    kl = DiaKernelLevel(lev, 2)
+    lib = native.LIB.get()
+    for T in (1, 5, 129):
+        _, x, _ = _dia_inputs(lev, T, dtype, T)
+        vals = kl.values(lev, dtype, "cuda")
+        want = kl.apply_A_plain(x, vals)
+        chunks = range(1, T + 1) if T <= 5 else (kl.plan("apply", x)["chunk"],)
+        for chunk in chunks:
+            _close(dia_lib_apply(_call, lib, kl, x, vals, chunk), want, dtype)
+        dia_kernels.reset_launch_counts()
+        _close(kl.apply_A(x, vals), want, dtype)
+        sfx = "f32" if dtype == torch.float32 else "f64"
+        assert dia_kernels.launch_counts()[f"K18 dia_apply {sfx}"] == 1
 
 
 # (T, own, h, other extents): the (2 × 2) flagship's finest slab (h = ν +

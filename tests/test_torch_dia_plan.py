@@ -1,5 +1,6 @@
-"""The launch plan of K16 (the DIA Chebyshev sweep's steps) and K17 (the
-DIA residual), which march in time (csrc/dia.cu ``dia_march_kernel``,
+"""The launch plan of K16 (the DIA Chebyshev sweep's steps), K17 (the DIA
+residual) and K18 (A x), which march in time (csrc/dia.cu
+``dia_march_kernel``,
 ``by_form``; ``ops/dia_kernels.py`` ``dia_chunk``, ``dia_plan``): the
 blocks of a launch (segments of the dofs by chunks of the time rows) write
 every (row, dof) once, at every chunk from one row to all of them; the
@@ -44,10 +45,12 @@ def held(nd: int) -> int:
 
 def want_occupancy(mode: int, f64: int, nd: int) -> tuple[int, int]:
     """(dynamic shared bytes, threads a block) of the march in ``mode`` on
-    ``nd`` offsets: the first step from 0 holds no values."""
+    ``nd`` offsets: the first step from 0 holds no values, K18 A's alone
+    (half K17's tile)."""
     if mode == dk.MODES["first_zero"] or held(nd) == REGS:
         return 0, SEG[REGS]
-    return 2 * nd * SEG[TILE] * (8 if f64 else 4), SEG[TILE]
+    arrays = 1 if mode == dk.MODES["apply"] else 2
+    return arrays * nd * SEG[TILE] * (8 if f64 else 4), SEG[TILE]
 
 
 @pytest.fixture(scope="module")
@@ -93,8 +96,9 @@ def test_form_by_offsets(emulated):
     """The library (csrc/dia.cu ``dia_march_occupancy``, emulated) holds
     the values in registers up to 16 offsets (every level of the repo's
     solves) and in a shared tile [k][dof] past them, which fits an H100
-    block at 64 in f64; it refuses no offsets and more than 64."""
-    for mode, f64 in itertools.product(range(4), (0, 1)):
+    block at 64 in f64; it refuses no offsets and more than 64. K18 takes
+    the same forms, its tile half K17's."""
+    for mode, f64 in itertools.product(range(len(MODES)), (0, 1)):
         for nd in range(MAX_DIAG + 2):
             out = [ctypes.c_int() for _ in range(3)]
             err = emulated.dia_march_occupancy(mode, f64, nd,
@@ -132,22 +136,26 @@ def test_chunks_at_the_repos_levels(mode):
     # of one row
     assert dk.dia_chunk("first_zero", 129, 764, 11, 4, SMS) <= dk.dia_chunk(
         "step", 129, 764, 11, 4, SMS)
+    # K18 holds nd values a dof and moves 2 fields a row: its values weigh
+    # as 6 rows, K16's later step's (2·nd + 2) as 4
+    assert dk.dia_chunk("apply", 129, 764, 11, 4, SMS) >= dk.dia_chunk(
+        "step", 129, 764, 11, 4, SMS)
 
 
 def test_dia_emulated_against_the_twins(emulated):
-    """csrc/dia.cu compiled for the CPU (``tools.cpu_emulate``): K17 and
-    K16 from 0 and from x at ν = 2, float32 and float64, T = 3 at every
-    chunk, on the nested L-shape's level of 705 dofs (11 offsets in
-    registers, three segments) and a synthetic level of 20 offsets (the
-    shared tile), against their twins."""
+    """csrc/dia.cu compiled for the CPU (``tools.cpu_emulate``): K18, K17
+    and K16 from 0 and from x at ν = 2, float32 and float64, T = 3 at
+    every chunk (K18 also at T = 7), on the nested L-shape's level of 705
+    dofs (11 offsets in registers, three segments) and a synthetic level
+    of 20 offsets (the shared tile), against their twins."""
     from spacetime_tpu_torch.tools import cpu_emulate
 
     levels = cpu_emulate.dia_levels()
     n = cpu_emulate.check_dia(emulated, None, levels=[levels[0], levels[2]],
-                              Ts=(3,), nus=(2,))
-    # per dtype: 3 chunks at each of the 2 levels, each a K17 launch and
-    # two sweeps of 2
-    assert n == 2 * 3 * 2 * 5
+                              Ts=(3,), nus=(2,), apply_Ts=(7,))
+    # per dtype and level: 3 chunks, each a K18 and a K17 launch and two
+    # sweeps of 2; K18's 7 chunks at T = 7
+    assert n == 2 * 2 * (3 * 6 + 7)
 
 
 @pytest.mark.cuda
@@ -162,7 +170,8 @@ def test_dia_plan_is_the_librarys():
 
     lib = native.LIB.get()
     for mode, f64, nd in itertools.product(
-            range(4), (0, 1), (0, 1, 11, 12, 13, 15, 16, 17, 20, 64, 65)):
+            range(len(MODES)), (0, 1),
+            (0, 1, 11, 12, 13, 15, 16, 17, 20, 64, 65)):
         out = [ctypes.c_int() for _ in range(3)]
         err = lib.dia_march_occupancy(mode, f64, nd, *map(ctypes.byref, out))
         if not 1 <= nd <= MAX_DIAG:
@@ -183,11 +192,11 @@ def test_dia_plan_is_the_librarys():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_dia_march_matches_twins_at_every_chunk(dtype):
-    """K17 and K16 (from 0 and from x, ν = 2 and 3) on the card at every
-    chunk of 1 to T = 5 rows, on the nested L-shape of 8 cells refined
-    three times (m = 2,945, 11 offsets: registers) and a synthetic level of
-    20 offsets (the shared tile), against their twins; the wrappers at
-    their own plan, too."""
+    """K18, K17 and K16 (from 0 and from x, ν = 2 and 3) on the card at
+    every chunk of 1 to T = 5 rows, on the nested L-shape of 8 cells
+    refined three times (m = 2,945, 11 offsets: registers) and a synthetic
+    level of 20 offsets (the shared tile), against their twins; the
+    wrappers at their own plan, too."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     from spacetime_tpu_torch.fem import (P1System, l_shape_mesh,
@@ -196,6 +205,7 @@ def test_dia_march_matches_twins_at_every_chunk(dtype):
     from spacetime_tpu_torch.ops.multigrid import NestedMultiShiftMultigrid
     from spacetime_tpu_torch.tools.cpu_emulate import synthetic_level
     from spacetime_tpu_torch.tools.fused_ab import (_call, dia_columns,
+                                                    dia_lib_apply,
                                                     dia_lib_residual,
                                                     dia_lib_smooth)
 
@@ -216,7 +226,10 @@ def test_dia_march_matches_twins_at_every_chunk(dtype):
             runs = [(kl.residual_plain(x, b, cols, vals),
                      lambda c: dia_lib_residual(_call, lib, kl, x, b, cols,
                                                 vals, c),
-                     lambda: kl.residual(x, b, cols, vals))]
+                     lambda: kl.residual(x, b, cols, vals)),
+                    (kl.apply_A_plain(x, vals),
+                     lambda c: dia_lib_apply(_call, lib, kl, x, vals, c),
+                     lambda: kl.apply_A(x, vals))]
             for zero in (True, False):
                 runs.append((
                     kl.smooth_plain(x, b, cols, vals, zero_init=zero),

@@ -384,7 +384,7 @@ def test_levels_dispatch_by_device(hierarchy):
              (10, "mg_smooth_var"), (11, "mg_residual_var"),
              (12, "mg_apply_var"), (13, "mg_residual_restrict_var"),
              (14, "mg_fused_pre_var"), (15, "mg_fused_post_var"),
-             (3, "mg_cheb_step"), (10, "mg_cheb_step_var"),
+             (3, "mg_cheb_step"),
              (3, "mg_sh_smooth"), (6, "mg_sh_fused_pre"),
              (7, "mg_sh_fused_post"), (8, "mg_sh_residual_restrict"),
              (9, "mg_sh_prolong_correct")}

@@ -1,15 +1,16 @@
-"""The launch plan of K11 (the weighted residual) and K12 (the weighted
-apply), which march in time (csrc/mg.cu ``var_plan``,
-``mg_var_stencil_kernel``; ``ops/mg_kernels.py`` ``var_stencil_chunk``): a
-block owns a tile (2-D: pencil rows by a segment of the row; 3-D: pencil
-planes by 8 × 32) and a chunk of the time rows. The blocks of a launch
-write every output point of every time row once, every tap of a block's
-points reads its window, whose points hold the grid's values where they
-lie in the grid and 0 (the Dirichlet ghost) past it, and a block's shared
-memory (x's two buffers and, past seven A taps, the weights' tile) fits the
-H100's limit in float32 and float64 at every width. The kernels' logic
-itself runs on the CPU in ``tools.cpu_emulate`` (g++), held here to the
-twins at two shapes with the weights in both homes."""
+"""The launch plan of K11 (the weighted residual), K12 (the weighted
+apply) and the steps of K10 (the weighted sweep), which march in time
+(csrc/mg.cu ``var_plan``, ``mg_var_stencil_kernel``; ``ops/mg_kernels.py``
+``var_stencil_chunk``): a block owns a tile (2-D: pencil rows by a segment
+of the row; 3-D: pencil planes by 8 × 32) and a chunk of the time rows.
+The blocks of a launch write every output point of every time row once,
+every tap of a block's points reads its window, whose points hold the
+grid's values where they lie in the grid and 0 (the Dirichlet ghost) past
+it, and a block's shared memory (the field's two buffers and, past seven A
+taps, the weights' tile; none in K10's first step from 0) fits the H100's
+limit in float32 and float64 at every width. The kernels' logic itself
+runs on the CPU in ``tools.cpu_emulate`` (g++), held here to the twins at
+two shapes with the weights in both homes."""
 
 import ctypes
 import itertools
@@ -19,14 +20,17 @@ import numpy as np
 import pytest
 import torch
 
-from spacetime_tpu_torch.ops.mg_kernels import var_stencil_chunk
+from spacetime_tpu_torch.ops.mg_kernels import VAR_MODES, var_stencil_chunk
 
 SMEM_PER_BLOCK = 232_448  # the most dynamic shared memory an H100 block takes
 SMS = 132  # the H100's SMs
-SEG = {True: 254, False: 574}  # csrc/mg.cu ``var_seg``: K11's, K12's
 TILE = (8, 32)  # the 3-D block's (y, x) tile
 PLANE = (TILE[0] + 2) * (TILE[1] + 2)  # the 3-D window plane
-RES = (True, False)  # K11, K12
+# the march's modes (csrc/mg.cu ``VarMode``): K11, K12 and K10's steps
+# (K10's three take K11's tiles: the tile tests take its later step)
+RES = ("residual", "apply", "first", "first_zero", "step", "first_two")
+TILED = ("residual", "apply", "step")
+TILED_IDS = ["K11", "K12", "K10"]
 REG_TAPS = 7  # ``kVarRowTaps``: the most A taps held in registers
 CAP = {2: 9, 3: 16}  # ``var_taps``: the most A (and mass) taps a table has
 DTYPES = (torch.float32, torch.float64)
@@ -40,27 +44,33 @@ SHAPES = [(129, (511, 511)), (128, (255, 255)), (65, (127, 127)),
           (1, (3, 575)), (2, (1, 5, 7)), (5, (3, 9, 15)), (1, (5, 17, 35))]
 
 
-def pencil(dim: int, dtype, res: bool) -> int:
+def seg(res: str) -> int:
+    """csrc/mg.cu ``var_seg``: the widest 2-D segment, K12's 574 columns,
+    K11's and K10's 254."""
+    return 574 if res == "apply" else 254
+
+
+def pencil(dim: int, dtype, res: str) -> int:
     """csrc/mg.cu ``var_pencil``: 2 planes in 3-D; 4 rows in 2-D, 2 for
-    K11 in float64."""
-    return 2 if dim == 3 or (res and dtype == torch.float64) else 4
+    K11 and K10 in float64."""
+    return 2 if dim == 3 or (res != "apply" and dtype == torch.float64) else 4
 
 
-def stride(dim: int, res: bool) -> int:
+def stride(dim: int, res: str) -> int:
     """csrc/mg.cu ``var_stride``: the widest 2-D window row, the 3-D window
     plane."""
-    return SEG[res] + 2 if dim == 2 else PLANE
+    return seg(res) + 2 if dim == 2 else PLANE
 
 
-def plan(gs, dtype, res: bool) -> dict:
-    """csrc/mg.cu ``var_plan`` of K11 (``res``) or K12: the owned tile ix ×
+def plan(gs, dtype, res: str) -> dict:
+    """csrc/mg.cu ``var_plan`` of the march in mode ``res``: the owned tile ix ×
     iy, its window's row stride wx and plane points wyx, xt × yt plane
     tiles, the pencil axis of np points at stride pstride in pt pencils of
     P, threads a block."""
     P = pencil(len(gs), dtype, res)
     if len(gs) == 2:
         ny, nx = gs
-        xt = -(-nx // SEG[res])
+        xt = -(-nx // seg(res))
         ix = -(-nx // xt)
         p = dict(ix=ix, iy=1, wx=ix + 2, wyx=ix + 2, xt=xt, yt=1, np=ny,
                  pstride=nx)
@@ -73,10 +83,13 @@ def plan(gs, dtype, res: bool) -> dict:
     return p
 
 
-def smem_bytes(gs, dtype, res: bool, ntaps: int) -> int:
-    """csrc/mg.cu ``var_stencil_bytes``: x's two window buffers of P + 2
-    points along the pencil at the constant stride, and the weights' tile
-    of P × iy × ix points a tap where they are not in registers."""
+def smem_bytes(gs, dtype, res: str, ntaps: int) -> int:
+    """csrc/mg.cu ``var_stencil_bytes``: the field's two window buffers of
+    P + 2 points along the pencil at the constant stride, and the weights'
+    tile of P × iy × ix points a tap where they are not in registers; K10's
+    first step from 0 (no Op) none."""
+    if res == "first_zero":
+        return 0
     p = plan(gs, dtype, res)
     tile = 0 if ntaps <= REG_TAPS else ntaps
     return (2 * (p["P"] + 2) * stride(len(gs), res)
@@ -84,7 +97,7 @@ def smem_bytes(gs, dtype, res: bool, ntaps: int) -> int:
                                                     // 8)
 
 
-def columns(gs, dtype, res: bool, tile: int, pen: int):
+def columns(gs, dtype, res: str, tile: int, pen: int):
     """csrc/mg.cu ``var_column`` for every thread of block (tile, pencil
     ``pen``):
     {thread: (window plane position, plane grid (y, x), loaded rows (pencil
@@ -114,16 +127,17 @@ def columns(gs, dtype, res: bool, tile: int, pen: int):
     return loads, outs, p0
 
 
-def chunk_of(T: int, gs, dtype, res: bool, ntaps: int, resident: int) -> int:
+def chunk_of(T: int, gs, dtype, res: str, ntaps: int, resident: int,
+             last: bool = False) -> int:
     """``VarMSKernelLevel._var_stencil_chunk`` with ``resident`` blocks an
     SM (the card's occupancy; ``tools.fused_ab --var-stencil`` prints
     it)."""
     p = plan(gs, dtype, res)
     return var_stencil_chunk(T, res, ntaps, resident,
-                             p["xt"] * p["yt"] * p["pt"], SMS)
+                             p["xt"] * p["yt"] * p["pt"], SMS, last)
 
 
-@pytest.mark.parametrize("res", RES, ids=["K11", "K12"])
+@pytest.mark.parametrize("res", TILED, ids=TILED_IDS)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_var_plan_covers_each_point_once(dtype, res):
     for T, gs in SHAPES:
@@ -139,15 +153,18 @@ def test_var_plan_covers_each_point_once(dtype, res):
                     else:
                         seen[q, gx] += 1
         assert (seen == 1).all(), (gs, dtype)
-        for ntaps, resident in itertools.product((7, 15), (1, 2, 4)):
-            chunk = chunk_of(T, gs, dtype, res, ntaps, resident)
+        modes = (("first", "first_zero", "step", "first_two")
+                 if res == "step" else (res,))
+        for mode, ntaps, resident, last in itertools.product(
+                modes, (7, 15), (1, 2, 4), (False, True)):
+            chunk = chunk_of(T, gs, dtype, mode, ntaps, resident, last)
             assert 1 <= chunk <= T
             rows = [t for c in range(-(-T // chunk))
                     for t in range(c * chunk, min(c * chunk + chunk, T))]
             assert rows == list(range(T)), (gs, chunk)
 
 
-@pytest.mark.parametrize("res", RES, ids=["K11", "K12"])
+@pytest.mark.parametrize("res", TILED, ids=TILED_IDS)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_var_windows_lie_in_the_grid_or_its_ghost(dtype, res):
     """Every tap (±1 on each axis) of a block's output points reads its
@@ -188,12 +205,12 @@ def test_var_windows_lie_in_the_grid_or_its_ghost(dtype, res):
 
 
 def test_var_smem_fits_at_every_width():
-    """x's buffers and, past seven A taps, the weights' tile at the most taps
-    a table may have fit a block at every row width (every segment count),
-    and the solves' 3-D levels hold two blocks an SM (the shared tile of
-    15 taps) by shared memory."""
+    """The field's buffers and, past seven A taps, the weights' tile at the
+    most taps a table may have fit a block at every row width (every
+    segment count) in every mode, and the solves' 3-D levels hold two
+    blocks an SM (the shared tile of 15 taps) by shared memory."""
     for dtype, res in itertools.product(DTYPES, RES):
-        for nx in range(1, 4 * SEG[res] + 2):
+        for nx in range(1, 4 * seg(res) + 2):
             for ntaps in (REG_TAPS, CAP[2]):
                 assert smem_bytes((1, nx), dtype, res, ntaps) <= (
                     SMEM_PER_BLOCK)
@@ -202,15 +219,20 @@ def test_var_smem_fits_at_every_width():
                 SMEM_PER_BLOCK)
         assert 2 * smem_bytes((33, 63, 63), dtype, res, 15) <= 228 * 1024
     f32, f64 = DTYPES
-    assert smem_bytes((511, 511), f32, True, 7) == 12_288
-    assert smem_bytes((511, 511), f32, False, 7) == 27_648
-    assert smem_bytes((511, 511), f64, False, 9) == 202_464
-    assert smem_bytes((63, 63, 63), f32, True, 15) == 41_600
-    assert smem_bytes((63, 63, 63), f64, True, 15) == 83_200
-    assert plan((1, 511), f32, True)["threads"] == 192
-    assert plan((1, 511), f32, False)["threads"] == 544
-    assert plan((1, 1985), f32, True)["xt"] == 8
-    assert plan((1, 575), f64, False)["ix"] == 288
+    assert smem_bytes((511, 511), f32, "residual", 7) == 12_288
+    assert smem_bytes((511, 511), f32, "apply", 7) == 27_648
+    assert smem_bytes((511, 511), f64, "apply", 9) == 202_464
+    assert smem_bytes((63, 63, 63), f32, "residual", 15) == 41_600
+    assert smem_bytes((63, 63, 63), f64, "residual", 15) == 83_200
+    assert plan((1, 511), f32, "residual")["threads"] == 192
+    assert plan((1, 511), f32, "apply")["threads"] == 544
+    assert plan((1, 1985), f32, "residual")["xt"] == 8
+    assert plan((1, 575), f64, "apply")["ix"] == 288
+    # K10's steps take K11's tiles; the first from 0 no shared memory
+    for mode in ("first", "step", "first_two"):
+        assert smem_bytes((511, 511), f32, mode, 7) == 12_288
+        assert smem_bytes((63, 63, 63), f64, mode, 15) == 83_200
+    assert smem_bytes((511, 511), f64, "first_zero", 7) == 0
 
 
 def test_var_chunks_of_the_solves():
@@ -219,57 +241,110 @@ def test_var_chunks_of_the_solves():
     128 pencils of 4 rows) walk a quarter of the rows at the four blocks
     an SM the H100 held, and the whole column at 127³."""
     for (T, gs), dtype, resident, res in itertools.product(
-            SHAPES, DTYPES, (1, 2, 4), (True, False)):
+            SHAPES, DTYPES, (1, 2, 4), RES):
         ntaps = 7 if len(gs) == 2 else 15
         chunk = chunk_of(T, gs, dtype, res, ntaps, resident)
         p = plan(gs, dtype, res)
         tiles = p["xt"] * p["yt"] * p["pt"]
         assert tiles * -(-T // chunk) >= min(2 * SMS, T * tiles), (gs, chunk)
-    assert chunk_of(129, (511, 511), torch.float32, True, 7, 4) == 33
-    assert chunk_of(33, (127,) * 3, torch.float32, True, 15, 2) == 33
-    assert chunk_of(33, (63,) * 3, torch.float32, True, 15, 2) == 33
+    assert chunk_of(129, (511, 511), torch.float32, "residual", 7, 4) == 33
+    assert chunk_of(33, (127,) * 3, torch.float32, "residual", 15, 2) == 33
+    assert chunk_of(33, (63,) * 3, torch.float32, "residual", 15, 2) == 33
 
 
 @pytest.mark.cuda
 def test_var_plan_is_the_librarys():
     """This file's plan is the library's (csrc/mg.cu
     ``mg_var_stencil_occupancy``): shared bytes, threads and blocks a chunk
-    of K11 and K12 at every shape checked here, in both homes of the
-    weights; a table past the cap is refused."""
+    of K11, K12 and K10's steps at every shape checked here, in both homes
+    of the weights; a table past the cap is refused."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     from spacetime_tpu_torch.ops import native
 
     lib = native.LIB.get()
-    for (_, gs), res, dtype in itertools.product(SHAPES, (0, 1), DTYPES):
+    for (_, gs), res, dtype in itertools.product(SHAPES, RES, DTYPES):
         zyx = (1,) * (3 - len(gs)) + gs
         for ntaps in (REG_TAPS, CAP[len(gs)], CAP[len(gs)] + 1):
             out = [ctypes.c_int() for _ in range(4)]
             err = lib.mg_var_stencil_occupancy(
-                res, len(gs), int(dtype == torch.float64), ntaps, *zyx,
+                VAR_MODES[res], len(gs), int(dtype == torch.float64), ntaps,
+                *zyx,
                 *map(ctypes.byref, out))
             if ntaps > CAP[len(gs)]:
                 assert err != 0
                 continue
             native.check(lib, "mg_var_stencil_occupancy", err)
-            p = plan(gs, dtype, bool(res))
+            p = plan(gs, dtype, res)
             assert tuple(o.value for o in out[1:]) == (
-                smem_bytes(gs, dtype, bool(res), ntaps), p["threads"],
+                smem_bytes(gs, dtype, res, ntaps), p["threads"],
                 p["xt"] * p["yt"] * p["pt"]), (gs, res, ntaps)
             assert out[0].value >= 1
 
 
-def test_var_stencil_emulated_against_the_twins():
-    """csrc/mg.cu compiled for the CPU (``tools.cpu_emulate``): K11 and K12
-    in float32 and float64 on a row of two segments and a ragged 3-D grid
-    of several tiles and pencils, the weights in both homes (the varcoef
-    tables and ``OTHER_TAPS``), every chunk, against their twins."""
+@pytest.fixture(scope="module")
+def emulated():
+    """csrc/mg.cu compiled for the CPU by ``tools.cpu_emulate``."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to compile the emulated kernels")
     from spacetime_tpu_torch.tools import cpu_emulate
 
+    return cpu_emulate.build_var_stencil("test_var_stencil")
+
+
+def test_var_stencil_emulated_against_the_twins(emulated):
+    """csrc/mg.cu compiled for the CPU (``tools.cpu_emulate``): K11 and K12
+    in float32 and float64 on a row of two segments and a ragged 3-D grid
+    of several tiles and pencils, the weights in both homes (the varcoef
+    tables and ``OTHER_TAPS``), every chunk, against their twins."""
+    from spacetime_tpu_torch.tools import cpu_emulate
+
     n = cpu_emulate.check_var_stencil(
-        cpu_emulate.build_var_stencil("test_var_stencil"), None,
-        shapes=[(2, (9, 1055)), (3, (5, 17, 35))])
+        emulated, None, shapes=[(2, (9, 1055)), (3, (5, 17, 35))])
     # per dtype and table: 2 + 3 chunks, K11 and K12
     assert n == 2 * 2 * 2 * (2 + 3)
+
+
+def test_var_sweep_emulated_against_the_twins(emulated):
+    """The steps of K10 (csrc/mg.cu ``mg_smooth_var``, emulated) as the
+    wrapper launches them (``chebyshev_launches``): sweeps of ν = 1 and 3
+    from x and from 0, float32 and float64, on a row of two segments and a
+    ragged 3-D grid, the weights in both homes, every chunk, against the
+    twin ``smooth_plain``."""
+    from spacetime_tpu_torch.tools import cpu_emulate
+
+    n = cpu_emulate.check_var_sweep(
+        emulated, None, shapes=[(2, (9, 1055)), (3, (5, 17, 35))],
+        nus={2: (1, 3), 3: (1, 3)})
+    # per dtype and table at 2 + 3 chunks: from x ν = 1 and 3 (4 launches),
+    # from 0 1 and 2 (the first two steps one launch)
+    assert n == 2 * 2 * (4 + 3) * (2 + 3)
+
+
+def test_var_sweep_refuses_a_far_table(emulated):
+    """A table the march cannot take (a tap two cells out) returns
+    cudaErrorInvalidValue from every step mode, as from K11 (the wrapper's
+    ``native.check`` raises on any non-zero return)."""
+    import types
+
+    from spacetime_tpu_torch.ops.mg_kernels import VarMSKernelLevel
+    from spacetime_tpu_torch.ops.stencil import VarStencilOperator
+    from spacetime_tpu_torch.tools import cpu_emulate
+
+    lev, _, _ = cpu_emulate.var_levels(2, (5, 9))[0]
+    disps = ((0, 0), (0, 2))
+    far = types.SimpleNamespace(
+        A_vs=VarStencilOperator(disps, (5, 9)), gs=(5, 9), kc=0, cM=lev.cM,
+        M_st=lev.M_st)
+    kl = VarMSKernelLevel(far, 2)
+    x = torch.zeros((2, 5, 9))
+    W = torch.ones((2, 5, 9))
+    cols = {k: torch.ones(2) for k in kl._COLS}
+    cp = [cols[k].data_ptr() for k in kl._COLS]
+    for first, xp, din in ((1, x.data_ptr(), None), (1, None, None),
+                           (0, None, x.data_ptr())):
+        err = emulated.mg_smooth_var_f32(
+            xp, x.data_ptr(), W.data_ptr(), *cp, x.data_ptr(), din,
+            x.data_ptr(), x.data_ptr(), 2, *kl._zyx(), *kl._tables(), first,
+            0.5, 0.5, 0, 1, None)
+        assert err == 1, (first, xp, din)  # cudaErrorInvalidValue

@@ -130,8 +130,9 @@ def test_loads_equal_jax():
 
 @pytest.fixture(scope="module")
 def twin_cases(hierarchies):
-    """(JAX results, port results) of K11, K12, K14 and K15 per (dtype, grid,
-    ν), T = 5, on the weights of the finest level cut to the grid."""
+    """(JAX results, port results) of K10 (from x and from 0), K11, K12,
+    K14 and K15 per (dtype, grid, ν), T = 5, on the weights of the finest
+    level cut to the grid; at ν = 1 (no fused stage) K10, K11 and K12."""
     (jm, _), (pm, _) = hierarchies
     jlev, plev = jm.levels[0], pm.levels[0]
     cache = {}
@@ -162,52 +163,77 @@ def twin_cases(hierarchies):
             want = {
                 "residual": J(b) - jm._op(lev, lp, J(x)),
                 "apply_A": lev.A_vs.apply(J(x), J(W)),
-                "fused_pre_x": jx,
-                "fused_pre_rc": jmg._transfer_fast(
-                    J(b) - jm._op(lev, lp, jx), 2, restrict=True),
-                "fused_post": jm._smooth(
-                    lev, lp, J(x) + jmg._transfer_fast(J(ec), 2,
-                                                       restrict=False),
-                    J(b), nu=nu),
+                "smooth": jm._smooth(lev, lp, J(x), J(b), nu=nu),
+                "smooth_zero": jx,
             }
+            if nu > 1:
+                want.update({
+                    "fused_pre_x": jx,
+                    "fused_pre_rc": jmg._transfer_fast(
+                        J(b) - jm._op(lev, lp, jx), 2, restrict=True),
+                    "fused_post": jm._smooth(
+                        lev, lp, J(x) + jmg._transfer_fast(J(ec), 2,
+                                                           restrict=False),
+                        J(b), nu=nu),
+                })
         else:  # the Pallas kernels in interpret mode
             pj = VarMSPallasLevel(lev, T, jdt, nu, interpret=True)
             cols = VarMSPallasLevel.columns(jlev, omega, jdt)
-            tx = pj.transfers(jdt)
-            jx, jrc = pj.fused_pre(J(b), cols, tx, J(W))
             want = {
                 "residual": pj.residual(J(x), J(b), cols, J(W)),
                 "apply_A": pj.apply_A(J(x), J(W)),
-                "fused_pre_x": jx,
-                "fused_pre_rc": jrc,
-                "fused_post": pj.fused_post(J(x), J(b), J(ec), cols, tx, J(W)),
+                "smooth": pj.smooth(J(x), J(b), cols, J(W)),
+                "smooth_zero": pj.smooth(None, J(b), cols, J(W),
+                                         zero_init=True),
             }
+            if nu > 1:
+                tx = pj.transfers(jdt)
+                jx, jrc = pj.fused_pre(J(b), cols, tx, J(W))
+                want.update({
+                    "fused_pre_x": jx,
+                    "fused_pre_rc": jrc,
+                    "fused_post": pj.fused_post(J(x), J(b), J(ec), cols, tx,
+                                                J(W)),
+                })
         P = lambda a: torch.tensor(a, dtype=tdt)
         kl = VarMSKernelLevel(plev, nu, gs=gs)
-        assert kl.fused_ok
+        assert kl.fused_ok == (nu > 1)
         tc = {"omega": P(omega), "invT": P(invT), "invDel": P(invDel)}
-        px, prc = kl.fused_pre(P(b), tc, P(W))
         got = {
             "residual": kl.residual(P(x), P(b), tc, P(W)),
             "apply_A": kl.apply_A(P(x), P(W)),
-            "fused_pre_x": px,
-            "fused_pre_rc": prc,
-            "fused_post": kl.fused_post(P(x), P(b), P(ec), tc, P(W)),
+            "smooth": kl.smooth(P(x), P(b), tc, P(W)),
+            "smooth_zero": kl.smooth(None, P(b), tc, P(W), zero_init=True),
         }
+        if nu > 1:
+            px, prc = kl.fused_pre(P(b), tc, P(W))
+            got.update({
+                "fused_pre_x": px,
+                "fused_pre_rc": prc,
+                "fused_post": kl.fused_post(P(x), P(b), P(ec), tc, P(W)),
+            })
         cache[key] = (want, got)
         return cache[key]
 
     return run
 
 
-@pytest.mark.parametrize("nu", [2, 3])
-@pytest.mark.parametrize("gs", [(15, 15), (15, 31), (31, 31)],
-                         ids=["15x15", "15x31", "31x31"])
-@pytest.mark.parametrize("dt", ["f64", "f32"])
-@pytest.mark.parametrize("op", ["residual", "apply_A", "fused_pre_x",
-                                "fused_pre_rc", "fused_post"])
-def test_var_twin_matches_jax(twin_cases, op, dt, gs, nu):
-    want, got = twin_cases(dt, gs, nu)
+TWIN_GRIDS = {"15x15": (15, 15), "15x31": (15, 31), "31x31": (31, 31)}
+# (op, dtype, grid, ν): the fused stages' ν ∈ {2, 3} for K11, K12, K14 and
+# K15; K10 (the JAX package's ``VarMSPallasLevel.smooth`` in f32, ``_smooth``
+# in f64) at ν ∈ {1, 2, 3}
+TWIN_CASES = [
+    (op, dt, grid, nu)
+    for op in ("residual", "apply_A", "fused_pre_x", "fused_pre_rc",
+               "fused_post", "smooth", "smooth_zero")
+    for dt in ("f64", "f32") for grid in TWIN_GRIDS
+    for nu in ((1, 2, 3) if op.startswith("smooth") else (2, 3))]
+
+
+@pytest.mark.parametrize("op, dt, grid, nu", TWIN_CASES,
+                         ids=["-".join(map(str, c)) for c in TWIN_CASES])
+def test_var_twin_matches_jax(twin_cases, op, dt, grid, nu):
+    want, got = twin_cases(dt, TWIN_GRIDS[grid], nu)
     assert got[op].dtype == DTYPES[dt][1]
     transfer = op in ("fused_pre_rc", "fused_post")
     rel = 1e-12 if dt == "f64" else (1e-4 if transfer else 1e-5)
